@@ -1,0 +1,16 @@
+"""Acceptance tables.
+
+Port of the part of ``cuda_fortran_mc_simulation_spin_tpu/core/tables.py``
+that the 2-D Ising model needs.  The reference precomputes
+exp(-β·ΔE) in a lookup table; for 2-D Ising ΔE ∈ {-8, -4, 0, 4, 8} and
+only ΔE = 4 and 8 can reject, so the table collapses to two numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def ising2d_accept_probs(beta: float) -> tuple[float, float]:
+    """(exp(-4β), exp(-8β)): acceptance of the ΔE = 4 and 8 moves."""
+    return (float(np.exp(-4.0 * beta)), float(np.exp(-8.0 * beta)))

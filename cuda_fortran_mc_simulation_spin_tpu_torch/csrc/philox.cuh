@@ -1,0 +1,51 @@
+// Philox4x32-10 counter-based generator (Salmon et al., SC'11), the
+// in-kernel generator of the bit-packed engines.  Bitwise the same
+// function as core/rng.philox4x32 (which the CPU tests hold against
+// Random123's known-answer vectors).
+#pragma once
+#include <cstdint>
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  constexpr uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += W0;
+      k.y += W1;
+    }
+    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
+    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// Successive random words of one packed word position: draw n is word
+// n % 4 of Philox4x32-10 at counter (rep, wrow, col, n / 4) under the
+// phase key.  The plain version is ops/multispin_rng.granule_planes.
+struct WordStream {
+  uint4 ctr;
+  uint2 key;
+  uint4 buf;
+  int used;
+
+  __device__ __forceinline__ WordStream(uint32_t rep, uint32_t wrow,
+                                        uint32_t col, uint2 k)
+      : ctr(make_uint4(rep, wrow, col, 0u)), key(k),
+        buf(make_uint4(0u, 0u, 0u, 0u)), used(4) {}
+
+  __device__ __forceinline__ uint32_t next() {
+    if (used == 4) {
+      buf = philox4x32_10(ctr, key);
+      ctr.w += 1u;
+      used = 0;
+    }
+    const uint32_t v = used == 0 ? buf.x
+                       : used == 1 ? buf.y
+                       : used == 2 ? buf.z
+                                   : buf.w;
+    ++used;
+    return v;
+  }
+};

@@ -1,0 +1,201 @@
+"""NER protocols: the relaxation protocol of the 2-D Ising model.
+
+Port of the relaxation path of
+``cuda_fortran_mc_simulation_spin_tpu/engine/protocols.py``: per-sample
+initial states, the sweep/measure runner, host-side Kahan aggregation,
+and the reference-format ``.dat`` table on ``out`` with progress on
+``err`` (stdout = dataset, stderr = progress).  The port serves the
+bit-packed multispin route; every other route of the JAX package (other
+models, protocols, over-relaxation, unpackable shapes, meshes) raises
+NotImplementedError naming the ROADMAP.md item that ports it, and never
+falls back.
+
+Checkpoint/resume: pass ``checkpoint_path``; accumulators are saved
+every ``checkpoint_every`` histories and runs resume exactly
+(io/checkpoint.py).
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import IO
+
+import numpy as np
+
+from cuda_fortran_mc_simulation_spin_tpu_torch.config import (
+    RunConfig,
+    resolve_device,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng, stats
+from cuda_fortran_mc_simulation_spin_tpu_torch.engine import sweep as sweep_mod
+from cuda_fortran_mc_simulation_spin_tpu_torch.io import checkpoint, datfmt
+from cuda_fortran_mc_simulation_spin_tpu_torch.models import build_model
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import ising2d_multispin
+
+
+def _header_fields(cfg: RunConfig, model, extra: dict | None = None
+                   ) -> dict:
+    fields = {
+        "size": model.nsites,
+        "nx, ny": (cfg.nx, cfg.ny) if cfg.model != "ising3d"
+        else (cfg.nx, cfg.ny, cfg.nz),
+        "sample": cfg.tot_sample,
+        "mcs": cfg.mcs,
+        "kbt": cfg.kbt,
+        "initial seed": cfg.seed,
+        "n_skip": cfg.stream,
+    }
+    if cfg.n_over_relax > 0:
+        fields["mcs_over_relax"] = cfg.mcs_over_relax or cfg.mcs
+        fields["n_over_relax"] = cfg.n_over_relax
+    fields["method"] = "Metropolis"
+    if extra:
+        fields.update(extra)
+    return fields
+
+
+def _emit_headers(cfg, model, out, err, extra=None):
+    datfmt.write_header(out, _header_fields(cfg, model, extra))
+    datfmt.write_header(err, _header_fields(cfg, model, extra))
+
+
+def _progress(err: IO[str]):
+    def cb(done, total):
+        err.write(f"Sample: {done} / {total}\n")
+        err.flush()
+    return cb
+
+
+def _filter_times(series: dict, cfg: RunConfig) -> dict:
+    """Keep only the rows at cfg.measure_times (1-based), if set."""
+    if cfg.measure_times is None:
+        return series
+    idx = np.asarray(cfg.measure_times, dtype=np.int64) - 1
+    return {k: np.take(v, idx, axis=-1) for k, v in series.items()}
+
+
+def _series_len(cfg: RunConfig) -> int:
+    return (len(cfg.measure_times) if cfg.measure_times is not None
+            else cfg.mcs)
+
+
+# engine stamped on the most recent run; emitted as a `# engine:` line
+# and a registry field by runs/__main__.py
+LAST_ENGINE: str | None = None
+
+
+def _stamp_engine(runner, err) -> None:
+    global LAST_ENGINE
+    LAST_ENGINE = runner.engine
+    err.write(f"# engine: {LAST_ENGINE}\n")
+
+
+def _ensemble_loop(cfg, runner, fold, err, accs, base, batch, start,
+                   checkpoint_path, checkpoint_every):
+    """Run batches keyed by the global call index, fold them into the
+    accumulators, checkpoint on cadence, and honour the
+    --max-samples-this-run budget (checkpoint + clean stop)."""
+    progress = _progress(err)
+    budget = cfg.max_samples_this_run
+    if budget and not checkpoint_path:
+        raise ValueError(
+            "max_samples_this_run needs --checkpoint (the next "
+            "invocation resumes from it)")
+    done = start
+    for call in range(start // batch, cfg.tot_sample // batch):
+        series = runner(rng.sample_key(base, call))
+        series = {k: v.cpu().numpy().astype(np.float64)
+                  for k, v in series.items()}
+        fold(_filter_times(series, cfg))
+        done = (call + 1) * batch
+        progress(done, cfg.tot_sample)
+        if (checkpoint_path and checkpoint_every
+                and done % checkpoint_every == 0):
+            checkpoint.save(checkpoint_path, cfg, done, accs)
+        if budget and done - start >= budget and done < cfg.tot_sample:
+            err.write(f"# stopping after {done - start} samples this "
+                      f"run ({done} / {cfg.tot_sample} total); resume "
+                      "with the same command\n")
+            break
+    if checkpoint_path:
+        checkpoint.save(checkpoint_path, cfg, done, accs)
+
+
+def _check_route(cfg, model) -> None:
+    """Raise for every route of the JAX package that the port does not
+    serve yet, naming the ROADMAP.md item that ports it.  ``build_model``
+    admits only ising2d, so what is left of the JAX package's
+    ``_multispin_eligible`` is the packable shape."""
+    if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
+        raise NotImplementedError(
+            "multi-device meshes are not ported yet (ROADMAP.md queue A "
+            "item 9)")
+    if cfg.n_over_relax > 0:
+        raise NotImplementedError(
+            "over-relaxation schedules belong to the XY model, not ported "
+            "yet (ROADMAP.md queue A item 8)")
+    if not ising2d_multispin.packable(*model.color_shape):
+        raise NotImplementedError(
+            f"{cfg.nx}x{cfg.ny} is not packable (the multispin route needs "
+            "nx % 256 == 0 and ny % 256 == 0); the int8 phase kernels that "
+            "serve other shapes are not ported yet (ROADMAP.md queue B "
+            "item 13)")
+
+
+def _run_accumulating(cfg, model, accumulators, fold, err,
+                      checkpoint_path=None, checkpoint_every=0,
+                      device="cuda"):
+    """Shared ensemble loop: batch runner + Kahan fold + checkpointing."""
+    base = rng.base_key(cfg.seed, cfg.stream)
+    batch = cfg.replicas * cfg.samples_per_call
+    if cfg.tot_sample % max(batch, 1):
+        raise ValueError("tot_sample must be divisible by the batch size")
+    runner = sweep_mod.make_multispin_runner(
+        model, cfg.mcs, max(batch, 1), cfg.init_state, device=device)
+    _stamp_engine(runner, err)
+    start = 0
+    if checkpoint_path:
+        try:
+            done = checkpoint.load(checkpoint_path, cfg, accumulators)
+            start = (done // batch) * batch
+            err.write(f"# resumed at sample {done}\n")
+        except FileNotFoundError:
+            pass
+    _ensemble_loop(cfg, runner, fold, err, accumulators, base, batch,
+                   start, checkpoint_path, checkpoint_every)
+
+
+def run_relaxation(cfg: RunConfig, out: IO[str] = sys.stdout,
+                   err: IO[str] = sys.stderr,
+                   checkpoint_path: str | None = None,
+                   checkpoint_every: int = 0,
+                   device="cuda") -> stats.VarianceCovarianceKahan:
+    """The reference's ising2d relaxation app: ordered (or random) start,
+    per-sweep m and e, their variances and covariance."""
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    _check_route(cfg, model)
+    _emit_headers(cfg, model, out, err)
+    op = stats.VarianceCovarianceKahan((_series_len(cfg),))
+
+    def fold(series):
+        op.add_data(series["m"], series["e"])
+
+    t0 = time.time()
+    _run_accumulating(cfg, model, {"op": op}, fold, err,
+                      checkpoint_path, checkpoint_every, dev)
+    err.write(f"# elapsed: {time.time() - t0:.3f}s\n")
+    out.write(f"# engine: {LAST_ENGINE}\n")
+    if cfg.measure_times is None:
+        datfmt.write_relaxation_table(out, model.nsites, cfg.mcs, op)
+    else:
+        datfmt.write_specific_times_table(out, model.nsites,
+                                          cfg.measure_times, op)
+    return op
+
+
+# the JAX package's protocols; only relaxation is ported
+PROTOCOL_NAMES = ("finite_magne", "finite_magne_samples", "from_disorder",
+                  "relaxation", "samples")
+PROTOCOLS = {"relaxation": run_relaxation}

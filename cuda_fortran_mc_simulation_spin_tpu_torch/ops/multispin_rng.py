@@ -1,0 +1,48 @@
+"""Random words of the bit-packed engines, keyed by logical coordinates.
+
+Port of ``cuda_fortran_mc_simulation_spin_tpu/ops/multispin_rng.py``.  In
+JAX the words for word rows [8g, 8g+8) of one (sample, t, phase) come
+from the TPU's hardware PRNG seeded by (s0, s1 ^ (wrow_g*K_row +
+rep_g*K_rep)); those bits have no GPU counterpart.  Here every word is
+drawn from Philox4x32-10:
+
+    key     = (s0, s1) of the (sample, t, phase)   (core/rng.seeds_from_key)
+    counter = (replica, word row, column, n // 4)
+    word    = output n % 4                         for draw n = 0, 1, ...
+
+The CUDA kernels evaluate the same function per thread
+(``csrc/philox.cuh`` ``WordStream``); :func:`word_stream` is its plain
+PyTorch version on whole planes.  Because the counter names the word's
+global position, the bits depend on neither the tiling, the host chunking
+nor the kernel, and every run is deterministic.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+
+
+def word_stream(key, nrep: int, nyp: int, half: int,
+                device=None) -> Callable[[], torch.Tensor]:
+    """``gen()`` returning draw 0, 1, ... as (nrep, nyp, half) uint32
+    planes (int64 tensors) under the phase key ``key`` ((2,) uint32)."""
+    key = torch.as_tensor(key, dtype=torch.int64).to(device)
+    r = torch.arange(nrep, dtype=torch.int64, device=device).view(-1, 1, 1)
+    y = torch.arange(nyp, dtype=torch.int64, device=device).view(1, -1, 1)
+    x = torch.arange(half, dtype=torch.int64, device=device).view(1, 1, -1)
+    r, y, x = torch.broadcast_tensors(r, y, x)
+    state = {"n": 0, "buf": None}
+
+    def gen() -> torch.Tensor:
+        n = state["n"]
+        if n % 4 == 0:
+            ctr = torch.stack([r, y, x, torch.full_like(r, n // 4)], dim=-1)
+            state["buf"] = rng.philox4x32(ctr, key)
+        state["n"] = n + 1
+        return state["buf"][..., n % 4]
+
+    return gen

@@ -1,0 +1,175 @@
+"""CLI entry point of the port.
+
+Port of ``cuda_fortran_mc_simulation_spin_tpu/runs/__main__.py``: the same
+flags, plus ``--device {cuda,cpu}`` (default cuda; with no card, cuda
+raises)::
+
+    python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \\
+        --model ising2d --nx 2048 --ny 2048 --kbt 2.26918531421 \\
+        --mcs 1000 --samples 64 --replicas 16 --output ising2d.dat
+
+stdout (or --output) = the dataset; stderr = progress.  --registry
+appends a JSON run record.  --checkpoint enables exact resume.  Flags of
+routes the port does not serve yet (--mesh, --profile-dir, --backend
+other than auto, other models and protocols) raise with the ROADMAP.md
+item that ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+from cuda_fortran_mc_simulation_spin_tpu_torch.config import RunConfig
+from cuda_fortran_mc_simulation_spin_tpu_torch.engine import protocols
+from cuda_fortran_mc_simulation_spin_tpu_torch.io import registry
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        prog="cuda_fortran_mc_simulation_spin_tpu_torch")
+    p.add_argument("--model", default="ising2d",
+                   choices=["ising2d", "ising3d", "clock", "xy2d"])
+    p.add_argument("--protocol", default="relaxation",
+                   choices=protocols.PROTOCOL_NAMES)
+    p.add_argument("--nx", type=int, default=128)
+    p.add_argument("--ny", type=int, default=128)
+    p.add_argument("--nz", type=int, default=1)
+    p.add_argument("--q", type=int, default=6)
+    p.add_argument("--kbt", type=float, default=2.26918531421)
+    p.add_argument("--mcs", type=int, default=100)
+    p.add_argument("--samples", type=int, default=10)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--stream", type=int, default=0,
+                   help="ensemble-split slot (the reference's n_skip)")
+    p.add_argument("--init-state", default="allup",
+                   choices=["allup", "random", "finite_magne",
+                            "small_magne", "near_magne"])
+    p.add_argument("--init-magne", type=float, default=0.02)
+    p.add_argument("--n-over-relax", type=int, default=0)
+    p.add_argument("--mcs-over-relax", type=int, default=0)
+    p.add_argument("--fix1mcs", action="store_true",
+                   help="rotate to x-axis after the first MCS")
+    p.add_argument("--track-correlation", action="store_true",
+                   help="record the two-point correlation at offset "
+                        "(nx/2-1, ny/2-1) (XY disorder protocols)")
+    p.add_argument("--replicas", type=int, default=1)
+    p.add_argument("--samples-per-call", type=int, default=1)
+    p.add_argument("--max-samples-this-run", type=int, default=None,
+                   help="stop after folding this many samples "
+                        "(checkpoint + clean exit; rerun to resume)")
+    p.add_argument("--measure-times", type=int, nargs="*", default=None,
+                   help="specific 1-based sweep times to record")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "jnp", "pallas"])
+    p.add_argument("--output", default=None, help="dataset path (- = stdout)")
+    p.add_argument("--registry", default=None, help="run-registry log path")
+    p.add_argument("--checkpoint", default=None, help="checkpoint path")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--profile-dir", default=None,
+                   help="profiler trace directory (not served by the port)")
+    p.add_argument("--mesh", default=None, metavar="DP,Y[,X]",
+                   help="multi-device mesh (not served by the port)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda (default) runs the CUDA kernels; cpu runs "
+                        "their plain PyTorch versions")
+    return p.parse_args(argv)
+
+
+def _refuse_unserved(a: argparse.Namespace) -> None:
+    if a.mesh:
+        raise NotImplementedError(
+            "--mesh: multi-device runs are not ported yet (ROADMAP.md "
+            "queue A item 9)")
+    if a.profile_dir:
+        raise NotImplementedError(
+            "--profile-dir: the port has no profiler hook yet (ROADMAP.md "
+            "queue A item 10)")
+    if a.backend != "auto":
+        raise NotImplementedError(
+            f"--backend {a.backend}: the port serves one route per shape "
+            "(the CUDA kernels, or their plain versions with --device cpu)")
+    if a.protocol not in protocols.PROTOCOLS:
+        raise NotImplementedError(
+            f"protocol {a.protocol!r} belongs to the XY model, not ported "
+            "yet (ROADMAP.md queue A item 8)")
+
+
+def config_from_args(a: argparse.Namespace) -> RunConfig:
+    return RunConfig(
+        model=a.model, nx=a.nx, ny=a.ny, nz=a.nz, q=a.q, kbt=a.kbt,
+        mcs=a.mcs, tot_sample=a.samples, seed=a.seed, stream=a.stream,
+        init_state=a.init_state, init_magne=a.init_magne,
+        n_over_relax=a.n_over_relax, mcs_over_relax=a.mcs_over_relax,
+        rotate_after_first_mcs=a.fix1mcs,
+        track_correlation=a.track_correlation, replicas=a.replicas,
+        samples_per_call=a.samples_per_call,
+        max_samples_this_run=a.max_samples_this_run,
+        measure_times=a.measure_times,
+    )
+
+
+class _LazyFile:
+    """File that comes into existence on first write(), so that a run cut
+    off before its first byte leaves no empty ``.partial`` behind."""
+
+    def __init__(self, path: str):
+        self._path = path
+        self._f = None
+
+    @property
+    def created(self) -> bool:
+        return self._f is not None
+
+    def write(self, s: str) -> int:
+        if self._f is None:
+            self._f = open(self._path, "w")
+        return self._f.write(s)
+
+    def flush(self) -> None:
+        if self._f is not None:
+            self._f.flush()
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+
+
+def main(argv=None) -> int:
+    a = parse_args(argv)
+    _refuse_unserved(a)
+    cfg = config_from_args(a)
+    protocol = protocols.PROTOCOLS[a.protocol]
+    kwargs = {"device": a.device}
+    if a.checkpoint:
+        kwargs.update(checkpoint_path=a.checkpoint,
+                      checkpoint_every=a.checkpoint_every)
+    protocols.LAST_ENGINE = None
+    t0 = time.time()
+    if a.output and a.output != "-":
+        # atomic dataset write: rows land in <output>.partial and the
+        # final name appears only when the protocol completes
+        tmp = a.output + ".partial"
+        if os.path.exists(tmp) and os.path.getsize(tmp) == 0:
+            os.unlink(tmp)  # stale litter from a killed run
+        out = _LazyFile(tmp)
+        try:
+            protocol(cfg, out=out, err=sys.stderr, **kwargs)
+        finally:
+            out.close()
+        if out.created:
+            os.replace(tmp, a.output)
+    else:
+        protocol(cfg, out=sys.stdout, err=sys.stderr, **kwargs)
+    if a.registry:
+        registry.append(a.registry, cfg, time.time() - t0,
+                        a.output, {"protocol": a.protocol,
+                                   "engine": protocols.LAST_ENGINE,
+                                   "device": a.device})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,27 +2,48 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the 2-D Ising NER relaxation at Tc through
-the CLI, on the card, and holds every kernel of that path against its
-plain PyTorch version.  Phases (each prints a progress line on stderr):
+Drives the port's three relaxation paths through the CLI on the card:
+the periodic 2-D Ising NER relaxation at Tc, the helical 2-D one at the
+reference's 1001x1000 geometry, and the periodic 3-D one at 512^3; and
+holds every kernel of those paths against its plain PyTorch version.
+Phases (each prints a progress line on stderr):
 
-1. build the CUDA sources (csrc/*.cu) from scratch with nvcc;
-2. kernel = plain version, bitwise, at 1024^2 x 4 replicas and at the
-   main path's shapes: the phase kernel with injected bits, with Philox
-   bits and with the fused exact (m, e); the multisweep kernel over 64
-   sweeps against 64 phase-kernel pairs and against its plain version;
-   then <m>, <e> after one sweep from all-up over 2.7e10 sites against
-   their exact values;
-3. main path, resident class: 2048^2, 16 replicas, 64 samples, 1000 MCS
-   through the multisweep kernel;
-4. main path, streaming class: 8192^2, 4 replicas, 4 samples, 200 MCS
-   through the measuring phase kernel;
-   both checked against data/production/ising2d_1001x1000_mcs1000_s1440000.dat
-   within 5 standard errors of the port's mean;
+1. build the CUDA sources (csrc/*.cu) from scratch with nvcc, all at once;
+2. kernel = plain version, bitwise:
+   - 2-D, at 1024^2 x 4 and the main path's shapes: the phase kernel with
+     injected bits, Philox bits and the fused exact (m, e); the multisweep
+     kernel over 64 sweeps against 64 phase-kernel pairs and its plain
+     version;
+   - helical, at 131x62 (a partial last word) and 1001x1000 x 4: the
+     injected-bits mode on the valid bits; 64 sweeps against 64 one-sweep
+     launches and the plain version; the fused (m, e) against the exact
+     sums of the unpacked state, staged in shared memory (1001x1000) and
+     in device memory (2001x2000, over the shared memory);
+   - 3-D, at 256x256x8 x 2 and 512^3 x 8: the phase kernel with injected
+     bits, Philox bits and the fused (m, e) (also against the exact sums);
+     the multisweep kernel over 64 sweeps (the runner's chunk) at 256^3 x
+     4 against 64 phase-kernel pairs and its plain version;
+2b. <m>, <e> after one sweep from all-up against their closed forms for
+   the chains' quantized acceptances, over >= 1e10 sites per path;
+3. 2-D resident class: 2048^2, 16 replicas, 64 samples, 1000 MCS through
+   the multisweep kernel;
+4. 2-D streaming class: 8192^2, 4 replicas, 4 samples, 200 MCS through
+   the measuring phase kernel; both against
+   data/production/ising2d_1001x1000_mcs1000_s1440000.dat within 5
+   standard errors of the port's mean;
+3c. helical: 1001x1000, 128 replicas, 256 samples, 1000 MCS through the
+   helical multisweep kernel, against the same curve (the same geometry);
+4b. 3-D streaming class: 512^3, 8 replicas, 8 samples, 1000 MCS through
+   the measuring 3-D phase kernel; 3-D resident class: 256^3, 4 replicas,
+   16 samples, 200 MCS through the 3-D multisweep kernel; both against
+   data/production/ising3d_512_mcs1000_s1024.dat within 5 combined
+   standard errors (the reference has only 1024 samples);
 5. times with CUDA events, beside each kernel's bound and its plain
-   version's time; then the runner's two routes (one multisweep launch
-   per S sweeps, or S streamed phase pairs) at the main path's shapes
-   and between them.
+   version's time, at the main paths' launch shapes (the helical kernel
+   at 128 x 1001x1000, S = 64); the kernel's output there is held against
+   the plain version's, bitwise, too; then each runner's two routes (one
+   multisweep launch per S sweeps, or S streamed phase pairs) at and
+   between the paths' shapes.
 
 It prints the kernels' JSON line, the card's `nvidia-smi` name and power
 limit, and last the device line.  It exits non-zero, printing no result,
@@ -43,9 +64,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-REFERENCE_DAT = (ROOT / "data" / "production"
-                 / "ising2d_1001x1000_mcs1000_s1440000.dat")
+PRODUCTION = ROOT / "data" / "production"
+REFERENCE_DAT = PRODUCTION / "ising2d_1001x1000_mcs1000_s1440000.dat"
+REFERENCE_3D_DAT = PRODUCTION / "ising3d_512_mcs1000_s1024.dat"
 KBT = 2.26918531421
+KBT_3D = 4.51152
 SIGMAS = 5.0
 # H100 SXM peaks at 700 W.  HBM3 bytes/s: NVIDIA data sheet.  32-bit
 # integer instructions/s: an assumption, the SMs' issue limit of 132 SMs
@@ -60,11 +83,16 @@ PEAK_INT32_OPS_S = 132 * 128 * 1.98e9
 # minimum 32-bit instructions per word and phase: a Philox4x32-10 call
 # is 10 rounds of 2 wide multiplies (hi and lo at once) and 2 three-input
 # xors, plus 9 key bumps of 2 adds; the Bernoulli chains fold two words
-# per three-input logic op; the stencil, count and flip are 24 logic ops;
-# the fused (m, e) adds 7 popcounts and 9 integer adds
+# per three-input logic op; the 2-D stencil, count and flip are 24 logic
+# ops, the helical one 8 more (4 funnel shifts, 4 wrap selects), the 3-D
+# one 40 (6:3 count, 3 chains' flip); the fused (m, e) adds 7 popcounts
+# and 9 integer adds (6 more masks for the helical pad bits)
 OPS_PER_PHILOX = 10 * 4 + 9 * 2
 OPS_STENCIL_FLIP = 24
+OPS_HELICAL_SHIFTS = 8
+OPS_STENCIL_FLIP_3D = 40
 OPS_MEASURE = 16
+OPS_HELICAL_MASKS = 6
 
 T0 = time.perf_counter()
 
@@ -86,12 +114,25 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def chain_ops(msb, qs) -> int:
+    """Minimum instructions of the Bernoulli chains of digits ``qs``."""
+    draws = sum(msb.chain_draws(q) for q in qs)
+    return math.ceil(draws / 4) * OPS_PER_PHILOX + math.ceil(draws / 2)
+
+
 def phase_ops_per_word(msb, beta: float, measuring: bool) -> int:
-    q4, q8 = msb.chain_words(beta)
-    draws = msb.chain_draws(q4) + msb.chain_draws(q8)
-    ops = (math.ceil(draws / 4) * OPS_PER_PHILOX + math.ceil(draws / 2)
-           + OPS_STENCIL_FLIP)
-    return ops + (OPS_MEASURE if measuring else 0)
+    return (chain_ops(msb, msb.chain_words(beta)) + OPS_STENCIL_FLIP
+            + (OPS_MEASURE if measuring else 0))
+
+
+def helical_phase_ops_per_word(msb, beta: float, measuring: bool) -> int:
+    return (phase_ops_per_word(msb, beta, measuring) + OPS_HELICAL_SHIFTS
+            + (OPS_HELICAL_MASKS if measuring else 0))
+
+
+def phase3d_ops_per_word(msb, ms3, beta: float, measuring: bool) -> int:
+    return (chain_ops(msb, ms3.chain_words3d(beta)) + OPS_STENCIL_FLIP_3D
+            + (OPS_MEASURE if measuring else 0))
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -114,11 +155,31 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def random_planes(shape, seed: int, dev) -> list[torch.Tensor]:
+def time_kernel(label: str, flips: int, fn, plain, nbytes: float,
+                ops: float, reps: int, plain_reps: int,
+                view=lambda out: out) -> tuple[dict, int]:
+    """CUDA-event time of a kernel's wrapper and of its plain version on
+    the same inputs, beside the kernel's bound; ``flips`` is the flip
+    attempts of one call.  Also the largest absolute difference between
+    the two calls' outputs (the tensors ``view`` picks from each)."""
+    last = {}
+    ms = cuda_time_ms(lambda: last.__setitem__("kernel", fn()), reps=reps)
+    plain_ms = cuda_time_ms(lambda: last.__setitem__("plain", plain()),
+                            reps=plain_reps, warmup=plain_reps - 1)
+    err = max_abs_err(zip(view(last["kernel"]), view(last["plain"])))
+    bound, by = bound_ms(nbytes, ops)
+    log(f"  {label}: {ms:.4f} ms/launch ({flips / ms * 1e3:.4g} flip "
+        f"attempts/s), plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); "
+        f"vs plain {err}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}, err
+
+
+def random_words(shape, seed: int, dev, n: int = 4) -> list[torch.Tensor]:
     g = np.random.default_rng(seed)
     return [torch.from_numpy(g.integers(-2 ** 31, 2 ** 31, size=shape,
                                         dtype=np.int64).astype(np.int32)
-                             ).to(dev) for _ in range(4)]
+                             ).to(dev) for _ in range(n)]
 
 
 def max_abs_err(pairs) -> int:
@@ -132,15 +193,16 @@ def max_abs_err(pairs) -> int:
 
 
 def check_kernels(msb, rng, dev, shapes) -> dict[str, int]:
-    """Kernel vs plain version on the same CUDA tensors, bitwise; returns
-    the largest absolute difference seen per kernel (0 when equal)."""
+    """2-D kernel vs plain version on the same CUDA tensors, bitwise;
+    returns the largest absolute difference seen per kernel (0 when
+    equal)."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.models import Ising2D
 
     beta = 1.0 / KBT
     errs = {"phase": 0, "multisweep": 0}
     for nrep, ny, nx, sweeps in shapes:
         shape = (nrep, ny // 32, nx // 2)
-        x, o, b4, b8 = random_planes(shape, seed=ny + nrep, dev=dev)
+        x, o, b4, b8 = random_words(shape, ny + nrep, dev)
         key = rng.sample_key(rng.base_key(7), ny)
         seeds = msb.sweep_seed_pairs(key, sweeps)
         for color in (0, 1):
@@ -194,11 +256,173 @@ def check_kernels(msb, rng, dev, shapes) -> dict[str, int]:
     return errs
 
 
+def helical_exact(model, hms, wa, wb) -> torch.Tensor:
+    """(R, 2) exact (m, e) sums of the unpacked helical state."""
+    m = model.nsites // 2
+    flat = hms.merge_flat(hms.unpack_flat(wa, m), hms.unpack_flat(wb, m))
+    return torch.stack([model.magne_sum(flat), model.energy_sum(flat)], -1)
+
+
+def check_helical(hms, rng, dev) -> int:
+    """Helical multisweep kernel vs its plain version, bitwise on the
+    valid bits; returns the largest absolute difference seen."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Ising2DHelical,
+    )
+
+    beta = 1.0 / KBT
+    err = 0
+
+    def valid(w, m):
+        return hms._u32(w) & hms.valid_mask(m, dev)
+
+    for nrep, nx, ny in ((2, 131, 62), (4, 1001, 1000)):
+        m = nx * ny // 2
+        x, o, b4, b8 = random_words((nrep, hms.words(m)), nx, dev)
+        for color, offs in enumerate(hms.helical_offsets(nx)):
+            e = max_abs_err([(
+                valid(hms.phase_packed_with_bits(x, o, b4, b8, offs=offs,
+                                                 m=m), m),
+                valid(hms.packed_helical_phase_reference(x, o, offs, b4, b8,
+                                                         m), m))])
+            err = max(err, e)
+            log(f"  helical bits mode {nrep}x{nx}x{ny} (M {m}, "
+                f"{m % 32 or 32} bits in the last word) colour {color}: {e}")
+    # 64 sweeps: one launch, 64 one-sweep launches, the plain version,
+    # and the exact sums of the final state
+    nx, ny, nrep, sweeps = 1001, 1000, 4, 64
+    model = Ising2DHelical(nx, ny, KBT)
+    m = model.nsites // 2
+    wa, wb = random_words((nrep, hms.words(m)), 5, dev, n=2)
+    seeds = hms.sweep_seed_pairs(rng.sample_key(rng.base_key(9), 1), sweeps)
+    kw = dict(beta=beta, nx=nx, m=m)
+    ka, kb, kobs = hms.multisweep_planes(wa, wb, seeds, **kw)
+    sa, sb, sobs = wa, wb, []
+    for s in range(sweeps):
+        sa, sb, o = hms.multisweep_planes(sa, sb, seeds[s:s + 1], **kw)
+        sobs.append(o)
+    e_single = max_abs_err([(valid(ka, m), valid(sa, m)),
+                            (valid(kb, m), valid(sb, m)),
+                            (kobs, torch.cat(sobs, dim=1))])
+    pa, pb, pobs = hms.multisweep_plain(wa, wb, seeds, **kw)
+    e_plain = max_abs_err([(valid(ka, m), valid(pa, m)),
+                           (valid(kb, m), valid(pb, m)), (kobs, pobs)])
+    e_exact = max_abs_err([(kobs[:, -1], helical_exact(model, hms, ka, kb))])
+    log(f"  helical multisweep {nrep}x{nx}x{ny} S={sweeps} (staged "
+        f"{hms.staged_fits(hms.words(m), dev)}): vs {sweeps} one-sweep "
+        f"launches {e_single}, vs plain {e_plain}, (m, e) vs exact sums "
+        f"{e_exact}")
+    err = max(err, e_single, e_plain, e_exact)
+    # above the shared memory: the device-memory variant
+    nx, ny, nrep, sweeps = 2001, 2000, 2, 4
+    model = Ising2DHelical(nx, ny, KBT)
+    m = model.nsites // 2
+    if hms.staged_fits(hms.words(m), dev):
+        fail(f"{nx}x{ny} fits the shared memory: the device-memory "
+             "variant goes unchecked")
+    wa, wb = random_words((nrep, hms.words(m)), 6, dev, n=2)
+    seeds = hms.sweep_seed_pairs(rng.sample_key(rng.base_key(9), 2), sweeps)
+    kw = dict(beta=beta, nx=nx, m=m)
+    ka, kb, kobs = hms.multisweep_planes(wa, wb, seeds, **kw)
+    pa, pb, pobs = hms.multisweep_plain(wa, wb, seeds, **kw)
+    e_plain = max_abs_err([(valid(ka, m), valid(pa, m)),
+                           (valid(kb, m), valid(pb, m)), (kobs, pobs)])
+    e_exact = max_abs_err([(kobs[:, -1], helical_exact(model, hms, ka, kb))])
+    log(f"  helical multisweep {nrep}x{nx}x{ny} S={sweeps} (staged "
+        f"{hms.staged_fits(hms.words(m), dev)}): vs plain {e_plain}, "
+        f"(m, e) vs exact sums {e_exact}")
+    err = max(err, e_plain, e_exact)
+    torch.cuda.synchronize()
+    if err != 0:
+        fail(f"helical multisweep kernel differs from its plain version "
+             f"(max abs err {err})")
+    return err
+
+
+def ising3d_exact(model, msb, wa, wb) -> torch.Tensor:
+    """(R, 2) exact (m, e) sums of the unpacked 3-D state, one replica at
+    a time (a 512^3 replica unpacks to 128 MiB of int8 per colour)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
+        CheckerboardState,
+    )
+
+    rows = []
+    for r in range(wa.shape[0]):
+        st = CheckerboardState(msb.unpack_color(wa[r]),
+                               msb.unpack_color(wb[r]))
+        rows.append(torch.stack([model.magne_sum(st), model.energy_sum(st)]))
+    return torch.stack(rows)
+
+
+def check_ising3d(msb, ms3, rng, dev) -> dict[str, int]:
+    """3-D kernels vs their plain versions on the same CUDA tensors,
+    bitwise; returns the largest absolute difference seen per kernel."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import Ising3D
+
+    beta = 1.0 / KBT_3D
+    errs = {"phase": 0, "multisweep": 0}
+    for nrep, nz, ny, nx in ((2, 8, 256, 256), (8, 512, 512, 512)):
+        model = Ising3D(nx=nx, ny=ny, nz=nz, kbt=KBT_3D)
+        shape = (nrep, nz, ny // 32, nx // 2)
+        x, o, b4, b8 = random_words(shape, nz + nrep, dev)
+        b12 = random_words(shape, nz + nrep + 1, dev, n=1)[0]
+        seeds = ms3.sweep_seed_pairs(rng.sample_key(rng.base_key(8), nz), 1)
+        for color in (0, 1):
+            e = max_abs_err([(
+                ms3.phase3d_packed_with_bits(x, o, b4, b8, b12, color=color),
+                ms3.packed_phase3d_reference(x, o, color, b4, b8, b12))])
+            e_r = max_abs_err([(
+                ms3.phase3d_packed(x, o, seeds[0, color], color=color,
+                                   beta=beta),
+                ms3.phase3d_plain(x, o, seeds[0, color], color=color,
+                                  beta=beta))])
+            got, got_obs = ms3.phase3d_packed(x, o, seeds[0, color],
+                                              color=color, beta=beta,
+                                              measuring=True)
+            want, want_obs = ms3.phase3d_plain(x, o, seeds[0, color],
+                                               color=color, beta=beta,
+                                               measuring=True)
+            e_m = max_abs_err([(got, want), (got_obs, want_obs)])
+            exact = ising3d_exact(model, msb, *((o, got) if color
+                                               else (got, o)))
+            e_x = max_abs_err([(got_obs, exact)])
+            errs["phase"] = max(errs["phase"], e, e_r, e_m, e_x)
+            log(f"  3-D phase kernel {nrep}x{nz}x{ny}x{nx} colour {color}: "
+                f"bits {e}, philox {e_r}, measuring {e_m}, (m, e) vs exact "
+                f"sums {e_x}")
+        del x, o, b4, b8, b12, got, want
+    nrep, n, sweeps = 4, 256, 64
+    wa, wb = random_words((nrep, n, n // 32, n // 2), 3, dev, n=2)
+    seeds = ms3.sweep_seed_pairs(rng.sample_key(rng.base_key(8), 3), sweeps)
+    ka, kb, k_obs = ms3.multisweep3d_planes(wa, wb, seeds, beta=beta)
+    pa, pb, obs = wa, wb, []
+    for s in range(sweeps):
+        pa = ms3.phase3d_packed(pa, pb, seeds[s, 0], color=0, beta=beta)
+        pb, ob = ms3.phase3d_packed(pb, pa, seeds[s, 1], color=1, beta=beta,
+                                    measuring=True)
+        obs.append(ob)
+    e_pairs = max_abs_err([(ka, pa), (kb, pb),
+                           (k_obs, torch.stack(obs, dim=1))])
+    qa, qb, q_obs = ms3.multisweep3d_plain(wa, wb, seeds, beta=beta)
+    e_plain = max_abs_err([(ka, qa), (kb, qb), (k_obs, q_obs)])
+    errs["multisweep"] = max(e_pairs, e_plain)
+    log(f"  3-D multisweep kernel {nrep}x{n}^3 S={sweeps}: vs {sweeps} "
+        f"phase pairs {e_pairs}, vs plain {e_plain}")
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        if e != 0:
+            fail(f"3-D {name} kernel differs from its plain version "
+                 f"(max abs err {e})")
+    return errs
+
+
 def first_sweep_exact(msb, beta: float) -> tuple[float, float]:
     """Exact E[m], E[e] per site after one sweep from all-up, for the
-    chains' quantized acceptances p4, p8.  Phase a flips each site with
-    p8 (all four neighbours up); a phase-b site with c up neighbours flips
-    surely for c <= 2, with p4 for c = 3 and p8 for c = 4."""
+    chains' quantized acceptances p4, p8, on any lattice whose sites have
+    four distinct neighbours of the other colour (periodic and helical
+    2-D).  Phase a flips each site with p8 (all four neighbours up); a
+    phase-b site with c up neighbours flips surely for c <= 2, with p4 for
+    c = 3 and p8 for c = 4."""
     q4, q8 = msb.chain_words(beta)
     p4, p8 = q4 / 2 ** 20, q8 / 2 ** 20
     all4, three = (1 - p8) ** 4, 4 * p8 * (1 - p8) ** 3
@@ -213,13 +437,54 @@ def first_sweep_exact(msb, beta: float) -> tuple[float, float]:
     return m1, -2 * bond
 
 
+def first_sweep_exact3d(ms3, beta: float) -> tuple[float, float]:
+    """Exact E[m], E[e] per site after one 3-D sweep from all-up, for the
+    quantized p4, p8, p12.  Phase a flips each site with p12 (six up
+    neighbours, dE = 12).  A phase-b site then has c ~ 6 - Binomial(6,
+    p12) up neighbours; it flips with p12, p8, p4 for c = 6, 5, 4 and
+    surely for c <= 3.  A bond (a0, b0): b0's other five neighbours are
+    independent of a0, so E[s_a s_b] follows from a0's two cases, and
+    e = -3 E[s_a s_b] (three bonds a site)."""
+    p4, p8, p12 = (q / 2 ** 20 for q in ms3.chain_words3d(beta))
+    acc = {4: p4, 5: p8, 6: p12}
+
+    def flip_prob(extra_up: int, others: int) -> float:
+        """P(flip) of an up b-site with ``extra_up`` known up neighbours
+        and ``others`` independent ones, each up with 1 - p12."""
+        total = 0.0
+        for k in range(others + 1):
+            pk = math.comb(others, k) * (1 - p12) ** k * p12 ** (others - k)
+            total += pk * acc.get(extra_up + k, 1.0)
+        return total
+
+    flip_b = flip_prob(0, 6)
+    m1 = 0.5 * (1 - 2 * p12) + 0.5 * (1 - 2 * flip_b)
+    bond = ((1 - p12) * (1 - 2 * flip_prob(1, 5))
+            - p12 * (1 - 2 * flip_prob(0, 5)))
+    return m1, -3 * bond
+
+
+def check_z(name: str, total, nsites: int, want: tuple[float, float],
+            nvar: tuple[float, float]) -> None:
+    """<m>, <e> summed over ``nsites`` sites against their exact values,
+    within SIGMAS standard errors (variance from the reference's N·Var at
+    t = 1)."""
+    for obs, got, exact, nv in (("m", int(total[0]) / nsites, want[0],
+                                 nvar[0]),
+                                ("e", int(total[1]) / nsites, want[1],
+                                 nvar[1])):
+        z = (got - exact) / math.sqrt(nv / nsites)
+        log(f"  {name} first sweep <{obs}> {got:.9f} exact {exact:.9f} "
+            f"over {nsites:.3g} sites, z {z:+.2f}")
+        if abs(z) > SIGMAS:
+            fail(f"{name} first-sweep <{obs}> is {z:+.2f} sigma from exact")
+
+
 def check_first_sweep(msb, rng, dev, ref_row, iters: int) -> None:
-    """<m>(1), <e>(1) of the phase kernel over iters x 4 x 8192^2 sites
-    against their exact values, within SIGMAS standard errors (variance
-    from the reference's N·Var at t = 1): a test of the in-kernel
-    Bernoulli chains far sharper than the reference curve."""
+    """2-D <m>(1), <e>(1) of the phase kernel over iters x 4 x 8192^2
+    sites against their exact values: a test of the in-kernel Bernoulli
+    chains far sharper than the reference curve."""
     beta = 1.0 / KBT
-    m1, e1 = first_sweep_exact(msb, beta)
     up = torch.full((4, 8192 // 32, 4096), -1, dtype=torch.int32,
                     device=dev)
     total = torch.zeros(2, dtype=torch.int64, device=dev)
@@ -230,24 +495,60 @@ def check_first_sweep(msb, rng, dev, ref_row, iters: int) -> None:
         _, obs = msb.phase_packed(up, wa, seeds[1], color=1, beta=beta,
                                   measuring=True)
         total += obs.sum(dim=0)
-    nsites = iters * up.numel() * 64
-    for name, got, want, nvar in (("m", int(total[0]) / nsites, m1,
-                                   ref_row[7]),
-                                  ("e", int(total[1]) / nsites, e1,
-                                   ref_row[8])):
-        z = (got - want) / math.sqrt(nvar / nsites)
-        log(f"  first sweep <{name}> {got:.9f} exact {want:.9f} over "
-            f"{nsites:.3g} sites, z {z:+.2f}")
-        if abs(z) > SIGMAS:
-            fail(f"first-sweep <{name}> is {z:+.2f} sigma from exact")
+    check_z("2-D", total, iters * up.numel() * 64,
+            first_sweep_exact(msb, beta), (ref_row[7], ref_row[8]))
+
+
+def check_first_sweep_helical(msb, hms, rng, dev, ref_row, iters: int
+                              ) -> None:
+    """Helical <m>(1), <e>(1) of the multisweep kernel over iters x 128 x
+    1001x1000 sites: the same closed form as the periodic lattice (four
+    distinct neighbours of the other colour)."""
+    beta = 1.0 / KBT
+    nx, ny, nrep = 1001, 1000, 128
+    m = nx * ny // 2
+    up = torch.full((nrep, hms.words(m)), -1, dtype=torch.int32, device=dev)
+    total = torch.zeros(2, dtype=torch.int64, device=dev)
+    base = rng.base_key(2025)
+    for it in range(iters):
+        seeds = hms.sweep_seed_pairs(rng.sample_key(base, it), 1)
+        _, _, obs = hms.multisweep_planes(up, up, seeds, beta=beta, nx=nx,
+                                          m=m)
+        total += obs[:, 0].sum(dim=0)
+    check_z("helical", total, iters * nrep * nx * ny,
+            first_sweep_exact(msb, beta), (ref_row[7], ref_row[8]))
+
+
+def check_first_sweep_3d(ms3, rng, dev, ref_row, iters: int) -> None:
+    """3-D <m>(1), <e>(1) of the phase kernel over iters x 8 x 512^3
+    sites: the sharp test of the three chains and the 3-D counter."""
+    beta = 1.0 / KBT_3D
+    up = torch.full((8, 512, 512 // 32, 256), -1, dtype=torch.int32,
+                    device=dev)
+    total = torch.zeros(2, dtype=torch.int64, device=dev)
+    base = rng.base_key(2026)
+    for it in range(iters):
+        seeds = ms3.sweep_seed_pairs(rng.sample_key(base, it), 1)[0]
+        wa = ms3.phase3d_packed(up, up, seeds[0], color=0, beta=beta)
+        _, obs = ms3.phase3d_packed(up, wa, seeds[1], color=1, beta=beta,
+                                    measuring=True)
+        total += obs.sum(dim=0)
+    check_z("3-D", total, iters * up.numel() * 64,
+            first_sweep_exact3d(ms3, beta), (ref_row[7], ref_row[8]))
 
 
 ROUTE_SHAPES = ((2048, 16), (4096, 4), (8192, 1), (8192, 4))
+ROUTE_SHAPES_3D = ((256, 4), (256, 8), (512, 1), (512, 2), (512, 8))
+
+
+def _route_times(resident, streaming, sweeps: int) -> tuple[float, float]:
+    return (cuda_time_ms(resident, reps=3, warmup=1) / sweeps,
+            cuda_time_ms(streaming, reps=3, warmup=1) / sweeps)
 
 
 def compare_routes(msb, dev, beta: float, seeds) -> None:
-    """ms per sweep of the runner's two chunk routes, CUDA events, at the
-    main path's shapes and between them: one multisweep launch of S
+    """2-D ms per sweep of the runner's two chunk routes, CUDA events, at
+    the main path's shapes and between them: one multisweep launch of S
     sweeps (resident) against S streamed phase pairs, host loop included
     (streaming).  Both give the same trajectory; this says which is
     faster where."""
@@ -256,7 +557,7 @@ def compare_routes(msb, dev, beta: float, seeds) -> None:
     sweeps = seeds.shape[0]
     for nx, nrep in ROUTE_SHAPES:
         model = Ising2D(nx=nx, ny=nx, kbt=KBT)
-        wa, wb = random_planes((nrep, nx // 32, nx // 2), nx + nrep, dev)[:2]
+        wa, wb = random_words((nrep, nx // 32, nx // 2), nx + nrep, dev)[:2]
 
         def resident():
             msb.multisweep_planes(wa, wb, seeds, beta=beta)
@@ -266,13 +567,39 @@ def compare_routes(msb, dev, beta: float, seeds) -> None:
             for j in range(sweeps):
                 a, b, _ = msb.sweep_measure_seeded(model, a, b, seeds[j])
 
-        res_ms = cuda_time_ms(resident, reps=3, warmup=1) / sweeps
-        str_ms = cuda_time_ms(streaming, reps=3, warmup=1) / sweeps
+        res_ms, str_ms = _route_times(resident, streaming, sweeps)
         ens_mib = 2 * wa.numel() * 4 / 2 ** 20
         log(f"  route {nx}^2 x {nrep} ({ens_mib:.0f} MiB of planes, "
             f"multisweep_fits {msb.multisweep_fits(nrep, nx, nx // 2)}): "
             f"resident {res_ms:.5f} ms/sweep, streaming {str_ms:.5f} "
             f"ms/sweep, streaming/resident {str_ms / res_ms:.3f}")
+
+
+def compare_routes_3d(ms3, dev, seeds) -> None:
+    """The same for the 3-D runner's routes, at its two classes' shapes
+    and between them."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import Ising3D
+
+    beta = 1.0 / KBT_3D
+    sweeps = seeds.shape[0]
+    for n, nrep in ROUTE_SHAPES_3D:
+        model = Ising3D(nx=n, ny=n, nz=n, kbt=KBT_3D)
+        wa, wb = random_words((nrep, n, n // 32, n // 2), n + nrep, dev, 2)
+
+        def resident():
+            ms3.multisweep3d_planes(wa, wb, seeds, beta=beta)
+
+        def streaming():
+            a, b = wa, wb
+            for j in range(sweeps):
+                a, b, _ = ms3.sweep_measure_seeded3d(model, a, b, seeds[j])
+
+        res_ms, str_ms = _route_times(resident, streaming, sweeps)
+        log(f"  3-D route {n}^3 x {nrep} ({wa.numel() / 2 ** 20:.0f} Mi "
+            f"words a colour, multisweep3d_fits "
+            f"{ms3.multisweep3d_fits(nrep, n, n, n // 2)}): resident "
+            f"{res_ms:.5f} ms/sweep, streaming {str_ms:.5f} ms/sweep, "
+            f"streaming/resident {str_ms / res_ms:.3f}")
 
 
 def read_dat(path: Path) -> np.ndarray:
@@ -282,18 +609,25 @@ def read_dat(path: Path) -> np.ndarray:
 
 
 def check_against_reference(table: np.ndarray, ref: np.ndarray, nsites: int,
-                            samples: int, mcs: int, times) -> None:
-    """<m>(t), <e>(t) within SIGMAS standard errors of the port's mean,
-    with the variance taken from the reference's own N·Var columns."""
+                            samples: int, mcs: int, times,
+                            ref_nsites: int | None = None,
+                            ref_samples: int | None = None) -> None:
+    """<m>(t), <e>(t) within SIGMAS standard errors, with the variance
+    taken from the reference's own N·Var columns: of the port's mean
+    alone, or, given the reference's sites and samples, of the difference
+    of the two means (sigma^2 = N·Var (1/(N n) + 1/(N_ref n_ref)))."""
     if table.shape != (mcs, 10) or not np.all(np.isfinite(table)):
         fail(f"table shape {table.shape} (want ({mcs}, 10)) or non-finite")
     if not np.all(table[:, 1] == samples) or not np.all(
             table[:, 2] == np.arange(1, mcs + 1)):
         fail("Nsample or t column is wrong")
+    ref_term = (0.0 if ref_samples is None
+                else 1.0 / (ref_nsites * ref_samples))
     for t in times:
         row, rrow = table[t - 1], ref[t - 1]
         for name, col, var_col in (("m", 3, 7), ("e", 4, 8)):
-            sigma = math.sqrt(rrow[var_col] / (nsites * samples))
+            sigma = math.sqrt(rrow[var_col]
+                              * (1.0 / (nsites * samples) + ref_term))
             z = (row[col] - rrow[col]) / sigma
             log(f"  t={t:5d} <{name}> port {row[col]:.9f} reference "
                 f"{rrow[col]:.9f} sigma {sigma:.3e} z {z:+.2f}")
@@ -301,27 +635,57 @@ def check_against_reference(table: np.ndarray, ref: np.ndarray, nsites: int,
                 fail(f"<{name}>({t}) is {z:+.2f} sigma from the reference")
 
 
-def run_main_path(main_fn, msb, out_dir: Path, nx: int, replicas: int,
-                  samples: int, mcs: int, ref: np.ndarray, times):
-    path = out_dir / f"ising2d_{nx}.dat"
-    argv = ["--model", "ising2d", "--nx", str(nx), "--ny", str(nx),
-            "--kbt", repr(KBT), "--mcs", str(mcs), "--samples",
-            str(samples), "--replicas", str(replicas), "--init-state",
-            "allup", "--device", "cuda", "--output", str(path)]
-    msb.reset_launches()
+def run_main_path(main_fn, modules, out_dir: Path, label: str, argv,
+                  nsites: int, samples: int, mcs: int):
+    """The CLI once, with every kernel's launch count set to 0 just before
+    and read just after.  Returns ({module: launches}, wall, rate, table,
+    header lines)."""
+    path = out_dir / f"{label}.dat"
+    for mod in modules.values():
+        mod.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rc = main_fn(argv)
+    rc = main_fn(list(argv) + ["--init-state", "allup", "--device", "cuda",
+                               "--output", str(path)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(msb.LAUNCHES)
+    launches = {name: dict(mod.LAUNCHES) for name, mod in modules.items()}
     if rc != 0:
         fail(f"CLI exited {rc}")
-    rate = nx * nx * mcs * samples / wall
-    log(f"  {nx}^2 x {samples} samples x {mcs} MCS: {wall:.2f} s, "
+    rate = nsites * mcs * samples / wall
+    log(f"  {label}: {samples} samples x {mcs} MCS: {wall:.2f} s, "
         f"{rate:.4g} flip attempts/s end to end, launches {launches}")
-    check_against_reference(read_dat(path), ref, nx * nx, samples, mcs,
-                            times)
+    head = [line for line in path.read_text().splitlines()
+            if line.startswith("#")]
+    return launches, wall, rate, read_dat(path), head
+
+
+def run_2d(main_fn, modules, out_dir, nx, replicas, samples, mcs, ref,
+           times):
+    argv = ["--model", "ising2d", "--nx", str(nx), "--ny", str(nx),
+            "--kbt", repr(KBT), "--mcs", str(mcs), "--samples",
+            str(samples), "--replicas", str(replicas)]
+    launches, wall, rate, table, _ = run_main_path(
+        main_fn, modules, out_dir, f"ising2d_{nx}", argv, nx * nx, samples,
+        mcs)
+    check_against_reference(table, ref, nx * nx, samples, mcs, times)
+    return launches, wall, rate
+
+
+def run_3d(main_fn, modules, out_dir, n, replicas, samples, mcs, ref,
+           times, engine):
+    argv = ["--model", "ising3d", "--nx", str(n), "--ny", str(n), "--nz",
+            str(n), "--kbt", repr(KBT_3D), "--mcs", str(mcs), "--samples",
+            str(samples), "--replicas", str(replicas)]
+    launches, wall, rate, table, head = run_main_path(
+        main_fn, modules, out_dir, f"ising3d_{n}", argv, n ** 3, samples,
+        mcs)
+    for line in (f"# nx, ny: {n} {n} {n}", f"# engine: {engine}"):
+        if line not in head:
+            fail(f"3-D .dat header lacks {line!r}: {head}")
+    check_against_reference(table, ref, n ** 3, samples, mcs, times,
+                            ref_nsites=512 ** 3,
+                            ref_samples=int(ref[0, 1]))
     return launches, wall, rate
 
 
@@ -334,16 +698,28 @@ def main() -> int:
     from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         ising2d_multispin as msb,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising3d_multispin as ms3,
     )
     from cuda_fortran_mc_simulation_spin_tpu_torch.runs.__main__ import (
         main as cli_main,
     )
 
+    modules = {"ising2d": msb, "helical": hms, "ising3d": ms3}
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device {torch.cuda.get_device_name(0)} | {smi} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
+    for path in (REFERENCE_DAT, REFERENCE_3D_DAT):
+        if not path.exists():
+            fail(f"reference curve {path} is missing")
+    ref = read_dat(REFERENCE_DAT)
+    ref3 = read_dat(REFERENCE_3D_DAT)
 
     # 1. build from scratch
     log("phase 1: build csrc/*.cu with nvcc")
@@ -359,8 +735,8 @@ def main() -> int:
                 ".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log(f"  multisweep cooperative grid: {msb.multisweep_grid_blocks()} "
-        "blocks resident")
+    log(f"  cooperative grids: 2-D {msb.multisweep_grid_blocks()}, 3-D "
+        f"{ms3.multisweep_grid_blocks()} blocks resident")
 
     # 2. kernels against their plain versions
     log("phase 2: kernels vs plain versions (bitwise)")
@@ -369,86 +745,169 @@ def main() -> int:
         (16, 2048, 2048, 64),    # resident main-path shape
         (4, 8192, 8192, 1),      # streaming main-path shape
     ])
+    err_helical = check_helical(hms, rng, dev)
+    errs3 = check_ising3d(msb, ms3, rng, dev)
 
-    if not REFERENCE_DAT.exists():
-        fail(f"reference curve {REFERENCE_DAT} is missing")
-    ref = read_dat(REFERENCE_DAT)
     log("phase 2b: first sweep from all-up against its exact expectation")
     check_first_sweep(msb, rng, dev, ref[0], iters=100)
+    check_first_sweep_helical(msb, hms, rng, dev, ref[0], iters=80)
+    check_first_sweep_3d(ms3, rng, dev, ref3[0], iters=10)
     with tempfile.TemporaryDirectory() as tmp:
-        # 3. resident class through the multisweep kernel
-        log("phase 3: main path, resident class (2048^2 x 16 replicas)")
-        res_launch, res_wall, res_rate = run_main_path(
-            cli_main, msb, Path(tmp), 2048, 16, 64, 1000, ref,
+        out = Path(tmp)
+        # 3. 2-D resident class through the multisweep kernel
+        log("phase 3: 2-D main path, resident class (2048^2 x 16 replicas)")
+        res_launch, res_wall, res_rate = run_2d(
+            cli_main, modules, out, 2048, 16, 64, 1000, ref,
             (1, 10, 100, 1000))
-        if res_launch["multisweep"] == 0:
+        if res_launch["ising2d"]["multisweep"] == 0:
             fail("resident main path launched no multisweep kernel")
-        # 4. streaming class through the measuring phase kernel
-        log("phase 4: main path, streaming class (8192^2 x 4 replicas)")
-        str_launch, str_wall, str_rate = run_main_path(
-            cli_main, msb, Path(tmp), 8192, 4, 4, 200, ref,
-            (1, 10, 100, 200))
-        if str_launch["phase_measuring"] == 0:
+        # 4. 2-D streaming class through the measuring phase kernel
+        log("phase 4: 2-D main path, streaming class (8192^2 x 4 replicas)")
+        str_launch, str_wall, str_rate = run_2d(
+            cli_main, modules, out, 8192, 4, 4, 200, ref, (1, 10, 100, 200))
+        if str_launch["ising2d"]["phase_measuring"] == 0:
             fail("streaming main path launched no measuring phase kernel")
+        # 3c. helical 1001x1000 through the helical multisweep kernel
+        log("phase 3c: helical path, 1001x1000 x 128 replicas")
+        hel_launch, hel_wall, hel_rate, table, head = run_main_path(
+            cli_main, modules, out, "helical_1001x1000",
+            ["--model", "ising2d", "--nx", "1001", "--ny", "1000", "--kbt",
+             repr(KBT), "--mcs", "1000", "--samples", "256", "--replicas",
+             "128"], 1001 * 1000, 256, 1000)
+        if "# engine: helical_multispin (flat even/odd bit-packed)" \
+                not in head:
+            fail(f"helical run took another route: {head}")
+        check_against_reference(table, ref, 1001 * 1000, 256, 1000,
+                                (1, 10, 100, 1000))
+        if hel_launch["helical"]["multisweep"] == 0:
+            fail("helical path launched no helical multisweep kernel")
+        # 4b. 3-D streaming and resident classes
+        log("phase 4b: 3-D path, streaming class (512^3 x 8 replicas)")
+        s3_launch, s3_wall, s3_rate = run_3d(
+            cli_main, modules, out, 512, 8, 8, 1000, ref3,
+            (1, 10, 100, 1000),
+            "ising3d_multispin bit-packed (streaming z-plane phases)")
+        if s3_launch["ising3d"]["phase_measuring"] == 0:
+            fail("3-D streaming path launched no measuring phase kernel")
+        log("phase 4b: 3-D path, resident class (256^3 x 4 replicas)")
+        r3_launch, r3_wall, r3_rate = run_3d(
+            cli_main, modules, out, 256, 4, 16, 200, ref3, (1, 10, 100),
+            "ising3d_multispin bit-packed (resident multisweep)")
+        if r3_launch["ising3d"]["multisweep"] == 0:
+            fail("3-D resident path launched no multisweep kernel")
+    paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch)
 
-    # 5. times at the main path's shapes
+    def launched(module: str, kernel: str) -> int:
+        return sum(p[module][kernel] for p in paths)
+
+    # 5. times at the main paths' shapes
     log("phase 5: kernel times (CUDA events)")
-    beta = 1.0 / KBT
-    key = rng.sample_key(rng.base_key(11), 0)
-    seeds = msb.sweep_seed_pairs(key, 64)
-    x, o = random_planes((4, 8192 // 32, 4096), 3, dev)[:2]
-    words = x.numel()
-    k1_ms = cuda_time_ms(lambda: msb.phase_packed(
-        x, o, seeds[0, 1], color=1, beta=beta, measuring=True), reps=20)
-    k1_plain_ms = cuda_time_ms(lambda: msb.phase_packed_plain(
-        x, o, seeds[0, 1], color=1, beta=beta, measuring=True), reps=2,
-        warmup=1)
-    k1_bound, k1_by = bound_ms(
-        3 * 4 * words + 2 * 8 * x.shape[0],
-        words * phase_ops_per_word(msb, beta, True))
-    log(f"  phase kernel 8192^2 x 4, measuring: {k1_ms:.4f} ms/launch "
-        f"({words * 32 / k1_ms * 1e3:.4g} flip attempts/s), plain "
-        f"{k1_plain_ms:.2f} ms, bound {k1_bound:.4f} ms ({k1_by})")
-    wa, wb = random_planes((16, 2048 // 32, 1024), 5, dev)[:2]
-    words2 = wa.numel()
-    k2_ms = cuda_time_ms(lambda: msb.multisweep_planes(
-        wa, wb, seeds, beta=beta), reps=5)
-    k2_plain_ms = cuda_time_ms(lambda: msb.multisweep_planes_plain(
-        wa, wb, seeds, beta=beta), reps=1, warmup=0)
+    beta, beta3 = 1.0 / KBT, 1.0 / KBT_3D
+    seeds = msb.sweep_seed_pairs(rng.sample_key(rng.base_key(11), 0), 64)
     sweeps = seeds.shape[0]
-    k2_bound, k2_by = bound_ms(
-        4 * 4 * words2 + 2 * 8 * wa.shape[0] * sweeps,
-        words2 * sweeps * (phase_ops_per_word(msb, beta, False)
-                           + phase_ops_per_word(msb, beta, True)))
-    log(f"  multisweep kernel 2048^2 x 16, S={sweeps}: {k2_ms:.3f} ms/launch"
-        f" ({k2_ms / sweeps:.4f} ms/sweep, "
-        f"{words2 * 2 * 32 * sweeps / k2_ms * 1e3:.4g} flip attempts/s), "
-        f"plain {k2_plain_ms:.1f} ms, bound {k2_bound:.4f} ms ({k2_by})")
+
+    def sweep_ops(per_word, words: int) -> float:
+        """Instructions of S sweeps: phase a plain, phase b measuring."""
+        return words * sweeps * (per_word(False) + per_word(True))
+
+    x, o = random_words((4, 8192 // 32, 4096), 3, dev, n=2)
+    t1, e1 = time_kernel(
+        "phase kernel 8192^2 x 4, measuring", x.numel() * 32,
+        lambda: msb.phase_packed(x, o, seeds[0, 1], color=1, beta=beta,
+                                 measuring=True),
+        lambda: msb.phase_packed_plain(x, o, seeds[0, 1], color=1,
+                                       beta=beta, measuring=True),
+        3 * 4 * x.numel() + 2 * 8 * x.shape[0],
+        x.numel() * phase_ops_per_word(msb, beta, True), reps=20,
+        plain_reps=2)
+    wa, wb = random_words((16, 2048 // 32, 1024), 5, dev, n=2)
+    t2, e2 = time_kernel(
+        f"multisweep kernel 2048^2 x 16, S={sweeps}",
+        wa.numel() * 64 * sweeps,
+        lambda: msb.multisweep_planes(wa, wb, seeds, beta=beta),
+        lambda: msb.multisweep_planes_plain(wa, wb, seeds, beta=beta),
+        4 * 4 * wa.numel() + 2 * 8 * wa.shape[0] * sweeps,
+        sweep_ops(lambda m: phase_ops_per_word(msb, beta, m), wa.numel()),
+        reps=5, plain_reps=1)
+    # the helical path's launch: 128 x 1001x1000, S=64
+    hm = 1001 * 1000 // 2
+    ha, hb = random_words((128, hms.words(hm)), 12, dev, n=2)
+    hkw = dict(beta=beta, nx=1001, m=hm)
+    hvm = hms.valid_mask(hm, dev)
+    t3, e3 = time_kernel(
+        f"helical multisweep kernel 1001x1000 x 128, S={sweeps}",
+        128 * 1001 * 1000 * sweeps,
+        lambda: hms.multisweep_planes(ha, hb, seeds, **hkw),
+        lambda: hms.multisweep_plain(ha, hb, seeds, **hkw),
+        4 * 4 * ha.numel() + 2 * 8 * ha.shape[0] * sweeps,
+        sweep_ops(lambda m: helical_phase_ops_per_word(msb, beta, m),
+                  ha.numel()), reps=5, plain_reps=1,
+        view=lambda out: (hms._u32(out[0]) & hvm, hms._u32(out[1]) & hvm,
+                          out[2]))
+    # the 3-D streaming class: 8 x 512^3, measuring
+    x3, o3 = random_words((8, 512, 16, 256), 13, dev, n=2)
+    t4, e4 = time_kernel(
+        "3-D phase kernel 512^3 x 8, measuring", x3.numel() * 32,
+        lambda: ms3.phase3d_packed(x3, o3, seeds[0, 1], color=1,
+                                   beta=beta3, measuring=True),
+        lambda: ms3.phase3d_plain(x3, o3, seeds[0, 1], color=1,
+                                  beta=beta3, measuring=True),
+        3 * 4 * x3.numel() + 2 * 8 * x3.shape[0],
+        x3.numel() * phase3d_ops_per_word(msb, ms3, beta3, True), reps=10,
+        plain_reps=1)
+    del x3, o3
+    # the 3-D resident class: 4 x 256^3, S=64
+    ra, rb = random_words((4, 256, 8, 128), 14, dev, n=2)
+    t5, e5 = time_kernel(
+        f"3-D multisweep kernel 256^3 x 4, S={sweeps}",
+        ra.numel() * 64 * sweeps,
+        lambda: ms3.multisweep3d_planes(ra, rb, seeds, beta=beta3),
+        lambda: ms3.multisweep3d_plain(ra, rb, seeds, beta=beta3),
+        4 * 4 * ra.numel() + 2 * 8 * ra.shape[0] * sweeps,
+        sweep_ops(lambda m: phase3d_ops_per_word(msb, ms3, beta3, m),
+                  ra.numel()), reps=3, plain_reps=1)
+    if max(e1, e2, e3, e4, e5) != 0:
+        fail(f"a kernel differs from its plain version at its main-path "
+             f"launch shape (max abs errs {e1}, {e2}, {e3}, {e4}, {e5})")
 
     compare_routes(msb, dev, beta, seeds)
+    compare_routes_3d(ms3, dev, seeds[:32])
 
-    src = "cuda_fortran_mc_simulation_spin_tpu_torch/csrc/ising2d_multispin.cu"
-    ref_py = "cuda_fortran_mc_simulation_spin_tpu/ops/ising2d_multispin.py"
-    kernels = [
-        {"name": "ising2d_multispin.phase_kernel", "route": "cuda",
-         "source": src, "replaces": f"{ref_py}:355",
-         "launches": res_launch["phase"] + str_launch["phase"],
-         "max_abs_err": errs["phase"], "ms": k1_ms,
-         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
-        {"name": "ising2d_multispin.multisweep_kernel", "route": "cuda",
-         "source": src, "replaces": f"{ref_py}:495",
-         "launches": res_launch["multisweep"] + str_launch["multisweep"],
-         "max_abs_err": errs["multisweep"], "ms": k2_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None},
+    src = "cuda_fortran_mc_simulation_spin_tpu_torch/csrc/"
+    ref_py = "cuda_fortran_mc_simulation_spin_tpu/ops/"
+    rows = [
+        ("ising2d_multispin.phase_kernel", "ising2d_multispin.cu",
+         "ising2d_multispin.py:355", launched("ising2d", "phase"),
+         max(errs["phase"], e1), t1),
+        ("ising2d_multispin.multisweep_kernel", "ising2d_multispin.cu",
+         "ising2d_multispin.py:495", launched("ising2d", "multisweep"),
+         max(errs["multisweep"], e2), t2),
+        ("helical_multispin.multisweep_kernel", "helical_multispin.cu",
+         "helical_multispin.py:305", launched("helical", "multisweep"),
+         max(err_helical, e3), t3),
+        ("ising3d_multispin.phase_kernel", "ising3d_multispin.cu",
+         "ising3d_multispin.py:227", launched("ising3d", "phase"),
+         max(errs3["phase"], e4), t4),
+        ("ising3d_multispin.multisweep_kernel", "ising3d_multispin.cu",
+         "ising3d_multispin.py:409", launched("ising3d", "multisweep"),
+         max(errs3["multisweep"], e5), t5),
     ]
+    kernels = [
+        {"name": name, "route": "cuda", "source": src + cu,
+         "replaces": ref_py + site, "launches": n, "max_abs_err": err,
+         **times, "library_ms": None}
+        for name, cu, site, n, err, times in rows]
     for k in kernels:
         if k["launches"] == 0:
-            fail(f"{k['name']} was not launched on the main path")
-    log(f"main path: resident {res_rate:.4g} flip attempts/s "
+            fail(f"{k['name']} was not launched on a main path")
+    log(f"main path 2-D: resident {res_rate:.4g} flip attempts/s "
         f"({res_wall:.2f} s), streaming {str_rate:.4g} flip attempts/s "
-        f"({str_wall:.2f} s); build {build_s:.1f} s")
+        f"({str_wall:.2f} s)")
+    log(f"main path helical 1001x1000 x 128: {hel_rate:.4g} flip "
+        f"attempts/s ({hel_wall:.2f} s)")
+    log(f"main path 3-D: streaming 512^3 x 8 {s3_rate:.4g} flip attempts/s "
+        f"({s3_wall:.2f} s), resident 256^3 x 4 {r3_rate:.4g} flip "
+        f"attempts/s ({r3_wall:.2f} s); build {build_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

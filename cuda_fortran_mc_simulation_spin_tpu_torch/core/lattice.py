@@ -1,8 +1,8 @@
 """Checkerboard (two-colour) lattice storage and neighbour stencils.
 
-Port of the 2-D part of ``cuda_fortran_mc_simulation_spin_tpu/core/
-lattice.py``.  A 2-D state is a pair of dense arrays ``(a, b)`` of shape
-``(ny, nx // 2)`` (optionally with a leading replica axis):
+Port of ``cuda_fortran_mc_simulation_spin_tpu/core/lattice.py`` (its 2-D,
+3-D and helical parts).  A 2-D state is a pair of dense arrays ``(a, b)``
+of shape ``(ny, nx // 2)`` (optionally with a leading replica axis):
 
 - ``a[y, i]`` holds the site ``(y, x = 2*i + (y & 1))``   (colour 0)
 - ``b[y, i]`` holds the site ``(y, x = 2*i + 1 - (y & 1))`` (colour 1)
@@ -13,6 +13,11 @@ With ``p = y & 1``, a colour-0 site ``(y, 2i+p)`` has up/down
 site ``(y, 2i+1-p)`` has left/right ``a[y, i-p]`` / ``a[y, i+1-p]``.
 Periodic boundaries wrap by ``torch.roll``.  The bit-packed layout of
 ops/ising2d_multispin.py packs 32 rows of each colour into one word.
+
+A 3-D state is the same pair with a z axis in front, ``(nz, ny, nx//2)``,
+colour = (x+y+z) & 1: the row parity above becomes the plane+row parity
+(y+z) & 1.  A helical 2-D state is one flat ``(nall,)`` vector whose site
+idx neighbours idx+-1 and idx+-nx modulo nall.
 """
 
 from __future__ import annotations
@@ -93,3 +98,80 @@ def right_down_neighbors(a: torch.Tensor, b: torch.Tensor):
     right_b = torch.where(odd, a, torch.roll(a, -1, dims=-1))
     down_b = torch.roll(a, -1, dims=-2)
     return right_a, down_a, right_b, down_b
+
+
+# ---------------------------------------------------------------------------
+# 3-D checkerboard (colour = (x+y+z) & 1), storage (..., nz, ny, nx//2)
+# ---------------------------------------------------------------------------
+
+def _odd_planes_rows(nz: int, ny: int, device) -> torch.Tensor:
+    """(nz, ny, 1) mask of the (z, y) with odd y + z."""
+    z = torch.arange(nz, device=device).view(nz, 1)
+    y = torch.arange(ny, device=device).view(1, ny)
+    return ((z + y) & 1).bool().view(nz, ny, 1)
+
+
+def split_checkerboard3d(full: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., nz, ny, nx) -> (a, b) colour arrays (..., nz, ny, nx//2):
+    a[z, y, i] = S[z, y, 2i + ((y+z) & 1)]."""
+    nz, ny, nx = full.shape[-3:]
+    pairs = full.reshape(full.shape[:-1] + (nx // 2, 2))
+    odd = _odd_planes_rows(nz, ny, full.device)
+    return (torch.where(odd, pairs[..., 1], pairs[..., 0]),
+            torch.where(odd, pairs[..., 0], pairs[..., 1]))
+
+
+def merge_checkerboard3d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`split_checkerboard3d`."""
+    nz, ny, half = a.shape[-3:]
+    odd = _odd_planes_rows(nz, ny, a.device)
+    even_x = torch.where(odd, b, a)
+    odd_x = torch.where(odd, a, b)
+    return torch.stack([even_x, odd_x], dim=-1).reshape(
+        a.shape[:-1] + (half * 2,))
+
+
+def neighbor_sums3d(other: torch.Tensor, color: int) -> torch.Tensor:
+    """Sum of the 6 nearest neighbours of every site of ``color`` given
+    the opposite colour array ``other`` (..., nz, ny, nx//2), periodic."""
+    nz, ny = other.shape[-3:-1]
+    odd = _odd_planes_rows(nz, ny, other.device)
+    zs = torch.roll(other, 1, dims=-3) + torch.roll(other, -1, dims=-3)
+    ys = torch.roll(other, 1, dims=-2) + torch.roll(other, -1, dims=-2)
+    minus = torch.roll(other, 1, dims=-1)
+    plus = torch.roll(other, -1, dims=-1)
+    if color == 0:
+        lr = other + torch.where(odd, plus, minus)
+    else:
+        lr = other + torch.where(odd, minus, plus)
+    return zs + ys + lr
+
+
+def right_down_back_neighbors3d(a: torch.Tensor, b: torch.Tensor):
+    """(x+, y+, z+) neighbour values per colour, for the bond energy.
+
+    Returns ((right_a, yp_a, zp_a), (right_b, yp_b, zp_b))."""
+    nz, ny = a.shape[-3:-1]
+    odd = _odd_planes_rows(nz, ny, a.device)
+    right_a = torch.where(odd, torch.roll(b, -1, dims=-1), b)
+    right_b = torch.where(odd, a, torch.roll(a, -1, dims=-1))
+    return ((right_a, torch.roll(b, -1, dims=-2), torch.roll(b, -1, dims=-3)),
+            (right_b, torch.roll(a, -1, dims=-2), torch.roll(a, -1, dims=-3)))
+
+
+# ---------------------------------------------------------------------------
+# helical (skew-periodic) flat lattice
+# ---------------------------------------------------------------------------
+
+def helical_neighbor_sums(flat: torch.Tensor, nx: int) -> torch.Tensor:
+    """4-neighbour sums under helical boundaries on a flat (..., nall)
+    lattice: site idx neighbours idx+-1 and idx+-nx modulo nall."""
+    return (torch.roll(flat, -1, dims=-1) + torch.roll(flat, 1, dims=-1)
+            + torch.roll(flat, -nx, dims=-1) + torch.roll(flat, nx, dims=-1))
+
+
+def helical_parity_mask(nall: int, offset: int, device=None) -> torch.Tensor:
+    """Boolean mask of the sites of one helical checkerboard phase:
+    idx % 2 == offset."""
+    return (torch.arange(nall, device=device) & 1) == offset

@@ -1,0 +1,51 @@
+// Bernoulli word planes of the bit-packed engines: each bit of the
+// returned word is 1 with probability q / 2^20, from Philox words
+// (philox.cuh).  Shared by the 2-D, helical and 3-D kernels.
+#pragma once
+#include <cstdint>
+
+#include "philox.cuh"
+
+constexpr int CHAIN_BITS = 20;
+
+// Digits d_1..d_20 of p are bits 19..0 of q = round(p * 2^20); fold
+// B <- r | B on a one digit, r & B on a zero digit, from the last one
+// digit up to d_1 (ops/ising2d_multispin._bern_plane).  Trailing zero
+// digits draw no word.
+__device__ __forceinline__ uint32_t bern_word(WordStream& s, uint32_t q) {
+  if (q == 0u) return 0u;
+  int k = __ffs(q) - 1;
+  uint32_t b = s.next();
+  for (++k; k < CHAIN_BITS; ++k) {
+    const uint32_t r = s.next();
+    b = ((q >> k) & 1u) ? (r | b) : (r & b);
+  }
+  return b;
+}
+
+// Bit-sliced count of four one-bit planes: (ones, twos, fours).
+__device__ __forceinline__ void count4(uint32_t n1, uint32_t n2, uint32_t n3,
+                                       uint32_t n4, uint32_t& ones,
+                                       uint32_t& twos, uint32_t& fours) {
+  const uint32_t s1 = n1 ^ n2, c1 = n1 & n2;
+  const uint32_t s2 = n3 ^ n4, c2 = n3 & n4;
+  const uint32_t c3 = s1 & s2;
+  ones = s1 ^ s2;
+  twos = c1 ^ c2 ^ c3;
+  fours = (c1 & c2) | (c3 & (c1 ^ c2));
+}
+
+// 2-D Metropolis flip mask of spin word x from its neighbour count and
+// the B4/B8 planes: only (up, count 3|4) and (down, count 1|0) reject,
+// with dE = 4 and 8 (ops/ising2d_multispin._flip_plane).
+__device__ __forceinline__ uint32_t flip4(uint32_t x, uint32_t ones,
+                                          uint32_t twos, uint32_t fours,
+                                          uint32_t b4, uint32_t b8) {
+  const uint32_t nx = ~x, nf = ~fours;
+  const uint32_t c3p = twos & ones & nf;
+  const uint32_t c1p = ones & ~twos & nf;
+  const uint32_t c0p = ~(ones | twos | fours);
+  const uint32_t need4 = (x & c3p) | (nx & c1p);
+  const uint32_t need8 = (x & fours) | (nx & c0p);
+  return ~(need4 | need8) | (need4 & b4) | (need8 & b8);
+}

@@ -1,0 +1,268 @@
+// Bit-packed (multispin) Metropolis for the helical 2-D Ising model on
+// Hopper (sm_90a): the kernel of the helical relaxation main path.
+//
+//   multisweep_kernel replaces cuda_fortran_mc_simulation_spin_tpu/ops/
+//                     helical_multispin.py:_ms_kernel (pallas_call at :305
+//                     _multisweep) and, as its injected-bits mode,
+//                     _phase_bits_kernel (pallas_call at :220
+//                     phase_packed_with_bits).  S full sweeps with the
+//                     exact (m, e) of every sweep; or one phase of colour
+//                     a with b4/b8 planes read from buffers.
+//
+// Layout: one (R, W) uint32 colour vector per colour, bit k of word g =
+// colour index 32g+k, M = nall/2 valid bits (ops/helical_multispin.py).
+// Colour a reads b at the four offsets da, b reads a at db:
+//   neighbour plane   out bit f = in bit (f + d) mod M: the 32 bits from
+//                     (32g + d) mod M on, one __funnelshift_r of two
+//                     adjacent words; where they run past bit M-1 (the
+//                     wrap point) the rest comes from the head of word 0
+//   count             bit-sliced 4:3 counter (bernoulli.cuh count4)
+//   B4, B8            20-digit Bernoulli chains over Philox words
+//   flip              bernoulli.cuh flip4
+//   (m, e)            after phase b, with the pad bits [M, 32W) masked:
+//                     they hold garbage after a flip and are never read
+//                     as a neighbour
+// The TPU's capacity-domain shifts and static blends (_shift_mod_impl)
+// are not carried over; the modular read above is their direct form.
+//
+// Design: one block of 1024 threads owns one replica, so a phase
+// boundary is a __syncthreads(): no grid barrier, no cooperative launch.
+// When both vectors fit the block's shared memory (1001x1000: 2 x 61.1
+// KiB) the kernel stages them there for all S sweeps and writes back once;
+// above that (up to 2 x 512 KiB) the same code works on the output
+// vectors in device memory.  A phase updates its colour in place: a word
+// depends only on itself and on the other colour.
+//
+// Random words: the key is the Philox key of the (sample, t, phase); the
+// counter is (replica, word, 0, draw / 4).  S = 1 launches therefore give
+// one S-sweep launch's trajectory bitwise, and so does the plain PyTorch
+// version.
+//
+// Bound on the H100: integer operations.  A word costs about 10 Philox
+// calls per phase at Tc (40 chain words), some 640 int32 operations
+// against 8 bytes of traffic per sweep; one block per replica leaves the
+// card's 132 SMs as busy as the batch has replicas (128 in the reference's
+// production runs).
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "bernoulli.cuh"
+#include "philox.cuh"
+
+namespace {
+
+constexpr int THREADS = 1024;
+constexpr int WARPS = THREADS / 32;
+
+struct HelicalArgs {
+  const uint32_t* wa_in;  // (R, W) colour a
+  const uint32_t* wb_in;  // (R, W) colour b
+  uint32_t* wa;           // (R, W) outputs (the working vectors if not staged)
+  uint32_t* wb;
+  const int32_t* seeds;   // (S, 2, 2) Philox keys per (sweep, phase), or null
+  const uint32_t* b4;     // injected planes (R, W): bits mode, or null
+  const uint32_t* b8;
+  long long* obs;         // (R, S, 2) (m, e), or null
+  int nw, m, sweeps;
+  int bits;               // 1: one phase of colour a with b4/b8
+  int staged;             // 1: work in shared memory
+  int da[4], db[4];       // offsets mod M of colour a's and b's neighbours
+  uint32_t q4, q8;        // chain digits: round(p * 2^20)
+};
+
+// 32 bits of the word sequence v from bit pos on; past word nw-1 reads 0.
+__device__ __forceinline__ uint32_t read_lin(const uint32_t* v, int nw,
+                                             int pos) {
+  const int i = pos >> 5;
+  const uint32_t hi = (i + 1 < nw) ? v[i + 1] : 0u;
+  return __funnelshift_r(v[i], hi, pos & 31);
+}
+
+// 32 bits of the circular M-bit sequence v from bit start < M on.
+__device__ __forceinline__ uint32_t read_circ(const uint32_t* v, int nw,
+                                              int m, int start) {
+  uint32_t out = read_lin(v, nw, start);
+  int got = m - start;  // bits before the wrap point
+  if (got >= 32) return out;
+  out &= (1u << got) - 1u;
+  const uint32_t head = read_lin(v, nw, 0);
+  while (got < 32) {  // once unless M < 32
+    const int take = min(32 - got, m);
+    out |= (head & ((1u << take) - 1u)) << got;
+    got += take;
+  }
+  return out;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    multisweep_kernel(HelicalArgs a) {
+  extern __shared__ uint32_t smem[];
+  __shared__ long long red[2][WARPS];
+  const int r = blockIdx.x, tid = threadIdx.x;
+  const int nw = a.nw, m = a.m;
+  const size_t base = static_cast<size_t>(r) * nw;
+  uint32_t* A = a.staged ? smem : a.wa + base;
+  uint32_t* B = a.staged ? smem + nw : a.wb + base;
+  for (int g = tid; g < nw; g += THREADS) {
+    A[g] = a.wa_in[base + g];
+    B[g] = a.wb_in[base + g];
+  }
+  __syncthreads();
+
+  const int phases = a.bits ? 1 : 2;
+  for (int s = 0; s < a.sweeps; ++s) {
+    for (int phase = 0; phase < phases; ++phase) {
+      uint32_t* x = phase ? B : A;
+      const uint32_t* o = phase ? A : B;
+      int d[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) d[k] = phase ? a.db[k] : a.da[k];
+      const bool measure = a.obs != nullptr && phase == 1;
+      uint2 key = make_uint2(0u, 0u);
+      if (!a.bits)
+        key = make_uint2(static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2]),
+                         static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2 + 1]));
+      long long pm = 0, pe = 0;
+      for (int g = tid; g < nw; g += THREADS) {
+        const int f0 = g * 32;  // < M, so f0 + d < 2M
+        uint32_t n[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          int st = f0 + d[k];
+          if (st >= m) st -= m;
+          n[k] = read_circ(o, nw, m, st);
+        }
+        uint32_t ones, twos, fours;
+        count4(n[0], n[1], n[2], n[3], ones, twos, fours);
+        uint32_t b4, b8;
+        if (a.bits) {
+          b4 = a.b4[base + g];
+          b8 = a.b8[base + g];
+        } else {
+          WordStream ws(static_cast<uint32_t>(r), static_cast<uint32_t>(g),
+                        0u, key);
+          b4 = bern_word(ws, a.q4);
+          b8 = bern_word(ws, a.q8);
+        }
+        const uint32_t xv = x[g];
+        const uint32_t nv = xv ^ flip4(xv, ones, twos, fours, b4, b8);
+        x[g] = nv;
+        if (measure) {
+          // s = 2*bit - 1, neighbour sum = 2c - 4, over the nb valid
+          // sites of this word: m = 2(pc(b) + pc(a)) - 2nb and
+          // e = -(4 pc(b & c) - 8 pc(b) - 2 pc(c) + 4nb)
+          const int nb = min(32, m - f0);
+          const uint32_t vm = nb == 32 ? 0xFFFFFFFFu : (1u << nb) - 1u;
+          const uint32_t bv = nv & vm;
+          const int s_x = __popc(bv);
+          const int s_c = __popc(ones & vm) + 2 * __popc(twos & vm) +
+                          4 * __popc(fours & vm);
+          const int s_xc = __popc(bv & ones) + 2 * __popc(bv & twos) +
+                           4 * __popc(bv & fours);
+          pm += 2 * (s_x + __popc(o[g] & vm)) - 2 * nb;
+          pe -= 4 * s_xc - 8 * s_x - 2 * s_c + 4 * nb;
+        }
+      }
+      __syncthreads();  // phase boundary
+      if (measure) {
+#pragma unroll
+        for (int off = 16; off; off >>= 1) {
+          pm += __shfl_down_sync(0xFFFFFFFFu, pm, off);
+          pe += __shfl_down_sync(0xFFFFFFFFu, pe, off);
+        }
+        if ((tid & 31) == 0) {
+          red[0][tid >> 5] = pm;
+          red[1][tid >> 5] = pe;
+        }
+        __syncthreads();
+        if (tid == 0) {
+          long long bm = 0, be = 0;
+          for (int w = 0; w < WARPS; ++w) {
+            bm += red[0][w];
+            be += red[1][w];
+          }
+          long long* dst = a.obs + (static_cast<size_t>(r) * a.sweeps + s) * 2;
+          dst[0] = bm;
+          dst[1] = be;
+        }
+      }
+    }
+  }
+  if (a.staged) {
+    for (int g = tid; g < nw; g += THREADS) {
+      a.wa[base + g] = A[g];
+      a.wb[base + g] = B[g];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory a block may stage vectors in: the opt-in maximum of the
+// current device less the kernel's static reduction buffer.
+int helical_smem_optin(int* bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, multisweep_kernel);
+  *bytes = e == cudaSuccess ? optin - static_cast<int>(attr.sharedSizeBytes)
+                            : 0;
+  return static_cast<int>(e);
+}
+
+// S sweeps (or, with bits, one phase of colour a with injected b4/b8):
+// grid of R blocks of 1024 threads.  wa_in/wb_in -> wa/wb; obs (R, S, 2)
+// is written whole when given.  staged: 1 to work in shared memory
+// (2 * W * 4 bytes, which must fit helical_smem_optin).
+int helical_multisweep(const void* wa_in, const void* wb_in, void* wa,
+                       void* wb, const void* seeds, const void* b4,
+                       const void* b8, void* obs, int nrep, int nw, int m,
+                       int sweeps, int bits, int staged, int da0, int da1,
+                       int da2, int da3, int db0, int db1, int db2, int db3,
+                       unsigned int q4, unsigned int q8, void* stream) {
+  HelicalArgs a;
+  a.wa_in = static_cast<const uint32_t*>(wa_in);
+  a.wb_in = static_cast<const uint32_t*>(wb_in);
+  a.wa = static_cast<uint32_t*>(wa);
+  a.wb = static_cast<uint32_t*>(wb);
+  a.seeds = static_cast<const int32_t*>(seeds);
+  a.b4 = static_cast<const uint32_t*>(b4);
+  a.b8 = static_cast<const uint32_t*>(b8);
+  a.obs = static_cast<long long*>(obs);
+  a.nw = nw;
+  a.m = m;
+  a.sweeps = sweeps;
+  a.bits = bits;
+  a.staged = staged;
+  a.da[0] = da0;
+  a.da[1] = da1;
+  a.da[2] = da2;
+  a.da[3] = da3;
+  a.db[0] = db0;
+  a.db[1] = db1;
+  a.db[2] = db2;
+  a.db[3] = db3;
+  a.q4 = q4;
+  a.q8 = q8;
+  const int smem = staged ? 2 * nw * static_cast<int>(sizeof(uint32_t)) : 0;
+  if (smem > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        multisweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  multisweep_kernel<<<nrep, THREADS, smem,
+                      static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* helical_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

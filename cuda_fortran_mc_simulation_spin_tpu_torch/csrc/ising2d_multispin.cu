@@ -52,6 +52,7 @@
 
 #include <cstdint>
 
+#include "bernoulli.cuh"
 #include "philox.cuh"
 
 namespace cg = cooperative_groups;
@@ -60,7 +61,6 @@ namespace {
 
 constexpr int TILE_Y = 8;   // word rows per tile (blockDim.y)
 constexpr int TILE_X = 32;  // words per tile row (blockDim.x, one warp)
-constexpr int CHAIN_BITS = 20;
 constexpr uint32_t ODD_BITS = 0xAAAAAAAAu;
 constexpr uint32_t EVEN_BITS = 0x55555555u;
 
@@ -76,20 +76,6 @@ struct PhaseArgs {
   uint2 key;             // Philox key of this (sample, t, phase)
   uint32_t q4, q8;       // chain digits: round(p * 2^20)
 };
-
-// Bernoulli(q / 2^20) word: digits d_1..d_20 are bits 19..0 of q; fold
-// B <- r | B on a one digit, r & B on a zero digit, from the last one
-// digit up to d_1 (ops/ising2d_multispin._bern_plane).
-__device__ __forceinline__ uint32_t bern_word(WordStream& s, uint32_t q) {
-  if (q == 0u) return 0u;
-  int k = __ffs(q) - 1;
-  uint32_t b = s.next();
-  for (++k; k < CHAIN_BITS; ++k) {
-    const uint32_t r = s.next();
-    b = ((q >> k) & 1u) ? (r | b) : (r & b);
-  }
-  return b;
-}
 
 // One tile of one colour phase.  Every thread of the block calls it
 // with the same (r, y0, x0); it ends with a barrier, so the caller may
@@ -135,12 +121,8 @@ __device__ __forceinline__ void phase_tile(
   const uint32_t dn = (oc >> 1) | (o_next << 31);
   const uint32_t side = a.color == 0 ? (plus & ODD_BITS) | (minus & EVEN_BITS)
                                      : (minus & ODD_BITS) | (plus & EVEN_BITS);
-  // bit-sliced count of (up, dn, oc, side)
-  const uint32_t s1 = up ^ dn, c1 = up & dn;
-  const uint32_t s2 = oc ^ side, c2 = oc & side;
-  const uint32_t ones = s1 ^ s2, c3 = s1 & s2;
-  const uint32_t twos = c1 ^ c2 ^ c3;
-  const uint32_t fours = (c1 & c2) | (c3 & (c1 ^ c2));
+  uint32_t ones, twos, fours;
+  count4(up, dn, oc, side, ones, twos, fours);
 
   uint32_t b4, b8;
   if (a.b4 != nullptr) {
@@ -152,14 +134,7 @@ __device__ __forceinline__ void phase_tile(
     b4 = bern_word(s, a.q4);
     b8 = bern_word(s, a.q8);
   }
-  const uint32_t nx = ~x, nf = ~fours;
-  const uint32_t c3p = twos & ones & nf;
-  const uint32_t c1p = ones & ~twos & nf;
-  const uint32_t c0p = ~(ones | twos | fours);
-  const uint32_t need4 = (x & c3p) | (nx & c1p);
-  const uint32_t need8 = (x & fours) | (nx & c0p);
-  const uint32_t flip = ~(need4 | need8) | (need4 & b4) | (need8 & b8);
-  const uint32_t nw = x ^ flip;
+  const uint32_t nw = x ^ flip4(x, ones, twos, fours, b4, b8);
   reinterpret_cast<uint32_t*>(a.x_out)[base + idx] = nw;
 
   if (a.obs != nullptr) {

@@ -23,7 +23,7 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 
 // Successive random words of one packed word position: draw n is word
 // n % 4 of Philox4x32-10 at counter (rep, wrow, col, n / 4) under the
-// phase key.  The plain version is ops/multispin_rng.granule_planes.
+// phase key.  The plain version is ops/multispin_rng.word_stream.
 struct WordStream {
   uint4 ctr;
   uint2 key;

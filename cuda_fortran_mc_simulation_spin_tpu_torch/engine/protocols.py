@@ -1,14 +1,14 @@
-"""NER protocols: the relaxation protocol of the 2-D Ising model.
+"""NER protocols: the relaxation protocol of the Ising models.
 
 Port of the relaxation path of
 ``cuda_fortran_mc_simulation_spin_tpu/engine/protocols.py``: per-sample
 initial states, the sweep/measure runner, host-side Kahan aggregation,
 and the reference-format ``.dat`` table on ``out`` with progress on
 ``err`` (stdout = dataset, stderr = progress).  The port serves the
-bit-packed multispin route; every other route of the JAX package (other
-models, protocols, over-relaxation, unpackable shapes, meshes) raises
-NotImplementedError naming the ROADMAP.md item that ports it, and never
-falls back.
+bit-packed routes: periodic 2-D and 3-D multispin, helical 2-D multispin.
+Every other route of the JAX package (other models, protocols,
+over-relaxation, unpackable shapes, meshes) raises NotImplementedError
+naming the ROADMAP.md item that ports it, and never falls back.
 
 Checkpoint/resume: pass ``checkpoint_path``; accumulators are saved
 every ``checkpoint_every`` histories and runs resume exactly
@@ -30,8 +30,16 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.config import (
 from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng, stats
 from cuda_fortran_mc_simulation_spin_tpu_torch.engine import sweep as sweep_mod
 from cuda_fortran_mc_simulation_spin_tpu_torch.io import checkpoint, datfmt
-from cuda_fortran_mc_simulation_spin_tpu_torch.models import build_model
-from cuda_fortran_mc_simulation_spin_tpu_torch.ops import ising2d_multispin
+from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+    Ising2DHelical,
+    Ising3D,
+    build_model,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+    helical_multispin,
+    ising2d_multispin,
+    ising3d_multispin,
+)
 
 
 def _header_fields(cfg: RunConfig, model, extra: dict | None = None
@@ -125,8 +133,8 @@ def _ensemble_loop(cfg, runner, fold, err, accs, base, batch, start,
 def _check_route(cfg, model) -> None:
     """Raise for every route of the JAX package that the port does not
     serve yet, naming the ROADMAP.md item that ports it.  ``build_model``
-    admits only ising2d, so what is left of the JAX package's
-    ``_multispin_eligible`` is the packable shape."""
+    admits only the Ising models, so what is left of the JAX package's
+    ``_multispin_eligible`` and helical eligibility is the shape."""
     if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
         raise NotImplementedError(
             "multi-device meshes are not ported yet (ROADMAP.md queue A "
@@ -135,12 +143,43 @@ def _check_route(cfg, model) -> None:
         raise NotImplementedError(
             "over-relaxation schedules belong to the XY model, not ported "
             "yet (ROADMAP.md queue A item 8)")
+    if isinstance(model, Ising2DHelical):
+        if not helical_multispin.fits(model):
+            raise NotImplementedError(
+                f"helical {cfg.nx}x{cfg.ny} does not fit the packed helical "
+                f"kernel (odd nx, even nx*ny, at most "
+                f"{helical_multispin.MAX_WORDS} words per colour); the "
+                "masked helical kernels that serve larger lattices are not "
+                "ported yet (ROADMAP.md queue B item 13)")
+        return
+    if isinstance(model, Ising3D):
+        shape = model.color_shape[1:]
+        if not ising3d_multispin.packable3d(*shape):
+            raise NotImplementedError(
+                f"{cfg.nx}x{cfg.ny}x{cfg.nz} is not packable (the 3-D "
+                "multispin route needs nx % 256 == 0 and ny % 256 == 0); "
+                "the int8 3-D phase kernels that serve other shapes are "
+                "not ported yet (ROADMAP.md queue B item 13)")
+        return
     if not ising2d_multispin.packable(*model.color_shape):
         raise NotImplementedError(
             f"{cfg.nx}x{cfg.ny} is not packable (the multispin route needs "
             "nx % 256 == 0 and ny % 256 == 0); the int8 phase kernels that "
             "serve other shapes are not ported yet (ROADMAP.md queue B "
             "item 13)")
+
+
+def _make_runner(cfg, model, batch: int, device):
+    """The route of the JAX package's ``_run_accumulating`` for the
+    served models."""
+    if isinstance(model, Ising2DHelical):
+        return sweep_mod.make_helical_runner(
+            model, cfg.mcs, batch, cfg.init_state, device=device)
+    if isinstance(model, Ising3D):
+        return sweep_mod.make_multispin3d_runner(
+            model, cfg.mcs, batch, cfg.init_state, device=device)
+    return sweep_mod.make_multispin_runner(
+        model, cfg.mcs, batch, cfg.init_state, device=device)
 
 
 def _run_accumulating(cfg, model, accumulators, fold, err,
@@ -151,8 +190,7 @@ def _run_accumulating(cfg, model, accumulators, fold, err,
     batch = cfg.replicas * cfg.samples_per_call
     if cfg.tot_sample % max(batch, 1):
         raise ValueError("tot_sample must be divisible by the batch size")
-    runner = sweep_mod.make_multispin_runner(
-        model, cfg.mcs, max(batch, 1), cfg.init_state, device=device)
+    runner = _make_runner(cfg, model, max(batch, 1), device)
     _stamp_engine(runner, err)
     start = 0
     if checkpoint_path:
@@ -171,8 +209,8 @@ def run_relaxation(cfg: RunConfig, out: IO[str] = sys.stdout,
                    checkpoint_path: str | None = None,
                    checkpoint_every: int = 0,
                    device="cuda") -> stats.VarianceCovarianceKahan:
-    """The reference's ising2d relaxation app: ordered (or random) start,
-    per-sweep m and e, their variances and covariance."""
+    """The reference's ising2d/ising3d relaxation apps: ordered (or
+    random) start, per-sweep m and e, their variances and covariance."""
     dev = resolve_device(device)
     model = build_model(cfg)
     _check_route(cfg, model)

@@ -1,10 +1,11 @@
-"""Monte Carlo schedules of the bit-packed Ising2D engine.
+"""Monte Carlo schedules of the bit-packed Ising engines.
 
 Port of the multispin part of
 ``cuda_fortran_mc_simulation_spin_tpu/engine/sweep.py``
 (``_host_chunk_runner``, ``_make_packed_runner``,
-``make_multispin_runner``).  A ``lax.scan`` there is a Python loop over
-kernel launches here.  The JAX runner sizes its dispatches from TPU
+``make_multispin_runner``, ``make_multispin3d_runner`` and the Ising
+branch of ``make_helical_runner``).  A ``lax.scan`` there is a Python loop
+over kernel launches here.  The JAX runner sizes its dispatches from TPU
 rates to stay under the TPU worker's deadline; the port has no such
 deadline and chunks by a fixed sweep count (``DEFAULT_CHUNK`` = 64, the
 multisweep kernel's S).  Sweep keys are pure functions of the global
@@ -25,7 +26,11 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
     CheckerboardState,
 )
-from cuda_fortran_mc_simulation_spin_tpu_torch.ops import ising2d_multispin
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+    helical_multispin,
+    ising2d_multispin,
+    ising3d_multispin,
+)
 
 DEFAULT_CHUNK = 64
 
@@ -55,7 +60,9 @@ def _host_chunk_runner(init_fn, chunk_fn, mcs: int, dispatch_chunk: int):
 
 
 def _init_planes(model, init_kind: str, batch: int, call_key, device):
-    """Packed (wa, wb) initial planes of a batch of replicas."""
+    """Packed (wa, wb) initial planes (2-D) or volumes (3-D) of a batch of
+    replicas; replica r of a random start is keyed by
+    fold_in(init_key, r)."""
     if init_kind == "allup":
         state = model.init_state("allup", device=device, batch=(batch,))
     else:
@@ -65,21 +72,46 @@ def _init_planes(model, init_kind: str, batch: int, call_key, device):
                   for r in range(batch)]
         state = CheckerboardState(torch.stack([s.a for s in states]),
                                   torch.stack([s.b for s in states]))
+    # the 3-D layout packs along y exactly as the 2-D one
     return (ising2d_multispin.pack_color(state.a),
             ising2d_multispin.pack_color(state.b))
 
 
+def _init_helical_planes(model, init_kind: str, batch: int, call_key,
+                         device):
+    """Packed (wa, wb) flat colour vectors of a batch of helical replicas,
+    keyed as :func:`_init_planes` keys them."""
+    if init_kind == "allup":
+        flat = model.init_state("allup", device=device, batch=(batch,))
+    else:
+        keys = rng.fold_in(rng.init_key(call_key),
+                           torch.arange(batch, dtype=torch.int64))
+        flat = torch.stack([model.init_state(init_kind, keys[r],
+                                             device=device)
+                            for r in range(batch)])
+    m = model.nsites // 2
+    a, b = helical_multispin.split_flat(flat)
+    return helical_multispin.pack_flat(a, m), helical_multispin.pack_flat(b, m)
+
+
 def _make_packed_runner(model, mcs: int, batch: int, init_kind: str,
-                        resident: bool, device, chunk: int):
-    """Init + pack once, then chunks of either multisweeps (``resident``)
-    or streamed phase pairs, with the per-sweep fused (m, e) either way."""
+                        resident: bool, device, chunk: int,
+                        multisweep=ising2d_multispin.multisweep_packed,
+                        sweep_measure=ising2d_multispin.sweep_measure_seeded,
+                        init_planes=_init_planes):
+    """Init + pack once (``init_planes``), then chunks of either
+    ``multisweep`` launches (``resident``) or streamed ``sweep_measure``
+    phase pairs, with the per-sweep fused (m, e) either way; the defaults
+    are the 2-D engine's entries, ops/ising3d_multispin.py has the 3-D ones
+    and ops/helical_multispin.py the helical multisweep."""
+
     def init_fn(call_key):
-        return _init_planes(model, init_kind, batch, call_key, device)
+        return init_planes(model, init_kind, batch, call_key, device)
 
     if resident:
         def chunk_fn(c, call_key, t0, size):
-            wa, wb, obs = ising2d_multispin.multisweep_packed(
-                model, c[0], c[1], call_key, size, t0=t0)
+            wa, wb, obs = multisweep(model, c[0], c[1], call_key, size,
+                                     t0=t0)
             return (wa, wb), obs
     else:
         def chunk_fn(c, call_key, t0, size):
@@ -88,8 +120,7 @@ def _make_packed_runner(model, mcs: int, batch: int, init_kind: str,
             wa, wb = c
             series = {"m": [], "e": []}
             for j in range(size):
-                wa, wb, obs = ising2d_multispin.sweep_measure_seeded(
-                    model, wa, wb, seeds[j])
+                wa, wb, obs = sweep_measure(model, wa, wb, seeds[j])
                 for k in series:
                     series[k].append(obs[k])
             return (wa, wb), {k: torch.stack(v, dim=1)
@@ -110,3 +141,33 @@ def make_multispin_runner(model, mcs: int, batch: int,
     ), "ising2d_multispin bit-packed "
        + ("(resident multisweep)" if resident
           else "(streaming phase pairs)"))
+
+
+def make_multispin3d_runner(model, mcs: int, batch: int,
+                            init_kind: str = "allup", device="cuda"
+                            ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
+    """3-D counterpart of :func:`make_multispin_runner`
+    (ops/ising3d_multispin.py): batches within the multisweep bound run
+    S-sweep multisweep launches; larger ones stream z-plane phase pairs."""
+    resident = ising3d_multispin.multisweep3d_fits(batch, *model.color_shape)
+    return _tag(_make_packed_runner(
+        model, mcs, batch, init_kind, resident, device, DEFAULT_CHUNK,
+        multisweep=ising3d_multispin.multisweep_packed3d,
+        sweep_measure=ising3d_multispin.sweep_measure_seeded3d,
+    ), "ising3d_multispin bit-packed "
+       + ("(resident multisweep)" if resident
+          else "(streaming z-plane phases)"))
+
+
+def make_helical_runner(model, mcs: int, batch: int,
+                        init_kind: str = "allup", device="cuda"
+                        ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
+    """`run(call_key) -> {m, e: (batch, mcs) float64}` on the flat
+    even/odd bit-packed helical kernel (ops/helical_multispin.py): one
+    resident multisweep launch per chunk of sweeps, keyed by the global
+    sweep index as the periodic runners are."""
+    return _tag(_make_packed_runner(
+        model, mcs, batch, init_kind, True, device, DEFAULT_CHUNK,
+        multisweep=helical_multispin.multisweep,
+        init_planes=_init_helical_planes,
+    ), "helical_multispin (flat even/odd bit-packed)")

@@ -1,13 +1,21 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
-Both packages store a 2-D state the same way: the dual-colour
-``CheckerboardState`` int8 planes (..., ny, nx//2), or the packed int32
-planes (..., ny//32, nx//2) of the multispin engine, and the Kahan
-accumulators' ``state_dict``.  These functions take the JAX package's
-state as numpy arrays (``np.asarray`` of its jax arrays) and build the
-port's on the CPU (``.to(device)`` moves them), and the reverse, so that tests feed both packages one state and
-a checkpoint moves between them.  This module imports neither package's
+The functions below take the JAX package's state as numpy arrays
+(``np.asarray`` of its jax arrays, copied here because those are
+read-only) and build the port's on the CPU (``.to(device)`` moves them),
+and the reverse, so that tests feed both packages one state and a
+checkpoint moves between them.  This module imports neither package's
 JAX code.
+
+Both packages store these states the same way, so the converters take
+any leading shape: the dual-colour ``CheckerboardState`` int8 planes
+(..., ny, nx//2) and 3-D volumes (..., nz, ny, nx//2); the packed int32
+planes (..., ny//32, nx//2) of the 2-D multispin engine and volumes
+(..., nz, ny//32, nx//2) of the 3-D one; and the Kahan accumulators'
+``state_dict``.  The helical colour vectors differ only in shape: JAX
+keeps the flat words in a (..., rows, 128) grid (rows a multiple of 8),
+the port in (..., W), W = ceil(M/32); flat word g is the same word in
+both, and the JAX grid's extra words are zero.
 """
 
 from __future__ import annotations
@@ -25,8 +33,8 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
 def checkerboard_from_numpy(a, b) -> CheckerboardState:
     """int8 colour planes (numpy) -> the port's CheckerboardState."""
     return CheckerboardState(
-        torch.from_numpy(np.ascontiguousarray(a, dtype=np.int8)),
-        torch.from_numpy(np.ascontiguousarray(b, dtype=np.int8)))
+        torch.from_numpy(np.array(a, dtype=np.int8)),
+        torch.from_numpy(np.array(b, dtype=np.int8)))
 
 
 def checkerboard_to_numpy(state: CheckerboardState
@@ -39,13 +47,32 @@ def checkerboard_to_numpy(state: CheckerboardState
 def packed_from_numpy(wa, wb) -> tuple[torch.Tensor, torch.Tensor]:
     """Packed int32 planes (numpy) -> the port's packed planes."""
     return tuple(
-        torch.from_numpy(np.ascontiguousarray(w, dtype=np.int32))
+        torch.from_numpy(np.array(w, dtype=np.int32))
         for w in (wa, wb))
 
 
 def packed_to_numpy(wa, wb) -> tuple[np.ndarray, np.ndarray]:
     return (wa.cpu().numpy().astype(np.int32),
             wb.cpu().numpy().astype(np.int32))
+
+
+def helical_from_numpy(w, m: int) -> torch.Tensor:
+    """JAX helical words (..., rows, 128) int32 (numpy) -> the port's
+    (..., W) colour vectors for M = ``m`` sites."""
+    w = np.asarray(w, dtype=np.int32)
+    flat = w.reshape(w.shape[:-2] + (-1,))[..., :-(-m // 32)]
+    return torch.from_numpy(np.array(flat))
+
+
+def helical_to_numpy(w: torch.Tensor, m: int) -> np.ndarray:
+    """The port's (..., W) colour vectors -> the JAX grid (..., rows, 128)
+    int32, rows the JAX package's grid_rows(m), extra words zero."""
+    nw = -(-m // 32)
+    rows = -(-nw // (128 * 8)) * 8    # word rows of 128, a multiple of 8
+    flat = w.cpu().numpy().astype(np.int32)
+    pad = np.zeros(flat.shape[:-1] + (rows * 128 - nw,), dtype=np.int32)
+    return np.concatenate([flat, pad], axis=-1).reshape(
+        flat.shape[:-1] + (rows, 128))
 
 
 def stats_state_from_numpy(d: Mapping[str, object]) -> dict:

@@ -10,9 +10,11 @@ drawn from Philox4x32-10:
     counter = (replica, word row, column, n // 4)
     word    = output n % 4                         for draw n = 0, 1, ...
 
-The CUDA kernels evaluate the same function per thread
-(``csrc/philox.cuh`` ``WordStream``); :func:`word_stream` is its plain
-PyTorch version on whole planes.  Because the counter names the word's
+The 3-D engine stacks its z-planes along the word rows (word row z·nyp +
+Y) and the helical engine names word g of a colour vector as (g, 0), so
+one counter layout serves all three.  The CUDA kernels evaluate the same
+function per thread (``csrc/philox.cuh`` ``WordStream``); :func:`word_stream`
+is its plain PyTorch version on whole planes.  Because the counter names the word's
 global position, the bits depend on neither the tiling, the host chunking
 nor the kernel, and every run is deterministic.
 """

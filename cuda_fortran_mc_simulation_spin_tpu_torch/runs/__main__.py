@@ -8,6 +8,10 @@ raises)::
         --model ising2d --nx 2048 --ny 2048 --kbt 2.26918531421 \\
         --mcs 1000 --samples 64 --replicas 16 --output ising2d.dat
 
+Odd ``--nx`` runs the helical 2-D lattice (``--nx 1001 --ny 1000``, the
+reference's geometry); ``--model ising3d`` with even dims the periodic
+3-D one (``--nx 512 --ny 512 --nz 512 --kbt 4.51152``).
+
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of
 routes the port does not serve yet (--mesh, --profile-dir, --backend

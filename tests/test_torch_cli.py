@@ -101,9 +101,9 @@ def test_cuda_without_a_card_raises(tmp_path):
     (["--backend", "jnp"], "backend"),
     (["--protocol", "samples"], "queue A item 8"),
     (["--model", "clock"], "queue A item 7"),
-    (["--model", "ising3d"], "queue A item 6"),
+    (["--model", "ising3d", "--nx", "255", "--nz", "4"], "queue A item 6"),
     (["--model", "xy2d"], "queue A item 8"),
-    (["--nx", "255"], "queue A item 5"),
+    (["--nx", "4097", "--ny", "2048"], "queue B item 13"),
     (["--nx", "128", "--ny", "128"], "queue B item 13"),
     (["--n-over-relax", "2"], "queue A item 8"),
 ])

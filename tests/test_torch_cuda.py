@@ -2,7 +2,9 @@
 
 These need an NVIDIA GPU with nvcc; without one they skip (the check is
 made inside the fixture, never at import).  chip_smoke.py runs the same
-checks, at the main path's shapes, on the card."""
+checks, at the main path's shapes, on the card.  On a machine with a card
+and no JAX: ``python -m pytest tests/test_torch_cuda.py --noconftest``
+(tests/conftest.py sets up JAX for the JAX package's tests)."""
 
 import numpy as np
 import pytest
@@ -77,3 +79,98 @@ def test_cuda_runner_equals_cpu_runner(cuda):
                                            "cpu", 4)(key)
         for k in ("m", "e"):
             assert torch.equal(on_card[k].cpu(), on_cpu[k])
+
+
+def _helical_vectors(dev, nrep, m, seed):
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+    )
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy(g.integers(-2 ** 31, 2 ** 31,
+                                        size=(nrep, hms.words(m)),
+                                        dtype=np.int64).astype(np.int32)
+                             ).to(dev) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(131, 62), (1001, 1000), (2001, 2000)])
+def test_helical_kernel_matches_plain(cuda, nx, ny):
+    """Injected-bits mode on the valid bits; S sweeps against its plain
+    version and against S one-sweep launches; the fused (m, e) against the
+    exact sums of the unpacked state.  2001x2000 (2 x 244 KiB a replica)
+    is over the shared memory, so the kernel works in device memory."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Ising2DHelical,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+    )
+    m = nx * ny // 2
+    model = Ising2DHelical(nx, ny, KBT)
+    x, o, b4, b8 = _helical_vectors(cuda, 2, m, nx)
+    for offs in hms.helical_offsets(nx):
+        got = hms.phase_packed_with_bits(x, o, b4, b8, offs=offs, m=m)
+        want = hms.packed_helical_phase_reference(x, o, offs, b4, b8, m)
+        assert torch.equal(hms.unpack_flat(got, m), hms.unpack_flat(want, m))
+    seeds = hms.sweep_seed_pairs(rng.sample_key(rng.base_key(2), 0), 4)
+    kw = dict(beta=1 / KBT, nx=nx, m=m)
+    assert hms.staged_fits(hms.words(m), cuda) == (nx < 2001)
+    ka, kb, kobs = hms.multisweep_planes(x, o, seeds, **kw)
+    pa, pb, pobs = hms.multisweep_plain(x, o, seeds, **kw)
+    vm = hms.valid_mask(m, cuda)
+    for w, want in zip((ka, kb), (pa, pb)):
+        assert torch.equal(hms._u32(w) & vm, hms._u32(want) & vm)
+    assert torch.equal(kobs, pobs)
+    sa, sb = x, o
+    for s in range(4):
+        sa, sb, so = hms.multisweep_planes(sa, sb, seeds[s:s + 1], **kw)
+        assert torch.equal(so[:, 0], kobs[:, s])
+    flat = hms.merge_flat(hms.unpack_flat(ka, m), hms.unpack_flat(kb, m))
+    exact = torch.stack([model.magne_sum(flat), model.energy_sum(flat)], -1)
+    assert torch.equal(kobs[:, -1], exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color", [0, 1])
+def test_ising3d_phase_kernel_matches_plain(cuda, color):
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising3d_multispin as ms3,
+    )
+    g = np.random.default_rng(color)
+    x, o, b4, b8, b12 = (torch.from_numpy(g.integers(
+        -2 ** 31, 2 ** 31, size=(2, 4, 8, 128), dtype=np.int64).astype(
+            np.int32)).to(cuda) for _ in range(5))
+    assert torch.equal(
+        ms3.phase3d_packed_with_bits(x, o, b4, b8, b12, color=color),
+        ms3.packed_phase3d_reference(x, o, color, b4, b8, b12))
+    seeds = rng.seeds_from_key(rng.base_key(3), color)
+    got, obs = ms3.phase3d_packed(x, o, seeds, color=color, beta=1 / 4.51152,
+                                  measuring=True)
+    want, wobs = ms3.phase3d_plain(x, o, seeds, color=color,
+                                   beta=1 / 4.51152, measuring=True)
+    assert torch.equal(got, want) and torch.equal(obs, wobs)
+
+
+@pytest.mark.cuda
+def test_ising3d_multisweep_kernel_matches_phase_pairs(cuda):
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising3d_multispin as ms3,
+    )
+    g = np.random.default_rng(7)
+    wa, wb = (torch.from_numpy(g.integers(
+        -2 ** 31, 2 ** 31, size=(2, 4, 8, 128), dtype=np.int64).astype(
+            np.int32)).to(cuda) for _ in range(2))
+    seeds = ms3.sweep_seed_pairs(rng.sample_key(rng.base_key(1), 0), 6)
+    beta = 1 / 4.51152
+    ka, kb, kobs = ms3.multisweep3d_planes(wa, wb, seeds, beta=beta)
+    pa, pb, obs = wa, wb, []
+    for s in range(6):
+        pa = ms3.phase3d_packed(pa, pb, seeds[s, 0], color=0, beta=beta)
+        pb, o = ms3.phase3d_packed(pb, pa, seeds[s, 1], color=1, beta=beta,
+                                   measuring=True)
+        obs.append(o)
+    assert torch.equal(ka, pa) and torch.equal(kb, pb)
+    assert torch.equal(kobs, torch.stack(obs, dim=1))
+    qa, qb, qobs = ms3.multisweep3d_plain(wa, wb, seeds, beta=beta)
+    assert torch.equal(ka, qa) and torch.equal(kb, qb)
+    assert torch.equal(kobs, qobs)

@@ -64,3 +64,13 @@ def test_no_file_imports_jax_or_the_jax_package(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib"), (path, name)
         assert top != JAX_PKG, (path, name)
+
+
+def test_the_slices_modules_are_checked():
+    """The hygiene tests above walk the whole package: every ported
+    slice's modules are among what they import."""
+    mods = set(_port_modules())
+    for name in ("ops.ising2d_multispin", "ops.helical_multispin",
+                 "ops.ising3d_multispin", "models.ising2d_helical",
+                 "models.ising3d"):
+        assert f"cuda_fortran_mc_simulation_spin_tpu_torch.{name}" in mods

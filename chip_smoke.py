@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's three relaxation paths through the CLI on the card:
+Drives the port's four relaxation paths through the CLI on the card:
 the periodic 2-D Ising NER relaxation at Tc, the helical 2-D one at the
-reference's 1001x1000 geometry, and the periodic 3-D one at 512^3; and
-holds every kernel of those paths against its plain PyTorch version.
+reference's 1001x1000 geometry, the periodic 3-D one at 512^3, and the
+helical 3-D one at the reference's 151x151x150, 501x501x500 and
+1001x1000x1000; and holds every kernel of those paths against its plain
+PyTorch version.
 Phases (each prints a progress line on stderr):
 
 1. build the CUDA sources (csrc/*.cu) from scratch with nvcc, all at once;
@@ -23,8 +25,18 @@ Phases (each prints a progress line on stderr):
      bits, Philox bits and the fused (m, e) (also against the exact sums);
      the multisweep kernel over 64 sweeps (the runner's chunk) at 256^3 x
      4 against 64 phase-kernel pairs and its plain version;
+   - helical 3-D, at 151x151x150 x 8 (27 bits in the last word), 501x501x500
+     x 1 and 1001x1000x1000 x 1: the phase kernel with injected bits,
+     Philox bits, each z-parity sub-phase (even nx*ny) and the fused
+     (m, e); the energy kernel (also against the exact sums at 151^3); the
+     multisweep kernel over 64 sweeps at 151^3 x 8 against 64 streamed
+     phase pairs and its plain version;
 2b. <m>, <e> after one sweep from all-up against their closed forms for
-   the chains' quantized acceptances, over >= 1e10 sites per path;
+   the chains' quantized acceptances, over >= 1e10 sites per path (helical
+   3-D at 151^3 and 501^3, where every neighbour lies in the other
+   colour); at even nx*ny (101x100x100, four z-parity sub-phases) a
+   two-sample test of the kernels against the int8 model on the card over
+   >= 1e9 site-samples each;
 3. 2-D resident class: 2048^2, 16 replicas, 64 samples, 1000 MCS through
    the multisweep kernel;
 4. 2-D streaming class: 8192^2, 4 replicas, 4 samples, 200 MCS through
@@ -38,12 +50,20 @@ Phases (each prints a progress line on stderr):
    16 samples, 200 MCS through the 3-D multisweep kernel; both against
    data/production/ising3d_512_mcs1000_s1024.dat within 5 combined
    standard errors (the reference has only 1024 samples);
+4c. helical 3-D classes, from all-up, within 5 combined standard errors
+   of the reference's curves where those are sound (ROADMAP C2, C3):
+   resident 151x151x150 x 128 replicas, 128 samples, 1000 MCS through the
+   multisweep kernel (t >= 100); streamed 501x501x500 x 2, 2 samples at
+   the 16-sample curve's times up to 1000 through the measuring phase
+   kernel (t >= 100); streamed 1001x1000x1000 x 2, 2 samples, 1000 MCS
+   through four sub-phase launches and an energy launch a sweep, against
+   the 90-sample curve with the 16 racy samples taken out (t >= 150);
 5. times with CUDA events, beside each kernel's bound and its plain
    version's time, at the main paths' launch shapes (the helical kernel
    at 128 x 1001x1000, S = 64); the kernel's output there is held against
    the plain version's, bitwise, too; then each runner's two routes (one
    multisweep launch per S sweeps, or S streamed phase pairs) at and
-   between the paths' shapes.
+   between the paths' shapes, and the helical 3-D routes at 151^3 x 128.
 
 It prints the kernels' JSON line, the card's `nvidia-smi` name and power
 limit, and last the device line.  It exits non-zero, printing no result,
@@ -67,8 +87,15 @@ ROOT = Path(__file__).resolve().parent
 PRODUCTION = ROOT / "data" / "production"
 REFERENCE_DAT = PRODUCTION / "ising2d_1001x1000_mcs1000_s1440000.dat"
 REFERENCE_3D_DAT = PRODUCTION / "ising3d_512_mcs1000_s1024.dat"
+REFERENCE_H3_151 = PRODUCTION / "ising3d_151x151x150_mcs1000_s10000.dat"
+REFERENCE_H3_501 = (PRODUCTION
+                    / "ising3d_501x501x500_specific_times_mcs10000_s16.dat")
+REFERENCE_H3_1001 = PRODUCTION / "ising3d_1001x1000x1000_mcs1000_s500.dat"
+RACY_H3_1001 = PRODUCTION / "ising3d_1001x1000x1000_mcs1000_s16.dat"
 KBT = 2.26918531421
 KBT_3D = 4.51152
+KBT_H3 = 4.511454583186711          # 151^3 and 1001x1000x1000 curves
+KBT_H3_501 = 4.51152174982078       # the 501^3 curve
 SIGMAS = 5.0
 # H100 SXM peaks at 700 W.  HBM3 bytes/s: NVIDIA data sheet.  32-bit
 # integer instructions/s: an assumption, the SMs' issue limit of 132 SMs
@@ -93,6 +120,12 @@ OPS_HELICAL_SHIFTS = 8
 OPS_STENCIL_FLIP_3D = 40
 OPS_MEASURE = 16
 OPS_HELICAL_MASKS = 6
+# helical 3-D: 6 funnel shifts and 6 wrap selects; the z-parity word of a
+# sub-phase; the energy pass per word: 6 modular reads (8 each) and 6
+# xor-and-popcount-add, and the magnetisation's 2 popcounts and 3 adds
+OPS_HELICAL3D_SHIFTS = 12
+OPS_ZMASK = 8
+OPS_ENERGY = 6 * 8 + 6 * 4 + 5
 
 T0 = time.perf_counter()
 
@@ -133,6 +166,12 @@ def helical_phase_ops_per_word(msb, beta: float, measuring: bool) -> int:
 def phase3d_ops_per_word(msb, ms3, beta: float, measuring: bool) -> int:
     return (chain_ops(msb, ms3.chain_words3d(beta)) + OPS_STENCIL_FLIP_3D
             + (OPS_MEASURE if measuring else 0))
+
+
+def helical3d_phase_ops_per_word(msb, ms3, beta: float,
+                                 measuring: bool) -> int:
+    return (phase3d_ops_per_word(msb, ms3, beta, measuring)
+            + OPS_HELICAL3D_SHIFTS + (OPS_HELICAL_MASKS if measuring else 0))
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -257,7 +296,8 @@ def check_kernels(msb, rng, dev, shapes) -> dict[str, int]:
 
 
 def helical_exact(model, hms, wa, wb) -> torch.Tensor:
-    """(R, 2) exact (m, e) sums of the unpacked helical state."""
+    """(R, 2) exact (m, e) sums of the unpacked helical (2-D or 3-D)
+    state."""
     m = model.nsites // 2
     flat = hms.merge_flat(hms.unpack_flat(wa, m), hms.unpack_flat(wb, m))
     return torch.stack([model.magne_sum(flat), model.energy_sum(flat)], -1)
@@ -416,6 +456,99 @@ def check_ising3d(msb, ms3, rng, dev) -> dict[str, int]:
     return errs
 
 
+H3_CHECK_SHAPES = ((8, 151, 151, 150), (1, 501, 501, 500),
+                   (1, 1001, 1000, 1000))
+
+
+def check_helical3d(h3, hms, rng, dev) -> dict[str, int]:
+    """Helical 3-D kernels vs their plain versions on the same CUDA
+    tensors, bitwise on the valid bits; returns the largest absolute
+    difference seen per kernel."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Ising3DHelical,
+    )
+
+    beta = 1.0 / KBT_H3
+    errs = {"phase": 0, "energy": 0, "multisweep": 0}
+
+    def valid(w, m):
+        return hms._u32(w) & hms.valid_mask(m, dev)
+
+    for nrep, nx, ny, nz in H3_CHECK_SHAPES:
+        model = Ising3DHelical(nx, ny, nz, KBT_H3)
+        nxy, m = model.nxy, model.nsites // 2
+        geom = dict(nx=nx, nxy=nxy, m=m)
+        x, o, b4, b8 = random_words((nrep, hms.words(m)), nz + nrep, dev)
+        b12 = random_words((nrep, hms.words(m)), nz + 1, dev, n=1)[0]
+        seeds = h3.sweep_keys(model, rng.sample_key(rng.base_key(10), nx), 1)
+        for i, (color, zsub) in enumerate(h3.sub_phases(model)):
+            offs_cross, offs_self = h3._stencil(nx, nxy, color)
+            zmask = None if zsub is None else h3.zmask_words(nxy, m, dev)
+            e = max_abs_err([(
+                valid(h3.phase_packed_with_bits(x, o, b4, b8, b12,
+                                                color=color, zsub=zsub,
+                                                **geom), m),
+                valid(h3.packed_phase_reference(
+                    x, o, offs_cross, offs_self, b4, b8, b12, m,
+                    zmask=zmask, zsub=zsub or 0), m))])
+            key = seeds[0, i]
+            kw = dict(color=color, zsub=zsub, beta=beta, **geom)
+            e_r = max_abs_err([(
+                valid(h3.phase_packed(x, o, key, **kw), m),
+                valid(h3.phase_plain(x, o, key, **kw), m))])
+            got, got_obs = h3.phase_packed(x, o, key, measuring=True,
+                                           **kw)
+            want, want_obs = h3.phase_plain(x, o, key, measuring=True,
+                                            **kw)
+            e_m = max_abs_err([(valid(got, m), valid(want, m)),
+                               (got_obs, want_obs)])
+            errs["phase"] = max(errs["phase"], e, e_r, e_m)
+            log(f"  helical3d phase kernel {nrep}x{nx}x{ny}x{nz} (M {m}, "
+                f"{m % 32 or 32} bits in the last word) colour {color} "
+                f"zsub {zsub}: bits {e}, philox {e_r}, measuring {e_m}")
+        got = h3.energy_sums(x, o, **geom)
+        e_e = max_abs_err([(got, h3.energy_sums_plain(x, o, **geom))])
+        exact = model.nsites * nrep < 10 ** 8   # unpacks to int64 sums
+        e_x = (max_abs_err([(got, helical_exact(model, hms, x, o))])
+               if exact else 0)
+        errs["energy"] = max(errs["energy"], e_e, e_x)
+        log(f"  helical3d energy kernel {nrep}x{nx}x{ny}x{nz}: vs plain "
+            f"{e_e}" + (f", vs exact sums {e_x}" if exact else ""))
+        del x, o, b4, b8, b12, got, want
+    # 64 sweeps at 151^3 x 8: one launch, 64 streamed phase pairs, plain
+    nrep, sweeps = 8, 64
+    model = Ising3DHelical(151, 151, 150, KBT_H3)
+    geom = dict(nx=151, nxy=model.nxy, m=model.nsites // 2)
+    m = geom["m"]
+    wa, wb = random_words((nrep, hms.words(m)), 16, dev, n=2)
+    seeds = h3.sweep_keys(model, rng.sample_key(rng.base_key(10), 1), sweeps)
+    ka, kb, kobs = h3.multisweep_planes(wa, wb, seeds, beta=beta, **geom)
+    sa, sb, sobs = wa, wb, []
+    for s in range(sweeps):
+        sa = h3.phase_packed(sa, sb, seeds[s, 0], color=0, beta=beta, **geom)
+        sb, ob = h3.phase_packed(sb, sa, seeds[s, 1], color=1, beta=beta,
+                                 measuring=True, **geom)
+        sobs.append(ob)
+    e_pairs = max_abs_err([(valid(ka, m), valid(sa, m)),
+                           (valid(kb, m), valid(sb, m)),
+                           (kobs, torch.stack(sobs, dim=1))])
+    pa, pb, pobs = h3.multisweep_plain(wa, wb, seeds, beta=beta, **geom)
+    e_plain = max_abs_err([(valid(ka, m), valid(pa, m)),
+                           (valid(kb, m), valid(pb, m)), (kobs, pobs)])
+    e_exact = max_abs_err([(kobs[:, -1], helical_exact(model, hms, ka,
+                                                         kb))])
+    errs["multisweep"] = max(e_pairs, e_plain, e_exact)
+    log(f"  helical3d multisweep kernel {nrep}x151x151x150 S={sweeps}: vs "
+        f"{sweeps} phase pairs {e_pairs}, vs plain {e_plain}, (m, e) vs "
+        f"exact sums {e_exact}")
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        if e != 0:
+            fail(f"helical3d {name} kernel differs from its plain version "
+                 f"(max abs err {e})")
+    return errs
+
+
 def first_sweep_exact(msb, beta: float) -> tuple[float, float]:
     """Exact E[m], E[e] per site after one sweep from all-up, for the
     chains' quantized acceptances p4, p8, on any lattice whose sites have
@@ -537,6 +670,101 @@ def check_first_sweep_3d(ms3, rng, dev, ref_row, iters: int) -> None:
             first_sweep_exact3d(ms3, beta), (ref_row[7], ref_row[8]))
 
 
+def check_first_sweep_helical3d(h3, ms3, hms, rng, dev, ref_row, dims,
+                                kbt: float, nrep: int, iters: int) -> None:
+    """Helical 3-D <m>(1), <e>(1) over iters x nrep replicas at odd nx·ny,
+    on the route the runner takes: every neighbour lies in the other
+    colour, so the periodic closed form is exact.  The variance is the
+    periodic 512^3 curve's N·Var at t = 1 (the helical curves' t = 1 rows
+    are unsound, ROADMAP C2)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Ising3DHelical,
+    )
+
+    model = Ising3DHelical(*dims, kbt)
+    m = model.nsites // 2
+    geom = dict(nx=model.nx, nxy=model.nxy, m=m, beta=model.beta)
+    up = torch.full((nrep, hms.words(m)), -1, dtype=torch.int32, device=dev)
+    total = torch.zeros(2, dtype=torch.int64, device=dev)
+    base = rng.base_key(2027 + model.nx)
+    for it in range(iters):
+        seeds = h3.sweep_keys(model, rng.sample_key(base, it), 1)
+        if h3.fits(model):
+            _, _, obs = h3.multisweep_planes(up, up, seeds, **geom)
+            total += obs[:, 0].sum(dim=0)
+        else:
+            wa = h3.phase_packed(up, up, seeds[0, 0], color=0, **geom)
+            _, obs = h3.phase_packed(up, wa, seeds[0, 1], color=1,
+                                     measuring=True, **geom)
+            total += obs.sum(dim=0)
+    check_z("helical 3-D {}x{}x{}".format(*dims), total,
+            iters * nrep * model.nsites,
+            first_sweep_exact3d(ms3, model.beta), (ref_row[7], ref_row[8]))
+
+
+def check_first_sweep_even(h3, hms, rng, dev, nrep: int, calls: int,
+                           batch: int, batches: int) -> float:
+    """Even nx·ny (101x100x100): <m>(1), <e>(1) of the kernels (four
+    z-parity sub-phase launches and the energy launch, calls x nrep
+    replicas) against the int8 model's sweep on the card (batches x batch
+    replicas), a two-sample z-test on the per-replica values.  No closed
+    form is at hand: the local structure changes near the helix's plane
+    crossings.  Returns the largest |z|."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Ising3DHelical,
+    )
+
+    model = Ising3DHelical(101, 100, 100, KBT_H3)
+    m = model.nsites // 2
+    kern = {"m": [], "e": []}
+    base = rng.base_key(2030)
+    for c in range(calls):
+        up = torch.full((nrep, hms.words(m)), -1, dtype=torch.int32,
+                        device=dev)
+        seeds = h3.sweep_keys(model, rng.sample_key(base, c), 1)[0]
+        _, _, obs = h3.sweep_measure_seeded(model, up, up, seeds)
+        for k in kern:
+            kern[k].append(obs[k])
+    oracle = {"m": [], "e": []}
+    base = rng.base_key(2031)
+    for c in range(batches):
+        flat = model.init_state("allup", device=dev, batch=(batch,))
+        flat = model.sweep(flat, rng.sweep_key(rng.sample_key(base, c), 1))
+        oracle["m"].append(model.magne_sum(flat).double() / model.nsites)
+        oracle["e"].append(model.energy_sum(flat).double() / model.nsites)
+        del flat
+    worst = 0.0
+    for k in ("m", "e"):
+        a, b = torch.cat(kern[k]), torch.cat(oracle[k])
+        z = float((a.mean() - b.mean())
+                  / torch.sqrt(a.var() / a.numel() + b.var() / b.numel()))
+        log(f"  even nx*ny 101x100x100 first sweep <{k}>: kernels "
+            f"{float(a.mean()):.7f} over {a.numel() * model.nsites:.3g} "
+            f"sites, int8 model {float(b.mean()):.7f} over "
+            f"{b.numel() * model.nsites:.3g} sites, z {z:+.2f}")
+        worst = max(worst, abs(z))
+        if abs(z) > SIGMAS:
+            fail(f"even nx*ny first-sweep <{k}> is {z:+.2f} sigma from the "
+                 "int8 model")
+    return worst
+
+
+def cleaned_1001_curve(raw: np.ndarray, racy: np.ndarray) -> np.ndarray:
+    """ROADMAP C3: the 1001x1000x1000 rows (90 samples) with the 16 racy
+    samples of the _s16 run taken out, (90·row - 16·row_s16)/74 on the mean
+    and second-moment columns, the N·Var columns recomputed from them
+    (unbiased, as the port's statistics are) and the covariance dropped."""
+    n_raw, n_racy = raw[0, 1], racy[0, 1]
+    n = n_raw - n_racy
+    out = raw.copy()
+    out[:, 1] = n
+    out[:, 3:7] = (n_raw * raw[:, 3:7] - n_racy * racy[:, 3:7]) / n
+    out[:, 7] = raw[:, 0] * (out[:, 5] - out[:, 3] ** 2) * n / (n - 1)
+    out[:, 8] = raw[:, 0] * (out[:, 6] - out[:, 4] ** 2) * n / (n - 1)
+    out[:, 9] = np.nan
+    return out
+
+
 ROUTE_SHAPES = ((2048, 16), (4096, 4), (8192, 1), (8192, 4))
 ROUTE_SHAPES_3D = ((256, 4), (256, 8), (512, 1), (512, 2), (512, 8))
 
@@ -602,37 +830,84 @@ def compare_routes_3d(ms3, dev, seeds) -> None:
             f"streaming/resident {str_ms / res_ms:.3f}")
 
 
+def compare_routes_helical3d(h3, hms, dev, seeds) -> float:
+    """ms per sweep of the helical 3-D runner's two routes at the resident
+    class's shape, 151x151x150 x 128: one multisweep launch of S sweeps
+    against S streamed phase pairs.  Returns streamed / resident."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Ising3DHelical,
+    )
+
+    model = Ising3DHelical(151, 151, 150, KBT_H3)
+    m = model.nsites // 2
+    sweeps = seeds.shape[0]
+    wa, wb = random_words((128, hms.words(m)), 17, dev, n=2)
+
+    def resident():
+        h3.multisweep_planes(wa, wb, seeds, beta=model.beta, nx=151,
+                             nxy=model.nxy, m=m)
+
+    def streaming():
+        a, b = wa, wb
+        for j in range(sweeps):
+            a, b, _ = h3.sweep_measure_seeded(model, a, b, seeds[j])
+
+    res_ms, str_ms = _route_times(resident, streaming, sweeps)
+    log(f"  helical 3-D route 151x151x150 x 128 ({hms.words(m)} words a "
+        f"colour, fits {h3.fits(model)}): resident {res_ms:.5f} ms/sweep, "
+        f"streamed {str_ms:.5f} ms/sweep, streamed/resident "
+        f"{str_ms / res_ms:.3f}")
+    return str_ms / res_ms
+
+
 def read_dat(path: Path) -> np.ndarray:
     rows = [line.split() for line in path.read_text().splitlines()
             if line and not line.startswith("#")]
     return np.array(rows, dtype=np.float64)
 
 
+def row_at(table: np.ndarray, t: int) -> np.ndarray:
+    """The row of a .dat table at sweep t."""
+    rows = table[table[:, 2] == t]
+    if len(rows) != 1:
+        fail(f"no single row at t = {t}")
+    return rows[0]
+
+
 def check_against_reference(table: np.ndarray, ref: np.ndarray, nsites: int,
                             samples: int, mcs: int, times,
                             ref_nsites: int | None = None,
-                            ref_samples: int | None = None) -> None:
+                            ref_samples: int | None = None,
+                            table_times=None) -> float:
     """<m>(t), <e>(t) within SIGMAS standard errors, with the variance
     taken from the reference's own N·Var columns: of the port's mean
     alone, or, given the reference's sites and samples, of the difference
-    of the two means (sigma^2 = N·Var (1/(N n) + 1/(N_ref n_ref)))."""
-    if table.shape != (mcs, 10) or not np.all(np.isfinite(table)):
-        fail(f"table shape {table.shape} (want ({mcs}, 10)) or non-finite")
-    if not np.all(table[:, 1] == samples) or not np.all(
-            table[:, 2] == np.arange(1, mcs + 1)):
+    of the two means (sigma^2 = N·Var (1/(N n) + 1/(N_ref n_ref))).  The
+    table holds every sweep 1..mcs, or the sweeps ``table_times``.
+    Returns the largest |z|."""
+    ts = np.arange(1, mcs + 1) if table_times is None else np.asarray(
+        table_times)
+    if table.shape != (len(ts), 10) or not np.all(np.isfinite(table)):
+        fail(f"table shape {table.shape} (want ({len(ts)}, 10)) or "
+             "non-finite")
+    if not np.all(table[:, 1] == samples) or not np.all(table[:, 2] == ts):
         fail("Nsample or t column is wrong")
     ref_term = (0.0 if ref_samples is None
                 else 1.0 / (ref_nsites * ref_samples))
+    worst = 0.0
     for t in times:
-        row, rrow = table[t - 1], ref[t - 1]
+        row, rrow = row_at(table, t), row_at(ref, t)
         for name, col, var_col in (("m", 3, 7), ("e", 4, 8)):
             sigma = math.sqrt(rrow[var_col]
                               * (1.0 / (nsites * samples) + ref_term))
             z = (row[col] - rrow[col]) / sigma
             log(f"  t={t:5d} <{name}> port {row[col]:.9f} reference "
                 f"{rrow[col]:.9f} sigma {sigma:.3e} z {z:+.2f}")
+            worst = max(worst, abs(z))
             if abs(z) > SIGMAS:
                 fail(f"<{name}>({t}) is {z:+.2f} sigma from the reference")
+    log(f"  largest |z| {worst:.2f}")
+    return worst
 
 
 def run_main_path(main_fn, modules, out_dir: Path, label: str, argv,
@@ -672,21 +947,31 @@ def run_2d(main_fn, modules, out_dir, nx, replicas, samples, mcs, ref,
     return launches, wall, rate
 
 
-def run_3d(main_fn, modules, out_dir, n, replicas, samples, mcs, ref,
-           times, engine):
-    argv = ["--model", "ising3d", "--nx", str(n), "--ny", str(n), "--nz",
-            str(n), "--kbt", repr(KBT_3D), "--mcs", str(mcs), "--samples",
+def run_3d(main_fn, modules, out_dir, dims, kbt, replicas, samples, mcs,
+           ref, times, engine, ref_nsites=None, measure_times=None):
+    """One 3-D class (periodic or helical) through the CLI, from all-up,
+    against the reference curve ``ref`` at ``times`` with the combined
+    sigma (the reference's samples are its rows' Nsample, its sites
+    ``ref_nsites``, by default this geometry's).  Returns (launches, wall,
+    rate, largest |z|)."""
+    nx, ny, nz = dims
+    nsites = nx * ny * nz
+    argv = ["--model", "ising3d", "--nx", str(nx), "--ny", str(ny), "--nz",
+            str(nz), "--kbt", repr(kbt), "--mcs", str(mcs), "--samples",
             str(samples), "--replicas", str(replicas)]
+    if measure_times is not None:
+        argv += ["--measure-times", *map(str, measure_times)]
     launches, wall, rate, table, head = run_main_path(
-        main_fn, modules, out_dir, f"ising3d_{n}", argv, n ** 3, samples,
+        main_fn, modules, out_dir, f"ising3d_{nx}", argv, nsites, samples,
         mcs)
-    for line in (f"# nx, ny: {n} {n} {n}", f"# engine: {engine}"):
+    for line in (f"# nx, ny: {nx} {ny} {nz}", f"# engine: {engine}"):
         if line not in head:
             fail(f"3-D .dat header lacks {line!r}: {head}")
-    check_against_reference(table, ref, n ** 3, samples, mcs, times,
-                            ref_nsites=512 ** 3,
-                            ref_samples=int(ref[0, 1]))
-    return launches, wall, rate
+    worst = check_against_reference(
+        table, ref, nsites, samples, mcs, times,
+        ref_nsites=ref_nsites or nsites, ref_samples=int(ref[0, 1]),
+        table_times=measure_times)
+    return launches, wall, rate, worst
 
 
 def main() -> int:
@@ -697,6 +982,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical3d_multispin as h3,
+    )
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         helical_multispin as hms,
     )
@@ -710,16 +998,22 @@ def main() -> int:
         main as cli_main,
     )
 
-    modules = {"ising2d": msb, "helical": hms, "ising3d": ms3}
+    modules = {"ising2d": msb, "helical": hms, "ising3d": ms3,
+               "helical3d": h3}
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device {torch.cuda.get_device_name(0)} | {smi} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
-    for path in (REFERENCE_DAT, REFERENCE_3D_DAT):
+    for path in (REFERENCE_DAT, REFERENCE_3D_DAT, REFERENCE_H3_151,
+                 REFERENCE_H3_501, REFERENCE_H3_1001, RACY_H3_1001):
         if not path.exists():
             fail(f"reference curve {path} is missing")
     ref = read_dat(REFERENCE_DAT)
     ref3 = read_dat(REFERENCE_3D_DAT)
+    ref_h151 = read_dat(REFERENCE_H3_151)
+    ref_h501 = read_dat(REFERENCE_H3_501)
+    ref_h1001 = cleaned_1001_curve(read_dat(REFERENCE_H3_1001),
+                                   read_dat(RACY_H3_1001))
 
     # 1. build from scratch
     log("phase 1: build csrc/*.cu with nvcc")
@@ -747,11 +1041,18 @@ def main() -> int:
     ])
     err_helical = check_helical(hms, rng, dev)
     errs3 = check_ising3d(msb, ms3, rng, dev)
+    errs_h3 = check_helical3d(h3, hms, rng, dev)
 
     log("phase 2b: first sweep from all-up against its exact expectation")
     check_first_sweep(msb, rng, dev, ref[0], iters=100)
     check_first_sweep_helical(msb, hms, rng, dev, ref[0], iters=80)
     check_first_sweep_3d(ms3, rng, dev, ref3[0], iters=10)
+    check_first_sweep_helical3d(h3, ms3, hms, rng, dev, ref3[0],
+                                (151, 151, 150), KBT_H3, nrep=128, iters=23)
+    check_first_sweep_helical3d(h3, ms3, hms, rng, dev, ref3[0],
+                                (501, 501, 500), KBT_H3_501, nrep=8, iters=10)
+    z_even = check_first_sweep_even(h3, hms, rng, dev, nrep=250, calls=4,
+                                    batch=125, batches=8)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         # 3. 2-D resident class through the multisweep kernel
@@ -783,19 +1084,52 @@ def main() -> int:
             fail("helical path launched no helical multisweep kernel")
         # 4b. 3-D streaming and resident classes
         log("phase 4b: 3-D path, streaming class (512^3 x 8 replicas)")
-        s3_launch, s3_wall, s3_rate = run_3d(
-            cli_main, modules, out, 512, 8, 8, 1000, ref3,
-            (1, 10, 100, 1000),
-            "ising3d_multispin bit-packed (streaming z-plane phases)")
+        s3_launch, s3_wall, s3_rate, _ = run_3d(
+            cli_main, modules, out, (512, 512, 512), KBT_3D, 8, 8, 1000,
+            ref3, (1, 10, 100, 1000),
+            "ising3d_multispin bit-packed (streaming z-plane phases)",
+            ref_nsites=512 ** 3)
         if s3_launch["ising3d"]["phase_measuring"] == 0:
             fail("3-D streaming path launched no measuring phase kernel")
         log("phase 4b: 3-D path, resident class (256^3 x 4 replicas)")
-        r3_launch, r3_wall, r3_rate = run_3d(
-            cli_main, modules, out, 256, 4, 16, 200, ref3, (1, 10, 100),
-            "ising3d_multispin bit-packed (resident multisweep)")
+        r3_launch, r3_wall, r3_rate, _ = run_3d(
+            cli_main, modules, out, (256, 256, 256), KBT_3D, 4, 16, 200,
+            ref3, (1, 10, 100),
+            "ising3d_multispin bit-packed (resident multisweep)",
+            ref_nsites=512 ** 3)
         if r3_launch["ising3d"]["multisweep"] == 0:
             fail("3-D resident path launched no multisweep kernel")
-    paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch)
+        # 4c. helical 3-D classes
+        log("phase 4c: helical 3-D path, resident class (151x151x150 x 128)")
+        h1_launch, h1_wall, h1_rate, h1_z = run_3d(
+            cli_main, modules, out, (151, 151, 150), KBT_H3, 128, 128, 1000,
+            ref_h151, (100, 150, 200, 300, 500, 700, 1000),
+            "helical3d_multispin (resident multisweep)")
+        if (h1_launch["helical3d"]["multisweep"] == 0
+                or h1_launch["helical3d"]["phase"] != 0):
+            fail("helical 3-D resident path did not run the multisweep "
+                 f"kernel alone: {h1_launch['helical3d']}")
+        log("phase 4c: helical 3-D path, streamed odd class (501x501x500 x 2)")
+        times_501 = [int(t) for t in ref_h501[:, 2] if t <= 1000]
+        h5_launch, h5_wall, h5_rate, h5_z = run_3d(
+            cli_main, modules, out, (501, 501, 500), KBT_H3_501, 2, 2, 1000,
+            ref_h501, [t for t in times_501 if t >= 100],
+            "helical3d_multispin (streamed phases)", measure_times=times_501)
+        if h5_launch["helical3d"]["phase_measuring"] == 0:
+            fail("helical 3-D streamed odd path launched no measuring phase "
+                 "kernel")
+        log("phase 4c: helical 3-D path, streamed even class "
+            "(1001x1000x1000 x 2)")
+        ha_launch, ha_wall, ha_rate, ha_z = run_3d(
+            cli_main, modules, out, (1001, 1000, 1000), KBT_H3, 2, 2, 1000,
+            ref_h1001, (150, 200, 300, 500, 700, 1000),
+            "helical3d_multispin (streamed phases)")
+        la = ha_launch["helical3d"]
+        if la["energy"] == 0 or la["phase"] != 4 * la["energy"]:
+            fail(f"helical 3-D even path did not run 4 phase launches and an "
+                 f"energy launch a sweep: {la}")
+    paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch,
+             h1_launch, h5_launch, ha_launch)
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -866,12 +1200,77 @@ def main() -> int:
         4 * 4 * ra.numel() + 2 * 8 * ra.shape[0] * sweeps,
         sweep_ops(lambda m: phase3d_ops_per_word(msb, ms3, beta3, m),
                   ra.numel()), reps=3, plain_reps=1)
-    if max(e1, e2, e3, e4, e5) != 0:
+    del ra, rb
+    # helical 3-D: the even class's sub-phase, 1001x1000x1000 x 2, zsub 0
+    # (4000 of the phase kernel's 6000 main-path launches); chains only
+    # on the words holding a site of that z-parity
+    beta_h = 1.0 / KBT_H3
+    hg = dict(nx=1001, nxy=1001 * 1000, m=1001 * 1000 * 1000 // 2)
+    hw = hms.words(hg["m"])
+    za, zb = random_words((2, hw), 15, dev, n=2)
+    zsel = h3.zmask_words(hg["nxy"], hg["m"], dev) & hms.valid_mask(hg["m"],
+                                                                   dev)
+    sub_sites = 2 * int(msb._pc_plane(zsel).sum())
+    sub_words = 2 * int((zsel != 0).sum())
+    hvm3 = hms.valid_mask(hg["m"], dev)
+    t6, e6 = time_kernel(
+        "helical3d phase kernel 1001x1000x1000 x 2, z-parity sub-phase",
+        sub_sites,
+        lambda: h3.phase_packed(za, zb, seeds[0, 0], color=0, zsub=0,
+                                beta=beta_h, **hg),
+        lambda: h3.phase_plain(za, zb, seeds[0, 0], color=0, zsub=0,
+                               beta=beta_h, **hg),
+        12 * 2 * hw,
+        sub_words * helical3d_phase_ops_per_word(msb, ms3, beta_h, False)
+        + 2 * hw * OPS_ZMASK, reps=10, plain_reps=1,
+        view=lambda out: (hms._u32(out) & hvm3,))
+    t7, e7 = time_kernel(
+        "helical3d energy kernel 1001x1000x1000 x 2", 2 * 2 * hg["m"],
+        lambda: h3.energy_sums(za, zb, **hg),
+        lambda: h3.energy_sums_plain(za, zb, **hg),
+        4 * 2 * 2 * hw + 2 * 16, 2 * hw * OPS_ENERGY, reps=20, plain_reps=2)
+    del za, zb, zsel
+    # the odd streamed class's measuring phase, 501x501x500 x 2
+    g5 = dict(nx=501, nxy=501 * 501, m=501 * 501 * 500 // 2)
+    w5 = hms.words(g5["m"])
+    fa, fb = random_words((2, w5), 18, dev, n=2)
+    vm5 = hms.valid_mask(g5["m"], dev)
+    beta5 = 1.0 / KBT_H3_501
+    t6b, e6b = time_kernel(
+        "helical3d phase kernel 501x501x500 x 2, measuring", 2 * g5["m"],
+        lambda: h3.phase_packed(fb, fa, seeds[0, 1], color=1, beta=beta5,
+                                measuring=True, **g5),
+        lambda: h3.phase_plain(fb, fa, seeds[0, 1], color=1, beta=beta5,
+                               measuring=True, **g5),
+        12 * 2 * w5 + 2 * 16,
+        2 * w5 * helical3d_phase_ops_per_word(msb, ms3, beta5, True),
+        reps=20, plain_reps=1,
+        view=lambda out: (hms._u32(out[0]) & vm5, out[1]))
+    del fa, fb
+    # the resident class's launch: 128 x 151x151x150, S = 64
+    g1 = dict(nx=151, nxy=151 * 151, m=151 * 151 * 150 // 2)
+    w1 = hms.words(g1["m"])
+    ma, mb = random_words((128, w1), 19, dev, n=2)
+    vm1 = hms.valid_mask(g1["m"], dev)
+    t8, e8 = time_kernel(
+        f"helical3d multisweep kernel 151x151x150 x 128, S={sweeps}",
+        128 * 2 * g1["m"] * sweeps,
+        lambda: h3.multisweep_planes(ma, mb, seeds, beta=beta_h, **g1),
+        lambda: h3.multisweep_plain(ma, mb, seeds, beta=beta_h, **g1),
+        4 * 4 * 128 * w1 + 2 * 8 * 128 * sweeps,
+        sweep_ops(lambda meas: helical3d_phase_ops_per_word(
+            msb, ms3, beta_h, meas), 128 * w1), reps=3, plain_reps=1,
+        view=lambda out: (hms._u32(out[0]) & vm1, hms._u32(out[1]) & vm1,
+                          out[2]))
+    del ma, mb
+    if max(e1, e2, e3, e4, e5, e6, e6b, e7, e8) != 0:
         fail(f"a kernel differs from its plain version at its main-path "
-             f"launch shape (max abs errs {e1}, {e2}, {e3}, {e4}, {e5})")
+             f"launch shape (max abs errs {e1}, {e2}, {e3}, {e4}, {e5}, "
+             f"{e6}, {e6b}, {e7}, {e8})")
 
     compare_routes(msb, dev, beta, seeds)
     compare_routes_3d(ms3, dev, seeds[:32])
+    route_h3 = compare_routes_helical3d(h3, hms, dev, seeds)
 
     src = "cuda_fortran_mc_simulation_spin_tpu_torch/csrc/"
     ref_py = "cuda_fortran_mc_simulation_spin_tpu/ops/"
@@ -891,6 +1290,15 @@ def main() -> int:
         ("ising3d_multispin.multisweep_kernel", "ising3d_multispin.cu",
          "ising3d_multispin.py:409", launched("ising3d", "multisweep"),
          max(errs3["multisweep"], e5), t5),
+        ("helical3d_multispin.phase_kernel", "helical3d_multispin.cu",
+         "helical3d_multispin.py:838", launched("helical3d", "phase"),
+         max(errs_h3["phase"], e6, e6b), t6),
+        ("helical3d_multispin.energy_kernel", "helical3d_multispin.cu",
+         "helical3d_multispin.py:938", launched("helical3d", "energy"),
+         max(errs_h3["energy"], e7), t7),
+        ("helical3d_multispin.multisweep_kernel", "helical3d_multispin.cu",
+         "helical3d_multispin.py:290", launched("helical3d", "multisweep"),
+         max(errs_h3["multisweep"], e8), t8),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -908,6 +1316,12 @@ def main() -> int:
     log(f"main path 3-D: streaming 512^3 x 8 {s3_rate:.4g} flip attempts/s "
         f"({s3_wall:.2f} s), resident 256^3 x 4 {r3_rate:.4g} flip "
         f"attempts/s ({r3_wall:.2f} s); build {build_s:.1f} s")
+    log(f"main path helical 3-D: resident 151x151x150 x 128 {h1_rate:.4g} "
+        f"flip attempts/s ({h1_wall:.2f} s, largest |z| {h1_z:.2f}), "
+        f"streamed 501x501x500 x 2 {h5_rate:.4g} ({h5_wall:.2f} s, |z| "
+        f"{h5_z:.2f}), streamed 1001x1000x1000 x 2 {ha_rate:.4g} "
+        f"({ha_wall:.2f} s, |z| {ha_z:.2f}); even first sweep |z| "
+        f"{z_even:.2f}; 151^3 routes streamed/resident {route_h3:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // Bernoulli word planes of the bit-packed engines: each bit of the
 // returned word is 1 with probability q / 2^20, from Philox words
-// (philox.cuh).  Shared by the 2-D, helical and 3-D kernels.
+// (philox.cuh); and the bit-sliced counters and flip masks of the 4- and
+// 6-neighbour stencils.  Shared by the 2-D, helical and 3-D kernels.
 #pragma once
 #include <cstdint>
 
@@ -48,4 +49,35 @@ __device__ __forceinline__ uint32_t flip4(uint32_t x, uint32_t ones,
   const uint32_t need4 = (x & c3p) | (nx & c1p);
   const uint32_t need8 = (x & fours) | (nx & c0p);
   return ~(need4 | need8) | (need4 & b4) | (need8 & b8);
+}
+
+// Bit-sliced count of six one-bit planes, c = b1 + 2 b2 + 4 b4 in [0, 6]:
+// three half adders, a full adder for the ones, a 4:3 counter (sum <= 3)
+// for the carries (ops/ising3d_multispin._count6).
+__device__ __forceinline__ void count6(uint32_t n1, uint32_t n2, uint32_t n3,
+                                       uint32_t n4, uint32_t n5, uint32_t n6,
+                                       uint32_t& b1, uint32_t& b2,
+                                       uint32_t& b4) {
+  const uint32_t s1 = n1 ^ n2, c1 = n1 & n2;
+  const uint32_t s2 = n3 ^ n4, c2 = n3 & n4;
+  const uint32_t s3 = n5 ^ n6, c3 = n5 & n6;
+  b1 = s1 ^ s2 ^ s3;
+  const uint32_t t2 = (s1 & s2) | (s3 & (s1 ^ s2));
+  uint32_t unused;
+  count4(c1, c2, c3, t2, b2, b4, unused);
+}
+
+// 3-D Metropolis flip mask of spin word x from its 6-neighbour count and
+// the B4/B8/B12 planes: only c = 4|5|6 (up) and c = 2|1|0 (down) reject,
+// with dE = 4, 8, 12 (ops/ising3d_multispin._flip_plane3d).
+__device__ __forceinline__ uint32_t flip6(uint32_t x, uint32_t b1,
+                                          uint32_t b2, uint32_t b4,
+                                          uint32_t p4, uint32_t p8,
+                                          uint32_t p12) {
+  const uint32_t nx = ~x, nb1 = ~b1, nb2 = ~b2, nb4 = ~b4;
+  const uint32_t need4 = (x & b4 & nb1 & nb2) | (nx & b2 & nb1 & nb4);
+  const uint32_t need8 = (x & b4 & b1) | (nx & b1 & nb2 & nb4);
+  const uint32_t need12 = (x & b4 & b2) | (nx & nb1 & nb2 & nb4);
+  return ~(need4 | need8 | need12) | (need4 & p4) | (need8 & p8) |
+         (need12 & p12);
 }

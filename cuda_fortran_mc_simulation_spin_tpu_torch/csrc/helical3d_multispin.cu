@@ -1,0 +1,427 @@
+// Bit-packed (multispin) Metropolis for the helical 3-D Ising model on
+// Hopper (sm_90a): the three kernels of the helical 3-D relaxation.
+//
+//   phase_kernel      replaces cuda_fortran_mc_simulation_spin_tpu/ops/
+//                     helical3d_multispin.py:_phase_bits_kernel (pallas_call
+//                     at :197 phase_packed_with_bits), _stream_kernel (:452
+//                     _stream_phase) and _halo_kernel (:838 _halo_phase):
+//                     one (sub-)phase of a colour vector, with Philox words
+//                     or injected b4/b8/b12 planes, the z-parity mask of the
+//                     even-nx*ny sub-phases, and fused (m, e) sums.
+//   energy_kernel     replaces _halo_energy_kernel (:938 _halo_energy) and
+//                     its XLA sibling _energy_all_packed: the exact (m, e)
+//                     of the final vectors from forward-bond disagreements.
+//   multisweep_kernel replaces _ms_kernel (:290 _multisweep): S sweeps on
+//                     resident vectors with the (m, e) of every sweep, odd
+//                     nx*ny only.
+//
+// Layout: one (R, W) uint32 colour vector per colour, bit k of word g =
+// colour index 32g+k, M = nall/2 valid bits (ops/helical_multispin.py).
+// Colour a reads six neighbour planes at constant offsets mod M
+// (ops/helical3d_multispin.helical3d_offsets): all six in colour b when
+// nx*ny is odd; four in b and the two z-neighbours at +-nx*ny/2 in a itself
+// when nx*ny is even.  A neighbour plane is read_circ (helical_read.cuh):
+// the 32 bits from (32g + d) mod M on, reading across the wrap directly,
+// so the TPU's ring-pad layout (ring_fill, pack_flat_halo) and its
+// pre-shifted planes have no counterpart.  Per word:
+//   count             bernoulli.cuh count6
+//   B4, B8, B12       20-digit Bernoulli chains over Philox words
+//   flip              bernoulli.cuh flip6, and with even nx*ny only on the
+//                     sites of one z-plane parity (zsub): bit k flips only
+//                     if ((32g + k) / (nx*ny/2)) % 2 == zsub, computed from
+//                     the index (no mask plane).  A flipping site's
+//                     z-neighbours then lie in the other parity, which that
+//                     sub-phase never writes.
+// phase_kernel writes out of place (x_in -> x_out), so no read of the
+// updated colour's own z-window can see a write of the same launch.
+//
+// Random words: the key is the Philox key of the (sample, t, sub-phase);
+// the counter is (replica, word, 0, draw / 4).  The word index stays below
+// 2^32 for any vector the wrappers admit (M < 2^30), so phase_kernel
+// launches, multisweep_kernel and the plain PyTorch versions give the same
+// bits, whatever the grid or the host's chunking.
+//
+// Observables: exact integers in 64 bits from the block partials up (3N is
+// 3.0e9 at 1001x1000x1000).  Odd nx*ny: phase b's counts are against the
+// final colour a and each bond has exactly one b end, so e = -sum_b
+// s_b (2c - 6) covers every bond once.  Even nx*ny: that identity mixes in
+// the self reads, so the phase kernel gives m only, and energy_kernel the
+// energy: 6 forward-bond planes, e = sum (2 popc(src ^ nbr) - valid bits).
+//
+// Bound on the H100: integer operations.  At the 3-D critical point the
+// chains draw 56 Philox words a word and phase (14 calls, ~900 int32
+// operations) against 8-12 bytes of traffic.  A word whose sites all lie in
+// the sub-phase's other z-parity flips nothing: the kernel copies it and
+// skips the chains, so the four even-nx*ny sub-phases cost about two
+// phases.  multisweep_kernel runs one block per replica in device memory
+// (both colours of a 151x151x150 replica, 417.5 KiB, exceed the 227 KB of
+// shared memory), with a __syncthreads() between phases.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "bernoulli.cuh"
+#include "helical_read.cuh"
+#include "philox.cuh"
+
+namespace {
+
+constexpr int PHASE_THREADS = 256;
+constexpr int MS_THREADS = 1024;
+
+// One colour phase's geometry: offsets d[k] mod M of the six neighbour
+// planes; planes k < ncross read the other colour, the rest (the even
+// nx*ny z-neighbours) the updated colour itself.
+struct Stencil {
+  int nw, m, ncross;
+  int d[6];
+};
+
+struct Chains {
+  uint2 key;             // Philox key of this (sample, t, sub-phase)
+  uint32_t q4, q8, q12;  // chain digits: round(p * 2^20)
+};
+
+struct PhaseArgs {
+  const uint32_t* x_in;  // (R, W) colour being updated
+  uint32_t* x_out;       // (R, W) result, never aliasing x_in
+  const uint32_t* o;     // (R, W) other colour
+  const uint32_t* b4;    // injected Bernoulli planes (R, W), or null
+  const uint32_t* b8;
+  const uint32_t* b12;
+  long long* obs;        // (R, 2) (m, e) sums, zeroed by the caller, or null
+  Stencil st;
+  Chains ch;
+  int zsub;              // -1: every site; 0/1: z-plane parity zsub only
+  int zh;                // colour sites per z-plane, nx*ny/2 (zsub >= 0)
+};
+
+// Bits of the word at colour index f0 whose site lies in an even z-plane:
+// bit k is set iff ((f0 + k) / zh) % 2 == 0 (ops/helical3d_multispin.
+// zmask_words).
+__device__ __forceinline__ uint32_t zeven_word(int f0, int zh) {
+  int q = f0 / zh;
+  int rem = f0 - q * zh;
+  uint32_t mask = 0u;
+  for (int k = 0; k < 32; ++q, rem = 0) {
+    const int len = min(32 - k, zh - rem);
+    if (!(q & 1))
+      mask |= (len == 32 ? 0xFFFFFFFFu : ((1u << len) - 1u)) << k;
+    k += len;
+  }
+  return mask;
+}
+
+// Bits of word g that hold a site (the pad bits [M, 32W) are garbage).
+__device__ __forceinline__ uint32_t valid_bits(int m, int f0) {
+  const int nb = min(32, m - f0);
+  return nb == 32 ? 0xFFFFFFFFu : (1u << nb) - 1u;
+}
+
+// The 6-neighbour count planes of word g of colour x (replica base
+// pointers x and o).
+__device__ __forceinline__ void counts(const Stencil& s, const uint32_t* x,
+                                       const uint32_t* o, int f0,
+                                       uint32_t& b1, uint32_t& b2,
+                                       uint32_t& b4) {
+  uint32_t n[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    int start = f0 + s.d[k];  // f0 < M and d < M, so start < 2M
+    if (start >= s.m) start -= s.m;
+    n[k] = read_circ(k < s.ncross ? o : x, s.nw, s.m, start);
+  }
+  count6(n[0], n[1], n[2], n[3], n[4], n[5], b1, b2, b4);
+}
+
+__device__ __forceinline__ void chain_words(const Chains& c, uint32_t r,
+                                            uint32_t g, uint32_t& p4,
+                                            uint32_t& p8, uint32_t& p12) {
+  WordStream ws(r, g, 0u, c.key);
+  p4 = bern_word(ws, c.q4);
+  p8 = bern_word(ws, c.q8);
+  p12 = bern_word(ws, c.q12);
+}
+
+// Fused sums of one word of phase b with vm its valid bits: s = 2 bit - 1
+// and neighbour sum 2c - 6 give m = 2(pc(b) + pc(a)) - 2nb and
+// e = -(4 pc(b & c) - 12 pc(b) - 2 pc(c) + 6nb).
+__device__ __forceinline__ void word_sums(uint32_t nv, uint32_t ov,
+                                          uint32_t b1, uint32_t b2,
+                                          uint32_t b4, uint32_t vm,
+                                          bool energy, long long& pm,
+                                          long long& pe) {
+  const int nb = __popc(vm);
+  const uint32_t bv = nv & vm;
+  const int s_x = __popc(bv);
+  pm += 2 * (s_x + __popc(ov & vm)) - 2 * nb;
+  if (energy) {
+    const int s_c = __popc(b1 & vm) + 2 * __popc(b2 & vm) +
+                    4 * __popc(b4 & vm);
+    const int s_xc =
+        __popc(bv & b1) + 2 * __popc(bv & b2) + 4 * __popc(bv & b4);
+    pe -= 4 * s_xc - 12 * s_x - 2 * s_c + 6 * nb;
+  }
+}
+
+// Block sum of (pm, pe) added to dst[0], dst[1] with one 64-bit atomic
+// each; every thread of the block must call it.
+template <int THREADS>
+__device__ __forceinline__ void block_add(long long pm, long long pe,
+                                          long long* dst) {
+  __shared__ long long red[2][THREADS / 32];
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    pm += __shfl_down_sync(0xFFFFFFFFu, pm, off);
+    pe += __shfl_down_sync(0xFFFFFFFFu, pe, off);
+  }
+  const int tid = threadIdx.x;
+  if ((tid & 31) == 0) {
+    red[0][tid >> 5] = pm;
+    red[1][tid >> 5] = pe;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    long long bm = 0, be = 0;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      bm += red[0][w];
+      be += red[1][w];
+    }
+    unsigned long long* d = reinterpret_cast<unsigned long long*>(dst);
+    atomicAdd(d, static_cast<unsigned long long>(bm));
+    atomicAdd(d + 1, static_cast<unsigned long long>(be));
+  }
+  __syncthreads();
+}
+
+// One (sub-)phase: a grid of (ceil(W / 256), R) blocks, one thread a word.
+__global__ void __launch_bounds__(PHASE_THREADS)
+    phase_kernel(PhaseArgs a) {
+  const int g = blockIdx.x * PHASE_THREADS + threadIdx.x;
+  const int r = blockIdx.y;
+  const int nw = a.st.nw;
+  long long pm = 0, pe = 0;
+  if (g < nw) {
+    const size_t base = static_cast<size_t>(r) * nw;
+    const uint32_t* x = a.x_in + base;
+    const uint32_t* o = a.o + base;
+    const int f0 = g * 32;
+    const uint32_t xv = x[g];
+    uint32_t allow = 0xFFFFFFFFu;
+    if (a.zsub >= 0) {
+      allow = zeven_word(f0, a.zh);
+      if (a.zsub) allow = ~allow;
+    }
+    uint32_t nv = xv, b1 = 0u, b2 = 0u, b4c = 0u;
+    if (allow != 0u) {
+      counts(a.st, x, o, f0, b1, b2, b4c);
+      uint32_t p4, p8, p12;
+      if (a.b4 != nullptr) {
+        p4 = a.b4[base + g];
+        p8 = a.b8[base + g];
+        p12 = a.b12[base + g];
+      } else {
+        chain_words(a.ch, static_cast<uint32_t>(r), static_cast<uint32_t>(g),
+                    p4, p8, p12);
+      }
+      nv = xv ^ (flip6(xv, b1, b2, b4c, p4, p8, p12) & allow);
+    }
+    a.x_out[base + g] = nv;
+    if (a.obs != nullptr)
+      word_sums(nv, o[g], b1, b2, b4c, valid_bits(a.st.m, f0),
+                a.st.ncross == 6, pm, pe);
+  }
+  if (a.obs != nullptr)
+    block_add<PHASE_THREADS>(pm, pe, a.obs + 2 * static_cast<size_t>(r));
+}
+
+struct EnergyArgs {
+  const uint32_t* wa;  // (R, W) final colour vectors
+  const uint32_t* wb;
+  long long* obs;      // (R, 2) (m, e) sums, zeroed by the caller
+  int nw, m;
+  int d[6];            // forward-bond offsets mod M: pairs a->b (d0, d1),
+                       // b->a (d2, d3), then a->? (d4) and b->? (d5)
+  int self_z;          // 1 (even nx*ny): pairs 4, 5 read the own colour
+};
+
+// (m, e) of the final vectors: a grid of (ceil(W / 256), R) blocks.
+__global__ void __launch_bounds__(PHASE_THREADS)
+    energy_kernel(EnergyArgs a) {
+  const int g = blockIdx.x * PHASE_THREADS + threadIdx.x;
+  const int r = blockIdx.y;
+  long long pm = 0, pe = 0;
+  if (g < a.nw) {
+    const size_t base = static_cast<size_t>(r) * a.nw;
+    const uint32_t* A = a.wa + base;
+    const uint32_t* B = a.wb + base;
+    const int f0 = g * 32;
+    const uint32_t vm = valid_bits(a.m, f0);
+    const int nb = __popc(vm);
+    const uint32_t av = A[g], bv = B[g];
+    pm = 2 * (__popc(av & vm) + __popc(bv & vm)) - 2 * nb;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const bool from_a = (k < 2) || (k == 4);  // bonds of a's sites
+      const bool into_b = (k < 2) || (k == 4 && !a.self_z) ||
+                          (k == 5 && a.self_z);
+      int start = f0 + a.d[k];
+      if (start >= a.m) start -= a.m;
+      const uint32_t nbr = read_circ(into_b ? B : A, a.nw, a.m, start);
+      pe += 2 * __popc(((from_a ? av : bv) ^ nbr) & vm) - nb;
+    }
+  }
+  block_add<PHASE_THREADS>(pm, pe, a.obs + 2 * static_cast<size_t>(r));
+}
+
+struct MultisweepArgs {
+  const uint32_t* wa_in;  // (R, W) colour a
+  const uint32_t* wb_in;
+  uint32_t* wa;           // (R, W) outputs, updated in place
+  uint32_t* wb;
+  const int32_t* seeds;   // (S, 2, 2) Philox keys per (sweep, phase)
+  long long* obs;         // (R, S, 2) (m, e), zeroed by the caller
+  int sweeps;
+  Stencil sa, sb;         // colour a's and b's stencils (6 cross planes)
+  uint32_t q4, q8, q12;
+};
+
+// S sweeps, one block a replica.  A phase updates its colour in place: a
+// word depends only on itself and on the other colour (odd nx*ny).
+__global__ void __launch_bounds__(MS_THREADS, 1)
+    multisweep_kernel(MultisweepArgs a) {
+  const int r = blockIdx.x, tid = threadIdx.x;
+  const int nw = a.sa.nw, m = a.sa.m;
+  const size_t base = static_cast<size_t>(r) * nw;
+  uint32_t* A = a.wa + base;
+  uint32_t* B = a.wb + base;
+  for (int g = tid; g < nw; g += MS_THREADS) {
+    A[g] = a.wa_in[base + g];
+    B[g] = a.wb_in[base + g];
+  }
+  __syncthreads();
+  for (int s = 0; s < a.sweeps; ++s) {
+    for (int phase = 0; phase < 2; ++phase) {
+      uint32_t* x = phase ? B : A;
+      const uint32_t* o = phase ? A : B;
+      const Stencil st = phase ? a.sb : a.sa;
+      Chains ch;
+      ch.key = make_uint2(
+          static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2]),
+          static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2 + 1]));
+      ch.q4 = a.q4;
+      ch.q8 = a.q8;
+      ch.q12 = a.q12;
+      long long pm = 0, pe = 0;
+      for (int g = tid; g < nw; g += MS_THREADS) {
+        const int f0 = g * 32;
+        uint32_t b1, b2, b4c, p4, p8, p12;
+        counts(st, x, o, f0, b1, b2, b4c);
+        chain_words(ch, static_cast<uint32_t>(r), static_cast<uint32_t>(g),
+                    p4, p8, p12);
+        const uint32_t xv = x[g];
+        const uint32_t nv = xv ^ flip6(xv, b1, b2, b4c, p4, p8, p12);
+        x[g] = nv;
+        if (phase)
+          word_sums(nv, o[g], b1, b2, b4c, valid_bits(m, f0), true, pm, pe);
+      }
+      __syncthreads();  // phase boundary
+      if (phase)
+        block_add<MS_THREADS>(
+            pm, pe, a.obs + (static_cast<size_t>(r) * a.sweeps + s) * 2);
+    }
+  }
+}
+
+void set_stencil(Stencil& s, int nw, int m, int ncross, const int* d) {
+  s.nw = nw;
+  s.m = m;
+  s.ncross = ncross;
+  for (int k = 0; k < 6; ++k) s.d[k] = d[k];
+}
+
+}  // namespace
+
+extern "C" {
+
+// One (sub-)phase of x_in given o -> x_out: ncross cross planes at d[0..]
+// and 6 - ncross self planes after them; zsub -1 for every site, 0/1 for
+// one z-plane parity (zh colour sites a plane); b4/b8/b12 injected planes
+// or null (Philox words under (s0, s1)); obs an (R, 2) int64 buffer zeroed
+// by the caller, or null.
+int helical3d_phase(const void* x_in, void* x_out, const void* o,
+                    const void* b4, const void* b8, const void* b12,
+                    void* obs, int nrep, int nw, int m, int ncross,
+                    const int* d, int zsub, int zh, unsigned int s0,
+                    unsigned int s1, unsigned int q4, unsigned int q8,
+                    unsigned int q12, void* stream) {
+  PhaseArgs a;
+  a.x_in = static_cast<const uint32_t*>(x_in);
+  a.x_out = static_cast<uint32_t*>(x_out);
+  a.o = static_cast<const uint32_t*>(o);
+  a.b4 = static_cast<const uint32_t*>(b4);
+  a.b8 = static_cast<const uint32_t*>(b8);
+  a.b12 = static_cast<const uint32_t*>(b12);
+  a.obs = static_cast<long long*>(obs);
+  set_stencil(a.st, nw, m, ncross, d);
+  a.ch.key = make_uint2(s0, s1);
+  a.ch.q4 = q4;
+  a.ch.q8 = q8;
+  a.ch.q12 = q12;
+  a.zsub = zsub;
+  a.zh = zh;
+  const dim3 grid((nw + PHASE_THREADS - 1) / PHASE_THREADS, nrep);
+  phase_kernel<<<grid, PHASE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (m, e) of the final vectors into obs (R, 2), zeroed by the caller; d the
+// six forward-bond offsets mod M (see EnergyArgs).
+int helical3d_energy(const void* wa, const void* wb, void* obs, int nrep,
+                     int nw, int m, const int* d, int self_z, void* stream) {
+  EnergyArgs a;
+  a.wa = static_cast<const uint32_t*>(wa);
+  a.wb = static_cast<const uint32_t*>(wb);
+  a.obs = static_cast<long long*>(obs);
+  a.nw = nw;
+  a.m = m;
+  for (int k = 0; k < 6; ++k) a.d[k] = d[k];
+  a.self_z = self_z;
+  const dim3 grid((nw + PHASE_THREADS - 1) / PHASE_THREADS, nrep);
+  energy_kernel<<<grid, PHASE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S sweeps: wa_in/wb_in -> wa/wb, per-sweep (m, e) into obs (R, S, 2),
+// zeroed by the caller; da/db the six cross offsets mod M of each colour.
+// A grid of R blocks of 1024 threads.
+int helical3d_multisweep(const void* wa_in, const void* wb_in, void* wa,
+                         void* wb, const void* seeds, void* obs, int nrep,
+                         int nw, int m, int sweeps, const int* da,
+                         const int* db, unsigned int q4, unsigned int q8,
+                         unsigned int q12, void* stream) {
+  MultisweepArgs a;
+  a.wa_in = static_cast<const uint32_t*>(wa_in);
+  a.wb_in = static_cast<const uint32_t*>(wb_in);
+  a.wa = static_cast<uint32_t*>(wa);
+  a.wb = static_cast<uint32_t*>(wb);
+  a.seeds = static_cast<const int32_t*>(seeds);
+  a.obs = static_cast<long long*>(obs);
+  a.sweeps = sweeps;
+  set_stencil(a.sa, nw, m, 6, da);
+  set_stencil(a.sb, nw, m, 6, db);
+  a.q4 = q4;
+  a.q8 = q8;
+  a.q12 = q12;
+  multisweep_kernel<<<nrep, MS_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* helical3d_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

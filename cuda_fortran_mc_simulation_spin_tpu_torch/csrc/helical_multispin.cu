@@ -16,6 +16,7 @@
 //                     (32g + d) mod M on, one __funnelshift_r of two
 //                     adjacent words; where they run past bit M-1 (the
 //                     wrap point) the rest comes from the head of word 0
+//                     (read_circ, helical_read.cuh)
 //   count             bit-sliced 4:3 counter (bernoulli.cuh count4)
 //   B4, B8            20-digit Bernoulli chains over Philox words
 //   flip              bernoulli.cuh flip4
@@ -48,6 +49,7 @@
 #include <cstdint>
 
 #include "bernoulli.cuh"
+#include "helical_read.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -70,30 +72,6 @@ struct HelicalArgs {
   int da[4], db[4];       // offsets mod M of colour a's and b's neighbours
   uint32_t q4, q8;        // chain digits: round(p * 2^20)
 };
-
-// 32 bits of the word sequence v from bit pos on; past word nw-1 reads 0.
-__device__ __forceinline__ uint32_t read_lin(const uint32_t* v, int nw,
-                                             int pos) {
-  const int i = pos >> 5;
-  const uint32_t hi = (i + 1 < nw) ? v[i + 1] : 0u;
-  return __funnelshift_r(v[i], hi, pos & 31);
-}
-
-// 32 bits of the circular M-bit sequence v from bit start < M on.
-__device__ __forceinline__ uint32_t read_circ(const uint32_t* v, int nw,
-                                              int m, int start) {
-  uint32_t out = read_lin(v, nw, start);
-  int got = m - start;  // bits before the wrap point
-  if (got >= 32) return out;
-  out &= (1u << got) - 1u;
-  const uint32_t head = read_lin(v, nw, 0);
-  while (got < 32) {  // once unless M < 32
-    const int take = min(32 - got, m);
-    out |= (head & ((1u << take) - 1u)) << got;
-    got += take;
-  }
-  return out;
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
     multisweep_kernel(HelicalArgs a) {

@@ -21,9 +21,10 @@
 //   side select       (y+z) parity: masks 0xAAAAAAAA/0x55555555, swapped
 //                     on odd z
 //   count             bit-sliced 6:3 counter -> b1/b2/b4 planes
+//                     (bernoulli.cuh count6)
 //   B4, B8, B12       20-digit Bernoulli chains over Philox words
 //                     (bernoulli.cuh): up to 60 words, 15 Philox calls
-//   flip              ops/ising3d_multispin._flip_plane3d
+//   flip              bernoulli.cuh flip6
 // The TPU grid of (replica, z-plane) blocks with whole planes in VMEM is
 // not carried over: one thread per word, 32x8 threads a block (a warp
 // along x, so loads coalesce), every neighbour word read from device
@@ -118,15 +119,8 @@ __device__ __forceinline__ void phase_tile(const Phase3Args& a, int tile) {
   const uint32_t meven = (z & 1) ? ODD_BITS : EVEN_BITS;
   const uint32_t side = a.color == 0 ? (plus & modd) | (minus & meven)
                                      : (minus & modd) | (plus & meven);
-  // 6:3 count of (zm, zp, up, dn, oc, side): three half adders, a full
-  // adder for the ones, a 4:3 counter (sum <= 3) for the carries
-  const uint32_t s1 = zm ^ zp, c1 = zm & zp;
-  const uint32_t s2 = up ^ dn, c2 = up & dn;
-  const uint32_t s3 = oc ^ side, c3 = oc & side;
-  const uint32_t b1 = s1 ^ s2 ^ s3;
-  const uint32_t t2 = (s1 & s2) | (s3 & (s1 ^ s2));
-  uint32_t b2, b4c, unused;
-  count4(c1, c2, c3, t2, b2, b4c, unused);
+  uint32_t b1, b2, b4c;
+  count6(zm, zp, up, dn, oc, side, b1, b2, b4c);
 
   uint32_t p4, p8, p12;
   if (a.b4 != nullptr) {
@@ -142,14 +136,7 @@ __device__ __forceinline__ void phase_tile(const Phase3Args& a, int tile) {
     p8 = bern_word(s, a.q8);
     p12 = bern_word(s, a.q12);
   }
-  // only c = 4|5|6 (up) and c = 2|1|0 (down) reject, dE = 4, 8, 12
-  const uint32_t nx = ~x, nb1 = ~b1, nb2 = ~b2, nb4 = ~b4c;
-  const uint32_t need4 = (x & b4c & nb1 & nb2) | (nx & b2 & nb1 & nb4);
-  const uint32_t need8 = (x & b4c & b1) | (nx & b1 & nb2 & nb4);
-  const uint32_t need12 = (x & b4c & b2) | (nx & nb1 & nb2 & nb4);
-  const uint32_t flip = ~(need4 | need8 | need12) | (need4 & p4) |
-                        (need8 & p8) | (need12 & p12);
-  const uint32_t nw = x ^ flip;
+  const uint32_t nw = x ^ flip6(x, b1, b2, b4c, p4, p8, p12);
   a.x_out[idx] = nw;
 
   if (a.obs != nullptr) {

@@ -5,7 +5,8 @@ Port of the relaxation path of
 initial states, the sweep/measure runner, host-side Kahan aggregation,
 and the reference-format ``.dat`` table on ``out`` with progress on
 ``err`` (stdout = dataset, stderr = progress).  The port serves the
-bit-packed routes: periodic 2-D and 3-D multispin, helical 2-D multispin.
+bit-packed routes: periodic 2-D and 3-D multispin, helical 2-D and 3-D
+multispin.
 Every other route of the JAX package (other models, protocols,
 over-relaxation, unpackable shapes, meshes) raises NotImplementedError
 naming the ROADMAP.md item that ports it, and never falls back.
@@ -33,9 +34,11 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.io import checkpoint, datfmt
 from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
     Ising2DHelical,
     Ising3D,
+    Ising3DHelical,
     build_model,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+    helical3d_multispin,
     helical_multispin,
     ising2d_multispin,
     ising3d_multispin,
@@ -152,6 +155,15 @@ def _check_route(cfg, model) -> None:
                 "masked helical kernels that serve larger lattices are not "
                 "ported yet (ROADMAP.md queue B item 13)")
         return
+    if isinstance(model, Ising3DHelical):
+        if not helical3d_multispin.fits_stream(model):
+            raise NotImplementedError(
+                f"helical {cfg.nx}x{cfg.ny}x{cfg.nz} has "
+                f"{model.nsites // 2} sites a colour, not below the "
+                f"{helical3d_multispin.MAX_SITES} the packed helical 3-D "
+                "kernels index; the masked helical kernels that would "
+                "serve it are not ported yet (ROADMAP.md queue B item 13)")
+        return
     if isinstance(model, Ising3D):
         shape = model.color_shape[1:]
         if not ising3d_multispin.packable3d(*shape):
@@ -172,7 +184,7 @@ def _check_route(cfg, model) -> None:
 def _make_runner(cfg, model, batch: int, device):
     """The route of the JAX package's ``_run_accumulating`` for the
     served models."""
-    if isinstance(model, Ising2DHelical):
+    if isinstance(model, (Ising2DHelical, Ising3DHelical)):
         return sweep_mod.make_helical_runner(
             model, cfg.mcs, batch, cfg.init_state, device=device)
     if isinstance(model, Ising3D):

@@ -4,7 +4,7 @@ Port of the multispin part of
 ``cuda_fortran_mc_simulation_spin_tpu/engine/sweep.py``
 (``_host_chunk_runner``, ``_make_packed_runner``,
 ``make_multispin_runner``, ``make_multispin3d_runner`` and the Ising
-branch of ``make_helical_runner``).  A ``lax.scan`` there is a Python loop
+branches, 2-D and 3-D, of ``make_helical_runner``).  A ``lax.scan`` there is a Python loop
 over kernel launches here.  The JAX runner sizes its dispatches from TPU
 rates to stay under the TPU worker's deadline; the port has no such
 deadline and chunks by a fixed sweep count (``DEFAULT_CHUNK`` = 64, the
@@ -26,7 +26,11 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
     CheckerboardState,
 )
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d_helical import (
+    Ising3DHelical,
+)
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+    helical3d_multispin,
     helical_multispin,
     ising2d_multispin,
     ising3d_multispin,
@@ -100,10 +104,11 @@ def _make_packed_runner(model, mcs: int, batch: int, init_kind: str,
                         sweep_measure=ising2d_multispin.sweep_measure_seeded,
                         init_planes=_init_planes):
     """Init + pack once (``init_planes``), then chunks of either
-    ``multisweep`` launches (``resident``) or streamed ``sweep_measure``
-    phase pairs, with the per-sweep fused (m, e) either way; the defaults
-    are the 2-D engine's entries, ops/ising3d_multispin.py has the 3-D ones
-    and ops/helical_multispin.py the helical multisweep."""
+    ``multisweep(model, wa, wb, key, size, t0)`` calls (``resident``) or
+    streamed ``sweep_measure`` phase pairs, with the per-sweep fused (m, e)
+    either way; the defaults are the 2-D engine's entries,
+    ops/ising3d_multispin.py has the 3-D ones and ops/helical_multispin.py
+    and ops/helical3d_multispin.py the helical ones."""
 
     def init_fn(call_key):
         return init_planes(model, init_kind, batch, call_key, device)
@@ -163,9 +168,23 @@ def make_helical_runner(model, mcs: int, batch: int,
                         init_kind: str = "allup", device="cuda"
                         ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
     """`run(call_key) -> {m, e: (batch, mcs) float64}` on the flat
-    even/odd bit-packed helical kernel (ops/helical_multispin.py): one
-    resident multisweep launch per chunk of sweeps, keyed by the global
-    sweep index as the periodic runners are."""
+    even/odd bit-packed helical kernels, keyed by the global sweep index as
+    the periodic runners are.  2-D (ops/helical_multispin.py): one resident
+    multisweep launch per chunk of sweeps.  3-D
+    (ops/helical3d_multispin.py): the resident multisweep where
+    ``helical3d_multispin.fits`` (odd nx·ny, 151^3), else streamed
+    (sub-)phase launches (501^3, and 1001x1000x1000 with its four z-parity
+    sub-phases and an energy launch a sweep)."""
+    if isinstance(model, Ising3DHelical):
+        resident = helical3d_multispin.fits(model)
+        # both routes advance a chunk in one call with the fused (m, e)
+        return _tag(_make_packed_runner(
+            model, mcs, batch, init_kind, True, device, DEFAULT_CHUNK,
+            multisweep=(helical3d_multispin.multisweep if resident
+                        else helical3d_multispin.multisweep_stream),
+            init_planes=_init_helical_planes,
+        ), "helical3d_multispin " + ("(resident multisweep)" if resident
+                                     else "(streamed phases)"))
     return _tag(_make_packed_runner(
         model, mcs, batch, init_kind, True, device, DEFAULT_CHUNK,
         multisweep=helical_multispin.multisweep,

@@ -15,7 +15,10 @@ planes (..., ny//32, nx//2) of the 2-D multispin engine and volumes
 ``state_dict``.  The helical colour vectors differ only in shape: JAX
 keeps the flat words in a (..., rows, 128) grid (rows a multiple of 8),
 the port in (..., W), W = ceil(M/32); flat word g is the same word in
-both, and the JAX grid's extra words are zero.
+both, and the JAX grid's extra words are zero.  The helical 3-D engine
+keeps the same words; its JAX streaming layouts add zero rows
+(``pack_flat_stream``) or a ring pad that copies head and tail bits past
+bit M (``pack_flat_halo``), so the 3-D converters clear the bits past M.
 """
 
 from __future__ import annotations
@@ -64,15 +67,43 @@ def helical_from_numpy(w, m: int) -> torch.Tensor:
     return torch.from_numpy(np.array(flat))
 
 
-def helical_to_numpy(w: torch.Tensor, m: int) -> np.ndarray:
+def helical_to_numpy(w: torch.Tensor, m: int,
+                     rows: int | None = None) -> np.ndarray:
     """The port's (..., W) colour vectors -> the JAX grid (..., rows, 128)
-    int32, rows the JAX package's grid_rows(m), extra words zero."""
+    int32, by default rows = the JAX package's grid_rows(m), extra words
+    zero."""
     nw = -(-m // 32)
-    rows = -(-nw // (128 * 8)) * 8    # word rows of 128, a multiple of 8
+    if rows is None:
+        rows = -(-nw // (128 * 8)) * 8    # word rows of 128, a multiple of 8
     flat = w.cpu().numpy().astype(np.int32)
     pad = np.zeros(flat.shape[:-1] + (rows * 128 - nw,), dtype=np.int32)
     return np.concatenate([flat, pad], axis=-1).reshape(
         flat.shape[:-1] + (rows, 128))
+
+
+def _clear_past(w: np.ndarray, m: int) -> np.ndarray:
+    """Words with the bits past site m - 1 of the last word cleared."""
+    w = np.array(w, dtype=np.int32)
+    if m % 32:
+        w[..., -1] &= np.int32((1 << (m % 32)) - 1)
+    return w
+
+
+def helical3d_from_numpy(w, m: int) -> torch.Tensor:
+    """JAX helical 3-D words (..., rows, 128) int32 (numpy), in the layout
+    of ``pack_flat``, ``pack_flat_stream`` or ``pack_flat_halo`` -> the
+    port's (..., W) colour vectors, the bits past M cleared."""
+    return torch.from_numpy(_clear_past(helical_from_numpy(w, m).numpy(), m))
+
+
+def helical3d_to_numpy(w: torch.Tensor, m: int,
+                       rows: int | None = None) -> np.ndarray:
+    """The port's (..., W) colour vectors -> the JAX ``pack_flat`` grid (or
+    ``pack_flat_stream``'s, given its ``rows``), the bits past M cleared as
+    the JAX packing leaves them."""
+    nw = -(-m // 32)
+    cleared = torch.from_numpy(_clear_past(w.cpu().numpy()[..., :nw], m))
+    return helical_to_numpy(cleared, m, rows)
 
 
 def stats_state_from_numpy(d: Mapping[str, object]) -> dict:

@@ -3,23 +3,26 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising2d_helical import (  
     Ising2DHelical,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d import Ising3D  # noqa: F401
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d_helical import (  # noqa: F401
+    Ising3DHelical,
+)
 
 
 def build_model(cfg):
     """RunConfig -> model instance.  The port serves the Ising models:
     periodic 2-D, helical 2-D (odd nx, the reference's committed
-    1001x1000) and periodic 3-D (even dims).  Every other model of the
-    JAX package raises, naming the ROADMAP.md queue A item that ports
-    it."""
+    1001x1000), periodic 3-D (even dims) and helical 3-D (odd nx, the
+    reference's committed 151x151x150, 501x501x500 and 1001x1000x1000).
+    Every other model of the JAX package raises, naming the ROADMAP.md
+    queue A item that ports it."""
     if cfg.model == "ising2d":
         if cfg.nx % 2 == 1:
             return Ising2DHelical(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt)
         return Ising2D(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt)
     if cfg.model == "ising3d":
         if cfg.nx % 2 == 1:
-            raise NotImplementedError(
-                "odd nx selects the helical Ising 3-D engine, not ported "
-                "yet (ROADMAP.md queue A item 6, helical half)")
+            return Ising3DHelical(nx=cfg.nx, ny=cfg.ny, nz=cfg.nz,
+                                  kbt=cfg.kbt)
         return Ising3D(nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, kbt=cfg.kbt)
     items = {"clock": 7, "xy2d": 8}
     if cfg.model in items:

@@ -256,15 +256,16 @@ def _raise_on(lib, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def _check_vectors(m: int, *vecs: torch.Tensor) -> None:
+def _check_vectors(m: int, *vecs: torch.Tensor,
+                   max_words: int = MAX_WORDS) -> None:
     """The kernel takes int32 contiguous (R, W) colour vectors on one CUDA
-    device, W = ceil(m/32) <= MAX_WORDS."""
+    device, W = ceil(m/32) <= ``max_words``."""
     ref = vecs[0]
     if ref.dim() != 2:
         raise ValueError(f"colour vectors must be (R, W), got {ref.shape}")
-    if ref.shape[1] != words(m) or not 1 <= ref.shape[1] <= MAX_WORDS:
+    if ref.shape[1] != words(m) or not 1 <= ref.shape[1] <= max_words:
         raise ValueError(f"colour vectors of {m} sites need W = {words(m)} "
-                         f"<= {MAX_WORDS} words, got {tuple(ref.shape)}")
+                         f"<= {max_words} words, got {tuple(ref.shape)}")
     for v in vecs:
         if v.shape != ref.shape or v.dtype != torch.int32:
             raise ValueError(f"colour vectors must be int32 "

@@ -422,10 +422,7 @@ def sweep_seed_pairs(key, sweeps: int, t0: int = 0) -> torch.Tensor:
     sweep indices t0+1 .. t0+sweeps of the sample keyed by ``key``: the
     derivation the streaming path applies one sweep at a time, so a
     multisweep reproduces it bitwise."""
-    ts = t0 + torch.arange(1, sweeps + 1, dtype=torch.int64)
-    keys = rng.sweep_key(key, ts)
-    return torch.stack([rng.seeds_from_key(keys, 0),
-                        rng.seeds_from_key(keys, 1)], dim=1)
+    return multispin_rng.sweep_phase_keys(key, sweeps, t0)
 
 
 def _densities(obs: torch.Tensor, nsites: int) -> dict[str, torch.Tensor]:

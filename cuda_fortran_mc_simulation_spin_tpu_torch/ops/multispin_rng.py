@@ -11,8 +11,9 @@ drawn from Philox4x32-10:
     word    = output n % 4                         for draw n = 0, 1, ...
 
 The 3-D engine stacks its z-planes along the word rows (word row z·nyp +
-Y) and the helical engine names word g of a colour vector as (g, 0), so
-one counter layout serves all three.  The CUDA kernels evaluate the same
+Y) and the helical engines name word g of a colour vector as (g, 0), so
+one counter layout serves them all; a word index below 2^32 (the helical
+3-D engine's 15.6 M words a colour at 1001x1000x1000) never aliases.  The CUDA kernels evaluate the same
 function per thread (``csrc/philox.cuh`` ``WordStream``); :func:`word_stream`
 is its plain PyTorch version on whole planes.  Because the counter names the word's
 global position, the bits depend on neither the tiling, the host chunking
@@ -48,3 +49,17 @@ def word_stream(key, nrep: int, nyp: int, half: int,
         return state["buf"][..., n % 4]
 
     return gen
+
+
+def sweep_phase_keys(key, sweeps: int, t0: int = 0, phases: int = 2
+                     ) -> torch.Tensor:
+    """(sweeps, phases, 2) uint32 Philox keys of (sub-)phases 0 ..
+    phases-1 of global sweeps t0+1 .. t0+sweeps of the sample keyed by
+    ``key``: ``seeds_from_key(sweep_key(key, t), p)``.  Two phases a
+    sweep for the checkerboard engines, four for the helical 3-D engine
+    at even nx·ny (colour a z-parity 0, 1, then colour b), so every
+    sub-phase draws under its own key."""
+    ts = t0 + torch.arange(1, sweeps + 1, dtype=torch.int64)
+    keys = rng.sweep_key(key, ts)
+    return torch.stack([rng.seeds_from_key(keys, p) for p in range(phases)],
+                       dim=1)

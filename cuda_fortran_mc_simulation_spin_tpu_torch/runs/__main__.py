@@ -10,7 +10,10 @@ raises)::
 
 Odd ``--nx`` runs the helical 2-D lattice (``--nx 1001 --ny 1000``, the
 reference's geometry); ``--model ising3d`` with even dims the periodic
-3-D one (``--nx 512 --ny 512 --nz 512 --kbt 4.51152``).
+3-D one (``--nx 512 --ny 512 --nz 512 --kbt 4.51152``) and with odd
+``--nx`` the helical 3-D one (``--nx 151 --ny 151 --nz 150``, ``--nx 501
+--ny 501 --nz 500`` or ``--nx 1001 --ny 1000 --nz 1000``, the reference's
+geometries).
 
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of

@@ -101,7 +101,8 @@ def test_cuda_without_a_card_raises(tmp_path):
     (["--backend", "jnp"], "backend"),
     (["--protocol", "samples"], "queue A item 8"),
     (["--model", "clock"], "queue A item 7"),
-    (["--model", "ising3d", "--nx", "255", "--nz", "4"], "queue A item 6"),
+    (["--model", "ising3d", "--nx", "2049", "--ny", "1024", "--nz", "1024"],
+     "queue B item 13"),
     (["--model", "xy2d"], "queue A item 8"),
     (["--nx", "4097", "--ny", "2048"], "queue B item 13"),
     (["--nx", "128", "--ny", "128"], "queue B item 13"),

@@ -174,3 +174,103 @@ def test_ising3d_multisweep_kernel_matches_phase_pairs(cuda):
     qa, qb, qobs = ms3.multisweep3d_plain(wa, wb, seeds, beta=beta)
     assert torch.equal(ka, qa) and torch.equal(kb, qb)
     assert torch.equal(kobs, qobs)
+
+
+def _h3():
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical3d_multispin as h3,
+    )
+    return h3
+
+
+# odd nx*ny with a partial last word (M = 126: 30 bits), even nx*ny with
+# several z-planes a word (zh = 36), and the 151^3 and 101x100x100 classes
+H3_SHAPES = [(9, 7, 4), (9, 8, 6), (151, 151, 150), (101, 100, 100)]
+KBT3 = 4.511454583186711
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,nz", H3_SHAPES)
+def test_helical3d_phase_kernel_matches_plain(cuda, nx, ny, nz):
+    """phase_kernel against its plain version on the valid bits, in every
+    mode: injected bits, Philox words, each z-parity sub-phase (even
+    nx*ny), and the fused (m, e)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+    )
+    h3 = _h3()
+    nxy, m = nx * ny, nx * ny * nz // 2
+    x, o, b4, b8 = _helical_vectors(cuda, 2, m, nx)
+    b12 = _helical_vectors(cuda, 2, m, nx + 1)[0]
+    vm = hms.valid_mask(m, cuda)
+    kw = dict(nx=nx, nxy=nxy, m=m)
+    zsubs = (None,) if nxy % 2 else (0, 1)
+    for color in (0, 1):
+        for zsub in zsubs:
+            got = h3.phase_packed_with_bits(x, o, b4, b8, b12, color=color,
+                                            zsub=zsub, **kw)
+            want = h3.phase_packed_with_bits(
+                *(v.cpu() for v in (x, o, b4, b8, b12)), color=color,
+                zsub=zsub, **kw)
+            assert torch.equal(hms._u32(got.cpu()) & vm.cpu(),
+                               hms._u32(want) & vm.cpu())
+            seeds = rng.seeds_from_key(rng.base_key(5), 2 * color + (zsub or 0))
+            got, gobs = h3.phase_packed(x, o, seeds, color=color, zsub=zsub,
+                                        beta=1 / KBT3, measuring=True, **kw)
+            want, wobs = h3.phase_plain(x, o, seeds, color=color, zsub=zsub,
+                                        beta=1 / KBT3, measuring=True, **kw)
+            assert torch.equal(hms._u32(got) & vm, hms._u32(want) & vm)
+            assert torch.equal(gobs, wobs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,nz", H3_SHAPES)
+def test_helical3d_energy_kernel_matches_plain_and_exact_sums(cuda, nx, ny,
+                                                              nz):
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Ising3DHelical,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+    )
+    h3 = _h3()
+    model = Ising3DHelical(nx, ny, nz, KBT3)
+    m = model.nsites // 2
+    wa, wb = _helical_vectors(cuda, 3, m, ny)[:2]
+    kw = dict(nx=nx, nxy=model.nxy, m=m)
+    got = h3.energy_sums(wa, wb, **kw)
+    assert torch.equal(got, h3.energy_sums_plain(wa, wb, **kw))
+    flat = hms.merge_flat(hms.unpack_flat(wa, m), hms.unpack_flat(wb, m))
+    assert torch.equal(got[:, 0], model.magne_sum(flat))
+    assert torch.equal(got[:, 1], model.energy_sum(flat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,nz", [(9, 7, 4), (151, 151, 150)])
+def test_helical3d_multisweep_kernel_matches_streamed_phases(cuda, nx, ny,
+                                                             nz):
+    """S sweeps in one launch against S streamed phase-kernel pairs and
+    against the plain version, on the valid bits and the (m, e)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Ising3DHelical,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+    )
+    h3 = _h3()
+    model = Ising3DHelical(nx, ny, nz, KBT3)
+    m = model.nsites // 2
+    wa, wb = _helical_vectors(cuda, 2, m, nz)[:2]
+    key = rng.sample_key(rng.base_key(6), 0)
+    ka, kb, kobs = h3.multisweep(model, wa, wb, key, 6, t0=3)
+    sa, sb, sobs = h3.multisweep_stream(model, wa, wb, key, 6, t0=3)
+    pa, pb, pobs = h3.multisweep_plain(
+        wa, wb, h3.sweep_keys(model, key, 6, 3), beta=model.beta, nx=nx,
+        nxy=model.nxy, m=m)
+    vm = hms.valid_mask(m, cuda)
+    for got, *wants in ((ka, sa, pa), (kb, sb, pb)):
+        for want in wants:
+            assert torch.equal(hms._u32(got) & vm, hms._u32(want) & vm)
+    for k, col in (("m", 0), ("e", 1)):
+        assert torch.equal(kobs[k], sobs[k])
+        assert torch.equal(kobs[k], pobs[..., col].double() / model.nsites)

@@ -71,6 +71,7 @@ def test_the_slices_modules_are_checked():
     slice's modules are among what they import."""
     mods = set(_port_modules())
     for name in ("ops.ising2d_multispin", "ops.helical_multispin",
-                 "ops.ising3d_multispin", "models.ising2d_helical",
-                 "models.ising3d"):
+                 "ops.ising3d_multispin", "ops.helical3d_multispin",
+                 "models.ising2d_helical", "models.ising3d",
+                 "models.ising3d_helical"):
         assert f"cuda_fortran_mc_simulation_spin_tpu_torch.{name}" in mods

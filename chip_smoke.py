@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's four relaxation paths through the CLI on the card:
-the periodic 2-D Ising NER relaxation at Tc, the helical 2-D one at the
-reference's 1001x1000 geometry, the periodic 3-D one at 512^3, and the
+Drives the port's relaxation paths through the CLI on the card: the
+periodic 2-D Ising NER relaxation at Tc, the helical 2-D one at the
+reference's 1001x1000 geometry, the periodic 3-D one at 512^3, the
 helical 3-D one at the reference's 151x151x150, 501x501x500 and
-1001x1000x1000; and holds every kernel of those paths against its plain
-PyTorch version.
+1001x1000x1000, and the q=6 clock one at the reference's 2000x2000
+(padded), at 2048x2048 (aligned) and helical at 501x500; and holds every
+kernel of those paths against its plain PyTorch version.
 Phases (each prints a progress line on stderr):
 
 1. build the CUDA sources (csrc/*.cu) from scratch with nvcc, all at once;
@@ -31,12 +32,22 @@ Phases (each prints a progress line on stderr):
      (m, e); the energy kernel (also against the exact sums at 151^3); the
      multisweep kernel over 64 sweeps at 151^3 x 8 against 64 streamed
      phase pairs and its plain version;
+   - clock, q = 6, 4, 3, at 2048^2 x 16 (aligned) and 2000^2 x 4 (padded,
+     16 real rows in the top word): the phase kernel with injected planes
+     and Philox words, measuring and not; the helical clock multisweep
+     kernel at 501x500 x 4 (shared memory: injected mode, 16 sweeps against
+     16 one-sweep launches and the plain version, the fused sums against
+     the state's) and 1001x1000 x 2 (device memory); the 64-sweep launch
+     is held against its plain version in phase 5;
 2b. <m>, <e> after one sweep from all-up against their closed forms for
    the chains' quantized acceptances, over >= 1e10 sites per path (helical
    3-D at 151^3 and 501^3, where every neighbour lies in the other
    colour); at even nx*ny (101x100x100, four z-parity sub-phases) a
    two-sample test of the kernels against the int8 model on the card over
    >= 1e9 site-samples each;
+   the clock's first sweep (q = 6 at kbt 0.91 and 0.80, q = 4 and 3 at
+   0.91, with the engine's rounded thermometer and chain probabilities)
+   over >= 1e10 sites each, periodic and helical (501x500);
 3. 2-D resident class: 2048^2, 16 replicas, 64 samples, 1000 MCS through
    the multisweep kernel;
 4. 2-D streaming class: 8192^2, 4 replicas, 4 samples, 200 MCS through
@@ -58,9 +69,16 @@ Phases (each prints a progress line on stderr):
    kernel (t >= 100); streamed 1001x1000x1000 x 2, 2 samples, 1000 MCS
    through four sub-phase launches and an energy launch a sweep, against
    the 90-sample curve with the 16 racy samples taken out (t >= 150);
+4d. clock classes, from all-up, at every t <= 1000 within 5 combined
+   standard errors of the reference's curves: periodic padded 2000x2000,
+   q = 6, kbt 0.91, 40 replicas, 80 samples; aligned 2048x2048, kbt 0.8,
+   16 replicas, 32 samples; helical 501x500, kbt 0.8, 100 replicas, 200
+   samples (the clock phase kernel, streamed; the helical multisweep);
 5. times with CUDA events, beside each kernel's bound and its plain
    version's time, at the main paths' launch shapes (the helical kernel
-   at 128 x 1001x1000, S = 64); the kernel's output there is held against
+   at 128 x 1001x1000, S = 64; the clock phase kernel at 2000x2000 x 40,
+   measuring and not; the helical clock kernel at 501x500 x 100, S = 64);
+   the kernel's output there is held against
    the plain version's, bitwise, too; then each runner's two routes (one
    multisweep launch per S sweeps, or S streamed phase pairs) at and
    between the paths' shapes, and the helical 3-D routes at 151^3 x 128.
@@ -92,6 +110,11 @@ REFERENCE_H3_501 = (PRODUCTION
                     / "ising3d_501x501x500_specific_times_mcs10000_s16.dat")
 REFERENCE_H3_1001 = PRODUCTION / "ising3d_1001x1000x1000_mcs1000_s500.dat"
 RACY_H3_1001 = PRODUCTION / "ising3d_1001x1000x1000_mcs1000_s16.dat"
+CLOCK_2000 = PRODUCTION / "clock_2000x2000_kbt0.91_mcs100000_s5000.dat"
+CLOCK_2048 = PRODUCTION / "clock_2048x2048_mcs100000_s1088.dat"
+CLOCK_501 = PRODUCTION / "clock_501x500_kbt0.80_mcs100000_s100.dat"
+KBT_CLOCK = 0.91                    # the 2000x2000 curve
+KBT_CLOCK_08 = 0.8                  # the 2048x2048 and 501x500 curves
 KBT = 2.26918531421
 KBT_3D = 4.51152
 KBT_H3 = 4.511454583186711          # 151^3 and 1001x1000x1000 curves
@@ -126,6 +149,20 @@ OPS_HELICAL_MASKS = 6
 OPS_HELICAL3D_SHIFTS = 12
 OPS_ZMASK = 8
 OPS_ENERGY = 6 * 8 + 6 * 4 + 5
+# clock, per word and phase (three-input logic ops): the proposal
+# thermometer's 4 (q=6) or 2 (q=4) twelve-step comparisons and the CRT
+# recode; the stencil of each state plane (2 funnel shifts, the side
+# select, the top word's wrap); the decision (q=6: per bond 8 for x, eq,
+# eq', w, w'; four 4:3 counters; two scaled sums; a 5-bit subtract; the
+# gated acceptance; the updates); the fused (2m, 2e): 12-16 popcounts and
+# their adds; helical: 12 modular reads of 3 each instead of the stencil,
+# and my2's 4 popcounts
+OPS_CLOCK_THERMO = {6: 4 * 12 + 6, 4: 2 * 12 + 2, 3: 0}
+OPS_CLOCK_STENCIL = {6: 3 * 6, 4: 2 * 6, 3: 2 * 6}
+OPS_CLOCK_DECIDE = {6: 32 + 6 + 4 * 6 + 2 * 8 + 10 + 10 + 6, 4: 80, 3: 50}
+OPS_CLOCK_MEASURE = {6: 40, 4: 30, 3: 20}
+OPS_CLOCK_HELICAL_READS = 12 * 3
+OPS_CLOCK_MY = 10
 
 T0 = time.perf_counter()
 
@@ -212,6 +249,20 @@ def time_kernel(label: str, flips: int, fn, plain, nbytes: float,
         f"vs plain {err}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by}, err
+
+
+def host_ms_per_sweep(cp, spec, model, wa, wb, seeds) -> float:
+    """Host time of one streamed clock sweep as the runner issues it (two
+    phase launches and the fused densities) on the host's clock, the card
+    left to run behind: the host's own cost a sweep."""
+    wa, wb, _ = cp.sweep_measure_seeded(spec, model, wa, wb, seeds[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(seeds.shape[0]):
+        wa, wb, _ = cp.sweep_measure_seeded(spec, model, wa, wb, seeds[j])
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / seeds.shape[0] * 1e3
 
 
 def random_words(shape, seed: int, dev, n: int = 4) -> list[torch.Tensor]:
@@ -765,6 +816,314 @@ def cleaned_1001_curve(raw: np.ndarray, racy: np.ndarray) -> np.ndarray:
     return out
 
 
+def clock_specs():
+    """The runner's q -> PlaneSpec table."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.engine.sweep import (
+        CLOCK_SPECS,
+    )
+    return CLOCK_SPECS
+
+
+def clock_phase_ops_per_word(msb, cp, spec, beta: float,
+                             measuring: bool) -> int:
+    """Minimum instructions of one clock word-phase: the Philox calls of
+    the proposal and chain words, the chains' folds, the thermometer, the
+    stencil and the decision (and the fused sums)."""
+    qs, ks = cp.chain_words(spec.accept_digits(beta))
+    draws = {6: 12, 4: 12, 3: 1}[spec.q] + sum(
+        msb.chain_draws(q, k) for q, k in zip(qs, ks))
+    return (math.ceil(draws / 4) * OPS_PER_PHILOX + math.ceil(draws / 2)
+            + OPS_CLOCK_THERMO[spec.q] + OPS_CLOCK_STENCIL[spec.q]
+            + OPS_CLOCK_DECIDE[spec.q]
+            + (OPS_CLOCK_MEASURE[spec.q] if measuring else 0))
+
+
+def clock_words(dev, nrep, nyw, half, n, seed, ny, cp):
+    """n random int32 planes (nrep, nyw, half) with the pad bits of the
+    top word clear (the port's clock layout)."""
+    mask = cp.real_mask(nyw, half, ny % 32, dev)
+    return [cp._i32(cp._u32(w) & mask)
+            for w in random_words((nrep, nyw, half), seed, dev, n)]
+
+
+def valid_rand(spec, rand):
+    """Injected q = 6 planes as the engine draws them: a valid (rt1, rt2)
+    Z3 encoding and no null proposal."""
+    rand = list(rand)
+    if spec.q == 6:
+        rand[2] = rand[2] & ~rand[1]
+        rand[0] = rand[0] | ~(rand[1] | rand[2])
+    return rand
+
+
+CLOCK_CHECK_SHAPES = ((16, 2048, 2048), (4, 2000, 2000))
+
+
+def check_clock(cp, rng, dev) -> int:
+    """Clock phase kernel vs its plain version, bitwise, for q = 6, 4, 3
+    on the aligned and the padded main-path geometries, both colours,
+    injected and Philox planes, measuring and not.  Returns the largest
+    absolute difference seen."""
+    err = 0
+    beta = 1.0 / KBT_CLOCK
+    for q, spec in clock_specs().items():
+        for nrep, ny, nx in CLOCK_CHECK_SHAPES:
+            half, nyw = nx // 2, -(-ny // 32)
+            planes = clock_words(dev, nrep, nyw, half,
+                                 2 * spec.n_state + spec.n_rand, q + ny, ny,
+                                 cp)
+            x = tuple(planes[:spec.n_state])
+            o = tuple(planes[spec.n_state:2 * spec.n_state])
+            rand = valid_rand(spec, planes[2 * spec.n_state:])
+            seeds = cp.multispin_rng.sweep_phase_keys(
+                rng.sample_key(rng.base_key(12), q), 1)[0]
+            for color in (0, 1):
+                errs = []
+                for measuring in (False, True):
+                    got = cp.phase_packed_inject(spec, x, o, rand,
+                                                 color=color, ny=ny,
+                                                 measuring=measuring)
+                    want = cp.phase_reference(spec, x, o, color, rand, ny,
+                                              measuring)
+                    if measuring:
+                        errs.append(max_abs_err(
+                            list(zip(got[0], want[0])) + [(got[1],
+                                                           want[1])]))
+                    else:
+                        errs.append(max_abs_err(zip(got, want)))
+                    kw = dict(color=color, beta=beta, ny=ny,
+                              measuring=measuring)
+                    got = cp.phase_packed(spec, x, o, seeds[color], **kw)
+                    want = cp.phase_plain(spec, x, o, seeds[color], **kw)
+                    if measuring:
+                        errs.append(max_abs_err(
+                            list(zip(got[0], want[0])) + [(got[1],
+                                                           want[1])]))
+                    else:
+                        errs.append(max_abs_err(zip(got, want)))
+                err = max(err, *errs)
+                log(f"  clock q={q} phase kernel {nrep}x{ny}x{nx} colour "
+                    f"{color}: injected {errs[0]}, philox {errs[1]}, "
+                    f"injected measuring {errs[2]}, philox measuring "
+                    f"{errs[3]}")
+            del planes, x, o, rand
+    torch.cuda.synchronize()
+    if err != 0:
+        fail(f"clock phase kernel differs from its plain version (max abs "
+             f"err {err})")
+    return err
+
+
+def check_clock_helical(chm, hms, rng, dev) -> int:
+    """Helical clock multisweep kernel vs its plain version, bitwise on
+    the valid bits: the injected mode, S sweeps against S one-sweep
+    launches and the plain version, and the fused sums against the final
+    state's, staged in shared memory (501x500) and in device memory
+    (1001x1000).  Returns the largest absolute difference seen."""
+    err = 0
+    beta = 1.0 / KBT_CLOCK_08
+
+    def valid(w, m):
+        return hms._u32(w) & hms.valid_mask(m, dev)
+
+    for nrep, nx, ny, sweeps in ((4, 501, 500, 16), (2, 1001, 1000, 4)):
+        m = nx * ny // 2
+        staged = chm.staged_fits(hms.words(m), dev)
+        if staged != (nx == 501):
+            fail(f"helical clock {nx}x{ny}: staged {staged}, so a variant "
+                 "goes unchecked")
+        vecs = random_words((nrep, hms.words(m)), nx, dev, n=14)
+        a3, b3 = tuple(vecs[:3]), tuple(vecs[3:6])
+        p8 = valid_rand(clock_specs()[6], vecs[6:])
+        for color, offs in enumerate(hms.helical_offsets(nx)):
+            e = max_abs_err(
+                (valid(g, m), valid(w, m)) for g, w in zip(
+                    chm.phase_packed_with_bits(a3, b3, p8, offs=offs, m=m),
+                    chm.packed_helical_phase6_reference(a3, b3, offs, p8,
+                                                        m)))
+            err = max(err, e)
+            log(f"  helical clock injected mode {nrep}x{nx}x{ny} colour "
+                f"{color}: {e}")
+        seeds = hms.sweep_seed_pairs(rng.sample_key(rng.base_key(13), nx),
+                                     sweeps)
+        kw = dict(beta=beta, nx=nx, m=m)
+        ka, kb, kobs = chm.multisweep_planes(a3, b3, seeds, **kw)
+        pa, pb, pobs = chm.multisweep_plain(a3, b3, seeds, **kw)
+        e_plain = max_abs_err(
+            [(valid(g, m), valid(w, m)) for g, w in zip(ka + kb, pa + pb)]
+            + [(kobs, pobs)])
+        e_state = max_abs_err([(kobs[:, -1],
+                                chm.obs_packed6_reference(ka, kb, nx, m))])
+        e_single = 0
+        if nx == 501:
+            sa, sb, sobs = a3, b3, []
+            for s in range(sweeps):
+                sa, sb, o = chm.multisweep_planes(sa, sb, seeds[s:s + 1],
+                                                  **kw)
+                sobs.append(o)
+            e_single = max_abs_err(
+                [(valid(g, m), valid(w, m)) for g, w in zip(ka + kb,
+                                                             sa + sb)]
+                + [(kobs, torch.cat(sobs, dim=1))])
+        err = max(err, e_plain, e_state, e_single)
+        log(f"  helical clock multisweep {nrep}x{nx}x{ny} S={sweeps} "
+            f"(staged {staged}): vs plain {e_plain}, vs {sweeps} one-sweep "
+            f"launches {e_single}, (2m, 2e, my2) vs the state's {e_state}")
+    torch.cuda.synchronize()
+    if err != 0:
+        fail(f"helical clock multisweep kernel differs from its plain "
+             f"version (max abs err {err})")
+    return err
+
+
+def clock_first_sweep_exact(cp, spec, beta: float) -> tuple[float, float]:
+    """E[m], E[e] per site after one sweep from all-up (every state 0) for
+    the engine's rounded proposal categories and chain probabilities, on
+    any lattice whose sites have four distinct neighbours of the other
+    colour.  Phase a: every site sees four 0 neighbours.  Phase b: each
+    b-site sees four independent a-sites; a bond (a0, b0) conditions on
+    a0 and enumerates b0's other three neighbours."""
+    q = spec.q
+    nch = len(spec.accept_digits(beta))
+    qs, ks = cp.chain_words(spec.accept_digits(beta))
+    p = [qq / 2 ** k for qq, k in zip(qs, ks)][:nch]
+    if q == 6:
+        prop = {r: c / 4096 for r, c in zip(range(1, 6),
+                                            (819, 819, 820, 819, 819))}
+    elif q == 4:
+        prop = {1: 1365 / 4096, 2: 1366 / 4096, 3: 1365 / 4096}
+    else:
+        prop = {1: 0.5, 2: 0.5}
+    cos = [math.cos(2 * math.pi * c / q) for c in range(q)]
+    # the integer the chains gate on: 2dE (q=6), dE (q=4), 2dE/3 (q=3)
+    unit = {6: 0.5, 4: 1.0, 3: 1.5}[q]
+
+    def accept(c, nbrs, r) -> float:
+        new = (c + r) % q
+        de = sum(cos[(c - n) % q] - cos[(new - n) % q] for n in nbrs)
+        mm = round(de / unit)
+        if mm <= 0:
+            return 1.0
+        gates = ([mm & 1, mm >> 1 & 1, mm >> 2 & 1, (mm >> 3 | mm >> 4) & 1,
+                  mm >> 4 & 1] if q == 6 else
+                 [mm >> i & 1 for i in range(nch)])
+        out = 1.0
+        for g, pk in zip(gates, p):
+            if g:
+                out *= pk
+        return out
+
+    def after(c, nbrs) -> list[float]:
+        """Distribution of a site's state after its phase."""
+        dist = [0.0] * q
+        for r, pr in prop.items():
+            a = accept(c, nbrs, r)
+            dist[(c + r) % q] += pr * a
+            dist[c] += pr * (1 - a)
+        return dist
+
+    pa = after(0, (0, 0, 0, 0))
+    m_a = sum(pa[c] * cos[c] for c in range(q))
+    m_b = 0.0
+    bond = 0.0
+    for s0 in range(q):
+        for rest in np.ndindex(q, q, q):
+            w = pa[s0] * pa[rest[0]] * pa[rest[1]] * pa[rest[2]]
+            if w == 0.0:
+                continue
+            pb = after(0, (s0,) + rest)
+            m_b += w * sum(pb[c] * cos[c] for c in range(q))
+            bond += w * sum(pb[c] * cos[(c - s0) % q] for c in range(q))
+    return 0.5 * (m_a + m_b), -2.0 * bond
+
+
+def check_z_sampled(name: str, per_rep: dict, nsites: int,
+                    want: tuple[float, float]) -> float:
+    """<m>, <e> over the per-replica densities against their exact values
+    within SIGMAS standard errors of the sampled per-replica variance.
+    Returns the largest |z|."""
+    worst = 0.0
+    for k, exact in zip(("m", "e"), want):
+        v = torch.cat(per_rep[k]).double()
+        mean = float(v.mean())
+        z = (mean - exact) / math.sqrt(float(v.var()) / v.numel())
+        log(f"  {name} first sweep <{k}> {mean:.9f} closed form "
+            f"{exact:.9f} over {v.numel() * nsites:.3g} sites, z {z:+.2f}")
+        worst = max(worst, abs(z))
+        if abs(z) > SIGMAS:
+            fail(f"{name} first-sweep <{k}> is {z:+.2f} sigma from the "
+                 "closed form")
+    return worst
+
+
+def check_first_sweep_clock(cp, rng, dev, q: int, kbt: float,
+                            iters: int) -> float:
+    """Periodic clock <m>(1), <e>(1) of the phase kernel over iters x 40 x
+    2000^2 sites (the padded main path's launch) against the closed
+    form."""
+    spec = clock_specs()[q]
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import Clock2D
+    model = Clock2D(nx=2000, ny=2000, kbt=kbt, q=q)
+    zero = tuple(torch.zeros((40, 63, 1000), dtype=torch.int32, device=dev)
+                 for _ in range(spec.n_state))
+    per_rep = {"m": [], "e": []}
+    base = rng.base_key(2040 + q)
+    for it in range(iters):
+        seeds = cp.multispin_rng.sweep_phase_keys(rng.sample_key(base, it),
+                                                  1)[0]
+        _, _, obs = cp.sweep_measure_seeded(spec, model, zero, zero, seeds)
+        for k in per_rep:
+            per_rep[k].append(obs[k])
+    return check_z_sampled(f"clock q={q} kbt {kbt} 2000^2", per_rep,
+                           model.nsites,
+                           clock_first_sweep_exact(cp, spec, model.beta))
+
+
+def check_first_sweep_clock_helical(cp, chm, hms, rng, dev,
+                                    iters: int) -> float:
+    """Helical clock <m>(1), <e>(1) of the multisweep kernel over iters x
+    500 x 501x500 sites at kbt 0.8: the periodic closed form (four
+    distinct neighbours of the other colour)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Clock2DHelical,
+    )
+    model = Clock2DHelical(501, 500, KBT_CLOCK_08)
+    m = model.nsites // 2
+    zero = tuple(torch.zeros((500, hms.words(m)), dtype=torch.int32,
+                             device=dev) for _ in range(3))
+    per_rep = {"m": [], "e": []}
+    base = rng.base_key(2050)
+    for it in range(iters):
+        _, _, obs = chm.multisweep(model, zero, zero,
+                                   rng.sample_key(base, it), 1)
+        for k in per_rep:
+            per_rep[k].append(obs[k][:, 0])
+    return check_z_sampled("helical clock 501x500 kbt 0.8", per_rep,
+                           model.nsites,
+                           clock_first_sweep_exact(cp, clock_specs()[6],
+                                                   model.beta))
+
+
+def run_clock(main_fn, modules, out_dir, nx, ny, kbt, replicas, samples,
+              mcs, ref, engine):
+    """One clock class through the CLI, from all-up, against the reference
+    curve at every t <= mcs with the combined sigma.  Returns (launches,
+    wall, rate, largest |z|)."""
+    argv = ["--model", "clock", "--nx", str(nx), "--ny", str(ny), "--q",
+            "6", "--kbt", repr(kbt), "--mcs", str(mcs), "--samples",
+            str(samples), "--replicas", str(replicas)]
+    launches, wall, rate, table, head = run_main_path(
+        main_fn, modules, out_dir, f"clock_{nx}x{ny}", argv, nx * ny,
+        samples, mcs)
+    for line in (f"# nx, ny: {nx} {ny}", f"# engine: {engine}"):
+        if line not in head:
+            fail(f"clock .dat header lacks {line!r}: {head}")
+    worst = check_against_reference(
+        table, ref, nx * ny, samples, mcs, range(1, mcs + 1),
+        ref_nsites=int(ref[0, 0]), ref_samples=int(ref[0, 1]))
+    return launches, wall, rate, worst
+
+
 ROUTE_SHAPES = ((2048, 16), (4096, 4), (8192, 1), (8192, 4))
 ROUTE_SHAPES_3D = ((256, 4), (256, 8), (512, 1), (512, 2), (512, 8))
 
@@ -860,9 +1219,18 @@ def compare_routes_helical3d(h3, hms, dev, seeds) -> float:
     return str_ms / res_ms
 
 
-def read_dat(path: Path) -> np.ndarray:
-    rows = [line.split() for line in path.read_text().splitlines()
-            if line and not line.startswith("#")]
+def read_dat(path: Path, max_t: int | None = None) -> np.ndarray:
+    """A .dat table's rows; with ``max_t`` only those up to t = max_t
+    (the clock curves run to 10^5 sweeps)."""
+    rows = []
+    with path.open() as f:
+        for line in f:
+            if not line.strip() or line.startswith("#"):
+                continue
+            row = line.split()
+            if max_t is not None and float(row[2]) > max_t:
+                break
+            rows.append(row)
     return np.array(rows, dtype=np.float64)
 
 
@@ -901,12 +1269,13 @@ def check_against_reference(table: np.ndarray, ref: np.ndarray, nsites: int,
             sigma = math.sqrt(rrow[var_col]
                               * (1.0 / (nsites * samples) + ref_term))
             z = (row[col] - rrow[col]) / sigma
-            log(f"  t={t:5d} <{name}> port {row[col]:.9f} reference "
-                f"{rrow[col]:.9f} sigma {sigma:.3e} z {z:+.2f}")
+            if len(times) <= 20 or t in (1, 10, 100, 1000):
+                log(f"  t={t:5d} <{name}> port {row[col]:.9f} reference "
+                    f"{rrow[col]:.9f} sigma {sigma:.3e} z {z:+.2f}")
             worst = max(worst, abs(z))
             if abs(z) > SIGMAS:
                 fail(f"<{name}>({t}) is {z:+.2f} sigma from the reference")
-    log(f"  largest |z| {worst:.2f}")
+    log(f"  largest |z| {worst:.2f} over {len(times)} times")
     return worst
 
 
@@ -981,7 +1350,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import Clock2D
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_helical_multispin as chm,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_planes as cp,
+    )
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         helical3d_multispin as h3,
     )
@@ -999,13 +1375,14 @@ def main() -> int:
     )
 
     modules = {"ising2d": msb, "helical": hms, "ising3d": ms3,
-               "helical3d": h3}
+               "helical3d": h3, "clock": cp, "clock_helical": chm}
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device {torch.cuda.get_device_name(0)} | {smi} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     for path in (REFERENCE_DAT, REFERENCE_3D_DAT, REFERENCE_H3_151,
-                 REFERENCE_H3_501, REFERENCE_H3_1001, RACY_H3_1001):
+                 REFERENCE_H3_501, REFERENCE_H3_1001, RACY_H3_1001,
+                 CLOCK_2000, CLOCK_2048, CLOCK_501):
         if not path.exists():
             fail(f"reference curve {path} is missing")
     ref = read_dat(REFERENCE_DAT)
@@ -1014,6 +1391,9 @@ def main() -> int:
     ref_h501 = read_dat(REFERENCE_H3_501)
     ref_h1001 = cleaned_1001_curve(read_dat(REFERENCE_H3_1001),
                                    read_dat(RACY_H3_1001))
+    ref_c2000 = read_dat(CLOCK_2000, max_t=1000)
+    ref_c2048 = read_dat(CLOCK_2048, max_t=1000)
+    ref_c501 = read_dat(CLOCK_501, max_t=1000)
 
     # 1. build from scratch
     log("phase 1: build csrc/*.cu with nvcc")
@@ -1042,6 +1422,8 @@ def main() -> int:
     err_helical = check_helical(hms, rng, dev)
     errs3 = check_ising3d(msb, ms3, rng, dev)
     errs_h3 = check_helical3d(h3, hms, rng, dev)
+    err_clock = check_clock(cp, rng, dev)
+    err_clock_h = check_clock_helical(chm, hms, rng, dev)
 
     log("phase 2b: first sweep from all-up against its exact expectation")
     check_first_sweep(msb, rng, dev, ref[0], iters=100)
@@ -1053,6 +1435,12 @@ def main() -> int:
                                 (501, 501, 500), KBT_H3_501, nrep=8, iters=10)
     z_even = check_first_sweep_even(h3, hms, rng, dev, nrep=250, calls=4,
                                     batch=125, batches=8)
+    z_clock = max(
+        check_first_sweep_clock(cp, rng, dev, 6, KBT_CLOCK, iters=63),
+        check_first_sweep_clock(cp, rng, dev, 6, KBT_CLOCK_08, iters=63),
+        check_first_sweep_clock(cp, rng, dev, 4, KBT_CLOCK, iters=63),
+        check_first_sweep_clock(cp, rng, dev, 3, KBT_CLOCK, iters=63),
+        check_first_sweep_clock_helical(cp, chm, hms, rng, dev, iters=80))
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         # 3. 2-D resident class through the multisweep kernel
@@ -1128,8 +1516,29 @@ def main() -> int:
         if la["energy"] == 0 or la["phase"] != 4 * la["energy"]:
             fail(f"helical 3-D even path did not run 4 phase launches and an "
                  f"energy launch a sweep: {la}")
+        # 4d. clock classes
+        log("phase 4d: clock path, periodic padded 2000x2000 x 40 replicas")
+        cp_launch, cp_wall, cp_rate, cp_z = run_clock(
+            cli_main, modules, out, 2000, 2000, KBT_CLOCK, 40, 80, 1000,
+            ref_c2000, "clock q=6 bit-sliced packed (padded)")
+        if cp_launch["clock"]["phase_measuring"] != 80 // 40 * 1000:
+            fail(f"padded clock path: {cp_launch['clock']}")
+        log("phase 4d: clock path, periodic aligned 2048x2048 x 16 replicas")
+        ca_launch, ca_wall, ca_rate, ca_z = run_clock(
+            cli_main, modules, out, 2048, 2048, KBT_CLOCK_08, 16, 32, 1000,
+            ref_c2048, "clock q=6 bit-sliced packed")
+        if ca_launch["clock"]["phase_measuring"] != 32 // 16 * 1000:
+            fail(f"aligned clock path: {ca_launch['clock']}")
+        log("phase 4d: clock path, helical 501x500 x 100 replicas")
+        ch_launch, ch_wall, ch_rate, ch_z = run_clock(
+            cli_main, modules, out, 501, 500, KBT_CLOCK_08, 100, 200, 1000,
+            ref_c501, "clock_helical_multispin (bit-sliced packed)")
+        if (ch_launch["clock_helical"]["multisweep"] == 0
+                or ch_launch["clock"]["phase"] != 0):
+            fail(f"helical clock path: {ch_launch}")
     paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch,
-             h1_launch, h5_launch, ha_launch)
+             h1_launch, h5_launch, ha_launch, cp_launch, ca_launch,
+             ch_launch)
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -1263,10 +1672,103 @@ def main() -> int:
         view=lambda out: (hms._u32(out[0]) & vm1, hms._u32(out[1]) & vm1,
                           out[2]))
     del ma, mb
-    if max(e1, e2, e3, e4, e5, e6, e6b, e7, e8) != 0:
+    # the clock paths' launches: the padded class's phase at 2000^2 x 40,
+    # q = 6, kbt 0.91, plain and measuring; the helical class's 64 sweeps
+    # at 501x500 x 100, kbt 0.8
+    spec6 = clock_specs()[6]
+    beta_c = 1.0 / KBT_CLOCK
+    cw = clock_words(dev, 40, 63, 1000, 6, 20, 2000, cp)
+    cx, co = tuple(cw[:3]), tuple(cw[3:])
+    nw_c = 40 * 63 * 1000
+    c_kw = dict(color=0, beta=beta_c, ny=2000)
+    t9, e9 = time_kernel(
+        "clock phase kernel 2000^2 x 40, q=6", 40 * 2000 * 1000,
+        lambda: cp.phase_packed(spec6, cx, co, seeds[0, 0], **c_kw),
+        lambda: cp.phase_plain(spec6, cx, co, seeds[0, 0], **c_kw),
+        3 * 3 * 4 * nw_c,
+        nw_c * clock_phase_ops_per_word(msb, cp, spec6, beta_c, False),
+        reps=20, plain_reps=1)
+    c_kw = dict(color=1, beta=beta_c, ny=2000, measuring=True)
+    t9m, e9m = time_kernel(
+        "clock phase kernel 2000^2 x 40, q=6, measuring", 40 * 2000 * 1000,
+        lambda: cp.phase_packed(spec6, co, cx, seeds[0, 1], **c_kw),
+        lambda: cp.phase_plain(spec6, co, cx, seeds[0, 1], **c_kw),
+        3 * 3 * 4 * nw_c + 2 * 8 * 40,
+        nw_c * clock_phase_ops_per_word(msb, cp, spec6, beta_c, True),
+        reps=20, plain_reps=1,
+        view=lambda out: (*out[0], out[1]))
+    host_p = host_ms_per_sweep(cp, spec6, Clock2D(nx=2000, ny=2000,
+                                                  kbt=KBT_CLOCK, q=6),
+                               cx, co, seeds)
+    del cw, cx, co
+    # the aligned class's phase at 2048^2 x 16, q = 6, kbt 0.8
+    beta_a = 1.0 / KBT_CLOCK_08
+    aw = clock_words(dev, 16, 64, 1024, 6, 22, 2048, cp)
+    ax, ao = tuple(aw[:3]), tuple(aw[3:])
+    nw_a = 16 * 64 * 1024
+    a_kw = dict(color=0, beta=beta_a, ny=2048)
+    t11, e11 = time_kernel(
+        "clock phase kernel 2048^2 x 16, q=6", 16 * 2048 * 1024,
+        lambda: cp.phase_packed(spec6, ax, ao, seeds[0, 0], **a_kw),
+        lambda: cp.phase_plain(spec6, ax, ao, seeds[0, 0], **a_kw),
+        3 * 3 * 4 * nw_a,
+        nw_a * clock_phase_ops_per_word(msb, cp, spec6, beta_a, False),
+        reps=20, plain_reps=1)
+    a_kw = dict(color=1, beta=beta_a, ny=2048, measuring=True)
+    t11m, e11m = time_kernel(
+        "clock phase kernel 2048^2 x 16, q=6, measuring", 16 * 2048 * 1024,
+        lambda: cp.phase_packed(spec6, ao, ax, seeds[0, 1], **a_kw),
+        lambda: cp.phase_plain(spec6, ao, ax, seeds[0, 1], **a_kw),
+        3 * 3 * 4 * nw_a + 2 * 8 * 16,
+        nw_a * clock_phase_ops_per_word(msb, cp, spec6, beta_a, True),
+        reps=20, plain_reps=1,
+        view=lambda out: (*out[0], out[1]))
+    host_a = host_ms_per_sweep(cp, spec6, Clock2D(nx=2048, ny=2048,
+                                                  kbt=KBT_CLOCK_08, q=6),
+                               ax, ao, seeds)
+    del aw, ax, ao
+    cm_ = 501 * 500 // 2
+    cnw = hms.words(cm_)
+    hv = random_words((100, cnw), 21, dev, n=6)
+    ha3, hb3 = tuple(hv[:3]), tuple(hv[3:])
+    beta_h8 = 1.0 / KBT_CLOCK_08
+    cvm = hms.valid_mask(cm_, dev)
+    t10, e10 = time_kernel(
+        f"helical clock multisweep kernel 501x500 x 100, S={sweeps}",
+        100 * 501 * 500 * sweeps,
+        lambda: chm.multisweep_planes(ha3, hb3, seeds, beta=beta_h8, nx=501,
+                                      m=cm_),
+        lambda: chm.multisweep_plain(ha3, hb3, seeds, beta=beta_h8, nx=501,
+                                     m=cm_),
+        6 * 2 * 4 * 100 * cnw + 3 * 8 * 100 * sweeps,
+        100 * cnw * sweeps * (
+            2 * (clock_phase_ops_per_word(msb, cp, spec6, beta_h8, False)
+                 - OPS_CLOCK_STENCIL[6] + OPS_CLOCK_HELICAL_READS)
+            + OPS_CLOCK_MEASURE[6] + OPS_CLOCK_MY + OPS_HELICAL_MASKS),
+        reps=3, plain_reps=1,
+        view=lambda out: tuple(hms._u32(w) & cvm for w in out[0] + out[1])
+        + (out[2],))
+    del hv, ha3, hb3
+    if max(e1, e2, e3, e4, e5, e6, e6b, e7, e8, e9, e9m, e10, e11,
+           e11m) != 0:
         fail(f"a kernel differs from its plain version at its main-path "
              f"launch shape (max abs errs {e1}, {e2}, {e3}, {e4}, {e5}, "
-             f"{e6}, {e6b}, {e7}, {e8})")
+             f"{e6}, {e6b}, {e7}, {e8}, {e9}, {e9m}, {e10}, {e11}, "
+             f"{e11m})")
+    # each clock class's kernel time a sweep against its wall a sweep (the
+    # phase times on random states: the draws do not depend on the data)
+    for label, t, tm, host, launch, wall in (
+            ("padded 2000^2 x 40", t9, t9m, host_p, cp_launch, cp_wall),
+            ("aligned 2048^2 x 16", t11, t11m, host_a, ca_launch, ca_wall)):
+        n, nm = (launch["clock"][k] for k in ("phase", "phase_measuring"))
+        kern = (n - nm) * t["ms"] + nm * tm["ms"]
+        log(f"  clock {label}: kernel {(t['ms'] + tm['ms']):.4f} ms a "
+            f"sweep, host {host:.4f} ms a sweep, wall "
+            f"{wall * 1e3 / nm:.4f} ms a sweep; kernel share of the wall "
+            f"{kern / (wall * 1e3):.3f}")
+    kern = 200 // 100 * 1000 / sweeps * t10["ms"]
+    log(f"  clock helical 501x500 x 100: kernel share of the wall "
+        f"{kern / (ch_wall * 1e3):.3f}")
 
     compare_routes(msb, dev, beta, seeds)
     compare_routes_3d(ms3, dev, seeds[:32])
@@ -1299,6 +1801,13 @@ def main() -> int:
         ("helical3d_multispin.multisweep_kernel", "helical3d_multispin.cu",
          "helical3d_multispin.py:290", launched("helical3d", "multisweep"),
          max(errs_h3["multisweep"], e8), t8),
+        ("clock_planes.phase_kernel", "clock_planes.cu",
+         "clock_planes.py:313", launched("clock", "phase"),
+         max(err_clock, e9, e9m, e11, e11m), t9m),
+        ("clock_helical_multispin.multisweep_kernel",
+         "clock_helical_multispin.cu", "clock_helical_multispin.py:310",
+         launched("clock_helical", "multisweep"), max(err_clock_h, e10),
+         t10),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -1322,6 +1831,12 @@ def main() -> int:
         f"{h5_z:.2f}), streamed 1001x1000x1000 x 2 {ha_rate:.4g} "
         f"({ha_wall:.2f} s, |z| {ha_z:.2f}); even first sweep |z| "
         f"{z_even:.2f}; 151^3 routes streamed/resident {route_h3:.3f}")
+    log(f"main path clock: padded 2000x2000 x 40 {cp_rate:.4g} flip "
+        f"attempts/s ({cp_wall:.2f} s, largest |z| {cp_z:.2f}), aligned "
+        f"2048x2048 x 16 {ca_rate:.4g} ({ca_wall:.2f} s, |z| {ca_z:.2f}), "
+        f"helical 501x500 x 100 {ch_rate:.4g} ({ch_wall:.2f} s, |z| "
+        f"{ch_z:.2f}); first sweeps largest |z| {z_clock:.2f}; clock phase "
+        f"kernel {t9['ms']:.4f} ms plain, {t9m['ms']:.4f} ms measuring")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

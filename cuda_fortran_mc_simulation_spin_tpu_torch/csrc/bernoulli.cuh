@@ -1,23 +1,25 @@
 // Bernoulli word planes of the bit-packed engines: each bit of the
-// returned word is 1 with probability q / 2^20, from Philox words
+// returned word is 1 with probability q / 2^k, from Philox words
 // (philox.cuh); and the bit-sliced counters and flip masks of the 4- and
-// 6-neighbour stencils.  Shared by the 2-D, helical and 3-D kernels.
+// 6-neighbour stencils.  Shared by the Ising and clock kernels.
 #pragma once
 #include <cstdint>
 
 #include "philox.cuh"
 
-constexpr int CHAIN_BITS = 20;
+constexpr int CHAIN_BITS = 20;  // the Ising chains' digits
 
-// Digits d_1..d_20 of p are bits 19..0 of q = round(p * 2^20); fold
-// B <- r | B on a one digit, r & B on a zero digit, from the last one
+// Digits d_1..d_k of p are bits k-1..0 of q = round(p * 2^k) (k <= 32);
+// fold B <- r | B on a one digit, r & B on a zero digit, from the last one
 // digit up to d_1 (ops/ising2d_multispin._bern_plane).  Trailing zero
-// digits draw no word.
-__device__ __forceinline__ uint32_t bern_word(WordStream& s, uint32_t q) {
+// digits draw no word.  The Ising chains take k = CHAIN_BITS; the clock
+// chains k = _chain_len(p), 6..28 (ops/clock_planes.py).
+__device__ __forceinline__ uint32_t bern_word(WordStream& s, uint32_t q,
+                                              int nbits = CHAIN_BITS) {
   if (q == 0u) return 0u;
   int k = __ffs(q) - 1;
   uint32_t b = s.next();
-  for (++k; k < CHAIN_BITS; ++k) {
+  for (++k; k < nbits; ++k) {
     const uint32_t r = s.next();
     b = ((q >> k) & 1u) ? (r | b) : (r & b);
   }

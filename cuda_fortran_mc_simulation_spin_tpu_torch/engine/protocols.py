@@ -6,7 +6,8 @@ initial states, the sweep/measure runner, host-side Kahan aggregation,
 and the reference-format ``.dat`` table on ``out`` with progress on
 ``err`` (stdout = dataset, stderr = progress).  The port serves the
 bit-packed routes: periodic 2-D and 3-D multispin, helical 2-D and 3-D
-multispin.
+multispin, and the bit-sliced clock engines (periodic q = 6, 4, 3,
+aligned and padded; helical q = 6).
 Every other route of the JAX package (other models, protocols,
 over-relaxation, unpackable shapes, meshes) raises NotImplementedError
 naming the ROADMAP.md item that ports it, and never falls back.
@@ -32,12 +33,15 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng, stats
 from cuda_fortran_mc_simulation_spin_tpu_torch.engine import sweep as sweep_mod
 from cuda_fortran_mc_simulation_spin_tpu_torch.io import checkpoint, datfmt
 from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+    Clock2D,
+    Clock2DHelical,
     Ising2DHelical,
     Ising3D,
     Ising3DHelical,
     build_model,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+    clock_helical_multispin,
     helical3d_multispin,
     helical_multispin,
     ising2d_multispin,
@@ -136,8 +140,9 @@ def _ensemble_loop(cfg, runner, fold, err, accs, base, batch, start,
 def _check_route(cfg, model) -> None:
     """Raise for every route of the JAX package that the port does not
     serve yet, naming the ROADMAP.md item that ports it.  ``build_model``
-    admits only the Ising models, so what is left of the JAX package's
-    ``_multispin_eligible`` and helical eligibility is the shape."""
+    admits the Ising and clock models, so what is left of the JAX
+    package's ``_multispin_eligible``, ``_clock_multispin_eligible`` and
+    helical eligibility is the shape (and q for the clock)."""
     if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
         raise NotImplementedError(
             "multi-device meshes are not ported yet (ROADMAP.md queue A "
@@ -146,6 +151,23 @@ def _check_route(cfg, model) -> None:
         raise NotImplementedError(
             "over-relaxation schedules belong to the XY model, not ported "
             "yet (ROADMAP.md queue A item 8)")
+    if isinstance(model, Clock2DHelical):
+        if not clock_helical_multispin.fits(model):
+            raise NotImplementedError(
+                f"helical clock {cfg.nx}x{cfg.ny} q={cfg.q} is not served "
+                "by the packed helical clock kernel (q = 6, odd nx, even "
+                f"nx*ny, at most {clock_helical_multispin.MAX_WORDS} words "
+                "a colour); the masked helical and int8 clock kernels that "
+                "serve it are not ported yet (ROADMAP.md queue B item 13)")
+        return
+    if isinstance(model, Clock2D):
+        if sweep_mod.clock_route(model) is None:
+            raise NotImplementedError(
+                f"clock {cfg.nx}x{cfg.ny} q={cfg.q} is not served by the "
+                "packed clock engines (q in 6, 4, 3 on an aligned or "
+                "padded-packable shape); the int8 clock kernels that serve "
+                "it are not ported yet (ROADMAP.md queue B item 13)")
+        return
     if isinstance(model, Ising2DHelical):
         if not helical_multispin.fits(model):
             raise NotImplementedError(
@@ -184,7 +206,10 @@ def _check_route(cfg, model) -> None:
 def _make_runner(cfg, model, batch: int, device):
     """The route of the JAX package's ``_run_accumulating`` for the
     served models."""
-    if isinstance(model, (Ising2DHelical, Ising3DHelical)):
+    if isinstance(model, Clock2D):
+        return sweep_mod.make_clock_multispin_runner(
+            model, cfg.mcs, batch, cfg.init_state, device=device)
+    if isinstance(model, (Ising2DHelical, Ising3DHelical, Clock2DHelical)):
         return sweep_mod.make_helical_runner(
             model, cfg.mcs, batch, cfg.init_state, device=device)
     if isinstance(model, Ising3D):
@@ -221,7 +246,7 @@ def run_relaxation(cfg: RunConfig, out: IO[str] = sys.stdout,
                    checkpoint_path: str | None = None,
                    checkpoint_every: int = 0,
                    device="cuda") -> stats.VarianceCovarianceKahan:
-    """The reference's ising2d/ising3d relaxation apps: ordered (or
+    """The reference's ising2d/ising3d/clock relaxation apps: ordered (or
     random) start, per-sweep m and e, their variances and covariance."""
     dev = resolve_device(device)
     model = build_model(cfg)

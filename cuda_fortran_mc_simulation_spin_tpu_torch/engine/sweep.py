@@ -3,8 +3,9 @@
 Port of the multispin part of
 ``cuda_fortran_mc_simulation_spin_tpu/engine/sweep.py``
 (``_host_chunk_runner``, ``_make_packed_runner``,
-``make_multispin_runner``, ``make_multispin3d_runner`` and the Ising
-branches, 2-D and 3-D, of ``make_helical_runner``).  A ``lax.scan`` there is a Python loop
+``make_multispin_runner``, ``make_multispin3d_runner``,
+``make_clock_multispin_runner`` and the Ising and q=6 clock branches of
+``make_helical_runner``).  A ``lax.scan`` there is a Python loop
 over kernel launches here.  The JAX runner sizes its dispatches from TPU
 rates to stay under the TPU worker's deadline; the port has no such
 deadline and chunks by a fixed sweep count (``DEFAULT_CHUNK`` = 64, the
@@ -18,6 +19,7 @@ Keying: sweep t of the call keyed by ``call_key`` uses
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -26,10 +28,18 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
     CheckerboardState,
 )
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock_helical import (
+    Clock2DHelical,
+)
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d_helical import (
     Ising3DHelical,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+    clock3_multispin,
+    clock4_multispin,
+    clock_helical_multispin,
+    clock_multispin,
+    clock_planes,
     helical3d_multispin,
     helical_multispin,
     ising2d_multispin,
@@ -63,39 +73,40 @@ def _host_chunk_runner(init_fn, chunk_fn, mcs: int, dispatch_chunk: int):
     return run
 
 
-def _init_planes(model, init_kind: str, batch: int, call_key, device):
-    """Packed (wa, wb) initial planes (2-D) or volumes (3-D) of a batch of
-    replicas; replica r of a random start is keyed by
+def _init_state(model, init_kind: str, batch: int, call_key, device):
+    """Initial CheckerboardState of a batch of replicas (flat states for a
+    helical model); replica r of a random start is keyed by
     fold_in(init_key, r)."""
     if init_kind == "allup":
-        state = model.init_state("allup", device=device, batch=(batch,))
-    else:
-        keys = rng.fold_in(rng.init_key(call_key),
-                           torch.arange(batch, dtype=torch.int64))
-        states = [model.init_state(init_kind, keys[r], device=device)
-                  for r in range(batch)]
-        state = CheckerboardState(torch.stack([s.a for s in states]),
-                                  torch.stack([s.b for s in states]))
-    # the 3-D layout packs along y exactly as the 2-D one
-    return (ising2d_multispin.pack_color(state.a),
-            ising2d_multispin.pack_color(state.b))
+        return model.init_state("allup", device=device, batch=(batch,))
+    keys = rng.fold_in(rng.init_key(call_key),
+                       torch.arange(batch, dtype=torch.int64))
+    states = [model.init_state(init_kind, keys[r], device=device)
+              for r in range(batch)]
+    if isinstance(states[0], torch.Tensor):
+        return torch.stack(states)
+    return CheckerboardState(torch.stack([s.a for s in states]),
+                             torch.stack([s.b for s in states]))
+
+
+def _init_planes(model, init_kind: str, batch: int, call_key, device,
+                 pack=ising2d_multispin.pack_color):
+    """Packed (wa, wb) initial planes (2-D) or volumes (3-D) of a batch of
+    replicas; the 3-D layout packs along y exactly as the 2-D one, and
+    the clock engines pass their ``pack`` (a plane tuple a colour)."""
+    state = _init_state(model, init_kind, batch, call_key, device)
+    return pack(state.a), pack(state.b)
 
 
 def _init_helical_planes(model, init_kind: str, batch: int, call_key,
-                         device):
+                         device, pack=helical_multispin.pack_flat):
     """Packed (wa, wb) flat colour vectors of a batch of helical replicas,
-    keyed as :func:`_init_planes` keys them."""
-    if init_kind == "allup":
-        flat = model.init_state("allup", device=device, batch=(batch,))
-    else:
-        keys = rng.fold_in(rng.init_key(call_key),
-                           torch.arange(batch, dtype=torch.int64))
-        flat = torch.stack([model.init_state(init_kind, keys[r],
-                                             device=device)
-                            for r in range(batch)])
+    keyed as :func:`_init_planes` keys them (the helical clock engine
+    passes its triplet ``pack``)."""
+    flat = _init_state(model, init_kind, batch, call_key, device)
     m = model.nsites // 2
     a, b = helical_multispin.split_flat(flat)
-    return helical_multispin.pack_flat(a, m), helical_multispin.pack_flat(b, m)
+    return pack(a, m), pack(b, m)
 
 
 def _make_packed_runner(model, mcs: int, batch: int, init_kind: str,
@@ -164,6 +175,47 @@ def make_multispin3d_runner(model, mcs: int, batch: int,
           else "(streaming z-plane phases)"))
 
 
+CLOCK_SPECS = {6: clock_multispin.SPEC, 4: clock4_multispin.SPEC,
+               3: clock3_multispin.SPEC}
+
+
+def clock_route(model) -> tuple[clock_planes.PlaneSpec, bool] | None:
+    """(spec, padded) of the packed clock engine that serves ``model``
+    (the JAX package's aligned and padded gates), or None."""
+    spec = CLOCK_SPECS.get(model.q)
+    if spec is None:
+        return None
+    if clock_planes.packable_gate(spec, model):
+        return spec, False
+    if clock_planes.padded_packable_gate(spec, model):
+        return spec, True
+    return None
+
+
+def make_clock_multispin_runner(model, mcs: int, batch: int,
+                                init_kind: str = "allup", device="cuda"
+                                ) -> Callable[[torch.Tensor],
+                                              dict[str, torch.Tensor]]:
+    """`run(call_key) -> {m, e: (batch, mcs) float64}` on the bit-sliced
+    packed clock engine of ``model.q`` (ops/clock_planes.py): streamed
+    phase pairs, the measuring one second, as the JAX package's only
+    clock route.  Aligned shapes and the padded ones (the reference's
+    literal 2000x2000) share one kernel; the port keeps (nyw, half)
+    planes for both."""
+    route = clock_route(model)
+    if route is None:
+        raise ValueError(f"{model.nx}x{model.ny} q={model.q} is neither "
+                         "aligned- nor padded-packable")
+    spec, padded = route
+    return _tag(_make_packed_runner(
+        model, mcs, batch, init_kind, False, device, DEFAULT_CHUNK,
+        sweep_measure=functools.partial(clock_planes.sweep_measure_seeded,
+                                        spec),
+        init_planes=functools.partial(_init_planes, pack=spec.pack_color),
+    ), f"clock q={model.q} bit-sliced packed"
+       + (" (padded)" if padded else ""))
+
+
 def make_helical_runner(model, mcs: int, batch: int,
                         init_kind: str = "allup", device="cuda"
                         ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
@@ -174,7 +226,17 @@ def make_helical_runner(model, mcs: int, batch: int,
     (ops/helical3d_multispin.py): the resident multisweep where
     ``helical3d_multispin.fits`` (odd nx·ny, 151^3), else streamed
     (sub-)phase launches (501^3, and 1001x1000x1000 with its four z-parity
-    sub-phases and an energy launch a sweep)."""
+    sub-phases and an energy launch a sweep).  q=6 clock
+    (ops/clock_helical_multispin.py): one resident multisweep launch per
+    chunk."""
+    if isinstance(model, Clock2DHelical):
+        return _tag(_make_packed_runner(
+            model, mcs, batch, init_kind, True, device, DEFAULT_CHUNK,
+            multisweep=clock_helical_multispin.multisweep,
+            init_planes=functools.partial(
+                _init_helical_planes,
+                pack=clock_helical_multispin.pack_clock_flat),
+        ), "clock_helical_multispin (bit-sliced packed)")
     if isinstance(model, Ising3DHelical):
         resident = helical3d_multispin.fits(model)
         # both routes advance a chunk in one call with the fused (m, e)

@@ -19,6 +19,14 @@ both, and the JAX grid's extra words are zero.  The helical 3-D engine
 keeps the same words; its JAX streaming layouts add zero rows
 (``pack_flat_stream``) or a ring pad that copies head and tail bits past
 bit M (``pack_flat_halo``), so the 3-D converters clear the bits past M.
+
+The clock engines keep a tuple of such planes a colour (3 for q=6, 2 for
+q=4 and q=3).  Periodic: the JAX package pads a shape that is not aligned
+to (nyp, halfp) planes whose pad rows and lanes it rewrites before each
+phase; the port keeps (nyw, half), nyw = ceil(ny/32), with the pad bits
+of the top word 0 (ops/clock_planes.py), so the converters slice or
+zero-pad and clear those bits.  Helical q=6: three colour vectors a
+colour, converted as the helical 3-D words are.
 """
 
 from __future__ import annotations
@@ -104,6 +112,54 @@ def helical3d_to_numpy(w: torch.Tensor, m: int,
     nw = -(-m // 32)
     cleared = torch.from_numpy(_clear_past(w.cpu().numpy()[..., :nw], m))
     return helical_to_numpy(cleared, m, rows)
+
+
+def _clock_mask(ny: int, half: int) -> np.ndarray:
+    nyw = -(-ny // 32)
+    mask = np.full((nyw, half), -1, dtype=np.int32)
+    if ny % 32:
+        mask[-1] = (1 << (ny % 32)) - 1
+    return mask
+
+
+def clock_from_numpy(planes, ny: int, half: int) -> tuple[torch.Tensor, ...]:
+    """JAX clock planes (..., nyp, halfp) int32 (numpy), aligned or padded
+    -> the port's (..., nyw, half) planes with the pad bits cleared."""
+    nyw = -(-ny // 32)
+    mask = _clock_mask(ny, half)
+    return tuple(torch.from_numpy(
+        np.array(np.asarray(p, dtype=np.int32)[..., :nyw, :half] & mask))
+        for p in planes)
+
+
+def clock_to_numpy(planes, ny: int, half: int) -> tuple[np.ndarray, ...]:
+    """The port's (..., nyw, half) clock planes -> the JAX layout: the
+    same words for an aligned shape, else the padded (..., nyp, halfp)
+    planes with zero pads (the JAX engine rewrites the pads it reads)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import clock_planes
+    pad = clock_planes.padded_spec(ny, half)
+    out = []
+    for p in planes:
+        w = p.cpu().numpy().astype(np.int32) & _clock_mask(ny, half)
+        if pad is not None:
+            full = np.zeros(w.shape[:-2] + (pad.nyp, pad.halfp), np.int32)
+            full[..., :w.shape[-2], :half] = w
+            w = full
+        out.append(w)
+    return tuple(out)
+
+
+def clock_helical_from_numpy(planes, m: int) -> tuple[torch.Tensor, ...]:
+    """JAX helical clock triplet (..., rows, 128) int32 (numpy) -> the
+    port's (..., W) colour vectors, the bits past M cleared."""
+    return tuple(helical3d_from_numpy(p, m) for p in planes)
+
+
+def clock_helical_to_numpy(planes, m: int, rows: int | None = None
+                           ) -> tuple[np.ndarray, ...]:
+    """The port's helical clock triplet -> the JAX (..., rows, 128) grid,
+    the bits past M cleared."""
+    return tuple(helical3d_to_numpy(p, m, rows) for p in planes)
 
 
 def stats_state_from_numpy(d: Mapping[str, object]) -> dict:

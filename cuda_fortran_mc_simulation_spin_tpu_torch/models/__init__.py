@@ -1,3 +1,7 @@
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock import Clock2D  # noqa: F401
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock_helical import (  # noqa: F401
+    Clock2DHelical,
+)
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising2d import Ising2D  # noqa: F401
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising2d_helical import (  # noqa: F401
     Ising2DHelical,
@@ -12,8 +16,9 @@ def build_model(cfg):
     """RunConfig -> model instance.  The port serves the Ising models:
     periodic 2-D, helical 2-D (odd nx, the reference's committed
     1001x1000), periodic 3-D (even dims) and helical 3-D (odd nx, the
-    reference's committed 151x151x150, 501x501x500 and 1001x1000x1000).
-    Every other model of the JAX package raises, naming the ROADMAP.md
+    reference's committed 151x151x150, 501x501x500 and 1001x1000x1000);
+    and the clock model, periodic (even nx) or helical (odd nx, the
+    reference's committed 501x500).  XY raises, naming the ROADMAP.md
     queue A item that ports it."""
     if cfg.model == "ising2d":
         if cfg.nx % 2 == 1:
@@ -24,9 +29,11 @@ def build_model(cfg):
             return Ising3DHelical(nx=cfg.nx, ny=cfg.ny, nz=cfg.nz,
                                   kbt=cfg.kbt)
         return Ising3D(nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, kbt=cfg.kbt)
-    items = {"clock": 7, "xy2d": 8}
-    if cfg.model in items:
+    if cfg.model == "clock":
+        if cfg.nx % 2 == 1:
+            return Clock2DHelical(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt, q=cfg.q)
+        return Clock2D(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt, q=cfg.q)
+    if cfg.model == "xy2d":
         raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (ROADMAP.md queue A "
-            f"item {items[cfg.model]})")
+            "model 'xy2d' is not ported yet (ROADMAP.md queue A item 8)")
     raise ValueError(f"unknown model {cfg.model!r}")

@@ -135,16 +135,23 @@ def chain_words(beta: float) -> tuple[int, int]:
     return q4, q8
 
 
-def _digits(q: int) -> list[int]:
-    """Chain digits d_1..d_20 of the integer q = round(p·2^20)."""
-    return [(q >> (CHAIN_BITS - 1 - j)) & 1 for j in range(CHAIN_BITS)]
+def _digits(q: int, k: int = CHAIN_BITS) -> list[int]:
+    """Chain digits d_1..d_k of the integer q = round(p·2^k)."""
+    return [(q >> (k - 1 - j)) & 1 for j in range(k)]
 
 
-def chain_draws(q: int) -> int:
-    """Random words one Bernoulli chain of digits ``q`` consumes."""
+def digits_int(digits) -> int:
+    """The integer q = round(p·2^k) of the chain digits d_1..d_k (MSB
+    first): what the CUDA kernels take, with k."""
+    k = len(digits)
+    return sum(d << (k - 1 - j) for j, d in enumerate(digits))
+
+
+def chain_draws(q: int, k: int = CHAIN_BITS) -> int:
+    """Random words one Bernoulli chain of k digits ``q`` consumes."""
     if q == 0:
         return 0
-    return CHAIN_BITS - ((q & -q).bit_length() - 1)
+    return k - ((q & -q).bit_length() - 1)
 
 
 def _bern_plane(shape, digits, gen, device=None) -> torch.Tensor:

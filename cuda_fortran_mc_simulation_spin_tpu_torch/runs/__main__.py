@@ -13,7 +13,10 @@ reference's geometry); ``--model ising3d`` with even dims the periodic
 3-D one (``--nx 512 --ny 512 --nz 512 --kbt 4.51152``) and with odd
 ``--nx`` the helical 3-D one (``--nx 151 --ny 151 --nz 150``, ``--nx 501
 --ny 501 --nz 500`` or ``--nx 1001 --ny 1000 --nz 1000``, the reference's
-geometries).
+geometries).  ``--model clock`` runs the q-state clock model (``--q``
+6, 4 or 3) on even dims (``--nx 2000 --ny 2000 --kbt 0.91``, the
+reference's literal geometry, or aligned ``--nx 2048 --ny 2048``) and,
+for q = 6, helical at odd ``--nx`` (``--nx 501 --ny 500 --kbt 0.8``).
 
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of

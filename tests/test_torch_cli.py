@@ -100,7 +100,7 @@ def test_cuda_without_a_card_raises(tmp_path):
     (["--profile-dir", "p"], "profiler"),
     (["--backend", "jnp"], "backend"),
     (["--protocol", "samples"], "queue A item 8"),
-    (["--model", "clock"], "queue A item 7"),
+    (["--model", "clock", "--q", "5"], "queue B item 13"),
     (["--model", "ising3d", "--nx", "2049", "--ny", "1024", "--nz", "1024"],
      "queue B item 13"),
     (["--model", "xy2d"], "queue A item 8"),

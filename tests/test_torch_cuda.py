@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+from cuda_fortran_mc_simulation_spin_tpu_torch.engine import sweep
 from cuda_fortran_mc_simulation_spin_tpu_torch.models import Ising2D
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     ising2d_multispin as msb,
@@ -69,7 +70,6 @@ def test_multisweep_kernel_matches_phase_pairs(cuda):
 def test_cuda_runner_equals_cpu_runner(cuda):
     """The main path's runner gives the same series on the card as its
     plain versions on the CPU."""
-    from cuda_fortran_mc_simulation_spin_tpu_torch.engine import sweep
     model = Ising2D(nx=256, ny=256, kbt=KBT)
     key = rng.sample_key(rng.base_key(42), 0)
     for resident in (True, False):
@@ -274,3 +274,114 @@ def test_helical3d_multisweep_kernel_matches_streamed_phases(cuda, nx, ny,
     for k, col in (("m", 0), ("e", 1)):
         assert torch.equal(kobs[k], sobs[k])
         assert torch.equal(kobs[k], pobs[..., col].double() / model.nsites)
+
+
+# the clock kernels: periodic q = 6, 4, 3 on an aligned shape (256x256)
+# and padded ones (248x248: 24 real bits in the top word; 2000x2000, the
+# reference's literal geometry); helical q = 6 staged in shared memory
+# (61x50: a partial last word; 501x500) and in device memory (1001x1000)
+KBT_CLOCK = 0.91
+
+
+def _clock_planes(dev, nrep, nyw, half, n, seed, ny):
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import clock_planes
+    g = np.random.default_rng(seed)
+    mask = clock_planes.real_mask(nyw, half, ny % 32).numpy()
+    return [torch.from_numpy((g.integers(0, 2 ** 32, size=(nrep, nyw, half),
+                                         dtype=np.int64) & mask).astype(
+        np.uint32).view(np.int32)).to(dev) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [6, 4, 3])
+@pytest.mark.parametrize("ny,nx", [(256, 256), (248, 248), (2000, 2000)])
+def test_clock_phase_kernel_matches_plain(cuda, q, ny, nx):
+    """phase_kernel against its plain version, bitwise, both colours, in
+    injected and Philox mode, measuring and not."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import clock_planes
+    spec = sweep.CLOCK_SPECS[q]
+    half, nyw = nx // 2, -(-ny // 32)
+    planes = _clock_planes(cuda, 2, nyw, half, 2 * spec.n_state
+                           + spec.n_rand, q + ny, ny)
+    x = tuple(planes[:spec.n_state])
+    o = tuple(planes[spec.n_state:2 * spec.n_state])
+    rand = planes[2 * spec.n_state:]
+    if q == 6:
+        rand[2] = rand[2] & ~rand[1]
+        rand[0] = rand[0] | ~(rand[1] | rand[2])
+    for color in (0, 1):
+        got = clock_planes.phase_packed_inject(spec, x, o, rand,
+                                               color=color, ny=ny)
+        want = clock_planes.phase_reference(spec, x, o, color, rand, ny)
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_)
+        seeds = rng.seeds_from_key(rng.base_key(4), color)
+        for measuring in (False, True):
+            got = clock_planes.phase_packed(spec, x, o, seeds, color=color,
+                                            beta=1 / KBT_CLOCK, ny=ny,
+                                            measuring=measuring)
+            want = clock_planes.phase_plain(spec, x, o, seeds, color=color,
+                                            beta=1 / KBT_CLOCK, ny=ny,
+                                            measuring=measuring)
+            if measuring:
+                assert torch.equal(got[1], want[1])
+                got, want = got[0], want[0]
+            for g_, w_ in zip(got, want):
+                assert torch.equal(g_, w_)
+
+
+@pytest.mark.cuda
+def test_clock_runner_equals_cpu_runner(cuda):
+    """The periodic clock runner gives the same series on the card as its
+    plain versions on the CPU (padded 248x248, q = 6)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import Clock2D
+    model = Clock2D(nx=248, ny=248, kbt=KBT_CLOCK, q=6)
+    key = rng.sample_key(rng.base_key(42), 0)
+    on_card = sweep.make_clock_multispin_runner(model, 6, 2, "random",
+                                                device=cuda)(key)
+    on_cpu = sweep.make_clock_multispin_runner(model, 6, 2, "random",
+                                               device="cpu")(key)
+    for k in ("m", "e"):
+        assert torch.equal(on_card[k].cpu(), on_cpu[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(61, 50), (501, 500), (1001, 1000)])
+def test_clock_helical_kernel_matches_plain(cuda, nx, ny):
+    """Injected mode on the valid bits; S sweeps against the plain version
+    and S one-sweep launches; the fused (2m, 2e, my2) against the sums of
+    the final state."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_helical_multispin as chm,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+    )
+    m = nx * ny // 2
+    vm = hms.valid_mask(m, cuda)
+    g = np.random.default_rng(nx)
+    vecs = [torch.from_numpy(g.integers(-2 ** 31, 2 ** 31,
+                                        size=(2, hms.words(m)),
+                                        dtype=np.int64).astype(np.int32)
+                             ).to(cuda) for _ in range(14)]
+    a3, b3, p8 = tuple(vecs[:3]), tuple(vecs[3:6]), vecs[6:]
+    p8[2] = p8[2] & ~p8[1]
+    p8[0] = p8[0] | ~(p8[1] | p8[2])
+    for offs in hms.helical_offsets(nx):
+        got = chm.phase_packed_with_bits(a3, b3, p8, offs=offs, m=m)
+        want = chm.packed_helical_phase6_reference(a3, b3, offs, p8, m)
+        for g_, w_ in zip(got, want):
+            assert torch.equal(hms._u32(g_) & vm, hms._u32(w_) & vm)
+    assert chm.staged_fits(hms.words(m), cuda) == (nx < 1001)
+    seeds = hms.sweep_seed_pairs(rng.sample_key(rng.base_key(2), 0), 4)
+    kw = dict(beta=1 / 0.8, nx=nx, m=m)
+    ka, kb, kobs = chm.multisweep_planes(a3, b3, seeds, **kw)
+    pa, pb, pobs = chm.multisweep_plain(a3, b3, seeds, **kw)
+    for g_, w_ in zip(ka + kb, pa + pb):
+        assert torch.equal(hms._u32(g_) & vm, hms._u32(w_) & vm)
+    assert torch.equal(kobs, pobs)
+    sa, sb = a3, b3
+    for s in range(4):
+        sa, sb, so = chm.multisweep_planes(sa, sb, seeds[s:s + 1], **kw)
+        assert torch.equal(so[:, 0], kobs[:, s])
+    assert torch.equal(kobs[:, -1], chm.obs_packed6_reference(ka, kb, nx, m))

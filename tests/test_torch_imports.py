@@ -73,5 +73,8 @@ def test_the_slices_modules_are_checked():
     for name in ("ops.ising2d_multispin", "ops.helical_multispin",
                  "ops.ising3d_multispin", "ops.helical3d_multispin",
                  "models.ising2d_helical", "models.ising3d",
-                 "models.ising3d_helical"):
+                 "models.ising3d_helical", "ops.clock_planes",
+                 "ops.clock_multispin", "ops.clock4_multispin",
+                 "ops.clock3_multispin", "ops.clock_helical_multispin",
+                 "models.clock", "models.clock_helical"):
         assert f"cuda_fortran_mc_simulation_spin_tpu_torch.{name}" in mods

@@ -6,9 +6,11 @@ Drives the port's relaxation paths through the CLI on the card: the
 periodic 2-D Ising NER relaxation at Tc, the helical 2-D one at the
 reference's 1001x1000 geometry, the periodic 3-D one at 512^3, the
 helical 3-D one at the reference's 151x151x150, 501x501x500 and
-1001x1000x1000, and the q=6 clock one at the reference's 2000x2000
-(padded), at 2048x2048 (aligned) and helical at 501x500; and holds every
-kernel of those paths against its plain PyTorch version.
+1001x1000x1000, the q=6 clock one at the reference's 2000x2000
+(padded), at 2048x2048 (aligned) and helical at 501x500, and the
+periodic XY one with over-relaxation at the reference's 4000x4000 and
+Metropolis only at 2000x2000; and holds every kernel of those paths
+against its plain PyTorch version.
 Phases (each prints a progress line on stderr):
 
 1. build the CUDA sources (csrc/*.cu) from scratch with nvcc, all at once;
@@ -39,6 +41,11 @@ Phases (each prints a progress line on stderr):
      16 one-sweep launches and the plain version, the fused sums against
      the state's) and 1001x1000 x 2 (device memory); the 64-sweep launch
      is held against its plain version in phase 5;
+   - XY, at 256x200 x 2 (half = 100), 4000x4000 x 8 and 2000x2000 x 32
+     (both classes' launches, each at its kbt), random states:
+     the Metropolis kernel with injected and Philox uniforms and the
+     over-relaxation kernel, both colours, measuring and not; the state
+     bitwise, the float64 sums within 1e-9 relative;
 2b. <m>, <e> after one sweep from all-up against their closed forms for
    the chains' quantized acceptances, over >= 1e10 sites per path (helical
    3-D at 151^3 and 501^3, where every neighbour lies in the other
@@ -48,6 +55,10 @@ Phases (each prints a progress line on stderr):
    the clock's first sweep (q = 6 at kbt 0.91 and 0.80, q = 4 and 3 at
    0.91, with the engine's rounded thermometer and chain probabilities)
    over >= 1e10 sites each, periodic and helical (501x500);
+   XY phase a from all-up at 4000x4000 x 8 over >= 1e10 sites: <S_x> =
+   1 - e^(-4β)[I0(4β) - I1(4β)], <S_y> = 0 and the acceptance e^(-4β)
+   I0(4β); one over-relaxation sweep of a random 4000x4000 x 8 state
+   keeps the energy and |S| to float32 rounding;
 3. 2-D resident class: 2048^2, 16 replicas, 64 samples, 1000 MCS through
    the multisweep kernel;
 4. 2-D streaming class: 8192^2, 4 replicas, 4 samples, 200 MCS through
@@ -74,10 +85,19 @@ Phases (each prints a progress line on stderr):
    q = 6, kbt 0.91, 40 replicas, 80 samples; aligned 2048x2048, kbt 0.8,
    16 replicas, 32 samples; helical 501x500, kbt 0.8, 100 replicas, 200
    samples (the clock phase kernel, streamed; the helical multisweep);
+4e. XY classes, from all-up, at every t within 5 combined standard
+   errors of the reference's curves: over-relaxation 4000x4000, kbt 0.89,
+   8 replicas, 16 samples, 1000 MCS, n_over_relax 1 (t <= 1000 of
+   xy2d_periodic_or_4000x4000_mcs10000_s3125.dat); Metropolis 2000x2000,
+   kbt 0.895, 32 replicas, 64 samples, 100 MCS
+   (xy2d_samples32_2000x2000_mcs100.dat);
 5. times with CUDA events, beside each kernel's bound and its plain
    version's time, at the main paths' launch shapes (the helical kernel
    at 128 x 1001x1000, S = 64; the clock phase kernel at 2000x2000 x 40,
-   measuring and not; the helical clock kernel at 501x500 x 100, S = 64);
+   measuring and not; the helical clock kernel at 501x500 x 100, S = 64;
+   both XY kernels at 4000x4000 x 8, measuring and not, and the
+   Metropolis kernel at 2000x2000 x 32, measuring and not, each held
+   against its plain version; each XY class's kernel share of its wall);
    the kernel's output there is held against
    the plain version's, bitwise, too; then each runner's two routes (one
    multisweep launch per S sweeps, or S streamed phase pairs) at and
@@ -113,6 +133,10 @@ RACY_H3_1001 = PRODUCTION / "ising3d_1001x1000x1000_mcs1000_s16.dat"
 CLOCK_2000 = PRODUCTION / "clock_2000x2000_kbt0.91_mcs100000_s5000.dat"
 CLOCK_2048 = PRODUCTION / "clock_2048x2048_mcs100000_s1088.dat"
 CLOCK_501 = PRODUCTION / "clock_501x500_kbt0.80_mcs100000_s100.dat"
+XY_OR_4000 = PRODUCTION / "xy2d_periodic_or_4000x4000_mcs10000_s3125.dat"
+XY_2000 = PRODUCTION / "xy2d_samples32_2000x2000_mcs100.dat"
+KBT_XY = 0.89                       # the 4000x4000 over-relaxation curve
+KBT_XY_2000 = 0.895                 # the 2000x2000 Metropolis curve
 KBT_CLOCK = 0.91                    # the 2000x2000 curve
 KBT_CLOCK_08 = 0.8                  # the 2048x2048 and 501x500 curves
 KBT = 2.26918531421
@@ -163,6 +187,23 @@ OPS_CLOCK_DECIDE = {6: 32 + 6 + 4 * 6 + 2 * 8 + 10 + 10 + 6, 4: 80, 3: 50}
 OPS_CLOCK_MEASURE = {6: 40, 4: 30, 3: 20}
 OPS_CLOCK_HELICAL_READS = 12 * 3
 OPS_CLOCK_MY = 10
+# XY, per site of a phase (32-bit instructions): one Philox4x32-10 call
+# for both uniforms and their conversion (4); the trig fold and
+# polynomials (22); the field (6); dE, its clamp and scale (6); expf
+# (~10); the test and the selects (4).  Over-relaxation: the field (6),
+# two rsqrtf with their squares and clamps (14), the reflection (8), the
+# scaling (2).  The fused sums: 3 widenings and 3 float64 adds a site.
+# Bytes a site of the colour updated: its S read and written (16) and the
+# other colour's S read once (8); the injected mode reads 8 more
+OPS_XY_METROPOLIS = OPS_PER_PHILOX + 4 + 22 + 6 + 6 + 10 + 4
+OPS_XY_OVER_RELAX = 6 + 14 + 8 + 2
+OPS_XY_MEASURE = 6
+XY_BYTES_PER_SITE = 24
+# (R, ny, nx, kbt): a small shape whose half (100) fills no whole warp,
+# then both classes' launches; 2000x1000 sites a replica leave the
+# Metropolis class's last block of 256 threads half idle
+XY_CHECK_SHAPES = ((2, 256, 200, KBT_XY), (8, 4000, 4000, KBT_XY),
+                   (32, 2000, 2000, KBT_XY_2000))
 
 T0 = time.perf_counter()
 
@@ -1037,23 +1078,25 @@ def clock_first_sweep_exact(cp, spec, beta: float) -> tuple[float, float]:
     return 0.5 * (m_a + m_b), -2.0 * bond
 
 
+def z_sampled(name: str, values, exact: float, nsites: float) -> float:
+    """The mean of per-replica values against a closed form within SIGMAS
+    standard errors of their sampled variance; returns |z|."""
+    v = torch.cat(values).double()
+    mean = float(v.mean())
+    z = (mean - exact) / math.sqrt(float(v.var()) / v.numel())
+    log(f"  {name} {mean:.9f} closed form {exact:.9f} over "
+        f"{v.numel() * nsites:.3g} sites, z {z:+.2f}")
+    if abs(z) > SIGMAS:
+        fail(f"{name} is {z:+.2f} sigma from the closed form")
+    return abs(z)
+
+
 def check_z_sampled(name: str, per_rep: dict, nsites: int,
                     want: tuple[float, float]) -> float:
     """<m>, <e> over the per-replica densities against their exact values
-    within SIGMAS standard errors of the sampled per-replica variance.
-    Returns the largest |z|."""
-    worst = 0.0
-    for k, exact in zip(("m", "e"), want):
-        v = torch.cat(per_rep[k]).double()
-        mean = float(v.mean())
-        z = (mean - exact) / math.sqrt(float(v.var()) / v.numel())
-        log(f"  {name} first sweep <{k}> {mean:.9f} closed form "
-            f"{exact:.9f} over {v.numel() * nsites:.3g} sites, z {z:+.2f}")
-        worst = max(worst, abs(z))
-        if abs(z) > SIGMAS:
-            fail(f"{name} first-sweep <{k}> is {z:+.2f} sigma from the "
-                 "closed form")
-    return worst
+    (:func:`z_sampled`).  Returns the largest |z|."""
+    return max(z_sampled(f"{name} first sweep <{k}>", per_rep[k], exact,
+                         nsites) for k, exact in zip(("m", "e"), want))
 
 
 def check_first_sweep_clock(cp, rng, dev, q: int, kbt: float,
@@ -1122,6 +1165,201 @@ def run_clock(main_fn, modules, out_dir, nx, ny, kbt, replicas, samples,
         table, ref, nx * ny, samples, mcs, range(1, mcs + 1),
         ref_nsites=int(ref[0, 0]), ref_samples=int(ref[0, 1]))
     return launches, wall, rate, worst
+
+
+def xy_state(dev, nrep: int, ny: int, nx: int, seed: int) -> list:
+    """A random XY state (ax, ay, bx, by): float32 unit vectors at angles
+    2πu, u from a seeded generator on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    th = torch.rand((2, nrep, ny, nx // 2), generator=gen, device=dev,
+                    dtype=torch.float64) * (2 * math.pi)
+    return [f(th[c]).float().contiguous() for c in (0, 1)
+            for f in (torch.cos, torch.sin)]
+
+
+def xy_by_color(planes, color: int) -> list:
+    """(sx, sy, ox, oy) of the colour updated."""
+    return list(planes) if color == 0 else [planes[2], planes[3], planes[0],
+                                            planes[1]]
+
+
+def float_err(pairs) -> float:
+    """Largest absolute difference of float tensors (0 when equal)."""
+    err = 0.0
+    for got, want in pairs:
+        if got.shape != want.shape:
+            fail(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+        err = max(err, float((got.double() - want.double()).abs().max()))
+    return err
+
+
+def sums_rel_err(got, want) -> float:
+    """Largest |got - want| / max(|want|, 1) of float64 sums."""
+    return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+
+
+def xy_pair(xyp, kind: str, planes, color, measuring, rand=None,
+            beta=1.0 / KBT_XY):
+    """One phase of ``kind`` (metropolis or over_relax) through the kernel
+    and through its plain version, each on its own copy of ``planes``.
+    Returns (state error, sums' relative error or 0)."""
+    a = [p.clone() for p in xy_by_color(planes, color)]
+    b = [p.clone() for p in xy_by_color(planes, color)]
+    if kind == "metropolis":
+        kw = dict(color=color, beta=beta, measuring=measuring)
+        got = xyp.metropolis_phase(*a, rand, **kw)
+        want = xyp.metropolis_phase_plain(*b, rand, **kw)
+    else:
+        got = xyp.over_relax_phase(*a, color=color, measuring=measuring)
+        want = xyp.over_relax_phase_plain(*b, color=color,
+                                          measuring=measuring)
+    return (float_err(zip(a[:2], b[:2])),
+            sums_rel_err(got[2], want[2]) if measuring else 0.0)
+
+
+def check_xy(xyp, rng, dev) -> tuple[dict[str, float], float]:
+    """Both XY kernels against their plain versions on the same CUDA
+    tensors: random states, both colours, measuring and not, injected and
+    Philox uniforms, at 256x200 x 2 (half = 100) and the main paths'
+    4000x4000 x 8 and 2000x2000 x 32, each at its class's kbt.  The state
+    must be equal bitwise, the sums within 1e-9 relative.  Returns
+    ({kernel: state error}, sums' relative error)."""
+    errs = {"metropolis": 0.0, "over_relax": 0.0}
+    rel = 0.0
+    for nrep, ny, nx, kbt in XY_CHECK_SHAPES:
+        planes = xy_state(dev, nrep, ny, nx, ny + nrep)
+        gen = torch.Generator(device=dev).manual_seed(nx)
+        u = tuple(torch.rand((nrep, ny, nx // 2), generator=gen, device=dev)
+                  for _ in range(2))
+        for color in (0, 1):
+            seeds = rng.seeds_from_key(rng.sample_key(rng.base_key(30), ny),
+                                       color)
+            for measuring in (False, True):
+                for kind, rand in (("metropolis", u), ("metropolis", seeds),
+                                   ("over_relax", None)):
+                    e, r = xy_pair(xyp, kind, planes, color, measuring, rand,
+                                   beta=1.0 / kbt)
+                    errs[kind] = max(errs[kind], e)
+                    rel = max(rel, r)
+        log(f"  xy kernels {nrep}x{ny}x{nx}: state vs plain "
+            f"{errs['metropolis']:.3g} (metropolis), "
+            f"{errs['over_relax']:.3g} (over-relaxation); sums' relative "
+            f"error {rel:.3g}")
+        del planes, u
+    if max(errs.values()) != 0.0 or rel > 1e-9:
+        fail(f"an XY kernel differs from its plain version: {errs}, sums' "
+             f"relative error {rel:.3g}")
+    return errs, rel
+
+
+def check_xy_phase_a(xyp, rng, dev, iters: int) -> float:
+    """Phase a from all-up, iters x 8 x 4000x4000 (the main path's launch):
+    every site sees the field (4, 0) and accepts (cos 2πu, sin 2πu) with
+    p = exp(-4β(1 - cos 2πu)), so <S_x> = 1 - e^(-4β)[I0(4β) - I1(4β)],
+    <S_y> = 0 and the acceptance is e^(-4β) I0(4β).  <S_x>, <S_y> come
+    from the measuring kernel's sums (colour b adds exactly N/2 to Σ S_x);
+    a site counts as accepted where S moved off (1, 0).  Returns the
+    largest |z|."""
+    from scipy.special import ive
+    x4 = 4.0 / KBT_XY
+    nrep, ny, half = 8, 4000, 2000
+    n_a = ny * half
+    ax, bx = (torch.ones((nrep, ny, half), device=dev) for _ in range(2))
+    ay, by = (torch.zeros((nrep, ny, half), device=dev) for _ in range(2))
+    keys = rng.seeds_from_key(rng.sample_key(rng.base_key(2060),
+                                             torch.arange(iters)), 0)
+    per = {"sx": [], "sy": [], "acc": []}
+    for it in range(iters):
+        ax.fill_(1.0)
+        ay.zero_()
+        _, _, obs = xyp.metropolis_phase(ax, ay, bx, by, keys[it], color=0,
+                                         beta=1.0 / KBT_XY, measuring=True)
+        per["sx"].append((obs[:, 0] - n_a) / n_a)
+        per["sy"].append(obs[:, 1] / n_a)
+        per["acc"].append(((ax != 1.0) | (ay != 0.0)).sum(dim=(1, 2))
+                          .double() / n_a)
+    return max(
+        z_sampled("xy phase a <S_x>", per["sx"],
+                  1.0 - (ive(0, x4) - ive(1, x4)), n_a),
+        z_sampled("xy phase a <S_y>", per["sy"], 0.0, n_a),
+        z_sampled("xy phase a acceptance", per["acc"], ive(0, x4), n_a))
+
+
+def check_xy_over_relax(xyp, dev) -> tuple[float, float]:
+    """One over-relaxation sweep of a random 4000x4000 x 8 state: the
+    energy (float64 of the float32 state) kept within float32 rounding,
+    at most N · 2 ulp of the largest |S·h| = 4 (N · 8 · 2^-24), the fused e
+    (float32 site terms) within the same of it, and |S| within 1e-6 of 1.
+    Returns (largest |dE| / N, largest ||S| - 1|)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
+    model = XY2D(nx=4000, ny=4000, kbt=KBT_XY)
+    st = XYState(*xy_state(dev, 8, 4000, 4000, 77))
+    e0 = model.energy_sum(st)
+    st, obs = xyp.or_sweep_measured(model, st)
+    e1 = model.energy_sum(st)
+    de = float((e1 - e0).abs().max())
+    fused = float((obs["e"] * model.nsites - e1).abs().max())
+    norm = max(float((torch.hypot(x.double(), y.double()) - 1.0).abs().max())
+               for x, y in ((st.ax, st.ay), (st.bx, st.by)))
+    log(f"  xy over-relaxation sweep 4000x4000 x 8: |dE| <= {de:.4g} "
+        f"({de / model.nsites:.3g} a site), fused e vs the state's "
+        f"{fused / model.nsites:.3g} a site, ||S| - 1| <= {norm:.3g}")
+    bound = model.nsites * 8 * 2.0 ** -24
+    if de > bound or fused > bound or norm > 1e-6:
+        fail("the over-relaxation sweep does not conserve the energy or "
+             "|S| to float32 rounding")
+    return de / model.nsites, norm
+
+
+def run_xy(main_fn, modules, out_dir, nx, kbt, replicas, samples, mcs,
+           n_over_relax, ref, engine):
+    """One XY class through the CLI, from all-up, against the reference
+    curve at every t <= mcs with the combined sigma.  Returns (launches,
+    wall, rate, largest |z|)."""
+    argv = ["--model", "xy2d", "--nx", str(nx), "--ny", str(nx), "--kbt",
+            repr(kbt), "--mcs", str(mcs), "--samples", str(samples),
+            "--replicas", str(replicas)]
+    lines = [f"# nx, ny: {nx} {nx}", f"# engine: {engine}"]
+    if n_over_relax:
+        argv += ["--n-over-relax", str(n_over_relax)]
+        lines += [f"# n_over_relax: {n_over_relax}",
+                  f"# mcs_over_relax: {mcs}"]
+    launches, wall, rate, table, head = run_main_path(
+        main_fn, modules, out_dir, f"xy2d_{nx}", argv, nx * nx, samples,
+        mcs)
+    for line in lines:
+        if line not in head:
+            fail(f"xy .dat header lacks {line!r}: {head}")
+    worst = check_against_reference(
+        table, ref, nx * nx, samples, mcs, range(1, mcs + 1),
+        ref_nsites=int(ref[0, 0]), ref_samples=int(ref[0, 1]))
+    return launches, wall, rate, worst
+
+
+def time_xy(label: str, kernel, plain, planes, nbytes: float, ops: float,
+            reps: int, plain_reps: int) -> tuple[dict, float]:
+    """CUDA-event time of one XY phase wrapper and of its plain version
+    (each on its own copy of ``planes``, updated in place launch after
+    launch), beside the bound; then one call of each on fresh copies of
+    ``planes``, whose states must agree.  Returns (times, state error)."""
+    k = [p.clone() for p in planes]
+    q = [p.clone() for p in planes]
+    ms = cuda_time_ms(lambda: kernel(*k), reps=reps)
+    plain_ms = cuda_time_ms(lambda: plain(*q), reps=plain_reps, warmup=1)
+    del k, q
+    a = [p.clone() for p in planes]
+    b = [p.clone() for p in planes]
+    kernel(*a)
+    plain(*b)
+    err = float_err(zip(a[:2], b[:2]))
+    bound, by = bound_ms(nbytes, ops)
+    sites = planes[0].numel()
+    log(f"  {label}: {ms:.4f} ms/launch ({sites / ms * 1e3:.4g} site "
+        f"updates/s), plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); "
+        f"vs plain {err}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}, err
 
 
 ROUTE_SHAPES = ((2048, 16), (4096, 4), (8192, 1), (8192, 4))
@@ -1350,6 +1588,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+    from cuda_fortran_mc_simulation_spin_tpu_torch.engine.sweep import (
+        XY_ENGINE,
+    )
     from cuda_fortran_mc_simulation_spin_tpu_torch.models import Clock2D
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
@@ -1370,19 +1611,23 @@ def main() -> int:
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         ising3d_multispin as ms3,
     )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_pallas as xyp,
+    )
     from cuda_fortran_mc_simulation_spin_tpu_torch.runs.__main__ import (
         main as cli_main,
     )
 
     modules = {"ising2d": msb, "helical": hms, "ising3d": ms3,
-               "helical3d": h3, "clock": cp, "clock_helical": chm}
+               "helical3d": h3, "clock": cp, "clock_helical": chm,
+               "xy": xyp}
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device {torch.cuda.get_device_name(0)} | {smi} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     for path in (REFERENCE_DAT, REFERENCE_3D_DAT, REFERENCE_H3_151,
                  REFERENCE_H3_501, REFERENCE_H3_1001, RACY_H3_1001,
-                 CLOCK_2000, CLOCK_2048, CLOCK_501):
+                 CLOCK_2000, CLOCK_2048, CLOCK_501, XY_OR_4000, XY_2000):
         if not path.exists():
             fail(f"reference curve {path} is missing")
     ref = read_dat(REFERENCE_DAT)
@@ -1394,6 +1639,8 @@ def main() -> int:
     ref_c2000 = read_dat(CLOCK_2000, max_t=1000)
     ref_c2048 = read_dat(CLOCK_2048, max_t=1000)
     ref_c501 = read_dat(CLOCK_501, max_t=1000)
+    ref_xy_or = read_dat(XY_OR_4000, max_t=1000)
+    ref_xy = read_dat(XY_2000)
 
     # 1. build from scratch
     log("phase 1: build csrc/*.cu with nvcc")
@@ -1424,6 +1671,7 @@ def main() -> int:
     errs_h3 = check_helical3d(h3, hms, rng, dev)
     err_clock = check_clock(cp, rng, dev)
     err_clock_h = check_clock_helical(chm, hms, rng, dev)
+    err_xy, rel_xy = check_xy(xyp, rng, dev)
 
     log("phase 2b: first sweep from all-up against its exact expectation")
     check_first_sweep(msb, rng, dev, ref[0], iters=100)
@@ -1441,6 +1689,8 @@ def main() -> int:
         check_first_sweep_clock(cp, rng, dev, 4, KBT_CLOCK, iters=63),
         check_first_sweep_clock(cp, rng, dev, 3, KBT_CLOCK, iters=63),
         check_first_sweep_clock_helical(cp, chm, hms, rng, dev, iters=80))
+    z_xy = check_xy_phase_a(xyp, rng, dev, iters=160)
+    de_or, norm_or = check_xy_over_relax(xyp, dev)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         # 3. 2-D resident class through the multisweep kernel
@@ -1536,9 +1786,27 @@ def main() -> int:
         if (ch_launch["clock_helical"]["multisweep"] == 0
                 or ch_launch["clock"]["phase"] != 0):
             fail(f"helical clock path: {ch_launch}")
+        # 4e. XY classes
+        log("phase 4e: XY path, over-relaxation class (4000x4000 x 8, "
+            "n_over_relax 1)")
+        xo_launch, xo_wall, xo_rate, xo_z = run_xy(
+            cli_main, modules, out, 4000, KBT_XY, 8, 16, 1000, 1,
+            ref_xy_or, XY_ENGINE)
+        want = {"metropolis": 4000, "metropolis_measuring": 0,
+                "over_relax": 4000, "over_relax_measuring": 2000}
+        if xo_launch["xy"] != want:
+            fail(f"XY over-relaxation path: {xo_launch['xy']} != {want}")
+        log("phase 4e: XY path, Metropolis class (2000x2000 x 32)")
+        xm_launch, xm_wall, xm_rate, xm_z = run_xy(
+            cli_main, modules, out, 2000, KBT_XY_2000, 32, 64, 100, 0,
+            ref_xy, XY_ENGINE)
+        want = {"metropolis": 400, "metropolis_measuring": 200,
+                "over_relax": 0, "over_relax_measuring": 0}
+        if xm_launch["xy"] != want:
+            fail(f"XY Metropolis path: {xm_launch['xy']} != {want}")
     paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch,
              h1_launch, h5_launch, ha_launch, cp_launch, ca_launch,
-             ch_launch)
+             ch_launch, xo_launch, xm_launch)
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -1770,6 +2038,80 @@ def main() -> int:
     log(f"  clock helical 501x500 x 100: kernel share of the wall "
         f"{kern / (ch_wall * 1e3):.3f}")
 
+    # the XY paths' launches: phases at 4000x4000 x 8 (both classes move
+    # 6.4e7 sites a phase), Philox, kbt 0.89, plain and measuring; then
+    # the Metropolis class's own launch at 2000x2000 x 32, kbt 0.895
+    xs = xy_state(dev, 8, 4000, 4000, 23)
+    x_sites = 8 * 4000 * 2000
+    x_bytes = XY_BYTES_PER_SITE * x_sites
+    beta_x = 1.0 / KBT_XY
+    metro_a = dict(color=0, beta=beta_x)
+    metro_b = dict(color=1, beta=beta_x, measuring=True)
+    obs_bytes = 8 * 3 * 8
+    t12, e12 = time_xy(
+        "xy metropolis kernel 4000^2 x 8",
+        lambda *p: xyp.metropolis_phase(*p, seeds[0, 0], **metro_a),
+        lambda *p: xyp.metropolis_phase_plain(*p, seeds[0, 0], **metro_a),
+        xs, x_bytes, x_sites * OPS_XY_METROPOLIS, reps=50, plain_reps=2)
+    t12m, e12m = time_xy(
+        "xy metropolis kernel 4000^2 x 8, measuring",
+        lambda *p: xyp.metropolis_phase(*p, seeds[0, 1], **metro_b),
+        lambda *p: xyp.metropolis_phase_plain(*p, seeds[0, 1], **metro_b),
+        xy_by_color(xs, 1), x_bytes + obs_bytes,
+        x_sites * (OPS_XY_METROPOLIS + OPS_XY_MEASURE), reps=50,
+        plain_reps=2)
+    t13, e13 = time_xy(
+        "xy over-relaxation kernel 4000^2 x 8",
+        lambda *p: xyp.over_relax_phase(*p, color=0),
+        lambda *p: xyp.over_relax_phase_plain(*p, color=0),
+        xs, x_bytes, x_sites * OPS_XY_OVER_RELAX, reps=50, plain_reps=2)
+    t13m, e13m = time_xy(
+        "xy over-relaxation kernel 4000^2 x 8, measuring",
+        lambda *p: xyp.over_relax_phase(*p, color=1, measuring=True),
+        lambda *p: xyp.over_relax_phase_plain(*p, color=1, measuring=True),
+        xy_by_color(xs, 1), x_bytes + obs_bytes,
+        x_sites * (OPS_XY_OVER_RELAX + OPS_XY_MEASURE), reps=50,
+        plain_reps=2)
+    del xs
+    x2 = xy_state(dev, 32, 2000, 2000, 24)
+    x2_sites = 32 * 2000 * 1000
+    x2_obs_bytes = 32 * 3 * 8
+    metro_2a = dict(color=0, beta=1.0 / KBT_XY_2000)
+    metro_2b = dict(color=1, beta=1.0 / KBT_XY_2000, measuring=True)
+    t_x2, e_x2 = time_xy(
+        "xy metropolis kernel 2000^2 x 32",
+        lambda *p: xyp.metropolis_phase(*p, seeds[0, 0], **metro_2a),
+        lambda *p: xyp.metropolis_phase_plain(*p, seeds[0, 0], **metro_2a),
+        x2, XY_BYTES_PER_SITE * x2_sites, x2_sites * OPS_XY_METROPOLIS,
+        reps=50, plain_reps=2)
+    t_x2m, e_x2m = time_xy(
+        "xy metropolis kernel 2000^2 x 32, measuring",
+        lambda *p: xyp.metropolis_phase(*p, seeds[0, 1], **metro_2b),
+        lambda *p: xyp.metropolis_phase_plain(*p, seeds[0, 1], **metro_2b),
+        xy_by_color(x2, 1), XY_BYTES_PER_SITE * x2_sites + x2_obs_bytes,
+        x2_sites * (OPS_XY_METROPOLIS + OPS_XY_MEASURE), reps=50,
+        plain_reps=2)
+    del x2
+    if max(e12, e12m, e13, e13m, e_x2, e_x2m) != 0.0:
+        fail(f"an XY kernel differs from its plain version at its main-path "
+             f"launch shape ({e12}, {e12m}, {e13}, {e13m}, {e_x2}, "
+             f"{e_x2m})")
+    # each XY class's kernel time against its wall
+    xy_kern = {}
+    for label, launch, wall, tm, tmm in (
+            ("over-relaxation 4000^2 x 8", xo_launch, xo_wall, t12["ms"],
+             t12m["ms"]),
+            ("Metropolis 2000^2 x 32", xm_launch, xm_wall, t_x2["ms"],
+             t_x2m["ms"])):
+        n = launch["xy"]
+        kern = ((n["metropolis"] - n["metropolis_measuring"]) * tm
+                + n["metropolis_measuring"] * tmm
+                + (n["over_relax"] - n["over_relax_measuring"]) * t13["ms"]
+                + n["over_relax_measuring"] * t13m["ms"])
+        xy_kern[label] = kern / (wall * 1e3)
+        log(f"  xy {label}: kernel {kern / 1e3:.3f} s of a {wall:.3f} s "
+            f"wall; kernel share of the wall {xy_kern[label]:.3f}")
+
     compare_routes(msb, dev, beta, seeds)
     compare_routes_3d(ms3, dev, seeds[:32])
     route_h3 = compare_routes_helical3d(h3, hms, dev, seeds)
@@ -1808,6 +2150,12 @@ def main() -> int:
          "clock_helical_multispin.cu", "clock_helical_multispin.py:310",
          launched("clock_helical", "multisweep"), max(err_clock_h, e10),
          t10),
+        ("xy2d_pallas.metropolis_kernel", "xy2d_pallas.cu",
+         "xy2d_pallas.py:226", launched("xy", "metropolis"),
+         max(err_xy["metropolis"], e12, e12m, e_x2, e_x2m), t12),
+        ("xy2d_pallas.over_relax_kernel", "xy2d_pallas.cu",
+         "xy2d_pallas.py:265", launched("xy", "over_relax"),
+         max(err_xy["over_relax"], e13, e13m), t13),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -1837,6 +2185,17 @@ def main() -> int:
         f"helical 501x500 x 100 {ch_rate:.4g} ({ch_wall:.2f} s, |z| "
         f"{ch_z:.2f}); first sweeps largest |z| {z_clock:.2f}; clock phase "
         f"kernel {t9['ms']:.4f} ms plain, {t9m['ms']:.4f} ms measuring")
+    share_or, share_m = xy_kern.values()
+    log(f"main path XY: over-relaxation 4000x4000 x 8 {xo_rate:.4g} flip "
+        f"attempts/s, {2 * xo_rate:.4g} site updates/s with the OR sweeps "
+        f"({xo_wall:.2f} s, largest |z| {xo_z:.2f}, kernel share "
+        f"{share_or:.3f}); Metropolis 2000x2000 x 32 {xm_rate:.4g} flip "
+        f"attempts/s ({xm_wall:.2f} s, |z| {xm_z:.2f}, kernel share "
+        f"{share_m:.3f}); phase a largest |z| {z_xy:.2f}; OR |dE|/N "
+        f"{de_or:.3g}, ||S| - 1| {norm_or:.3g}; sums' relative error "
+        f"{rel_xy:.3g}; kernels {t12['ms']:.4f} / {t12m['ms']:.4f} ms "
+        f"(metropolis), {t13['ms']:.4f} / {t13m['ms']:.4f} ms "
+        f"(over-relaxation)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

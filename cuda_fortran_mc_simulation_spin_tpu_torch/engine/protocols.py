@@ -1,4 +1,4 @@
-"""NER protocols: the relaxation protocol of the Ising models.
+"""NER protocols: the relaxation protocol.
 
 Port of the relaxation path of
 ``cuda_fortran_mc_simulation_spin_tpu/engine/protocols.py``: per-sample
@@ -6,11 +6,12 @@ initial states, the sweep/measure runner, host-side Kahan aggregation,
 and the reference-format ``.dat`` table on ``out`` with progress on
 ``err`` (stdout = dataset, stderr = progress).  The port serves the
 bit-packed routes: periodic 2-D and 3-D multispin, helical 2-D and 3-D
-multispin, and the bit-sliced clock engines (periodic q = 6, 4, 3,
-aligned and padded; helical q = 6).
-Every other route of the JAX package (other models, protocols,
-over-relaxation, unpackable shapes, meshes) raises NotImplementedError
-naming the ROADMAP.md item that ports it, and never falls back.
+multispin, the bit-sliced clock engines (periodic q = 6, 4, 3,
+aligned and padded; helical q = 6), and the periodic XY phases with and
+without over-relaxation.  Every other route of the JAX package (the XY
+disorder protocols, helical XY, over-relaxation on the other models,
+unpackable shapes, meshes) raises NotImplementedError naming the
+ROADMAP.md item that ports it, and never falls back.
 
 Checkpoint/resume: pass ``checkpoint_path``; accumulators are saved
 every ``checkpoint_every`` histories and runs resume exactly
@@ -38,6 +39,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
     Ising2DHelical,
     Ising3D,
     Ising3DHelical,
+    XY2D,
     build_model,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
@@ -140,17 +142,21 @@ def _ensemble_loop(cfg, runner, fold, err, accs, base, batch, start,
 def _check_route(cfg, model) -> None:
     """Raise for every route of the JAX package that the port does not
     serve yet, naming the ROADMAP.md item that ports it.  ``build_model``
-    admits the Ising and clock models, so what is left of the JAX
-    package's ``_multispin_eligible``, ``_clock_multispin_eligible`` and
-    helical eligibility is the shape (and q for the clock)."""
+    admits the Ising and clock models and periodic XY, so what is left of
+    the JAX package's ``_multispin_eligible``, ``_clock_multispin_eligible``
+    and helical eligibility is the shape (and q for the clock); every
+    periodic XY shape is served, with or without over-relaxation."""
     if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
         raise NotImplementedError(
             "multi-device meshes are not ported yet (ROADMAP.md queue A "
             "item 9)")
+    if isinstance(model, XY2D):
+        return
     if cfg.n_over_relax > 0:
         raise NotImplementedError(
-            "over-relaxation schedules belong to the XY model, not ported "
-            "yet (ROADMAP.md queue A item 8)")
+            f"over-relaxation on the {cfg.model} model runs in the JAX "
+            "package only through its generic runners, not ported yet "
+            "(ROADMAP.md queue B item 13)")
     if isinstance(model, Clock2DHelical):
         if not clock_helical_multispin.fits(model):
             raise NotImplementedError(
@@ -206,6 +212,11 @@ def _check_route(cfg, model) -> None:
 def _make_runner(cfg, model, batch: int, device):
     """The route of the JAX package's ``_run_accumulating`` for the
     served models."""
+    if isinstance(model, XY2D):
+        return sweep_mod.make_xy_runner(
+            model, cfg.mcs, batch, cfg.init_state,
+            n_over_relax=cfg.n_over_relax,
+            mcs_over_relax=cfg.mcs_over_relax, device=device)
     if isinstance(model, Clock2D):
         return sweep_mod.make_clock_multispin_runner(
             model, cfg.mcs, batch, cfg.init_state, device=device)
@@ -246,8 +257,9 @@ def run_relaxation(cfg: RunConfig, out: IO[str] = sys.stdout,
                    checkpoint_path: str | None = None,
                    checkpoint_every: int = 0,
                    device="cuda") -> stats.VarianceCovarianceKahan:
-    """The reference's ising2d/ising3d/clock relaxation apps: ordered (or
-    random) start, per-sweep m and e, their variances and covariance."""
+    """The reference's ising2d/ising3d/clock/xy2d relaxation and XY
+    over-relaxation apps: ordered (or random) start, per-sweep m and e,
+    their variances and covariance."""
     dev = resolve_device(device)
     model = build_model(cfg)
     _check_route(cfg, model)

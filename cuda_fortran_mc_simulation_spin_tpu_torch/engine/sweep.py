@@ -1,12 +1,13 @@
-"""Monte Carlo schedules of the bit-packed Ising engines.
+"""Monte Carlo schedules of the bit-packed engines and the periodic XY one.
 
 Port of the multispin part of
 ``cuda_fortran_mc_simulation_spin_tpu/engine/sweep.py``
 (``_host_chunk_runner``, ``_make_packed_runner``,
 ``make_multispin_runner``, ``make_multispin3d_runner``,
-``make_clock_multispin_runner`` and the Ising and q=6 clock branches of
-``make_helical_runner``).  A ``lax.scan`` there is a Python loop
-over kernel launches here.  The JAX runner sizes its dispatches from TPU
+``make_clock_multispin_runner``, the Ising and q=6 clock branches of
+``make_helical_runner``, and ``xy_padded_eligible`` /
+``make_xy_padded_runner`` as :func:`make_xy_runner`).
+A ``lax.scan`` there is a Python loop over kernel launches here.  The JAX runner sizes its dispatches from TPU
 rates to stay under the TPU worker's deadline; the port has no such
 deadline and chunks by a fixed sweep count (``DEFAULT_CHUNK`` = 64, the
 multisweep kernel's S).  Sweep keys are pure functions of the global
@@ -25,15 +26,13 @@ from typing import Callable
 import torch
 
 from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
-from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
-    CheckerboardState,
-)
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock_helical import (
     Clock2DHelical,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d_helical import (
     Ising3DHelical,
 )
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XY2D
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     clock3_multispin,
     clock4_multispin,
@@ -44,6 +43,8 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     helical_multispin,
     ising2d_multispin,
     ising3d_multispin,
+    multispin_rng,
+    xy2d_pallas,
 )
 
 DEFAULT_CHUNK = 64
@@ -74,9 +75,9 @@ def _host_chunk_runner(init_fn, chunk_fn, mcs: int, dispatch_chunk: int):
 
 
 def _init_state(model, init_kind: str, batch: int, call_key, device):
-    """Initial CheckerboardState of a batch of replicas (flat states for a
-    helical model); replica r of a random start is keyed by
-    fold_in(init_key, r)."""
+    """Initial state of a batch of replicas (CheckerboardState, XYState,
+    or flat states for a helical model); replica r of a random start is
+    keyed by fold_in(init_key, r)."""
     if init_kind == "allup":
         return model.init_state("allup", device=device, batch=(batch,))
     keys = rng.fold_in(rng.init_key(call_key),
@@ -85,8 +86,7 @@ def _init_state(model, init_kind: str, batch: int, call_key, device):
               for r in range(batch)]
     if isinstance(states[0], torch.Tensor):
         return torch.stack(states)
-    return CheckerboardState(torch.stack([s.a for s in states]),
-                             torch.stack([s.b for s in states]))
+    return type(states[0])(*(torch.stack(p) for p in zip(*states)))
 
 
 def _init_planes(model, init_kind: str, batch: int, call_key, device,
@@ -252,3 +252,48 @@ def make_helical_runner(model, mcs: int, batch: int,
         multisweep=helical_multispin.multisweep,
         init_planes=_init_helical_planes,
     ), "helical_multispin (flat even/odd bit-packed)")
+
+
+XY_ENGINE = "xy2d periodic component planes (CUDA phases)"
+
+
+def make_xy_runner(model, mcs: int, batch: int, init_kind: str = "allup",
+                   n_over_relax: int = 0, mcs_over_relax: int = 0,
+                   device="cuda", chunk: int = DEFAULT_CHUNK
+                   ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
+    """`run(call_key) -> {m, my, e: (batch, mcs) float64}` on the periodic
+    XY phase kernels (ops/xy2d_pallas.py), with the schedule of the JAX
+    package's ``make_xy_padded_runner`` (the reference app
+    ``xy2d_periodic_gpu_over_relaxation.f90``, lines 42-45): for
+    t <= mcs_over_relax (default mcs) with n_over_relax > 0, a Metropolis
+    sweep, n_over_relax - 1 over-relaxation sweeps and one whose colour-1
+    phase measures; otherwise a Metropolis sweep whose phase b measures.
+    Phase keys of a chunk come from one batched derivation keyed by the
+    global sweep index, so a run is bitwise independent of ``chunk``.
+    It serves every periodic XY2D (even nx and ny) on unpadded
+    (R, ny, nx/2) component planes, where the JAX package's
+    ``xy_padded_eligible`` chooses between lane-padded component planes
+    and its f32-angle engine from TPU readings (``sweep.py:1142-1151``)."""
+    if not isinstance(model, XY2D):
+        raise ValueError(f"{model!r} is not a periodic XY model")
+    mcs_or = mcs_over_relax or mcs
+
+    def init_fn(call_key):
+        return _init_state(model, init_kind, batch, call_key, device)
+
+    def chunk_fn(st, call_key, t0, size):
+        seeds = multispin_rng.sweep_phase_keys(call_key, size, t0)
+        series = {"m": [], "my": [], "e": []}
+        for j in range(size):
+            if n_over_relax > 0 and t0 + j + 1 <= mcs_or:
+                st = xy2d_pallas.sweep(model, st, seeds[j])
+                for _ in range(n_over_relax - 1):
+                    st = xy2d_pallas.or_sweep(model, st)
+                st, obs = xy2d_pallas.or_sweep_measured(model, st)
+            else:
+                st, obs = xy2d_pallas.sweep_measured(model, st, seeds[j])
+            for k in series:
+                series[k].append(obs[k])
+        return st, {k: torch.stack(v, dim=1) for k, v in series.items()}
+
+    return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk), XY_ENGINE)

@@ -27,6 +27,11 @@ phase; the port keeps (nyw, half), nyw = ceil(ny/32), with the pad bits
 of the top word 0 (ops/clock_planes.py), so the converters slice or
 zero-pad and clear those bits.  Helical q=6: three colour vectors a
 colour, converted as the helical 3-D words are.
+
+Periodic XY: four float32 planes (ax, ay, bx, by).  The JAX lane-padded
+engine keeps them (..., ny, W), W the next multiple of 128 lanes, with
+zero pads; the port keeps (..., ny, nx/2), so the converters cut or
+zero-pad the lanes.
 """
 
 from __future__ import annotations
@@ -160,6 +165,33 @@ def clock_helical_to_numpy(planes, m: int, rows: int | None = None
     """The port's helical clock triplet -> the JAX (..., rows, 128) grid,
     the bits past M cleared."""
     return tuple(helical3d_to_numpy(p, m, rows) for p in planes)
+
+
+def xy_from_numpy(ax, ay, bx, by, half: int | None = None):
+    """JAX XY planes (..., ny, W) float32 (numpy), lane-padded or not ->
+    the port's ``XYState`` of (..., ny, half) planes (half defaults to W,
+    unpadded planes)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import (
+        XYState,
+    )
+    return XYState(*(
+        torch.from_numpy(np.array(np.asarray(p, dtype=np.float32)[
+            ..., :half]))
+        for p in (ax, ay, bx, by)))
+
+
+def xy_to_numpy(state, width: int | None = None
+                ) -> tuple[np.ndarray, ...]:
+    """The port's ``XYState`` -> four float32 planes (numpy), zero-padded
+    to ``width`` lanes when given (the JAX padded kernels' W)."""
+    out = []
+    for p in state:
+        a = p.cpu().numpy().astype(np.float32)
+        if width is not None and width > a.shape[-1]:
+            pad = [(0, 0)] * (a.ndim - 1) + [(0, width - a.shape[-1])]
+            a = np.pad(a, pad)
+        out.append(a)
+    return tuple(out)
 
 
 def stats_state_from_numpy(d: Mapping[str, object]) -> dict:

@@ -10,6 +10,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d import Ising3D  # 
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d_helical import (  # noqa: F401
     Ising3DHelical,
 )
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XY2D  # noqa: F401
 
 
 def build_model(cfg):
@@ -17,9 +18,10 @@ def build_model(cfg):
     periodic 2-D, helical 2-D (odd nx, the reference's committed
     1001x1000), periodic 3-D (even dims) and helical 3-D (odd nx, the
     reference's committed 151x151x150, 501x501x500 and 1001x1000x1000);
-    and the clock model, periodic (even nx) or helical (odd nx, the
-    reference's committed 501x500).  XY raises, naming the ROADMAP.md
-    queue A item that ports it."""
+    the clock model, periodic (even nx) or helical (odd nx, the
+    reference's committed 501x500); and the periodic XY model (even nx).
+    Helical XY (odd nx) raises, naming the ROADMAP.md items that port
+    it."""
     if cfg.model == "ising2d":
         if cfg.nx % 2 == 1:
             return Ising2DHelical(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt)
@@ -34,6 +36,9 @@ def build_model(cfg):
             return Clock2DHelical(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt, q=cfg.q)
         return Clock2D(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt, q=cfg.q)
     if cfg.model == "xy2d":
-        raise NotImplementedError(
-            "model 'xy2d' is not ported yet (ROADMAP.md queue A item 8)")
+        if cfg.nx % 2 == 1:
+            raise NotImplementedError(
+                f"helical XY (odd nx = {cfg.nx}) is not ported yet "
+                "(ROADMAP.md queue A item 8, queue B item 12)")
+        return XY2D(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt)
     raise ValueError(f"unknown model {cfg.model!r}")

@@ -1,0 +1,328 @@
+"""The periodic XY phases on the card: two CUDA kernels and their plain
+versions.
+
+Port of the single-device periodic part of
+``cuda_fortran_mc_simulation_spin_tpu/ops/xy2d_pallas.py`` (the module
+keeps its name so that its JAX counterpart is found by name; it launches
+CUDA kernels, not Pallas ones).  ``csrc/xy2d_pallas.cu`` holds
+
+- ``metropolis_kernel``, which replaces ``_metropolis_kernel``
+  (pallas_call at ``:226``, ``_metropolis_phase``): one colour phase of
+  the float32 component planes, uniforms from Philox or injected, and with
+  ``measuring`` the per-replica (Σ S_x, Σ S_y, e) over both colours;
+- ``over_relax_kernel``, which replaces ``_over_relax_kernel`` (``:265``,
+  ``_over_relax_phase``): one reflection phase, the same sums optional.
+
+Layout: (R, ny, nx/2) float32 planes for every even nx, with the
+checkerboard of core/lattice.py.  The JAX engine pads nx/2 to a multiple
+of 128 lanes (``pad_planes``) and substitutes the x wrap at the real seam
+(``stencil.lr_sum_padded``); that is TPU layout, so the port keeps
+unpadded planes and wraps column 0 <-> column half-1 directly.  A phase
+updates its colour in place: it reads only that colour's own old value
+and the other colour, so no site reads what another writes.
+
+The field is built in the kernel's order, ``(up + dn) + (o + side)``
+(``stencil.nbr_sum``), in the plain version as in the kernel.
+
+Random words: the Philox key of the (sample, t, phase)
+(``rng.seeds_from_key``) and the counter (replica, row, column, 0); word 0
+gives u_cand and word 1 u_acc, each from its top 24 bits
+(``rng.bits_to_uniform``).  :func:`draw_uniforms` is the plain version of
+that draw.
+
+Sums: each f32 value (S_x, S_y, S·h) is widened to float64 and summed in
+float64: per block in the kernel, then per replica in a fixed order by a
+second small kernel, so runs repeat bitwise; the plain version sums the
+same float32 values in float64, and the two agree to float64 rounding.
+The JAX kernels sum in float32.
+
+Bitwise kernel = plain on the card for the state: the kernel spells the
+float32 chain with ``__fmul_rn`` / ``__fadd_rn`` / ``__fsub_rn`` (no FMA
+contraction) in the order of models/xy2d.py's :func:`metropolis_update`
+and :func:`reflect`, and calls ``expf`` and ``rsqrtf`` as ``torch.exp``
+and ``torch.rsqrt`` do on CUDA tensors.
+
+A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
+launches the kernel or raises.  ``LAUNCHES`` counts launches.  The sweep
+entries are those of the JAX padded API (``padded_sweep``,
+``padded_sweep_measure``, ``padded_or_sweep``, ``padded_or_sweep_measure``)
+as :func:`sweep`, :func:`sweep_measured`, :func:`or_sweep` and
+:func:`or_sweep_measured`; JAX's own ``sweep_measure`` also returns the
+autocorrelation and belongs to the disorder slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+from cuda_fortran_mc_simulation_spin_tpu_torch.core.lattice import _odd_rows
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import (
+    XYState,
+    metropolis_update,
+    reflect,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build, multispin_rng
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
+    MASK32,
+    _on_cpu,
+    _stream,
+)
+
+LAUNCHES = {"metropolis": 0, "metropolis_measuring": 0, "over_relax": 0,
+            "over_relax_measuring": 0}
+
+# threads of a block of either kernel (csrc/xy2d_pallas.cu THREADS)
+THREADS = 256
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def nbr_sum(o: torch.Tensor, color: int) -> torch.Tensor:
+    """4-neighbour sum of every site of ``color`` from the other colour's
+    (..., ny, half) plane, in the kernel's order (up + dn) + (o + side):
+    rows wrap at ny, columns at half."""
+    odd = _odd_rows(o.shape[-2], o.device)
+    up = torch.roll(o, 1, dims=-2)
+    dn = torch.roll(o, -1, dims=-2)
+    minus = torch.roll(o, 1, dims=-1)   # column i - 1
+    plus = torch.roll(o, -1, dims=-1)   # column i + 1
+    side = (torch.where(odd, plus, minus) if color == 0
+            else torch.where(odd, minus, plus))
+    return (up + dn) + (o + side)
+
+
+def draw_uniforms(seeds, nrep: int, ny: int, half: int, device=None):
+    """(u_cand, u_acc), (nrep, ny, half) float32, that a phase under the
+    Philox key ``seeds`` draws: words 0 and 1 of counter (replica, row,
+    column, 0)."""
+    gen = multispin_rng.word_stream(seeds, nrep, ny, half, device)
+    return rng.bits_to_uniform(gen()), rng.bits_to_uniform(gen())
+
+
+def _obs_plain(fx, fy, ox, oy, hx, hy) -> torch.Tensor:
+    """(R, 3) float64 (Σ S_x, Σ S_y, -Σ_b S·h): the updated colour and the
+    other one; each bond once, from the updated colour's field."""
+    def total(v):
+        return v.to(torch.float64).sum(dim=(-2, -1))
+    return torch.stack([total(fx) + total(ox), total(fy) + total(oy),
+                        -total(fx * hx + fy * hy)], dim=-1)
+
+
+def metropolis_phase_plain(sx, sy, ox, oy, rand, *, color: int,
+                           beta: float, measuring: bool = False):
+    """Plain version of ``metropolis_kernel``: one Metropolis phase of
+    colour ``color`` on (R, ny, half) float32 planes, in place.  ``rand``
+    is a Philox key ((2,) uint32) or injected (u_cand, u_acc) planes.
+    Returns (sx, sy), and with ``measuring`` also the (R, 3) float64
+    sums."""
+    if isinstance(rand, (tuple, list)):
+        u_cand, u_acc = rand
+    else:
+        u_cand, u_acc = draw_uniforms(rand, *sx.shape, sx.device)
+    hx, hy = nbr_sum(ox, color), nbr_sum(oy, color)
+    fx, fy = metropolis_update(sx, sy, hx, hy, u_cand, u_acc, beta)
+    sx.copy_(fx)
+    sy.copy_(fy)
+    if not measuring:
+        return sx, sy
+    return sx, sy, _obs_plain(sx, sy, ox, oy, hx, hy)
+
+
+def over_relax_phase_plain(sx, sy, ox, oy, *, color: int,
+                           measuring: bool = False):
+    """Plain version of ``over_relax_kernel``: one reflection phase of
+    colour ``color``, in place; with ``measuring`` also the (R, 3)
+    float64 sums."""
+    hx, hy = nbr_sum(ox, color), nbr_sum(oy, color)
+    fx, fy = reflect(sx, sy, hx, hy)
+    sx.copy_(fx)
+    sy.copy_(fy)
+    if not measuring:
+        return sx, sy
+    return sx, sy, _obs_plain(sx, sy, ox, oy, hx, hy)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_VOID = ctypes.c_void_p
+_INT = ctypes.c_int
+_UINT = ctypes.c_uint
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("xy2d_pallas")
+    if lib.xy_metropolis.argtypes is not None:
+        return lib
+    lib.xy_metropolis.argtypes = (
+        [_VOID] * 8 + [_INT] * 4 + [ctypes.c_float, _UINT, _UINT, _VOID])
+    lib.xy_over_relax.argtypes = [_VOID] * 6 + [_INT] * 4 + [_VOID]
+    for fn in (lib.xy_metropolis, lib.xy_over_relax):
+        fn.restype = _INT
+    lib.xy_error_string.argtypes = [_INT]
+    lib.xy_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_planes(*planes: torch.Tensor) -> None:
+    """The kernels take float32 contiguous (R, ny, half) planes on one
+    CUDA device."""
+    ref = planes[0]
+    if ref.dim() != 3:
+        raise ValueError(f"planes must be (R, ny, half), got {ref.shape}")
+    nrep, ny, half = ref.shape
+    if ny < 2 or half < 1 or nrep > 65535 or ny * half >= 2 ** 31:
+        raise ValueError(f"kernel shape out of range: {tuple(ref.shape)}")
+    for p in planes:
+        if p.shape != ref.shape or p.dtype != torch.float32:
+            raise ValueError(f"planes must be float32 {tuple(ref.shape)}, "
+                             f"got {p.dtype} {tuple(p.shape)}")
+        if p.device != ref.device or not p.is_cuda:
+            raise ValueError("planes must lie on one CUDA device")
+        if not p.is_contiguous():
+            raise ValueError("planes must be contiguous")
+
+
+def _scratch(sx: torch.Tensor, measuring: bool):
+    """(partials, obs) of a measuring launch: per-block float64 sums
+    (R, blocks, 3) and their per-replica totals (R, 3); else (None, None)."""
+    if not measuring:
+        return None, None
+    nrep, ny, half = sx.shape
+    blocks = -(-ny * half // THREADS)
+    return (torch.empty((nrep, blocks, 3), dtype=torch.float64,
+                        device=sx.device),
+            torch.empty((nrep, 3), dtype=torch.float64, device=sx.device))
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(code: int, lib, name: str) -> None:
+    if code != 0:
+        msg = lib.xy_error_string(code).decode()
+        raise RuntimeError(f"xy2d {name}: CUDA error {code} ({msg})")
+
+
+def _launch_metropolis(sx, sy, ox, oy, rand, color, beta, measuring):
+    if isinstance(rand, (tuple, list)):
+        u_cand, u_acc = rand
+        _check_planes(sx, sy, ox, oy, u_cand, u_acc)
+        s0 = s1 = 0
+    else:
+        _check_planes(sx, sy, ox, oy)
+        u_cand = u_acc = None
+        s0, s1 = (int(v) & MASK32 for v in torch.as_tensor(rand).tolist())
+    nrep, ny, half = sx.shape
+    partials, obs = _scratch(sx, measuring)
+    lib = _lib()
+    with torch.cuda.device(sx.device):
+        code = lib.xy_metropolis(
+            sx.data_ptr(), sy.data_ptr(), ox.data_ptr(), oy.data_ptr(),
+            _ptr(u_cand), _ptr(u_acc), _ptr(partials), _ptr(obs),
+            nrep, ny, half, color, -float(beta), s0, s1, _stream(sx))
+    _raise_on(code, lib, "metropolis_kernel")
+    LAUNCHES["metropolis"] += 1
+    if measuring:
+        LAUNCHES["metropolis_measuring"] += 1
+        return sx, sy, obs
+    return sx, sy
+
+
+def _launch_over_relax(sx, sy, ox, oy, color, measuring):
+    _check_planes(sx, sy, ox, oy)
+    nrep, ny, half = sx.shape
+    partials, obs = _scratch(sx, measuring)
+    lib = _lib()
+    with torch.cuda.device(sx.device):
+        code = lib.xy_over_relax(
+            sx.data_ptr(), sy.data_ptr(), ox.data_ptr(), oy.data_ptr(),
+            _ptr(partials), _ptr(obs), nrep, ny, half, color, _stream(sx))
+    _raise_on(code, lib, "over_relax_kernel")
+    LAUNCHES["over_relax"] += 1
+    if measuring:
+        LAUNCHES["over_relax_measuring"] += 1
+        return sx, sy, obs
+    return sx, sy
+
+
+def metropolis_phase(sx, sy, ox, oy, rand, *, color: int, beta: float,
+                     measuring: bool = False):
+    """One Metropolis phase of colour ``color`` on (R, ny, half) float32
+    planes, updated in place: ``metropolis_kernel`` on CUDA tensors,
+    :func:`metropolis_phase_plain` on CPU tensors.  ``rand`` is the
+    phase's Philox key or injected (u_cand, u_acc) planes.  Returns
+    (sx, sy), and with ``measuring`` also the (R, 3) float64 sums
+    (Σ S_x, Σ S_y, e) over both colours."""
+    if _on_cpu(sx):
+        return metropolis_phase_plain(sx, sy, ox, oy, rand, color=color,
+                                      beta=beta, measuring=measuring)
+    return _launch_metropolis(sx, sy, ox, oy, rand, color, beta, measuring)
+
+
+def over_relax_phase(sx, sy, ox, oy, *, color: int,
+                     measuring: bool = False):
+    """One over-relaxation phase of colour ``color``, in place:
+    ``over_relax_kernel`` on CUDA tensors, :func:`over_relax_phase_plain`
+    on CPU tensors."""
+    if _on_cpu(sx):
+        return over_relax_phase_plain(sx, sy, ox, oy, color=color,
+                                      measuring=measuring)
+    return _launch_over_relax(sx, sy, ox, oy, color, measuring)
+
+
+# ---------------------------------------------------------------------------
+# sweeps (the JAX padded API, on unpadded planes)
+# ---------------------------------------------------------------------------
+
+def _densities(model, obs) -> dict[str, torch.Tensor]:
+    n = model.nsites
+    return {"m": obs[:, 0] / n, "my": obs[:, 1] / n, "e": obs[:, 2] / n}
+
+
+def sweep(model, st: XYState, seeds) -> XYState:
+    """One Metropolis MCS of (R, ny, half) planes, in place, given the
+    sweep's (2, 2) phase keys (JAX ``padded_sweep``)."""
+    ax, ay, bx, by = st
+    metropolis_phase(ax, ay, bx, by, seeds[0], color=0, beta=model.beta)
+    metropolis_phase(bx, by, ax, ay, seeds[1], color=1, beta=model.beta)
+    return st
+
+
+def sweep_measured(model, st: XYState, seeds):
+    """:func:`sweep` with the (m, my, e) densities (R,) float64 fused into
+    phase b (JAX ``padded_sweep_measure``)."""
+    ax, ay, bx, by = st
+    metropolis_phase(ax, ay, bx, by, seeds[0], color=0, beta=model.beta)
+    _, _, obs = metropolis_phase(bx, by, ax, ay, seeds[1], color=1,
+                                 beta=model.beta, measuring=True)
+    return st, _densities(model, obs)
+
+
+def or_sweep(model, st: XYState) -> XYState:
+    """One over-relaxation sweep, in place (JAX ``padded_or_sweep``)."""
+    ax, ay, bx, by = st
+    over_relax_phase(ax, ay, bx, by, color=0)
+    over_relax_phase(bx, by, ax, ay, color=1)
+    return st
+
+
+def or_sweep_measured(model, st: XYState):
+    """:func:`or_sweep` with the densities fused into the colour-1 phase
+    (JAX ``padded_or_sweep_measure``)."""
+    ax, ay, bx, by = st
+    over_relax_phase(ax, ay, bx, by, color=0)
+    _, _, obs = over_relax_phase(bx, by, ax, ay, color=1, measuring=True)
+    return st, _densities(model, obs)

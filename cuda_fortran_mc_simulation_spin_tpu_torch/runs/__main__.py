@@ -17,12 +17,19 @@ geometries).  ``--model clock`` runs the q-state clock model (``--q``
 6, 4 or 3) on even dims (``--nx 2000 --ny 2000 --kbt 0.91``, the
 reference's literal geometry, or aligned ``--nx 2048 --ny 2048``) and,
 for q = 6, helical at odd ``--nx`` (``--nx 501 --ny 500 --kbt 0.8``).
+``--model xy2d`` runs the periodic XY relaxation on even dims, Metropolis
+only or with ``--n-over-relax N`` over-relaxation sweeps after each
+Metropolis sweep while t <= ``--mcs-over-relax`` (default: every t)::
+
+    python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \\
+        --model xy2d --nx 4000 --ny 4000 --kbt 0.89 --mcs 1000 \\
+        --samples 16 --replicas 8 --n-over-relax 1 --output xy_or.dat
 
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of
 routes the port does not serve yet (--mesh, --profile-dir, --backend
-other than auto, other models and protocols) raise with the ROADMAP.md
-item that ports them.
+other than auto, helical XY, the XY disorder protocols) raise with the
+ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -103,8 +110,8 @@ def _refuse_unserved(a: argparse.Namespace) -> None:
             "(the CUDA kernels, or their plain versions with --device cpu)")
     if a.protocol not in protocols.PROTOCOLS:
         raise NotImplementedError(
-            f"protocol {a.protocol!r} belongs to the XY model, not ported "
-            "yet (ROADMAP.md queue A item 8)")
+            f"protocol {a.protocol!r} is one of the XY disorder protocols, "
+            "not ported yet (ROADMAP.md queue A item 8)")
 
 
 def config_from_args(a: argparse.Namespace) -> RunConfig:

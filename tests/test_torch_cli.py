@@ -103,10 +103,10 @@ def test_cuda_without_a_card_raises(tmp_path):
     (["--model", "clock", "--q", "5"], "queue B item 13"),
     (["--model", "ising3d", "--nx", "2049", "--ny", "1024", "--nz", "1024"],
      "queue B item 13"),
-    (["--model", "xy2d"], "queue A item 8"),
+    (["--model", "xy2d", "--nx", "255", "--ny", "256"], "queue B item 12"),
     (["--nx", "4097", "--ny", "2048"], "queue B item 13"),
     (["--nx", "128", "--ny", "128"], "queue B item 13"),
-    (["--n-over-relax", "2"], "queue A item 8"),
+    (["--protocol", "from_disorder"], "queue A item 8"),
 ])
 def test_unserved_routes_raise(extra, match, tmp_path):
     out = tmp_path / "x.dat"

@@ -385,3 +385,90 @@ def test_clock_helical_kernel_matches_plain(cuda, nx, ny):
         sa, sb, so = chm.multisweep_planes(sa, sb, seeds[s:s + 1], **kw)
         assert torch.equal(so[:, 0], kobs[:, s])
     assert torch.equal(kobs[:, -1], chm.obs_packed6_reference(ka, kb, nx, m))
+
+
+KBT_XY = 0.89
+
+
+def _xy_planes(dev, nrep, ny, nx, seed):
+    """A random XY state (ax, ay, bx, by) of float32 unit vectors."""
+    g = np.random.default_rng(seed)
+    th = g.uniform(0.0, 2 * np.pi, size=(2, nrep, ny, nx // 2))
+    return [torch.from_numpy(f(th[c]).astype(np.float32)).to(dev)
+            for c in (0, 1) for f in (np.cos, np.sin)]
+
+
+def _xy_sums_close(got, want):
+    """The kernel's and the plain version's float64 sums of the same
+    float32 values, added in other orders: 1e-9 relative."""
+    scale = want.abs().clamp(min=1.0)
+    assert torch.all((got - want).abs() <= 1e-9 * scale), (got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx", [(16, 84), (256, 200), (2000, 2000)])
+def test_xy_kernels_match_plain(cuda, ny, nx):
+    """metropolis_kernel (injected and Philox uniforms) and
+    over_relax_kernel against their plain versions on the same CUDA
+    tensors, both colours, measuring and not: the state bitwise, the sums
+    to float64 rounding."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import xy2d_pallas
+    planes = _xy_planes(cuda, 2, ny, nx, nx + ny)
+    g = np.random.default_rng(ny)
+    u = tuple(torch.from_numpy(g.random((2, ny, nx // 2), dtype=np.float32)
+                               ).to(cuda) for _ in range(2))
+    for color in (0, 1):
+        order = (0, 1, 2, 3) if color == 0 else (2, 3, 0, 1)
+        seeds = rng.seeds_from_key(rng.base_key(8), color)
+        for measuring in (False, True):
+            runs = (
+                (xy2d_pallas.metropolis_phase,
+                 xy2d_pallas.metropolis_phase_plain,
+                 dict(beta=1 / KBT_XY), (u,)),
+                (xy2d_pallas.metropolis_phase,
+                 xy2d_pallas.metropolis_phase_plain,
+                 dict(beta=1 / KBT_XY), (seeds,)),
+                (xy2d_pallas.over_relax_phase,
+                 xy2d_pallas.over_relax_phase_plain, {}, ()))
+            for kernel, plain, kw, extra in runs:
+                a = [planes[i].clone() for i in order]
+                b = [planes[i].clone() for i in order]
+                got = kernel(*a, *extra, color=color, measuring=measuring,
+                             **kw)
+                want = plain(*b, *extra, color=color, measuring=measuring,
+                             **kw)
+                assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                if measuring:
+                    _xy_sums_close(got[2], want[2])
+
+
+@pytest.mark.cuda
+def test_xy_runner_on_card_replays_plain_phases(cuda):
+    """The XY runner with over-relaxation on the card: its series equal a
+    replay of the plain phases on the card with the same keys, to float64
+    rounding of the sums."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        multispin_rng,
+        xy2d_pallas,
+    )
+    model = XY2D(nx=200, ny=256, kbt=KBT_XY)
+    key = rng.sample_key(rng.base_key(42), 0)
+    series = sweep.make_xy_runner(model, 4, 2, "random", n_over_relax=2,
+                                  mcs_over_relax=2, device=cuda)(key)
+    st = sweep._init_state(model, "random", 2, key, cuda)
+    seeds = multispin_rng.sweep_phase_keys(key, 4)
+    for t in range(4):
+        ax, ay, bx, by = st
+        xy2d_pallas.metropolis_phase_plain(ax, ay, bx, by, seeds[t, 0],
+                                           color=0, beta=model.beta)
+        out = xy2d_pallas.metropolis_phase_plain(
+            bx, by, ax, ay, seeds[t, 1], color=1, beta=model.beta,
+            measuring=t >= 2)
+        if t < 2:
+            for last in (False, True):
+                xy2d_pallas.over_relax_phase_plain(ax, ay, bx, by, color=0)
+                out = xy2d_pallas.over_relax_phase_plain(
+                    bx, by, ax, ay, color=1, measuring=last)
+        for j, k in enumerate(("m", "my", "e")):
+            _xy_sums_close(series[k][:, t] * model.nsites, out[2][:, j])

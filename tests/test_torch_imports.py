@@ -76,5 +76,6 @@ def test_the_slices_modules_are_checked():
                  "models.ising3d_helical", "ops.clock_planes",
                  "ops.clock_multispin", "ops.clock4_multispin",
                  "ops.clock3_multispin", "ops.clock_helical_multispin",
-                 "models.clock", "models.clock_helical"):
+                 "models.clock", "models.clock_helical", "ops.trig",
+                 "ops.xy2d_pallas", "models.xy2d"):
         assert f"cuda_fortran_mc_simulation_spin_tpu_torch.{name}" in mods

@@ -9,8 +9,10 @@ helical 3-D one at the reference's 151x151x150, 501x501x500 and
 1001x1000x1000, the q=6 clock one at the reference's 2000x2000
 (padded), at 2048x2048 (aligned) and helical at 501x500, and the
 periodic XY one with over-relaxation at the reference's 4000x4000 and
-Metropolis only at 2000x2000; and holds every kernel of those paths
-against its plain PyTorch version.
+Metropolis only at 2000x2000, and the XY disorder protocols (from
+disorder at the reference's 1500x1500, with and without fix1mcs, and
+finite-magne and its samples at 1000x1000); and holds every kernel of
+those paths against its plain PyTorch version.
 Phases (each prints a progress line on stderr):
 
 1. build the CUDA sources (csrc/*.cu) from scratch with nvcc, all at once;
@@ -46,6 +48,12 @@ Phases (each prints a progress line on stderr):
      the Metropolis kernel with injected and Philox uniforms and the
      over-relaxation kernel, both colours, measuring and not; the state
      bitwise, the float64 sums within 1e-9 relative;
+   - XY disorder, at 256x200 x 2, 1500x1500 x 1 and 1000x1000 x 20: the
+     Metropolis kernel's snapshot mode (injected and Philox, both
+     colours), measure_kernel with and without a snapshot and the
+     multisweep kernel's injected mode; 64 multisweep sweeps at 1500x1500
+     x 1 against 64 streamed snapshot-measuring sweeps (state and sums
+     bitwise) and against its plain version;
 2b. <m>, <e> after one sweep from all-up against their closed forms for
    the chains' quantized acceptances, over >= 1e10 sites per path (helical
    3-D at 151^3 and 501^3, where every neighbour lies in the other
@@ -58,7 +66,10 @@ Phases (each prints a progress line on stderr):
    XY phase a from all-up at 4000x4000 x 8 over >= 1e10 sites: <S_x> =
    1 - e^(-4β)[I0(4β) - I1(4β)], <S_y> = 0 and the acceptance e^(-4β)
    I0(4β); one over-relaxation sweep of a random 4000x4000 x 8 state
-   keeps the energy and |S| to float32 rounding;
+   keeps the energy and |S| to float32 rounding; the rotation onto +x
+   leaves |Σ S_y| / N below 1e-6 and |m| unchanged (1500x1500 x 4), and
+   prep_finite_magne puts every replica of 1000x1000 x 20 within 1% of
+   |m| = 0.02;
 3. 2-D resident class: 2048^2, 16 replicas, 64 samples, 1000 MCS through
    the multisweep kernel;
 4. 2-D streaming class: 8192^2, 4 replicas, 4 samples, 200 MCS through
@@ -91,6 +102,14 @@ Phases (each prints a progress line on stderr):
    xy2d_periodic_or_4000x4000_mcs10000_s3125.dat); Metropolis 2000x2000,
    kbt 0.895, 32 replicas, 64 samples, 100 MCS
    (xy2d_samples32_2000x2000_mcs100.dat);
+4f. XY disorder classes, kbt 0.89, <|m|> (or <m>), <e> and <A> at every t
+   within 5 combined standard errors of the reference's curves:
+   from-disorder 1500x1500 x 1 replica, 64 samples, 1000 MCS (the
+   2222-sample curve); fix1mcs 1500x1500 x 8, 32 samples, 200 MCS (the
+   2000-sample curve); finite-magne 1000x1000 x 20, 40 samples, 100 MCS,
+   m0 = 0.02 (the 500-sample curve); finite-magne samples, 20 histories
+   of 100 MCS at 1000x1000, the row format and the per-t means of m_x, e
+   and A against the file's 500 histories;
 5. times with CUDA events, beside each kernel's bound and its plain
    version's time, at the main paths' launch shapes (the helical kernel
    at 128 x 1001x1000, S = 64; the clock phase kernel at 2000x2000 x 40,
@@ -101,7 +120,14 @@ Phases (each prints a progress line on stderr):
    the kernel's output there is held against
    the plain version's, bitwise, too; then each runner's two routes (one
    multisweep launch per S sweeps, or S streamed phase pairs) at and
-   between the paths' shapes, and the helical 3-D routes at 151^3 x 128.
+   between the paths' shapes, and the helical 3-D routes at 151^3 x 128;
+   the XY disorder kernels at every launch shape their classes run, each
+   held against its plain version (state bitwise, sums within 1e-9
+   relative): the snapshot mode at 1500x1500 x 8 (fix1mcs) and 1000x1000
+   x 20 (finite-magne), measure_kernel at 1500x1500 x 8, the multisweep
+   at 1500x1500 x 1 with S = 64 and 40 (from-disorder) and at 1000x1000
+   x 1 with S = 64 and 36 (samples); and the disorder runner's two
+   routes at XY_ROUTE_SHAPES, where the route bound is read.
 
 It prints the kernels' JSON line, the card's `nvidia-smi` name and power
 limit, and last the device line.  It exits non-zero, printing no result,
@@ -135,6 +161,12 @@ CLOCK_2048 = PRODUCTION / "clock_2048x2048_mcs100000_s1088.dat"
 CLOCK_501 = PRODUCTION / "clock_501x500_kbt0.80_mcs100000_s100.dat"
 XY_OR_4000 = PRODUCTION / "xy2d_periodic_or_4000x4000_mcs10000_s3125.dat"
 XY_2000 = PRODUCTION / "xy2d_samples32_2000x2000_mcs100.dat"
+XY_FD_1500 = PRODUCTION / "xy2d_from_disorder_1500x1500_mcs100000_s2222.dat"
+XY_FIX1_1500 = (PRODUCTION
+                / "xy2d_from_disorder_fix1mcs_1500x1500_mcs100000_s2000.dat")
+XY_FM_1000 = PRODUCTION / "xy2d_finite_magne_1000x1000_mcs100_s500.dat"
+XY_FMS_1000 = (PRODUCTION
+               / "xy2d_finite_magne_samples_1000x1000_mcs100_s500.dat")
 KBT_XY = 0.89                       # the 4000x4000 over-relaxation curve
 KBT_XY_2000 = 0.895                 # the 2000x2000 Metropolis curve
 KBT_CLOCK = 0.91                    # the 2000x2000 curve
@@ -199,11 +231,25 @@ OPS_XY_METROPOLIS = OPS_PER_PHILOX + 4 + 22 + 6 + 6 + 10 + 4
 OPS_XY_OVER_RELAX = 6 + 14 + 8 + 2
 OPS_XY_MEASURE = 6
 XY_BYTES_PER_SITE = 24
+# the snapshot mode's A: 4 multiplies, 2 adds, 2 widenings and a float64
+# add a site; its bytes: both colours' snapshot read once, 16 B a site of
+# the colour updated.  measure_kernel, per (y, i) (two sites): 4 state and
+# 4 snapshot planes read once (32 B), ~24 float64 operations
+OPS_XY_SNAP = 9
+XY_SNAP_BYTES_PER_SITE = 16
+OPS_XY_MEASURE_PAIR = 24
+XY_MEASURE_BYTES_PAIR = 32
 # (R, ny, nx, kbt): a small shape whose half (100) fills no whole warp,
 # then both classes' launches; 2000x1000 sites a replica leave the
 # Metropolis class's last block of 256 threads half idle
 XY_CHECK_SHAPES = ((2, 256, 200, KBT_XY), (8, 4000, 4000, KBT_XY),
                    (32, 2000, 2000, KBT_XY_2000))
+# the disorder classes' launches (R, ny, nx): a small shape, the literal
+# 1500x1500 x 1 (750 columns a colour) and the finite-magne 1000x1000 x 20
+XY_DISORDER_SHAPES = ((2, 256, 200), (1, 1500, 1500), (20, 1000, 1000))
+# the route readings: ms a sweep of both routes, fused sums included
+XY_ROUTE_SHAPES = ((1500, 1), (1500, 2), (1500, 3), (1500, 4), (1500, 16),
+                   (1000, 1), (1000, 4), (1000, 20))
 
 T0 = time.perf_counter()
 
@@ -1362,6 +1408,309 @@ def time_xy(label: str, kernel, plain, planes, nbytes: float, ops: float,
             "bound_by": by}, err
 
 
+def xy_disorder_state(dev, nrep: int, ny: int, nx: int, seed: int):
+    """(state, snapshot) XYStates of random float32 unit vectors."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
+    return (XYState(*xy_state(dev, nrep, ny, nx, seed)),
+            XYState(*xy_state(dev, nrep, ny, nx, seed + 1)))
+
+
+def check_xy_disorder(xyp, xym, xyr, rng, dev) -> tuple[dict, float]:
+    """The disorder slice's kernels against their plain versions on the
+    same CUDA tensors, at XY_DISORDER_SHAPES: metropolis_kernel's snapshot
+    mode (injected and Philox uniforms, both colours), measure_kernel with
+    and without a snapshot, multisweep_kernel's injected mode (both
+    colours); then, at 1500x1500 x 1, 64 multisweep sweeps against 64
+    streamed snapshot-measuring sweeps (state and sums bitwise) and
+    against its plain version.  State bitwise, sums within 1e-9 relative.
+    Returns ({kernel: state error}, sums' relative error)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import multispin_rng
+
+    errs = {"snapshot": 0.0, "measure": 0.0, "multisweep": 0.0}
+    rel = 0.0
+    for nrep, ny, nx in XY_DISORDER_SHAPES:
+        st, snap = xy_disorder_state(dev, nrep, ny, nx, 5 * ny + nrep)
+        gen = torch.Generator(device=dev).manual_seed(nx + 1)
+        u = tuple(torch.rand((nrep, ny, nx // 2), generator=gen, device=dev)
+                  for _ in range(2))
+        for color in (0, 1):
+            sn = xy_by_color(list(snap), color)
+            seeds = rng.seeds_from_key(rng.sample_key(rng.base_key(31), ny),
+                                       color)
+            for rand in (u, seeds):
+                a = [p.clone() for p in xy_by_color(list(st), color)]
+                b = [p.clone() for p in xy_by_color(list(st), color)]
+                kw = dict(color=color, beta=1.0 / KBT_XY, snap=sn)
+                got = xyp.metropolis_phase(*a, rand, **kw)
+                want = xyp.metropolis_phase_plain(*b, rand, **kw)
+                errs["snapshot"] = max(errs["snapshot"],
+                                       float_err(zip(a[:2], b[:2])))
+                rel = max(rel, sums_rel_err(got[2], want[2]))
+            a = [p.clone() for p in xy_by_color(list(st), color)]
+            b = [p.clone() for p in xy_by_color(list(st), color)]
+            xyr.phase_with_bits(*a, *u, color=color, beta=1.0 / KBT_XY)
+            xyr.phase_with_bits_plain(*b, *u, color=color, beta=1.0 / KBT_XY)
+            errs["multisweep"] = max(errs["multisweep"],
+                                     float_err(zip(a[:2], b[:2])))
+        for sn in (None, snap):
+            got = xym.measure_sums(st, sn)
+            rel = max(rel, sums_rel_err(got, xym.measure_sums_plain(st, sn)))
+            if sn is None:  # no snapshot: A is exactly 0
+                errs["measure"] = max(errs["measure"],
+                                      float(got[:, 3].abs().max()))
+        log(f"  xy disorder kernels {nrep}x{ny}x{nx}: state vs plain "
+            f"{errs['snapshot']:.3g} (snapshot mode), {errs['multisweep']:.3g}"
+            f" (multisweep injected mode); sums' relative error {rel:.3g}")
+        del st, snap, u
+    nrep, ny, nx = XY_DISORDER_SHAPES[1]
+    model = XY2D(nx=nx, ny=ny, kbt=KBT_XY)
+    st, snap = xy_disorder_state(dev, nrep, ny, nx, 41)
+    seeds = multispin_rng.sweep_phase_keys(rng.sample_key(rng.base_key(32),
+                                                          0), 64)
+    ms = XYState(*(p.clone() for p in st))
+    kobs = xyr.multisweep_planes(ms, snap, seeds, beta=model.beta)
+    streamed = XYState(*(p.clone() for p in st))
+    sobs = []
+    for s in range(64):
+        streamed, obs = xyp.sweep_measure(model, streamed, snap, seeds[s])
+        sobs.append(torch.stack([obs[k] for k in ("mx", "my", "e", "A")], 1))
+    sobs = torch.stack(sobs, dim=1)
+    plain = XYState(*(p.clone() for p in st))
+    pobs = xyr.multisweep_planes_plain(plain, snap, seeds, beta=model.beta)
+    e_str = float_err(zip(ms, streamed))
+    e_plain = float_err(zip(ms, plain))
+    s_str = float((kobs / model.nsites - sobs).abs().max())
+    rel = max(rel, sums_rel_err(kobs, pobs))
+    errs["multisweep"] = max(errs["multisweep"], e_str, e_plain)
+    log(f"  xy multisweep 64 sweeps {ny}x{nx} x {nrep}: state vs 64 streamed "
+        f"sweep_measure {e_str:.3g}, sums vs streamed {s_str:.3g}; state vs "
+        f"plain {e_plain:.3g}, sums' relative error {rel:.3g}")
+    if max(errs.values()) != 0.0 or s_str != 0.0 or rel > 1e-9:
+        fail(f"an XY disorder kernel differs from its plain version: {errs}, "
+             f"sums vs streamed {s_str}, sums' relative error {rel:.3g}")
+    return errs, rel
+
+
+def check_xy_preparations(dev) -> tuple[float, float]:
+    """On the card: rotate_magne_toward_xaxis of a random 1500x1500 x 4
+    state leaves |Σ S_y| / N below 1e-6 and |m| within 1e-9; and
+    prep_finite_magne at 1000x1000 x 20 gives |m| within 1% of 0.02 in
+    every replica, along +x.  Returns (largest |m_y| after the rotation,
+    largest relative |m| error of the preparation)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
+
+    model = XY2D(nx=1500, ny=1500, kbt=KBT_XY)
+    st = XYState(*xy_state(dev, 4, 1500, 1500, 51))
+    mx0, my0 = model.magne_sums(st)
+    rot = model.rotate_magne_toward_xaxis(st)
+    mx1, my1 = model.magne_sums(rot)
+    n = model.nsites
+    my_after = float(my1.abs().max()) / n
+    dm = float((torch.hypot(mx1, my1) - torch.hypot(mx0, my0)).abs().max()) / n
+    log(f"  rotate_magne_toward_xaxis 1500x1500 x 4: |m_y| <= {my_after:.3g}, "
+        f"|m| moved {dm:.3g} (|m| ~ {float(torch.hypot(mx0, my0)[0]) / n:.3g})")
+    if my_after > 1e-6 or dm > 1e-9 or float(mx1.min()) < 0.0:
+        fail("the rotation does not put m on +x or does not keep |m|")
+    model = XY2D(nx=1000, ny=1000, kbt=KBT_XY)
+    keys = rng.fold_in(rng.init_key(rng.sample_key(rng.base_key(52), 0)),
+                       torch.arange(20))
+    t0 = time.perf_counter()
+    prep = model.prep_finite_magne(keys, 0.02, device=dev)
+    torch.cuda.synchronize()
+    mx, my = (v / model.nsites for v in model.magne_sums(prep))
+    mabs = torch.hypot(mx, my)
+    err = float(((mabs - 0.02).abs() / 0.02).max())
+    log(f"  prep_finite_magne 1000x1000 x 20, m0 0.02: |m| in "
+        f"[{float(mabs.min()):.6f}, {float(mabs.max()):.6f}], largest "
+        f"relative error {err:.4f}, largest |m_y| {float(my.abs().max()):.3g}"
+        f" ({time.perf_counter() - t0:.2f} s)")
+    if err > 0.01 or float(my.abs().max()) > 1e-6:
+        fail("prep_finite_magne missed |m| = 0.02 within 1% along +x")
+    return my_after, err
+
+
+def check_disorder_curve(table: np.ndarray, ref: np.ndarray, samples: int,
+                         mcs: int, moments, label: str) -> float:
+    """The port's disorder table against a reference curve of the same
+    geometry at every t <= mcs: for each (name, mean column, variance of
+    a reference row) in ``moments``, |mean - mean_ref| within SIGMAS of
+    the combined sigma^2 = var_ref (1/n + 1/n_ref), the variance from the
+    reference's own second-moment or N·Var columns.  Returns the largest
+    |z|."""
+    ts = np.arange(1, mcs + 1)
+    if (table.shape[0] != mcs or table.shape[1] != ref.shape[1]
+            or not np.all(np.isfinite(table))):
+        fail(f"{label}: table shape {table.shape} or non-finite")
+    if not np.all(table[:, 1] == samples) or not np.all(table[:, 2] == ts):
+        fail(f"{label}: Nsample or t column is wrong")
+    n_ref = ref[0, 1]
+    worst = 0.0
+    for t in ts:
+        row, rrow = row_at(table, t), row_at(ref, t)
+        for name, col, var in moments:
+            sigma = math.sqrt(var(rrow) * (1.0 / samples + 1.0 / n_ref))
+            z = (row[col] - rrow[col]) / sigma
+            if t in (1, 2, 10, 100, 1000):
+                log(f"  {label} t={t:5d} <{name}> port {row[col]:.9g} "
+                    f"reference {rrow[col]:.9g} sigma {sigma:.3e} z {z:+.2f}")
+            worst = max(worst, abs(z))
+            if abs(z) > SIGMAS:
+                fail(f"{label}: <{name}>({t}) is {z:+.2f} sigma from the "
+                     "reference")
+    log(f"  {label}: largest |z| {worst:.2f} over {mcs} times")
+    return worst
+
+
+# (name, mean column, variance of a reference row) of the two tables
+ABS_MOMENTS = (("|m|", 3, lambda r: r[5] - r[3] ** 2),
+               ("e", 4, lambda r: r[6] - r[4] ** 2),
+               ("A", 9, lambda r: r[10] - r[9] ** 2))
+PARAM_MOMENTS = (("m", 3, lambda r: r[7] / r[0]),
+                 ("e", 4, lambda r: r[8] / r[0]),
+                 ("A", 10, lambda r: r[12] / r[0]))
+
+
+def run_xy_disorder(main_fn, modules, out_dir, label, argv, nx, samples,
+                    mcs, ref, moments, engine):
+    """One XY disorder class through the CLI against its curve.  Returns
+    (launches, wall, rate, largest |z|)."""
+    launches, wall, rate, table, head = run_main_path(
+        main_fn, modules, out_dir, label, argv, nx * nx, samples, mcs)
+    for line in (f"# nx, ny: {nx} {nx}", f"# engine: {engine}",
+                 "# initial state: disorder"):
+        if line not in head:
+            fail(f"{label} .dat header lacks {line!r}: {head}")
+    worst = check_disorder_curve(table, ref, samples, mcs, moments, label)
+    return launches, wall, rate, worst
+
+
+def check_samples_table(table: np.ndarray, head, ref: np.ndarray,
+                        histories: int, mcs: int, nsites: int) -> float:
+    """The finite-magne samples class: rows N, sample, t, m_x, e, m_y, A
+    for every history and t under the reference's literal header; the
+    per-t means of m_x, e and A over the histories against the reference
+    file's (its 500 histories), within SIGMAS of sigma^2 = var_ref
+    (1/n + 1/n_ref) from the reference's per-t sample variance.  Returns
+    the largest |z|."""
+    if "# N, smaple, time, m_x, e, m_y, A" not in head:
+        fail(f"samples header lacks the reference's column line: {head}")
+    want = np.stack([np.full(histories * mcs, nsites),
+                     np.repeat(np.arange(1, histories + 1), mcs),
+                     np.tile(np.arange(1, mcs + 1), histories)], axis=1)
+    if table.shape != (histories * mcs, 7) or not np.array_equal(
+            table[:, :3], want) or not np.all(np.isfinite(table)):
+        fail(f"samples rows: shape {table.shape} or the N, sample, t "
+             "columns are wrong")
+    n_ref = int(ref[:, 1].max())
+    port = table[:, 3:].reshape(histories, mcs, 4)
+    other = ref[:, 3:].reshape(n_ref, mcs, 4)
+    worst = 0.0
+    for name, k in (("m_x", 0), ("e", 1), ("A", 3)):
+        mean, mref = port[..., k].mean(0), other[..., k].mean(0)
+        var = other[..., k].var(0, ddof=1)
+        z = (mean - mref) / np.sqrt(var * (1.0 / histories + 1.0 / n_ref))
+        for t in (1, 2, 10, 100):
+            log(f"  samples t={t:4d} <{name}> port {mean[t - 1]:.9g} "
+                f"reference {mref[t - 1]:.9g} z {z[t - 1]:+.2f}")
+        worst = max(worst, float(np.abs(z).max()))
+        if np.abs(z).max() > SIGMAS:
+            fail(f"samples <{name}> is {np.abs(z).max():.2f} sigma from the "
+                 "reference at some t")
+    log(f"  finite-magne samples: largest |z| {worst:.2f} over {mcs} times")
+    return worst
+
+
+def time_sums(label: str, fn, plain, nbytes: float, ops: float, reps: int,
+              plain_reps: int) -> tuple[dict, float]:
+    """CUDA-event time of a sums-only kernel wrapper and of its plain
+    version on the same inputs, beside the bound; returns (times, sums'
+    relative and absolute error between the two)."""
+    ms = cuda_time_ms(fn, reps=reps)
+    plain_ms = cuda_time_ms(plain, reps=plain_reps, warmup=1)
+    got, want = fn(), plain()
+    rel = sums_rel_err(got, want)
+    err = float((got - want).abs().max())
+    bound, by = bound_ms(nbytes, ops)
+    log(f"  {label}: {ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound "
+        f"{bound:.4f} ms ({by}); sums vs plain {err:.3g} ({rel:.3g} "
+        "relative)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}, rel, err
+
+
+def time_multisweep(xyr, dev, n: int, seeds, beta: float,
+                    seed: int) -> tuple[dict, float, float]:
+    """CUDA-event time of one multisweep launch of S = len(seeds) sweeps
+    at n^2 x 1 (state and snapshot fresh, updated launch after launch)
+    and of its plain version, beside the bound; then one launch of each
+    from the same state.  Returns (times, state error, sums' relative
+    error)."""
+    sweeps = int(seeds.shape[0])
+    st, snap = xy_disorder_state(dev, 1, n, n, seed)
+    pairs = n * n // 2
+
+    def fresh():
+        return type(st)(*(p.clone() for p in st))
+
+    k_st, p_st = fresh(), fresh()
+    ms = cuda_time_ms(
+        lambda: xyr.multisweep_planes(k_st, snap, seeds, beta=beta), reps=5)
+    plain_ms = cuda_time_ms(
+        lambda: xyr.multisweep_planes_plain(p_st, snap, seeds, beta=beta),
+        reps=1, warmup=0)
+    k_st, p_st = fresh(), fresh()
+    k_obs = xyr.multisweep_planes(k_st, snap, seeds, beta=beta)
+    p_obs = xyr.multisweep_planes_plain(p_st, snap, seeds, beta=beta)
+    err = float_err(zip(k_st, p_st))
+    rel = sums_rel_err(k_obs, p_obs)
+    bound, by = bound_ms(
+        12 * 4 * pairs + sweeps * 4 * 8,
+        sweeps * pairs * (2 * OPS_XY_METROPOLIS + OPS_XY_MEASURE
+                          + OPS_XY_SNAP))
+    log(f"  xy multisweep kernel {n}^2 x 1, S={sweeps}: {ms:.4f} ms/launch "
+        f"({ms / sweeps * 1e3:.2f} us a sweep), plain {plain_ms:.2f} ms, "
+        f"bound {bound:.4f} ms ({by}); vs plain {err}, sums {rel:.3g} "
+        "relative")
+    return ({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": by}, err, rel)
+
+
+def compare_xy_routes(xyp, xyr, dev, seeds) -> list[tuple]:
+    """ms a sweep of the disorder runner's two routes, CUDA events, fused
+    (mx, my, e, A) included: one multisweep launch of S sweeps (resident)
+    against S streamed snapshot-measuring sweeps, host loop included
+    (streamed), at XY_ROUTE_SHAPES.  Returns [(nx, replicas, resident ms,
+    streamed ms)]."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+
+    sweeps = seeds.shape[0]
+    out = []
+    for nx, nrep in XY_ROUTE_SHAPES:
+        model = XY2D(nx=nx, ny=nx, kbt=KBT_XY)
+        st, snap = xy_disorder_state(dev, nrep, nx, nx, nx + nrep)
+
+        def resident():
+            xyr.multisweep_planes(st, snap, seeds, beta=model.beta)
+
+        def streamed():
+            s = st
+            for j in range(sweeps):
+                s, _ = xyp.sweep_measure(model, s, snap, seeds[j])
+
+        res_ms, str_ms = _route_times(resident, streamed, sweeps)
+        log(f"  xy disorder route {nx}^2 x {nrep} ({nrep * nx * nx / 1e6:.2f}"
+            f" M sites, fits {xyr.fits(model, nrep)}): resident "
+            f"{res_ms:.5f} ms/sweep, streamed {str_ms:.5f} ms/sweep, "
+            f"streamed/resident {str_ms / res_ms:.3f}")
+        out.append((nx, nrep, res_ms, str_ms))
+        del st, snap
+    return out
+
+
 ROUTE_SHAPES = ((2048, 16), (4096, 4), (8192, 1), (8192, 4))
 ROUTE_SHAPES_3D = ((256, 4), (256, 8), (512, 1), (512, 2), (512, 8))
 
@@ -1611,8 +1960,19 @@ def main() -> int:
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         ising3d_multispin as ms3,
     )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.engine.sweep import (
+        XY_DISORDER_RESIDENT,
+        XY_DISORDER_STREAMED,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_measure_pallas as xym,
+    )
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         xy2d_pallas as xyp,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_resident as xyr,
     )
     from cuda_fortran_mc_simulation_spin_tpu_torch.runs.__main__ import (
         main as cli_main,
@@ -1620,14 +1980,15 @@ def main() -> int:
 
     modules = {"ising2d": msb, "helical": hms, "ising3d": ms3,
                "helical3d": h3, "clock": cp, "clock_helical": chm,
-               "xy": xyp}
+               "xy": xyp, "xy_measure": xym, "xy_resident": xyr}
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device {torch.cuda.get_device_name(0)} | {smi} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     for path in (REFERENCE_DAT, REFERENCE_3D_DAT, REFERENCE_H3_151,
                  REFERENCE_H3_501, REFERENCE_H3_1001, RACY_H3_1001,
-                 CLOCK_2000, CLOCK_2048, CLOCK_501, XY_OR_4000, XY_2000):
+                 CLOCK_2000, CLOCK_2048, CLOCK_501, XY_OR_4000, XY_2000,
+                 XY_FD_1500, XY_FIX1_1500, XY_FM_1000, XY_FMS_1000):
         if not path.exists():
             fail(f"reference curve {path} is missing")
     ref = read_dat(REFERENCE_DAT)
@@ -1641,6 +2002,10 @@ def main() -> int:
     ref_c501 = read_dat(CLOCK_501, max_t=1000)
     ref_xy_or = read_dat(XY_OR_4000, max_t=1000)
     ref_xy = read_dat(XY_2000)
+    ref_fd = read_dat(XY_FD_1500, max_t=1000)
+    ref_fix1 = read_dat(XY_FIX1_1500, max_t=200)
+    ref_fm = read_dat(XY_FM_1000)
+    ref_fms = read_dat(XY_FMS_1000)
 
     # 1. build from scratch
     log("phase 1: build csrc/*.cu with nvcc")
@@ -1657,7 +2022,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"  cooperative grids: 2-D {msb.multisweep_grid_blocks()}, 3-D "
-        f"{ms3.multisweep_grid_blocks()} blocks resident")
+        f"{ms3.multisweep_grid_blocks()}, XY {xyr.grid_blocks()} blocks "
+        "resident")
 
     # 2. kernels against their plain versions
     log("phase 2: kernels vs plain versions (bitwise)")
@@ -1672,6 +2038,7 @@ def main() -> int:
     err_clock = check_clock(cp, rng, dev)
     err_clock_h = check_clock_helical(chm, hms, rng, dev)
     err_xy, rel_xy = check_xy(xyp, rng, dev)
+    err_xyd, rel_xyd = check_xy_disorder(xyp, xym, xyr, rng, dev)
 
     log("phase 2b: first sweep from all-up against its exact expectation")
     check_first_sweep(msb, rng, dev, ref[0], iters=100)
@@ -1691,6 +2058,7 @@ def main() -> int:
         check_first_sweep_clock_helical(cp, chm, hms, rng, dev, iters=80))
     z_xy = check_xy_phase_a(xyp, rng, dev, iters=160)
     de_or, norm_or = check_xy_over_relax(xyp, dev)
+    my_rot, prep_err = check_xy_preparations(dev)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         # 3. 2-D resident class through the multisweep kernel
@@ -1793,7 +2161,8 @@ def main() -> int:
             cli_main, modules, out, 4000, KBT_XY, 8, 16, 1000, 1,
             ref_xy_or, XY_ENGINE)
         want = {"metropolis": 4000, "metropolis_measuring": 0,
-                "over_relax": 4000, "over_relax_measuring": 2000}
+                "metropolis_snapshot": 0, "over_relax": 4000,
+                "over_relax_measuring": 2000}
         if xo_launch["xy"] != want:
             fail(f"XY over-relaxation path: {xo_launch['xy']} != {want}")
         log("phase 4e: XY path, Metropolis class (2000x2000 x 32)")
@@ -1801,12 +2170,69 @@ def main() -> int:
             cli_main, modules, out, 2000, KBT_XY_2000, 32, 64, 100, 0,
             ref_xy, XY_ENGINE)
         want = {"metropolis": 400, "metropolis_measuring": 200,
-                "over_relax": 0, "over_relax_measuring": 0}
+                "metropolis_snapshot": 0, "over_relax": 0,
+                "over_relax_measuring": 0}
         if xm_launch["xy"] != want:
             fail(f"XY Metropolis path: {xm_launch['xy']} != {want}")
+        # 4f. XY disorder classes
+        disorder = {}
+        for label, nx, nrep, samples, mcs, extra, ref_t, moments in (
+                ("from-disorder", 1500, 1, 64, 1000, [], ref_fd,
+                 ABS_MOMENTS),
+                ("fix1mcs", 1500, 8, 32, 200, ["--fix1mcs"], ref_fix1,
+                 ABS_MOMENTS),
+                ("finite-magne", 1000, 20, 40, 100,
+                 ["--protocol", "finite_magne", "--init-magne", "0.02"],
+                 ref_fm, PARAM_MOMENTS)):
+            model = XY2D(nx=nx, ny=nx, kbt=KBT_XY)
+            resident = xyr.fits(model, nrep)
+            log(f"phase 4f: XY disorder path, {label} class ({nx}x{nx} x "
+                f"{nrep}, {'resident' if resident else 'streamed'})")
+            argv = ["--model", "xy2d", "--protocol", "from_disorder",
+                    "--nx", str(nx), "--ny", str(nx), "--kbt", repr(KBT_XY),
+                    "--mcs", str(mcs), "--samples", str(samples),
+                    "--replicas", str(nrep)] + extra
+            disorder[label] = run_xy_disorder(
+                cli_main, modules, out, f"xy2d_{label}", argv, nx, samples,
+                mcs, ref_t, moments,
+                XY_DISORDER_RESIDENT if resident else XY_DISORDER_STREAMED)
+            n = disorder[label][0]
+            calls = samples // nrep
+            chunks = -(-mcs // 64)
+            fix1 = label == "fix1mcs"
+            if resident:
+                want = {"multisweep": calls * chunks,
+                        "metropolis_snapshot": calls if fix1 else 0}
+            else:
+                want = {"multisweep": 0,
+                        "metropolis_snapshot": calls * mcs}
+            got = {"multisweep": n["xy_resident"]["multisweep"],
+                   "metropolis_snapshot": n["xy"]["metropolis_snapshot"]}
+            if (got != want or n["xy_measure"]["measure_snapshot"]
+                    != (calls if fix1 else 0)
+                    or n["xy"]["metropolis_measuring"] != 0):
+                fail(f"XY {label} path: {n} (want {want})")
+        log("phase 4f: XY disorder path, finite-magne samples class "
+            "(1000x1000, 20 histories)")
+        model = XY2D(nx=1000, ny=1000, kbt=KBT_XY)
+        fs_res = xyr.fits(model, 1)
+        fs_launch, fs_wall, fs_rate, table, head = run_main_path(
+            cli_main, modules, out, "xy2d_finite_magne_samples",
+            ["--model", "xy2d", "--protocol", "finite_magne_samples", "--nx",
+             "1000", "--ny", "1000", "--kbt", repr(KBT_XY), "--mcs", "100",
+             "--samples", "20", "--init-magne", "0.02"], 1000 * 1000, 20, 100)
+        engine = XY_DISORDER_RESIDENT if fs_res else XY_DISORDER_STREAMED
+        if f"# engine: {engine}" not in head:
+            fail(f"samples run took another route: {head}")
+        fs_z = check_samples_table(table, head, ref_fms, 20, 100, 1000 * 1000)
+        if (fs_launch["xy_resident"]["multisweep"] if fs_res
+                else fs_launch["xy"]["metropolis_snapshot"]) == 0:
+            fail(f"samples path: {fs_launch}")
+        disorder["samples"] = (fs_launch, fs_wall, fs_rate, fs_z)
     paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch,
              h1_launch, h5_launch, ha_launch, cp_launch, ca_launch,
-             ch_launch, xo_launch, xm_launch)
+             ch_launch, xo_launch, xm_launch,
+             *(d[0] for d in disorder.values()))
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -2112,6 +2538,67 @@ def main() -> int:
         log(f"  xy {label}: kernel {kern / 1e3:.3f} s of a {wall:.3f} s "
             f"wall; kernel share of the wall {xy_kern[label]:.3f}")
 
+    # the XY disorder classes' launches: the snapshot mode at 1500^2 x 8
+    # (fix1mcs, 800 of its 1000 main-path launches) and 1000^2 x 20
+    # (finite-magne, the other 200), state and sums against the plain
+    # version; measure_kernel with the snapshot at 1500^2 x 8 (fix1mcs,
+    # t = 1); the multisweep at every (shape, S) the resident classes
+    # launch: 1500^2 x 1 with S = 64 and 40 (from-disorder's 15 + 1
+    # chunks of 1000 sweeps), 1000^2 x 1 with S = 64 and 36 (samples)
+    snap_t, snap_err, snap_rel = {}, 0.0, 0.0
+    for nrep, n in ((8, 1500), (20, 1000)):
+        st, snap = xy_disorder_state(dev, nrep, n, n, 60 + nrep)
+        sites = nrep * n * n // 2
+        planes = xy_by_color(list(st), 1)
+        snap_kw = dict(color=1, beta=beta_x, snap=xy_by_color(list(snap), 1))
+        snap_t[n], err = time_xy(
+            f"xy metropolis kernel, snapshot mode, {n}^2 x {nrep}",
+            lambda *p: xyp.metropolis_phase(*p, seeds[0, 1], **snap_kw),
+            lambda *p: xyp.metropolis_phase_plain(*p, seeds[0, 1],
+                                                  **snap_kw),
+            planes,
+            (XY_BYTES_PER_SITE + XY_SNAP_BYTES_PER_SITE) * sites
+            + nrep * 4 * 8,
+            sites * (OPS_XY_METROPOLIS + OPS_XY_MEASURE + OPS_XY_SNAP),
+            reps=50, plain_reps=2)
+        got = xyp.metropolis_phase(*(p.clone() for p in planes), seeds[0, 1],
+                                   **snap_kw)[2]
+        want = xyp.metropolis_phase_plain(*(p.clone() for p in planes),
+                                          seeds[0, 1], **snap_kw)[2]
+        snap_err = max(snap_err, err)
+        snap_rel = max(snap_rel, sums_rel_err(got, want))
+        del st, snap, planes
+    st, snap = xy_disorder_state(dev, 8, 1500, 1500, 70)
+    pairs = 8 * 1500 * 750
+    t_meas, rel_meas, err_meas = time_sums(
+        "xy measure kernel 1500^2 x 8, snapshot",
+        lambda: xym.measure_sums(st, snap),
+        lambda: xym.measure_sums_plain(st, snap),
+        XY_MEASURE_BYTES_PAIR * pairs + 8 * 4 * 8,
+        OPS_XY_MEASURE_PAIR * pairs, reps=50, plain_reps=3)
+    del st, snap
+    ms_t, ms_err, ms_rel = {}, 0.0, 0.0
+    for n, sw in ((1500, 64), (1500, 40), (1000, 64), (1000, 36)):
+        ms_t[n, sw], err, rel = time_multisweep(xyr, dev, n, seeds[:sw],
+                                                beta_x, 71 + sw)
+        ms_err, ms_rel = max(ms_err, err), max(ms_rel, rel)
+    t_ms = ms_t[1500, 64]
+    if max(snap_err, ms_err) != 0.0 or max(snap_rel, rel_meas,
+                                           ms_rel) > 1e-9:
+        fail(f"an XY disorder kernel differs from its plain version at its "
+             f"main-path launch shape (state {snap_err}, {ms_err}; sums "
+             f"{snap_rel:.3g}, {rel_meas:.3g}, {ms_rel:.3g})")
+    xy_routes = compare_xy_routes(xyp, xyr, dev, seeds)
+    # the from-disorder class's kernel time against its wall: each call
+    # (one replica) runs 1000 sweeps as 15 launches of 64 and one of 40
+    fd_launch, fd_wall = disorder["from-disorder"][:2]
+    fd_calls, fd_left = divmod(fd_launch["xy_resident"]["multisweep"], 16)
+    if fd_left or fd_launch["xy"]["metropolis_snapshot"]:
+        fail(f"from-disorder launches: {fd_launch}")
+    fd_kern = fd_calls * (15 * t_ms["ms"] + ms_t[1500, 40]["ms"])
+    log(f"  xy from-disorder 1500^2 x 1: kernel {fd_kern / 1e3:.3f} s of a "
+        f"{fd_wall:.3f} s wall; kernel share {fd_kern / (fd_wall * 1e3):.3f}")
+
     compare_routes(msb, dev, beta, seeds)
     compare_routes_3d(ms3, dev, seeds[:32])
     route_h3 = compare_routes_helical3d(h3, hms, dev, seeds)
@@ -2156,6 +2643,15 @@ def main() -> int:
         ("xy2d_pallas.over_relax_kernel", "xy2d_pallas.cu",
          "xy2d_pallas.py:265", launched("xy", "over_relax"),
          max(err_xy["over_relax"], e13, e13m), t13),
+        ("xy2d_pallas.metropolis_kernel (snapshot mode)", "xy2d_pallas.cu",
+         "xy2d_pallas.py:457", launched("xy", "metropolis_snapshot"),
+         max(err_xyd["snapshot"], snap_err), snap_t[1500]),
+        ("xy2d_measure_pallas.measure_kernel", "xy2d_measure_pallas.cu",
+         "xy2d_measure_pallas.py:121", launched("xy_measure", "measure"),
+         max(err_xyd["measure"], err_meas), t_meas),
+        ("xy2d_resident.multisweep_kernel", "xy2d_resident.cu",
+         "xy2d_resident.py:257", launched("xy_resident", "multisweep"),
+         max(err_xyd["multisweep"], ms_err), t_ms),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -2196,6 +2692,14 @@ def main() -> int:
         f"{rel_xy:.3g}; kernels {t12['ms']:.4f} / {t12m['ms']:.4f} ms "
         f"(metropolis), {t13['ms']:.4f} / {t13m['ms']:.4f} ms "
         f"(over-relaxation)")
+    log("main path XY disorder: " + "; ".join(
+        f"{label} {rate:.4g} site updates/s ({wall:.2f} s, largest |z| "
+        f"{z:.2f})" for label, (_, wall, rate, z) in disorder.items())
+        + f"; rotation |m_y| {my_rot:.3g}, finite-magne preparation "
+        f"relative error {prep_err:.4f}; sums' relative error {rel_xyd:.3g}; "
+        "routes (nx, R, resident, streamed ms a sweep) "
+        + ", ".join(f"({nx}, {r}, {a:.5f}, {b:.5f})"
+                    for nx, r, a, b in xy_routes))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ same seed; each is deterministic, and the tree has the same shape:
     base_key(seed, stream) -> sample_key(., sample)
         -> sweep_key(., t)     (purpose domain _DOM_SWEEP)
         -> init_key(.)         (purpose domain _DOM_INIT)
-        (_DOM_PREPARE stays reserved for the XY preparation draws)
+        (_DOM_PREPARE stays reserved; the XY preparations draw under
+        phase keys 2 and 3 of a replica's init key, beside the random
+        start's 0 and 1)
     seeds_from_key(sweep_key, phase) -> (s0, s1), the Philox key of the
         random words of one (sample, t, phase) in the packed kernels.
 

@@ -1,0 +1,297 @@
+// Per-site float32 arithmetic of the periodic XY phases, shared by
+// xy2d_pallas.cu (one phase a launch) and xy2d_resident.cu (S sweeps a
+// launch): the layout, the field, the Metropolis update, the fused sums
+// and their per-block float64 reduction.
+//
+// Layout (ops/xy2d_pallas.py): (R, ny, half) float32 planes, colour 0 at
+// (y, 2i + (y & 1)); a site's neighbours are the other colour's (y±1, i),
+// (y, i) and (y, i-1) or (y, i+1) by colour and row parity, rows wrapping
+// at ny and columns at half.  One thread updates one site in place: a
+// phase reads only its own site of the colour it writes, so there is no
+// race.
+//
+// Bitwise equal to the plain PyTorch versions: every float32 operation is
+// written out with __fmul_rn / __fadd_rn / __fsub_rn (no FMA contraction)
+// in the order of models/xy2d.py metropolis_update and of ops/trig.py
+// cos_sin_2pi; expf is the CUDA math function torch.exp calls; constants
+// are Python floats rounded once to float32, as the plain versions round
+// them.
+//
+// Random words: key = the Philox key of the (sample, t, phase); counter =
+// (replica, row, column, 0); word 0 gives u_cand, word 1 u_acc, each from
+// its top 24 bits (ops/xy2d_pallas.draw_uniforms is the plain version).
+//
+// Sums of a measuring site, widened to float64: S_x and S_y of both
+// colours (the updated site and the other colour's site at (y, i)), S·h
+// (each bond once, from the updated colour's field) and, against the t=0
+// snapshot (a Snap of its own, read only where A is taken), the float32
+// terms S·S0 of both colours.  block_sums reduces them per block in a
+// fixed order, the first three, or all four where there is a snapshot:
+// no float atomics, so runs repeat bitwise.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "philox.cuh"
+
+namespace xy {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+// (Σ S_x, Σ S_y, Σ S·h, Σ S·S0) a block
+constexpr int NSUMS = 4;
+
+// ops/trig.py constants, rounded once from the Python floats
+constexpr float C0 = static_cast<float>(9.9999998075e-01);
+constexpr float C1 = static_cast<float>(-1.2336977754e+00);
+constexpr float C2 = static_cast<float>(2.5360837309e-01);
+constexpr float C3 = static_cast<float>(-2.0438343895e-02);
+constexpr float S0 = static_cast<float>(1.5707963234e+00);
+constexpr float S1 = static_cast<float>(-6.4596361199e-01);
+constexpr float S2 = static_cast<float>(7.9681932446e-02);
+constexpr float S3 = static_cast<float>(-4.6074307448e-03);
+constexpr float TINY = static_cast<float>(1e-30);
+
+struct Phase {
+  float* sx;               // (R, ny, half) colour updated, in place
+  float* sy;
+  const float* ox;         // the other colour
+  const float* oy;
+  int ny, half, color;
+};
+
+// The t=0 snapshot of the colour updated and of the other colour, read
+// only by the launches that take A
+struct Snap {
+  const float* sx;
+  const float* sy;
+  const float* ox;
+  const float* oy;
+};
+
+struct Sums {
+  double mx, my, e, a;
+};
+
+// (cos 2πu, sin 2πu): the quarter-period fold and polynomials of
+// ops/trig.cos_sin_2pi, one rounding per operation in its order
+__device__ __forceinline__ void cos_sin_2pi(float u, float& c, float& s) {
+  const float a = __fmul_rn(u, 4.0f);
+  const float n = floorf(__fadd_rn(a, 0.5f));
+  const float r = __fsub_rn(a, n);
+  const int m = static_cast<int>(n) & 3;
+  const float w = __fmul_rn(r, r);
+  const float cq = __fadd_rn(
+      C0, __fmul_rn(w, __fadd_rn(C1, __fmul_rn(w, __fadd_rn(
+                                          C2, __fmul_rn(w, C3))))));
+  const float sq = __fmul_rn(
+      r, __fadd_rn(S0, __fmul_rn(w, __fadd_rn(S1, __fmul_rn(w, __fadd_rn(
+                                                      S2, __fmul_rn(w, S3)))))));
+  const bool swap = (m & 1) == 1;
+  c = swap ? -sq : cq;
+  s = swap ? cq : sq;
+  if (m >= 2) {
+    c = -c;
+    s = -s;
+  }
+}
+
+__device__ __forceinline__ float u24(uint32_t bits) {
+  return __fmul_rn(static_cast<float>(bits >> 8), 1.0f / 16777216.0f);
+}
+
+// A load of the other colour's planes: through the read-only data cache
+// (NC) where nothing writes them during the launch (a one-phase launch),
+// a plain load where a later phase of the same launch writes them.
+template <bool NC>
+__device__ __forceinline__ float ld(const float* p) {
+  if constexpr (NC) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
+// Site (r, y, i) of this thread and its local field (hx, hy), built as
+// (up + dn) + (centre + side); also the other colour's centre value.
+struct Site {
+  size_t idx;
+  float hx, hy, cx, cy;
+};
+
+template <bool NC>
+__device__ __forceinline__ Site load_site(const Phase& p, int r, int w) {
+  const int y = w / p.half, i = w - y * p.half;
+  const size_t base = static_cast<size_t>(r) * p.ny * p.half;
+  const int yu = y == 0 ? p.ny - 1 : y - 1;
+  const int yd = y == p.ny - 1 ? 0 : y + 1;
+  // colour 0 on an odd row and colour 1 on an even row read column i + 1
+  const bool plus = (p.color == 0) == ((y & 1) == 1);
+  const int is = plus ? (i == p.half - 1 ? 0 : i + 1)
+                      : (i == 0 ? p.half - 1 : i - 1);
+  const size_t row = base + static_cast<size_t>(y) * p.half;
+  const size_t up = base + static_cast<size_t>(yu) * p.half + i;
+  const size_t dn = base + static_cast<size_t>(yd) * p.half + i;
+  Site s;
+  s.idx = row + i;
+  s.cx = ld<NC>(p.ox + s.idx);
+  s.cy = ld<NC>(p.oy + s.idx);
+  s.hx = __fadd_rn(__fadd_rn(ld<NC>(p.ox + up), ld<NC>(p.ox + dn)),
+                   __fadd_rn(s.cx, ld<NC>(p.ox + row + is)));
+  s.hy = __fadd_rn(__fadd_rn(ld<NC>(p.oy + up), ld<NC>(p.oy + dn)),
+                   __fadd_rn(s.cy, ld<NC>(p.oy + row + is)));
+  return s;
+}
+
+// The float64 (Σ S_x, Σ S_y, S·h) of a site whose new spin is (fx, fy),
+// A = 0.
+__device__ __forceinline__ Sums site_sums(const Site& s, float fx, float fy) {
+  Sums t;
+  t.mx = static_cast<double>(fx) + static_cast<double>(s.cx);
+  t.my = static_cast<double>(fy) + static_cast<double>(s.cy);
+  t.e = static_cast<double>(
+      __fadd_rn(__fmul_rn(fx, s.hx), __fmul_rn(fy, s.hy)));
+  t.a = 0.0;
+  return t;
+}
+
+// That site's A term against the snapshot: the float32 S·S0 of both
+// colours, widened.  The snapshot is read-only in every launch.
+__device__ __forceinline__ double snap_sum(const Snap& sn, const Site& s,
+                                           float fx, float fy) {
+  const float as = __fadd_rn(__fmul_rn(fx, __ldg(sn.sx + s.idx)),
+                             __fmul_rn(fy, __ldg(sn.sy + s.idx)));
+  const float ao = __fadd_rn(__fmul_rn(s.cx, __ldg(sn.ox + s.idx)),
+                             __fmul_rn(s.cy, __ldg(sn.oy + s.idx)));
+  return static_cast<double>(as) + static_cast<double>(ao);
+}
+
+// A site after its update: where it is, its field and its new spin
+struct Update {
+  Site s;
+  float fx, fy;
+};
+
+// One Metropolis update of site w of replica r (w < ny * half): the
+// candidate (cos 2πu, sin 2πu) replaces S iff u_acc < exp(-β max(ΔE, 0)).
+// Uniforms injected (ucand/uacc non-null) or Philox words under ``key``.
+template <bool NC>
+__device__ __forceinline__ Update metropolis_site(const Phase& p, int r,
+                                                  int w, const float* ucand,
+                                                  const float* uacc,
+                                                  float neg_beta, uint2 key) {
+  Update u;
+  u.s = load_site<NC>(p, r, w);
+  const size_t idx = u.s.idx;
+  float uc, ua;
+  if (ucand != nullptr) {
+    uc = __ldg(ucand + idx);
+    ua = __ldg(uacc + idx);
+  } else {
+    const int y = w / p.half;
+    const uint4 b = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(y),
+                   static_cast<uint32_t>(w - y * p.half), 0u),
+        key);
+    uc = u24(b.x);
+    ua = u24(b.y);
+  }
+  float cx, cy;
+  cos_sin_2pi(uc, cx, cy);
+  u.fx = p.sx[idx];
+  u.fy = p.sy[idx];
+  const float de = -__fadd_rn(__fmul_rn(__fsub_rn(cx, u.fx), u.s.hx),
+                              __fmul_rn(__fsub_rn(cy, u.fy), u.s.hy));
+  const float prob = expf(__fmul_rn(fmaxf(de, 0.0f), neg_beta));
+  if (ua < prob) {
+    u.fx = cx;
+    u.fy = cy;
+    p.sx[idx] = cx;
+    p.sy[idx] = cy;
+  }
+  return u;
+}
+
+// The block's first N float64 sums (3 without A, NSUMS with it) into
+// partials[(row * nblk + blk) * N ..]: warp shuffles, then warp 0's lanes
+// in order; the same order every run.  Every thread of the block calls
+// it; the address is formed inside the branch of the N storing threads
+// (the relaxation's code, where it costs the other threads nothing).
+// AGAIN: the block calls it again in the same launch, so it ends with a
+// barrier before the next call rewrites `red` (a one-phase launch skips
+// that barrier).
+template <int N, bool AGAIN = false>
+__device__ __forceinline__ void block_sums(double* partials, size_t row,
+                                           unsigned nblk, unsigned blk,
+                                           const Sums& t) {
+  __shared__ double red[N][WARPS];
+  const double all[NSUMS] = {t.mx, t.my, t.e, t.a};
+  double v[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = all[k];
+  // the N sums' shuffles interleaved at each offset, not one sum after
+  // the other: N independent chains instead of one N times as long
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      v[k] += __shfl_down_sync(0xFFFFFFFFu, v[k], off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) red[k][threadIdx.x >> 5] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {
+    double s = 0.0;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) s += red[threadIdx.x][k];
+    partials[(row * nblk + blk) * N + threadIdx.x] = s;
+  }
+  if (AGAIN) __syncthreads();
+}
+
+// obs[row] = (Σ S_x, Σ S_y, -Σ S·h[, Σ S·S0]) from the row's nblk block
+// partials (rows of nblk x N float64): one block a row, thread t adds
+// blocks t, t + THREADS, ... in order, then a fixed tree over the threads.
+template <int N>
+__global__ void __launch_bounds__(THREADS)
+    reduce_kernel(const double* partials, double* obs, int nblk) {
+  __shared__ double red[N][THREADS];
+  const int row = blockIdx.x;
+  const double* part = partials + static_cast<size_t>(row) * nblk * N;
+  double t[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) t[k] = 0.0;
+  for (int b = threadIdx.x; b < nblk; b += THREADS) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) t[k] += part[b * N + k];
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) red[k][threadIdx.x] = t[k];
+  __syncthreads();
+  for (int half = THREADS / 2; half; half >>= 1) {
+    if (threadIdx.x < half) {
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        red[k][threadIdx.x] += red[k][threadIdx.x + half];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      obs[row * N + k] = k == 2 ? -red[k][0] : red[k][0];
+  }
+}
+
+inline int check_shape(int nrep, int ny, int half) {
+  if (nrep < 1 || nrep > 65535 || ny < 2 || half < 1 ||
+      static_cast<long long>(ny) * half >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+}  // namespace xy

@@ -1,17 +1,24 @@
-"""NER protocols: the relaxation protocol.
+"""NER protocols: relaxation and the XY disorder protocols.
 
-Port of the relaxation path of
-``cuda_fortran_mc_simulation_spin_tpu/engine/protocols.py``: per-sample
-initial states, the sweep/measure runner, host-side Kahan aggregation,
-and the reference-format ``.dat`` table on ``out`` with progress on
-``err`` (stdout = dataset, stderr = progress).  The port serves the
-bit-packed routes: periodic 2-D and 3-D multispin, helical 2-D and 3-D
-multispin, the bit-sliced clock engines (periodic q = 6, 4, 3,
-aligned and padded; helical q = 6), and the periodic XY phases with and
-without over-relaxation.  Every other route of the JAX package (the XY
-disorder protocols, helical XY, over-relaxation on the other models,
-unpackable shapes, meshes) raises NotImplementedError naming the
-ROADMAP.md item that ports it, and never falls back.
+Port of ``cuda_fortran_mc_simulation_spin_tpu/engine/protocols.py``:
+per-sample initial states, the sweep/measure runners, host-side Kahan
+aggregation, and the reference-format ``.dat`` tables on ``out`` with
+progress on ``err`` (stdout = dataset, stderr = progress).
+
+- ``relaxation`` serves the bit-packed routes (periodic 2-D and 3-D
+  multispin, helical 2-D and 3-D multispin, the bit-sliced clock engines:
+  periodic q = 6, 4, 3, aligned and padded, helical q = 6) and the
+  periodic XY phases with and without over-relaxation;
+- ``from_disorder`` (with ``rotate_after_first_mcs``: the fix1mcs app),
+  ``finite_magne``, ``samples`` and ``finite_magne_samples`` serve the
+  periodic XY model through ``sweep.make_xy_disorder_runner`` (the
+  snapshot-measuring phase, the standalone measurement and the resident
+  multisweep).
+
+Every other route of the JAX package (helical XY, over-relaxation on the
+other models, unpackable shapes, the per-sample runner of the other
+models, meshes) raises NotImplementedError naming the ROADMAP.md item that
+ports it, and never falls back.
 
 Checkpoint/resume: pass ``checkpoint_path``; accumulators are saved
 every ``checkpoint_every`` histories and runs resume exactly
@@ -20,6 +27,7 @@ every ``checkpoint_every`` histories and runs resume exactly
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from typing import IO
@@ -282,7 +290,189 @@ def run_relaxation(cfg: RunConfig, out: IO[str] = sys.stdout,
     return op
 
 
-# the JAX package's protocols; only relaxation is ported
-PROTOCOL_NAMES = ("finite_magne", "finite_magne_samples", "from_disorder",
-                  "relaxation", "samples")
-PROTOCOLS = {"relaxation": run_relaxation}
+# ---------------------------------------------------------------------------
+# XY disorder protocols (autocorrelation-carrying runners)
+# ---------------------------------------------------------------------------
+
+def _check_disorder(cfg: RunConfig) -> None:
+    """The disorder protocols run on the periodic XY engine only (the JAX
+    package's ValueError), and on one device."""
+    if cfg.model != "xy2d" or cfg.nx % 2:
+        raise ValueError(
+            "disorder protocols need the periodic XY engine: use even "
+            f"nx (got nx={cfg.nx}, which selects the helical layout)")
+    if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
+        raise NotImplementedError(
+            "multi-device meshes are not ported yet (ROADMAP.md queue A "
+            "item 9)")
+
+
+def _xy_disorder_runner(cfg: RunConfig, model, prep: str, batch: int,
+                        device):
+    return sweep_mod.make_xy_disorder_runner(
+        model, cfg.mcs, batch, prep, init_magne=cfg.init_magne,
+        near_magne_tol=cfg.near_magne_tol, n_over_relax=cfg.n_over_relax,
+        mcs_over_relax=cfg.mcs_over_relax,
+        track_correlation=cfg.track_correlation, device=device)
+
+
+def _run_xy_disorder(cfg: RunConfig, prep: str, out, err,
+                     header_extra: dict, checkpoint_path=None,
+                     checkpoint_every=0, device="cuda"):
+    """The shared ensemble of the disorder protocols: a replica batch a
+    call, the five accumulators ((|m|, e), (mx, my), (mx, e), (my, e) and
+    A; with ``track_correlation`` also the two-point correlation),
+    checkpoint/resume.  Returns (model, accumulators)."""
+    dev = resolve_device(device)
+    _check_disorder(cfg)
+    model = build_model(cfg)
+    _emit_headers(cfg, model, out, err, header_extra)
+    length = _series_len(cfg)
+    op_abs = stats.VarianceCovarianceKahan((length,))   # (|m|, e)
+    op_xy = stats.VarianceCovarianceKahan((length,))    # (mx, my)
+    op = stats.VarianceCovarianceKahan((length,))       # (mx, e)
+    op_y = stats.VarianceCovarianceKahan((length,))     # (my, e)
+    ac = stats.VarianceKahan((length,))
+    accs = {"op_abs": op_abs, "op_xy": op_xy, "op": op, "op_y": op_y,
+            "ac": ac}
+    if cfg.track_correlation:
+        accs["corr"] = stats.VarianceKahan((length,))
+
+    base = rng.base_key(cfg.seed, cfg.stream)
+    batch = max(cfg.replicas, 1)
+    if cfg.tot_sample % batch:
+        raise ValueError("tot_sample must be divisible by replicas")
+    runner = _xy_disorder_runner(cfg, model, prep, batch, dev)
+    _stamp_engine(runner, err)
+
+    start = 0
+    if checkpoint_path:
+        try:
+            start = checkpoint.load(checkpoint_path, cfg, accs)
+            err.write(f"# resumed at sample {start}\n")
+        except FileNotFoundError:
+            pass
+
+    def fold(series):
+        op_abs.add_data(np.hypot(series["mx"], series["my"]), series["e"])
+        op_xy.add_data(series["mx"], series["my"])
+        op.add_data(series["mx"], series["e"])
+        op_y.add_data(series["my"], series["e"])
+        ac.add_data(series["A"])
+        if cfg.track_correlation:
+            accs["corr"].add_data(series["corr"])
+
+    t0 = time.time()
+    _ensemble_loop(cfg, runner, fold, err, accs, base, batch,
+                   (start // batch) * batch, checkpoint_path,
+                   checkpoint_every)
+    err.write(f"# elapsed: {time.time() - t0:.3f}s\n")
+    out.write(f"# engine: {LAST_ENGINE}\n")
+    return model, accs
+
+
+def run_from_disorder(cfg: RunConfig, out: IO[str] = sys.stdout,
+                      err: IO[str] = sys.stderr,
+                      checkpoint_path: str | None = None,
+                      checkpoint_every: int = 0, device="cuda") -> dict:
+    """xy2d_periodic_gpu_relaxation_from_disorder (and its _fix1mcs
+    variant with cfg.rotate_after_first_mcs): a random start rotated onto
+    +x (fix1mcs: rotated, with the snapshot, after the first sweep);
+    writes output_abs_parameters_from_disorder."""
+    prep = "fix1mcs" if cfg.rotate_after_first_mcs else "rotate_first"
+    model, accs = _run_xy_disorder(
+        cfg, prep, out, err, {"initial state": "disorder"},
+        checkpoint_path, checkpoint_every, device)
+    datfmt.write_abs_parameters_from_disorder(
+        out, model.nsites, _series_len(cfg), accs["op_abs"], accs["op_xy"],
+        accs["ac"], times=cfg.measure_times, correlation=accs.get("corr"))
+    return accs
+
+
+def run_finite_magne(cfg: RunConfig, out: IO[str] = sys.stdout,
+                     err: IO[str] = sys.stderr,
+                     checkpoint_path: str | None = None,
+                     checkpoint_every: int = 0, device="cuda") -> dict:
+    """..._from_disorder_finite_magne: prepare |m| = cfg.init_magne along
+    +x, then relax; writes output_parameters_from_disorder
+    (xy2d_periodic_gpu_relaxation_from_disorder_finite_magne.f90:40-75)."""
+    extra = {"initial state": "disorder",
+             "Initial finite magne": cfg.init_magne}
+    model, accs = _run_xy_disorder(cfg, "finite_magne", out, err, extra,
+                                   checkpoint_path, checkpoint_every, device)
+    datfmt.write_parameters_from_disorder(
+        out, model.nsites, _series_len(cfg), accs["op"], accs["op_y"],
+        accs["ac"], times=cfg.measure_times, correlation=accs.get("corr"))
+    return accs
+
+
+# the preparation of the samples protocol by cfg.init_state (others:
+# rotate_first)
+_PREP_FOR_INIT = {
+    "random": "rotate_first",
+    "finite_magne": "finite_magne",
+    "small_magne": "small_magne",
+    "near_magne": "near_magne",
+}
+
+
+def run_samples(cfg: RunConfig, out: IO[str] = sys.stdout,
+                err: IO[str] = sys.stderr, device="cuda") -> None:
+    """Raw per-sample time series, no aggregation: the *_samples apps
+    (xy2d_periodic_gpu_relaxation_from_disorder_finite_magne_samples.f90:
+    40-58), one history a sample keyed by its sample key, the
+    preparation from cfg.init_state.  Rows N, sample, t, m_x, e, m_y, A
+    (and corr) under the reference's literal header.  The other models'
+    per-sample runner (JAX ``make_sample_runner``) is not ported."""
+    dev = resolve_device(device)
+    if cfg.model != "xy2d" or cfg.nx % 2:
+        raise NotImplementedError(
+            f"--protocol samples on the {cfg.model} model (nx={cfg.nx}) "
+            "needs the generic per-sample runner, not ported yet "
+            "(ROADMAP.md queue A item 4a)")
+    _check_disorder(cfg)
+    model = build_model(cfg)
+    prep = _PREP_FOR_INIT.get(cfg.init_state, "rotate_first")
+    extra = {"initial state": "disorder"}
+    if prep == "finite_magne":
+        extra["Initial finite magne"] = cfg.init_magne
+    _emit_headers(cfg, model, out, err, extra)
+    base = rng.base_key(cfg.seed, cfg.stream)
+    runner = _xy_disorder_runner(cfg, model, prep, 1, dev)
+    _stamp_engine(runner, err)
+    out.write(f"# engine: {LAST_ENGINE}\n")
+    progress = _progress(err)
+    order = ("mx", "e", "my", "A")
+    # sic: the reference's literal header, typo included
+    # (..._finite_magne_samples.f90:40)
+    header_cols = "# N, smaple, time, m_x, e, m_y, A"
+    if cfg.track_correlation:
+        order += ("corr",)
+        header_cols += ", corr"
+    out.write(header_cols + "\n")
+    for s in range(cfg.tot_sample):
+        series = runner(rng.sample_key(base, s))
+        series = {k: v[0].cpu().numpy().astype(np.float64)
+                  for k, v in series.items()}
+        datfmt.write_sample_series(out, model.nsites, s + 1,
+                                   _filter_times(series, cfg), order=order,
+                                   times=cfg.measure_times)
+        progress(s + 1, cfg.tot_sample)
+
+
+def run_finite_magne_samples(cfg: RunConfig, out: IO[str] = sys.stdout,
+                             err: IO[str] = sys.stderr,
+                             device="cuda") -> None:
+    """..._finite_magne_samples: :func:`run_samples` with the
+    finite-magnetisation preparation."""
+    run_samples(dataclasses.replace(cfg, init_state="finite_magne"), out,
+                err, device)
+
+
+PROTOCOLS = {
+    "relaxation": run_relaxation,
+    "from_disorder": run_from_disorder,
+    "finite_magne": run_finite_magne,
+    "finite_magne_samples": run_finite_magne_samples,
+    "samples": run_samples,
+}

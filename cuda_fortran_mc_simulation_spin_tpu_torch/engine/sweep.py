@@ -5,8 +5,10 @@ Port of the multispin part of
 (``_host_chunk_runner``, ``_make_packed_runner``,
 ``make_multispin_runner``, ``make_multispin3d_runner``,
 ``make_clock_multispin_runner``, the Ising and q=6 clock branches of
-``make_helical_runner``, and ``xy_padded_eligible`` /
-``make_xy_padded_runner`` as :func:`make_xy_runner`).
+``make_helical_runner``, ``xy_padded_eligible`` /
+``make_xy_padded_runner`` as :func:`make_xy_runner`, and the XY disorder
+runners of ``engine/protocols.py``, ``_xy_disorder_batched_runner`` and
+``_xy_disorder_resident_runner``, as :func:`make_xy_disorder_runner`).
 A ``lax.scan`` there is a Python loop over kernel launches here.  The JAX runner sizes its dispatches from TPU
 rates to stay under the TPU worker's deadline; the port has no such
 deadline and chunks by a fixed sweep count (``DEFAULT_CHUNK`` = 64, the
@@ -32,7 +34,10 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock_helical import (
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d_helical import (
     Ising3DHelical,
 )
-from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XY2D
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import (
+    XY2D,
+    XYState,
+)
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     clock3_multispin,
     clock4_multispin,
@@ -44,7 +49,9 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     ising2d_multispin,
     ising3d_multispin,
     multispin_rng,
+    xy2d_measure_pallas,
     xy2d_pallas,
+    xy2d_resident,
 )
 
 DEFAULT_CHUNK = 64
@@ -297,3 +304,126 @@ def make_xy_runner(model, mcs: int, batch: int, init_kind: str = "allup",
         return st, {k: torch.stack(v, dim=1) for k, v in series.items()}
 
     return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk), XY_ENGINE)
+
+
+# the XY disorder protocols' preparations (JAX ``_xy_init_for_prep``)
+XY_PREPS = ("rotate_first", "fix1mcs", "finite_magne", "small_magne",
+            "near_magne")
+
+
+def xy_prepared(model, prep: str, batch: int, call_key, device,
+                init_magne: float = 0.02, near_magne_tol: float = 0.01
+                ) -> tuple[XYState, XYState]:
+    """(state, t=0 snapshot) of a batch of replicas under ``prep``, replica
+    r keyed by fold_in(init_key(call_key), r): ``rotate_first`` a random
+    start rotated so m lies along +x (the from-disorder app), ``fix1mcs``
+    a random start (rotated after the first sweep), ``finite_magne``,
+    ``small_magne`` and ``near_magne`` the model's preparations."""
+    keys = rng.fold_in(rng.init_key(call_key),
+                       torch.arange(batch, dtype=torch.int64))
+    if prep in ("rotate_first", "fix1mcs"):
+        st = model.random_states(keys, device)
+        if prep == "rotate_first":
+            st = model.rotate_magne_toward_xaxis(st)
+    elif prep == "finite_magne":
+        st = model.prep_finite_magne(keys, init_magne, device=device)
+    elif prep == "small_magne":
+        st = model.prep_small_magne(keys, init_magne, device=device)
+    elif prep == "near_magne":
+        st = model.prep_small_magne(keys, init_magne, tol=near_magne_tol,
+                                    device=device)
+    else:
+        raise ValueError(f"unknown preparation {prep!r}")
+    return st, XYState(*(p.clone() for p in st))
+
+
+XY_DISORDER_RESIDENT = "xy2d disorder component planes (resident multisweep)"
+XY_DISORDER_STREAMED = "xy2d disorder component planes (streamed phases)"
+
+
+def make_xy_disorder_runner(model, mcs: int, batch: int, prep: str, *,
+                            init_magne: float = 0.02,
+                            near_magne_tol: float = 0.01,
+                            n_over_relax: int = 0, mcs_over_relax: int = 0,
+                            track_correlation: bool = False, device="cuda",
+                            chunk: int = DEFAULT_CHUNK
+                            ) -> Callable[[torch.Tensor],
+                                          dict[str, torch.Tensor]]:
+    """`run(call_key) -> {mx, my, e, A[, corr]: (batch, mcs) float64}`, the
+    densities of the XY disorder protocols against the t=0 snapshot, on
+    the periodic XY kernels, with the schedule of the JAX package's
+    ``_xy_disorder_batched_runner`` and ``_xy_disorder_resident_runner``
+    (the reference's from-disorder apps,
+    xy2d_periodic_gpu_relaxation_from_disorder*.f90):
+
+    - streamed, no over-relaxation: a Metropolis sweep whose phase b
+      measures against the snapshot (``xy2d_pallas.sweep_measure``);
+    - streamed, ``n_over_relax`` > 0: while t <= ``mcs_over_relax``
+      (default mcs) a Metropolis sweep, n_over_relax over-relaxation
+      sweeps, then ``xy2d_measure_pallas.measure``; later sweeps as above;
+    - ``fix1mcs``: after sweep 1, state and snapshot rotated by
+      -atan2(Σ S_y, Σ S_x) and the row re-measured by ``measure``;
+    - resident: one ``xy2d_resident`` multisweep launch a chunk, from t=1,
+      or from t=2 after the streamed fix1mcs step.
+
+    The resident route is taken when there is no over-relaxation, no
+    ``track_correlation`` and the batch is within ``xy2d_resident.fits``.
+    Keys follow the global sweep index t, so a run is bitwise independent
+    of ``chunk``, and both routes draw the same words (the same state, and
+    the same sums)."""
+    if not isinstance(model, XY2D):
+        raise ValueError(f"{model!r} is not a periodic XY model")
+    if prep not in XY_PREPS:
+        raise ValueError(f"unknown preparation {prep!r}")
+    resident = (n_over_relax == 0 and not track_correlation
+                and xy2d_resident.fits(model, batch))
+    fix1 = prep == "fix1mcs"
+    mcs_or = mcs_over_relax or mcs
+
+    def init_fn(call_key):
+        # the call's phase keys in one batched derivation on the host: one
+        # a chunk cost the host more than a 64-sweep multisweep launch at
+        # one 1500x1500 replica takes on the card (PERF.md §6)
+        st, snap = xy_prepared(model, prep, batch, call_key, device,
+                               init_magne, near_magne_tol)
+        return st, snap, multispin_rng.sweep_phase_keys(call_key, mcs)
+
+    def rotate(st, snap):
+        theta = -model.magne_angle(st)
+        return model.rotate(st, theta), model.rotate(snap, theta)
+
+    def one_sweep(st, snap, seeds_t, t):
+        if n_over_relax > 0 and t <= mcs_or:
+            st = xy2d_pallas.sweep(model, st, seeds_t)
+            if fix1 and t == 1:
+                st, snap = rotate(st, snap)
+            for _ in range(n_over_relax):
+                st = xy2d_pallas.or_sweep(model, st)
+            obs = xy2d_measure_pallas.measure(model, st, snap)
+        else:
+            st, obs = xy2d_pallas.sweep_measure(model, st, snap, seeds_t)
+            if fix1 and t == 1:
+                st, snap = rotate(st, snap)
+                obs = xy2d_measure_pallas.measure(model, st, snap)
+        if track_correlation:
+            obs = dict(obs, corr=model.correlation_sum(st) / model.nsites)
+        return st, snap, {k: v[:, None] for k, v in obs.items()}
+
+    def chunk_fn(carry, call_key, t0, size):
+        st, snap, keys = carry
+        seeds = keys[t0:t0 + size]
+        # sweeps streamed: all, or on the resident route fix1mcs's first
+        streamed = int(fix1 and t0 == 0) if resident else size
+        parts = []
+        for j in range(streamed):
+            st, snap, obs = one_sweep(st, snap, seeds[j], t0 + j + 1)
+            parts.append(obs)
+        if streamed < size:
+            obs = xy2d_resident.multisweep_planes(st, snap, seeds[streamed:],
+                                                  beta=model.beta)
+            parts.append(xy2d_pallas.densities(model, obs))
+        return (st, snap, keys), {k: torch.cat([p[k] for p in parts], dim=1)
+                                  for k in parts[0]}
+
+    return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk),
+                XY_DISORDER_RESIDENT if resident else XY_DISORDER_STREAMED)

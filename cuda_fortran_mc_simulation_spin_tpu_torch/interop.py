@@ -28,10 +28,13 @@ of the top word 0 (ops/clock_planes.py), so the converters slice or
 zero-pad and clear those bits.  Helical q=6: three colour vectors a
 colour, converted as the helical 3-D words are.
 
-Periodic XY: four float32 planes (ax, ay, bx, by).  The JAX lane-padded
-engine keeps them (..., ny, W), W the next multiple of 128 lanes, with
-zero pads; the port keeps (..., ny, nx/2), so the converters cut or
-zero-pad the lanes.
+Periodic XY: four float32 planes (ax, ay, bx, by), the state and, for
+the disorder protocols, the t=0 snapshot alike.  The JAX lane-padded and
+resident engines keep them (..., ny, W), W the next multiple of 128
+lanes, with zero pads; the port keeps (..., ny, nx/2), so the converters
+cut or zero-pad the lanes.  The accumulators' ``state_dict`` converters
+serve every Kahan accumulator, the disorder protocols' ``VarianceKahan``
+(A, the correlation) as the covariance ones.
 """
 
 from __future__ import annotations

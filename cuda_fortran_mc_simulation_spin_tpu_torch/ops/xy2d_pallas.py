@@ -9,7 +9,11 @@ CUDA kernels, not Pallas ones).  ``csrc/xy2d_pallas.cu`` holds
 - ``metropolis_kernel``, which replaces ``_metropolis_kernel``
   (pallas_call at ``:226``, ``_metropolis_phase``): one colour phase of
   the float32 component planes, uniforms from Philox or injected, and with
-  ``measuring`` the per-replica (Σ S_x, Σ S_y, e) over both colours;
+  ``measuring`` the per-replica (Σ S_x, Σ S_y, e) over both colours.  Its
+  snapshot mode (``snap``) replaces ``_metropolis_measure_kernel``
+  (``:457``, ``_metropolis_phase_b_measure``): the same phase with the
+  autocorrelation A = Σ S·S0 against the t=0 snapshot fused beside the
+  sums;
 - ``over_relax_kernel``, which replaces ``_over_relax_kernel`` (``:265``,
   ``_over_relax_phase``): one reflection phase, the same sums optional.
 
@@ -30,11 +34,12 @@ gives u_cand and word 1 u_acc, each from its top 24 bits
 (``rng.bits_to_uniform``).  :func:`draw_uniforms` is the plain version of
 that draw.
 
-Sums: each f32 value (S_x, S_y, S·h) is widened to float64 and summed in
-float64: per block in the kernel, then per replica in a fixed order by a
-second small kernel, so runs repeat bitwise; the plain version sums the
-same float32 values in float64, and the two agree to float64 rounding.
-The JAX kernels sum in float32.
+Sums: each f32 value (S_x, S_y, S·h, and with a snapshot the per-colour
+S·S0) is widened to float64 and summed in float64: per block in the
+kernel, then per replica in a fixed order by a second small kernel, so
+runs repeat bitwise; the plain version sums the same float32 values in
+float64, and the two agree to float64 rounding.  The JAX kernels sum in
+float32.
 
 Bitwise kernel = plain on the card for the state: the kernel spells the
 float32 chain with ``__fmul_rn`` / ``__fadd_rn`` / ``__fsub_rn`` (no FMA
@@ -47,8 +52,8 @@ launches the kernel or raises.  ``LAUNCHES`` counts launches.  The sweep
 entries are those of the JAX padded API (``padded_sweep``,
 ``padded_sweep_measure``, ``padded_or_sweep``, ``padded_or_sweep_measure``)
 as :func:`sweep`, :func:`sweep_measured`, :func:`or_sweep` and
-:func:`or_sweep_measured`; JAX's own ``sweep_measure`` also returns the
-autocorrelation and belongs to the disorder slice.
+:func:`or_sweep_measured`, and JAX's ``sweep_measure`` (the disorder
+protocols' sweep with A) as :func:`sweep_measure`.
 """
 
 from __future__ import annotations
@@ -71,7 +76,8 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _stream,
 )
 
-LAUNCHES = {"metropolis": 0, "metropolis_measuring": 0, "over_relax": 0,
+LAUNCHES = {"metropolis": 0, "metropolis_measuring": 0,
+            "metropolis_snapshot": 0, "over_relax": 0,
             "over_relax_measuring": 0}
 
 # threads of a block of either kernel (csrc/xy2d_pallas.cu THREADS)
@@ -109,22 +115,32 @@ def draw_uniforms(seeds, nrep: int, ny: int, half: int, device=None):
     return rng.bits_to_uniform(gen()), rng.bits_to_uniform(gen())
 
 
-def _obs_plain(fx, fy, ox, oy, hx, hy) -> torch.Tensor:
+def _obs_plain(fx, fy, ox, oy, hx, hy, snap=None) -> torch.Tensor:
     """(R, 3) float64 (Σ S_x, Σ S_y, -Σ_b S·h): the updated colour and the
-    other one; each bond once, from the updated colour's field."""
+    other one; each bond once, from the updated colour's field.  With the
+    snapshot planes ``snap`` (of the updated colour and the other, as the
+    phase's planes) also A = Σ S·S0 from the float32 terms of each colour:
+    (R, 4)."""
     def total(v):
         return v.to(torch.float64).sum(dim=(-2, -1))
-    return torch.stack([total(fx) + total(ox), total(fy) + total(oy),
-                        -total(fx * hx + fy * hy)], dim=-1)
+    sums = [total(fx) + total(ox), total(fy) + total(oy),
+            -total(fx * hx + fy * hy)]
+    if snap is not None:
+        snsx, snsy, snox, snoy = snap
+        sums.append(total(fx * snsx + fy * snsy)
+                    + total(ox * snox + oy * snoy))
+    return torch.stack(sums, dim=-1)
 
 
 def metropolis_phase_plain(sx, sy, ox, oy, rand, *, color: int,
-                           beta: float, measuring: bool = False):
+                           beta: float, measuring: bool = False,
+                           snap=None):
     """Plain version of ``metropolis_kernel``: one Metropolis phase of
     colour ``color`` on (R, ny, half) float32 planes, in place.  ``rand``
     is a Philox key ((2,) uint32) or injected (u_cand, u_acc) planes.
     Returns (sx, sy), and with ``measuring`` also the (R, 3) float64
-    sums."""
+    sums; with the t=0 snapshot ``snap`` ((sx, sy, ox, oy) of the
+    snapshot, in the phase's order) the (R, 4) sums with A."""
     if isinstance(rand, (tuple, list)):
         u_cand, u_acc = rand
     else:
@@ -133,9 +149,9 @@ def metropolis_phase_plain(sx, sy, ox, oy, rand, *, color: int,
     fx, fy = metropolis_update(sx, sy, hx, hy, u_cand, u_acc, beta)
     sx.copy_(fx)
     sy.copy_(fy)
-    if not measuring:
+    if not (measuring or snap is not None):
         return sx, sy
-    return sx, sy, _obs_plain(sx, sy, ox, oy, hx, hy)
+    return sx, sy, _obs_plain(sx, sy, ox, oy, hx, hy, snap)
 
 
 def over_relax_phase_plain(sx, sy, ox, oy, *, color: int,
@@ -161,12 +177,19 @@ _INT = ctypes.c_int
 _UINT = ctypes.c_uint
 
 
+def snapshot_pointers(planes):
+    """A C array of the four snapshot planes' device pointers, or None."""
+    if planes is None:
+        return None
+    return (_VOID * 4)(*(p.data_ptr() for p in planes))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("xy2d_pallas")
     if lib.xy_metropolis.argtypes is not None:
         return lib
     lib.xy_metropolis.argtypes = (
-        [_VOID] * 8 + [_INT] * 4 + [ctypes.c_float, _UINT, _UINT, _VOID])
+        [_VOID] * 9 + [_INT] * 4 + [ctypes.c_float, _UINT, _UINT, _VOID])
     lib.xy_over_relax.argtypes = [_VOID] * 6 + [_INT] * 4 + [_VOID]
     for fn in (lib.xy_metropolis, lib.xy_over_relax):
         fn.restype = _INT
@@ -194,16 +217,25 @@ def _check_planes(*planes: torch.Tensor) -> None:
             raise ValueError("planes must be contiguous")
 
 
-def _scratch(sx: torch.Tensor, measuring: bool):
+# sums a block and a replica: (Σ S_x, Σ S_y, e), and A where there is a
+# snapshot (csrc/xy2d_site.cuh)
+NSUMS = 4
+
+
+def scratch(sx: torch.Tensor, measuring: bool, rows: int | None = None,
+            nsums: int = NSUMS):
     """(partials, obs) of a measuring launch: per-block float64 sums
-    (R, blocks, 3) and their per-replica totals (R, 3); else (None, None)."""
+    (rows, blocks, nsums) and their totals (rows, nsums), rows = R by
+    default; else (None, None)."""
     if not measuring:
         return None, None
     nrep, ny, half = sx.shape
+    rows = nrep if rows is None else rows
     blocks = -(-ny * half // THREADS)
-    return (torch.empty((nrep, blocks, 3), dtype=torch.float64,
+    return (torch.empty((rows, blocks, nsums), dtype=torch.float64,
                         device=sx.device),
-            torch.empty((nrep, 3), dtype=torch.float64, device=sx.device))
+            torch.empty((rows, nsums), dtype=torch.float64,
+                        device=sx.device))
 
 
 def _ptr(t) -> int | None:
@@ -216,25 +248,32 @@ def _raise_on(code: int, lib, name: str) -> None:
         raise RuntimeError(f"xy2d {name}: CUDA error {code} ({msg})")
 
 
-def _launch_metropolis(sx, sy, ox, oy, rand, color, beta, measuring):
+def _launch_metropolis(sx, sy, ox, oy, rand, color, beta, measuring,
+                       snap=None):
+    planes = [sx, sy, ox, oy] + ([] if snap is None else list(snap))
     if isinstance(rand, (tuple, list)):
         u_cand, u_acc = rand
-        _check_planes(sx, sy, ox, oy, u_cand, u_acc)
+        _check_planes(*planes, u_cand, u_acc)
         s0 = s1 = 0
     else:
-        _check_planes(sx, sy, ox, oy)
+        _check_planes(*planes)
         u_cand = u_acc = None
         s0, s1 = (int(v) & MASK32 for v in torch.as_tensor(rand).tolist())
     nrep, ny, half = sx.shape
-    partials, obs = _scratch(sx, measuring)
+    measuring = measuring or snap is not None
+    partials, obs = scratch(sx, measuring, nsums=3 if snap is None else 4)
     lib = _lib()
     with torch.cuda.device(sx.device):
         code = lib.xy_metropolis(
             sx.data_ptr(), sy.data_ptr(), ox.data_ptr(), oy.data_ptr(),
-            _ptr(u_cand), _ptr(u_acc), _ptr(partials), _ptr(obs),
-            nrep, ny, half, color, -float(beta), s0, s1, _stream(sx))
+            _ptr(u_cand), _ptr(u_acc), snapshot_pointers(snap),
+            _ptr(partials), _ptr(obs), nrep, ny, half, color, -float(beta),
+            s0, s1, _stream(sx))
     _raise_on(code, lib, "metropolis_kernel")
     LAUNCHES["metropolis"] += 1
+    if snap is not None:
+        LAUNCHES["metropolis_snapshot"] += 1
+        return sx, sy, obs
     if measuring:
         LAUNCHES["metropolis_measuring"] += 1
         return sx, sy, obs
@@ -244,7 +283,7 @@ def _launch_metropolis(sx, sy, ox, oy, rand, color, beta, measuring):
 def _launch_over_relax(sx, sy, ox, oy, color, measuring):
     _check_planes(sx, sy, ox, oy)
     nrep, ny, half = sx.shape
-    partials, obs = _scratch(sx, measuring)
+    partials, obs = scratch(sx, measuring, nsums=3)
     lib = _lib()
     with torch.cuda.device(sx.device):
         code = lib.xy_over_relax(
@@ -259,17 +298,21 @@ def _launch_over_relax(sx, sy, ox, oy, color, measuring):
 
 
 def metropolis_phase(sx, sy, ox, oy, rand, *, color: int, beta: float,
-                     measuring: bool = False):
+                     measuring: bool = False, snap=None):
     """One Metropolis phase of colour ``color`` on (R, ny, half) float32
     planes, updated in place: ``metropolis_kernel`` on CUDA tensors,
     :func:`metropolis_phase_plain` on CPU tensors.  ``rand`` is the
     phase's Philox key or injected (u_cand, u_acc) planes.  Returns
     (sx, sy), and with ``measuring`` also the (R, 3) float64 sums
-    (Σ S_x, Σ S_y, e) over both colours."""
+    (Σ S_x, Σ S_y, e) over both colours; with the t=0 snapshot ``snap``
+    (four planes in the phase's (sx, sy, ox, oy) order; the snapshot
+    mode) the (R, 4) sums with A = Σ S·S0."""
     if _on_cpu(sx):
         return metropolis_phase_plain(sx, sy, ox, oy, rand, color=color,
-                                      beta=beta, measuring=measuring)
-    return _launch_metropolis(sx, sy, ox, oy, rand, color, beta, measuring)
+                                      beta=beta, measuring=measuring,
+                                      snap=snap)
+    return _launch_metropolis(sx, sy, ox, oy, rand, color, beta, measuring,
+                              snap)
 
 
 def over_relax_phase(sx, sy, ox, oy, *, color: int,
@@ -299,6 +342,26 @@ def sweep(model, st: XYState, seeds) -> XYState:
     metropolis_phase(ax, ay, bx, by, seeds[0], color=0, beta=model.beta)
     metropolis_phase(bx, by, ax, ay, seeds[1], color=1, beta=model.beta)
     return st
+
+
+def densities(model, obs) -> dict[str, torch.Tensor]:
+    """(R, 4) float64 sums -> the disorder protocols' {mx, my, e, A}
+    densities (R,)."""
+    n = model.nsites
+    return {k: obs[..., j] / n for j, k in enumerate(("mx", "my", "e", "A"))}
+
+
+def sweep_measure(model, st: XYState, snap: XYState, seeds):
+    """One Metropolis MCS of (R, ny, half) planes, in place, given the
+    sweep's (2, 2) phase keys, phase b in the snapshot mode against the
+    t=0 snapshot ``snap``: returns (st, {mx, my, e, A} densities (R,)
+    float64) (JAX ``sweep_measure``, ``xy2d_pallas.py:472``)."""
+    ax, ay, bx, by = st
+    metropolis_phase(ax, ay, bx, by, seeds[0], color=0, beta=model.beta)
+    _, _, obs = metropolis_phase(bx, by, ax, ay, seeds[1], color=1,
+                                 beta=model.beta,
+                                 snap=(snap.bx, snap.by, snap.ax, snap.ay))
+    return st, densities(model, obs)
 
 
 def sweep_measured(model, st: XYState, seeds):

@@ -25,11 +25,20 @@ Metropolis sweep while t <= ``--mcs-over-relax`` (default: every t)::
         --model xy2d --nx 4000 --ny 4000 --kbt 0.89 --mcs 1000 \\
         --samples 16 --replicas 8 --n-over-relax 1 --output xy_or.dat
 
+and the XY disorder protocols: ``--protocol from_disorder`` (a random
+start rotated onto +x; ``--fix1mcs`` rotates after the first sweep),
+``finite_magne`` (``--init-magne``), ``samples`` (one row a sweep and
+history; the start from ``--init-state``) and ``finite_magne_samples``::
+
+    python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \\
+        --model xy2d --protocol from_disorder --nx 1500 --ny 1500 \\
+        --kbt 0.89 --mcs 1000 --samples 64 --output xy_fd.dat
+
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of
 routes the port does not serve yet (--mesh, --profile-dir, --backend
-other than auto, helical XY, the XY disorder protocols) raise with the
-ROADMAP.md item that ports them.
+other than auto, helical XY) raise with the ROADMAP.md item that ports
+them.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--model", default="ising2d",
                    choices=["ising2d", "ising3d", "clock", "xy2d"])
     p.add_argument("--protocol", default="relaxation",
-                   choices=protocols.PROTOCOL_NAMES)
+                   choices=sorted(protocols.PROTOCOLS))
     p.add_argument("--nx", type=int, default=128)
     p.add_argument("--ny", type=int, default=128)
     p.add_argument("--nz", type=int, default=1)
@@ -108,10 +117,6 @@ def _refuse_unserved(a: argparse.Namespace) -> None:
         raise NotImplementedError(
             f"--backend {a.backend}: the port serves one route per shape "
             "(the CUDA kernels, or their plain versions with --device cpu)")
-    if a.protocol not in protocols.PROTOCOLS:
-        raise NotImplementedError(
-            f"protocol {a.protocol!r} is one of the XY disorder protocols, "
-            "not ported yet (ROADMAP.md queue A item 8)")
 
 
 def config_from_args(a: argparse.Namespace) -> RunConfig:

@@ -99,17 +99,31 @@ def test_cuda_without_a_card_raises(tmp_path):
     (["--mesh", "2,2"], "queue A item 9"),
     (["--profile-dir", "p"], "profiler"),
     (["--backend", "jnp"], "backend"),
-    (["--protocol", "samples"], "queue A item 8"),
+    (["--protocol", "samples"], "queue A item 4a"),
     (["--model", "clock", "--q", "5"], "queue B item 13"),
     (["--model", "ising3d", "--nx", "2049", "--ny", "1024", "--nz", "1024"],
      "queue B item 13"),
     (["--model", "xy2d", "--nx", "255", "--ny", "256"], "queue B item 12"),
     (["--nx", "4097", "--ny", "2048"], "queue B item 13"),
     (["--nx", "128", "--ny", "128"], "queue B item 13"),
-    (["--protocol", "from_disorder"], "queue A item 8"),
 ])
 def test_unserved_routes_raise(extra, match, tmp_path):
     out = tmp_path / "x.dat"
     with pytest.raises(NotImplementedError, match=match):
         main(FLAGS + extra + ["--device", "cpu", "--output", str(out)])
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("protocol", ["from_disorder", "finite_magne"])
+def test_disorder_protocols_on_ising_raise_the_jax_value_error(
+        protocol, tmp_path):
+    """The disorder protocols need the periodic XY engine: on another
+    model both packages raise the same ValueError."""
+    out, jout = tmp_path / "x.dat", tmp_path / "j.dat"
+    flags = FLAGS + ["--protocol", protocol]
+    with pytest.raises(ValueError, match="periodic XY engine") as port:
+        main(flags + ["--device", "cpu", "--output", str(out)])
+    with pytest.raises(ValueError, match="periodic XY engine") as jax:
+        jax_main(flags + ["--output", str(jout)])
+    assert str(port.value) == str(jax.value)
     assert not out.exists()

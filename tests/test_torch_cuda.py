@@ -472,3 +472,109 @@ def test_xy_runner_on_card_replays_plain_phases(cuda):
                     bx, by, ax, ay, color=1, measuring=last)
         for j, k in enumerate(("m", "my", "e")):
             _xy_sums_close(series[k][:, t] * model.nsites, out[2][:, j])
+
+
+def _xy_state(planes):
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
+    return XYState(*(p.clone() for p in planes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx", [(16, 84), (256, 200), (1500, 1500)])
+def test_xy_snapshot_phase_and_measure_match_plain(cuda, ny, nx):
+    """metropolis_kernel's snapshot mode (injected and Philox uniforms,
+    both colours) and measure_kernel (with and without a snapshot)
+    against their plain versions on the same CUDA tensors: the state
+    bitwise, the sums to float64 rounding."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_measure_pallas,
+        xy2d_pallas,
+    )
+    planes = _xy_planes(cuda, 2, ny, nx, nx + ny + 1)
+    snap = _xy_planes(cuda, 2, ny, nx, nx + ny + 2)
+    g = np.random.default_rng(ny + 1)
+    u = tuple(torch.from_numpy(g.random((2, ny, nx // 2), dtype=np.float32)
+                               ).to(cuda) for _ in range(2))
+    for color in (0, 1):
+        order = (0, 1, 2, 3) if color == 0 else (2, 3, 0, 1)
+        sn = [snap[i] for i in order]
+        seeds = rng.seeds_from_key(rng.base_key(9), color)
+        for rand in (u, seeds):
+            a = [planes[i].clone() for i in order]
+            b = [planes[i].clone() for i in order]
+            got = xy2d_pallas.metropolis_phase(*a, rand, color=color,
+                                               beta=1 / KBT_XY, snap=sn)
+            want = xy2d_pallas.metropolis_phase_plain(
+                *b, rand, color=color, beta=1 / KBT_XY, snap=sn)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            assert got[2].shape == (2, 4)
+            _xy_sums_close(got[2], want[2])
+    st, sn = _xy_state(planes), _xy_state(snap)
+    for s in (None, sn):
+        _xy_sums_close(xy2d_measure_pallas.measure_sums(st, s),
+                       xy2d_measure_pallas.measure_sums_plain(st, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx,nrep", [(256, 200, 2), (64, 1500, 3)])
+def test_xy_multisweep_matches_streamed_sweeps(cuda, ny, nx, nrep):
+    """multisweep_kernel: S = 8 sweeps equal 8 streamed snapshot-measuring
+    sweeps on the card bitwise, state and sums, and its plain version;
+    its injected mode equals the plain phase."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        multispin_rng,
+        xy2d_pallas,
+        xy2d_resident,
+    )
+    model = XY2D(nx=nx, ny=ny, kbt=KBT_XY)
+    planes = _xy_planes(cuda, nrep, ny, nx, 3)
+    snap = _xy_state(_xy_planes(cuda, nrep, ny, nx, 4))
+    seeds = multispin_rng.sweep_phase_keys(rng.sample_key(rng.base_key(5), 0),
+                                           8)
+    ms = _xy_state(planes)
+    kobs = xy2d_resident.multisweep_planes(ms, snap, seeds, beta=model.beta)
+    st = _xy_state(planes)
+    for s in range(8):
+        st, obs = xy2d_pallas.sweep_measure(model, st, snap, seeds[s])
+        for j, k in enumerate(("mx", "my", "e", "A")):
+            assert torch.equal(kobs[:, s, j] / model.nsites, obs[k])
+    assert all(torch.equal(p, q) for p, q in zip(ms, st))
+    pl = _xy_state(planes)
+    pobs = xy2d_resident.multisweep_planes_plain(pl, snap, seeds,
+                                                 beta=model.beta)
+    assert all(torch.equal(p, q) for p, q in zip(ms, pl))
+    _xy_sums_close(kobs, pobs)
+    g = np.random.default_rng(nx)
+    u = [torch.from_numpy(g.random((nrep, ny, nx // 2), dtype=np.float32)
+                          ).to(cuda) for _ in range(2)]
+    for color in (0, 1):
+        order = (0, 1, 2, 3) if color == 0 else (2, 3, 0, 1)
+        a = [planes[i].clone() for i in order]
+        b = [planes[i].clone() for i in order]
+        xy2d_resident.phase_with_bits(*a, *u, color=color, beta=model.beta)
+        xy2d_resident.phase_with_bits_plain(*b, *u, color=color,
+                                            beta=model.beta)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prep", ["rotate_first", "fix1mcs"])
+def test_xy_disorder_routes_agree_on_card(cuda, prep, monkeypatch):
+    """The disorder runner's resident and streamed routes on the card give
+    the same series bitwise (fix1mcs: the streamed first sweep, then the
+    multisweep from t = 2)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import xy2d_resident
+    model = XY2D(nx=200, ny=256, kbt=KBT_XY)
+    key = rng.sample_key(rng.base_key(43), 0)
+    runs = []
+    for bound in (10 ** 12, 0):
+        monkeypatch.setattr(xy2d_resident, "RESIDENT_MAX_SITES", bound)
+        run = sweep.make_xy_disorder_runner(model, 70, 2, prep, device=cuda)
+        assert run.engine == (sweep.XY_DISORDER_RESIDENT if bound
+                              else sweep.XY_DISORDER_STREAMED)
+        runs.append(run(key))
+    for k in ("mx", "my", "e", "A"):
+        assert runs[0][k].shape == (2, 70)
+        assert torch.equal(runs[0][k], runs[1][k]), k

@@ -9,10 +9,12 @@ helical 3-D one at the reference's 151x151x150, 501x501x500 and
 1001x1000x1000, the q=6 clock one at the reference's 2000x2000
 (padded), at 2048x2048 (aligned) and helical at 501x500, and the
 periodic XY one with over-relaxation at the reference's 4000x4000 and
-Metropolis only at 2000x2000, and the XY disorder protocols (from
+Metropolis only at 2000x2000, the XY disorder protocols (from
 disorder at the reference's 1500x1500, with and without fix1mcs, and
-finite-magne and its samples at 1000x1000); and holds every kernel of
-those paths against its plain PyTorch version.
+finite-magne and its samples at 1000x1000), and helical XY at the
+reference's 10001x10000, with over-relaxation and Metropolis only, on the
+default f32-angle engine and (over-relaxation) the component one; and
+holds every kernel of those paths against its plain PyTorch version.
 Phases (each prints a progress line on stderr):
 
 1. build the CUDA sources (csrc/*.cu) from scratch with nvcc, all at once;
@@ -54,6 +56,13 @@ Phases (each prints a progress line on stderr):
      multisweep kernel's injected mode; 64 multisweep sweeps at 1500x1500
      x 1 against 64 streamed snapshot-measuring sweeps (state and sums
      bitwise) and against its plain version;
+   - helical XY, at 10001x10000 x 1 (the classes' launch) and 65x64 x 4
+     (the seam, the ragged slot and both row wraps in one block): the
+     component phase and OR kernels and the angle phase and OR kernels,
+     injected and Philox uniforms, both colours, measuring and not; the
+     state bitwise, the float64 sums within 1e-12 relative; the device
+     atan2_2pi bitwise against ops/trig.atan2_2pi on 1e7 points of every
+     octant, the axes and (0, 0);
 2b. <m>, <e> after one sweep from all-up against their closed forms for
    the chains' quantized acceptances, over >= 1e10 sites per path (helical
    3-D at 151^3 and 501^3, where every neighbour lies in the other
@@ -70,6 +79,10 @@ Phases (each prints a progress line on stderr):
    leaves |Σ S_y| / N below 1e-6 and |m| unchanged (1500x1500 x 4), and
    prep_finite_magne puts every replica of 1000x1000 x 20 within 1% of
    |m| = 0.02;
+   helical XY phase a from all-up at 10001x10000 on both engines over
+   >= 1e10 sites each (the same closed forms); one over-relaxation sweep
+   of a random 10001x10000 state on each engine keeps the energy within
+   the bound check_xy_helical_over_relax derives;
 3. 2-D resident class: 2048^2, 16 replicas, 64 samples, 1000 MCS through
    the multisweep kernel;
 4. 2-D streaming class: 8192^2, 4 replicas, 4 samples, 200 MCS through
@@ -110,6 +123,15 @@ Phases (each prints a progress line on stderr):
    m0 = 0.02 (the 500-sample curve); finite-magne samples, 20 histories
    of 100 MCS at 1000x1000, the row format and the per-t means of m_x, e
    and A against the file's 500 histories;
+4g. helical XY classes at 10001x10000, one replica a sample, from all-up,
+   at every t within 5 combined standard errors: over-relaxation, kbt
+   0.89, 4 samples, 1000 MCS, n_over_relax 1, on the angle engine and
+   again on the component engine (t <= 1000 of
+   xy2d_or_10001x10000_mcs10000_s500.dat, its rows' Nsample); Metropolis,
+   kbt 0.895, 4 samples, 100 MCS, on the angle engine, against
+   xy2d_samples32_2000x2000_mcs100.dat and the one-sample
+   xy2d_10001x10000_mcs10000_s1.dat (sigma from the 32-sample curve's
+   N·Var);
 5. times with CUDA events, beside each kernel's bound and its plain
    version's time, at the main paths' launch shapes (the helical kernel
    at 128 x 1001x1000, S = 64; the clock phase kernel at 2000x2000 x 40,
@@ -127,7 +149,11 @@ Phases (each prints a progress line on stderr):
    x 20 (finite-magne), measure_kernel at 1500x1500 x 8, the multisweep
    at 1500x1500 x 1 with S = 64 and 40 (from-disorder) and at 1000x1000
    x 1 with S = 64 and 36 (samples); and the disorder runner's two
-   routes at XY_ROUTE_SHAPES, where the route bound is read.
+   routes at XY_ROUTE_SHAPES, where the route bound is read; the four
+   helical XY phase kernels at 10001x10000 x 1, plain and measuring, in
+   three readings (the engines' A/B, angle over component), each held
+   against its plain version, and each helical class's kernel share of
+   its wall.
 
 It prints the kernels' JSON line, the card's `nvidia-smi` name and power
 limit, and last the device line.  It exits non-zero, printing no result,
@@ -138,6 +164,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -167,6 +194,8 @@ XY_FIX1_1500 = (PRODUCTION
 XY_FM_1000 = PRODUCTION / "xy2d_finite_magne_1000x1000_mcs100_s500.dat"
 XY_FMS_1000 = (PRODUCTION
                / "xy2d_finite_magne_samples_1000x1000_mcs100_s500.dat")
+XY_OR_10001 = PRODUCTION / "xy2d_or_10001x10000_mcs10000_s500.dat"
+XY_10001 = PRODUCTION / "xy2d_10001x10000_mcs10000_s1.dat"
 KBT_XY = 0.89                       # the 4000x4000 over-relaxation curve
 KBT_XY_2000 = 0.895                 # the 2000x2000 Metropolis curve
 KBT_CLOCK = 0.91                    # the 2000x2000 curve
@@ -247,6 +276,25 @@ XY_CHECK_SHAPES = ((2, 256, 200, KBT_XY), (8, 4000, 4000, KBT_XY),
 # the disorder classes' launches (R, ny, nx): a small shape, the literal
 # 1500x1500 x 1 (750 columns a colour) and the finite-magne 1000x1000 x 20
 XY_DISORDER_SHAPES = ((2, 256, 200), (1, 1500, 1500), (20, 1000, 1000))
+# helical XY: the reference's geometry (nx, ny); the kernel checks at its
+# launch (R, ny, nx) and at a small shape whose one block holds the seam,
+# the ragged slot and both row wraps
+HX, HY = 10001, 10000
+XYH_CHECK_SHAPES = ((1, HY, HX), (4, 64, 65))
+# per valid site of a helical phase (32-bit instructions), counting what
+# the function needs: the component engine as the periodic one (OPS_XY_*);
+# the angle engine decodes three angles a Metropolis site (the site, the
+# candidate, and the other colour's angles once each, one a site: 22 each)
+# and one an OR site, plus atan2_2pi (abs, min, max, the fold and its
+# selects, the divide ~10, the polynomial 8, the fixups 6: ~30) and the
+# reflection's 4; its fused sums are OPS_XY_MEASURE, plus one decode of
+# the new angle after OR.  The kernels decode each neighbour in each of its
+# four sites (six decodes a Metropolis site, four an OR site): that excess
+# is the kernels' cost, not the bound's.  Bytes a site: 24 (components)
+# or 12 (angles)
+OPS_XYA_METROPOLIS = OPS_PER_PHILOX + 4 + 3 * 22 + 6 + 6 + 10 + 4
+OPS_XYA_OVER_RELAX = 22 + 6 + 30 + 4
+XYA_BYTES_PER_SITE = 12
 # the route readings: ms a sweep of both routes, fused sums included
 XY_ROUTE_SHAPES = ((1500, 1), (1500, 2), (1500, 3), (1500, 4), (1500, 16),
                    (1000, 1), (1000, 4), (1000, 20))
@@ -1806,6 +1854,342 @@ def compare_routes_helical3d(h3, hms, dev, seeds) -> float:
     return str_ms / res_ms
 
 
+def helical_state(dev, nrep: int, ny: int, nx: int, seed: int):
+    """One random helical XY state as the dense engines keep it: the angle
+    planes (a, b) in turns and the component planes (ax, ay, bx, by) of
+    their decode, drawn on the card from a seeded generator."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import trig
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense as xhd,
+    )
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    turns = torch.rand((nrep, nx * ny), generator=gen, device=dev) - 0.5
+    ang = list(xhd.dense_pack(turns, ny, nx))
+    del turns
+    comp = [c.contiguous() for p in ang for c in trig.cos_sin_2pi(p)]
+    return ang, comp
+
+
+def helical_pairs(xhd, xha, comp, ang, u, seeds, color, beta):
+    """Every kernel of both helical engines against its plain version on
+    its own copies of the state, colour ``color``, measuring and not,
+    Metropolis with injected uniforms ``u`` and with the Philox key
+    ``seeds``.  Yields (kernel name, state error, sums' relative error)."""
+    corder = (0, 1, 2, 3) if color == 0 else (2, 3, 0, 1)
+    aorder = (0, 1) if color == 0 else (1, 0)
+    runs = (("phase", xhd.phase, xhd.phase_plain, comp, corder, (u,), True),
+            ("phase", xhd.phase, xhd.phase_plain, comp, corder, (seeds,),
+             True),
+            ("or", xhd.or_phase, xhd.or_phase_plain, comp, corder, (), False),
+            ("angle_phase", xha.angle_phase, xha.angle_phase_plain, ang,
+             aorder, (u,), True),
+            ("angle_phase", xha.angle_phase, xha.angle_phase_plain, ang,
+             aorder, (seeds,), True),
+            ("angle_or", xha.angle_or_phase, xha.angle_or_phase_plain, ang,
+             aorder, (), False))
+    for name, kernel, plain, planes, order, extra, metro in runs:
+        kw = dict(color=color, beta=beta) if metro else dict(color=color)
+        for measuring in (False, True):
+            a = [planes[i].clone() for i in order]
+            b = [planes[i].clone() for i in order]
+            got = kernel(*a, *extra, measuring=measuring, **kw)
+            want = plain(*b, *extra, measuring=measuring, **kw)
+            err = float_err(zip(a, b))
+            rel = sums_rel_err(got[-1], want[-1]) if measuring else 0.0
+            del a, b
+            yield name, err, rel
+
+
+def check_xy_helical(xhd, xha, rng, dev) -> tuple[dict[str, float], float]:
+    """The four helical XY kernels against their plain versions on the
+    same CUDA tensors at XYH_CHECK_SHAPES: both colours, measuring and
+    not, injected and Philox uniforms.  The state must be equal bitwise,
+    the float64 sums within 1e-12 relative.  Returns ({kernel: state
+    error}, sums' relative error)."""
+    errs = {"phase": 0.0, "or": 0.0, "angle_phase": 0.0, "angle_or": 0.0}
+    rel = 0.0
+    for nrep, ny, nx in XYH_CHECK_SHAPES:
+        ang, comp = helical_state(dev, nrep, ny, nx, ny + nrep)
+        gen = torch.Generator(device=dev).manual_seed(nx)
+        u = tuple(torch.rand(tuple(ang[0].shape), generator=gen, device=dev)
+                  for _ in range(2))
+        for color in (0, 1):
+            seeds = rng.seeds_from_key(rng.sample_key(rng.base_key(31), ny),
+                                       color)
+            for name, e, r in helical_pairs(xhd, xha, comp, ang, u, seeds,
+                                            color, 1.0 / KBT_XY):
+                errs[name] = max(errs[name], e)
+                rel = max(rel, r)
+        log(f"  xy helical kernels {nx}x{ny} x {nrep}: state vs plain "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; sums' relative error {rel:.3g}")
+        del ang, comp, u
+    if max(errs.values()) != 0.0 or rel > 1e-12:
+        fail(f"a helical XY kernel differs from its plain version: {errs}, "
+             f"sums' relative error {rel:.3g}")
+    return errs, rel
+
+
+def check_atan2(xha, dev, n: int = 10_000_000) -> float:
+    """The device atan2_2pi (``atan2_kernel``) against the plain
+    ops/trig.atan2_2pi on the card, bitwise, on n points: every octant at
+    radii from 1e-6 to 1e3, the octant borders, the axes with signed zeros,
+    and (0, 0).  Returns the largest difference (0 when equal)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import trig
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ang = (torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+           * 2.0 - 1.0) * math.pi
+    rad = 10.0 ** (torch.rand(n, generator=gen, device=dev,
+                              dtype=torch.float64) * 9.0 - 6.0)
+    border = torch.arange(-8, 9, device=dev, dtype=torch.float64) * (
+        math.pi / 8)
+    y = torch.cat([rad * torch.sin(ang), torch.sin(border),
+                   torch.tensor([0.0, -0.0, 0.0, -0.0, 1.0, -1.0],
+                                device=dev, dtype=torch.float64)]).float()
+    x = torch.cat([rad * torch.cos(ang), torch.cos(border),
+                   torch.tensor([0.0, 0.0, -1.0, -1.0, 0.0, 0.0],
+                                device=dev, dtype=torch.float64)]).float()
+    got = xha.atan2_2pi(y.contiguous(), x.contiguous())
+    want = trig.atan2_2pi(y, x)
+    err = float_err([(got, want)])
+    ref = torch.atan2(y.double(), x.double()) / (2 * math.pi)
+    d = (got.double() - ref).abs()
+    acc = float(torch.minimum(d, 1.0 - d).max())   # -0.5 and 0.5: one angle
+    log(f"  atan2_2pi on {y.numel()} points: device vs plain {err:.3g}, "
+        f"largest |error| vs float64 {acc:.3g} turns, atan2_2pi(0, 0) = "
+        f"{float(got[-6]):.3g}")
+    if err != 0.0 or float(got[-6]) != 0.0:
+        fail("the device atan2_2pi differs from its plain version")
+    return err
+
+
+def check_xy_helical_phase_a(xhd, xha, rng, dev, iters: int) -> float:
+    """Phase a from all-up on both engines, iters x 10001x10000 (the main
+    path's launch; 5.0005e7 sites a colour): every site sees the field
+    (4, 0) and accepts (cos 2πu, sin 2πu) with p = exp(-4β(1 - cos 2πu)),
+    so <S_x> = 1 - e^(-4β)[I0(4β) - I1(4β)], <S_y> = 0 and the acceptance
+    is e^(-4β) I0(4β), as for the periodic lattice.  <S_x>, <S_y> come
+    from the measuring kernel's sums (colour b adds N/2 times its decoded
+    +x, exactly); a site counts as accepted where it left +x.  On the
+    angle engine all-up is the angle 0, decoded (C0, 0) with C0 =
+    0.99999998: its field is 4 C0, which moves the closed forms by ~1e-8,
+    far inside the 5e-6 sigma.  Returns the largest |z|."""
+    from scipy.special import ive
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import trig
+    x4 = 4.0 / KBT_XY
+    nrep, ny, nc = 1, HY, (HX + 1) // 2
+    n_a = HX * HY // 2
+    keys = rng.seeds_from_key(rng.sample_key(rng.base_key(2061),
+                                             torch.arange(iters)), 0)
+    c0 = float(trig.cos_sin_2pi(torch.zeros(1))[0][0])
+    worst = 0.0
+    for engine in ("component", "angle"):
+        per = {"sx": [], "sy": [], "acc": []}
+        if engine == "component":
+            ax, bx = (torch.ones((nrep, ny, nc), device=dev) for _ in range(2))
+            ay, by = (torch.zeros((nrep, ny, nc), device=dev)
+                      for _ in range(2))
+        else:
+            a, b = (torch.zeros((nrep, ny, nc), device=dev) for _ in range(2))
+        for it in range(iters):
+            if engine == "component":
+                ax.fill_(1.0)
+                ay.zero_()
+                obs = xhd.phase(ax, ay, bx, by, keys[it], color=0,
+                                beta=1.0 / KBT_XY, measuring=True)[2]
+                moved = (ax != 1.0) | (ay != 0.0)
+                other = n_a
+            else:
+                a.zero_()
+                obs = xha.angle_phase(a, b, keys[it], color=0,
+                                      beta=1.0 / KBT_XY, measuring=True)[1]
+                moved = a != 0.0
+                other = n_a * c0
+            per["sx"].append((obs[:, 0] - other) / n_a)
+            per["sy"].append(obs[:, 1] / n_a)
+            per["acc"].append(moved.sum(dim=(1, 2)).double() / n_a)
+        worst = max(
+            worst,
+            z_sampled(f"xy helical {engine} phase a <S_x>", per["sx"],
+                      1.0 - (ive(0, x4) - ive(1, x4)), n_a),
+            z_sampled(f"xy helical {engine} phase a <S_y>", per["sy"], 0.0,
+                      n_a),
+            z_sampled(f"xy helical {engine} phase a acceptance", per["acc"],
+                      ive(0, x4), n_a))
+    return worst
+
+
+def check_xy_helical_over_relax(xhd, xha, dev) -> dict[str, float]:
+    """One over-relaxation sweep of one random 10001x10000 state on each
+    engine, the energy of the flat state (float64 of its float32
+    components) before and after.  Bounds, worst case over the N sites
+    (each bond changes once a phase, N site reflections a sweep):
+    component, N · 8 · 2^-24 (2 ulp of the largest |S·h| = 4, as for the
+    periodic lattice); angle, N · 2e-5: φ = atan2_2pi(h) carries the
+    polynomial's 4.6e-8 turns and ~6 roundings below 0.5 (1.8e-7), θ' =
+    2φ - θ doubles that and rounds twice more (6e-8 each): |δθ'| <= 5.8e-7
+    turns = 3.6e-6 rad, which moves a site's -S·h by at most |h| 3.6e-6 <=
+    1.5e-5, and the decode of θ and θ' (1.1e-7 a component each) by
+    |h| 4.4e-7 <= 1.8e-6.  Also the fused e against the state's and |S|.
+    Returns {engine: |dE| / N}."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2DHelical
+    model = XY2DHelical(nx=HX, ny=HY, kbt=KBT_XY)
+    ang, comp = helical_state(dev, 1, HY, HX, 78)
+    out = {}
+    for engine, mod, planes, per_site in (
+            ("component", xhd, comp, 8 * 2.0 ** -24),
+            ("angle", xha, ang, 2e-5)):
+        e0 = model.energy_sum(mod.unpack_state(planes, HY, HX))
+        planes, obs = mod.over_relax_sweep_measure(model, planes)
+        st = mod.unpack_state(planes, HY, HX)
+        e1 = model.energy_sum(st)
+        de = float((e1 - e0).abs().max())
+        fused = float((obs["e"] * model.nsites - e1).abs().max())
+        norm = float((torch.hypot(st.sx.double(), st.sy.double())
+                      - 1.0).abs().max())
+        del st
+        out[engine] = de / model.nsites
+        log(f"  xy helical {engine} over-relaxation sweep 10001x10000: "
+            f"|dE| {de:.4g} ({de / model.nsites:.3g} a site, bound "
+            f"{per_site:.3g}), fused e vs the state's "
+            f"{fused / model.nsites:.3g} a site, ||S| - 1| <= {norm:.3g}")
+        if (de > model.nsites * per_site
+                or fused > model.nsites * 8 * 2.0 ** -24 or norm > 1e-6):
+            fail(f"the {engine} over-relaxation sweep does not keep the "
+                 "energy within its bound or |S| to float32 rounding")
+    del ang, comp
+    return out
+
+
+def check_one_sample_curve(table: np.ndarray, ref1: np.ndarray,
+                           var_ref: np.ndarray, nsites: int, samples: int,
+                           mcs: int) -> float:
+    """<m>(t), <e>(t) against a one-sample curve of the same geometry (its
+    own variance columns are 0): a two-sample z with sigma^2 = N·Var
+    (1/(N n) + 1/N_1) at every t <= mcs, N·Var from ``var_ref`` (the
+    32-sample 2000x2000 curve at the same kbt; the port's own 4-sample
+    N·Var would make z Student-t with 3 degrees of freedom, P(|t| > 5) =
+    1.5% a point).  The port's own-variance z is printed beside it.
+    Returns the largest |z|."""
+    worst = 0.0
+    for t in range(1, mcs + 1):
+        row, r1, rv = row_at(table, t), row_at(ref1, t), row_at(var_ref, t)
+        for name, col, var_col in (("m", 3, 7), ("e", 4, 8)):
+            term = 1.0 / (nsites * samples) + 1.0 / int(r1[0])
+            z = (row[col] - r1[col]) / math.sqrt(rv[var_col] * term)
+            z_own = (row[col] - r1[col]) / math.sqrt(
+                max(row[var_col], 1e-300) * term)
+            if t in (1, 10, 100):
+                log(f"  t={t:5d} <{name}> port {row[col]:.9f} one-sample "
+                    f"curve {r1[col]:.9f} z {z:+.2f} (own N·Var: "
+                    f"{z_own:+.2f})")
+            worst = max(worst, abs(z))
+            if abs(z) > SIGMAS:
+                fail(f"<{name}>({t}) is {z:+.2f} sigma from the one-sample "
+                     "curve")
+    log(f"  largest |z| against the one-sample curve {worst:.2f}")
+    return worst
+
+
+def run_xy_helical(main_fn, modules, out_dir, label, kbt, samples, mcs,
+                   n_over_relax, engine):
+    """One helical XY class through the CLI at 10001x10000, one replica a
+    sample, from all-up; the header's geometry, schedule and engine.
+    Returns (launches, wall, rate, table)."""
+    argv = ["--model", "xy2d", "--nx", str(HX), "--ny", str(HY), "--kbt",
+            repr(kbt), "--mcs", str(mcs), "--samples", str(samples),
+            "--replicas", "1"]
+    lines = [f"# nx, ny: {HX} {HY}", f"# engine: {engine}"]
+    if n_over_relax:
+        argv += ["--n-over-relax", str(n_over_relax), "--mcs-over-relax",
+                 str(mcs)]
+        lines += [f"# n_over_relax: {n_over_relax}",
+                  f"# mcs_over_relax: {mcs}"]
+    launches, wall, rate, table, head = run_main_path(
+        main_fn, modules, out_dir, label, argv, HX * HY, samples, mcs)
+    for line in lines:
+        if line not in head:
+            fail(f"helical xy .dat header lacks {line!r}: {head}")
+    return launches, wall, rate, table
+
+
+def time_xy_helical(xhd, xha, dev, seeds, readings: int = 3):
+    """Every phase kernel of both helical engines at the main path's launch,
+    10001x10000 x 1, colour a plain and colour b measuring, with CUDA
+    events (200-launch runs), over ``readings`` readings in turns, beside
+    its bound; the first reading also times the plain version and holds the
+    state against it.  Returns ({case: [times of each reading]}, largest
+    state error)."""
+    ang, comp = helical_state(dev, 1, HY, HX, 25)
+    n = HX * HY // 2
+    beta = 1.0 / KBT_XY
+    obs = 3 * 8
+    a_kw, b_kw = dict(color=0, beta=beta), dict(color=1, beta=beta,
+                                                 measuring=True)
+    cases = (
+        ("component phase",
+         lambda *p: xhd.phase(*p, seeds[0, 0], **a_kw),
+         lambda *p: xhd.phase_plain(*p, seeds[0, 0], **a_kw), comp,
+         24 * n, n * OPS_XY_METROPOLIS),
+        ("component phase, measuring",
+         lambda *p: xhd.phase(*p, seeds[0, 1], **b_kw),
+         lambda *p: xhd.phase_plain(*p, seeds[0, 1], **b_kw),
+         xy_by_color(comp, 1), 24 * n + obs,
+         n * (OPS_XY_METROPOLIS + OPS_XY_MEASURE)),
+        ("component or", lambda *p: xhd.or_phase(*p, color=0),
+         lambda *p: xhd.or_phase_plain(*p, color=0), comp, 24 * n,
+         n * OPS_XY_OVER_RELAX),
+        ("component or, measuring",
+         lambda *p: xhd.or_phase(*p, color=1, measuring=True),
+         lambda *p: xhd.or_phase_plain(*p, color=1, measuring=True),
+         xy_by_color(comp, 1), 24 * n + obs,
+         n * (OPS_XY_OVER_RELAX + OPS_XY_MEASURE)),
+        ("angle phase",
+         lambda *p: xha.angle_phase(*p, seeds[0, 0], **a_kw),
+         lambda *p: xha.angle_phase_plain(*p, seeds[0, 0], **a_kw), ang,
+         XYA_BYTES_PER_SITE * n, n * OPS_XYA_METROPOLIS),
+        ("angle phase, measuring",
+         lambda *p: xha.angle_phase(*p, seeds[0, 1], **b_kw),
+         lambda *p: xha.angle_phase_plain(*p, seeds[0, 1], **b_kw),
+         ang[::-1], XYA_BYTES_PER_SITE * n + obs,
+         n * (OPS_XYA_METROPOLIS + OPS_XY_MEASURE)),
+        ("angle or", lambda *p: xha.angle_or_phase(*p, color=0),
+         lambda *p: xha.angle_or_phase_plain(*p, color=0), ang,
+         XYA_BYTES_PER_SITE * n, n * OPS_XYA_OVER_RELAX),
+        ("angle or, measuring",
+         lambda *p: xha.angle_or_phase(*p, color=1, measuring=True),
+         lambda *p: xha.angle_or_phase_plain(*p, color=1, measuring=True),
+         ang[::-1], XYA_BYTES_PER_SITE * n + obs,
+         n * (OPS_XYA_OVER_RELAX + 22 + OPS_XY_MEASURE)))
+    times = {label: [] for label, *_ in cases}
+    err = 0.0
+    for reading in range(readings):
+        for label, kernel, plain, planes, nbytes, ops in cases:
+            if reading == 0:
+                t, e = time_xy(f"xy helical {label} 10001x10000 x 1",
+                               kernel, plain, planes, nbytes, ops, reps=200,
+                               plain_reps=2)
+                err = max(err, e)
+            else:
+                k = [p.clone() for p in planes]
+                ms = cuda_time_ms(lambda: kernel(*k), reps=200)
+                del k
+                t = dict(times[label][0], ms=ms)
+            times[label].append(t)
+    for label in times:
+        log(f"  xy helical {label}: ms a launch over {readings} readings "
+            + ", ".join(f"{t['ms']:.4f}" for t in times[label])
+            + f"; bound {times[label][0]['bound_ms']:.4f} "
+            f"({times[label][0]['bound_by']})")
+    for kind in ("phase", "phase, measuring", "or", "or, measuring"):
+        ratios = [a["ms"] / c["ms"] for a, c in zip(
+            times[f"angle {kind}"], times[f"component {kind}"])]
+        log(f"  xy helical A/B {kind}: angle / component "
+            + ", ".join(f"{r:.3f}" for r in ratios))
+    del ang, comp
+    return times, err
+
+
 def read_dat(path: Path, max_t: int | None = None) -> np.ndarray:
     """A .dat table's rows; with ``max_t`` only those up to t = max_t
     (the clock curves run to 10^5 sweeps)."""
@@ -1974,13 +2358,24 @@ def main() -> int:
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         xy2d_resident as xyr,
     )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.engine.sweep import (
+        XY_HELICAL_ANGLE,
+        XY_HELICAL_COMPONENT,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense as xhd,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense_angle as xha,
+    )
     from cuda_fortran_mc_simulation_spin_tpu_torch.runs.__main__ import (
         main as cli_main,
     )
 
     modules = {"ising2d": msb, "helical": hms, "ising3d": ms3,
                "helical3d": h3, "clock": cp, "clock_helical": chm,
-               "xy": xyp, "xy_measure": xym, "xy_resident": xyr}
+               "xy": xyp, "xy_measure": xym, "xy_resident": xyr,
+               "xy_helical": xhd, "xy_helical_angle": xha}
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device {torch.cuda.get_device_name(0)} | {smi} | torch "
@@ -1988,7 +2383,8 @@ def main() -> int:
     for path in (REFERENCE_DAT, REFERENCE_3D_DAT, REFERENCE_H3_151,
                  REFERENCE_H3_501, REFERENCE_H3_1001, RACY_H3_1001,
                  CLOCK_2000, CLOCK_2048, CLOCK_501, XY_OR_4000, XY_2000,
-                 XY_FD_1500, XY_FIX1_1500, XY_FM_1000, XY_FMS_1000):
+                 XY_FD_1500, XY_FIX1_1500, XY_FM_1000, XY_FMS_1000,
+                 XY_OR_10001, XY_10001):
         if not path.exists():
             fail(f"reference curve {path} is missing")
     ref = read_dat(REFERENCE_DAT)
@@ -2006,6 +2402,8 @@ def main() -> int:
     ref_fix1 = read_dat(XY_FIX1_1500, max_t=200)
     ref_fm = read_dat(XY_FM_1000)
     ref_fms = read_dat(XY_FMS_1000)
+    ref_xyh_or = read_dat(XY_OR_10001, max_t=1000)
+    ref_xyh_1 = read_dat(XY_10001, max_t=100)
 
     # 1. build from scratch
     log("phase 1: build csrc/*.cu with nvcc")
@@ -2039,6 +2437,8 @@ def main() -> int:
     err_clock_h = check_clock_helical(chm, hms, rng, dev)
     err_xy, rel_xy = check_xy(xyp, rng, dev)
     err_xyd, rel_xyd = check_xy_disorder(xyp, xym, xyr, rng, dev)
+    err_xyh, rel_xyh = check_xy_helical(xhd, xha, rng, dev)
+    check_atan2(xha, dev)
 
     log("phase 2b: first sweep from all-up against its exact expectation")
     check_first_sweep(msb, rng, dev, ref[0], iters=100)
@@ -2059,6 +2459,8 @@ def main() -> int:
     z_xy = check_xy_phase_a(xyp, rng, dev, iters=160)
     de_or, norm_or = check_xy_over_relax(xyp, dev)
     my_rot, prep_err = check_xy_preparations(dev)
+    z_xyh = check_xy_helical_phase_a(xhd, xha, rng, dev, iters=200)
+    de_xyh = check_xy_helical_over_relax(xhd, xha, dev)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         # 3. 2-D resident class through the multisweep kernel
@@ -2229,10 +2631,53 @@ def main() -> int:
                 else fs_launch["xy"]["metropolis_snapshot"]) == 0:
             fail(f"samples path: {fs_launch}")
         disorder["samples"] = (fs_launch, fs_wall, fs_rate, fs_z)
+        # 4g. helical XY classes at the reference's 10001x10000, one
+        # replica a sample: the default (angle) engine, then the OR class
+        # again on the component engine (the engines' A/B end to end)
+        helical = {}
+        for label, kbt, samples, mcs, n_or, engine in (
+                ("or_angle", KBT_XY, 4, 1000, 1, XY_HELICAL_ANGLE),
+                ("metropolis_angle", KBT_XY_2000, 4, 100, 0,
+                 XY_HELICAL_ANGLE),
+                ("or_component", KBT_XY, 4, 1000, 1, XY_HELICAL_COMPONENT)):
+            log(f"phase 4g: helical XY path, {label} class (10001x10000 x 1,"
+                f" {samples} samples, {mcs} MCS)")
+            angle = engine == XY_HELICAL_ANGLE
+            os.environ["SPINLAT_XY_DENSE_ANGLE"] = "1" if angle else "0"
+            try:
+                n, wall, rate, table = run_xy_helical(
+                    cli_main, modules, out, f"xy2d_helical_{label}", kbt,
+                    samples, mcs, n_or, engine)
+            finally:
+                os.environ.pop("SPINLAT_XY_DENSE_ANGLE", None)
+            if n_or:
+                z = check_against_reference(
+                    table, ref_xyh_or, HX * HY, samples, mcs,
+                    range(1, mcs + 1), ref_nsites=int(ref_xyh_or[0, 0]),
+                    ref_samples=int(ref_xyh_or[0, 1]))
+            else:
+                z = max(check_against_reference(
+                    table, ref_xy, HX * HY, samples, mcs, range(1, mcs + 1),
+                    ref_nsites=int(ref_xy[0, 0]),
+                    ref_samples=int(ref_xy[0, 1])),
+                    check_one_sample_curve(table, ref_xyh_1, ref_xy,
+                                           HX * HY, samples, mcs))
+            mod, other = (("xy_helical_angle", "xy_helical") if angle
+                          else ("xy_helical", "xy_helical_angle"))
+            sweeps = samples * mcs
+            want = {"phase": 2 * sweeps,
+                    "phase_measuring": 0 if n_or else sweeps,
+                    "or": 2 * sweeps if n_or else 0,
+                    "or_measuring": sweeps if n_or else 0}
+            got = {k: n[mod][k] for k in want}
+            if got != want or any(n[other].values()) or n["xy"]["metropolis"]:
+                fail(f"helical XY {label} path: {n} (want {mod}: {want})")
+            helical[label] = (n, wall, rate, z)
     paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch,
              h1_launch, h5_launch, ha_launch, cp_launch, ca_launch,
              ch_launch, xo_launch, xm_launch,
-             *(d[0] for d in disorder.values()))
+             *(d[0] for d in disorder.values()),
+             *(h[0] for h in helical.values()))
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -2599,6 +3044,42 @@ def main() -> int:
     log(f"  xy from-disorder 1500^2 x 1: kernel {fd_kern / 1e3:.3f} s of a "
         f"{fd_wall:.3f} s wall; kernel share {fd_kern / (fd_wall * 1e3):.3f}")
 
+    # the helical XY phases at the classes' launch, both engines, A/B
+    xyh_t, xyh_err = time_xy_helical(xhd, xha, dev, seeds)
+    if xyh_err != 0.0:
+        fail(f"a helical XY kernel differs from its plain version at its "
+             f"main-path launch shape ({xyh_err})")
+
+    def helical_ms(label: str, engine: str) -> tuple[float, float]:
+        """(kernel ms a sweep from the median reading, kernel share of the
+        class's wall)."""
+        def med(case):
+            return sorted(t["ms"] for t in xyh_t[f"{engine} {case}"])[1]
+        n, wall = helical[label][:2]
+        mod = "xy_helical_angle" if engine == "angle" else "xy_helical"
+        k = n[mod]
+        kern = ((k["phase"] - k["phase_measuring"]) * med("phase")
+                + k["phase_measuring"] * med("phase, measuring")
+                + (k["or"] - k["or_measuring"]) * med("or")
+                + k["or_measuring"] * med("or, measuring"))
+        sweeps = (k["phase"] // 2)
+        return kern / sweeps, kern / (wall * 1e3)
+
+    xyh_share = {}
+    for label, engine in (("or_angle", "angle"),
+                          ("metropolis_angle", "angle"),
+                          ("or_component", "component")):
+        per_sweep, share = helical_ms(label, engine)
+        n, wall = helical[label][:2]
+        xyh_share[label] = share
+        log(f"  xy helical {label}: kernel {per_sweep:.4f} ms a sweep, wall "
+            f"{wall * 1e3 / (n['xy_helical_angle' if engine == 'angle' else 'xy_helical']['phase'] // 2):.4f} ms a sweep; kernel "
+            f"share of the wall {share:.3f}")
+    log("  xy helical A/B end to end, OR class: angle "
+        f"{helical['or_angle'][1]:.2f} s, component "
+        f"{helical['or_component'][1]:.2f} s, angle / component "
+        f"{helical['or_angle'][1] / helical['or_component'][1]:.3f}")
+
     compare_routes(msb, dev, beta, seeds)
     compare_routes_3d(ms3, dev, seeds[:32])
     route_h3 = compare_routes_helical3d(h3, hms, dev, seeds)
@@ -2652,6 +3133,20 @@ def main() -> int:
         ("xy2d_resident.multisweep_kernel", "xy2d_resident.cu",
          "xy2d_resident.py:257", launched("xy_resident", "multisweep"),
          max(err_xyd["multisweep"], ms_err), t_ms),
+        ("xy2d_helical_dense.phase_kernel", "xy2d_helical_dense.cu",
+         "xy2d_helical_dense.py:454", launched("xy_helical", "phase"),
+         max(err_xyh["phase"], xyh_err), xyh_t["component phase"][0]),
+        ("xy2d_helical_dense.or_kernel", "xy2d_helical_dense.cu",
+         "xy2d_helical_dense.py:499", launched("xy_helical", "or"),
+         max(err_xyh["or"], xyh_err), xyh_t["component or"][0]),
+        ("xy2d_helical_dense_angle.angle_phase_kernel",
+         "xy2d_helical_dense_angle.cu", "xy2d_helical_dense_angle.py:269",
+         launched("xy_helical_angle", "phase"),
+         max(err_xyh["angle_phase"], xyh_err), xyh_t["angle phase"][0]),
+        ("xy2d_helical_dense_angle.angle_or_kernel",
+         "xy2d_helical_dense_angle.cu", "xy2d_helical_dense_angle.py:308",
+         launched("xy_helical_angle", "or"),
+         max(err_xyh["angle_or"], xyh_err), xyh_t["angle or"][0]),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -2700,6 +3195,16 @@ def main() -> int:
         "routes (nx, R, resident, streamed ms a sweep) "
         + ", ".join(f"({nx}, {r}, {a:.5f}, {b:.5f})"
                     for nx, r, a, b in xy_routes))
+    log("main path helical XY 10001x10000 x 1: " + "; ".join(
+        f"{label} {rate:.4g} flip attempts/s"
+        + (f", {2 * rate:.4g} site updates/s with the OR sweeps"
+           if label.startswith("or") else "")
+        + f" ({wall:.2f} s, largest |z| {z:.2f}, kernel share "
+        f"{xyh_share[label]:.3f})"
+        for label, (_, wall, rate, z) in helical.items())
+        + f"; phase a largest |z| {z_xyh:.2f}; OR |dE|/N "
+        + ", ".join(f"{k} {v:.3g}" for k, v in de_xyh.items())
+        + f"; sums' relative error {rel_xyh:.3g}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

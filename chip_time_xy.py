@@ -1,12 +1,15 @@
 """CUDA-event times of the periodic XY relaxation's phase kernels at the
 over-relaxation class's launch shape, 4000x4000 x 8 (one colour, 8 x 4000
 x 2000 float32 sites): metropolis_kernel and over_relax_kernel, each
-without and with the fused float64 sums, on a random state.
+without and with the fused float64 sums, on a random state; with
+``--helical``, the four dense helical XY kernels at the helical classes'
+launch, 10001x10000 x 1 (component and angle planes, Metropolis and OR,
+colour a plain and colour b measuring).
 
-    python3 chip_time_xy.py [--reps 200] [--rounds 3]
+    python3 chip_time_xy.py [--reps 200] [--rounds 3] [--helical]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
-csrc/xy2d_pallas.cu on first use.  It uses only the phase wrappers'
+csrc/xy2d_pallas.cu (csrc/xy2d_helical_dense*.cu) on first use.  It uses only the phase wrappers'
 public API, so to compare two commits copy it into both checkouts and run
 it from each in turns on one card (A, B, B, A).  Prints the card's
 nvidia-smi name and power limit, the ptxas register report of the build,
@@ -25,13 +28,45 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 NREP, NY, HALF = 8, 4000, 2000
+HX, HY = 10001, 10000
 KBT = 0.89
+
+
+def helical_modes(dev, gen, key, beta):
+    """The eight helical XY modes on one random 10001x10000 state."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        trig,
+        xy2d_helical_dense as xhd,
+        xy2d_helical_dense_angle as xha,
+    )
+    turns = torch.rand((1, HX * HY), generator=gen, device=dev) - 0.5
+    a, b = xhd.dense_pack(turns, HY, HX)
+    ax, ay, bx, by = (c.contiguous() for p in (a, b)
+                      for c in trig.cos_sin_2pi(p))
+    return {
+        "component_phase": lambda: xhd.phase(ax, ay, bx, by, key, color=0,
+                                             beta=beta),
+        "component_phase_measuring": lambda: xhd.phase(
+            bx, by, ax, ay, key, color=1, beta=beta, measuring=True),
+        "component_or": lambda: xhd.or_phase(ax, ay, bx, by, color=0),
+        "component_or_measuring": lambda: xhd.or_phase(
+            bx, by, ax, ay, color=1, measuring=True),
+        "angle_phase": lambda: xha.angle_phase(a, b, key, color=0,
+                                               beta=beta),
+        "angle_phase_measuring": lambda: xha.angle_phase(
+            b, a, key, color=1, beta=beta, measuring=True),
+        "angle_or": lambda: xha.angle_or_phase(a, b, color=0),
+        "angle_or_measuring": lambda: xha.angle_or_phase(
+            b, a, color=1, measuring=True),
+    }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--helical", action="store_true",
+                    help="time the helical XY kernels instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_time_xy: needs an NVIDIA GPU", file=sys.stderr)
@@ -43,13 +78,16 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
+    key = torch.tensor([12345, 678], dtype=torch.int64)
+    beta = 1.0 / KBT
+    if args.helical:
+        return report(helical_modes(dev, gen, key, beta), args,
+                      ["xy2d_helical_dense", "xy2d_helical_dense_angle"])
     planes = []
     for _ in range(2):
         th = torch.rand((NREP, NY, HALF), generator=gen, device=dev) * 6.2832
         planes += [torch.cos(th), torch.sin(th)]
     ax, ay, bx, by = planes
-    key = torch.tensor([12345, 678], dtype=torch.int64)
-    beta = 1.0 / KBT
     modes = {
         "metropolis": lambda: xyp.metropolis_phase(
             ax, ay, bx, by, key, color=0, beta=beta),
@@ -59,6 +97,12 @@ def main() -> int:
         "over_relax_measuring": lambda: xyp.over_relax_phase(
             bx, by, ax, ay, color=1, measuring=True),
     }
+    return report(modes, args, ["xy2d_pallas"])
+
+
+def report(modes, args, libs) -> int:
+    """Time every mode ``args.rounds`` times in turns; print the card's
+    line, the libraries' ptxas report and the JSON line of times."""
     times = {m: [] for m in modes}
     for _ in range(args.rounds):
         for mode, fn in modes.items():
@@ -76,11 +120,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(smi.strip())
-    log = ROOT / ".build" / "libxy2d_pallas.log"
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "Compiling entry" in line or "registers" in line:
-                print(line.strip())
+    for lib in libs:
+        log = ROOT / ".build" / f"lib{lib}.log"
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "Compiling entry" in line or "registers" in line:
+                    print(line.strip())
     print(json.dumps(times))
     return 0
 

@@ -98,6 +98,35 @@ __device__ __forceinline__ void cos_sin_2pi(float u, float& c, float& s) {
   }
 }
 
+// atan(t)/(2π) on |t| <= tan(π/8), ops/trig.py's _AT and _TAN_PI_8
+constexpr float AT0 = static_cast<float>(1.5915465081e-01);
+constexpr float AT1 = static_cast<float>(-5.3026171236e-02);
+constexpr float AT2 = static_cast<float>(3.1232619285e-02);
+constexpr float AT3 = static_cast<float>(-1.7416252601e-02);
+constexpr float TAN_PI_8 = static_cast<float>(0.41421356237309503);
+constexpr float ATAN_FLOOR = static_cast<float>(1e-37);
+
+// atan2(y, x) in turns ∈ [-0.5, 0.5]: the half-octant reduction of
+// ops/trig.atan2_2pi (one divide, rounded as torch's float32 division
+// rounds), its degree-7 polynomial and octant fixups, one rounding per
+// operation in its order; atan2_2pi(0, 0) = 0
+__device__ __forceinline__ float atan2_2pi(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float num = fminf(ax, ay), den = fmaxf(ax, ay);
+  const bool fold = num > __fmul_rn(TAN_PI_8, den);
+  const float s1 = fold ? __fsub_rn(num, den) : num;
+  const float s2 = fold ? __fadd_rn(num, den) : den;
+  const float t = __fdiv_rn(s1, fmaxf(s2, ATAN_FLOOR));
+  const float w = __fmul_rn(t, t);
+  float r = __fmul_rn(
+      t, __fadd_rn(AT0, __fmul_rn(w, __fadd_rn(AT1, __fmul_rn(w, __fadd_rn(
+                                                      AT2, __fmul_rn(w, AT3)))))));
+  if (fold) r = __fadd_rn(r, 0.125f);
+  if (ay > ax) r = __fsub_rn(0.25f, r);
+  if (x < 0.0f) r = __fsub_rn(0.5f, r);
+  return y < 0.0f ? -r : r;
+}
+
 __device__ __forceinline__ float u24(uint32_t bits) {
   return __fmul_rn(static_cast<float>(bits >> 8), 1.0f / 16777216.0f);
 }

@@ -7,18 +7,21 @@ progress on ``err`` (stdout = dataset, stderr = progress).
 
 - ``relaxation`` serves the bit-packed routes (periodic 2-D and 3-D
   multispin, helical 2-D and 3-D multispin, the bit-sliced clock engines:
-  periodic q = 6, 4, 3, aligned and padded, helical q = 6) and the
-  periodic XY phases with and without over-relaxation;
+  periodic q = 6, 4, 3, aligned and padded, helical q = 6), the
+  periodic XY phases and the dense helical XY engines (odd nx, even ny;
+  angle planes by default, component planes with
+  ``SPINLAT_XY_DENSE_ANGLE=0``), with and without over-relaxation;
 - ``from_disorder`` (with ``rotate_after_first_mcs``: the fix1mcs app),
   ``finite_magne``, ``samples`` and ``finite_magne_samples`` serve the
   periodic XY model through ``sweep.make_xy_disorder_runner`` (the
   snapshot-measuring phase, the standalone measurement and the resident
   multisweep).
 
-Every other route of the JAX package (helical XY, over-relaxation on the
-other models, unpackable shapes, the per-sample runner of the other
-models, meshes) raises NotImplementedError naming the ROADMAP.md item that
-ports it, and never falls back.
+Every other route of the JAX package (the masked helical kernels and the
+generic runners behind helical XY shapes outside the dense gate and
+over-relaxation on the other models, unpackable shapes, the per-sample
+runner of the other models, meshes) raises NotImplementedError naming the
+ROADMAP.md item that ports it, and never falls back.
 
 Checkpoint/resume: pass ``checkpoint_path``; accumulators are saved
 every ``checkpoint_every`` histories and runs resume exactly
@@ -48,6 +51,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
     Ising3D,
     Ising3DHelical,
     XY2D,
+    XY2DHelical,
     build_model,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
@@ -56,6 +60,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     helical_multispin,
     ising2d_multispin,
     ising3d_multispin,
+    xy2d_helical_dense,
 )
 
 
@@ -153,12 +158,22 @@ def _check_route(cfg, model) -> None:
     admits the Ising and clock models and periodic XY, so what is left of
     the JAX package's ``_multispin_eligible``, ``_clock_multispin_eligible``
     and helical eligibility is the shape (and q for the clock); every
-    periodic XY shape is served, with or without over-relaxation."""
+    periodic XY shape is served, and helical XY within the dense engines'
+    gate (odd nx, even ny), with or without over-relaxation."""
     if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
         raise NotImplementedError(
             "multi-device meshes are not ported yet (ROADMAP.md queue A "
             "item 9)")
     if isinstance(model, XY2D):
+        return
+    if isinstance(model, XY2DHelical):
+        if not xy2d_helical_dense.fits(model):
+            raise NotImplementedError(
+                f"helical XY {cfg.nx}x{cfg.ny} is outside the dense "
+                "engines' gate (odd nx, even ny); the masked helical XY "
+                "kernels (helical_pallas.py:555,579) and the generic runners "
+                "that would serve it are not ported yet (ROADMAP.md queue A "
+                "item 4a, queue B item 13)")
         return
     if cfg.n_over_relax > 0:
         raise NotImplementedError(
@@ -225,6 +240,11 @@ def _make_runner(cfg, model, batch: int, device):
             model, cfg.mcs, batch, cfg.init_state,
             n_over_relax=cfg.n_over_relax,
             mcs_over_relax=cfg.mcs_over_relax, device=device)
+    if isinstance(model, XY2DHelical):
+        return sweep_mod.make_helical_runner(
+            model, cfg.mcs, batch, cfg.init_state, device=device,
+            n_over_relax=cfg.n_over_relax,
+            mcs_over_relax=cfg.mcs_over_relax)
     if isinstance(model, Clock2D):
         return sweep_mod.make_clock_multispin_runner(
             model, cfg.mcs, batch, cfg.init_state, device=device)

@@ -6,7 +6,8 @@ Port of the multispin part of
 ``make_multispin_runner``, ``make_multispin3d_runner``,
 ``make_clock_multispin_runner``, the Ising and q=6 clock branches of
 ``make_helical_runner``, ``xy_padded_eligible`` /
-``make_xy_padded_runner`` as :func:`make_xy_runner`, and the XY disorder
+``make_xy_padded_runner`` as :func:`make_xy_runner`, the dense XY branch of
+``make_helical_runner``, and the XY disorder
 runners of ``engine/protocols.py``, ``_xy_disorder_batched_runner`` and
 ``_xy_disorder_resident_runner``, as :func:`make_xy_disorder_runner`).
 A ``lax.scan`` there is a Python loop over kernel launches here.  The JAX runner sizes its dispatches from TPU
@@ -23,6 +24,7 @@ Keying: sweep t of the call keyed by ``call_key`` uses
 from __future__ import annotations
 
 import functools
+import os
 from typing import Callable
 
 import torch
@@ -38,6 +40,9 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import (
     XY2D,
     XYState,
 )
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d_helical import (
+    XY2DHelical,
+)
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     clock3_multispin,
     clock4_multispin,
@@ -49,6 +54,8 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     ising2d_multispin,
     ising3d_multispin,
     multispin_rng,
+    xy2d_helical_dense,
+    xy2d_helical_dense_angle,
     xy2d_measure_pallas,
     xy2d_pallas,
     xy2d_resident,
@@ -224,7 +231,8 @@ def make_clock_multispin_runner(model, mcs: int, batch: int,
 
 
 def make_helical_runner(model, mcs: int, batch: int,
-                        init_kind: str = "allup", device="cuda"
+                        init_kind: str = "allup", device="cuda",
+                        n_over_relax: int = 0, mcs_over_relax: int = 0
                         ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
     """`run(call_key) -> {m, e: (batch, mcs) float64}` on the flat
     even/odd bit-packed helical kernels, keyed by the global sweep index as
@@ -235,7 +243,11 @@ def make_helical_runner(model, mcs: int, batch: int,
     (sub-)phase launches (501^3, and 1001x1000x1000 with its four z-parity
     sub-phases and an energy launch a sweep).  q=6 clock
     (ops/clock_helical_multispin.py): one resident multisweep launch per
-    chunk."""
+    chunk.  XY (:func:`make_xy_helical_runner`, also {my}): the dense
+    engines' streamed phases, with ``n_over_relax`` / ``mcs_over_relax``."""
+    if isinstance(model, XY2DHelical):
+        return make_xy_helical_runner(model, mcs, batch, init_kind,
+                                      n_over_relax, mcs_over_relax, device)
     if isinstance(model, Clock2DHelical):
         return _tag(_make_packed_runner(
             model, mcs, batch, init_kind, True, device, DEFAULT_CHUNK,
@@ -262,6 +274,69 @@ def make_helical_runner(model, mcs: int, batch: int,
 
 
 XY_ENGINE = "xy2d periodic component planes (CUDA phases)"
+XY_HELICAL_ANGLE = "xy2d_helical_dense_angle f32-angle planes (CUDA phases)"
+XY_HELICAL_COMPONENT = ("xy2d_helical_dense ragged dual-colour component "
+                        "planes (CUDA phases)")
+
+
+def xy_helical_engine():
+    """(module, tag) of the dense helical XY engine: the f32-angle one by
+    default, as in the JAX package; ``SPINLAT_XY_DENSE_ANGLE=0`` selects
+    the component one, as there (its ``sweep.py:822``)."""
+    if os.environ.get("SPINLAT_XY_DENSE_ANGLE", "1") == "1":
+        return xy2d_helical_dense_angle, XY_HELICAL_ANGLE
+    return xy2d_helical_dense, XY_HELICAL_COMPONENT
+
+
+def make_xy_helical_runner(model, mcs: int, batch: int,
+                           init_kind: str = "allup", n_over_relax: int = 0,
+                           mcs_over_relax: int = 0, device="cuda",
+                           chunk: int = DEFAULT_CHUNK
+                           ) -> Callable[[torch.Tensor],
+                                         dict[str, torch.Tensor]]:
+    """`run(call_key) -> {m, my, e: (batch, mcs) float64}` on the dense
+    helical XY engine of :func:`xy_helical_engine`, with the schedule of
+    the XY branch of the JAX package's ``make_helical_runner``
+    (``sweep.py:768-822``; the reference's xy2d_gpu_relaxation.f90 and
+    xy2d_gpu_over_relaxation.f90): with no over-relaxation a Metropolis
+    sweep whose phase b measures; otherwise a Metropolis sweep, then for
+    t <= mcs_over_relax (default mcs) n_over_relax - 1 OR sweeps and one
+    whose second colour phase measures, and for later t the observables
+    of the state (plain PyTorch).  The initial flat state of replica r is
+    keyed by fold_in(init_key, r) and packed once; phase keys of a chunk
+    come from one batched derivation keyed by the global sweep index, so a
+    run is bitwise independent of ``chunk``."""
+    if not isinstance(model, XY2DHelical):
+        raise ValueError(f"{model!r} is not a helical XY model")
+    if not xy2d_helical_dense.fits(model):
+        raise ValueError(f"helical XY {model.nx}x{model.ny} is outside the "
+                         "dense engines' gate (odd nx, even ny)")
+    mod, tag = xy_helical_engine()
+    mcs_or = mcs_over_relax or mcs
+
+    def init_fn(call_key):
+        flat = _init_state(model, init_kind, batch, call_key, device)
+        return mod.pack_state(flat, model.ny, model.nx)
+
+    def chunk_fn(planes, call_key, t0, size):
+        seeds = multispin_rng.sweep_phase_keys(call_key, size, t0)
+        series = {"m": [], "my": [], "e": []}
+        for j in range(size):
+            if n_over_relax == 0:
+                planes, obs = mod.sweep_measure(model, planes, seeds[j])
+            else:
+                planes = mod.sweep(model, planes, seeds[j])
+                if t0 + j + 1 <= mcs_or:
+                    for _ in range(n_over_relax - 1):
+                        planes = mod.over_relax_sweep(model, planes)
+                    planes, obs = mod.over_relax_sweep_measure(model, planes)
+                else:
+                    obs = mod.observables(model, planes)
+            for k in series:
+                series[k].append(obs[k])
+        return planes, {k: torch.stack(v, dim=1) for k, v in series.items()}
+
+    return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk), tag)
 
 
 def make_xy_runner(model, mcs: int, batch: int, init_kind: str = "allup",

@@ -35,6 +35,15 @@ lanes, with zero pads; the port keeps (..., ny, nx/2), so the converters
 cut or zero-pad the lanes.  The accumulators' ``state_dict`` converters
 serve every Kahan accumulator, the disorder protocols' ``VarianceKahan``
 (A, the correlation) as the covariance ones.
+
+Helical XY (odd nx): the dense engines keep ragged colour planes, four
+component planes (ax, ay, bx, by) or two angle planes (a, b) in turns.
+JAX keeps them (..., ny, W), W a multiple of 128 lanes, its pad columns
+copies of column nc - 1 (``dense_pack`` clips the slot to the row's last
+site); the port keeps (..., ny, nc), nc = (nx + 1) // 2, equal to the first
+nc columns bit for bit, so the converters cut or pad by that copy.  The
+flat (..., nall) states of the masked engine pack into the port's planes
+with ``xy_helical_from_flat``.
 """
 
 from __future__ import annotations
@@ -195,6 +204,44 @@ def xy_to_numpy(state, width: int | None = None
             a = np.pad(a, pad)
         out.append(a)
     return tuple(out)
+
+
+def xy_helical_from_numpy(planes, nc: int) -> tuple[torch.Tensor, ...]:
+    """JAX dense helical XY planes (..., ny, W) float32 (numpy; the
+    component quadruple or the angle pair) -> the port's (..., ny, nc)
+    planes: their first nc columns."""
+    return tuple(torch.from_numpy(np.array(
+        np.asarray(p, dtype=np.float32)[..., :nc])) for p in planes)
+
+
+def xy_helical_to_numpy(planes, width: int | None = None
+                        ) -> tuple[np.ndarray, ...]:
+    """The port's dense helical XY planes -> float32 numpy planes, padded
+    to ``width`` columns (the JAX planes' W) with copies of column nc - 1,
+    as the JAX ``dense_pack`` fills its pad."""
+    out = []
+    for p in planes:
+        a = p.cpu().numpy().astype(np.float32)
+        if width is not None and width > a.shape[-1]:
+            reps = np.repeat(a[..., -1:], width - a.shape[-1], axis=-1)
+            a = np.concatenate([a, reps], axis=-1)
+        out.append(a)
+    return tuple(out)
+
+
+def xy_helical_from_flat(sx, sy, ny: int, nx: int, angle: bool = False
+                         ) -> tuple[torch.Tensor, ...]:
+    """Flat helical XY components (..., nall) (numpy, the JAX model's
+    state) -> the port's dense planes: (ax, ay, bx, by), or with
+    ``angle`` the (a, b) angle planes in turns."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense,
+        xy2d_helical_dense_angle,
+    )
+    mod = xy2d_helical_dense_angle if angle else xy2d_helical_dense
+    flat = tuple(torch.from_numpy(np.array(np.asarray(v, dtype=np.float32)))
+                 for v in (sx, sy))
+    return tuple(mod.pack_state(flat, ny, nx))
 
 
 def stats_state_from_numpy(d: Mapping[str, object]) -> dict:

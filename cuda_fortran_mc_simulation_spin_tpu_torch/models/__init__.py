@@ -11,6 +11,9 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d_helical import (  
     Ising3DHelical,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XY2D  # noqa: F401
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d_helical import (  # noqa: F401
+    XY2DHelical,
+)
 
 
 def build_model(cfg):
@@ -19,9 +22,10 @@ def build_model(cfg):
     1001x1000), periodic 3-D (even dims) and helical 3-D (odd nx, the
     reference's committed 151x151x150, 501x501x500 and 1001x1000x1000);
     the clock model, periodic (even nx) or helical (odd nx, the
-    reference's committed 501x500); and the periodic XY model (even nx).
-    Helical XY (odd nx) raises, naming the ROADMAP.md items that port
-    it."""
+    reference's committed 501x500); and the XY model, periodic (even nx)
+    or helical (odd nx, the reference's committed 10001x10000; the shapes
+    the dense engines do not serve are refused by
+    ``engine/protocols._check_route``)."""
     if cfg.model == "ising2d":
         if cfg.nx % 2 == 1:
             return Ising2DHelical(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt)
@@ -37,8 +41,6 @@ def build_model(cfg):
         return Clock2D(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt, q=cfg.q)
     if cfg.model == "xy2d":
         if cfg.nx % 2 == 1:
-            raise NotImplementedError(
-                f"helical XY (odd nx = {cfg.nx}) is not ported yet "
-                "(ROADMAP.md queue A item 8, queue B item 12)")
+            return XY2DHelical(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt)
         return XY2D(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt)
     raise ValueError(f"unknown model {cfg.model!r}")

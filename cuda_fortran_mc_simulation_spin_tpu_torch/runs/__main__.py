@@ -25,8 +25,18 @@ Metropolis sweep while t <= ``--mcs-over-relax`` (default: every t)::
         --model xy2d --nx 4000 --ny 4000 --kbt 0.89 --mcs 1000 \\
         --samples 16 --replicas 8 --n-over-relax 1 --output xy_or.dat
 
-and the XY disorder protocols: ``--protocol from_disorder`` (a random
-start rotated onto +x; ``--fix1mcs`` rotates after the first sweep),
+Odd ``--nx`` with even ``--ny`` runs helical XY on the dense engines
+(f32-angle planes; ``SPINLAT_XY_DENSE_ANGLE=0`` selects component
+planes), at the reference's geometry::
+
+    python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \\
+        --model xy2d --nx 10001 --ny 10000 --kbt 0.89 --mcs 1000 \\
+        --samples 4 --n-over-relax 1 --mcs-over-relax 1000 \\
+        --output xy_helical_or.dat
+
+and the XY disorder protocols (even nx only): ``--protocol
+from_disorder`` (a random start rotated onto +x; ``--fix1mcs`` rotates
+after the first sweep),
 ``finite_magne`` (``--init-magne``), ``samples`` (one row a sweep and
 history; the start from ``--init-state``) and ``finite_magne_samples``::
 
@@ -37,8 +47,8 @@ history; the start from ``--init-state``) and ``finite_magne_samples``::
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of
 routes the port does not serve yet (--mesh, --profile-dir, --backend
-other than auto, helical XY) raise with the ROADMAP.md item that ports
-them.
+other than auto, helical XY at odd --ny) raise with the ROADMAP.md item
+that ports them.
 """
 
 from __future__ import annotations

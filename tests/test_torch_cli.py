@@ -103,7 +103,7 @@ def test_cuda_without_a_card_raises(tmp_path):
     (["--model", "clock", "--q", "5"], "queue B item 13"),
     (["--model", "ising3d", "--nx", "2049", "--ny", "1024", "--nz", "1024"],
      "queue B item 13"),
-    (["--model", "xy2d", "--nx", "255", "--ny", "256"], "queue B item 12"),
+    (["--model", "xy2d", "--nx", "255", "--ny", "255"], "queue B item 13"),
     (["--nx", "4097", "--ny", "2048"], "queue B item 13"),
     (["--nx", "128", "--ny", "128"], "queue B item 13"),
 ])

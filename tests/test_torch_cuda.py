@@ -578,3 +578,148 @@ def test_xy_disorder_routes_agree_on_card(cuda, prep, monkeypatch):
     for k in ("mx", "my", "e", "A"):
         assert runs[0][k].shape == (2, 70)
         assert torch.equal(runs[0][k], runs[1][k]), k
+
+
+def _helical_planes(dev, nrep, ny, nx, seed):
+    """Dense helical XY planes of a random flat state: (ax, ay, bx, by)
+    components and (a, b) angles in turns, of one state."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense,
+        trig,
+    )
+    g = np.random.default_rng(seed)
+    turns = torch.from_numpy(g.uniform(-0.5, 0.5, size=(nrep, nx * ny))
+                             .astype(np.float32)).to(dev)
+    ang = list(xy2d_helical_dense.dense_pack(turns, ny, nx))
+    comp = [c.contiguous() for p in ang for c in trig.cos_sin_2pi(p)]
+    return comp, ang
+
+
+def _sums_close_1e12(got, want):
+    """float64 sums of the same float32 values in two orders: 1e-12
+    relative (of max(|want|, 1))."""
+    scale = want.abs().clamp(min=1.0)
+    assert torch.all((got - want).abs() <= 1e-12 * scale), (got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx,nrep", [(16, 65, 2), (64, 65, 4),
+                                        (256, 201, 2)])
+def test_xy_helical_kernels_match_plain(cuda, ny, nx, nrep):
+    """The four dense helical XY kernels (component and angle, Metropolis
+    with injected and Philox uniforms, over-relaxation), both colours,
+    measuring and not, against their plain versions on the same CUDA
+    tensors: the state bitwise, the sums to 1e-12 relative."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense as hd,
+        xy2d_helical_dense_angle as ha,
+    )
+    comp, ang = _helical_planes(cuda, nrep, ny, nx, nx + ny)
+    g = np.random.default_rng(ny + nx)
+    u = tuple(torch.from_numpy(g.random(tuple(ang[0].shape),
+                                        dtype=np.float32)).to(cuda)
+              for _ in range(2))
+    for color in (0, 1):
+        corder = (0, 1, 2, 3) if color == 0 else (2, 3, 0, 1)
+        aorder = (0, 1) if color == 0 else (1, 0)
+        seeds = rng.seeds_from_key(rng.base_key(12), color)
+        for measuring in (False, True):
+            runs = (
+                (hd.phase, hd.phase_plain, comp, corder,
+                 dict(beta=1 / KBT_XY), (u,)),
+                (hd.phase, hd.phase_plain, comp, corder,
+                 dict(beta=1 / KBT_XY), (seeds,)),
+                (hd.or_phase, hd.or_phase_plain, comp, corder, {}, ()),
+                (ha.angle_phase, ha.angle_phase_plain, ang, aorder,
+                 dict(beta=1 / KBT_XY), (u,)),
+                (ha.angle_phase, ha.angle_phase_plain, ang, aorder,
+                 dict(beta=1 / KBT_XY), (seeds,)),
+                (ha.angle_or_phase, ha.angle_or_phase_plain, ang, aorder,
+                 {}, ()))
+            for kernel, plain, planes, order, kw, extra in runs:
+                a = [planes[i].clone() for i in order]
+                b = [planes[i].clone() for i in order]
+                got = kernel(*a, *extra, color=color, measuring=measuring,
+                             **kw)
+                want = plain(*b, *extra, color=color, measuring=measuring,
+                             **kw)
+                assert all(torch.equal(p, q) for p, q in zip(a, b))
+                if measuring:
+                    _sums_close_1e12(got[-1], want[-1])
+
+
+@pytest.mark.cuda
+def test_xy_helical_atan2_matches_plain(cuda):
+    """The device atan2_2pi against ops/trig.atan2_2pi on the card,
+    bitwise, on points of every octant, the axes and (0, 0)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        trig,
+        xy2d_helical_dense_angle as ha,
+    )
+    g = np.random.default_rng(3)
+    y = np.concatenate([g.standard_normal(1 << 20), [0.0, 0.0, 1.0, -1.0]])
+    x = np.concatenate([g.standard_normal(1 << 20), [0.0, -1.0, 0.0, 0.0]])
+    y, x = (torch.from_numpy(v.astype(np.float32)).to(cuda) for v in (y, x))
+    got = ha.atan2_2pi(y, x)
+    assert torch.equal(got, trig.atan2_2pi(y, x))
+    assert float(got[-4]) == 0.0
+
+
+@pytest.mark.cuda
+def test_xy_helical_launches_refuse_index_overflow(cuda):
+    """The four helical entry points refuse, before any launch, a shape
+    whose grid-stride index would pass 2^31 (ny * nc below 2^31 but within
+    a grid's width of it) and an empty grid: cudaErrorInvalidValue."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense as hd,
+        xy2d_helical_dense_angle as ha,
+    )
+    ny, nc = 2, 2 ** 30 - 64
+    nblk = hd.blocks(ny, nc)
+    for grid in (nblk, 0):
+        shape = (1, ny, nc, grid, 0)
+        assert hd._lib().xyh_phase(*[None] * 8, *shape, -1.0, 0, 0,
+                                   None) == 1
+        assert hd._lib().xyh_over_relax(*[None] * 6, *shape, None) == 1
+        assert ha._lib().xya_phase(*[None] * 6, *shape, -1.0, 0, 0,
+                                   None) == 1
+        assert ha._lib().xya_over_relax(*[None] * 4, *shape, None) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["0", "1"])
+def test_xy_helical_runner_on_card_replays_plain_phases(cuda, engine,
+                                                        monkeypatch):
+    """The helical XY runner with over-relaxation on the card, both
+    engines: its series equal a replay of the plain phases on the card
+    with the same keys, to 1e-12 relative."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2DHelical
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import multispin_rng
+    monkeypatch.setenv("SPINLAT_XY_DENSE_ANGLE", engine)
+    mod, _ = sweep.xy_helical_engine()
+    model = XY2DHelical(nx=201, ny=256, kbt=KBT_XY)
+    key = rng.sample_key(rng.base_key(43), 0)
+    series = sweep.make_helical_runner(model, 4, 2, "random", device=cuda,
+                                       n_over_relax=2, mcs_over_relax=2)(key)
+    flat = sweep._init_state(model, "random", 2, key, cuda)
+    planes = list(mod.pack_state(flat, 256, 201))
+    seeds = multispin_rng.sweep_phase_keys(key, 4)
+    angle = engine == "1"
+    metro = mod.angle_phase_plain if angle else mod.phase_plain
+    over = mod.angle_or_phase_plain if angle else mod.or_phase_plain
+
+    def by_color(c):
+        if angle:
+            return planes if c == 0 else planes[::-1]
+        return planes if c == 0 else planes[2:] + planes[:2]
+
+    for t in range(4):
+        metro(*by_color(0), seeds[t, 0], color=0, beta=model.beta)
+        out = metro(*by_color(1), seeds[t, 1], color=1, beta=model.beta,
+                    measuring=t >= 2)
+        if t < 2:
+            for last in (False, True):
+                over(*by_color(0), color=0)
+                out = over(*by_color(1), color=1, measuring=last)
+        for j, k in enumerate(("m", "my", "e")):
+            _sums_close_1e12(series[k][:, t] * model.nsites, out[-1][:, j])

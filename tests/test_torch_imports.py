@@ -77,5 +77,6 @@ def test_the_slices_modules_are_checked():
                  "ops.clock_multispin", "ops.clock4_multispin",
                  "ops.clock3_multispin", "ops.clock_helical_multispin",
                  "models.clock", "models.clock_helical", "ops.trig",
-                 "ops.xy2d_pallas", "models.xy2d"):
+                 "ops.xy2d_pallas", "models.xy2d", "models.xy2d_helical",
+                 "ops.xy2d_helical_dense", "ops.xy2d_helical_dense_angle"):
         assert f"cuda_fortran_mc_simulation_spin_tpu_torch.{name}" in mods

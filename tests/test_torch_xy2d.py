@@ -452,8 +452,9 @@ def test_over_relaxation_on_other_models_raises_b13(tmp_path):
         main(["--model", "ising2d", "--nx", "256", "--ny", "256",
               "--n-over-relax", "1", "--device", "cpu", "--output",
               str(out)])
-    with pytest.raises(NotImplementedError, match="queue B item 12"):
-        main(["--model", "xy2d", "--nx", "33", "--ny", "32", "--device",
+    # helical XY outside the dense engines' gate (odd ny)
+    with pytest.raises(NotImplementedError, match="queue B item 13"):
+        main(["--model", "xy2d", "--nx", "33", "--ny", "31", "--device",
               "cpu", "--output", str(out)])
     assert not out.exists()
 

@@ -13,8 +13,11 @@ Metropolis only at 2000x2000, the XY disorder protocols (from
 disorder at the reference's 1500x1500, with and without fix1mcs, and
 finite-magne and its samples at 1000x1000), and helical XY at the
 reference's 10001x10000, with over-relaxation and Metropolis only, on the
-default f32-angle engine and (over-relaxation) the component one; and
-holds every kernel of those paths against its plain PyTorch version.
+default f32-angle engine and (over-relaxation) the component one, and
+periodic Ising at shapes the bit-packed engines refuse (1000x1000 on the
+int8 multisweep, 4000x4000 on the streamed int8 phases, --protocol
+samples at 1000x1000, 500^3); and holds every kernel of those paths
+against its plain PyTorch version.
 Phases (each prints a progress line on stderr):
 
 1. build the CUDA sources (csrc/*.cu) from scratch with nvcc, all at once;
@@ -63,6 +66,13 @@ Phases (each prints a progress line on stderr):
      state bitwise, the float64 sums within 1e-12 relative; the device
      atan2_2pi bitwise against ops/trig.atan2_2pi on 1e7 points of every
      octant, the axes and (0, 0);
+   - int8 Ising, at 130x126 x 3 (half 63, a masked last unit), 10x12x14 x 2
+     and each class's launch (1000x1000 x 16, 4000x4000 x 8, 1000x1000 x
+     1, 500^3 x 2): the 2-D and 3-D phase kernels with injected and Philox
+     words, both colours, and the measure kernel (2-D and 3-D, exact
+     sums); 64 multisweep sweeps at 1000x1000 x 16 against 64 phase-kernel
+     pairs with the measure kernel (state and sums) and against its plain
+     version;
 2b. <m>, <e> after one sweep from all-up against their closed forms for
    the chains' quantized acceptances, over >= 1e10 sites per path (helical
    3-D at 151^3 and 501^3, where every neighbour lies in the other
@@ -83,6 +93,9 @@ Phases (each prints a progress line on stderr):
    >= 1e10 sites each (the same closed forms); one over-relaxation sweep
    of a random 10001x10000 state on each engine keeps the energy within
    the bound check_xy_helical_over_relax derives;
+   the int8 phases' first sweep from all-up, with the measure kernel, at
+   4000x4000 x 8 and 500^3 x 2 over >= 1e10 sites each, against the closed
+   forms for the uint32-quantized thresholds;
 3. 2-D resident class: 2048^2, 16 replicas, 64 samples, 1000 MCS through
    the multisweep kernel;
 4. 2-D streaming class: 8192^2, 4 replicas, 4 samples, 200 MCS through
@@ -132,6 +145,14 @@ Phases (each prints a progress line on stderr):
    xy2d_samples32_2000x2000_mcs100.dat and the one-sample
    xy2d_10001x10000_mcs10000_s1.dat (sigma from the 32-sample curve's
    N·Var);
+4h. int8 Ising classes from all-up, at every t: 1000x1000 x 16, 64
+   samples, 1000 MCS through the int8 multisweep and 4000x4000 x 8, 8
+   samples, 200 MCS through the streamed phase and measure launches
+   (against the 2-D curve within 5 standard errors of the port's mean);
+   --protocol samples at 1000x1000, 16 histories of 200 MCS one at a time
+   (the per-t means against the same curve, combined sigma); 500^3 x 2, 2
+   samples, 1000 MCS through the 3-D phase and measure launches (against
+   data/production/ising3d_512_mcs1000_s1024.dat, combined sigma);
 5. times with CUDA events, beside each kernel's bound and its plain
    version's time, at the main paths' launch shapes (the helical kernel
    at 128 x 1001x1000, S = 64; the clock phase kernel at 2000x2000 x 40,
@@ -153,7 +174,13 @@ Phases (each prints a progress line on stderr):
    helical XY phase kernels at 10001x10000 x 1, plain and measuring, in
    three readings (the engines' A/B, angle over component), each held
    against its plain version, and each helical class's kernel share of
-   its wall.
+   its wall; the int8 kernels at their classes' launch shapes (the 2-D
+   phase and the measure kernel at 4000x4000 x 8 and 1000x1000 x 1, the
+   3-D ones at 500^3 x 2, the multisweep at 1000x1000 x 16 with S = 64
+   and 40), each held against its plain version, each int8 class's kernel
+   share of its wall, and the int8 route reading (one multisweep launch of
+   64 sweeps against 64 streamed sweeps at 1000^2 and 2000^2 for several
+   batches), where ops/ising2d_multisweep.MULTISWEEP_MAX_BYTES is read.
 
 It prints the kernels' JSON line, the card's `nvidia-smi` name and power
 limit, and last the device line.  It exits non-zero, printing no result,
@@ -743,7 +770,12 @@ def first_sweep_exact(msb, beta: float) -> tuple[float, float]:
     phase-b site with c up neighbours flips surely for c <= 2, with p4 for
     c = 3 and p8 for c = 4."""
     q4, q8 = msb.chain_words(beta)
-    p4, p8 = q4 / 2 ** 20, q8 / 2 ** 20
+    return first_sweep_exact_p(q4 / 2 ** 20, q8 / 2 ** 20)
+
+
+def first_sweep_exact_p(p4: float, p8: float) -> tuple[float, float]:
+    """:func:`first_sweep_exact` for the acceptances p4, p8 (the int8
+    kernels' uint32 thresholds over 2^32)."""
     all4, three = (1 - p8) ** 4, 4 * p8 * (1 - p8) ** 3
     flip_b = (1 - all4 - three) + three * p4 + all4 * p8
     m1 = 0.5 * (1 - 2 * p8) + 0.5 * (1 - 2 * flip_b)
@@ -764,7 +796,13 @@ def first_sweep_exact3d(ms3, beta: float) -> tuple[float, float]:
     surely for c <= 3.  A bond (a0, b0): b0's other five neighbours are
     independent of a0, so E[s_a s_b] follows from a0's two cases, and
     e = -3 E[s_a s_b] (three bonds a site)."""
-    p4, p8, p12 = (q / 2 ** 20 for q in ms3.chain_words3d(beta))
+    return first_sweep_exact3d_p(*(q / 2 ** 20
+                                   for q in ms3.chain_words3d(beta)))
+
+
+def first_sweep_exact3d_p(p4: float, p8: float, p12: float
+                          ) -> tuple[float, float]:
+    """:func:`first_sweep_exact3d` for the acceptances p4, p8, p12."""
     acc = {4: p4, 5: p8, 6: p12}
 
     def flip_prob(extra_up: int, others: int) -> float:
@@ -784,10 +822,11 @@ def first_sweep_exact3d(ms3, beta: float) -> tuple[float, float]:
 
 
 def check_z(name: str, total, nsites: int, want: tuple[float, float],
-            nvar: tuple[float, float]) -> None:
+            nvar: tuple[float, float]) -> float:
     """<m>, <e> summed over ``nsites`` sites against their exact values,
     within SIGMAS standard errors (variance from the reference's N·Var at
-    t = 1)."""
+    t = 1).  Returns the larger |z|."""
+    worst = 0.0
     for obs, got, exact, nv in (("m", int(total[0]) / nsites, want[0],
                                  nvar[0]),
                                 ("e", int(total[1]) / nsites, want[1],
@@ -797,6 +836,8 @@ def check_z(name: str, total, nsites: int, want: tuple[float, float],
             f"over {nsites:.3g} sites, z {z:+.2f}")
         if abs(z) > SIGMAS:
             fail(f"{name} first-sweep <{obs}> is {z:+.2f} sigma from exact")
+        worst = max(worst, abs(z))
+    return worst
 
 
 def check_first_sweep(msb, rng, dev, ref_row, iters: int) -> None:
@@ -2190,6 +2231,405 @@ def time_xy_helical(xhd, xha, dev, seeds, readings: int = 3):
     return times, err
 
 
+# ---------------------------------------------------------------------------
+# the int8 periodic Ising kernels: every even shape the bit-packed engines
+# refuse (ops/ising2d_pallas.py, ising3d_pallas.py, ising2d_measure_pallas.py,
+# ising2d_multisweep.py)
+# ---------------------------------------------------------------------------
+
+# (R, ny, half) / (R, nz, ny, half) of the checks: a ragged small shape
+# (half 63, a masked last unit), then each class's launch shape
+INT8_SHAPES_2D = ((3, 130, 63), (16, 1000, 500), (8, 4000, 2000),
+                  (1, 1000, 500))
+INT8_SHAPES_3D = ((2, 14, 12, 5), (2, 500, 500, 250))
+# the multisweep's check (the resident class's launch), the first sweeps'
+# (shape, sweeps) for >= 1e10 sites each, and the launch shapes timed
+INT8_MS_CHECK = (16, 1000, 500)
+INT8_FIRST_SWEEP = (((8, 4000, 2000), 79), ((2, 500, 500, 250), 40))
+INT8_TIMED = ((8, 4000, 2000), (1, 1000, 500), (2, 500, 500, 250))
+# minimum 32-bit instructions a site of an int8 phase beside a quarter of
+# its unit's Philox call: the neighbour sum (3 adds, 5 in 3-D), the side
+# column's select and wrap (2), k = s * nsum and its test (2), the
+# threshold's two selects and the compare (3), the flip's negate and select
+# (2); a site of the measure pass: its two bonds' (three in 3-D) adds, the
+# product and the two sums (5, 6); the fused sums of a measuring phase b
+# (4).  Bytes a site of the colour updated: its byte read and written and
+# the other colour's read once (3); the measure pass reads every site once
+# (1 B a site)
+OPS_INT8_SITE = {2: 12, 3: 14}
+OPS_INT8_MEASURE = {2: 5, 3: 6}
+OPS_INT8_FUSED = 4
+INT8_PHASE_BYTES = 3
+# the int8 route readings (nx, R): ms a sweep of the multisweep against the
+# streamed phase-measure launches, about the bound's batch·nx·ny bytes
+INT8_ROUTE_SHAPES = ((1000, 1), (1000, 4), (1000, 16), (1000, 32),
+                     (1000, 64), (2000, 1), (2000, 4), (2000, 8),
+                     (2000, 16))
+
+
+def int8_phase_ops(dims: int) -> float:
+    """Instructions a site of an int8 phase (a quarter Philox call)."""
+    return OPS_PER_PHILOX / 4 + OPS_INT8_SITE[dims]
+
+
+def int8_state(dev, shape, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    g = np.random.default_rng(seed)
+    return tuple(torch.from_numpy((g.integers(0, 2, size=shape,
+                                              dtype=np.int8) * 2 - 1)
+                                  .astype(np.int8)).to(dev)
+                 for _ in range(2))
+
+
+def check_int8(i2p, i3p, i8m, i8ms, rng, dev) -> dict[str, int]:
+    """The int8 kernels against their plain versions on the same CUDA
+    tensors, bitwise: both phase kernels with injected and Philox words,
+    both colours, and the measure kernel, at a ragged small shape and at
+    each class's launch shape; 64 multisweep sweeps at 1000x1000 x 16
+    against 64 phase-kernel pairs with measure_kernel (state and sums)
+    and against the plain multisweep.  Returns the largest absolute
+    difference a kernel."""
+    errs = {"phase2d": 0, "phase3d": 0, "measure": 0, "multisweep": 0}
+    for shape in INT8_SHAPES_2D + INT8_SHAPES_3D:
+        dims = len(shape) - 1
+        mod, beta = (i2p, 1.0 / KBT) if dims == 2 else (i3p, 1.0 / KBT_3D)
+        a, b = int8_state(dev, shape, sum(shape))
+        bits = random_words(shape, len(shape) + shape[0], dev, n=1)[0]
+        e_bits = e_rand = 0
+        for color in (0, 1):
+            x, o = (a, b) if color == 0 else (b, a)
+            seeds = rng.seeds_from_key(rng.base_key(17), color)
+            e_bits = max(e_bits, max_abs_err([(
+                mod.metropolis_phase(x.clone(), o, color=color, beta=beta,
+                                     bits=bits),
+                mod.phase_plain(x, o, color=color, beta=beta, bits=bits))]))
+            e_rand = max(e_rand, max_abs_err([(
+                mod.metropolis_phase(x.clone(), o, seeds, color=color,
+                                     beta=beta),
+                mod.phase_plain(x, o, seeds, color=color, beta=beta))]))
+        e_m = max_abs_err([(i8m.measure_sums(a, b),
+                            i8m.measure_sums_plain(a, b))])
+        errs[f"phase{dims}d"] = max(errs[f"phase{dims}d"], e_bits, e_rand)
+        errs["measure"] = max(errs["measure"], e_m)
+        log(f"  int8 {dims}-D {'x'.join(map(str, shape))}: phase bits "
+            f"{e_bits}, philox {e_rand}; measure {e_m}")
+        del a, b, bits
+    a, b = int8_state(dev, INT8_MS_CHECK, 31)
+    seeds = multispin_keys(rng, 64)
+    ka, kb, kobs = i8ms.multisweep_planes(a.clone(), b.clone(), seeds,
+                                          beta=1.0 / KBT)
+    pa, pb, obs = a.clone(), b.clone(), []
+    for s in range(64):
+        i2p.metropolis_phase(pa, pb, seeds[s, 0], color=0, beta=1.0 / KBT)
+        i2p.metropolis_phase(pb, pa, seeds[s, 1], color=1, beta=1.0 / KBT)
+        obs.append(i8m.measure_sums(pa, pb))
+    e_pairs = max_abs_err([(ka, pa), (kb, pb),
+                           (kobs, torch.stack(obs, dim=1))])
+    qa, qb, qobs = i8ms.multisweep_plain(a, b, seeds, beta=1.0 / KBT)
+    e_plain = max_abs_err([(ka, qa), (kb, qb), (kobs, qobs)])
+    errs["multisweep"] = max(e_pairs, e_plain)
+    log(f"  int8 multisweep {'x'.join(map(str, INT8_MS_CHECK))}, S=64: vs "
+        "64 phase pairs and "
+        f"measure_kernel {e_pairs}, vs plain {e_plain}")
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        if e != 0:
+            fail(f"int8 {name} kernel differs from its plain version (max "
+                 f"abs err {e})")
+    return errs
+
+
+def multispin_keys(rng, sweeps: int, seed: int = 29):
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import multispin_rng
+    return multispin_rng.sweep_phase_keys(
+        rng.sample_key(rng.base_key(seed), 0), sweeps)
+
+
+def check_first_sweep_int8(i2p, i3p, i8m, rng, dev, ref_row, ref3_row
+                           ) -> float:
+    """<m>(1), <e>(1) of the int8 kernels from all-up against the closed
+    forms for the uint32-quantized thresholds, over >= 1e10 sites each:
+    2-D at 4000x4000 x 8 (79 sweeps), 3-D at 500^3 x 2 (40 sweeps), each
+    sweep two phase launches and the measure kernel.  Returns the largest
+    |z|."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.core import tables
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Ising2D,
+        Ising3D,
+    )
+
+    worst = 0.0
+    for shape, iters in INT8_FIRST_SWEEP:
+        if len(shape) == 3:
+            name, mod, ref_r = "int8 2-D", i2p, ref_row
+            model = Ising2D(nx=2 * shape[2], ny=shape[1], kbt=KBT)
+        else:
+            name, mod, ref_r = "int8 3-D", i3p, ref3_row
+            model = Ising3D(nx=2 * shape[3], ny=shape[2], nz=shape[1],
+                            kbt=KBT_3D)
+        total = torch.zeros(2, dtype=torch.int64, device=dev)
+        base = rng.base_key(2027)
+        for it in range(iters):
+            a = torch.ones(shape, dtype=torch.int8, device=dev)
+            b = torch.ones(shape, dtype=torch.int8, device=dev)
+            seeds = i2p.phase_seeds(rng.sweep_key(rng.sample_key(base, it),
+                                                  1))
+            mod.metropolis_phase(a, b, seeds[0], color=0, beta=model.beta)
+            mod.metropolis_phase(b, a, seeds[1], color=1, beta=model.beta)
+            total += i8m.measure_sums(a, b).sum(dim=0)
+        if len(shape) == 3:
+            t4, t8 = i2p.accept_thresholds_u32(model.beta)
+            want = first_sweep_exact_p(t4 / 2 ** 32, t8 / 2 ** 32)
+        else:
+            want = first_sweep_exact3d_p(
+                *(t / 2 ** 32
+                  for t in tables.ising3d_accept_thresholds_u32(model.beta)))
+        nsites = iters * shape[0] * model.nsites
+        worst = max(worst, check_z(name, total, nsites, want,
+                                   (ref_r[7], ref_r[8])))
+    return worst
+
+
+def run_int8_samples(main_fn, modules, out_dir, ref, histories: int,
+                     mcs: int) -> tuple[dict, float, float, float]:
+    """--protocol samples on 1000x1000 Ising 2-D, one history at a time
+    through the per-history runner; the rows N, sample, t, m, e and the
+    per-t means of m and e over the histories against the reference curve
+    within SIGMAS combined standard errors, sigma^2 = N·Var_ref (1/(N n)
+    + 1/(N_ref n_ref)).  Returns (launches, wall, rate, largest |z|)."""
+    n = 1000
+    nsites = n * n
+    launches, wall, rate, table, head = run_main_path(
+        main_fn, modules, out_dir, "ising2d_int8_samples",
+        ["--model", "ising2d", "--protocol", "samples", "--nx", str(n),
+         "--ny", str(n), "--kbt", repr(KBT), "--mcs", str(mcs), "--samples",
+         str(histories)], nsites, histories, mcs)
+    if "# engine: phase engine (single history)" not in head:
+        fail(f"samples run took another route: {head}")
+    want = np.stack([np.full(histories * mcs, nsites),
+                     np.repeat(np.arange(1, histories + 1), mcs),
+                     np.tile(np.arange(1, mcs + 1), histories)], axis=1)
+    if table.shape != (histories * mcs, 5) or not np.array_equal(
+            table[:, :3], want) or not np.all(np.isfinite(table)):
+        fail(f"samples rows: shape {table.shape} or the N, sample, t "
+             "columns are wrong")
+    port = table[:, 3:].reshape(histories, mcs, 2).mean(axis=0)
+    worst = 0.0
+    n_ref, ns_ref = ref[0, 0], ref[0, 1]
+    for t in range(1, mcs + 1):
+        rrow = row_at(ref, t)
+        for k, (name, col, var_col) in enumerate((("m", 3, 7),
+                                                  ("e", 4, 8))):
+            sigma = math.sqrt(rrow[var_col] * (1.0 / (nsites * histories)
+                                               + 1.0 / (n_ref * ns_ref)))
+            z = (port[t - 1, k] - rrow[col]) / sigma
+            if t in (1, 10, 100, mcs):
+                log(f"  samples t={t:4d} <{name}> port {port[t - 1, k]:.9f} "
+                    f"reference {rrow[col]:.9f} z {z:+.2f}")
+            worst = max(worst, abs(z))
+            if abs(z) > SIGMAS:
+                fail(f"samples <{name}>({t}) is {z:+.2f} sigma from the "
+                     "reference")
+    log(f"  samples: largest |z| {worst:.2f} over {mcs} times")
+    return launches, wall, rate, worst
+
+
+def time_int8(label: str, sites: int, kernel, plain, inputs, nbytes: float,
+              ops: float, reps: int, plain_reps: int) -> tuple[dict, int]:
+    """CUDA-event time of an int8 wrapper on clones of ``inputs`` (the
+    phases update their planes in place) and of its plain version, beside
+    the bound; then one call of each on the same inputs, compared."""
+    work = [t.clone() for t in inputs]
+    ms = cuda_time_ms(lambda: kernel(*work), reps=reps)
+    plain_ms = cuda_time_ms(lambda: plain(*inputs), reps=plain_reps,
+                            warmup=1)
+    got = kernel(*(t.clone() for t in inputs))
+    want = plain(*inputs)
+    pairs = (list(zip(got, want)) if isinstance(got, tuple)
+             else [(got, want)])
+    err = max_abs_err(pairs)
+    bound, by = bound_ms(nbytes, ops)
+    log(f"  {label}: {ms:.4f} ms/launch ({sites / ms * 1e3:.4g} sites/s), "
+        f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); vs plain "
+        f"{err}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}, err
+
+
+def time_int8_kernels(i2p, i3p, i8m, i8ms, rng, dev) -> dict:
+    """Each int8 kernel at its classes' launch shapes: the 2-D phase at
+    4000^2 x 8 (streamed) and 1000^2 x 1 (samples), the 3-D phase at 500^3
+    x 2, the measure kernel at each of those, the multisweep at 1000^2 x 16
+    with S = 64 and 40 (a call's 15 launches of 64 sweeps and one of 40);
+    each held against its plain version.  Returns {label: (times, err)}."""
+    seeds = multispin_keys(rng, 64, 37)
+    out = {}
+    for shape in INT8_TIMED:
+        dims = len(shape) - 1
+        mod, beta = (i2p, 1.0 / KBT) if dims == 2 else (i3p, 1.0 / KBT_3D)
+        a, b = int8_state(dev, shape, 41 + len(shape))
+        sites = a.numel()
+        tag = "x".join(map(str, shape))
+        out[f"phase{dims}d {tag}"] = time_int8(
+            f"int8 {dims}-D phase kernel {tag}", sites,
+            lambda x, o: mod.metropolis_phase(x, o, seeds[0, 0], color=0,
+                                              beta=beta),
+            lambda x, o: mod.phase_plain(x, o, seeds[0, 0], color=0,
+                                         beta=beta),
+            (a, b), INT8_PHASE_BYTES * sites, sites * int8_phase_ops(dims),
+            reps=20, plain_reps=1)
+        out[f"measure{dims}d {tag}"] = time_int8(
+            f"int8 {dims}-D measure kernel {tag}", 2 * sites,
+            i8m.measure_sums, i8m.measure_sums_plain, (a, b),
+            2 * sites + 16 * shape[0], 2 * sites * OPS_INT8_MEASURE[dims],
+            reps=20, plain_reps=1)
+        del a, b
+    a, b = int8_state(dev, INT8_MS_CHECK, 53)
+    sites = a.numel()
+    for sweeps in (64, 40):
+        out[f"multisweep S={sweeps}"] = time_int8(
+            f"int8 multisweep kernel {'x'.join(map(str, INT8_MS_CHECK))}, "
+            f"S={sweeps}",
+            2 * sites * sweeps,
+            lambda x, o: i8ms.multisweep_planes(x, o, seeds[:sweeps],
+                                                beta=1.0 / KBT),
+            lambda x, o: i8ms.multisweep_plain(x, o, seeds[:sweeps],
+                                               beta=1.0 / KBT),
+            (a, b), 2 * 2 * sites + 16 * a.shape[0] * sweeps,
+            2 * sites * sweeps * int8_phase_ops(2)
+            + sites * sweeps * OPS_INT8_FUSED, reps=5, plain_reps=1)
+    return out
+
+
+def compare_int8_routes(i2p, i8m, i8ms, rng, dev) -> list[tuple]:
+    """ms a sweep of the int8 runner's two 2-D routes, CUDA events, host
+    loop included: one multisweep launch of 64 sweeps against 64 streamed
+    sweeps (two phase launches and the measure kernel each), at
+    INT8_ROUTE_SHAPES.  Returns [(nx, R, bytes, multisweep ms, streamed
+    ms)]."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import Ising2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
+        CheckerboardState,
+    )
+
+    seeds = multispin_keys(rng, 64, 43)
+    rows = []
+    for nx, nrep in INT8_ROUTE_SHAPES:
+        model = Ising2D(nx=nx, ny=nx, kbt=KBT)
+        a, b = int8_state(dev, (nrep, nx, nx // 2), nx + nrep)
+
+        def resident():
+            i8ms.multisweep_planes(a, b, seeds, beta=model.beta)
+
+        def streamed():
+            for j in range(64):
+                i2p.sweep_seeded(model, CheckerboardState(a, b), seeds[j])
+                i8m.measure_sums(a, b)
+
+        res_ms, str_ms = _route_times(resident, streamed, 64)
+        nbytes = nrep * nx * nx
+        rows.append((nx, nrep, nbytes, res_ms, str_ms))
+        log(f"  int8 route {nx}^2 x {nrep} ({nbytes / 2 ** 20:.1f} MiB, "
+            f"fits {i8ms.fits(nrep, nx, nx // 2)}): multisweep "
+            f"{res_ms:.5f} ms/sweep, streamed {str_ms:.5f} ms/sweep, "
+            f"streamed/multisweep {str_ms / res_ms:.3f}")
+        del a, b
+    return rows
+
+
+def expect_launches(label: str, launches: dict, want: dict) -> None:
+    """Fail unless each named kernel count of a class equals ``want``."""
+    got = {mod: {k: launches[mod][k] for k in ks} for mod, ks in want.items()}
+    if got != want:
+        fail(f"int8 {label} path launched {got}, want {want}")
+
+
+def run_int8_classes(main_fn, modules, out_dir, ref, ref3) -> dict:
+    """The int8 classes through the CLI from all-up, each against its
+    reference curve at every t: 1000x1000 x 16, 64 samples, 1000 MCS on the
+    multisweep; 4000x4000 x 8 (128 MB of planes, over the multisweep's
+    bound), 8 samples, 200 MCS on the streamed phase and measure launches
+    (both against the 2-D curve within 5 standard errors of the port's
+    mean); --protocol samples at 1000x1000, 16 histories of 200 MCS one at
+    a time; 500^3 x 2, 2 samples, 1000 MCS on the 3-D phase and measure
+    launches (against the 512^3 curve within 5 combined standard errors).
+    Returns {label: (launches, wall, rate, largest |z|)}."""
+    out = {}
+    ms = "ising2d_int8_multisweep"
+    for label, n, nrep, samples, mcs, engine in (
+            ("2-D resident 1000^2 x 16", 1000, 16, 64, 1000,
+             "int8 multisweep (cooperative)"),
+            ("2-D streamed 4000^2 x 8", 4000, 8, 8, 200,
+             "phase engine (batched)")):
+        log(f"phase 4h: int8 2-D path, {label}, {samples} samples, {mcs} "
+            "MCS")
+        launches, wall, rate, table, head = run_main_path(
+            main_fn, modules, out_dir, f"ising2d_int8_{n}",
+            ["--model", "ising2d", "--nx", str(n), "--ny", str(n), "--kbt",
+             repr(KBT), "--mcs", str(mcs), "--samples", str(samples),
+             "--replicas", str(nrep)], n * n, samples, mcs)
+        if f"# engine: {engine}" not in head:
+            fail(f"int8 {label} took another route: {head}")
+        z = check_against_reference(table, ref, n * n, samples, mcs,
+                                    range(1, mcs + 1))
+        calls = samples // nrep
+        resident = engine.startswith("int8 multisweep")
+        expect_launches(label, launches, {
+            ms: {"multisweep": calls * -(-mcs // 64) if resident else 0},
+            "ising2d_int8": {"phase": 0 if resident else 2 * calls * mcs},
+            "ising_int8_measure": {"measure2d": 0 if resident
+                                   else calls * mcs, "measure3d": 0}})
+        out[label] = (launches, wall, rate, z)
+    label = "2-D samples 1000^2 x 1"
+    log(f"phase 4h: int8 2-D path, {label}: --protocol samples, 16 "
+        "histories, 200 MCS")
+    launches, wall, rate, z = run_int8_samples(main_fn, modules, out_dir, ref,
+                                               16, 200)
+    expect_launches(label, launches, {
+        ms: {"multisweep": 0}, "ising2d_int8": {"phase": 2 * 16 * 200},
+        "ising_int8_measure": {"measure2d": 16 * 200, "measure3d": 0}})
+    out[label] = (launches, wall, rate, z)
+    label = "3-D 500^3 x 2"
+    log(f"phase 4h: int8 3-D path, {label}, 2 samples, 1000 MCS")
+    launches, wall, rate, z = run_3d(
+        main_fn, modules, out_dir, (500, 500, 500), KBT_3D, 2, 2, 1000, ref3,
+        range(1, 1001), "phase engine (batched)", ref_nsites=512 ** 3)
+    expect_launches(label, launches, {
+        "ising3d_int8": {"phase": 2000}, "ising2d_int8": {"phase": 0},
+        "ising_int8_measure": {"measure2d": 0, "measure3d": 1000}})
+    out[label] = (launches, wall, rate, z)
+    return out
+
+
+def int8_shares(classes: dict, t8: dict) -> dict[str, float]:
+    """Each int8 class's kernel time (its launches times the launch times
+    measured at its shape) over its wall."""
+    def ms(key):
+        return t8[key][0]["ms"]
+
+    shares = {}
+    for label, (n, wall, _, _) in classes.items():
+        ph2, ph3 = n["ising2d_int8"]["phase"], n["ising3d_int8"]["phase"]
+        m2 = n["ising_int8_measure"]["measure2d"]
+        m3 = n["ising_int8_measure"]["measure3d"]
+        launches = n["ising2d_int8_multisweep"]["multisweep"]
+        if label.startswith("2-D resident"):
+            kern = launches // 16 * (15 * ms("multisweep S=64")
+                                     + ms("multisweep S=40"))
+        elif label.startswith("2-D streamed"):
+            kern = (ph2 * ms("phase2d 8x4000x2000")
+                    + m2 * ms("measure2d 8x4000x2000"))
+        elif label.startswith("2-D samples"):
+            kern = (ph2 * ms("phase2d 1x1000x500")
+                    + m2 * ms("measure2d 1x1000x500"))
+        else:
+            kern = (ph3 * ms("phase3d 2x500x500x250")
+                    + m3 * ms("measure3d 2x500x500x250"))
+        shares[label] = kern / (wall * 1e3)
+        log(f"  int8 {label}: kernel {kern / 1e3:.3f} s of a {wall:.3f} s "
+            f"wall; kernel share {shares[label]:.3f}")
+    return shares
+
+
 def read_dat(path: Path, max_t: int | None = None) -> np.ndarray:
     """A .dat table's rows; with ``max_t`` only those up to t = max_t
     (the clock curves run to 10^5 sweeps)."""
@@ -2344,6 +2784,18 @@ def main() -> int:
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         ising3d_multispin as ms3,
     )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_measure_pallas as i8m,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_multisweep as i8ms,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_pallas as i2p,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising3d_pallas as i3p,
+    )
     from cuda_fortran_mc_simulation_spin_tpu_torch.engine.sweep import (
         XY_DISORDER_RESIDENT,
         XY_DISORDER_STREAMED,
@@ -2375,7 +2827,9 @@ def main() -> int:
     modules = {"ising2d": msb, "helical": hms, "ising3d": ms3,
                "helical3d": h3, "clock": cp, "clock_helical": chm,
                "xy": xyp, "xy_measure": xym, "xy_resident": xyr,
-               "xy_helical": xhd, "xy_helical_angle": xha}
+               "xy_helical": xhd, "xy_helical_angle": xha,
+               "ising2d_int8": i2p, "ising3d_int8": i3p,
+               "ising_int8_measure": i8m, "ising2d_int8_multisweep": i8ms}
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device {torch.cuda.get_device_name(0)} | {smi} | torch "
@@ -2420,8 +2874,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"  cooperative grids: 2-D {msb.multisweep_grid_blocks()}, 3-D "
-        f"{ms3.multisweep_grid_blocks()}, XY {xyr.grid_blocks()} blocks "
-        "resident")
+        f"{ms3.multisweep_grid_blocks()}, XY {xyr.grid_blocks()}, int8 2-D "
+        f"{i8ms.grid_blocks()} blocks resident")
 
     # 2. kernels against their plain versions
     log("phase 2: kernels vs plain versions (bitwise)")
@@ -2439,6 +2893,7 @@ def main() -> int:
     err_xyd, rel_xyd = check_xy_disorder(xyp, xym, xyr, rng, dev)
     err_xyh, rel_xyh = check_xy_helical(xhd, xha, rng, dev)
     check_atan2(xha, dev)
+    errs8 = check_int8(i2p, i3p, i8m, i8ms, rng, dev)
 
     log("phase 2b: first sweep from all-up against its exact expectation")
     check_first_sweep(msb, rng, dev, ref[0], iters=100)
@@ -2461,6 +2916,7 @@ def main() -> int:
     my_rot, prep_err = check_xy_preparations(dev)
     z_xyh = check_xy_helical_phase_a(xhd, xha, rng, dev, iters=200)
     de_xyh = check_xy_helical_over_relax(xhd, xha, dev)
+    z_int8 = check_first_sweep_int8(i2p, i3p, i8m, rng, dev, ref[0], ref3[0])
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         # 3. 2-D resident class through the multisweep kernel
@@ -2673,11 +3129,16 @@ def main() -> int:
             if got != want or any(n[other].values()) or n["xy"]["metropolis"]:
                 fail(f"helical XY {label} path: {n} (want {mod}: {want})")
             helical[label] = (n, wall, rate, z)
+        # 4h. periodic Ising at shapes the bit-packed engines refuse, on the
+        # int8 kernels: the multisweep, the streamed phase and measure
+        # launches, one history at a time, and 3-D
+        int8 = run_int8_classes(cli_main, modules, out, ref, ref3)
     paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch,
              h1_launch, h5_launch, ha_launch, cp_launch, ca_launch,
              ch_launch, xo_launch, xm_launch,
              *(d[0] for d in disorder.values()),
-             *(h[0] for h in helical.values()))
+             *(h[0] for h in helical.values()),
+             *(c[0] for c in int8.values()))
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -3084,6 +3545,16 @@ def main() -> int:
     compare_routes_3d(ms3, dev, seeds[:32])
     route_h3 = compare_routes_helical3d(h3, hms, dev, seeds)
 
+    # the int8 kernels at their classes' launch shapes, each class's kernel
+    # share of its wall, and the int8 route reading
+    t8 = time_int8_kernels(i2p, i3p, i8m, i8ms, rng, dev)
+    e8 = max(err for _, err in t8.values())
+    if e8 != 0:
+        fail(f"an int8 kernel differs from its plain version at its "
+             f"main-path launch shape ({ {k: v[1] for k, v in t8.items()} })")
+    int8_share = int8_shares(int8, t8)
+    int8_routes = compare_int8_routes(i2p, i8m, i8ms, rng, dev)
+
     src = "cuda_fortran_mc_simulation_spin_tpu_torch/csrc/"
     ref_py = "cuda_fortran_mc_simulation_spin_tpu/ops/"
     rows = [
@@ -3147,6 +3618,21 @@ def main() -> int:
          "xy2d_helical_dense_angle.cu", "xy2d_helical_dense_angle.py:308",
          launched("xy_helical_angle", "or"),
          max(err_xyh["angle_or"], xyh_err), xyh_t["angle or"][0]),
+        ("ising2d_pallas.phase_kernel", "ising2d_pallas.cu",
+         "ising2d_pallas.py:126", launched("ising2d_int8", "phase"),
+         max(errs8["phase2d"], e8), t8["phase2d 8x4000x2000"][0]),
+        ("ising3d_pallas.phase_kernel", "ising3d_pallas.cu",
+         "ising3d_pallas.py:85", launched("ising3d_int8", "phase"),
+         max(errs8["phase3d"], e8), t8["phase3d 2x500x500x250"][0]),
+        ("ising2d_measure_pallas.measure_kernel",
+         "ising2d_measure_pallas.cu", "ising2d_measure_pallas.py:74",
+         launched("ising_int8_measure", "measure2d")
+         + launched("ising_int8_measure", "measure3d"),
+         max(errs8["measure"], e8), t8["measure2d 8x4000x2000"][0]),
+        ("ising2d_multisweep.multisweep_kernel", "ising2d_multisweep.cu",
+         "ising2d_multisweep.py:128",
+         launched("ising2d_int8_multisweep", "multisweep"),
+         max(errs8["multisweep"], e8), t8["multisweep S=64"][0]),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -3205,6 +3691,14 @@ def main() -> int:
         + f"; phase a largest |z| {z_xyh:.2f}; OR |dE|/N "
         + ", ".join(f"{k} {v:.3g}" for k, v in de_xyh.items())
         + f"; sums' relative error {rel_xyh:.3g}")
+    log("main path int8 Ising: " + "; ".join(
+        f"{label} {rate:.4g} flip attempts/s ({wall:.2f} s, largest |z| "
+        f"{z:.2f}, kernel share {int8_share[label]:.3f})"
+        for label, (_, wall, rate, z) in int8.items())
+        + f"; first sweeps largest |z| {z_int8:.2f}; routes (nx, R, MiB, "
+        "multisweep, streamed ms a sweep) "
+        + ", ".join(f"({nx}, {r}, {b / 2 ** 20:.1f}, {a:.5f}, {c:.5f})"
+                    for nx, r, b, a, c in int8_routes))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

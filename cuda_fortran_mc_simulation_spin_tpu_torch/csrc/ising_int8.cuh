@@ -1,0 +1,210 @@
+// The int8 checkerboard Ising update and its sums, shared by the int8
+// phase kernels (csrc/ising2d_pallas.cu, csrc/ising3d_pallas.cu), the
+// int8 multisweep (csrc/ising2d_multisweep.cu) and the measure kernel
+// (csrc/ising2d_measure_pallas.cu), so that all of them apply the same
+// function to the same random words.
+//
+// Layout (core/lattice.py): ±1 int8 colour planes (R, nz, ny, half),
+// nz = 1 in 2-D; colour 0 holds the sites x = 2i + ((y + z) & 1) of row
+// (z, y).  The other colour's site i is the same-column neighbour; the
+// side neighbour is column i + 1 when (y + z) & 1 differs from the colour
+// and i - 1 when it equals it (periodic in i), the up/down ones rows
+// y -+ 1 and, in 3-D, planes z -+ 1 (periodic).
+//
+// Unit: four adjacent sites 4j .. 4j + 3 of one row; the tail unit of a
+// row whose half is not a multiple of 4 is masked.  Random words
+// (ops/ising2d_pallas.py): the unit's one Philox4x32-10 call at counter
+// (replica, z * ny + y, j, 0) under the phase key; site 4j + k takes
+// output k.
+//
+// Acceptance (JAX ops/ising2d_pallas._phase_kernel, ising3d_pallas): with
+// k = s * nsum (dE / 2), flip iff k <= 0 or word < t_k, t_2 = t4,
+// t_4 = t8, t_6 = t12 = round(exp(-2 beta k) * 2^32) (uint32 compare).
+#pragma once
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "philox.cuh"
+
+namespace ising8 {
+
+constexpr int THREADS = 256;
+
+struct Geometry {
+  int nz, ny, half;  // nz = 1 in 2-D
+  int units;         // (half + 3) / 4 units a row
+};
+
+// a coherent load bypasses L1: the multisweep kernel reads, after a grid
+// barrier, what other SMs wrote
+template <bool COHERENT>
+__device__ __forceinline__ int load(const int8_t* p, size_t i) {
+  return COHERENT ? static_cast<int>(__ldcg(p + i))
+                  : static_cast<int>(__ldg(p + i));
+}
+
+__device__ __forceinline__ int wrap(int v, int n) {
+  return v < 0 ? v + n : (v >= n ? v - n : v);
+}
+
+// Offsets of the rows a unit of row (z, y) of replica r reads.
+struct Rows {
+  size_t row, up, down, zm, zp;
+  int parity;
+};
+
+template <int D>
+__device__ __forceinline__ Rows rows_of(const Geometry& g, int r, int z,
+                                        int y) {
+  const size_t plane = static_cast<size_t>(g.ny) * g.half;
+  const size_t rep = static_cast<size_t>(r) * g.nz * plane;
+  const size_t zo = rep + static_cast<size_t>(z) * plane;
+  Rows w;
+  w.row = zo + static_cast<size_t>(y) * g.half;
+  w.up = zo + static_cast<size_t>(wrap(y - 1, g.ny)) * g.half;
+  w.down = zo + static_cast<size_t>(wrap(y + 1, g.ny)) * g.half;
+  if (D == 3) {
+    w.zm = rep + static_cast<size_t>(wrap(z - 1, g.nz)) * plane +
+           static_cast<size_t>(y) * g.half;
+    w.zp = rep + static_cast<size_t>(wrap(z + 1, g.nz)) * plane +
+           static_cast<size_t>(y) * g.half;
+  } else {
+    w.zm = w.zp = 0;
+  }
+  w.parity = (y + z) & 1;
+  return w;
+}
+
+struct Phase {
+  int8_t* x;             // colour being updated, in place
+  const int8_t* o;       // the other colour
+  const uint32_t* bits;  // injected words (R, nz, ny, half), or null
+  uint2 key;             // Philox key of this (sample, t, phase)
+  uint32_t t4, t8, t12;  // t12 unused in 2-D
+  int color;
+};
+
+// Updates unit j of row (z, y) of replica r.  With MEASURE it adds the
+// fused sums of a measuring phase b (JAX ising2d_multisweep.py:84-90):
+// m += new + o, e -= new * nsum (the other colour is final, so every bond
+// is counted once).
+template <int D, bool COHERENT, bool MEASURE>
+__device__ __forceinline__ void update_unit(const Phase& p,
+                                            const Geometry& g, int r, int z,
+                                            int y, int j, int& m, int& e) {
+  const Rows w = rows_of<D>(g, r, z, y);
+  const int d = (w.parity ^ p.color) ? 1 : -1;
+  uint4 words = make_uint4(0u, 0u, 0u, 0u);
+  if (p.bits == nullptr)
+    words = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(r),
+                   static_cast<uint32_t>(z * g.ny + y),
+                   static_cast<uint32_t>(j), 0u),
+        p.key);
+  const uint32_t ws[4] = {words.x, words.y, words.z, words.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int c = 4 * j + k;
+    if (c >= g.half) break;
+    int nsum = load<COHERENT>(p.o, w.row + c) +
+               load<COHERENT>(p.o, w.row + wrap(c + d, g.half)) +
+               load<COHERENT>(p.o, w.up + c) +
+               load<COHERENT>(p.o, w.down + c);
+    if (D == 3)
+      nsum += load<COHERENT>(p.o, w.zm + c) + load<COHERENT>(p.o, w.zp + c);
+    const int s = COHERENT ? static_cast<int>(__ldcg(p.x + w.row + c))
+                           : static_cast<int>(p.x[w.row + c]);
+    const int kk = s * nsum;
+    const uint32_t word = p.bits != nullptr ? __ldg(p.bits + w.row + c) : ws[k];
+    const uint32_t t = kk == 2 ? p.t4 : (kk == 4 ? p.t8 : p.t12);
+    const int out = (kk <= 0 || word < t) ? -s : s;
+    p.x[w.row + c] = static_cast<int8_t>(out);
+    if (MEASURE) {
+      m += out + load<COHERENT>(p.o, w.row + c);
+      e -= out * nsum;
+    }
+  }
+}
+
+// (m, e) of unit j of row (z, y): both colours' sites, their right,
+// down and (3-D) back neighbours (core/lattice.py right_down_neighbors),
+// each bond once.
+template <int D>
+__device__ __forceinline__ void measure_unit(const int8_t* a,
+                                             const int8_t* b,
+                                             const Geometry& g, int r,
+                                             int z, int y, int j, int& m,
+                                             int& e) {
+  const Rows w = rows_of<D>(g, r, z, y);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int c = 4 * j + k;
+    if (c >= g.half) break;
+    const int cp = wrap(c + 1, g.half);
+    const int sa = __ldg(a + w.row + c), sb = __ldg(b + w.row + c);
+    int na = __ldg(b + w.row + (w.parity ? cp : c)) + __ldg(b + w.down + c);
+    int nb = __ldg(a + w.row + (w.parity ? c : cp)) + __ldg(a + w.down + c);
+    if (D == 3) {
+      na += __ldg(b + w.zp + c);
+      nb += __ldg(a + w.zp + c);
+    }
+    m += sa + sb;
+    e -= sa * na + sb * nb;
+  }
+}
+
+// Adds the block's (m, e) to dst[0], dst[1] with one 64-bit atomic each.
+// Every thread of the block calls it; it ends with a barrier, so the
+// caller may call it again at once.
+__device__ __forceinline__ void block_add(int m, int e, long long* dst) {
+  __shared__ int red_m[THREADS / 32];
+  __shared__ int red_e[THREADS / 32];
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    m += __shfl_down_sync(0xFFFFFFFFu, m, off);
+    e += __shfl_down_sync(0xFFFFFFFFu, e, off);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red_m[warp] = m;
+    red_e[warp] = e;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long bm = 0, be = 0;
+#pragma unroll
+    for (int k = 0; k < THREADS / 32; ++k) {
+      bm += red_m[k];
+      be += red_e[k];
+    }
+    atomicAdd(reinterpret_cast<unsigned long long*>(dst),
+              static_cast<unsigned long long>(bm));
+    atomicAdd(reinterpret_cast<unsigned long long*>(dst) + 1,
+              static_cast<unsigned long long>(be));
+  }
+  __syncthreads();
+}
+
+// Units a replica holds, and the refusal of a launch whose unit index
+// within a replica could pass 2^31 or whose replicas exceed the grid's
+// y extent (the wrappers raise first; this is the kernels' own guard).
+__host__ __device__ inline long long units_per_rep(const Geometry& g) {
+  return static_cast<long long>(g.nz) * g.ny * g.units;
+}
+
+__host__ inline bool launchable(const Geometry& g, int nrep) {
+  return nrep >= 1 && nrep <= 65535 && g.nz >= 1 && g.ny >= 2 &&
+         g.half >= 1 && units_per_rep(g) + THREADS < (1LL << 31);
+}
+
+__host__ inline Geometry geometry(int nz, int ny, int half) {
+  Geometry g;
+  g.nz = nz;
+  g.ny = ny;
+  g.half = half;
+  g.units = (half + 3) / 4;
+  return g;
+}
+
+}  // namespace ising8

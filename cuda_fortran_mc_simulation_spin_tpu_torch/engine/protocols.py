@@ -7,7 +7,10 @@ progress on ``err`` (stdout = dataset, stderr = progress).
 
 - ``relaxation`` serves the bit-packed routes (periodic 2-D and 3-D
   multispin, helical 2-D and 3-D multispin, the bit-sliced clock engines:
-  periodic q = 6, 4, 3, aligned and padded, helical q = 6), the
+  periodic q = 6, 4, 3, aligned and padded, helical q = 6), the generic
+  runners on the int8 kernels for periodic Ising 2-D and 3-D at every
+  even shape the packed routes do not take (the int8 multisweep, the
+  per-history and the batched runner, in the JAX package's order), the
   periodic XY phases and the dense helical XY engines (odd nx, even ny;
   angle planes by default, component planes with
   ``SPINLAT_XY_DENSE_ANGLE=0``), with and without over-relaxation;
@@ -15,13 +18,16 @@ progress on ``err`` (stdout = dataset, stderr = progress).
   ``finite_magne``, ``samples`` and ``finite_magne_samples`` serve the
   periodic XY model through ``sweep.make_xy_disorder_runner`` (the
   snapshot-measuring phase, the standalone measurement and the resident
-  multisweep).
+  multisweep); ``samples`` serves periodic Ising 2-D and 3-D through
+  ``sweep.make_sample_runner`` (JAX ``_run_samples_generic``).
 
 Every other route of the JAX package (the masked helical kernels and the
-generic runners behind helical XY shapes outside the dense gate and
-over-relaxation on the other models, unpackable shapes, the per-sample
-runner of the other models, meshes) raises NotImplementedError naming the
-ROADMAP.md item that ports it, and never falls back.
+generic runners behind helical XY shapes outside the dense gate and the
+oversize helical lattices, the int8 clock kernels, the per-sample runner
+of the clock and helical models, meshes) raises NotImplementedError naming
+the ROADMAP.md item that ports it, and never falls back.  Over-relaxation
+on the Ising and clock models raises ValueError: it is defined for the XY
+model only.
 
 Checkpoint/resume: pass ``checkpoint_path``; accumulators are saved
 every ``checkpoint_every`` histories and runs resume exactly
@@ -47,6 +53,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.io import checkpoint, datfmt
 from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
     Clock2D,
     Clock2DHelical,
+    Ising2D,
     Ising2DHelical,
     Ising3D,
     Ising3DHelical,
@@ -59,6 +66,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     helical3d_multispin,
     helical_multispin,
     ising2d_multispin,
+    ising2d_multisweep,
     ising3d_multispin,
     xy2d_helical_dense,
 )
@@ -156,10 +164,11 @@ def _check_route(cfg, model) -> None:
     """Raise for every route of the JAX package that the port does not
     serve yet, naming the ROADMAP.md item that ports it.  ``build_model``
     admits the Ising and clock models and periodic XY, so what is left of
-    the JAX package's ``_multispin_eligible``, ``_clock_multispin_eligible``
-    and helical eligibility is the shape (and q for the clock); every
-    periodic XY shape is served, and helical XY within the dense engines'
-    gate (odd nx, even ny), with or without over-relaxation."""
+    the JAX package's ``_clock_multispin_eligible`` and helical eligibility
+    is the shape (and q for the clock); every periodic Ising 2-D and 3-D
+    and periodic XY shape is served, and helical XY within the dense
+    engines' gate (odd nx, even ny), with or without over-relaxation.
+    Over-relaxation on the other models raises ValueError."""
     if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
         raise NotImplementedError(
             "multi-device meshes are not ported yet (ROADMAP.md queue A "
@@ -176,10 +185,11 @@ def _check_route(cfg, model) -> None:
                 "item 4a, queue B item 13)")
         return
     if cfg.n_over_relax > 0:
-        raise NotImplementedError(
-            f"over-relaxation on the {cfg.model} model runs in the JAX "
-            "package only through its generic runners, not ported yet "
-            "(ROADMAP.md queue B item 13)")
+        raise ValueError(
+            f"over-relaxation is defined for the XY model only, not the "
+            f"{cfg.model} model (the JAX package defines over_relax_sweep "
+            "only in models/xy2d.py and models/xy2d_helical.py; its generic "
+            "runner fails on other models)")
     if isinstance(model, Clock2DHelical):
         if not clock_helical_multispin.fits(model):
             raise NotImplementedError(
@@ -215,26 +225,24 @@ def _check_route(cfg, model) -> None:
                 "kernels index; the masked helical kernels that would "
                 "serve it are not ported yet (ROADMAP.md queue B item 13)")
         return
-    if isinstance(model, Ising3D):
-        shape = model.color_shape[1:]
-        if not ising3d_multispin.packable3d(*shape):
-            raise NotImplementedError(
-                f"{cfg.nx}x{cfg.ny}x{cfg.nz} is not packable (the 3-D "
-                "multispin route needs nx % 256 == 0 and ny % 256 == 0); "
-                "the int8 3-D phase kernels that serve other shapes are "
-                "not ported yet (ROADMAP.md queue B item 13)")
-        return
-    if not ising2d_multispin.packable(*model.color_shape):
-        raise NotImplementedError(
-            f"{cfg.nx}x{cfg.ny} is not packable (the multispin route needs "
-            "nx % 256 == 0 and ny % 256 == 0); the int8 phase kernels that "
-            "serve other shapes are not ported yet (ROADMAP.md queue B "
-            "item 13)")
+
+
+def _int8_runner(cfg, model, batch: int, device):
+    """The JAX package's last two routes: at one replica the per-history
+    runner, else the batched one (int8 phase and measure kernels)."""
+    if batch == 1:
+        return sweep_mod.make_sample_runner(model, cfg.mcs, cfg.init_state,
+                                            device=device)
+    return sweep_mod.make_batch_runner(model, cfg.mcs, batch,
+                                       cfg.init_state, device=device)
 
 
 def _make_runner(cfg, model, batch: int, device):
     """The route of the JAX package's ``_run_accumulating`` for the
-    served models."""
+    served models.  Periodic Ising in its order, without the TPU's gates:
+    packable shapes on the bit-packed engines; else (2-D) the int8
+    multisweep while the batch fits ``ising2d_multisweep.fits``; else the
+    per-history runner at one replica and the batched one above."""
     if isinstance(model, XY2D):
         return sweep_mod.make_xy_runner(
             model, cfg.mcs, batch, cfg.init_state,
@@ -252,10 +260,17 @@ def _make_runner(cfg, model, batch: int, device):
         return sweep_mod.make_helical_runner(
             model, cfg.mcs, batch, cfg.init_state, device=device)
     if isinstance(model, Ising3D):
-        return sweep_mod.make_multispin3d_runner(
+        if ising3d_multispin.packable3d(*model.color_shape[1:]):
+            return sweep_mod.make_multispin3d_runner(
+                model, cfg.mcs, batch, cfg.init_state, device=device)
+        return _int8_runner(cfg, model, batch, device)
+    if ising2d_multispin.packable(*model.color_shape):
+        return sweep_mod.make_multispin_runner(
             model, cfg.mcs, batch, cfg.init_state, device=device)
-    return sweep_mod.make_multispin_runner(
-        model, cfg.mcs, batch, cfg.init_state, device=device)
+    if ising2d_multisweep.fits(batch, *model.color_shape):
+        return sweep_mod.make_multisweep_runner(
+            model, cfg.mcs, batch, cfg.init_state, device=device)
+    return _int8_runner(cfg, model, batch, device)
 
 
 def _run_accumulating(cfg, model, accumulators, fold, err,
@@ -436,20 +451,59 @@ _PREP_FOR_INIT = {
 }
 
 
+def _run_samples_generic(cfg: RunConfig, model, out, err, device) -> None:
+    """Per-sample raw series of periodic Ising 2-D and 3-D (JAX
+    ``_run_samples_generic``, its ``protocols.py:1152-1179``): plain
+    Metropolis histories on ``sweep.make_sample_runner``, rows N, sample,
+    t, m, e."""
+    if cfg.init_state not in ("allup", "random"):
+        raise ValueError(
+            f"init_state={cfg.init_state!r} requires the periodic XY "
+            f"engine (--model xy2d with even nx); model {cfg.model!r} "
+            "supports allup/random starts"
+        )
+    if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
+        raise NotImplementedError(
+            "multi-device meshes are not ported yet (ROADMAP.md queue A "
+            "item 9)")
+    _emit_headers(cfg, model, out, err)
+    base = rng.base_key(cfg.seed, cfg.stream)
+    runner = sweep_mod.make_sample_runner(model, cfg.mcs, cfg.init_state,
+                                          device=device)
+    _stamp_engine(runner, err)
+    out.write(f"# engine: {LAST_ENGINE}\n")
+    progress = _progress(err)
+    for s in range(cfg.tot_sample):
+        series = runner(rng.sample_key(base, s))
+        series = {k: v.cpu().numpy().astype(np.float64)
+                  for k, v in series.items()}
+        datfmt.write_sample_series(out, model.nsites, s + 1,
+                                   _filter_times(series, cfg),
+                                   order=("m", "e"), times=cfg.measure_times)
+        progress(s + 1, cfg.tot_sample)
+
+
 def run_samples(cfg: RunConfig, out: IO[str] = sys.stdout,
                 err: IO[str] = sys.stderr, device="cuda") -> None:
     """Raw per-sample time series, no aggregation: the *_samples apps
     (xy2d_periodic_gpu_relaxation_from_disorder_finite_magne_samples.f90:
-    40-58), one history a sample keyed by its sample key, the
-    preparation from cfg.init_state.  Rows N, sample, t, m_x, e, m_y, A
-    (and corr) under the reference's literal header.  The other models'
-    per-sample runner (JAX ``make_sample_runner``) is not ported."""
+    40-58), one history a sample keyed by its sample key.  Periodic XY:
+    the preparation from cfg.init_state, rows N, sample, t, m_x, e, m_y, A
+    (and corr) under the reference's literal header.  Periodic Ising 2-D
+    and 3-D: :func:`_run_samples_generic`.  The clock and helical models'
+    per-sample runners are not ported."""
     dev = resolve_device(device)
     if cfg.model != "xy2d" or cfg.nx % 2:
+        model = build_model(cfg)
+        if isinstance(model, (Ising2D, Ising3D)):
+            _run_samples_generic(cfg, model, out, err, dev)
+            return
+        sub = ("(b), the int8 clock kernels" if isinstance(model, Clock2D)
+               else "(c), the masked helical kernels")
         raise NotImplementedError(
             f"--protocol samples on the {cfg.model} model (nx={cfg.nx}) "
-            "needs the generic per-sample runner, not ported yet "
-            "(ROADMAP.md queue A item 4a)")
+            "needs the generic per-sample runner on the kernels of "
+            f"sub-slice {sub}, not ported yet (ROADMAP.md queue A item 4a)")
     _check_disorder(cfg)
     model = build_model(cfg)
     prep = _PREP_FOR_INIT.get(cfg.init_state, "rotate_first")

@@ -5,7 +5,9 @@ Port of the multispin part of
 (``_host_chunk_runner``, ``_make_packed_runner``,
 ``make_multispin_runner``, ``make_multispin3d_runner``,
 ``make_clock_multispin_runner``, the Ising and q=6 clock branches of
-``make_helical_runner``, ``xy_padded_eligible`` /
+``make_helical_runner``, the generic runners ``make_sample_runner``,
+``make_batch_runner`` and ``make_multisweep_runner`` on the int8 Ising 2-D
+and 3-D kernels, ``xy_padded_eligible`` /
 ``make_xy_padded_runner`` as :func:`make_xy_runner`, the dense XY branch of
 ``make_helical_runner``, and the XY disorder
 runners of ``engine/protocols.py``, ``_xy_disorder_batched_runner`` and
@@ -33,6 +35,8 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock_helical import (
     Clock2DHelical,
 )
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising2d import Ising2D
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d import Ising3D
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d_helical import (
     Ising3DHelical,
 )
@@ -51,8 +55,12 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     clock_planes,
     helical3d_multispin,
     helical_multispin,
+    ising2d_measure_pallas,
     ising2d_multispin,
+    ising2d_multisweep,
+    ising2d_pallas,
     ising3d_multispin,
+    ising3d_pallas,
     multispin_rng,
     xy2d_helical_dense,
     xy2d_helical_dense_angle,
@@ -187,6 +195,90 @@ def make_multispin3d_runner(model, mcs: int, batch: int,
     ), "ising3d_multispin bit-packed "
        + ("(resident multisweep)" if resident
           else "(streaming z-plane phases)"))
+
+
+# ---------------------------------------------------------------------------
+# the generic runners on the int8 Ising kernels (JAX sweep.py:83, :159, :593)
+# ---------------------------------------------------------------------------
+
+def _int8_ops(model):
+    """The int8 phase module of a periodic Ising model."""
+    if isinstance(model, Ising3D):
+        return ising3d_pallas
+    if isinstance(model, Ising2D):
+        return ising2d_pallas
+    raise ValueError(f"{model!r} has no int8 phase kernel in the port")
+
+
+def make_batch_runner(model, mcs: int, batch: int, init_kind: str = "allup",
+                      device="cuda", chunk: int = DEFAULT_CHUNK
+                      ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
+    """`run(call_key) -> {m, e: (batch, mcs) float64}` advancing a replica
+    batch a sweep at a time on the int8 phase kernels (ops/ising2d_pallas.py
+    or ops/ising3d_pallas.py) and measuring it with the measure kernel
+    (ops/ising2d_measure_pallas.py), the kernels behind the JAX models'
+    ``sweep_batched`` and ``observables_batched`` that the JAX package's
+    ``make_batch_runner`` calls.  Sweep t draws under ``rng.sweep_key(call_key, t)`` and its phase p under
+    ``seeds_from_key(., p)``, the keys of a chunk in one batched derivation,
+    so a run is bitwise independent of ``chunk``.  JAX's ``prepare`` and
+    ``measure`` hooks serve only the XY model, whose runners are
+    :func:`make_xy_runner` and :func:`make_xy_disorder_runner`."""
+    ops = _int8_ops(model)
+
+    def init_fn(call_key):
+        return _init_state(model, init_kind, batch, call_key, device)
+
+    def chunk_fn(st, call_key, t0, size):
+        seeds = multispin_rng.sweep_phase_keys(call_key, size, t0)
+        sums = []
+        for j in range(size):
+            st = ops.sweep_seeded(model, st, seeds[j])
+            sums.append(ising2d_measure_pallas.measure_sums(*st))
+        return st, ising2d_measure_pallas.densities(torch.stack(sums, dim=1),
+                                                    model.nsites)
+
+    return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk),
+                "phase engine (batched)")
+
+
+def make_sample_runner(model, mcs: int, init_kind: str = "allup",
+                       device="cuda", chunk: int = DEFAULT_CHUNK
+                       ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
+    """`run(sample_key) -> {m, e: (mcs,) float64}` for one history: the
+    JAX package's ``make_sample_runner``, on the kernels of
+    :func:`make_batch_runner` with one replica.  The history is replica 0
+    of its key (its start keyed by fold_in(init_key, 0)), so it equals the
+    batched and multisweep runners' replica 0 bitwise."""
+    run = make_batch_runner(model, mcs, 1, init_kind, device, chunk)
+
+    def one(sample_key: torch.Tensor) -> dict[str, torch.Tensor]:
+        return {k: v[0] for k, v in run(sample_key).items()}
+
+    return _tag(one, "phase engine (single history)")
+
+
+def make_multisweep_runner(model, mcs: int, batch: int,
+                           init_kind: str = "allup", device="cuda",
+                           chunk: int = DEFAULT_CHUNK
+                           ) -> Callable[[torch.Tensor],
+                                         dict[str, torch.Tensor]]:
+    """`run(call_key) -> {m, e: (batch, mcs) float64}` on the int8
+    multisweep kernel (ops/ising2d_multisweep.py): one launch of up to
+    ``chunk`` sweeps with the fused (m, e) of each, as the JAX package's
+    ``make_multisweep_runner`` (Ising 2-D; its clock branch is not ported).
+    Its sweeps draw the words of :func:`make_batch_runner`'s, so the two
+    give the same series bitwise."""
+    if not isinstance(model, Ising2D):
+        raise ValueError(f"{model!r}: the int8 multisweep serves Ising2D")
+
+    def init_fn(call_key):
+        return _init_state(model, init_kind, batch, call_key, device)
+
+    def chunk_fn(st, call_key, t0, size):
+        return ising2d_multisweep.multisweep(model, st, call_key, size, t0)
+
+    return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk),
+                "int8 multisweep (cooperative)")
 
 
 CLOCK_SPECS = {6: clock_multispin.SPEC, 4: clock4_multispin.SPEC,

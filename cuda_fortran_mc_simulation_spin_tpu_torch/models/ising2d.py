@@ -5,10 +5,14 @@ checkerboard Metropolis with ΔE = 2·s·Σ_nbr, the two-threshold
 acceptance (only ΔE ∈ {4, 8} can reject, core/tables.py), all-up and
 random initial states, and the magnetisation and bond-energy sums.
 
-Spins are int8 on the dual-colour layout (core/lattice.py).  The int8
-sweep here is the CPU oracle of the physics; the relaxation main path
-runs the bit-packed kernels of ops/ising2d_multispin.py, which start from
-this model's initial states and report the same sums.
+Spins are int8 on the dual-colour layout (core/lattice.py).  ``sweep``
+runs the int8 phase kernel (ops/ising2d_pallas.py: the CUDA kernel on
+CUDA tensors, its plain version on CPU tensors) on one lattice or a
+replica batch, as the JAX model dispatches to its Pallas kernel; the
+runners measure through ops/ising2d_measure_pallas.py.  ``phase`` is the
+float-uniform rule of the JAX model's ``sweep_jnp``.  At packable shapes
+the relaxation runs the bit-packed kernels of ops/ising2d_multispin.py,
+which start from this model's initial states and report the same sums.
 """
 
 from __future__ import annotations
@@ -80,13 +84,13 @@ class Ising2D:
 
     def sweep(self, state: CheckerboardState, key: torch.Tensor
               ) -> CheckerboardState:
-        """One MCS: update colour 0, then colour 1."""
-        a, b = state
-        a = self.phase(a, b, 0, rng.uniform(rng.phase_key(key, 0), a.shape,
-                                            a.device))
-        b = self.phase(b, a, 1, rng.uniform(rng.phase_key(key, 1), b.shape,
-                                            b.device))
-        return CheckerboardState(a, b)
+        """One MCS (colour 0, then colour 1) of (ny, half) or (R, ny, half)
+        arrays under the sweep key ``key`` on the int8 phase kernel
+        (ops/ising2d_pallas.sweep), updating them in place."""
+        from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+            ising2d_pallas,
+        )
+        return ising2d_pallas.sweep(self, state, key)
 
     # -- observables ----------------------------------------------------------
     def magne_sum(self, state: CheckerboardState) -> torch.Tensor:

@@ -8,9 +8,12 @@ initial states, and the magnetisation and bond-energy sums.
 
 Spins are int8 on the dual-colour layout (nz, ny, nx//2), colour =
 (x+y+z) & 1 (core/lattice.py); periodic storage needs even nx, ny, nz.
-The int8 sweep here is the CPU oracle of the physics; the relaxation main
-path runs the bit-packed kernels of ops/ising3d_multispin.py, which start
-from this model's initial states and report the same sums.
+``sweep`` runs the int8 phase kernel (ops/ising3d_pallas.py) on one
+volume or a replica batch; the runners measure through the 3-D mode of
+ops/ising2d_measure_pallas.py.  ``phase`` is the float-uniform rule of the
+JAX model's ``sweep_jnp``.  At packable shapes the relaxation runs the
+bit-packed kernels of ops/ising3d_multispin.py, which start from this
+model's initial states and report the same sums.
 """
 
 from __future__ import annotations
@@ -80,13 +83,13 @@ class Ising3D:
 
     def sweep(self, state: CheckerboardState, key: torch.Tensor
               ) -> CheckerboardState:
-        """One MCS: update colour 0, then colour 1."""
-        a, b = state
-        a = self.phase(a, b, 0, rng.uniform(rng.phase_key(key, 0), a.shape,
-                                            a.device))
-        b = self.phase(b, a, 1, rng.uniform(rng.phase_key(key, 1), b.shape,
-                                            b.device))
-        return CheckerboardState(a, b)
+        """One MCS (colour 0, then colour 1) of (nz, ny, half) or (R, nz,
+        ny, half) arrays under the sweep key ``key`` on the int8 phase
+        kernel (ops/ising3d_pallas.sweep), updating them in place."""
+        from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+            ising3d_pallas,
+        )
+        return ising3d_pallas.sweep(self, state, key)
 
     # -- observables ----------------------------------------------------------
     def magne_sum(self, state: CheckerboardState) -> torch.Tensor:

@@ -1,0 +1,121 @@
+"""The int8 Ising observables in one pass on the card: a CUDA kernel and
+its plain version.
+
+Port of ``cuda_fortran_mc_simulation_spin_tpu/ops/ising2d_measure_pallas.py``
+(the module keeps its name so that its JAX counterpart is found by name;
+it launches a CUDA kernel, not a Pallas one).
+``csrc/ising2d_measure_pallas.cu`` ``measure_kernel<2>`` replaces
+``_kernel`` (pallas_call at ``:74``, ``_measure`` -> ``measure``): per
+replica the exact (Σ s, E) of (R, ny, nx/2) int8 planes, E = -Σ s·(s_right
++ s_down).  ``measure_kernel<3>`` does the same for (R, nz, ny, nx/2)
+volumes, E = -Σ s·(s_x+ + s_y+ + s_z+): the JAX package sums the 3-D
+observables in jnp outside any kernel (``models/ising3d.py:144-171``),
+and in PyTorch their int64 temporaries at 500^3 x 2 would cost gigabytes.
+
+The sums are int64 and exact, so kernel and plain version agree bitwise;
+the JAX kernel accumulates f32 across row blocks.  The batched runners
+measure every sweep through it (JAX ``observables_batched``).
+
+A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
+launches the kernel or raises.  ``LAUNCHES`` counts launches of the 2-D
+and of the 3-D kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import lattice
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
+    CheckerboardState,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
+    _on_cpu,
+    _stream,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
+    check_int8,
+    check_launch,
+    raise_on,
+)
+
+LAUNCHES = {"measure2d": 0, "measure3d": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def measure_sums_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``measure_kernel``: (R, 2) int64 exact (m, e) of
+    (R, ny, half) colour planes or (R, nz, ny, half) volumes.  The bond
+    products are int8 values summed in int64, so no int64 copy of the
+    state is made."""
+    if a.dim() == 4:
+        (ra, ya, za), (rb, yb, zb) = lattice.right_down_back_neighbors3d(
+            a, b)
+        na, nb = ra + ya + za, rb + yb + zb
+    else:
+        ra, da, rb, db = lattice.right_down_neighbors(a, b)
+        na, nb = ra + da, rb + db
+    dims = tuple(range(1, a.dim()))
+    m = a.sum(dim=dims, dtype=torch.int64) + b.sum(dim=dims,
+                                                    dtype=torch.int64)
+    e = -((a * na).sum(dim=dims, dtype=torch.int64)
+          + (b * nb).sum(dim=dims, dtype=torch.int64))
+    return torch.stack([m, e], dim=-1)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ising2d_measure_pallas")
+    if lib.ising_int8_measure.argtypes is not None:
+        return lib
+    lib.ising_int8_measure.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.ising_int8_measure.restype = ctypes.c_int
+    lib.ising_int8_measure_error_string.argtypes = [ctypes.c_int]
+    lib.ising_int8_measure_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def measure_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(R, 2) int64 exact (m, e) of (R, ny, half) planes or (R, nz, ny,
+    half) volumes: ``measure_kernel`` on CUDA tensors,
+    :func:`measure_sums_plain` on CPU tensors."""
+    if _on_cpu(a):
+        return measure_sums_plain(a, b)
+    check_int8(a, b)
+    dims = a.dim() - 1
+    if dims not in (2, 3):
+        raise ValueError(f"state must be (R, ny, half) or (R, nz, ny, "
+                         f"half), got {tuple(a.shape)}")
+    nrep, *vol, half = a.shape
+    nz, ny = (1, *vol) if dims == 2 else vol
+    check_launch(nrep, nz * ny, half)
+    # zeroed: the kernel adds each block's sums with an atomic
+    obs = torch.zeros((nrep, 2), dtype=torch.int64, device=a.device)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        code = lib.ising_int8_measure(a.data_ptr(), b.data_ptr(),
+                                      obs.data_ptr(), nrep, dims, nz, ny,
+                                      half, _stream(a))
+    raise_on(code, lib.ising_int8_measure_error_string,
+             "ising measure_kernel")
+    LAUNCHES[f"measure{dims}d"] += 1
+    return obs
+
+
+def densities(sums: torch.Tensor, nsites: int) -> dict[str, torch.Tensor]:
+    """{m, e} float64 densities of (..., 2) int64 sums."""
+    return {"m": sums[..., 0].to(torch.float64) / nsites,
+            "e": sums[..., 1].to(torch.float64) / nsites}
+
+
+def measure(model, state: CheckerboardState) -> dict[str, torch.Tensor]:
+    """{m, e} float64 densities (R,) of a replica batch (JAX
+    ``measure``)."""
+    return densities(measure_sums(*state), model.nsites)

@@ -1,0 +1,235 @@
+"""The int8 2-D Ising checkerboard phase on the card: a CUDA kernel and its
+plain version.
+
+Port of ``cuda_fortran_mc_simulation_spin_tpu/ops/ising2d_pallas.py``
+(the module keeps its name so that its JAX counterpart is found by name;
+it launches a CUDA kernel, not a Pallas one).  ``csrc/ising2d_pallas.cu``
+``phase_kernel`` replaces ``_phase_kernel`` (pallas_call at ``:126``,
+``_metropolis_phase``): one colour phase of (R, ny, nx/2) int8 ±1 planes
+(core/lattice.py), in place, under the integer rule of the TPU kernel:
+with k = s·Σnbr (ΔE/2), flip iff k <= 0 or word < (k == 2 ? t4 : t8),
+t4, t8 = :func:`accept_thresholds_u32` (a uint32 compare).  It serves
+every even nx and ny: JAX's tiling gates (nx/2 % 128, ny % 32) are TPU
+artefacts.
+
+Random words.  Each site draws one uint32 from Philox4x32-10
+(``csrc/philox.cuh``):
+
+    key     = seeds_from_key(sweep_key, phase)  the (sample, t, phase) key
+    counter = (replica, row, column >> 2, 0)    row = z·ny + y in 3-D
+    word    = output (column & 3)
+
+so one Philox call feeds four adjacent sites of a row (the kernels' unit,
+``csrc/ising_int8.cuh``), and the last unit of a row whose nx/2 is not a
+multiple of 4 leaves its spare outputs unused.  The plain version
+(:func:`draw_words`), the two phase kernels, the multisweep kernel and
+every route of the runners draw these words, so a trajectory depends on
+neither the kernel, the route nor the host chunking.  The JAX kernel draws
+the TPU's hardware bits; its ``sharded_phase`` takes injected words
+(``bits=``, ``:397``), as the kernel here does (the mode the checks use).
+
+A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
+launches the kernel or raises.  ``LAUNCHES`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import lattice, rng
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
+    CheckerboardState,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
+    _on_cpu,
+    _stream,
+)
+
+MASK32 = 0xFFFFFFFF
+THREADS = 256            # threads a block; one thread a unit of 4 sites
+MAX_REPLICAS = 65535     # the grid's y extent
+LAUNCHES = {"phase": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def accept_thresholds_u32(beta: float) -> tuple[int, int]:
+    """uint32 cutoffs (t4, t8) = round(exp(-β·ΔE)·2^32) for ΔE = 4, 8,
+    capped at 2^32 - 1: flip iff word < t (JAX
+    ``accept_thresholds_u32``, its lines 58-68)."""
+    def cut(p):
+        return int(min(0xFFFFFFFF, round(p * 4294967296.0)))
+
+    return cut(np.exp(-4.0 * beta)), cut(np.exp(-8.0 * beta))
+
+
+def units(half: int) -> int:
+    """Units of four sites a row of ``half`` columns holds."""
+    return -(-half // 4)
+
+
+def check_launch(nrep: int, rows: int, half: int) -> None:
+    """Refuse a launch whose unit index within a replica could pass 2^31
+    or whose replicas exceed the grid's y extent (the kernels index
+    memory with 64-bit offsets, their units with 32-bit ones)."""
+    if not 1 <= nrep <= MAX_REPLICAS:
+        raise ValueError(f"{nrep} replicas: a launch takes 1 .. "
+                         f"{MAX_REPLICAS}")
+    if rows * units(half) + THREADS >= 2 ** 31:
+        raise ValueError(f"{rows} rows of {half} columns: the unit index "
+                         "of a replica would pass 2^31")
+
+
+def draw_words(seeds, nrep: int, rows: int, half: int,
+               device=None) -> torch.Tensor:
+    """(nrep, rows, half) uint32 words (in int64) of one phase under the
+    Philox key ``seeds`` ((2,) uint32): site (r, row, c) takes output
+    c & 3 of the counter (r, row, c >> 2, 0)."""
+    key = torch.as_tensor(seeds, dtype=torch.int64).to(device)
+    nu = units(half)
+    r = torch.arange(nrep, dtype=torch.int64, device=device).view(-1, 1, 1)
+    y = torch.arange(rows, dtype=torch.int64, device=device).view(1, -1, 1)
+    j = torch.arange(nu, dtype=torch.int64, device=device).view(1, 1, -1)
+    r, y, j = torch.broadcast_tensors(r, y, j)
+    ctr = torch.stack([r, y, j, torch.zeros_like(r)], dim=-1)
+    out = rng.philox4x32(ctr, key)                  # (nrep, rows, nu, 4)
+    return out.reshape(nrep, rows, 4 * nu)[..., :half]
+
+
+def as_words(bits: torch.Tensor) -> torch.Tensor:
+    """Injected words, raw 32-bit int32 (the kernels' uint32), as uint32
+    values in int64."""
+    return bits.to(torch.int64) & MASK32
+
+
+def flip(x: torch.Tensor, nsum: torch.Tensor, words: torch.Tensor,
+         thresholds) -> torch.Tensor:
+    """The int8 rule of both phase kernels: with k = s·nsum, flip iff
+    k <= 0 or word < t_k (t_2, t_4, t_6 = ``thresholds``; in 2-D k <= 4
+    and the pair (t4, t8))."""
+    k = x.to(torch.int32) * nsum
+    t4, t8, t_last = thresholds[0], thresholds[1], thresholds[-1]
+    t = torch.where(k == 2, t4, torch.where(k == 4, t8, t_last))
+    accept = (k <= 0) | (words < t)
+    return torch.where(accept, -x, x).to(torch.int8)
+
+
+def phase_plain(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
+                color: int, beta: float, bits: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """Plain version of ``phase_kernel``: the new (R, ny, half) int8 colour
+    plane ``x`` given the other colour, with the words of
+    :func:`draw_words` under ``seeds`` or the injected int32 ``bits``."""
+    nrep, ny, half = x.shape
+    words = (as_words(bits) if bits is not None
+             else draw_words(seeds, nrep, ny, half, x.device))
+    nsum = lattice.neighbor_sums(other.to(torch.int32), color)
+    return flip(x, nsum, words, accept_thresholds_u32(beta))
+
+
+def check_int8(x: torch.Tensor, *others: torch.Tensor,
+               bits: torch.Tensor | None = None) -> None:
+    """The kernels take distinct contiguous int8 tensors of one shape on
+    one CUDA device (and int32 words of that shape)."""
+    for t in (x, *others):
+        if t.shape != x.shape or t.dtype != torch.int8:
+            raise ValueError(f"planes must be int8 {tuple(x.shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for t in (x, *others, *(() if bits is None else (bits,))):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError("tensors must lie on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("tensors must be contiguous")
+    if bits is not None and (bits.shape != x.shape
+                             or bits.dtype != torch.int32):
+        raise ValueError(f"bits must be int32 {tuple(x.shape)}, got "
+                         f"{bits.dtype} {tuple(bits.shape)}")
+    if len({t.data_ptr() for t in (x, *others)}) != 1 + len(others):
+        raise ValueError("the colour planes must not share storage")
+
+
+def raise_on(code: int, error_string, what: str) -> None:
+    if code != 0:
+        msg = error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def seed_words(seeds) -> tuple[int, int]:
+    return tuple(int(v) & MASK32 for v in torch.as_tensor(seeds).tolist())
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ising2d_pallas")
+    if lib.ising2d_int8_phase.argtypes is not None:
+        return lib
+    lib.ising2d_int8_phase.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_uint] * 4
+        + [ctypes.c_void_p])
+    lib.ising2d_int8_phase.restype = ctypes.c_int
+    lib.ising2d_int8_error_string.argtypes = [ctypes.c_int]
+    lib.ising2d_int8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def metropolis_phase(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
+                     color: int, beta: float,
+                     bits: torch.Tensor | None = None) -> torch.Tensor:
+    """One colour phase of (R, ny, half) int8 planes, updating ``x`` in
+    place (returned): ``phase_kernel`` on CUDA tensors,
+    :func:`phase_plain` on CPU tensors.  Words from Philox under
+    ``seeds`` ((2,) uint32), or the injected int32 ``bits``."""
+    if _on_cpu(x):
+        return x.copy_(phase_plain(x, other, seeds, color=color, beta=beta,
+                                   bits=bits))
+    check_int8(x, other, bits=bits)
+    nrep, ny, half = x.shape
+    check_launch(nrep, ny, half)
+    t4, t8 = accept_thresholds_u32(beta)
+    s0, s1 = (0, 0) if seeds is None else seed_words(seeds)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.ising2d_int8_phase(
+            x.data_ptr(), other.data_ptr(),
+            None if bits is None else bits.data_ptr(), nrep, ny, half,
+            color, s0, s1, t4, t8, _stream(x))
+    raise_on(code, lib.ising2d_int8_error_string, "ising2d phase_kernel")
+    LAUNCHES["phase"] += 1
+    return x
+
+
+def phase_seeds(key) -> torch.Tensor:
+    """(2, 2) Philox keys of phases a and b of the sweep keyed by ``key``."""
+    return rng.seeds_from_key(key, torch.arange(2, dtype=torch.int64))
+
+
+def batched(state: CheckerboardState, dims: int) -> CheckerboardState:
+    """``state`` with a replica axis: (ny, half) colour arrays (3-D: (nz,
+    ny, half)) as views of one replica, so that updates in place reach
+    the caller's arrays."""
+    if state.a.dim() == dims:
+        return CheckerboardState(state.a[None], state.b[None])
+    return state
+
+
+def sweep_seeded(model, state: CheckerboardState, seeds
+                 ) -> CheckerboardState:
+    """One MCS (colour 0, then colour 1) under the sweep's (2, 2) phase
+    keys (a row of ``multispin_rng.sweep_phase_keys``), updating the
+    state's arrays in place (returned)."""
+    a, b = batched(state, 2)
+    metropolis_phase(a, b, seeds[0], color=0, beta=model.beta)
+    metropolis_phase(b, a, seeds[1], color=1, beta=model.beta)
+    return state
+
+
+def sweep(model, state: CheckerboardState, key) -> CheckerboardState:
+    """One MCS under the sweep key ``key`` on (ny, half) or (R, ny, half)
+    int8 arrays, in place (JAX ``sweep``)."""
+    return sweep_seeded(model, state, phase_seeds(key))

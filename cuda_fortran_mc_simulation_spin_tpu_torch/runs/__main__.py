@@ -8,9 +8,18 @@ raises)::
         --model ising2d --nx 2048 --ny 2048 --kbt 2.26918531421 \\
         --mcs 1000 --samples 64 --replicas 16 --output ising2d.dat
 
+Periodic Ising runs at every even shape: nx and ny multiples of 256 on
+the bit-packed kernels, others on the int8 ones (the multisweep while the
+batch's planes fit its bound, else phase and measure launches a sweep)::
+
+    python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \
+        --model ising2d --nx 1000 --ny 1000 --kbt 2.26918531421 \
+        --mcs 1000 --samples 64 --replicas 16 --output ising2d_1000.dat
+
 Odd ``--nx`` runs the helical 2-D lattice (``--nx 1001 --ny 1000``, the
 reference's geometry); ``--model ising3d`` with even dims the periodic
-3-D one (``--nx 512 --ny 512 --nz 512 --kbt 4.51152``) and with odd
+3-D one (``--nx 512 --ny 512 --nz 512 --kbt 4.51152``, or ``--nx 500
+--ny 500 --nz 500`` on the int8 kernels) and with odd
 ``--nx`` the helical 3-D one (``--nx 151 --ny 151 --nz 150``, ``--nx 501
 --ny 501 --nz 500`` or ``--nx 1001 --ny 1000 --nz 1000``, the reference's
 geometries).  ``--model clock`` runs the q-state clock model (``--q``
@@ -38,7 +47,8 @@ and the XY disorder protocols (even nx only): ``--protocol
 from_disorder`` (a random start rotated onto +x; ``--fix1mcs`` rotates
 after the first sweep),
 ``finite_magne`` (``--init-magne``), ``samples`` (one row a sweep and
-history; the start from ``--init-state``) and ``finite_magne_samples``::
+history; the start from ``--init-state``; also on periodic Ising 2-D and
+3-D, rows N, sample, t, m, e) and ``finite_magne_samples``::
 
     python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \\
         --model xy2d --protocol from_disorder --nx 1500 --ny 1500 \\
@@ -46,9 +56,12 @@ history; the start from ``--init-state``) and ``finite_magne_samples``::
 
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of
-routes the port does not serve yet (--mesh, --profile-dir, --backend
-other than auto, helical XY at odd --ny) raise with the ROADMAP.md item
-that ports them.
+routes the port does not serve yet raise with the ROADMAP.md item that
+ports them: --mesh, --profile-dir, --backend other than auto, helical XY
+at odd --ny, the oversize helical Ising lattices, clock shapes and q
+outside the packed engines, and --protocol samples on the clock and
+helical models.  --n-over-relax on Ising or clock raises ValueError:
+over-relaxation is defined for the XY model only.
 """
 
 from __future__ import annotations

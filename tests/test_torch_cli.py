@@ -99,19 +99,37 @@ def test_cuda_without_a_card_raises(tmp_path):
     (["--mesh", "2,2"], "queue A item 9"),
     (["--profile-dir", "p"], "profiler"),
     (["--backend", "jnp"], "backend"),
-    (["--protocol", "samples"], "queue A item 4a"),
+    (["--protocol", "samples", "--model", "clock"], "queue A item 4a"),
     (["--model", "clock", "--q", "5"], "queue B item 13"),
     (["--model", "ising3d", "--nx", "2049", "--ny", "1024", "--nz", "1024"],
      "queue B item 13"),
     (["--model", "xy2d", "--nx", "255", "--ny", "255"], "queue B item 13"),
     (["--nx", "4097", "--ny", "2048"], "queue B item 13"),
-    (["--nx", "128", "--ny", "128"], "queue B item 13"),
+    (["--protocol", "samples", "--nx", "255", "--ny", "256"],
+     "queue A item 4a"),
 ])
 def test_unserved_routes_raise(extra, match, tmp_path):
     out = tmp_path / "x.dat"
     with pytest.raises(NotImplementedError, match=match):
         main(FLAGS + extra + ["--device", "cpu", "--output", str(out)])
     assert not out.exists()
+
+
+@pytest.mark.parametrize("extra,engine", [
+    (["--nx", "128", "--ny", "128"], "int8 multisweep (cooperative)"),
+    (["--protocol", "samples"], "phase engine (single history)"),
+])
+def test_formerly_refused_routes_run(extra, engine, tmp_path):
+    """Periodic Ising at an unpackable shape and --protocol samples on
+    Ising 2-D, refused before the int8 kernels were ported, now run on the
+    CPU through the plain versions of those kernels."""
+    out = tmp_path / "x.dat"
+    assert main(FLAGS + extra + ["--device", "cpu", "--output",
+                                 str(out)]) == 0
+    head, rows = _split(out)
+    assert f"# engine: {engine}" in head
+    assert rows.shape[0] == (20 if extra[0] == "--nx" else 16 * 20)
+    assert np.all(np.isfinite(rows))
 
 
 @pytest.mark.parametrize("protocol", ["from_disorder", "finite_magne"])

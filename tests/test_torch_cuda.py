@@ -723,3 +723,100 @@ def test_xy_helical_runner_on_card_replays_plain_phases(cuda, engine,
                 out = over(*by_color(1), color=1, measuring=last)
         for j, k in enumerate(("m", "my", "e")):
             _sums_close_1e12(series[k][:, t] * model.nsites, out[-1][:, j])
+
+
+# ---------------------------------------------------------------------------
+# the int8 periodic Ising kernels (ops/ising2d_pallas.py, ising3d_pallas.py,
+# ising2d_measure_pallas.py, ising2d_multisweep.py)
+# ---------------------------------------------------------------------------
+
+def _int8(dev, shape, seed, n=2):
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy((g.integers(0, 2, size=shape, dtype=np.int8)
+                              * 2 - 1).astype(np.int8)).to(dev)
+            for _ in range(n)]
+
+
+def _int8_words(dev, shape, seed):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.integers(-2 ** 31, 2 ** 31, size=shape,
+                                       dtype=np.int64).astype(np.int32)
+                            ).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 130, 63), (2, 64, 128), (1, 2, 1),
+                                   (2, 14, 12, 5), (2, 8, 16, 128)])
+def test_int8_phase_kernels_match_plain(cuda, shape):
+    """The 2-D and 3-D int8 phase kernels against their plain versions on
+    the same CUDA tensors, injected and Philox words, both colours, at
+    ragged and aligned shapes: bitwise; the measure kernel exact."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_measure_pallas as i8m,
+        ising2d_pallas as i2p,
+        ising3d_pallas as i3p,
+    )
+    mod, beta = (i2p, 1 / KBT) if len(shape) == 3 else (i3p, 1 / 4.51152)
+    a, b = _int8(cuda, shape, sum(shape))
+    bits = _int8_words(cuda, shape, len(shape))
+    for color in (0, 1):
+        x, o = (a, b) if color == 0 else (b, a)
+        seeds = rng.seeds_from_key(rng.base_key(9), color)
+        for kw in (dict(bits=bits), dict(seeds=seeds)):
+            want = mod.phase_plain(x, o, color=color, beta=beta, **kw)
+            got = mod.metropolis_phase(x.clone(), o, color=color, beta=beta,
+                                       **kw)
+            assert torch.equal(got, want)
+    assert torch.equal(i8m.measure_sums(a, b), i8m.measure_sums_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 130, 63), (16, 1000, 500)])
+def test_int8_multisweep_matches_phase_pairs_and_plain(cuda, shape):
+    """S multisweep sweeps equal S phase-kernel pairs with measure_kernel
+    (state and sums bitwise) and the plain multisweep."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_measure_pallas as i8m,
+        ising2d_multisweep as i8ms,
+        ising2d_pallas as i2p,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import multispin_rng
+    a, b = _int8(cuda, shape, 3)
+    seeds = multispin_rng.sweep_phase_keys(rng.sample_key(rng.base_key(2),
+                                                          0), 8)
+    ka, kb, kobs = i8ms.multisweep_planes(a.clone(), b.clone(), seeds,
+                                          beta=1 / KBT)
+    pa, pb, obs = a.clone(), b.clone(), []
+    for s in range(8):
+        i2p.metropolis_phase(pa, pb, seeds[s, 0], color=0, beta=1 / KBT)
+        i2p.metropolis_phase(pb, pa, seeds[s, 1], color=1, beta=1 / KBT)
+        obs.append(i8m.measure_sums(pa, pb))
+    assert torch.equal(ka, pa) and torch.equal(kb, pb)
+    assert torch.equal(kobs, torch.stack(obs, dim=1))
+    qa, qb, qobs = i8ms.multisweep_plain(a, b, seeds, beta=1 / KBT)
+    assert torch.equal(ka, qa) and torch.equal(kb, qb)
+    assert torch.equal(kobs, qobs)
+
+
+@pytest.mark.cuda
+def test_int8_runners_on_card_equal_cpu_runners(cuda):
+    """The three generic runners give on the card the series their plain
+    versions give on the CPU: the exact (m, e) sums bitwise (the densities
+    sums / N may differ in their last bit: the card's division by a
+    scalar multiplies by its reciprocal)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import Ising3D
+    key = rng.sample_key(rng.base_key(5), 1)
+    m2 = Ising2D(nx=126, ny=130, kbt=KBT)
+    m3 = Ising3D(nx=10, ny=12, nz=14, kbt=4.51152)
+    for make, model, args in (
+            (sweep.make_batch_runner, m2, (3,)),
+            (sweep.make_multisweep_runner, m2, (3,)),
+            (sweep.make_sample_runner, m2, ()),
+            (sweep.make_batch_runner, m3, (2,))):
+        on_card = make(model, 6, *args, "random", device=cuda)(key)
+        on_cpu = make(model, 6, *args, "random", device="cpu")(key)
+        for k in ("m", "e"):
+            got = (on_card[k].cpu() * model.nsites).round()
+            assert torch.equal(got, (on_cpu[k] * model.nsites).round())
+            assert torch.allclose(on_card[k].cpu(), on_cpu[k], rtol=1e-15,
+                                  atol=0)

@@ -16,8 +16,11 @@ reference's 10001x10000, with over-relaxation and Metropolis only, on the
 default f32-angle engine and (over-relaxation) the component one, and
 periodic Ising at shapes the bit-packed engines refuse (1000x1000 on the
 int8 multisweep, 4000x4000 on the streamed int8 phases, --protocol
-samples at 1000x1000, 500^3); and holds every kernel of those paths
-against its plain PyTorch version.
+samples at 1000x1000, 500^3), and the clock at q and shapes the packed
+clock engines refuse, on the int8 clock kernels (q = 2 at 1000x1000 on
+the int8 clock multisweep, q = 5 at 2000x2000 on the streamed phases,
+--protocol samples at q = 6, 1000x1000); and holds every kernel of those
+paths against its plain PyTorch version.
 Phases (each prints a progress line on stderr):
 
 1. build the CUDA sources (csrc/*.cu) from scratch with nvcc, all at once;
@@ -73,6 +76,14 @@ Phases (each prints a progress line on stderr):
      sums); 64 multisweep sweeps at 1000x1000 x 16 against 64 phase-kernel
      pairs with the measure kernel (state and sums) and against its plain
      version;
+   - int8 clock, at 130x126 x 3 for q = 2, 3, 4, 5, 6, 8, 20 and at each
+     class's launch with its q (1000x1000 x 16, q = 2; 2000x2000 x 16,
+     q = 5; 1000x1000 x 1, q = 6): the phase kernel with injected and
+     Philox uniforms, both colours, bitwise; the measure kernel within
+     1e-12 of the sums' scale (exactly at q = 2 and 4); 64 multisweep
+     sweeps at 1000x1000 x 16, q = 2 and 6, against 64 phase-kernel pairs
+     with the measure kernel and against its plain version (states
+     bitwise, sums within 1e-12);
 2b. <m>, <e> after one sweep from all-up against their closed forms for
    the chains' quantized acceptances, over >= 1e10 sites per path (helical
    3-D at 151^3 and 501^3, where every neighbour lies in the other
@@ -95,7 +106,10 @@ Phases (each prints a progress line on stderr):
    the bound check_xy_helical_over_relax derives;
    the int8 phases' first sweep from all-up, with the measure kernel, at
    4000x4000 x 8 and 500^3 x 2 over >= 1e10 sites each, against the closed
-   forms for the uint32-quantized thresholds;
+   forms for the uint32-quantized thresholds; the int8 clock's at q = 5
+   and 6, 2000x2000 x 16, over >= 1e10 sites each, against the closed form
+   for its exact float32 arithmetic (the b site's four neighbours
+   enumerated);
 3. 2-D resident class: 2048^2, 16 replicas, 64 samples, 1000 MCS through
    the multisweep kernel;
 4. 2-D streaming class: 8192^2, 4 replicas, 4 samples, 200 MCS through
@@ -153,6 +167,15 @@ Phases (each prints a progress line on stderr):
    (the per-t means against the same curve, combined sigma); 500^3 x 2, 2
    samples, 1000 MCS through the 3-D phase and measure launches (against
    data/production/ising3d_512_mcs1000_s1024.dat, combined sigma);
+4i. int8 clock classes from all-up: q = 2 (the Ising model) at 1000x1000
+   x 16, 64 samples, 1000 MCS through the int8 clock multisweep, every t
+   against the 2-D Ising curve; q = 5 at 2000x2000 x 16, 32 samples, 200
+   MCS through the streamed phase and measure launches, m(1) and e(1)
+   against the first-sweep closed form (sigma from the run's N·Var) and
+   every row finite; --protocol samples at q = 6, 1000x1000, 16
+   histories of 1000 MCS, the per-t means against
+   data/production/clock_1000x1000_kbt0.91_mcs10000_s100.dat (combined
+   sigma);
 5. times with CUDA events, beside each kernel's bound and its plain
    version's time, at the main paths' launch shapes (the helical kernel
    at 128 x 1001x1000, S = 64; the clock phase kernel at 2000x2000 x 40,
@@ -180,7 +203,13 @@ Phases (each prints a progress line on stderr):
    and 40), each held against its plain version, each int8 class's kernel
    share of its wall, and the int8 route reading (one multisweep launch of
    64 sweeps against 64 streamed sweeps at 1000^2 and 2000^2 for several
-   batches), where ops/ising2d_multisweep.MULTISWEEP_MAX_BYTES is read.
+   batches), where ops/ising2d_multisweep.MULTISWEEP_MAX_BYTES is read;
+   the int8 clock kernels at their classes' launches (the phase and the
+   measure kernel at 2000x2000 x 16 and 1000x1000 x 1, the multisweep at
+   1000x1000 x 16 with S = 64 and 40), each held against its plain
+   version, each clock class's kernel share of its wall, and the clock
+   route reading at q = 6 (1000^2 x 1 and 16, 2000^2 x 8 and 16), where
+   ops/clock_multisweep.MULTISWEEP_MAX_BYTES is read.
 
 It prints the kernels' JSON line, the card's `nvidia-smi` name and power
 limit, and last the device line.  It exits non-zero, printing no result,
@@ -2389,30 +2418,32 @@ def check_first_sweep_int8(i2p, i3p, i8m, rng, dev, ref_row, ref3_row
     return worst
 
 
-def run_int8_samples(main_fn, modules, out_dir, ref, histories: int,
-                     mcs: int) -> tuple[dict, float, float, float]:
-    """--protocol samples on 1000x1000 Ising 2-D, one history at a time
-    through the per-history runner; the rows N, sample, t, m, e and the
-    per-t means of m and e over the histories against the reference curve
-    within SIGMAS combined standard errors, sigma^2 = N·Var_ref (1/(N n)
-    + 1/(N_ref n_ref)).  Returns (launches, wall, rate, largest |z|)."""
+def run_samples_class(main_fn, modules, out_dir, label: str, argv, ref,
+                      histories: int, mcs: int, ncols: int
+                      ) -> tuple[dict, float, float, float]:
+    """--protocol samples at 1000x1000 (``argv`` names the model), one
+    history at a time through the per-history runner; the rows N, sample,
+    t, m, e (and m_y: ``ncols`` 6) and the per-t means of m and e over the
+    histories against the reference curve within SIGMAS combined standard
+    errors, sigma^2 = N·Var_ref (1/(N n) + 1/(N_ref n_ref)).  Returns
+    (launches, wall, rate, largest |z|)."""
     n = 1000
     nsites = n * n
     launches, wall, rate, table, head = run_main_path(
-        main_fn, modules, out_dir, "ising2d_int8_samples",
-        ["--model", "ising2d", "--protocol", "samples", "--nx", str(n),
-         "--ny", str(n), "--kbt", repr(KBT), "--mcs", str(mcs), "--samples",
-         str(histories)], nsites, histories, mcs)
+        main_fn, modules, out_dir, label,
+        list(argv) + ["--protocol", "samples", "--nx", str(n), "--ny",
+                      str(n), "--mcs", str(mcs), "--samples",
+                      str(histories)], nsites, histories, mcs)
     if "# engine: phase engine (single history)" not in head:
         fail(f"samples run took another route: {head}")
     want = np.stack([np.full(histories * mcs, nsites),
                      np.repeat(np.arange(1, histories + 1), mcs),
                      np.tile(np.arange(1, mcs + 1), histories)], axis=1)
-    if table.shape != (histories * mcs, 5) or not np.array_equal(
+    if table.shape != (histories * mcs, ncols) or not np.array_equal(
             table[:, :3], want) or not np.all(np.isfinite(table)):
         fail(f"samples rows: shape {table.shape} or the N, sample, t "
              "columns are wrong")
-    port = table[:, 3:].reshape(histories, mcs, 2).mean(axis=0)
+    port = table[:, 3:5].reshape(histories, mcs, 2).mean(axis=0)
     worst = 0.0
     n_ref, ns_ref = ref[0, 0], ref[0, 1]
     for t in range(1, mcs + 1):
@@ -2582,8 +2613,9 @@ def run_int8_classes(main_fn, modules, out_dir, ref, ref3) -> dict:
     label = "2-D samples 1000^2 x 1"
     log(f"phase 4h: int8 2-D path, {label}: --protocol samples, 16 "
         "histories, 200 MCS")
-    launches, wall, rate, z = run_int8_samples(main_fn, modules, out_dir, ref,
-                                               16, 200)
+    launches, wall, rate, z = run_samples_class(
+        main_fn, modules, out_dir, "ising2d_int8_samples",
+        ["--model", "ising2d", "--kbt", repr(KBT)], ref, 16, 200, 5)
     expect_launches(label, launches, {
         ms: {"multisweep": 0}, "ising2d_int8": {"phase": 2 * 16 * 200},
         "ising_int8_measure": {"measure2d": 16 * 200, "measure3d": 0}})
@@ -2626,6 +2658,461 @@ def int8_shares(classes: dict, t8: dict) -> dict[str, float]:
                     + m3 * ms("measure3d 2x500x500x250"))
         shares[label] = kern / (wall * 1e3)
         log(f"  int8 {label}: kernel {kern / 1e3:.3f} s of a {wall:.3f} s "
+            f"wall; kernel share {shares[label]:.3f}")
+    return shares
+
+
+# ---------------------------------------------------------------------------
+# the int8 q-state clock kernels: every q and every even shape the packed
+# clock engines refuse (ops/clock_pallas.py, clock_measure_pallas.py,
+# clock_multisweep.py)
+# ---------------------------------------------------------------------------
+
+CLOCK_1000 = PRODUCTION / "clock_1000x1000_kbt0.91_mcs10000_s100.dat"
+# the q of the phase checks (the Ising case, the packed engines' three,
+# others below and above the select chains' 16)
+CLOCK8_QS = (2, 3, 5, 6, 8, 20)
+# (q, kbt, (R, ny, half)) of the classes' launches: resident q = 2 at
+# 1000^2 x 16, streamed q = 5 at 2000^2 x 16, samples q = 6 at 1000^2 x 1
+CLOCK8_CLASSES = ((2, KBT, (16, 1000, 500)), (5, KBT_CLOCK, (16, 2000, 1000)),
+                  (6, KBT_CLOCK, (1, 1000, 500)))
+# a ragged small shape (half 63: a masked tail unit)
+CLOCK8_SMALL = (3, 130, 63)
+# the multisweep's checks (the resident class's launch) at these q
+CLOCK8_MS_QS = (2, 6)
+# first sweeps from all-up: (q, launch, sweeps) for >= 1e10 sites each
+CLOCK8_FIRST_SWEEP = ((5, (16, 2000, 1000), 157), (6, (16, 2000, 1000), 157))
+# minimum 32-bit instructions a site of an int8 clock phase beside half its
+# unit's Philox call: two uniforms (shift, convert, scale: 6), the
+# candidate (scale, truncate, two adds, the wrap: 5), twelve table reads
+# (cos and sin of four neighbours, the site and the candidate), the field
+# (6 adds), ΔE (2 subtracts, 2 multiplies, an add, the sign: 6), its clamp
+# and scale (2), expf (~10), the test, select and store (3): 50.  The
+# measure pass a site: two table reads a component for it and its two
+# bond partners (6), the bond products and adds (6), the three float64
+# sums (3): 15.  The fused sums of a measuring phase b a site of the
+# colour updated: two table reads, the float64 field (6) and the three
+# sums and products (6): 14.  Bytes a site of the colour updated: its
+# byte read and written and the other colour's read once (3); the measure
+# pass reads every site once (1 B a site)
+OPS_CLOCK8_SITE = 50
+OPS_CLOCK8_MEASURE = 15
+OPS_CLOCK8_FUSED = 14
+CLOCK8_PHASE_BYTES = 3
+# the route readings (nx, R) at q = 6: ms a sweep of the multisweep
+# against the streamed phase-measure launches
+CLOCK8_ROUTE_SHAPES = ((1000, 1), (1000, 16), (2000, 8), (2000, 16))
+
+
+def scaled_err(got, want, nsites: int) -> float:
+    """Largest |got - want| / max(|want|, nsites) of float64 sums of a
+    replica's nsites terms of magnitude <= 1 (two, for E, a site): the
+    error against the sum's scale, which a sum that cancels (Σ sin θ near
+    0) does not shrink."""
+    return float(((got - want).abs()
+                  / want.abs().clamp(min=float(nsites))).max())
+
+
+def clock8_phase_ops() -> float:
+    """Instructions a site of an int8 clock phase (half a Philox call)."""
+    return OPS_PER_PHILOX / 2 + OPS_CLOCK8_SITE
+
+
+def clock8_state(dev, shape, q: int, seed: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    g = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(g.integers(0, q, size=shape,
+                                             dtype=np.int8)).to(dev)
+                 for _ in range(2))
+
+
+def clock8_uniforms(dev, shape, seed: int) -> list[torch.Tensor]:
+    """Injected (u_cand, u_acc): multiples of 2^-24 in [0, 1), float32."""
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy((g.integers(0, 2 ** 24, size=shape)
+                              * 2.0 ** -24).astype(np.float32)).to(dev)
+            for _ in range(2)]
+
+
+def check_clock8(c8p, c8m, c8ms, rng, dev) -> dict[str, float]:
+    """The int8 clock kernels against their plain versions on the same CUDA
+    tensors: phase_kernel bitwise at every q of CLOCK8_QS on a ragged small
+    shape and at each class's launch with its q, both colours, injected
+    and Philox uniforms; measure_kernel within 1e-12 relative to the sums'
+    scale (:func:`scaled_err`; exactly at q = 2 and 4); 64 multisweep
+    sweeps at 1000x1000 x 16, q = 2 and 6, against 64 phase-kernel pairs
+    with measure_kernel and against the plain multisweep, states bitwise
+    and sums within 1e-12 relative.
+    Returns the largest error a kernel: of the states and the sums
+    absolute ("phase", "measure", "multisweep"), of the sums relative
+    ("measure_rel", "multisweep_rel")."""
+    errs = {"phase": 0.0, "measure": 0.0, "multisweep": 0.0,
+            "measure_rel": 0.0, "multisweep_rel": 0.0}
+    cases = [(q, 0.91, CLOCK8_SMALL) for q in CLOCK8_QS + (4,)]
+    cases += list(CLOCK8_CLASSES)
+    for q, kbt, shape in cases:
+        beta = 1.0 / kbt
+        a, b = clock8_state(dev, shape, q, sum(shape) + q)
+        uc, ua = clock8_uniforms(dev, shape, q + shape[0])
+        e_inj = e_rand = 0
+        for color in (0, 1):
+            x, o = (a, b) if color == 0 else (b, a)
+            seeds = rng.seeds_from_key(rng.base_key(17 + q), color)
+            kw = dict(color=color, q=q, beta=beta)
+            e_inj = max(e_inj, max_abs_err([(
+                c8p.metropolis_phase(x.clone(), o, u_cand=uc, u_acc=ua,
+                                     **kw),
+                c8p.phase_plain(x, o, u_cand=uc, u_acc=ua, **kw))]))
+            e_rand = max(e_rand, max_abs_err([(
+                c8p.metropolis_phase(x.clone(), o, seeds, **kw),
+                c8p.phase_plain(x, o, seeds, **kw))]))
+        got, want = c8m.measure_sums(a, b, q), c8m.measure_sums_plain(a, b, q)
+        e_m = scaled_err(got, want, 2 * shape[1] * shape[2])
+        if q in (2, 4) and not torch.equal(got, want):
+            fail(f"clock measure_kernel at q={q} differs from its plain "
+                 f"version ({e_m:.3g}); its integer terms sum exactly")
+        errs["phase"] = max(errs["phase"], e_inj, e_rand)
+        errs["measure"] = max(errs["measure"], float_err([(got, want)]))
+        errs["measure_rel"] = max(errs["measure_rel"], e_m)
+        log(f"  clock8 q={q} {'x'.join(map(str, shape))}: phase injected "
+            f"{e_inj}, philox {e_rand}; measure rel {e_m:.3g}")
+        del a, b, uc, ua
+    seeds = multispin_keys(rng, 64)
+    e_states = 0
+    for q in CLOCK8_MS_QS:
+        beta = 1.0 / (KBT if q == 2 else KBT_CLOCK)
+        a, b = clock8_state(dev, CLOCK8_CLASSES[0][2], q, 31 + q)
+        ka, kb, kobs = c8ms.multisweep_planes(a.clone(), b.clone(), seeds,
+                                              q=q, beta=beta)
+        pa, pb, obs = a.clone(), b.clone(), []
+        for s in range(64):
+            c8p.metropolis_phase(pa, pb, seeds[s, 0], color=0, q=q,
+                                 beta=beta)
+            c8p.metropolis_phase(pb, pa, seeds[s, 1], color=1, q=q,
+                                 beta=beta)
+            obs.append(c8m.measure_sums(pa, pb, q))
+        nsites = 2 * a.shape[1] * a.shape[2]
+        e_pairs = max_abs_err([(ka, pa), (kb, pb)])
+        r_pairs = scaled_err(kobs, torch.stack(obs, dim=1), nsites)
+        qa, qb, qobs = c8ms.multisweep_plain(a, b, seeds, q=q, beta=beta)
+        e_plain = max_abs_err([(ka, qa), (kb, qb)])
+        e_states = max(e_states, e_pairs, e_plain)
+        r_plain = scaled_err(kobs, qobs, nsites)
+        errs["multisweep"] = max(
+            errs["multisweep"], e_pairs, e_plain,
+            float_err([(kobs, torch.stack(obs, dim=1)), (kobs, qobs)]))
+        errs["multisweep_rel"] = max(errs["multisweep_rel"], r_pairs,
+                                     r_plain)
+        log(f"  clock8 multisweep q={q} "
+            f"{'x'.join(map(str, CLOCK8_CLASSES[0][2]))}, S=64: states vs "
+            f"64 phase pairs {e_pairs}, vs plain {e_plain}; sums rel vs "
+            f"measure_kernel {r_pairs:.3g}, vs plain {r_plain:.3g}")
+        del a, b, ka, kb, pa, pb, qa, qb
+    torch.cuda.synchronize()
+    if errs["phase"] != 0 or e_states != 0:
+        fail(f"an int8 clock kernel's state differs from its plain version "
+             f"({errs}, multisweep states {e_states})")
+    if max(errs["measure_rel"], errs["multisweep_rel"]) > 1e-12:
+        fail(f"an int8 clock kernel's sums differ from the plain version's "
+             f"by more than 1e-12 relative ({errs})")
+    return errs
+
+
+def clock8_first_sweep_exact(q: int, beta: float, dev
+                             ) -> tuple[float, float]:
+    """E[m], E[e] per site after one sweep from all-up (every state 0) on
+    the int8 clock engine, for its exact float32 arithmetic: the candidate
+    offset's distribution over the 2^24 uniforms, ΔE in float32 from the
+    float32 table with the field summed in the kernel's order, the
+    acceptance #{k : k 2^-24 < expf(-β max(ΔE, 0))} / 2^24 with expf the
+    card's (torch.exp on a CUDA tensor, the kernel's function).  Phase a:
+    every site sees four 0 neighbours.  Phase b: each b site sees four
+    independent a sites (up, down, centre, side), enumerated in order."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.core import tables
+
+    c32, s32 = tables.clock_cos_sin_table(q).numpy()
+    c64, s64 = tables.clock_sums_table(q).numpy()
+    u = np.arange(2 ** 24, dtype=np.float32) * np.float32(2.0 ** -24)
+    off = (u * np.float32(q - 1)).astype(np.int32) + 1
+    prop = np.bincount(off, minlength=q).astype(np.float64) / 2 ** 24
+    neg_beta = np.float32(-beta)
+
+    def accept(hx, hy):
+        """(T, q) acceptance of a state-0 site's candidates n = 1 .. q-1
+        (column n; column 0 unused) under the float32 fields (T,)."""
+        cn, sn = c32[None, 1:], s32[None, 1:]
+        de = -((cn - c32[0]) * hx[:, None] + (sn - s32[0]) * hy[:, None])
+        arg = neg_beta * np.maximum(de, np.float32(0.0))
+        p = torch.exp(torch.from_numpy(arg).to(dev)).double().cpu().numpy()
+        acc = np.minimum(np.ceil(p * 2 ** 24), 2 ** 24) / 2 ** 24
+        return np.concatenate([np.zeros((len(hx), 1)), acc], axis=1)
+
+    def after(hx, hy):
+        """(T, q) distribution of a state-0 site after its phase."""
+        move = prop[None, :] * accept(hx, hy)
+        move[:, 0] = 1.0 - move[:, 1:].sum(axis=1)
+        return move
+
+    pa = after(np.array([(c32[0] + c32[0]) + (c32[0] + c32[0])]),
+               np.array([(s32[0] + s32[0]) + (s32[0] + s32[0])]))[0]
+    nb = np.array(list(np.ndindex(q, q, q, q)))         # (up, dn, o, side)
+    w = np.prod(pa[nb], axis=1)
+    hx = (c32[nb[:, 0]] + c32[nb[:, 1]]) + (c32[nb[:, 2]] + c32[nb[:, 3]])
+    hy = (s32[nb[:, 0]] + s32[nb[:, 1]]) + (s32[nb[:, 2]] + s32[nb[:, 3]])
+    pb = after(hx.astype(np.float32), hy.astype(np.float32))    # (T, q)
+    m_a = float(pa @ c64)
+    m_b = float(w @ (pb @ c64))
+    # Σ over the four bonds of cos(θ_b - θ_n) = c_b c_n + s_b s_n
+    bonds = (pb[:, :, None] * (c64[None, :, None] * c64[nb][:, None, :]
+                               + s64[None, :, None] * s64[nb][:, None, :])
+             ).sum(axis=(1, 2))
+    return 0.5 * (m_a + m_b), -0.5 * float(w @ bonds)
+
+
+def check_first_sweep_clock8(c8p, c8m, rng, dev) -> float:
+    """<m>(1), <e>(1) of the int8 clock kernels from all-up against
+    :func:`clock8_first_sweep_exact`, over >= 1e10 sites a q (two phase
+    launches and measure_kernel a sweep).  Returns the largest |z|."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import Clock2D
+
+    worst = 0.0
+    for q, shape, iters in CLOCK8_FIRST_SWEEP:
+        model = Clock2D(nx=2 * shape[2], ny=shape[1], kbt=KBT_CLOCK, q=q)
+        per_rep = {"m": [], "e": []}
+        base = rng.base_key(2060 + q)
+        for it in range(iters):
+            a = torch.zeros(shape, dtype=torch.int8, device=dev)
+            b = torch.zeros(shape, dtype=torch.int8, device=dev)
+            seeds = c8p.phase_seeds(rng.sweep_key(rng.sample_key(base, it),
+                                                  1))
+            c8p.metropolis_phase(a, b, seeds[0], color=0, q=q,
+                                 beta=model.beta)
+            c8p.metropolis_phase(b, a, seeds[1], color=1, q=q,
+                                 beta=model.beta)
+            obs = c8m.measure(model, (a, b))
+            per_rep["m"].append(obs["m"])
+            per_rep["e"].append(obs["e"])
+        worst = max(worst, check_z_sampled(
+            f"int8 clock q={q} kbt {KBT_CLOCK} {model.nx}^2", per_rep,
+            model.nsites, clock8_first_sweep_exact(q, model.beta, dev)))
+    return worst
+
+
+def run_clock8_classes(main_fn, modules, out_dir, ref, ref_c1000,
+                       dev) -> dict:
+    """The int8 clock classes through the CLI from all-up: q = 2 at
+    1000x1000 x 16, 64 samples, 1000 MCS on the multisweep, against the
+    Ising curve at every t within 5 standard errors of the port's mean;
+    q = 5 at 2000x2000 x 16 (64 MB of planes, over the multisweep's bound),
+    32 samples, 200 MCS on the streamed phase and measure launches, m(1)
+    and e(1) against the closed form (sigma from the run's own N·Var) and
+    every row finite; --protocol samples at q = 6, 1000x1000, 16 histories
+    of 1000 MCS one at a time, the per-t means against the 100-sample
+    clock curve (combined sigma).  Returns {label: (launches, wall, rate,
+    largest |z|)}."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_multisweep,
+    )
+
+    out = {}
+    ms = "clock8_multisweep"
+    label = "resident q=2 1000^2 x 16"
+    if not clock_multisweep.fits(16, 1000, 500):
+        fail("the q=2 class's batch is over the clock multisweep's bound")
+    log(f"phase 4i: int8 clock path, {label}, 64 samples, 1000 MCS")
+    launches, wall, rate, table, head = run_main_path(
+        main_fn, modules, out_dir, "clock8_q2_1000",
+        ["--model", "clock", "--q", "2", "--nx", "1000", "--ny", "1000",
+         "--kbt", repr(KBT), "--mcs", "1000", "--samples", "64",
+         "--replicas", "16"], 1000 * 1000, 64, 1000)
+    if "# engine: int8 multisweep (cooperative)" not in head:
+        fail(f"int8 clock {label} took another route: {head}")
+    z = check_against_reference(table, ref, 1000 * 1000, 64, 1000,
+                                range(1, 1001))
+    expect_launches(label, launches, {
+        ms: {"multisweep": 4 * 16}, "clock8": {"phase": 0},
+        "clock8_measure": {"measure": 0}})
+    out[label] = (launches, wall, rate, z)
+    label = "streamed q=5 2000^2 x 16"
+    nrep = 16
+    while clock_multisweep.fits(nrep, 2000, 1000):
+        nrep *= 2
+    samples = 2 * nrep
+    log(f"phase 4i: int8 clock path, streamed q=5 2000^2 x {nrep}, "
+        f"{samples} samples, 200 MCS")
+    nsites = 2000 * 2000
+    launches, wall, rate, table, head = run_main_path(
+        main_fn, modules, out_dir, "clock8_q5_2000",
+        ["--model", "clock", "--q", "5", "--nx", "2000", "--ny", "2000",
+         "--kbt", repr(KBT_CLOCK), "--mcs", "200", "--samples",
+         str(samples), "--replicas", str(nrep)], nsites, samples, 200)
+    if "# engine: phase engine (batched)" not in head:
+        fail(f"int8 clock {label} took another route: {head}")
+    if (table.shape != (200, 10) or not np.all(np.isfinite(table))
+            or not np.all(table[:, 1] == samples)
+            or not np.all(table[:, 2] == np.arange(1, 201))):
+        fail(f"int8 clock {label}: table {table.shape} is not 200 finite "
+             f"rows of Nsample {samples}")
+    want = clock8_first_sweep_exact(5, 1.0 / KBT_CLOCK, dev)
+    row = table[0]
+    z = 0.0
+    for name, col, var_col, exact in (("m", 3, 7, want[0]),
+                                      ("e", 4, 8, want[1])):
+        zk = (row[col] - exact) / math.sqrt(row[var_col]
+                                            / (nsites * samples))
+        log(f"  t=1 <{name}> port {row[col]:.9f} closed form {exact:.9f} "
+            f"z {zk:+.2f}")
+        if abs(zk) > SIGMAS:
+            fail(f"int8 clock {label} <{name}>(1) is {zk:+.2f} sigma from "
+                 "its closed form")
+        z = max(z, abs(zk))
+    calls = samples // nrep
+    expect_launches(label, launches, {
+        ms: {"multisweep": 0}, "clock8": {"phase": 2 * calls * 200},
+        "clock8_measure": {"measure": calls * 200}})
+    out[label] = (launches, wall, rate, z)
+    label = "samples q=6 1000^2 x 1"
+    log(f"phase 4i: int8 clock path, {label}: --protocol samples, 16 "
+        "histories, 1000 MCS")
+    launches, wall, rate, z = run_samples_class(
+        main_fn, modules, out_dir, "clock8_samples",
+        ["--model", "clock", "--q", "6", "--kbt", repr(KBT_CLOCK)],
+        ref_c1000, 16, 1000, 6)
+    expect_launches(label, launches, {
+        ms: {"multisweep": 0}, "clock8": {"phase": 2 * 16 * 1000},
+        "clock8_measure": {"measure": 16 * 1000}})
+    out[label] = (launches, wall, rate, z)
+    return out
+
+
+def time_clock8(label: str, sites: int, kernel, plain, inputs,
+                nbytes: float, ops: float, reps: int,
+                plain_reps: int) -> tuple[dict, float]:
+    """CUDA-event time of an int8 clock wrapper on clones of ``inputs``
+    (the phases update their planes in place) and of its plain version,
+    beside the bound; then one call of each on the same inputs: the int8
+    outputs' largest absolute difference, the float64 sums' relative one
+    (:func:`scaled_err`)."""
+    work = [t.clone() for t in inputs]
+    ms = cuda_time_ms(lambda: kernel(*work), reps=reps)
+    plain_ms = cuda_time_ms(lambda: plain(*inputs), reps=plain_reps,
+                            warmup=1)
+    got = kernel(*(t.clone() for t in inputs))
+    want = plain(*inputs)
+    pairs = (list(zip(got, want)) if isinstance(got, tuple)
+             else [(got, want)])
+    err = 0.0
+    for g, w in pairs:
+        err = max(err, float(max_abs_err([(g, w)])) if g.dtype == torch.int8
+                  else scaled_err(g, w, inputs[0][0].numel() * 2))
+    bound, by = bound_ms(nbytes, ops)
+    log(f"  {label}: {ms:.4f} ms/launch ({sites / ms * 1e3:.4g} sites/s), "
+        f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); vs plain "
+        f"{err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}, err
+
+
+def time_clock8_kernels(c8p, c8m, c8ms, rng, dev) -> dict:
+    """Each int8 clock kernel at its classes' launches: the phase and the
+    measure kernel at 2000^2 x 16, q = 5 (streamed) and 1000^2 x 1, q = 6
+    (samples), the multisweep at 1000^2 x 16, q = 2, with S = 64 and 40 (a
+    call's 15 launches of 64 sweeps and one of 40); each held against its
+    plain version.  Returns {label: (times, err)}."""
+    seeds = multispin_keys(rng, 64, 37)
+    out = {}
+    for q, kbt, shape in CLOCK8_CLASSES[1:]:
+        a, b = clock8_state(dev, shape, q, 41 + q)
+        sites = a.numel()
+        tag = "x".join(map(str, shape))
+        kw = dict(color=0, q=q, beta=1.0 / kbt)
+        out[f"phase {tag}"] = time_clock8(
+            f"clock8 phase kernel {tag}, q={q}", sites,
+            lambda x, o: c8p.metropolis_phase(x, o, seeds[0, 0], **kw),
+            lambda x, o: c8p.phase_plain(x, o, seeds[0, 0], **kw),
+            (a, b), CLOCK8_PHASE_BYTES * sites, sites * clock8_phase_ops(),
+            reps=20, plain_reps=1)
+        out[f"measure {tag}"] = time_clock8(
+            f"clock8 measure kernel {tag}, q={q}", 2 * sites,
+            lambda x, o: c8m.measure_sums(x, o, q),
+            lambda x, o: c8m.measure_sums_plain(x, o, q), (a, b),
+            2 * sites + 24 * shape[0], 2 * sites * OPS_CLOCK8_MEASURE,
+            reps=20, plain_reps=1)
+        del a, b
+    q, kbt, shape = CLOCK8_CLASSES[0]
+    a, b = clock8_state(dev, shape, q, 53)
+    sites = a.numel()
+    for sweeps in (64, 40):
+        out[f"multisweep S={sweeps}"] = time_clock8(
+            f"clock8 multisweep kernel {'x'.join(map(str, shape))}, q={q}, "
+            f"S={sweeps}", 2 * sites * sweeps,
+            lambda x, o: c8ms.multisweep_planes(x, o, seeds[:sweeps], q=q,
+                                                beta=1.0 / kbt),
+            lambda x, o: c8ms.multisweep_plain(x, o, seeds[:sweeps], q=q,
+                                               beta=1.0 / kbt),
+            (a, b), 2 * 2 * sites + 24 * shape[0] * sweeps,
+            2 * sites * sweeps * clock8_phase_ops()
+            + sites * sweeps * OPS_CLOCK8_FUSED, reps=5, plain_reps=1)
+    return out
+
+
+def compare_clock8_routes(c8p, c8m, c8ms, rng, dev) -> list[tuple]:
+    """ms a sweep of the int8 clock runner's two routes at q = 6, kbt
+    0.91, CUDA events, host loop included: one multisweep launch of 64
+    sweeps against 64 streamed sweeps (two phase launches and the measure
+    kernel each), at CLOCK8_ROUTE_SHAPES.  Returns [(nx, R, bytes,
+    multisweep ms, streamed ms)]."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import Clock2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
+        CheckerboardState,
+    )
+
+    seeds = multispin_keys(rng, 64, 47)
+    rows = []
+    for nx, nrep in CLOCK8_ROUTE_SHAPES:
+        model = Clock2D(nx=nx, ny=nx, kbt=KBT_CLOCK, q=6)
+        a, b = clock8_state(dev, (nrep, nx, nx // 2), 6, nx + nrep)
+
+        def resident():
+            c8ms.multisweep_planes(a, b, seeds, q=6, beta=model.beta)
+
+        def streamed():
+            for j in range(64):
+                c8p.sweep_seeded(model, CheckerboardState(a, b), seeds[j])
+                c8m.measure_sums(a, b, 6)
+
+        res_ms, str_ms = _route_times(resident, streamed, 64)
+        nbytes = nrep * nx * nx
+        rows.append((nx, nrep, nbytes, res_ms, str_ms))
+        log(f"  clock8 route {nx}^2 x {nrep} ({nbytes / 2 ** 20:.1f} MiB, "
+            f"fits {c8ms.fits(nrep, nx, nx // 2)}): multisweep "
+            f"{res_ms:.5f} ms/sweep, streamed {str_ms:.5f} ms/sweep, "
+            f"streamed/multisweep {str_ms / res_ms:.3f}")
+        del a, b
+    return rows
+
+
+def clock8_shares(classes: dict, t8: dict) -> dict[str, float]:
+    """Each int8 clock class's kernel time (its launches times the launch
+    times measured at its shape) over its wall."""
+    def ms(key):
+        return t8[key][0]["ms"]
+
+    shares = {}
+    for label, (n, wall, _, _) in classes.items():
+        ph = n["clock8"]["phase"]
+        me = n["clock8_measure"]["measure"]
+        launches = n["clock8_multisweep"]["multisweep"]
+        if label.startswith("resident"):
+            kern = launches // 16 * (15 * ms("multisweep S=64")
+                                     + ms("multisweep S=40"))
+        elif label.startswith("streamed"):
+            kern = ph * ms("phase 16x2000x1000") + me * ms(
+                "measure 16x2000x1000")
+        else:
+            kern = ph * ms("phase 1x1000x500") + me * ms("measure 1x1000x500")
+        shares[label] = kern / (wall * 1e3)
+        log(f"  clock8 {label}: kernel {kern / 1e3:.3f} s of a {wall:.3f} s "
             f"wall; kernel share {shares[label]:.3f}")
     return shares
 
@@ -2773,6 +3260,15 @@ def main() -> int:
         clock_planes as cp,
     )
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_measure_pallas as c8m,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_multisweep as c8ms,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_pallas as c8p,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         helical3d_multispin as h3,
     )
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
@@ -2829,7 +3325,9 @@ def main() -> int:
                "xy": xyp, "xy_measure": xym, "xy_resident": xyr,
                "xy_helical": xhd, "xy_helical_angle": xha,
                "ising2d_int8": i2p, "ising3d_int8": i3p,
-               "ising_int8_measure": i8m, "ising2d_int8_multisweep": i8ms}
+               "ising_int8_measure": i8m, "ising2d_int8_multisweep": i8ms,
+               "clock8": c8p, "clock8_measure": c8m,
+               "clock8_multisweep": c8ms}
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device {torch.cuda.get_device_name(0)} | {smi} | torch "
@@ -2838,7 +3336,7 @@ def main() -> int:
                  REFERENCE_H3_501, REFERENCE_H3_1001, RACY_H3_1001,
                  CLOCK_2000, CLOCK_2048, CLOCK_501, XY_OR_4000, XY_2000,
                  XY_FD_1500, XY_FIX1_1500, XY_FM_1000, XY_FMS_1000,
-                 XY_OR_10001, XY_10001):
+                 XY_OR_10001, XY_10001, CLOCK_1000):
         if not path.exists():
             fail(f"reference curve {path} is missing")
     ref = read_dat(REFERENCE_DAT)
@@ -2850,6 +3348,7 @@ def main() -> int:
     ref_c2000 = read_dat(CLOCK_2000, max_t=1000)
     ref_c2048 = read_dat(CLOCK_2048, max_t=1000)
     ref_c501 = read_dat(CLOCK_501, max_t=1000)
+    ref_c1000 = read_dat(CLOCK_1000, max_t=1000)
     ref_xy_or = read_dat(XY_OR_4000, max_t=1000)
     ref_xy = read_dat(XY_2000)
     ref_fd = read_dat(XY_FD_1500, max_t=1000)
@@ -2875,7 +3374,8 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"  cooperative grids: 2-D {msb.multisweep_grid_blocks()}, 3-D "
         f"{ms3.multisweep_grid_blocks()}, XY {xyr.grid_blocks()}, int8 2-D "
-        f"{i8ms.grid_blocks()} blocks resident")
+        f"{i8ms.grid_blocks()}, int8 clock {c8ms.grid_blocks()} blocks "
+        "resident")
 
     # 2. kernels against their plain versions
     log("phase 2: kernels vs plain versions (bitwise)")
@@ -2894,6 +3394,7 @@ def main() -> int:
     err_xyh, rel_xyh = check_xy_helical(xhd, xha, rng, dev)
     check_atan2(xha, dev)
     errs8 = check_int8(i2p, i3p, i8m, i8ms, rng, dev)
+    errs_c8 = check_clock8(c8p, c8m, c8ms, rng, dev)
 
     log("phase 2b: first sweep from all-up against its exact expectation")
     check_first_sweep(msb, rng, dev, ref[0], iters=100)
@@ -2917,6 +3418,7 @@ def main() -> int:
     z_xyh = check_xy_helical_phase_a(xhd, xha, rng, dev, iters=200)
     de_xyh = check_xy_helical_over_relax(xhd, xha, dev)
     z_int8 = check_first_sweep_int8(i2p, i3p, i8m, rng, dev, ref[0], ref3[0])
+    z_clock8 = check_first_sweep_clock8(c8p, c8m, rng, dev)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         # 3. 2-D resident class through the multisweep kernel
@@ -3133,12 +3635,17 @@ def main() -> int:
         # int8 kernels: the multisweep, the streamed phase and measure
         # launches, one history at a time, and 3-D
         int8 = run_int8_classes(cli_main, modules, out, ref, ref3)
+        # 4i. the clock at every q and shape the packed engines refuse, on
+        # the int8 clock kernels
+        clock8 = run_clock8_classes(cli_main, modules, out, ref, ref_c1000,
+                                    dev)
     paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch,
              h1_launch, h5_launch, ha_launch, cp_launch, ca_launch,
              ch_launch, xo_launch, xm_launch,
              *(d[0] for d in disorder.values()),
              *(h[0] for h in helical.values()),
-             *(c[0] for c in int8.values()))
+             *(c[0] for c in int8.values()),
+             *(c[0] for c in clock8.values()))
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -3555,6 +4062,18 @@ def main() -> int:
     int8_share = int8_shares(int8, t8)
     int8_routes = compare_int8_routes(i2p, i8m, i8ms, rng, dev)
 
+    # the int8 clock kernels at their classes' launches, each class's
+    # kernel share of its wall, and the clock route reading
+    tc8 = time_clock8_kernels(c8p, c8m, c8ms, rng, dev)
+    ec8 = {k: v[1] for k, v in tc8.items()}
+    if (max(v for k, v in ec8.items() if not k.startswith("measure")) != 0
+            or max(v for k, v in ec8.items()
+                   if k.startswith("measure")) > 1e-12):
+        fail(f"an int8 clock kernel differs from its plain version at its "
+             f"main-path launch shape ({ec8})")
+    clock8_share = clock8_shares(clock8, tc8)
+    clock8_routes = compare_clock8_routes(c8p, c8m, c8ms, rng, dev)
+
     src = "cuda_fortran_mc_simulation_spin_tpu_torch/csrc/"
     ref_py = "cuda_fortran_mc_simulation_spin_tpu/ops/"
     rows = [
@@ -3633,6 +4152,16 @@ def main() -> int:
          "ising2d_multisweep.py:128",
          launched("ising2d_int8_multisweep", "multisweep"),
          max(errs8["multisweep"], e8), t8["multisweep S=64"][0]),
+        ("clock_pallas.phase_kernel", "clock_pallas.cu", "clock_pallas.py:106",
+         launched("clock8", "phase"), errs_c8["phase"],
+         tc8["phase 16x2000x1000"][0]),
+        ("clock_measure_pallas.measure_kernel", "clock_measure_pallas.cu",
+         "clock_measure_pallas.py:85", launched("clock8_measure", "measure"),
+         errs_c8["measure"], tc8["measure 16x2000x1000"][0]),
+        ("clock_multisweep.multisweep_kernel", "clock_multisweep.cu",
+         "clock_multisweep.py:127",
+         launched("clock8_multisweep", "multisweep"),
+         errs_c8["multisweep"], tc8["multisweep S=64"][0]),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -3699,6 +4228,16 @@ def main() -> int:
         "multisweep, streamed ms a sweep) "
         + ", ".join(f"({nx}, {r}, {b / 2 ** 20:.1f}, {a:.5f}, {c:.5f})"
                     for nx, r, b, a, c in int8_routes))
+    log("main path int8 clock: " + "; ".join(
+        f"{label} {rate:.4g} flip attempts/s ({wall:.2f} s, largest |z| "
+        f"{z:.2f}, kernel share {clock8_share[label]:.3f})"
+        for label, (_, wall, rate, z) in clock8.items())
+        + f"; first sweeps largest |z| {z_clock8:.2f}; measure and "
+        f"multisweep sums' relative error {errs_c8['measure_rel']:.3g}, "
+        f"{errs_c8['multisweep_rel']:.3g}; routes (nx, R, MiB, multisweep, "
+        "streamed ms a sweep) "
+        + ", ".join(f"({nx}, {r}, {b / 2 ** 20:.1f}, {a:.5f}, {c:.5f})"
+                    for nx, r, b, a, c in clock8_routes))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ progress on ``err`` (stdout = dataset, stderr = progress).
 - ``relaxation`` serves the bit-packed routes (periodic 2-D and 3-D
   multispin, helical 2-D and 3-D multispin, the bit-sliced clock engines:
   periodic q = 6, 4, 3, aligned and padded, helical q = 6), the generic
-  runners on the int8 kernels for periodic Ising 2-D and 3-D at every
-  even shape the packed routes do not take (the int8 multisweep, the
-  per-history and the batched runner, in the JAX package's order), the
+  runners on the int8 kernels for periodic Ising 2-D and 3-D and the
+  periodic clock (every q) at every even shape the packed routes do not
+  take (the int8 multisweep, the per-history and the batched runner, in
+  the JAX package's order), the
   periodic XY phases and the dense helical XY engines (odd nx, even ny;
   angle planes by default, component planes with
   ``SPINLAT_XY_DENSE_ANGLE=0``), with and without over-relaxation;
@@ -18,13 +19,14 @@ progress on ``err`` (stdout = dataset, stderr = progress).
   ``finite_magne``, ``samples`` and ``finite_magne_samples`` serve the
   periodic XY model through ``sweep.make_xy_disorder_runner`` (the
   snapshot-measuring phase, the standalone measurement and the resident
-  multisweep); ``samples`` serves periodic Ising 2-D and 3-D through
-  ``sweep.make_sample_runner`` (JAX ``_run_samples_generic``).
+  multisweep); ``samples`` serves periodic Ising 2-D and 3-D and the
+  periodic clock through ``sweep.make_sample_runner`` (JAX
+  ``_run_samples_generic``).
 
 Every other route of the JAX package (the masked helical kernels and the
-generic runners behind helical XY shapes outside the dense gate and the
-oversize helical lattices, the int8 clock kernels, the per-sample runner
-of the clock and helical models, meshes) raises NotImplementedError naming
+generic runners behind helical XY shapes outside the dense gate, the
+helical clock at q != 6 and the oversize helical lattices, the per-sample
+runner of the helical models, meshes) raises NotImplementedError naming
 the ROADMAP.md item that ports it, and never falls back.  Over-relaxation
 on the Ising and clock models raises ValueError: it is defined for the XY
 model only.
@@ -63,6 +65,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     clock_helical_multispin,
+    clock_multisweep,
     helical3d_multispin,
     helical_multispin,
     ising2d_multispin,
@@ -163,11 +166,11 @@ def _ensemble_loop(cfg, runner, fold, err, accs, base, batch, start,
 def _check_route(cfg, model) -> None:
     """Raise for every route of the JAX package that the port does not
     serve yet, naming the ROADMAP.md item that ports it.  ``build_model``
-    admits the Ising and clock models and periodic XY, so what is left of
-    the JAX package's ``_clock_multispin_eligible`` and helical eligibility
-    is the shape (and q for the clock); every periodic Ising 2-D and 3-D
-    and periodic XY shape is served, and helical XY within the dense
-    engines' gate (odd nx, even ny), with or without over-relaxation.
+    admits the Ising, clock and XY models, so what is left of the JAX
+    package's helical eligibility is the shape (and q for the helical
+    clock); every periodic Ising 2-D and 3-D, periodic clock (every q) and
+    periodic XY shape is served, and helical XY within the dense engines'
+    gate (odd nx, even ny), with or without over-relaxation.
     Over-relaxation on the other models raises ValueError."""
     if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
         raise NotImplementedError(
@@ -196,16 +199,8 @@ def _check_route(cfg, model) -> None:
                 f"helical clock {cfg.nx}x{cfg.ny} q={cfg.q} is not served "
                 "by the packed helical clock kernel (q = 6, odd nx, even "
                 f"nx*ny, at most {clock_helical_multispin.MAX_WORDS} words "
-                "a colour); the masked helical and int8 clock kernels that "
-                "serve it are not ported yet (ROADMAP.md queue B item 13)")
-        return
-    if isinstance(model, Clock2D):
-        if sweep_mod.clock_route(model) is None:
-            raise NotImplementedError(
-                f"clock {cfg.nx}x{cfg.ny} q={cfg.q} is not served by the "
-                "packed clock engines (q in 6, 4, 3 on an aligned or "
-                "padded-packable shape); the int8 clock kernels that serve "
-                "it are not ported yet (ROADMAP.md queue B item 13)")
+                "a colour); the masked helical clock kernel that serves it "
+                "is not ported yet (ROADMAP.md queue B item 13)")
         return
     if isinstance(model, Ising2DHelical):
         if not helical_multispin.fits(model):
@@ -239,10 +234,12 @@ def _int8_runner(cfg, model, batch: int, device):
 
 def _make_runner(cfg, model, batch: int, device):
     """The route of the JAX package's ``_run_accumulating`` for the
-    served models.  Periodic Ising in its order, without the TPU's gates:
-    packable shapes on the bit-packed engines; else (2-D) the int8
-    multisweep while the batch fits ``ising2d_multisweep.fits``; else the
-    per-history runner at one replica and the batched one above."""
+    served models.  Periodic Ising and clock in its order, without the
+    TPU's gates: packable shapes on the bit-packed engines (the clock:
+    ``sweep.clock_route``, q = 6, 4, 3); else (Ising 2-D, clock) the int8
+    multisweep while the batch fits ``ising2d_multisweep.fits`` or
+    ``clock_multisweep.fits``; else the per-history runner at one replica
+    and the batched one above."""
     if isinstance(model, XY2D):
         return sweep_mod.make_xy_runner(
             model, cfg.mcs, batch, cfg.init_state,
@@ -254,8 +251,13 @@ def _make_runner(cfg, model, batch: int, device):
             n_over_relax=cfg.n_over_relax,
             mcs_over_relax=cfg.mcs_over_relax)
     if isinstance(model, Clock2D):
-        return sweep_mod.make_clock_multispin_runner(
-            model, cfg.mcs, batch, cfg.init_state, device=device)
+        if sweep_mod.clock_route(model) is not None:
+            return sweep_mod.make_clock_multispin_runner(
+                model, cfg.mcs, batch, cfg.init_state, device=device)
+        if clock_multisweep.fits(batch, *model.color_shape):
+            return sweep_mod.make_multisweep_runner(
+                model, cfg.mcs, batch, cfg.init_state, device=device)
+        return _int8_runner(cfg, model, batch, device)
     if isinstance(model, (Ising2DHelical, Ising3DHelical, Clock2DHelical)):
         return sweep_mod.make_helical_runner(
             model, cfg.mcs, batch, cfg.init_state, device=device)
@@ -452,10 +454,11 @@ _PREP_FOR_INIT = {
 
 
 def _run_samples_generic(cfg: RunConfig, model, out, err, device) -> None:
-    """Per-sample raw series of periodic Ising 2-D and 3-D (JAX
-    ``_run_samples_generic``, its ``protocols.py:1152-1179``): plain
-    Metropolis histories on ``sweep.make_sample_runner``, rows N, sample,
-    t, m, e."""
+    """Per-sample raw series of periodic Ising 2-D and 3-D and the periodic
+    clock (JAX ``_run_samples_generic``, its ``protocols.py:1152-1179``):
+    plain Metropolis histories on ``sweep.make_sample_runner``, rows N,
+    sample, t, m, e, and m_y where the series has it (the clock), as JAX
+    appends it."""
     if cfg.init_state not in ("allup", "random"):
         raise ValueError(
             f"init_state={cfg.init_state!r} requires the periodic XY "
@@ -477,9 +480,10 @@ def _run_samples_generic(cfg: RunConfig, model, out, err, device) -> None:
         series = runner(rng.sample_key(base, s))
         series = {k: v.cpu().numpy().astype(np.float64)
                   for k, v in series.items()}
+        order = ("m", "e") + (("my",) if "my" in series else ())
         datfmt.write_sample_series(out, model.nsites, s + 1,
                                    _filter_times(series, cfg),
-                                   order=("m", "e"), times=cfg.measure_times)
+                                   order=order, times=cfg.measure_times)
         progress(s + 1, cfg.tot_sample)
 
 
@@ -490,20 +494,19 @@ def run_samples(cfg: RunConfig, out: IO[str] = sys.stdout,
     40-58), one history a sample keyed by its sample key.  Periodic XY:
     the preparation from cfg.init_state, rows N, sample, t, m_x, e, m_y, A
     (and corr) under the reference's literal header.  Periodic Ising 2-D
-    and 3-D: :func:`_run_samples_generic`.  The clock and helical models'
-    per-sample runners are not ported."""
+    and 3-D and the periodic clock: :func:`_run_samples_generic`.  The
+    helical models' per-sample runners are not ported."""
     dev = resolve_device(device)
     if cfg.model != "xy2d" or cfg.nx % 2:
         model = build_model(cfg)
-        if isinstance(model, (Ising2D, Ising3D)):
+        if isinstance(model, (Ising2D, Ising3D, Clock2D)):
             _run_samples_generic(cfg, model, out, err, dev)
             return
-        sub = ("(b), the int8 clock kernels" if isinstance(model, Clock2D)
-               else "(c), the masked helical kernels")
         raise NotImplementedError(
             f"--protocol samples on the {cfg.model} model (nx={cfg.nx}) "
             "needs the generic per-sample runner on the kernels of "
-            f"sub-slice {sub}, not ported yet (ROADMAP.md queue A item 4a)")
+            "sub-slice (c), the masked helical kernels, not ported yet "
+            "(ROADMAP.md queue A item 4a)")
     _check_disorder(cfg)
     model = build_model(cfg)
     prep = _PREP_FOR_INIT.get(cfg.init_state, "rotate_first")

@@ -7,7 +7,7 @@ Port of the multispin part of
 ``make_clock_multispin_runner``, the Ising and q=6 clock branches of
 ``make_helical_runner``, the generic runners ``make_sample_runner``,
 ``make_batch_runner`` and ``make_multisweep_runner`` on the int8 Ising 2-D
-and 3-D kernels, ``xy_padded_eligible`` /
+and 3-D and int8 clock kernels, ``xy_padded_eligible`` /
 ``make_xy_padded_runner`` as :func:`make_xy_runner`, the dense XY branch of
 ``make_helical_runner``, and the XY disorder
 runners of ``engine/protocols.py``, ``_xy_disorder_batched_runner`` and
@@ -32,6 +32,7 @@ from typing import Callable
 import torch
 
 from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock import Clock2D
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock_helical import (
     Clock2DHelical,
 )
@@ -51,7 +52,10 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     clock3_multispin,
     clock4_multispin,
     clock_helical_multispin,
+    clock_measure_pallas,
     clock_multispin,
+    clock_multisweep,
+    clock_pallas,
     clock_planes,
     helical3d_multispin,
     helical_multispin,
@@ -198,27 +202,47 @@ def make_multispin3d_runner(model, mcs: int, batch: int,
 
 
 # ---------------------------------------------------------------------------
-# the generic runners on the int8 Ising kernels (JAX sweep.py:83, :159, :593)
+# the generic runners on the int8 Ising and clock kernels (JAX sweep.py:83,
+# :159, :593)
 # ---------------------------------------------------------------------------
 
 def _int8_ops(model):
-    """The int8 phase module of a periodic Ising model."""
+    """The int8 phase module of a periodic Ising or clock model."""
     if isinstance(model, Ising3D):
         return ising3d_pallas
     if isinstance(model, Ising2D):
         return ising2d_pallas
+    if isinstance(model, Clock2D):
+        return clock_pallas
     raise ValueError(f"{model!r} has no int8 phase kernel in the port")
+
+
+def _int8_measure(model, st) -> torch.Tensor:
+    """The measure kernel's sums of a replica batch: (R, 2) int64 (m, e)
+    of an Ising model, (R, 3) float64 (Σ cos, Σ sin, E) of a clock one."""
+    if isinstance(model, Clock2D):
+        return clock_measure_pallas.measure_sums(*st, model.q)
+    return ising2d_measure_pallas.measure_sums(*st)
+
+
+def _int8_densities(model, sums: torch.Tensor) -> dict[str, torch.Tensor]:
+    """{m, e} (Ising) or {m, my, e} (clock) float64 densities."""
+    mod = (clock_measure_pallas if isinstance(model, Clock2D)
+           else ising2d_measure_pallas)
+    return mod.densities(sums, model.nsites)
 
 
 def make_batch_runner(model, mcs: int, batch: int, init_kind: str = "allup",
                       device="cuda", chunk: int = DEFAULT_CHUNK
                       ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
-    """`run(call_key) -> {m, e: (batch, mcs) float64}` advancing a replica
-    batch a sweep at a time on the int8 phase kernels (ops/ising2d_pallas.py
-    or ops/ising3d_pallas.py) and measuring it with the measure kernel
-    (ops/ising2d_measure_pallas.py), the kernels behind the JAX models'
+    """`run(call_key) -> {m, e: (batch, mcs) float64}` (clock: also {my})
+    advancing a replica batch a sweep at a time on the int8 phase kernels
+    (ops/ising2d_pallas.py, ops/ising3d_pallas.py or ops/clock_pallas.py)
+    and measuring it with the measure kernel (ops/ising2d_measure_pallas.py
+    or ops/clock_measure_pallas.py), the kernels behind the JAX models'
     ``sweep_batched`` and ``observables_batched`` that the JAX package's
-    ``make_batch_runner`` calls.  Sweep t draws under ``rng.sweep_key(call_key, t)`` and its phase p under
+    ``make_batch_runner`` calls.  Sweep t draws under
+    ``rng.sweep_key(call_key, t)`` and its phase p under
     ``seeds_from_key(., p)``, the keys of a chunk in one batched derivation,
     so a run is bitwise independent of ``chunk``.  JAX's ``prepare`` and
     ``measure`` hooks serve only the XY model, whose runners are
@@ -233,9 +257,8 @@ def make_batch_runner(model, mcs: int, batch: int, init_kind: str = "allup",
         sums = []
         for j in range(size):
             st = ops.sweep_seeded(model, st, seeds[j])
-            sums.append(ising2d_measure_pallas.measure_sums(*st))
-        return st, ising2d_measure_pallas.densities(torch.stack(sums, dim=1),
-                                                    model.nsites)
+            sums.append(_int8_measure(model, st))
+        return st, _int8_densities(model, torch.stack(sums, dim=1))
 
     return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk),
                 "phase engine (batched)")
@@ -262,20 +285,26 @@ def make_multisweep_runner(model, mcs: int, batch: int,
                            chunk: int = DEFAULT_CHUNK
                            ) -> Callable[[torch.Tensor],
                                          dict[str, torch.Tensor]]:
-    """`run(call_key) -> {m, e: (batch, mcs) float64}` on the int8
-    multisweep kernel (ops/ising2d_multisweep.py): one launch of up to
-    ``chunk`` sweeps with the fused (m, e) of each, as the JAX package's
-    ``make_multisweep_runner`` (Ising 2-D; its clock branch is not ported).
-    Its sweeps draw the words of :func:`make_batch_runner`'s, so the two
-    give the same series bitwise."""
-    if not isinstance(model, Ising2D):
-        raise ValueError(f"{model!r}: the int8 multisweep serves Ising2D")
+    """`run(call_key) -> {m, e: (batch, mcs) float64}` (clock: also {my})
+    on the int8 multisweep kernel (ops/ising2d_multisweep.py, or
+    ops/clock_multisweep.py for the clock, JAX ``sweep.py:593-636``): one
+    launch of up to ``chunk`` sweeps with the fused sums of each, as the
+    JAX package's ``make_multisweep_runner``.  Its sweeps draw the words of
+    :func:`make_batch_runner`'s, so the two give the same states bitwise
+    (Ising: the same series; clock: sums to float64 rounding)."""
+    if isinstance(model, Clock2D):
+        ms = clock_multisweep.multisweep
+    elif isinstance(model, Ising2D):
+        ms = ising2d_multisweep.multisweep
+    else:
+        raise ValueError(f"{model!r}: the int8 multisweep serves Ising2D "
+                         "and Clock2D")
 
     def init_fn(call_key):
         return _init_state(model, init_kind, batch, call_key, device)
 
     def chunk_fn(st, call_key, t0, size):
-        return ising2d_multisweep.multisweep(model, st, call_key, size, t0)
+        return ms(model, st, call_key, size, t0)
 
     return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk),
                 "int8 multisweep (cooperative)")

@@ -1,0 +1,228 @@
+"""The int8 q-state clock checkerboard phase on the card: a CUDA kernel and
+its plain version.
+
+Port of ``cuda_fortran_mc_simulation_spin_tpu/ops/clock_pallas.py`` (the
+module keeps its name so that its JAX counterpart is found by name; it
+launches a CUDA kernel, not a Pallas one).  ``csrc/clock_pallas.cu``
+``phase_kernel`` replaces ``_phase_kernel`` (pallas_call at ``:106``,
+``_metropolis_phase``): one colour phase of (R, ny, nx/2) int8 states in
+[0, q), in place, under the rule of models/clock.metropolis_update, for
+every 2 <= q <= 127 and every even nx and ny (JAX's tiling gates, nx/2 %
+128 and ny % 32, are TPU artefacts).  The JAX kernel evaluates (cos, sin)
+by q-way select chains (Mosaic has no fast gather); the kernel here reads
+them from the q-entry float32 table of core/tables.py, the same values.
+
+Random words.  Each site draws two uint32 words from Philox4x32-10
+(``csrc/philox.cuh``):
+
+    key     = seeds_from_key(sweep_key, phase)  the (sample, t, phase) key
+    counter = (replica, row, column >> 1, 0)
+    words   = outputs 2·(column & 1) (candidate) and 2·(column & 1) + 1
+              (acceptance), each a uniform from its top 24 bits
+
+so one Philox call feeds two adjacent sites of a row (the kernels' unit,
+``csrc/clock_int8.cuh``), and the last unit of a row whose nx/2 is odd
+leaves its spare outputs unused.  The plain version (:func:`draw_uniforms`),
+the phase kernel, the multisweep kernel and every route of the runners
+draw these words, so a trajectory depends on neither the kernel, the
+route nor the host chunking.  The JAX kernel draws the TPU's hardware
+bits; its ``sharded_phase`` takes injected uniforms (``u_cand=``,
+``u_acc=``), as the kernel here does (the mode the checks use).
+
+A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
+launches the kernel or raises.  ``LAUNCHES`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng, tables
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
+    CheckerboardState,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock import (
+    metropolis_update,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
+    _on_cpu,
+    _stream,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
+    batched,
+    check_int8,
+    phase_seeds,
+    raise_on,
+    seed_words,
+)
+
+THREADS = 256            # threads a block; one thread a unit of 2 sites
+MAX_REPLICAS = 65535     # the grid's y extent
+TABLE = 128              # entries of a kernel table (csrc/clock_int8.cuh)
+LAUNCHES = {"phase": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def units(half: int) -> int:
+    """Units of two sites a row of ``half`` columns holds."""
+    return -(-half // 2)
+
+
+def check_launch(nrep: int, rows: int, half: int, q: int) -> None:
+    """Refuse a launch whose unit index within a replica could pass 2^31,
+    whose replicas exceed the grid's y extent, or whose q the tables do
+    not hold (the kernels index memory with 64-bit offsets, their units
+    with 32-bit ones)."""
+    if not 1 <= nrep <= MAX_REPLICAS:
+        raise ValueError(f"{nrep} replicas: a launch takes 1 .. "
+                         f"{MAX_REPLICAS}")
+    if not 2 <= q < TABLE:
+        raise ValueError(f"q={q}: the kernels' tables hold 2 <= q < {TABLE}")
+    if rows * units(half) + THREADS >= 2 ** 31:
+        raise ValueError(f"{rows} rows of {half} columns: the unit index "
+                         "of a replica would pass 2^31")
+
+
+@functools.lru_cache(maxsize=None)
+def _table(q: int, device: str, dtype: torch.dtype) -> torch.Tensor:
+    return table_rows(q, dtype).to(device)
+
+
+def table_rows(q: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(2, TABLE) (cos, sin) rows of the q states, zero past q: the
+    float32 table of the update (core/tables.clock_cos_sin_table), or with
+    ``dtype`` float64 the sums' (core/tables.clock_sums_table)."""
+    vals = (tables.clock_cos_sin_table(q) if dtype == torch.float32
+            else tables.clock_sums_table(q))
+    out = torch.zeros((2, TABLE), dtype=dtype)
+    out[:, :q] = vals
+    return out
+
+
+def device_table(q: int, device, dtype: torch.dtype = torch.float32
+                 ) -> torch.Tensor:
+    """:func:`table_rows` on ``device``, built once a (q, device, dtype);
+    the kernels only read it."""
+    return _table(q, str(torch.device(device)), dtype)
+
+
+def draw_words(seeds, nrep: int, rows: int, half: int, device=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(candidate, acceptance) uint32 words (in int64), each (nrep, rows,
+    half), of one phase under the Philox key ``seeds`` ((2,) uint32): site
+    (r, row, c) takes outputs 2(c & 1) and 2(c & 1) + 1 of the counter
+    (r, row, c >> 1, 0)."""
+    key = torch.as_tensor(seeds, dtype=torch.int64).to(device)
+    nu = units(half)
+    r = torch.arange(nrep, dtype=torch.int64, device=device).view(-1, 1, 1)
+    y = torch.arange(rows, dtype=torch.int64, device=device).view(1, -1, 1)
+    j = torch.arange(nu, dtype=torch.int64, device=device).view(1, 1, -1)
+    r, y, j = torch.broadcast_tensors(r, y, j)
+    ctr = torch.stack([r, y, j, torch.zeros_like(r)], dim=-1)
+    out = rng.philox4x32(ctr, key).view(nrep, rows, nu, 2, 2)
+    out = out.reshape(nrep, rows, 2 * nu, 2)[:, :, :half]
+    return out[..., 0], out[..., 1]
+
+
+def draw_uniforms(seeds, nrep: int, rows: int, half: int, device=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(u_cand, u_acc) float32 of one phase under ``seeds``: the words of
+    :func:`draw_words` through their top 24 bits (rng.bits_to_uniform)."""
+    wc, wa = draw_words(seeds, nrep, rows, half, device)
+    return rng.bits_to_uniform(wc), rng.bits_to_uniform(wa)
+
+
+def phase_plain(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
+                color: int, q: int, beta: float,
+                u_cand: torch.Tensor | None = None,
+                u_acc: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of ``phase_kernel``: the new (R, ny, half) int8 colour
+    plane ``x`` given the other colour, with the uniforms of
+    :func:`draw_uniforms` under ``seeds`` or the injected float32
+    ``u_cand``, ``u_acc``."""
+    if u_cand is None:
+        u_cand, u_acc = draw_uniforms(seeds, *x.shape, x.device)
+    return metropolis_update(x, other, color, u_cand, u_acc, q, beta)
+
+
+def check_uniforms(x: torch.Tensor, *planes: torch.Tensor) -> None:
+    """Injected uniforms are contiguous float32 planes of x's shape on its
+    device."""
+    for u in planes:
+        if u.shape != x.shape or u.dtype != torch.float32:
+            raise ValueError(f"uniforms must be float32 {tuple(x.shape)}, "
+                             f"got {u.dtype} {tuple(u.shape)}")
+        if u.device != x.device or not u.is_contiguous():
+            raise ValueError("uniforms must be contiguous on the planes' "
+                             "device")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("clock_pallas")
+    if lib.clock_int8_phase.argtypes is not None:
+        return lib
+    lib.clock_int8_phase.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
+    lib.clock_int8_phase.restype = ctypes.c_int
+    lib.clock_int8_error_string.argtypes = [ctypes.c_int]
+    lib.clock_int8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def metropolis_phase(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
+                     color: int, q: int, beta: float,
+                     u_cand: torch.Tensor | None = None,
+                     u_acc: torch.Tensor | None = None) -> torch.Tensor:
+    """One colour phase of (R, ny, half) int8 states, updating ``x`` in
+    place (returned): ``phase_kernel`` on CUDA tensors, :func:`phase_plain`
+    on CPU tensors.  Uniforms from Philox under ``seeds`` ((2,) uint32),
+    or the injected ``u_cand``, ``u_acc``."""
+    if (u_cand is None) != (u_acc is None):
+        raise ValueError("inject both u_cand and u_acc, or neither")
+    if _on_cpu(x):
+        return x.copy_(phase_plain(x, other, seeds, color=color, q=q,
+                                   beta=beta, u_cand=u_cand, u_acc=u_acc))
+    check_int8(x, other)
+    if u_cand is not None:
+        check_uniforms(x, u_cand, u_acc)
+    nrep, ny, half = x.shape
+    check_launch(nrep, ny, half, q)
+    s0, s1 = (0, 0) if seeds is None else seed_words(seeds)
+    tab = device_table(q, x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.clock_int8_phase(
+            x.data_ptr(), other.data_ptr(), tab.data_ptr(),
+            None if u_cand is None else u_cand.data_ptr(),
+            None if u_acc is None else u_acc.data_ptr(), nrep, ny, half, q,
+            color, -float(beta), s0, s1, _stream(x))
+    raise_on(code, lib.clock_int8_error_string, "clock phase_kernel")
+    LAUNCHES["phase"] += 1
+    return x
+
+
+def sweep_seeded(model, state: CheckerboardState, seeds
+                 ) -> CheckerboardState:
+    """One MCS (colour 0, then colour 1) under the sweep's (2, 2) phase
+    keys (a row of ``multispin_rng.sweep_phase_keys``), updating the
+    state's arrays in place (returned)."""
+    a, b = batched(state, 2)
+    kw = dict(q=model.q, beta=model.beta)
+    metropolis_phase(a, b, seeds[0], color=0, **kw)
+    metropolis_phase(b, a, seeds[1], color=1, **kw)
+    return state
+
+
+def sweep(model, state: CheckerboardState, key) -> CheckerboardState:
+    """One MCS under the sweep key ``key`` on (ny, half) or (R, ny, half)
+    int8 arrays, in place (JAX ``sweep``)."""
+    return sweep_seeded(model, state, phase_seeds(key))

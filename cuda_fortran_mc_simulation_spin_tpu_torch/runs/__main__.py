@@ -22,10 +22,14 @@ reference's geometry); ``--model ising3d`` with even dims the periodic
 --ny 500 --nz 500`` on the int8 kernels) and with odd
 ``--nx`` the helical 3-D one (``--nx 151 --ny 151 --nz 150``, ``--nx 501
 --ny 501 --nz 500`` or ``--nx 1001 --ny 1000 --nz 1000``, the reference's
-geometries).  ``--model clock`` runs the q-state clock model (``--q``
-6, 4 or 3) on even dims (``--nx 2000 --ny 2000 --kbt 0.91``, the
-reference's literal geometry, or aligned ``--nx 2048 --ny 2048``) and,
-for q = 6, helical at odd ``--nx`` (``--nx 501 --ny 500 --kbt 0.8``).
+geometries).  ``--model clock`` runs the q-state clock model on even dims
+at every 2 <= ``--q`` <= 127: q = 6, 4 and 3 on the bit-sliced packed
+kernels where their gates take the shape (``--nx 2000 --ny 2000 --kbt
+0.91``, the reference's literal geometry, or aligned ``--nx 2048 --ny
+2048``), every other (q, shape) on the int8 kernels (``--q 5 --nx 1000
+--ny 1000``; the multisweep while the batch's planes fit its bound, else
+phase and measure launches a sweep); and, for q = 6, helical at odd
+``--nx`` (``--nx 501 --ny 500 --kbt 0.8``).
 ``--model xy2d`` runs the periodic XY relaxation on even dims, Metropolis
 only or with ``--n-over-relax N`` over-relaxation sweeps after each
 Metropolis sweep while t <= ``--mcs-over-relax`` (default: every t)::
@@ -48,7 +52,8 @@ from_disorder`` (a random start rotated onto +x; ``--fix1mcs`` rotates
 after the first sweep),
 ``finite_magne`` (``--init-magne``), ``samples`` (one row a sweep and
 history; the start from ``--init-state``; also on periodic Ising 2-D and
-3-D, rows N, sample, t, m, e) and ``finite_magne_samples``::
+3-D, rows N, sample, t, m, e, and on the periodic clock, rows N, sample,
+t, m, e, m_y) and ``finite_magne_samples``::
 
     python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \\
         --model xy2d --protocol from_disorder --nx 1500 --ny 1500 \\
@@ -58,9 +63,9 @@ stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of
 routes the port does not serve yet raise with the ROADMAP.md item that
 ports them: --mesh, --profile-dir, --backend other than auto, helical XY
-at odd --ny, the oversize helical Ising lattices, clock shapes and q
-outside the packed engines, and --protocol samples on the clock and
-helical models.  --n-over-relax on Ising or clock raises ValueError:
+at odd --ny, the oversize helical Ising lattices, the helical clock at
+q != 6, and --protocol samples on the helical models.  --n-over-relax on
+Ising or clock raises ValueError:
 over-relaxation is defined for the XY model only.
 """
 

@@ -99,8 +99,10 @@ def test_cuda_without_a_card_raises(tmp_path):
     (["--mesh", "2,2"], "queue A item 9"),
     (["--profile-dir", "p"], "profiler"),
     (["--backend", "jnp"], "backend"),
-    (["--protocol", "samples", "--model", "clock"], "queue A item 4a"),
-    (["--model", "clock", "--q", "5"], "queue B item 13"),
+    (["--protocol", "samples", "--model", "clock", "--nx", "255", "--ny",
+      "256"], "queue A item 4a"),
+    (["--model", "clock", "--q", "5", "--nx", "255", "--ny", "256"],
+     "queue B item 13"),
     (["--model", "ising3d", "--nx", "2049", "--ny", "1024", "--nz", "1024"],
      "queue B item 13"),
     (["--model", "xy2d", "--nx", "255", "--ny", "255"], "queue B item 13"),
@@ -118,17 +120,21 @@ def test_unserved_routes_raise(extra, match, tmp_path):
 @pytest.mark.parametrize("extra,engine", [
     (["--nx", "128", "--ny", "128"], "int8 multisweep (cooperative)"),
     (["--protocol", "samples"], "phase engine (single history)"),
+    (["--protocol", "samples", "--model", "clock"],
+     "phase engine (single history)"),
+    (["--model", "clock", "--q", "5"], "int8 multisweep (cooperative)"),
 ])
 def test_formerly_refused_routes_run(extra, engine, tmp_path):
-    """Periodic Ising at an unpackable shape and --protocol samples on
-    Ising 2-D, refused before the int8 kernels were ported, now run on the
-    CPU through the plain versions of those kernels."""
+    """Periodic Ising at an unpackable shape, --protocol samples on Ising
+    2-D and on the clock, and the clock at q = 5, refused before the int8
+    kernels were ported, now run on the CPU through the plain versions of
+    those kernels."""
     out = tmp_path / "x.dat"
     assert main(FLAGS + extra + ["--device", "cpu", "--output",
                                  str(out)]) == 0
     head, rows = _split(out)
     assert f"# engine: {engine}" in head
-    assert rows.shape[0] == (20 if extra[0] == "--nx" else 16 * 20)
+    assert rows.shape[0] == (16 * 20 if "samples" in extra else 20)
     assert np.all(np.isfinite(rows))
 
 

@@ -820,3 +820,94 @@ def test_int8_runners_on_card_equal_cpu_runners(cuda):
             assert torch.equal(got, (on_cpu[k] * model.nsites).round())
             assert torch.allclose(on_card[k].cpu(), on_cpu[k], rtol=1e-15,
                                   atol=0)
+
+
+def _clock8(dev, shape, q, seed):
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy(g.integers(0, q, size=shape, dtype=np.int8)
+                             ).to(dev) for _ in range(2)]
+
+
+def _scaled(got, want, nsites):
+    """|got - want| against the sums' scale, max(|want|, nsites)."""
+    return float(((got - want).abs()
+                  / want.abs().clamp(min=float(nsites))).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [2, 3, 4, 5, 6, 8, 20, 127])
+@pytest.mark.parametrize("shape", [(3, 130, 63), (2, 64, 128), (1, 2, 1)])
+def test_clock8_phase_and_measure_kernels_match_plain(cuda, q, shape):
+    """The int8 clock phase kernel against its plain version on the same
+    CUDA tensors, injected and Philox uniforms, both colours: bitwise; the
+    measure kernel within 1e-12 of the sums' scale, exactly at q = 2, 4."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_measure_pallas as c8m,
+        clock_pallas as c8p,
+    )
+    a, b = _clock8(cuda, shape, q, q + sum(shape))
+    g = np.random.default_rng(q)
+    uc, ua = (torch.from_numpy((g.integers(0, 2 ** 24, size=shape)
+                                * 2.0 ** -24).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    for color in (0, 1):
+        x, o = (a, b) if color == 0 else (b, a)
+        seeds = rng.seeds_from_key(rng.base_key(9), color)
+        for kw in (dict(u_cand=uc, u_acc=ua), dict(seeds=seeds)):
+            want = c8p.phase_plain(x, o, color=color, q=q, beta=1 / 0.91,
+                                   **kw)
+            got = c8p.metropolis_phase(x.clone(), o, color=color, q=q,
+                                       beta=1 / 0.91, **kw)
+            assert torch.equal(got, want)
+    got, want = c8m.measure_sums(a, b, q), c8m.measure_sums_plain(a, b, q)
+    assert _scaled(got, want, 2 * shape[1] * shape[2]) <= 1e-12
+    if q in (2, 4):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,shape", [(6, (3, 130, 63)), (2, (16, 1000, 500)),
+                                     (20, (2, 64, 128))])
+def test_clock8_multisweep_matches_phase_pairs_and_plain(cuda, q, shape):
+    """S int8 clock multisweep sweeps equal S phase-kernel pairs (states
+    bitwise; the fused sums within 1e-12 of measure_kernel's) and the
+    plain multisweep."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_measure_pallas as c8m,
+        clock_multisweep as c8ms,
+        clock_pallas as c8p,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import multispin_rng
+    a, b = _clock8(cuda, shape, q, 3)
+    seeds = multispin_rng.sweep_phase_keys(rng.sample_key(rng.base_key(2),
+                                                          0), 8)
+    kw = dict(q=q, beta=1 / 0.91)
+    ka, kb, kobs = c8ms.multisweep_planes(a.clone(), b.clone(), seeds, **kw)
+    pa, pb, obs = a.clone(), b.clone(), []
+    for s in range(8):
+        c8p.metropolis_phase(pa, pb, seeds[s, 0], color=0, **kw)
+        c8p.metropolis_phase(pb, pa, seeds[s, 1], color=1, **kw)
+        obs.append(c8m.measure_sums(pa, pb, q))
+    nsites = 2 * shape[1] * shape[2]
+    assert torch.equal(ka, pa) and torch.equal(kb, pb)
+    assert _scaled(kobs, torch.stack(obs, dim=1), nsites) <= 1e-12
+    qa, qb, qobs = c8ms.multisweep_plain(a, b, seeds, **kw)
+    assert torch.equal(ka, qa) and torch.equal(kb, qb)
+    assert _scaled(kobs, qobs, nsites) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_clock8_launches_refused(cuda):
+    """A q the kernels' tables do not hold and float64 uniforms are
+    refused before a launch."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_pallas as c8p,
+    )
+    a, b = _clock8(cuda, (1, 4, 4), 6, 1)
+    with pytest.raises(ValueError, match="q=128"):
+        c8p.metropolis_phase(a, b, rng.base_key(1), color=0, q=128,
+                             beta=1.0)
+    u = torch.zeros((1, 4, 4), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        c8p.metropolis_phase(a, b, color=0, q=6, beta=1.0, u_cand=u,
+                             u_acc=u)

@@ -78,5 +78,7 @@ def test_the_slices_modules_are_checked():
                  "ops.clock3_multispin", "ops.clock_helical_multispin",
                  "models.clock", "models.clock_helical", "ops.trig",
                  "ops.xy2d_pallas", "models.xy2d", "models.xy2d_helical",
-                 "ops.xy2d_helical_dense", "ops.xy2d_helical_dense_angle"):
+                 "ops.xy2d_helical_dense", "ops.xy2d_helical_dense_angle",
+                 "ops.clock_pallas", "ops.clock_measure_pallas",
+                 "ops.clock_multisweep"):
         assert f"cuda_fortran_mc_simulation_spin_tpu_torch.{name}" in mods

@@ -19,8 +19,15 @@ int8 multisweep, 4000x4000 on the streamed int8 phases, --protocol
 samples at 1000x1000, 500^3), and the clock at q and shapes the packed
 clock engines refuse, on the int8 clock kernels (q = 2 at 1000x1000 on
 the int8 clock multisweep, q = 5 at 2000x2000 on the streamed phases,
---protocol samples at q = 6, 1000x1000); and holds every kernel of those
-paths against its plain PyTorch version.
+--protocol samples at q = 6, 1000x1000), and every helical 2-D shape on
+the masked helical kernels (Ising at 1001x1000 under
+SPINLAT_HELICAL_PACKED=0, past the packed bound at 4001x4000 and at odd
+ny, 1001x1001; the clock at q = 6 on 501x500 under
+SPINLAT_CLOCK_HELICAL_PACKED=0, q = 2 at 1001x1000 and q = 5 at 501x500;
+XY with over-relaxation at 10001x10000 under SPINLAT_XY_DENSE=0 and at
+odd ny, 4001x4001; --protocol samples on helical Ising and the helical
+clock); and holds every kernel of those paths against its plain PyTorch
+version.
 Phases (each prints a progress line on stderr):
 
 1. build the CUDA sources (csrc/*.cu) from scratch with nvcc, all at once;
@@ -39,11 +46,12 @@ Phases (each prints a progress line on stderr):
      the multisweep kernel over 64 sweeps (the runner's chunk) at 256^3 x
      4 against 64 phase-kernel pairs and its plain version;
    - helical 3-D, at 151x151x150 x 8 (27 bits in the last word), 501x501x500
-     x 1 and 1001x1000x1000 x 1: the phase kernel with injected bits,
-     Philox bits, each z-parity sub-phase (even nx*ny) and the fused
-     (m, e); the energy kernel (also against the exact sums at 151^3); the
-     multisweep kernel over 64 sweeps at 151^3 x 8 against 64 streamed
-     phase pairs and its plain version;
+     x 1, 1001x1000x1000 x 1 and 151x151x150 x 1 (--protocol samples):
+     the phase kernel with injected bits, Philox bits, each z-parity
+     sub-phase (even nx*ny) and the fused (m, e); the energy kernel (also
+     against the exact sums at 151^3); the multisweep kernel over 64 sweeps
+     at 151^3 x 8 and 8 at 151^3 x 1 against as many streamed phase pairs
+     and its plain version;
    - clock, q = 6, 4, 3, at 2048^2 x 16 (aligned) and 2000^2 x 4 (padded,
      16 real rows in the top word): the phase kernel with injected planes
      and Philox words, measuring and not; the helical clock multisweep
@@ -84,6 +92,20 @@ Phases (each prints a progress line on stderr):
      sweeps at 1000x1000 x 16, q = 2 and 6, against 64 phase-kernel pairs
      with the measure kernel and against its plain version (states
      bitwise, sums within 1e-12);
+   - masked helical, at 33x32 x 3 (even N), 33x31 x 3 (odd N: the seam
+     rows' same-colour pairs) and every main-path launch (Ising 1001x1000
+     x 128, 4001x4000 x 4, 1001x1001 x 16, 1001x1000 x 1 of --protocol
+     samples; clock q = 6 and 5 at 501x500 x 100, q = 2 at 1001x1000 x 64,
+     q = 6 at 501x500 x 1, q = 2, 5, 8 at 501x500 and 1001x1001 x 2, every
+     q of HP_CLOCK_QS at the small shapes; XY 10001x10000 x 1, 4001x4001
+     x 2 and x 1): the Ising and clock
+     multisweeps with injected and Philox randomness against their plain
+     versions and against one-sweep launches (states bitwise, Ising sums
+     exactly, clock sums within 1e-12 of their scale, the last sweep's sums
+     the exact sums of the final state); the XY phase kernel, both colours,
+     injected and Philox uniforms, measuring (fused at even N, the measure
+     launch at odd N) and not, the OR kernel and the measure mode (states
+     bitwise, sums within 1e-12 of their scale);
 2b. <m>, <e> after one sweep from all-up against their closed forms for
    the chains' quantized acceptances, over >= 1e10 sites per path (helical
    3-D at 151^3 and 501^3, where every neighbour lies in the other
@@ -176,6 +198,25 @@ Phases (each prints a progress line on stderr):
    histories of 1000 MCS, the per-t means against
    data/production/clock_1000x1000_kbt0.91_mcs10000_s100.dat (combined
    sigma);
+4j. masked helical classes from all-up: Ising 1001x1000 x 128, 128
+   samples, 1000 MCS (SPINLAT_HELICAL_PACKED=0) and 4001x4000 x 4, 4
+   samples, 200 MCS, every t against the 1001x1000 curve (combined sigma);
+   1001x1001 x 16, 16 samples, 200 MCS, its |z| against that curve printed
+   (the seam's Jacobi pairs); the clock q = 6 at 501x500 x 100, 100
+   samples, 1000 MCS (SPINLAT_CLOCK_HELICAL_PACKED=0), every t against
+   the 100-sample curve (the masked kernel's own curve is the same file),
+   q = 2 at 1001x1000 x 64, 64 samples, 200 MCS against the Ising curve,
+   q = 5 at 501x500 x 100, 100 samples, 200 MCS, t = 1 against the
+   first-sweep closed form for the masked kernel's table and field order;
+   XY with over-relaxation at 10001x10000 x 1, 2 samples, 200 MCS
+   (SPINLAT_XY_DENSE=0) against xy2d_or_10001x10000_mcs10000_s500.dat,
+   and Metropolis at 4001x4001 x 2, 2 samples, 100 MCS, kbt 0.895, its
+   |z| against the 2000x2000 curve printed; --protocol samples, 16
+   histories of 200 MCS, on helical Ising 1001x1000 and the helical clock
+   q = 6 at 501x500, per-t means against their curves;
+4k. short CLI runs (5 MCS, 2 samples) to a .dat of finite rows: the
+   helical clock at q = 2, 5, 8 on 501x500 and 1001x1001, --protocol
+   samples on helical XY at 4001x4001 and on helical 3-D at 151x151x150;
 5. times with CUDA events, beside each kernel's bound and its plain
    version's time, at the main paths' launch shapes (the helical kernel
    at 128 x 1001x1000, S = 64; the clock phase kernel at 2000x2000 x 40,
@@ -209,7 +250,12 @@ Phases (each prints a progress line on stderr):
    1000x1000 x 16 with S = 64 and 40), each held against its plain
    version, each clock class's kernel share of its wall, and the clock
    route reading at q = 6 (1000^2 x 1 and 16, 2000^2 x 8 and 16), where
-   ops/clock_multisweep.MULTISWEEP_MAX_BYTES is read.
+   ops/clock_multisweep.MULTISWEEP_MAX_BYTES is read; the masked helical
+   kernels at their classes' launches (the Ising multisweep at 1001x1000 x
+   128 and the clock one at 501x500 x 100, S = 16; the XY phase, fused
+   and not, the OR phase and the measure mode at 10001x10000 x 1), each
+   held against its plain version, and each masked class's kernel share
+   of its wall.
 
 It prints the kernels' JSON line, the card's `nvidia-smi` name and power
 limit, and last the device line.  It exits non-zero, printing no result,
@@ -218,6 +264,7 @@ without a card, and when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -698,8 +745,9 @@ def check_ising3d(msb, ms3, rng, dev) -> dict[str, int]:
     return errs
 
 
+# the classes' launches, and phase 4k's --protocol samples (151^3 x 1)
 H3_CHECK_SHAPES = ((8, 151, 151, 150), (1, 501, 501, 500),
-                   (1, 1001, 1000, 1000))
+                   (1, 1001, 1000, 1000), (1, 151, 151, 150))
 
 
 def check_helical3d(h3, hms, rng, dev) -> dict[str, int]:
@@ -757,32 +805,36 @@ def check_helical3d(h3, hms, rng, dev) -> dict[str, int]:
         log(f"  helical3d energy kernel {nrep}x{nx}x{ny}x{nz}: vs plain "
             f"{e_e}" + (f", vs exact sums {e_x}" if exact else ""))
         del x, o, b4, b8, b12, got, want
-    # 64 sweeps at 151^3 x 8: one launch, 64 streamed phase pairs, plain
-    nrep, sweeps = 8, 64
+    # 64 sweeps at 151^3 x 8 and 8 at 151^3 x 1 (--protocol samples'
+    # launch): one launch, as many streamed phase pairs, plain
     model = Ising3DHelical(151, 151, 150, KBT_H3)
     geom = dict(nx=151, nxy=model.nxy, m=model.nsites // 2)
     m = geom["m"]
-    wa, wb = random_words((nrep, hms.words(m)), 16, dev, n=2)
-    seeds = h3.sweep_keys(model, rng.sample_key(rng.base_key(10), 1), sweeps)
-    ka, kb, kobs = h3.multisweep_planes(wa, wb, seeds, beta=beta, **geom)
-    sa, sb, sobs = wa, wb, []
-    for s in range(sweeps):
-        sa = h3.phase_packed(sa, sb, seeds[s, 0], color=0, beta=beta, **geom)
-        sb, ob = h3.phase_packed(sb, sa, seeds[s, 1], color=1, beta=beta,
-                                 measuring=True, **geom)
-        sobs.append(ob)
-    e_pairs = max_abs_err([(valid(ka, m), valid(sa, m)),
-                           (valid(kb, m), valid(sb, m)),
-                           (kobs, torch.stack(sobs, dim=1))])
-    pa, pb, pobs = h3.multisweep_plain(wa, wb, seeds, beta=beta, **geom)
-    e_plain = max_abs_err([(valid(ka, m), valid(pa, m)),
-                           (valid(kb, m), valid(pb, m)), (kobs, pobs)])
-    e_exact = max_abs_err([(kobs[:, -1], helical_exact(model, hms, ka,
-                                                         kb))])
-    errs["multisweep"] = max(e_pairs, e_plain, e_exact)
-    log(f"  helical3d multisweep kernel {nrep}x151x151x150 S={sweeps}: vs "
-        f"{sweeps} phase pairs {e_pairs}, vs plain {e_plain}, (m, e) vs "
-        f"exact sums {e_exact}")
+    for nrep, sweeps, seed in ((8, 64, 16), (1, 8, 17)):
+        wa, wb = random_words((nrep, hms.words(m)), seed, dev, n=2)
+        seeds = h3.sweep_keys(model, rng.sample_key(rng.base_key(10),
+                                                    seed - 15), sweeps)
+        ka, kb, kobs = h3.multisweep_planes(wa, wb, seeds, beta=beta, **geom)
+        sa, sb, sobs = wa, wb, []
+        for s in range(sweeps):
+            sa = h3.phase_packed(sa, sb, seeds[s, 0], color=0, beta=beta,
+                                 **geom)
+            sb, ob = h3.phase_packed(sb, sa, seeds[s, 1], color=1,
+                                     beta=beta, measuring=True, **geom)
+            sobs.append(ob)
+        e_pairs = max_abs_err([(valid(ka, m), valid(sa, m)),
+                               (valid(kb, m), valid(sb, m)),
+                               (kobs, torch.stack(sobs, dim=1))])
+        pa, pb, pobs = h3.multisweep_plain(wa, wb, seeds, beta=beta, **geom)
+        e_plain = max_abs_err([(valid(ka, m), valid(pa, m)),
+                               (valid(kb, m), valid(pb, m)), (kobs, pobs)])
+        e_exact = max_abs_err([(kobs[:, -1], helical_exact(model, hms, ka,
+                                                             kb))])
+        errs["multisweep"] = max(errs["multisweep"], e_pairs, e_plain,
+                                 e_exact)
+        log(f"  helical3d multisweep kernel {nrep}x151x151x150 S={sweeps}: "
+            f"vs {sweeps} phase pairs {e_pairs}, vs plain {e_plain}, (m, e) "
+            f"vs exact sums {e_exact}")
     torch.cuda.synchronize()
     for name, e in errs.items():
         if e != 0:
@@ -2419,20 +2471,21 @@ def check_first_sweep_int8(i2p, i3p, i8m, rng, dev, ref_row, ref3_row
 
 
 def run_samples_class(main_fn, modules, out_dir, label: str, argv, ref,
-                      histories: int, mcs: int, ncols: int
+                      histories: int, mcs: int, ncols: int,
+                      shape: tuple[int, int] = (1000, 1000)
                       ) -> tuple[dict, float, float, float]:
-    """--protocol samples at 1000x1000 (``argv`` names the model), one
+    """--protocol samples at ``shape`` (nx, ny; ``argv`` names the model), one
     history at a time through the per-history runner; the rows N, sample,
     t, m, e (and m_y: ``ncols`` 6) and the per-t means of m and e over the
     histories against the reference curve within SIGMAS combined standard
     errors, sigma^2 = N·Var_ref (1/(N n) + 1/(N_ref n_ref)).  Returns
     (launches, wall, rate, largest |z|)."""
-    n = 1000
-    nsites = n * n
+    nx, ny = shape
+    nsites = nx * ny
     launches, wall, rate, table, head = run_main_path(
         main_fn, modules, out_dir, label,
-        list(argv) + ["--protocol", "samples", "--nx", str(n), "--ny",
-                      str(n), "--mcs", str(mcs), "--samples",
+        list(argv) + ["--protocol", "samples", "--nx", str(nx), "--ny",
+                      str(ny), "--mcs", str(mcs), "--samples",
                       str(histories)], nsites, histories, mcs)
     if "# engine: phase engine (single history)" not in head:
         fail(f"samples run took another route: {head}")
@@ -2818,7 +2871,7 @@ def check_clock8(c8p, c8m, c8ms, rng, dev) -> dict[str, float]:
     return errs
 
 
-def clock8_first_sweep_exact(q: int, beta: float, dev
+def clock8_first_sweep_exact(q: int, beta: float, dev, masked: bool = False
                              ) -> tuple[float, float]:
     """E[m], E[e] per site after one sweep from all-up (every state 0) on
     the int8 clock engine, for its exact float32 arithmetic: the candidate
@@ -2827,10 +2880,22 @@ def clock8_first_sweep_exact(q: int, beta: float, dev
     acceptance #{k : k 2^-24 < expf(-β max(ΔE, 0))} / 2^24 with expf the
     card's (torch.exp on a CUDA tensor, the kernel's function).  Phase a:
     every site sees four 0 neighbours.  Phase b: each b site sees four
-    independent a sites (up, down, centre, side), enumerated in order."""
+    independent a sites (up, down, centre, side), enumerated in order.
+    With ``masked`` the masked helical clock kernel's: its float32 table
+    (ops/helical_pallas.clock_table) and field order ((up + dn) + left) +
+    right, the four a sites independent as well (a b site's neighbours
+    idx ± 1, idx ± nx are four distinct a sites at even N)."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.core import tables
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import helical_pallas
 
-    c32, s32 = tables.clock_cos_sin_table(q).numpy()
+    c32, s32 = (helical_pallas.clock_table(q) if masked
+                else tables.clock_cos_sin_table(q)).numpy()
+
+    def fsum(v, nb):
+        """The float32 field of (T, 4) neighbour states in the kernel's
+        order."""
+        a, b, c, d = (v[nb[:, k]] for k in range(4))
+        return ((a + b) + c) + d if masked else (a + b) + (c + d)
     c64, s64 = tables.clock_sums_table(q).numpy()
     u = np.arange(2 ** 24, dtype=np.float32) * np.float32(2.0 ** -24)
     off = (u * np.float32(q - 1)).astype(np.int32) + 1
@@ -2853,12 +2918,11 @@ def clock8_first_sweep_exact(q: int, beta: float, dev
         move[:, 0] = 1.0 - move[:, 1:].sum(axis=1)
         return move
 
-    pa = after(np.array([(c32[0] + c32[0]) + (c32[0] + c32[0])]),
-               np.array([(s32[0] + s32[0]) + (s32[0] + s32[0])]))[0]
+    zero = np.zeros((1, 4), dtype=np.int64)
+    pa = after(fsum(c32, zero), fsum(s32, zero))[0]
     nb = np.array(list(np.ndindex(q, q, q, q)))         # (up, dn, o, side)
     w = np.prod(pa[nb], axis=1)
-    hx = (c32[nb[:, 0]] + c32[nb[:, 1]]) + (c32[nb[:, 2]] + c32[nb[:, 3]])
-    hy = (s32[nb[:, 0]] + s32[nb[:, 1]]) + (s32[nb[:, 2]] + s32[nb[:, 3]])
+    hx, hy = fsum(c32, nb), fsum(s32, nb)
     pb = after(hx.astype(np.float32), hy.astype(np.float32))    # (T, q)
     m_a = float(pa @ c64)
     m_b = float(w @ (pb @ c64))
@@ -3117,6 +3181,564 @@ def clock8_shares(classes: dict, t8: dict) -> dict[str, float]:
     return shares
 
 
+# ---------------------------------------------------------------------------
+# the masked helical kernels: every helical 2-D shape the packed and dense
+# engines refuse, and all of them under the JAX package's switches
+# (ops/helical_pallas.py)
+# ---------------------------------------------------------------------------
+
+CLOCK_501_MASKED = (PRODUCTION
+                    / "clock_501x500_kbt0.80_mcs100000_s100_masked.dat")
+# the checks' shapes (R, ny, nx): a small even N and a small odd N (both
+# seam rows, idx 0 with N-1), then every launch of the main path: each
+# class's, and the one-replica launch of --protocol samples (a cooperative
+# grid of fewer tiles than resident blocks walks them otherwise)
+HP_SMALL = ((3, 32, 33), (3, 31, 33))
+HP_ISING_SHAPES = HP_SMALL + ((128, 1000, 1001), (4, 4000, 4001),
+                              (16, 1001, 1001), (1, 1000, 1001))
+# (q, kbt, (R, ny, nx)): every q at a small shape, then the clock classes'
+# launches (q = 6 and 5 at 501x500 x 100, q = 2 at 1001x1000 x 64), the
+# samples class's (q = 6 at 501x500 x 1) and phase 4k's (q = 2, 5, 8 at
+# 501x500 and 1001x1001 x 2)
+HP_CLOCK_QS = (2, 3, 5, 6, 8, 20, 127)
+HP_CLOCK_LAUNCHES = ((6, KBT_CLOCK_08, (100, 500, 501)),
+                     (2, KBT, (64, 1000, 1001)),
+                     (5, KBT_CLOCK_08, (100, 500, 501)),
+                     (6, KBT_CLOCK_08, (1, 500, 501)),
+                     *((q, KBT_CLOCK_08, (2, ny, nx)) for q in (2, 5, 8)
+                       for ny, nx in ((500, 501), (1001, 1001))))
+# the XY classes' launches, and phase 4k's --protocol samples at 4001x4001
+HP_XY_SHAPES = HP_SMALL + ((1, 10000, 10001), (2, 4001, 4001),
+                           (1, 4001, 4001))
+# sweeps of a multisweep check (state and sums against the plain version)
+# at the small shapes; at a class's launch 1 (the plain version there takes
+# ~0.1 s a phase)
+HP_CHECK_SWEEPS = 4
+
+
+def hp_check_sweeps(shape) -> tuple[int, int]:
+    """(Philox sweeps, injected sweeps) of a multisweep check."""
+    return (HP_CHECK_SWEEPS, HP_CHECK_SWEEPS) if shape in HP_SMALL else (1, 1)
+# the timed multisweep launches' sweeps (the plain version of 64 sweeps
+# at 1001x1000 x 128 would take seconds; a launch's time is linear in S)
+HP_TIMED_SWEEPS = 16
+# minimum 32-bit instructions a site of a masked phase beside its share of
+# a Philox call (a quarter for Ising, a half for the clock and XY): the
+# four neighbour indices (an add, a compare and a select each: 12); Ising
+# the sum (3), k = s * nsum and its test (2), the threshold's select and
+# compare (2), the flip (2); the clock that of the int8 clock phase
+# (OPS_CLOCK8_SITE: 50); XY the uniforms (4), the trig (22), the field's
+# adds (6), ΔE, its clamp and scale (8), expf (~10), the test and selects
+# (4); XY over-relaxation the field (6), two rsqrtf with their squares
+# and clamps (14), the reflection (8), the scaling (2).  The exact sums a
+# site: Ising 5, clock 15 (OPS_CLOCK8_MEASURE), XY 6 float64 operations;
+# the fused ones a site of colour 1: Ising 4, clock 14, XY 8
+OPS_HP_INDEX = 12
+OPS_HP_ISING = OPS_HP_INDEX + 9
+OPS_HP_XY = OPS_HP_INDEX + 54
+OPS_HP_XY_OR = OPS_HP_INDEX + 30
+
+
+def hp_ising_state(dev, shape, seed: int) -> torch.Tensor:
+    nrep, ny, nx = shape
+    g = np.random.default_rng(seed)
+    return torch.from_numpy((g.integers(0, 2, size=(nrep, ny * nx)) * 2
+                             - 1).astype(np.int8)).to(dev)
+
+
+def hp_clock_state(dev, shape, q: int, seed: int) -> torch.Tensor:
+    nrep, ny, nx = shape
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.integers(0, q, size=(nrep, ny * nx),
+                                       dtype=np.int8)).to(dev)
+
+
+def hp_xy_state(dev, shape, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    nrep, ny, nx = shape
+    g = np.random.default_rng(seed)
+    th = torch.from_numpy(g.uniform(0, 2 * np.pi, size=(nrep, ny * nx))
+                          .astype(np.float32)).to(dev)
+    return torch.cos(th).contiguous(), torch.sin(th).contiguous()
+
+
+def hp_uniforms(dev, shape, seed: int) -> list[torch.Tensor]:
+    """Injected uniforms: multiples of 2^-24 in [0, 1), float32."""
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy((g.integers(0, 2 ** 24, size=shape)
+                              * 2.0 ** -24).astype(np.float32)).to(dev)
+            for _ in range(2)]
+
+
+def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
+    """The masked helical kernels against their plain versions on the same
+    CUDA tensors, at even and odd N and at the classes' launches: the
+    multisweeps over HP_CHECK_SWEEPS sweeps with injected and Philox
+    randomness (states bitwise, Ising sums exactly, clock sums within
+    1e-12 of their scale) and against as many one-sweep launches (the
+    chunking); the last sweep's sums against the exact sums of the final
+    state; the XY phase with injected and Philox uniforms, both colours,
+    measuring and not (fused at even N, the measure launch at odd N), the
+    OR phase and the measure mode (states bitwise, sums within 1e-12 of
+    their scale).  Returns the largest error a kernel."""
+    errs = {"ising": 0.0, "clock": 0.0, "xy_phase": 0.0, "xy_or": 0.0,
+            "sums_rel": 0.0}
+    seeds = multispin_keys(rng, HP_CHECK_SWEEPS, 91)
+    for shape in HP_ISING_SHAPES:
+        nrep, ny, nx = shape
+        n = ny * nx
+        beta = 1.0 / KBT
+        S, SI = hp_check_sweeps(shape)
+        x = hp_ising_state(dev, shape, n + nrep)
+        g = np.random.default_rng(nrep + ny)
+        bits = torch.from_numpy(g.integers(
+            -2 ** 31, 2 ** 31, size=(SI, 2, nrep, hp.colour_sites(n, 0)),
+            dtype=np.int64).astype(np.int32)).to(dev)
+        ki, oi = hp.ising_multisweep(x.clone(), beta=beta, nx=nx, bits=bits)
+        pi, opi = hp.ising_multisweep_plain(x, beta=beta, nx=nx, bits=bits)
+        kr, orr = hp.ising_multisweep(x.clone(), seeds[:S], beta=beta,
+                                      nx=nx)
+        pr, opr = hp.ising_multisweep_plain(x, seeds[:S], beta=beta, nx=nx)
+        one = x.clone()
+        for s in range(S):
+            hp.ising_multisweep(one, seeds[s:s + 1], beta=beta, nx=nx)
+        e_state = max_abs_err([(ki, pi), (kr, pr), (one, kr)])
+        e_sums = max_abs_err([(oi, opi), (orr, opr),
+                              (orr[:, -1], hp.ising_sums(kr, nx))])
+        errs["ising"] = max(errs["ising"], e_state, e_sums)
+        log(f"  helical_pallas ising {nrep}x{ny}x{nx} "
+            f"({'odd' if n % 2 else 'even'} N), S={S}: states {e_state}, "
+            f"sums {e_sums}")
+        del x, bits, ki, pi, kr, pr, one
+    for q, kbt, shape in ([(q, 0.8, HP_SMALL[k]) for q in HP_CLOCK_QS
+                           for k in (0, 1)] + list(HP_CLOCK_LAUNCHES)):
+        nrep, ny, nx = shape
+        n = ny * nx
+        beta = 1.0 / kbt
+        S, SI = hp_check_sweeps(shape)
+        x = hp_clock_state(dev, shape, q, n + q)
+        u = hp_uniforms(dev, (SI, 2, nrep, hp.colour_sites(n, 0)), q + nrep)
+        kw = dict(beta=beta, nx=nx, q=q)
+        ki, oi = hp.clock_multisweep(x.clone(), u=u, **kw)
+        pi, opi = hp.clock_multisweep_plain(x, u=u, **kw)
+        kr, orr = hp.clock_multisweep(x.clone(), seeds[:S], **kw)
+        pr, opr = hp.clock_multisweep_plain(x, seeds[:S], **kw)
+        one = x.clone()
+        for s in range(S):
+            hp.clock_multisweep(one, seeds[s:s + 1], **kw)
+        e_state = max_abs_err([(ki, pi), (kr, pr), (one, kr)])
+        rel = max(scaled_err(oi, opi, n), scaled_err(orr, opr, n),
+                  scaled_err(orr[:, -1], hp.clock_sums(kr, nx, q), n))
+        errs["clock"] = max(errs["clock"], e_state)
+        errs["sums_rel"] = max(errs["sums_rel"], rel)
+        if shape in HP_SMALL and q != 6:
+            continue
+        log(f"  helical_pallas clock q={q} {nrep}x{ny}x{nx}, S={S}: states "
+            f"{e_state}, sums rel {rel:.3g}")
+        del x, u, ki, pi, kr, pr, one
+    for shape in HP_XY_SHAPES:
+        nrep, ny, nx = shape
+        n = ny * nx
+        beta = 1.0 / KBT_XY
+        sx, sy = hp_xy_state(dev, shape, n + nrep)
+        u = hp_uniforms(dev, (nrep, hp.colour_sites(n, 0)), nrep + 5)
+        e_ph = e_or = rel = 0.0
+        for color in (0, 1):
+            key = rng.seeds_from_key(rng.base_key(83 + nrep), color)
+            for rand in (tuple(u), key):
+                for measuring in (False, True):
+                    kw = dict(color=color, nx=nx, beta=beta,
+                              measuring=measuring)
+                    got = hp.xy_phase(sx, sy, rand, **kw)
+                    want = hp.xy_phase_plain(sx, sy, rand, **kw)
+                    e_ph = max(e_ph, float_err(list(zip(got[:2],
+                                                        want[:2]))))
+                    if measuring:
+                        rel = max(rel, scaled_err(got[2], want[2], 2 * n))
+            got = hp.xy_or_phase(sx, sy, color=color, nx=nx)
+            want = hp.xy_or_phase_plain(sx, sy, color=color, nx=nx)
+            e_or = max(e_or, float_err(list(zip(got, want))))
+        rel = max(rel, scaled_err(hp.xy_measure(sx, sy, nx=nx),
+                                  hp.xy_sums(sx, sy, nx), 2 * n))
+        errs["xy_phase"] = max(errs["xy_phase"], e_ph)
+        errs["xy_or"] = max(errs["xy_or"], e_or)
+        errs["sums_rel"] = max(errs["sums_rel"], rel)
+        log(f"  helical_pallas xy {nrep}x{ny}x{nx}: phase {e_ph}, or {e_or}, "
+            f"sums rel {rel:.3g}")
+        del sx, sy, u
+    torch.cuda.synchronize()
+    if max(errs["ising"], errs["clock"], errs["xy_phase"], errs["xy_or"]):
+        fail(f"a masked helical kernel differs from its plain version "
+             f"({errs})")
+    if errs["sums_rel"] > 1e-12:
+        fail(f"a masked helical kernel's float64 sums differ from the plain "
+             f"version's by more than 1e-12 of their scale ({errs})")
+    return errs
+
+
+@contextlib.contextmanager
+def hp_env(name: str | None):
+    """One JAX switch set to 0 for the block (None: none)."""
+    if name:
+        os.environ[name] = "0"
+    try:
+        yield
+    finally:
+        if name:
+            os.environ.pop(name, None)
+
+
+def hp_class(main_fn, modules, out_dir, label, argv, switch, nsites,
+             samples, mcs, engine, want):
+    """One masked helical class through the CLI (``switch`` set to 0 where
+    the packed or dense engine would take the shape); its engine and its
+    masked kernels' launches.  Returns (launches, wall, rate, table)."""
+    with hp_env(switch):
+        launches, wall, rate, table, head = run_main_path(
+            main_fn, modules, out_dir, label, argv, nsites, samples, mcs)
+    if f"# engine: {engine}" not in head:
+        fail(f"masked helical {label} took another route: {head}")
+    got = {k: launches["helical_pallas"][k] for k in want}
+    if got != want:
+        fail(f"masked helical {label} launched {got}, want {want}")
+    for other in ("helical", "clock_helical", "xy_helical",
+                  "xy_helical_angle"):
+        if any(launches[other].values()):
+            fail(f"masked helical {label} launched {other}: "
+                 f"{launches[other]}")
+    return launches, wall, rate, table
+
+
+def run_hp_classes(main_fn, modules, out_dir, ref, ref_c501, ref_c501m,
+                   ref_xyh_or, ref_xy, dev) -> dict:
+    """The masked helical classes through the CLI from all-up: Ising at
+    the reference's 1001x1000 (SPINLAT_HELICAL_PACKED=0), past the packed
+    bound (4001x4000) and at odd ny (1001x1001, printed: the seam's
+    Jacobi pairs); the clock at q = 6 on 501x500 (SPINLAT_CLOCK_HELICAL_
+    PACKED=0) against both 100-sample curves, q = 2 at 1001x1000 against
+    the Ising curve, q = 5 at 501x500 against the first-sweep closed form;
+    XY with over-relaxation at 10001x10000 (SPINLAT_XY_DENSE=0) and at odd
+    ny, 4001x4001 (printed); --protocol samples on helical Ising 1001x1000
+    and the helical clock q = 6 at 501x500.  Returns {label: (launches,
+    wall, rate, largest |z|)}."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.engine import sweep
+
+    out = {}
+    ising = ["--model", "ising2d", "--kbt", repr(KBT)]
+    for label, nx, ny, nrep, samples, mcs, switch, gate in (
+            ("ising 1001x1000 x 128", 1001, 1000, 128, 128, 1000,
+             "SPINLAT_HELICAL_PACKED", True),
+            ("ising 4001x4000 x 4", 4001, 4000, 4, 4, 200, None, True),
+            ("ising 1001x1001 x 16", 1001, 1001, 16, 16, 200, None, False)):
+        log(f"phase 4j: masked helical path, {label}, {samples} samples, "
+            f"{mcs} MCS")
+        n, wall, rate, table = hp_class(
+            main_fn, modules, out_dir, label.replace(" ", "_"),
+            ising + ["--nx", str(nx), "--ny", str(ny), "--mcs", str(mcs),
+                     "--samples", str(samples), "--replicas", str(nrep)],
+            switch, nx * ny, samples, mcs, sweep.MASKED_ISING,
+            {"ising_multisweep": samples // nrep * -(-mcs // 64)})
+        if gate:
+            z = check_against_reference(
+                table, ref, nx * ny, samples, mcs, range(1, mcs + 1),
+                ref_nsites=int(ref[0, 0]), ref_samples=int(ref[0, 1]))
+        else:
+            z = hp_printed_z(table, ref, nx * ny, samples, mcs)
+        out[label] = (n, wall, rate, z)
+    clock = ["--model", "clock", "--kbt"]
+    label = "clock q=6 501x500 x 100"
+    log(f"phase 4j: masked helical path, {label}, 100 samples, 1000 MCS")
+    n, wall, rate, table = hp_class(
+        main_fn, modules, out_dir, "clock_q6_501",
+        clock + [repr(KBT_CLOCK_08), "--q", "6", "--nx", "501", "--ny",
+                 "500", "--mcs", "1000", "--samples", "100", "--replicas",
+                 "100"], "SPINLAT_CLOCK_HELICAL_PACKED", 501 * 500, 100,
+        1000, sweep.MASKED_CLOCK, {"clock_multisweep": 16})
+    # the committed 100-sample curve and the masked kernel's own are one
+    # file byte for byte (both runs.log entries: seed 42, 100 replicas)
+    if not np.array_equal(ref_c501, ref_c501m):
+        fail("the two 100-sample 501x500 clock curves differ")
+    log("  the 100-sample curve and the masked kernel's are equal, row for "
+        "row: one check holds both")
+    z = check_against_reference(table, ref_c501, 501 * 500, 100, 1000,
+                                range(1, 1001),
+                                ref_nsites=int(ref_c501[0, 0]),
+                                ref_samples=int(ref_c501[0, 1]))
+    out[label] = (n, wall, rate, z)
+    label = "clock q=2 1001x1000 x 64"
+    log(f"phase 4j: masked helical path, {label}, 64 samples, 200 MCS")
+    n, wall, rate, table = hp_class(
+        main_fn, modules, out_dir, "clock_q2_1001",
+        clock + [repr(KBT), "--q", "2", "--nx", "1001", "--ny", "1000",
+                 "--mcs", "200", "--samples", "64", "--replicas", "64"],
+        None, 1001 * 1000, 64, 200, sweep.MASKED_CLOCK,
+        {"clock_multisweep": 4})
+    z = check_against_reference(table, ref, 1001 * 1000, 64, 200,
+                                range(1, 201), ref_nsites=int(ref[0, 0]),
+                                ref_samples=int(ref[0, 1]))
+    out[label] = (n, wall, rate, z)
+    label = "clock q=5 501x500 x 100"
+    log(f"phase 4j: masked helical path, {label}, 100 samples, 200 MCS")
+    n, wall, rate, table = hp_class(
+        main_fn, modules, out_dir, "clock_q5_501",
+        clock + [repr(KBT_CLOCK_08), "--q", "5", "--nx", "501", "--ny",
+                 "500", "--mcs", "200", "--samples", "100", "--replicas",
+                 "100"], None, 501 * 500, 100, 200, sweep.MASKED_CLOCK,
+        {"clock_multisweep": 4})
+    if table.shape != (200, 10) or not np.all(np.isfinite(table)):
+        fail(f"masked clock {label}: table {table.shape} not 200 finite "
+             "rows")
+    want = clock8_first_sweep_exact(5, 1.0 / KBT_CLOCK_08, dev,
+                                    masked=True)
+    z = 0.0
+    for name, col, var_col, exact in (("m", 3, 7, want[0]),
+                                      ("e", 4, 8, want[1])):
+        zk = (table[0, col] - exact) / math.sqrt(table[0, var_col]
+                                                 / (501 * 500 * 100))
+        log(f"  t=1 <{name}> port {table[0, col]:.9f} closed form "
+            f"{exact:.9f} z {zk:+.2f}")
+        if abs(zk) > SIGMAS:
+            fail(f"masked clock {label} <{name}>(1) is {zk:+.2f} sigma from "
+                 "its closed form")
+        z = max(z, abs(zk))
+    out[label] = (n, wall, rate, z)
+    for label, nx, ny, nrep, samples, mcs, kbt, n_or, switch, ref_t, want in (
+            ("xy or 10001x10000 x 1", HX, HY, 1, 2, 200, KBT_XY, 1,
+             "SPINLAT_XY_DENSE", ref_xyh_or,
+             {"xy_phase": 800, "xy_or": 800, "xy_measure": 400,
+              "xy_phase_measuring": 0}),
+            ("xy 4001x4001 x 2", 4001, 4001, 2, 2, 100, KBT_XY_2000, 0,
+             None, ref_xy,
+             {"xy_phase": 200, "xy_or": 0, "xy_measure": 100,
+              "xy_phase_measuring": 0})):
+        log(f"phase 4j: masked helical path, {label}, {samples} samples, "
+            f"{mcs} MCS")
+        argv = ["--model", "xy2d", "--nx", str(nx), "--ny", str(ny),
+                "--kbt", repr(kbt), "--mcs", str(mcs), "--samples",
+                str(samples), "--replicas", str(nrep)]
+        if n_or:
+            argv += ["--n-over-relax", str(n_or)]
+        n, wall, rate, table = hp_class(
+            main_fn, modules, out_dir, label.replace(" ", "_"), argv, switch,
+            nx * ny, samples, mcs, sweep.MASKED_XY, want)
+        if n_or:
+            z = check_against_reference(
+                table, ref_t, nx * ny, samples, mcs, range(1, mcs + 1),
+                ref_nsites=int(ref_t[0, 0]), ref_samples=int(ref_t[0, 1]))
+        else:
+            z = hp_printed_z(table, ref_t, nx * ny, samples, mcs)
+        out[label] = (n, wall, rate, z)
+    for label, argv, shape, ref_t, ncols in (
+            ("samples ising 1001x1000", ["--model", "ising2d", "--kbt",
+                                         repr(KBT)], (1001, 1000), ref, 5),
+            ("samples clock q=6 501x500", ["--model", "clock", "--q", "6",
+                                           "--kbt", repr(KBT_CLOCK_08)],
+             (501, 500), ref_c501, 6)):
+        log(f"phase 4j: masked helical path, {label}: --protocol samples, "
+            "16 histories, 200 MCS")
+        n, wall, rate, z = run_samples_class(
+            main_fn, modules, out_dir, label.replace(" ", "_"), argv, ref_t,
+            16, 200, ncols, shape)
+        key = "clock_multisweep" if "clock" in label else "ising_multisweep"
+        if n["helical_pallas"][key] != 16 * 4:
+            fail(f"masked helical {label} launched {n['helical_pallas']}")
+        out[label] = (n, wall, rate, z)
+    run_hp_routes(main_fn, modules, out_dir)
+    return out
+
+
+# (argv, nsites, rows, masked kernel counter or None) of the short CLI runs
+# of phase 4k: every helical shape the masked kernels took over runs to a
+# .dat (each launch count is checked above, on its class)
+HP_ROUTES = tuple(
+    [(["--model", "clock", "--q", str(q), "--nx", str(nx), "--ny",
+       str(ny), "--kbt", repr(KBT_CLOCK_08), "--mcs", "5", "--samples",
+       "2", "--replicas", "2"], nx * ny, 5, "clock_multisweep")
+     for q in (2, 5, 8) for nx, ny in ((501, 500), (1001, 1001))]
+    + [(["--protocol", "samples", "--model", "xy2d", "--nx", "4001",
+         "--ny", "4001", "--kbt", repr(KBT_XY_2000), "--mcs", "5",
+         "--samples", "2"], 4001 * 4001, 10, "xy_measure"),
+       (["--protocol", "samples", "--model", "ising3d", "--nx", "151",
+         "--ny", "151", "--nz", "150", "--kbt", repr(KBT_H3), "--mcs", "5",
+         "--samples", "2"], 151 * 151 * 150, 10, None)])
+
+
+def run_hp_routes(main_fn, modules, out_dir) -> None:
+    """Phase 4k: the helical clock at q = 2, 5, 8 on 501x500 and 1001x1001,
+    --protocol samples on helical XY at 4001x4001 and on helical 3-D at
+    151x151x150, each a short CLI run from all-up: a .dat of finite rows,
+    the masked kernel launched (2-D)."""
+    for k, (argv, nsites, nrows, counter) in enumerate(HP_ROUTES):
+        log(f"phase 4k: {' '.join(argv)}")
+        n, _, _, table, _ = run_main_path(main_fn, modules, out_dir,
+                                          f"hp_route_{k}", argv, nsites,
+                                          2, 5)
+        if table.shape[0] != nrows or not np.all(np.isfinite(table)):
+            fail(f"phase 4k: {argv} wrote {table.shape} or non-finite rows")
+        if counter is not None and n["helical_pallas"][counter] == 0:
+            fail(f"phase 4k: {argv} launched no masked kernel")
+
+
+def hp_printed_z(table, ref, nsites: int, samples: int, mcs: int) -> float:
+    """The largest |z| of <m>(t), <e>(t) at every t <= mcs against a curve
+    of another geometry, combined sigma, printed and not gated (an odd-ny
+    lattice's seam rows take Jacobi pairs)."""
+    if table.shape != (mcs, 10) or not np.all(np.isfinite(table)):
+        fail(f"table shape {table.shape} or non-finite")
+    worst = 0.0
+    ref_term = 1.0 / (ref[0, 0] * ref[0, 1])
+    for t in range(1, mcs + 1):
+        row, rrow = row_at(table, t), row_at(ref, t)
+        for col, var_col in ((3, 7), (4, 8)):
+            sigma = math.sqrt(rrow[var_col]
+                              * (1.0 / (nsites * samples) + ref_term))
+            worst = max(worst, abs(row[col] - rrow[col]) / sigma)
+    log(f"  largest |z| {worst:.2f} over {mcs} times (printed, not gated)")
+    return worst
+
+
+def time_hp_kernels(hp, rng, dev) -> dict:
+    """Each masked kernel at its classes' launch, held against its plain
+    version: the Ising multisweep at 1001x1000 x 128 and the clock one at
+    501x500 x 100, q = 6, both with S = HP_TIMED_SWEEPS; the XY phase at
+    10001x10000 x 1, colour 0 and colour 1 fused, the OR phase and the
+    measure mode.  Returns {label: (times, err)}."""
+    S = HP_TIMED_SWEEPS
+    seeds = multispin_keys(rng, S, 93)
+    out = {}
+    nrep, ny, nx = 128, 1000, 1001
+    n = ny * nx
+    x = hp_ising_state(dev, (nrep, ny, nx), 7)
+    sites = nrep * n
+    out["ising"] = time_hp_ms(
+        f"helical_pallas ising multisweep 1001x1000 x 128, S={S}",
+        sites * S,
+        lambda v: hp.ising_multisweep(v, seeds, beta=1.0 / KBT, nx=nx),
+        lambda v: hp.ising_multisweep_plain(v, seeds, beta=1.0 / KBT,
+                                            nx=nx), (x,),
+        2 * sites + 16 * nrep * S,
+        sites * S * (OPS_PER_PHILOX / 4 + OPS_HP_ISING) + sites * S * 2,
+        reps=5, plain_reps=1)
+    del x
+    nrep, ny, nx = 100, 500, 501
+    n = ny * nx
+    x = hp_clock_state(dev, (nrep, ny, nx), 6, 8)
+    sites = nrep * n
+    kw = dict(beta=1.0 / KBT_CLOCK_08, nx=nx, q=6)
+    out["clock"] = time_hp_ms(
+        f"helical_pallas clock multisweep 501x500 x 100, q=6, S={S}",
+        sites * S, lambda v: hp.clock_multisweep(v, seeds, **kw),
+        lambda v: hp.clock_multisweep_plain(v, seeds, **kw), (x,),
+        2 * sites + 24 * nrep * S,
+        sites * S * (OPS_PER_PHILOX / 2 + OPS_HP_INDEX + OPS_CLOCK8_SITE)
+        + sites * S * OPS_CLOCK8_FUSED // 2, reps=5, plain_reps=1)
+    del x
+    n = HX * HY
+    sx, sy = hp_xy_state(dev, (1, HY, HX), 9)
+    out_planes = (torch.empty_like(sx), torch.empty_like(sy))
+    half = n // 2
+    ph_ops = half * (OPS_PER_PHILOX / 2 + OPS_HP_XY)
+    for label, color, measuring in (("phase", 0, False),
+                                    ("phase, measuring", 1, True)):
+        kw = dict(color=color, nx=HX, beta=1.0 / KBT_XY, measuring=measuring)
+        out[f"xy {label}"] = time_xy_out(
+            f"helical_pallas xy phase 10001x10000 x 1, colour {color}"
+            + (", fused sums" if measuring else ""),
+            lambda: hp.xy_phase(sx, sy, seeds[0, color], out=out_planes,
+                                **kw),
+            lambda: hp.xy_phase_plain(sx, sy, seeds[0, color], **kw),
+            16 * n + (24 if measuring else 0),
+            ph_ops + (n * 4 if measuring else 0), n)
+    out["xy or"] = time_xy_out(
+        "helical_pallas xy or 10001x10000 x 1, colour 0",
+        lambda: hp.xy_or_phase(sx, sy, color=0, nx=HX, out=out_planes),
+        lambda: hp.xy_or_phase_plain(sx, sy, color=0, nx=HX), 16 * n,
+        half * OPS_HP_XY_OR, n)
+    out["xy measure"] = time_xy_out(
+        "helical_pallas xy phase kernel, measure mode, 10001x10000 x 1",
+        lambda: (hp.xy_measure(sx, sy, nx=HX),),
+        lambda: (hp.xy_sums(sx, sy, HX),), 8 * n + 24, n * 6 + n * 4, n)
+    return out
+
+
+def time_hp_ms(label: str, flips: int, kernel, plain, inputs,
+               nbytes: float, ops: float, reps: int,
+               plain_reps: int) -> tuple[dict, float]:
+    """CUDA-event time of a masked multisweep wrapper on a clone of the
+    state (it updates it in place) and of its plain version, beside the
+    bound; then one call of each on the same state: the largest difference
+    of the states and of the int64 sums, or the float64 sums' relative to
+    their scale (:func:`scaled_err`)."""
+    last = {}
+    work = [t.clone() for t in inputs]
+    ms = cuda_time_ms(lambda: kernel(*work), reps=reps)
+    plain_ms = cuda_time_ms(lambda: last.__setitem__("plain", plain(*inputs)),
+                            reps=plain_reps, warmup=plain_reps - 1)
+    got, want = kernel(*(t.clone() for t in inputs)), last["plain"]
+    err = float(max_abs_err([(got[0], want[0])]))
+    err = max(err, float(max_abs_err([(got[1], want[1])]))
+              if got[1].dtype == torch.int64
+              else scaled_err(got[1], want[1], inputs[0][0].numel()))
+    bound, by = bound_ms(nbytes, ops)
+    log(f"  {label}: {ms:.4f} ms/launch ({flips / ms * 1e3:.4g} flip "
+        f"attempts/s), plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); "
+        f"vs plain {err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}, err
+
+
+def time_xy_out(label: str, kernel, plain, nbytes: float, ops: float,
+                n: int) -> tuple[dict, float]:
+    """CUDA-event time of an out-of-place XY wrapper (its inputs are not
+    changed) and of its plain version, beside the bound; then the largest
+    difference of their outputs: float32 planes absolute, float64 sums
+    relative to their scale."""
+    last = {}
+    ms = cuda_time_ms(lambda: last.__setitem__("kernel", kernel()), reps=20)
+    plain_ms = cuda_time_ms(lambda: last.__setitem__("plain", plain()),
+                            reps=1, warmup=0)
+    got, want = last["kernel"], last["plain"]
+    err = 0.0
+    for g, w in zip(got, want):
+        err = max(err, scaled_err(g, w, 2 * n) if g.dtype == torch.float64
+                  else float_err([(g, w)]))
+    bound, by = bound_ms(nbytes, ops)
+    log(f"  {label}: {ms:.4f} ms/launch ({n / 2 / ms * 1e3:.4g} site "
+        f"updates/s), plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); "
+        f"vs plain {err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}, err
+
+
+def hp_shares(classes: dict, th: dict) -> dict[str, float]:
+    """Each masked class's kernel time (its launches times the launch times
+    measured at the timed shapes, scaled by sites and sweeps) over its
+    wall."""
+    shares = {}
+    ms_ising = th["ising"][0]["ms"] / (HP_TIMED_SWEEPS * 128 * 1001 * 1000)
+    ms_clock = th["clock"][0]["ms"] / (HP_TIMED_SWEEPS * 100 * 501 * 500)
+    xy = {k: th[f"xy {k}"][0]["ms"] / (HX * HY)
+          for k in ("phase", "phase, measuring", "or", "measure")}
+    for label, (n, wall, rate, _) in classes.items():
+        k = n["helical_pallas"]
+        site_sweeps = rate * wall
+        if "xy" in label:
+            nsites = site_sweeps / (k["xy_measure"]
+                                    + k["xy_phase_measuring"])
+            kern = nsites * ((k["xy_phase"]) * xy["phase"]
+                             + k["xy_phase_measuring"]
+                             * xy["phase, measuring"]
+                             + k["xy_or"] * xy["or"]
+                             + k["xy_measure"] * xy["measure"])
+        elif "clock" in label:
+            kern = site_sweeps * ms_clock
+        else:
+            kern = site_sweeps * ms_ising
+        shares[label] = kern / (wall * 1e3)
+        log(f"  masked {label}: kernel {kern / 1e3:.3f} s of a {wall:.3f} s "
+            f"wall; kernel share {shares[label]:.3f}")
+    return shares
+
+
 def read_dat(path: Path, max_t: int | None = None) -> np.ndarray:
     """A .dat table's rows; with ``max_t`` only those up to t = max_t
     (the clock curves run to 10^5 sweeps)."""
@@ -3275,6 +3897,9 @@ def main() -> int:
         helical_multispin as hms,
     )
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_pallas as hp,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         ising2d_multispin as msb,
     )
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
@@ -3327,7 +3952,7 @@ def main() -> int:
                "ising2d_int8": i2p, "ising3d_int8": i3p,
                "ising_int8_measure": i8m, "ising2d_int8_multisweep": i8ms,
                "clock8": c8p, "clock8_measure": c8m,
-               "clock8_multisweep": c8ms}
+               "clock8_multisweep": c8ms, "helical_pallas": hp}
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device {torch.cuda.get_device_name(0)} | {smi} | torch "
@@ -3336,7 +3961,7 @@ def main() -> int:
                  REFERENCE_H3_501, REFERENCE_H3_1001, RACY_H3_1001,
                  CLOCK_2000, CLOCK_2048, CLOCK_501, XY_OR_4000, XY_2000,
                  XY_FD_1500, XY_FIX1_1500, XY_FM_1000, XY_FMS_1000,
-                 XY_OR_10001, XY_10001, CLOCK_1000):
+                 XY_OR_10001, XY_10001, CLOCK_1000, CLOCK_501_MASKED):
         if not path.exists():
             fail(f"reference curve {path} is missing")
     ref = read_dat(REFERENCE_DAT)
@@ -3349,6 +3974,7 @@ def main() -> int:
     ref_c2048 = read_dat(CLOCK_2048, max_t=1000)
     ref_c501 = read_dat(CLOCK_501, max_t=1000)
     ref_c1000 = read_dat(CLOCK_1000, max_t=1000)
+    ref_c501m = read_dat(CLOCK_501_MASKED, max_t=1000)
     ref_xy_or = read_dat(XY_OR_4000, max_t=1000)
     ref_xy = read_dat(XY_2000)
     ref_fd = read_dat(XY_FD_1500, max_t=1000)
@@ -3374,8 +4000,10 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"  cooperative grids: 2-D {msb.multisweep_grid_blocks()}, 3-D "
         f"{ms3.multisweep_grid_blocks()}, XY {xyr.grid_blocks()}, int8 2-D "
-        f"{i8ms.grid_blocks()}, int8 clock {c8ms.grid_blocks()} blocks "
-        "resident")
+        f"{i8ms.grid_blocks()}, int8 clock {c8ms.grid_blocks()}, masked "
+        f"helical Ising {hp.grid_blocks(0, False)} (odd N "
+        f"{hp.grid_blocks(0, True)}), clock {hp.grid_blocks(1, False)} (odd N "
+        f"{hp.grid_blocks(1, True)}) blocks resident")
 
     # 2. kernels against their plain versions
     log("phase 2: kernels vs plain versions (bitwise)")
@@ -3395,6 +4023,7 @@ def main() -> int:
     check_atan2(xha, dev)
     errs8 = check_int8(i2p, i3p, i8m, i8ms, rng, dev)
     errs_c8 = check_clock8(c8p, c8m, c8ms, rng, dev)
+    errs_hp = check_helical_pallas(hp, rng, dev)
 
     log("phase 2b: first sweep from all-up against its exact expectation")
     check_first_sweep(msb, rng, dev, ref[0], iters=100)
@@ -3639,13 +4268,17 @@ def main() -> int:
         # the int8 clock kernels
         clock8 = run_clock8_classes(cli_main, modules, out, ref, ref_c1000,
                                     dev)
+        # 4j. every helical 2-D shape on the masked helical kernels
+        hpc = run_hp_classes(cli_main, modules, out, ref, ref_c501, ref_c501m,
+                             ref_xyh_or, ref_xy, dev)
     paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch,
              h1_launch, h5_launch, ha_launch, cp_launch, ca_launch,
              ch_launch, xo_launch, xm_launch,
              *(d[0] for d in disorder.values()),
              *(h[0] for h in helical.values()),
              *(c[0] for c in int8.values()),
-             *(c[0] for c in clock8.values()))
+             *(c[0] for c in clock8.values()),
+             *(c[0] for c in hpc.values()))
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -4054,12 +4687,12 @@ def main() -> int:
 
     # the int8 kernels at their classes' launch shapes, each class's kernel
     # share of its wall, and the int8 route reading
-    t8 = time_int8_kernels(i2p, i3p, i8m, i8ms, rng, dev)
-    e8 = max(err for _, err in t8.values())
-    if e8 != 0:
+    ti8 = time_int8_kernels(i2p, i3p, i8m, i8ms, rng, dev)
+    ei8 = max(err for _, err in ti8.values())
+    if ei8 != 0:
         fail(f"an int8 kernel differs from its plain version at its "
-             f"main-path launch shape ({ {k: v[1] for k, v in t8.items()} })")
-    int8_share = int8_shares(int8, t8)
+             f"main-path launch shape ({ {k: v[1] for k, v in ti8.items()} })")
+    int8_share = int8_shares(int8, ti8)
     int8_routes = compare_int8_routes(i2p, i8m, i8ms, rng, dev)
 
     # the int8 clock kernels at their classes' launches, each class's
@@ -4073,6 +4706,17 @@ def main() -> int:
              f"main-path launch shape ({ec8})")
     clock8_share = clock8_shares(clock8, tc8)
     clock8_routes = compare_clock8_routes(c8p, c8m, c8ms, rng, dev)
+
+    # the masked helical kernels at their classes' launches and each masked
+    # class's kernel share of its wall
+    th = time_hp_kernels(hp, rng, dev)
+    eh = {k: v[1] for k, v in th.items()}
+    if (max(eh["ising"], eh["xy phase"], eh["xy or"]) != 0
+            or max(eh["clock"], eh["xy phase, measuring"],
+                   eh["xy measure"]) > 1e-12):
+        fail(f"a masked helical kernel differs from its plain version at its "
+             f"main-path launch shape ({eh})")
+    hp_share = hp_shares(hpc, th)
 
     src = "cuda_fortran_mc_simulation_spin_tpu_torch/csrc/"
     ref_py = "cuda_fortran_mc_simulation_spin_tpu/ops/"
@@ -4139,19 +4783,19 @@ def main() -> int:
          max(err_xyh["angle_or"], xyh_err), xyh_t["angle or"][0]),
         ("ising2d_pallas.phase_kernel", "ising2d_pallas.cu",
          "ising2d_pallas.py:126", launched("ising2d_int8", "phase"),
-         max(errs8["phase2d"], e8), t8["phase2d 8x4000x2000"][0]),
+         max(errs8["phase2d"], ei8), ti8["phase2d 8x4000x2000"][0]),
         ("ising3d_pallas.phase_kernel", "ising3d_pallas.cu",
          "ising3d_pallas.py:85", launched("ising3d_int8", "phase"),
-         max(errs8["phase3d"], e8), t8["phase3d 2x500x500x250"][0]),
+         max(errs8["phase3d"], ei8), ti8["phase3d 2x500x500x250"][0]),
         ("ising2d_measure_pallas.measure_kernel",
          "ising2d_measure_pallas.cu", "ising2d_measure_pallas.py:74",
          launched("ising_int8_measure", "measure2d")
          + launched("ising_int8_measure", "measure3d"),
-         max(errs8["measure"], e8), t8["measure2d 8x4000x2000"][0]),
+         max(errs8["measure"], ei8), ti8["measure2d 8x4000x2000"][0]),
         ("ising2d_multisweep.multisweep_kernel", "ising2d_multisweep.cu",
          "ising2d_multisweep.py:128",
          launched("ising2d_int8_multisweep", "multisweep"),
-         max(errs8["multisweep"], e8), t8["multisweep S=64"][0]),
+         max(errs8["multisweep"], ei8), ti8["multisweep S=64"][0]),
         ("clock_pallas.phase_kernel", "clock_pallas.cu", "clock_pallas.py:106",
          launched("clock8", "phase"), errs_c8["phase"],
          tc8["phase 16x2000x1000"][0]),
@@ -4162,6 +4806,26 @@ def main() -> int:
          "clock_multisweep.py:127",
          launched("clock8_multisweep", "multisweep"),
          errs_c8["multisweep"], tc8["multisweep S=64"][0]),
+        ("helical_pallas.ising_multisweep_kernel", "helical_pallas.cu",
+         "helical_pallas.py:216",
+         launched("helical_pallas", "ising_multisweep"),
+         max(errs_hp["ising"], eh["ising"]), th["ising"][0]),
+        ("helical_pallas.clock_multisweep_kernel", "helical_pallas.cu",
+         "helical_pallas.py:373",
+         launched("helical_pallas", "clock_multisweep"),
+         max(errs_hp["clock"], errs_hp["sums_rel"], eh["clock"]),
+         th["clock"][0]),
+        ("helical_pallas.xy_phase_kernel", "helical_pallas.cu",
+         "helical_pallas.py:555",
+         launched("helical_pallas", "xy_phase")
+         + launched("helical_pallas", "xy_phase_measuring")
+         + launched("helical_pallas", "xy_measure"),
+         max(errs_hp["xy_phase"], eh["xy phase"],
+             eh["xy phase, measuring"], eh["xy measure"]),
+         th["xy phase"][0]),
+        ("helical_pallas.xy_or_kernel", "helical_pallas.cu",
+         "helical_pallas.py:579", launched("helical_pallas", "xy_or"),
+         max(errs_hp["xy_or"], eh["xy or"]), th["xy or"][0]),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -4238,6 +4902,11 @@ def main() -> int:
         "streamed ms a sweep) "
         + ", ".join(f"({nx}, {r}, {b / 2 ** 20:.1f}, {a:.5f}, {c:.5f})"
                     for nx, r, b, a, c in clock8_routes))
+    log("main path masked helical: " + "; ".join(
+        f"{label} {rate:.4g} flip attempts/s ({wall:.2f} s, largest |z| "
+        f"{z:.2f}, kernel share {hp_share[label]:.3f})"
+        for label, (_, wall, rate, z) in hpc.items())
+        + f"; sums' relative error {errs_hp['sums_rel']:.3g}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

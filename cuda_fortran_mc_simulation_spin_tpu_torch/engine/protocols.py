@@ -14,22 +14,23 @@ progress on ``err`` (stdout = dataset, stderr = progress).
   the JAX package's order), the
   periodic XY phases and the dense helical XY engines (odd nx, even ny;
   angle planes by default, component planes with
-  ``SPINLAT_XY_DENSE_ANGLE=0``), with and without over-relaxation;
+  ``SPINLAT_XY_DENSE_ANGLE=0``), with and without over-relaxation, and
+  the masked helical kernels (ops/helical_pallas.py) for every helical 2-D
+  shape the packed and dense engines refuse, or all of them under the JAX
+  package's switches ``SPINLAT_HELICAL_PACKED=0``,
+  ``SPINLAT_CLOCK_HELICAL_PACKED=0`` and ``SPINLAT_XY_DENSE=0``;
 - ``from_disorder`` (with ``rotate_after_first_mcs``: the fix1mcs app),
   ``finite_magne``, ``samples`` and ``finite_magne_samples`` serve the
   periodic XY model through ``sweep.make_xy_disorder_runner`` (the
   snapshot-measuring phase, the standalone measurement and the resident
-  multisweep); ``samples`` serves periodic Ising 2-D and 3-D and the
-  periodic clock through ``sweep.make_sample_runner`` (JAX
-  ``_run_samples_generic``).
+  multisweep); ``samples`` serves periodic Ising 2-D and 3-D, the
+  periodic clock and the helical models through
+  ``sweep.make_sample_runner`` (JAX ``_run_samples_generic``).
 
-Every other route of the JAX package (the masked helical kernels and the
-generic runners behind helical XY shapes outside the dense gate, the
-helical clock at q != 6 and the oversize helical lattices, the per-sample
-runner of the helical models, meshes) raises NotImplementedError naming
-the ROADMAP.md item that ports it, and never falls back.  Over-relaxation
-on the Ising and clock models raises ValueError: it is defined for the XY
-model only.
+Every other route of the JAX package (helical 3-D at 2^30 sites a colour
+or more, meshes) raises NotImplementedError naming the ROADMAP.md item
+that ports it, and never falls back.  Over-relaxation on the Ising and
+clock models raises ValueError: it is defined for the XY model only.
 
 Checkpoint/resume: pass ``checkpoint_path``; accumulators are saved
 every ``checkpoint_every`` histories and runs resume exactly
@@ -55,7 +56,6 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.io import checkpoint, datfmt
 from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
     Clock2D,
     Clock2DHelical,
-    Ising2D,
     Ising2DHelical,
     Ising3D,
     Ising3DHelical,
@@ -64,14 +64,11 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
     build_model,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
-    clock_helical_multispin,
     clock_multisweep,
     helical3d_multispin,
-    helical_multispin,
     ising2d_multispin,
     ising2d_multisweep,
     ising3d_multispin,
-    xy2d_helical_dense,
 )
 
 
@@ -166,26 +163,17 @@ def _ensemble_loop(cfg, runner, fold, err, accs, base, batch, start,
 def _check_route(cfg, model) -> None:
     """Raise for every route of the JAX package that the port does not
     serve yet, naming the ROADMAP.md item that ports it.  ``build_model``
-    admits the Ising, clock and XY models, so what is left of the JAX
-    package's helical eligibility is the shape (and q for the helical
-    clock); every periodic Ising 2-D and 3-D, periodic clock (every q) and
-    periodic XY shape is served, and helical XY within the dense engines'
-    gate (odd nx, even ny), with or without over-relaxation.
-    Over-relaxation on the other models raises ValueError."""
+    admits the Ising, clock and XY models; every periodic shape and every
+    helical 2-D shape is served (the helical 2-D ones the packed and dense
+    engines refuse on the masked helical kernels), so what is left is a
+    mesh and helical 3-D at 2^30 sites a colour or more, which the JAX
+    package sends to its generic jnp runner (its ``sweep.py:665-675``).
+    Over-relaxation on the Ising and clock models raises ValueError."""
     if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
         raise NotImplementedError(
             "multi-device meshes are not ported yet (ROADMAP.md queue A "
             "item 9)")
-    if isinstance(model, XY2D):
-        return
-    if isinstance(model, XY2DHelical):
-        if not xy2d_helical_dense.fits(model):
-            raise NotImplementedError(
-                f"helical XY {cfg.nx}x{cfg.ny} is outside the dense "
-                "engines' gate (odd nx, even ny); the masked helical XY "
-                "kernels (helical_pallas.py:555,579) and the generic runners "
-                "that would serve it are not ported yet (ROADMAP.md queue A "
-                "item 4a, queue B item 13)")
+    if isinstance(model, (XY2D, XY2DHelical)):
         return
     if cfg.n_over_relax > 0:
         raise ValueError(
@@ -193,33 +181,15 @@ def _check_route(cfg, model) -> None:
             f"{cfg.model} model (the JAX package defines over_relax_sweep "
             "only in models/xy2d.py and models/xy2d_helical.py; its generic "
             "runner fails on other models)")
-    if isinstance(model, Clock2DHelical):
-        if not clock_helical_multispin.fits(model):
-            raise NotImplementedError(
-                f"helical clock {cfg.nx}x{cfg.ny} q={cfg.q} is not served "
-                "by the packed helical clock kernel (q = 6, odd nx, even "
-                f"nx*ny, at most {clock_helical_multispin.MAX_WORDS} words "
-                "a colour); the masked helical clock kernel that serves it "
-                "is not ported yet (ROADMAP.md queue B item 13)")
-        return
-    if isinstance(model, Ising2DHelical):
-        if not helical_multispin.fits(model):
-            raise NotImplementedError(
-                f"helical {cfg.nx}x{cfg.ny} does not fit the packed helical "
-                f"kernel (odd nx, even nx*ny, at most "
-                f"{helical_multispin.MAX_WORDS} words per colour); the "
-                "masked helical kernels that serve larger lattices are not "
-                "ported yet (ROADMAP.md queue B item 13)")
-        return
     if isinstance(model, Ising3DHelical):
         if not helical3d_multispin.fits_stream(model):
             raise NotImplementedError(
                 f"helical {cfg.nx}x{cfg.ny}x{cfg.nz} has "
                 f"{model.nsites // 2} sites a colour, not below the "
                 f"{helical3d_multispin.MAX_SITES} the packed helical 3-D "
-                "kernels index; the masked helical kernels that would "
-                "serve it are not ported yet (ROADMAP.md queue B item 13)")
-        return
+                "kernels index; the JAX package runs it on its generic "
+                "runner, whose port is not done yet (ROADMAP.md queue A "
+                "item 4a)")
 
 
 def _int8_runner(cfg, model, batch: int, device):
@@ -259,6 +229,7 @@ def _make_runner(cfg, model, batch: int, device):
                 model, cfg.mcs, batch, cfg.init_state, device=device)
         return _int8_runner(cfg, model, batch, device)
     if isinstance(model, (Ising2DHelical, Ising3DHelical, Clock2DHelical)):
+        # the packed helical engines, else the masked helical kernels
         return sweep_mod.make_helical_runner(
             model, cfg.mcs, batch, cfg.init_state, device=device)
     if isinstance(model, Ising3D):
@@ -454,21 +425,19 @@ _PREP_FOR_INIT = {
 
 
 def _run_samples_generic(cfg: RunConfig, model, out, err, device) -> None:
-    """Per-sample raw series of periodic Ising 2-D and 3-D and the periodic
-    clock (JAX ``_run_samples_generic``, its ``protocols.py:1152-1179``):
-    plain Metropolis histories on ``sweep.make_sample_runner``, rows N,
-    sample, t, m, e, and m_y where the series has it (the clock), as JAX
-    appends it."""
+    """Per-sample raw series of the Ising and clock models and helical XY
+    (JAX ``_run_samples_generic``, its ``protocols.py:1152-1179``): plain
+    Metropolis histories on ``sweep.make_sample_runner`` (the helical 2-D
+    models on the masked helical kernels, helical 3-D on its helical
+    kernels), rows N, sample, t, m, e, and m_y where the series has it
+    (the clock, XY), as JAX appends it."""
     if cfg.init_state not in ("allup", "random"):
         raise ValueError(
             f"init_state={cfg.init_state!r} requires the periodic XY "
             f"engine (--model xy2d with even nx); model {cfg.model!r} "
             "supports allup/random starts"
         )
-    if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
-        raise NotImplementedError(
-            "multi-device meshes are not ported yet (ROADMAP.md queue A "
-            "item 9)")
+    _check_route(dataclasses.replace(cfg, n_over_relax=0), model)
     _emit_headers(cfg, model, out, err)
     base = rng.base_key(cfg.seed, cfg.stream)
     runner = sweep_mod.make_sample_runner(model, cfg.mcs, cfg.init_state,
@@ -493,20 +462,13 @@ def run_samples(cfg: RunConfig, out: IO[str] = sys.stdout,
     (xy2d_periodic_gpu_relaxation_from_disorder_finite_magne_samples.f90:
     40-58), one history a sample keyed by its sample key.  Periodic XY:
     the preparation from cfg.init_state, rows N, sample, t, m_x, e, m_y, A
-    (and corr) under the reference's literal header.  Periodic Ising 2-D
-    and 3-D and the periodic clock: :func:`_run_samples_generic`.  The
-    helical models' per-sample runners are not ported."""
+    (and corr) under the reference's literal header.  Every other model
+    (the JAX XY helical model has no rotation, so it is one of them):
+    :func:`_run_samples_generic`."""
     dev = resolve_device(device)
     if cfg.model != "xy2d" or cfg.nx % 2:
-        model = build_model(cfg)
-        if isinstance(model, (Ising2D, Ising3D, Clock2D)):
-            _run_samples_generic(cfg, model, out, err, dev)
-            return
-        raise NotImplementedError(
-            f"--protocol samples on the {cfg.model} model (nx={cfg.nx}) "
-            "needs the generic per-sample runner on the kernels of "
-            "sub-slice (c), the masked helical kernels, not ported yet "
-            "(ROADMAP.md queue A item 4a)")
+        _run_samples_generic(cfg, build_model(cfg), out, err, dev)
+        return
     _check_disorder(cfg)
     model = build_model(cfg)
     prep = _PREP_FOR_INIT.get(cfg.init_state, "rotate_first")

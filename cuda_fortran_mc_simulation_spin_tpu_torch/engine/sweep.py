@@ -4,12 +4,13 @@ Port of the multispin part of
 ``cuda_fortran_mc_simulation_spin_tpu/engine/sweep.py``
 (``_host_chunk_runner``, ``_make_packed_runner``,
 ``make_multispin_runner``, ``make_multispin3d_runner``,
-``make_clock_multispin_runner``, the Ising and q=6 clock branches of
-``make_helical_runner``, the generic runners ``make_sample_runner``,
-``make_batch_runner`` and ``make_multisweep_runner`` on the int8 Ising 2-D
-and 3-D and int8 clock kernels, ``xy_padded_eligible`` /
-``make_xy_padded_runner`` as :func:`make_xy_runner`, the dense XY branch of
-``make_helical_runner``, and the XY disorder
+``make_clock_multispin_runner``, ``make_helical_runner`` with its packed,
+dense and masked branches in the JAX package's order, the generic runners
+``make_sample_runner``, ``make_batch_runner`` and
+``make_multisweep_runner`` on the int8 Ising 2-D and 3-D and int8 clock
+kernels and, for the helical models, on the masked helical kernels,
+``xy_padded_eligible`` / ``make_xy_padded_runner`` as
+:func:`make_xy_runner`, and the XY disorder
 runners of ``engine/protocols.py``, ``_xy_disorder_batched_runner`` and
 ``_xy_disorder_resident_runner``, as :func:`make_xy_disorder_runner`).
 A ``lax.scan`` there is a Python loop over kernel launches here.  The JAX runner sizes its dispatches from TPU
@@ -37,6 +38,9 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock_helical import (
     Clock2DHelical,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising2d import Ising2D
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising2d_helical import (
+    Ising2DHelical,
+)
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d import Ising3D
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.ising3d_helical import (
     Ising3DHelical,
@@ -59,6 +63,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     clock_planes,
     helical3d_multispin,
     helical_multispin,
+    helical_pallas,
     ising2d_measure_pallas,
     ising2d_multispin,
     ising2d_multisweep,
@@ -246,7 +251,17 @@ def make_batch_runner(model, mcs: int, batch: int, init_kind: str = "allup",
     ``seeds_from_key(., p)``, the keys of a chunk in one batched derivation,
     so a run is bitwise independent of ``chunk``.  JAX's ``prepare`` and
     ``measure`` hooks serve only the XY model, whose runners are
-    :func:`make_xy_runner` and :func:`make_xy_disorder_runner`."""
+    :func:`make_xy_runner` and :func:`make_xy_disorder_runner`.  The
+    helical models' phases are the JAX models' masked ``sweep``: the
+    helical 2-D ones run :func:`make_masked_runner` (the masked helical
+    kernels, with the fused sums; XY also {my}), helical 3-D its helical
+    kernels (:func:`make_helical_runner`)."""
+    if isinstance(model, HELICAL_2D):
+        return _tag(make_masked_runner(model, mcs, batch, init_kind, device,
+                                       chunk=chunk), "phase engine (batched)")
+    if isinstance(model, Ising3DHelical):
+        return _tag(make_helical_runner(model, mcs, batch, init_kind,
+                                        device), "phase engine (batched)")
     ops = _int8_ops(model)
 
     def init_fn(call_key):
@@ -351,21 +366,107 @@ def make_clock_multispin_runner(model, mcs: int, batch: int,
        + (" (padded)" if padded else ""))
 
 
+HELICAL_2D = (Ising2DHelical, Clock2DHelical, XY2DHelical)
+MASKED_ISING = "helical_pallas multisweep (masked Ising)"
+MASKED_CLOCK = "helical_pallas multisweep (masked clock)"
+MASKED_XY = "helical_pallas XY (masked streaming)"
+
+
+def helical_masked(model) -> bool:
+    """A helical 2-D model goes to the masked kernels: the JAX package's
+    order, the packed (Ising, q = 6 clock) or dense (XY) engine first where
+    its gate takes the shape and its switch (``SPINLAT_HELICAL_PACKED``,
+    ``SPINLAT_CLOCK_HELICAL_PACKED``, ``SPINLAT_XY_DENSE``) is not 0, else
+    the masked ones (JAX ``sweep.py:680-702``, ``:810``, ``:955-987``)."""
+    if isinstance(model, XY2DHelical):
+        return (not xy2d_helical_dense.fits(model)
+                or helical_pallas.switched_off("SPINLAT_XY_DENSE"))
+    if isinstance(model, Clock2DHelical):
+        return (not clock_helical_multispin.fits(model)
+                or helical_pallas.switched_off("SPINLAT_CLOCK_HELICAL_PACKED"))
+    if isinstance(model, Ising2DHelical):
+        return (not helical_multispin.fits(model)
+                or helical_pallas.switched_off("SPINLAT_HELICAL_PACKED"))
+    return False
+
+
+def make_masked_runner(model, mcs: int, batch: int, init_kind: str = "allup",
+                       device="cuda", n_over_relax: int = 0,
+                       mcs_over_relax: int = 0, chunk: int = DEFAULT_CHUNK
+                       ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
+    """`run(call_key) -> {m, e: (batch, mcs) float64}` (clock, XY: also
+    {my}) on the masked helical kernels (ops/helical_pallas.py), the
+    masked branches of the JAX package's ``make_helical_runner``
+    (``sweep.py:886-942``, ``:1015-1040``) on flat (R, N) states: Ising and
+    clock one multisweep launch of up to ``chunk`` sweeps with the sums of
+    each; XY streamed out-of-place phases, with no over-relaxation a
+    Metropolis sweep whose colour-1 phase measures, else a Metropolis
+    sweep, for t <= mcs_over_relax (default mcs) ``n_over_relax``
+    over-relaxation sweeps, and the measure launch, as JAX measures with
+    ``xy_observables_packed``.  Keys follow the global sweep index, so a
+    run is bitwise independent of ``chunk``."""
+    if isinstance(model, XY2DHelical):
+        mcs_or = mcs_over_relax or mcs
+
+        def init_xy(call_key):
+            return helical_pallas.XYPlanes(
+                _init_state(model, init_kind, batch, call_key, device))
+
+        def chunk_xy(planes, call_key, t0, size):
+            seeds = multispin_rng.sweep_phase_keys(call_key, size, t0)
+            series = {"m": [], "my": [], "e": []}
+            for j in range(size):
+                if n_over_relax == 0:
+                    obs = helical_pallas.xy_sweep_measure(model, planes,
+                                                          seeds[j])
+                else:
+                    helical_pallas.xy_sweep(model, planes, seeds[j])
+                    if t0 + j + 1 <= mcs_or:
+                        for _ in range(n_over_relax):
+                            helical_pallas.xy_over_relax_sweep(model, planes)
+                    obs = helical_pallas.xy_observables(model, planes)
+                for k in series:
+                    series[k].append(obs[k])
+            return planes, {k: torch.stack(v, dim=1)
+                            for k, v in series.items()}
+
+        return _tag(_host_chunk_runner(init_xy, chunk_xy, mcs, chunk),
+                    MASKED_XY)
+    if not isinstance(model, (Ising2DHelical, Clock2DHelical)):
+        raise ValueError(f"{model!r}: the masked helical kernels serve the "
+                         "helical 2-D models")
+
+    def init_fn(call_key):
+        return _init_state(model, init_kind, batch, call_key, device)
+
+    def chunk_fn(flat, call_key, t0, size):
+        return helical_pallas.multisweep(model, flat, call_key, size, t0)
+
+    return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk),
+                MASKED_CLOCK if isinstance(model, Clock2DHelical)
+                else MASKED_ISING)
+
+
 def make_helical_runner(model, mcs: int, batch: int,
                         init_kind: str = "allup", device="cuda",
                         n_over_relax: int = 0, mcs_over_relax: int = 0
                         ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
-    """`run(call_key) -> {m, e: (batch, mcs) float64}` on the flat
-    even/odd bit-packed helical kernels, keyed by the global sweep index as
-    the periodic runners are.  2-D (ops/helical_multispin.py): one resident
-    multisweep launch per chunk of sweeps.  3-D
-    (ops/helical3d_multispin.py): the resident multisweep where
-    ``helical3d_multispin.fits`` (odd nx·ny, 151^3), else streamed
-    (sub-)phase launches (501^3, and 1001x1000x1000 with its four z-parity
-    sub-phases and an energy launch a sweep).  q=6 clock
-    (ops/clock_helical_multispin.py): one resident multisweep launch per
-    chunk.  XY (:func:`make_xy_helical_runner`, also {my}): the dense
-    engines' streamed phases, with ``n_over_relax`` / ``mcs_over_relax``."""
+    """`run(call_key) -> {m, e: (batch, mcs) float64}` on the helical
+    kernels, keyed by the global sweep index as the periodic runners are,
+    in the JAX package's order (:func:`helical_masked`).  2-D Ising
+    (ops/helical_multispin.py): one flat even/odd bit-packed multisweep
+    launch per chunk of sweeps.  3-D (ops/helical3d_multispin.py): the
+    resident multisweep where ``helical3d_multispin.fits`` (odd nx·ny,
+    151^3), else streamed (sub-)phase launches (501^3, and 1001x1000x1000
+    with its four z-parity sub-phases and an energy launch a sweep).  q=6
+    clock (ops/clock_helical_multispin.py): one bit-sliced resident
+    multisweep launch per chunk.  XY (:func:`make_xy_helical_runner`, also
+    {my}): the dense engines' streamed phases, with ``n_over_relax`` /
+    ``mcs_over_relax``.  Every other helical 2-D shape, q and switch:
+    :func:`make_masked_runner`."""
+    if isinstance(model, HELICAL_2D) and helical_masked(model):
+        return make_masked_runner(model, mcs, batch, init_kind, device,
+                                  n_over_relax, mcs_over_relax)
     if isinstance(model, XY2DHelical):
         return make_xy_helical_runner(model, mcs, batch, init_kind,
                                       n_over_relax, mcs_over_relax, device)

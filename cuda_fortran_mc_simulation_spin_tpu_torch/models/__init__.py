@@ -21,11 +21,10 @@ def build_model(cfg):
     periodic 2-D, helical 2-D (odd nx, the reference's committed
     1001x1000), periodic 3-D (even dims) and helical 3-D (odd nx, the
     reference's committed 151x151x150, 501x501x500 and 1001x1000x1000);
-    the clock model, periodic (even nx, every 2 <= q <= 127) or helical
-    (odd nx, the reference's committed 501x500, q = 6); and the XY model, periodic (even nx)
-    or helical (odd nx, the reference's committed 10001x10000; the shapes
-    the dense engines do not serve are refused by
-    ``engine/protocols._check_route``)."""
+    the clock model, periodic (even nx) or helical (odd nx, the
+    reference's committed 501x500), every 2 <= q <= 127; and the XY model,
+    periodic (even nx) or helical (odd nx, the reference's committed
+    10001x10000, any ny)."""
     if cfg.model == "ising2d":
         if cfg.nx % 2 == 1:
             return Ising2DHelical(nx=cfg.nx, ny=cfg.ny, kbt=cfg.kbt)

@@ -28,8 +28,10 @@ kernels where their gates take the shape (``--nx 2000 --ny 2000 --kbt
 0.91``, the reference's literal geometry, or aligned ``--nx 2048 --ny
 2048``), every other (q, shape) on the int8 kernels (``--q 5 --nx 1000
 --ny 1000``; the multisweep while the batch's planes fit its bound, else
-phase and measure launches a sweep); and, for q = 6, helical at odd
-``--nx`` (``--nx 501 --ny 500 --kbt 0.8``).
+phase and measure launches a sweep); and helical at odd ``--nx``, every
+q (``--nx 501 --ny 500 --kbt 0.8``; q = 6 on the bit-sliced packed kernel
+where its gate takes the shape, every other q and shape on the masked
+helical kernel).
 ``--model xy2d`` runs the periodic XY relaxation on even dims, Metropolis
 only or with ``--n-over-relax N`` over-relaxation sweeps after each
 Metropolis sweep while t <= ``--mcs-over-relax`` (default: every t)::
@@ -38,9 +40,10 @@ Metropolis sweep while t <= ``--mcs-over-relax`` (default: every t)::
         --model xy2d --nx 4000 --ny 4000 --kbt 0.89 --mcs 1000 \\
         --samples 16 --replicas 8 --n-over-relax 1 --output xy_or.dat
 
-Odd ``--nx`` with even ``--ny`` runs helical XY on the dense engines
+Odd ``--nx`` runs helical XY: with even ``--ny`` on the dense engines
 (f32-angle planes; ``SPINLAT_XY_DENSE_ANGLE=0`` selects component
-planes), at the reference's geometry::
+planes), with odd ``--ny`` on the masked helical kernels, at the
+reference's geometry::
 
     python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \\
         --model xy2d --nx 10001 --ny 10000 --kbt 0.89 --mcs 1000 \\
@@ -52,21 +55,27 @@ from_disorder`` (a random start rotated onto +x; ``--fix1mcs`` rotates
 after the first sweep),
 ``finite_magne`` (``--init-magne``), ``samples`` (one row a sweep and
 history; the start from ``--init-state``; also on periodic Ising 2-D and
-3-D, rows N, sample, t, m, e, and on the periodic clock, rows N, sample,
-t, m, e, m_y) and ``finite_magne_samples``::
+3-D, the helical Ising models, rows N, sample, t, m, e, and on the
+clock and helical XY, rows N, sample, t, m, e, m_y) and
+``finite_magne_samples``::
 
     python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \\
         --model xy2d --protocol from_disorder --nx 1500 --ny 1500 \\
         --kbt 0.89 --mcs 1000 --samples 64 --output xy_fd.dat
 
+Every helical 2-D shape the packed and dense engines refuse (helical Ising
+past the packed bound or at odd nx*ny, the helical clock at q != 6 or odd
+nx*ny, helical XY at odd --ny) runs on the masked helical kernels, and so
+do all of them under the JAX package's switches
+``SPINLAT_HELICAL_PACKED=0``, ``SPINLAT_CLOCK_HELICAL_PACKED=0`` and
+``SPINLAT_XY_DENSE=0``.
+
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of
 routes the port does not serve yet raise with the ROADMAP.md item that
-ports them: --mesh, --profile-dir, --backend other than auto, helical XY
-at odd --ny, the oversize helical Ising lattices, the helical clock at
-q != 6, and --protocol samples on the helical models.  --n-over-relax on
-Ising or clock raises ValueError:
-over-relaxation is defined for the XY model only.
+ports them: --mesh, --profile-dir, --backend other than auto, and helical
+3-D at 2^30 sites a colour or more.  --n-over-relax on Ising or clock
+raises ValueError: over-relaxation is defined for the XY model only.
 """
 
 from __future__ import annotations

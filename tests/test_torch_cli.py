@@ -99,15 +99,7 @@ def test_cuda_without_a_card_raises(tmp_path):
     (["--mesh", "2,2"], "queue A item 9"),
     (["--profile-dir", "p"], "profiler"),
     (["--backend", "jnp"], "backend"),
-    (["--protocol", "samples", "--model", "clock", "--nx", "255", "--ny",
-      "256"], "queue A item 4a"),
-    (["--model", "clock", "--q", "5", "--nx", "255", "--ny", "256"],
-     "queue B item 13"),
     (["--model", "ising3d", "--nx", "2049", "--ny", "1024", "--nz", "1024"],
-     "queue B item 13"),
-    (["--model", "xy2d", "--nx", "255", "--ny", "255"], "queue B item 13"),
-    (["--nx", "4097", "--ny", "2048"], "queue B item 13"),
-    (["--protocol", "samples", "--nx", "255", "--ny", "256"],
      "queue A item 4a"),
 ])
 def test_unserved_routes_raise(extra, match, tmp_path):
@@ -123,12 +115,24 @@ def test_unserved_routes_raise(extra, match, tmp_path):
     (["--protocol", "samples", "--model", "clock"],
      "phase engine (single history)"),
     (["--model", "clock", "--q", "5"], "int8 multisweep (cooperative)"),
+    (["--protocol", "samples", "--model", "clock", "--nx", "33", "--ny",
+      "32"], "phase engine (single history)"),
+    (["--model", "clock", "--q", "5", "--nx", "33", "--ny", "32"],
+     "helical_pallas multisweep (masked clock)"),
+    (["--model", "xy2d", "--nx", "33", "--ny", "31"],
+     "helical_pallas XY (masked streaming)"),
+    (["--nx", "33", "--ny", "31"], "helical_pallas multisweep (masked Ising)"),
+    (["--protocol", "samples", "--nx", "33", "--ny", "32"],
+     "phase engine (single history)"),
 ])
 def test_formerly_refused_routes_run(extra, engine, tmp_path):
     """Periodic Ising at an unpackable shape, --protocol samples on Ising
     2-D and on the clock, and the clock at q = 5, refused before the int8
-    kernels were ported, now run on the CPU through the plain versions of
-    those kernels."""
+    kernels were ported, and the helical shapes refused before the masked
+    helical kernels were ported (--protocol samples on the helical clock
+    and helical Ising, the helical clock at q = 5, helical XY and Ising at
+    odd ny), now run on the CPU through the plain versions of those
+    kernels."""
     out = tmp_path / "x.dat"
     assert main(FLAGS + extra + ["--device", "cpu", "--output",
                                  str(out)]) == 0

@@ -415,15 +415,16 @@ def test_gates_match_jax(nx, ny, q):
     ["--nx", "255", "--ny", "256", "--q", "8"],
 ])
 def test_unserved_clock_shapes_raise_b13(flags, tmp_path):
-    """The helical clock at q != 6 (odd nx) is still refused; the periodic
+    """The helical clock at q != 6 (odd nx), refused naming B13 before the
+    masked helical kernels were ported, runs on them now; the periodic
     shapes and q this test refused before the int8 clock kernels were
-    ported run now (tests/test_torch_clock_int8_runs.py
+    ported run too (tests/test_torch_clock_int8_runs.py
     test_formerly_refused_clock_shapes_run)."""
     out = tmp_path / "x.dat"
-    with pytest.raises(NotImplementedError, match="queue B item 13"):
-        main(["--model", "clock", "--mcs", "2", "--samples", "2",
-              "--device", "cpu", "--output", str(out)] + flags)
-    assert not out.exists()
+    assert main(["--model", "clock", "--mcs", "2", "--samples", "2",
+                 "--device", "cpu", "--output", str(out)] + flags) == 0
+    assert "# engine: helical_pallas multisweep (masked clock)" in \
+        out.read_text().splitlines()
 
 
 @pytest.mark.parametrize("q", [6, 4, 3])

@@ -221,14 +221,22 @@ def test_gates_match_jax():
 
 @pytest.mark.parametrize("flags", [
     ["--nx", "61", "--ny", "50", "--q", "4"],
-    ["--nx", "4097", "--ny", "4096"],
+    ["--nx", "61", "--ny", "51"],
 ])
 def test_unserved_helical_clock_raises_b13(flags, tmp_path):
+    """The helical clock the packed kernel refuses (q != 6; q = 6 at odd
+    nx*ny; past its bound, here 4097x4096, whose route is checked without
+    running it on the CPU), refused naming B13 before the masked helical
+    kernel was ported, runs on that kernel."""
     out = tmp_path / "x.dat"
-    with pytest.raises(NotImplementedError, match="queue B item 13"):
-        main(["--model", "clock", "--mcs", "2", "--samples", "2",
-              "--device", "cpu", "--output", str(out)] + flags)
-    assert not out.exists()
+    assert main(["--model", "clock", "--mcs", "2", "--samples", "2",
+                 "--device", "cpu", "--output", str(out)] + flags) == 0
+    assert "# engine: helical_pallas multisweep (masked clock)" in \
+        out.read_text().splitlines()
+    big = Clock2DHelical(4097, 4096, KBT)
+    assert not chm.fits(big)
+    assert sweep.make_helical_runner(big, 1, 1, device="cpu").engine == \
+        sweep.MASKED_CLOCK
 
 
 def test_cli_writes_the_dat(tmp_path):

@@ -911,3 +911,151 @@ def test_clock8_launches_refused(cuda):
     with pytest.raises(ValueError, match="float32"):
         c8p.metropolis_phase(a, b, color=0, q=6, beta=1.0, u_cand=u,
                              u_acc=u)
+
+
+# ---------------------------------------------------------------------------
+# the masked helical kernels (ops/helical_pallas.py)
+# ---------------------------------------------------------------------------
+
+def _hp_scaled(got, want, n):
+    return float(((got - want).abs()
+                  / want.abs().clamp(min=float(n))).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrep,ny,nx", [(3, 32, 33), (3, 31, 33),
+                                        (2, 64, 65), (1, 3, 3)])
+def test_helical_pallas_kernels_match_plain(cuda, nrep, ny, nx):
+    """The four masked kernels against their plain versions at even and
+    odd N: multisweeps with injected and Philox randomness (states
+    bitwise, Ising sums exactly, clock sums within 1e-12 of their scale),
+    the XY phase (both colours, injected and Philox, measuring and not),
+    the OR phase and the measure mode."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_pallas as hp,
+    )
+    n = ny * nx
+    m0 = hp.colour_sites(n, 0)
+    g = np.random.default_rng(n + nrep)
+    seeds = hp.multispin_rng.sweep_phase_keys(
+        rng.sample_key(rng.base_key(7), 0), 3)
+    x = torch.from_numpy((g.integers(0, 2, size=(nrep, n)) * 2 - 1)
+                         .astype(np.int8)).to(cuda)
+    bits = torch.from_numpy(g.integers(-2 ** 31, 2 ** 31, size=(3, 2, nrep,
+                                                                m0))
+                            .astype(np.int32)).to(cuda)
+    for kw in (dict(bits=bits), dict(seeds=seeds)):
+        got = hp.ising_multisweep(x.clone(), beta=1 / KBT, nx=nx, **kw)
+        want = hp.ising_multisweep_plain(x, beta=1 / KBT, nx=nx, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for q in (2, 5, 6, 127):
+        c = torch.from_numpy(g.integers(0, q, size=(nrep, n))
+                             .astype(np.int8)).to(cuda)
+        u = tuple(torch.from_numpy(
+            (g.integers(0, 2 ** 24, size=(3, 2, nrep, m0)) * 2.0 ** -24)
+            .astype(np.float32)).to(cuda) for _ in range(2))
+        for kw in (dict(u=u), dict(seeds=seeds)):
+            got = hp.clock_multisweep(c.clone(), beta=1.25, nx=nx, q=q, **kw)
+            want = hp.clock_multisweep_plain(c, beta=1.25, nx=nx, q=q, **kw)
+            assert torch.equal(got[0], want[0])
+            assert _hp_scaled(got[1], want[1], n) <= 1e-12
+    th = torch.from_numpy(g.uniform(0, 2 * np.pi, size=(nrep, n))
+                          .astype(np.float32)).to(cuda)
+    sx, sy = torch.cos(th).contiguous(), torch.sin(th).contiguous()
+    u = tuple(torch.from_numpy((g.integers(0, 2 ** 24, size=(nrep, m0))
+                                * 2.0 ** -24).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    for color in (0, 1):
+        for rand in (u, rng.seeds_from_key(rng.base_key(3), color)):
+            for measuring in (False, True):
+                kw = dict(color=color, nx=nx, beta=1 / 0.89,
+                          measuring=measuring)
+                got = hp.xy_phase(sx, sy, rand, **kw)
+                want = hp.xy_phase_plain(sx, sy, rand, **kw)
+                assert torch.equal(got[0], want[0])
+                assert torch.equal(got[1], want[1])
+                if measuring:
+                    assert _hp_scaled(got[2], want[2], 2 * n) <= 1e-12
+        got = hp.xy_or_phase(sx, sy, color=color, nx=nx)
+        want = hp.xy_or_phase_plain(sx, sy, color=color, nx=nx)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _hp_scaled(hp.xy_measure(sx, sy, nx=nx), hp.xy_sums(sx, sy, nx),
+                      2 * n) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ising", "clock", "xy", "xy_or"])
+@pytest.mark.parametrize("ny", [32, 31])
+def test_helical_pallas_runner_on_card_replays_plain_versions(
+        cuda, kind, ny, monkeypatch):
+    """The masked runner on the card against the same runner with every
+    wrapper taking its plain version on the card's tensors: Ising's
+    densities bitwise; the clock's and XY's (states bitwise, float64 sums
+    in another order) within 1e-12.  Against the CPU only Ising would
+    hold: float32 exp and rsqrt differ between the CPU and the card."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Clock2DHelical,
+        Ising2DHelical,
+        XY2DHelical,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_pallas as hp,
+    )
+    nx = 33
+    model = {"ising": Ising2DHelical(nx, ny, KBT),
+             "clock": Clock2DHelical(nx, ny, 0.8, 5)}.get(
+        kind, XY2DHelical(nx, ny, 0.89))
+    n_or = 1 if kind == "xy_or" else 0
+    key = rng.sample_key(rng.base_key(42), 0)
+
+    def run():
+        return sweep.make_masked_runner(model, 70, 2, "random", cuda,
+                                        n_over_relax=n_or)(key)
+    hp.reset_launches()
+    kernels = run()
+    assert sum(hp.LAUNCHES.values()) > 0
+    monkeypatch.setattr(hp, "_on_cpu", lambda t: True)
+    hp.reset_launches()
+    plain = run()
+    assert sum(hp.LAUNCHES.values()) == 0
+    for k in plain:
+        if kind == "ising":
+            assert torch.equal(kernels[k], plain[k])
+        else:
+            assert float((kernels[k] - plain[k]).abs().max()) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny", [32, 31])
+def test_helical_pallas_ising_runner_on_card_equals_cpu_runner(cuda, ny):
+    """The masked Ising runner on the card and on the CPU: the same integer
+    states and int64 sums, so densities bitwise (helical_pallas._per_site
+    divides on the card, where a Python-number divisor would multiply by
+    its reciprocal and move quotients by 1 ulp)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Ising2DHelical,
+    )
+    model = Ising2DHelical(33, ny, KBT)
+    key = rng.sample_key(rng.base_key(42), 0)
+    card = sweep.make_masked_runner(model, 70, 2, "random", cuda)(key)
+    cpu = sweep.make_masked_runner(model, 70, 2, "random", "cpu")(key)
+    for k in cpu:
+        assert torch.equal(card[k].cpu(), cpu[k])
+
+
+@pytest.mark.cuda
+def test_helical_pallas_launches_refused(cuda):
+    """Even nx, a q the tables do not hold, and shared output planes are
+    refused before a launch."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_pallas as hp,
+    )
+    x = torch.zeros((1, 64 * 32), dtype=torch.int8, device=cuda)
+    seeds = hp.multispin_rng.sweep_phase_keys(rng.base_key(1), 1)
+    with pytest.raises(ValueError, match="odd nx"):
+        hp.ising_multisweep(x, seeds, beta=1.0, nx=64)
+    with pytest.raises(ValueError, match="q=128"):
+        hp.clock_multisweep(x, seeds, beta=1.0, nx=33, q=128)
+    sx = torch.ones((1, 33 * 32), device=cuda)
+    with pytest.raises(ValueError, match="storage"):
+        hp.xy_or_phase(sx, sx.clone(), color=0, nx=33, out=(sx, sx))

@@ -401,7 +401,7 @@ def test_gates_routes_and_refusals():
     assert not h3.fits_stream(huge)
     cfg = RunConfig(model="ising3d", nx=2049, ny=1024, nz=1024, kbt=KBT,
                     mcs=2, tot_sample=1)
-    with pytest.raises(NotImplementedError, match="queue B item 13"):
+    with pytest.raises(NotImplementedError, match="queue A item 4a"):
         protocols._check_route(cfg, huge)
 
 

@@ -450,17 +450,18 @@ def test_over_relaxation_on_other_models_raises_value_error(tmp_path):
     """Over-relaxation is defined for the XY model only (the JAX package
     has over_relax_sweep only on its XY models, and its generic runner
     fails on the others), so Ising raises ValueError; helical XY outside
-    the dense gate still names the kernels that would serve it."""
+    the dense gate (odd ny) runs it on the masked helical kernels."""
     out = tmp_path / "x.dat"
     with pytest.raises(ValueError, match="XY model only"):
         main(["--model", "ising2d", "--nx", "256", "--ny", "256",
               "--n-over-relax", "1", "--device", "cpu", "--output",
               str(out)])
-    # helical XY outside the dense engines' gate (odd ny)
-    with pytest.raises(NotImplementedError, match="queue B item 13"):
-        main(["--model", "xy2d", "--nx", "33", "--ny", "31", "--device",
-              "cpu", "--output", str(out)])
     assert not out.exists()
+    assert main(["--model", "xy2d", "--nx", "33", "--ny", "31", "--mcs", "3",
+                 "--samples", "1", "--n-over-relax", "1", "--device", "cpu",
+                 "--output", str(out)]) == 0
+    assert "# engine: helical_pallas XY (masked streaming)" in \
+        out.read_text().splitlines()
 
 
 # ---------------------------------------------------------------------------

@@ -563,13 +563,15 @@ def test_interop_jax_planes_in_same_phase_out():
 
 
 def test_shapes_outside_the_gate_raise(tmp_path):
-    """Odd ny (outside the dense gate) raises naming A4a and B13; the
-    disorder protocols refuse odd nx with the JAX package's ValueError."""
-    out = tmp_path / "x.dat"
-    with pytest.raises(NotImplementedError,
-                       match="queue A item 4a, queue B item 13"):
-        main(["--model", "xy2d", "--nx", "65", "--ny", "63", "--device",
-              "cpu", "--output", str(out)])
+    """Odd ny (outside the dense gate), refused before the masked helical
+    kernels were ported, runs on them; the disorder protocols refuse odd
+    nx with the JAX package's ValueError."""
+    out, served = tmp_path / "x.dat", tmp_path / "odd_ny.dat"
+    assert main(["--model", "xy2d", "--nx", "65", "--ny", "63", "--mcs",
+                 "2", "--samples", "1", "--device", "cpu", "--output",
+                 str(served)]) == 0
+    assert "# engine: helical_pallas XY (masked streaming)" in \
+        served.read_text().splitlines()
     with pytest.raises(ValueError, match="periodic XY engine"):
         main(["--model", "xy2d", "--nx", "65", "--ny", "64", "--protocol",
               "finite_magne", "--device", "cpu", "--output", str(out)])

@@ -299,6 +299,7 @@ XY_FMS_1000 = (PRODUCTION
                / "xy2d_finite_magne_samples_1000x1000_mcs100_s500.dat")
 XY_OR_10001 = PRODUCTION / "xy2d_or_10001x10000_mcs10000_s500.dat"
 XY_10001 = PRODUCTION / "xy2d_10001x10000_mcs10000_s1.dat"
+XY_10000 = PRODUCTION / "xy2d_periodic_10000x10000_mcs10000_s1.dat"
 KBT_XY = 0.89                       # the 4000x4000 over-relaxation curve
 KBT_XY_2000 = 0.895                 # the 2000x2000 Metropolis curve
 KBT_CLOCK = 0.91                    # the 2000x2000 curve
@@ -1651,7 +1652,7 @@ def check_xy_disorder(xyp, xym, xyr, rng, dev) -> tuple[dict, float]:
     pobs = xyr.multisweep_planes_plain(plain, snap, seeds, beta=model.beta)
     e_str = float_err(zip(ms, streamed))
     e_plain = float_err(zip(ms, plain))
-    s_str = float((kobs / model.nsites - sobs).abs().max())
+    s_str = float((xyp.per_site(kobs, model.nsites) - sobs).abs().max())
     rel = max(rel, sums_rel_err(kobs, pobs))
     errs["multisweep"] = max(errs["multisweep"], e_str, e_plain)
     log(f"  xy multisweep 64 sweeps {ny}x{nx} x {nrep}: state vs 64 streamed "
@@ -3739,6 +3740,454 @@ def hp_shares(classes: dict, th: dict) -> dict[str, float]:
     return shares
 
 
+# ---------------------------------------------------------------------------
+# the periodic XY angle engines: f32 angles (ops/xy2d_pallas_angle.py, the
+# JAX switch SPINLAT_XY_PERIODIC_ANGLE=1) and int16 angles
+# (ops/xy2d_multisweep.py, SPINLAT_XY_ANGLE_MS=1)
+# ---------------------------------------------------------------------------
+
+# (R, ny, nx, kbt) of the angle kernels' checks: a small shape whose half
+# (100) fills no whole warp, then every class's launch: the literal
+# 10000^2 x 1, the A/B 2000^2 x 32, the OR 4000^2 x 8, the finite-magne
+# 1000^2 x 20
+XYA_SHAPES = ((2, 256, 200, KBT_XY), (1, 10000, 10000, KBT_XY_2000),
+              (32, 2000, 2000, KBT_XY_2000), (8, 4000, 4000, KBT_XY),
+              (20, 1000, 1000, KBT_XY))
+# ((R, ny, nx), S, n_or, or_only) of the int16 multisweep's checks: a small
+# shape in every mode, then the from-disorder class's launches (1000 MCS:
+# 15 launches of 64 and one of 40)
+XYI_CHECKS = (((2, 32, 48), 4, 0, False), ((2, 32, 48), 4, 1, False),
+              ((2, 32, 48), 4, 2, True), ((1, 1536, 1536), 64, 0, False),
+              ((1, 1536, 1536), 40, 0, False))
+XYI_N = 1536
+# per site of the colour updated: the snapshot mode's A, two decodes of
+# the differences (22 each), their subtracts, widenings and adds (5); its
+# bytes, both colours' snapshot angles (8 B).  The int16 multisweep, per
+# site of a colour and sweep: two Metropolis phases (OPS_XYA_METROPOLIS
+# each, the 16-bit candidate as cheap as the angle's subtract), phase b's
+# fused sums (the A terms' two decodes and the sums: 54); an OR phase
+# (one decode, the field, the A&S atan2 with its divide ~33, the rounding
+# and the reflection 3: 64) and the measure pass (a decode, the field and
+# the sums: 82)
+OPS_XYA_SNAP = 2 * 22 + 5
+XYA_SNAP_BYTES_PER_SITE = 8
+OPS_XYI_FUSED = 2 * 22 + 10
+OPS_XYI_OR = 22 + 6 + 33 + 3
+OPS_XYI_MEASURE = 22 + 6 + OPS_XYI_FUSED
+
+
+@contextlib.contextmanager
+def switch_on(name: str):
+    """One JAX switch set to 1 for the block."""
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(name, None)
+
+
+def angle_planes(dev, nrep: int, ny: int, nx: int, seed: int) -> list:
+    """Four random (R, ny, nx/2) float32 angle planes in turns."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.rand((nrep, ny, nx // 2), generator=gen, device=dev) - 0.5
+            for _ in range(4)]
+
+
+def xya_pair(xya, planes, color, kind, rand, beta, snap_mode, measuring):
+    """One angle phase through the kernel and its plain version, each on
+    its own copy of the colour updated.  Returns (state error, sums'
+    error against their scale or 0)."""
+    a, b, sa, sb = planes
+    s, o = (a, b) if color == 0 else (b, a)
+    snap = ((sa, sb) if color == 0 else (sb, sa)) if snap_mode else None
+    ks, ps = s.clone(), s.clone()
+    if kind == "metro":
+        kw = dict(color=color, beta=beta, measuring=measuring, snap=snap)
+        got = xya.metro_phase(ks, o, rand, **kw)
+        want = xya.metro_phase_plain(ps, o, rand, **kw)
+    else:
+        got = xya.or_phase(ks, o, color=color, measuring=measuring)
+        want = xya.or_phase_plain(ps, o, color=color, measuring=measuring)
+    err = float_err([(ks, ps)])
+    if not isinstance(want, tuple):
+        return err, 0.0
+    return err, scaled_err(got[1], want[1], 2 * s[0].numel())
+
+
+def check_xy_angle(xya, rng, dev) -> tuple[float, float]:
+    """angle_metro_kernel (Philox: plain, measuring and the snapshot mode;
+    injected uniforms at the small shape) and angle_or_kernel (plain and
+    measuring) against their plain versions on the same CUDA tensors, both
+    colours, at XYA_SHAPES: the state bitwise, the float64 sums within
+    1e-12 of their scale.  Returns (state error, sums' error)."""
+    t0 = time.perf_counter()
+    err = rel = 0.0
+    for nrep, ny, nx, kbt in XYA_SHAPES:
+        planes = angle_planes(dev, nrep, ny, nx, nx + ny + nrep)
+        g = np.random.default_rng(ny)
+        u = tuple(torch.from_numpy(g.random((nrep, ny, nx // 2),
+                                            dtype=np.float32)).to(dev)
+                  for _ in range(2))
+        for color in (0, 1):
+            seeds = rng.seeds_from_key(rng.base_key(40 + ny), color)
+            runs = [("metro", seeds, False, False),
+                    ("metro", seeds, False, True),
+                    ("metro", seeds, True, False),
+                    ("or", None, False, False), ("or", None, False, True)]
+            if nrep * ny * nx < 1e6:
+                runs += [("metro", u, False, True), ("metro", u, True, False)]
+            for kind, rand, snap_mode, measuring in runs:
+                e, r = xya_pair(xya, planes, color, kind, rand, 1.0 / kbt,
+                                snap_mode, measuring)
+                err, rel = max(err, e), max(rel, r)
+        del planes, u
+    log(f"  xy angle kernels at {[s[:3] for s in XYA_SHAPES]}: state vs "
+        f"plain {err}, sums {rel:.3g} of their scale "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if err != 0.0 or rel > 1e-12:
+        fail(f"an XY angle kernel differs from its plain version: state "
+             f"{err}, sums {rel:.3g}")
+    return err, rel
+
+
+def int16_planes(dev, shape, seed: int) -> list:
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy(g.integers(-2 ** 15, 2 ** 15, size=shape)
+                             .astype(np.int16)).to(dev) for _ in range(4)]
+
+
+def check_xy_int16(xyi, rng, dev) -> tuple[float, float]:
+    """The int16 multisweep against its plain version on the same CUDA
+    tensors at XYI_CHECKS (Philox words): the int16 state bitwise, the
+    sums within 1e-12 of their scale.  Returns (state error, sums'
+    error)."""
+    t0 = time.perf_counter()
+    err = rel = 0.0
+    for shape, sweeps, n_or, or_only in XYI_CHECKS:
+        nrep, ny, nx = shape
+        pa, pb, sa, sb = int16_planes(dev, (nrep, ny, nx // 2), ny + n_or)
+        seeds = multispin_keys(rng, sweeps, 50 + sweeps)
+        kw = dict(beta=1.0 / KBT_XY, n_or=n_or, or_only=or_only)
+        ka, kb, qa, qb = pa.clone(), pb.clone(), pa.clone(), pb.clone()
+        got = xyi.multisweep_planes(ka, kb, sa, sb, seeds, **kw)
+        want = xyi.multisweep_plain(qa, qb, sa, sb, seeds, **kw)
+        err = max(err, max_abs_err([(ka, qa), (kb, qb)]))
+        rel = max(rel, scaled_err(got, want, ny * nx))
+    log(f"  xy int16 multisweep at {XYI_CHECKS}: state vs plain {err}, "
+        f"sums {rel:.3g} of their scale ({time.perf_counter() - t0:.1f} s)")
+    if err != 0 or rel > 1e-12:
+        fail(f"the int16 XY multisweep differs from its plain version: "
+             f"state {err}, sums {rel:.3g}")
+    return float(err), rel
+
+
+def extended_var(ref: np.ndarray, mcs: int) -> np.ndarray:
+    """The 2000x2000 curve's rows with their N·Var(m), N·Var(e) columns
+    (7, 8) carried past its last t (100) to ``mcs`` by a power law in t
+    fitted on t in [50, 100] of the same columns (N·Var grows with the
+    correlation length); only those columns and t are used."""
+    last = int(ref[-1, 2])
+    ts = np.arange(last + 1, mcs + 1, dtype=np.float64)
+    fit = ref[ref[:, 2] >= 50]
+    extra = np.repeat(ref[-1:], len(ts), axis=0)
+    extra[:, 2] = ts
+    for col in (7, 8):
+        slope, icpt = np.polyfit(np.log(fit[:, 2]), np.log(fit[:, col]), 1)
+        extra[:, col] = np.exp(icpt + slope * np.log(ts))
+        log(f"  N·Var column {col} carried past t = {last} as t^{slope:.3f}: "
+            f"{extra[-1, col]:.4g} at t = {mcs} ({ref[-1, col]:.4g} at "
+            f"t = {last})")
+    return np.concatenate([ref, extra])
+
+
+# (name, mean column, variance column or function) of the from-disorder
+# table (N, Nsample, t, <|m|>, <e>, <m^2>, <e^2>, <|m|e>, ..., <A>, <A^2>,
+# <mx>, <my>, <mx^2>, <my^2>, <mx*my>)
+def m2_var(r: np.ndarray) -> float:
+    """Var(m^2) of one sample, m = (mx, my) taken Gaussian (a sum of many
+    independent blocks while xi << L) with the row's means and second
+    moments: Var(mx^2) + Var(my^2) + 2 Cov(mx^2, my^2)."""
+    mx, my = r[11], r[12]
+    vx, vy = r[13] - mx ** 2, r[14] - my ** 2
+    c = r[15] - mx * my
+    return (2 * vx ** 2 + 4 * mx ** 2 * vx + 2 * vy ** 2 + 4 * my ** 2 * vy
+            + 2 * (2 * c ** 2 + 4 * mx * my * c))
+
+
+def check_size_free(table: np.ndarray, ref: np.ndarray, nsites: int,
+                    samples: int, mcs: int, label: str) -> float:
+    """A from-disorder table of one geometry against the reference curve
+    of another at every t <= mcs on the size-free moments while xi << L:
+    <e>, <A> and N·<m^2>, within SIGMAS of the combined sigma^2 = var_ref
+    (N_ref / N / n + 1 / n_ref) (N_ref^2 for N·<m^2>), the variance a
+    sample from the reference's own columns (Var(m^2) by m2_var).
+    Returns the largest |z|."""
+    ts = np.arange(1, mcs + 1)
+    if (table.shape[0] != mcs or table.shape[1] != ref.shape[1]
+            or not np.all(np.isfinite(table))):
+        fail(f"{label}: table shape {table.shape} or non-finite")
+    if not np.all(table[:, 1] == samples) or not np.all(table[:, 2] == ts):
+        fail(f"{label}: Nsample or t column is wrong")
+    n_ref, nsites_ref = ref[0, 1], ref[0, 0]
+    worst = 0.0
+    for t in ts:
+        row, r = row_at(table, t), row_at(ref, t)
+        for name, got, want, var in (
+                ("e", row[4], r[4], (r[6] - r[4] ** 2)
+                 * (nsites_ref / nsites / samples + 1 / n_ref)),
+                ("A", row[9], r[9], (r[10] - r[9] ** 2)
+                 * (nsites_ref / nsites / samples + 1 / n_ref)),
+                ("N m^2", nsites * row[5], nsites_ref * r[5],
+                 nsites_ref ** 2 * m2_var(r)
+                 * (1 / samples + 1 / n_ref))):
+            z = (got - want) / math.sqrt(var)
+            if t in (1, 2, 10, 100, 1000):
+                log(f"  {label} t={t:5d} <{name}> port {got:.9g} reference "
+                    f"{want:.9g} sigma {math.sqrt(var):.3e} z {z:+.2f}")
+            worst = max(worst, abs(z))
+            if abs(z) > SIGMAS:
+                fail(f"{label}: <{name}>({t}) is {z:+.2f} sigma from the "
+                     "reference")
+    log(f"  {label}: largest |z| {worst:.2f} over {mcs} times")
+    return worst
+
+
+def xy_angle_launches(label, launches, want_angle, want_int16=0) -> None:
+    """A class of the angle engines: its angle and int16 launches as
+    counted, and none of the component engines'."""
+    got = launches["xy_angle"]
+    if {k: got[k] for k in want_angle} != want_angle:
+        fail(f"xy {label} launched {got}, want {want_angle}")
+    if launches["xy_int16"]["multisweep"] != want_int16:
+        fail(f"xy {label} launched {launches['xy_int16']}, want "
+             f"{want_int16} int16 launches")
+    for other in ("xy", "xy_resident", "xy_measure"):
+        if any(launches[other].values()):
+            fail(f"xy {label} launched {other}: {launches[other]}")
+
+
+def run_xya_classes(main_fn, modules, out_dir, ref_xy, ref_xy10k, ref_xy_or,
+                    ref_fm, ref_fd) -> dict:
+    """The angle engines' classes through the CLI: under
+    SPINLAT_XY_PERIODIC_ANGLE=1 the literal 10000x10000 x 1 Metropolis
+    relaxation (4 samples, 200 MCS, kbt 0.895; against the 2000x2000
+    curve at t <= 100 and the one-sample 10000x10000 curve at t <= 200),
+    the A/B 2000x2000 x 32 (64 samples, 100 MCS), over-relaxation at
+    4000x4000 x 8 (16 samples, 200 MCS, n_or 1) and finite-magne at
+    1000x1000 x 20 (40 samples, 100 MCS, m0 0.02); under
+    SPINLAT_XY_ANGLE_MS=1 from-disorder at 1536x1536 x 1 (32 samples,
+    1000 MCS) on the size-free moments of the 1500x1500 curve.  Returns
+    {label: (launches, wall, rate, largest |z|)}."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.engine import sweep
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+
+    out = {}
+    with switch_on("SPINLAT_XY_PERIODIC_ANGLE"):
+        n = 10000
+        log(f"phase 4l: XY angle path, literal {n}x{n} x 1, 4 samples, "
+            "200 MCS")
+        argv = ["--model", "xy2d", "--nx", str(n), "--ny", str(n), "--kbt",
+                repr(KBT_XY_2000), "--mcs", "200", "--samples", "4",
+                "--replicas", "1"]
+        launches, wall, rate, table, head = run_main_path(
+            main_fn, modules, out_dir, "xy2d_angle_10000", argv, n * n, 4,
+            200)
+        if f"# engine: {sweep.XY_ANGLE_ENGINE}" not in head:
+            fail(f"literal angle class took another route: {head}")
+        z = max(check_against_reference(
+            table[:100], ref_xy, n * n, 4, 100, range(1, 101),
+            ref_nsites=int(ref_xy[0, 0]), ref_samples=int(ref_xy[0, 1])),
+            check_one_sample_curve(table, ref_xy10k,
+                                   extended_var(ref_xy, 200), n * n, 4,
+                                   200))
+        xy_angle_launches("literal", launches,
+                          {"metro": 1600, "metro_measuring": 800,
+                           "metro_snapshot": 0, "or": 0})
+        out["literal 10000^2 x 1"] = (launches, wall, rate, z)
+        log("phase 4l: XY angle path, A/B 2000x2000 x 32, 64 samples, "
+            "100 MCS")
+        res = run_xy(main_fn, modules, out_dir, 2000, KBT_XY_2000, 32, 64,
+                     100, 0, ref_xy, sweep.XY_ANGLE_ENGINE)
+        xy_angle_launches("A/B", res[0], {"metro": 400,
+                                          "metro_measuring": 200, "or": 0})
+        out["Metropolis 2000^2 x 32"] = res
+        log("phase 4l: XY angle path, OR 4000x4000 x 8, 16 samples, 200 "
+            "MCS, n_over_relax 1")
+        res = run_xy(main_fn, modules, out_dir, 4000, KBT_XY, 8, 16, 200, 1,
+                     ref_xy_or, sweep.XY_ANGLE_ENGINE)
+        xy_angle_launches("OR", res[0], {"metro": 800, "metro_measuring": 0,
+                                         "or": 800, "or_measuring": 400})
+        out["OR 4000^2 x 8"] = res
+        log("phase 4l: XY angle path, finite-magne 1000x1000 x 20, 40 "
+            "samples, 100 MCS")
+        argv = ["--model", "xy2d", "--protocol", "finite_magne", "--nx",
+                "1000", "--ny", "1000", "--kbt", repr(KBT_XY), "--mcs",
+                "100", "--samples", "40", "--replicas", "20",
+                "--init-magne", "0.02"]
+        res = run_xy_disorder(main_fn, modules, out_dir,
+                              "xy2d_angle_finite-magne", argv, 1000, 40, 100,
+                              ref_fm, PARAM_MOMENTS, sweep.XY_DISORDER_ANGLE)
+        xy_angle_launches("finite-magne", res[0],
+                          {"metro": 400, "metro_snapshot": 200,
+                           "metro_measuring": 0, "or": 0})
+        out["finite-magne 1000^2 x 20"] = res
+    with switch_on("SPINLAT_XY_ANGLE_MS"):
+        for nx, want in ((1500, sweep.XY_DISORDER_STREAMED),
+                         (XYI_N, sweep.XY_DISORDER_INT16)):
+            got = sweep.xy_disorder_route(XY2D(nx=nx, ny=nx, kbt=KBT_XY), 1,
+                                          "rotate_first", 1000)
+            if got != want:
+                fail(f"SPINLAT_XY_ANGLE_MS=1 routes {nx}^2 x 1 to {got}, "
+                     f"want {want} (JAX's gate)")
+        n = XYI_N
+        log(f"phase 4l: XY int16 path, from-disorder {n}x{n} x 1, 32 "
+            "samples, 1000 MCS")
+        argv = ["--model", "xy2d", "--protocol", "from_disorder", "--nx",
+                str(n), "--ny", str(n), "--kbt", repr(KBT_XY), "--mcs",
+                "1000", "--samples", "32", "--replicas", "1"]
+        launches, wall, rate, table, head = run_main_path(
+            main_fn, modules, out_dir, "xy2d_int16_from-disorder", argv,
+            n * n, 32, 1000)
+        if f"# engine: {sweep.XY_DISORDER_INT16}" not in head:
+            fail(f"int16 class took another route: {head}")
+        z = check_size_free(table, ref_fd, n * n, 32, 1000, "int16 1536^2")
+        xy_angle_launches("int16", launches, {"metro": 0}, 32 * 16)
+        out["int16 from-disorder 1536^2 x 1"] = (launches, wall, rate, z)
+    return out
+
+
+def time_xy_angle(label: str, kernel, plain, planes, nbytes: float,
+                  ops: float, reps: int = 20) -> tuple[dict, float]:
+    """CUDA-event time of an angle phase wrapper (on a copy of its
+    ``planes[0]``, updated launch after launch) and of its plain version,
+    beside the bound; then one call of each on fresh copies, whose states
+    must agree and whose sums (if any) within 1e-12 of their scale.
+    Returns (times, error)."""
+    s, rest = planes[0], planes[1:]
+    k, q = s.clone(), s.clone()
+    ms = cuda_time_ms(lambda: kernel(k, *rest), reps=reps)
+    plain_ms = cuda_time_ms(lambda: plain(q, *rest), reps=1, warmup=1)
+    k, q = s.clone(), s.clone()
+    got, want = kernel(k, *rest), plain(q, *rest)
+    err = float_err([(k, q)])
+    if isinstance(want, tuple):
+        err = max(err, scaled_err(got[1], want[1], 2 * s[0].numel()))
+    bound, by = bound_ms(nbytes, ops)
+    log(f"  {label}: {ms:.4f} ms/launch ({s.numel() / ms * 1e3:.4g} site "
+        f"updates/s), plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); "
+        f"vs plain {err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}, err
+
+
+def time_xya_kernels(xya, xyi, rng, dev) -> dict:
+    """The angle kernels at their classes' launches, each held against its
+    plain version (Philox): angle_metro_kernel plain and measuring at
+    10000^2 x 1 and 2000^2 x 32, plain at 4000^2 x 8 and 1000^2 x 20, the
+    snapshot mode at 1000^2 x 20; angle_or_kernel plain and measuring at
+    4000^2 x 8; the int16 multisweep at 1536^2 x 1 with S = 64 and 40.
+    Returns {label: (times, err)}."""
+    out = {}
+    keys = multispin_keys(rng, 64, 61)
+    for nrep, ny, nx, kbt in XYA_SHAPES[1:]:
+        a, b, sa, sb = angle_planes(dev, nrep, ny, nx, 70 + nrep)
+        sites = nrep * ny * nx // 2
+        tag = f"{ny}^2 x {nrep}"
+        beta = 1.0 / kbt
+        plain_kw = dict(color=0, beta=beta)
+        out[f"metro {tag}"] = time_xy_angle(
+            f"xy angle_metro_kernel {tag}",
+            lambda s, o: xya.metro_phase(s, o, keys[0, 0], **plain_kw),
+            lambda s, o: xya.metro_phase_plain(s, o, keys[0, 0], **plain_kw),
+            (a, b), XYA_BYTES_PER_SITE * sites, sites * OPS_XYA_METROPOLIS)
+        if ny in (10000, 2000):
+            kw = dict(color=1, beta=beta, measuring=True)
+            out[f"metro measuring {tag}"] = time_xy_angle(
+                f"xy angle_metro_kernel {tag}, measuring",
+                lambda s, o: xya.metro_phase(s, o, keys[0, 1], **kw),
+                lambda s, o: xya.metro_phase_plain(s, o, keys[0, 1], **kw),
+                (b, a), XYA_BYTES_PER_SITE * sites + nrep * 24,
+                sites * (OPS_XYA_METROPOLIS + OPS_XY_MEASURE))
+        if ny == 4000:
+            for label, measuring, color in (("or", False, 0),
+                                            ("or measuring", True, 1)):
+                kw = dict(color=color, measuring=measuring)
+                pl = (a, b) if color == 0 else (b, a)
+                out[f"{label} {tag}"] = time_xy_angle(
+                    f"xy angle_or_kernel {tag}"
+                    + (", measuring" if measuring else ""),
+                    lambda s, o, kw=kw: xya.or_phase(s, o, **kw),
+                    lambda s, o, kw=kw: xya.or_phase_plain(s, o, **kw), pl,
+                    XYA_BYTES_PER_SITE * sites + nrep * 24 * measuring,
+                    sites * (OPS_XYA_OVER_RELAX
+                             + OPS_XY_MEASURE * measuring))
+        if ny == 1000:
+            kw = dict(color=1, beta=beta, snap=(sb, sa))
+            out[f"snapshot {tag}"] = time_xy_angle(
+                f"xy angle_metro_kernel {tag}, snapshot mode",
+                lambda s, o: xya.metro_phase(s, o, keys[0, 1], **kw),
+                lambda s, o: xya.metro_phase_plain(s, o, keys[0, 1], **kw),
+                (b, a), (XYA_BYTES_PER_SITE + XYA_SNAP_BYTES_PER_SITE)
+                * sites + nrep * 32,
+                sites * (OPS_XYA_METROPOLIS + OPS_XY_MEASURE + OPS_XYA_SNAP))
+        del a, b, sa, sb
+    n = XYI_N
+    sites = n * n // 2
+    for sweeps in (64, 40):
+        pa, pb, sa, sb = int16_planes(dev, (1, n, n // 2), sweeps)
+        seeds = keys[:sweeps]
+        kw = dict(beta=1.0 / KBT_XY)
+        k = [pa.clone(), pb.clone()]
+        ms = cuda_time_ms(lambda: xyi.multisweep_planes(*k, sa, sb, seeds,
+                                                        **kw), reps=5)
+        q = [pa.clone(), pb.clone()]
+        plain_ms = cuda_time_ms(lambda: xyi.multisweep_plain(
+            *q, sa, sb, seeds, **kw), reps=1, warmup=0)
+        k, q = [pa.clone(), pb.clone()], [pa.clone(), pb.clone()]
+        got = xyi.multisweep_planes(*k, sa, sb, seeds, **kw)
+        want = xyi.multisweep_plain(*q, sa, sb, seeds, **kw)
+        err = max(float(max_abs_err(zip(k, q))),
+                  scaled_err(got, want, n * n))
+        bound, by = bound_ms(8 * 2 * sites + sweeps * 4 * 8,
+                             sweeps * sites * (2 * OPS_XYA_METROPOLIS
+                                               + OPS_XYI_FUSED))
+        log(f"  xy int16 multisweep_kernel {n}^2 x 1, S={sweeps}: "
+            f"{ms:.4f} ms/launch ({ms / sweeps * 1e3:.2f} us a sweep), "
+            f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); vs "
+            f"plain {err:.3g}")
+        out[f"int16 S={sweeps}"] = ({"ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": bound, "bound_by": by},
+                                    err)
+        del pa, pb, sa, sb
+    return out
+
+
+def xya_shares(classes: dict, ta: dict) -> dict[str, float]:
+    """Each angle class's kernel time (its launches times the launch times
+    at its shape) over its wall."""
+    def ms(key):
+        return ta[key][0]["ms"]
+    kern = {
+        "literal 10000^2 x 1": 800 * (ms("metro 10000^2 x 1")
+                                      + ms("metro measuring 10000^2 x 1")),
+        "Metropolis 2000^2 x 32": 200 * (ms("metro 2000^2 x 32")
+                                         + ms("metro measuring 2000^2 x 32")),
+        "OR 4000^2 x 8": 400 * (2 * ms("metro 4000^2 x 8")
+                                + ms("or 4000^2 x 8")
+                                + ms("or measuring 4000^2 x 8")),
+        "finite-magne 1000^2 x 20": 200 * (ms("metro 1000^2 x 20")
+                                           + ms("snapshot 1000^2 x 20")),
+        "int16 from-disorder 1536^2 x 1": 32 * (15 * ms("int16 S=64")
+                                                 + ms("int16 S=40")),
+    }
+    shares = {}
+    for label, (_, wall, _, _) in classes.items():
+        shares[label] = kern[label] / (wall * 1e3)
+        log(f"  xy angle {label}: kernel {kern[label] / 1e3:.3f} s of a "
+            f"{wall:.3f} s wall; kernel share {shares[label]:.3f}")
+    return shares
+
+
 def read_dat(path: Path, max_t: int | None = None) -> np.ndarray:
     """A .dat table's rows; with ``max_t`` only those up to t = max_t
     (the clock curves run to 10^5 sweeps)."""
@@ -3931,6 +4380,12 @@ def main() -> int:
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         xy2d_resident as xyr,
     )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_pallas_angle as xya,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_multisweep as xyi,
+    )
     from cuda_fortran_mc_simulation_spin_tpu_torch.engine.sweep import (
         XY_HELICAL_ANGLE,
         XY_HELICAL_COMPONENT,
@@ -3952,7 +4407,8 @@ def main() -> int:
                "ising2d_int8": i2p, "ising3d_int8": i3p,
                "ising_int8_measure": i8m, "ising2d_int8_multisweep": i8ms,
                "clock8": c8p, "clock8_measure": c8m,
-               "clock8_multisweep": c8ms, "helical_pallas": hp}
+               "clock8_multisweep": c8ms, "helical_pallas": hp,
+               "xy_angle": xya, "xy_int16": xyi}
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"device {torch.cuda.get_device_name(0)} | {smi} | torch "
@@ -3961,7 +4417,8 @@ def main() -> int:
                  REFERENCE_H3_501, REFERENCE_H3_1001, RACY_H3_1001,
                  CLOCK_2000, CLOCK_2048, CLOCK_501, XY_OR_4000, XY_2000,
                  XY_FD_1500, XY_FIX1_1500, XY_FM_1000, XY_FMS_1000,
-                 XY_OR_10001, XY_10001, CLOCK_1000, CLOCK_501_MASKED):
+                 XY_OR_10001, XY_10001, CLOCK_1000, CLOCK_501_MASKED,
+                 XY_10000):
         if not path.exists():
             fail(f"reference curve {path} is missing")
     ref = read_dat(REFERENCE_DAT)
@@ -3983,6 +4440,7 @@ def main() -> int:
     ref_fms = read_dat(XY_FMS_1000)
     ref_xyh_or = read_dat(XY_OR_10001, max_t=1000)
     ref_xyh_1 = read_dat(XY_10001, max_t=100)
+    ref_xy10k = read_dat(XY_10000, max_t=200)
 
     # 1. build from scratch
     log("phase 1: build csrc/*.cu with nvcc")
@@ -4003,7 +4461,8 @@ def main() -> int:
         f"{i8ms.grid_blocks()}, int8 clock {c8ms.grid_blocks()}, masked "
         f"helical Ising {hp.grid_blocks(0, False)} (odd N "
         f"{hp.grid_blocks(0, True)}), clock {hp.grid_blocks(1, False)} (odd N "
-        f"{hp.grid_blocks(1, True)}) blocks resident")
+        f"{hp.grid_blocks(1, True)}), XY int16 {xyi.grid_blocks()} blocks "
+        "resident")
 
     # 2. kernels against their plain versions
     log("phase 2: kernels vs plain versions (bitwise)")
@@ -4024,6 +4483,8 @@ def main() -> int:
     errs8 = check_int8(i2p, i3p, i8m, i8ms, rng, dev)
     errs_c8 = check_clock8(c8p, c8m, c8ms, rng, dev)
     errs_hp = check_helical_pallas(hp, rng, dev)
+    err_xya, rel_xya = check_xy_angle(xya, rng, dev)
+    err_xyi, rel_xyi = check_xy_int16(xyi, rng, dev)
 
     log("phase 2b: first sweep from all-up against its exact expectation")
     check_first_sweep(msb, rng, dev, ref[0], iters=100)
@@ -4271,6 +4732,15 @@ def main() -> int:
         # 4j. every helical 2-D shape on the masked helical kernels
         hpc = run_hp_classes(cli_main, modules, out, ref, ref_c501, ref_c501m,
                              ref_xyh_or, ref_xy, dev)
+        # 4l. the periodic XY angle engines under the JAX switches
+        xya_cls = run_xya_classes(cli_main, modules, out, ref_xy, ref_xy10k,
+                                  ref_xy_or, ref_fm, ref_fd)
+    # with neither switch set the XY classes kept their engines
+    for p in (xo_launch, xm_launch, *(d[0] for d in disorder.values()),
+              *(h[0] for h in helical.values())):
+        if any(p["xy_angle"].values()) or p["xy_int16"]["multisweep"]:
+            fail(f"an XY class without a switch launched an angle kernel: "
+                 f"{p['xy_angle']}, {p['xy_int16']}")
     paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch,
              h1_launch, h5_launch, ha_launch, cp_launch, ca_launch,
              ch_launch, xo_launch, xm_launch,
@@ -4278,7 +4748,8 @@ def main() -> int:
              *(h[0] for h in helical.values()),
              *(c[0] for c in int8.values()),
              *(c[0] for c in clock8.values()),
-             *(c[0] for c in hpc.values()))
+             *(c[0] for c in hpc.values()),
+             *(c[0] for c in xya_cls.values()))
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -4396,19 +4867,28 @@ def main() -> int:
         reps=20, plain_reps=1,
         view=lambda out: (hms._u32(out[0]) & vm5, out[1]))
     del fa, fb
-    # the resident class's launch: 128 x 151x151x150, S = 64
+    # the resident class's launch shape, 128 x 151x151x150: the kernel
+    # alone at its S = 64, then kernel and plain version at S = 8 (the
+    # plain version takes ~0.4 s a sweep there; the row's times are S = 8)
     g1 = dict(nx=151, nxy=151 * 151, m=151 * 151 * 150 // 2)
     w1 = hms.words(g1["m"])
     ma, mb = random_words((128, w1), 19, dev, n=2)
     vm1 = hms.valid_mask(g1["m"], dev)
-    t8, e8 = time_kernel(
-        f"helical3d multisweep kernel 151x151x150 x 128, S={sweeps}",
-        128 * 2 * g1["m"] * sweeps,
+    ms_h3_64 = cuda_time_ms(
         lambda: h3.multisweep_planes(ma, mb, seeds, beta=beta_h, **g1),
-        lambda: h3.multisweep_plain(ma, mb, seeds, beta=beta_h, **g1),
-        4 * 4 * 128 * w1 + 2 * 8 * 128 * sweeps,
+        reps=3)
+    log(f"  helical3d multisweep kernel 151x151x150 x 128, S={sweeps}: "
+        f"{ms_h3_64:.4f} ms/launch")
+    s8 = 8
+    t8, e8 = time_kernel(
+        f"helical3d multisweep kernel 151x151x150 x 128, S={s8}",
+        128 * 2 * g1["m"] * s8,
+        lambda: h3.multisweep_planes(ma, mb, seeds[:s8], beta=beta_h, **g1),
+        lambda: h3.multisweep_plain(ma, mb, seeds[:s8], beta=beta_h, **g1),
+        4 * 4 * 128 * w1 + 2 * 8 * 128 * s8,
         sweep_ops(lambda meas: helical3d_phase_ops_per_word(
-            msb, ms3, beta_h, meas), 128 * w1), reps=3, plain_reps=1,
+            msb, ms3, beta_h, meas), 128 * w1) * s8 / sweeps, reps=5,
+        plain_reps=1,
         view=lambda out: (hms._u32(out[0]) & vm1, hms._u32(out[1]) & vm1,
                           out[2]))
     del ma, mb
@@ -4718,6 +5198,24 @@ def main() -> int:
              f"main-path launch shape ({eh})")
     hp_share = hp_shares(hpc, th)
 
+    # the periodic XY angle engines' kernels at their classes' launches,
+    # each class's kernel share of its wall, and the A/B of the two engines
+    ta = time_xya_kernels(xya, xyi, rng, dev)
+    ea = {k: v[1] for k, v in ta.items()}
+    if max(ea.values()) > 1e-12 or max(
+            v for k, v in ea.items() if not k.startswith("int16")
+            and "measuring" not in k and "snapshot" not in k) != 0.0:
+        fail(f"an XY angle kernel differs from its plain version at its "
+             f"main-path launch shape ({ea})")
+    xya_share = xya_shares(xya_cls, ta)
+    ab_rate = xya_cls["Metropolis 2000^2 x 32"][2]
+    log(f"  xy periodic A/B, Metropolis 2000^2 x 32: angle {ab_rate:.4g}, "
+        f"component {xm_rate:.4g} flip attempts/s end to end, angle / "
+        f"component {ab_rate / xm_rate:.3f}; kernels a sweep angle "
+        f"{ta['metro 2000^2 x 32'][0]['ms'] + ta['metro measuring 2000^2 x 32'][0]['ms']:.4f} ms, "
+        f"component {t_x2['ms'] + t_x2m['ms']:.4f} ms; OR 4000^2 x 8: angle "
+        f"{xya_cls['OR 4000^2 x 8'][2]:.4g}, component {xo_rate:.4g}")
+
     src = "cuda_fortran_mc_simulation_spin_tpu_torch/csrc/"
     ref_py = "cuda_fortran_mc_simulation_spin_tpu/ops/"
     rows = [
@@ -4826,6 +5324,23 @@ def main() -> int:
         ("helical_pallas.xy_or_kernel", "helical_pallas.cu",
          "helical_pallas.py:579", launched("helical_pallas", "xy_or"),
          max(errs_hp["xy_or"], eh["xy or"]), th["xy or"][0]),
+        ("xy2d_pallas_angle.angle_metro_kernel", "xy2d_pallas_angle.cu",
+         "xy2d_pallas_angle.py:267", launched("xy_angle", "metro"),
+         max(err_xya, ea["metro 10000^2 x 1"], ea["metro 2000^2 x 32"]),
+         ta["metro 10000^2 x 1"][0]),
+        ("xy2d_pallas_angle.angle_metro_kernel (snapshot mode)",
+         "xy2d_pallas_angle.cu", "xy2d_pallas_angle.py:405",
+         launched("xy_angle", "metro_snapshot"),
+         max(err_xya, rel_xya, ea["snapshot 1000^2 x 20"]),
+         ta["snapshot 1000^2 x 20"][0]),
+        ("xy2d_pallas_angle.angle_or_kernel", "xy2d_pallas_angle.cu",
+         "xy2d_pallas_angle.py:300", launched("xy_angle", "or"),
+         max(err_xya, ea["or 4000^2 x 8"], ea["or measuring 4000^2 x 8"]),
+         ta["or 4000^2 x 8"][0]),
+        ("xy2d_multisweep.multisweep_kernel", "xy2d_multisweep.cu",
+         "xy2d_multisweep.py:325", launched("xy_int16", "multisweep"),
+         max(err_xyi, rel_xyi, ea["int16 S=64"], ea["int16 S=40"]),
+         ta["int16 S=64"][0]),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -4907,6 +5422,14 @@ def main() -> int:
         f"{z:.2f}, kernel share {hp_share[label]:.3f})"
         for label, (_, wall, rate, z) in hpc.items())
         + f"; sums' relative error {errs_hp['sums_rel']:.3g}")
+    log("main path XY angle engines: " + "; ".join(
+        f"{label} {rate:.4g} flip attempts/s"
+        + (f", {2 * rate:.4g} site updates/s with the OR sweeps"
+           if label.startswith("OR") else "")
+        + f" ({wall:.2f} s, largest |z| {z:.2f}, kernel share "
+        f"{xya_share[label]:.3f})"
+        for label, (_, wall, rate, z) in xya_cls.items())
+        + f"; sums' relative error {max(rel_xya, rel_xyi):.3g}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,18 @@ x 2000 float32 sites): metropolis_kernel and over_relax_kernel, each
 without and with the fused float64 sums, on a random state; with
 ``--helical``, the four dense helical XY kernels at the helical classes'
 launch, 10001x10000 x 1 (component and angle planes, Metropolis and OR,
-colour a plain and colour b measuring).
+colour a plain and colour b measuring); with ``--periodic-angle``, the
+periodic engines' A/B: the component kernels (metropolis_kernel,
+over_relax_kernel) and the f32-angle ones (angle_metro_kernel,
+angle_or_kernel), colour a plain and colour b measuring, at the
+Metropolis classes' launches 2000x2000 x 32 and 10000x10000 x 1.
 
     python3 chip_time_xy.py [--reps 200] [--rounds 3] [--helical]
+                            [--periodic-angle]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
-csrc/xy2d_pallas.cu (csrc/xy2d_helical_dense*.cu) on first use.  It uses only the phase wrappers'
+csrc/xy2d_pallas.cu (csrc/xy2d_helical_dense*.cu,
+csrc/xy2d_pallas_angle.cu) on first use.  It uses only the phase wrappers'
 public API, so to compare two commits copy it into both checkouts and run
 it from each in turns on one card (A, B, B, A).  Prints the card's
 nvidia-smi name and power limit, the ptxas register report of the build,
@@ -61,12 +67,57 @@ def helical_modes(dev, gen, key, beta):
     }
 
 
+# the periodic A/B's launches (R, ny, nx)
+ANGLE_SHAPES = ((32, 2000, 2000), (1, 10000, 10000))
+
+
+def periodic_angle_modes(dev, gen, key, beta):
+    """Both periodic engines' four modes at each of ANGLE_SHAPES, on one
+    random state a shape (the angle planes and their decoded components)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        trig,
+        xy2d_pallas as xyp,
+        xy2d_pallas_angle as xya,
+    )
+    modes = {}
+    for nrep, ny, nx in ANGLE_SHAPES:
+        a, b = (torch.rand((nrep, ny, nx // 2), generator=gen, device=dev)
+                - 0.5 for _ in range(2))
+        ax, ay, bx, by = (c for p in (a, b) for c in trig.cos_sin_2pi(p))
+        tag = f"{ny}x{nx}x{nrep}"
+        modes.update({
+            f"component_metropolis {tag}": lambda ax=ax, ay=ay, bx=bx,
+            by=by: xyp.metropolis_phase(ax, ay, bx, by, key, color=0,
+                                        beta=beta),
+            f"component_metropolis_measuring {tag}": lambda ax=ax, ay=ay,
+            bx=bx, by=by: xyp.metropolis_phase(bx, by, ax, ay, key,
+                                               color=1, beta=beta,
+                                               measuring=True),
+            f"component_or {tag}": lambda ax=ax, ay=ay, bx=bx, by=by:
+            xyp.over_relax_phase(ax, ay, bx, by, color=0),
+            f"component_or_measuring {tag}": lambda ax=ax, ay=ay, bx=bx,
+            by=by: xyp.over_relax_phase(bx, by, ax, ay, color=1,
+                                        measuring=True),
+            f"angle_metropolis {tag}": lambda a=a, b=b: xya.metro_phase(
+                a, b, key, color=0, beta=beta),
+            f"angle_metropolis_measuring {tag}": lambda a=a, b=b:
+            xya.metro_phase(b, a, key, color=1, beta=beta, measuring=True),
+            f"angle_or {tag}": lambda a=a, b=b: xya.or_phase(a, b, color=0),
+            f"angle_or_measuring {tag}": lambda a=a, b=b: xya.or_phase(
+                b, a, color=1, measuring=True),
+        })
+    return modes
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--helical", action="store_true",
                     help="time the helical XY kernels instead")
+    ap.add_argument("--periodic-angle", action="store_true",
+                    help="time the periodic component and angle kernels "
+                    "at 2000x2000 x 32 and 10000x10000 x 1 instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_time_xy: needs an NVIDIA GPU", file=sys.stderr)
@@ -80,6 +131,9 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(5)
     key = torch.tensor([12345, 678], dtype=torch.int64)
     beta = 1.0 / KBT
+    if args.periodic_angle:
+        return report(periodic_angle_modes(dev, gen, key, beta), args,
+                      ["xy2d_pallas", "xy2d_pallas_angle"])
     if args.helical:
         return report(helical_modes(dev, gen, key, beta), args,
                       ["xy2d_helical_dense", "xy2d_helical_dense_angle"])

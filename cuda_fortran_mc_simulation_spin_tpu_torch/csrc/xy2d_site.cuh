@@ -143,6 +143,32 @@ __device__ __forceinline__ float ld(const float* p) {
   }
 }
 
+// The plane offsets of site w (< ny * half) of replica r of colour
+// `color` and of its four other-colour neighbours: (y±1, i), the centre
+// (y, i) = idx and the side column, rows wrapping at ny, columns at half.
+struct Nbrs {
+  size_t idx, up, dn, side;
+};
+
+__device__ __forceinline__ Nbrs neighbours(int ny, int half, int color,
+                                           int r, int w) {
+  const int y = w / half, i = w - y * half;
+  const size_t base = static_cast<size_t>(r) * ny * half;
+  const int yu = y == 0 ? ny - 1 : y - 1;
+  const int yd = y == ny - 1 ? 0 : y + 1;
+  // colour 0 on an odd row and colour 1 on an even row read column i + 1
+  const bool plus = (color == 0) == ((y & 1) == 1);
+  const int is = plus ? (i == half - 1 ? 0 : i + 1)
+                      : (i == 0 ? half - 1 : i - 1);
+  const size_t row = base + static_cast<size_t>(y) * half;
+  Nbrs n;
+  n.idx = row + i;
+  n.up = base + static_cast<size_t>(yu) * half + i;
+  n.dn = base + static_cast<size_t>(yd) * half + i;
+  n.side = row + is;
+  return n;
+}
+
 // Site (r, y, i) of this thread and its local field (hx, hy), built as
 // (up + dn) + (centre + side); also the other colour's centre value.
 struct Site {
@@ -152,25 +178,15 @@ struct Site {
 
 template <bool NC>
 __device__ __forceinline__ Site load_site(const Phase& p, int r, int w) {
-  const int y = w / p.half, i = w - y * p.half;
-  const size_t base = static_cast<size_t>(r) * p.ny * p.half;
-  const int yu = y == 0 ? p.ny - 1 : y - 1;
-  const int yd = y == p.ny - 1 ? 0 : y + 1;
-  // colour 0 on an odd row and colour 1 on an even row read column i + 1
-  const bool plus = (p.color == 0) == ((y & 1) == 1);
-  const int is = plus ? (i == p.half - 1 ? 0 : i + 1)
-                      : (i == 0 ? p.half - 1 : i - 1);
-  const size_t row = base + static_cast<size_t>(y) * p.half;
-  const size_t up = base + static_cast<size_t>(yu) * p.half + i;
-  const size_t dn = base + static_cast<size_t>(yd) * p.half + i;
+  const Nbrs n = neighbours(p.ny, p.half, p.color, r, w);
   Site s;
-  s.idx = row + i;
+  s.idx = n.idx;
   s.cx = ld<NC>(p.ox + s.idx);
   s.cy = ld<NC>(p.oy + s.idx);
-  s.hx = __fadd_rn(__fadd_rn(ld<NC>(p.ox + up), ld<NC>(p.ox + dn)),
-                   __fadd_rn(s.cx, ld<NC>(p.ox + row + is)));
-  s.hy = __fadd_rn(__fadd_rn(ld<NC>(p.oy + up), ld<NC>(p.oy + dn)),
-                   __fadd_rn(s.cy, ld<NC>(p.oy + row + is)));
+  s.hx = __fadd_rn(__fadd_rn(ld<NC>(p.ox + n.up), ld<NC>(p.ox + n.dn)),
+                   __fadd_rn(s.cx, ld<NC>(p.ox + n.side)));
+  s.hy = __fadd_rn(__fadd_rn(ld<NC>(p.oy + n.up), ld<NC>(p.oy + n.dn)),
+                   __fadd_rn(s.cy, ld<NC>(p.oy + n.side)));
   return s;
 }
 
@@ -197,6 +213,33 @@ __device__ __forceinline__ double snap_sum(const Snap& sn, const Site& s,
   return static_cast<double>(as) + static_cast<double>(ao);
 }
 
+// The two Philox words of site w of replica r: counter (replica, row,
+// column, 0) under the phase key; word 0 and word 1
+__device__ __forceinline__ uint4 site_words(int r, int w, int half,
+                                            uint2 key) {
+  const int y = w / half;
+  return philox4x32_10(
+      make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(y),
+                 static_cast<uint32_t>(w - y * half), 0u),
+      key);
+}
+
+// (u_cand, u_acc) of site w (plane offset idx): injected (ucand/uacc
+// non-null) or the top 24 bits of the site's Philox words 0 and 1
+__device__ __forceinline__ void uniforms(int r, int w, int half, size_t idx,
+                                         const float* ucand,
+                                         const float* uacc, uint2 key,
+                                         float& uc, float& ua) {
+  if (ucand != nullptr) {
+    uc = __ldg(ucand + idx);
+    ua = __ldg(uacc + idx);
+  } else {
+    const uint4 b = site_words(r, w, half, key);
+    uc = u24(b.x);
+    ua = u24(b.y);
+  }
+}
+
 // A site after its update: where it is, its field and its new spin
 struct Update {
   Site s;
@@ -215,18 +258,7 @@ __device__ __forceinline__ Update metropolis_site(const Phase& p, int r,
   u.s = load_site<NC>(p, r, w);
   const size_t idx = u.s.idx;
   float uc, ua;
-  if (ucand != nullptr) {
-    uc = __ldg(ucand + idx);
-    ua = __ldg(uacc + idx);
-  } else {
-    const int y = w / p.half;
-    const uint4 b = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(y),
-                   static_cast<uint32_t>(w - y * p.half), 0u),
-        key);
-    uc = u24(b.x);
-    ua = u24(b.y);
-  }
+  uniforms(r, w, p.half, idx, ucand, uacc, key, uc, ua);
   float cx, cy;
   cos_sin_2pi(uc, cx, cy);
   u.fx = p.sx[idx];

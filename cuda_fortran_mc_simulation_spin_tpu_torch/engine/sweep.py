@@ -74,7 +74,9 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     xy2d_helical_dense,
     xy2d_helical_dense_angle,
     xy2d_measure_pallas,
+    xy2d_multisweep,
     xy2d_pallas,
+    xy2d_pallas_angle,
     xy2d_resident,
 )
 
@@ -561,13 +563,35 @@ def make_xy_helical_runner(model, mcs: int, batch: int,
     return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk), tag)
 
 
+def periodic_angle() -> bool:
+    """The JAX package's ``SPINLAT_XY_PERIODIC_ANGLE`` switch set to 1:
+    the periodic XY relaxation and streamed disorder runners take the
+    f32-angle engine (ops/xy2d_pallas_angle.py).  Unset or 0 they keep
+    component planes, the route JAX itself takes off the TPU (its
+    ``sweep.py:1117``, ``protocols.py:792``)."""
+    return os.environ.get("SPINLAT_XY_PERIODIC_ANGLE") == "1"
+
+
+XY_ANGLE_ENGINE = "xy2d periodic f32-angle planes (CUDA phases)"
+
+# the engines of the periodic XY relaxation: (sweep, or_sweep,
+# or_sweep_measured, sweep_measured) on the runner's state
+_XY_COMPONENT_OPS = (xy2d_pallas.sweep, xy2d_pallas.or_sweep,
+                     xy2d_pallas.or_sweep_measured,
+                     xy2d_pallas.sweep_measured)
+_XY_ANGLE_OPS = (xy2d_pallas_angle.sweep_angle,
+                 xy2d_pallas_angle.or_sweep_angle,
+                 xy2d_pallas_angle.or_sweep_measure_angle,
+                 xy2d_pallas_angle.sweep_measure_angle)
+
+
 def make_xy_runner(model, mcs: int, batch: int, init_kind: str = "allup",
                    n_over_relax: int = 0, mcs_over_relax: int = 0,
                    device="cuda", chunk: int = DEFAULT_CHUNK
                    ) -> Callable[[torch.Tensor], dict[str, torch.Tensor]]:
     """`run(call_key) -> {m, my, e: (batch, mcs) float64}` on the periodic
-    XY phase kernels (ops/xy2d_pallas.py), with the schedule of the JAX
-    package's ``make_xy_padded_runner`` (the reference app
+    XY phase kernels, with the schedule of the JAX package's
+    ``make_xy_padded_runner`` (the reference app
     ``xy2d_periodic_gpu_over_relaxation.f90``, lines 42-45): for
     t <= mcs_over_relax (default mcs) with n_over_relax > 0, a Metropolis
     sweep, n_over_relax - 1 over-relaxation sweeps and one whose colour-1
@@ -575,32 +599,38 @@ def make_xy_runner(model, mcs: int, batch: int, init_kind: str = "allup",
     Phase keys of a chunk come from one batched derivation keyed by the
     global sweep index, so a run is bitwise independent of ``chunk``.
     It serves every periodic XY2D (even nx and ny) on unpadded
-    (R, ny, nx/2) component planes, where the JAX package's
-    ``xy_padded_eligible`` chooses between lane-padded component planes
-    and its f32-angle engine from TPU readings (``sweep.py:1142-1151``)."""
+    (R, ny, nx/2) planes: component planes (ops/xy2d_pallas.py), or under
+    :func:`periodic_angle` float32 angle planes (ops/xy2d_pallas_angle.py,
+    packed once from the initial state), as the JAX package's switch
+    chooses between its two engines (``sweep.py:1142-1163``)."""
     if not isinstance(model, XY2D):
         raise ValueError(f"{model!r} is not a periodic XY model")
     mcs_or = mcs_over_relax or mcs
+    angle = periodic_angle()
+    sweep, or_sweep, or_sweep_measured, sweep_measured = (
+        _XY_ANGLE_OPS if angle else _XY_COMPONENT_OPS)
 
     def init_fn(call_key):
-        return _init_state(model, init_kind, batch, call_key, device)
+        st = _init_state(model, init_kind, batch, call_key, device)
+        return xy2d_pallas_angle.pack_angles(st) if angle else st
 
     def chunk_fn(st, call_key, t0, size):
         seeds = multispin_rng.sweep_phase_keys(call_key, size, t0)
         series = {"m": [], "my": [], "e": []}
         for j in range(size):
             if n_over_relax > 0 and t0 + j + 1 <= mcs_or:
-                st = xy2d_pallas.sweep(model, st, seeds[j])
+                st = sweep(model, st, seeds[j])
                 for _ in range(n_over_relax - 1):
-                    st = xy2d_pallas.or_sweep(model, st)
-                st, obs = xy2d_pallas.or_sweep_measured(model, st)
+                    st = or_sweep(model, st)
+                st, obs = or_sweep_measured(model, st)
             else:
-                st, obs = xy2d_pallas.sweep_measured(model, st, seeds[j])
+                st, obs = sweep_measured(model, st, seeds[j])
             for k in series:
                 series[k].append(obs[k])
         return st, {k: torch.stack(v, dim=1) for k, v in series.items()}
 
-    return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk), XY_ENGINE)
+    return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk),
+                XY_ANGLE_ENGINE if angle else XY_ENGINE)
 
 
 # the XY disorder protocols' preparations (JAX ``_xy_init_for_prep``)
@@ -636,6 +666,56 @@ def xy_prepared(model, prep: str, batch: int, call_key, device,
 
 XY_DISORDER_RESIDENT = "xy2d disorder component planes (resident multisweep)"
 XY_DISORDER_STREAMED = "xy2d disorder component planes (streamed phases)"
+XY_DISORDER_ANGLE = "xy2d disorder f32-angle planes (streamed phases)"
+XY_DISORDER_INT16 = "xy2d disorder int16-angle planes (multisweep, opt-in)"
+
+
+def xy_angle_ms() -> bool:
+    """The JAX package's opt-in ``SPINLAT_XY_ANGLE_MS=1``."""
+    return os.environ.get("SPINLAT_XY_ANGLE_MS") == "1"
+
+
+def xy_multisweep_eligible(model, prep: str, mcs: int, n_over_relax: int,
+                           mcs_over_relax: int,
+                           track_correlation: bool) -> bool:
+    """JAX's ``_xy_multisweep_eligible`` (its ``protocols.py:562-590``),
+    the gate of the int16-angle multisweep: only under
+    ``SPINLAT_XY_ANGLE_MS=1``; no ``track_correlation``; under
+    over-relaxation only the full schedule (``mcs_over_relax`` 0 or mcs)
+    and not with fix1mcs; and JAX's own bounds, ``fits_vmem`` (the four
+    int16 planes of a replica within 9 MiB) and ny a multiple of 16.  The
+    same bounds as JAX's, so that one command line selects the same
+    engine in both packages (the literal 1500x1500, ny % 16 = 12, takes
+    the streamed route in both)."""
+    if not xy_angle_ms() or track_correlation:
+        return False
+    if n_over_relax > 0 and (mcs_over_relax not in (0, mcs)
+                             or prep == "fix1mcs"):
+        return False
+    ny, half = model.color_shape
+    return xy2d_multisweep.fits(ny, half) and ny % 16 == 0
+
+
+def xy_disorder_route(model, batch: int, prep: str, mcs: int,
+                      n_over_relax: int = 0, mcs_over_relax: int = 0,
+                      track_correlation: bool = False) -> str:
+    """The engine tag of the disorder runner, in JAX's route order
+    (``protocols.py:1010-1030``): the resident multisweep where it serves
+    the run, unless ``SPINLAT_XY_ANGLE_MS=1`` sets it aside (as JAX's
+    ``_xy_resident_eligible`` does); then the int16-angle multisweep where
+    :func:`xy_multisweep_eligible` takes the run; else streamed phases,
+    on angle planes under :func:`periodic_angle` unless
+    ``track_correlation`` (JAX's padded runner refuses it), else on
+    component planes."""
+    if (n_over_relax == 0 and not track_correlation and not xy_angle_ms()
+            and xy2d_resident.fits(model, batch)):
+        return XY_DISORDER_RESIDENT
+    if xy_multisweep_eligible(model, prep, mcs, n_over_relax,
+                              mcs_over_relax, track_correlation):
+        return XY_DISORDER_INT16
+    if periodic_angle() and not track_correlation:
+        return XY_DISORDER_ANGLE
+    return XY_DISORDER_STREAMED
 
 
 def make_xy_disorder_runner(model, mcs: int, batch: int, prep: str, *,
@@ -648,32 +728,45 @@ def make_xy_disorder_runner(model, mcs: int, batch: int, prep: str, *,
                                           dict[str, torch.Tensor]]:
     """`run(call_key) -> {mx, my, e, A[, corr]: (batch, mcs) float64}`, the
     densities of the XY disorder protocols against the t=0 snapshot, on
-    the periodic XY kernels, with the schedule of the JAX package's
-    ``_xy_disorder_batched_runner`` and ``_xy_disorder_resident_runner``
-    (the reference's from-disorder apps,
-    xy2d_periodic_gpu_relaxation_from_disorder*.f90):
+    the periodic XY kernels, on the route of :func:`xy_disorder_route`
+    with the schedules of the JAX package's ``_xy_disorder_batched_runner``
+    and ``_xy_disorder_resident_runner`` (component planes),
+    ``_xy_disorder_padded_runner`` (angle planes) and
+    ``_xy_disorder_multisweep_runner`` (int16 angles) (the reference's
+    from-disorder apps, xy2d_periodic_gpu_relaxation_from_disorder*.f90):
 
     - streamed, no over-relaxation: a Metropolis sweep whose phase b
-      measures against the snapshot (``xy2d_pallas.sweep_measure``);
-    - streamed, ``n_over_relax`` > 0: while t <= ``mcs_over_relax``
-      (default mcs) a Metropolis sweep, n_over_relax over-relaxation
-      sweeps, then ``xy2d_measure_pallas.measure``; later sweeps as above;
+      measures against the snapshot (``xy2d_pallas.sweep_measure``, or
+      ``xy2d_pallas_angle.sweep_measure_snap_angle``);
+    - streamed, ``n_over_relax`` > 0: a Metropolis sweep, while
+      t <= ``mcs_over_relax`` (default mcs) n_over_relax over-relaxation
+      sweeps, then ``xy2d_measure_pallas.measure`` (of the decoded planes
+      on the angle route); on component planes later sweeps measure as
+      above;
     - ``fix1mcs``: after sweep 1, state and snapshot rotated by
-      -atan2(Σ S_y, Σ S_x) and the row re-measured by ``measure``;
+      -atan2(Σ S_y, Σ S_x) (angle planes decoded, rotated and packed
+      again) and the row re-measured by ``measure``;
     - resident: one ``xy2d_resident`` multisweep launch a chunk, from t=1,
-      or from t=2 after the streamed fix1mcs step.
+      or from t=2 after the streamed fix1mcs step;
+    - int16: :func:`_xy_int16_runner`.
 
-    The resident route is taken when there is no over-relaxation, no
-    ``track_correlation`` and the batch is within ``xy2d_resident.fits``.
     Keys follow the global sweep index t, so a run is bitwise independent
-    of ``chunk``, and both routes draw the same words (the same state, and
-    the same sums)."""
+    of ``chunk``, and the resident and streamed component routes draw the
+    same words (the same state, and the same sums)."""
     if not isinstance(model, XY2D):
         raise ValueError(f"{model!r} is not a periodic XY model")
     if prep not in XY_PREPS:
         raise ValueError(f"unknown preparation {prep!r}")
-    resident = (n_over_relax == 0 and not track_correlation
-                and xy2d_resident.fits(model, batch))
+    route = xy_disorder_route(model, batch, prep, mcs, n_over_relax,
+                              mcs_over_relax, track_correlation)
+    prepare = functools.partial(xy_prepared, model, prep, batch,
+                                device=device, init_magne=init_magne,
+                                near_magne_tol=near_magne_tol)
+    if route == XY_DISORDER_INT16:
+        return _tag(_xy_int16_runner(model, mcs, prep, n_over_relax,
+                                     prepare, chunk), route)
+    resident = route == XY_DISORDER_RESIDENT
+    angle = route == XY_DISORDER_ANGLE
     fix1 = prep == "fix1mcs"
     mcs_or = mcs_over_relax or mcs
 
@@ -681,29 +774,55 @@ def make_xy_disorder_runner(model, mcs: int, batch: int, prep: str, *,
         # the call's phase keys in one batched derivation on the host: one
         # a chunk cost the host more than a 64-sweep multisweep launch at
         # one 1500x1500 replica takes on the card (PERF.md §6)
-        st, snap = xy_prepared(model, prep, batch, call_key, device,
-                               init_magne, near_magne_tol)
+        st, snap = prepare(call_key=call_key)
+        if angle:
+            st = xy2d_pallas_angle.pack_angles(st)
+            snap = xy2d_pallas_angle.pack_angles(snap)
         return st, snap, multispin_rng.sweep_phase_keys(call_key, mcs)
 
+    def components(st, snap):
+        if angle:
+            return (xy2d_pallas_angle.unpack_angles(st),
+                    xy2d_pallas_angle.unpack_angles(snap))
+        return st, snap
+
     def rotate(st, snap):
+        st, snap = components(st, snap)
         theta = -model.magne_angle(st)
-        return model.rotate(st, theta), model.rotate(snap, theta)
+        st, snap = model.rotate(st, theta), model.rotate(snap, theta)
+        if angle:
+            return (xy2d_pallas_angle.pack_angles(st),
+                    xy2d_pallas_angle.pack_angles(snap))
+        return st, snap
+
+    def measure(st, snap):
+        return xy2d_measure_pallas.measure(model, *components(st, snap))
 
     def one_sweep(st, snap, seeds_t, t):
-        if n_over_relax > 0 and t <= mcs_or:
-            st = xy2d_pallas.sweep(model, st, seeds_t)
+        if n_over_relax > 0 and (angle or t <= mcs_or):
+            if angle:
+                st = xy2d_pallas_angle.sweep_angle(model, st, seeds_t)
+            else:
+                st = xy2d_pallas.sweep(model, st, seeds_t)
             if fix1 and t == 1:
                 st, snap = rotate(st, snap)
-            for _ in range(n_over_relax):
-                st = xy2d_pallas.or_sweep(model, st)
-            obs = xy2d_measure_pallas.measure(model, st, snap)
+            if t <= mcs_or:
+                for _ in range(n_over_relax):
+                    st = (xy2d_pallas_angle.or_sweep_angle(model, st) if angle
+                          else xy2d_pallas.or_sweep(model, st))
+            obs = measure(st, snap)
         else:
-            st, obs = xy2d_pallas.sweep_measure(model, st, snap, seeds_t)
+            if angle:
+                st, obs = xy2d_pallas_angle.sweep_measure_snap_angle(
+                    model, st, snap, seeds_t)
+            else:
+                st, obs = xy2d_pallas.sweep_measure(model, st, snap, seeds_t)
             if fix1 and t == 1:
                 st, snap = rotate(st, snap)
-                obs = xy2d_measure_pallas.measure(model, st, snap)
+                obs = measure(st, snap)
         if track_correlation:
-            obs = dict(obs, corr=model.correlation_sum(st) / model.nsites)
+            obs = dict(obs, corr=ising2d_multispin.per_site(
+                model.correlation_sum(st), model.nsites))
         return st, snap, {k: v[:, None] for k, v in obs.items()}
 
     def chunk_fn(carry, call_key, t0, size):
@@ -722,5 +841,45 @@ def make_xy_disorder_runner(model, mcs: int, batch: int, prep: str, *,
         return (st, snap, keys), {k: torch.cat([p[k] for p in parts], dim=1)
                                   for k in parts[0]}
 
-    return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk),
-                XY_DISORDER_RESIDENT if resident else XY_DISORDER_STREAMED)
+    return _tag(_host_chunk_runner(init_fn, chunk_fn, mcs, chunk), route)
+
+
+def _xy_int16_runner(model, mcs: int, prep: str, n_over_relax: int,
+                     prepare, chunk: int):
+    """`run(call_key)` of the int16-angle route (JAX
+    ``_xy_disorder_multisweep_runner``, its ``protocols.py:593-664``): the
+    prepared state and snapshot converted to int16 angles, then one
+    ``xy2d_multisweep`` launch of up to ``chunk`` sweeps (64 by default)
+    a chunk, each sweep followed by ``n_over_relax`` over-relaxation
+    sweeps; with fix1mcs, sweep 1, the rotation and its measurement on
+    component planes first, as in JAX (``:633-640``).  Sweep t draws under
+    the keys of the global index t (where JAX keys a launch), so a run is
+    bitwise independent of ``chunk``."""
+    fix1 = prep == "fix1mcs"
+
+    def init_fn(call_key):
+        st, snap = prepare(call_key=call_key)
+        return st, snap, multispin_rng.sweep_phase_keys(call_key, mcs)
+
+    def chunk_fn(carry, call_key, t0, size):
+        st, snap, keys = carry
+        parts = []
+        if isinstance(st, XYState):
+            if fix1:
+                st = xy2d_pallas.sweep(model, st, keys[0])
+                theta = -model.magne_angle(st)
+                st, snap = model.rotate(st, theta), model.rotate(snap, theta)
+                obs = xy2d_measure_pallas.measure(model, st, snap)
+                parts.append({k: v[:, None] for k, v in obs.items()})
+            st = xy2d_multisweep.state_to_angles(st)
+            snap = xy2d_multisweep.state_to_angles(snap)
+        first = t0 + len(parts)
+        if first < t0 + size:
+            obs = xy2d_multisweep.multisweep_planes(
+                *st, *snap, keys[first:t0 + size], beta=model.beta,
+                n_or=n_over_relax)
+            parts.append(xy2d_pallas.densities(model, obs))
+        return (st, snap, keys), {k: torch.cat([p[k] for p in parts], dim=1)
+                                  for k in parts[0]}
+
+    return _host_chunk_runner(init_fn, chunk_fn, mcs, chunk)

@@ -33,6 +33,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build, clock_pallas
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _on_cpu,
     _stream,
+    per_site,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
     check_int8,
@@ -118,8 +119,8 @@ def measure_sums(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
 
 def densities(sums: torch.Tensor, nsites: int) -> dict[str, torch.Tensor]:
     """{m, my, e} float64 densities of (..., 3) float64 sums."""
-    return {"m": sums[..., 0] / nsites, "my": sums[..., 1] / nsites,
-            "e": sums[..., 2] / nsites}
+    return {k: per_site(sums[..., j], nsites)
+            for j, k in enumerate(("m", "my", "e"))}
 
 
 def measure(model, state: CheckerboardState) -> dict[str, torch.Tensor]:

@@ -47,6 +47,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _stream,
     _u32,
     chain_words,
+    per_site,
     sweep_seed_pairs,
 )
 
@@ -362,6 +363,6 @@ def multisweep(model, wa, wb, key, sweeps: int, t0: int = 0):
     wa, wb, obs = multisweep_planes(
         wa, wb, sweep_seed_pairs(key, sweeps, t0), beta=model.beta,
         nx=model.nx, m=model.nsites // 2)
-    return wa, wb, {"m": obs[..., 0].to(torch.float64) / model.nsites,
-                    "e": obs[..., 1].to(torch.float64) / model.nsites}
+    return wa, wb, {"m": per_site(obs[..., 0], model.nsites),
+                    "e": per_site(obs[..., 1], model.nsites)}
 

@@ -94,6 +94,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _i32,
     _on_cpu,
     _stream,
+    per_site,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
     accept_thresholds_u32,
@@ -662,23 +663,14 @@ def xy_or_phase(sx: torch.Tensor, sy: torch.Tensor, *, color: int, nx: int,
 # xy_observables_packed, on flat states)
 # ---------------------------------------------------------------------------
 
-def _per_site(sums: torch.Tensor, nsites: int) -> torch.Tensor:
-    """float64 ``sums / nsites``, correctly rounded on the card as on the
-    CPU: PyTorch's CUDA division by a Python number multiplies by its
-    reciprocal (up to 1 ulp off the quotient); by a tensor on the sums'
-    device it divides."""
-    return sums.to(torch.float64) / torch.full(
-        (), nsites, dtype=torch.float64, device=sums.device)
-
-
 def ising_densities(obs: torch.Tensor, nsites: int) -> dict:
-    return {"m": _per_site(obs[..., 0], nsites),
-            "e": _per_site(obs[..., 1], nsites)}
+    return {"m": per_site(obs[..., 0], nsites),
+            "e": per_site(obs[..., 1], nsites)}
 
 
 def planar_densities(obs: torch.Tensor, nsites: int) -> dict:
     """{m, my, e} of (..., 3) float64 sums (the clock's, XY's)."""
-    return {k: _per_site(obs[..., j], nsites)
+    return {k: per_site(obs[..., j], nsites)
             for j, k in enumerate(("m", "my", "e"))}
 
 

@@ -35,6 +35,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _on_cpu,
     _stream,
+    per_site,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
     check_int8,
@@ -111,8 +112,8 @@ def measure_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def densities(sums: torch.Tensor, nsites: int) -> dict[str, torch.Tensor]:
     """{m, e} float64 densities of (..., 2) int64 sums."""
-    return {"m": sums[..., 0].to(torch.float64) / nsites,
-            "e": sums[..., 1].to(torch.float64) / nsites}
+    return {"m": per_site(sums[..., 0], nsites),
+            "e": per_site(sums[..., 1], nsites)}
 
 
 def measure(model, state: CheckerboardState) -> dict[str, torch.Tensor]:

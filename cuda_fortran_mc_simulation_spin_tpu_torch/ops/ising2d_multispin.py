@@ -330,6 +330,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def per_site(sums: torch.Tensor, nsites: int) -> torch.Tensor:
+    """float64 ``sums / nsites``, correctly rounded on the card as on the
+    CPU: PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal (up to 1 ulp off the quotient); by a tensor on the sums'
+    device it divides."""
+    return sums.to(torch.float64) / torch.full(
+        (), nsites, dtype=torch.float64, device=sums.device)
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -433,8 +442,8 @@ def sweep_seed_pairs(key, sweeps: int, t0: int = 0) -> torch.Tensor:
 
 
 def _densities(obs: torch.Tensor, nsites: int) -> dict[str, torch.Tensor]:
-    return {"m": obs[..., 0].to(torch.float64) / nsites,
-            "e": obs[..., 1].to(torch.float64) / nsites}
+    return {"m": per_site(obs[..., 0], nsites),
+            "e": per_site(obs[..., 1], nsites)}
 
 
 def multisweep_packed(model, wa, wb, key, sweeps: int, t0: int = 0):

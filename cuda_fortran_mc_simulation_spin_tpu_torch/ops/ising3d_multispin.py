@@ -34,11 +34,11 @@ import torch
 from cuda_fortran_mc_simulation_spin_tpu_torch.core import tables
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build, multispin_rng
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
-    _EVEN_BITS,
-    _ODD_BITS,
     CHAIN_BITS,
     MASK32,
     PACK,
+    _EVEN_BITS,
+    _ODD_BITS,
     _bern_plane,
     _count_planes,
     _digits,
@@ -49,6 +49,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _stream,
     _u32,
     chain_digits,
+    per_site,
     sweep_seed_pairs,
 )
 
@@ -360,8 +361,8 @@ def multisweep_grid_blocks() -> int:
 # ---------------------------------------------------------------------------
 
 def _densities(obs: torch.Tensor, nsites: int) -> dict[str, torch.Tensor]:
-    return {"m": obs[..., 0].to(torch.float64) / nsites,
-            "e": obs[..., 1].to(torch.float64) / nsites}
+    return {"m": per_site(obs[..., 0], nsites),
+            "e": per_site(obs[..., 1], nsites)}
 
 
 def multisweep_packed3d(model, wa, wb, key, sweeps: int, t0: int = 0):

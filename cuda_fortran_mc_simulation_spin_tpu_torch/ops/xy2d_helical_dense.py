@@ -71,6 +71,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     MASK32,
     _on_cpu,
     _stream,
+    per_site,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.xy2d_pallas import (
     THREADS,
@@ -390,8 +391,8 @@ def unpack_state(planes, ny: int, nx: int) -> XYFlatState:
 
 def densities(model, obs) -> dict[str, torch.Tensor]:
     """(R, 3) float64 sums -> the {m, my, e} densities (R,)."""
-    n = model.nsites
-    return {"m": obs[:, 0] / n, "my": obs[:, 1] / n, "e": obs[:, 2] / n}
+    return {k: per_site(obs[:, j], model.nsites)
+            for j, k in enumerate(("m", "my", "e"))}
 
 
 def sweep(model, planes, seeds):

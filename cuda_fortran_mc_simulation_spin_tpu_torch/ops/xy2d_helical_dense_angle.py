@@ -84,26 +84,29 @@ def angle_field(o: torch.Tensor, color: int):
     return field(ox, color), field(oy, color)
 
 
-def metro_math(s, hx, hy, u_cand, u_acc, beta: float, valid):
+def metro_math(s, hx, hy, u_cand, u_acc, beta: float, valid=None):
     """JAX's ``_metro_math``: the new angle and its decoded components;
-    the candidate angle is u_cand - 0.5 turns."""
+    the candidate angle is u_cand - 0.5 turns.  Sites where ``valid`` is
+    False keep their angle (None: every site is real)."""
     sx, sy = trig.cos_sin_2pi(s)
     cand = u_cand - trig.f32(0.5)
     cx, cy = trig.cos_sin_2pi(cand)
     de = -((cx - sx) * hx + (cy - sy) * hy)
     p = torch.exp(torch.maximum(de, trig.f32(0.0)) * trig.f32(-beta))
-    accept = valid & (u_acc < p)
+    accept = u_acc < p
+    if valid is not None:
+        accept = valid & accept
     return (torch.where(accept, cand, s), torch.where(accept, cx, sx),
             torch.where(accept, cy, sy))
 
 
-def or_math(s, hx, hy, valid):
+def or_math(s, hx, hy, valid=None):
     """JAX's ``_or_math``: θ' = 2φ − θ, φ = atan2_2pi(hy, hx), wrapped to
     [-0.5, 0.5] turns; a zero field gives θ' = −θ."""
     phi = trig.atan2_2pi(hy, hx)
     tp = trig.f32(2.0) * phi - s
     tp = tp - torch.round(tp)
-    return torch.where(valid, tp, s)
+    return tp if valid is None else torch.where(valid, tp, s)
 
 
 def angle_phase_plain(s, o, rand, *, color: int, beta: float,

@@ -1,0 +1,354 @@
+"""S sweeps of the periodic XY model on int16 angle planes in one launch
+on the card: a cooperative CUDA kernel and its plain version.
+
+Port of ``cuda_fortran_mc_simulation_spin_tpu/ops/xy2d_multisweep.py``
+(the module keeps its name so that its JAX counterpart is found by name;
+it launches a CUDA kernel, not a Pallas one).  Spins are 16-bit
+fixed-point angles θ = k·2π/2^16, one int16 (R, ny, nx/2) plane a colour:
+a q = 65536 clock model whose |S| = 1 holds exactly and whose global
+rotations are int16 adds.  ``csrc/xy2d_multisweep.cu``
+``multisweep_kernel`` replaces ``_kernel`` (pallas_call at ``:325``,
+``_multisweep``): S sweeps a launch, each a Metropolis phase a and b
+(the candidate the top 16 bits of a random word), with ``n_or`` > 0
+then n_or over-relaxation sweeps (θ' = 2 round(φ) − θ, φ the
+octant-reduced A&S atan2 polynomial in 2^16 units) and a measure pass,
+and each sweep's (Σ S_x, Σ S_y, e, A) against the t=0 snapshot planes;
+``or_only`` runs max(n_or, 1) over-relaxation sweeps and the measure pass
+only (JAX's microcanonical test mode).
+
+The TPU kernel keeps the planes in VMEM for the S sweeps; here they stay
+in device memory (and, at the route's sizes, in L2) and a cooperative
+grid waits at a grid barrier between phases, as ops/xy2d_resident.py's.
+JAX runs it only when asked (``SPINLAT_XY_ANGLE_MS=1``), and so does the
+port (engine/sweep.py); :func:`fits` is JAX's ``fits_vmem``.
+
+Random words: Philox under the (sweep, phase) key of
+``multispin_rng.sweep_phase_keys`` and counter (replica, row, column, 0)
+(where JAX keys its hardware PRNG by the launch); the candidate is word
+0 >> 16, an int32 in [0, 65535] that is wrapped to int16 only when
+stored: phase b's fused sums and A use the unwrapped value, as JAX's
+do.  The uniform is the top 24 bits of word 1.
+
+Sums: every site term is JAX's float32 term (the decoded components, the
+bond products S·h, cos 2π(θ0 − θ)/2^16 units), widened and summed in
+float64, per 256-site block and then per (replica, sweep) in a fixed
+order on the card (JAX sums in float32).  The kernel spells each float32
+operation with ``__fmul_rn`` / ``__fadd_rn`` / ``__fsub_rn`` in the
+order of the plain versions, the divide of the atan2 polynomial with
+``__fdiv_rn``, and rounds with ``rintf`` (half to even, as
+``torch.round``), so it equals :func:`multisweep_plain` bitwise in the
+state and to float64 rounding in the sums.
+
+A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
+launches the kernel or raises.  ``LAUNCHES`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+    _build,
+    multispin_rng,
+    trig,
+    xy2d_pallas,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
+    _i32,
+    _on_cpu,
+    _stream,
+)
+
+LAUNCHES = {"multisweep": 0}
+
+_TWO_PI = float(2.0 * np.pi)
+_TO_RAD = np.float32(_TWO_PI / 65536.0)
+_INV_TURN = np.float32(1.0 / 65536.0)   # int16 angle units -> turns
+_UNITS = 65536.0 / _TWO_PI               # radians -> int16 angle units
+# the A&S 4.4.49 polynomial of atan on [0, 1] (JAX ``_atan2_units``)
+_ATAN = (0.99997726, -0.33262347, 0.19354346, -0.11643287, 0.05265332,
+         -0.01172120)
+
+# JAX's VMEM budget of the state and snapshot planes (``fits_vmem``)
+VMEM_ANGLE_BUDGET = 9 << 20
+# threads of a block (csrc/xy2d_multisweep.cu THREADS)
+THREADS = 256
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def fits(ny: int, half: int) -> bool:
+    """JAX's ``fits_vmem``: the four int16 planes (state and snapshot)
+    of one replica within 9 MiB."""
+    return 4 * ny * half * 2 <= VMEM_ANGLE_BUDGET
+
+
+# ---------------------------------------------------------------------------
+# the codec
+# ---------------------------------------------------------------------------
+
+def to_angles(sx: torch.Tensor, sy: torch.Tensor) -> torch.Tensor:
+    """float32 component planes -> int16 angle plane: round(atan2(sy, sx)
+    in 2^16 units), half to even, wrapped mod 2^16."""
+    th = torch.atan2(sy, sx) * trig.f32(_UNITS)
+    return torch.round(th).to(torch.int32).to(torch.int16)
+
+
+def from_angles(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int16 (or int32) angles -> float32 (cos θ, sin θ)."""
+    th = k.to(torch.float32) * trig.f32(_TO_RAD)
+    return torch.cos(th), torch.sin(th)
+
+
+def rotate_angles(k: torch.Tensor, theta) -> torch.Tensor:
+    """Global rotation by ``theta`` radians: an int16 add mod 2^16 of
+    round(theta in 2^16 units)."""
+    theta = torch.as_tensor(theta, dtype=torch.float32, device=k.device)
+    dk = torch.round(theta * trig.f32(_UNITS)).to(torch.int32).to(
+        torch.int16)
+    return k + dk
+
+
+def state_to_angles(state: XYState) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R, ny, half) XYState component planes -> int16 angle planes."""
+    return to_angles(state.ax, state.ay), to_angles(state.bx, state.by)
+
+
+def angles_to_state(pa: torch.Tensor, pb: torch.Tensor) -> XYState:
+    return XYState(*from_angles(pa), *from_angles(pb))
+
+
+def _cs(k: torch.Tensor):
+    """(cos, sin) of int angle units: cos_sin_2pi of k / 2^16 turns."""
+    return trig.cos_sin_2pi(k.to(torch.float32) * trig.f32(_INV_TURN))
+
+
+def _cos_units(dk: torch.Tensor) -> torch.Tensor:
+    """cos of an angle-unit difference (the autocorrelation term)."""
+    return _cs(dk)[0]
+
+
+def _atan2_units(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """atan2(y, x) in 2^16 angle units, float32: the octant-reduced A&S
+    4.4.49 polynomial of JAX ``_atan2_units`` (|err| < 1e-5 rad), in its
+    order."""
+    ax, ay = x.abs(), y.abs()
+    lo = torch.minimum(ax, ay)
+    hi = torch.maximum(ax, ay)
+    z = lo / torch.maximum(hi, trig.f32(1e-30))
+    z2 = z * z
+    p = trig.f32(_ATAN[-1])
+    for c in reversed(_ATAN[:-1]):
+        p = trig.f32(c) + z2 * p
+    a = z * p
+    a = torch.where(ay > ax, trig.f32(np.pi / 2) - a, a)
+    a = torch.where(x < 0, trig.f32(np.pi) - a, a)
+    a = torch.where(y < 0, -a, a)
+    return a * trig.f32(_UNITS)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _field(o: torch.Tensor, color: int):
+    """(hx, hy, co, so): the field at every site of ``color`` from the
+    other colour's int16 plane, (up + dn) + (centre + side) of its decoded
+    components, and those components."""
+    co, so = _cs(o.to(torch.int32))
+    return (xy2d_pallas.nbr_sum(co, color), xy2d_pallas.nbr_sum(so, color),
+            co, so)
+
+
+def _total(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.float64).sum(dim=(-2, -1))
+
+
+def _sums(bx, by, hx, hy, cax, cay, ka, kb, sa, sb) -> torch.Tensor:
+    """(R, 4) float64 (Σ S_x, Σ S_y, -Σ_b S_b·h_b, A) with colour b's
+    components (bx, by) and angles kb, colour a's decoded (cax, cay) and
+    angles ka, and the snapshots sa, sb."""
+    a = (_total(_cos_units(sa.to(torch.int32) - ka))
+         + _total(_cos_units(sb.to(torch.int32) - kb)))
+    return torch.stack([_total(cax) + _total(bx), _total(cay) + _total(by),
+                        -_total(bx * hx + by * hy), a], dim=-1)
+
+
+def _words(rand, nrep: int, ny: int, half: int, device):
+    """(candidate int32 in [0, 65535], uniform float32) planes of a phase:
+    ``rand`` a Philox key (words 0 and 1 of counter (replica, row,
+    column, 0)) or an injected (candidate, uniform) pair."""
+    if isinstance(rand, (tuple, list)):
+        cand, u = rand
+        return cand.to(torch.int32), u
+    gen = multispin_rng.word_stream(rand, nrep, ny, half, device)
+    return (gen() >> 16).to(torch.int32), rng.bits_to_uniform(gen())
+
+
+def _metropolis(x, o, rand, color: int, beta: float):
+    """One Metropolis phase of the int16 plane ``x`` in place; returns
+    (newk int32, unwrapped; the new components; the field; the other
+    colour's decoded components)."""
+    hx, hy, co, so = _field(o, color)
+    k = x.to(torch.int32)
+    cx, sx = _cs(k)
+    cand, u = _words(rand, *x.shape, x.device)
+    cc, cs = _cs(cand)
+    de = -((cc - cx) * hx + (cs - sx) * hy)
+    p = torch.exp(torch.maximum(de, trig.f32(0.0)) * trig.f32(-beta))
+    accept = u < p
+    newk = torch.where(accept, cand, k)
+    x.copy_(newk.to(torch.int16))
+    return (newk, torch.where(accept, cc, cx), torch.where(accept, cs, sx),
+            hx, hy, co, so)
+
+
+def _over_relax(x, o, color: int) -> None:
+    """θ' = 2 round(φ) − θ, φ = _atan2_units(h_y, h_x), in place."""
+    hx, hy, _, _ = _field(o, color)
+    phi = _atan2_units(hy, hx)
+    x.copy_((2 * torch.round(phi).to(torch.int32)
+             - x.to(torch.int32)).to(torch.int16))
+
+
+def _measure(pa, pb, sa, sb) -> torch.Tensor:
+    """(R, 4) float64 sums of the state: the field at the b sites from a."""
+    hx, hy, cax, cay = _field(pa, 1)
+    kb = pb.to(torch.int32)
+    bx, by = _cs(kb)
+    return _sums(bx, by, hx, hy, cax, cay, pa.to(torch.int32), kb, sa, sb)
+
+
+def multisweep_plain(pa, pb, sa, sb, rand, *, beta: float, n_or: int = 0,
+                     or_only: bool = False) -> torch.Tensor:
+    """Plain version of ``multisweep_kernel``: S sweeps of the int16
+    planes (pa, pb) in place, snapshot planes (sa, sb); ``rand`` is the
+    (S, 2, 2) per-(sweep, phase) Philox keys or S injected pairs
+    ((cand_a, u_a), (cand_b, u_b)), the candidates int in [0, 65535].
+    Returns the (R, S, 4) float64 per-sweep (Σ S_x, Σ S_y, e, A)."""
+    rows = []
+    for s in range(len(rand)):
+        if or_only:
+            for _ in range(max(n_or, 1)):
+                _over_relax(pa, pb, 0)
+                _over_relax(pb, pa, 1)
+            rows.append(_measure(pa, pb, sa, sb))
+            continue
+        _metropolis(pa, pb, rand[s][0], 0, beta)
+        newk, bx, by, hx, hy, cax, cay = _metropolis(pb, pa, rand[s][1], 1,
+                                                     beta)
+        if n_or == 0:
+            rows.append(_sums(bx, by, hx, hy, cax, cay, pa.to(torch.int32),
+                              newk, sa, sb))
+            continue
+        for _ in range(n_or):
+            _over_relax(pa, pb, 0)
+            _over_relax(pb, pa, 1)
+        rows.append(_measure(pa, pb, sa, sb))
+    return torch.stack(rows, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrapper
+# ---------------------------------------------------------------------------
+
+_VOID = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("xy2d_multisweep")
+    if lib.xyi_multisweep.argtypes is not None:
+        return lib
+    lib.xyi_multisweep.argtypes = ([_VOID] * 7 + [_INT] * 6
+                                   + [ctypes.c_float, _VOID])
+    lib.xyi_multisweep.restype = _INT
+    lib.xyi_grid.argtypes = [ctypes.POINTER(_INT)]
+    lib.xyi_grid.restype = _INT
+    lib.xyi_error_string.argtypes = [_INT]
+    lib.xyi_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(code: int, lib) -> None:
+    if code != 0:
+        msg = lib.xyi_error_string(code).decode()
+        raise RuntimeError(f"xy2d int16 multisweep_kernel: CUDA error {code} "
+                           f"({msg})")
+
+
+def grid_blocks() -> int:
+    """Blocks of the cooperative grid on the current device."""
+    lib = _lib()
+    out = _INT(0)
+    _raise_on(lib.xyi_grid(ctypes.byref(out)), lib)
+    return out.value
+
+
+def _check(planes) -> None:
+    ref = planes[0]
+    if ref.dim() != 3:
+        raise ValueError(f"planes must be (R, ny, half), got {ref.shape}")
+    nrep, ny, half = ref.shape
+    if ny < 2 or half < 1 or nrep > 65535 or nrep * ny * half >= 2 ** 31:
+        raise ValueError(f"kernel shape out of range: {tuple(ref.shape)}")
+    for p in planes:
+        if (p.shape != ref.shape or p.dtype != torch.int16 or not p.is_cuda
+                or p.device != ref.device or not p.is_contiguous()):
+            raise ValueError("planes must be contiguous int16 "
+                             f"{tuple(ref.shape)} on one CUDA device")
+
+
+def multisweep_planes(pa, pb, sa, sb, seeds, *, beta: float, n_or: int = 0,
+                      or_only: bool = False) -> torch.Tensor:
+    """S = len(seeds) sweeps of the int16 planes in place under the
+    (S, 2, 2) per-(sweep, phase) keys: ``multisweep_kernel`` on CUDA
+    tensors, :func:`multisweep_plain` on CPU tensors.  Returns the
+    (R, S, 4) float64 per-sweep (Σ S_x, Σ S_y, e, A).  The kernel refuses
+    a batch whose site index could reach 2^31."""
+    if _on_cpu(pa):
+        return multisweep_plain(pa, pb, sa, sb, seeds, beta=beta, n_or=n_or,
+                                or_only=or_only)
+    _check([pa, pb, sa, sb])
+    nrep, ny, half = pa.shape
+    sweeps = int(seeds.shape[0])
+    seeds_dev = _i32(torch.as_tensor(seeds)).contiguous().to(pa.device)
+    nblk = -(-ny * half // THREADS)
+    partials = torch.empty((nrep * sweeps, nblk, 4), dtype=torch.float64,
+                           device=pa.device)
+    obs = torch.empty((nrep, sweeps, 4), dtype=torch.float64,
+                      device=pa.device)
+    lib = _lib()
+    with torch.cuda.device(pa.device):
+        code = lib.xyi_multisweep(
+            pa.data_ptr(), pb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+            seeds_dev.data_ptr(), partials.data_ptr(), obs.data_ptr(), nrep,
+            ny, half, sweeps, n_or, int(or_only), -float(beta),
+            _stream(pa))
+    _raise_on(code, lib)
+    LAUNCHES["multisweep"] += 1
+    return obs
+
+
+def multisweep(model, pa, pb, sa, sb, key, sweeps: int, n_or: int = 0,
+               or_only: bool = False, t0: int = 0):
+    """Sweeps t0+1 .. t0+sweeps of the sample keyed by ``key`` (JAX
+    ``multisweep``, keyed by the global sweep index): returns
+    (pa, pb, {mx, my, e, A} densities (R, sweeps) float64)."""
+    ny, half = model.color_shape
+    if not fits(ny, half):
+        raise ValueError(
+            f"lattice {ny}x{2 * half} does not fit the int16 XY multisweep "
+            "(JAX's fits_vmem); use the phase-kernel path")
+    seeds = multispin_rng.sweep_phase_keys(key, sweeps, t0)
+    obs = multisweep_planes(pa, pb, sa, sb, seeds, beta=model.beta,
+                            n_or=n_or, or_only=or_only)
+    return pa, pb, xy2d_pallas.densities(model, obs)

@@ -74,6 +74,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     MASK32,
     _on_cpu,
     _stream,
+    per_site,
 )
 
 LAUNCHES = {"metropolis": 0, "metropolis_measuring": 0,
@@ -331,8 +332,8 @@ def over_relax_phase(sx, sy, ox, oy, *, color: int,
 # ---------------------------------------------------------------------------
 
 def _densities(model, obs) -> dict[str, torch.Tensor]:
-    n = model.nsites
-    return {"m": obs[:, 0] / n, "my": obs[:, 1] / n, "e": obs[:, 2] / n}
+    return {k: per_site(obs[:, j], model.nsites)
+            for j, k in enumerate(("m", "my", "e"))}
 
 
 def sweep(model, st: XYState, seeds) -> XYState:
@@ -347,8 +348,8 @@ def sweep(model, st: XYState, seeds) -> XYState:
 def densities(model, obs) -> dict[str, torch.Tensor]:
     """(R, 4) float64 sums -> the disorder protocols' {mx, my, e, A}
     densities (R,)."""
-    n = model.nsites
-    return {k: obs[..., j] / n for j, k in enumerate(("mx", "my", "e", "A"))}
+    return {k: per_site(obs[..., j], model.nsites)
+            for j, k in enumerate(("mx", "my", "e", "A"))}
 
 
 def sweep_measure(model, st: XYState, snap: XYState, seeds):

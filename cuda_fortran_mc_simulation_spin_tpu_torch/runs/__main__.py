@@ -68,7 +68,12 @@ past the packed bound or at odd nx*ny, the helical clock at q != 6 or odd
 nx*ny, helical XY at odd --ny) runs on the masked helical kernels, and so
 do all of them under the JAX package's switches
 ``SPINLAT_HELICAL_PACKED=0``, ``SPINLAT_CLOCK_HELICAL_PACKED=0`` and
-``SPINLAT_XY_DENSE=0``.
+``SPINLAT_XY_DENSE=0``.  Periodic XY takes component planes by default;
+the JAX package's ``SPINLAT_XY_PERIODIC_ANGLE=1`` sends the relaxation
+and the streamed disorder runs to its f32-angle engine, and
+``SPINLAT_XY_ANGLE_MS=1`` the disorder runs its int16-angle gate takes
+(e.g. 1536x1536) to the int16-angle multisweep.  The ``# engine:`` line
+names the route taken.
 
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of

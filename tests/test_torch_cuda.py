@@ -273,7 +273,8 @@ def test_helical3d_multisweep_kernel_matches_streamed_phases(cuda, nx, ny,
             assert torch.equal(hms._u32(got) & vm, hms._u32(want) & vm)
     for k, col in (("m", 0), ("e", 1)):
         assert torch.equal(kobs[k], sobs[k])
-        assert torch.equal(kobs[k], pobs[..., col].double() / model.nsites)
+        assert torch.equal(kobs[k],
+                           msb.per_site(pobs[..., col], model.nsites))
 
 
 # the clock kernels: periodic q = 6, 4, 3 on an aligned shape (256x256)
@@ -538,7 +539,8 @@ def test_xy_multisweep_matches_streamed_sweeps(cuda, ny, nx, nrep):
     for s in range(8):
         st, obs = xy2d_pallas.sweep_measure(model, st, snap, seeds[s])
         for j, k in enumerate(("mx", "my", "e", "A")):
-            assert torch.equal(kobs[:, s, j] / model.nsites, obs[k])
+            assert torch.equal(msb.per_site(kobs[:, s, j], model.nsites),
+                               obs[k])
     assert all(torch.equal(p, q) for p, q in zip(ms, st))
     pl = _xy_state(planes)
     pobs = xy2d_resident.multisweep_planes_plain(pl, snap, seeds,
@@ -1029,7 +1031,7 @@ def test_helical_pallas_runner_on_card_replays_plain_versions(
 @pytest.mark.parametrize("ny", [32, 31])
 def test_helical_pallas_ising_runner_on_card_equals_cpu_runner(cuda, ny):
     """The masked Ising runner on the card and on the CPU: the same integer
-    states and int64 sums, so densities bitwise (helical_pallas._per_site
+    states and int64 sums, so densities bitwise (ising2d_multispin.per_site
     divides on the card, where a Python-number divisor would multiply by
     its reciprocal and move quotients by 1 ulp)."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
@@ -1059,3 +1061,164 @@ def test_helical_pallas_launches_refused(cuda):
     sx = torch.ones((1, 33 * 32), device=cuda)
     with pytest.raises(ValueError, match="storage"):
         hp.xy_or_phase(sx, sx.clone(), color=0, nx=33, out=(sx, sx))
+
+
+def _turns(dev, shape, seed):
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy(g.uniform(-0.5, 0.5, size=shape).astype(
+        np.float32)).to(dev) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx", [(16, 84), (256, 200), (64, 1500)])
+def test_xy_angle_kernels_match_plain(cuda, ny, nx):
+    """angle_metro_kernel (injected and Philox uniforms; plain, measuring
+    and the snapshot mode) and angle_or_kernel (plain and measuring)
+    against their plain versions on the same CUDA tensors, both colours:
+    the state bitwise, the sums to float64 rounding."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_pallas_angle as xa,
+    )
+    shape = (2, ny, nx // 2)
+    a, b, sa, sb = _turns(cuda, shape, nx + ny)
+    g = np.random.default_rng(ny)
+    u = tuple(torch.from_numpy(g.random(shape, dtype=np.float32)).to(cuda)
+              for _ in range(2))
+    for color in (0, 1):
+        s, o = (a, b) if color == 0 else (b, a)
+        snap = (sa, sb) if color == 0 else (sb, sa)
+        seeds = rng.seeds_from_key(rng.base_key(8), color)
+        runs = [(xa.metro_phase, xa.metro_phase_plain, (rand,),
+                 dict(beta=1 / KBT_XY, **mode))
+                for rand in (u, seeds)
+                for mode in ({}, {"measuring": True}, {"snap": snap})]
+        runs += [(xa.or_phase, xa.or_phase_plain, (), {"measuring": m})
+                 for m in (False, True)]
+        for kernel, plain, extra, kw in runs:
+            ks, ps = s.clone(), s.clone()
+            got = kernel(ks, o, *extra, color=color, **kw)
+            want = plain(ps, o, *extra, color=color, **kw)
+            assert torch.equal(ks, ps)
+            if isinstance(want, tuple):
+                _xy_sums_close(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_or,or_only", [
+    ((2, 32, 24), 0, False), ((2, 32, 24), 1, False),
+    ((2, 32, 24), 2, True), ((1, 1536, 768), 0, False),
+    ((3, 64, 750), 1, False)])
+def test_xy_int16_multisweep_matches_plain(cuda, shape, n_or, or_only):
+    """multisweep_kernel against its plain version on the same CUDA
+    tensors, S = 3 sweeps: the int16 state bitwise, the sums to float64
+    rounding."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_multisweep as xi,
+    )
+    g = np.random.default_rng(shape[1] + n_or)
+    planes = [torch.from_numpy(g.integers(-2 ** 15, 2 ** 15, size=shape)
+                               .astype(np.int16)).to(cuda)
+              for _ in range(4)]
+    seeds = xi.multispin_rng.sweep_phase_keys(rng.base_key(9), 3)
+    ka, kb = planes[0].clone(), planes[1].clone()
+    pa, pb = planes[0].clone(), planes[1].clone()
+    got = xi.multisweep_planes(ka, kb, *planes[2:], seeds, beta=1 / KBT_XY,
+                               n_or=n_or, or_only=or_only)
+    want = xi.multisweep_plain(pa, pb, *planes[2:], seeds, beta=1 / KBT_XY,
+                               n_or=n_or, or_only=or_only)
+    assert torch.equal(ka, pa) and torch.equal(kb, pb)
+    assert not torch.equal(ka, planes[0])
+    _xy_sums_close(got, want)
+
+
+@pytest.mark.cuda
+def test_xy_int16_or_only_conserves_energy(cuda):
+    """The kernel's pure over-relaxation sweeps (or_only) keep the energy
+    to the angle quantum's rounding, as JAX's tests/test_tpu_kernels.py:
+    276-296 asks of its kernel."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_multisweep as xi,
+    )
+    g = np.random.default_rng(3)
+    shape = (2, 256, 128)
+    pa = torch.from_numpy(g.integers(-2 ** 15, 2 ** 15, size=shape).astype(
+        np.int16)).to(cuda)
+    pb = torch.zeros_like(pa)
+    seeds = xi.multispin_rng.sweep_phase_keys(rng.base_key(4), 8)
+    obs = xi.multisweep_planes(pa, pb, pa.clone(), pb.clone(), seeds,
+                               beta=1 / KBT_XY, n_or=1, or_only=True)
+    e = obs[..., 2] / (2 * 256 * 128)
+    assert float((e - e[:, :1]).abs().max()) < 2e-3
+
+
+@pytest.mark.cuda
+def test_xy_int16_launch_refuses_bad_planes(cuda):
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_multisweep as xi,
+    )
+    x = torch.zeros((1, 32, 16), dtype=torch.int16, device=cuda)
+    seeds = xi.multispin_rng.sweep_phase_keys(rng.base_key(1), 1)
+    with pytest.raises(ValueError, match="int16"):
+        xi.multisweep_planes(x, x.float(), x, x, seeds, beta=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("angle", ["0", "1"])
+def test_xy_runner_densities_on_card_equal_cpu_runner(cuda, angle,
+                                                      monkeypatch):
+    """The XY relaxation runner (component or angle planes) on the card
+    and on the CPU from all-up at kbt 1e-30: a candidate is taken only at
+    ΔE <= 0, where its S_x rounds to 1, so every S_x stays 1, each S·h
+    rounds to 4 and the few small S_y add exactly in float64 in any
+    order; the sums agree exactly and so must the densities, which divide
+    by a tensor on the sums' device (xy2d_pallas.densities; a Python-number
+    divisor would multiply on the card by its reciprocal, ROADMAP C8)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+    monkeypatch.setenv("SPINLAT_XY_PERIODIC_ANGLE", angle)
+    model = XY2D(nx=48, ny=30, kbt=1e-30)
+    key = rng.sample_key(rng.base_key(42), 0)
+    card = sweep.make_xy_runner(model, 40, 3, device=cuda)(key)
+    cpu = sweep.make_xy_runner(model, 40, 3, device="cpu")(key)
+    for k in cpu:
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    assert float(cpu["my"].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prep", ["rotate_first", "fix1mcs"])
+def test_xy_angle_and_int16_runners_replay_plain_on_card(cuda, prep,
+                                                         monkeypatch):
+    """The streamed angle disorder route and the int16 route on the card
+    against the same runners with every wrapper sent to its plain version
+    on the same CUDA tensors (the same draws, the same expf): the series
+    agree to float64 rounding of the sums."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_measure_pallas,
+        xy2d_multisweep,
+        xy2d_pallas,
+        xy2d_pallas_angle,
+        xy2d_resident,
+    )
+    monkeypatch.setattr(xy2d_resident, "RESIDENT_MAX_SITES", 0)
+    model = XY2D(nx=64, ny=32, kbt=KBT_XY)
+    key = rng.sample_key(rng.base_key(7), 0)
+    mods = (xy2d_measure_pallas, xy2d_multisweep, xy2d_pallas,
+            xy2d_pallas_angle)
+    for switch in ("SPINLAT_XY_PERIODIC_ANGLE", "SPINLAT_XY_ANGLE_MS"):
+        monkeypatch.setenv(switch, "1")
+        for n_or in ((0, 1) if prep == "rotate_first" else (0,)):
+            def run():
+                return sweep.make_xy_disorder_runner(
+                    model, 70, 2, prep, n_over_relax=n_or, device=cuda)
+            assert run().engine in (sweep.XY_DISORDER_ANGLE,
+                                    sweep.XY_DISORDER_INT16)
+            card = run()(key)
+            with monkeypatch.context() as m:
+                for mod in mods:
+                    m.setattr(mod, "_on_cpu", lambda t: True)
+                plain = run()(key)
+            for name in plain:
+                assert torch.allclose(card[name], plain[name], rtol=0,
+                                      atol=1e-12), name
+        monkeypatch.delenv(switch)

@@ -18,12 +18,17 @@ progress on ``err`` (stdout = dataset, stderr = progress).
   the masked helical kernels (ops/helical_pallas.py) for every helical 2-D
   shape the packed and dense engines refuse, or all of them under the JAX
   package's switches ``SPINLAT_HELICAL_PACKED=0``,
-  ``SPINLAT_CLOCK_HELICAL_PACKED=0`` and ``SPINLAT_XY_DENSE=0``;
+  ``SPINLAT_CLOCK_HELICAL_PACKED=0`` and ``SPINLAT_XY_DENSE=0``; periodic
+  XY on component planes, or on f32-angle planes under
+  ``SPINLAT_XY_PERIODIC_ANGLE=1``;
 - ``from_disorder`` (with ``rotate_after_first_mcs``: the fix1mcs app),
   ``finite_magne``, ``samples`` and ``finite_magne_samples`` serve the
   periodic XY model through ``sweep.make_xy_disorder_runner`` (the
   snapshot-measuring phase, the standalone measurement and the resident
-  multisweep); ``samples`` serves periodic Ising 2-D and 3-D, the
+  multisweep; under the JAX package's ``SPINLAT_XY_PERIODIC_ANGLE=1`` the
+  streamed runs on its f32-angle engine, under ``SPINLAT_XY_ANGLE_MS=1``
+  the runs its gate takes on the int16-angle multisweep, in JAX's route
+  order); ``samples`` serves periodic Ising 2-D and 3-D, the
   periodic clock and the helical models through
   ``sweep.make_sample_runner`` (JAX ``_run_samples_generic``).
 

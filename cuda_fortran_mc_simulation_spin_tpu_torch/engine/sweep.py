@@ -10,9 +10,13 @@ dense and masked branches in the JAX package's order, the generic runners
 ``make_multisweep_runner`` on the int8 Ising 2-D and 3-D and int8 clock
 kernels and, for the helical models, on the masked helical kernels,
 ``xy_padded_eligible`` / ``make_xy_padded_runner`` as
-:func:`make_xy_runner`, and the XY disorder
-runners of ``engine/protocols.py``, ``_xy_disorder_batched_runner`` and
-``_xy_disorder_resident_runner``, as :func:`make_xy_disorder_runner`).
+:func:`make_xy_runner` (component or, under ``SPINLAT_XY_PERIODIC_ANGLE=1``,
+f32-angle planes), and the XY disorder runners of ``engine/protocols.py``,
+``_xy_disorder_batched_runner``, ``_xy_disorder_resident_runner``,
+``_xy_disorder_padded_runner`` (its angle branch) and
+``_xy_disorder_multisweep_runner`` (int16 angles, under
+``SPINLAT_XY_ANGLE_MS=1``), in the route order of its
+``_run_xy_disorder``, as :func:`make_xy_disorder_runner`).
 A ``lax.scan`` there is a Python loop over kernel launches here.  The JAX runner sizes its dispatches from TPU
 rates to stay under the TPU worker's deadline; the port has no such
 deadline and chunks by a fixed sweep count (``DEFAULT_CHUNK`` = 64, the

@@ -98,9 +98,17 @@ def test_codec_matches_jax():
     diff = np.minimum(diff, 65536 - diff)
     assert diff.max() <= 1 and (diff > 0).sum() <= max(1, 1e-4 * k.size)
     assert (diff > 0).sum() == 0
-    # from_angles: torch's and XLA's cos / sin, within 2 ulp
-    for p, w in zip(xy2d_multisweep.from_angles(torch.from_numpy(k)),
-                    jms.from_angles(jnp.asarray(k).astype(jnp.int32))):
+    # from_angles and angles_to_state: torch's and XLA's cos / sin, within
+    # 2 ulp
+    k2 = k.reshape(1, 256, 256)
+    got = (*xy2d_multisweep.from_angles(torch.from_numpy(k)),
+           *xy2d_multisweep.angles_to_state(torch.from_numpy(k2),
+                                            torch.from_numpy(k2[:, ::-1]
+                                                             .copy())))
+    want = (*jms.from_angles(jnp.asarray(k).astype(jnp.int32)),
+            *jms.angles_to_state(jnp.asarray(k2),
+                                 jnp.asarray(k2[:, ::-1].copy())))
+    for p, w in zip(got, want):
         np.testing.assert_allclose(p.numpy(), np.asarray(w), rtol=0,
                                    atol=2 * np.finfo(np.float32).eps)
     # rotate_angles: exact int16 adds
@@ -244,6 +252,28 @@ def test_plain_launch_under_philox_is_the_drawn_words():
     want = xy2d_multisweep.multisweep_plain(_t(pa), _t(pb), _t(sa), _t(sb),
                                             words, beta=model.beta)
     assert torch.equal(got, want)
+
+
+def test_multisweep_wrapper_keys_by_global_sweep():
+    """``multisweep`` (JAX's entry): sweeps t0+1 .. t0+S under the keys of
+    their global index, densities of the launch's sums; it refuses a
+    lattice outside JAX's ``fits_vmem``."""
+    g = np.random.default_rng(6)
+    pa, pb, sa, sb = (_int16(g) for _ in range(4))
+    model = XY2D(nx=2 * HALF, ny=NY, kbt=KBT)
+    a, b = _t(pa), _t(pb)
+    a, b, dens = xy2d_multisweep.multisweep(model, a, b, _t(sa), _t(sb),
+                                            _key(), 3, n_or=1, t0=5)
+    qa, qb = _t(pa), _t(pb)
+    seeds = multispin_rng.sweep_phase_keys(_key(), 3, 5)
+    obs = xy2d_multisweep.multisweep_plain(qa, qb, _t(sa), _t(sb), seeds,
+                                           beta=model.beta, n_or=1)
+    assert torch.equal(a, qa) and torch.equal(b, qb)
+    for j, k in enumerate(("mx", "my", "e", "A")):
+        assert torch.equal(dens[k], obs[..., j] / model.nsites)
+    big = XY2D(nx=2048, ny=2048, kbt=KBT)
+    with pytest.raises(ValueError, match="fits_vmem"):
+        xy2d_multisweep.multisweep(big, a, b, a, b, _key(), 1)
 
 
 def test_or_only_conserves_energy():

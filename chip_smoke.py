@@ -30,7 +30,9 @@ clock), and the periodic XY angle engines under the JAX package's
 switches (SPINLAT_XY_PERIODIC_ANGLE=1: the literal 10000x10000 Metropolis
 relaxation, 2000x2000 x 32, over-relaxation at 4000x4000 and
 finite-magne at 1000x1000 on the f32-angle kernels; SPINLAT_XY_ANGLE_MS=1:
-from-disorder at 1536x1536 on the int16-angle multisweep); and holds
+from-disorder at 1536x1536 on the int16-angle multisweep), and periodic
+Ising 2-D and 3-D domain-sharded over a mesh of the card repeated
+(through protocols.run_relaxation, as `--mesh` runs them); and holds
 every kernel of those paths against its plain PyTorch version.
 Phases (each prints a progress line on stderr):
 
@@ -245,6 +247,16 @@ Phases (each prints a progress line on stderr):
    sigma; Var(m^2) of a Gaussian m from the curve's second moments); and
    every earlier XY class, run with neither switch set, launched no angle
    kernel;
+4m. periodic Ising on a mesh (parallel/domain.py) of the one card repeated,
+   through protocols.run_relaxation to .dat from all-up, each class's
+   table equal bit for bit to its unsharded class's (phases 4, 4b, 4h;
+   their first 200 rows where those ran 1000 MCS) and within 5 sigma of
+   the same reference curve at every t: packed 2-D 8192^2 x 4 on (1,4)
+   and on (2,2,2) (bit-row and word-column halos), 4 samples, 200 MCS;
+   packed 3-D 512^3 x 8 on (2,4), 8 samples, 200 MCS; int8 2-D 4000^2 x 8
+   on (1,2,2), 8 samples, 200 MCS; int8 3-D 500^3 x 2 on (2,2), 2 samples,
+   200 MCS; each class's rate beside its unsharded class's and the halo
+   kernels' launches;
 5. times with CUDA events, beside each kernel's bound and its plain
    version's time, at the main paths' launch shapes (the helical kernel
    at 128 x 1001x1000, S = 64; the clock phase kernel at 2000x2000 x 40,
@@ -292,7 +304,10 @@ Phases (each prints a progress line on stderr):
    kernel share of its wall, and the A/B of the two periodic engines
    (2000x2000 x 32 end to end and a sweep's kernels; the OR class).  The
    helical 3-D multisweep is timed alone at its class's S = 64 and held
-   against its plain version at S = 8 on the same lattice.
+   against its plain version at S = 8 on the same lattice.  The four
+   halo kernels at each mesh class's shard shape, plain and measuring
+   phases, Philox and injected words, each held against its plain
+   version, and each mesh class's kernel share of its wall.
 
 It prints the kernels' JSON line, the card's `nvidia-smi` name and power
 limit, and last the device line.  It exits non-zero, printing no result,
@@ -302,6 +317,7 @@ without a card, and when any phase fails.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -507,22 +523,65 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_time_ms(fn, launches: int, windows: int
+                  ) -> tuple[float, float, float]:
+    """Device time of one call of ``fn`` without the host's share:
+    ``launches`` calls captured in one CUDA graph, the graph replayed in
+    ``windows`` event-timed windows; (median, least, largest) ms a call
+    over the windows."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / launches)
+    del graph
+    times.sort()
+    return times[len(times) // 2], times[0], times[-1]
+
+
 def time_kernel(label: str, flips: int, fn, plain, nbytes: float,
                 ops: float, reps: int, plain_reps: int,
-                view=lambda out: out) -> tuple[dict, int]:
+                view=lambda out: out, graphed: bool = False
+                ) -> tuple[dict, int]:
     """CUDA-event time of a kernel's wrapper and of its plain version on
     the same inputs, beside the kernel's bound; ``flips`` is the flip
     attempts of one call.  Also the largest absolute difference between
-    the two calls' outputs (the tensors ``view`` picks from each)."""
+    the two calls' outputs (the tensors ``view`` picks from each).  With
+    ``graphed`` the kernel's time is :func:`graph_time_ms`'s median over
+    nine windows of ``reps`` captured launches, and its spread is logged
+    (a launch short enough for the wrapper's host work to show)."""
     last = {}
-    ms = cuda_time_ms(lambda: last.__setitem__("kernel", fn()), reps=reps)
+    spread = ""
+    if graphed:
+        last["kernel"] = fn()
+        ms, lo, hi = graph_time_ms(fn, reps, 9)
+        spread = f" (graph, {reps} launches x 9 windows: {lo:.4f}-{hi:.4f})"
+    else:
+        ms = cuda_time_ms(lambda: last.__setitem__("kernel", fn()),
+                          reps=reps)
     plain_ms = cuda_time_ms(lambda: last.__setitem__("plain", plain()),
                             reps=plain_reps, warmup=plain_reps - 1)
     err = max_abs_err(zip(view(last["kernel"]), view(last["plain"])))
     bound, by = bound_ms(nbytes, ops)
-    log(f"  {label}: {ms:.4f} ms/launch ({flips / ms * 1e3:.4g} flip "
-        f"attempts/s), plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); "
-        f"vs plain {err}")
+    log(f"  {label}: {ms:.4f} ms/launch{spread} ({flips / ms * 1e3:.4g} "
+        f"flip attempts/s), plain {plain_ms:.2f} ms, bound {bound:.4f} ms "
+        f"({by}); vs plain {err}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by}, err
 
@@ -4213,6 +4272,259 @@ def xya_shares(classes: dict, ta: dict) -> dict[str, float]:
     return shares
 
 
+# ---------------------------------------------------------------------------
+# periodic Ising on a mesh of the one card repeated (parallel/domain.py):
+# the four halo kernels (ising2d_multispin.py:783, ising3d_multispin.py:638,
+# ising2d_pallas.py:397, ising3d_pallas.py:237)
+# ---------------------------------------------------------------------------
+
+# (label, model, (nx, ny, nz), kbt, replicas, samples, MCS, mesh, the
+# module and counter of its halo kernel, the unsharded class's .dat and
+# label in its phase, the shard shape (R, lead, ..., w))
+MESH_CLASSES = (
+    ("packed 2-D 8192^2 x 4 (1,4)", "ising2d", (8192, 8192, 1), KBT, 4, 4,
+     200, (1, 4, 1), "ising2d", "ising2d_8192.dat",
+     "2-D streaming 8192^2 x 4", (4, 64, 4096)),
+    ("packed 2-D 8192^2 x 4 (2,2,2)", "ising2d", (8192, 8192, 1), KBT, 4, 4,
+     200, (2, 2, 2), "ising2d", "ising2d_8192.dat",
+     "2-D streaming 8192^2 x 4", (2, 128, 2048)),
+    ("packed 3-D 512^3 x 8 (2,4)", "ising3d", (512, 512, 512), KBT_3D, 8, 8,
+     200, (2, 4, 1), "ising3d", "ising3d_512.dat",
+     "3-D streaming 512^3 x 8", (4, 128, 16, 256)),
+    ("int8 2-D 4000^2 x 8 (1,2,2)", "ising2d", (4000, 4000, 1), KBT, 8, 8,
+     200, (1, 2, 2), "ising2d_int8", "ising2d_int8_4000.dat",
+     "2-D streamed 4000^2 x 8", (8, 2000, 1000)),
+    ("int8 3-D 500^3 x 2 (2,2)", "ising3d", (500, 500, 500), KBT_3D, 2, 2,
+     200, (2, 2, 1), "ising3d_int8", "ising3d_500.dat", "3-D 500^3 x 2",
+     (1, 250, 500, 250)),
+)
+# the halo kernel of each mesh module: (counter, JSON name, source, site)
+MESH_KERNELS = {
+    "ising2d": ("shard_phase", "ising2d_multispin.phase_kernel<true>",
+                "ising2d_multispin.cu", "ising2d_multispin.py:783"),
+    "ising3d": ("shard_phase", "ising3d_multispin.phase_kernel<true>",
+                "ising3d_multispin.cu", "ising3d_multispin.py:638"),
+    "ising2d_int8": ("halo_phase", "ising2d_pallas.phase_kernel<true, .>",
+                     "ising2d_pallas.cu", "ising2d_pallas.py:397"),
+    "ising3d_int8": ("halo_phase", "ising3d_pallas.phase_kernel<true, .>",
+                     "ising3d_pallas.cu", "ising3d_pallas.py:237"),
+}
+
+
+def run_mesh_classes(modules, out_dir, ref, ref3, dev, unsharded) -> dict:
+    """Phase 4m: each MESH_CLASSES class through protocols.run_relaxation
+    on its mesh of ``dev`` repeated, from all-up, launch counts set to 0
+    just before and read just after; its table equal bit for bit to the
+    unsharded class's (its first MCS rows), within 5 sigma of the curve at
+    every t, and the halo kernel launched 2·shards a sweep and no other
+    phase kernel.  ``unsharded`` maps the unsharded labels to their
+    rates.  Returns {label: (launches, wall, rate, largest |z|)}."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.config import RunConfig
+    from cuda_fortran_mc_simulation_spin_tpu_torch.engine import protocols
+
+    out = {}
+    for (label, model, (nx, ny, nz), kbt, nrep, samples, mcs, (dp, y, x),
+         mod, dat, base, _) in MESH_CLASSES:
+        log(f"phase 4m: mesh path, {label}, {samples} samples, {mcs} MCS")
+        cfg = RunConfig(model=model, nx=nx, ny=ny, nz=nz, kbt=kbt, mcs=mcs,
+                        tot_sample=samples, replicas=nrep, mesh_dp=dp,
+                        mesh_y=y, mesh_x=x)
+        nsites = nx * ny * nz
+        path = out_dir / f"mesh_{model}_{nx}_{dp}{y}{x}.dat"
+        for m in modules.values():
+            m.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with path.open("w") as f, open(os.devnull, "w") as err:
+            protocols.run_relaxation(cfg, out=f, err=err, device=dev,
+                                     mesh_devices=[dev] * (dp * y * x))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: dict(m.LAUNCHES) for name, m in modules.items()}
+        rate = nsites * mcs * samples / wall
+        head = [line for line in path.read_text().splitlines()
+                if line.startswith("#")]
+        engine = f"# engine: domain-sharded mesh ({dp},{y},{x})"
+        if engine not in head:
+            fail(f"mesh {label} took another route: {head}")
+        table = read_dat(path)
+        want = read_dat(out_dir / dat, max_t=mcs)
+        if table.shape != want.shape or not np.array_equal(table, want):
+            diff = (np.abs(table - want).max() if table.shape == want.shape
+                    else table.shape)
+            fail(f"mesh {label} differs from its unsharded class: {diff}")
+        if model == "ising2d":
+            z = check_against_reference(table, ref, nsites, samples, mcs,
+                                        range(1, mcs + 1))
+        else:
+            z = check_against_reference(
+                table, ref3, nsites, samples, mcs, range(1, mcs + 1),
+                ref_nsites=512 ** 3, ref_samples=int(ref3[0, 1]))
+        counter = MESH_KERNELS[mod][0]
+        want_n = 2 * dp * y * x * (samples // nrep) * mcs
+        phase_keys = ("phase", "shard_phase", "halo_phase")
+        got = {name: {k: v for k, v in n.items() if k in phase_keys and v}
+               for name, n in launches.items()}
+        if got != {**{name: {} for name in launches},
+                   mod: {counter: want_n}}:
+            fail(f"mesh {label} launched {got}, want {mod}.{counter} = "
+                 f"{want_n} and no other phase kernel")
+        ratio = rate / unsharded[base]
+        log(f"  {label}: {wall:.2f} s, {rate:.4g} flip attempts/s, "
+            f"{ratio:.3f} of the unsharded class's {unsharded[base]:.4g}; "
+            f"launches {mod}.{counter} {want_n}; bitwise equal to "
+            f"{dat}; largest |z| {z:.2f}")
+        out[label] = (launches, wall, rate, z, ratio)
+    return out
+
+
+def time_mesh_kernels(msb, ms3, i2p, i3p, rng, dev) -> dict:
+    """Each halo kernel at each mesh class's shard shape: phase a (Philox)
+    and the measuring phase b, CUDA events, the bound from the unsharded
+    kernel's per-word or per-site counts plus the halo bytes; each held
+    against its plain version there, and in injected mode at a small
+    shape.  Returns {label: (phase a times, phase b times, err)}."""
+    seeds = multispin_keys(rng, 1, 61)[0]
+    g = np.random.default_rng(67)
+
+    def words(shape):
+        return torch.from_numpy(g.integers(-2 ** 31, 2 ** 31, size=shape,
+                                           dtype=np.int64).astype(np.int32)
+                                ).to(dev)
+
+    def bits01(shape):
+        return torch.from_numpy(g.integers(0, 2, size=shape).astype(
+            np.int32)).to(dev)
+
+    out = {}
+    for (label, model, _, kbt, _, _, _, (_, _, x), mod, _, _,
+         shape) in MESH_CLASSES:
+        beta = 1.0 / kbt
+        nrep = shape[0]
+        cols = x > 1
+        if mod in ("ising2d", "ising3d"):
+            xw, ow = words(shape), words(shape)
+            if mod == "ising2d":
+                _, nyp, half = shape
+                halos = (bits01((nrep, 1, half)), bits01((nrep, 1, half)))
+                kw = (dict(halo_lf=words((nrep, nyp, 1)),
+                           halo_rt=words((nrep, nyp, 1))) if cols else {})
+                offs = (0, nyp, half) if cols else (0, nyp)
+                fn = msb.sharded_phase_packed
+                plain = msb.sharded_phase_packed_plain
+                per_word = functools.partial(phase_ops_per_word, msb, beta)
+                halo_bytes = 4 * nrep * (2 * half + (2 * nyp if cols else 0))
+                inject = {"b4": words(shape), "b8": words(shape)}
+            else:
+                halos = (words((nrep, 1) + shape[2:]),
+                         words((nrep, 1) + shape[2:]))
+                kw, offs = {}, (0, shape[1])
+                fn = ms3.sharded_phase3d_packed
+                plain = ms3.sharded_phase3d_packed_plain
+                per_word = functools.partial(phase3d_ops_per_word, msb, ms3,
+                                             beta)
+                halo_bytes = 4 * 2 * halos[0].numel()
+                inject = {k: words(shape) for k in ("b4", "b8", "b12")}
+            n = xw.numel()
+            flips = 32 * n
+
+            def call(f, color, measuring, extra=None, xw=xw, ow=ow,
+                     halos=halos, kw=kw, offs=offs, beta=beta):
+                return f(xw, ow, *halos, seeds[color], offs, color=color,
+                         beta=beta, measuring=measuring, **kw,
+                         **(extra or {}))
+
+            times = []
+            for color, measuring in ((0, False), (1, True)):
+                t, err = time_kernel(
+                    f"{label.split(' (')[0]} halo kernel {shape}, "
+                    f"{'measuring' if measuring else 'phase a'}", flips,
+                    functools.partial(call, fn, color, measuring),
+                    functools.partial(call, plain, color, measuring),
+                    12 * n + halo_bytes + (16 * nrep if measuring else 0),
+                    n * per_word(measuring), reps=50, plain_reps=1,
+                    view=lambda r: r if isinstance(r, tuple) else (r,),
+                    graphed=True)
+                times.append((t, err))
+            ierr = max_abs_err([(call(fn, 0, False, inject),
+                                 call(plain, 0, False, inject))])
+        else:
+            a, b = int8_state(dev, shape, 71)
+            dims = len(shape) - 1
+            if dims == 2:
+                _, L, half = shape
+                halos = tuple(int8_state(dev, (nrep, 1, half), 73))
+                cl = int8_state(dev, (nrep, L, 1), 79)
+                kw = dict(halo_lf=cl[0], halo_rt=cl[1]) if cols else {}
+                offs = (0, L, half) if cols else (0, L)
+                fn, plain = i2p.sharded_phase, i2p.sharded_phase_plain
+                halo_bytes = nrep * (2 * half + (2 * L if cols else 0))
+            else:
+                halos = tuple(int8_state(dev, (nrep, 1) + shape[2:], 73))
+                kw, offs = {}, (0, shape[1])
+                fn, plain = i3p.sharded_phase, i3p.sharded_phase_plain
+                halo_bytes = 2 * halos[0].numel()
+            sites = a.numel()
+
+            def call(f, color, measuring, x_, extra=None, b=b, halos=halos,
+                     kw=kw, offs=offs, beta=beta):
+                return f(x_, b, *halos, seeds[color], offs, color=color,
+                         beta=beta, measuring=measuring, **kw,
+                         **(extra or {}))
+
+            times = []
+            for color, measuring in ((0, False), (1, True)):
+                work = a.clone()
+                t, _ = time_kernel(
+                    f"{label.split(' (')[0]} halo kernel {shape}, "
+                    f"{'measuring' if measuring else 'phase a'}", sites,
+                    functools.partial(call, fn, color, measuring, work),
+                    functools.partial(call, plain, color, measuring, a),
+                    INT8_PHASE_BYTES * sites + halo_bytes
+                    + (16 * nrep if measuring else 0),
+                    sites * (int8_phase_ops(dims)
+                             + (OPS_INT8_FUSED if measuring else 0)),
+                    reps=50, plain_reps=1, view=lambda r: (),
+                    graphed=True)
+                got = call(fn, color, measuring, a.clone())
+                want = call(plain, color, measuring, a)
+                err = max_abs_err(zip(got if measuring else (got,),
+                                      want if measuring else (want,)))
+                times.append((t, err))
+            small = tuple(min(v, 64) for v in shape)
+            bits = torch.from_numpy(g.integers(
+                -2 ** 31, 2 ** 31, size=small, dtype=np.int64).astype(
+                    np.int32)).to(dev)
+            sa, sb = int8_state(dev, small, 83)
+            sh = (sb[:, :1].contiguous(), sb[:, -1:].contiguous())
+            skw = {k: v[:small[0], :small[1]].contiguous()
+                   for k, v in kw.items()}
+            ierr = max_abs_err([(
+                fn(sa.clone(), sb, *sh, seeds[0], offs, color=0, beta=beta,
+                   bits=bits, **skw),
+                plain(sa, sb, *sh, seeds[0], offs, color=0, beta=beta,
+                      bits=bits, **skw))])
+        err = max(times[0][1], times[1][1], ierr)
+        log(f"  {label}: injected mode vs plain {ierr}")
+        out[label] = (times[0][0], times[1][0], err)
+    return out
+
+
+def mesh_shares(classes: dict, tm: dict) -> dict[str, float]:
+    """Each mesh class's kernel time (its sweeps' phase a and b launches
+    at the times measured at its shard shape) over its wall."""
+    shares = {}
+    for (label, *_, mcs, (dp, y, x), mod, _, _, _) in MESH_CLASSES:
+        launches, wall = classes[label][:2]
+        n = launches[mod][MESH_KERNELS[mod][0]]
+        ta, tb, _ = tm[label]
+        kern = n / 2 * (ta["ms"] + tb["ms"])
+        shares[label] = kern / (wall * 1e3)
+        log(f"  mesh {label}: kernel {kern / 1e3:.3f} s of a {wall:.3f} s "
+            f"wall; kernel share {shares[label]:.3f}")
+    return shares
+
+
 def read_dat(path: Path, max_t: int | None = None) -> np.ndarray:
     """A .dat table's rows; with ``max_t`` only those up to t = max_t
     (the clock curves run to 10^5 sweeps)."""
@@ -4760,6 +5072,16 @@ def main() -> int:
         # 4l. the periodic XY angle engines under the JAX switches
         xya_cls = run_xya_classes(cli_main, modules, out, ref_xy, ref_xy10k,
                                   ref_xy_or, ref_fm, ref_fd)
+        # 4m. periodic Ising on a mesh of the card repeated, bitwise against
+        # the unsharded classes' tables
+        t_mesh = time.perf_counter()
+        mesh_cls = run_mesh_classes(
+            modules, out, ref, ref3, dev,
+            {"2-D streaming 8192^2 x 4": str_rate,
+             "3-D streaming 512^3 x 8": s3_rate,
+             **{k: int8[k][2] for k in ("2-D streamed 4000^2 x 8",
+                                        "3-D 500^3 x 2")}})
+        mesh_wall = time.perf_counter() - t_mesh
     # with neither switch set the XY classes kept their engines
     for p in (xo_launch, xm_launch, *(d[0] for d in disorder.values()),
               *(h[0] for h in helical.values())):
@@ -4774,7 +5096,8 @@ def main() -> int:
              *(c[0] for c in int8.values()),
              *(c[0] for c in clock8.values()),
              *(c[0] for c in hpc.values()),
-             *(c[0] for c in xya_cls.values()))
+             *(c[0] for c in xya_cls.values()),
+             *(c[0] for c in mesh_cls.values()))
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -5240,6 +5563,26 @@ def main() -> int:
         f"component {t_x2['ms'] + t_x2m['ms']:.4f} ms; OR 4000^2 x 8: angle "
         f"{xya_cls['OR 4000^2 x 8'][2]:.4g}, component {xo_rate:.4g}")
 
+    # the halo kernels at the mesh classes' shard shapes, each mesh class's
+    # kernel share of its wall
+    t_mesh5 = time.perf_counter()
+    tm = time_mesh_kernels(msb, ms3, i2p, i3p, rng, dev)
+    if max(v[2] for v in tm.values()) != 0:
+        fail(f"a halo kernel differs from its plain version at its shard "
+             f"shape ({ {k: v[2] for k, v in tm.items()} })")
+    mesh_share = mesh_shares(mesh_cls, tm)
+    mesh_wall += time.perf_counter() - t_mesh5
+    log(f"  phase 4m and its phase-5 rows took {mesh_wall:.1f} s")
+
+    def mesh_row(mod: str, first: str):
+        """The JSON row of a halo kernel: its launches over the mesh
+        classes, its largest error over them, and its times at its first
+        class's shard shape (the measuring phase)."""
+        counter, name, cu, site = MESH_KERNELS[mod]
+        errs = [tm[c[0]][2] for c in MESH_CLASSES if c[8] == mod]
+        return (name, cu, site, launched(mod, counter), max(errs),
+                tm[first][1])
+
     src = "cuda_fortran_mc_simulation_spin_tpu_torch/csrc/"
     ref_py = "cuda_fortran_mc_simulation_spin_tpu/ops/"
     rows = [
@@ -5365,6 +5708,10 @@ def main() -> int:
          "xy2d_multisweep.py:325", launched("xy_int16", "multisweep"),
          max(err_xyi, rel_xyi, ea["int16 S=64"], ea["int16 S=40"]),
          ta["int16 S=64"][0]),
+        mesh_row("ising2d", "packed 2-D 8192^2 x 4 (1,4)"),
+        mesh_row("ising3d", "packed 3-D 512^3 x 8 (2,4)"),
+        mesh_row("ising2d_int8", "int8 2-D 4000^2 x 8 (1,2,2)"),
+        mesh_row("ising3d_int8", "int8 3-D 500^3 x 2 (2,2)"),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -5454,6 +5801,11 @@ def main() -> int:
         f"{xya_share[label]:.3f})"
         for label, (_, wall, rate, z) in xya_cls.items())
         + f"; sums' relative error {max(rel_xya, rel_xyi):.3g}")
+    log("main path mesh (one card repeated): " + "; ".join(
+        f"{label} {rate:.4g} flip attempts/s ({wall:.2f} s, largest |z| "
+        f"{z:.2f}, {ratio:.3f} of the unsharded rate, kernel share "
+        f"{mesh_share[label]:.3f})"
+        for label, (_, wall, rate, z, ratio) in mesh_cls.items()))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

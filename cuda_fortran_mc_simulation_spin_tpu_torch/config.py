@@ -72,7 +72,8 @@ class RunConfig:
     max_samples_this_run: int | None = None
 
     # multi-device mesh of the JAX package (replicas over dp, rows over
-    # y, colour-array columns over x); the port serves (1, 1, 1)
+    # y, colour-array columns over x); the port serves it for the
+    # periodic Ising models
     mesh_dp: int = 1
     mesh_y: int = 1
     mesh_x: int = 1

@@ -1,7 +1,8 @@
 // Bit-packed (multispin) checkerboard Metropolis for the 2-D Ising
-// model on Hopper (sm_90a): the two kernels of the relaxation main path.
+// model on Hopper (sm_90a): the kernels of the relaxation main path and
+// of its domain-decomposed (mesh) form.
 //
-//   phase_kernel      replaces cuda_fortran_mc_simulation_spin_tpu/ops/
+//   phase_kernel<false> replaces cuda_fortran_mc_simulation_spin_tpu/ops/
 //                     ising2d_multispin.py:_phase_kernel (pallas_call at
 //                     :355 _metropolis_phase_packed and :393
 //                     phase_packed_with_bits).  One colour phase; a
@@ -10,6 +11,19 @@
 //   multisweep_kernel replaces ising2d_multispin.py:_ms_kernel (pallas_call
 //                     at :495 _multisweep_packed).  S full sweeps with the
 //                     (m, e) of every sweep, in one cooperative launch.
+//   phase_kernel<true> replaces ising2d_multispin.py:_sharded_phase_kernel
+//                     (pallas_call at :783 sharded_phase_packed).  The
+//                     same phase on a shard of a (y[, x]) mesh
+//                     (parallel/domain.py): the carry into word row 0 is
+//                     the exchanged bit of the row above (bit 0 of a 0/1
+//                     plane, spliced in at bit 31 as JAX splices it), the
+//                     carry out of the last word row the bit below; with
+//                     an x split the words left of column 0 and right of
+//                     the last are exchanged word columns.  The Philox
+//                     counter is (rep0 + r, wrow0 + Y, col0 + X, draw / 4),
+//                     the word's global position, so a sharded run equals
+//                     the unsharded one bit for bit.  The edge tiles of a
+//                     shard may be partial: any shard shape runs.
 //
 // Layout: (R, nyp, half) int32 planes, one per colour; bit k of word row
 // Y is lattice row 32Y+k (ops/ising2d_multispin.pack_color).  What is
@@ -75,11 +89,22 @@ struct PhaseArgs {
   int nyp, half, color;
   uint2 key;             // Philox key of this (sample, t, phase)
   uint32_t q4, q8;       // chain digits: round(p * 2^20)
+  // A shard's halos and global offsets (read only by phase_tile<true>):
+  const uint32_t* hup;   // (R, 1, half) 0/1: the site above word row 0
+  const uint32_t* hdn;   // (R, 1, half) 0/1: the site below the last
+  const uint32_t* hlf;   // (R, nyp, 1) word column left of column 0, or null
+  const uint32_t* hrt;   // (R, nyp, 1) right of the last, or null
+  uint32_t rep0, wrow0, col0;
 };
 
 // One tile of one colour phase.  Every thread of the block calls it
 // with the same (r, y0, x0); it ends with a barrier, so the caller may
-// reuse the shared tile at once.
+// reuse the shared tile at once.  HALO: the planes are a shard's, whose
+// neighbours past word row 0 and the last (and, when hlf is set, past
+// column 0 and the last) are its halos, and whose Philox counter is
+// offset by (rep0, wrow0, col0); its edge tiles may be partial, so any
+// shard shape runs.  Otherwise the planes are periodic and tile whole.
+template <bool HALO>
 __device__ __forceinline__ void phase_tile(
     const PhaseArgs& a, int r, int y0, int x0,
     uint32_t (&tile)[TILE_Y + 2][TILE_X + 2]) {
@@ -90,63 +115,85 @@ __device__ __forceinline__ void phase_tile(
   const size_t base = static_cast<size_t>(r) * nyp * half;
   const uint32_t* o = reinterpret_cast<const uint32_t*>(a.o) + base;
   const int Y = y0 + ty, X = x0 + tx;
-  const size_t idx = static_cast<size_t>(Y) * half + X;
+  const bool in = !HALO || (Y < nyp && X < half);
+  const size_t row = static_cast<size_t>(Y) * half;
+  const size_t idx = row + X;
 
   // __ldcg: the multisweep kernel rewrites the planes between grid
-  // barriers, so loads bypass the (non-coherent) L1.
-  tile[ty + 1][tx + 1] = __ldcg(o + idx);
-  if (ty == 0)
-    tile[0][tx + 1] =
-        __ldcg(o + static_cast<size_t>((y0 - 1 + nyp) % nyp) * half + X);
-  if (ty == TILE_Y - 1)
-    tile[TILE_Y + 1][tx + 1] =
-        __ldcg(o + static_cast<size_t>((y0 + TILE_Y) % nyp) * half + X);
-  if (tx == 0)
-    tile[ty + 1][0] = __ldcg(o + static_cast<size_t>(Y) * half +
-                             (x0 - 1 + half) % half);
-  if (tx == TILE_X - 1)
-    tile[ty + 1][TILE_X + 1] =
-        __ldcg(o + static_cast<size_t>(Y) * half + (x0 + TILE_X) % half);
+  // barriers, so loads bypass the (non-coherent) L1.  The thread of the
+  // last row (column) also loads the row (column) past it, which in a
+  // partial tile lies inside the shared tile.
+  if (in) {
+    tile[ty + 1][tx + 1] = __ldcg(o + idx);
+    if (ty == 0)
+      tile[0][tx + 1] =
+          HALO && y0 == 0
+              ? __ldcg(a.hup + static_cast<size_t>(r) * half + X) << 31
+              : __ldcg(o + static_cast<size_t>((y0 - 1 + nyp) % nyp) * half +
+                       X);
+    if (ty == TILE_Y - 1 || (HALO && Y == nyp - 1))
+      tile[ty + 2][tx + 1] =
+          HALO && Y == nyp - 1
+              ? __ldcg(a.hdn + static_cast<size_t>(r) * half + X)
+              : __ldcg(o + static_cast<size_t>((Y + 1) % nyp) * half + X);
+    const size_t col = static_cast<size_t>(r) * nyp + Y;
+    if (tx == 0)
+      tile[ty + 1][0] = HALO && x0 == 0 && a.hlf != nullptr
+                            ? __ldcg(a.hlf + col)
+                            : __ldcg(o + row + (x0 - 1 + half) % half);
+    if (tx == TILE_X - 1 || (HALO && X == half - 1))
+      tile[ty + 1][tx + 2] = HALO && X == half - 1 && a.hrt != nullptr
+                                 ? __ldcg(a.hrt + col)
+                                 : __ldcg(o + row + (X + 1) % half);
+  }
   __syncthreads();
 
-  const uint32_t oc = tile[ty + 1][tx + 1];
-  const uint32_t o_prev = tile[ty][tx + 1];
-  const uint32_t o_next = tile[ty + 2][tx + 1];
-  const uint32_t minus = tile[ty + 1][tx];
-  const uint32_t plus = tile[ty + 1][tx + 2];
-  const uint32_t x =
-      __ldcg(reinterpret_cast<const uint32_t*>(a.x_in) + base + idx);
+  int m = 0, e = 0;
+  if (in) {
+    const uint32_t oc = tile[ty + 1][tx + 1];
+    const uint32_t o_prev = tile[ty][tx + 1];
+    const uint32_t o_next = tile[ty + 2][tx + 1];
+    const uint32_t minus = tile[ty + 1][tx];
+    const uint32_t plus = tile[ty + 1][tx + 2];
+    const uint32_t x =
+        __ldcg(reinterpret_cast<const uint32_t*>(a.x_in) + base + idx);
 
-  const uint32_t up = (oc << 1) | (o_prev >> 31);
-  const uint32_t dn = (oc >> 1) | (o_next << 31);
-  const uint32_t side = a.color == 0 ? (plus & ODD_BITS) | (minus & EVEN_BITS)
-                                     : (minus & ODD_BITS) | (plus & EVEN_BITS);
-  uint32_t ones, twos, fours;
-  count4(up, dn, oc, side, ones, twos, fours);
+    const uint32_t up = (oc << 1) | (o_prev >> 31);
+    const uint32_t dn = (oc >> 1) | (o_next << 31);
+    const uint32_t side = a.color == 0
+                              ? (plus & ODD_BITS) | (minus & EVEN_BITS)
+                              : (minus & ODD_BITS) | (plus & EVEN_BITS);
+    uint32_t ones, twos, fours;
+    count4(up, dn, oc, side, ones, twos, fours);
 
-  uint32_t b4, b8;
-  if (a.b4 != nullptr) {
-    b4 = __ldcg(reinterpret_cast<const uint32_t*>(a.b4) + base + idx);
-    b8 = __ldcg(reinterpret_cast<const uint32_t*>(a.b8) + base + idx);
-  } else {
-    WordStream s(static_cast<uint32_t>(r), static_cast<uint32_t>(Y),
-                 static_cast<uint32_t>(X), a.key);
-    b4 = bern_word(s, a.q4);
-    b8 = bern_word(s, a.q8);
+    uint32_t b4, b8;
+    if (a.b4 != nullptr) {
+      b4 = __ldcg(reinterpret_cast<const uint32_t*>(a.b4) + base + idx);
+      b8 = __ldcg(reinterpret_cast<const uint32_t*>(a.b8) + base + idx);
+    } else {
+      WordStream s(static_cast<uint32_t>(r) + (HALO ? a.rep0 : 0u),
+                   static_cast<uint32_t>(Y) + (HALO ? a.wrow0 : 0u),
+                   static_cast<uint32_t>(X) + (HALO ? a.col0 : 0u), a.key);
+      b4 = bern_word(s, a.q4);
+      b8 = bern_word(s, a.q8);
+    }
+    const uint32_t nw = x ^ flip4(x, ones, twos, fours, b4, b8);
+    reinterpret_cast<uint32_t*>(a.x_out)[base + idx] = nw;
+
+    if (a.obs != nullptr) {
+      // s = 2*bit - 1, neighbour sum = 2c - 4: this word's 32 sites give
+      // m = 2(pc(new) + pc(oc)) - 64 and
+      // e = -(4 pc(new & c) - 8 pc(new) - 2 pc(c) + 128)  (every bond once)
+      const int s_x = __popc(nw);
+      const int s_c = __popc(ones) + 2 * __popc(twos) + 4 * __popc(fours);
+      const int s_xc = __popc(nw & ones) + 2 * __popc(nw & twos) +
+                       4 * __popc(nw & fours);
+      m = 2 * (s_x + __popc(oc)) - 64;
+      e = -(4 * s_xc - 8 * s_x - 2 * s_c + 128);
+    }
   }
-  const uint32_t nw = x ^ flip4(x, ones, twos, fours, b4, b8);
-  reinterpret_cast<uint32_t*>(a.x_out)[base + idx] = nw;
 
   if (a.obs != nullptr) {
-    // s = 2*bit - 1, neighbour sum = 2c - 4: this word's 32 sites give
-    // m = 2(pc(new) + pc(oc)) - 64 and
-    // e = -(4 pc(new & c) - 8 pc(new) - 2 pc(c) + 128)  (every bond once)
-    const int s_x = __popc(nw);
-    const int s_c = __popc(ones) + 2 * __popc(twos) + 4 * __popc(fours);
-    const int s_xc = __popc(nw & ones) + 2 * __popc(nw & twos) +
-                     4 * __popc(nw & fours);
-    int m = 2 * (s_x + __popc(oc)) - 64;
-    int e = -(4 * s_xc - 8 * s_x - 2 * s_c + 128);
 #pragma unroll
     for (int off = 16; off; off >>= 1) {
       m += __shfl_down_sync(0xFFFFFFFFu, m, off);
@@ -174,10 +221,12 @@ __device__ __forceinline__ void phase_tile(
   __syncthreads();
 }
 
+template <bool HALO>
 __global__ void __launch_bounds__(TILE_X * TILE_Y)
     phase_kernel(PhaseArgs a) {
   __shared__ uint32_t tile[TILE_Y + 2][TILE_X + 2];
-  phase_tile(a, blockIdx.z, blockIdx.y * TILE_Y, blockIdx.x * TILE_X, tile);
+  phase_tile<HALO>(a, blockIdx.z, blockIdx.y * TILE_Y, blockIdx.x * TILE_X,
+                   tile);
 }
 
 struct MultisweepArgs {
@@ -215,7 +264,7 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y)
   const int tiles = a.nrep * tiles_rep;
   for (int s = 0; s < a.sweeps; ++s) {
     for (int phase = 0; phase < 2; ++phase) {
-      PhaseArgs p;
+      PhaseArgs p{};
       p.x_in = phase ? a.wb : a.wa;
       p.x_out = phase ? a.wb : a.wa;
       p.o = phase ? a.wa : a.wb;
@@ -234,7 +283,8 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y)
         const int r = t / tiles_rep;
         const int rem = t - r * tiles_rep;
         const int tyi = rem / tiles_x;
-        phase_tile(p, r, tyi * TILE_Y, (rem - tyi * tiles_x) * TILE_X, tile);
+        phase_tile<false>(p, r, tyi * TILE_Y, (rem - tyi * tiles_x) * TILE_X,
+                          tile);
       }
       grid.sync();
     }
@@ -253,7 +303,7 @@ int ising2d_phase(const void* x_in, void* x_out, const void* o,
                   int nyp, int half, int color, unsigned int s0,
                   unsigned int s1, unsigned int q4, unsigned int q8,
                   void* stream) {
-  PhaseArgs a;
+  PhaseArgs a{};
   a.x_in = static_cast<const int32_t*>(x_in);
   a.x_out = static_cast<int32_t*>(x_out);
   a.o = static_cast<const int32_t*>(o);
@@ -268,8 +318,50 @@ int ising2d_phase(const void* x_in, void* x_out, const void* o,
   a.q4 = q4;
   a.q8 = q8;
   const dim3 grid(half / TILE_X, nyp / TILE_Y, nrep);
-  phase_kernel<<<grid, dim3(TILE_X, TILE_Y), 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
+  phase_kernel<false><<<grid, dim3(TILE_X, TILE_Y), 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One colour phase of a shard: grid (ceil(half/32), ceil(nyp/8), R).
+// hup/hdn are (R, 1, half) 0/1 planes; hlf/hrt (R, nyp, 1) word columns
+// or null (no x split); (rep0, wrow0, col0) the shard's global replica,
+// word row and word column; b4/b8 injected planes or null; obs an (R, 2)
+// int64 buffer zeroed by the caller, or null.
+int ising2d_shard_phase(const void* x_in, void* x_out, const void* o,
+                        const void* hup, const void* hdn, const void* hlf,
+                        const void* hrt, const void* b4, const void* b8,
+                        void* obs, int nrep, int nyp, int half, int color,
+                        unsigned int rep0, unsigned int wrow0,
+                        unsigned int col0, unsigned int s0, unsigned int s1,
+                        unsigned int q4, unsigned int q8, void* stream) {
+  if (nrep < 1 || nrep > 65535 || nyp < 1 || half < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PhaseArgs a{};
+  a.x_in = static_cast<const int32_t*>(x_in);
+  a.x_out = static_cast<int32_t*>(x_out);
+  a.o = static_cast<const int32_t*>(o);
+  a.b4 = static_cast<const int32_t*>(b4);
+  a.b8 = static_cast<const int32_t*>(b8);
+  a.obs = static_cast<long long*>(obs);
+  a.obs_stride = 2;
+  a.nyp = nyp;
+  a.half = half;
+  a.color = color;
+  a.key = make_uint2(s0, s1);
+  a.q4 = q4;
+  a.q8 = q8;
+  a.hup = static_cast<const uint32_t*>(hup);
+  a.hdn = static_cast<const uint32_t*>(hdn);
+  a.hlf = static_cast<const uint32_t*>(hlf);
+  a.hrt = static_cast<const uint32_t*>(hrt);
+  a.rep0 = rep0;
+  a.wrow0 = wrow0;
+  a.col0 = col0;
+  const dim3 grid((half + TILE_X - 1) / TILE_X, (nyp + TILE_Y - 1) / TILE_Y,
+                  nrep);
+  phase_kernel<true><<<grid, dim3(TILE_X, TILE_Y), 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 // Bit-packed (multispin) checkerboard Metropolis for the 3-D Ising model
-// on Hopper (sm_90a): the two kernels of the periodic 3-D relaxation.
+// on Hopper (sm_90a): the kernels of the periodic 3-D relaxation and of
+// its domain-decomposed (mesh) form.
 //
-//   phase_kernel      replaces cuda_fortran_mc_simulation_spin_tpu/ops/
+//   phase_kernel<false> replaces cuda_fortran_mc_simulation_spin_tpu/ops/
 //                     ising3d_multispin.py:_phase_kernel (pallas_call at
 //                     :227 _metropolis_phase3d and :258
 //                     phase3d_packed_with_bits).  One colour phase; a
@@ -11,6 +12,18 @@
 //                     (pallas_call at :409 _multisweep_packed3d).  S full
 //                     sweeps with the (m, e) of every sweep, in one
 //                     cooperative launch.
+//   phase_kernel<true> replaces ising3d_multispin.py:_sharded_phase3d_kernel
+//                     (pallas_call at :638 sharded_phase3d_packed).  The
+//                     same phase on a z-shard of a (dp, y) mesh
+//                     (parallel/domain.py): the planes before z 0 and
+//                     after the last are the exchanged packed halo planes
+//                     (whole word planes: z neighbours share bit
+//                     positions); the side masks follow the global z
+//                     parity, and the Philox counter is (rep0 + r,
+//                     (z0 + z) * nyp + Y, X, draw / 4), so a sharded run
+//                     equals the unsharded one bit for bit.  The edge
+//                     tiles of a shard may be partial: any shard shape
+//                     runs.
 //
 // Layout: (R, nz, nyp, half) int32 volumes, one per colour; bit k of word
 // row Y of plane z is lattice row 32Y+k (the JAX package's layout).  Per
@@ -72,18 +85,28 @@ struct Phase3Args {
   int nz, nyp, half, color;
   uint2 key;             // Philox key of this (sample, t, phase)
   uint32_t q4, q8, q12;  // chain digits: round(p * 2^20)
+  // A z-shard's halos and global offsets (read only by phase_tile<true>):
+  const uint32_t* hzm;   // (R, 1, nyp, half) the plane before z 0
+  const uint32_t* hzp;   // (R, 1, nyp, half) the plane after the last
+  uint32_t rep0, z0;
 };
 
 // One tile (8 word rows x 32 words of one z-plane of one replica) of one
 // colour phase.  Every thread of the block calls it with the same tile
 // index; with obs it ends with a block reduction, so all threads must
-// call it.
+// call it.  HALO: the volume is a z-shard's, whose planes before z 0 and
+// after the last are its halos, whose side masks follow the global z
+// parity and whose Philox counter is offset by (rep0, z0); its edge
+// tiles may be partial, so any shard shape runs.  Otherwise the volume
+// is periodic and tiles whole.
+template <bool HALO>
 __device__ __forceinline__ void phase_tile(const Phase3Args& a, int tile) {
   __shared__ long long red_m[TILE_Y];
   __shared__ long long red_e[TILE_Y];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int nz = a.nz, nyp = a.nyp, half = a.half;
-  const int tiles_x = half / TILE_X, tiles_y = nyp / TILE_Y;
+  const int tiles_x = (half + TILE_X - 1) / TILE_X;
+  const int tiles_y = (nyp + TILE_Y - 1) / TILE_Y;
   const int X = (tile % tiles_x) * TILE_X + tx;
   int rest = tile / tiles_x;
   const int Y = (rest % tiles_y) * TILE_Y + ty;
@@ -91,64 +114,77 @@ __device__ __forceinline__ void phase_tile(const Phase3Args& a, int tile) {
   const int z = rest % nz;
   const int r = rest / nz;
 
-  const size_t plane = static_cast<size_t>(nyp) * half;
-  const size_t rep = static_cast<size_t>(r) * nz * plane;
-  const size_t pz = rep + z * plane;
-  const size_t row = pz + static_cast<size_t>(Y) * half;
-  const size_t idx = row + X;
-  // __ldcg: the multisweep kernel rewrites the volumes between grid
-  // barriers, so loads bypass the (non-coherent) L1.
-  const uint32_t* o = a.o;
-  const uint32_t oc = __ldcg(o + idx);
-  const uint32_t o_prev =
-      __ldcg(o + pz + static_cast<size_t>((Y - 1 + nyp) % nyp) * half + X);
-  const uint32_t o_next =
-      __ldcg(o + pz + static_cast<size_t>((Y + 1) % nyp) * half + X);
-  const uint32_t minus = __ldcg(o + row + (X - 1 + half) % half);
-  const uint32_t plus = __ldcg(o + row + (X + 1) % half);
-  const size_t in_plane = static_cast<size_t>(Y) * half + X;
-  const uint32_t zm =
-      __ldcg(o + rep + static_cast<size_t>((z - 1 + nz) % nz) * plane + in_plane);
-  const uint32_t zp =
-      __ldcg(o + rep + static_cast<size_t>((z + 1) % nz) * plane + in_plane);
-  const uint32_t x = __ldcg(a.x_in + idx);
+  int m = 0, e = 0;
+  if (!HALO || (Y < nyp && X < half)) {
+    const size_t plane = static_cast<size_t>(nyp) * half;
+    const size_t rep = static_cast<size_t>(r) * nz * plane;
+    const size_t pz = rep + z * plane;
+    const size_t row = pz + static_cast<size_t>(Y) * half;
+    const size_t idx = row + X;
+    // __ldcg: the multisweep kernel rewrites the volumes between grid
+    // barriers, so loads bypass the (non-coherent) L1.
+    const uint32_t* o = a.o;
+    const uint32_t oc = __ldcg(o + idx);
+    const uint32_t o_prev =
+        __ldcg(o + pz + static_cast<size_t>((Y - 1 + nyp) % nyp) * half + X);
+    const uint32_t o_next =
+        __ldcg(o + pz + static_cast<size_t>((Y + 1) % nyp) * half + X);
+    const uint32_t minus = __ldcg(o + row + (X - 1 + half) % half);
+    const uint32_t plus = __ldcg(o + row + (X + 1) % half);
+    const size_t in_plane = static_cast<size_t>(Y) * half + X;
+    const size_t halo = static_cast<size_t>(r) * plane + in_plane;
+    const uint32_t zm =
+        HALO && z == 0
+            ? __ldcg(a.hzm + halo)
+            : __ldcg(o + rep + static_cast<size_t>((z - 1 + nz) % nz) * plane +
+                     in_plane);
+    const uint32_t zp =
+        HALO && z == nz - 1
+            ? __ldcg(a.hzp + halo)
+            : __ldcg(o + rep + static_cast<size_t>((z + 1) % nz) * plane +
+                     in_plane);
+    const uint32_t x = __ldcg(a.x_in + idx);
 
-  const uint32_t up = (oc << 1) | (o_prev >> 31);
-  const uint32_t dn = (oc >> 1) | (o_next << 31);
-  const uint32_t modd = (z & 1) ? EVEN_BITS : ODD_BITS;
-  const uint32_t meven = (z & 1) ? ODD_BITS : EVEN_BITS;
-  const uint32_t side = a.color == 0 ? (plus & modd) | (minus & meven)
-                                     : (minus & modd) | (plus & meven);
-  uint32_t b1, b2, b4c;
-  count6(zm, zp, up, dn, oc, side, b1, b2, b4c);
+    const uint32_t zg = static_cast<uint32_t>(z) + (HALO ? a.z0 : 0u);
+    const uint32_t up = (oc << 1) | (o_prev >> 31);
+    const uint32_t dn = (oc >> 1) | (o_next << 31);
+    const uint32_t modd = (zg & 1u) ? EVEN_BITS : ODD_BITS;
+    const uint32_t meven = (zg & 1u) ? ODD_BITS : EVEN_BITS;
+    const uint32_t side = a.color == 0 ? (plus & modd) | (minus & meven)
+                                       : (minus & modd) | (plus & meven);
+    uint32_t b1, b2, b4c;
+    count6(zm, zp, up, dn, oc, side, b1, b2, b4c);
 
-  uint32_t p4, p8, p12;
-  if (a.b4 != nullptr) {
-    p4 = __ldcg(a.b4 + idx);
-    p8 = __ldcg(a.b8 + idx);
-    p12 = __ldcg(a.b12 + idx);
-  } else {
-    WordStream s(static_cast<uint32_t>(r),
-                 static_cast<uint32_t>(z) * static_cast<uint32_t>(nyp) +
-                     static_cast<uint32_t>(Y),
-                 static_cast<uint32_t>(X), a.key);
-    p4 = bern_word(s, a.q4);
-    p8 = bern_word(s, a.q8);
-    p12 = bern_word(s, a.q12);
+    uint32_t p4, p8, p12;
+    if (a.b4 != nullptr) {
+      p4 = __ldcg(a.b4 + idx);
+      p8 = __ldcg(a.b8 + idx);
+      p12 = __ldcg(a.b12 + idx);
+    } else {
+      WordStream s(static_cast<uint32_t>(r) + (HALO ? a.rep0 : 0u),
+                   zg * static_cast<uint32_t>(nyp) + static_cast<uint32_t>(Y),
+                   static_cast<uint32_t>(X), a.key);
+      p4 = bern_word(s, a.q4);
+      p8 = bern_word(s, a.q8);
+      p12 = bern_word(s, a.q12);
+    }
+    const uint32_t nw = x ^ flip6(x, b1, b2, b4c, p4, p8, p12);
+    a.x_out[idx] = nw;
+
+    if (a.obs != nullptr) {
+      // s = 2*bit - 1, neighbour sum = 2c - 6: this word's 32 sites give
+      // m = 2(pc(new) + pc(oc)) - 64 and
+      // e = -(4 pc(new & c) - 12 pc(new) - 2 pc(c) + 192)  (every bond once)
+      const int s_x = __popc(nw);
+      const int s_c = __popc(b1) + 2 * __popc(b2) + 4 * __popc(b4c);
+      const int s_xc =
+          __popc(nw & b1) + 2 * __popc(nw & b2) + 4 * __popc(nw & b4c);
+      m = 2 * (s_x + __popc(oc)) - 64;
+      e = -(4 * s_xc - 12 * s_x - 2 * s_c + 192);
+    }
   }
-  const uint32_t nw = x ^ flip6(x, b1, b2, b4c, p4, p8, p12);
-  a.x_out[idx] = nw;
 
   if (a.obs != nullptr) {
-    // s = 2*bit - 1, neighbour sum = 2c - 6: this word's 32 sites give
-    // m = 2(pc(new) + pc(oc)) - 64 and
-    // e = -(4 pc(new & c) - 12 pc(new) - 2 pc(c) + 192)  (every bond once)
-    const int s_x = __popc(nw);
-    const int s_c = __popc(b1) + 2 * __popc(b2) + 4 * __popc(b4c);
-    const int s_xc =
-        __popc(nw & b1) + 2 * __popc(nw & b2) + 4 * __popc(nw & b4c);
-    int m = 2 * (s_x + __popc(oc)) - 64;
-    int e = -(4 * s_xc - 12 * s_x - 2 * s_c + 192);
 #pragma unroll
     for (int off = 16; off; off >>= 1) {
       m += __shfl_down_sync(0xFFFFFFFFu, m, off);
@@ -175,9 +211,10 @@ __device__ __forceinline__ void phase_tile(const Phase3Args& a, int tile) {
   }
 }
 
+template <bool HALO>
 __global__ void __launch_bounds__(TILE_X * TILE_Y)
     phase_kernel(Phase3Args a) {
-  phase_tile(a, blockIdx.x);
+  phase_tile<HALO>(a, blockIdx.x);
 }
 
 struct Multisweep3Args {
@@ -212,7 +249,7 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y)
       a.nrep * a.nz * (a.nyp / TILE_Y) * (a.half / TILE_X);
   for (int s = 0; s < a.sweeps; ++s) {
     for (int phase = 0; phase < 2; ++phase) {
-      Phase3Args p;
+      Phase3Args p{};
       p.x_in = phase ? a.wb : a.wa;
       p.x_out = phase ? a.wb : a.wa;
       p.o = phase ? a.wa : a.wb;
@@ -230,7 +267,7 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y)
       p.q4 = a.q4;
       p.q8 = a.q8;
       p.q12 = a.q12;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) phase_tile(p, t);
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) phase_tile<false>(p, t);
       grid.sync();
     }
   }
@@ -249,7 +286,7 @@ int ising3d_phase(const void* x_in, void* x_out, const void* o,
                   int nrep, int nz, int nyp, int half, int color,
                   unsigned int s0, unsigned int s1, unsigned int q4,
                   unsigned int q8, unsigned int q12, void* stream) {
-  Phase3Args a;
+  Phase3Args a{};
   a.x_in = static_cast<const uint32_t*>(x_in);
   a.x_out = static_cast<uint32_t*>(x_out);
   a.o = static_cast<const uint32_t*>(o);
@@ -267,8 +304,51 @@ int ising3d_phase(const void* x_in, void* x_out, const void* o,
   a.q8 = q8;
   a.q12 = q12;
   const int tiles = nrep * nz * (nyp / TILE_Y) * (half / TILE_X);
-  phase_kernel<<<tiles, dim3(TILE_X, TILE_Y), 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
+  phase_kernel<false><<<tiles, dim3(TILE_X, TILE_Y), 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One colour phase of a z-shard: a 1-D grid of
+// R*nz*ceil(nyp/8)*ceil(half/32) blocks of 32x8 threads.  hzm/hzp are the
+// (R, 1, nyp, half) halo planes; (rep0, z0) the shard's global replica
+// and plane; b4/b8/b12 injected planes or null; obs an (R, 2) int64
+// buffer zeroed by the caller, or null.
+int ising3d_shard_phase(const void* x_in, void* x_out, const void* o,
+                        const void* hzm, const void* hzp, const void* b4,
+                        const void* b8, const void* b12, void* obs,
+                        int nrep, int nz, int nyp, int half, int color,
+                        unsigned int rep0, unsigned int z0, unsigned int s0,
+                        unsigned int s1, unsigned int q4, unsigned int q8,
+                        unsigned int q12, void* stream) {
+  const long long tiles = static_cast<long long>(nrep) * nz *
+                          ((nyp + TILE_Y - 1) / TILE_Y) *
+                          ((half + TILE_X - 1) / TILE_X);
+  if (nrep < 1 || nz < 1 || nyp < 1 || half < 1 || tiles >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Phase3Args a{};
+  a.x_in = static_cast<const uint32_t*>(x_in);
+  a.x_out = static_cast<uint32_t*>(x_out);
+  a.o = static_cast<const uint32_t*>(o);
+  a.b4 = static_cast<const uint32_t*>(b4);
+  a.b8 = static_cast<const uint32_t*>(b8);
+  a.b12 = static_cast<const uint32_t*>(b12);
+  a.obs = static_cast<long long*>(obs);
+  a.obs_stride = 2;
+  a.nz = nz;
+  a.nyp = nyp;
+  a.half = half;
+  a.color = color;
+  a.key = make_uint2(s0, s1);
+  a.q4 = q4;
+  a.q8 = q8;
+  a.q12 = q12;
+  a.hzm = static_cast<const uint32_t*>(hzm);
+  a.hzp = static_cast<const uint32_t*>(hzp);
+  a.rep0 = rep0;
+  a.z0 = z0;
+  phase_kernel<true><<<static_cast<unsigned>(tiles), dim3(TILE_X, TILE_Y), 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // The int8 checkerboard Ising update and its sums, shared by the int8
-// phase kernels (csrc/ising2d_pallas.cu, csrc/ising3d_pallas.cu), the
-// int8 multisweep (csrc/ising2d_multisweep.cu) and the measure kernel
+// phase kernels (csrc/ising2d_pallas.cu, csrc/ising3d_pallas.cu; their
+// halo modes run a mesh's shards), the int8 multisweep
+// (csrc/ising2d_multisweep.cu) and the measure kernel
 // (csrc/ising2d_measure_pallas.cu), so that all of them apply the same
 // function to the same random words.
 //
@@ -85,40 +86,106 @@ struct Phase {
   int color;
 };
 
-// Updates unit j of row (z, y) of replica r.  With MEASURE it adds the
-// fused sums of a measuring phase b (JAX ising2d_multisweep.py:84-90):
-// m += new + o, e -= new * nsum (the other colour is final, so every bond
-// is counted once).
-template <int D, bool COHERENT, bool MEASURE>
-__device__ __forceinline__ void update_unit(const Phase& p,
+// A shard of a domain-decomposed lattice (parallel/domain.py): the halos
+// exchanged from its neighbours (parallel/halo.py) and its global offsets.
+// In 2-D the shard holds rows row0 .. row0 + ny - 1 and columns col0 ..
+// col0 + half - 1 of the colour planes; in 3-D planes row0 .. row0 + nz - 1
+// (z0) of whole (ny, half) planes, never split in x.  A periodic lattice
+// is the shard with no halos and no offsets.
+struct Shard {
+  const int8_t* up;  // 2-D (R, 1, half): the row above row 0; 3-D (R, 1, ny,
+  const int8_t* dn;  // half): the plane before z 0; dn: after the last
+  const int8_t* lf;  // 2-D (R, ny, 1): the column left of column 0, or null
+  const int8_t* rt;  // (periodic in x: the shard spans every column)
+  long long* obs;    // (R, 2) int64 (m, e) partials of a measuring phase
+  int rep0, row0, col0;
+};
+
+// Units of a row of the shard: the global units (column >> 2) its columns
+// touch, so that one Philox call still feeds the four global columns of a
+// unit and a shard draws what the whole lattice draws, at any col0.
+__host__ __device__ inline int shard_units(int col0, int half) {
+  return ((col0 + half - 1) >> 2) - (col0 >> 2) + 1;
+}
+
+// Updates the sites of global unit jl + (col0 >> 2) of local row (z, y) of
+// replica r.  HALO: the neighbours past the shard's leading edges (rows in
+// 2-D, planes in 3-D) and, when lf is set, past its columns come from the
+// halos of s, and parity and the Philox counter (rep0 + r, global row,
+// global unit) from global coordinates (JAX ising2d_pallas.
+// _halo_phase_kernel, ising3d_pallas._halo_phase_kernel); otherwise every
+// neighbour wraps and s is not read.  With MEASURE it adds the fused sums
+// of a measuring phase b (JAX ising2d_multisweep.py:84-90): m += new + o,
+// e -= new * nsum (the other colour is final, so every bond is counted
+// once).
+template <int D, bool COHERENT, bool MEASURE, bool HALO = false>
+__device__ __forceinline__ void update_unit(const Phase& p, const Shard& s,
                                             const Geometry& g, int r, int z,
-                                            int y, int j, int& m, int& e) {
+                                            int y, int jl, int& m, int& e) {
+  const int row0 = HALO ? s.row0 : 0;
+  const int col0 = HALO ? s.col0 : 0;
   const Rows w = rows_of<D>(g, r, z, y);
-  const int d = (w.parity ^ p.color) ? 1 : -1;
+  // the rows (2-D) or planes (3-D) before and after: wrapped, or a halo
+  const int8_t* prev = p.o;
+  const int8_t* next = p.o;
+  size_t prev_at = D == 3 ? w.zm : w.up;
+  size_t next_at = D == 3 ? w.zp : w.down;
+  if (HALO) {
+    const int lead = D == 3 ? z : y;
+    const int nlead = D == 3 ? g.nz : g.ny;
+    const size_t halo =
+        D == 3 ? (static_cast<size_t>(r) * g.ny + y) * g.half
+               : static_cast<size_t>(r) * g.half;
+    if (lead == 0) {
+      prev = s.up;
+      prev_at = halo;
+    }
+    if (lead == nlead - 1) {
+      next = s.dn;
+      next_at = halo;
+    }
+  }
+  const int d = (((row0 + w.parity) & 1) ^ p.color) ? 1 : -1;
+  const int jg = (col0 >> 2) + jl;
+  const uint32_t grow =
+      D == 3 ? static_cast<uint32_t>(row0 + z) * static_cast<uint32_t>(g.ny) +
+                   static_cast<uint32_t>(y)
+             : static_cast<uint32_t>(row0 + y);
   uint4 words = make_uint4(0u, 0u, 0u, 0u);
   if (p.bits == nullptr)
     words = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(r),
-                   static_cast<uint32_t>(z * g.ny + y),
-                   static_cast<uint32_t>(j), 0u),
+        make_uint4(static_cast<uint32_t>((HALO ? s.rep0 : 0) + r), grow,
+                   static_cast<uint32_t>(jg), 0u),
         p.key);
   const uint32_t ws[4] = {words.x, words.y, words.z, words.w};
+  const size_t col_halo = static_cast<size_t>(r) * g.ny + y;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const int c = 4 * j + k;
+    // c rises with k, so the row's end breaks the loop: a continue there
+    // cost the S-sweep kernel 8 registers and a sixth of its resident
+    // blocks (chip_time_ising.py)
+    const int c = 4 * jg + k - col0;
+    if (HALO && c < 0) continue;
     if (c >= g.half) break;
-    int nsum = load<COHERENT>(p.o, w.row + c) +
-               load<COHERENT>(p.o, w.row + wrap(c + d, g.half)) +
-               load<COHERENT>(p.o, w.up + c) +
-               load<COHERENT>(p.o, w.down + c);
+    const int sc = c + d;
+    int side;
+    if (HALO && sc < 0 && s.lf != nullptr)
+      side = load<COHERENT>(s.lf, col_halo);
+    else if (HALO && sc >= g.half && s.rt != nullptr)
+      side = load<COHERENT>(s.rt, col_halo);
+    else
+      side = load<COHERENT>(p.o, w.row + wrap(sc, g.half));
+    int nsum = load<COHERENT>(p.o, w.row + c) + side;
     if (D == 3)
-      nsum += load<COHERENT>(p.o, w.zm + c) + load<COHERENT>(p.o, w.zp + c);
-    const int s = COHERENT ? static_cast<int>(__ldcg(p.x + w.row + c))
-                           : static_cast<int>(p.x[w.row + c]);
-    const int kk = s * nsum;
+      nsum += load<COHERENT>(p.o, w.up + c) + load<COHERENT>(p.o, w.down + c);
+    nsum += load<COHERENT>(prev, prev_at + c) +
+            load<COHERENT>(next, next_at + c);
+    const int sv = COHERENT ? static_cast<int>(__ldcg(p.x + w.row + c))
+                            : static_cast<int>(p.x[w.row + c]);
+    const int kk = sv * nsum;
     const uint32_t word = p.bits != nullptr ? __ldg(p.bits + w.row + c) : ws[k];
     const uint32_t t = kk == 2 ? p.t4 : (kk == 4 ? p.t8 : p.t12);
-    const int out = (kk <= 0 || word < t) ? -s : s;
+    const int out = (kk <= 0 || word < t) ? -sv : sv;
     p.x[w.row + c] = static_cast<int8_t>(out);
     if (MEASURE) {
       m += out + load<COHERENT>(p.o, w.row + c);

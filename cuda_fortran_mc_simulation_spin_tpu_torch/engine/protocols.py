@@ -32,10 +32,16 @@ progress on ``err`` (stdout = dataset, stderr = progress).
   periodic clock and the helical models through
   ``sweep.make_sample_runner`` (JAX ``_run_samples_generic``).
 
-Every other route of the JAX package (helical 3-D at 2^30 sites a colour
-or more, meshes) raises NotImplementedError naming the ROADMAP.md item
-that ports it, and never falls back.  Over-relaxation on the Ising and
-clock models raises ValueError: it is defined for the XY model only.
+A mesh (``cfg.mesh_dp·mesh_y·mesh_x`` > 1) runs periodic Ising 2-D and
+3-D domain-sharded (parallel/domain.py, the JAX package's mesh branch of
+``_run_accumulating``): the cards of ``make_mesh``, the host repeated with
+``device="cpu"``, or the devices given as ``mesh_devices``.  Every other
+route of the JAX package (helical 3-D at 2^30 sites a colour or more,
+clock and XY meshes) raises NotImplementedError naming the ROADMAP.md item
+that ports it, and never falls back; a helical model on a mesh raises
+ValueError, as the JAX package fails there.  Over-relaxation on the
+Ising and clock models raises ValueError: it is defined for the XY model
+only.
 
 Checkpoint/resume: pass ``checkpoint_path``; accumulators are saved
 every ``checkpoint_every`` histories and runs resume exactly
@@ -50,6 +56,7 @@ import time
 from typing import IO
 
 import numpy as np
+import torch
 
 from cuda_fortran_mc_simulation_spin_tpu_torch.config import (
     RunConfig,
@@ -165,19 +172,31 @@ def _ensemble_loop(cfg, runner, fold, err, accs, base, batch, start,
         checkpoint.save(checkpoint_path, cfg, done, accs)
 
 
+def _meshed(cfg) -> bool:
+    return cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1
+
+
 def _check_route(cfg, model) -> None:
     """Raise for every route of the JAX package that the port does not
     serve yet, naming the ROADMAP.md item that ports it.  ``build_model``
     admits the Ising, clock and XY models; every periodic shape and every
     helical 2-D shape is served (the helical 2-D ones the packed and dense
-    engines refuse on the masked helical kernels), so what is left is a
-    mesh and helical 3-D at 2^30 sites a colour or more, which the JAX
-    package sends to its generic jnp runner (its ``sweep.py:665-675``).
-    Over-relaxation on the Ising and clock models raises ValueError."""
-    if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
+    engines refuse on the masked helical kernels), and so are Ising meshes,
+    so what is left is a clock or XY mesh and helical 3-D at 2^30 sites a
+    colour or more, which the JAX package sends to its generic jnp runner
+    (its ``sweep.py:665-675``).  A helical model on a mesh raises
+    ValueError (the JAX package fails on it).  Over-relaxation on the
+    Ising and clock models raises ValueError."""
+    if _meshed(cfg) and isinstance(model, (Clock2D, XY2D)):
         raise NotImplementedError(
-            "multi-device meshes are not ported yet (ROADMAP.md queue A "
-            "item 9)")
+            f"--model {cfg.model} on a mesh is not ported yet (ROADMAP.md "
+            "queue A item 9, its clock and XY part)")
+    if _meshed(cfg) and isinstance(
+            model, (Ising2DHelical, Ising3DHelical, Clock2DHelical,
+                    XY2DHelical)):
+        raise ValueError(
+            f"{type(model).__name__}: the helical layouts have no domain "
+            "decomposition; run them without --mesh")
     if isinstance(model, (XY2D, XY2DHelical)):
         return
     if cfg.n_over_relax > 0:
@@ -251,15 +270,38 @@ def _make_runner(cfg, model, batch: int, device):
     return _int8_runner(cfg, model, batch, device)
 
 
+def _mesh_runner(cfg, model, batch: int, device, mesh_devices):
+    """The JAX package's mesh branch (its ``_run_accumulating``): the
+    domain-sharded runner over a (dp, y[, x]) mesh of the visible cards,
+    the host repeated for a CPU ``device``, or ``mesh_devices``."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.parallel import (
+        domain,
+        mesh as mesh_mod,
+    )
+    msh = mesh_mod.make_mesh(cfg.mesh_dp, cfg.mesh_y, cfg.mesh_x,
+                             devices=mesh_devices,
+                             device_type=torch.device(device).type)
+    runner = domain.make_sharded_sample_runner(
+        model, msh, cfg.mcs, batch, cfg.init_state,
+        n_over_relax=cfg.n_over_relax, mcs_over_relax=cfg.mcs_over_relax)
+    runner.engine = (f"domain-sharded mesh ({cfg.mesh_dp},{cfg.mesh_y},"
+                     f"{cfg.mesh_x})")
+    return runner
+
+
 def _run_accumulating(cfg, model, accumulators, fold, err,
                       checkpoint_path=None, checkpoint_every=0,
-                      device="cuda"):
+                      device="cuda", mesh_devices=None):
     """Shared ensemble loop: batch runner + Kahan fold + checkpointing."""
     base = rng.base_key(cfg.seed, cfg.stream)
     batch = cfg.replicas * cfg.samples_per_call
     if cfg.tot_sample % max(batch, 1):
         raise ValueError("tot_sample must be divisible by the batch size")
-    runner = _make_runner(cfg, model, max(batch, 1), device)
+    if _meshed(cfg):
+        runner = _mesh_runner(cfg, model, max(batch, 1), device,
+                              mesh_devices)
+    else:
+        runner = _make_runner(cfg, model, max(batch, 1), device)
     _stamp_engine(runner, err)
     start = 0
     if checkpoint_path:
@@ -276,11 +318,14 @@ def _run_accumulating(cfg, model, accumulators, fold, err,
 def run_relaxation(cfg: RunConfig, out: IO[str] = sys.stdout,
                    err: IO[str] = sys.stderr,
                    checkpoint_path: str | None = None,
-                   checkpoint_every: int = 0,
-                   device="cuda") -> stats.VarianceCovarianceKahan:
+                   checkpoint_every: int = 0, device="cuda",
+                   mesh_devices=None) -> stats.VarianceCovarianceKahan:
     """The reference's ising2d/ising3d/clock/xy2d relaxation and XY
     over-relaxation apps: ordered (or random) start, per-sweep m and e,
-    their variances and covariance."""
+    their variances and covariance.  On a mesh (``cfg.mesh_*``),
+    ``mesh_devices`` names its devices in mesh order (a card may repeat),
+    as the JAX tests build their virtual mesh; by default the visible
+    cards, or the host for a CPU ``device``."""
     dev = resolve_device(device)
     model = build_model(cfg)
     _check_route(cfg, model)
@@ -292,7 +337,7 @@ def run_relaxation(cfg: RunConfig, out: IO[str] = sys.stdout,
 
     t0 = time.time()
     _run_accumulating(cfg, model, {"op": op}, fold, err,
-                      checkpoint_path, checkpoint_every, dev)
+                      checkpoint_path, checkpoint_every, dev, mesh_devices)
     err.write(f"# elapsed: {time.time() - t0:.3f}s\n")
     out.write(f"# engine: {LAST_ENGINE}\n")
     if cfg.measure_times is None:
@@ -314,10 +359,10 @@ def _check_disorder(cfg: RunConfig) -> None:
         raise ValueError(
             "disorder protocols need the periodic XY engine: use even "
             f"nx (got nx={cfg.nx}, which selects the helical layout)")
-    if cfg.mesh_dp * cfg.mesh_y * cfg.mesh_x > 1:
+    if _meshed(cfg):
         raise NotImplementedError(
-            "multi-device meshes are not ported yet (ROADMAP.md queue A "
-            "item 9)")
+            "the XY disorder protocols on a mesh are not ported yet "
+            "(ROADMAP.md queue A item 9, its clock and XY part)")
 
 
 def _xy_disorder_runner(cfg: RunConfig, model, prep: str, batch: int,
@@ -435,14 +480,16 @@ def _run_samples_generic(cfg: RunConfig, model, out, err, device) -> None:
     Metropolis histories on ``sweep.make_sample_runner`` (the helical 2-D
     models on the masked helical kernels, helical 3-D on its helical
     kernels), rows N, sample, t, m, e, and m_y where the series has it
-    (the clock, XY), as JAX appends it."""
+    (the clock, XY), as JAX appends it.  A mesh is ignored, as there."""
     if cfg.init_state not in ("allup", "random"):
         raise ValueError(
             f"init_state={cfg.init_state!r} requires the periodic XY "
             f"engine (--model xy2d with even nx); model {cfg.model!r} "
             "supports allup/random starts"
         )
-    _check_route(dataclasses.replace(cfg, n_over_relax=0), model)
+    # the JAX package runs these histories unsharded whatever the mesh
+    _check_route(dataclasses.replace(cfg, n_over_relax=0, mesh_dp=1,
+                                     mesh_y=1, mesh_x=1), model)
     _emit_headers(cfg, model, out, err)
     base = rng.base_key(cfg.seed, cfg.stream)
     runner = sweep_mod.make_sample_runner(model, cfg.mcs, cfg.init_state,

@@ -7,6 +7,9 @@ and the reverse, so that tests feed both packages one state and a
 checkpoint moves between them.  This module imports neither package's
 JAX code.
 
+A mesh's shards (:func:`shards_from_numpy`, :func:`shards_to_numpy`)
+split and join those global arrays as the JAX mesh shards them.
+
 Both packages store these states the same way, so the converters take
 any leading shape: the dual-colour ``CheckerboardState`` int8 planes
 (..., ny, nx//2) and 3-D volumes (..., nz, ny, nx//2); the packed int32
@@ -82,6 +85,25 @@ def packed_from_numpy(wa, wb) -> tuple[torch.Tensor, torch.Tensor]:
 def packed_to_numpy(wa, wb) -> tuple[np.ndarray, np.ndarray]:
     return (wa.cpu().numpy().astype(np.int32),
             wb.cpu().numpy().astype(np.int32))
+
+
+def shards_from_numpy(a, b, mesh):
+    """A JAX global replica-batched state (numpy) -> the port's
+    ``ShardedState`` on ``mesh`` (parallel/domain.py): int8 colour planes
+    (R, ny, nx//2) or volumes (R, nz, ny, nx//2), or the packed int32
+    words of either engine; replicas over dp, the leading lattice axis
+    over y, the last over x, as the JAX mesh's PartitionSpec splits them."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.parallel import domain
+    return domain.shard_state(*(torch.from_numpy(np.array(v)) for v in (a, b)),
+                              mesh)
+
+
+def shards_to_numpy(state, mesh) -> tuple[np.ndarray, np.ndarray]:
+    """The port's ``ShardedState`` -> the global (a, b) numpy arrays, in
+    the dtype of its blocks (int8 planes or int32 words)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.parallel import domain
+    return tuple(t.numpy() for t in domain.gather_state(
+        state, mesh, torch.device("cpu")))
 
 
 def helical_from_numpy(w, m: int) -> torch.Tensor:

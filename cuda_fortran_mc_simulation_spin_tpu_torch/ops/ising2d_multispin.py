@@ -23,6 +23,16 @@ raises.  ``LAUNCHES`` counts kernel launches per kernel.
 
 Plain versions hold uint32 words in int64 tensors (``_u32``) so that
 shifts are logical; planes cross module boundaries as int32, as in JAX.
+
+``phase_kernel<true>``, the halo mode of ``phase_kernel``, replaces
+``_sharded_phase_kernel`` (pallas_call at ``:783``,
+:func:`sharded_phase_packed`): one phase on a shard of a (y[, x])
+mesh (parallel/domain.py).  The carries into the shard's first and out of
+its last word row are the exchanged boundary bits (0/1 planes,
+parallel/halo.exchange_halo_rows_packed), the words past its columns with
+an x split the exchanged word columns; the Philox counter is the word's
+global position, so a shard draws what the unsharded plane draws (JAX's
+granule keying and ``w_total`` are TPU artefacts).
 """
 
 from __future__ import annotations
@@ -56,7 +66,8 @@ _TILE_Y, _TILE_X = 8, 32  # CUDA tile: word rows x words
 # VMEM) is no limit here: both kernels keep the planes in device memory.
 _MS_BATCH_WORDS = 1 << 20
 
-LAUNCHES = {"phase": 0, "phase_measuring": 0, "multisweep": 0}
+LAUNCHES = {"phase": 0, "phase_measuring": 0, "multisweep": 0,
+            "shard_phase": 0}
 
 
 def reset_launches() -> None:
@@ -197,21 +208,76 @@ def _flip_plane(x, ones, twos, fours, b4, b8):
     return (~(need4 | need8) & MASK32) | (need4 & b4) | (need8 & b8)
 
 
+def _side(minus, plus, color: int):
+    """The side neighbour plane: bit parity is row parity."""
+    if color == 0:
+        return (plus & _ODD_BITS) | (minus & _EVEN_BITS)
+    return (minus & _ODD_BITS) | (plus & _EVEN_BITS)
+
+
 def _neighbour_counts(o: torch.Tensor, color: int):
     """(ones, twos, fours) of the four neighbours of every site of the
     colour that ``o`` (the other colour, uint32 in int64, (..., nyp,
-    half)) surrounds; periodic wrap by roll."""
-    w_prev = torch.roll(o, 1, dims=-2)
-    w_next = torch.roll(o, -1, dims=-2)
+    half)) surrounds; periodic: the halos are its own edge bits."""
+    return _shard_neighbour_counts(o, color, (o[..., -1:, :] >> 31) & 1,
+                                   o[..., :1, :] & 1)
+
+
+def offsets(offs) -> tuple[int, ...]:
+    """A shard's global offsets (rep0, row0[, col0]) as Python ints."""
+    return tuple(int(v) for v in torch.as_tensor(offs).tolist())
+
+
+def _shard_neighbour_counts(o, color: int, hup01, hdn01, halo_lf=None,
+                            halo_rt=None):
+    """(ones, twos, fours) of a shard's colour given the other colour
+    ``o`` (uint32 in int64, (..., Lp, half)): the carry into word row 0 is
+    bit 0 of ``hup01`` spliced in at bit 31, the carry out of the last
+    word row bit 0 of ``hdn01`` ((..., 1, half)); with an x split the side
+    words past the edges are the word columns ``halo_lf``/``halo_rt``
+    ((..., Lp, 1)), else periodic (JAX ``packed_sharded_phase_reference``)."""
+    syn_up = (_u32(hup01) << 31) & MASK32
+    w_prev = torch.cat([syn_up, o[..., :-1, :]], dim=-2)
+    w_next = torch.cat([o[..., 1:, :], _u32(hdn01)], dim=-2)
     up = ((o << 1) & MASK32) | (w_prev >> 31)
     dn = (o >> 1) | ((w_next << 31) & MASK32)
-    minus = torch.roll(o, 1, dims=-1)    # x: i-1
-    plus = torch.roll(o, -1, dims=-1)    # x: i+1
-    if color == 0:
-        side = (plus & _ODD_BITS) | (minus & _EVEN_BITS)
+    if halo_lf is None:
+        minus = torch.roll(o, 1, dims=-1)
+        plus = torch.roll(o, -1, dims=-1)
     else:
-        side = (minus & _ODD_BITS) | (plus & _EVEN_BITS)
-    return _count_planes(up, dn, o, side)
+        minus = torch.cat([_u32(halo_lf), o[..., :-1]], dim=-1)
+        plus = torch.cat([o[..., 1:], _u32(halo_rt)], dim=-1)
+    return _count_planes(up, dn, o, _side(minus, plus, color))
+
+
+def sharded_phase_packed_plain(xw, ow, hup01, hdn01, seeds, offs, *,
+                               color: int, beta: float, halo_lf=None,
+                               halo_rt=None, b4=None, b8=None,
+                               measuring: bool = False):
+    """Plain version of ``phase_kernel<true>``: the new (R, Lp, half)
+    int32 shard plane given the other colour's and its halos; offs =
+    (rep0, wrow0[, col0]).  Bernoulli planes injected (``b4``, ``b8``), or
+    from Philox words at the shard's global word positions.  With
+    ``measuring`` also the (R,) int64 (m, e) partials."""
+    rep0, wrow0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    nrep, nyp, half = xw.shape
+    x, o = _u32(xw), _u32(ow)
+    ones, twos, fours = _shard_neighbour_counts(o, color, hup01, hdn01,
+                                                halo_lf, halo_rt)
+    if b4 is None:
+        gen = multispin_rng.word_stream(seeds, nrep, nyp, half, xw.device,
+                                        rep0, wrow0, col0)
+        q4, q8 = chain_words(beta)
+        p4 = _bern_plane(x.shape, _digits(q4), gen, xw.device)
+        p8 = _bern_plane(x.shape, _digits(q8), gen, xw.device)
+    else:
+        p4, p8 = _u32(b4), _u32(b8)
+    new = x ^ _flip_plane(x, ones, twos, fours, p4, p8)
+    if not measuring:
+        return _i32(new)
+    obs = _obs_sums(new, o, ones, twos, fours)
+    return _i32(new), obs[:, 0], obs[:, 1]
 
 
 def packed_phase_reference(xw, ow, color: int, b4, b8) -> torch.Tensor:
@@ -246,17 +312,14 @@ def phase_packed_plain(xw, ow, seeds, *, color: int, beta: float,
     phase of (R, nyp, half) int32 planes under the phase key ``seeds``
     ((2,) uint32).  Returns the new plane, and with ``measuring`` also
     the (R, 2) int64 exact (m, e) sums."""
-    nrep, nyp, half = xw.shape
-    x, o = _u32(xw), _u32(ow)
-    ones, twos, fours = _neighbour_counts(o, color)
-    gen = multispin_rng.word_stream(seeds, nrep, nyp, half, xw.device)
-    q4, q8 = chain_words(beta)
-    b4 = _bern_plane(x.shape, _digits(q4), gen, xw.device)
-    b8 = _bern_plane(x.shape, _digits(q8), gen, xw.device)
-    new = x ^ _flip_plane(x, ones, twos, fours, b4, b8)
+    # the periodic plane is the shard at offset 0 whose halos are its own
+    # edge bits
+    res = sharded_phase_packed_plain(
+        xw, ow, (ow[:, -1:] >> 31) & 1, ow[:, :1] & 1, seeds, (0, 0),
+        color=color, beta=beta, measuring=measuring)
     if not measuring:
-        return _i32(new)
-    return _i32(new), _obs_sums(new, o, ones, twos, fours)
+        return res
+    return res[0], torch.stack(res[1:], dim=-1)
 
 
 def multisweep_planes_plain(wa, wb, seeds, *, beta: float):
@@ -293,6 +356,9 @@ def _lib() -> ctypes.CDLL:
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT,
         _UINT, _UINT, _VOID]
     lib.ising2d_multisweep.restype = _INT
+    lib.ising2d_shard_phase.argtypes = (
+        [_VOID] * 10 + [_INT] * 4 + [_UINT] * 7 + [_VOID])
+    lib.ising2d_shard_phase.restype = _INT
     lib.ising2d_multisweep_grid.argtypes = [ctypes.POINTER(_INT)]
     lib.ising2d_multisweep_grid.restype = _INT
     lib.ising2d_error_string.argtypes = [_INT]
@@ -418,6 +484,74 @@ def multisweep_planes(wa, wb, seeds, *, beta: float):
     _raise_on(lib, code, "ising2d multisweep_kernel")
     LAUNCHES["multisweep"] += 1
     return wa_out, wb_out, obs
+
+
+def _check_shard_planes(xw, ow, halos, bits) -> None:
+    for p in (xw, ow, *bits):
+        if p.shape != xw.shape or p.dtype != torch.int32:
+            raise ValueError(f"planes must be int32 {tuple(xw.shape)}, got "
+                             f"{p.dtype} {tuple(p.shape)}")
+    for p in (xw, ow, *bits, *halos):
+        if not p.is_cuda or p.device != xw.device:
+            raise ValueError("planes and halos must lie on one CUDA device")
+        if not p.is_contiguous() or p.dtype != torch.int32:
+            raise ValueError("planes and halos must be contiguous int32")
+    if xw.numel() >= 2 ** 31:
+        raise ValueError(f"shard {tuple(xw.shape)} is too large for the "
+                         "kernel's indices")
+
+
+def sharded_phase_packed(xw, ow, hup01, hdn01, seeds, offs, *, color: int,
+                         beta: float, halo_lf=None, halo_rt=None, b4=None,
+                         b8=None, measuring: bool = False):
+    """One packed colour phase of a (y[, x])-sharded (R, Lp, half) int32
+    block: ``phase_kernel<true>`` on CUDA tensors,
+    :func:`sharded_phase_packed_plain` on CPU tensors.  hup01/hdn01 (R, 1,
+    half) are the other colour's boundary bits above and below the shard
+    (0/1 int32), halo_lf/halo_rt (R, Lp, 1) its word columns left and
+    right with an x split (offs then (rep0, wrow0, col0), else (rep0,
+    wrow0)); ``b4``/``b8`` inject the Bernoulli planes.  Returns the new
+    plane, and with ``measuring`` also the (R,) int64 (m, e) partials
+    (JAX's ``sharded_phase_packed``, ``:783``)."""
+    if _on_cpu(xw):
+        return sharded_phase_packed_plain(
+            xw, ow, hup01, hdn01, seeds, offs, color=color, beta=beta,
+            halo_lf=halo_lf, halo_rt=halo_rt, b4=b4, b8=b8,
+            measuring=measuring)
+    nrep, nyp, half = xw.shape
+    halos = [hup01, hdn01] + ([] if halo_lf is None else [halo_lf, halo_rt])
+    bits = [] if b4 is None else [b4, b8]
+    _check_shard_planes(xw, ow, halos, bits)
+    if (hup01.shape != (nrep, 1, half) or hdn01.shape != hup01.shape
+            or (halo_lf is not None
+                and (halo_lf.shape != (nrep, nyp, 1)
+                     or halo_rt.shape != (nrep, nyp, 1)))):
+        raise ValueError("halos must be (R, 1, half) bit rows and (R, Lp, "
+                         "1) word columns of the shard")
+    rep0, wrow0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    q4, q8 = (0, 0) if b4 is not None else chain_words(beta)
+    s0, s1 = (0, 0) if seeds is None else (int(v) & MASK32 for v in seeds)
+    out = torch.empty_like(xw)
+    # zeroed: the kernel adds each block's sums with an atomic
+    obs = (torch.zeros((nrep, 2), dtype=torch.int64, device=xw.device)
+           if measuring else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _lib()
+    with torch.cuda.device(xw.device):
+        code = lib.ising2d_shard_phase(
+            xw.data_ptr(), out.data_ptr(), ow.data_ptr(), hup01.data_ptr(),
+            hdn01.data_ptr(), ptr(halo_lf), ptr(halo_rt), ptr(b4), ptr(b8),
+            ptr(obs), nrep, nyp, half, color, rep0, wrow0, col0, s0, s1, q4,
+            q8, _stream(xw))
+    _raise_on(lib, code, "ising2d phase_kernel<true>")
+    LAUNCHES["shard_phase"] += 1
+    if measuring:
+        return out, obs[:, 0], obs[:, 1]
+    return out
 
 
 def multisweep_grid_blocks() -> int:

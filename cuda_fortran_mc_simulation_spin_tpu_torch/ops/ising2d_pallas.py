@@ -28,6 +28,17 @@ neither the kernel, the route nor the host chunking.  The JAX kernel draws
 the TPU's hardware bits; its ``sharded_phase`` takes injected words
 (``bits=``, ``:397``), as the kernel here does (the mode the checks use).
 
+``phase_kernel<true, .>``, the halo mode of ``phase_kernel``, replaces
+``_halo_phase_kernel`` (pallas_call at ``:397``, :func:`sharded_phase`):
+the phase on a shard of a (y[, x]) mesh (parallel/domain.py), with the rows and columns past the shard's edges
+from the exchanged halos, parity and words keyed by global (replica,
+row, column), and the shard's exact (m, e) partials with ``measuring``.
+A shard whose column offset is not a multiple of 4 cuts a unit; the
+kernel draws by global unit (:func:`draw_words_at`), so its words are
+the unsharded lattice's at every x split.  JAX keeps int32 partials and
+refuses a local block past 2^30 sites; the port's are int64 and need no
+bound.
+
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
 """
@@ -39,7 +50,7 @@ import ctypes
 import numpy as np
 import torch
 
-from cuda_fortran_mc_simulation_spin_tpu_torch.core import lattice, rng
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
     CheckerboardState,
 )
@@ -47,12 +58,13 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _on_cpu,
     _stream,
+    offsets,
 )
 
 MASK32 = 0xFFFFFFFF
 THREADS = 256            # threads a block; one thread a unit of 4 sites
 MAX_REPLICAS = 65535     # the grid's y extent
-LAUNCHES = {"phase": 0}
+LAUNCHES = {"phase": 0, "halo_phase": 0}
 
 
 def reset_launches() -> None:
@@ -92,15 +104,28 @@ def draw_words(seeds, nrep: int, rows: int, half: int,
     """(nrep, rows, half) uint32 words (in int64) of one phase under the
     Philox key ``seeds`` ((2,) uint32): site (r, row, c) takes output
     c & 3 of the counter (r, row, c >> 2, 0)."""
+    return draw_words_at(seeds, 0, nrep, torch.arange(rows), 0, half,
+                         device)
+
+
+def draw_words_at(seeds, rep0: int, nrep: int, rows: torch.Tensor,
+                  col0: int, half: int, device=None) -> torch.Tensor:
+    """:func:`draw_words` of a shard: (nrep, len(rows), half) words of
+    replicas rep0 .., global rows ``rows`` (int64) and columns col0 ..
+    col0 + half - 1, each from its global unit's Philox call."""
     key = torch.as_tensor(seeds, dtype=torch.int64).to(device)
-    nu = units(half)
-    r = torch.arange(nrep, dtype=torch.int64, device=device).view(-1, 1, 1)
-    y = torch.arange(rows, dtype=torch.int64, device=device).view(1, -1, 1)
-    j = torch.arange(nu, dtype=torch.int64, device=device).view(1, 1, -1)
+    j0 = col0 >> 2
+    nu = ((col0 + half - 1) >> 2) - j0 + 1
+    r = torch.arange(rep0, rep0 + nrep, dtype=torch.int64,
+                     device=device).view(-1, 1, 1)
+    y = rows.to(device=device, dtype=torch.int64).view(1, -1, 1)
+    j = torch.arange(j0, j0 + nu, dtype=torch.int64,
+                     device=device).view(1, 1, -1)
     r, y, j = torch.broadcast_tensors(r, y, j)
     ctr = torch.stack([r, y, j, torch.zeros_like(r)], dim=-1)
     out = rng.philox4x32(ctr, key)                  # (nrep, rows, nu, 4)
-    return out.reshape(nrep, rows, 4 * nu)[..., :half]
+    lo = col0 - 4 * j0
+    return out.reshape(nrep, y.shape[1], 4 * nu)[..., lo:lo + half]
 
 
 def as_words(bits: torch.Tensor) -> torch.Tensor:
@@ -127,11 +152,71 @@ def phase_plain(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
     """Plain version of ``phase_kernel``: the new (R, ny, half) int8 colour
     plane ``x`` given the other colour, with the words of
     :func:`draw_words` under ``seeds`` or the injected int32 ``bits``."""
-    nrep, ny, half = x.shape
-    words = (as_words(bits) if bits is not None
-             else draw_words(seeds, nrep, ny, half, x.device))
-    nsum = lattice.neighbor_sums(other.to(torch.int32), color)
-    return flip(x, nsum, words, accept_thresholds_u32(beta))
+    # the periodic lattice is the shard at offset 0 whose halos are its
+    # own edge rows
+    return sharded_phase_plain(x, other, other[:, -1:], other[:, :1], seeds,
+                               (0, 0), color=color, beta=beta, bits=bits)
+
+
+def halo_neighbor_sums(other: torch.Tensor, halo_up, halo_dn, color: int,
+                       row0: int, halo_lf=None, halo_rt=None
+                       ) -> torch.Tensor:
+    """int32 four-neighbour sums of a shard's colour given the other
+    colour's (R, L, half) block, its exchanged rows (R, 1, half) and,
+    with an x split, columns (R, L, 1); row parity from the global row
+    row0 + y (JAX ``lattice.neighbor_sums_halo``, ``_halo2d``)."""
+    o = other.to(torch.int32)
+    up = torch.cat([halo_up.to(torch.int32), o[:, :-1]], dim=1)
+    dn = torch.cat([o[:, 1:], halo_dn.to(torch.int32)], dim=1)
+    if halo_lf is None:
+        minus = torch.roll(o, 1, dims=-1)
+        plus = torch.roll(o, -1, dims=-1)
+    else:
+        minus = torch.cat([halo_lf.to(torch.int32), o[..., :-1]], dim=-1)
+        plus = torch.cat([o[..., 1:], halo_rt.to(torch.int32)], dim=-1)
+    L = o.shape[1]
+    odd = ((row0 + torch.arange(L, device=o.device)) & 1).bool().view(L, 1)
+    if color == 0:
+        lr = o + torch.where(odd, plus, minus)
+    else:
+        lr = o + torch.where(odd, minus, plus)
+    return up + dn + lr
+
+
+def shard_sums(new: torch.Tensor, other: torch.Tensor, nsum: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A measuring phase b's (m, e) int64 partials (R,) of a shard: m over
+    both colours, e = -Σ s_new·nsum (the other colour is final, so each
+    bond of the shard's sites is counted once)."""
+    dims = tuple(range(1, new.dim()))
+    m = (new.sum(dim=dims, dtype=torch.int64)
+         + other.sum(dim=dims, dtype=torch.int64))
+    e = -(new.to(torch.int64) * nsum).sum(dim=dims)
+    return m, e
+
+
+def sharded_phase_plain(x, other, halo_up, halo_dn, seeds, offs, *,
+                        color: int, beta: float, halo_lf=None, halo_rt=None,
+                        bits=None, measuring: bool = False):
+    """Plain version of ``phase_kernel<true, .>``: the new (R, L, half) int8
+    shard ``x`` given the other colour's block and halos; offs = (rep0,
+    row0[, col0]).  Words: injected int32 ``bits``, else Philox at the
+    shard's global coordinates (:func:`draw_words_at`).  With
+    ``measuring`` also the (R,) int64 (m, e) partials."""
+    rep0, row0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    nrep, L, half = x.shape
+    if bits is not None:
+        words = as_words(bits)
+    else:
+        words = draw_words_at(seeds, rep0, nrep, row0 + torch.arange(L),
+                              col0, half, x.device)
+    nsum = halo_neighbor_sums(other, halo_up, halo_dn, color, row0,
+                              halo_lf, halo_rt)
+    new = flip(x, nsum, words, accept_thresholds_u32(beta))
+    if not measuring:
+        return new
+    return (new, *shard_sums(new, other, nsum))
 
 
 def check_int8(x: torch.Tensor, *others: torch.Tensor,
@@ -173,6 +258,10 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_uint] * 4
         + [ctypes.c_void_p])
     lib.ising2d_int8_phase.restype = ctypes.c_int
+    lib.ising2d_int8_halo_phase.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_uint] * 4
+        + [ctypes.c_void_p])
+    lib.ising2d_int8_halo_phase.restype = ctypes.c_int
     lib.ising2d_int8_error_string.argtypes = [ctypes.c_int]
     lib.ising2d_int8_error_string.restype = ctypes.c_char_p
     return lib
@@ -201,6 +290,74 @@ def metropolis_phase(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
             color, s0, s1, t4, t8, _stream(x))
     raise_on(code, lib.ising2d_int8_error_string, "ising2d phase_kernel")
     LAUNCHES["phase"] += 1
+    return x
+
+
+def check_halos(x: torch.Tensor, *halos) -> None:
+    """Exchanged halos: contiguous int8 on the shard's device."""
+    for h in halos:
+        if h is None:
+            continue
+        if h.dtype != torch.int8 or h.device != x.device:
+            raise ValueError(f"halos must be int8 on {x.device}, got "
+                             f"{h.dtype} on {h.device}")
+        if not h.is_contiguous():
+            raise ValueError("halos must be contiguous")
+
+
+def sharded_phase(x: torch.Tensor, other: torch.Tensor, halo_up, halo_dn,
+                  seeds, offs, *, color: int, beta: float, halo_lf=None,
+                  halo_rt=None, bits: torch.Tensor | None = None,
+                  measuring: bool = False):
+    """One colour phase of a (y[, x])-sharded (R, L, half) int8 block,
+    updating ``x`` in place (returned; with ``measuring`` also the (R,)
+    int64 (m, e) partials): ``phase_kernel<true, .>`` on CUDA tensors,
+    :func:`sharded_phase_plain` on CPU tensors.  halo_up/halo_dn (R, 1,
+    half) are the other colour's rows above and below the shard,
+    halo_lf/halo_rt (R, L, 1) its columns left and right with an x split
+    (offs then (rep0, row0, col0), else (rep0, row0)); JAX's
+    ``sharded_phase`` (``:397``)."""
+    if _on_cpu(x):
+        res = sharded_phase_plain(x, other, halo_up, halo_dn, seeds, offs,
+                                  color=color, beta=beta, halo_lf=halo_lf,
+                                  halo_rt=halo_rt, bits=bits,
+                                  measuring=measuring)
+        if not measuring:
+            return x.copy_(res)
+        x.copy_(res[0])
+        return (x, *res[1:])
+    check_int8(x, other, bits=bits)
+    check_halos(x, halo_up, halo_dn, halo_lf, halo_rt)
+    nrep, L, half = x.shape
+    if (halo_up.shape != (nrep, 1, half) or halo_dn.shape != halo_up.shape
+            or (halo_lf is not None
+                and (halo_lf.shape != (nrep, L, 1)
+                     or halo_rt is None or halo_rt.shape != (nrep, L, 1)))):
+        raise ValueError("halos must be (R, 1, half) rows and (R, L, 1) "
+                         "columns of the shard")
+    rep0, row0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    check_launch(nrep, L, half)
+    t4, t8 = accept_thresholds_u32(beta)
+    s0, s1 = (0, 0) if seeds is None else seed_words(seeds)
+    # zeroed: the kernel adds each block's sums with an atomic
+    obs = (torch.zeros((nrep, 2), dtype=torch.int64, device=x.device)
+           if measuring else None)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.ising2d_int8_halo_phase(
+            x.data_ptr(), other.data_ptr(),
+            None if bits is None else bits.data_ptr(), halo_up.data_ptr(),
+            halo_dn.data_ptr(),
+            None if halo_lf is None else halo_lf.data_ptr(),
+            None if halo_rt is None else halo_rt.data_ptr(),
+            None if obs is None else obs.data_ptr(), nrep, L, half, color,
+            rep0, row0, col0, s0, s1, t4, t8, _stream(x))
+    raise_on(code, lib.ising2d_int8_error_string,
+             "ising2d phase_kernel<true, .>")
+    LAUNCHES["halo_phase"] += 1
+    if measuring:
+        return x, obs[:, 0], obs[:, 1]
     return x
 
 

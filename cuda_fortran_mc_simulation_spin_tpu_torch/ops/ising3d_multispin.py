@@ -23,6 +23,13 @@ its plain PyTorch version here, with the same Philox words: key = the
 draw/4) (ops/multispin_rng.py).  A wrapper takes the plain version for a
 CPU tensor; for a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches per kernel.
+
+``phase_kernel<true>``, the halo mode of ``phase_kernel``, replaces
+``_sharded_phase3d_kernel`` (pallas_call at ``:638``, :func:`sharded_phase3d_packed`): one phase on a z-shard of a
+(dp, y) mesh (parallel/domain.py), the planes before and after the shard
+from the exchanged packed halo planes, the side masks and the Philox
+counter from the global plane z0 + z, so a shard draws what the unsharded
+volume draws.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _EVEN_BITS,
     _ODD_BITS,
     _bern_plane,
+    _check_shard_planes,
     _count_planes,
     _digits,
     _i32,
@@ -49,6 +57,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _stream,
     _u32,
     chain_digits,
+    offsets,
     per_site,
     sweep_seed_pairs,
 )
@@ -67,7 +76,8 @@ _TILE_Y, _TILE_X = 8, 32  # CUDA tile: word rows x words
 # crossover, when ROADMAP queue B item 5 is decided.
 _MS3_BATCH_WORDS = 1 << 20
 
-LAUNCHES = {"phase": 0, "phase_measuring": 0, "multisweep": 0}
+LAUNCHES = {"phase": 0, "phase_measuring": 0, "multisweep": 0,
+            "shard_phase": 0}
 
 
 def reset_launches() -> None:
@@ -125,12 +135,17 @@ def _flip_plane3d(x, b1, b2, b4, p4, p8, p12):
             | (need4 & p4) | (need8 & p8) | (need12 & p12))
 
 
-def _neighbour_counts3d(o: torch.Tensor, color: int):
+def _neighbour_counts3d(o: torch.Tensor, color: int, hzm=None, hzp=None,
+                        z0: int = 0):
     """(b1, b2, b4) of the six neighbours of every site of the colour
     that ``o`` (the other colour, uint32 in int64, (..., nz, nyp, half))
-    surrounds; periodic wrap by roll."""
-    zm = torch.roll(o, 1, dims=-3)
-    zp = torch.roll(o, -1, dims=-3)
+    surrounds; for a z-shard starting at global plane ``z0`` the halo
+    planes ``hzm``/``hzp`` (uint32 in int64, (..., 1, nyp, half)) before
+    and after it, by default the volume's own edge planes (periodic)."""
+    if hzm is None:
+        hzm, hzp = o[..., -1:, :, :], o[..., :1, :, :]
+    zm = torch.cat([hzm, o[..., :-1, :, :]], dim=-3)
+    zp = torch.cat([o[..., 1:, :, :], hzp], dim=-3)
     w_prev = torch.roll(o, 1, dims=-2)
     w_next = torch.roll(o, -1, dims=-2)
     up = ((o << 1) & MASK32) | (w_prev >> 31)
@@ -138,7 +153,8 @@ def _neighbour_counts3d(o: torch.Tensor, color: int):
     minus = torch.roll(o, 1, dims=-1)
     plus = torch.roll(o, -1, dims=-1)
     nz = o.shape[-3]
-    z_odd = (torch.arange(nz, device=o.device) & 1).bool().view(nz, 1, 1)
+    z_odd = ((z0 + torch.arange(nz, device=o.device)) & 1).bool().view(
+        nz, 1, 1)
     modd = torch.where(z_odd, _EVEN_BITS, _ODD_BITS)
     meven = torch.where(z_odd, _ODD_BITS, _EVEN_BITS)
     if color == 0:
@@ -180,24 +196,47 @@ def phase3d_plain(xw, ow, seeds, *, color: int, beta: float,
     phase of (R, nz, nyp, half) int32 volumes under the phase key
     ``seeds`` ((2,) uint32).  Returns the new volume, and with
     ``measuring`` also the (R, 2) int64 exact (m, e) sums."""
+    # the periodic volume is the z-shard at offset 0 whose halos are its
+    # own edge planes
+    res = sharded_phase3d_packed_plain(
+        xw, ow, ow[:, -1:], ow[:, :1], seeds, (0, 0), color=color,
+        beta=beta, measuring=measuring)
+    if not measuring:
+        return res
+    return res[0], torch.stack(res[1:], dim=-1)
+
+
+def sharded_phase3d_packed_plain(xw, ow, hzm, hzp, seeds, offs, *,
+                                 color: int, beta: float, b4=None, b8=None,
+                                 b12=None, measuring: bool = False):
+    """Plain version of ``phase_kernel<true>``: the new (R, L, nyp, half)
+    int32 shard volume given the other colour's and its halo planes;
+    offs = (rep0, z0).  Bernoulli planes injected (``b4``, ``b8``,
+    ``b12``), or from Philox words at the shard's global word rows
+    (z0 + z)·nyp + Y.  With ``measuring`` also the (R,) int64 (m, e)
+    partials."""
+    rep0, z0 = offsets(offs)
     nrep, nz, nyp, half = xw.shape
     x, o = _u32(xw), _u32(ow)
-    b1, b2, b4c = _neighbour_counts3d(o, color)
-    # the counter's word row is z·nyp + Y: planes stacked along rows
-    stream = multispin_rng.word_stream(seeds, nrep, nz * nyp, half,
-                                       xw.device)
+    b1, b2, b4c = _neighbour_counts3d(o, color, _u32(hzm), _u32(hzp), z0)
+    if b4 is None:
+        stream = multispin_rng.word_stream(seeds, nrep, nz * nyp, half,
+                                           xw.device, rep0, z0 * nyp)
 
-    def gen():
-        return stream().reshape(x.shape)
+        def gen():
+            return stream().reshape(x.shape)
 
-    q4, q8, q12 = chain_words3d(beta)
-    p4 = _bern_plane(x.shape, _digits(q4), gen, xw.device)
-    p8 = _bern_plane(x.shape, _digits(q8), gen, xw.device)
-    p12 = _bern_plane(x.shape, _digits(q12), gen, xw.device)
+        q4, q8, q12 = chain_words3d(beta)
+        p4 = _bern_plane(x.shape, _digits(q4), gen, xw.device)
+        p8 = _bern_plane(x.shape, _digits(q8), gen, xw.device)
+        p12 = _bern_plane(x.shape, _digits(q12), gen, xw.device)
+    else:
+        p4, p8, p12 = _u32(b4), _u32(b8), _u32(b12)
     new = x ^ _flip_plane3d(x, b1, b2, b4c, p4, p8, p12)
     if not measuring:
         return _i32(new)
-    return _i32(new), _obs_sums3d(new, o, b1, b2, b4c)
+    obs = _obs_sums3d(new, o, b1, b2, b4c)
+    return _i32(new), obs[:, 0], obs[:, 1]
 
 
 def multisweep3d_plain(wa, wb, seeds, *, beta: float):
@@ -235,6 +274,9 @@ def _lib() -> ctypes.CDLL:
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
         _INT, _INT, _INT, _INT, _INT, _UINT, _UINT, _UINT, _VOID]
     lib.ising3d_multisweep.restype = _INT
+    lib.ising3d_shard_phase.argtypes = (
+        [_VOID] * 9 + [_INT] * 5 + [_UINT] * 7 + [_VOID])
+    lib.ising3d_shard_phase.restype = _INT
     lib.ising3d_multisweep_grid.argtypes = [ctypes.POINTER(_INT)]
     lib.ising3d_multisweep_grid.restype = _INT
     lib.ising3d_error_string.argtypes = [_INT]
@@ -345,6 +387,52 @@ def multisweep3d_planes(wa, wb, seeds, *, beta: float):
     _raise_on(lib, code, "ising3d multisweep_kernel")
     LAUNCHES["multisweep"] += 1
     return wa_out, wb_out, obs
+
+
+def sharded_phase3d_packed(xw, ow, hzm, hzp, seeds, offs, *, color: int,
+                           beta: float, b4=None, b8=None, b12=None,
+                           measuring: bool = False):
+    """One packed colour phase of a z-sharded (R, L, nyp, half) int32
+    block: ``phase_kernel<true>`` on CUDA tensors,
+    :func:`sharded_phase3d_packed_plain` on CPU tensors.  hzm/hzp (R, 1,
+    nyp, half) are the other colour's packed planes before and after the
+    shard, offs = (rep0, z0); ``b4``/``b8``/``b12`` inject the Bernoulli
+    planes.  Returns the new volume, and with ``measuring`` also the (R,)
+    int64 (m, e) partials (JAX's ``sharded_phase3d_packed``, ``:638``)."""
+    if _on_cpu(xw):
+        return sharded_phase3d_packed_plain(
+            xw, ow, hzm, hzp, seeds, offs, color=color, beta=beta, b4=b4,
+            b8=b8, b12=b12, measuring=measuring)
+    nrep, nz, nyp, half = xw.shape
+    bits = [] if b4 is None else [b4, b8, b12]
+    _check_shard_planes(xw, ow, [hzm, hzp], bits)
+    if hzm.shape != (nrep, 1, nyp, half) or hzp.shape != hzm.shape:
+        raise ValueError("halos must be the (R, 1, nyp, half) planes of "
+                         "the shard")
+    rep0, z0 = offsets(offs)
+    if (z0 + nz) * nyp >= 2 ** 32:
+        raise ValueError("the Philox word row would pass 2^32")
+    q = (0, 0, 0) if b4 is not None else chain_words3d(beta)
+    s0, s1 = (0, 0) if seeds is None else (int(v) & MASK32 for v in seeds)
+    out = torch.empty_like(xw)
+    # zeroed: the kernel adds each block's sums with an atomic
+    obs = (torch.zeros((nrep, 2), dtype=torch.int64, device=xw.device)
+           if measuring else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _lib()
+    with torch.cuda.device(xw.device):
+        code = lib.ising3d_shard_phase(
+            xw.data_ptr(), out.data_ptr(), ow.data_ptr(), hzm.data_ptr(),
+            hzp.data_ptr(), ptr(b4), ptr(b8), ptr(b12), ptr(obs), nrep, nz,
+            nyp, half, color, rep0, z0, s0, s1, *q, _stream(xw))
+    _raise_on(lib, code, "ising3d phase_kernel<true>")
+    LAUNCHES["shard_phase"] += 1
+    if measuring:
+        return out, obs[:, 0], obs[:, 1]
+    return out
 
 
 def multisweep_grid_blocks() -> int:

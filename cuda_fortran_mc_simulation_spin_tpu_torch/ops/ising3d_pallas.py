@@ -13,6 +13,13 @@ and with k = s·Σ₆nbr flip iff k <= 0 or word < t_k, (t4, t8, t12) =
 Random words: those of ops/ising2d_pallas.py with the row index
 z·ny + y (:func:`ising2d_pallas.draw_words` over nz·ny rows).
 
+``phase_kernel<true, .>``, the halo mode of ``phase_kernel``, replaces
+``_halo_phase_kernel`` (pallas_call at ``:237``, :func:`sharded_phase`):
+the phase on a z-shard of a (dp, y) mesh (parallel/domain.py), the planes before and after the shard from the
+exchanged halo planes, parity and words keyed by the global plane z0 + z,
+with the shard's exact int64 (m, e) partials when ``measuring`` (JAX's
+int32 partials and their 2^31/3 bound have no counterpart).
+
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
 """
@@ -23,7 +30,7 @@ import ctypes
 
 import torch
 
-from cuda_fortran_mc_simulation_spin_tpu_torch.core import lattice, tables
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import tables
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
     CheckerboardState,
 )
@@ -31,20 +38,23 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _on_cpu,
     _stream,
+    offsets,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
     as_words,
     batched,
+    check_halos,
     check_int8,
     check_launch,
-    draw_words,
+    draw_words_at,
     flip,
     phase_seeds,
     raise_on,
     seed_words,
+    shard_sums,
 )
 
-LAUNCHES = {"phase": 0}
+LAUNCHES = {"phase": 0, "halo_phase": 0}
 
 
 def reset_launches() -> None:
@@ -58,12 +68,55 @@ def phase_plain(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
     """Plain version of ``phase_kernel``: the new (R, nz, ny, half) int8
     colour volume ``x`` given the other colour, with the words of
     ``draw_words`` under ``seeds`` or the injected int32 ``bits``."""
-    nrep, nz, ny, half = x.shape
-    words = (as_words(bits) if bits is not None
-             else draw_words(seeds, nrep, nz * ny, half, x.device
-                             ).reshape(x.shape))
-    nsum = lattice.neighbor_sums3d(other.to(torch.int32), color)
-    return flip(x, nsum, words, tables.ising3d_accept_thresholds_u32(beta))
+    # the periodic lattice is the z-shard at offset 0 whose halos are its
+    # own edge planes
+    return sharded_phase_plain(x, other, other[:, -1:], other[:, :1], seeds,
+                               (0, 0), color=color, beta=beta, bits=bits)
+
+
+def halo_neighbor_sums3d(other: torch.Tensor, halo_zm, halo_zp, color: int,
+                         z0: int) -> torch.Tensor:
+    """int32 six-neighbour sums of a z-shard's colour given the other
+    colour's (R, L, ny, half) block and its exchanged planes (R, 1, ny,
+    half); parity (z0 + z + y) & 1 (JAX ``lattice.neighbor_sums3d_halo``)."""
+    o = other.to(torch.int32)
+    zm = torch.cat([halo_zm.to(torch.int32), o[:, :-1]], dim=1)
+    zp = torch.cat([o[:, 1:], halo_zp.to(torch.int32)], dim=1)
+    ys = torch.roll(o, 1, dims=-2) + torch.roll(o, -1, dims=-2)
+    minus = torch.roll(o, 1, dims=-1)
+    plus = torch.roll(o, -1, dims=-1)
+    L, ny = o.shape[1:3]
+    z = torch.arange(L, device=o.device).view(L, 1)
+    y = torch.arange(ny, device=o.device).view(1, ny)
+    odd = ((z0 + z + y) & 1).bool().view(L, ny, 1)
+    if color == 0:
+        lr = o + torch.where(odd, plus, minus)
+    else:
+        lr = o + torch.where(odd, minus, plus)
+    return zm + zp + ys + lr
+
+
+def sharded_phase_plain(x, other, halo_zm, halo_zp, seeds, offs, *,
+                        color: int, beta: float, bits=None,
+                        measuring: bool = False):
+    """Plain version of ``phase_kernel<true, .>``: the new (R, L, ny, half)
+    int8 shard ``x``; offs = (rep0, z0).  Words: injected int32 ``bits``,
+    else Philox at the global rows (z0 + z)·ny + y.  With ``measuring``
+    also the (R,) int64 (m, e) partials."""
+    rep0, z0 = offsets(offs)
+    nrep, L, ny, half = x.shape
+    if bits is not None:
+        words = as_words(bits)
+    else:
+        rows = ((z0 + torch.arange(L)).view(L, 1) * ny
+                + torch.arange(ny).view(1, ny)).reshape(-1)
+        words = draw_words_at(seeds, rep0, nrep, rows, 0, half,
+                              x.device).reshape(x.shape)
+    nsum = halo_neighbor_sums3d(other, halo_zm, halo_zp, color, z0)
+    new = flip(x, nsum, words, tables.ising3d_accept_thresholds_u32(beta))
+    if not measuring:
+        return new
+    return (new, *shard_sums(new, other, nsum))
 
 
 def _lib() -> ctypes.CDLL:
@@ -74,6 +127,10 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_uint] * 5
         + [ctypes.c_void_p])
     lib.ising3d_int8_phase.restype = ctypes.c_int
+    lib.ising3d_int8_halo_phase.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_uint] * 5
+        + [ctypes.c_void_p])
+    lib.ising3d_int8_halo_phase.restype = ctypes.c_int
     lib.ising3d_int8_error_string.argtypes = [ctypes.c_int]
     lib.ising3d_int8_error_string.restype = ctypes.c_char_p
     return lib
@@ -101,6 +158,53 @@ def metropolis_phase(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
             color, s0, s1, t4, t8, t12, _stream(x))
     raise_on(code, lib.ising3d_int8_error_string, "ising3d phase_kernel")
     LAUNCHES["phase"] += 1
+    return x
+
+
+def sharded_phase(x: torch.Tensor, other: torch.Tensor, halo_zm, halo_zp,
+                  seeds, offs, *, color: int, beta: float,
+                  bits: torch.Tensor | None = None, measuring: bool = False):
+    """One colour phase of a z-sharded (R, L, ny, half) int8 block,
+    updating ``x`` in place (returned; with ``measuring`` also the (R,)
+    int64 (m, e) partials): ``phase_kernel<true, .>`` on CUDA tensors,
+    :func:`sharded_phase_plain` on CPU tensors.  halo_zm/halo_zp (R, 1,
+    ny, half) are the other colour's planes before and after the shard,
+    offs = (rep0, z0); JAX's ``sharded_phase`` (``:237``)."""
+    if _on_cpu(x):
+        res = sharded_phase_plain(x, other, halo_zm, halo_zp, seeds, offs,
+                                  color=color, beta=beta, bits=bits,
+                                  measuring=measuring)
+        if not measuring:
+            return x.copy_(res)
+        x.copy_(res[0])
+        return (x, *res[1:])
+    check_int8(x, other, bits=bits)
+    check_halos(x, halo_zm, halo_zp)
+    nrep, L, ny, half = x.shape
+    if (halo_zm.shape != (nrep, 1, ny, half)
+            or halo_zp.shape != halo_zm.shape):
+        raise ValueError("halos must be the (R, 1, ny, half) planes of the "
+                         "shard")
+    rep0, z0 = offsets(offs)
+    check_launch(nrep, L * ny, half)
+    t4, t8, t12 = tables.ising3d_accept_thresholds_u32(beta)
+    s0, s1 = (0, 0) if seeds is None else seed_words(seeds)
+    # zeroed: the kernel adds each block's sums with an atomic
+    obs = (torch.zeros((nrep, 2), dtype=torch.int64, device=x.device)
+           if measuring else None)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.ising3d_int8_halo_phase(
+            x.data_ptr(), other.data_ptr(),
+            None if bits is None else bits.data_ptr(), halo_zm.data_ptr(),
+            halo_zp.data_ptr(), None if obs is None else obs.data_ptr(),
+            nrep, L, ny, half, color, rep0, z0, s0, s1, t4, t8, t12,
+            _stream(x))
+    raise_on(code, lib.ising3d_int8_error_string,
+             "ising3d phase_kernel<true, .>")
+    LAUNCHES["halo_phase"] += 1
+    if measuring:
+        return x, obs[:, 0], obs[:, 1]
     return x
 
 

@@ -29,14 +29,22 @@ import torch
 from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
 
 
-def word_stream(key, nrep: int, nyp: int, half: int,
-                device=None) -> Callable[[], torch.Tensor]:
+def word_stream(key, nrep: int, nyp: int, half: int, device=None,
+                rep0: int = 0, row0: int = 0, col0: int = 0
+                ) -> Callable[[], torch.Tensor]:
     """``gen()`` returning draw 0, 1, ... as (nrep, nyp, half) uint32
-    planes (int64 tensors) under the phase key ``key`` ((2,) uint32)."""
+    planes (int64 tensors) under the phase key ``key`` ((2,) uint32); a
+    shard of a mesh passes its global offsets (replica, word row, word
+    column), so that it draws the unsharded planes' words."""
     key = torch.as_tensor(key, dtype=torch.int64).to(device)
-    r = torch.arange(nrep, dtype=torch.int64, device=device).view(-1, 1, 1)
-    y = torch.arange(nyp, dtype=torch.int64, device=device).view(1, -1, 1)
-    x = torch.arange(half, dtype=torch.int64, device=device).view(1, 1, -1)
+
+    def ax(n, start):
+        return torch.arange(start, start + n, dtype=torch.int64,
+                            device=device)
+
+    r = ax(nrep, rep0).view(-1, 1, 1)
+    y = ax(nyp, row0).view(1, -1, 1)
+    x = ax(half, col0).view(1, 1, -1)
     r, y, x = torch.broadcast_tensors(r, y, x)
     state = {"n": 0, "buf": None}
 

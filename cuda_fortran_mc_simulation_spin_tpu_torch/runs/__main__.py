@@ -75,11 +75,22 @@ and the streamed disorder runs to its f32-angle engine, and
 (e.g. 1536x1536) to the int16-angle multisweep.  The ``# engine:`` line
 names the route taken.
 
+``--mesh DP,Y[,X]`` runs periodic Ising 2-D and 3-D domain-sharded over
+a mesh of DP·Y·X cards (replicas over DP, rows or z-planes over Y,
+colour-array columns over X, 2-D only), with the same series as the
+unsharded run bit for bit where both take the same engine (packed or
+int8; README.md); with ``--device cpu`` the mesh repeats the host and
+runs the kernels' plain versions::
+
+    python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \
+        --model ising2d --nx 8192 --ny 8192 --mcs 200 --samples 4 \
+        --replicas 4 --mesh 1,4 --output ising2d_mesh.dat
+
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of
 routes the port does not serve yet raise with the ROADMAP.md item that
-ports them: --mesh, --profile-dir, --backend other than auto, and helical
-3-D at 2^30 sites a colour or more.  --n-over-relax on Ising or clock
+ports them: --mesh on the clock and XY models, --profile-dir, --backend
+other than auto, and helical 3-D at 2^30 sites a colour or more.  --n-over-relax on Ising or clock
 raises ValueError: over-relaxation is defined for the XY model only.
 """
 
@@ -139,7 +150,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--profile-dir", default=None,
                    help="profiler trace directory (not served by the port)")
     p.add_argument("--mesh", default=None, metavar="DP,Y[,X]",
-                   help="multi-device mesh (not served by the port)")
+                   help="multi-chip mesh: replicas over DP devices, "
+                        "lattice rows over Y, optionally columns over X "
+                        "(e.g. 2,4 or 1,2,2)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default) runs the CUDA kernels; cpu runs "
                         "their plain PyTorch versions")
@@ -147,10 +160,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _refuse_unserved(a: argparse.Namespace) -> None:
-    if a.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-device runs are not ported yet (ROADMAP.md "
-            "queue A item 9)")
     if a.profile_dir:
         raise NotImplementedError(
             "--profile-dir: the port has no profiler hook yet (ROADMAP.md "
@@ -162,6 +171,13 @@ def _refuse_unserved(a: argparse.Namespace) -> None:
 
 
 def config_from_args(a: argparse.Namespace) -> RunConfig:
+    mesh_dp, mesh_y, mesh_x = 1, 1, 1
+    if a.mesh:
+        parts = [int(v) for v in a.mesh.split(",")]
+        if len(parts) == 2:
+            mesh_dp, mesh_y = parts
+        else:
+            mesh_dp, mesh_y, mesh_x = parts
     return RunConfig(
         model=a.model, nx=a.nx, ny=a.ny, nz=a.nz, q=a.q, kbt=a.kbt,
         mcs=a.mcs, tot_sample=a.samples, seed=a.seed, stream=a.stream,
@@ -171,7 +187,8 @@ def config_from_args(a: argparse.Namespace) -> RunConfig:
         track_correlation=a.track_correlation, replicas=a.replicas,
         samples_per_call=a.samples_per_call,
         max_samples_this_run=a.max_samples_this_run,
-        measure_times=a.measure_times,
+        measure_times=a.measure_times, mesh_dp=mesh_dp, mesh_y=mesh_y,
+        mesh_x=mesh_x,
     )
 
 

@@ -1222,3 +1222,163 @@ def test_xy_angle_and_int16_runners_replay_plain_on_card(cuda, prep,
                 assert torch.allclose(card[name], plain[name], rtol=0,
                                       atol=1e-12), name
         monkeypatch.delenv(switch)
+
+
+# ---------------------------------------------------------------------------
+# the sharded halo kernels and the mesh (parallel/domain.py)
+# ---------------------------------------------------------------------------
+
+def _shard_spins(g, shape, dev):
+    return torch.from_numpy(
+        (g.integers(0, 2, size=shape) * 2 - 1).astype(np.int8)).to(dev)
+
+
+def _shard_words(g, shape, dev):
+    return torch.from_numpy(g.integers(-2 ** 31, 2 ** 31, size=shape,
+                                       dtype=np.int64).astype(np.int32)
+                            ).to(dev)
+
+
+def _same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color", [0, 1])
+@pytest.mark.parametrize("col0", [None, 0, 3, 130])
+def test_int8_halo_kernel_matches_plain(cuda, color, col0):
+    """ising2d_pallas.sharded_phase on the card against its plain version:
+    Philox and injected words, with and without column halos (col0 % 4 !=
+    0 cuts a unit), plain and measuring."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_pallas as i2p,
+    )
+    g = np.random.default_rng(color)
+    R, L, H = 3, 34, 63
+    x, o = _shard_spins(g, (R, L, H), cuda), _shard_spins(g, (R, L, H), cuda)
+    up, dn = _shard_spins(g, (R, 1, H), cuda), _shard_spins(g, (R, 1, H), cuda)
+    kw = dict(color=color, beta=1 / KBT)
+    offs = (2, 68) if col0 is None else (2, 68, col0)
+    if col0 is not None:
+        kw.update(halo_lf=_shard_spins(g, (R, L, 1), cuda),
+                  halo_rt=_shard_spins(g, (R, L, 1), cuda))
+    seeds = rng.seeds_from_key(rng.base_key(4), color)
+    bits = _shard_words(g, (R, L, H), cuda)
+    for extra in ({}, {"bits": bits}, {"measuring": True}):
+        got = i2p.sharded_phase(x.clone(), o, up, dn, seeds, offs, **kw,
+                                **extra)
+        want = i2p.sharded_phase_plain(x, o, up, dn, seeds, offs, **kw,
+                                       **extra)
+        assert _same(got, want), extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color", [0, 1])
+def test_int8_3d_halo_kernel_matches_plain(cuda, color):
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising3d_pallas as i3p,
+    )
+    g = np.random.default_rng(10 + color)
+    R, L, NY, H = 2, 4, 10, 13
+    x, o = (_shard_spins(g, (R, L, NY, H), cuda) for _ in range(2))
+    zm, zp = (_shard_spins(g, (R, 1, NY, H), cuda) for _ in range(2))
+    seeds = rng.seeds_from_key(rng.base_key(5), color)
+    bits = _shard_words(g, (R, L, NY, H), cuda)
+    kw = dict(color=color, beta=1 / 4.51152)
+    for extra in ({}, {"bits": bits}, {"measuring": True}):
+        got = i3p.sharded_phase(x.clone(), o, zm, zp, seeds, (4, 6), **kw,
+                                **extra)
+        want = i3p.sharded_phase_plain(x, o, zm, zp, seeds, (4, 6), **kw,
+                                       **extra)
+        assert _same(got, want), extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color", [0, 1])
+@pytest.mark.parametrize("cols", [False, True])
+def test_packed_shard_kernel_matches_plain(cuda, color, cols):
+    g = np.random.default_rng(20 + color)
+    R, LP, H = 2, 3, 40
+    x, o = (_shard_words(g, (R, LP, H), cuda) for _ in range(2))
+    up = torch.from_numpy(g.integers(0, 2, (R, 1, H)).astype(np.int32))
+    dn = torch.from_numpy(g.integers(0, 2, (R, 1, H)).astype(np.int32))
+    up, dn = up.to(cuda), dn.to(cuda)
+    kw = dict(color=color, beta=1 / KBT)
+    offs = (2, 5)
+    if cols:
+        offs = (2, 5, 40)
+        kw.update(halo_lf=_shard_words(g, (R, LP, 1), cuda),
+                  halo_rt=_shard_words(g, (R, LP, 1), cuda))
+    seeds = rng.seeds_from_key(rng.base_key(6), color)
+    b4, b8 = (_shard_words(g, (R, LP, H), cuda) for _ in range(2))
+    for extra in ({}, {"b4": b4, "b8": b8}, {"measuring": True}):
+        got = msb.sharded_phase_packed(x, o, up, dn, seeds, offs, **kw,
+                                       **extra)
+        want = msb.sharded_phase_packed_plain(x, o, up, dn, seeds, offs,
+                                              **kw, **extra)
+        assert _same(got, want), extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color", [0, 1])
+def test_packed3d_shard_kernel_matches_plain(cuda, color):
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising3d_multispin as ms3,
+    )
+    g = np.random.default_rng(30 + color)
+    R, L, NYP, H = 2, 4, 3, 20
+    x, o = (_shard_words(g, (R, L, NYP, H), cuda) for _ in range(2))
+    zm, zp = (_shard_words(g, (R, 1, NYP, H), cuda) for _ in range(2))
+    seeds = rng.seeds_from_key(rng.base_key(7), color)
+    bits = {k: _shard_words(g, (R, L, NYP, H), cuda)
+            for k in ("b4", "b8", "b12")}
+    kw = dict(color=color, beta=1 / 4.51152)
+    for extra in ({}, bits, {"measuring": True}):
+        got = ms3.sharded_phase3d_packed(x, o, zm, zp, seeds, (2, 6), **kw,
+                                         **extra)
+        want = ms3.sharded_phase3d_packed_plain(x, o, zm, zp, seeds, (2, 6),
+                                                **kw, **extra)
+        assert _same(got, want), extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["packed2d", "int8_2d", "packed3d",
+                                  "int8_3d"])
+def test_mesh_on_one_card_equals_unsharded(cuda, case):
+    """A (1, 4) mesh over one card repeated (and (1, 2, 2) in 2-D) gives
+    the unsharded route's series bit for bit, through the halo kernels."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import Ising3D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_pallas as i2p,
+        ising3d_multispin as ms3,
+        ising3d_pallas as i3p,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.parallel import (
+        domain,
+        mesh as mesh_mod,
+    )
+    model, unsharded, mod, shapes = {
+        "packed2d": (Ising2D(nx=256, ny=256, kbt=KBT),
+                     sweep.make_multispin_runner, msb,
+                     [(1, 4), (1, 2, 2)]),
+        "int8_2d": (Ising2D(nx=44, ny=24, kbt=KBT),
+                    sweep.make_batch_runner, i2p, [(1, 4), (1, 2, 2)]),
+        "packed3d": (Ising3D(nx=256, ny=256, nz=8, kbt=4.51152),
+                     sweep.make_multispin3d_runner, ms3, [(1, 4)]),
+        "int8_3d": (Ising3D(nx=12, ny=10, nz=8, kbt=4.51152),
+                    sweep.make_batch_runner, i3p, [(1, 4)]),
+    }[case]
+    key = rng.sample_key(rng.base_key(42), 0)
+    want = unsharded(model, 6, 2, "random", device=cuda)(key)
+    for shape in shapes:
+        msh = mesh_mod.make_mesh(*shape, devices=[cuda] * 4)
+        mod.reset_launches()
+        got = domain.make_sharded_sample_runner(model, msh, 6, 2,
+                                                "random")(key)
+        key_name = "shard_phase" if case.startswith("packed") else \
+            "halo_phase"
+        assert mod.LAUNCHES[key_name] == 4 * 2 * 6
+        for k in ("m", "e"):
+            assert torch.equal(got[k], want[k]), (shape, k)

@@ -242,8 +242,11 @@ def test_wrappers_take_plain_versions_on_cpu_and_check_arguments():
     ms3.phase3d_packed(w, w, (0, 0), color=1, beta=0.2, measuring=True)
     ms3.multisweep3d_planes(w, w, ms3.sweep_seed_pairs(rng.base_key(0), 1),
                             beta=0.2)
+    h = torch.zeros((1, 1, 8, 128), dtype=torch.int32)
+    ms3.sharded_phase3d_packed(w, w, h, h, (0, 0), (0, 2), color=1,
+                               beta=0.2, measuring=True)
     assert ms3.LAUNCHES == {"phase": 0, "phase_measuring": 0,
-                            "multisweep": 0}
+                            "multisweep": 0, "shard_phase": 0}
     with pytest.raises(ValueError, match="CUDA"):
         ms3._check_volumes(w, w)
     with pytest.raises(ValueError, match="nyp"):

@@ -120,8 +120,11 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
     msb.multisweep_packed(model, wa, wb, key, 2)
     msb.sweep_measure_packed(model, wa, wb, rng.sweep_key(key, 1))
     msb.phase_packed_with_bits(wa, wb, wa, wb, color=0)
+    h = torch.zeros((wa.shape[0], 1, wa.shape[2]), dtype=torch.int32)
+    msb.sharded_phase_packed(wa, wb, h, h, (0, 0), (0, 0), color=1,
+                             beta=0.2, measuring=True)
     assert msb.LAUNCHES == {"phase": 0, "phase_measuring": 0,
-                            "multisweep": 0}
+                            "multisweep": 0, "shard_phase": 0}
 
 
 def test_kernel_argument_checks():

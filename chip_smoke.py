@@ -31,8 +31,9 @@ switches (SPINLAT_XY_PERIODIC_ANGLE=1: the literal 10000x10000 Metropolis
 relaxation, 2000x2000 x 32, over-relaxation at 4000x4000 and
 finite-magne at 1000x1000 on the f32-angle kernels; SPINLAT_XY_ANGLE_MS=1:
 from-disorder at 1536x1536 on the int16-angle multisweep), and periodic
-Ising 2-D and 3-D domain-sharded over a mesh of the card repeated
-(through protocols.run_relaxation, as `--mesh` runs them); and holds
+Ising 2-D and 3-D, the clock (packed and int8), XY with over-relaxation
+and the fix1mcs disorder protocol domain-sharded over a mesh of the card
+repeated (through protocols, as `--mesh` runs them); and holds
 every kernel of those paths against its plain PyTorch version.
 Phases (each prints a progress line on stderr):
 
@@ -256,7 +257,14 @@ Phases (each prints a progress line on stderr):
    packed 3-D 512^3 x 8 on (2,4), 8 samples, 200 MCS; int8 2-D 4000^2 x 8
    on (1,2,2), 8 samples, 200 MCS; int8 3-D 500^3 x 2 on (2,2), 2 samples,
    200 MCS; each class's rate beside its unsharded class's and the halo
-   kernels' launches;
+   kernels' launches.  Then the clock and XY, 200 MCS each, against their
+   unsharded classes' first 200 rows (phases 4d, 4e, 4f, 4i): the packed
+   clock 2048^2 x 16, q = 6, 32 samples on (2,2,2), bit for bit and
+   against the 2048x2048 curve; the int8 clock 2000^2 x 16, q = 5, 32
+   samples on (1,2,2), within 1e-12 on the means (float64 sums in another
+   order) and against the first-sweep closed form; XY 4000^2 x 8 with
+   --n-over-relax 1, 16 samples on (2,2,2), and fix1mcs 1500^2 x 8, 32
+   samples on (1,2,2), within 1e-12 and against their curves;
 5. times with CUDA events, beside each kernel's bound and its plain
    version's time, at the main paths' launch shapes (the helical kernel
    at 128 x 1001x1000, S = 64; the clock phase kernel at 2000x2000 x 40,
@@ -307,7 +315,13 @@ Phases (each prints a progress line on stderr):
    against its plain version at S = 8 on the same lattice.  The four
    halo kernels at each mesh class's shard shape, plain and measuring
    phases, Philox and injected words, each held against its plain
-   version, and each mesh class's kernel share of its wall.
+   version, and each mesh class's kernel share of its wall; the clock and
+   XY halo modes likewise (graph-timed at their classes' shards: the
+   packed and int8 clock phase a and measuring, XY Metropolis phase a,
+   OR phase a and measuring, the snapshot mode at the fix1mcs shard), and
+   every mode against its plain version at small shards (Philox and
+   injected, both colours, plain and measuring, with and without columns,
+   an int8 clock shard at an odd col0, a packed one of one word row).
 
 It prints the kernels' JSON line, the card's `nvidia-smi` name and power
 limit, and last the device line.  It exits non-zero, printing no result,
@@ -4525,6 +4539,470 @@ def mesh_shares(classes: dict, tm: dict) -> dict[str, float]:
     return shares
 
 
+# ---------------------------------------------------------------------------
+# the clock and XY on a mesh of the one card repeated: the four halo modes
+# (clock_planes.py:875, clock_pallas.py:294, xy2d_pallas.py:726, :770)
+# ---------------------------------------------------------------------------
+
+# (label, RunConfig fields, mesh, kind, the unsharded class's .dat and its
+# label, the shard shape (R, L, w): word rows for the packed clock)
+MESH_CX_MCS = 200
+MESH_CX_CLASSES = (
+    ("packed clock 2048^2 x 16 (2,2,2)",
+     dict(model="clock", q=6, nx=2048, ny=2048, kbt=KBT_CLOCK_08,
+          replicas=16, tot_sample=32), (2, 2, 2), "clock6",
+     "clock_2048x2048.dat", "clock aligned 2048^2 x 16", (8, 32, 512)),
+    ("int8 clock 2000^2 x 16 (1,2,2)",
+     dict(model="clock", q=5, nx=2000, ny=2000, kbt=KBT_CLOCK, replicas=16,
+          tot_sample=32), (1, 2, 2), "clock8", "clock8_q5_2000.dat",
+     "streamed q=5 2000^2 x 16", (16, 1000, 500)),
+    ("XY OR 4000^2 x 8 (2,2,2)",
+     dict(model="xy2d", nx=4000, ny=4000, kbt=KBT_XY, replicas=8,
+          tot_sample=16, n_over_relax=1), (2, 2, 2), "xy_or",
+     "xy2d_4000_component.dat", "XY OR 4000^2 x 8", (4, 2000, 1000)),
+    ("XY fix1mcs 1500^2 x 8 (1,2,2)",
+     dict(model="xy2d", nx=1500, ny=1500, kbt=KBT_XY, replicas=8,
+          tot_sample=32, rotate_after_first_mcs=True), (1, 2, 2), "xy_fix1",
+     "xy2d_fix1mcs.dat", "fix1mcs", (8, 750, 375)),
+)
+# the densities of the float64-summed classes (the int8 clock, XY) are held
+# within this of the unsharded run's at every t: one changed site would
+# move a density by >= 1/N (>= 6e-8 here, 4e-9 over 16 samples)
+MESH_CX_BOUND = 1e-12
+
+
+def mesh_table_err(table: np.ndarray, want: np.ndarray, nsites: int,
+                   relaxation: bool) -> float:
+    """Largest error of a mesh table against the unsharded class's in
+    units of its bound: N, Nsample and t exact; the mean columns (means of
+    densities and of their products, magnitude <= 4) within
+    MESH_CX_BOUND x 4; the relaxation table's N·Var columns (7-9, N times
+    differences of those means) within MESH_CX_BOUND x 8N."""
+    if table.shape != want.shape or not np.array_equal(table[:, :3],
+                                                       want[:, :3]):
+        fail(f"mesh table {table.shape} against {want.shape}: the N, "
+             "Nsample or t columns differ")
+    tol = np.full(table.shape[1], MESH_CX_BOUND * 4)
+    if relaxation:
+        tol[7:10] = MESH_CX_BOUND * 8 * nsites
+    return float((np.abs(table[:, 3:] - want[:, 3:]) / tol[3:]).max())
+
+
+def run_mesh_cx_classes(modules, out_dir, refs: dict, dev,
+                        unsharded: dict) -> dict:
+    """Phase 4m, the clock and XY: each MESH_CX_CLASSES class through
+    protocols on its mesh of ``dev`` repeated, launch counts set to 0 just
+    before and read just after; its table against the unsharded class's
+    first MESH_CX_MCS rows (the packed clock's bit for bit, the others
+    within MESH_CX_BOUND, :func:`mesh_table_err`), the unsharded class's
+    own physics check, and the halo modes launched as the schedule says,
+    no unsharded phase kernel.  ``unsharded`` maps the unsharded labels to
+    their rates.  Returns {label: (launches, wall, rate, largest |z|,
+    ratio)}."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.config import RunConfig
+    from cuda_fortran_mc_simulation_spin_tpu_torch.engine import protocols
+
+    out = {}
+    mcs = MESH_CX_MCS
+    for label, fields, (dp, y, x), kind, dat, base, _ in MESH_CX_CLASSES:
+        samples, nrep = fields["tot_sample"], fields["replicas"]
+        log(f"phase 4m: mesh path, {label}, {samples} samples, {mcs} MCS")
+        cfg = RunConfig(mcs=mcs, mesh_dp=dp, mesh_y=y, mesh_x=x, **fields)
+        nsites = cfg.nx * cfg.ny
+        fix1 = kind == "xy_fix1"
+        path = out_dir / f"mesh_{kind}_{cfg.nx}_{dp}{y}{x}.dat"
+        for m in modules.values():
+            m.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = protocols.run_from_disorder if fix1 else \
+            protocols.run_relaxation
+        with path.open("w") as f, open(os.devnull, "w") as err:
+            run(cfg, out=f, err=err, device=dev,
+                mesh_devices=[dev] * (dp * y * x))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: dict(m.LAUNCHES) for name, m in modules.items()}
+        rate = nsites * mcs * samples / wall
+        head = [line for line in path.read_text().splitlines()
+                if line.startswith("#")]
+        engine = (f"# engine: {'XY disorder ' if fix1 else ''}"
+                  f"domain-sharded mesh ({dp},{y},{x})")
+        if engine not in head:
+            fail(f"mesh {label} took another route: {head}")
+        table = read_dat(path)
+        want = read_dat(out_dir / dat, max_t=mcs)
+        if kind == "clock6":
+            if table.shape != want.shape or not np.array_equal(table, want):
+                fail(f"mesh {label} differs from its unsharded class")
+            err = 0.0
+        else:
+            err = mesh_table_err(table, want, nsites, not fix1)
+            if err > 1.0:
+                fail(f"mesh {label} is {err:.3g} bounds from its unsharded "
+                     "class")
+        if kind == "clock6":
+            ref = refs["clock6"]
+            z = check_against_reference(
+                table, ref, nsites, samples, mcs, range(1, mcs + 1),
+                ref_nsites=int(ref[0, 0]), ref_samples=int(ref[0, 1]))
+        elif kind == "clock8":
+            exact = clock8_first_sweep_exact(5, 1.0 / KBT_CLOCK, dev)
+            row = table[0]
+            z = max(abs((row[col] - exact[k])
+                        / math.sqrt(row[var] / (nsites * samples)))
+                    for k, col, var in ((0, 3, 7), (1, 4, 8)))
+            if z > SIGMAS or not np.all(np.isfinite(table)):
+                fail(f"mesh {label}: t = 1 is {z:.2f} sigma from the "
+                     "closed form, or a row is not finite")
+        elif kind == "xy_or":
+            ref = refs["xy_or"]
+            z = check_against_reference(
+                table, ref, nsites, samples, mcs, range(1, mcs + 1),
+                ref_nsites=int(ref[0, 0]), ref_samples=int(ref[0, 1]))
+        else:
+            z = check_disorder_curve(table, refs["fix1"], samples, mcs,
+                                     ABS_MOMENTS, f"mesh {label}")
+        shards = dp * y * x
+        sweeps = samples // nrep * mcs
+        want_n = {
+            "clock6": {"clock": {"shard_phase": 2 * shards * sweeps,
+                                 "phase": 0}},
+            "clock8": {"clock8": {"halo_phase": 2 * shards * sweeps,
+                                  "halo_phase_measuring": shards * sweeps,
+                                  "phase": 0},
+                       "clock8_measure": {"measure": 0}},
+            "xy_or": {"xy": {"halo_metropolis": 2 * shards * sweeps,
+                             "halo_metropolis_measuring": 0,
+                             "halo_over_relax": 2 * shards * sweeps,
+                             "halo_over_relax_measuring": shards * sweeps,
+                             "metropolis": 0, "over_relax": 0}},
+            "xy_fix1": {"xy": {"halo_metropolis": 2 * shards * sweeps,
+                               "halo_metropolis_snapshot": shards * sweeps,
+                               "metropolis": 0},
+                        "xy_measure": {"measure": 0},
+                        "xy_resident": {"multisweep": 0}},
+        }[kind]
+        got = {mod: {k: launches[mod][k] for k in ks}
+               for mod, ks in want_n.items()}
+        if got != want_n:
+            fail(f"mesh {label} launched {got}, want {want_n}")
+        ratio = rate / unsharded[base]
+        log(f"  {label}: {wall:.2f} s, {rate:.4g} flip attempts/s, "
+            f"{ratio:.3f} of the unsharded class's {unsharded[base]:.4g}; "
+            f"launches {got}; against {dat}: "
+            + ("bitwise" if kind == "clock6"
+               else f"{err:.3g} of the bound {MESH_CX_BOUND}")
+            + f"; largest |z| {z:.2f}")
+        out[label] = (launches, wall, rate, z, ratio)
+    return out
+
+
+def check_mesh_cx_small(cp, c8p, xyp, rng, dev) -> float:
+    """The four halo modes against their plain versions at small shards:
+    Philox and injected, both colours, plain and measuring (the snapshot
+    mode too), with and without columns, an int8 clock shard at an odd
+    col0 and a packed clock shard of one word row.  Returns the largest
+    error (int8 and words exact; float64 sums against their scale)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock3_multispin,
+        clock4_multispin,
+        clock_multispin,
+    )
+    g = np.random.default_rng(89)
+    worst = 0.0
+
+    def words(shape):
+        return torch.from_numpy(g.integers(-2 ** 31, 2 ** 31, size=shape,
+                                           dtype=np.int64).astype(np.int32)
+                                ).to(dev)
+
+    def cmp(got, want, sites):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for a, b in zip(got, want):
+            if isinstance(a, tuple):
+                err = max(err, cmp(a, b, sites))
+            elif a.dtype == torch.float64:
+                err = max(err, float((a - b).abs().max()) / sites)
+            else:
+                err = max(err, float_err([(a, b)]))
+        return err
+
+    for mod in (clock_multispin, clock4_multispin, clock3_multispin):
+        spec = mod.SPEC
+        for nyw, half, cols in ((1, 33, True), (3, 70, False)):
+            st = [torch.from_numpy(g.integers(0, spec.q, (2, 32 * nyw, half))
+                                   .astype(np.int8)).to(dev)
+                  for _ in range(2)]
+            x, o = spec.pack_color(st[0]), spec.pack_color(st[1])
+            bits = [words((2, 1, half)) & 1 for _ in range(6)]
+            kw = {}
+            offs = (2, 6)
+            if cols:
+                offs = (2, 6, 40)
+                kw = dict(halo_lf=tuple(words((2, nyw, 1)) for _ in x),
+                          halo_rt=tuple(words((2, nyw, 1)) for _ in x))
+            inj = tuple(words((2, nyw, half)) for _ in range(spec.n_rand))
+            for color in (0, 1):
+                seeds = rng.seeds_from_key(rng.base_key(91), color)
+                for extra in ({}, {"inject": valid_rand(spec, inj)},
+                              {"measuring": True}):
+                    args = (spec, x, o, tuple(bits[:len(x)]),
+                            tuple(bits[3:3 + len(x)]), seeds, offs)
+                    worst = max(worst, cmp(
+                        cp.sharded_phase_packed(*args, color=color,
+                                                beta=1 / KBT_CLOCK_08, **kw,
+                                                **extra),
+                        cp.sharded_phase_packed_plain(
+                            *args, color=color, beta=1 / KBT_CLOCK_08, **kw,
+                            **extra), 1))
+    for q, col0 in ((5, 11), (2, 0), (20, None)):
+        R, L, H = 3, 9, 23
+
+        def states(shape):
+            return torch.from_numpy(g.integers(0, q, shape).astype(np.int8)
+                                    ).to(dev)
+
+        x, o, up, dn = (states(s) for s in ((R, L, H), (R, L, H), (R, 1, H),
+                                             (R, 1, H)))
+        kw = dict(q=q, beta=1 / KBT_CLOCK)
+        offs = (1, 5) if col0 is None else (1, 5, col0)
+        if col0 is not None:
+            kw.update(halo_lf=states((R, L, 1)), halo_rt=states((R, L, 1)))
+        uc, ua = (torch.rand((R, L, H), device=dev) for _ in range(2))
+        for color in (0, 1):
+            seeds = rng.seeds_from_key(rng.base_key(93), color)
+            for extra in ({}, {"u_cand": uc, "u_acc": ua},
+                          {"measuring": True}):
+                worst = max(worst, cmp(
+                    c8p.sharded_phase(x.clone(), o, up, dn, seeds, offs,
+                                      color=color, **kw, **extra),
+                    c8p.sharded_phase_plain(x, o, up, dn, seeds, offs,
+                                            color=color, **kw, **extra),
+                    2 * L * H))
+    for col0 in (None, 11):
+        R, L, H = 2, 9, 23
+
+        def unit(shape):
+            th = torch.from_numpy(g.uniform(0, 2 * np.pi, shape)).to(dev)
+            return torch.cos(th).float(), torch.sin(th).float()
+
+        (sx, sy), (ox, oy) = unit((R, L, H)), unit((R, L, H))
+        (ux, uy), (dx, dy) = unit((R, 1, H)), unit((R, 1, H))
+        kw = dict(halos_x=(ux, dx), halos_y=(uy, dy))
+        offs = (2, 7) if col0 is None else (2, 7, col0)
+        if col0 is not None:
+            (lx, ly), (rx, ry) = unit((R, L, 1)), unit((R, L, 1))
+            kw.update(cols_x=(lx, rx), cols_y=(ly, ry))
+        snap = [p for pair in (unit((R, L, H)), unit((R, L, H)))
+                for p in pair]
+        uc, ua = (torch.rand((R, L, H), device=dev) for _ in range(2))
+        for color in (0, 1):
+            seeds = rng.seeds_from_key(rng.base_key(95), color)
+            for extra in ({}, {"u_cand": uc, "u_acc": ua},
+                          {"measuring": True}, {"snap": snap}):
+                worst = max(worst, cmp(
+                    xyp.sharded_phase(sx.clone(), sy.clone(), ox, oy,
+                                      seeds=seeds, offs=offs, color=color,
+                                      beta=1 / KBT_XY, **kw, **extra),
+                    xyp.sharded_phase_plain(sx.clone(), sy.clone(), ox, oy,
+                                            seeds=seeds, offs=offs,
+                                            color=color, beta=1 / KBT_XY,
+                                            **kw, **extra), 2 * L * H))
+            for measuring in (False, True):
+                worst = max(worst, cmp(
+                    xyp.sharded_or_phase(sx.clone(), sy.clone(), ox, oy,
+                                         offs=offs, color=color,
+                                         measuring=measuring, **kw),
+                    xyp.sharded_or_phase_plain(sx.clone(), sy.clone(), ox,
+                                               oy, offs=offs, color=color,
+                                               measuring=measuring, **kw),
+                    2 * L * H))
+    log(f"  clock and XY halo modes at small shards, every mode: largest "
+        f"error {worst:.3g}")
+    return worst
+
+
+def time_mesh_cx_kernels(msb, cp, c8p, xyp, rng, dev) -> dict:
+    """Each clock and XY halo mode at its mesh class's shard shape, graph
+    timed (50 launches, 9 windows) beside its bound and its plain version:
+    phase a (Philox) and the measuring phase b (the packed and int8 clock,
+    the XY OR measuring phase and the snapshot mode at the fix1mcs shard);
+    each held against its plain version there (states exact, float64 sums
+    against their scale).  Returns {label: (times, err)}."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import clock_multispin
+
+    seeds = multispin_keys(rng, 1, 97)[0]
+    g = np.random.default_rng(99)
+    out = {}
+
+    def timed(label, sites, fn, plain, nbytes, ops, sums_scale):
+        """Graph time of ``fn`` (which updates its own inputs), the plain
+        version's single call, one call of each on equal inputs."""
+        ms, lo, hi = graph_time_ms(fn, 50, 9)
+        plain_ms = cuda_time_ms(plain, reps=1, warmup=0)
+        got, want = fn(fresh=True), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for a, b in zip(got, want):
+            for u, v in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+                err = max(err, float((u.double() - v.double()).abs().max())
+                          / (sums_scale if u.dtype == torch.float64 else 1))
+        bound, by = bound_ms(nbytes, ops)
+        log(f"  {label}: {ms:.4f} ms/launch (graph, 50 launches x 9 "
+            f"windows: {lo:.4f}-{hi:.4f}; {sites / ms * 1e3:.4g} sites/s), "
+            f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); vs "
+            f"plain {err:.3g}")
+        out[label] = ({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by}, err)
+
+    for label, fields, (_, _, x), kind, _, _, shape in MESH_CX_CLASSES:
+        cols = x > 1
+        nrep, L, w = shape
+        if kind == "clock6":
+            spec = clock_multispin.SPEC
+            beta = 1.0 / fields["kbt"]
+            st = [torch.randint(0, 6, (nrep, 32 * L, w), device=dev,
+                                dtype=torch.int8) for _ in range(2)]
+            xp, op = spec.pack_color(st[0]), spec.pack_color(st[1])
+            hup = tuple(((p[:, -1:] >> 31) & 1).contiguous() for p in op)
+            hdn = tuple((p[:, :1] & 1).contiguous() for p in op)
+            kw = (dict(halo_lf=tuple(p[:, :, -1:].contiguous() for p in op),
+                       halo_rt=tuple(p[:, :, :1].contiguous() for p in op))
+                  if cols else {})
+            offs = (0, L, w) if cols else (0, L)
+            n = L * w * nrep
+            halo = 4 * nrep * 3 * (2 * w + (2 * L if cols else 0))
+            for color, measuring in ((0, False), (1, True)):
+                def call(f, fresh=False, color=color, measuring=measuring,
+                         xp=xp, op=op, hup=hup, hdn=hdn, kw=kw, offs=offs):
+                    return f(spec, xp, op, hup, hdn, seeds[color], offs,
+                             color=color, beta=beta, measuring=measuring,
+                             **kw)
+                timed(f"packed clock halo mode {shape}, "
+                      f"{'measuring' if measuring else 'phase a'}", 32 * n,
+                      functools.partial(call, cp.sharded_phase_packed),
+                      functools.partial(call, cp.sharded_phase_packed_plain),
+                      3 * 3 * 4 * n + halo + (16 * nrep if measuring else 0),
+                      n * clock_phase_ops_per_word(msb, cp, spec, beta,
+                                                   measuring), 1)
+        elif kind == "clock8":
+            q, beta = fields["q"], 1.0 / fields["kbt"]
+            a, b = (torch.randint(0, q, shape, device=dev, dtype=torch.int8)
+                    for _ in range(2))
+            up, dn = b[:, -1:].contiguous(), b[:, :1].contiguous()
+            kw = (dict(halo_lf=b[:, :, -1:].contiguous(),
+                       halo_rt=b[:, :, :1].contiguous()) if cols else {})
+            offs = (0, L, w) if cols else (0, L)
+            n = a.numel()
+            halo = nrep * (2 * w + (2 * L if cols else 0))
+            work = a.clone()
+            for color, measuring in ((0, False), (1, True)):
+                def call(f, fresh=False, color=color, measuring=measuring,
+                         kw=kw, offs=offs):
+                    x_ = a.clone() if fresh or f is c8p.sharded_phase_plain \
+                        else work
+                    return f(x_, b, up, dn, seeds[color], offs, color=color,
+                             q=q, beta=beta, measuring=measuring, **kw)
+                timed(f"int8 clock halo mode {shape} q={q}, "
+                      f"{'measuring' if measuring else 'phase a'}", n,
+                      functools.partial(call, c8p.sharded_phase),
+                      functools.partial(call, c8p.sharded_phase_plain),
+                      CLOCK8_PHASE_BYTES * n + halo
+                      + (24 * nrep if measuring else 0),
+                      n * (clock8_phase_ops()
+                           + (OPS_CLOCK8_FUSED if measuring else 0)),
+                      2 * L * w)
+        else:
+            beta = 1.0 / fields["kbt"]
+            th = torch.rand((6,) + shape, device=dev) * 6.2832
+            sx, sy, ox, oy = (torch.cos(th[0]), torch.sin(th[0]),
+                              torch.cos(th[1]), torch.sin(th[1]))
+            snap = [torch.cos(th[2]), torch.sin(th[2]), torch.cos(th[3]),
+                    torch.sin(th[3])]
+            kw = dict(halos_x=(ox[:, -1:].contiguous(),
+                               ox[:, :1].contiguous()),
+                      halos_y=(oy[:, -1:].contiguous(),
+                               oy[:, :1].contiguous()))
+            if cols:
+                kw.update(cols_x=(ox[:, :, -1:].contiguous(),
+                                  ox[:, :, :1].contiguous()),
+                          cols_y=(oy[:, :, -1:].contiguous(),
+                                  oy[:, :, :1].contiguous()))
+            offs = (0, L, w) if cols else (0, L)
+            n = sx.numel()
+            halo = 8 * nrep * (2 * w + (2 * L if cols else 0))
+            wx, wy = sx.clone(), sy.clone()
+            modes = ([("Metropolis phase a", xyp.sharded_phase,
+                       xyp.sharded_phase_plain, dict(seeds=seeds[0],
+                                                     color=0, beta=beta),
+                       OPS_XY_METROPOLIS, 0),
+                      ("OR phase a", xyp.sharded_or_phase,
+                       xyp.sharded_or_phase_plain, dict(color=0),
+                       OPS_XY_OVER_RELAX, 0),
+                      ("OR measuring", xyp.sharded_or_phase,
+                       xyp.sharded_or_phase_plain,
+                       dict(color=1, measuring=True),
+                       OPS_XY_OVER_RELAX + OPS_XY_MEASURE, 0)]
+                     if kind == "xy_or" else
+                     [("snapshot mode", xyp.sharded_phase,
+                       xyp.sharded_phase_plain,
+                       dict(seeds=seeds[1], color=1, beta=beta, snap=snap),
+                       OPS_XY_METROPOLIS + OPS_XY_MEASURE + OPS_XY_SNAP,
+                       XY_SNAP_BYTES_PER_SITE)])
+            for name, fn, plain, extra, ops, snap_bytes in modes:
+                def call(f, fresh=False, extra=extra, kw=kw, offs=offs):
+                    if fresh or f is not fn:
+                        u, v = sx.clone(), sy.clone()
+                    else:
+                        u, v = wx, wy
+                    return f(u, v, ox, oy, offs=offs, **kw, **extra)
+                timed(f"XY halo mode {shape}, {name}", n,
+                      functools.partial(call, fn),
+                      functools.partial(call, plain),
+                      (XY_BYTES_PER_SITE + snap_bytes) * n + halo
+                      + (32 * nrep if "measuring" in name
+                         or "snapshot" in name else 0),
+                      n * ops, 2 * L * w)
+    return out
+
+
+def mesh_cx_shares(classes: dict, tcx: dict) -> dict[str, float]:
+    """Each clock and XY mesh class's kernel time (its launches at the
+    times measured at its shard shape) over its wall."""
+    shares = {}
+    for label, fields, _, kind, *_ in MESH_CX_CLASSES:
+        launches, wall = classes[label][:2]
+        t = {k: v[0]["ms"] for k, v in tcx.items()}
+        if kind == "clock6":
+            n = launches["clock"]["shard_phase"]
+            pa, pb = (t[k] for k in t if k.startswith("packed clock"))
+            kern = n / 2 * (pa + pb)
+        elif kind == "clock8":
+            n = launches["clock8"]["halo_phase"]
+            pa, pb = (t[k] for k in t if k.startswith("int8 clock"))
+            kern = n / 2 * (pa + pb)
+        elif kind == "xy_or":
+            n = launches["xy"]
+            ta = t[next(k for k in t if k.endswith("Metropolis phase a"))]
+            to = t[next(k for k in t if k.endswith("OR phase a"))]
+            tm = t[next(k for k in t if k.endswith("OR measuring"))]
+            kern = (n["halo_metropolis"] * ta
+                    + (n["halo_over_relax"] - n["halo_over_relax_measuring"])
+                    * to + n["halo_over_relax_measuring"] * tm)
+        else:
+            n = launches["xy"]["halo_metropolis"]
+            ts = t[next(k for k in t if k.endswith("snapshot mode"))]
+            kern = n * ts
+        shares[label] = kern / (wall * 1e3)
+        log(f"  mesh {label}: kernel {kern / 1e3:.3f} s of a {wall:.3f} s "
+            f"wall; kernel share {shares[label]:.3f}")
+    return shares
+
+
 def read_dat(path: Path, max_t: int | None = None) -> np.ndarray:
     """A .dat table's rows; with ``max_t`` only those up to t = max_t
     (the clock curves run to 10^5 sweeps)."""
@@ -4947,18 +5425,23 @@ def main() -> int:
         xo_launch, xo_wall, xo_rate, xo_z = run_xy(
             cli_main, modules, out, 4000, KBT_XY, 8, 16, 1000, 1,
             ref_xy_or, XY_ENGINE)
+        no_halo = {k: 0 for k in xyp.LAUNCHES if k.startswith("halo_")}
         want = {"metropolis": 4000, "metropolis_measuring": 0,
                 "metropolis_snapshot": 0, "over_relax": 4000,
-                "over_relax_measuring": 2000}
+                "over_relax_measuring": 2000, **no_halo}
         if xo_launch["xy"] != want:
             fail(f"XY over-relaxation path: {xo_launch['xy']} != {want}")
+        # phase 4l's angle class writes xy2d_4000.dat again: keep this one
+        # for phase 4m's mesh class
+        (out / "xy2d_4000_component.dat").write_bytes(
+            (out / "xy2d_4000.dat").read_bytes())
         log("phase 4e: XY path, Metropolis class (2000x2000 x 32)")
         xm_launch, xm_wall, xm_rate, xm_z = run_xy(
             cli_main, modules, out, 2000, KBT_XY_2000, 32, 64, 100, 0,
             ref_xy, XY_ENGINE)
         want = {"metropolis": 400, "metropolis_measuring": 200,
                 "metropolis_snapshot": 0, "over_relax": 0,
-                "over_relax_measuring": 0}
+                "over_relax_measuring": 0, **no_halo}
         if xm_launch["xy"] != want:
             fail(f"XY Metropolis path: {xm_launch['xy']} != {want}")
         # 4f. XY disorder classes
@@ -5081,6 +5564,14 @@ def main() -> int:
              "3-D streaming 512^3 x 8": s3_rate,
              **{k: int8[k][2] for k in ("2-D streamed 4000^2 x 8",
                                         "3-D 500^3 x 2")}})
+        mesh_cx = run_mesh_cx_classes(
+            modules, out, {"clock6": ref_c2048, "xy_or": ref_xy_or,
+                           "fix1": ref_fix1}, dev,
+            {"clock aligned 2048^2 x 16": ca_rate,
+             "streamed q=5 2000^2 x 16":
+                 clock8["streamed q=5 2000^2 x 16"][2],
+             "XY OR 4000^2 x 8": xo_rate,
+             "fix1mcs": disorder["fix1mcs"][2]})
         mesh_wall = time.perf_counter() - t_mesh
     # with neither switch set the XY classes kept their engines
     for p in (xo_launch, xm_launch, *(d[0] for d in disorder.values()),
@@ -5097,7 +5588,8 @@ def main() -> int:
              *(c[0] for c in clock8.values()),
              *(c[0] for c in hpc.values()),
              *(c[0] for c in xya_cls.values()),
-             *(c[0] for c in mesh_cls.values()))
+             *(c[0] for c in mesh_cls.values()),
+             *(c[0] for c in mesh_cx.values()))
 
     def launched(module: str, kernel: str) -> int:
         return sum(p[module][kernel] for p in paths)
@@ -5571,6 +6063,13 @@ def main() -> int:
         fail(f"a halo kernel differs from its plain version at its shard "
              f"shape ({ {k: v[2] for k, v in tm.items()} })")
     mesh_share = mesh_shares(mesh_cls, tm)
+    err_cx = check_mesh_cx_small(cp, c8p, xyp, rng, dev)
+    tcx = time_mesh_cx_kernels(msb, cp, c8p, xyp, rng, dev)
+    err_cx = max(err_cx, *(v[1] for v in tcx.values()))
+    if err_cx > 1e-12:
+        fail(f"a clock or XY halo mode differs from its plain version "
+             f"({err_cx:.3g})")
+    mesh_share.update(mesh_cx_shares(mesh_cx, tcx))
     mesh_wall += time.perf_counter() - t_mesh5
     log(f"  phase 4m and its phase-5 rows took {mesh_wall:.1f} s")
 
@@ -5712,6 +6211,18 @@ def main() -> int:
         mesh_row("ising3d", "packed 3-D 512^3 x 8 (2,4)"),
         mesh_row("ising2d_int8", "int8 2-D 4000^2 x 8 (1,2,2)"),
         mesh_row("ising3d_int8", "int8 3-D 500^3 x 2 (2,2)"),
+        ("clock_planes.phase_kernel<Q, true>", "clock_planes.cu",
+         "clock_planes.py:875", launched("clock", "shard_phase"), err_cx,
+         tcx["packed clock halo mode (8, 32, 512), measuring"][0]),
+        ("clock_pallas.phase_kernel<true, .>", "clock_pallas.cu",
+         "clock_pallas.py:294", launched("clock8", "halo_phase"), err_cx,
+         tcx["int8 clock halo mode (16, 1000, 500) q=5, measuring"][0]),
+        ("xy2d_pallas.metropolis_kernel<N, true>", "xy2d_pallas.cu",
+         "xy2d_pallas.py:726", launched("xy", "halo_metropolis"), err_cx,
+         tcx["XY halo mode (4, 2000, 1000), Metropolis phase a"][0]),
+        ("xy2d_pallas.over_relax_kernel<true>", "xy2d_pallas.cu",
+         "xy2d_pallas.py:770", launched("xy", "halo_over_relax"), err_cx,
+         tcx["XY halo mode (4, 2000, 1000), OR measuring"][0]),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
@@ -5805,7 +6316,8 @@ def main() -> int:
         f"{label} {rate:.4g} flip attempts/s ({wall:.2f} s, largest |z| "
         f"{z:.2f}, {ratio:.3f} of the unsharded rate, kernel share "
         f"{mesh_share[label]:.3f})"
-        for label, (_, wall, rate, z, ratio) in mesh_cls.items()))
+        for label, (_, wall, rate, z, ratio) in {**mesh_cls,
+                                                   **mesh_cx}.items()))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
 """CUDA-event times of the periodic XY relaxation's phase kernels at the
 over-relaxation class's launch shape, 4000x4000 x 8 (one colour, 8 x 4000
 x 2000 float32 sites): metropolis_kernel and over_relax_kernel, each
-without and with the fused float64 sums, on a random state; with
+without and with the fused float64 sums, on a random state, and the
+resident disorder multisweep (xy2d_resident.cu, which shares
+csrc/xy2d_site.cuh) at the from-disorder class's 1500x1500 x 1, S = 64,
+against a snapshot; with
 ``--helical``, the four dense helical XY kernels at the helical classes'
 launch, 10001x10000 x 1 (component and angle planes, Metropolis and OR,
 colour a plain and colour b measuring); with ``--periodic-angle``, the
@@ -151,7 +154,20 @@ def main() -> int:
         "over_relax_measuring": lambda: xyp.over_relax_phase(
             bx, by, ax, ay, color=1, measuring=True),
     }
-    return report(modes, args, ["xy2d_pallas"])
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        multispin_rng,
+        xy2d_resident as xyr,
+    )
+    th = torch.rand((4, 1, 1500, 750), generator=gen, device=dev) * 6.2832
+    st = XYState(torch.cos(th[0]), torch.sin(th[0]), torch.cos(th[1]),
+                 torch.sin(th[1]))
+    snap = XYState(torch.cos(th[2]), torch.sin(th[2]), torch.cos(th[3]),
+                   torch.sin(th[3]))
+    seeds = multispin_rng.sweep_phase_keys(key, 64).to(dev)
+    modes["resident_multisweep"] = lambda: xyr.multisweep_planes(
+        st, snap, seeds, beta=beta)
+    return report(modes, args, ["xy2d_pallas", "xy2d_resident"])
 
 
 def report(modes, args, libs) -> int:

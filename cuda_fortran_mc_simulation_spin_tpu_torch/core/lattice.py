@@ -86,6 +86,57 @@ def neighbor_sums(other: torch.Tensor, color: int) -> torch.Tensor:
     return up + down + lr
 
 
+def neighbor_sums_halo(other: torch.Tensor, color: int, row0: int,
+                       halo_up: torch.Tensor, halo_dn: torch.Tensor,
+                       halo_lf: torch.Tensor | None = None,
+                       halo_rt: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`neighbor_sums` of a shard's colour given the other colour's
+    (..., L, w) block, summed (up + down) + (centre + side): the rows past
+    the shard's edges are the exchanged ``halo_up``/``halo_dn`` (..., 1,
+    w), the columns the exchanged ``halo_lf``/``halo_rt`` (..., L, 1) with
+    an x split, else periodic in x; row parity from the global row row0 +
+    y (JAX ``lattice.neighbor_sums_halo``)."""
+    up = torch.cat([halo_up, other[..., :-1, :]], dim=-2)
+    down = torch.cat([other[..., 1:, :], halo_dn], dim=-2)
+    if halo_lf is None:
+        minus = torch.roll(other, 1, dims=-1)
+        plus = torch.roll(other, -1, dims=-1)
+    else:
+        minus = torch.cat([halo_lf, other[..., :-1]], dim=-1)
+        plus = torch.cat([other[..., 1:], halo_rt], dim=-1)
+    L = other.shape[-2]
+    odd = ((row0 + torch.arange(L, device=other.device)) & 1).bool()
+    odd = odd.view(L, 1)
+    if color == 0:
+        lr = other + torch.where(odd, plus, minus)
+    else:
+        lr = other + torch.where(odd, minus, plus)
+    return up + down + lr
+
+
+def right_down_neighbors_halo(a: torch.Tensor, b: torch.Tensor, row0: int,
+                              dn_a: torch.Tensor, dn_b: torch.Tensor,
+                              rt_a: torch.Tensor | None = None,
+                              rt_b: torch.Tensor | None = None):
+    """:func:`right_down_neighbors` of a shard's (..., L, w) blocks: the
+    row below the last from ``dn_a``/``dn_b`` (..., 1, w), the column right
+    of the last from ``rt_a``/``rt_b`` (..., L, 1) with an x split, else
+    periodic in x; parity from the global row row0 + y."""
+    L = a.shape[-2]
+    odd = ((row0 + torch.arange(L, device=a.device)) & 1).bool().view(L, 1)
+
+    def right(v, rt):
+        if rt is None:
+            return torch.roll(v, -1, dims=-1)
+        return torch.cat([v[..., 1:], rt], dim=-1)
+
+    right_a = torch.where(odd, right(b, rt_b), b)
+    down_a = torch.cat([b[..., 1:, :], dn_b], dim=-2)
+    right_b = torch.where(odd, a, right(a, rt_a))
+    down_b = torch.cat([a[..., 1:, :], dn_a], dim=-2)
+    return right_a, down_a, right_b, down_b
+
+
 def right_down_neighbors(a: torch.Tensor, b: torch.Tensor):
     """Per-site right and down neighbour values for both colours, for the
     bond energy E = -Σ S·(S_right + S_down).

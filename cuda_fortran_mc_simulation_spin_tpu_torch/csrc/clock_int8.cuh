@@ -107,6 +107,26 @@ struct Phase {
   int q, color;
 };
 
+// A shard of a domain-decomposed lattice (parallel/domain.py): the halos
+// exchanged from its neighbours (parallel/halo.py) and its global offsets.
+// The shard holds rows row0 .. row0 + ny - 1 and columns col0 .. col0 +
+// half - 1 of the colour planes.  A periodic lattice is the shard with no
+// halos and no offsets.
+struct Shard {
+  const int8_t* up;  // (R, 1, half): the row above row 0
+  const int8_t* dn;  // (R, 1, half): the row below the last
+  const int8_t* lf;  // (R, ny, 1): the column left of column 0, or null
+  const int8_t* rt;  // (periodic in x: the shard spans every column)
+  int rep0, row0, col0;
+};
+
+// Units of a row of the shard: the global units (column >> 1) its columns
+// touch, so that one Philox call still feeds the two global columns of a
+// unit and a shard draws what the whole lattice draws, at any col0.
+__host__ __device__ inline int shard_units(int col0, int half) {
+  return ((col0 + half - 1) >> 1) - (col0 >> 1) + 1;
+}
+
 // The staged tables: float32 for the update, float64 for the sums
 struct Tables {
   const float* c;
@@ -115,37 +135,72 @@ struct Tables {
   const double* s64;
 };
 
-// Updates unit j of row y of replica r.  With MEASURE it adds the fused
+// Updates the sites of global unit j + (col0 >> 1) of local row y of
+// replica r.  HALO: the rows past the shard's first and last and, when lf
+// is set, the columns past its edges come from the halos of s, and parity
+// and the Philox counter (rep0 + r, row0 + y, global unit) from global
+// coordinates (JAX clock_pallas._halo_phase_kernel); a shard at an odd
+// col0 cuts a unit, whose other site its neighbour updates.  Otherwise
+// every neighbour wraps and s is not read.  With MEASURE it adds the fused
 // float64 sums of a measuring phase b (JAX clock_multisweep.py:87-95):
 // Σ cos and Σ sin of the new state and of the other colour's site (y, i),
 // and S_new·h over the site's four bonds (the other colour is final, so
 // every bond is counted once; reduce_kernel negates it into e).
-template <bool COHERENT, bool MEASURE>
-__device__ __forceinline__ void update_unit(const Phase& p,
+template <bool COHERENT, bool MEASURE, bool HALO = false>
+__device__ __forceinline__ void update_unit(const Phase& p, const Shard& s,
                                             const Geometry& g,
                                             const Tables& tb, int r, int y,
                                             int j, xy::Sums& t) {
+  const int row0 = HALO ? s.row0 : 0;
+  const int col0 = HALO ? s.col0 : 0;
   const size_t base = static_cast<size_t>(r) * g.ny * g.half;
   const size_t row = base + static_cast<size_t>(y) * g.half;
-  const size_t up = base + static_cast<size_t>(wrap(y - 1, g.ny)) * g.half;
-  const size_t dn = base + static_cast<size_t>(wrap(y + 1, g.ny)) * g.half;
+  // the rows before and after: wrapped, or a halo
+  const int8_t* prev = p.o;
+  const int8_t* next = p.o;
+  size_t up = base + static_cast<size_t>(wrap(y - 1, g.ny)) * g.half;
+  size_t dn = base + static_cast<size_t>(wrap(y + 1, g.ny)) * g.half;
+  if (HALO) {
+    const size_t halo = static_cast<size_t>(r) * g.half;
+    if (y == 0) {
+      prev = s.up;
+      up = halo;
+    }
+    if (y == g.ny - 1) {
+      next = s.dn;
+      dn = halo;
+    }
+  }
   // colour 0 on an odd row and colour 1 on an even row read column i + 1
-  const int d = (p.color == 0) == ((y & 1) == 1) ? 1 : -1;
+  const int d = (p.color == 0) == (((row0 + y) & 1) == 1) ? 1 : -1;
+  const int jg = (col0 >> 1) + j;
   uint4 w = make_uint4(0u, 0u, 0u, 0u);
   if (p.ucand == nullptr)
-    w = philox4x32_10(make_uint4(static_cast<uint32_t>(r),
-                                 static_cast<uint32_t>(y),
-                                 static_cast<uint32_t>(j), 0u),
-                      p.key);
+    w = philox4x32_10(
+        make_uint4(static_cast<uint32_t>((HALO ? s.rep0 : 0) + r),
+                   static_cast<uint32_t>(row0 + y),
+                   static_cast<uint32_t>(jg), 0u),
+        p.key);
   const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+  const size_t col_halo = static_cast<size_t>(r) * g.ny + y;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const int i = 2 * j + k;
+    // i rises with k, so the row's end breaks the loop (a continue there
+    // costs registers, csrc/ising_int8.cuh)
+    const int i = 2 * jg + k - col0;
+    if (HALO && i < 0) continue;
     if (i >= g.half) break;
-    const int ou = load<COHERENT>(p.o, up + i);
-    const int od = load<COHERENT>(p.o, dn + i);
+    const int ou = load<COHERENT>(prev, up + i);
+    const int od = load<COHERENT>(next, dn + i);
     const int oc = load<COHERENT>(p.o, row + i);
-    const int os = load<COHERENT>(p.o, row + wrap(i + d, g.half));
+    const int sc = i + d;
+    int os;
+    if (HALO && sc < 0 && s.lf != nullptr)
+      os = load<COHERENT>(s.lf, col_halo);
+    else if (HALO && sc >= g.half && s.rt != nullptr)
+      os = load<COHERENT>(s.rt, col_halo);
+    else
+      os = load<COHERENT>(p.o, row + wrap(sc, g.half));
     const float hx = __fadd_rn(__fadd_rn(tb.c[ou], tb.c[od]),
                                __fadd_rn(tb.c[oc], tb.c[os]));
     const float hy = __fadd_rn(__fadd_rn(tb.s[ou], tb.s[od]),

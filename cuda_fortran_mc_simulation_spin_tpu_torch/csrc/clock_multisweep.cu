@@ -84,10 +84,12 @@ __global__ void __launch_bounds__(THREADS)
         xy::Sums sums = {0.0, 0.0, 0.0, 0.0};
         if (phase == 0) {
           if (live)
-            clock8::update_unit<true, false>(p, g, tb, r, y, j, sums);
+            clock8::update_unit<true, false>(p, clock8::Shard{}, g, tb, r, y,
+                                               j, sums);
         } else {
           if (live)
-            clock8::update_unit<true, true>(p, g, tb, r, y, j, sums);
+            clock8::update_unit<true, true>(p, clock8::Shard{}, g, tb, r, y,
+                                               j, sums);
           xy::block_sums<3, true>(
               ms.partials, static_cast<size_t>(r) * ms.sweeps + s, chunks,
               chunk, sums);

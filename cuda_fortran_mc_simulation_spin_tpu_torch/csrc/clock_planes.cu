@@ -9,6 +9,21 @@
 //                   Philox words or injected (8, 6, 4 planes); the
 //                   measuring phase b adds exact per-replica (2m, 2e)
 //                   ((m, e) for q = 4) over the real sites.
+//   phase_kernel<Q, true> replaces clock_planes.py:_sharded_phase_kernel
+//                   (pallas_call at :875, sharded_phase_packed; reached as
+//                   clock_multispin.sharded_phase_packed6, clock4_
+//                   multispin.sharded_phase_packed4 and clock3_multispin.
+//                   sharded_phase_packed3).  The same phase on a shard of a
+//                   (y[, x]) mesh (parallel/domain.py): the bit rows past
+//                   the shard's first and last word rows come from the
+//                   exchanged 0/1 halo planes (one a state plane, spliced
+//                   in at bit 31 above and read at bit 0 below), with an x
+//                   split the word columns past its edges from the
+//                   exchanged word columns; the Philox counter is offset by
+//                   the shard's global (rep0, wrow0, col0), so a shard
+//                   draws what the whole lattice draws and a sharded run
+//                   equals the unsharded one bit for bit.  Shards hold
+//                   whole words (ny % (32 y) == 0), so nb = 0 there.
 //
 // Layout (ops/clock_planes.py): bit k of word row Y is lattice row 32Y+k;
 // the top word holds nb = ny % 32 real rows (nb = 0: all 32), its pad bits
@@ -47,6 +62,15 @@ constexpr int WARPS = THREADS / 32;
 constexpr uint32_t ODD_BITS = 0xAAAAAAAAu;
 constexpr uint32_t EVEN_BITS = 0x55555555u;
 
+// A shard's halos and global offsets (read only by phase_kernel<Q, true>)
+struct ClockShard {
+  const uint32_t* up[3];  // (R, 1, half) 0/1: the row above word row 0
+  const uint32_t* dn[3];  // (R, 1, half) 0/1: the row below the last
+  const uint32_t* lf[3];  // (R, nyw, 1) word column left of column 0, or null
+  const uint32_t* rt[3];  // (R, nyw, 1) right of the last, or null
+  uint32_t rep0, wrow0, col0;
+};
+
 struct ClockArgs {
   const uint32_t* x[3];   // (R, nyw, half) planes of the colour updated
   uint32_t* out[3];       // its new planes (never aliasing x or o)
@@ -58,8 +82,11 @@ struct ClockArgs {
   clockq::Chains chains;
 };
 
-template <int Q>
-__global__ void __launch_bounds__(THREADS) phase_kernel(ClockArgs a) {
+// HALO: a is a shard's (nb = 0), its edges read s's halos; otherwise the
+// planes are periodic and s is not read.
+template <int Q, bool HALO>
+__global__ void __launch_bounds__(THREADS)
+    phase_kernel(ClockArgs a, ClockShard s) {
   using T = clockq::Traits<Q>;
   constexpr int NS = T::NS, NR = T::NR;
   __shared__ int red[2][WARPS];
@@ -82,14 +109,23 @@ __global__ void __launch_bounds__(THREADS) phase_kernel(ClockArgs a) {
     for (int k = 0; k < NS; ++k) {
       const uint32_t* o = a.o[k] + base;
       uint32_t c = __ldg(o + w);
+      const size_t hrow = static_cast<size_t>(r) * half + X;
+      const size_t hcol = static_cast<size_t>(r) * nyw + Y;
       const uint32_t prev =
           Y > 0 ? __ldg(o + w - half)
-                : (nb ? __ldg(o + top * half + X) << (32 - nb)
-                      : __ldg(o + top * half + X));
-      const uint32_t next = Y < top ? __ldg(o + w + half) : __ldg(o + X);
-      if (nb && Y == top) c = (c & low) | (__ldg(o + X) << nb);
-      const uint32_t minus = __ldg(o + Y * half + xm);
-      const uint32_t plus = __ldg(o + Y * half + xp);
+                : (HALO ? __ldg(s.up[k] + hrow) << 31
+                        : (nb ? __ldg(o + top * half + X) << (32 - nb)
+                              : __ldg(o + top * half + X)));
+      const uint32_t next =
+          Y < top ? __ldg(o + w + half)
+                  : (HALO ? __ldg(s.dn[k] + hrow) : __ldg(o + X));
+      if (!HALO && nb && Y == top) c = (c & low) | (__ldg(o + X) << nb);
+      const uint32_t minus = HALO && X == 0 && s.lf[k] != nullptr
+                                 ? __ldg(s.lf[k] + hcol)
+                                 : __ldg(o + Y * half + xm);
+      const uint32_t plus = HALO && X == half - 1 && s.rt[k] != nullptr
+                                ? __ldg(s.rt[k] + hcol)
+                                : __ldg(o + Y * half + xp);
       n[k][0] = (c << 1) | (prev >> 31);
       n[k][1] = (c >> 1) | (next << 31);
       n[k][2] = c;
@@ -103,9 +139,10 @@ __global__ void __launch_bounds__(THREADS) phase_kernel(ClockArgs a) {
 #pragma unroll
       for (int i = 0; i < NR; ++i) rnd[i] = __ldg(a.inj + i * plane + base + w);
     } else {
-      WordStream s(static_cast<uint32_t>(r), static_cast<uint32_t>(Y),
-                   static_cast<uint32_t>(X), a.key);
-      clockq::draw<Q>(s, a.chains, rnd);
+      WordStream ws(static_cast<uint32_t>(r) + (HALO ? s.rep0 : 0u),
+                    static_cast<uint32_t>(Y) + (HALO ? s.wrow0 : 0u),
+                    static_cast<uint32_t>(X) + (HALO ? s.col0 : 0u), a.key);
+      clockq::draw<Q>(ws, a.chains, rnd);
     }
     uint32_t x[NS];
 #pragma unroll
@@ -179,6 +216,50 @@ __global__ void __launch_bounds__(THREADS) phase_kernel(ClockArgs a) {
   }
 }
 
+ClockArgs make_args(const void* const* planes, const void* inj, void* obs,
+                    int nrep, int nyw, int half, int nb, int color,
+                    int use_inj, unsigned int s0, unsigned int s1,
+                    const unsigned int* cq, const int* ck) {
+  ClockArgs a;
+  for (int k = 0; k < 3; ++k) {
+    a.x[k] = static_cast<const uint32_t*>(planes[k]);
+    a.out[k] = static_cast<uint32_t*>(const_cast<void*>(planes[3 + k]));
+    a.o[k] = static_cast<const uint32_t*>(planes[6 + k]);
+  }
+  a.inj = use_inj ? static_cast<const uint32_t*>(inj) : nullptr;
+  a.obs = static_cast<long long*>(obs);
+  a.nrep = nrep;
+  a.nyw = nyw;
+  a.half = half;
+  a.nb = nb;
+  a.color = color;
+  a.key = make_uint2(s0, s1);
+  for (int i = 0; i < clockq::MAX_CHAINS; ++i) {
+    a.chains.q[i] = cq[i];
+    a.chains.k[i] = ck[i];
+  }
+  return a;
+}
+
+template <bool HALO>
+int launch(int q, const ClockArgs& a, const ClockShard& s, cudaStream_t st) {
+  const dim3 grid((a.nyw * a.half + THREADS - 1) / THREADS, a.nrep);
+  switch (q) {
+    case 6:
+      phase_kernel<6, HALO><<<grid, THREADS, 0, st>>>(a, s);
+      break;
+    case 4:
+      phase_kernel<4, HALO><<<grid, THREADS, 0, st>>>(a, s);
+      break;
+    case 3:
+      phase_kernel<3, HALO><<<grid, THREADS, 0, st>>>(a, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -196,48 +277,42 @@ int clock_phase(int q, const void* x0, const void* x1, const void* x2,
                 unsigned int cq1, unsigned int cq2, unsigned int cq3,
                 unsigned int cq4, int ck0, int ck1, int ck2, int ck3, int ck4,
                 void* stream) {
-  ClockArgs a;
-  a.x[0] = static_cast<const uint32_t*>(x0);
-  a.x[1] = static_cast<const uint32_t*>(x1);
-  a.x[2] = static_cast<const uint32_t*>(x2);
-  a.out[0] = static_cast<uint32_t*>(out0);
-  a.out[1] = static_cast<uint32_t*>(out1);
-  a.out[2] = static_cast<uint32_t*>(out2);
-  a.o[0] = static_cast<const uint32_t*>(o0);
-  a.o[1] = static_cast<const uint32_t*>(o1);
-  a.o[2] = static_cast<const uint32_t*>(o2);
-  a.inj = use_inj ? static_cast<const uint32_t*>(inj) : nullptr;
-  a.obs = static_cast<long long*>(obs);
-  a.nrep = nrep;
-  a.nyw = nyw;
-  a.half = half;
-  a.nb = nb;
-  a.color = color;
-  a.key = make_uint2(s0, s1);
+  const void* planes[9] = {x0, x1, x2, out0, out1, out2, o0, o1, o2};
   const unsigned int cq[5] = {cq0, cq1, cq2, cq3, cq4};
   const int ck[5] = {ck0, ck1, ck2, ck3, ck4};
-  for (int i = 0; i < clockq::MAX_CHAINS; ++i) {
-    a.chains.q[i] = cq[i];
-    a.chains.k[i] = ck[i];
-  }
+  const ClockArgs a = make_args(planes, inj, obs, nrep, nyw, half, nb, color,
+                                use_inj, s0, s1, cq, ck);
   if (nyw < 2 || half < 2 || nb < 0 || nb > 31 || nrep > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((nyw * half + THREADS - 1) / THREADS, nrep);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (q) {
-    case 6:
-      phase_kernel<6><<<grid, THREADS, 0, st>>>(a);
-      break;
-    case 4:
-      phase_kernel<4><<<grid, THREADS, 0, st>>>(a);
-      break;
-    case 3:
-      phase_kernel<3><<<grid, THREADS, 0, st>>>(a);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(q, a, ClockShard{},
+                       static_cast<cudaStream_t>(stream));
+}
+
+// One colour phase of a shard: planes[0..20] are x[3], out[3], o[3] (as
+// for clock_phase), then the halos up[3], dn[3] ((R, 1, half) 0/1) and
+// lf[3], rt[3] ((R, nyw, 1) word columns, all null without an x split);
+// (rep0, wrow0, col0) the shard's global replica, word row and column.
+int clock_halo_phase(int q, const void* const* planes, const void* inj,
+                     void* obs, int nrep, int nyw, int half, int color,
+                     int use_inj, int rep0, int wrow0, int col0,
+                     unsigned int s0, unsigned int s1, const unsigned int* cq,
+                     const int* ck, void* stream) {
+  ClockArgs a = make_args(planes, inj, obs, nrep, nyw, half, 0, color,
+                          use_inj, s0, s1, cq, ck);
+  ClockShard s;
+  for (int k = 0; k < 3; ++k) {
+    s.up[k] = static_cast<const uint32_t*>(planes[9 + k]);
+    s.dn[k] = static_cast<const uint32_t*>(planes[12 + k]);
+    s.lf[k] = static_cast<const uint32_t*>(planes[15 + k]);
+    s.rt[k] = static_cast<const uint32_t*>(planes[18 + k]);
   }
-  return static_cast<int>(cudaGetLastError());
+  s.rep0 = static_cast<uint32_t>(rep0);
+  s.wrow0 = static_cast<uint32_t>(wrow0);
+  s.col0 = static_cast<uint32_t>(col0);
+  if (nyw < 1 || half < 1 || nrep > 65535 || rep0 < 0 || wrow0 < 0 ||
+      col0 < 0 || (s.lf[0] == nullptr) != (s.rt[0] == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(q, a, s, static_cast<cudaStream_t>(stream));
 }
 
 const char* clock_error_string(int code) {

@@ -75,6 +75,23 @@ struct Sums {
   double mx, my, e, a;
 };
 
+// A shard of a domain-decomposed lattice (parallel/domain.py): the other
+// colour's halos exchanged from its neighbours (parallel/halo.py), a
+// component each, and its global offsets.  The shard holds rows row0 ..
+// row0 + ny - 1 and columns col0 .. col0 + half - 1 of the colour planes;
+// the halo kernels read it, the periodic ones never do.
+struct Shard {
+  const float* upx;  // (R, 1, half): the row above row 0
+  const float* upy;
+  const float* dnx;  // (R, 1, half): the row below the last
+  const float* dny;
+  const float* lfx;  // (R, ny, 1): the column left of column 0, or null
+  const float* lfy;  // (periodic in x: the shard spans every column)
+  const float* rtx;  // (R, ny, 1): the column right of the last, or null
+  const float* rty;
+  int rep0, row0, col0;
+};
+
 // (cos 2πu, sin 2πu): the quarter-period fold and polynomials of
 // ops/trig.cos_sin_2pi, one rounding per operation in its order
 __device__ __forceinline__ void cos_sin_2pi(float u, float& c, float& s) {
@@ -176,8 +193,48 @@ struct Site {
   float hx, hy, cx, cy;
 };
 
+// The field of site w of a shard: the rows past its first and last and,
+// with column halos, the columns past its edges from sh's halos; the side
+// column by the global row's parity.
 template <bool NC>
-__device__ __forceinline__ Site load_site(const Phase& p, int r, int w) {
+__device__ __forceinline__ Site load_site_halo(const Phase& p, int r, int w,
+                                               const Shard& sh) {
+  const int y = w / p.half, i = w - y * p.half;
+  const size_t base = static_cast<size_t>(r) * p.ny * p.half;
+  const size_t row = base + static_cast<size_t>(y) * p.half;
+  const size_t hrow = static_cast<size_t>(r) * p.half + i;
+  const size_t hcol = static_cast<size_t>(r) * p.ny + y;
+  const bool plus = (p.color == 0) == (((sh.row0 + y) & 1) == 1);
+  const int is = plus ? i + 1 : i - 1;
+  const bool past = is < 0 || is >= p.half;
+  const float* hx = plus ? sh.rtx : sh.lfx;
+  const float* hy = plus ? sh.rty : sh.lfy;
+  const size_t side = row + (is < 0 ? p.half - 1 : (is >= p.half ? 0 : is));
+  Site s;
+  s.idx = row + i;
+  s.cx = ld<NC>(p.ox + s.idx);
+  s.cy = ld<NC>(p.oy + s.idx);
+  const float ux =
+      y == 0 ? __ldg(sh.upx + hrow) : ld<NC>(p.ox + row - p.half + i);
+  const float uy =
+      y == 0 ? __ldg(sh.upy + hrow) : ld<NC>(p.oy + row - p.half + i);
+  const float dx = y == p.ny - 1 ? __ldg(sh.dnx + hrow)
+                                 : ld<NC>(p.ox + row + p.half + i);
+  const float dy = y == p.ny - 1 ? __ldg(sh.dny + hrow)
+                                 : ld<NC>(p.oy + row + p.half + i);
+  const float sx =
+      past && hx != nullptr ? __ldg(hx + hcol) : ld<NC>(p.ox + side);
+  const float sy =
+      past && hy != nullptr ? __ldg(hy + hcol) : ld<NC>(p.oy + side);
+  s.hx = __fadd_rn(__fadd_rn(ux, dx), __fadd_rn(s.cx, sx));
+  s.hy = __fadd_rn(__fadd_rn(uy, dy), __fadd_rn(s.cy, sy));
+  return s;
+}
+
+template <bool NC, bool HALO = false>
+__device__ __forceinline__ Site load_site(const Phase& p, int r, int w,
+                                          const Shard& sh = Shard{}) {
+  if constexpr (HALO) return load_site_halo<NC>(p, r, w, sh);
   const Nbrs n = neighbours(p.ny, p.half, p.color, r, w);
   Site s;
   s.idx = n.idx;
@@ -249,16 +306,36 @@ struct Update {
 // One Metropolis update of site w of replica r (w < ny * half): the
 // candidate (cos 2πu, sin 2πu) replaces S iff u_acc < exp(-β max(ΔE, 0)).
 // Uniforms injected (ucand/uacc non-null) or Philox words under ``key``.
-template <bool NC>
+// HALO: site w of a shard (load_site_halo), its Philox counter (rep0 + r,
+// row0 + y, col0 + i, 0) the global site's, so a shard draws what the
+// whole lattice draws.
+template <bool NC, bool HALO = false>
 __device__ __forceinline__ Update metropolis_site(const Phase& p, int r,
                                                   int w, const float* ucand,
                                                   const float* uacc,
-                                                  float neg_beta, uint2 key) {
+                                                  float neg_beta, uint2 key,
+                                                  const Shard& sh = Shard{}) {
   Update u;
-  u.s = load_site<NC>(p, r, w);
+  u.s = load_site<NC, HALO>(p, r, w, sh);
   const size_t idx = u.s.idx;
   float uc, ua;
-  uniforms(r, w, p.half, idx, ucand, uacc, key, uc, ua);
+  if constexpr (HALO) {
+    if (ucand != nullptr) {
+      uc = __ldg(ucand + idx);
+      ua = __ldg(uacc + idx);
+    } else {
+      const int y = w / p.half;
+      const uint4 b = philox4x32_10(
+          make_uint4(static_cast<uint32_t>(sh.rep0 + r),
+                     static_cast<uint32_t>(sh.row0 + y),
+                     static_cast<uint32_t>(sh.col0 + w - y * p.half), 0u),
+          key);
+      uc = u24(b.x);
+      ua = u24(b.y);
+    }
+  } else {
+    uniforms(r, w, p.half, idx, ucand, uacc, key, uc, ua);
+  }
   float cx, cy;
   cos_sin_2pi(uc, cx, cy);
   u.fx = p.sx[idx];

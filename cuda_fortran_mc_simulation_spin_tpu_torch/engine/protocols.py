@@ -32,14 +32,16 @@ progress on ``err`` (stdout = dataset, stderr = progress).
   periodic clock and the helical models through
   ``sweep.make_sample_runner`` (JAX ``_run_samples_generic``).
 
-A mesh (``cfg.mesh_dp·mesh_y·mesh_x`` > 1) runs periodic Ising 2-D and
-3-D domain-sharded (parallel/domain.py, the JAX package's mesh branch of
-``_run_accumulating``): the cards of ``make_mesh``, the host repeated with
-``device="cpu"``, or the devices given as ``mesh_devices``.  Every other
-route of the JAX package (helical 3-D at 2^30 sites a colour or more,
-clock and XY meshes) raises NotImplementedError naming the ROADMAP.md item
-that ports it, and never falls back; a helical model on a mesh raises
-ValueError, as the JAX package fails there.  Over-relaxation on the
+A mesh (``cfg.mesh_dp·mesh_y·mesh_x`` > 1) runs every periodic model
+domain-sharded (parallel/domain.py, the JAX package's mesh branches of
+``_run_accumulating`` and ``_run_xy_disorder``): the cards of
+``make_mesh``, the host repeated with ``device="cpu"``, or the devices
+given as ``mesh_devices``; ``samples`` runs its histories unsharded
+whatever the mesh, as the JAX package does.  The one route of the JAX
+package not served, helical 3-D at 2^30 sites a colour or more, raises
+NotImplementedError naming the ROADMAP.md item that ports it, and never
+falls back; a helical model on a mesh raises ValueError, as the JAX
+package fails there.  Over-relaxation on the
 Ising and clock models raises ValueError: it is defined for the XY model
 only.
 
@@ -181,16 +183,12 @@ def _check_route(cfg, model) -> None:
     serve yet, naming the ROADMAP.md item that ports it.  ``build_model``
     admits the Ising, clock and XY models; every periodic shape and every
     helical 2-D shape is served (the helical 2-D ones the packed and dense
-    engines refuse on the masked helical kernels), and so are Ising meshes,
-    so what is left is a clock or XY mesh and helical 3-D at 2^30 sites a
+    engines refuse on the masked helical kernels), and so are the periodic
+    models on a mesh, so what is left is helical 3-D at 2^30 sites a
     colour or more, which the JAX package sends to its generic jnp runner
     (its ``sweep.py:665-675``).  A helical model on a mesh raises
     ValueError (the JAX package fails on it).  Over-relaxation on the
     Ising and clock models raises ValueError."""
-    if _meshed(cfg) and isinstance(model, (Clock2D, XY2D)):
-        raise NotImplementedError(
-            f"--model {cfg.model} on a mesh is not ported yet (ROADMAP.md "
-            "queue A item 9, its clock and XY part)")
     if _meshed(cfg) and isinstance(
             model, (Ising2DHelical, Ising3DHelical, Clock2DHelical,
                     XY2DHelical)):
@@ -354,15 +352,35 @@ def run_relaxation(cfg: RunConfig, out: IO[str] = sys.stdout,
 
 def _check_disorder(cfg: RunConfig) -> None:
     """The disorder protocols run on the periodic XY engine only (the JAX
-    package's ValueError), and on one device."""
+    package's ValueError)."""
     if cfg.model != "xy2d" or cfg.nx % 2:
         raise ValueError(
             "disorder protocols need the periodic XY engine: use even "
             f"nx (got nx={cfg.nx}, which selects the helical layout)")
-    if _meshed(cfg):
-        raise NotImplementedError(
-            "the XY disorder protocols on a mesh are not ported yet "
-            "(ROADMAP.md queue A item 9, its clock and XY part)")
+
+
+def _xy_disorder_mesh_runner(cfg: RunConfig, model, prep: str, batch: int,
+                             device, mesh_devices=None):
+    """The JAX package's mesh branch of ``_run_xy_disorder`` (its
+    ``_xy_disorder_mesh_runner``): the domain-sharded disorder runner over
+    a (dp, y[, x]) mesh of the visible cards, the host repeated for a CPU
+    ``device``, or ``mesh_devices``.  It never takes the int16-angle
+    route, as JAX's ``_xy_multisweep_eligible`` refuses a mesh."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.parallel import (
+        domain,
+        mesh as mesh_mod,
+    )
+    msh = mesh_mod.make_mesh(cfg.mesh_dp, cfg.mesh_y, cfg.mesh_x,
+                             devices=mesh_devices,
+                             device_type=torch.device(device).type)
+    runner = domain.make_sharded_xy_disorder_runner(
+        model, msh, cfg.mcs, batch, prep, init_magne=cfg.init_magne,
+        near_magne_tol=cfg.near_magne_tol, n_over_relax=cfg.n_over_relax,
+        mcs_over_relax=cfg.mcs_over_relax,
+        track_correlation=cfg.track_correlation)
+    runner.engine = (f"XY disorder domain-sharded mesh ({cfg.mesh_dp},"
+                     f"{cfg.mesh_y},{cfg.mesh_x})")
+    return runner
 
 
 def _xy_disorder_runner(cfg: RunConfig, model, prep: str, batch: int,
@@ -376,11 +394,12 @@ def _xy_disorder_runner(cfg: RunConfig, model, prep: str, batch: int,
 
 def _run_xy_disorder(cfg: RunConfig, prep: str, out, err,
                      header_extra: dict, checkpoint_path=None,
-                     checkpoint_every=0, device="cuda"):
+                     checkpoint_every=0, device="cuda", mesh_devices=None):
     """The shared ensemble of the disorder protocols: a replica batch a
     call, the five accumulators ((|m|, e), (mx, my), (mx, e), (my, e) and
     A; with ``track_correlation`` also the two-point correlation),
-    checkpoint/resume.  Returns (model, accumulators)."""
+    checkpoint/resume; on a mesh (``cfg.mesh_*``) the domain-sharded
+    runner.  Returns (model, accumulators)."""
     dev = resolve_device(device)
     _check_disorder(cfg)
     model = build_model(cfg)
@@ -400,7 +419,11 @@ def _run_xy_disorder(cfg: RunConfig, prep: str, out, err,
     batch = max(cfg.replicas, 1)
     if cfg.tot_sample % batch:
         raise ValueError("tot_sample must be divisible by replicas")
-    runner = _xy_disorder_runner(cfg, model, prep, batch, dev)
+    if _meshed(cfg):
+        runner = _xy_disorder_mesh_runner(cfg, model, prep, batch, dev,
+                                          mesh_devices)
+    else:
+        runner = _xy_disorder_runner(cfg, model, prep, batch, dev)
     _stamp_engine(runner, err)
 
     start = 0
@@ -432,15 +455,17 @@ def _run_xy_disorder(cfg: RunConfig, prep: str, out, err,
 def run_from_disorder(cfg: RunConfig, out: IO[str] = sys.stdout,
                       err: IO[str] = sys.stderr,
                       checkpoint_path: str | None = None,
-                      checkpoint_every: int = 0, device="cuda") -> dict:
+                      checkpoint_every: int = 0, device="cuda",
+                      mesh_devices=None) -> dict:
     """xy2d_periodic_gpu_relaxation_from_disorder (and its _fix1mcs
     variant with cfg.rotate_after_first_mcs): a random start rotated onto
     +x (fix1mcs: rotated, with the snapshot, after the first sweep);
-    writes output_abs_parameters_from_disorder."""
+    writes output_abs_parameters_from_disorder.  ``mesh_devices`` as for
+    :func:`run_relaxation`."""
     prep = "fix1mcs" if cfg.rotate_after_first_mcs else "rotate_first"
     model, accs = _run_xy_disorder(
         cfg, prep, out, err, {"initial state": "disorder"},
-        checkpoint_path, checkpoint_every, device)
+        checkpoint_path, checkpoint_every, device, mesh_devices)
     datfmt.write_abs_parameters_from_disorder(
         out, model.nsites, _series_len(cfg), accs["op_abs"], accs["op_xy"],
         accs["ac"], times=cfg.measure_times, correlation=accs.get("corr"))
@@ -450,14 +475,16 @@ def run_from_disorder(cfg: RunConfig, out: IO[str] = sys.stdout,
 def run_finite_magne(cfg: RunConfig, out: IO[str] = sys.stdout,
                      err: IO[str] = sys.stderr,
                      checkpoint_path: str | None = None,
-                     checkpoint_every: int = 0, device="cuda") -> dict:
+                     checkpoint_every: int = 0, device="cuda",
+                     mesh_devices=None) -> dict:
     """..._from_disorder_finite_magne: prepare |m| = cfg.init_magne along
     +x, then relax; writes output_parameters_from_disorder
     (xy2d_periodic_gpu_relaxation_from_disorder_finite_magne.f90:40-75)."""
     extra = {"initial state": "disorder",
              "Initial finite magne": cfg.init_magne}
     model, accs = _run_xy_disorder(cfg, "finite_magne", out, err, extra,
-                                   checkpoint_path, checkpoint_every, device)
+                                   checkpoint_path, checkpoint_every, device,
+                                   mesh_devices)
     datfmt.write_parameters_from_disorder(
         out, model.nsites, _series_len(cfg), accs["op"], accs["op_y"],
         accs["ac"], times=cfg.measure_times, correlation=accs.get("corr"))
@@ -516,7 +543,8 @@ def run_samples(cfg: RunConfig, out: IO[str] = sys.stdout,
     the preparation from cfg.init_state, rows N, sample, t, m_x, e, m_y, A
     (and corr) under the reference's literal header.  Every other model
     (the JAX XY helical model has no rotation, so it is one of them):
-    :func:`_run_samples_generic`."""
+    :func:`_run_samples_generic`.  A mesh is ignored: the JAX package runs
+    these histories unsharded."""
     dev = resolve_device(device)
     if cfg.model != "xy2d" or cfg.nx % 2:
         _run_samples_generic(cfg, build_model(cfg), out, err, dev)

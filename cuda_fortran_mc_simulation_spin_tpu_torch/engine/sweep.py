@@ -337,9 +337,11 @@ CLOCK_SPECS = {6: clock_multispin.SPEC, 4: clock4_multispin.SPEC,
 
 def clock_route(model) -> tuple[clock_planes.PlaneSpec, bool] | None:
     """(spec, padded) of the packed clock engine that serves ``model``
-    (the JAX package's aligned and padded gates), or None."""
+    (the JAX package's aligned and padded gates), or None; None too under
+    the JAX package's ``SPINLAT_CLOCK_PACKED=0`` (its ``protocols.py:
+    149``), which sends every clock to the int8 kernels."""
     spec = CLOCK_SPECS.get(model.q)
-    if spec is None:
+    if spec is None or os.environ.get("SPINLAT_CLOCK_PACKED") == "0":
         return None
     if clock_planes.packable_gate(spec, model):
         return spec, False

@@ -106,6 +106,38 @@ def shards_to_numpy(state, mesh) -> tuple[np.ndarray, np.ndarray]:
         state, mesh, torch.device("cpu")))
 
 
+def clock_shards_from_numpy(wa, wb, mesh):
+    """JAX packed clock planes of a replica batch (two tuples of
+    (R, nyw, half) int32 numpy planes, aligned shapes) -> the port's
+    ``ShardedState`` of plane tuples on ``mesh``, as the JAX mesh splits
+    them (replicas over dp, word rows over y, words over x)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.parallel import domain
+    return domain.shard_state(
+        *(tuple(torch.from_numpy(np.array(p, dtype=np.int32)) for p in w)
+          for w in (wa, wb)), mesh)
+
+
+def clock_shards_to_numpy(state, mesh):
+    """The port's sharded packed clock state -> (a, b) tuples of global
+    int32 numpy planes."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.parallel import domain
+    return tuple(tuple(p.numpy() for p in c) for c in domain.gather_state(
+        state, mesh, torch.device("cpu")))
+
+
+def xy_shards_from_numpy(ax, ay, bx, by, mesh):
+    """A JAX global XY state (four (R, ny, nx//2) float32 numpy planes,
+    unpadded) -> the port's sharded ``XYState`` on ``mesh``."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.parallel import domain
+    return domain.shard_xy(xy_from_numpy(ax, ay, bx, by), mesh)
+
+
+def xy_shards_to_numpy(state, mesh) -> tuple[np.ndarray, ...]:
+    """The port's sharded ``XYState`` -> four global float32 planes."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.parallel import domain
+    return xy_to_numpy(domain.gather_state(state, mesh, torch.device("cpu")))
+
+
 def helical_from_numpy(w, m: int) -> torch.Tensor:
     """JAX helical words (..., rows, 128) int32 (numpy) -> the port's
     (..., W) colour vectors for M = ``m`` sites."""

@@ -64,8 +64,16 @@ def metropolis_update(x: torch.Tensor, o: torch.Tensor, color: int,
     (s_new − s_x)·h_y) and the acceptance exp(−β·max(ΔE, 0)) against
     u_acc, each a float32 operation in the JAX model's order."""
     co, so = tables.state_cos_sin(o, q)
-    hx = lattice.neighbor_sums(co, color)
-    hy = lattice.neighbor_sums(so, color)
+    return update_in_field(x, lattice.neighbor_sums(co, color),
+                           lattice.neighbor_sums(so, color), u_cand, u_acc,
+                           q, beta)
+
+
+def update_in_field(x: torch.Tensor, hx: torch.Tensor, hy: torch.Tensor,
+                    u_cand: torch.Tensor, u_acc: torch.Tensor, q: int,
+                    beta: float) -> torch.Tensor:
+    """:func:`metropolis_update` given the float32 field (hx, hy) of the
+    sites (a shard's comes from its halos)."""
     new = candidates(x, u_cand, q)
     cx, sx = tables.state_cos_sin(x, q)
     cn, sn = tables.state_cos_sin(new, q)

@@ -13,6 +13,8 @@ k ∈ [1, 4] is the product of three chains p₁, p₂, p₄
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -133,3 +135,10 @@ SPEC = clock_planes.PlaneSpec(
     unpack_color=unpack_clock3_color,
 )
 
+
+# the halo mode on a mesh's shards (JAX's sharded_phase_packed3)
+sharded_phase_packed3 = functools.partial(
+    clock_planes.sharded_phase_packed, SPEC)
+sharded_phase_packed3_plain = functools.partial(
+    clock_planes.sharded_phase_packed_plain, SPEC)
+shard_packed3_ok = clock_planes.shard_ok

@@ -14,6 +14,8 @@ fused sums are (m, e) themselves (obs_scale 1).  Bound into the scaffold
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -169,3 +171,10 @@ SPEC = clock_planes.PlaneSpec(
     unpack_color=unpack_clock4_color,
 )
 
+
+# the halo mode on a mesh's shards (JAX's sharded_phase_packed4)
+sharded_phase_packed4 = functools.partial(
+    clock_planes.sharded_phase_packed, SPEC)
+sharded_phase_packed4_plain = functools.partial(
+    clock_planes.sharded_phase_packed_plain, SPEC)
+shard_packed4_ok = clock_planes.shard_ok

@@ -25,11 +25,14 @@ import ctypes
 
 import torch
 
-from cuda_fortran_mc_simulation_spin_tpu_torch.core import lattice, tables
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import lattice
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
     CheckerboardState,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build, clock_pallas
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.clock_pallas import (
+    gather64,
+)
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _on_cpu,
     _stream,
@@ -46,13 +49,6 @@ LAUNCHES = {"measure": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def gather64(state: torch.Tensor, q: int):
-    """float64 (cos, sin) of the states from core/tables.clock_sums_table."""
-    tab = tables.clock_sums_table(q).to(state.device)
-    idx = state.to(torch.int64)
-    return tab[0][idx], tab[1][idx]
 
 
 def measure_sums_plain(a: torch.Tensor, b: torch.Tensor, q: int

@@ -214,3 +214,8 @@ pack_state = _b(clock_planes.pack_state, SPEC)
 unpack_state = _b(clock_planes.unpack_state, SPEC)
 sweep_packed6 = _b(clock_planes.sweep_packed, SPEC)
 sweep_measure_packed6 = _b(clock_planes.sweep_measure_packed, SPEC)
+# the halo mode on a mesh's shards (JAX clock_multispin.py:352-357)
+sharded_phase_packed6 = _b(clock_planes.sharded_phase_packed, SPEC)
+sharded_phase_packed6_plain = _b(clock_planes.sharded_phase_packed_plain,
+                                 SPEC)
+shard_packed6_ok = clock_planes.shard_ok

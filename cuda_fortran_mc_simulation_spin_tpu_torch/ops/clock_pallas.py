@@ -29,6 +29,17 @@ route nor the host chunking.  The JAX kernel draws the TPU's hardware
 bits; its ``sharded_phase`` takes injected uniforms (``u_cand=``,
 ``u_acc=``), as the kernel here does (the mode the checks use).
 
+``phase_kernel<true, .>``, the halo mode of ``phase_kernel``, replaces
+``_halo_phase_kernel`` (pallas_call at ``:294``, :func:`sharded_phase`):
+the phase on a shard of a (y[, x]) mesh (parallel/domain.py), with the
+rows and columns past the shard's edges from the exchanged halos, parity
+and words keyed by global (replica, row, column), and with ``measuring``
+the shard's float64 (Σ cos, Σ sin, e) partials, per block in a fixed order
+and then per replica (``xy::reduce_kernel``).  A shard whose column offset
+is odd cuts a unit; the kernel draws by global unit
+(:func:`draw_uniforms_at`), so its words are the unsharded lattice's at
+every x split.  JAX sums its partials in float32.
+
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
 """
@@ -40,20 +51,27 @@ import functools
 
 import torch
 
-from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng, tables
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import (
+    lattice,
+    rng,
+    tables,
+)
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.base import (
     CheckerboardState,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.clock import (
     metropolis_update,
+    update_in_field,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _on_cpu,
     _stream,
+    offsets,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
     batched,
+    check_halos,
     check_int8,
     phase_seeds,
     raise_on,
@@ -63,7 +81,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
 THREADS = 256            # threads a block; one thread a unit of 2 sites
 MAX_REPLICAS = 65535     # the grid's y extent
 TABLE = 128              # entries of a kernel table (csrc/clock_int8.cuh)
-LAUNCHES = {"phase": 0}
+LAUNCHES = {"phase": 0, "halo_phase": 0, "halo_phase_measuring": 0}
 
 
 def reset_launches() -> None:
@@ -120,15 +138,29 @@ def draw_words(seeds, nrep: int, rows: int, half: int, device=None
     half), of one phase under the Philox key ``seeds`` ((2,) uint32): site
     (r, row, c) takes outputs 2(c & 1) and 2(c & 1) + 1 of the counter
     (r, row, c >> 1, 0)."""
+    return draw_words_at(seeds, 0, nrep, 0, rows, 0, half, device)
+
+
+def draw_words_at(seeds, rep0: int, nrep: int, row0: int, rows: int,
+                  col0: int, half: int, device=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`draw_words` of a shard: replicas rep0 .., rows row0 .. and
+    columns col0 .. col0 + half - 1, each site from its global unit's
+    Philox call."""
     key = torch.as_tensor(seeds, dtype=torch.int64).to(device)
-    nu = units(half)
-    r = torch.arange(nrep, dtype=torch.int64, device=device).view(-1, 1, 1)
-    y = torch.arange(rows, dtype=torch.int64, device=device).view(1, -1, 1)
-    j = torch.arange(nu, dtype=torch.int64, device=device).view(1, 1, -1)
+    j0 = col0 >> 1
+    nu = ((col0 + half - 1) >> 1) - j0 + 1
+    r = torch.arange(rep0, rep0 + nrep, dtype=torch.int64,
+                     device=device).view(-1, 1, 1)
+    y = torch.arange(row0, row0 + rows, dtype=torch.int64,
+                     device=device).view(1, -1, 1)
+    j = torch.arange(j0, j0 + nu, dtype=torch.int64,
+                     device=device).view(1, 1, -1)
     r, y, j = torch.broadcast_tensors(r, y, j)
     ctr = torch.stack([r, y, j, torch.zeros_like(r)], dim=-1)
     out = rng.philox4x32(ctr, key).view(nrep, rows, nu, 2, 2)
-    out = out.reshape(nrep, rows, 2 * nu, 2)[:, :, :half]
+    lo = col0 - 2 * j0
+    out = out.reshape(nrep, rows, 2 * nu, 2)[:, :, lo:lo + half]
     return out[..., 0], out[..., 1]
 
 
@@ -153,6 +185,60 @@ def phase_plain(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
     return metropolis_update(x, other, color, u_cand, u_acc, q, beta)
 
 
+def gather64(state: torch.Tensor, q: int):
+    """float64 (cos, sin) of the states from core/tables.clock_sums_table."""
+    tab = tables.clock_sums_table(q).to(state.device)
+    idx = state.to(torch.int64)
+    return tab[0][idx], tab[1][idx]
+
+
+def _field(o: torch.Tensor, halos, color: int, row0: int, gather):
+    """(hx, hy) of a shard's colour in the kernel's order: ``gather`` maps
+    states to their (cos, sin) (float32 for the update, float64 for the
+    sums), ``halos`` = (up, dn, lf, rt), the last two None without an x
+    split."""
+    co, so = gather(o)
+    hs = [None if h is None else gather(h) for h in halos]
+    return tuple(
+        lattice.neighbor_sums_halo(
+            v, color, row0, *(None if h is None else h[k] for h in hs))
+        for k, v in enumerate((co, so)))
+
+
+def sharded_phase_plain(x, other, halo_up, halo_dn, seeds, offs, *,
+                        color: int, q: int, beta: float, halo_lf=None,
+                        halo_rt=None, u_cand=None, u_acc=None,
+                        measuring: bool = False):
+    """Plain version of ``phase_kernel<true, .>``: the new (R, L, half)
+    int8 shard ``x`` given the other colour's block and halos; offs =
+    (rep0, row0[, col0]).  Uniforms injected (``u_cand``, ``u_acc``), else
+    from Philox at the shard's global coordinates (:func:`draw_words_at`).
+    With ``measuring`` also the (R,) float64 (Σ cos, Σ sin, e) partials:
+    Σ over the new states and the other colour's, e = -Σ S_new·h from
+    the float64 table (each bond of the shard's sites once)."""
+    rep0, row0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    nrep, L, half = x.shape
+    if u_cand is None:
+        wc, wa = draw_words_at(seeds, rep0, nrep, row0, L, col0, half,
+                               x.device)
+        u_cand, u_acc = rng.bits_to_uniform(wc), rng.bits_to_uniform(wa)
+    halos = (halo_up, halo_dn, halo_lf, halo_rt)
+    hx, hy = _field(other, halos, color, row0,
+                    lambda v: tables.state_cos_sin(v, q))
+    new = update_in_field(x, hx, hy, u_cand, u_acc, q, beta)
+    if not measuring:
+        return new
+    hx64, hy64 = _field(other, halos, color, row0, lambda v: gather64(v, q))
+    cn, sn = gather64(new, q)
+    co, so = gather64(other, q)
+    dims = (-2, -1)
+    mx = cn.sum(dim=dims) + co.sum(dim=dims)
+    my = sn.sum(dim=dims) + so.sum(dim=dims)
+    e = -(cn * hx64 + sn * hy64).sum(dim=dims)
+    return new, mx, my, e
+
+
 def check_uniforms(x: torch.Tensor, *planes: torch.Tensor) -> None:
     """Injected uniforms are contiguous float32 planes of x's shape on its
     device."""
@@ -173,6 +259,12 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
     lib.clock_int8_phase.restype = ctypes.c_int
+    lib.clock_int8_halo_phase.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
+    lib.clock_int8_halo_phase.restype = ctypes.c_int
+    lib.clock_int8_halo_blocks.argtypes = [ctypes.c_int] * 3
+    lib.clock_int8_halo_blocks.restype = ctypes.c_int
     lib.clock_int8_error_string.argtypes = [ctypes.c_int]
     lib.clock_int8_error_string.restype = ctypes.c_char_p
     return lib
@@ -207,6 +299,78 @@ def metropolis_phase(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
             color, -float(beta), s0, s1, _stream(x))
     raise_on(code, lib.clock_int8_error_string, "clock phase_kernel")
     LAUNCHES["phase"] += 1
+    return x
+
+
+def sharded_phase(x: torch.Tensor, other: torch.Tensor, halo_up, halo_dn,
+                  seeds, offs, *, color: int, q: int, beta: float,
+                  halo_lf=None, halo_rt=None,
+                  u_cand: torch.Tensor | None = None,
+                  u_acc: torch.Tensor | None = None,
+                  measuring: bool = False):
+    """One colour phase of a (y[, x])-sharded (R, L, half) int8 block,
+    updating ``x`` in place (returned; with ``measuring`` also the (R,)
+    float64 (Σ cos, Σ sin, e) partials): ``phase_kernel<true, .>`` on CUDA
+    tensors, :func:`sharded_phase_plain` on CPU tensors.  halo_up/halo_dn
+    (R, 1, half) are the other colour's rows above and below the shard,
+    halo_lf/halo_rt (R, L, 1) its columns with an x split (offs then
+    (rep0, row0, col0), else (rep0, row0)); JAX's ``sharded_phase``
+    (``:222``)."""
+    if (u_cand is None) != (u_acc is None):
+        raise ValueError("inject both u_cand and u_acc, or neither")
+    if _on_cpu(x):
+        res = sharded_phase_plain(x, other, halo_up, halo_dn, seeds, offs,
+                                  color=color, q=q, beta=beta,
+                                  halo_lf=halo_lf, halo_rt=halo_rt,
+                                  u_cand=u_cand, u_acc=u_acc,
+                                  measuring=measuring)
+        if not measuring:
+            return x.copy_(res)
+        x.copy_(res[0])
+        return (x, *res[1:])
+    check_int8(x, other)
+    check_halos(x, halo_up, halo_dn, halo_lf, halo_rt)
+    if u_cand is not None:
+        check_uniforms(x, u_cand, u_acc)
+    nrep, L, half = x.shape
+    if (halo_up.shape != (nrep, 1, half) or halo_dn.shape != halo_up.shape
+            or (halo_lf is None) != (halo_rt is None)
+            or (halo_lf is not None
+                and (halo_lf.shape != (nrep, L, 1)
+                     or halo_rt.shape != (nrep, L, 1)))):
+        raise ValueError("halos must be (R, 1, half) rows and (R, L, 1) "
+                         "columns of the shard")
+    rep0, row0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    # a shard at an odd col0 touches one unit more than units(half)
+    check_launch(nrep, L, half + 2, q)
+    s0, s1 = (0, 0) if seeds is None else seed_words(seeds)
+    tab = device_table(q, x.device)
+    lib = _lib()
+    partials = obs = tab64 = None
+    if measuring:
+        tab64 = device_table(q, x.device, torch.float64)
+        blocks = lib.clock_int8_halo_blocks(L, half, col0)
+        partials = torch.empty((nrep, blocks, 3), dtype=torch.float64,
+                               device=x.device)
+        obs = torch.empty((nrep, 3), dtype=torch.float64, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        code = lib.clock_int8_halo_phase(
+            x.data_ptr(), other.data_ptr(), tab.data_ptr(), ptr(tab64),
+            ptr(u_cand), ptr(u_acc), halo_up.data_ptr(), halo_dn.data_ptr(),
+            ptr(halo_lf), ptr(halo_rt), ptr(partials), ptr(obs), nrep, L,
+            half, q, color, rep0, row0, col0, -float(beta), s0, s1,
+            _stream(x))
+    raise_on(code, lib.clock_int8_error_string,
+             "clock phase_kernel<true, .>")
+    LAUNCHES["halo_phase"] += 1
+    if measuring:
+        LAUNCHES["halo_phase_measuring"] += 1
+        return x, obs[:, 0], obs[:, 1], obs[:, 2]
     return x
 
 

@@ -40,6 +40,18 @@ the plain PyTorch version, :func:`phase_plain` (Philox) and
 for a CPU tensor; for a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts launches.
 
+``phase_kernel<Q, true>``, the halo mode of ``phase_kernel<Q>``, replaces
+``clock_planes.py:_sharded_phase_kernel`` (pallas_call at :875,
+:func:`sharded_phase_packed`, reached in JAX as
+``clock_multispin.sharded_phase_packed6``, ``clock4_multispin.
+sharded_phase_packed4`` and ``clock3_multispin.sharded_phase_packed3``):
+the phase on a shard of a (y[, x]) mesh (parallel/domain.py), the bit rows
+past its edges from the exchanged 0/1 halo planes (one a state plane) and,
+with an x split, the word columns past its edges from the exchanged word
+columns; Philox words at the shard's global (replica, word row, column),
+so a shard draws the unsharded lattice's words.  Its plain version is
+:func:`sharded_phase_packed_plain`.
+
 Plain versions hold uint32 words in int64 tensors (``_u32``): NOT is
 ``x ^ MASK32`` (:func:`_not`) and a left shift is masked.
 """
@@ -67,10 +79,11 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _u32,
     chain_digits,
     digits_int,
+    offsets,
     packable,
 )
 
-LAUNCHES = {"phase": 0, "phase_measuring": 0}
+LAUNCHES = {"phase": 0, "phase_measuring": 0, "shard_phase": 0}
 
 # most chains a spec draws (q=6: p1, p2, p4, p8, p8)
 MAX_CHAINS = 5
@@ -327,6 +340,10 @@ def _lib() -> ctypes.CDLL:
         + [_INT] * 6 + [_UINT, _UINT] + [_UINT] * MAX_CHAINS
         + [_INT] * MAX_CHAINS + [_VOID])
     lib.clock_phase.restype = _INT
+    lib.clock_halo_phase.argtypes = (
+        [_INT, _VOID, _VOID, _VOID] + [_INT] * 8 + [_UINT, _UINT, _VOID,
+                                                    _VOID, _VOID])
+    lib.clock_halo_phase.restype = _INT
     lib.clock_error_string.argtypes = [_INT]
     lib.clock_error_string.restype = ctypes.c_char_p
     return lib
@@ -348,6 +365,24 @@ def _check_planes(*planes: torch.Tensor) -> None:
             raise ValueError("planes must be contiguous")
 
 
+def _random_args(spec: PlaneSpec, xplanes, oplanes, seeds, beta: float,
+                 inject):
+    """(stacked injected planes or None, chain q's, chain k's, s0, s1) of a
+    launch, after checking its planes: the injected mode, or Philox words
+    under ``seeds`` with the chains of ``beta``."""
+    if inject is None:
+        _check_planes(*xplanes, *oplanes)
+        qs, ks = _chain_args(spec, float(beta))
+        s0, s1 = (int(v) & MASK32 for v in torch.as_tensor(seeds).tolist())
+        return None, qs, ks, s0, s1
+    if len(inject) != spec.n_rand:
+        raise ValueError(f"{spec.name} injects {spec.n_rand} planes")
+    inj = torch.stack([_i32(p) if p.dtype != torch.int32 else p
+                       for p in inject]).contiguous()
+    _check_planes(*xplanes, *oplanes, *inj)
+    return inj, [0] * MAX_CHAINS, [1] * MAX_CHAINS, 0, 0
+
+
 def _launch(spec: PlaneSpec, xplanes, oplanes, color: int, ny: int | None,
             seeds=None, beta: float = 1.0, inject=None,
             measuring: bool = False):
@@ -356,19 +391,8 @@ def _launch(spec: PlaneSpec, xplanes, oplanes, color: int, ny: int | None,
     if nyw < 2 or half < 2:
         raise ValueError(f"kernel needs nyw >= 2 and half >= 2, got "
                          f"{tuple(xplanes[0].shape)}")
-    inj = None
-    if inject is not None:
-        if len(inject) != spec.n_rand:
-            raise ValueError(f"{spec.name} injects {spec.n_rand} planes")
-        inj = torch.stack([_i32(p) if p.dtype != torch.int32 else p
-                           for p in inject]).contiguous()
-        _check_planes(*xplanes, *oplanes, *inj)
-        qs, ks = [0] * MAX_CHAINS, [1] * MAX_CHAINS
-        s0 = s1 = 0
-    else:
-        _check_planes(*xplanes, *oplanes)
-        qs, ks = _chain_args(spec, float(beta))
-        s0, s1 = (int(v) & MASK32 for v in torch.as_tensor(seeds).tolist())
+    inj, qs, ks, s0, s1 = _random_args(spec, xplanes, oplanes, seeds, beta,
+                                       inject)
     lib = _lib()
     outs = [torch.empty_like(p) for p in xplanes]
     pad3 = [None] * (3 - spec.n_state)
@@ -420,6 +444,153 @@ def phase_packed_inject(spec: PlaneSpec, xplanes, oplanes, rand, *,
                                measuring)
     return _launch(spec, xplanes, oplanes, color, ny, inject=rand,
                    measuring=measuring)
+
+
+# ---------------------------------------------------------------------------
+# the halo mode: a shard of a (y[, x]) mesh
+# ---------------------------------------------------------------------------
+
+def shard_nbr_planes(o, color: int, up01, dn01, halo_lf=None, halo_rt=None):
+    """(up, dn, ctr, side) neighbour planes of a shard's other colour
+    ``o`` ((R, Lp, half) uint32 in int64): the carry into word row 0 is
+    bit 0 of ``up01`` spliced in at bit 31, the carry out of the last word
+    row bit 0 of ``dn01`` ((R, 1, half) 0/1); with an x split the side
+    words past the edges are the word columns ``halo_lf``/``halo_rt``
+    ((R, Lp, 1)), else periodic in x (JAX ``sharded_phase_reference``)."""
+    w_prev = torch.cat([(_u32(up01) & 1) << 31, o[..., :-1, :]], dim=-2)
+    w_next = torch.cat([o[..., 1:, :], _u32(dn01) & 1], dim=-2)
+    up = ((o << 1) & MASK32) | (w_prev >> 31)
+    dn = (o >> 1) | ((w_next << 31) & MASK32)
+    if halo_lf is None:
+        minus = torch.roll(o, 1, dims=-1)
+        plus = torch.roll(o, -1, dims=-1)
+    else:
+        minus = torch.cat([_u32(halo_lf), o[..., :-1]], dim=-1)
+        plus = torch.cat([o[..., 1:], _u32(halo_rt)], dim=-1)
+    if color == 0:
+        side = (plus & _ODD_BITS) | (minus & _EVEN_BITS)
+    else:
+        side = (minus & _ODD_BITS) | (plus & _EVEN_BITS)
+    return up, dn, o, side
+
+
+def sharded_phase_packed_plain(spec: PlaneSpec, xplanes, oplanes, hup, hdn,
+                               seeds, offs, *, color: int, beta: float,
+                               halo_lf=None, halo_rt=None, inject=None,
+                               measuring: bool = False):
+    """Plain version of ``phase_kernel<Q, true>``: the new (R, Lp, half)
+    int32 shard planes given the other colour's planes, their 0/1 halo
+    rows ``hup``/``hdn`` and, with an x split, word columns
+    ``halo_lf``/``halo_rt`` (n_state-tuples each); offs = (rep0, wrow0[,
+    col0]).  Random planes injected (``inject``), or from Philox words at
+    the shard's global word positions.  With ``measuring`` also the (R,)
+    int64 (2m, 2e) partials ((m, e) for q = 4), as JAX's."""
+    rep0, wrow0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    nrep, nyw, half = xplanes[0].shape
+    xs = tuple(_u32(p) for p in xplanes)
+    os_ = tuple(_u32(p) for p in oplanes)
+    lfs = halo_lf if halo_lf is not None else (None,) * spec.n_state
+    rts = halo_rt if halo_rt is not None else (None,) * spec.n_state
+    nbrs = tuple(shard_nbr_planes(o, color, u, d, lf, rt)
+                 for o, u, d, lf, rt in zip(os_, hup, hdn, lfs, rts))
+    if inject is None:
+        gen = multispin_rng.word_stream(seeds, nrep, nyw, half,
+                                        xplanes[0].device, rep0, wrow0, col0)
+        rand = spec.draw(gen, spec.accept_digits(beta))
+    else:
+        rand = tuple(_u32(p) for p in inject)
+    new, fin = spec.decide(xs, nbrs, rand)
+    out = tuple(_i32(p) for p in new)
+    if not measuring:
+        return out
+    mask = real_mask(nyw, half, 0, xs[0].device)
+    m, e = spec.obs_partial(new, os_, fin, mask)
+    return out, m, e
+
+
+def shard_ok(local_shape: tuple[int, ...]) -> bool:
+    """A local packed (R, Lp, half) word block the halo mode takes: any
+    such shape (JAX's terms, half % 128 and Lp % 8, are its TPU tiling;
+    the semantic ones, whole words a y shard, are the gate's in
+    parallel/domain.py)."""
+    return len(local_shape) == 3 and min(local_shape) >= 1
+
+
+def _halo_args(xplanes, hup, hdn, halo_lf, halo_rt):
+    """Check a shard's halos: int32 contiguous on the planes' device, rows
+    (R, 1, half) and columns (R, Lp, 1), a tuple of n_state each."""
+    nrep, nyw, half = xplanes[0].shape
+    n = len(xplanes)
+    cols = halo_lf is not None
+    if (halo_rt is not None) != cols:
+        raise ValueError("pass both halo_lf and halo_rt, or neither")
+    groups = [(hup, (nrep, 1, half)), (hdn, (nrep, 1, half))]
+    if cols:
+        groups += [(halo_lf, (nrep, nyw, 1)), (halo_rt, (nrep, nyw, 1))]
+    for planes, shape in groups:
+        if len(planes) != n:
+            raise ValueError(f"{n} halo planes a side, got {len(planes)}")
+        for h in planes:
+            if (h.shape != shape or h.dtype != torch.int32
+                    or h.device != xplanes[0].device
+                    or not h.is_contiguous()):
+                raise ValueError(f"halos must be contiguous int32 {shape} "
+                                 f"on {xplanes[0].device}, got {h.dtype} "
+                                 f"{tuple(h.shape)} on {h.device}")
+
+
+def sharded_phase_packed(spec: PlaneSpec, xplanes, oplanes, hup, hdn, seeds,
+                         offs, *, color: int, beta: float, halo_lf=None,
+                         halo_rt=None, inject=None, measuring: bool = False):
+    """One packed clock phase of a (y[, x])-sharded block: returns the new
+    (R, Lp, half) planes, and with ``measuring`` also the (R,) int64
+    partials: ``phase_kernel<Q, true>`` on CUDA tensors,
+    :func:`sharded_phase_packed_plain` on CPU tensors.  The arguments are
+    JAX's ``sharded_phase_packed`` (``:796``): hup/hdn n_state-tuples of
+    (R, 1, half) 0/1 int32 rows (``halo.exchange_halo_rows_packed`` a
+    plane), halo_lf/halo_rt of (R, Lp, 1) word columns with an x split
+    (offs then (rep0, wrow0, col0)), ``inject`` the n_rand random planes."""
+    if _on_cpu(xplanes[0]):
+        return sharded_phase_packed_plain(
+            spec, xplanes, oplanes, hup, hdn, seeds, offs, color=color,
+            beta=beta, halo_lf=halo_lf, halo_rt=halo_rt, inject=inject,
+            measuring=measuring)
+    nrep, nyw, half = xplanes[0].shape
+    rep0, wrow0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    _halo_args(xplanes, hup, hdn, halo_lf, halo_rt)
+    inj, qs, ks, s0, s1 = _random_args(spec, xplanes, oplanes, seeds, beta,
+                                       inject)
+    outs = [torch.empty_like(p) for p in xplanes]
+    obs = (torch.zeros((nrep, 2), dtype=torch.int64, device=xplanes[0].device)
+           if measuring else None)
+
+    def three(planes):
+        return [p.data_ptr() for p in planes] + [None] * (3 - len(planes))
+
+    none3 = [None] * 3
+    ptrs = (three(xplanes) + three(outs) + three(oplanes) + three(hup)
+            + three(hdn)
+            + (three(halo_lf) if halo_lf is not None else none3)
+            + (three(halo_rt) if halo_rt is not None else none3))
+    lib = _lib()
+    with torch.cuda.device(xplanes[0].device):
+        code = lib.clock_halo_phase(
+            spec.q, (_VOID * 21)(*ptrs),
+            None if inj is None else inj.data_ptr(),
+            None if obs is None else obs.data_ptr(), nrep, nyw, half, color,
+            int(inj is not None), rep0, wrow0, col0, s0, s1,
+            (_UINT * MAX_CHAINS)(*qs), (_INT * MAX_CHAINS)(*ks),
+            _stream(xplanes[0]))
+    if code != 0:
+        msg = lib.clock_error_string(code).decode()
+        raise RuntimeError(f"clock phase_kernel<Q, true>: CUDA error {code} "
+                           f"({msg})")
+    LAUNCHES["shard_phase"] += 1
+    if measuring:
+        return tuple(outs), obs[:, 0], obs[:, 1]
+    return tuple(outs)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,23 @@ CUDA kernels, not Pallas ones).  ``csrc/xy2d_pallas.cu`` holds
 - ``over_relax_kernel``, which replaces ``_over_relax_kernel`` (``:265``,
   ``_over_relax_phase``): one reflection phase, the same sums optional.
 
+Their halo modes run a mesh's shards (parallel/domain.py):
+
+- ``metropolis_kernel<N, true>`` replaces ``_halo_metropolis_kernel``
+  (pallas_call at ``:726``, :func:`sharded_phase`; its field
+  ``_halo_field`` ``:499``), the snapshot mode included, so a disorder
+  sweep on a mesh measures A in its phase b;
+- ``over_relax_kernel<true>`` replaces ``_halo_or_kernel`` (``:770``,
+  :func:`sharded_or_phase`), with the fused sums of its measuring phase b
+  (JAX measures after OR in a separate pass, ``_xy_local_obs``).
+
+The rows past a shard's edges come from the exchanged (up, dn) halos of
+each component, with an x split the columns from the exchanged columns;
+parity and the Philox counter from the shard's global (replica, row,
+column), so a shard draws the unsharded lattice's uniforms.  Their plain
+versions are :func:`sharded_phase_plain` and
+:func:`sharded_or_phase_plain`.
+
 Layout: (R, ny, nx/2) float32 planes for every even nx, with the
 checkerboard of core/lattice.py.  The JAX engine pads nx/2 to a multiple
 of 128 lanes (``pad_planes``) and substitutes the x wrap at the real seam
@@ -62,7 +79,7 @@ import ctypes
 
 import torch
 
-from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+from cuda_fortran_mc_simulation_spin_tpu_torch.core import lattice, rng
 from cuda_fortran_mc_simulation_spin_tpu_torch.core.lattice import _odd_rows
 from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import (
     XYState,
@@ -74,12 +91,15 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     MASK32,
     _on_cpu,
     _stream,
+    offsets,
     per_site,
 )
 
 LAUNCHES = {"metropolis": 0, "metropolis_measuring": 0,
             "metropolis_snapshot": 0, "over_relax": 0,
-            "over_relax_measuring": 0}
+            "over_relax_measuring": 0, "halo_metropolis": 0,
+            "halo_metropolis_measuring": 0, "halo_metropolis_snapshot": 0,
+            "halo_over_relax": 0, "halo_over_relax_measuring": 0}
 
 # threads of a block of either kernel (csrc/xy2d_pallas.cu THREADS)
 THREADS = 256
@@ -108,11 +128,13 @@ def nbr_sum(o: torch.Tensor, color: int) -> torch.Tensor:
     return (up + dn) + (o + side)
 
 
-def draw_uniforms(seeds, nrep: int, ny: int, half: int, device=None):
+def draw_uniforms(seeds, nrep: int, ny: int, half: int, device=None,
+                  rep0: int = 0, row0: int = 0, col0: int = 0):
     """(u_cand, u_acc), (nrep, ny, half) float32, that a phase under the
     Philox key ``seeds`` draws: words 0 and 1 of counter (replica, row,
-    column, 0)."""
-    gen = multispin_rng.word_stream(seeds, nrep, ny, half, device)
+    column, 0); a shard's at its global offsets (rep0, row0, col0)."""
+    gen = multispin_rng.word_stream(seeds, nrep, ny, half, device, rep0,
+                                    row0, col0)
     return rng.bits_to_uniform(gen()), rng.bits_to_uniform(gen())
 
 
@@ -169,6 +191,62 @@ def over_relax_phase_plain(sx, sy, ox, oy, *, color: int,
     return sx, sy, _obs_plain(sx, sy, ox, oy, hx, hy)
 
 
+def _shard_field(ox, oy, halos_x, halos_y, color: int, row0: int,
+                 cols_x=None, cols_y=None):
+    """(hx, hy) of a shard's colour from the other colour's blocks, their
+    (up, dn) halo rows and, with an x split, (left, right) columns, in the
+    kernel's order (core/lattice.neighbor_sums_halo)."""
+    return tuple(
+        lattice.neighbor_sums_halo(o, color, row0, *h,
+                                   *(c if c is not None else (None, None)))
+        for o, h, c in ((ox, halos_x, cols_x), (oy, halos_y, cols_y)))
+
+
+def sharded_phase_plain(sx, sy, ox, oy, halos_x, halos_y, seeds, offs, *,
+                        color: int, beta: float, cols_x=None, cols_y=None,
+                        u_cand=None, u_acc=None, measuring: bool = False,
+                        snap=None):
+    """Plain version of ``metropolis_kernel<N, true>``: one Metropolis
+    phase of a (y[, x])-sharded (R, L, half) block, in place, given the
+    other colour's blocks, their (up, dn) halo rows ``halos_x``,
+    ``halos_y`` and with an x split their (left, right) columns
+    ``cols_x``, ``cols_y``; offs = (rep0, row0[, col0]).  Uniforms
+    injected, else from Philox at the shard's global coordinates.
+    Returns (sx, sy), and with ``measuring`` also the shard's (R, 3)
+    float64 partials (Σ S_x, Σ S_y, e); with the snapshot ``snap`` (the
+    phase's (sx, sy, ox, oy) order) the (R, 4) partials with A."""
+    rep0, row0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    if u_cand is None:
+        u_cand, u_acc = draw_uniforms(seeds, *sx.shape, sx.device, rep0,
+                                      row0, col0)
+    hx, hy = _shard_field(ox, oy, halos_x, halos_y, color, row0, cols_x,
+                          cols_y)
+    fx, fy = metropolis_update(sx, sy, hx, hy, u_cand, u_acc, beta)
+    sx.copy_(fx)
+    sy.copy_(fy)
+    if not (measuring or snap is not None):
+        return sx, sy
+    return sx, sy, _obs_plain(sx, sy, ox, oy, hx, hy, snap)
+
+
+def sharded_or_phase_plain(sx, sy, ox, oy, halos_x, halos_y, offs, *,
+                           color: int, cols_x=None, cols_y=None,
+                           measuring: bool = False):
+    """Plain version of ``over_relax_kernel<true>``: one reflection phase
+    of a shard, in place; with ``measuring`` also its (R, 3) float64
+    partials."""
+    row0 = offsets(offs)[1]
+    hx, hy = _shard_field(ox, oy, halos_x, halos_y, color, row0, cols_x,
+                          cols_y)
+    fx, fy = reflect(sx, sy, hx, hy)
+    sx.copy_(fx)
+    sy.copy_(fy)
+    if not measuring:
+        return sx, sy
+    return sx, sy, _obs_plain(sx, sy, ox, oy, hx, hy)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -192,7 +270,11 @@ def _lib() -> ctypes.CDLL:
     lib.xy_metropolis.argtypes = (
         [_VOID] * 9 + [_INT] * 4 + [ctypes.c_float, _UINT, _UINT, _VOID])
     lib.xy_over_relax.argtypes = [_VOID] * 6 + [_INT] * 4 + [_VOID]
-    for fn in (lib.xy_metropolis, lib.xy_over_relax):
+    lib.xy_halo_metropolis.argtypes = (
+        [_VOID] * 10 + [_INT] * 7 + [ctypes.c_float, _UINT, _UINT, _VOID])
+    lib.xy_halo_over_relax.argtypes = [_VOID] * 7 + [_INT] * 7 + [_VOID]
+    for fn in (lib.xy_metropolis, lib.xy_over_relax, lib.xy_halo_metropolis,
+               lib.xy_halo_over_relax):
         fn.restype = _INT
     lib.xy_error_string.argtypes = [_INT]
     lib.xy_error_string.restype = ctypes.c_char_p
@@ -325,6 +407,111 @@ def over_relax_phase(sx, sy, ox, oy, *, color: int,
         return over_relax_phase_plain(sx, sy, ox, oy, color=color,
                                       measuring=measuring)
     return _launch_over_relax(sx, sy, ox, oy, color, measuring)
+
+
+def _halo_pointers(sx, halos_x, halos_y, cols_x, cols_y):
+    """The kernels' (upx, upy, dnx, dny, lfx, lfy, rtx, rty) pointer array
+    after checking the halos: contiguous float32 on the shard's device,
+    rows (R, 1, half) and columns (R, L, 1)."""
+    nrep, L, half = sx.shape
+    if (cols_x is None) != (cols_y is None):
+        raise ValueError("pass column halos of both components, or none")
+    groups = [(tuple(halos_x) + tuple(halos_y), (nrep, 1, half))]
+    if cols_x is not None:
+        groups.append((tuple(cols_x) + tuple(cols_y), (nrep, L, 1)))
+    for planes, shape in groups:
+        for h in planes:
+            if (h.shape != shape or h.dtype != torch.float32
+                    or h.device != sx.device or not h.is_contiguous()):
+                raise ValueError(f"halos must be contiguous float32 {shape} "
+                                 f"on {sx.device}, got {h.dtype} "
+                                 f"{tuple(h.shape)} on {h.device}")
+    (upx, dnx), (upy, dny) = halos_x, halos_y
+    lfx = lfy = rtx = rty = None
+    if cols_x is not None:
+        (lfx, rtx), (lfy, rty) = cols_x, cols_y
+    return (_VOID * 8)(*(_ptr(t) for t in (upx, upy, dnx, dny, lfx, lfy,
+                                            rtx, rty)))
+
+
+def sharded_phase(sx, sy, ox, oy, halos_x, halos_y, seeds, offs, *,
+                  color: int, beta: float, cols_x=None, cols_y=None,
+                  u_cand=None, u_acc=None, measuring: bool = False,
+                  snap=None):
+    """One Metropolis phase of a (y[, x])-sharded (R, L, half) block of
+    component planes, updated in place: ``metropolis_kernel<N, true>`` on
+    CUDA tensors, :func:`sharded_phase_plain` on CPU tensors.  The
+    arguments are JAX's ``sharded_phase`` (``:663``): ``halos_x``,
+    ``halos_y`` the other colour's (up, dn) rows a component, ``cols_x``,
+    ``cols_y`` its (left, right) columns with an x split (offs then (rep0,
+    row0, col0)), injected ``u_cand``, ``u_acc`` or Philox words under
+    ``seeds``.  Returns (sx, sy), and with ``measuring`` also the (R, 3)
+    float64 partials (Σ S_x, Σ S_y, e); with ``snap`` (four t=0 snapshot
+    blocks in the phase's order) the (R, 4) partials with A."""
+    if _on_cpu(sx):
+        return sharded_phase_plain(
+            sx, sy, ox, oy, halos_x, halos_y, seeds, offs, color=color,
+            beta=beta, cols_x=cols_x, cols_y=cols_y, u_cand=u_cand,
+            u_acc=u_acc, measuring=measuring, snap=snap)
+    planes = [sx, sy, ox, oy] + ([] if snap is None else list(snap))
+    if u_cand is not None:
+        _check_planes(*planes, u_cand, u_acc)
+        s0 = s1 = 0
+    else:
+        _check_planes(*planes)
+        s0, s1 = (int(v) & MASK32 for v in torch.as_tensor(seeds).tolist())
+    halos = _halo_pointers(sx, halos_x, halos_y, cols_x, cols_y)
+    rep0, row0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    nrep, L, half = sx.shape
+    measuring = measuring or snap is not None
+    partials, obs = scratch(sx, measuring, nsums=3 if snap is None else 4)
+    lib = _lib()
+    with torch.cuda.device(sx.device):
+        code = lib.xy_halo_metropolis(
+            sx.data_ptr(), sy.data_ptr(), ox.data_ptr(), oy.data_ptr(),
+            _ptr(u_cand), _ptr(u_acc), snapshot_pointers(snap), halos,
+            _ptr(partials), _ptr(obs), nrep, L, half, color, rep0, row0,
+            col0, -float(beta), s0, s1, _stream(sx))
+    _raise_on(code, lib, "metropolis_kernel<N, true>")
+    LAUNCHES["halo_metropolis"] += 1
+    if snap is not None:
+        LAUNCHES["halo_metropolis_snapshot"] += 1
+    elif measuring:
+        LAUNCHES["halo_metropolis_measuring"] += 1
+    return (sx, sy, obs) if measuring else (sx, sy)
+
+
+def sharded_or_phase(sx, sy, ox, oy, halos_x, halos_y, offs, *,
+                     color: int, cols_x=None, cols_y=None,
+                     measuring: bool = False):
+    """One over-relaxation phase of a (y[, x])-sharded block, in place:
+    ``over_relax_kernel<true>`` on CUDA tensors,
+    :func:`sharded_or_phase_plain` on CPU tensors (JAX's
+    ``sharded_or_phase``, ``:741``); with ``measuring`` also the (R, 3)
+    float64 partials."""
+    if _on_cpu(sx):
+        return sharded_or_phase_plain(sx, sy, ox, oy, halos_x, halos_y,
+                                      offs, color=color, cols_x=cols_x,
+                                      cols_y=cols_y, measuring=measuring)
+    _check_planes(sx, sy, ox, oy)
+    halos = _halo_pointers(sx, halos_x, halos_y, cols_x, cols_y)
+    rep0, row0, *rest = offsets(offs)
+    col0 = rest[0] if rest else 0
+    nrep, L, half = sx.shape
+    partials, obs = scratch(sx, measuring, nsums=3)
+    lib = _lib()
+    with torch.cuda.device(sx.device):
+        code = lib.xy_halo_over_relax(
+            sx.data_ptr(), sy.data_ptr(), ox.data_ptr(), oy.data_ptr(),
+            halos, _ptr(partials), _ptr(obs), nrep, L, half, color, rep0,
+            row0, col0, _stream(sx))
+    _raise_on(code, lib, "over_relax_kernel<true>")
+    LAUNCHES["halo_over_relax"] += 1
+    if measuring:
+        LAUNCHES["halo_over_relax_measuring"] += 1
+        return sx, sy, obs
+    return sx, sy
 
 
 # ---------------------------------------------------------------------------

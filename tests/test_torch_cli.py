@@ -96,7 +96,6 @@ def test_cuda_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model", "clock", "--mesh", "2,2"], "queue A item 9"),
     (["--profile-dir", "p"], "profiler"),
     (["--backend", "jnp"], "backend"),
     (["--model", "ising3d", "--nx", "2049", "--ny", "1024", "--nz", "1024"],

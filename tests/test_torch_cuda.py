@@ -1382,3 +1382,207 @@ def test_mesh_on_one_card_equals_unsharded(cuda, case):
         assert mod.LAUNCHES[key_name] == 4 * 2 * 6
         for k in ("m", "e"):
             assert torch.equal(got[k], want[k]), (shape, k)
+
+
+# ---------------------------------------------------------------------------
+# the clock and XY halo modes and their mesh runs
+# ---------------------------------------------------------------------------
+
+def _sums_close(got, want, scale):
+    """float64 partials taken in another order: within 1e-12 of the
+    sums' scale (the sites summed)."""
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-12 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [6, 4, 3])
+@pytest.mark.parametrize("cols", [False, True])
+def test_packed_clock_halo_kernel_matches_plain(cuda, q, cols):
+    """clock_planes.sharded_phase_packed on the card against its plain
+    version: Philox and injected planes, both colours, plain and
+    measuring, with and without word columns, one word row a shard."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock3_multispin,
+        clock4_multispin,
+        clock_multispin,
+        clock_planes as cp,
+    )
+    spec = {6: clock_multispin, 4: clock4_multispin,
+            3: clock3_multispin}[q].SPEC
+    g = np.random.default_rng(40 + q)
+    for nyw, half in ((1, 33), (3, 70)):
+        R = 2
+        a, b = (torch.from_numpy(g.integers(0, q, (R, 32 * nyw, half))
+                                 .astype(np.int8)).to(cuda)
+                for _ in range(2))
+        x, o = spec.pack_color(a), spec.pack_color(b)
+        bits = [_shard_words(g, (R, 1, half), cuda) & 1 for _ in range(6)]
+        kw = dict(beta=1 / 0.8)
+        offs = (2, 6)
+        if cols:
+            offs = (2, 6, 40)
+            kw.update(halo_lf=tuple(_shard_words(g, (R, nyw, 1), cuda)
+                                    for _ in x),
+                      halo_rt=tuple(_shard_words(g, (R, nyw, 1), cuda)
+                                    for _ in x))
+        inj = tuple(_shard_words(g, (R, nyw, half), cuda)
+                    for _ in range(spec.n_rand))
+        for color in (0, 1):
+            seeds = rng.seeds_from_key(rng.base_key(8), color)
+            for extra in ({}, {"inject": inj}, {"measuring": True}):
+                args = (spec, x, o, tuple(bits[:len(x)]),
+                        tuple(bits[3:3 + len(x)]), seeds, offs)
+                got = cp.sharded_phase_packed(*args, color=color, **kw,
+                                              **extra)
+                want = cp.sharded_phase_packed_plain(*args, color=color,
+                                                     **kw, **extra)
+                if extra.get("measuring"):
+                    got, want = (*got[0], *got[1:]), (*want[0], *want[1:])
+                assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [2, 5, 6, 20])
+@pytest.mark.parametrize("col0", [None, 0, 11])
+def test_int8_clock_halo_kernel_matches_plain(cuda, q, col0):
+    """clock_pallas.sharded_phase on the card against its plain version:
+    Philox and injected uniforms, both colours, plain and measuring, with
+    and without column halos; col0 = 11 cuts a unit of two columns."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import clock_pallas
+    g = np.random.default_rng(50 + q)
+    R, L, H = 3, 9, 23
+
+    def states(shape):
+        return torch.from_numpy(g.integers(0, q, shape).astype(np.int8)
+                                ).to(cuda)
+
+    x, o, up, dn = (states(s) for s in ((R, L, H), (R, L, H), (R, 1, H),
+                                         (R, 1, H)))
+    kw = dict(q=q, beta=1 / 0.91)
+    offs = (1, 5) if col0 is None else (1, 5, col0)
+    if col0 is not None:
+        kw.update(halo_lf=states((R, L, 1)), halo_rt=states((R, L, 1)))
+    uc, ua = (torch.rand((R, L, H), device=cuda) for _ in range(2))
+    for color in (0, 1):
+        seeds = rng.seeds_from_key(rng.base_key(9), color)
+        for extra in ({}, {"u_cand": uc, "u_acc": ua}, {"measuring": True}):
+            got = clock_pallas.sharded_phase(x.clone(), o, up, dn, seeds,
+                                             offs, color=color, **kw,
+                                             **extra)
+            want = clock_pallas.sharded_phase_plain(x, o, up, dn, seeds,
+                                                    offs, color=color, **kw,
+                                                    **extra)
+            if extra.get("measuring"):
+                assert torch.equal(got[0], want[0])
+                _sums_close(got[1:], want[1:], 2 * L * H)
+            else:
+                assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col0", [None, 0, 11])
+def test_xy_halo_kernels_match_plain(cuda, col0):
+    """xy2d_pallas.sharded_phase (plain, measuring, snapshot mode; Philox
+    and injected) and sharded_or_phase (plain, measuring) on the card:
+    states bitwise, sums to float64 rounding."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import xy2d_pallas
+    g = np.random.default_rng(60)
+    R, L, H = 2, 9, 23
+
+    def unit(shape):
+        th = torch.from_numpy(g.uniform(0, 2 * np.pi, shape)).to(cuda)
+        return torch.cos(th).float(), torch.sin(th).float()
+
+    (sx, sy), (ox, oy) = unit((R, L, H)), unit((R, L, H))
+    (ux, uy), (dx, dy) = unit((R, 1, H)), unit((R, 1, H))
+    kw = dict(halos_x=(ux, dx), halos_y=(uy, dy))
+    offs = (2, 7) if col0 is None else (2, 7, col0)
+    if col0 is not None:
+        (lx, ly), (rx, ry) = unit((R, L, 1)), unit((R, L, 1))
+        kw.update(cols_x=(lx, rx), cols_y=(ly, ry))
+    snap = [p for pair in (unit((R, L, H)), unit((R, L, H))) for p in pair]
+    uc, ua = (torch.rand((R, L, H), device=cuda) for _ in range(2))
+    for color in (0, 1):
+        seeds = rng.seeds_from_key(rng.base_key(10), color)
+        for extra in ({}, {"u_cand": uc, "u_acc": ua}, {"measuring": True},
+                      {"snap": snap}):
+            got = xy2d_pallas.sharded_phase(
+                sx.clone(), sy.clone(), ox, oy, seeds=seeds, offs=offs,
+                color=color, beta=1 / 0.89, **kw, **extra)
+            want = xy2d_pallas.sharded_phase_plain(
+                sx.clone(), sy.clone(), ox, oy, seeds=seeds, offs=offs,
+                color=color, beta=1 / 0.89, **kw, **extra)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                 want[1])
+            if len(got) == 3:
+                _sums_close(got[2].T, want[2].T, 2 * L * H)
+        for measuring in (False, True):
+            got = xy2d_pallas.sharded_or_phase(
+                sx.clone(), sy.clone(), ox, oy, offs=offs, color=color,
+                measuring=measuring, **kw)
+            want = xy2d_pallas.sharded_or_phase_plain(
+                sx.clone(), sy.clone(), ox, oy, offs=offs, color=color,
+                measuring=measuring, **kw)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                 want[1])
+            if measuring:
+                _sums_close(got[2].T, want[2].T, 2 * L * H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["clock6", "clock5", "xy_or", "fix1mcs"])
+def test_clock_xy_mesh_on_the_card_equals_unsharded(cuda, case):
+    """The mesh runners over one card repeated, through the halo modes:
+    the packed clock's series bitwise against the same mesh on the CPU
+    (exact integer sums, no float arithmetic); the int8 clock's and XY's
+    within 1e-12 of the unsharded runner's on the card (the same kernels'
+    arithmetic, float64 sums in another order; the card's expf and
+    rsqrtf are not the CPU's, so the CPU is no bitwise reference for
+    them)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import (
+        Clock2D,
+        XY2D,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.parallel import (
+        domain,
+        mesh as mesh_mod,
+    )
+    key = rng.sample_key(rng.base_key(42), 0)
+    shape = (2, 2) if case == "clock6" else (1, 2, 2)
+    xy = XY2D(nx=44, ny=16, kbt=0.89)
+    kw = {"n_over_relax": 1, "mcs_over_relax": 3} if case == "xy_or" else {}
+
+    def mesh_run(dev):
+        msh = mesh_mod.make_mesh(*shape, devices=[dev] * 4)
+        if case == "clock6":
+            return domain.make_sharded_sample_runner(
+                Clock2D(nx=128, ny=128, kbt=0.8, q=6), msh, 6, 4,
+                "random")(key)
+        if case == "clock5":
+            return domain.make_sharded_sample_runner(
+                Clock2D(nx=44, ny=24, kbt=0.91, q=5), msh, 6, 4,
+                "random")(key)
+        if case == "xy_or":
+            return domain.make_sharded_sample_runner(xy, msh, 6, 4,
+                                                     "random", **kw)(key)
+        return domain.make_sharded_xy_disorder_runner(xy, msh, 6, 4,
+                                                      "fix1mcs")(key)
+
+    got = {k: v.cpu() for k, v in mesh_run(cuda).items()}
+    if case == "clock6":
+        want = mesh_run(torch.device("cpu"))
+    elif case == "clock5":
+        want = sweep.make_batch_runner(Clock2D(nx=44, ny=24, kbt=0.91, q=5),
+                                       6, 4, "random", device=cuda)(key)
+    elif case == "xy_or":
+        want = sweep.make_xy_runner(xy, 6, 4, "random", device=cuda,
+                                    **kw)(key)
+    else:
+        want = sweep.make_xy_disorder_runner(xy, 6, 4, "fix1mcs",
+                                             device=cuda)(key)
+    for k, v in want.items():
+        if case == "clock6":
+            assert torch.equal(got[k], v.cpu()), k
+        else:
+            assert float((got[k] - v.cpu()).abs().max()) <= 1e-12, k

@@ -8,6 +8,8 @@ threefry) within 5 combined standard errors at every t; the CLI's headers,
 row layout and N, sample, t columns against the JAX CLI's exactly; the
 refusals by their messages, the JAX package's where it has one."""
 
+import io
+
 import jax
 import numpy as np
 import pytest
@@ -173,36 +175,51 @@ def test_cli_mesh_matches_jax_cli(model, tmp_path):
 
 
 def test_refusals():
+    """JAX's ValueErrors for the shapes it cannot shard, by its messages,
+    for the Ising, clock and XY models (lead % (2·y), half % x, replicas
+    % dp); a clock and an XY mesh run, refused before this slice, now go
+    through."""
     msh = _mesh(1, 2)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        domain.make_sharded_sample_runner(
-            Clock2D(nx=16, ny=16, kbt=0.91, q=6), msh, 2, 2)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        domain.make_sharded_sample_runner(XY2D(nx=16, ny=16, kbt=0.89),
-                                          msh, 2, 2)
+    for model in (Clock2D(nx=16, ny=16, kbt=0.91, q=6),
+                  XY2D(nx=16, ny=16, kbt=0.89)):
+        out = domain.make_sharded_sample_runner(model, msh, 2, 2)(KEY)
+        assert out["m"].shape == (2, 2)
     for name in ("clock", "xy2d"):
         cfg = RunConfig(model=name, nx=16, ny=16, mcs=2, tot_sample=2,
                         replicas=2, mesh_y=2)
-        with pytest.raises(NotImplementedError, match="queue A item 9"):
-            protocols.run_relaxation(cfg, device="cpu")
+        protocols.run_relaxation(cfg, out=io.StringIO(), err=io.StringIO(),
+                                 device="cpu")
     # JAX's messages
-    jmodel = JaxIsing2D(nx=16, ny=12, kbt=KBT, backend="jnp")
-    model = Ising2D(nx=16, ny=12, kbt=KBT)
-    for shape, replicas in (((1, 4), 4), ((3, 1), 4), ((1, 1, 3), 3)):
-        with pytest.raises(ValueError) as port:
-            domain.make_sharded_sample_runner(model, _mesh(*shape), 2,
-                                              replicas)
-        if np.prod(shape) <= len(jax.devices()):
-            with pytest.raises(ValueError) as want:
-                jdomain.make_sharded_sample_runner(
-                    jmodel, jmesh.make_mesh(*shape), 2, replicas)
-            assert str(port.value) == str(want.value)
+    from cuda_fortran_mc_simulation_spin_tpu.models.clock import (
+        Clock2D as JaxClock2D,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu.models.xy2d import (
+        XY2D as JaxXY2D,
+    )
+    pairs = ((JaxIsing2D(nx=16, ny=12, kbt=KBT, backend="jnp"),
+              Ising2D(nx=16, ny=12, kbt=KBT)),
+             (JaxClock2D(nx=12, ny=12, kbt=0.91, q=5, backend="jnp"),
+              Clock2D(nx=12, ny=12, kbt=0.91, q=5)),
+             (JaxXY2D(nx=12, ny=12, kbt=0.89, backend="jnp"),
+              XY2D(nx=12, ny=12, kbt=0.89)))
+    for jmodel, model in pairs:
+        x = 3 if isinstance(model, Ising2D) else 4     # half 8 or 6
+        for shape, replicas in (((1, 4), 4), ((3, 1), 4), ((1, 1, x), x)):
+            with pytest.raises(ValueError) as port:
+                domain.make_sharded_sample_runner(model, _mesh(*shape), 2,
+                                                  replicas)
+            if np.prod(shape) <= len(jax.devices()):
+                with pytest.raises(ValueError) as want:
+                    jdomain.make_sharded_sample_runner(
+                        jmodel, jmesh.make_mesh(*shape), 2, replicas)
+                assert str(port.value) == str(want.value)
     with pytest.raises(ValueError, match="decomposes over z only"):
         domain.make_sharded_sample_runner(
             Ising3D(nx=8, ny=8, nz=8, kbt=KBT3), _mesh(1, 2, 2), 2, 2)
-    with pytest.raises(ValueError, match="an XY-model feature"):
-        domain.make_sharded_sample_runner(model, _mesh(1, 2), 2, 2,
-                                          n_over_relax=1)
+    for model in (pairs[0][1], pairs[1][1]):
+        with pytest.raises(ValueError, match="an XY-model feature"):
+            domain.make_sharded_sample_runner(model, _mesh(1, 2), 2, 2,
+                                              n_over_relax=1)
     with pytest.raises(ValueError) as port:
         mesh_mod.make_mesh(1, 4, devices=[torch.device("cpu")] * 3)
     with pytest.raises(ValueError) as want:

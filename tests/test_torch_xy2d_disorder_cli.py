@@ -10,6 +10,7 @@ its own table (second moments or N·Var columns); headers equal except the
 `# engine:` stamp."""
 
 import dataclasses
+import io
 
 import numpy as np
 import pytest
@@ -213,19 +214,28 @@ def test_interop_carries_a_jax_prepared_state():
 
 
 def test_disorder_routes_that_raise(tmp_path):
-    """Odd nx (helical XY) raises the JAX ValueError; a mesh raises naming
-    queue A item 9; --device cuda without a card raises before any
-    output."""
+    """Odd nx (helical XY) raises the JAX ValueError; on a mesh the JAX
+    package's ValueErrors for shapes it cannot shard (rows % (2·y),
+    columns % x) and a run that goes through; --device cuda without a
+    card raises before any output."""
     out = tmp_path / "x.dat"
     with pytest.raises(ValueError, match="periodic XY engine"):
         main(BASE[:2] + ["--nx", "33", "--ny", "32", "--protocol",
                          "from_disorder", "--device", "cpu", "--output",
                          str(out)])
-    cfg = dataclasses.replace(RunConfig(model="xy2d", nx=32, ny=32),
+    cfg = dataclasses.replace(RunConfig(model="xy2d", nx=32, ny=32, mcs=2,
+                                        tot_sample=2, replicas=2),
                               mesh_dp=2)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        protocols.run_from_disorder(cfg, out=_Out(), err=_Out(),
-                                    device="cpu")
+    accs = protocols.run_from_disorder(cfg, out=io.StringIO(),
+                                       err=io.StringIO(), device="cpu")
+    assert accs["ac"].state_dict()["n"] == 2
+    for mesh, match in (({"mesh_y": 3}, "2\\*domain_shards=6"),
+                        ({"mesh_x": 3}, "divisible by the mesh's x=3")):
+        with pytest.raises(ValueError, match=match):
+            protocols.run_from_disorder(dataclasses.replace(cfg, mesh_dp=1,
+                                                            **mesh),
+                                        out=io.StringIO(),
+                                        err=io.StringIO(), device="cpu")
     if not torch.cuda.is_available():
         for case in ("from_disorder", "samples"):
             with pytest.raises(RuntimeError, match="cuda"):

@@ -388,12 +388,14 @@ PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 132 * 128 * 1.98e9
 # minimum 32-bit instructions per word and phase: a Philox4x32-10 call
 # is 10 rounds of 2 wide multiplies (hi and lo at once) and 2 three-input
-# xors, plus 9 key bumps of 2 adds; the Bernoulli chains fold two words
-# per three-input logic op; the 2-D stencil, count and flip are 24 logic
-# ops, the helical one 8 more (4 funnel shifts, 4 wrap selects), the 3-D
-# one 40 (6:3 count, 3 chains' flip); the fused (m, e) adds 7 popcounts
-# and 9 integer adds (6 more masks for the helical pad bits)
-OPS_PER_PHILOX = 10 * 4 + 9 * 2
+# xors (its 9 round keys are the same for every call of a launch: the
+# function needs them once a launch, not once a call); the Bernoulli
+# chains fold two words per three-input logic op; the 2-D stencil, count
+# and flip are 24 logic ops, the helical one 8 more (4 funnel shifts, 4
+# wrap selects), the 3-D one 40 (6:3 count, 3 chains' flip); the fused
+# (m, e) adds 7 popcounts and 9 integer adds (6 more masks for the
+# helical pad bits)
+OPS_PER_PHILOX = 10 * 4
 OPS_STENCIL_FLIP = 24
 OPS_HELICAL_SHIFTS = 8
 OPS_STENCIL_FLIP_3D = 40
@@ -459,10 +461,10 @@ XYH_CHECK_SHAPES = ((1, HY, HX), (4, 64, 65))
 # and one an OR site, plus atan2_2pi (abs, min, max, the fold and its
 # selects, the divide ~10, the polynomial 8, the fixups 6: ~30) and the
 # reflection's 4; its fused sums are OPS_XY_MEASURE, plus one decode of
-# the new angle after OR.  The kernels decode each neighbour in each of its
-# four sites (six decodes a Metropolis site, four an OR site): that excess
-# is the kernels' cost, not the bound's.  Bytes a site: 24 (components)
-# or 12 (angles)
+# the new angle after OR.  The Metropolis tile kernel decodes ~1.13 other
+# angles a site (a tile's halo), the OR kernel each neighbour in each of
+# its four sites (four decodes an OR site): that excess is the kernels'
+# cost, not the bound's.  Bytes a site: 24 (components) or 12 (angles)
 OPS_XYA_METROPOLIS = OPS_PER_PHILOX + 4 + 3 * 22 + 6 + 6 + 10 + 4
 OPS_XYA_OVER_RELAX = 22 + 6 + 30 + 4
 XYA_BYTES_PER_SITE = 12
@@ -5704,7 +5706,7 @@ def main() -> int:
                                measuring=True, **g5),
         12 * 2 * w5 + 2 * 16,
         2 * w5 * helical3d_phase_ops_per_word(msb, ms3, beta5, True),
-        reps=20, plain_reps=1,
+        reps=20, plain_reps=1, graphed=True,
         view=lambda out: (hms._u32(out[0]) & vm5, out[1]))
     del fa, fb
     # the resident class's launch shape, 128 x 151x151x150: the kernel
@@ -6137,7 +6139,7 @@ def main() -> int:
         ("xy2d_helical_dense.or_kernel", "xy2d_helical_dense.cu",
          "xy2d_helical_dense.py:499", launched("xy_helical", "or"),
          max(err_xyh["or"], xyh_err), xyh_t["component or"][0]),
-        ("xy2d_helical_dense_angle.angle_phase_kernel",
+        ("xy2d_helical_dense_angle.angle_tile_kernel",
          "xy2d_helical_dense_angle.cu", "xy2d_helical_dense_angle.py:269",
          launched("xy_helical_angle", "phase"),
          max(err_xyh["angle_phase"], xyh_err), xyh_t["angle phase"][0]),

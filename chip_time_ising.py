@@ -6,22 +6,33 @@ resident blocks of the int8 S-sweep grid; with ``--clock``, the clock
 kernels whose headers the halo modes share: the bit-sliced q = 6 phase,
 measuring, at 2000x2000 x 40 (padded) and 2048x2048 x 16, the int8 clock
 phase at 2000x2000 x 16 (q = 5) and its S-sweep kernel at 1000x1000 x 16
-(q = 2, S = 64).
+(q = 2, S = 64); with ``--helical3d``, the helical 3-D phase kernel at
+the even streamed class's launch, 1001x1000x1000 x 2 (colour a, z-parity
+sub-phases 0 and 1), and at the odd streamed class's, 501x501x500 x 2
+(colour b, plain and measuring), on random vectors.
 
-    python3 chip_time_ising.py [--reps 50] [--rounds 3] [--clock]
+    python3 chip_time_ising.py [--reps 50] [--rounds 3]
+                               [--clock | --helical3d]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
 the kernels on first use.  It uses only the wrappers' public API, so to
 compare two commits copy it into both checkouts and run it from each in
 turns on one card (A, B, B, A).  Prints the card's nvidia-smi name and
-power limit, the ptxas register report of the build, and last one JSON
-line {mode: [ms a launch, one per round], "int8_multisweep_blocks": n}.
+power limit, the ptxas register report of the build, with ``--helical3d``
+the SASS of phase_kernel (instructions, the instructions of each loop,
+the commonest opcodes; where cuobjdump exists), and last one JSON line
+{mode: [ms a launch, one per round]} (``"int8_multisweep_blocks": n``
+beside the Ising modes).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +45,66 @@ LIBS = ["ising2d_multisweep", "ising2d_pallas", "ising3d_pallas",
         "ising2d_multispin", "ising3d_multispin"]
 CLOCK_LIBS = ["clock_planes", "clock_pallas", "clock_multisweep"]
 KBT_CLOCK, KBT_CLOCK_08 = 0.91, 0.8
+# the helical 3-D classes' temperatures: 1001x1000x1000 and 501x501x500
+KBT_H3, KBT_H3_501 = 4.511454583186711, 4.51152174982078
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_report(lib: str, names: tuple[str, ...]) -> None:
+    """For each function of ``.build/lib<lib>.so`` whose mangled name holds
+    one of ``names``: its SASS instructions, the instructions of each loop
+    (a backward branch: the span from its target to it) and the ten
+    commonest opcodes; nothing where cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("sass: cuobjdump not found")
+        return
+    dump = subprocess.run([tool, "-sass", str(ROOT / ".build" /
+                                              f"lib{lib}.so")],
+                          capture_output=True, text=True).stdout
+    for part in dump.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if not any(n in name for n in names):
+            continue
+        ops, loops = collections.Counter(), []
+        for addr, op, rest in _SASS_LINE.findall(part):
+            ops[op] += 1
+            target = re.search(r"\b0x([0-9a-f]+)\b", rest)
+            if op.startswith("BRA") and target and \
+                    int(target.group(1), 16) < int(addr, 16):
+                loops.append((int(addr, 16) - int(target.group(1), 16))
+                             // 16 + 1)
+        print(f"sass {lib} {name}: {sum(ops.values())} instructions; "
+              f"loops {loops}; " + ", ".join(
+                  f"{op} {n}" for op, n in ops.most_common(10)))
+
+
+def helical3d_modes(words):
+    """The helical 3-D phase kernel at both streamed classes' launches,
+    on random vectors."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical3d_multispin as h3,
+        helical_multispin as hms,
+    )
+    key = rng.seeds_from_key(rng.base_key(17), 0)
+    even = dict(nx=1001, nxy=1001 * 1000, m=1001 * 1000 * 1000 // 2,
+                beta=1 / KBT_H3)
+    odd = dict(nx=501, nxy=501 * 501, m=501 * 501 * 500 // 2,
+               beta=1 / KBT_H3_501)
+    ea, eb = (words((2, hms.words(even["m"]))) for _ in range(2))
+    oa, ob = (words((2, hms.words(odd["m"]))) for _ in range(2))
+    return {
+        "helical3d_1001_zsub0": lambda: h3.phase_packed(
+            ea, eb, key, color=0, zsub=0, **even),
+        "helical3d_1001_zsub1": lambda: h3.phase_packed(
+            ea, eb, key, color=0, zsub=1, **even),
+        "helical3d_501": lambda: h3.phase_packed(ob, oa, key, color=1,
+                                                 **odd),
+        "helical3d_501_measuring": lambda: h3.phase_packed(
+            ob, oa, key, color=1, measuring=True, **odd),
+    }
 
 
 def clock_modes(gen, dev, seeds):
@@ -78,6 +149,8 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--clock", action="store_true",
                     help="time the clock kernels instead")
+    ap.add_argument("--helical3d", action="store_true",
+                    help="time the helical 3-D phase kernel instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_time_ising: needs an NVIDIA GPU", file=sys.stderr)
@@ -111,6 +184,8 @@ def main() -> int:
     libs = LIBS
     if args.clock:
         modes, libs = clock_modes(gen, dev, seeds), CLOCK_LIBS
+    elif args.helical3d:
+        modes, libs = helical3d_modes(words), ["helical3d_multispin"]
     else:
         modes = ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds,
                             phase_key, b2, b3)
@@ -129,7 +204,7 @@ def main() -> int:
             end.record()
             end.synchronize()
             times[mode].append(start.elapsed_time(end) / reps)
-    if not args.clock:
+    if not (args.clock or args.helical3d):
         times["int8_multisweep_blocks"] = i8ms.grid_blocks()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -139,8 +214,11 @@ def main() -> int:
         log = ROOT / ".build" / f"lib{lib}.log"
         if log.exists():
             for line in log.read_text().splitlines():
-                if "Compiling entry" in line or "registers" in line:
+                if ("Compiling entry" in line or "registers" in line
+                        or "stack frame" in line):
                     print(line.strip())
+    if args.helical3d:
+        sass_report("helical3d_multispin", ("phase_kernel",))
     print(json.dumps(times))
     return 0
 

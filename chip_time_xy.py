@@ -22,7 +22,9 @@ csrc/xy2d_pallas_angle.cu) on first use.  It uses only the phase wrappers'
 public API, so to compare two commits copy it into both checkouts and run
 it from each in turns on one card (A, B, B, A).  Prints the card's
 nvidia-smi name and power limit, the ptxas register report of the build,
-and last one JSON line {mode: [ms a launch, one per round]}.
+with ``--helical`` the SASS of the helical kernels (chip_time_ising.
+sass_report), and last one JSON line {mode: [ms a launch, one per
+round]}.
 """
 
 from __future__ import annotations
@@ -139,7 +141,8 @@ def main() -> int:
                       ["xy2d_pallas", "xy2d_pallas_angle"])
     if args.helical:
         return report(helical_modes(dev, gen, key, beta), args,
-                      ["xy2d_helical_dense", "xy2d_helical_dense_angle"])
+                      ["xy2d_helical_dense", "xy2d_helical_dense_angle"],
+                      sass=("phase_kernel", "or_kernel", "tile_kernel"))
     planes = []
     for _ in range(2):
         th = torch.rand((NREP, NY, HALF), generator=gen, device=dev) * 6.2832
@@ -170,9 +173,10 @@ def main() -> int:
     return report(modes, args, ["xy2d_pallas", "xy2d_resident"])
 
 
-def report(modes, args, libs) -> int:
+def report(modes, args, libs, sass=()) -> int:
     """Time every mode ``args.rounds`` times in turns; print the card's
-    line, the libraries' ptxas report and the JSON line of times."""
+    line, the libraries' ptxas report, the SASS report of their functions
+    whose names hold one of ``sass``, and the JSON line of times."""
     times = {m: [] for m in modes}
     for _ in range(args.rounds):
         for mode, fn in modes.items():
@@ -194,8 +198,13 @@ def report(modes, args, libs) -> int:
         log = ROOT / ".build" / f"lib{lib}.log"
         if log.exists():
             for line in log.read_text().splitlines():
-                if "Compiling entry" in line or "registers" in line:
+                if ("Compiling entry" in line or "registers" in line
+                        or "stack frame" in line):
                     print(line.strip())
+    if sass:
+        from chip_time_ising import sass_report
+        for lib in libs:
+            sass_report(lib, sass)
     print(json.dumps(times))
     return 0
 

@@ -49,16 +49,35 @@
 // energy: 6 forward-bond planes, e = sum (2 popc(src ^ nbr) - valid bits).
 //
 // Bound on the H100: integer operations.  At the 3-D critical point the
-// chains draw 56 Philox words a word and phase (14 calls, ~900 int32
-// operations) against 8-12 bytes of traffic.  A word whose sites all lie in
-// the sub-phase's other z-parity flips nothing: the kernel copies it and
-// skips the chains, so the four even-nx*ny sub-phases cost about two
-// phases.  multisweep_kernel runs one block per replica in device memory
-// (both colours of a 151x151x150 replica, 417.5 KiB, exceed the 227 KB of
-// shared memory), with a __syncthreads() between phases.
+// chains draw 56 Philox words a word and phase (14 calls, ~650 int32
+// operations with the round keys a per-launch constant) against 8-12
+// bytes of traffic.  A word whose sites all lie in the sub-phase's other
+// z-parity flips nothing: the kernel copies it and skips the chains, so the
+// four even-nx*ny sub-phases cost about two phases.  multisweep_kernel runs
+// one block per replica in device memory (both colours of a 151x151x150
+// replica, 417.5 KiB, exceed the 227 KB of shared memory), with a
+// __syncthreads() between phases.
+//
+// phase_kernel draws its chains in a fully unrolled loop (chain_planes).
+// The first design (multisweep_kernel keeps it) called bern_word per
+// chain: a runtime loop from __ffs(q), and for each draw WordStream's
+// refill test, a runtime pick of the buffer word and the digit's shift,
+// and-mask and select, ~12-16 instructions a draw on top of Philox, and a
+// Philox call that recomputed its nine round-key bumps.  Here the Philox
+// call index and the word within it are compile-time constants; a draw
+// folds into the running chain in one three-input op, B <- maj(r, B, D),
+// with D the draw's digit (all ones or zero) from the per-launch
+// ChainTable in the kernel's parameters (a constant-bank operand); the
+// chain boundaries are uniform, so a call that holds none folds its four
+// draws straight; the round keys come from the launch, held in registers;
+// the calls go in pairs, two independent chains of rounds; and each
+// neighbour plane's colour is a compile-time choice (phase_kernel<NCROSS>).
+// PERF.md §6 has the variants' A/B.  The draws and their order are
+// bern_word's, so the planes are the plain chains' bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 #include "bernoulli.cuh"
 #include "helical_read.cuh"
@@ -82,6 +101,20 @@ struct Chains {
   uint32_t q4, q8, q12;  // chain digits: round(p * 2^20)
 };
 
+// The three chains of one launch (ops/helical3d_multispin.chain_table):
+// draws [0, e4) fold into B4, [e4, e8) into B8, [e8, n) into B12, draw n
+// being word n % 4 of Philox call n / 4.  fast bit c: draws 4c .. 4c + 3
+// all lie below n with no chain boundary among them; live bit c: call c
+// has a draw below n.
+constexpr int CHAIN_CALLS = 15;  // 60 draws: three chains of 20 digits
+struct ChainTable {
+  uint32_t digit[4 * CHAIN_CALLS];  // all ones on a one digit, else zero
+  uint32_t live, fast;
+  int e4, e8, n;
+};
+static_assert(sizeof(ChainTable) == 65 * 4, "ops/helical3d_multispin.py "
+              "passes the table as 65 32-bit words");
+
 struct PhaseArgs {
   const uint32_t* x_in;  // (R, W) colour being updated
   uint32_t* x_out;       // (R, W) result, never aliasing x_in
@@ -91,7 +124,8 @@ struct PhaseArgs {
   const uint32_t* b12;
   long long* obs;        // (R, 2) (m, e) sums, zeroed by the caller, or null
   Stencil st;
-  Chains ch;
+  uint2 rk[10];          // Philox round keys of the phase key: k + r (W0, W1)
+  ChainTable chain;
   int zsub;              // -1: every site; 0/1: z-plane parity zsub only
   int zh;                // colour sites per z-plane, nx*ny/2 (zsub >= 0)
 };
@@ -119,7 +153,9 @@ __device__ __forceinline__ uint32_t valid_bits(int m, int f0) {
 }
 
 // The 6-neighbour count planes of word g of colour x (replica base
-// pointers x and o).
+// pointers x and o): planes k < NCROSS read o, the others x (NCROSS < 0:
+// s.ncross at run time).
+template <int NCROSS = -1>
 __device__ __forceinline__ void counts(const Stencil& s, const uint32_t* x,
                                        const uint32_t* o, int f0,
                                        uint32_t& b1, uint32_t& b2,
@@ -129,7 +165,8 @@ __device__ __forceinline__ void counts(const Stencil& s, const uint32_t* x,
   for (int k = 0; k < 6; ++k) {
     int start = f0 + s.d[k];  // f0 < M and d < M, so start < 2M
     if (start >= s.m) start -= s.m;
-    n[k] = read_circ(k < s.ncross ? o : x, s.nw, s.m, start);
+    n[k] = read_circ(k < (NCROSS < 0 ? s.ncross : NCROSS) ? o : x, s.nw,
+                     s.m, start);
   }
   count6(n[0], n[1], n[2], n[3], n[4], n[5], b1, b2, b4);
 }
@@ -141,6 +178,97 @@ __device__ __forceinline__ void chain_words(const Chains& c, uint32_t r,
   p4 = bern_word(ws, c.q4);
   p8 = bern_word(ws, c.q8);
   p12 = bern_word(ws, c.q12);
+}
+
+// philox4x32_10 (philox.cuh) with its round keys given
+__device__ __forceinline__ uint4 philox_rk(uint4 c, const uint2 (&rk)[10]) {
+  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
+    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ rk[r].x, lo1, hi0 ^ c.w ^ rk[r].y, lo0);
+  }
+  return c;
+}
+
+// r | B on a one digit (d all ones), r & B on a zero digit (d zero)
+__device__ __forceinline__ uint32_t fold(uint32_t r, uint32_t b, uint32_t d) {
+  return (r & b) | (r & d) | (b & d);
+}
+
+// Philox calls computed together: two independent chains of rounds
+constexpr int CALL_PAIR = 2;
+
+// The four draws of call c folded into the running chain b; a call with a
+// chain boundary or the last draw inside it (not fast) draw by draw
+__device__ __forceinline__ void fold_call(const ChainTable& t, int c, uint4 v,
+                                          uint32_t& b, uint32_t& p4,
+                                          uint32_t& p8) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  if ((t.fast >> c) & 1u) {  // uniform
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b = fold(w[j], b, t.digit[4 * c + j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 4 * c + j;
+      if (n < t.n) {  // a boundary at t.n is taken after the loop
+        if (n == t.e4) {
+          p4 = b;
+          b = 0u;
+        }
+        if (n == t.e8) {
+          p8 = b;
+          b = 0u;
+        }
+        b = fold(w[j], b, t.digit[n]);
+      }
+    }
+  }
+}
+
+// The B4, B8, B12 planes of word g of replica r: chain_words' bits, the
+// draws in a fully unrolled loop (the header says why), the calls in pairs
+// (a pair's second call past the last draw is drawn and dropped).  A chain
+// starts at B = 0 with a one digit, so its first draw gives B = r, as
+// bern_word's.
+__device__ __forceinline__ void chain_planes(const PhaseArgs& a, uint32_t r,
+                                             uint32_t g, uint32_t& p4,
+                                             uint32_t& p8, uint32_t& p12) {
+  const ChainTable& t = a.chain;
+  uint32_t b = 0u;
+  p4 = p8 = 0u;
+  // the round keys in registers: taken from the constant bank they cost a
+  // uniform load a round and call
+  uint2 rk[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    rk[k] = a.rk[k];
+    asm volatile("" : "+r"(rk[k].x), "+r"(rk[k].y));
+  }
+#pragma unroll
+  for (int c0 = 0; c0 < CHAIN_CALLS; c0 += CALL_PAIR) {
+    if (((t.live >> c0) & 1u) == 0u) break;  // uniform
+    uint4 v[CALL_PAIR];
+#pragma unroll
+    for (int k = 0; k < CALL_PAIR; ++k)
+      if (c0 + k < CHAIN_CALLS)
+        v[k] = philox_rk(make_uint4(r, g, 0u, c0 + k), rk);
+#pragma unroll
+    for (int k = 0; k < CALL_PAIR; ++k)
+      if (c0 + k < CHAIN_CALLS && ((t.live >> (c0 + k)) & 1u))
+        fold_call(t, c0 + k, v[k], b, p4, p8);
+  }
+  if (t.e4 == t.n) {
+    p4 = b;
+    b = 0u;
+  }
+  if (t.e8 == t.n) {
+    p8 = b;
+    b = 0u;
+  }
+  p12 = b;
 }
 
 // Fused sums of one word of phase b with vm its valid bits: s = 2 bit - 1
@@ -194,7 +322,10 @@ __device__ __forceinline__ void block_add(long long pm, long long pe,
   __syncthreads();
 }
 
-// One (sub-)phase: a grid of (ceil(W / 256), R) blocks, one thread a word.
+// One (sub-)phase: a grid of (ceil(W / 256), R) blocks, one thread a word;
+// NCROSS = a.st.ncross, the planes read from the other colour (6 at odd
+// nx*ny, 4 at even), a compile-time choice of each read's colour.
+template <int NCROSS>
 __global__ void __launch_bounds__(PHASE_THREADS)
     phase_kernel(PhaseArgs a) {
   const int g = blockIdx.x * PHASE_THREADS + threadIdx.x;
@@ -214,22 +345,22 @@ __global__ void __launch_bounds__(PHASE_THREADS)
     }
     uint32_t nv = xv, b1 = 0u, b2 = 0u, b4c = 0u;
     if (allow != 0u) {
-      counts(a.st, x, o, f0, b1, b2, b4c);
+      counts<NCROSS>(a.st, x, o, f0, b1, b2, b4c);
       uint32_t p4, p8, p12;
       if (a.b4 != nullptr) {
         p4 = a.b4[base + g];
         p8 = a.b8[base + g];
         p12 = a.b12[base + g];
       } else {
-        chain_words(a.ch, static_cast<uint32_t>(r), static_cast<uint32_t>(g),
-                    p4, p8, p12);
+        chain_planes(a, static_cast<uint32_t>(r), static_cast<uint32_t>(g),
+                     p4, p8, p12);
       }
       nv = xv ^ (flip6(xv, b1, b2, b4c, p4, p8, p12) & allow);
     }
     a.x_out[base + g] = nv;
     if (a.obs != nullptr)
-      word_sums(nv, o[g], b1, b2, b4c, valid_bits(a.st.m, f0),
-                a.st.ncross == 6, pm, pe);
+      word_sums(nv, o[g], b1, b2, b4c, valid_bits(a.st.m, f0), NCROSS == 6,
+                pm, pe);
   }
   if (a.obs != nullptr)
     block_add<PHASE_THREADS>(pm, pe, a.obs + 2 * static_cast<size_t>(r));
@@ -347,14 +478,15 @@ extern "C" {
 // One (sub-)phase of x_in given o -> x_out: ncross cross planes at d[0..]
 // and 6 - ncross self planes after them; zsub -1 for every site, 0/1 for
 // one z-plane parity (zh colour sites a plane); b4/b8/b12 injected planes
-// or null (Philox words under (s0, s1)); obs an (R, 2) int64 buffer zeroed
-// by the caller, or null.
+// or null (Philox words under (s0, s1) and the chain table `chain`, the
+// 65 words of ChainTable); obs an (R, 2) int64 buffer zeroed by the
+// caller, or null.
 int helical3d_phase(const void* x_in, void* x_out, const void* o,
                     const void* b4, const void* b8, const void* b12,
                     void* obs, int nrep, int nw, int m, int ncross,
                     const int* d, int zsub, int zh, unsigned int s0,
-                    unsigned int s1, unsigned int q4, unsigned int q8,
-                    unsigned int q12, void* stream) {
+                    unsigned int s1, const unsigned int* chain,
+                    void* stream) {
   PhaseArgs a;
   a.x_in = static_cast<const uint32_t*>(x_in);
   a.x_out = static_cast<uint32_t*>(x_out);
@@ -364,15 +496,22 @@ int helical3d_phase(const void* x_in, void* x_out, const void* o,
   a.b12 = static_cast<const uint32_t*>(b12);
   a.obs = static_cast<long long*>(obs);
   set_stencil(a.st, nw, m, ncross, d);
-  a.ch.key = make_uint2(s0, s1);
-  a.ch.q4 = q4;
-  a.ch.q8 = q8;
-  a.ch.q12 = q12;
+  for (int r = 0; r < 10; ++r)
+    a.rk[r] = make_uint2(s0 + r * 0x9E3779B9u, s1 + r * 0xBB67AE85u);
+  std::memcpy(&a.chain, chain, sizeof(ChainTable));
+  const ChainTable& t = a.chain;
+  if (t.e4 < 0 || t.e4 > t.e8 || t.e8 > t.n || t.n > 4 * CHAIN_CALLS)
+    return static_cast<int>(cudaErrorInvalidValue);
   a.zsub = zsub;
   a.zh = zh;
   const dim3 grid((nw + PHASE_THREADS - 1) / PHASE_THREADS, nrep);
-  phase_kernel<<<grid, PHASE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ncross == 6)
+    phase_kernel<6><<<grid, PHASE_THREADS, 0, st>>>(a);
+  else if (ncross == 4)
+    phase_kernel<4><<<grid, PHASE_THREADS, 0, st>>>(a);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,7 @@
 // turns: the kernels of the helical XY relaxation on the default (angle)
 // engine, Metropolis only and with over-relaxation.
 //
-//   angle_phase_kernel replaces cuda_fortran_mc_simulation_spin_tpu/ops/
+//   angle_tile_kernel  replaces cuda_fortran_mc_simulation_spin_tpu/ops/
 //                      xy2d_helical_dense_angle.py:_angle_phase_kernel
 //                      (pallas_call at :269, _angle_phase): one colour
 //                      phase of the angle plane s from the other colour's
@@ -28,10 +28,27 @@
 // Metropolis site (one Philox4x32-10 call; three cos_sin_2pi decodes: the
 // site, the candidate and each other-colour angle once; expf: 0.230 ms at
 // 33.4 T/s) and ~62 an over-relaxation site (one decode and atan2_2pi:
-// 0.093 ms).  Each thread decodes its four neighbours itself, where the
-// TPU kernel decodes a tile once and rolls it: six decodes a Metropolis
-// site and four an OR site where the function needs three and one, bought
-// with no shared memory and no barrier.
+// 0.093 ms).
+//
+// The Metropolis phase decodes the other colour once a tile, as the TPU
+// kernel decodes a tile and rolls it.  A block owns TX slots x TY rows and
+// walks its column of tiles (grid (column tiles, row blocks, replicas)):
+// it loads the other colour's rows y0 - 1 .. y0 + TY (wrapping at ny) and
+// columns x0 - 1 .. x0 + TX, decodes each angle once into shared memory as
+// (cos, sin), then each thread takes its four neighbours from there and
+// adds them in the plain version's order, ((up + dn) + left) + right, so
+// the field is the one-thread-a-site field bit for bit.  The helical seams
+// (a long row's x = 0 reads the up-row's column nc - 1, its x = nx - 1 the
+// down-row's column 0) are read and decoded by the one thread that needs
+// them; a short row's ragged slot is neither updated nor counted, as in
+// dense_slot.  That is (TY + 2)(TX + 2) / (TY TX) decodes of other
+// angles a site and two of its own: 3.13 at the 32 x 32 tile, where the
+// one-thread-a-site kernel (angle_or_kernel keeps its shape) decoded six,
+// and no runtime division: 32-bit offsets inside a replica.  32 x 32
+// halos the fewest angles a site and read 0.8% ahead of 64 x 16 and 7%
+// ahead of 128 x 8 (PERF.md §6).  The measuring launch
+// takes the other colour's (S_x, S_y) from the decoded tile.  Sums in
+// float64, per block in a fixed order, then per replica by reduce_kernel.
 #include "xy2d_helical_dense.cuh"
 
 namespace {
@@ -39,6 +56,9 @@ namespace {
 using xy::Sums;
 using xyh::Slot;
 using xyh::THREADS;
+
+// a tile: TX slots x TY rows, four sites a thread
+constexpr int TX = 32, TY = 32;
 
 struct AnglePlanes {
   float* s;         // (R, ny, nc) colour updated, turns, in place
@@ -68,39 +88,146 @@ __device__ __forceinline__ void other_sums(const AnglePlanes& p,
   t.my += static_cast<double>(oy);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    angle_phase_kernel(AnglePlanes p, double* partials, const float* ucand,
-                       const float* uacc, float neg_beta, uint2 key) {
-  const int r = blockIdx.y;
-  Sums t = {0.0, 0.0, 0.0, 0.0};
-  for (int w = blockIdx.x * THREADS + threadIdx.x; w < p.ny * p.nc;
-       w += gridDim.x * THREADS) {
-    const Slot s = xyh::dense_slot(r, w, p.ny, p.nc, p.color);
-    if (partials != nullptr && s.ovalid) other_sums(p, s, t);
-    if (s.valid) {
-      float hx, hy;
-      angle_field(p.o, s, hx, hy);
-      float uc, ua;
-      xyh::uniforms(s, r, ucand, uacc, key, uc, ua);
-      float fx, fy, cx, cy;
-      xy::cos_sin_2pi(p.s[s.idx], fx, fy);
-      const float cand = __fsub_rn(uc, 0.5f);
-      xy::cos_sin_2pi(cand, cx, cy);
-      const float de = -__fadd_rn(__fmul_rn(__fsub_rn(cx, fx), hx),
-                                  __fmul_rn(__fsub_rn(cy, fy), hy));
-      const float prob = expf(__fmul_rn(fmaxf(de, 0.0f), neg_beta));
-      if (ua < prob) {
-        fx = cx;
-        fy = cy;
-        p.s[s.idx] = cand;
-      }
-      t.mx += static_cast<double>(fx);
-      t.my += static_cast<double>(fy);
-      t.e += xyh::bond_sum(fx, fy, hx, hy);
-    }
+// One Metropolis site (y, i) of a tile: c points at the decoded other
+// colour's (y, i) in the tile, whose rows are SW apart.
+template <bool MEASURE>
+__device__ __forceinline__ void tile_site(const AnglePlanes& p, float* s,
+                                          const float* o, const float2* c,
+                                          int sw, int r, int y, int i,
+                                          float own, const float* ucand,
+                                          const float* uacc, float neg_beta,
+                                          uint2 key, Sums& t) {
+  const int ny = p.ny, nc = p.nc;
+  const bool long_row = (p.color == 0) == ((y & 1) == 0);
+  if (MEASURE && i < (long_row ? nc - 1 : nc)) {
+    t.mx += static_cast<double>(c->x);
+    t.my += static_cast<double>(c->y);
   }
-  if (partials != nullptr)  // uniform
-    xy::block_sums<3>(partials, r, gridDim.x, blockIdx.x, t);
+  if (i >= (long_row ? nc : nc - 1)) return;
+  const float2 up = c[-sw], dn = c[sw];
+  float2 lf = long_row ? c[-1] : c[0];
+  float2 rt = long_row ? c[0] : c[1];
+  if (long_row && i == 0) {
+    const int yu = y == 0 ? ny - 1 : y - 1;
+    xy::cos_sin_2pi(__ldg(o + yu * nc + (nc - 1)), lf.x, lf.y);
+  }
+  if (long_row && i == nc - 1) {
+    const int yd = y == ny - 1 ? 0 : y + 1;
+    xy::cos_sin_2pi(__ldg(o + yd * nc), rt.x, rt.y);
+  }
+  const float hx = __fadd_rn(__fadd_rn(__fadd_rn(up.x, dn.x), lf.x), rt.x);
+  const float hy = __fadd_rn(__fadd_rn(__fadd_rn(up.y, dn.y), lf.y), rt.y);
+  const int idx = y * nc + i;
+  float uc, ua;
+  if (ucand != nullptr) {
+    uc = __ldg(ucand + idx);
+    ua = __ldg(uacc + idx);
+  } else {
+    const uint4 b = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(y),
+                   static_cast<uint32_t>(i), 0u),
+        key);
+    uc = xy::u24(b.x);
+    ua = xy::u24(b.y);
+  }
+  float fx, fy, cx, cy;
+  xy::cos_sin_2pi(own, fx, fy);
+  const float cand = __fsub_rn(uc, 0.5f);
+  xy::cos_sin_2pi(cand, cx, cy);
+  const float de = -__fadd_rn(__fmul_rn(__fsub_rn(cx, fx), hx),
+                              __fmul_rn(__fsub_rn(cy, fy), hy));
+  const float prob = expf(__fmul_rn(fmaxf(de, 0.0f), neg_beta));
+  if (ua < prob) {
+    fx = cx;
+    fy = cy;
+    s[idx] = cand;
+  }
+  if (MEASURE) {
+    t.mx += static_cast<double>(fx);
+    t.my += static_cast<double>(fy);
+    t.e += xyh::bond_sum(fx, fy, hx, hy);
+  }
+}
+
+// The raw other-colour angles of the tile at row y0 that thread t decodes:
+// elements k = t + j THREADS of its (rows y0 - 1 .. y0 + min(TY, ny - y0),
+// wrapping at ny) x (columns x0 - 1 .. x0 + TX) grid, 0 outside [0, nc).
+// No load waits on another: all are in flight before the first decode.
+template <int LOADS>
+__device__ __forceinline__ void fetch_tile(const float* o, int ny, int nc,
+                                           int x0, int y0,
+                                           float (&v)[LOADS]) {
+  constexpr int SW = TX + 2;
+  const int nload = (min(TY, ny - y0) + 2) * SW;
+#pragma unroll
+  for (int j = 0; j < LOADS; ++j) {
+    const int k = threadIdx.x + j * THREADS;
+    const int ry = k / SW, xx = x0 - 1 + (k - ry * SW);
+    int yy = y0 - 1 + ry;
+    yy = yy < 0 ? yy + ny : (yy >= ny ? yy - ny : yy);
+    v[j] = k < nload && xx >= 0 && xx < nc ? __ldg(o + yy * nc + xx) : 0.0f;
+  }
+}
+
+// One Metropolis phase, a tile TX slots x TY rows: grid (ceil(nc / TX),
+// row blocks, R); block (bx, by) takes tile rows by, by + gridDim.y, ...
+// of column tile bx.  A tile's raw angles are all loaded, then decoded
+// into shared memory, and each thread's own angles loaded before the
+// barrier: a load that waits for the decode of the one before stalls each
+// warp once per load (PERF.md §6).
+template <bool MEASURE>
+__global__ void __launch_bounds__(THREADS)
+    angle_tile_kernel(AnglePlanes p, double* partials, const float* ucand,
+                      const float* uacc, float neg_beta, uint2 key) {
+  constexpr int SW = TX + 2, SH = TY + 2, ROWS = THREADS / TX;
+  constexpr int LOADS = (SH * SW + THREADS - 1) / THREADS;
+  constexpr int SITES = TY / ROWS;
+  static_assert(THREADS % TX == 0 && TY % ROWS == 0, "tile shape");
+  __shared__ float2 tile[SH * SW];
+  const int ny = p.ny, nc = p.nc, r = blockIdx.z;
+  const size_t base = static_cast<size_t>(r) * ny * nc;
+  float* s = p.s + base;
+  const float* o = p.o + base;
+  if (ucand != nullptr) {
+    ucand += base;
+    uacc += base;
+  }
+  const int x0 = blockIdx.x * TX;
+  const int tx = threadIdx.x % TX, ty0 = threadIdx.x / TX, i = x0 + tx;
+  Sums t = {0.0, 0.0, 0.0, 0.0};
+  for (int y0 = blockIdx.y * TY; y0 < ny; y0 += gridDim.y * TY) {
+    float raw[LOADS];
+    fetch_tile(o, ny, nc, x0, y0, raw);
+    const int nload = (min(TY, ny - y0) + 2) * SW;
+#pragma unroll
+    for (int j = 0; j < LOADS; ++j) {
+      const int k = threadIdx.x + j * THREADS;
+      if (k < nload) {
+        float2 v;
+        xy::cos_sin_2pi(raw[j], v.x, v.y);
+        tile[k] = v;
+      }
+    }
+    float own[SITES];
+#pragma unroll
+    for (int j = 0; j < SITES; ++j) {
+      const int y = y0 + ty0 + j * ROWS;
+      own[j] = y < ny && i < nc ? s[y * nc + i] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < SITES; ++j) {
+      const int ty = ty0 + j * ROWS;
+      const int y = y0 + ty;
+      if (y < ny && i < nc)
+        tile_site<MEASURE>(p, s, o, tile + (ty + 1) * SW + (tx + 1), SW, r,
+                           y, i, own[j], ucand, uacc, neg_beta, key, t);
+    }
+    __syncthreads();
+  }
+  if (MEASURE)
+    xy::block_sums<3>(partials, r, gridDim.x * gridDim.y,
+                      blockIdx.y * gridDim.x + blockIdx.x, t);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -154,25 +281,40 @@ AnglePlanes make_planes(void* s, const void* o, int ny, int nc, int color) {
 extern "C" {
 
 // One Metropolis phase of colour `color` on (nrep, ny, nc) angle planes,
-// s in place: grid (nblk, nrep) of 256 threads.  ucand/uacc are
-// injected uniforms, or both null for Philox words under (s0, s1).
-// With partials ((nrep, nblk, 3) float64) and obs ((nrep, 3) float64)
-// non-null the launch measures (Σ S_x, Σ S_y, e) and reduce_kernel fills
-// obs.
+// s in place: 32 x 32 tiles, grid (ceil(nc / 32), row_blocks, nrep) of
+// 256 threads.  ucand/uacc are injected uniforms, or both null for Philox
+// words under (s0, s1).  With
+// partials ((nrep, ceil(nc / 32) * row_blocks, 3) float64) and obs
+// ((nrep, 3) float64) non-null the launch measures (Σ S_x, Σ S_y, e) and
+// reduce_kernel fills obs.
 int xya_phase(void* s, const void* o, const void* ucand, const void* uacc,
-              void* partials, void* obs, int nrep, int ny, int nc, int nblk,
-              int color, float neg_beta, unsigned int s0, unsigned int s1,
+              void* partials, void* obs, int nrep, int ny, int nc,
+              int row_blocks, int color,
+              float neg_beta, unsigned int s0, unsigned int s1,
               void* stream) {
-  if (int bad = xyh::check_shape(nrep, ny, nc, nblk)) return bad;
-  if ((ucand == nullptr) != (uacc == nullptr) ||
+  if (int bad = xy::check_shape(nrep, ny, nc)) return bad;
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (ny % 2 != 0 || nc < 2 || row_blocks < 1 || row_blocks > 65535 ||
+      (ucand == nullptr) != (uacc == nullptr) ||
       (partials == nullptr) != (obs == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+    return invalid;
+  const long long gx = (static_cast<long long>(nc) + TX - 1) / TX;
+  if (gx * row_blocks > 0x7fffffffLL) return invalid;
+  const dim3 grid(static_cast<unsigned>(gx), row_blocks, nrep);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  angle_phase_kernel<<<dim3(nblk, nrep), THREADS, 0, st>>>(
-      make_planes(s, o, ny, nc, color), static_cast<double*>(partials),
-      static_cast<const float*>(ucand), static_cast<const float*>(uacc),
-      neg_beta, make_uint2(s0, s1));
-  return xyh::finish(partials, obs, nrep, nblk, st);
+  const AnglePlanes p = make_planes(s, o, ny, nc, color);
+  double* part = static_cast<double*>(partials);
+  const float* uc = static_cast<const float*>(ucand);
+  const float* ua = static_cast<const float*>(uacc);
+  const uint2 key = make_uint2(s0, s1);
+  if (partials != nullptr)
+    angle_tile_kernel<true><<<grid, THREADS, 0, st>>>(p, part, uc, ua,
+                                                      neg_beta, key);
+  else
+    angle_tile_kernel<false><<<grid, THREADS, 0, st>>>(p, part, uc, ua,
+                                                       neg_beta, key);
+  return xyh::finish(partials, obs, nrep, static_cast<int>(gx * row_blocks),
+                     st);
 }
 
 // One over-relaxation phase of colour `color`, s in place; partials/obs

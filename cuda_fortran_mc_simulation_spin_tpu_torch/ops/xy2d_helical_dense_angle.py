@@ -13,11 +13,12 @@ the component engine: the candidate is stored as cand = u − 0.5 and
 decoded, so a Metropolis phase equals the component one fed u − 0.5,
 bitwise in the decoded state.  ``csrc/xy2d_helical_dense_angle.cu`` holds
 
-- ``angle_phase_kernel``, which replaces ``_angle_phase_kernel``
+- ``angle_tile_kernel``, which replaces ``_angle_phase_kernel``
   (pallas_call at ``:269``, ``_angle_phase``): one Metropolis colour
   phase, uniforms from Philox or injected, with ``measuring`` the
-  per-replica (Σ S_x, Σ S_y, e), the other colour decoded with
-  cos_sin_2pi;
+  per-replica (Σ S_x, Σ S_y, e); a block decodes the other colour's tile
+  and its one-slot halo once into shared memory (:func:`tile_grid` sizes
+  its grid);
 - ``angle_or_kernel``, which replaces ``_angle_or_kernel`` (``:308``,
   ``_angle_or_phase``): one reflection phase, the same sums optional;
 - ``atan2_kernel``, the device ``atan2_2pi`` over a vector: no path runs
@@ -65,6 +66,16 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.xy2d_pallas import (
 LAUNCHES = {"phase": 0, "phase_measuring": 0, "or": 0, "or_measuring": 0,
             "atan2": 0}
 
+# the Metropolis kernel's tile: TILE slots x TILE rows (TX, TY in its
+# source)
+TILE = 32
+# blocks a replica at most: past it a block walks several tile rows, so a
+# measuring launch leaves at most this many partial sums a replica.  At
+# 10001x10000 it gives 104 row blocks, each walking three tile rows; the
+# uncapped grid's 313 read 4% slower a plain phase and 11% measuring on
+# the card (PERF.md §6)
+MAX_TILE_BLOCKS = 16384
+
 _TWO_PI = 2.0 * np.pi
 
 
@@ -111,7 +122,7 @@ def or_math(s, hx, hy, valid=None):
 
 def angle_phase_plain(s, o, rand, *, color: int, beta: float,
                       measuring: bool = False):
-    """Plain version of ``angle_phase_kernel``: one Metropolis phase of
+    """Plain version of ``angle_tile_kernel``: one Metropolis phase of
     colour ``color`` on (R, ny, nc) angle planes, ``s`` updated in place;
     ``rand`` a Philox key or injected (u_cand, u_acc) planes.  Returns s,
     and with ``measuring`` (s, (R, 3) float64 sums)."""
@@ -167,10 +178,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def tile_grid(ny: int, nc: int) -> tuple[int, int]:
+    """(column tiles, row blocks) of a Metropolis launch over (ny, nc)
+    slots a replica in :data:`TILE` x :data:`TILE` tiles: block (bx, by)
+    takes column tile bx and tile rows by, by + row blocks, ...; at most
+    :data:`MAX_TILE_BLOCKS` blocks a replica, and the row blocks within a
+    CUDA grid's 65535."""
+    gx = -(-nc // TILE)
+    rows = -(-ny // TILE)
+    return gx, min(rows, max(1, MAX_TILE_BLOCKS // gx), 65535)
+
+
 def angle_phase(s, o, rand, *, color: int, beta: float,
                 measuring: bool = False):
     """One Metropolis phase of colour ``color`` on (R, ny, nc) float32
-    angle planes, ``s`` in place: ``angle_phase_kernel`` on CUDA tensors,
+    angle planes, ``s`` in place: ``angle_tile_kernel`` on CUDA tensors,
     :func:`angle_phase_plain` on CPU tensors.  Returns s, and with
     ``measuring`` (s, (R, 3) float64 sums)."""
     if _on_cpu(s):
@@ -185,14 +207,19 @@ def angle_phase(s, o, rand, *, color: int, beta: float,
         u_cand = u_acc = None
         s0, s1 = seed_words(rand)
     nrep, ny, nc = s.shape
-    nblk, partials, obs = scratch(s, measuring)
+    gx, gy = tile_grid(ny, nc)
+    partials = obs = None
+    if measuring:
+        partials = torch.empty((nrep, gx * gy, 3), dtype=torch.float64,
+                               device=s.device)
+        obs = torch.empty((nrep, 3), dtype=torch.float64, device=s.device)
     lib = _lib()
     with torch.cuda.device(s.device):
         code = lib.xya_phase(
             s.data_ptr(), o.data_ptr(), _ptr(u_cand), _ptr(u_acc),
-            _ptr(partials), _ptr(obs), nrep, ny, nc, nblk, color,
+            _ptr(partials), _ptr(obs), nrep, ny, nc, gy, color,
             -float(beta), s0, s1, _stream(s))
-    raise_on(code, lib, "angle_phase_kernel")
+    raise_on(code, lib, "angle_tile_kernel")
     LAUNCHES["phase"] += 1
     if measuring:
         LAUNCHES["phase_measuring"] += 1

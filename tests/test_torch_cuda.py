@@ -223,6 +223,44 @@ def test_helical3d_phase_kernel_matches_plain(cuda, nx, ny, nz):
             assert torch.equal(gobs, wobs)
 
 
+# temperatures whose chain digits (q4, q8, q12) differ in trailing zeros:
+# the classes' 4.5115 (3, 0, 1), 3.0 (1, 0, 0), 8.0 (0, 1, 0); 0.5 has
+# q8 = q12 = 0 (chains of no draw, the boundaries after the last draw);
+# 0.2 has every q = 0 (no draw at all); 1e9 every q = 2^20 - 1 (60 draws)
+H3_CHAIN_KBTS = [4.511454583186711, 3.0, 8.0, 0.5, 0.2, 1e9]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kbt", H3_CHAIN_KBTS)
+@pytest.mark.parametrize("nx,ny,nz", [(9, 7, 4), (9, 8, 6)])
+def test_helical3d_phase_kernel_chain_edges(cuda, kbt, nx, ny, nz):
+    """phase_kernel's unrolled chains against the plain chains at digits
+    of every kind, on the valid bits and the fused (m, e): both colours,
+    each z-parity sub-phase at even nx*ny."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+        ising3d_multispin as ms3,
+    )
+    h3 = _h3()
+    q = ms3.chain_words3d(1 / kbt)
+    low = [(v & -v).bit_length() - 1 if v else None for v in q]
+    assert {0.5: q[1:] == (0, 0), 0.2: q == (0, 0, 0),
+            1e9: q == (2 ** 20 - 1,) * 3}.get(kbt, len(set(low)) > 1)
+    nxy, m = nx * ny, nx * ny * nz // 2
+    x, o = _helical_vectors(cuda, 3, m, nz)[:2]
+    vm = hms.valid_mask(m, cuda)
+    kw = dict(nx=nx, nxy=nxy, m=m, beta=1 / kbt)
+    for color in (0, 1):
+        for zsub in (None,) if nxy % 2 else (0, 1):
+            seeds = rng.seeds_from_key(rng.base_key(9), 2 * color + (zsub or 0))
+            got, gobs = h3.phase_packed(x, o, seeds, color=color, zsub=zsub,
+                                        measuring=True, **kw)
+            want, wobs = h3.phase_plain(x, o, seeds, color=color, zsub=zsub,
+                                        measuring=True, **kw)
+            assert torch.equal(hms._u32(got) & vm, hms._u32(want) & vm)
+            assert torch.equal(gobs, wobs)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nx,ny,nz", H3_SHAPES)
 def test_helical3d_energy_kernel_matches_plain_and_exact_sums(cuda, nx, ny,
@@ -651,6 +689,52 @@ def test_xy_helical_kernels_match_plain(cuda, ny, nx, nrep):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx,nrep,walk", [(2, 3, 3, None),
+                                             (18, 3, 2, None),
+                                             (2, 131, 2, None),
+                                             (34, 131, 3, None),
+                                             (18, 259, 2, None),
+                                             (32, 63, 2, None),
+                                             (64, 65, 2, None),
+                                             (50, 67, 2, 1),
+                                             (98, 67, 2, 2)])
+def test_xy_helical_angle_phase_ragged_tiles(cuda, ny, nx, nrep, walk,
+                                             monkeypatch):
+    """angle_tile_kernel against its plain version on the same CUDA
+    tensors: nc = 2 (nx = 3), ny = 2, nc and ny whole tiles and one past
+    them, nc not a multiple of the tile width, ny not a multiple of its
+    rows, R > 1, and (walk) a grid of that many row blocks, each walking
+    several tile rows; both colours, measuring and not, injected and
+    Philox uniforms.  The state bitwise, the sums to 1e-12 relative."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense_angle as ha,
+    )
+    if walk is not None:
+        gx = ha.tile_grid(ny, (nx + 1) // 2)[0]
+        monkeypatch.setattr(ha, "tile_grid", lambda ny, nc: (gx, walk))
+    _, ang = _helical_planes(cuda, nrep, ny, nx, nx * ny)
+    g = np.random.default_rng(ny * nx)
+    u = tuple(torch.from_numpy(g.random(tuple(ang[0].shape),
+                                        dtype=np.float32)).to(cuda)
+              for _ in range(2))
+    for color in (0, 1):
+        order = (0, 1) if color == 0 else (1, 0)
+        seeds = rng.seeds_from_key(rng.base_key(14), color)
+        for rand in (u, seeds):
+            for measuring in (False, True):
+                a = [ang[i].clone() for i in order]
+                b = [ang[i].clone() for i in order]
+                got = ha.angle_phase(*a, rand, color=color, beta=1 / KBT_XY,
+                                     measuring=measuring)
+                want = ha.angle_phase_plain(*b, rand, color=color,
+                                            beta=1 / KBT_XY,
+                                            measuring=measuring)
+                assert all(torch.equal(p, q) for p, q in zip(a, b))
+                if measuring:
+                    _sums_close_1e12(got[-1], want[-1])
+
+
+@pytest.mark.cuda
 def test_xy_helical_atan2_matches_plain(cuda):
     """The device atan2_2pi against ops/trig.atan2_2pi on the card,
     bitwise, on points of every octant, the axes and (0, 0)."""
@@ -669,9 +753,12 @@ def test_xy_helical_atan2_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_xy_helical_launches_refuse_index_overflow(cuda):
-    """The four helical entry points refuse, before any launch, a shape
-    whose grid-stride index would pass 2^31 (ny * nc below 2^31 but within
-    a grid's width of it) and an empty grid: cudaErrorInvalidValue."""
+    """The three grid-stride helical entry points refuse, before any
+    launch, a shape whose grid-stride index would pass 2^31 (ny * nc below
+    2^31 but within a grid's width of it) and an empty grid; the angle
+    Metropolis phase, whose tiles index a replica in 32 bits with no
+    grid-stride index, refuses row blocks outside a grid's 1 .. 65535:
+    cudaErrorInvalidValue."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         xy2d_helical_dense as hd,
         xy2d_helical_dense_angle as ha,
@@ -683,9 +770,10 @@ def test_xy_helical_launches_refuse_index_overflow(cuda):
         assert hd._lib().xyh_phase(*[None] * 8, *shape, -1.0, 0, 0,
                                    None) == 1
         assert hd._lib().xyh_over_relax(*[None] * 6, *shape, None) == 1
-        assert ha._lib().xya_phase(*[None] * 6, *shape, -1.0, 0, 0,
-                                   None) == 1
         assert ha._lib().xya_over_relax(*[None] * 4, *shape, None) == 1
+    for row_blocks in (0, 65536):
+        assert ha._lib().xya_phase(*[None] * 6, 1, ny, nc, row_blocks, 0,
+                                   -1.0, 0, 0, None) == 1
 
 
 @pytest.mark.cuda

@@ -48,6 +48,16 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     helical3d_multispin as h3,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+    ising2d_multispin as ms2,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+    ising3d_multispin as ms3,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import multispin_rng
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
+    MASK32,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     helical_multispin as hms,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.runs.__main__ import main
@@ -428,6 +438,66 @@ def test_wrappers_take_plain_versions_on_cpu_and_check_arguments():
                              beta=0.2, nx=9, nxy=72, m=m)
     with pytest.raises(ValueError, match="device"):
         h3.energy_sums(w.to("meta"), w.to("meta"), **kw)
+
+
+# chain digits (q4, q8, q12): the kernel's kbt 4.5115 and others whose
+# chains differ in trailing zeros, chains of no draw (q = 0), of one draw
+# (q = 2^19), of twenty (odd q, 2^20 - 1), boundaries inside a Philox call
+# and on a call's first draw, and the CLI's extremes (kbt 0.5: q8 = q12 =
+# 0; kbt 1e9: every chain 2^20 - 1)
+CHAIN_QS = [ms3.chain_words3d(1 / kbt) for kbt in (4.511454583186711, 0.5,
+                                                   1e9, 3.0, 8.0)] + [
+    (0, 0, 0), (1 << 19, 0, 1), (0, (1 << 20) - 1, 0), (3 << 18, 1, 0),
+    (1 << 16, 1 << 16, 1 << 16), (5, 0, 0), (1 << 3, 0, (1 << 20) - 1)]
+
+
+def _replay_chain_table(table, gen):
+    """phase_kernel's chain_planes on torch words: draw n of ``gen``
+    (word n % 4 of Philox call n // 4) folded by the table as the kernel
+    folds it, fast calls straight and the others draw by draw."""
+    digit, (live, fast, e4, e8, n_all) = table[:60], table[60:]
+    b = p4 = p8 = 0
+    for c in range(h3.CHAIN_CALLS):
+        if not live >> c & 1:
+            break
+        w = [gen() for _ in range(4)]
+        for j in range(4):
+            n = 4 * c + j
+            if not fast >> c & 1:
+                if n >= n_all:
+                    continue
+                if n == e4:
+                    p4, b = b, 0
+                if n == e8:
+                    p8, b = b, 0
+            d = digit[n]
+            b = (w[j] & b) | (w[j] & d) | (b & d)
+    if e4 == n_all:
+        p4, b = b, 0
+    if e8 == n_all:
+        p8, b = b, 0
+    return p4, p8, b
+
+
+@pytest.mark.parametrize("q", CHAIN_QS)
+def test_chain_table_replays_the_plain_chains(q):
+    """The unrolled chains' table (``chain_table``, the host half of
+    phase_kernel's chain_planes) replayed on Philox words gives the plain
+    chains' B4, B8, B12 planes of the same digits, bitwise, and draws as
+    many words as they do."""
+    key = rng.seeds_from_key(rng.base_key(3), 1)
+    table = h3.chain_table(tuple(q))
+    assert len(table) == 4 * h3.CHAIN_CALLS + 5
+    plain = multispin_rng.word_stream(key, 2, 37, 1)
+    want = [ms2._bern_plane((2, 37, 1), ms2._digits(qx), plain) for qx in q]
+    assert table[-1] == sum(ms2.chain_draws(qx) for qx in q)
+    replay = multispin_rng.word_stream(key, 2, 37, 1)
+    got = _replay_chain_table(table, replay)
+    for g, w_ in zip(got, want):
+        g = torch.as_tensor(g, dtype=torch.int64).expand(2, 37, 1)
+        assert torch.equal(g & MASK32, w_ & MASK32)
+    with pytest.raises(ValueError, match="outside"):
+        h3.chain_table((1 << 20, 0, 0))
 
 
 def _split_dat(path):

@@ -295,6 +295,81 @@ def test_angle_philox_uniforms_are_the_drawn_words():
     assert all(torch.equal(p, q) for p, q in zip(a, b))
 
 
+def _tile_field_model(o, color):
+    """angle_tile_kernel's field restated on numpy float32, tile by tile
+    over ``tile_grid``'s launch: each tile's decoded other-colour rows and
+    columns with their halo, the seams read directly.  Returns (hx, hy)
+    (NaN where the slot is not a valid site) and each slot's visits."""
+    nrep, ny, nc = o.shape
+    tx_n = ty_n = ha.TILE
+    gx, gy = ha.tile_grid(ny, nc)
+    ox, oy = (v.numpy() for v in trig.cos_sin_2pi(o))
+    dec = np.stack([ox, oy], axis=-1)
+    h = np.full((nrep, ny, nc, 2), np.nan, dtype=np.float32)
+    visits = np.zeros((ny, nc), dtype=np.int64)
+    for bx in range(gx):
+        x0 = bx * tx_n
+        cols = np.arange(x0 - 1, x0 + tx_n + 1)
+        inside = (cols >= 0) & (cols < nc)
+        for by in range(gy):
+            for y0 in range(by * ty_n, ny, gy * ty_n):
+                nrow = min(ty_n, ny - y0)
+                rows = (np.arange(y0 - 1, y0 + nrow + 1)) % ny
+                t = np.zeros((nrep, nrow + 2, tx_n + 2, 2), np.float32)
+                t[:, :, inside] = dec[:, rows][:, :, cols[inside]]
+                for ty in range(nrow):
+                    y = y0 + ty
+                    long_row = (color == 0) == (y % 2 == 0)
+                    for tx in range(tx_n):
+                        i = x0 + tx
+                        if i >= nc:
+                            continue
+                        visits[y, i] += 1
+                        if i >= (nc if long_row else nc - 1):
+                            continue
+                        up, dn = t[:, ty, tx + 1], t[:, ty + 2, tx + 1]
+                        lf = t[:, ty + 1, tx + (0 if long_row else 1)]
+                        rt = t[:, ty + 1, tx + (1 if long_row else 2)]
+                        if long_row and i == 0:
+                            lf = dec[:, (y - 1) % ny, nc - 1]
+                        if long_row and i == nc - 1:
+                            rt = dec[:, (y + 1) % ny, 0]
+                        h[:, y, i] = ((up + dn) + lf) + rt
+    return h[..., 0], h[..., 1], visits
+
+
+@pytest.mark.parametrize("nx,ny,walk", [
+    (3, 2, None), (67, 18, None), (131, 34, None), (259, 10, None),
+    (63, 32, None), (65, 64, None), (127, 66, None), (5, 96, None),
+    (129, 2, None), (195, 40, None), (61, 6, None), (97, 62, None),
+    (67, 50, 1), (67, 98, 2), (33, 130, 1)])
+def test_tile_grid_and_field_match_the_plain_field(nx, ny, walk,
+                                                   monkeypatch):
+    """The Metropolis kernel's tiling (the grid ``tile_grid`` gives, the
+    halo rows and columns, the seams) restated in numpy: every slot is
+    visited once and every valid site's field equals ``angle_field``
+    bitwise.  Shapes: nc = 2 (nx = 3) at ny = 2, nc and ny whole tiles,
+    one slot or row past a tile, nc not a multiple of the tile width, ny
+    not a multiple of its rows, and (walk) a grid of that many row blocks,
+    each walking several tile rows."""
+    nc = hd.dense_nc(nx)
+    gx, gy = ha.tile_grid(ny, nc)
+    assert gx == -(-nc // ha.TILE) and 1 <= gy <= -(-ny // ha.TILE)
+    if walk is not None:
+        monkeypatch.setattr(ha, "tile_grid", lambda ny, nc: (gx, walk))
+    g = np.random.default_rng(nx + ny)
+    planes = _angles(g, nx, ny)
+    for color in (0, 1):
+        _, o = _so(planes, color)
+        hx, hy, visits = _tile_field_model(o, color)
+        assert np.all(visits == 1)
+        want_x, want_y = (v.numpy() for v in ha.angle_field(o, color))
+        valid = hd.valid_col(color, ny, hd.dense_nc(nx)).numpy()
+        assert np.array_equal(np.isnan(hx[0]), ~valid)
+        assert np.array_equal(hx[:, valid], want_x[:, valid])
+        assert np.array_equal(hy[:, valid], want_y[:, valid])
+
+
 def test_angle_runner_replayed_through_the_jax_references(monkeypatch):
     """The default engine as a whole: the runner (random start, OR for
     t <= 1, then Metropolis with the plain observables) replayed phase by

@@ -73,10 +73,12 @@ Phases (each prints a progress line on stderr):
      bitwise, the float64 sums within 1e-9 relative;
    - XY disorder, at 256x200 x 2, 1500x1500 x 1 and 1000x1000 x 20: the
      Metropolis kernel's snapshot mode (injected and Philox, both
-     colours), measure_kernel with and without a snapshot and the
-     multisweep kernel's injected mode; 64 multisweep sweeps at 1500x1500
-     x 1 against 64 streamed snapshot-measuring sweeps (state and sums
-     bitwise) and against its plain version;
+     colours), measure_kernel with and without a snapshot and
+     phase_with_bits (the Metropolis kernel's injected mode); 64
+     multisweep sweeps at 1500x1500 x 1 in both modes (the shared-memory
+     mode the fit rule takes, the grid-barrier mode forced) against 64
+     streamed snapshot-measuring sweeps (state and sums bitwise) and
+     against its plain version;
    - helical XY, at 10001x10000 x 1 (the classes' launch) and 65x64 x 4
      (the seam, the ragged slot and both row wraps in one block): the
      component phase and OR kernels and the angle phase and OR kernels,
@@ -181,7 +183,9 @@ Phases (each prints a progress line on stderr):
 4f. XY disorder classes, kbt 0.89, <|m|> (or <m>), <e> and <A> at every t
    within 5 combined standard errors of the reference's curves:
    from-disorder 1500x1500 x 1 replica, 64 samples, 1000 MCS (the
-   2222-sample curve); fix1mcs 1500x1500 x 8, 32 samples, 200 MCS (the
+   2222-sample curve; the multisweep's shared-memory mode); from-disorder
+   1500x1500 x 2, 4 samples, 200 MCS (the same curve; past the fit, the
+   grid-barrier mode); fix1mcs 1500x1500 x 8, 32 samples, 200 MCS (the
    2000-sample curve); finite-magne 1000x1000 x 20, 40 samples, 100 MCS,
    m0 = 0.02 (the 500-sample curve); finite-magne samples, 20 histories
    of 100 MCS at 1000x1000, the row format and the per-t means of m_x, e
@@ -279,9 +283,11 @@ Phases (each prints a progress line on stderr):
    the XY disorder kernels at every launch shape their classes run, each
    held against its plain version (state bitwise, sums within 1e-9
    relative): the snapshot mode at 1500x1500 x 8 (fix1mcs) and 1000x1000
-   x 20 (finite-magne), measure_kernel at 1500x1500 x 8, the multisweep
-   at 1500x1500 x 1 with S = 64 and 40 (from-disorder) and at 1000x1000
-   x 1 with S = 64 and 36 (samples); and the disorder runner's two
+   x 20 (finite-magne), measure_kernel at 1500x1500 x 8, the multisweep's
+   shared-memory mode at 1500x1500 x 1 with S = 64 and 40 (from-disorder)
+   and at 1000x1000 x 1 with S = 64 and 36 (samples), its grid-barrier
+   mode at 1500x1500 x 2 with S = 8 (past the fit: the from-disorder x2
+   class), each row with its registers; and the disorder runner's two
    routes at XY_ROUTE_SHAPES, where the route bound is read; the four
    helical XY phase kernels at 10001x10000 x 1, plain and measuring, in
    three readings (the engines' A/B, angle over component), each held
@@ -461,10 +467,9 @@ XYH_CHECK_SHAPES = ((1, HY, HX), (4, 64, 65))
 # and one an OR site, plus atan2_2pi (abs, min, max, the fold and its
 # selects, the divide ~10, the polynomial 8, the fixups 6: ~30) and the
 # reflection's 4; its fused sums are OPS_XY_MEASURE, plus one decode of
-# the new angle after OR.  The Metropolis tile kernel decodes ~1.13 other
-# angles a site (a tile's halo), the OR kernel each neighbour in each of
-# its four sites (four decodes an OR site): that excess is the kernels'
-# cost, not the bound's.  Bytes a site: 24 (components) or 12 (angles)
+# the new angle after OR.  The tile kernel decodes ~1.13 other angles a
+# site (a tile's halo) in both modes: that excess is the kernel's cost,
+# not the bound's.  Bytes a site: 24 (components) or 12 (angles)
 OPS_XYA_METROPOLIS = OPS_PER_PHILOX + 4 + 3 * 22 + 6 + 6 + 10 + 4
 OPS_XYA_OVER_RELAX = 22 + 6 + 30 + 4
 XYA_BYTES_PER_SITE = 12
@@ -1702,16 +1707,20 @@ def check_xy_disorder(xyp, xym, xyr, rng, dev) -> tuple[dict, float]:
     """The disorder slice's kernels against their plain versions on the
     same CUDA tensors, at XY_DISORDER_SHAPES: metropolis_kernel's snapshot
     mode (injected and Philox uniforms, both colours), measure_kernel with
-    and without a snapshot, multisweep_kernel's injected mode (both
-    colours); then, at 1500x1500 x 1, 64 multisweep sweeps against 64
-    streamed snapshot-measuring sweeps (state and sums bitwise) and
-    against its plain version.  State bitwise, sums within 1e-9 relative.
-    Returns ({kernel: state error}, sums' relative error)."""
+    and without a snapshot, phase_with_bits (metropolis_kernel's injected
+    mode, both colours); then, at 1500x1500 x 1, 64 multisweep sweeps in
+    each mode (smem_multisweep_kernel, the fit rule's; multisweep_kernel,
+    forced) against 64 streamed snapshot-measuring sweeps (state and sums
+    bitwise) and against its plain version.  State bitwise, sums within
+    1e-9 relative.  Returns ({kernel: state error}, sums' relative
+    error): "phase_bits" for phase_with_bits, "smem" and "grid" for the
+    multisweep's two modes."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
     from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import multispin_rng
 
-    errs = {"snapshot": 0.0, "measure": 0.0, "multisweep": 0.0}
+    errs = {"snapshot": 0.0, "measure": 0.0, "phase_bits": 0.0, "smem": 0.0,
+            "grid": 0.0}
     rel = 0.0
     for nrep, ny, nx in XY_DISORDER_SHAPES:
         st, snap = xy_disorder_state(dev, nrep, ny, nx, 5 * ny + nrep)
@@ -1735,7 +1744,7 @@ def check_xy_disorder(xyp, xym, xyr, rng, dev) -> tuple[dict, float]:
             b = [p.clone() for p in xy_by_color(list(st), color)]
             xyr.phase_with_bits(*a, *u, color=color, beta=1.0 / KBT_XY)
             xyr.phase_with_bits_plain(*b, *u, color=color, beta=1.0 / KBT_XY)
-            errs["multisweep"] = max(errs["multisweep"],
+            errs["phase_bits"] = max(errs["phase_bits"],
                                      float_err(zip(a[:2], b[:2])))
         for sn in (None, snap):
             got = xym.measure_sums(st, sn)
@@ -1744,16 +1753,15 @@ def check_xy_disorder(xyp, xym, xyr, rng, dev) -> tuple[dict, float]:
                 errs["measure"] = max(errs["measure"],
                                       float(got[:, 3].abs().max()))
         log(f"  xy disorder kernels {nrep}x{ny}x{nx}: state vs plain "
-            f"{errs['snapshot']:.3g} (snapshot mode), {errs['multisweep']:.3g}"
-            f" (multisweep injected mode); sums' relative error {rel:.3g}")
+            f"{errs['snapshot']:.3g} (snapshot mode), {errs['phase_bits']:.3g}"
+            f" (phase_with_bits, metropolis_kernel's injected mode); sums' "
+            f"relative error {rel:.3g}")
         del st, snap, u
     nrep, ny, nx = XY_DISORDER_SHAPES[1]
     model = XY2D(nx=nx, ny=ny, kbt=KBT_XY)
     st, snap = xy_disorder_state(dev, nrep, ny, nx, 41)
     seeds = multispin_rng.sweep_phase_keys(rng.sample_key(rng.base_key(32),
                                                           0), 64)
-    ms = XYState(*(p.clone() for p in st))
-    kobs = xyr.multisweep_planes(ms, snap, seeds, beta=model.beta)
     streamed = XYState(*(p.clone() for p in st))
     sobs = []
     for s in range(64):
@@ -1762,14 +1770,25 @@ def check_xy_disorder(xyp, xym, xyr, rng, dev) -> tuple[dict, float]:
     sobs = torch.stack(sobs, dim=1)
     plain = XYState(*(p.clone() for p in st))
     pobs = xyr.multisweep_planes_plain(plain, snap, seeds, beta=model.beta)
-    e_str = float_err(zip(ms, streamed))
-    e_plain = float_err(zip(ms, plain))
-    s_str = float((xyp.per_site(kobs, model.nsites) - sobs).abs().max())
-    rel = max(rel, sums_rel_err(kobs, pobs))
-    errs["multisweep"] = max(errs["multisweep"], e_str, e_plain)
-    log(f"  xy multisweep 64 sweeps {ny}x{nx} x {nrep}: state vs 64 streamed "
-        f"sweep_measure {e_str:.3g}, sums vs streamed {s_str:.3g}; state vs "
-        f"plain {e_plain:.3g}, sums' relative error {rel:.3g}")
+    s_str = 0.0
+    for grid in (False, True):
+        ms = XYState(*(p.clone() for p in st))
+        kobs = xyr.multisweep_planes(ms, snap, seeds, beta=model.beta,
+                                     grid=grid)
+        e_str = float_err(zip(ms, streamed))
+        e_plain = float_err(zip(ms, plain))
+        s_mode = float((xyp.per_site(kobs, model.nsites) - sobs).abs().max())
+        s_str = max(s_str, s_mode)
+        rel = max(rel, sums_rel_err(kobs, pobs))
+        mode = "grid" if grid or xyr.device_layout(ms) is None else "smem"
+        errs[mode] = max(errs[mode], e_str, e_plain)
+        name = ("multisweep_kernel (forced)" if grid else
+                "smem_multisweep_kernel" if mode == "smem" else
+                "multisweep_kernel")
+        log(f"  xy {name} 64 sweeps {ny}x{nx} x {nrep}: state vs 64 "
+            f"streamed sweep_measure {e_str:.3g}, sums vs streamed "
+            f"{s_mode:.3g}; state vs plain {e_plain:.3g}, sums' relative "
+            f"error {rel:.3g}")
     if max(errs.values()) != 0.0 or s_str != 0.0 or rel > 1e-9:
         fail(f"an XY disorder kernel differs from its plain version: {errs}, "
              f"sums vs streamed {s_str}, sums' relative error {rel:.3g}")
@@ -1925,16 +1944,34 @@ def time_sums(label: str, fn, plain, nbytes: float, ops: float, reps: int,
             "bound_by": by}, rel, err
 
 
-def time_multisweep(xyr, dev, n: int, seeds, beta: float,
-                    seed: int) -> tuple[dict, float, float]:
+def ptxas_registers(lib: str, kernel: str, args: str = "") -> int | None:
+    """Registers of the first function of ``.build/lib<lib>.so`` named
+    ``kernel`` (its mangled name, length first, followed by ``args``),
+    from the build's ptxas report."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
+    log_path = _build.library_path(lib).with_suffix(".log")
+    name = f"{len(kernel)}{kernel}{args}"
+    entry = None
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif entry and name in entry and "registers" in line:
+            return int(line.split("Used", 1)[1].split()[0])
+    return None
+
+
+def time_multisweep(xyr, dev, n: int, seeds, beta: float, seed: int,
+                    nrep: int = 1) -> tuple[dict, float, float]:
     """CUDA-event time of one multisweep launch of S = len(seeds) sweeps
-    at n^2 x 1 (state and snapshot fresh, updated launch after launch)
-    and of its plain version, beside the bound; then one launch of each
-    from the same state.  Returns (times, state error, sums' relative
-    error)."""
+    at n^2 x nrep, in the fit rule's mode (state and snapshot fresh,
+    updated launch after launch), and of its plain version, beside the
+    bound; then one launch of each from the same state.  Returns (times
+    and the mode, "smem" or "grid"; state error, sums' relative error)."""
     sweeps = int(seeds.shape[0])
-    st, snap = xy_disorder_state(dev, 1, n, n, seed)
-    pairs = n * n // 2
+    st, snap = xy_disorder_state(dev, nrep, n, n, seed)
+    pairs = nrep * n * n // 2
+    mode = "smem" if xyr.device_layout(st) else "grid"
+    name = "smem_multisweep_kernel" if mode == "smem" else "multisweep_kernel"
 
     def fresh():
         return type(st)(*(p.clone() for p in st))
@@ -1951,15 +1988,15 @@ def time_multisweep(xyr, dev, n: int, seeds, beta: float,
     err = float_err(zip(k_st, p_st))
     rel = sums_rel_err(k_obs, p_obs)
     bound, by = bound_ms(
-        12 * 4 * pairs + sweeps * 4 * 8,
+        12 * 4 * pairs + nrep * sweeps * 4 * 8,
         sweeps * pairs * (2 * OPS_XY_METROPOLIS + OPS_XY_MEASURE
                           + OPS_XY_SNAP))
-    log(f"  xy multisweep kernel {n}^2 x 1, S={sweeps}: {ms:.4f} ms/launch "
+    log(f"  xy {name} {n}^2 x {nrep}, S={sweeps}: {ms:.4f} ms/launch "
         f"({ms / sweeps * 1e3:.2f} us a sweep), plain {plain_ms:.2f} ms, "
-        f"bound {bound:.4f} ms ({by}); vs plain {err}, sums {rel:.3g} "
-        "relative")
+        f"bound {bound:.4f} ms ({by}); {ptxas_registers('xy2d_resident', name)}"
+        f" registers; vs plain {err}, sums {rel:.3g} relative")
     return ({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-             "bound_by": by}, err, rel)
+             "bound_by": by, "mode": mode}, err, rel)
 
 
 def compare_xy_routes(xyp, xyr, dev, seeds) -> list[tuple]:
@@ -2416,6 +2453,12 @@ def time_xy_helical(xhd, xha, dev, seeds, readings: int = 3):
             + ", ".join(f"{t['ms']:.4f}" for t in times[label])
             + f"; bound {times[label][0]['bound_ms']:.4f} "
             f"({times[label][0]['bound_by']})")
+    regs = {f"{mode} {kind}": ptxas_registers(
+        "xy2d_helical_dense_angle", "angle_tile_kernel", f"ILb{o}ELb{m}E")
+        for o, mode in ((0, "Metropolis"), (1, "OR"))
+        for m, kind in ((0, "plain"), (1, "measuring"))}
+    log("  xy helical angle_tile_kernel registers: " + ", ".join(
+        f"{k} {v}" for k, v in regs.items()))
     for kind in ("phase", "phase, measuring", "or", "or, measuring"):
         ratios = [a["ms"] / c["ms"] for a, c in zip(
             times[f"angle {kind}"], times[f"component {kind}"])]
@@ -4683,7 +4726,8 @@ def run_mesh_cx_classes(modules, out_dir, refs: dict, dev,
                                "halo_metropolis_snapshot": shards * sweeps,
                                "metropolis": 0},
                         "xy_measure": {"measure": 0},
-                        "xy_resident": {"multisweep": 0}},
+                        "xy_resident": {"multisweep": 0,
+                                        "multisweep_smem": 0}},
         }[kind]
         got = {mod: {k: launches[mod][k] for k in ks}
                for mod, ks in want_n.items()}
@@ -5451,6 +5495,8 @@ def main() -> int:
         for label, nx, nrep, samples, mcs, extra, ref_t, moments in (
                 ("from-disorder", 1500, 1, 64, 1000, [], ref_fd,
                  ABS_MOMENTS),
+                ("from-disorder x2", 1500, 2, 4, 200, [], ref_fd,
+                 ABS_MOMENTS),
                 ("fix1mcs", 1500, 8, 32, 200, ["--fix1mcs"], ref_fix1,
                  ABS_MOMENTS),
                 ("finite-magne", 1000, 20, 40, 100,
@@ -5458,27 +5504,29 @@ def main() -> int:
                  ref_fm, PARAM_MOMENTS)):
             model = XY2D(nx=nx, ny=nx, kbt=KBT_XY)
             resident = xyr.fits(model, nrep)
+            # the resident route's mode: the fit rule of the wrapper
+            mode = ("multisweep_smem" if xyr.smem_layout(
+                nrep, nx, nx // 2, *xyr.smem_limits(dev)) else "multisweep")
             log(f"phase 4f: XY disorder path, {label} class ({nx}x{nx} x "
-                f"{nrep}, {'resident' if resident else 'streamed'})")
+                f"{nrep}, {mode if resident else 'streamed'})")
             argv = ["--model", "xy2d", "--protocol", "from_disorder",
                     "--nx", str(nx), "--ny", str(nx), "--kbt", repr(KBT_XY),
                     "--mcs", str(mcs), "--samples", str(samples),
                     "--replicas", str(nrep)] + extra
             disorder[label] = run_xy_disorder(
-                cli_main, modules, out, f"xy2d_{label}", argv, nx, samples,
-                mcs, ref_t, moments,
+                cli_main, modules, out, f"xy2d_{label.replace(' ', '_')}",
+                argv, nx, samples, mcs, ref_t, moments,
                 XY_DISORDER_RESIDENT if resident else XY_DISORDER_STREAMED)
             n = disorder[label][0]
             calls = samples // nrep
             chunks = -(-mcs // 64)
             fix1 = label == "fix1mcs"
+            want = {"multisweep": 0, "multisweep_smem": 0,
+                    "metropolis_snapshot": calls * mcs}
             if resident:
-                want = {"multisweep": calls * chunks,
-                        "metropolis_snapshot": calls if fix1 else 0}
-            else:
-                want = {"multisweep": 0,
-                        "metropolis_snapshot": calls * mcs}
-            got = {"multisweep": n["xy_resident"]["multisweep"],
+                want.update({mode: calls * chunks,
+                             "metropolis_snapshot": calls if fix1 else 0})
+            got = {**n["xy_resident"],
                    "metropolis_snapshot": n["xy"]["metropolis_snapshot"]}
             if (got != want or n["xy_measure"]["measure_snapshot"]
                     != (calls if fix1 else 0)
@@ -5488,6 +5536,8 @@ def main() -> int:
             "(1000x1000, 20 histories)")
         model = XY2D(nx=1000, ny=1000, kbt=KBT_XY)
         fs_res = xyr.fits(model, 1)
+        fs_mode = ("multisweep_smem" if xyr.smem_layout(
+            1, 1000, 500, *xyr.smem_limits(dev)) else "multisweep")
         fs_launch, fs_wall, fs_rate, table, head = run_main_path(
             cli_main, modules, out, "xy2d_finite_magne_samples",
             ["--model", "xy2d", "--protocol", "finite_magne_samples", "--nx",
@@ -5497,7 +5547,7 @@ def main() -> int:
         if f"# engine: {engine}" not in head:
             fail(f"samples run took another route: {head}")
         fs_z = check_samples_table(table, head, ref_fms, 20, 100, 1000 * 1000)
-        if (fs_launch["xy_resident"]["multisweep"] if fs_res
+        if (fs_launch["xy_resident"][fs_mode] if fs_res
                 else fs_launch["xy"]["metropolis_snapshot"]) == 0:
             fail(f"samples path: {fs_launch}")
         disorder["samples"] = (fs_launch, fs_wall, fs_rate, fs_z)
@@ -5945,14 +5995,20 @@ def main() -> int:
         XY_MEASURE_BYTES_PAIR * pairs + 8 * 4 * 8,
         OPS_XY_MEASURE_PAIR * pairs, reps=50, plain_reps=3)
     del st, snap
-    ms_t, ms_err, ms_rel = {}, 0.0, 0.0
-    for n, sw in ((1500, 64), (1500, 40), (1000, 64), (1000, 36)):
-        ms_t[n, sw], err, rel = time_multisweep(xyr, dev, n, seeds[:sw],
-                                                beta_x, 71 + sw)
-        ms_err, ms_rel = max(ms_err, err), max(ms_rel, rel)
-    t_ms = ms_t[1500, 64]
-    if max(snap_err, ms_err) != 0.0 or max(snap_rel, rel_meas,
-                                           ms_rel) > 1e-9:
+    # the two modes of the multisweep: smem_multisweep_kernel at every
+    # (shape, S) the resident classes launch, multisweep_kernel past the
+    # shared-memory fit (1500^2 x 2, the from-disorder x2 class's batch) at
+    # S = 8 (its plain version 8 sweeps)
+    ms_t, ms_err, ms_rel = {}, {"smem": 0.0, "grid": 0.0}, 0.0
+    for n, nrep, sw in ((1500, 1, 64), (1500, 1, 40), (1000, 1, 64),
+                        (1000, 1, 36), (1500, 2, 8)):
+        ms_t[n, nrep, sw], err, rel = time_multisweep(
+            xyr, dev, n, seeds[:sw], beta_x, 71 + sw, nrep)
+        mode = ms_t[n, nrep, sw].pop("mode")
+        ms_err[mode], ms_rel = max(ms_err[mode], err), max(ms_rel, rel)
+    t_ms, t_grid = ms_t[1500, 1, 64], ms_t[1500, 2, 8]
+    if max(snap_err, *ms_err.values()) != 0.0 or max(
+            snap_rel, rel_meas, ms_rel) > 1e-9:
         fail(f"an XY disorder kernel differs from its plain version at its "
              f"main-path launch shape (state {snap_err}, {ms_err}; sums "
              f"{snap_rel:.3g}, {rel_meas:.3g}, {ms_rel:.3g})")
@@ -5960,10 +6016,12 @@ def main() -> int:
     # the from-disorder class's kernel time against its wall: each call
     # (one replica) runs 1000 sweeps as 15 launches of 64 and one of 40
     fd_launch, fd_wall = disorder["from-disorder"][:2]
-    fd_calls, fd_left = divmod(fd_launch["xy_resident"]["multisweep"], 16)
-    if fd_left or fd_launch["xy"]["metropolis_snapshot"]:
+    fd_calls, fd_left = divmod(fd_launch["xy_resident"]["multisweep_smem"],
+                               16)
+    if (fd_left or fd_launch["xy"]["metropolis_snapshot"]
+            or fd_launch["xy_resident"]["multisweep"]):
         fail(f"from-disorder launches: {fd_launch}")
-    fd_kern = fd_calls * (15 * t_ms["ms"] + ms_t[1500, 40]["ms"])
+    fd_kern = fd_calls * (15 * t_ms["ms"] + ms_t[1500, 1, 40]["ms"])
     log(f"  xy from-disorder 1500^2 x 1: kernel {fd_kern / 1e3:.3f} s of a "
         f"{fd_wall:.3f} s wall; kernel share {fd_kern / (fd_wall * 1e3):.3f}")
 
@@ -6120,7 +6178,8 @@ def main() -> int:
          t10),
         ("xy2d_pallas.metropolis_kernel", "xy2d_pallas.cu",
          "xy2d_pallas.py:226", launched("xy", "metropolis"),
-         max(err_xy["metropolis"], e12, e12m, e_x2, e_x2m), t12),
+         max(err_xy["metropolis"], err_xyd["phase_bits"], e12, e12m, e_x2,
+             e_x2m), t12),
         ("xy2d_pallas.over_relax_kernel", "xy2d_pallas.cu",
          "xy2d_pallas.py:265", launched("xy", "over_relax"),
          max(err_xy["over_relax"], e13, e13m), t13),
@@ -6130,20 +6189,23 @@ def main() -> int:
         ("xy2d_measure_pallas.measure_kernel", "xy2d_measure_pallas.cu",
          "xy2d_measure_pallas.py:121", launched("xy_measure", "measure"),
          max(err_xyd["measure"], err_meas), t_meas),
+        ("xy2d_resident.smem_multisweep_kernel", "xy2d_resident.cu",
+         "xy2d_resident.py:257", launched("xy_resident", "multisweep_smem"),
+         max(err_xyd["smem"], ms_err["smem"]), t_ms),
         ("xy2d_resident.multisweep_kernel", "xy2d_resident.cu",
          "xy2d_resident.py:257", launched("xy_resident", "multisweep"),
-         max(err_xyd["multisweep"], ms_err), t_ms),
+         max(err_xyd["grid"], ms_err["grid"]), t_grid),
         ("xy2d_helical_dense.phase_kernel", "xy2d_helical_dense.cu",
          "xy2d_helical_dense.py:454", launched("xy_helical", "phase"),
          max(err_xyh["phase"], xyh_err), xyh_t["component phase"][0]),
         ("xy2d_helical_dense.or_kernel", "xy2d_helical_dense.cu",
          "xy2d_helical_dense.py:499", launched("xy_helical", "or"),
          max(err_xyh["or"], xyh_err), xyh_t["component or"][0]),
-        ("xy2d_helical_dense_angle.angle_tile_kernel",
+        ("xy2d_helical_dense_angle.angle_tile_kernel<false, .>",
          "xy2d_helical_dense_angle.cu", "xy2d_helical_dense_angle.py:269",
          launched("xy_helical_angle", "phase"),
          max(err_xyh["angle_phase"], xyh_err), xyh_t["angle phase"][0]),
-        ("xy2d_helical_dense_angle.angle_or_kernel",
+        ("xy2d_helical_dense_angle.angle_tile_kernel<true, .>",
          "xy2d_helical_dense_angle.cu", "xy2d_helical_dense_angle.py:308",
          launched("xy_helical_angle", "or"),
          max(err_xyh["angle_or"], xyh_err), xyh_t["angle or"][0]),

@@ -11,10 +11,17 @@ colour a plain and colour b measuring); with ``--periodic-angle``, the
 periodic engines' A/B: the component kernels (metropolis_kernel,
 over_relax_kernel) and the f32-angle ones (angle_metro_kernel,
 angle_or_kernel), colour a plain and colour b measuring, at the
-Metropolis classes' launches 2000x2000 x 32 and 10000x10000 x 1.
+Metropolis classes' launches 2000x2000 x 32 and 10000x10000 x 1; with
+``--resident``, the resident disorder multisweep's two modes at every
+launch the disorder classes make (1500x1500 x 1, S = 64 and 40;
+1000x1000 x 1, S = 64 and 36) and past the shared-memory fit (1500x1500
+x 2, S = 64), each also in a measurement build of
+csrc/xy2d_resident.cu with the site updates compiled out
+(-DXY_RESIDENT_NO_SITES: the grid barriers or ring waits, the loads and
+stores and the sums left), with the SASS of both kernels.
 
     python3 chip_time_xy.py [--reps 200] [--rounds 3] [--helical]
-                            [--periodic-angle]
+                            [--periodic-angle] [--resident]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
 csrc/xy2d_pallas.cu (csrc/xy2d_helical_dense*.cu,
@@ -72,6 +79,84 @@ def helical_modes(dev, gen, key, beta):
     }
 
 
+# the --resident variants: tag -> the nvcc defines of its build
+RESIDENT_BUILDS = {"": [], "nosites": ["-DXY_RESIDENT_NO_SITES"]}
+
+
+def resident_builds():
+    """The RESIDENT_BUILDS of csrc/xy2d_resident.cu, compiled together
+    into .build/libxy2d_resident[_tag].so (ptxas report beside each),
+    each bound as ops/xy2d_resident binds its library."""
+    import ctypes
+    import os
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        _build,
+        xy2d_resident as xyr,
+    )
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    procs = {}
+    for tag, defines in RESIDENT_BUILDS.items():
+        out = _build.library_path("xy2d_resident" + (f"_{tag}" if tag
+                                                      else ""))
+        cmd = _build.build_command("xy2d_resident", out) + defines
+        procs[tag] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True))
+    libs = {}
+    for tag, (out, proc) in procs.items():
+        log = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)[0]
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc xy2d_resident {tag}: {log}")
+        libs[tag] = xyr.bind(ctypes.CDLL(os.fspath(out)))
+    return libs
+
+
+def resident_modes(dev, gen, key, beta):
+    """Both modes of the resident multisweep at the disorder classes'
+    launches and past the fit (the shared-memory mode where its layout
+    fits, the grid-barrier mode forced), in each build of
+    :func:`resident_builds`; a random state and snapshot a shape."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        multispin_rng,
+        xy2d_resident as xyr,
+    )
+    libs = resident_builds()
+    seeds = multispin_rng.sweep_phase_keys(key, 64).to(dev)
+    states = {}
+    for n, nrep in ((1500, 1), (1000, 1), (1500, 2)):
+        th = torch.rand((4, nrep, n, n // 2), generator=gen,
+                        device=dev) * 6.2832
+        states[n, nrep] = tuple(XYState(torch.cos(th[i]), torch.sin(th[i]),
+                                        torch.cos(th[i + 1]),
+                                        torch.sin(th[i + 1]))
+                                for i in (0, 2))
+
+    def run(lib, st, snap, sweeps, grid):
+        xyr._lib = lambda: lib
+        return xyr.multisweep_planes(st, snap, seeds[:sweeps], beta=beta,
+                                     grid=grid)
+
+    modes = {}
+    for tag, lib in libs.items():
+        name = f" [{tag}]" if tag else ""
+        for (n, nrep), sweeps in (((1500, 1), 64), ((1500, 1), 40),
+                                  ((1000, 1), 64), ((1000, 1), 36),
+                                  ((1500, 2), 64)):
+            st, snap = states[n, nrep]
+            label = f"{n}^2 x {nrep} S={sweeps}{name}"
+            for grid in (False, True):
+                if not grid:
+                    xyr._lib = lambda: lib
+                    if xyr.device_layout(st) is None:
+                        continue
+                modes[f"{'grid' if grid else 'smem'} {label}"] = (
+                    lambda lib=lib, st=st, snap=snap, sweeps=sweeps,
+                    grid=grid: run(lib, st, snap, sweeps, grid))
+    return modes
+
+
 # the periodic A/B's launches (R, ny, nx)
 ANGLE_SHAPES = ((32, 2000, 2000), (1, 10000, 10000))
 
@@ -123,6 +208,9 @@ def main() -> int:
     ap.add_argument("--periodic-angle", action="store_true",
                     help="time the periodic component and angle kernels "
                     "at 2000x2000 x 32 and 10000x10000 x 1 instead")
+    ap.add_argument("--resident", action="store_true",
+                    help="time the resident multisweep's two modes and "
+                    "their measurement builds instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_time_xy: needs an NVIDIA GPU", file=sys.stderr)
@@ -139,6 +227,11 @@ def main() -> int:
     if args.periodic_angle:
         return report(periodic_angle_modes(dev, gen, key, beta), args,
                       ["xy2d_pallas", "xy2d_pallas_angle"])
+    if args.resident:
+        return report(resident_modes(dev, gen, key, beta), args,
+                      [f"xy2d_resident{'_' + t if t else ''}"
+                       for t in RESIDENT_BUILDS],
+                      sass=("multisweep_kernel",))
     if args.helical:
         return report(helical_modes(dev, gen, key, beta), args,
                       ["xy2d_helical_dense", "xy2d_helical_dense_angle"],

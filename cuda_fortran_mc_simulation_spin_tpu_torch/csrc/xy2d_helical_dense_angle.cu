@@ -2,17 +2,17 @@
 // turns: the kernels of the helical XY relaxation on the default (angle)
 // engine, Metropolis only and with over-relaxation.
 //
-//   angle_tile_kernel  replaces cuda_fortran_mc_simulation_spin_tpu/ops/
-//                      xy2d_helical_dense_angle.py:_angle_phase_kernel
-//                      (pallas_call at :269, _angle_phase): one colour
-//                      phase of the angle plane s from the other colour's
-//                      o, decoded with cos_sin_2pi; the candidate angle
-//                      u - 0.5 accepted iff u' < exp(-β max(ΔE, 0));
-//                      uniforms from Philox or injected; optionally the
-//                      fused (Σ S_x, Σ S_y, e);
-//   angle_or_kernel    replaces _angle_or_kernel (:308, _angle_or_phase):
-//                      θ' = 2 atan2_2pi(h_y, h_x) - θ, wrapped by
-//                      tp - rint(tp), the same sums optional;
+//   angle_tile_kernel<false, .>  replaces cuda_fortran_mc_simulation_spin_
+//                      tpu/ops/xy2d_helical_dense_angle.py:
+//                      _angle_phase_kernel (pallas_call at :269,
+//                      _angle_phase): one colour phase of the angle plane
+//                      s from the other colour's o, decoded with
+//                      cos_sin_2pi; the candidate angle u - 0.5 accepted
+//                      iff u' < exp(-β max(ΔE, 0)); uniforms from Philox
+//                      or injected; optionally the fused (Σ S_x, Σ S_y, e);
+//   angle_tile_kernel<true, .>   replaces _angle_or_kernel (:308,
+//                      _angle_or_phase): θ' = 2 atan2_2pi(h_y, h_x) - θ,
+//                      wrapped by tp - rint(tp), the same sums optional;
 //   atan2_kernel       the device atan2_2pi over a vector, for holding it
 //                      against ops/trig.atan2_2pi (no path launches it).
 //
@@ -30,31 +30,32 @@
 // 33.4 T/s) and ~62 an over-relaxation site (one decode and atan2_2pi:
 // 0.093 ms).
 //
-// The Metropolis phase decodes the other colour once a tile, as the TPU
-// kernel decodes a tile and rolls it.  A block owns TX slots x TY rows and
-// walks its column of tiles (grid (column tiles, row blocks, replicas)):
-// it loads the other colour's rows y0 - 1 .. y0 + TY (wrapping at ny) and
-// columns x0 - 1 .. x0 + TX, decodes each angle once into shared memory as
-// (cos, sin), then each thread takes its four neighbours from there and
-// adds them in the plain version's order, ((up + dn) + left) + right, so
-// the field is the one-thread-a-site field bit for bit.  The helical seams
-// (a long row's x = 0 reads the up-row's column nc - 1, its x = nx - 1 the
-// down-row's column 0) are read and decoded by the one thread that needs
-// them; a short row's ragged slot is neither updated nor counted, as in
-// dense_slot.  That is (TY + 2)(TX + 2) / (TY TX) decodes of other
-// angles a site and two of its own: 3.13 at the 32 x 32 tile, where the
-// one-thread-a-site kernel (angle_or_kernel keeps its shape) decoded six,
-// and no runtime division: 32-bit offsets inside a replica.  32 x 32
-// halos the fewest angles a site and read 0.8% ahead of 64 x 16 and 7%
-// ahead of 128 x 8 (PERF.md §6).  The measuring launch
-// takes the other colour's (S_x, S_y) from the decoded tile.  Sums in
-// float64, per block in a fixed order, then per replica by reduce_kernel.
+// Both phases decode the other colour once a tile, as the TPU kernels
+// decode a tile and roll it.  A block owns TX slots x TY rows and walks
+// its column of tiles (grid (column tiles, row blocks, replicas)): it
+// loads the other colour's rows y0 - 1 .. y0 + TY (wrapping at ny) and
+// columns x0 - 1 .. x0 + TX, decodes each angle once into shared memory
+// as (cos, sin), then each thread takes its four neighbours from there
+// and adds them in the plain version's order, ((up + dn) + left) + right,
+// so the field is the one-thread-a-site field bit for bit.  The helical
+// seams (a long row's x = 0 reads the up-row's column nc - 1, its
+// x = nx - 1 the down-row's column 0) are read and decoded by the one
+// thread that needs them; a short row's ragged slot is neither updated
+// nor counted, as in dense_slot.  That is (TY + 2)(TX + 2) / (TY TX)
+// decodes of other angles a site: 1.13 at the 32 x 32 tile, where one
+// thread a site decoded four (and a measuring OR site a fifth), and no
+// runtime division: 32-bit offsets inside a replica.  32 x 32 halos the
+// fewest angles a site and read 0.8% ahead of 64 x 16 and 7% ahead of
+// 128 x 8 (PERF.md §6).  A Metropolis site decodes its own angle and the
+// candidate; an OR site decodes nothing of its own but, measuring, its
+// new angle.  The measuring launch takes the other colour's (S_x, S_y)
+// from the decoded tile.  Sums in float64, per block in a fixed order,
+// then per replica by reduce_kernel.
 #include "xy2d_helical_dense.cuh"
 
 namespace {
 
 using xy::Sums;
-using xyh::Slot;
 using xyh::THREADS;
 
 // a tile: TX slots x TY rows, four sites a thread
@@ -66,26 +67,26 @@ struct AnglePlanes {
   int ny, nc, color;
 };
 
-// The decoded field of a valid slot: each neighbour angle to
-// (cos, sin), then ((up + dn) + left) + right per component
-__device__ __forceinline__ void angle_field(const float* o, const Slot& s,
-                                            float& hx, float& hy) {
-  float ux, uy, dx, dy, lx, ly, rx, ry;
-  xy::cos_sin_2pi(__ldg(o + s.up), ux, uy);
-  xy::cos_sin_2pi(__ldg(o + s.dn), dx, dy);
-  xy::cos_sin_2pi(__ldg(o + s.left), lx, ly);
-  xy::cos_sin_2pi(__ldg(o + s.right), rx, ry);
-  hx = __fadd_rn(__fadd_rn(__fadd_rn(ux, dx), lx), rx);
-  hy = __fadd_rn(__fadd_rn(__fadd_rn(uy, dy), ly), ry);
-}
-
-// The other colour's decoded slot (y, i), counted where it is valid
-__device__ __forceinline__ void other_sums(const AnglePlanes& p,
-                                           const Slot& s, Sums& t) {
-  float ox, oy;
-  xy::cos_sin_2pi(__ldg(p.o + s.idx), ox, oy);
-  t.mx += static_cast<double>(ox);
-  t.my += static_cast<double>(oy);
+// The field of a valid slot (y, i) of a tile, c pointing at the decoded
+// other colour's (y, i), whose rows are sw apart: ((up + dn) + left) +
+// right per component; the helical seams decoded from o
+__device__ __forceinline__ void tile_field(const float* o, const float2* c,
+                                           int sw, int ny, int nc, int y,
+                                           int i, bool long_row, float& hx,
+                                           float& hy) {
+  const float2 up = c[-sw], dn = c[sw];
+  float2 lf = long_row ? c[-1] : c[0];
+  float2 rt = long_row ? c[0] : c[1];
+  if (long_row && i == 0) {
+    const int yu = y == 0 ? ny - 1 : y - 1;
+    xy::cos_sin_2pi(__ldg(o + yu * nc + (nc - 1)), lf.x, lf.y);
+  }
+  if (long_row && i == nc - 1) {
+    const int yd = y == ny - 1 ? 0 : y + 1;
+    xy::cos_sin_2pi(__ldg(o + yd * nc), rt.x, rt.y);
+  }
+  hx = __fadd_rn(__fadd_rn(__fadd_rn(up.x, dn.x), lf.x), rt.x);
+  hy = __fadd_rn(__fadd_rn(__fadd_rn(up.y, dn.y), lf.y), rt.y);
 }
 
 // One Metropolis site (y, i) of a tile: c points at the decoded other
@@ -104,19 +105,8 @@ __device__ __forceinline__ void tile_site(const AnglePlanes& p, float* s,
     t.my += static_cast<double>(c->y);
   }
   if (i >= (long_row ? nc : nc - 1)) return;
-  const float2 up = c[-sw], dn = c[sw];
-  float2 lf = long_row ? c[-1] : c[0];
-  float2 rt = long_row ? c[0] : c[1];
-  if (long_row && i == 0) {
-    const int yu = y == 0 ? ny - 1 : y - 1;
-    xy::cos_sin_2pi(__ldg(o + yu * nc + (nc - 1)), lf.x, lf.y);
-  }
-  if (long_row && i == nc - 1) {
-    const int yd = y == ny - 1 ? 0 : y + 1;
-    xy::cos_sin_2pi(__ldg(o + yd * nc), rt.x, rt.y);
-  }
-  const float hx = __fadd_rn(__fadd_rn(__fadd_rn(up.x, dn.x), lf.x), rt.x);
-  const float hy = __fadd_rn(__fadd_rn(__fadd_rn(up.y, dn.y), lf.y), rt.y);
+  float hx, hy;
+  tile_field(o, c, sw, ny, nc, y, i, long_row, hx, hy);
   const int idx = y * nc + i;
   float uc, ua;
   if (ucand != nullptr) {
@@ -149,6 +139,35 @@ __device__ __forceinline__ void tile_site(const AnglePlanes& p, float* s,
   }
 }
 
+// One over-relaxation site (y, i) of a tile, as tile_site: the reflection
+// θ' = 2 atan2_2pi(h_y, h_x) - θ of its own angle `own`, wrapped
+template <bool MEASURE>
+__device__ __forceinline__ void tile_or_site(const AnglePlanes& p, float* s,
+                                             const float* o, const float2* c,
+                                             int sw, int y, int i, float own,
+                                             Sums& t) {
+  const int ny = p.ny, nc = p.nc;
+  const bool long_row = (p.color == 0) == ((y & 1) == 0);
+  if (MEASURE && i < (long_row ? nc - 1 : nc)) {
+    t.mx += static_cast<double>(c->x);
+    t.my += static_cast<double>(c->y);
+  }
+  if (i >= (long_row ? nc : nc - 1)) return;
+  float hx, hy;
+  tile_field(o, c, sw, ny, nc, y, i, long_row, hx, hy);
+  const float phi = xy::atan2_2pi(hy, hx);
+  float tp = __fsub_rn(__fmul_rn(2.0f, phi), own);
+  tp = __fsub_rn(tp, rintf(tp));
+  s[y * nc + i] = tp;
+  if (MEASURE) {
+    float fx, fy;
+    xy::cos_sin_2pi(tp, fx, fy);
+    t.mx += static_cast<double>(fx);
+    t.my += static_cast<double>(fy);
+    t.e += xyh::bond_sum(fx, fy, hx, hy);
+  }
+}
+
 // The raw other-colour angles of the tile at row y0 that thread t decodes:
 // elements k = t + j THREADS of its (rows y0 - 1 .. y0 + min(TY, ny - y0),
 // wrapping at ny) x (columns x0 - 1 .. x0 + TX) grid, 0 outside [0, nc).
@@ -169,13 +188,14 @@ __device__ __forceinline__ void fetch_tile(const float* o, int ny, int nc,
   }
 }
 
-// One Metropolis phase, a tile TX slots x TY rows: grid (ceil(nc / TX),
-// row blocks, R); block (bx, by) takes tile rows by, by + gridDim.y, ...
-// of column tile bx.  A tile's raw angles are all loaded, then decoded
-// into shared memory, and each thread's own angles loaded before the
-// barrier: a load that waits for the decode of the one before stalls each
-// warp once per load (PERF.md §6).
-template <bool MEASURE>
+// One Metropolis (OR false) or over-relaxation (OR true) phase, a tile
+// TX slots x TY rows: grid (ceil(nc / TX), row blocks, R); block (bx, by)
+// takes tile rows by, by + gridDim.y, ... of column tile bx.  A tile's raw
+// angles are all loaded, then decoded into shared memory, and each
+// thread's own angles loaded before the barrier: a load that waits for the
+// decode of the one before stalls each warp once per load (PERF.md §6).
+// The over-relaxation takes no uniforms (ucand, uacc null).
+template <bool OR, bool MEASURE>
 __global__ void __launch_bounds__(THREADS)
     angle_tile_kernel(AnglePlanes p, double* partials, const float* ucand,
                       const float* uacc, float neg_beta, uint2 key) {
@@ -219,43 +239,20 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < SITES; ++j) {
       const int ty = ty0 + j * ROWS;
       const int y = y0 + ty;
-      if (y < ny && i < nc)
-        tile_site<MEASURE>(p, s, o, tile + (ty + 1) * SW + (tx + 1), SW, r,
-                           y, i, own[j], ucand, uacc, neg_beta, key, t);
+      if (y < ny && i < nc) {
+        const float2* c = tile + (ty + 1) * SW + (tx + 1);
+        if constexpr (OR)
+          tile_or_site<MEASURE>(p, s, o, c, SW, y, i, own[j], t);
+        else
+          tile_site<MEASURE>(p, s, o, c, SW, r, y, i, own[j], ucand, uacc,
+                             neg_beta, key, t);
+      }
     }
     __syncthreads();
   }
   if (MEASURE)
     xy::block_sums<3>(partials, r, gridDim.x * gridDim.y,
                       blockIdx.y * gridDim.x + blockIdx.x, t);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    angle_or_kernel(AnglePlanes p, double* partials) {
-  const int r = blockIdx.y;
-  Sums t = {0.0, 0.0, 0.0, 0.0};
-  for (int w = blockIdx.x * THREADS + threadIdx.x; w < p.ny * p.nc;
-       w += gridDim.x * THREADS) {
-    const Slot s = xyh::dense_slot(r, w, p.ny, p.nc, p.color);
-    if (partials != nullptr && s.ovalid) other_sums(p, s, t);
-    if (s.valid) {
-      float hx, hy;
-      angle_field(p.o, s, hx, hy);
-      const float phi = xy::atan2_2pi(hy, hx);
-      float tp = __fsub_rn(__fmul_rn(2.0f, phi), p.s[s.idx]);
-      tp = __fsub_rn(tp, rintf(tp));
-      p.s[s.idx] = tp;
-      if (partials != nullptr) {
-        float fx, fy;
-        xy::cos_sin_2pi(tp, fx, fy);
-        t.mx += static_cast<double>(fx);
-        t.my += static_cast<double>(fy);
-        t.e += xyh::bond_sum(fx, fy, hx, hy);
-      }
-    }
-  }
-  if (partials != nullptr)  // uniform
-    xy::block_sums<3>(partials, r, gridDim.x, blockIdx.x, t);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -276,6 +273,19 @@ AnglePlanes make_planes(void* s, const void* o, int ny, int nc, int color) {
   return p;
 }
 
+// The shape and grid of a tile launch: the grid's blocks a replica must
+// fit an int (the partials' rows)
+int tile_args(int nrep, int ny, int nc, int row_blocks, const void* partials,
+              const void* obs) {
+  if (int bad = xy::check_shape(nrep, ny, nc)) return bad;
+  const long long gx = (static_cast<long long>(nc) + TX - 1) / TX;
+  if (ny % 2 != 0 || nc < 2 || row_blocks < 1 || row_blocks > 65535 ||
+      (partials == nullptr) != (obs == nullptr) ||
+      gx * row_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -292,14 +302,11 @@ int xya_phase(void* s, const void* o, const void* ucand, const void* uacc,
               int row_blocks, int color,
               float neg_beta, unsigned int s0, unsigned int s1,
               void* stream) {
-  if (int bad = xy::check_shape(nrep, ny, nc)) return bad;
-  const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  if (ny % 2 != 0 || nc < 2 || row_blocks < 1 || row_blocks > 65535 ||
-      (ucand == nullptr) != (uacc == nullptr) ||
-      (partials == nullptr) != (obs == nullptr))
-    return invalid;
+  if (int bad = tile_args(nrep, ny, nc, row_blocks, partials, obs))
+    return bad;
+  if ((ucand == nullptr) != (uacc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long gx = (static_cast<long long>(nc) + TX - 1) / TX;
-  if (gx * row_blocks > 0x7fffffffLL) return invalid;
   const dim3 grid(static_cast<unsigned>(gx), row_blocks, nrep);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const AnglePlanes p = make_planes(s, o, ny, nc, color);
@@ -308,27 +315,36 @@ int xya_phase(void* s, const void* o, const void* ucand, const void* uacc,
   const float* ua = static_cast<const float*>(uacc);
   const uint2 key = make_uint2(s0, s1);
   if (partials != nullptr)
-    angle_tile_kernel<true><<<grid, THREADS, 0, st>>>(p, part, uc, ua,
-                                                      neg_beta, key);
+    angle_tile_kernel<false, true><<<grid, THREADS, 0, st>>>(
+        p, part, uc, ua, neg_beta, key);
   else
-    angle_tile_kernel<false><<<grid, THREADS, 0, st>>>(p, part, uc, ua,
-                                                       neg_beta, key);
+    angle_tile_kernel<false, false><<<grid, THREADS, 0, st>>>(
+        p, part, uc, ua, neg_beta, key);
   return xyh::finish(partials, obs, nrep, static_cast<int>(gx * row_blocks),
                      st);
 }
 
-// One over-relaxation phase of colour `color`, s in place; partials/obs
-// as for xya_phase.
+// One over-relaxation phase of colour `color` on (nrep, ny, nc) angle
+// planes, s in place, on the tiles and grid of xya_phase; partials/obs as
+// for xya_phase.
 int xya_over_relax(void* s, const void* o, void* partials, void* obs,
-                   int nrep, int ny, int nc, int nblk, int color,
+                   int nrep, int ny, int nc, int row_blocks, int color,
                    void* stream) {
-  if (int bad = xyh::check_shape(nrep, ny, nc, nblk)) return bad;
-  if ((partials == nullptr) != (obs == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (int bad = tile_args(nrep, ny, nc, row_blocks, partials, obs))
+    return bad;
+  const dim3 grid((nc + TX - 1) / TX, row_blocks, nrep);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  angle_or_kernel<<<dim3(nblk, nrep), THREADS, 0, st>>>(
-      make_planes(s, o, ny, nc, color), static_cast<double*>(partials));
-  return xyh::finish(partials, obs, nrep, nblk, st);
+  const AnglePlanes p = make_planes(s, o, ny, nc, color);
+  double* part = static_cast<double*>(partials);
+  const uint2 key = make_uint2(0u, 0u);
+  if (partials != nullptr)
+    angle_tile_kernel<true, true><<<grid, THREADS, 0, st>>>(
+        p, part, nullptr, nullptr, 0.0f, key);
+  else
+    angle_tile_kernel<true, false><<<grid, THREADS, 0, st>>>(
+        p, part, nullptr, nullptr, 0.0f, key);
+  return xyh::finish(partials, obs, nrep, static_cast<int>(grid.x) *
+                                              row_blocks, st);
 }
 
 // out[k] = atan2_2pi(y[k], x[k]) for k < n (float32 vectors).

@@ -13,14 +13,15 @@ the component engine: the candidate is stored as cand = u − 0.5 and
 decoded, so a Metropolis phase equals the component one fed u − 0.5,
 bitwise in the decoded state.  ``csrc/xy2d_helical_dense_angle.cu`` holds
 
-- ``angle_tile_kernel``, which replaces ``_angle_phase_kernel``
+- ``angle_tile_kernel<false, .>``, which replaces ``_angle_phase_kernel``
   (pallas_call at ``:269``, ``_angle_phase``): one Metropolis colour
   phase, uniforms from Philox or injected, with ``measuring`` the
   per-replica (Σ S_x, Σ S_y, e); a block decodes the other colour's tile
   and its one-slot halo once into shared memory (:func:`tile_grid` sizes
   its grid);
-- ``angle_or_kernel``, which replaces ``_angle_or_kernel`` (``:308``,
-  ``_angle_or_phase``): one reflection phase, the same sums optional;
+- ``angle_tile_kernel<true, .>``, its over-relaxation mode, which
+  replaces ``_angle_or_kernel`` (``:308``, ``_angle_or_phase``): one
+  reflection phase on the same tiles and grid, the same sums optional;
 - ``atan2_kernel``, the device ``atan2_2pi`` over a vector: no path runs
   it; ``chip_smoke.py`` holds the device function against
   ops/trig.atan2_2pi with it.
@@ -54,7 +55,6 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.xy2d_helical_dense import (
     fits,  # noqa: F401  (the same gate as the component engine)
     obs_plain,
     raise_on,
-    scratch,
     seed_words,
     valid_col,
 )
@@ -141,7 +141,8 @@ def angle_phase_plain(s, o, rand, *, color: int, beta: float,
 
 
 def angle_or_phase_plain(s, o, *, color: int, measuring: bool = False):
-    """Plain version of ``angle_or_kernel``: one reflection phase of
+    """Plain version of ``angle_tile_kernel<true, .>``: one reflection
+    phase of
     colour ``color``, ``s`` in place; with ``measuring`` also the sums of
     the decoded new state."""
     hx, hy = angle_field(o, color)
@@ -179,7 +180,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def tile_grid(ny: int, nc: int) -> tuple[int, int]:
-    """(column tiles, row blocks) of a Metropolis launch over (ny, nc)
+    """(column tiles, row blocks) of a launch (Metropolis or OR) over (ny, nc)
     slots a replica in :data:`TILE` x :data:`TILE` tiles: block (bx, by)
     takes column tile bx and tile rows by, by + row blocks, ...; at most
     :data:`MAX_TILE_BLOCKS` blocks a replica, and the row blocks within a
@@ -187,6 +188,19 @@ def tile_grid(ny: int, nc: int) -> tuple[int, int]:
     gx = -(-nc // TILE)
     rows = -(-ny // TILE)
     return gx, min(rows, max(1, MAX_TILE_BLOCKS // gx), 65535)
+
+
+def tile_scratch(s: torch.Tensor, measuring: bool):
+    """(partials, obs) of a tile launch: where it measures, the per-block
+    float64 sums (R, blocks of :func:`tile_grid`, 3) and their totals
+    (R, 3); else (None, None)."""
+    if not measuring:
+        return None, None
+    nrep, ny, nc = s.shape
+    gx, gy = tile_grid(ny, nc)
+    return (torch.empty((nrep, gx * gy, 3), dtype=torch.float64,
+                        device=s.device),
+            torch.empty((nrep, 3), dtype=torch.float64, device=s.device))
 
 
 def angle_phase(s, o, rand, *, color: int, beta: float,
@@ -207,12 +221,8 @@ def angle_phase(s, o, rand, *, color: int, beta: float,
         u_cand = u_acc = None
         s0, s1 = seed_words(rand)
     nrep, ny, nc = s.shape
-    gx, gy = tile_grid(ny, nc)
-    partials = obs = None
-    if measuring:
-        partials = torch.empty((nrep, gx * gy, 3), dtype=torch.float64,
-                               device=s.device)
-        obs = torch.empty((nrep, 3), dtype=torch.float64, device=s.device)
+    _, gy = tile_grid(ny, nc)
+    partials, obs = tile_scratch(s, measuring)
     lib = _lib()
     with torch.cuda.device(s.device):
         code = lib.xya_phase(
@@ -229,19 +239,21 @@ def angle_phase(s, o, rand, *, color: int, beta: float,
 
 def angle_or_phase(s, o, *, color: int, measuring: bool = False):
     """One over-relaxation phase of colour ``color`` on angle planes, ``s``
-    in place: ``angle_or_kernel`` on CUDA tensors,
+    in place: ``angle_tile_kernel``'s over-relaxation mode on CUDA tensors
+    (the tiles and grid of :func:`angle_phase`),
     :func:`angle_or_phase_plain` on CPU tensors."""
     if _on_cpu(s):
         return angle_or_phase_plain(s, o, color=color, measuring=measuring)
     check_dense(s, o)
     nrep, ny, nc = s.shape
-    nblk, partials, obs = scratch(s, measuring)
+    _, gy = tile_grid(ny, nc)
+    partials, obs = tile_scratch(s, measuring)
     lib = _lib()
     with torch.cuda.device(s.device):
         code = lib.xya_over_relax(
             s.data_ptr(), o.data_ptr(), _ptr(partials), _ptr(obs), nrep, ny,
-            nc, nblk, color, _stream(s))
-    raise_on(code, lib, "angle_or_kernel")
+            nc, gy, color, _stream(s))
+    raise_on(code, lib, "angle_tile_kernel (over-relaxation)")
     LAUNCHES["or"] += 1
     if measuring:
         LAUNCHES["or_measuring"] += 1

@@ -1,32 +1,39 @@
 """S Metropolis sweeps of the periodic XY model in one launch on the card:
-a cooperative CUDA kernel and its plain version.
+a cooperative CUDA kernel in two modes, and its plain version.
 
 Port of ``cuda_fortran_mc_simulation_spin_tpu/ops/xy2d_resident.py`` (the
 module keeps its name so that its JAX counterpart is found by name; it
-launches a CUDA kernel, not a Pallas one).  ``csrc/xy2d_resident.cu``
-``multisweep_kernel`` replaces
+launches a CUDA kernel, not a Pallas one).  ``_ms_kernel`` (pallas_call
+at ``:257``, ``multisweep``): S sweeps of the (R, ny, nx/2) float32
+component planes with each sweep's (Σ S_x, Σ S_y, e, A) fused into its
+phase b, A against the t=0 snapshot.  ``csrc/xy2d_resident.cu`` holds it
+in two modes, chosen by the fit rule :func:`smem_layout`:
 
-- ``_ms_kernel`` (pallas_call at ``:257``, ``multisweep``): S sweeps of
-  the (R, ny, nx/2) float32 component planes with each sweep's
-  (Σ S_x, Σ S_y, e, A) fused into its phase b, A against the t=0
-  snapshot;
-- ``_phase_bits_kernel`` (``:163``, ``phase_with_bits``): in its injected
-  mode, one phase with injected uniforms.
+- ``smem_multisweep_kernel``, where the batch fits the grid's shared
+  memory (one 1500x1500 or 1000x1000 replica, up to ~3.4 M sites on the
+  H100): the lattice held in the SMs' shared memory for the S sweeps, a
+  ring of blocks a replica, ring flags between phases;
+- ``multisweep_kernel``, past the fit (under the route bound
+  :data:`RESIDENT_MAX_SITES`): the state in device memory and a grid
+  barrier between phases.
+
+JAX's ``_phase_bits_kernel`` (``:163``, ``phase_with_bits``: one phase
+with injected uniforms) is the injected mode of ``metropolis_kernel``:
+:func:`phase_with_bits` launches it through ``xy2d_pallas``.
 
 The JAX kernel holds state and snapshot in VMEM and pads nx/2 to 128
-lanes with seam substitutions; here the planes stay unpadded in device
-memory (the literal 1500x1500's 750 columns included) and a cooperative
-grid waits at a grid barrier between phases.  What the launch saves on
-the card is the host's cost of S streamed sweeps; :func:`fits` is the
-route bound between the two (PERF.md §6).
+lanes with seam substitutions; here the planes stay unpadded (the literal
+1500x1500's 750 columns included).  What one launch saves on the card is
+the host's cost of S streamed sweeps; :func:`fits` is the route bound
+between the two (PERF.md §6).
 
 Keys: the (S, 2, 2) phase keys of ``multispin_rng.sweep_phase_keys`` and
 the counter (replica, row, column, 0) of ``metropolis_kernel``, so S
-sweeps here equal S streamed ``xy2d_pallas.sweep_measure`` calls bitwise
-in the state, and in the sums too (each 256-site item is one block of the
-streamed launch, reduced in the same fixed order).
-:func:`multisweep_planes_plain` is the plain version: S plain streamed
-sweeps.
+sweeps here, in either mode, equal S streamed
+``xy2d_pallas.sweep_measure`` calls bitwise in the state, and in the sums
+too (each 256-site chunk is one block of the streamed launch, reduced in
+the same fixed order).  :func:`multisweep_planes_plain` is the plain
+version: S plain streamed sweeps.
 
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
@@ -35,6 +42,7 @@ launches the kernel or raises.  ``LAUNCHES`` counts launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -50,7 +58,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _stream,
 )
 
-LAUNCHES = {"multisweep": 0, "phase_bits": 0}
+LAUNCHES = {"multisweep": 0, "multisweep_smem": 0}
 
 # The route bound: batches of at most this many sites (replicas x nx x ny)
 # run the resident multisweep, larger ones streamed sweep_measure calls.
@@ -67,6 +75,60 @@ def fits(model, batch: int) -> bool:
     """True when the resident multisweep is the route for ``batch``
     replicas of ``model``."""
     return batch * model.nsites <= RESIDENT_MAX_SITES
+
+
+# the sites of a chunk: one block of the streamed metropolis_kernel
+CHUNK = 256
+# shared memory a chunk takes beside its sites: its 8 warps' 4 float64
+# sums and its first site's (row, column)
+_CHUNK_BYTES = 4 * 8 * 8 + 8
+
+
+class SmemLayout(NamedTuple):
+    """The ring of ``smem_multisweep_kernel``: ``blocks`` blocks a replica,
+    block j owning chunks ``bounds[j]`` .. ``bounds[j + 1] - 1`` of 256
+    sites, at most ``cap`` sites a block, in ``smem_bytes`` of shared
+    memory a block."""
+    blocks: int
+    bounds: tuple[int, ...]
+    cap: int
+    smem_bytes: int
+
+
+def smem_layout(nrep: int, ny: int, half: int, sms: int,
+                smem_bytes: int) -> SmemLayout | None:
+    """The fit rule of the two modes: the ring layout of
+    ``smem_multisweep_kernel`` for ``nrep`` replicas of (ny, half) sites a
+    colour, on ``sms`` block slots (SMs x blocks an SM) of at most
+    ``smem_bytes`` shared memory each; None where the batch does not fit
+    (then ``multisweep_kernel`` runs it).
+
+    Each replica gets its own ring of ``sms // nrep`` blocks at most, each
+    owning a contiguous run of whole chunks, as even as the chunks allow;
+    the ring shrinks until every block owns at least ``half`` real sites,
+    so a block's halos (the other colour's ``half`` sites before and after
+    its range) lie in its two ring neighbours' ranges.  A block's shared
+    memory: its sites and both halos in both colours, (cap + 2 half) x
+    2 colours x 8 B, and 264 B a chunk (its warps' sums, its first
+    site)."""
+    n = ny * half
+    chunks = -(-n // CHUNK)
+    per = sms // nrep
+    if per < 1:
+        return None
+    nb = min(per, chunks)
+    while True:
+        bounds = tuple(j * chunks // nb for j in range(nb + 1))
+        owned = [min(b * CHUNK, n) - a * CHUNK
+                 for a, b in zip(bounds, bounds[1:])]
+        if min(owned) >= half or nb == 1:
+            break
+        nb -= 1
+    cap = max(b - a for a, b in zip(bounds, bounds[1:])) * CHUNK
+    need = 16 * (cap + 2 * half) + cap // CHUNK * _CHUNK_BYTES
+    if need > smem_bytes:
+        return None
+    return SmemLayout(nb, bounds, cap, need)
 
 
 def _snap_order(snap: XYState, color: int):
@@ -104,7 +166,7 @@ def multisweep_planes_plain(st: XYState, snap: XYState | None, seeds, *,
 
 def phase_with_bits_plain(sx, sy, ox, oy, u_cand, u_acc, *, color: int,
                           beta: float):
-    """Plain version of the injected mode: one phase with injected
+    """Plain version of :func:`phase_with_bits`: one phase with injected
     uniforms, in place (``xy2d_pallas.metropolis_phase_plain``)."""
     return xy2d_pallas.metropolis_phase_plain(sx, sy, ox, oy,
                                               (u_cand, u_acc), color=color,
@@ -120,85 +182,151 @@ _INT = ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("xy2d_resident")
+    return bind(_build.load("xy2d_resident"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/xy2d_resident.cu``) with its C functions'
+    argument types set."""
     if lib.xy_multisweep.argtypes is not None:
         return lib
-    lib.xy_multisweep.argtypes = ([_VOID] * 10 + [_INT] * 5
+    lib.xy_multisweep.argtypes = ([_VOID] * 8 + [_INT] * 4
                                   + [ctypes.c_float, _VOID])
-    lib.xy_multisweep.restype = _INT
+    lib.xy_multisweep_smem.argtypes = ([_VOID] * 11 + [_INT] * 7
+                                       + [ctypes.c_float, _VOID])
+    for fn in (lib.xy_multisweep, lib.xy_multisweep_smem):
+        fn.restype = _INT
     lib.xy_multisweep_grid.argtypes = [ctypes.POINTER(_INT)]
     lib.xy_multisweep_grid.restype = _INT
+    lib.xy_multisweep_smem_limits.argtypes = [ctypes.POINTER(_INT)] * 5
+    lib.xy_multisweep_smem_limits.restype = _INT
     lib.xy_multisweep_error_string.argtypes = [_INT]
     lib.xy_multisweep_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _raise_on(code: int, lib) -> None:
+def _raise_on(code: int, lib, name: str = "multisweep_kernel") -> None:
     if code != 0:
         msg = lib.xy_multisweep_error_string(code).decode()
-        raise RuntimeError(f"xy2d multisweep_kernel: CUDA error {code} "
-                           f"({msg})")
+        raise RuntimeError(f"xy2d {name}: CUDA error {code} ({msg})")
 
 
 def grid_blocks() -> int:
-    """Blocks of the cooperative grid on the current device."""
+    """Blocks of ``multisweep_kernel``'s cooperative grid on the current
+    device."""
     lib = _lib()
     out = _INT(0)
     _raise_on(lib.xy_multisweep_grid(ctypes.byref(out)), lib)
     return out.value
 
 
-def _launch(st, snap, seeds, ucand, uacc, sweeps, color, beta,
-            measuring):
-    planes = list(st) + ([] if snap is None else list(snap))
-    extra = [] if ucand is None else [ucand, uacc]
-    xy2d_pallas._check_planes(*planes, *extra)
-    nrep, ny, half = st.ax.shape
-    dev = st.ax.device
-    seeds_dev = None
-    if seeds is not None:
-        seeds_dev = _i32(torch.as_tensor(seeds)).contiguous().to(dev)
-    partials = obs = None
-    if measuring:
-        partials, obs = xy2d_pallas.scratch(st.ax, True, rows=nrep * sweeps)
+_LIMITS: dict[tuple, tuple[int, int]] = {}
+
+
+def smem_limits(dev: torch.device) -> tuple[int, int]:
+    """(block slots, shared memory a block) of ``smem_multisweep_kernel``
+    on CUDA device ``dev``: the SMs times the blocks an SM holds by the
+    kernel's threads and registers (one of 1024 threads on the H100), and
+    the shared memory each of them may take."""
     lib = _lib()
-    ptr = xy2d_pallas._ptr
+    key = (id(lib), dev.index)
+    if key not in _LIMITS:
+        vals = [_INT(0) for _ in range(5)]
+        with torch.cuda.device(dev):
+            _raise_on(lib.xy_multisweep_smem_limits(
+                *(ctypes.byref(v) for v in vals)), lib)
+        sms, per_sm, smem_block, smem_sm, reserved = (v.value for v in vals)
+        if per_sm < 1:
+            raise RuntimeError("smem_multisweep_kernel: no block fits an SM")
+        _LIMITS[key] = (sms * per_sm,
+                        min(smem_block, smem_sm // per_sm - reserved))
+    return _LIMITS[key]
+
+
+def device_layout(st: XYState) -> SmemLayout | None:
+    """:func:`smem_layout` of ``st``'s planes on their CUDA device."""
+    return smem_layout(*st.ax.shape, *smem_limits(st.ax.device))
+
+
+# (library, device, planes' shape) -> the layout and its bounds on the
+# device: worked out once a shape, since a copy to the card from pageable
+# host memory waits for the card, and the runner's next launch would
+# wait behind it
+_RINGS: dict[tuple, tuple[SmemLayout | None, torch.Tensor | None]] = {}
+
+
+def _ring(st: XYState) -> tuple[SmemLayout | None, torch.Tensor | None]:
+    key = (id(_lib()), st.ax.device, tuple(st.ax.shape))
+    if key not in _RINGS:
+        layout = device_layout(st)
+        bounds = None if layout is None else torch.tensor(
+            layout.bounds, dtype=torch.int32, device=st.ax.device)
+        _RINGS[key] = (layout, bounds)
+    return _RINGS[key]
+
+
+def _launch(st, snap, seeds, beta, ring):
+    """One launch of either mode (``ring``: the layout and its bounds on
+    the device, or (None, None) for the grid-barrier mode); returns the
+    (R S, 4) float64 sums."""
+    planes = list(st) + ([] if snap is None else list(snap))
+    xy2d_pallas._check_planes(*planes)
+    nrep, ny, half = st.ax.shape
+    sweeps = int(seeds.shape[0])
+    dev = st.ax.device
+    # staged at once, so the host need not wait for the card's queue
+    seeds_dev = _i32(torch.as_tensor(seeds)).contiguous().to(
+        dev, non_blocking=True)
+    partials, obs = xy2d_pallas.scratch(st.ax, True, rows=nrep * sweeps)
+    lib = _lib()
+    args = (*(p.data_ptr() for p in st), xy2d_pallas.snapshot_pointers(snap),
+            seeds_dev.data_ptr(), partials.data_ptr(), obs.data_ptr())
+    layout, bounds = ring
     with torch.cuda.device(dev):
-        code = lib.xy_multisweep(
-            *(p.data_ptr() for p in st), xy2d_pallas.snapshot_pointers(snap),
-            ptr(seeds_dev), ptr(ucand), ptr(uacc), ptr(partials), ptr(obs),
-            nrep, ny, half, sweeps, color, -float(beta), _stream(st.ax))
-    _raise_on(code, lib)
+        if layout is None:
+            code = lib.xy_multisweep(*args, nrep, ny, half, sweeps,
+                                     -float(beta), _stream(st.ax))
+            _raise_on(code, lib)
+            return obs
+        blocks = nrep * layout.blocks
+        edges = torch.empty((blocks, 2, 2 * half, 2), dtype=torch.float32,
+                            device=dev)
+        flags = torch.empty((blocks,), dtype=torch.int32, device=dev)
+        code = lib.xy_multisweep_smem(
+            *args, bounds.data_ptr(), edges.data_ptr(), flags.data_ptr(),
+            nrep, ny, half, sweeps, layout.blocks, layout.cap,
+            layout.smem_bytes, -float(beta), _stream(st.ax))
+    _raise_on(code, lib, "smem_multisweep_kernel")
     return obs
 
 
 def multisweep_planes(st: XYState, snap: XYState | None, seeds, *,
-                      beta: float) -> torch.Tensor:
+                      beta: float, grid: bool = False) -> torch.Tensor:
     """S = len(seeds) sweeps of ``st`` in place under the (S, 2, 2)
-    per-(sweep, phase) keys: ``multisweep_kernel`` on CUDA tensors,
-    :func:`multisweep_planes_plain` on CPU tensors.  Returns the (R, S, 4)
-    float64 per-sweep (Σ S_x, Σ S_y, e, A)."""
+    per-(sweep, phase) keys; returns the (R, S, 4) float64 per-sweep
+    (Σ S_x, Σ S_y, e, A).  On CPU tensors :func:`multisweep_planes_plain`;
+    on CUDA tensors one launch: ``smem_multisweep_kernel`` where
+    :func:`smem_layout` fits the batch on the card, else
+    ``multisweep_kernel`` (``grid`` forces the latter)."""
     if _on_cpu(st.ax):
         return multisweep_planes_plain(st, snap, seeds, beta=beta)
-    sweeps = int(seeds.shape[0])
-    obs = _launch(st, snap, seeds, None, None, sweeps, 0, beta, True)
-    LAUNCHES["multisweep"] += 1
-    return obs.view(st.ax.shape[0], sweeps, xy2d_pallas.NSUMS)
+    ring = (None, None) if grid else _ring(st)
+    obs = _launch(st, snap, seeds, beta, ring)
+    LAUNCHES["multisweep" if ring[0] is None else "multisweep_smem"] += 1
+    return obs.view(st.ax.shape[0], int(seeds.shape[0]), xy2d_pallas.NSUMS)
 
 
 def phase_with_bits(sx, sy, ox, oy, u_cand, u_acc, *, color: int,
                     beta: float):
-    """One phase of colour ``color`` with injected uniforms, in place: the
-    kernel's injected mode on CUDA tensors (JAX ``phase_with_bits``),
+    """One phase of colour ``color`` with injected uniforms, in place (JAX
+    ``phase_with_bits``): ``metropolis_kernel``'s injected mode
+    (``xy2d_pallas.metropolis_phase``) on CUDA tensors,
     :func:`phase_with_bits_plain` on CPU tensors.  Returns (sx, sy)."""
     if _on_cpu(sx):
         return phase_with_bits_plain(sx, sy, ox, oy, u_cand, u_acc,
                                      color=color, beta=beta)
-    st = (XYState(sx, sy, ox, oy) if color == 0
-          else XYState(ox, oy, sx, sy))
-    _launch(st, None, None, u_cand, u_acc, 1, color, beta, False)
-    LAUNCHES["phase_bits"] += 1
-    return sx, sy
+    return xy2d_pallas.metropolis_phase(sx, sy, ox, oy, (u_cand, u_acc),
+                                        color=color, beta=beta)
 
 
 def multisweep(model, st: XYState, snap: XYState | None, key, sweeps: int,

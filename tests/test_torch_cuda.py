@@ -620,6 +620,107 @@ def test_xy_disorder_routes_agree_on_card(cuda, prep, monkeypatch):
         assert torch.equal(runs[0][k], runs[1][k]), k
 
 
+def _multisweep_against_streamed(cuda, ny, nx, nrep, sweeps, grid):
+    """One multisweep launch of ``sweeps`` sweeps (``grid`` forcing the
+    grid-barrier mode, else the fit rule's) against as many streamed
+    snapshot-measuring sweeps on the card: the state and the sums
+    bitwise; the launch counted in its mode's key."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        multispin_rng,
+        xy2d_pallas,
+        xy2d_resident,
+    )
+    model = XY2D(nx=nx, ny=ny, kbt=KBT_XY)
+    planes = _xy_planes(cuda, nrep, ny, nx, 7 + ny)
+    snap = _xy_state(_xy_planes(cuda, nrep, ny, nx, 8 + ny))
+    seeds = multispin_rng.sweep_phase_keys(
+        rng.sample_key(rng.base_key(6), 1), sweeps)
+    ms = _xy_state(planes)
+    xy2d_resident.reset_launches()
+    kobs = xy2d_resident.multisweep_planes(ms, snap, seeds, beta=model.beta,
+                                           grid=grid)
+    key = ("multisweep" if grid or xy2d_resident.device_layout(ms) is None
+           else "multisweep_smem")
+    assert xy2d_resident.LAUNCHES[key] == 1
+    st = _xy_state(planes)
+    for s in range(sweeps):
+        st, obs = xy2d_pallas.sweep_measure(model, st, snap, seeds[s])
+        for j, k in enumerate(("mx", "my", "e", "A")):
+            assert torch.equal(msb.per_site(kobs[:, s, j], model.nsites),
+                               obs[k]), (s, k)
+    assert all(torch.equal(p, q) for p, q in zip(ms, st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx,nrep,sweeps", [(1500, 1500, 1, 8),
+                                               (1000, 1000, 1, 5),
+                                               (8, 1500, 1, 8),
+                                               (256, 200, 5, 3),
+                                               (2, 6, 3, 4)])
+def test_xy_smem_multisweep_matches_streamed_sweeps(cuda, ny, nx, nrep,
+                                                    sweeps):
+    """smem_multisweep_kernel equals S streamed sweep_measure calls
+    bitwise, state and sums: the literal 1500x1500 (a last chunk of 136
+    sites), 1000x1000, 8 x 1500 (a ring shrunk to blocks of at least a
+    row: 24 chunks on 7 blocks), five replicas each on its own ring, and
+    one-block rings of a tiny lattice; the layout is the fit rule's."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import xy2d_resident
+    st = XYState(*_xy_planes(cuda, nrep, ny, nx, 1))
+    layout = xy2d_resident.device_layout(st)
+    assert layout is not None
+    n = ny * nx // 2
+    owned = [min(b * 256, n) - a * 256
+             for a, b in zip(layout.bounds, layout.bounds[1:])]
+    assert min(owned) >= nx // 2
+    if (ny, nx) == (8, 1500):
+        assert layout.blocks == 7
+    _multisweep_against_streamed(cuda, ny, nx, nrep, sweeps, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx,nrep", [(1500, 1500, 2), (64, 1500, 3)])
+def test_xy_grid_multisweep_matches_streamed_sweeps(cuda, ny, nx, nrep):
+    """multisweep_kernel (the grid-barrier mode) equals 8 streamed
+    sweep_measure calls bitwise, state and sums: forced, and at 1500x1500
+    x 2, past the shared-memory fit, by the fit rule."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import xy2d_resident
+    st = XYState(*_xy_planes(cuda, nrep, ny, nx, 1))
+    past_fit = xy2d_resident.device_layout(st) is None
+    assert past_fit == (ny == 1500)
+    _multisweep_against_streamed(cuda, ny, nx, nrep, 8, not past_fit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx,nrep", [(10000, 10001, 1), (64, 65, 4),
+                                        (34, 131, 3)])
+def test_xy_helical_angle_or_tile_matches_plain(cuda, ny, nx, nrep):
+    """angle_tile_kernel's over-relaxation mode against its plain version
+    on the same CUDA tensors, both colours, plain and measuring: the
+    state bitwise (the reference's 10001x10000 and small odd-nx shapes
+    with seams and ragged tiles), the sums to 1e-12 relative; the
+    measuring launch's partials are tile_grid's blocks."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense_angle as ha,
+    )
+    _, ang = _helical_planes(cuda, nrep, ny, nx, ny + 3)
+    gx, gy = ha.tile_grid(ny, (nx + 1) // 2)
+    assert ha.tile_scratch(ang[0], True)[0].shape == (nrep, gx * gy, 3)
+    for color in (0, 1):
+        order = (0, 1) if color == 0 else (1, 0)
+        for measuring in (False, True):
+            a = [ang[i].clone() for i in order]
+            b = [ang[i].clone() for i in order]
+            got = ha.angle_or_phase(*a, color=color, measuring=measuring)
+            want = ha.angle_or_phase_plain(*b, color=color,
+                                           measuring=measuring)
+            assert all(torch.equal(p, q) for p, q in zip(a, b))
+            if measuring:
+                _sums_close_1e12(got[-1], want[-1])
+
+
 def _helical_planes(dev, nrep, ny, nx, seed):
     """Dense helical XY planes of a random flat state: (ax, ay, bx, by)
     components and (a, b) angles in turns, of one state."""
@@ -753,12 +854,13 @@ def test_xy_helical_atan2_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_xy_helical_launches_refuse_index_overflow(cuda):
-    """The three grid-stride helical entry points refuse, before any
+    """The two grid-stride helical entry points refuse, before any
     launch, a shape whose grid-stride index would pass 2^31 (ny * nc below
     2^31 but within a grid's width of it) and an empty grid; the angle
-    Metropolis phase, whose tiles index a replica in 32 bits with no
-    grid-stride index, refuses row blocks outside a grid's 1 .. 65535:
-    cudaErrorInvalidValue."""
+    phases (Metropolis and over-relaxation), whose tiles index a replica
+    in 32 bits with no grid-stride index, refuse an empty grid, a grid
+    whose blocks a replica pass 2^31 and row blocks outside a grid's
+    1 .. 65535: cudaErrorInvalidValue."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         xy2d_helical_dense as hd,
         xy2d_helical_dense_angle as ha,
@@ -774,6 +876,8 @@ def test_xy_helical_launches_refuse_index_overflow(cuda):
     for row_blocks in (0, 65536):
         assert ha._lib().xya_phase(*[None] * 6, 1, ny, nc, row_blocks, 0,
                                    -1.0, 0, 0, None) == 1
+        assert ha._lib().xya_over_relax(*[None] * 4, 1, ny, nc, row_blocks,
+                                        0, None) == 1
 
 
 @pytest.mark.cuda

@@ -345,8 +345,9 @@ def _tile_field_model(o, color):
     (67, 50, 1), (67, 98, 2), (33, 130, 1)])
 def test_tile_grid_and_field_match_the_plain_field(nx, ny, walk,
                                                    monkeypatch):
-    """The Metropolis kernel's tiling (the grid ``tile_grid`` gives, the
-    halo rows and columns, the seams) restated in numpy: every slot is
+    """The tile kernel's tiling, Metropolis and over-relaxation modes (the
+    grid ``tile_grid`` gives, the halo rows and columns, the seams)
+    restated in numpy: every slot is
     visited once and every valid site's field equals ``angle_field``
     bitwise.  Shapes: nc = 2 (nx = 3) at ny = 2, nc and ny whole tiles,
     one slot or row past a tile, nc not a multiple of the tile width, ny
@@ -368,6 +369,55 @@ def test_tile_grid_and_field_match_the_plain_field(nx, ny, walk,
         assert np.array_equal(np.isnan(hx[0]), ~valid)
         assert np.array_equal(hx[:, valid], want_x[:, valid])
         assert np.array_equal(hy[:, valid], want_y[:, valid])
+
+
+class _FakeLib:
+    """Records the C calls of a wrapper in place of the built library."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("measuring", [False, True])
+@pytest.mark.parametrize("nx,ny", [(10001, 10000), (65, 64), (131, 34),
+                                   (3, 2), (67, 98)])
+def test_or_launch_sizes_partials_by_tile_grid(nx, ny, measuring,
+                                               monkeypatch):
+    """The OR wrapper launches the tile kernel's grid: it passes
+    ``tile_grid``'s row blocks, and a measuring launch's partials hold
+    its blocks a replica (as the Metropolis wrapper's do), not the old
+    grid-stride ``xy2d_helical_dense.blocks``.  The launch itself is
+    recorded, not run (no card here)."""
+    from contextlib import nullcontext
+    nc = hd.dense_nc(nx)
+    gx, gy = ha.tile_grid(ny, nc)
+    lib = _FakeLib()
+    sizes = []
+    real = ha.tile_scratch
+    monkeypatch.setattr(ha, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(ha, "check_dense", lambda *p: None)
+    monkeypatch.setattr(ha, "_stream", lambda t: None)
+    monkeypatch.setattr(ha, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: nullcontext())
+    monkeypatch.setattr(ha, "tile_scratch", lambda s, m: sizes.append(
+        real(s, m)) or sizes[-1])
+    s = torch.zeros((2, ny, nc), dtype=torch.float32)
+    ha.angle_or_phase(s, s.clone(), color=1, measuring=measuring)
+    (name, args), = lib.calls
+    assert name == "xya_over_relax"
+    assert args[4:9] == (2, ny, nc, gy, 1)
+    partials, obs = sizes[0]
+    if measuring:
+        assert partials.shape == (2, gx * gy, 3) and obs.shape == (2, 3)
+        assert gx * gy <= ha.MAX_TILE_BLOCKS
+    else:
+        assert partials is None and obs is None
 
 
 def test_angle_runner_replayed_through_the_jax_references(monkeypatch):

@@ -2,17 +2,27 @@
 shapes: the int8 S-sweep kernel (1000x1000 x 16, S = 64), the int8 phase
 kernels (4000x4000 x 8; 500^3 x 2) and the bit-packed phase kernels,
 measuring (8192x8192 x 4; 512^3 x 8), each on a random state, with the
-resident blocks of the int8 S-sweep grid; with ``--clock``, the clock
+resident blocks of the int8 S-sweep grid; beside them the periodic 3-D
+bit-packed kernels at the 3-D classes' other launches: the plain phase a
+at 512^3 x 8, the halo mode (measuring and plain) at the mesh 3-D
+class's shard (4, 128, 16, 256) of 512^3 x 8 on (2,4), timed as a CUDA
+graph of 50 launches (median of 9 windows, chip_smoke.graph_time_ms),
+and the 3-D multisweep at 256^3 x 4, S = 64, with the SASS of
+phase_kernel and multisweep_kernel; with ``--clock``, the clock
 kernels whose headers the halo modes share: the bit-sliced q = 6 phase,
 measuring, at 2000x2000 x 40 (padded) and 2048x2048 x 16, the int8 clock
 phase at 2000x2000 x 16 (q = 5) and its S-sweep kernel at 1000x1000 x 16
 (q = 2, S = 64); with ``--helical3d``, the helical 3-D phase kernel at
 the even streamed class's launch, 1001x1000x1000 x 2 (colour a, z-parity
 sub-phases 0 and 1), and at the odd streamed class's, 501x501x500 x 2
-(colour b, plain and measuring), on random vectors.
+(colour b, plain and measuring), on random vectors; with ``--registers``,
+no timing: every csrc/*.cu built anew and the ptxas registers of each of
+its kernels, one JSON line {library: {kernel: registers}} (the kernel's
+mangled name without the anonymous namespace's per-file hash), to hold
+the includers of a shared header unchanged across two checkouts.
 
     python3 chip_time_ising.py [--reps 50] [--rounds 3]
-                               [--clock | --helical3d]
+                               [--clock | --helical3d | --registers]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
 the kernels on first use.  It uses only the wrappers' public API, so to
@@ -22,7 +32,7 @@ power limit, the ptxas register report of the build, with ``--helical3d``
 the SASS of phase_kernel (instructions, the instructions of each loop,
 the commonest opcodes; where cuobjdump exists), and last one JSON line
 {mode: [ms a launch, one per round]} (``"int8_multisweep_blocks": n``
-beside the Ising modes).
+and ``"packed_3d_multisweep_blocks": n`` beside the Ising modes).
 """
 
 from __future__ import annotations
@@ -54,8 +64,10 @@ _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
 def sass_report(lib: str, names: tuple[str, ...]) -> None:
     """For each function of ``.build/lib<lib>.so`` whose mangled name holds
     one of ``names``: its SASS instructions, the instructions of each loop
-    (a backward branch: the span from its target to it) and the ten
-    commonest opcodes; nothing where cuobjdump is missing."""
+    (a backward branch: the span from its target to it), its integer
+    divisions by a run-time value (the I2F.U32.RP that opens each such
+    sequence) and the ten commonest opcodes; nothing where cuobjdump is
+    missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("sass: cuobjdump not found")
@@ -75,9 +87,44 @@ def sass_report(lib: str, names: tuple[str, ...]) -> None:
                     int(target.group(1), 16) < int(addr, 16):
                 loops.append((int(addr, 16) - int(target.group(1), 16))
                              // 16 + 1)
+        div = sum(n for op, n in ops.items()
+                  if op.startswith("I2F") and ".RP" in op)
         print(f"sass {lib} {name}: {sum(ops.values())} instructions; "
-              f"loops {loops}; " + ", ".join(
-                  f"{op} {n}" for op, n in ops.most_common(10)))
+              f"loops {loops}; integer divisions (I2F .RP) {div}; "
+              + ", ".join(f"{op} {n}" for op, n in ops.most_common(10)))
+
+
+_ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_\w{8}")
+
+
+def register_report() -> dict[str, dict[str, int]]:
+    """{library: {kernel: registers}} of every csrc/*.cu, built anew (the
+    ptxas report in .build/lib<name>.log)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    _build.build(names, force=True)
+    out = {}
+    for name in names:
+        regs, kernel = {}, None
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '([^']+)'", line)
+            if entry:
+                kernel = _ANON.sub("", entry.group(1))
+            used = re.search(r"Used (\d+) registers", line)
+            if used and kernel is not None:
+                regs[kernel] = int(used.group(1))
+                kernel = None
+        out[name] = regs
+    return out
+
+
+def graph_ms(fn, launches: int = 50, windows: int = 9) -> float:
+    """Median ms a call of ``fn`` over ``windows`` replays of one CUDA
+    graph of ``launches`` captured calls, as the smoke times its halo
+    modes (chip_smoke.graph_time_ms)."""
+    from chip_smoke import graph_time_ms
+    return graph_time_ms(fn, launches, windows)[0]
 
 
 def helical3d_modes(words):
@@ -151,11 +198,16 @@ def main() -> int:
                     help="time the clock kernels instead")
     ap.add_argument("--helical3d", action="store_true",
                     help="time the helical 3-D phase kernel instead")
+    ap.add_argument("--registers", action="store_true",
+                    help="print every kernel's ptxas registers instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_time_ising: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if args.registers:
+        print(json.dumps(register_report(), sort_keys=True))
+        return 0
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         ising2d_multispin as msb,
         ising2d_multisweep as i8ms,
@@ -179,8 +231,6 @@ def main() -> int:
         return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
                              device=dev, dtype=torch.int64).to(torch.int32)
 
-    ra, rb = spins((16, 1000, 500)), spins((16, 1000, 500))
-    sa, sb = spins((8, 4000, 2000)), spins((8, 4000, 2000))
     libs = LIBS
     if args.clock:
         modes, libs = clock_modes(gen, dev, seeds), CLOCK_LIBS
@@ -192,6 +242,9 @@ def main() -> int:
     times = {m: [] for m in modes}
     for _ in range(args.rounds):
         for mode, fn in modes.items():
+            if mode.startswith("graph "):
+                times[mode].append(graph_ms(fn))
+                continue
             for _ in range(3):
                 fn()
             start = torch.cuda.Event(enable_timing=True)
@@ -206,6 +259,7 @@ def main() -> int:
             times[mode].append(start.elapsed_time(end) / reps)
     if not (args.clock or args.helical3d):
         times["int8_multisweep_blocks"] = i8ms.grid_blocks()
+        times["packed_3d_multisweep_blocks"] = ms3.multisweep_grid_blocks()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -219,6 +273,9 @@ def main() -> int:
                     print(line.strip())
     if args.helical3d:
         sass_report("helical3d_multispin", ("phase_kernel",))
+    elif not args.clock:
+        sass_report("ising3d_multispin", ("phase_kernel",
+                                          "multisweep_kernel"))
     print(json.dumps(times))
     return 0
 
@@ -231,6 +288,10 @@ def ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds, phase_key,
     va, vb = spins((2, 500, 500, 250)), spins((2, 500, 500, 250))
     wa, wb = words((4, 256, 4096)), words((4, 256, 4096))
     xa, xb = words((8, 512, 16, 256)), words((8, 512, 16, 256))
+    # the mesh 3-D class's shard of 512^3 x 8 on (2,4) and its halo planes
+    ha, hb = words((4, 128, 16, 256)), words((4, 128, 16, 256))
+    hzm, hzp = words((4, 1, 16, 256)), words((4, 1, 16, 256))
+    ya, yb = words((4, 256, 8, 128)), words((4, 256, 8, 128))
     return {
         "int8_multisweep": lambda: i8ms.multisweep_planes(ra, rb, seeds,
                                                           beta=b2),
@@ -242,6 +303,15 @@ def ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds, phase_key,
             wb, wa, phase_key, color=1, beta=b2, measuring=True),
         "packed_3d_phase_measuring": lambda: ms3.phase3d_packed(
             xb, xa, phase_key, color=1, beta=b3, measuring=True),
+        "packed_3d_phase": lambda: ms3.phase3d_packed(
+            xa, xb, phase_key, color=0, beta=b3),
+        "graph packed_3d_shard_measuring": lambda: ms3.sharded_phase3d_packed(
+            hb, ha, hzm, hzp, phase_key, (4, 256), color=1, beta=b3,
+            measuring=True),
+        "graph packed_3d_shard": lambda: ms3.sharded_phase3d_packed(
+            ha, hb, hzm, hzp, phase_key, (4, 256), color=0, beta=b3),
+        "packed_3d_multisweep": lambda: ms3.multisweep3d_planes(
+            ya, yb, seeds, beta=b3),
     }
 
 

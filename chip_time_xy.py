@@ -11,7 +11,12 @@ colour a plain and colour b measuring); with ``--periodic-angle``, the
 periodic engines' A/B: the component kernels (metropolis_kernel,
 over_relax_kernel) and the f32-angle ones (angle_metro_kernel,
 angle_or_kernel), colour a plain and colour b measuring, at the
-Metropolis classes' launches 2000x2000 x 32 and 10000x10000 x 1; with
+Metropolis classes' launches 2000x2000 x 32 and 10000x10000 x 1, the
+angle snapshot mode at the finite-magne class's 1000x1000 x 20, and
+reduce_kernel alone (xy2d_site.cuh, built into a probe library) on the
+partials of one measuring angle launch at both Metropolis shapes, timed
+as a CUDA graph (chip_time_ising.graph_ms), with the SASS of
+angle_metro_kernel and its snapshot mode's kernel; with
 ``--resident``, the resident disorder multisweep's two modes at every
 launch the disorder classes make (1500x1500 x 1, S = 64 and 40;
 1000x1000 x 1, S = 64 and 36) and past the shared-memory fit (1500x1500
@@ -159,6 +164,49 @@ def resident_modes(dev, gen, key, beta):
 
 # the periodic A/B's launches (R, ny, nx)
 ANGLE_SHAPES = ((32, 2000, 2000), (1, 10000, 10000))
+# the angle snapshot mode's launch (R, ny, nx): the finite-magne class
+SNAP_SHAPE = (20, 1000, 1000)
+
+_REDUCE_PROBE = """#include "xy2d_site.cuh"
+extern "C" int xy_reduce3(const void* part, void* obs, int nrep, int nblk,
+                          void* stream) {
+  xy::reduce_kernel<3><<<nrep, xy::THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(part), static_cast<double*>(obs), nblk);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def reduce_probe():
+    """``xy_reduce3(partials, obs, nrep, nblk, stream)``: xy2d_site.cuh's
+    reduce_kernel<3> alone, compiled from a probe source in .build/."""
+    import ctypes
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    src = _build.BUILD_DIR / "xy_reduce_probe.cu"
+    src.write_text(_REDUCE_PROBE)
+    out = _build.library_path("xy_reduce_probe")
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+           str(out), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=_build.BUILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc xy_reduce_probe: {proc.stderr}")
+    fn = ctypes.CDLL(str(out)).xy_reduce3
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def metro_blocks(xya, ny: int, half: int) -> int:
+    """Blocks a replica of one measuring angle Metropolis launch, so the
+    partials it leaves: the wrapper's tile grid where the checkout's
+    module has one, else one block a 256 sites (one thread a site)."""
+    if hasattr(xya, "metro_blocks"):
+        return xya.metro_blocks(ny, half)
+    return -(-ny * half // 256)
 
 
 def periodic_angle_modes(dev, gen, key, beta):
@@ -196,6 +244,25 @@ def periodic_angle_modes(dev, gen, key, beta):
             f"angle_or_measuring {tag}": lambda a=a, b=b: xya.or_phase(
                 b, a, color=1, measuring=True),
         })
+    reduce3 = reduce_probe()
+    for nrep, ny, nx in ANGLE_SHAPES:
+        nblk = metro_blocks(xya, ny, nx // 2)
+        part = torch.rand((nrep, nblk, 3), generator=gen, device=dev,
+                          dtype=torch.float64)
+        obs = torch.empty((nrep, 3), dtype=torch.float64, device=dev)
+
+        def reduce(part=part, obs=obs, nrep=nrep, nblk=nblk):
+            code = reduce3(part.data_ptr(), obs.data_ptr(), nrep, nblk,
+                           torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"xy_reduce3: CUDA error {code}")
+        modes[f"graph reduce_kernel {ny}x{nx}x{nrep} ({nblk} blocks)"] = \
+            reduce
+    nrep, ny, nx = SNAP_SHAPE
+    a, b, sa, sb = (torch.rand((nrep, ny, nx // 2), generator=gen,
+                               device=dev) - 0.5 for _ in range(4))
+    modes[f"angle_snapshot {ny}x{nx}x{nrep}"] = lambda: xya.metro_phase(
+        b, a, key, color=1, beta=beta, snap=(sb, sa))
     return modes
 
 
@@ -226,7 +293,8 @@ def main() -> int:
     beta = 1.0 / KBT
     if args.periodic_angle:
         return report(periodic_angle_modes(dev, gen, key, beta), args,
-                      ["xy2d_pallas", "xy2d_pallas_angle"])
+                      ["xy2d_pallas", "xy2d_pallas_angle"],
+                      sass=("angle_metro_kernel", "angle_metro_snap_kernel"))
     if args.resident:
         return report(resident_modes(dev, gen, key, beta), args,
                       [f"xy2d_resident{'_' + t if t else ''}"
@@ -270,9 +338,13 @@ def report(modes, args, libs, sass=()) -> int:
     """Time every mode ``args.rounds`` times in turns; print the card's
     line, the libraries' ptxas report, the SASS report of their functions
     whose names hold one of ``sass``, and the JSON line of times."""
+    from chip_time_ising import graph_ms
     times = {m: [] for m in modes}
     for _ in range(args.rounds):
         for mode, fn in modes.items():
+            if mode.startswith("graph "):
+                times[mode].append(graph_ms(fn))
+                continue
             for _ in range(3):
                 fn()
             start = torch.cuda.Event(enable_timing=True)

@@ -1,7 +1,9 @@
 // Bernoulli word planes of the bit-packed engines: each bit of the
 // returned word is 1 with probability q / 2^k, from Philox words
-// (philox.cuh); and the bit-sliced counters and flip masks of the 4- and
-// 6-neighbour stencils.  Shared by the Ising and clock kernels.
+// (philox.cuh), drawn by bern_word or, for the 3-D Ising kernels' three
+// chains, by the unrolled chain_planes; and the bit-sliced counters and
+// flip masks of the 4- and 6-neighbour stencils.  Shared by the Ising and
+// clock kernels.
 #pragma once
 #include <cstdint>
 
@@ -24,6 +26,116 @@ __device__ __forceinline__ uint32_t bern_word(WordStream& s, uint32_t q,
     b = ((q >> k) & 1u) ? (r | b) : (r & b);
   }
   return b;
+}
+
+// The B4, B8, B12 chains of one launch as a table
+// (ops/multispin_rng.chain_table): draws [0, e4) fold into B4, [e4, e8)
+// into B8, [e8, n) into B12, draw n being word n % 4 of Philox call n / 4.
+// fast bit c: draws 4c .. 4c + 3 all lie below n with no chain boundary
+// among them; live bit c: call c has a draw below n.
+constexpr int CHAIN_CALLS = 15;  // 60 draws: three chains of 20 digits
+struct ChainTable {
+  uint32_t digit[4 * CHAIN_CALLS];  // all ones on a one digit, else zero
+  uint32_t live, fast;
+  int e4, e8, n;
+};
+static_assert(sizeof(ChainTable) == 65 * 4, "ops/multispin_rng.py passes "
+              "the table as 65 32-bit words");
+
+// A table the chains can follow (host check before a launch)
+inline bool chain_table_ok(const ChainTable& t) {
+  return 0 <= t.e4 && t.e4 <= t.e8 && t.e8 <= t.n &&
+         t.n <= 4 * CHAIN_CALLS;
+}
+
+// r | B on a one digit (d all ones), r & B on a zero digit (d zero)
+__device__ __forceinline__ uint32_t fold(uint32_t r, uint32_t b, uint32_t d) {
+  return (r & b) | (r & d) | (b & d);
+}
+
+// Philox calls computed together: two independent chains of rounds
+constexpr int CALL_PAIR = 2;
+
+// The four draws of call c folded into the running chain b; a call with a
+// chain boundary or the last draw inside it (not fast) draw by draw
+__device__ __forceinline__ void fold_call(const ChainTable& t, int c, uint4 v,
+                                          uint32_t& b, uint32_t& p4,
+                                          uint32_t& p8) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  if ((t.fast >> c) & 1u) {  // uniform
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b = fold(w[j], b, t.digit[4 * c + j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 4 * c + j;
+      if (n < t.n) {  // a boundary at t.n is taken after the loop
+        if (n == t.e4) {
+          p4 = b;
+          b = 0u;
+        }
+        if (n == t.e8) {
+          p8 = b;
+          b = 0u;
+        }
+        b = fold(w[j], b, t.digit[n]);
+      }
+    }
+  }
+}
+
+// The B4, B8, B12 planes of the word at Philox counter (c0, c1, c2, .)
+// under the round keys rk_in (philox_round_keys of the phase key): the
+// bits of bern_word(q4), bern_word(q8), bern_word(q12) drawn in turn from
+// one WordStream, in a fully unrolled loop.  The Philox call index and the
+// word within it are compile-time constants; a draw folds into the
+// running chain in one three-input op, B <- maj(r, B, D), with D the
+// draw's digit (all ones or zero) from the table, a launch constant; the
+// chain boundaries are uniform, so a call that holds none folds its four
+// draws straight; the round keys are held in registers; the calls go in
+// pairs, two independent chains of rounds (a pair's second call past the
+// last draw is drawn and dropped).  bern_word instead runs a loop from
+// __ffs(q) and, for each draw, WordStream's refill test, a runtime pick of
+// the buffer word and the digit's shift, mask and select, and each
+// philox4x32_10 call recomputes its round keys.  A chain starts at B = 0
+// with a one digit, so its first draw gives B = r, as bern_word's.
+__device__ __forceinline__ void chain_planes(const ChainTable& t,
+                                             const uint2 (&rk_in)[10],
+                                             uint32_t c0, uint32_t c1,
+                                             uint32_t c2, uint32_t& p4,
+                                             uint32_t& p8, uint32_t& p12) {
+  uint32_t b = 0u;
+  p4 = p8 = 0u;
+  // the round keys in registers: taken from the constant bank they cost a
+  // uniform load a round and call
+  uint2 rk[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    rk[k] = rk_in[k];
+    asm volatile("" : "+r"(rk[k].x), "+r"(rk[k].y));
+  }
+#pragma unroll
+  for (int n0 = 0; n0 < CHAIN_CALLS; n0 += CALL_PAIR) {
+    if (((t.live >> n0) & 1u) == 0u) break;  // uniform
+    uint4 v[CALL_PAIR];
+#pragma unroll
+    for (int k = 0; k < CALL_PAIR; ++k)
+      if (n0 + k < CHAIN_CALLS)
+        v[k] = philox_rk(make_uint4(c0, c1, c2, n0 + k), rk);
+#pragma unroll
+    for (int k = 0; k < CALL_PAIR; ++k)
+      if (n0 + k < CHAIN_CALLS && ((t.live >> (n0 + k)) & 1u))
+        fold_call(t, n0 + k, v[k], b, p4, p8);
+  }
+  if (t.e4 == t.n) {
+    p4 = b;
+    b = 0u;
+  }
+  if (t.e8 == t.n) {
+    p8 = b;
+    b = 0u;
+  }
+  p12 = b;
 }
 
 // Bit-sliced count of four one-bit planes: (ones, twos, fours).

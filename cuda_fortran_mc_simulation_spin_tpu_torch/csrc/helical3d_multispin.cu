@@ -58,22 +58,14 @@
 // replica, 417.5 KiB, exceed the 227 KB of shared memory), with a
 // __syncthreads() between phases.
 //
-// phase_kernel draws its chains in a fully unrolled loop (chain_planes).
-// The first design (multisweep_kernel keeps it) called bern_word per
-// chain: a runtime loop from __ffs(q), and for each draw WordStream's
-// refill test, a runtime pick of the buffer word and the digit's shift,
-// and-mask and select, ~12-16 instructions a draw on top of Philox, and a
-// Philox call that recomputed its nine round-key bumps.  Here the Philox
-// call index and the word within it are compile-time constants; a draw
-// folds into the running chain in one three-input op, B <- maj(r, B, D),
-// with D the draw's digit (all ones or zero) from the per-launch
-// ChainTable in the kernel's parameters (a constant-bank operand); the
-// chain boundaries are uniform, so a call that holds none folds its four
-// draws straight; the round keys come from the launch, held in registers;
-// the calls go in pairs, two independent chains of rounds; and each
-// neighbour plane's colour is a compile-time choice (phase_kernel<NCROSS>).
-// PERF.md §6 has the variants' A/B.  The draws and their order are
-// bern_word's, so the planes are the plain chains' bits.
+// phase_kernel draws its chains in a fully unrolled loop (bernoulli.cuh
+// chain_planes, from the launch's ChainTable and round keys in its
+// parameters); the first design (multisweep_kernel keeps it) called
+// bern_word per chain, ~12-16 instructions a draw on top of Philox; and
+// each neighbour plane's colour is a compile-time choice
+// (phase_kernel<NCROSS>).  PERF.md §6 has the variants' A/B.  The draws
+// and their order are bern_word's, so the planes are the plain chains'
+// bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -101,20 +93,6 @@ struct Chains {
   uint32_t q4, q8, q12;  // chain digits: round(p * 2^20)
 };
 
-// The three chains of one launch (ops/helical3d_multispin.chain_table):
-// draws [0, e4) fold into B4, [e4, e8) into B8, [e8, n) into B12, draw n
-// being word n % 4 of Philox call n / 4.  fast bit c: draws 4c .. 4c + 3
-// all lie below n with no chain boundary among them; live bit c: call c
-// has a draw below n.
-constexpr int CHAIN_CALLS = 15;  // 60 draws: three chains of 20 digits
-struct ChainTable {
-  uint32_t digit[4 * CHAIN_CALLS];  // all ones on a one digit, else zero
-  uint32_t live, fast;
-  int e4, e8, n;
-};
-static_assert(sizeof(ChainTable) == 65 * 4, "ops/helical3d_multispin.py "
-              "passes the table as 65 32-bit words");
-
 struct PhaseArgs {
   const uint32_t* x_in;  // (R, W) colour being updated
   uint32_t* x_out;       // (R, W) result, never aliasing x_in
@@ -124,8 +102,8 @@ struct PhaseArgs {
   const uint32_t* b12;
   long long* obs;        // (R, 2) (m, e) sums, zeroed by the caller, or null
   Stencil st;
-  uint2 rk[10];          // Philox round keys of the phase key: k + r (W0, W1)
-  ChainTable chain;
+  uint2 rk[10];          // Philox round keys of the phase key
+  ChainTable chain;      // the launch's chains (bernoulli.cuh)
   int zsub;              // -1: every site; 0/1: z-plane parity zsub only
   int zh;                // colour sites per z-plane, nx*ny/2 (zsub >= 0)
 };
@@ -178,97 +156,6 @@ __device__ __forceinline__ void chain_words(const Chains& c, uint32_t r,
   p4 = bern_word(ws, c.q4);
   p8 = bern_word(ws, c.q8);
   p12 = bern_word(ws, c.q12);
-}
-
-// philox4x32_10 (philox.cuh) with its round keys given
-__device__ __forceinline__ uint4 philox_rk(uint4 c, const uint2 (&rk)[10]) {
-  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
-    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ rk[r].x, lo1, hi0 ^ c.w ^ rk[r].y, lo0);
-  }
-  return c;
-}
-
-// r | B on a one digit (d all ones), r & B on a zero digit (d zero)
-__device__ __forceinline__ uint32_t fold(uint32_t r, uint32_t b, uint32_t d) {
-  return (r & b) | (r & d) | (b & d);
-}
-
-// Philox calls computed together: two independent chains of rounds
-constexpr int CALL_PAIR = 2;
-
-// The four draws of call c folded into the running chain b; a call with a
-// chain boundary or the last draw inside it (not fast) draw by draw
-__device__ __forceinline__ void fold_call(const ChainTable& t, int c, uint4 v,
-                                          uint32_t& b, uint32_t& p4,
-                                          uint32_t& p8) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  if ((t.fast >> c) & 1u) {  // uniform
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b = fold(w[j], b, t.digit[4 * c + j]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = 4 * c + j;
-      if (n < t.n) {  // a boundary at t.n is taken after the loop
-        if (n == t.e4) {
-          p4 = b;
-          b = 0u;
-        }
-        if (n == t.e8) {
-          p8 = b;
-          b = 0u;
-        }
-        b = fold(w[j], b, t.digit[n]);
-      }
-    }
-  }
-}
-
-// The B4, B8, B12 planes of word g of replica r: chain_words' bits, the
-// draws in a fully unrolled loop (the header says why), the calls in pairs
-// (a pair's second call past the last draw is drawn and dropped).  A chain
-// starts at B = 0 with a one digit, so its first draw gives B = r, as
-// bern_word's.
-__device__ __forceinline__ void chain_planes(const PhaseArgs& a, uint32_t r,
-                                             uint32_t g, uint32_t& p4,
-                                             uint32_t& p8, uint32_t& p12) {
-  const ChainTable& t = a.chain;
-  uint32_t b = 0u;
-  p4 = p8 = 0u;
-  // the round keys in registers: taken from the constant bank they cost a
-  // uniform load a round and call
-  uint2 rk[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    rk[k] = a.rk[k];
-    asm volatile("" : "+r"(rk[k].x), "+r"(rk[k].y));
-  }
-#pragma unroll
-  for (int c0 = 0; c0 < CHAIN_CALLS; c0 += CALL_PAIR) {
-    if (((t.live >> c0) & 1u) == 0u) break;  // uniform
-    uint4 v[CALL_PAIR];
-#pragma unroll
-    for (int k = 0; k < CALL_PAIR; ++k)
-      if (c0 + k < CHAIN_CALLS)
-        v[k] = philox_rk(make_uint4(r, g, 0u, c0 + k), rk);
-#pragma unroll
-    for (int k = 0; k < CALL_PAIR; ++k)
-      if (c0 + k < CHAIN_CALLS && ((t.live >> (c0 + k)) & 1u))
-        fold_call(t, c0 + k, v[k], b, p4, p8);
-  }
-  if (t.e4 == t.n) {
-    p4 = b;
-    b = 0u;
-  }
-  if (t.e8 == t.n) {
-    p8 = b;
-    b = 0u;
-  }
-  p12 = b;
 }
 
 // Fused sums of one word of phase b with vm its valid bits: s = 2 bit - 1
@@ -352,8 +239,8 @@ __global__ void __launch_bounds__(PHASE_THREADS)
         p8 = a.b8[base + g];
         p12 = a.b12[base + g];
       } else {
-        chain_planes(a, static_cast<uint32_t>(r), static_cast<uint32_t>(g),
-                     p4, p8, p12);
+        chain_planes(a.chain, a.rk, static_cast<uint32_t>(r),
+                     static_cast<uint32_t>(g), 0u, p4, p8, p12);
       }
       nv = xv ^ (flip6(xv, b1, b2, b4c, p4, p8, p12) & allow);
     }
@@ -496,11 +383,9 @@ int helical3d_phase(const void* x_in, void* x_out, const void* o,
   a.b12 = static_cast<const uint32_t*>(b12);
   a.obs = static_cast<long long*>(obs);
   set_stencil(a.st, nw, m, ncross, d);
-  for (int r = 0; r < 10; ++r)
-    a.rk[r] = make_uint2(s0 + r * 0x9E3779B9u, s1 + r * 0xBB67AE85u);
+  philox_round_keys(s0, s1, a.rk);
   std::memcpy(&a.chain, chain, sizeof(ChainTable));
-  const ChainTable& t = a.chain;
-  if (t.e4 < 0 || t.e4 > t.e8 || t.e8 > t.n || t.n > 4 * CHAIN_CALLS)
+  if (!chain_table_ok(a.chain))
     return static_cast<int>(cudaErrorInvalidValue);
   a.zsub = zsub;
   a.zh = zh;

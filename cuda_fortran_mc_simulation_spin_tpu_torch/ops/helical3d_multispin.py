@@ -24,7 +24,8 @@ The CUDA kernels are in ``csrc/helical3d_multispin.cu``:
 - ``phase_kernel``: one (sub-)phase with Philox words or injected planes,
   with the fused exact (m, e) (m only at even nx·ny); its Bernoulli chains
   are drawn in a fully unrolled loop from a per-launch table
-  (:func:`chain_table`);
+  (``ops/multispin_rng.chain_table``, the table the periodic 3-D kernels
+  follow too);
 - ``energy_kernel``: the exact (m, e) of the final vectors, which the
   even-nx·ny route needs every sweep;
 - ``multisweep_kernel``: S sweeps in one launch at odd nx·ny.
@@ -45,7 +46,6 @@ TPU layout and has no counterpart: the kernels read across the wrap.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -58,7 +58,6 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.helical_multispin import (
     words,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
-    CHAIN_BITS,
     MASK32,
     PACK,
     _bern_plane,
@@ -70,10 +69,17 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _u32,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising3d_multispin import (
+    _TABLE,
     _count6,
     _densities,
     _flip_plane3d,
+    _table,
     chain_words3d,
+)
+# the unrolled chains' table (its tests name it here)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.multispin_rng import (
+    CHAIN_CALLS,
+    chain_table,
 )
 
 # colour sites up to which the kernels index bits in 32-bit ints (a read
@@ -81,9 +87,6 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising3d_multispin import (
 MAX_SITES = 1 << 30
 # replicas of one launch: the phase and energy grids put them on y
 MAX_REPLICAS = 65535
-# Philox calls of phase_kernel's unrolled chains: 60 draws, three chains
-# of CHAIN_BITS digits
-CHAIN_CALLS = 15
 
 LAUNCHES = {"phase": 0, "phase_measuring": 0, "energy": 0, "multisweep": 0}
 
@@ -306,7 +309,7 @@ def _lib() -> ctypes.CDLL:
     lib.helical3d_phase.argtypes = [
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
         _INT, _INT, _INT, _INT, _INTS, _INT, _INT,
-        _UINT, _UINT, ctypes.POINTER(_UINT), _VOID]
+        _UINT, _UINT, _TABLE, _VOID]
     lib.helical3d_phase.restype = _INT
     lib.helical3d_energy.argtypes = [
         _VOID, _VOID, _VOID, _INT, _INT, _INT, _INTS, _INT, _VOID]
@@ -343,40 +346,6 @@ def _offsets(offs, m: int):
     return (ctypes.c_int * 6)(*(d % m for d in offs))
 
 
-@functools.lru_cache(maxsize=64)
-def chain_table(q: tuple[int, int, int]) -> tuple[int, ...]:
-    """``phase_kernel``'s table of the chains B4, B8, B12 of digits ``q``
-    (ops/ising3d_multispin.chain_words3d), the 65 words of the kernel's
-    ChainTable: for draw n = 0 .. 59 its digit (MASK32 on a one digit, 0
-    on a zero digit; draw n is word n % 4 of Philox call n // 4), then
-    bit masks ``live`` (call c has a draw below n_all) and ``fast`` (draws
-    4c .. 4c + 3 all lie below n_all in one chain), then e4, e8, n_all:
-    the chains take draws [0, e4), [e4, e8) and [e8, n_all), each from its
-    lowest one digit up to digit CHAIN_BITS - 1, as
-    :func:`ising2d_multispin._bern_plane` draws them (a chain of q = 0
-    draws none)."""
-    digit, ends = [], []
-    for qx in q:
-        if not 0 <= qx < 1 << CHAIN_BITS:
-            raise ValueError(f"chain digits q = {qx} outside [0, 2^"
-                             f"{CHAIN_BITS})")
-        if qx:
-            low = (qx & -qx).bit_length() - 1
-            digit += [MASK32 if (qx >> k) & 1 else 0
-                      for k in range(low, CHAIN_BITS)]
-        ends.append(len(digit))
-    e4, e8, n_all = ends
-    live = fast = 0
-    for c in range(CHAIN_CALLS):
-        lo = 4 * c
-        if lo < n_all:
-            live |= 1 << c
-        if lo + 4 <= n_all and not any(lo <= e < lo + 4 for e in (e4, e8)):
-            fast |= 1 << c
-    digit += [0] * (4 * CHAIN_CALLS - n_all)
-    return (*digit, live, fast, e4, e8, n_all)
-
-
 def _launch_phase(xw, ow, seeds, *, color, nx, nxy, m, q, bits=None,
                   zsub=None, measuring=False):
     _check(m, xw, ow, *(bits or ()))
@@ -398,7 +367,7 @@ def _launch_phase(xw, ow, seeds, *, color, nx, nxy, m, q, bits=None,
             None if obs is None else obs.data_ptr(),
             nrep, nw, m, len(offs_cross), _offsets(offs_cross + offs_self, m),
             -1 if zsub is None else zsub, nxy // 2, s0, s1,
-            (_UINT * (4 * CHAIN_CALLS + 5))(*chain_table(q)), _stream(xw))
+            _table(q), _stream(xw))
     _raise_on(lib, code, "helical3d phase_kernel")
     LAUNCHES["phase"] += 1
     if measuring:

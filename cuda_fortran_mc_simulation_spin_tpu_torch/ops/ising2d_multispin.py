@@ -51,7 +51,7 @@ PACK = 32          # spins per word
 # the JAX kernels accumulate (m, e) in int32 and cap the lattice here;
 # the port accumulates in int64 and needs no cap (kept for reference)
 OBS_INT32_MAX_SITES = (2 ** 31 - 1) // 3
-CHAIN_BITS = 20    # Bernoulli-chain resolution: P quantized to 2^-20
+CHAIN_BITS = multispin_rng.CHAIN_BITS  # P quantized to 2^-20
 MASK32 = 0xFFFFFFFF
 _ODD_BITS = 0xAAAAAAAA   # word bits at odd lattice rows
 _EVEN_BITS = 0x55555555

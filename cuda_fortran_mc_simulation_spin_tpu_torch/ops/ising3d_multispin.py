@@ -17,7 +17,10 @@ colour, so packed words compare bitwise with JAX directly.  Per word:
 
 The CUDA kernels are in ``csrc/ising3d_multispin.cu``: ``phase_kernel``
 (one phase, optional fused exact (m, e), optional injected planes) and
-``multisweep_kernel`` (S sweeps in one cooperative launch).  Beside each is
+``multisweep_kernel`` (S sweeps in one cooperative launch).  Both draw the
+three chains in one unrolled line that follows a per-launch table
+(``ops/multispin_rng.chain_table``, passed with the phase key), as the
+helical 3-D phase does.  Beside each is
 its plain PyTorch version here, with the same Philox words: key = the
 (sample, t, phase) key, counter = (replica, z·(ny/32) + word row, column,
 draw/4) (ops/multispin_rng.py).  A wrapper takes the plain version for a
@@ -259,6 +262,13 @@ def multisweep3d_plain(wa, wb, seeds, *, beta: float):
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 _UINT = ctypes.c_uint
+_TABLE = ctypes.POINTER(_UINT)
+
+
+def _table(q) -> ctypes.Array:
+    """The kernels' ChainTable of chain digits ``q`` (65 words)."""
+    return (_UINT * (4 * multispin_rng.CHAIN_CALLS + 5))(
+        *multispin_rng.chain_table(tuple(q)))
 
 
 def _lib() -> ctypes.CDLL:
@@ -267,15 +277,14 @@ def _lib() -> ctypes.CDLL:
         return lib
     lib.ising3d_phase.argtypes = [
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
-        _INT, _INT, _INT, _INT, _INT, _UINT, _UINT, _UINT, _UINT, _UINT,
-        _VOID]
+        _INT, _INT, _INT, _INT, _INT, _UINT, _UINT, _TABLE, _VOID]
     lib.ising3d_phase.restype = _INT
     lib.ising3d_multisweep.argtypes = [
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
-        _INT, _INT, _INT, _INT, _INT, _UINT, _UINT, _UINT, _VOID]
+        _INT, _INT, _INT, _INT, _INT, _TABLE, _VOID]
     lib.ising3d_multisweep.restype = _INT
     lib.ising3d_shard_phase.argtypes = (
-        [_VOID] * 9 + [_INT] * 5 + [_UINT] * 7 + [_VOID])
+        [_VOID] * 9 + [_INT] * 5 + [_UINT] * 4 + [_TABLE, _VOID])
     lib.ising3d_shard_phase.restype = _INT
     lib.ising3d_multisweep_grid.argtypes = [ctypes.POINTER(_INT)]
     lib.ising3d_multisweep_grid.restype = _INT
@@ -332,7 +341,7 @@ def _launch_phase(xw, ow, seeds, color, q, bits=None, measuring=False):
             None if b8 is None else b8.data_ptr(),
             None if b12 is None else b12.data_ptr(),
             None if obs is None else obs.data_ptr(),
-            nrep, nz, nyp, half, color, s0, s1, *q, _stream(xw))
+            nrep, nz, nyp, half, color, s0, s1, _table(q), _stream(xw))
     _raise_on(lib, code, "ising3d phase_kernel")
     LAUNCHES["phase"] += 1
     if measuring:
@@ -383,7 +392,7 @@ def multisweep3d_planes(wa, wb, seeds, *, beta: float):
         code = lib.ising3d_multisweep(
             wa.data_ptr(), wb.data_ptr(), wa_out.data_ptr(),
             wb_out.data_ptr(), seeds_dev.data_ptr(), obs.data_ptr(), nrep,
-            nz, nyp, half, sweeps, *chain_words3d(beta), _stream(wa))
+            nz, nyp, half, sweeps, _table(chain_words3d(beta)), _stream(wa))
     _raise_on(lib, code, "ising3d multisweep_kernel")
     LAUNCHES["multisweep"] += 1
     return wa_out, wb_out, obs
@@ -427,7 +436,7 @@ def sharded_phase3d_packed(xw, ow, hzm, hzp, seeds, offs, *, color: int,
         code = lib.ising3d_shard_phase(
             xw.data_ptr(), out.data_ptr(), ow.data_ptr(), hzm.data_ptr(),
             hzp.data_ptr(), ptr(b4), ptr(b8), ptr(b12), ptr(obs), nrep, nz,
-            nyp, half, color, rep0, z0, s0, s1, *q, _stream(xw))
+            nyp, half, color, rep0, z0, s0, s1, _table(q), _stream(xw))
     _raise_on(lib, code, "ising3d phase_kernel<true>")
     LAUNCHES["shard_phase"] += 1
     if measuring:

@@ -18,15 +18,27 @@ function per thread (``csrc/philox.cuh`` ``WordStream``); :func:`word_stream`
 is its plain PyTorch version on whole planes.  Because the counter names the word's
 global position, the bits depend on neither the tiling, the host chunking
 nor the kernel, and every run is deterministic.
+
+The 3-D Ising kernels (``csrc/ising3d_multispin.cu``,
+``csrc/helical3d_multispin.cu``) draw their three Bernoulli chains from
+these words in one unrolled line (``csrc/bernoulli.cuh`` ``chain_planes``)
+that follows a per-launch table, :func:`chain_table`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
 from cuda_fortran_mc_simulation_spin_tpu_torch.core import rng
+
+CHAIN_BITS = 20    # Bernoulli-chain resolution: P quantized to 2^-20
+# Philox calls of the unrolled chains: 60 draws, three chains of
+# CHAIN_BITS digits (CHAIN_CALLS in csrc/bernoulli.cuh)
+CHAIN_CALLS = 15
+_ONES = 0xFFFFFFFF
 
 
 def word_stream(key, nrep: int, nyp: int, half: int, device=None,
@@ -71,3 +83,37 @@ def sweep_phase_keys(key, sweeps: int, t0: int = 0, phases: int = 2
     keys = rng.sweep_key(key, ts)
     return torch.stack([rng.seeds_from_key(keys, p) for p in range(phases)],
                        dim=1)
+
+
+@functools.lru_cache(maxsize=64)
+def chain_table(q: tuple[int, int, int]) -> tuple[int, ...]:
+    """The table of the chains B4, B8, B12 of digits ``q`` (each
+    round(p·2^20)) that ``csrc/bernoulli.cuh`` ``chain_planes`` follows,
+    the 65 words of its ChainTable: for draw n = 0 .. 59 its digit
+    (all ones on a one digit, 0 on a zero digit; draw n is word n % 4 of
+    Philox call n // 4), then bit masks ``live`` (call c has a draw below
+    n_all) and ``fast`` (draws 4c .. 4c + 3 all lie below n_all in one
+    chain), then e4, e8, n_all: the chains take draws [0, e4), [e4, e8)
+    and [e8, n_all), each from its lowest one digit up to digit
+    CHAIN_BITS - 1, as ``ops/ising2d_multispin._bern_plane`` draws them (a
+    chain of q = 0 draws none)."""
+    digit, ends = [], []
+    for qx in q:
+        if not 0 <= qx < 1 << CHAIN_BITS:
+            raise ValueError(f"chain digits q = {qx} outside [0, 2^"
+                             f"{CHAIN_BITS})")
+        if qx:
+            low = (qx & -qx).bit_length() - 1
+            digit += [_ONES if (qx >> k) & 1 else 0
+                      for k in range(low, CHAIN_BITS)]
+        ends.append(len(digit))
+    e4, e8, n_all = ends
+    live = fast = 0
+    for c in range(CHAIN_CALLS):
+        lo = 4 * c
+        if lo < n_all:
+            live |= 1 << c
+        if lo + 4 <= n_all and not any(lo <= e < lo + 4 for e in (e4, e8)):
+            fast |= 1 << c
+    digit += [0] * (4 * CHAIN_CALLS - n_all)
+    return (*digit, live, fast, e4, e8, n_all)

@@ -13,7 +13,9 @@ tp − rint(tp) (round half to even, as ``jnp.round``).
 
 - ``angle_metro_kernel``, which replaces ``_angle_metro_kernel``
   (pallas_call at ``:267``, ``_angle_metro_phase``): one Metropolis
-  colour phase, uniforms from Philox or injected, with ``measuring`` the
+  colour phase on a decode-once tile a block (the helical angle phase's
+  design and grid, ``xy2d_helical_dense_angle.tile_grid``),
+  uniforms from Philox or injected, with ``measuring`` the
   per-replica (Σ S_x, Σ S_y, e) over both colours; its snapshot mode
   replaces ``_angle_metro_snap_kernel`` (``:405``,
   ``_angle_metro_snap_phase``): the same phase with
@@ -161,12 +163,23 @@ _INT = ctypes.c_int
 _UINT = ctypes.c_uint
 
 
+def metro_blocks(ny: int, half: int) -> int:
+    """Blocks a replica of an ``angle_metro_kernel`` launch over (ny,
+    half) sites, so the partial sums a measuring launch leaves a replica:
+    the helical angle phase's tiles and cap
+    (ops/xy2d_helical_dense_angle.tile_grid; ``TILE`` columns of a
+    colour's half-plane x ``TILE`` rows, at most ``MAX_TILE_BLOCKS``
+    blocks a replica), over (ny, half)."""
+    gx, gy = xy2d_helical_dense_angle.tile_grid(ny, half)
+    return gx * gy
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("xy2d_pallas_angle")
     if lib.xya_metro.argtypes is not None:
         return lib
     lib.xya_metro.argtypes = (
-        [_VOID] * 8 + [_INT] * 4 + [ctypes.c_float, _UINT, _UINT, _VOID])
+        [_VOID] * 8 + [_INT] * 5 + [ctypes.c_float, _UINT, _UINT, _VOID])
     lib.xya_or.argtypes = [_VOID] * 4 + [_INT] * 4 + [_VOID]
     for fn in (lib.xya_metro, lib.xya_or):
         fn.restype = _INT
@@ -202,13 +215,20 @@ def metro_phase(s, o, rand, *, color: int, beta: float,
         s0, s1 = (int(v) & MASK32 for v in torch.as_tensor(rand).tolist())
     nrep, ny, half = s.shape
     measuring = measuring or snap is not None
-    partials, obs = scratch(s, measuring, nsums=3 if snap is None else 4)
+    nsums = 3 if snap is None else 4
+    gy = xy2d_helical_dense_angle.tile_grid(ny, half)[1]
+    partials = obs = None
+    if measuring:
+        partials = torch.empty((nrep, metro_blocks(ny, half), nsums),
+                               dtype=torch.float64, device=s.device)
+        obs = torch.empty((nrep, nsums), dtype=torch.float64,
+                          device=s.device)
     sns, sno = (None, None) if snap is None else snap
     lib = _lib()
     with torch.cuda.device(s.device):
         code = lib.xya_metro(
             s.data_ptr(), o.data_ptr(), _ptr(u_cand), _ptr(u_acc), _ptr(sns),
-            _ptr(sno), _ptr(partials), _ptr(obs), nrep, ny, half, color,
+            _ptr(sno), _ptr(partials), _ptr(obs), nrep, ny, half, gy, color,
             -float(beta), s0, s1, _stream(s))
     _raise_on(code, lib, "angle_metro_kernel")
     LAUNCHES["metro"] += 1

@@ -261,6 +261,63 @@ def test_helical3d_phase_kernel_chain_edges(cuda, kbt, nx, ny, nz):
             assert torch.equal(gobs, wobs)
 
 
+def _volumes(dev, shape, seed, n):
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy(g.integers(-2 ** 31, 2 ** 31, size=shape,
+                                        dtype=np.int64).astype(np.int32)
+                             ).to(dev) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kbt", H3_CHAIN_KBTS)
+def test_ising3d_phase_kernel_wraps_at_chain_edges(cuda, kbt):
+    """The periodic 3-D phase_kernel where every neighbour wraps (nz = 2
+    planes, nyp = 8 word rows, half = 32 words: one column tile) at chain
+    digits of every kind: injected planes, Philox words plain and
+    measuring, both colours, bitwise against the plain versions."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising3d_multispin as ms3,
+    )
+    x, o, b4, b8, b12 = _volumes(cuda, (3, 2, 8, 32), 11, 5)
+    for color in (0, 1):
+        assert torch.equal(
+            ms3.phase3d_packed_with_bits(x, o, b4, b8, b12, color=color),
+            ms3.packed_phase3d_reference(x, o, color, b4, b8, b12))
+        seeds = rng.seeds_from_key(rng.base_key(13), color)
+        kw = dict(color=color, beta=1 / kbt)
+        assert torch.equal(ms3.phase3d_packed(x, o, seeds, **kw),
+                           ms3.phase3d_plain(x, o, seeds, **kw))
+        got, obs = ms3.phase3d_packed(x, o, seeds, measuring=True, **kw)
+        want, wobs = ms3.phase3d_plain(x, o, seeds, measuring=True, **kw)
+        assert torch.equal(got, want) and torch.equal(obs, wobs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kbt", [4.51152, 0.5, 1e9])
+def test_ising3d_multisweep_kernel_wraps_at_chain_edges(cuda, kbt):
+    """multisweep_kernel on a volume where every neighbour wraps, 4 sweeps,
+    against streamed phase pairs and its plain version (state and the
+    exact (m, e) of every sweep)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising3d_multispin as ms3,
+    )
+    wa, wb = _volumes(cuda, (3, 2, 8, 64), 17, 2)
+    seeds = ms3.sweep_seed_pairs(rng.sample_key(rng.base_key(4), 1), 4)
+    beta = 1 / kbt
+    ka, kb, kobs = ms3.multisweep3d_planes(wa, wb, seeds, beta=beta)
+    pa, pb, obs = wa, wb, []
+    for s in range(4):
+        pa = ms3.phase3d_packed(pa, pb, seeds[s, 0], color=0, beta=beta)
+        pb, o = ms3.phase3d_packed(pb, pa, seeds[s, 1], color=1, beta=beta,
+                                   measuring=True)
+        obs.append(o)
+    assert torch.equal(ka, pa) and torch.equal(kb, pb)
+    assert torch.equal(kobs, torch.stack(obs, dim=1))
+    qa, qb, qobs = ms3.multisweep3d_plain(wa, wb, seeds, beta=beta)
+    assert torch.equal(ka, qa) and torch.equal(kb, qb)
+    assert torch.equal(kobs, qobs)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nx,ny,nz", H3_SHAPES)
 def test_helical3d_energy_kernel_matches_plain_and_exact_sums(cuda, nx, ny,
@@ -1295,6 +1352,57 @@ def test_xy_angle_kernels_match_plain(cuda, ny, nx):
                 _xy_sums_close(got[1], want[1])
 
 
+# periodic angle tiles: half 5000 (the literal 10000^2 class's, not a
+# multiple of 32) at a few rows, rows not a multiple of 32, half < 32,
+# ny = 2, and a grid capped at MAX_TILE_BLOCKS a replica (1024 column
+# tiles x 16 row blocks, each walking two tile rows of 544)
+XY_ANGLE_TILE_SHAPES = [(6, 10000, 1), (34, 10000, 2), (2, 10, 2),
+                        (2, 64, 3), (4, 40, 2), (33, 62, 2), (2, 2, 1),
+                        (544, 65536, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx,nrep", XY_ANGLE_TILE_SHAPES)
+def test_xy_angle_metro_tile_ragged(cuda, ny, nx, nrep):
+    """angle_metro_kernel's decode-once tile at ragged shapes and a capped
+    grid: injected and Philox uniforms, plain, measuring and the snapshot
+    mode, both colours, the state bitwise against the plain version and
+    the sums to float64 rounding; a second launch on the same inputs
+    repeats the sums bitwise."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense_angle as xha,
+        xy2d_pallas_angle as xa,
+    )
+    half = nx // 2
+    gx, gy = xha.tile_grid(ny, half)
+    assert gx * 32 >= half and gy <= -(-ny // 32)
+    assert gx * gy <= xha.MAX_TILE_BLOCKS or gy == 1
+    if (ny, nx) == (544, 65536):
+        assert gy < -(-ny // 32)
+    assert xa.metro_blocks(ny, half) == gx * gy
+    shape = (nrep, ny, half)
+    a, b, sa, sb = _turns(cuda, shape, nx + ny + nrep)
+    g = np.random.default_rng(ny + nrep)
+    u = tuple(torch.from_numpy(g.random(shape, dtype=np.float32)).to(cuda)
+              for _ in range(2))
+    for color in (0, 1):
+        s, o = (a, b) if color == 0 else (b, a)
+        snap = (sa, sb) if color == 0 else (sb, sa)
+        seeds = rng.seeds_from_key(rng.base_key(12), color)
+        for rand in (u, seeds):
+            for mode in ({}, {"measuring": True}, {"snap": snap}):
+                kw = dict(color=color, beta=1 / KBT_XY, **mode)
+                ks, ps, ks2 = s.clone(), s.clone(), s.clone()
+                got = xa.metro_phase(ks, o, rand, **kw)
+                want = xa.metro_phase_plain(ps, o, rand, **kw)
+                assert torch.equal(ks, ps)
+                assert ks.numel() < 64 or not torch.equal(ks, s)
+                if mode:
+                    _xy_sums_close(got[1], want[1])
+                    again = xa.metro_phase(ks2, o, rand, **kw)
+                    assert torch.equal(again[1], got[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,n_or,or_only", [
     ((2, 32, 24), 0, False), ((2, 32, 24), 1, False),
@@ -1533,6 +1641,39 @@ def test_packed3d_shard_kernel_matches_plain(cuda, color):
         want = ms3.sharded_phase3d_packed_plain(x, o, zm, zp, seeds, (2, 6),
                                                 **kw, **extra)
         assert _same(got, want), extra
+
+
+# ragged z-shards (R, L, nyp, half) at global offsets (rep0, z0): partial
+# column tiles, word rows not a multiple of 8, an odd z0, one plane with
+# both halos, one word
+PACKED3D_RAGGED_SHARDS = [((3, 5, 9, 45), (1, 3)), ((2, 1, 17, 33), (4, 7)),
+                          ((1, 1, 1, 1), (0, 0)), ((2, 3, 8, 70), (0, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offs", PACKED3D_RAGGED_SHARDS)
+def test_packed3d_shard_kernel_ragged_shards(cuda, shape, offs):
+    """phase_kernel<true> at ragged shard shapes, both colours, injected
+    planes, Philox words plain and measuring, at the 3-D classes' kbt and
+    a kbt whose chains draw no word: bitwise against the plain version."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising3d_multispin as ms3,
+    )
+    g = np.random.default_rng(sum(shape))
+    R, L, NYP, H = shape
+    x, o, b4, b8, b12 = (_shard_words(g, shape, cuda) for _ in range(5))
+    zm, zp = (_shard_words(g, (R, 1, NYP, H), cuda) for _ in range(2))
+    for color in (0, 1):
+        seeds = rng.seeds_from_key(rng.base_key(21), color)
+        for kbt in (4.51152, 0.2):
+            kw = dict(color=color, beta=1 / kbt)
+            for extra in ({}, {"b4": b4, "b8": b8, "b12": b12},
+                          {"measuring": True}):
+                got = ms3.sharded_phase3d_packed(x, o, zm, zp, seeds, offs,
+                                                 **kw, **extra)
+                want = ms3.sharded_phase3d_packed_plain(
+                    x, o, zm, zp, seeds, offs, **kw, **extra)
+                assert _same(got, want), (color, kbt, extra)
 
 
 @pytest.mark.cuda

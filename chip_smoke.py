@@ -120,9 +120,12 @@ Phases (each prints a progress line on stderr):
      (10000x10000 x 1, 2000x2000 x 32, 4000x4000 x 8, 1000x1000 x 20):
      angle_metro_kernel plain, measuring and in its snapshot mode (Philox;
      injected uniforms at the small shape) and angle_or_kernel plain and
-     measuring, both colours; the int16 multisweep at 32x48 x 2 (S = 4,
-     n_or 0, 1 and or_only) and at the int16 class's launches (1536x1536 x
-     1, S = 64 and 40); states bitwise, sums within 1e-12 of their scale;
+     measuring, both colours; the int16 multisweep in both modes (the
+     shared-memory mode where its fit rule takes the batch, the grid-
+     barrier mode past it and where forced) at 32x48 x 2 (S = 4, n_or 0, 1
+     and or_only), at the int16 classes' launches (1536x1536 x 1, S = 64
+     and 40, and with one OR sweep; 1536x1536 x 2, S = 8) and forced at
+     1536x1536 x 1; states bitwise, sums within 1e-12 of their scale;
 2b. <m>, <e> after one sweep from all-up against their closed forms for
    the chains' quantized acceptances, over >= 1e10 sites per path (helical
    3-D at 151^3 and 501^3, where every neighbour lies in the other
@@ -248,9 +251,11 @@ Phases (each prints a progress line on stderr):
    finite-magne 1000x1000 x 20, 40 samples, 100 MCS, m0 0.02 (its curve,
    every t); under SPINLAT_XY_ANGLE_MS=1 the route readings (1500^2
    streamed, JAX's gate refusing ny % 16; 1536^2 on the int16 kernel) and
-   from-disorder at 1536x1536 x 1, 32 samples, 1000 MCS, against the
-   1500x1500 curve's size-free <e>, <A> and N·<m^2> at every t (combined
-   sigma; Var(m^2) of a Gaussian m from the curve's second moments); and
+   from-disorder at 1536x1536 x 1, 32 samples, 1000 MCS (the int16
+   multisweep's shared-memory mode) and at 1536x1536 x 2, 4 samples, 200
+   MCS (past its fit: the grid-barrier mode), against the 1500x1500
+   curve's size-free <e>, <A> and N·<m^2> at every t (combined sigma;
+   Var(m^2) of a Gaussian m from the curve's second moments); and
    every earlier XY class, run with neither switch set, launched no angle
    kernel;
 4m. periodic Ising on a mesh (parallel/domain.py) of the one card repeated,
@@ -314,8 +319,9 @@ Phases (each prints a progress line on stderr):
    (angle_metro_kernel plain and measuring at 10000x10000 x 1 and
    2000x2000 x 32, plain at 4000x4000 x 8 and 1000x1000 x 20, its
    snapshot mode at 1000x1000 x 20, angle_or_kernel plain and measuring
-   at 4000x4000 x 8, the int16 multisweep at 1536x1536 x 1 with S = 64
-   and 40), each held against its plain version, each angle class's
+   at 4000x4000 x 8, the int16 multisweep's shared-memory mode at
+   1536x1536 x 1 with S = 64 and 40, its grid-barrier mode at 1536x1536 x
+   2 with S = 64 and 8), each held against its plain version, each angle class's
    kernel share of its wall, and the A/B of the two periodic engines
    (2000x2000 x 32 end to end and a sweep's kernels; the OR class).  The
    helical 3-D multisweep is timed alone at its class's S = 64 and held
@@ -1231,18 +1237,24 @@ def valid_rand(spec, rand):
     return rand
 
 
-CLOCK_CHECK_SHAPES = ((16, 2048, 2048), (4, 2000, 2000))
+# (R, ny, nx, kbts of the Philox checks): the aligned and the padded
+# main-path geometries at their classes' kbt (and 0.91), and a ragged shape
+# (7 word rows, 8 real rows in the top one; 70 words a row, partial tiles
+# both ways) at temperatures whose chains take 12 digits, all ones (1e9),
+# and up to 28, some empty (0.05)
+CLOCK_CHECK_SHAPES = ((16, 2048, 2048, (KBT_CLOCK, KBT_CLOCK_08)),
+                      (4, 2000, 2000, (KBT_CLOCK,)),
+                      (3, 200, 140, (KBT_CLOCK, 1e9, 0.05)))
 
 
 def check_clock(cp, rng, dev) -> int:
     """Clock phase kernel vs its plain version, bitwise, for q = 6, 4, 3
-    on the aligned and the padded main-path geometries, both colours,
-    injected and Philox planes, measuring and not.  Returns the largest
-    absolute difference seen."""
+    at CLOCK_CHECK_SHAPES, both colours, injected and Philox planes (the
+    unrolled draw at each of the shape's kbts), measuring and not.
+    Returns the largest absolute difference seen."""
     err = 0
-    beta = 1.0 / KBT_CLOCK
     for q, spec in clock_specs().items():
-        for nrep, ny, nx in CLOCK_CHECK_SHAPES:
+        for nrep, ny, nx, kbts in CLOCK_CHECK_SHAPES:
             half, nyw = nx // 2, -(-ny // 32)
             planes = clock_words(dev, nrep, nyw, half,
                                  2 * spec.n_state + spec.n_rand, q + ny, ny,
@@ -1266,21 +1278,21 @@ def check_clock(cp, rng, dev) -> int:
                                                            want[1])]))
                     else:
                         errs.append(max_abs_err(zip(got, want)))
-                    kw = dict(color=color, beta=beta, ny=ny,
-                              measuring=measuring)
-                    got = cp.phase_packed(spec, x, o, seeds[color], **kw)
-                    want = cp.phase_plain(spec, x, o, seeds[color], **kw)
-                    if measuring:
-                        errs.append(max_abs_err(
-                            list(zip(got[0], want[0])) + [(got[1],
-                                                           want[1])]))
-                    else:
-                        errs.append(max_abs_err(zip(got, want)))
+                    for kbt in kbts:
+                        kw = dict(color=color, beta=1.0 / kbt, ny=ny,
+                                  measuring=measuring)
+                        got = cp.phase_packed(spec, x, o, seeds[color], **kw)
+                        want = cp.phase_plain(spec, x, o, seeds[color], **kw)
+                        if measuring:
+                            errs.append(max_abs_err(
+                                list(zip(got[0], want[0])) + [(got[1],
+                                                               want[1])]))
+                        else:
+                            errs.append(max_abs_err(zip(got, want)))
                 err = max(err, *errs)
                 log(f"  clock q={q} phase kernel {nrep}x{ny}x{nx} colour "
-                    f"{color}: injected {errs[0]}, philox {errs[1]}, "
-                    f"injected measuring {errs[2]}, philox measuring "
-                    f"{errs[3]}")
+                    f"{color}, kbt {kbts}: injected, philox at each kbt, "
+                    f"then measuring: {errs}")
             del planes, x, o, rand
     torch.cuda.synchronize()
     if err != 0:
@@ -3908,12 +3920,20 @@ def hp_shares(classes: dict, th: dict) -> dict[str, float]:
 XYA_SHAPES = ((2, 256, 200, KBT_XY), (1, 10000, 10000, KBT_XY_2000),
               (32, 2000, 2000, KBT_XY_2000), (8, 4000, 4000, KBT_XY),
               (20, 1000, 1000, KBT_XY))
-# ((R, ny, nx), S, n_or, or_only) of the int16 multisweep's checks: a small
-# shape in every mode, then the from-disorder class's launches (1000 MCS:
-# 15 launches of 64 and one of 40)
-XYI_CHECKS = (((2, 32, 48), 4, 0, False), ((2, 32, 48), 4, 1, False),
-              ((2, 32, 48), 4, 2, True), ((1, 1536, 1536), 64, 0, False),
-              ((1, 1536, 1536), 40, 0, False))
+# ((R, ny, nx), S, n_or, or_only, grid) of the int16 multisweep's checks: a
+# small shape in every mode, also forced to the grid-barrier mode; the
+# from-disorder class's launches (1000 MCS: 15 launches of 64 and one of
+# 40; the shared-memory mode), with an OR sweep and forced to the grid
+# mode; the x2 class's last launch (past the shared-memory fit)
+XYI_CHECKS = (((2, 32, 48), 4, 0, False, False),
+              ((2, 32, 48), 4, 1, False, False),
+              ((2, 32, 48), 4, 2, True, False),
+              ((2, 32, 48), 4, 1, False, True),
+              ((1, 1536, 1536), 64, 0, False, False),
+              ((1, 1536, 1536), 40, 0, False, False),
+              ((1, 1536, 1536), 16, 1, False, False),
+              ((1, 1536, 1536), 8, 0, False, True),
+              ((2, 1536, 1536), 8, 0, False, False))
 XYI_N = 1536
 # per site of the colour updated: the snapshot mode's A, two decodes of
 # the differences (22 each), their subtracts, widenings and adds (5); its
@@ -4003,18 +4023,23 @@ def int16_planes(dev, shape, seed: int) -> list:
 
 def check_xy_int16(xyi, rng, dev) -> tuple[float, float]:
     """The int16 multisweep against its plain version on the same CUDA
-    tensors at XYI_CHECKS (Philox words): the int16 state bitwise, the
-    sums within 1e-12 of their scale.  Returns (state error, sums'
-    error)."""
+    tensors at XYI_CHECKS (Philox words), in the mode its fit rule picks
+    (or the grid-barrier mode, forced): the int16 state bitwise, the sums
+    within 1e-12 of their scale.  Returns (state error, sums' error)."""
     t0 = time.perf_counter()
     err = rel = 0.0
-    for shape, sweeps, n_or, or_only in XYI_CHECKS:
+    for shape, sweeps, n_or, or_only, grid in XYI_CHECKS:
         nrep, ny, nx = shape
         pa, pb, sa, sb = int16_planes(dev, (nrep, ny, nx // 2), ny + n_or)
         seeds = multispin_keys(rng, sweeps, 50 + sweeps)
         kw = dict(beta=1.0 / KBT_XY, n_or=n_or, or_only=or_only)
         ka, kb, qa, qb = pa.clone(), pb.clone(), pa.clone(), pb.clone()
-        got = xyi.multisweep_planes(ka, kb, sa, sb, seeds, **kw)
+        smem = not grid and xyi.device_layout(pa) is not None
+        xyi.reset_launches()
+        got = xyi.multisweep_planes(ka, kb, sa, sb, seeds, grid=grid, **kw)
+        if xyi.LAUNCHES != {"multisweep": int(not smem),
+                            "multisweep_smem": int(smem)}:
+            fail(f"int16 multisweep at {shape} launched {xyi.LAUNCHES}")
         want = xyi.multisweep_plain(qa, qb, sa, sb, seeds, **kw)
         err = max(err, max_abs_err([(ka, qa), (kb, qb)]))
         rel = max(rel, scaled_err(got, want, ny * nx))
@@ -4097,15 +4122,18 @@ def check_size_free(table: np.ndarray, ref: np.ndarray, nsites: int,
     return worst
 
 
-def xy_angle_launches(label, launches, want_angle, want_int16=0) -> None:
+def xy_angle_launches(label, launches, want_angle,
+                      want_int16=(0, 0)) -> None:
     """A class of the angle engines: its angle and int16 launches as
-    counted, and none of the component engines'."""
+    counted (the int16 multisweep's (grid-barrier, shared-memory) modes),
+    and none of the component engines'."""
     got = launches["xy_angle"]
     if {k: got[k] for k in want_angle} != want_angle:
         fail(f"xy {label} launched {got}, want {want_angle}")
-    if launches["xy_int16"]["multisweep"] != want_int16:
-        fail(f"xy {label} launched {launches['xy_int16']}, want "
-             f"{want_int16} int16 launches")
+    want = dict(zip(("multisweep", "multisweep_smem"), want_int16))
+    if launches["xy_int16"] != want:
+        fail(f"xy {label} launched {launches['xy_int16']}, want {want} "
+             "int16 launches")
     for other in ("xy", "xy_resident", "xy_measure"):
         if any(launches[other].values()):
             fail(f"xy {label} launched {other}: {launches[other]}")
@@ -4121,8 +4149,10 @@ def run_xya_classes(main_fn, modules, out_dir, ref_xy, ref_xy10k, ref_xy_or,
     4000x4000 x 8 (16 samples, 200 MCS, n_or 1) and finite-magne at
     1000x1000 x 20 (40 samples, 100 MCS, m0 0.02); under
     SPINLAT_XY_ANGLE_MS=1 from-disorder at 1536x1536 x 1 (32 samples,
-    1000 MCS) on the size-free moments of the 1500x1500 curve.  Returns
-    {label: (launches, wall, rate, largest |z|)}."""
+    1000 MCS; the int16 multisweep's shared-memory mode) and x 2 (4
+    samples, 200 MCS; past its fit, the grid-barrier mode) on the
+    size-free moments of the 1500x1500 curve.  Returns {label: (launches,
+    wall, rate, largest |z|)}."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.engine import sweep
     from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
 
@@ -4196,8 +4226,23 @@ def run_xya_classes(main_fn, modules, out_dir, ref_xy, ref_xy10k, ref_xy_or,
         if f"# engine: {sweep.XY_DISORDER_INT16}" not in head:
             fail(f"int16 class took another route: {head}")
         z = check_size_free(table, ref_fd, n * n, 32, 1000, "int16 1536^2")
-        xy_angle_launches("int16", launches, {"metro": 0}, 32 * 16)
+        xy_angle_launches("int16", launches, {"metro": 0}, (0, 32 * 16))
         out["int16 from-disorder 1536^2 x 1"] = (launches, wall, rate, z)
+        # two replicas a call: past the shared-memory fit, the int16
+        # multisweep's grid-barrier mode (2 calls of 64, 64, 64, 8 sweeps)
+        log(f"phase 4l: XY int16 path, from-disorder {n}x{n} x 2, 4 "
+            "samples, 200 MCS")
+        argv = ["--model", "xy2d", "--protocol", "from_disorder", "--nx",
+                str(n), "--ny", str(n), "--kbt", repr(KBT_XY), "--mcs",
+                "200", "--samples", "4", "--replicas", "2"]
+        launches, wall, rate, table, head = run_main_path(
+            main_fn, modules, out_dir, "xy2d_int16_from-disorder_x2", argv,
+            n * n, 4, 200)
+        if f"# engine: {sweep.XY_DISORDER_INT16}" not in head:
+            fail(f"int16 x2 class took another route: {head}")
+        z = check_size_free(table, ref_fd, n * n, 4, 200, "int16 1536^2 x 2")
+        xy_angle_launches("int16 x2", launches, {"metro": 0}, (8, 0))
+        out["int16 from-disorder 1536^2 x 2"] = (launches, wall, rate, z)
     return out
 
 
@@ -4229,7 +4274,9 @@ def time_xya_kernels(xya, xyi, rng, dev) -> dict:
     plain version (Philox): angle_metro_kernel plain and measuring at
     10000^2 x 1 and 2000^2 x 32, plain at 4000^2 x 8 and 1000^2 x 20, the
     snapshot mode at 1000^2 x 20; angle_or_kernel plain and measuring at
-    4000^2 x 8; the int16 multisweep at 1536^2 x 1 with S = 64 and 40.
+    4000^2 x 8; the int16 multisweep at 1536^2 x 1 with S = 64 and 40
+    (its shared-memory mode) and at 1536^2 x 2 with S = 64 and 8 (its
+    grid-barrier mode, past the fit).
     Returns {label: (times, err)}."""
     out = {}
     keys = multispin_keys(rng, 64, 61)
@@ -4276,9 +4323,10 @@ def time_xya_kernels(xya, xyi, rng, dev) -> dict:
                 sites * (OPS_XYA_METROPOLIS + OPS_XY_MEASURE + OPS_XYA_SNAP))
         del a, b, sa, sb
     n = XYI_N
-    sites = n * n // 2
-    for sweeps in (64, 40):
-        pa, pb, sa, sb = int16_planes(dev, (1, n, n // 2), sweeps)
+    for nrep, sweeps, label in ((1, 64, "S=64"), (1, 40, "S=40"),
+                                (2, 64, "x2 S=64"), (2, 8, "x2 S=8")):
+        sites = nrep * n * n // 2
+        pa, pb, sa, sb = int16_planes(dev, (nrep, n, n // 2), sweeps)
         seeds = keys[:sweeps]
         kw = dict(beta=1.0 / KBT_XY)
         k = [pa.clone(), pb.clone()]
@@ -4290,17 +4338,19 @@ def time_xya_kernels(xya, xyi, rng, dev) -> dict:
         k, q = [pa.clone(), pb.clone()], [pa.clone(), pb.clone()]
         got = xyi.multisweep_planes(*k, sa, sb, seeds, **kw)
         want = xyi.multisweep_plain(*q, sa, sb, seeds, **kw)
-        err = (float(max_abs_err(zip(k, q))), scaled_err(got, want, n * n))
-        bound, by = bound_ms(8 * 2 * sites + sweeps * 4 * 8,
+        err = (float(max_abs_err(zip(k, q))),
+               scaled_err(got, want, nrep * n * n))
+        bound, by = bound_ms(8 * 2 * sites + nrep * sweeps * 4 * 8,
                              sweeps * sites * (2 * OPS_XYA_METROPOLIS
                                                + OPS_XYI_FUSED))
-        log(f"  xy int16 multisweep_kernel {n}^2 x 1, S={sweeps}: "
+        mode = ("smem_multisweep_kernel" if xyi.device_layout(pa)
+                is not None else "multisweep_kernel")
+        log(f"  xy int16 {mode} {n}^2 x {nrep}, S={sweeps}: "
             f"{ms:.4f} ms/launch ({ms / sweeps * 1e3:.2f} us a sweep), "
             f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); vs "
             f"plain {err[0]}, sums {err[1]:.3g}")
-        out[f"int16 S={sweeps}"] = ({"ms": ms, "plain_ms": plain_ms,
-                                     "bound_ms": bound, "bound_by": by},
-                                    err)
+        out[f"int16 {label}"] = ({"ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bound, "bound_by": by}, err)
         del pa, pb, sa, sb
     return out
 
@@ -4322,6 +4372,8 @@ def xya_shares(classes: dict, ta: dict) -> dict[str, float]:
                                            + ms("snapshot 1000^2 x 20")),
         "int16 from-disorder 1536^2 x 1": 32 * (15 * ms("int16 S=64")
                                                  + ms("int16 S=40")),
+        "int16 from-disorder 1536^2 x 2": 2 * (3 * ms("int16 x2 S=64")
+                                               + ms("int16 x2 S=8")),
     }
     shares = {}
     for label, (_, wall, _, _) in classes.items():
@@ -5628,7 +5680,7 @@ def main() -> int:
     # with neither switch set the XY classes kept their engines
     for p in (xo_launch, xm_launch, *(d[0] for d in disorder.values()),
               *(h[0] for h in helical.values())):
-        if any(p["xy_angle"].values()) or p["xy_int16"]["multisweep"]:
+        if any(p["xy_angle"].values()) or any(p["xy_int16"].values()):
             fail(f"an XY class without a switch launched an angle kernel: "
                  f"{p['xy_angle']}, {p['xy_int16']}")
     paths = (res_launch, str_launch, hel_launch, s3_launch, r3_launch,
@@ -6267,10 +6319,14 @@ def main() -> int:
          "xy2d_pallas_angle.py:300", launched("xy_angle", "or"),
          max(err_xya, ea["or 4000^2 x 8"], ea["or measuring 4000^2 x 8"]),
          ta["or 4000^2 x 8"][0]),
-        ("xy2d_multisweep.multisweep_kernel", "xy2d_multisweep.cu",
-         "xy2d_multisweep.py:325", launched("xy_int16", "multisweep"),
+        ("xy2d_multisweep.smem_multisweep_kernel", "xy2d_multisweep.cu",
+         "xy2d_multisweep.py:325", launched("xy_int16", "multisweep_smem"),
          max(err_xyi, rel_xyi, ea["int16 S=64"], ea["int16 S=40"]),
          ta["int16 S=64"][0]),
+        ("xy2d_multisweep.multisweep_kernel", "xy2d_multisweep.cu",
+         "xy2d_multisweep.py:325", launched("xy_int16", "multisweep"),
+         max(err_xyi, rel_xyi, ea["int16 x2 S=64"], ea["int16 x2 S=8"]),
+         ta["int16 x2 S=64"][0]),
         mesh_row("ising2d", "packed 2-D 8192^2 x 4 (1,4)"),
         mesh_row("ising3d", "packed 3-D 512^3 x 8 (2,4)"),
         mesh_row("ising2d_int8", "int8 2-D 4000^2 x 8 (1,2,2)"),

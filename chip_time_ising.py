@@ -12,7 +12,11 @@ phase_kernel and multisweep_kernel; with ``--clock``, the clock
 kernels whose headers the halo modes share: the bit-sliced q = 6 phase,
 measuring, at 2000x2000 x 40 (padded) and 2048x2048 x 16, the int8 clock
 phase at 2000x2000 x 16 (q = 5) and its S-sweep kernel at 1000x1000 x 16
-(q = 2, S = 64); with ``--helical3d``, the helical 3-D phase kernel at
+(q = 2, S = 64); beside them the bit-sliced phase plain (colour a) at
+both shapes, measuring at 2048x2048 x 16 for q = 4 and 3, and its halo
+mode (measuring and plain) at the mesh packed clock class's shard (8, 32,
+512) of 2048x2048 x 16 on (2,2,2), graph-timed, with the SASS of
+phase_kernel; with ``--helical3d``, the helical 3-D phase kernel at
 the even streamed class's launch, 1001x1000x1000 x 2 (colour a, z-parity
 sub-phases 0 and 1), and at the odd streamed class's, 501x501x500 x 2
 (colour b, plain and measuring), on random vectors; with ``--registers``,
@@ -29,7 +33,7 @@ the kernels on first use.  It uses only the wrappers' public API, so to
 compare two commits copy it into both checkouts and run it from each in
 turns on one card (A, B, B, A).  Prints the card's nvidia-smi name and
 power limit, the ptxas register report of the build, with ``--helical3d``
-the SASS of phase_kernel (instructions, the instructions of each loop,
+and ``--clock`` the SASS of phase_kernel (instructions, the instructions of each loop,
 the commonest opcodes; where cuobjdump exists), and last one JSON line
 {mode: [ms a launch, one per round]} (``"int8_multisweep_blocks": n``
 and ``"packed_3d_multisweep_blocks": n`` beside the Ising modes).
@@ -157,6 +161,8 @@ def helical3d_modes(words):
 def clock_modes(gen, dev, seeds):
     """The clock kernels at the smoke's launch shapes, on random states."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock3_multispin as c3,
+        clock4_multispin as c4,
         clock_multispin as c6,
         clock_multisweep as c8ms,
         clock_pallas as c8p,
@@ -176,13 +182,43 @@ def clock_modes(gen, dev, seeds):
     sa, sb = states((16, 2000, 1000), 5), states((16, 2000, 1000), 5)
     ra, rb = states((16, 1000, 500), 2), states((16, 1000, 500), 2)
     key = seeds[0, 0]
-    return {
+    # the mesh packed clock class's shard (8, 32, 512) of 2048^2 x 16 on
+    # (2,2,2): its halo rows and word columns from its own other colour
+    ha, hb = packed(32 * 32, 1024, 8)
+    halo = dict(hup=tuple(((p[:, -1:] >> 31) & 1).contiguous() for p in hb),
+                hdn=tuple((p[:, :1] & 1).contiguous() for p in hb),
+                halo_lf=tuple(p[:, :, -1:].contiguous() for p in hb),
+                halo_rt=tuple(p[:, :, :1].contiguous() for p in hb))
+    modes = {
         "clock_packed_2000_measuring": lambda: cp.phase_packed(
             c6.SPEC, pb, pa, key, color=1, beta=1 / KBT_CLOCK, ny=2000,
             measuring=True),
+        "clock_packed_2000": lambda: cp.phase_packed(
+            c6.SPEC, pa, pb, key, color=0, beta=1 / KBT_CLOCK, ny=2000),
         "clock_packed_2048_measuring": lambda: cp.phase_packed(
             c6.SPEC, qb, qa, key, color=1, beta=1 / KBT_CLOCK_08,
             measuring=True),
+        "clock_packed_2048": lambda: cp.phase_packed(
+            c6.SPEC, qa, qb, key, color=0, beta=1 / KBT_CLOCK_08),
+        "graph clock_shard_measuring": lambda: cp.sharded_phase_packed(
+            c6.SPEC, ha, hb, halo["hup"], halo["hdn"], key, (0, 32, 512),
+            color=1, beta=1 / KBT_CLOCK_08, measuring=True,
+            halo_lf=halo["halo_lf"], halo_rt=halo["halo_rt"]),
+        "graph clock_shard": lambda: cp.sharded_phase_packed(
+            c6.SPEC, ha, hb, halo["hup"], halo["hdn"], key, (0, 32, 512),
+            color=0, beta=1 / KBT_CLOCK_08, halo_lf=halo["halo_lf"],
+            halo_rt=halo["halo_rt"]),
+    }
+    # q = 4 and q = 3 on the aligned shape, measuring
+    for spec in (c4.SPEC, c3.SPEC):
+        a, b = (spec.pack_color(states((16, 2048, 1024), spec.q))
+                for _ in range(2))
+        modes[f"clock{spec.q}_packed_2048_measuring"] = (
+            lambda spec=spec, a=a, b=b: cp.phase_packed(
+                spec, b, a, key, color=1, beta=1 / KBT_CLOCK_08,
+                measuring=True))
+    return {
+        **modes,
         "clock_int8_phase": lambda: c8p.metropolis_phase(
             sa, sb, key, color=0, q=5, beta=1 / KBT_CLOCK),
         "clock_int8_multisweep": lambda: c8ms.multisweep_planes(
@@ -273,7 +309,9 @@ def main() -> int:
                     print(line.strip())
     if args.helical3d:
         sass_report("helical3d_multispin", ("phase_kernel",))
-    elif not args.clock:
+    elif args.clock:
+        sass_report("clock_planes", ("phase_kernel",))
+    else:
         sass_report("ising3d_multispin", ("phase_kernel",
                                           "multisweep_kernel"))
     print(json.dumps(times))

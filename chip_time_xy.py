@@ -23,10 +23,16 @@ launch the disorder classes make (1500x1500 x 1, S = 64 and 40;
 x 2, S = 64), each also in a measurement build of
 csrc/xy2d_resident.cu with the site updates compiled out
 (-DXY_RESIDENT_NO_SITES: the grid barriers or ring waits, the loads and
-stores and the sums left), with the SASS of both kernels.
+stores and the sums left), with the SASS of both kernels; with
+``--int16``, the int16 multisweep (csrc/xy2d_multisweep.cu) at the int16
+class's launches, 1536x1536 x 1 with S = 64 and 40, and S = 16 with one
+over-relaxation sweep, in the mode its wrapper routes them to, its
+grid-barrier mode forced at S = 64 (where the wrapper can force it) and
+past the shared-memory fit at 1536x1536 x 2, with the SASS of its
+kernels (a tenth of --reps a mode).
 
     python3 chip_time_xy.py [--reps 200] [--rounds 3] [--helical]
-                            [--periodic-angle] [--resident]
+                            [--periodic-angle] [--resident] [--int16]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
 csrc/xy2d_pallas.cu (csrc/xy2d_helical_dense*.cu,
@@ -162,6 +168,50 @@ def resident_modes(dev, gen, key, beta):
     return modes
 
 
+# the int16 class's lattice (1536x1536: JAX's gate takes ny % 16 == 0)
+INT16_N = 1536
+
+
+def int16_modes(dev, gen, key, beta):
+    """The int16 multisweep (csrc/xy2d_multisweep.cu) at the int16
+    from-disorder class's launches, 1536x1536 x 1 with S = 64 and 40, and
+    with one over-relaxation sweep a sweep at S = 16, in the mode the
+    wrapper routes them to; the grid-barrier mode forced at S = 64 where
+    the wrapper has that switch; past the shared-memory fit, 1536x1536 x
+    2, S = 64.  Random int16 state and snapshot planes."""
+    import inspect
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        multispin_rng,
+        xy2d_multisweep as xyi,
+    )
+    seeds = multispin_rng.sweep_phase_keys(key, 64)
+    forced = "grid" in inspect.signature(xyi.multisweep_planes).parameters
+
+    def planes(nrep):
+        return [torch.randint(-2 ** 15, 2 ** 15, (nrep, INT16_N,
+                                                   INT16_N // 2),
+                              generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.int16)
+                for _ in range(4)]
+
+    one, two = planes(1), planes(2)
+    n = INT16_N
+    runs = ((f"{n}^2 x 1 S=64", one, 64, 0, False),
+            (f"{n}^2 x 1 S=40", one, 40, 0, False),
+            (f"{n}^2 x 1 S=16 n_or=1", one, 16, 1, False),
+            (f"grid {n}^2 x 1 S=64", one, 64, 0, True),
+            (f"{n}^2 x 2 S=64", two, 64, 0, False))
+    modes = {}
+    for label, pl, sweeps, n_or, grid in runs:
+        if grid and not forced:
+            continue
+        kw = dict(beta=beta, n_or=n_or, **({"grid": True} if grid else {}))
+        modes[f"int16 {label}"] = (
+            lambda pl=pl, sweeps=sweeps, kw=kw: xyi.multisweep_planes(
+                *pl, seeds[:sweeps], **kw))
+    return modes
+
+
 # the periodic A/B's launches (R, ny, nx)
 ANGLE_SHAPES = ((32, 2000, 2000), (1, 10000, 10000))
 # the angle snapshot mode's launch (R, ny, nx): the finite-magne class
@@ -278,6 +328,8 @@ def main() -> int:
     ap.add_argument("--resident", action="store_true",
                     help="time the resident multisweep's two modes and "
                     "their measurement builds instead")
+    ap.add_argument("--int16", action="store_true",
+                    help="time the int16 multisweep's modes instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_time_xy: needs an NVIDIA GPU", file=sys.stderr)
@@ -295,6 +347,10 @@ def main() -> int:
         return report(periodic_angle_modes(dev, gen, key, beta), args,
                       ["xy2d_pallas", "xy2d_pallas_angle"],
                       sass=("angle_metro_kernel", "angle_metro_snap_kernel"))
+    if args.int16:
+        return report(int16_modes(dev, gen, key, beta), dict(
+            vars(args), reps=max(1, args.reps // 10)), ["xy2d_multisweep"],
+            sass=("multisweep_kernel",))
     if args.resident:
         return report(resident_modes(dev, gen, key, beta), args,
                       [f"xy2d_resident{'_' + t if t else ''}"
@@ -339,6 +395,8 @@ def report(modes, args, libs, sass=()) -> int:
     line, the libraries' ptxas report, the SASS report of their functions
     whose names hold one of ``sass``, and the JSON line of times."""
     from chip_time_ising import graph_ms
+    if isinstance(args, dict):
+        args = argparse.Namespace(**args)
     times = {m: [] for m in modes}
     for _ in range(args.rounds):
         for mode, fn in modes.items():

@@ -16,7 +16,9 @@
 //          chains p1, p2, p4.
 //
 // Random words are drawn in the plain versions' order: the thermometer
-// (or proposal) words first, then each chain's words, chain after chain.
+// (or proposal) words first, then each chain's words, chain after chain:
+// by draw<Q> from a WordStream (the helical kernel) or by the unrolled
+// draw_unrolled<Q> from a per-launch DrawTable (the periodic kernel).
 #pragma once
 #include <cstdint>
 
@@ -74,6 +76,23 @@ struct Traits<3> {
   static constexpr int NS = 2, NR = 4, NC = 3;
 };
 
+// The q = 6 and q = 4 proposal planes from the 12 thermometer words
+template <int Q>
+__device__ __forceinline__ void thermometer(const uint32_t (&p)[12],
+                                            uint32_t* r) {
+  if constexpr (Q == 6) {
+    const uint32_t c1 = lt12(p, 819u), c2 = lt12(p, 1638u);
+    const uint32_t c3 = lt12(p, 2458u), c4 = lt12(p, 3277u);
+    r[0] = ~(c1 ^ c2 ^ c3 ^ c4);    // rho = r mod 2
+    r[1] = c1 | (c4 & ~c3);         // r mod 3 == 1
+    r[2] = (c2 & ~c1) | ~c4;        // r mod 3 == 2
+  } else {
+    const uint32_t c1 = lt12(p, 1365u), c2 = lt12(p, 2731u);
+    r[0] = c1 | ~c2;                // r odd
+    r[1] = ~c1;                     // r >= 2
+  }
+}
+
 // The NR random planes of one word from its Philox stream.
 template <int Q>
 __device__ __forceinline__ void draw(WordStream& s, const Chains& ch,
@@ -86,20 +105,149 @@ __device__ __forceinline__ void draw(WordStream& s, const Chains& ch,
     uint32_t p[12];
 #pragma unroll
     for (int j = 0; j < 12; ++j) p[j] = s.next();
-    if constexpr (Q == 6) {
-      const uint32_t c1 = lt12(p, 819u), c2 = lt12(p, 1638u);
-      const uint32_t c3 = lt12(p, 2458u), c4 = lt12(p, 3277u);
-      r[0] = ~(c1 ^ c2 ^ c3 ^ c4);    // rho = r mod 2
-      r[1] = c1 | (c4 & ~c3);         // r mod 3 == 1
-      r[2] = (c2 & ~c1) | ~c4;        // r mod 3 == 2
-    } else {
-      const uint32_t c1 = lt12(p, 1365u), c2 = lt12(p, 2731u);
-      r[0] = c1 | ~c2;                // r odd
-      r[1] = ~c1;                     // r >= 2
-    }
+    thermometer<Q>(p, r);
   }
 #pragma unroll
   for (int i = 0; i < NC; ++i) r[NP + i] = bern_word(s, ch.q[i], ch.k[i]);
+}
+
+// The draw of one launch as a table (ops/multispin_rng.clock_draw_table):
+// the NP proposal words (12, or 1 for q = 3) are draws [0, NP), chain i
+// folds draws [end[i-1], end[i]) (end[-1] = NP), draw n being word n % 4
+// of Philox call n / 4; digit[n] is all ones on a one digit, else zero;
+// bit c of live[c / 32]: call c has a draw below n; of fast[c / 32]: draws
+// 4c .. 4c + 3 are all chain draws below n with no chain end among them;
+// bit d of ends[d / 32]: some chain ends at draw d < n.  Sized for the
+// longest draw: 12 thermometer words and five chains of 28 digits
+// (ops/clock_planes._chain_len), 152 draws.
+constexpr int DRAW_CALLS = 38;
+struct DrawTable {
+  uint32_t digit[4 * DRAW_CALLS];
+  uint32_t live[2], fast[2];
+  uint32_t ends[(4 * DRAW_CALLS + 31) / 32];
+  int end[MAX_CHAINS];
+  int n;
+};
+static_assert(sizeof(DrawTable) == 167 * 4, "ops/multispin_rng.py passes "
+              "the table as 167 32-bit words");
+
+// A table the draw can follow, for proposal words np (host check before a
+// launch)
+inline bool draw_table_ok(const DrawTable& t, int np) {
+  int prev = np;
+  for (int i = 0; i < MAX_CHAINS; ++i) {
+    if (t.end[i] < prev) return false;
+    prev = t.end[i];
+  }
+  return t.n == prev && t.n <= 4 * DRAW_CALLS;
+}
+
+template <int N>
+__device__ __forceinline__ bool table_bit(const uint32_t (&m)[N], int c) {
+  return ((m[c >> 5] >> (c & 31)) & 1u) != 0u;
+}
+
+// Chain draw d (< t.n) of a call that is not fast: where chains end at d
+// (a uniform test of one table bit), they take the running chain b (an
+// empty chain takes 0); then d folds in
+template <int NC>
+__device__ __forceinline__ void chain_draw(const DrawTable& t, int d,
+                                           uint32_t w, uint32_t& b,
+                                           uint32_t (&out)[NC]) {
+  if (table_bit(t.ends, d)) {  // uniform
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if (d == t.end[i]) {
+        out[i] = b;
+        b = 0u;
+      }
+    }
+  }
+  b = fold(w, b, t.digit[d]);
+}
+
+// The NR random planes of the word at Philox counter (c0, c1, c2, .) under
+// the round keys rk_in (philox_round_keys of the phase key): draw<Q>'s
+// words in its order (the proposal words, then chain after chain, trailing
+// zero digits drawing none), in a fully unrolled line.  The Philox call
+// index and the word within it are compile-time constants; a chain draw
+// folds into the running chain in one three-input op, B <- maj(r, B, D),
+// with D the draw's digit from the table, a launch constant; the chain
+// ends are uniform, so a fast call folds its four draws straight; the
+// round keys are held in registers; the chain calls go in pairs, two
+// independent chains of rounds (a pair's second call past the last draw
+// is drawn and dropped).  draw<Q> instead runs bern_word's loop, its
+// refill test, runtime buffer pick and digit shift a draw, and each
+// philox4x32_10 call recomputes its round keys.
+template <int Q>
+__device__ __forceinline__ void draw_unrolled(const DrawTable& t,
+                                              const uint2 (&rk_in)[10],
+                                              uint32_t c0, uint32_t c1,
+                                              uint32_t c2,
+                                              uint32_t (&r)[Traits<Q>::NR]) {
+  constexpr int NC = Traits<Q>::NC;
+  constexpr int NPL = Traits<Q>::NR - NC;  // proposal planes
+  constexpr int NP = Q == 3 ? 1 : 12;      // proposal words
+  constexpr int TC = (NP + 3) / 4;         // the calls that hold them
+  uint2 rk[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    rk[k] = rk_in[k];
+    asm volatile("" : "+r"(rk[k].x), "+r"(rk[k].y));
+  }
+  uint32_t w[4 * TC];
+#pragma unroll
+  for (int k = 0; k < TC; ++k) {
+    const uint4 v = philox_rk(make_uint4(c0, c1, c2, k), rk);
+    w[4 * k] = v.x;
+    w[4 * k + 1] = v.y;
+    w[4 * k + 2] = v.z;
+    w[4 * k + 3] = v.w;
+  }
+  if constexpr (Q == 3) {
+    r[0] = w[0];
+  } else {
+    thermometer<Q>(w, r);
+  }
+  uint32_t b = 0u, out[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) out[i] = 0u;
+  // the chain draws in the last proposal call (q = 3: draws 1 .. 3)
+#pragma unroll
+  for (int d = NP; d < 4 * TC; ++d)
+    if (d < t.n) chain_draw(t, d, w[d], b, out);
+#pragma unroll
+  for (int n0 = TC; n0 < DRAW_CALLS; n0 += CALL_PAIR) {
+    if (!table_bit(t.live, n0)) break;  // uniform
+    uint4 v[CALL_PAIR];
+#pragma unroll
+    for (int k = 0; k < CALL_PAIR; ++k)
+      if (n0 + k < DRAW_CALLS)
+        v[k] = philox_rk(make_uint4(c0, c1, c2, n0 + k), rk);
+#pragma unroll
+    for (int k = 0; k < CALL_PAIR; ++k) {
+      const int c = n0 + k;
+      if (c >= DRAW_CALLS || !table_bit(t.live, c)) continue;
+      const uint32_t u[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+      if (table_bit(t.fast, c)) {  // uniform
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b = fold(u[j], b, t.digit[4 * c + j]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (4 * c + j < t.n) chain_draw(t, 4 * c + j, u[j], b, out);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    if (t.end[i] == t.n) {
+      out[i] = b;
+      b = 0u;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NC; ++i) r[NPL + i] = out[i];
 }
 
 // q = 6 decision: x = (s, t0, t1) of the centre word, n[plane][bond] the

@@ -1,8 +1,9 @@
 // S sweeps of the periodic XY model on int16 angle planes in one launch on
 // Hopper (sm_90a), per-sweep sums fused.
 //
-//   multisweep_kernel replaces cuda_fortran_mc_simulation_spin_tpu/ops/
-//                     xy2d_multisweep.py:_kernel (pallas_call at :325,
+//   smem_multisweep_kernel and multisweep_kernel, two modes of one
+//                     function, replace cuda_fortran_mc_simulation_spin_tpu/
+//                     ops/xy2d_multisweep.py:_kernel (pallas_call at :325,
 //                     _multisweep): S sweeps of (R, ny, half) int16 angle
 //                     planes (θ = k·2π/2^16), each a Metropolis phase a
 //                     and b with a 16-bit candidate, then with n_or > 0 n_or
@@ -14,14 +15,44 @@
 //                     1) over-relaxation sweeps and the measure pass a
 //                     sweep (JAX's microcanonical test mode).
 //
-// The TPU kernel keeps the four planes in VMEM for S sweeps.  Here they
-// stay in device memory (9 MiB at the route's largest shape, inside the
-// 50 MB L2) and a cooperative grid of as many blocks as fit at once walks
-// a phase's 256-site items (replica, block), waiting at a grid barrier
-// before the next phase reads what it wrote: 2 + 2·n_or phases and, under
-// over-relaxation, a measure pass a sweep.  Layout and neighbours:
-// xy2d_site.cuh, on int16 planes, unpadded (JAX's 16-row granules and
-// tiles are TPU layout).
+// The TPU kernel keeps the four planes in VMEM for S sweeps.  Here two
+// modes of one function:
+//
+//   smem_multisweep_kernel  the lattice in the SMs' shared memory, ring
+//                           flags between phases: every batch whose state
+//                           fits the grid's shared memory
+//                           (ops/xy2d_multisweep.smem_layout, e.g. one
+//                           1536x1536 replica);
+//   multisweep_kernel       the planes in device memory (9 MiB at the
+//                           route's largest shape, inside the 50 MB L2), a
+//                           grid barrier between phases: the larger
+//                           batches.
+//
+// smem_multisweep_kernel gives each replica a ring of 1024-thread blocks,
+// one an SM (xy2d_ring.cuh, as xy2d_resident.cu's): block j owns the
+// 256-site chunks bounds[j] .. bounds[j+1] - 1 of both colours' int16
+// planes and, where the fit rule allows, of the t=0 snapshot planes, holds
+// them in shared memory for the launch's S sweeps and writes the state back
+// once.  Each updating phase (Metropolis or over-relaxation) first waits on
+// its ring neighbours' flags and decodes every angle of the other colour
+// it reads once, into a shared float32 (cos, sin) plane: its own sites and
+// its halos, the neighbours' edge sites read through L2 (at the first
+// phase from the planes); a site then reads its four neighbours'
+// components from there, where multisweep_kernel decodes each other-colour
+// angle four times a phase.  The phase updates the chunks holding its
+// first and last `half` sites first, publishes those int16 sites to the
+// colour's edge buffer and sets its flag, then updates its other chunks.
+// The measure pass after the over-relaxation sweeps reads the decoded
+// colour a that the last phase b left in shared memory; it writes nothing
+// the neighbours read, so it neither waits nor publishes.  No grid barrier
+// in the launch.
+//
+// multisweep_kernel walks a phase's 256-site items (replica, block) with a
+// cooperative grid of as many blocks as fit at once, waiting at a grid
+// barrier before the next phase reads what it wrote: 2 + 2·n_or phases
+// and, under over-relaxation, a measure pass a sweep.  Layout and
+// neighbours: xy2d_site.cuh, on int16 planes, unpadded (JAX's 16-row
+// granules and tiles are TPU layout).
 //
 // Random words: Philox under the (sweep, phase) key and counter
 // (replica, row, column, 0), as metropolis_kernel draws: the candidate is
@@ -31,8 +62,9 @@
 // uniform the top 24 bits of word 1.  Arithmetic: one rounding per
 // operation in the order of ops/xy2d_multisweep.py's plain version;
 // rintf rounds half to even as torch.round does.  The sums are float64 of
-// the float32 site terms, per item in a fixed order (block_sums), then per
-// (replica, sweep) by reduce_kernel.
+// the float32 site terms, per 256-site chunk in a fixed order (block_sums;
+// the ring's warp sums in the same tree), then per (replica, sweep) by
+// reduce_kernel: both modes give the same (R, S, chunks, 4) partials.
 //
 // Bound on the H100: operations.  A Metropolis site needs ~150 32-bit
 // operations (one Philox4x32-10 call, three decodes: the site, the
@@ -42,14 +74,19 @@
 // 2 B written a site and phase, the snapshot's 4 B a sweep) are a few MB.
 #include <cooperative_groups.h>
 
+#include "xy2d_ring.cuh"
 #include "xy2d_site.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using ring::CHUNK_BYTES;
+using ring::GROUPS;
+using xy::NSUMS;
 using xy::Sums;
 using xy::THREADS;
+using xy::WARPS;
 
 // int16 angle units -> turns (exact), radians -> units, and the A&S
 // 4.4.49 coefficients of atan on [0, 1], rounded once from the Python
@@ -129,18 +166,50 @@ __device__ __forceinline__ Field field(const int16_t* o, int ny, int half,
   return f;
 }
 
-// The site terms of a b site with components (bx, by) and angle kb, and
-// colour a's decoded (f.ox, f.oy) and angle f.ko at the same (y, i)
-__device__ __forceinline__ Sums b_sums(const Multisweep& a, const Field& f,
-                                       float bx, float by, int kb) {
+// The site terms of a b site with components (bx, by) and angle kb in the
+// field (hx, hy), colour a's decoded (ox, oy) and angle ko at the same
+// (y, i), and the snapshot angles (s_a, s_b) there
+__device__ __forceinline__ Sums b_sums(float ox, float oy, float hx,
+                                       float hy, float bx, float by, int kb,
+                                       int ko, int s_a, int s_b) {
   Sums t;
-  t.mx = static_cast<double>(f.ox) + static_cast<double>(bx);
-  t.my = static_cast<double>(f.oy) + static_cast<double>(by);
-  t.e = static_cast<double>(
-      __fadd_rn(__fmul_rn(bx, f.hx), __fmul_rn(by, f.hy)));
-  t.a = static_cast<double>(cos16(static_cast<int>(a.sa[f.n.idx]) - f.ko)) +
-        static_cast<double>(cos16(static_cast<int>(a.sb[f.n.idx]) - kb));
+  t.mx = static_cast<double>(ox) + static_cast<double>(bx);
+  t.my = static_cast<double>(oy) + static_cast<double>(by);
+  t.e = static_cast<double>(__fadd_rn(__fmul_rn(bx, hx), __fmul_rn(by, hy)));
+  t.a = static_cast<double>(cos16(s_a - ko)) +
+        static_cast<double>(cos16(s_b - kb));
   return t;
+}
+
+// A Metropolis step of a site of angle kx in the field (hx, hy) with its
+// Philox words b: the candidate word 0 >> 16 replaces kx iff the top 24
+// bits of word 1 fall below exp(-β max(ΔE, 0)); the angle after the step
+// (the candidate unwrapped), its components and whether it moved
+struct Step {
+  int k;
+  float x, y;
+  bool accept;
+};
+
+__device__ __forceinline__ Step metro_step(float hx, float hy, int kx,
+                                           uint4 b, float neg_beta) {
+  float cx, sx;
+  cs16(kx, cx, sx);
+  const int cand = static_cast<int>(b.x >> 16);
+  float cc, cs;
+  cs16(cand, cc, cs);
+  const float de = -__fadd_rn(__fmul_rn(__fsub_rn(cc, cx), hx),
+                              __fmul_rn(__fsub_rn(cs, sx), hy));
+  const float prob = expf(__fmul_rn(fmaxf(de, 0.0f), neg_beta));
+  const bool accept = xy::u24(b.y) < prob;
+  return accept ? Step{cand, cc, cs, true} : Step{kx, cx, sx, false};
+}
+
+// The over-relaxed angle of a site of angle kx in the field (hx, hy):
+// 2 rint(φ) - kx, φ = atan2_units(hy, hx)
+__device__ __forceinline__ int16_t reflect(float hx, float hy, int kx) {
+  return static_cast<int16_t>(
+      2 * static_cast<int>(rintf(atan2_units(hy, hx))) - kx);
 }
 
 // One Metropolis update of site w of `color` (replica r); with `measure`
@@ -151,21 +220,13 @@ __device__ __forceinline__ Sums metropolis(const Multisweep& a, int color,
   int16_t* x = color ? a.pb : a.pa;
   const int16_t* o = color ? a.pa : a.pb;
   const Field f = field(o, a.ny, a.half, color, r, w);
-  const int k = x[f.n.idx];
-  float cx, sx;
-  cs16(k, cx, sx);
-  const uint4 b = xy::site_words(r, w, a.half, key);
-  const int cand = static_cast<int>(b.x >> 16);
-  float cc, cs;
-  cs16(cand, cc, cs);
-  const float de = -__fadd_rn(__fmul_rn(__fsub_rn(cc, cx), f.hx),
-                              __fmul_rn(__fsub_rn(cs, sx), f.hy));
-  const float prob = expf(__fmul_rn(fmaxf(de, 0.0f), a.neg_beta));
-  const bool accept = xy::u24(b.y) < prob;
-  if (accept) x[f.n.idx] = static_cast<int16_t>(cand);
+  const Step st = metro_step(f.hx, f.hy, x[f.n.idx],
+                             xy::site_words(r, w, a.half, key), a.neg_beta);
+  if (st.accept) x[f.n.idx] = static_cast<int16_t>(st.k);
   Sums t = {0.0, 0.0, 0.0, 0.0};
   if (measure)
-    t = b_sums(a, f, accept ? cc : cx, accept ? cs : sx, accept ? cand : k);
+    t = b_sums(f.ox, f.oy, f.hx, f.hy, st.x, st.y, st.k, f.ko,
+               a.sa[f.n.idx], a.sb[f.n.idx]);
   return t;
 }
 
@@ -174,9 +235,7 @@ __device__ __forceinline__ void over_relax(const Multisweep& a, int color,
   int16_t* x = color ? a.pb : a.pa;
   const int16_t* o = color ? a.pa : a.pb;
   const Field f = field(o, a.ny, a.half, color, r, w);
-  const float phi = atan2_units(f.hy, f.hx);
-  x[f.n.idx] = static_cast<int16_t>(2 * static_cast<int>(rintf(phi)) -
-                                    static_cast<int>(x[f.n.idx]));
+  x[f.n.idx] = reflect(f.hx, f.hy, x[f.n.idx]);
 }
 
 __device__ __forceinline__ Sums measure_site(const Multisweep& a, int r,
@@ -185,7 +244,8 @@ __device__ __forceinline__ Sums measure_site(const Multisweep& a, int r,
   const int kb = a.pb[f.n.idx];
   float bx, by;
   cs16(kb, bx, by);
-  return b_sums(a, f, bx, by, kb);
+  return b_sums(f.ox, f.oy, f.hx, f.hy, bx, by, kb, f.ko, a.sa[f.n.idx],
+                a.sb[f.n.idx]);
 }
 
 // Phase kinds of a sweep
@@ -248,6 +308,200 @@ __global__ void __launch_bounds__(THREADS) multisweep_kernel(Multisweep a) {
   }
 }
 
+// The ring layout of smem_multisweep_kernel (ops/xy2d_multisweep.smem_layout)
+using Ring = ring::Ring<int16_t>;
+
+// Shared memory (ops/xy2d_multisweep.smem_layout): the other colour
+// decoded, a float2 a slot of span = cap + 2 half (slot l: site lo - h + l,
+// the owned sites at h .. h + m - 1 and the halos around them); the chunks'
+// warp sums and first sites; the owned int16 sites of colours a and b
+// (cap each, site lo + l at l) and, with snap_smem, of the snapshot's.
+__global__ void __launch_bounds__(ring::BLOCK, 1)
+    smem_multisweep_kernel(Multisweep a, Ring rg, int snap_smem) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* const dec = reinterpret_cast<float2*>(smem);
+  double* const red = reinterpret_cast<double*>(dec + rg.span);
+  int2* const rows = reinterpret_cast<int2*>(red + rg.chunks * NSUMS * WARPS);
+  const int cap = rg.chunks * THREADS;
+  int16_t* const own0 = reinterpret_cast<int16_t*>(rows + rg.chunks);
+  int16_t* const own1 = own0 + cap;
+  int16_t* const sn0 = own1 + cap;
+  int16_t* const sn1 = sn0 + cap;
+  const int h = a.half, n = a.ny * h;
+  const int nblk = (n + THREADS - 1) / THREADS;
+  const int r = blockIdx.x / rg.nb, j = blockIdx.x - r * rg.nb;
+  const int c0 = rg.bounds[j], nch = rg.bounds[j + 1] - c0;
+  const int lo = c0 * THREADS, m = min(nch * THREADS, n - lo);
+  const int prev = r * rg.nb + (j == 0 ? rg.nb - 1 : j - 1);
+  const int next = r * rg.nb + (j == rg.nb - 1 ? 0 : j + 1);
+  const size_t base = static_cast<size_t>(r) * n;
+  constexpr int T = ring::BLOCK;
+  const int tid = threadIdx.x;
+  for (int l = tid; l < m; l += T) {
+    const size_t o = base + lo + l;
+    own0[l] = a.pa[o];
+    own1[l] = a.pb[o];
+    if (snap_smem) {
+      sn0[l] = a.sa[o];
+      sn1[l] = a.sb[o];
+    }
+  }
+  // the snapshot's owned sites, in shared or device memory
+  const int16_t* const snap_a = snap_smem ? sn0 : a.sa + base + lo;
+  const int16_t* const snap_b = snap_smem ? sn1 : a.sb + base + lo;
+  ring::chunk_rows(rows, c0, nch, h, tid);
+  __syncthreads();
+  const int g = tid / THREADS, tg = tid & (THREADS - 1);
+  const int dy = tg / h, di = tg - dy * h;
+  const ring::Walk walk(h, m, nch);
+  const int n_or = a.or_only ? (a.n_or > 1 ? a.n_or : 1) : a.n_or;
+  // updating phases of the launch: each waits on the k its neighbours
+  // published and publishes k + 1 (but the last)
+  const int phases = a.sweeps * ((a.or_only ? 0 : 2) + 2 * n_or);
+  // The other colour's angles decoded into dec: its halos from the ring
+  // neighbours' edges (phase 0: from the planes, which the neighbours write
+  // back only after waiting on this block's later flags), its owned sites
+  // from shared memory
+  auto decode = [&](int c, int k) {
+    const int16_t* const oo = c ? own0 : own1;
+    const int16_t* const og = (c ? a.pa : a.pb) + base;
+    const int16_t* const ep =
+        rg.edges + (static_cast<size_t>(prev) * 2 + 1 - c) * 2 * h;
+    const int16_t* const en =
+        rg.edges + (static_cast<size_t>(next) * 2 + 1 - c) * 2 * h;
+    for (int l = tid; l < m + 2 * h; l += T) {
+      int v;
+      if (l >= h && l < h + m) {
+        v = oo[l - h];
+      } else if (k > 0) {
+        v = l < h ? __ldcg(ep + h + l) : __ldcg(en + (l - h - m));
+      } else {
+        int w = lo - h + l;
+        w = w < 0 ? w + n : (w >= n ? w - n : w);
+        v = og[w];
+      }
+      float x, y;
+      cs16(v, x, y);
+      dec[l] = make_float2(x, y);
+    }
+    __syncthreads();
+  };
+  // The field of the site at walk position p of colour c: its chunk q, its
+  // index w, slot l, (y, i) and field (hx, hy) and decoded centre ce
+  struct At {
+    int q, w, l, y, i;
+    float hx, hy;
+    float2 ce;
+  };
+  auto at = [&](int p, int c) {
+    At s;
+    s.q = walk.chunk(p, nch);
+    s.w = (c0 + s.q) * THREADS + tg;
+    if (s.w < n) {
+      s.l = s.w - lo + h;
+      const ring::Slot sl(rows[s.q], dy, di, h, c, s.l);
+      s.y = sl.y;
+      s.i = sl.i;
+      const float2 up = dec[s.l - h], dn = dec[s.l + h], sd = dec[sl.ls];
+      s.ce = dec[s.l];
+      s.hx = __fadd_rn(__fadd_rn(up.x, dn.x), __fadd_rn(s.ce.x, sd.x));
+      s.hy = __fadd_rn(__fadd_rn(up.y, dn.y), __fadd_rn(s.ce.y, sd.y));
+    }
+    return s;
+  };
+  // The measuring sites' warp sums into the partials of sweep s
+  auto partials = [&](int s) {
+    ring::chunk_partials(
+        a.partials +
+            ((static_cast<size_t>(r) * a.sweeps + s) * nblk + c0) * NSUMS,
+        red, nch, tid);
+  };
+  // Updating phase k of colour c: Metropolis under key (measuring: the
+  // fused sums of sweep s) or, with reflect_phase, over-relaxation
+  auto phase = [&](int c, int k, int s, bool reflect_phase, uint2 key,
+                   bool measuring) {
+    if (k > 0) ring::wait(rg.flags, prev, next, static_cast<unsigned>(k), tid);
+    decode(c, k);
+    int16_t* const sp = c ? own1 : own0;
+    auto update = [&](int p) {
+      const At st = at(p, c);
+      Sums t = {0.0, 0.0, 0.0, 0.0};
+      if (st.w < n) {
+        const int ol = st.l - h, kx = sp[ol];
+        if (reflect_phase) {
+          sp[ol] = reflect(st.hx, st.hy, kx);
+        } else {
+          const Step u = metro_step(
+              st.hx, st.hy, kx,
+              philox4x32_10(make_uint4(static_cast<uint32_t>(r),
+                                       static_cast<uint32_t>(st.y),
+                                       static_cast<uint32_t>(st.i), 0u),
+                            key),
+              a.neg_beta);
+          if (u.accept) sp[ol] = static_cast<int16_t>(u.k);
+          if (measuring)
+            t = b_sums(st.ce.x, st.ce.y, st.hx, st.hy, u.x, u.y, u.k,
+                       own0[ol], snap_a[ol], snap_b[ol]);
+        }
+      }
+      if (measuring) ring::store_sums(red, st.q, tg, t);  // uniform
+    };
+    int p = g;
+    for (; p < walk.edges; p += GROUPS) update(p);
+    __syncthreads();
+    if (k + 1 < phases) {
+      // publish this colour's first and last h updated sites, then the
+      // flag, before the other chunks
+      int16_t* const e =
+          rg.edges + (static_cast<size_t>(blockIdx.x) * 2 + c) * 2 * h;
+      for (int l = tid; l < h; l += T) {
+        e[l] = sp[l];
+        e[h + l] = sp[m - h + l];
+      }
+      __syncthreads();
+      ring::publish(rg.flags, static_cast<unsigned>(k + 1), tid);
+    }
+    for (; p < nch; p += GROUPS) update(p);
+    __syncthreads();
+    if (measuring) partials(s);
+  };
+  // The measure pass of sweep s: colour b's sites in the field of colour
+  // a, which the last phase b left decoded in dec
+  auto measure = [&](int s) {
+    for (int p = g; p < nch; p += GROUPS) {
+      const At st = at(p, 1);
+      Sums t = {0.0, 0.0, 0.0, 0.0};
+      if (st.w < n) {
+        const int ol = st.l - h, kb = own1[ol];
+        float bx, by;
+        cs16(kb, bx, by);
+        t = b_sums(st.ce.x, st.ce.y, st.hx, st.hy, bx, by, kb, own0[ol],
+                   snap_a[ol], snap_b[ol]);
+      }
+      ring::store_sums(red, st.q, tg, t);
+    }
+    __syncthreads();
+    partials(s);
+  };
+  int k = 0;
+  for (int s = 0; s < a.sweeps; ++s) {
+    if (!a.or_only) {
+      phase(0, k++, s, false, ring::phase_key(a.seeds, 2 * s), false);
+      phase(1, k++, s, false, ring::phase_key(a.seeds, 2 * s + 1), n_or == 0);
+    }
+    for (int i = 0; i < n_or; ++i) {
+      phase(0, k++, s, true, uint2{}, false);
+      phase(1, k++, s, true, uint2{}, false);
+    }
+    if (n_or > 0) measure(s);
+  }
+  for (int l = tid; l < m; l += T) {
+    const size_t o = base + lo + l;
+    a.pa[o] = own0[l];
+    a.pb[o] = own1[l];
+  }
+}
+
 int grid_blocks(int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -258,6 +512,36 @@ int grid_blocks(int* blocks) {
         &per_sm, multisweep_kernel, THREADS, 0);
   *blocks = per_sm * sms;
   return static_cast<int>(e);
+}
+
+Multisweep make_args(void* pa, void* pb, const void* sa, const void* sb,
+                     const void* seeds, void* partials, int nrep, int ny,
+                     int half, int sweeps, int n_or, int or_only,
+                     float neg_beta) {
+  Multisweep a;
+  a.pa = static_cast<int16_t*>(pa);
+  a.pb = static_cast<int16_t*>(pb);
+  a.sa = static_cast<const int16_t*>(sa);
+  a.sb = static_cast<const int16_t*>(sb);
+  a.seeds = static_cast<const int32_t*>(seeds);
+  a.partials = static_cast<double*>(partials);
+  a.nrep = nrep;
+  a.ny = ny;
+  a.half = half;
+  a.sweeps = sweeps;
+  a.n_or = n_or;
+  a.or_only = or_only;
+  a.neg_beta = neg_beta;
+  return a;
+}
+
+// The launch's reduce_kernel: the (rows, nblk, 4) partials into obs
+int finish(void* partials, void* obs, int rows, int nblk, cudaStream_t st) {
+  int code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  xy::reduce_kernel<NSUMS><<<rows, THREADS, 0, st>>>(
+      static_cast<const double*>(partials), static_cast<double*>(obs), nblk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -289,20 +573,8 @@ int xyi_multisweep(void* pa, void* pb, const void* sa, const void* sb,
   const int nblk = (ny * half + THREADS - 1) / THREADS;
   const long long items = static_cast<long long>(nrep) * nblk;
   const int blocks = items < resident ? static_cast<int>(items) : resident;
-  Multisweep a;
-  a.pa = static_cast<int16_t*>(pa);
-  a.pb = static_cast<int16_t*>(pb);
-  a.sa = static_cast<const int16_t*>(sa);
-  a.sb = static_cast<const int16_t*>(sb);
-  a.seeds = static_cast<const int32_t*>(seeds);
-  a.partials = static_cast<double*>(partials);
-  a.nrep = nrep;
-  a.ny = ny;
-  a.half = half;
-  a.sweeps = sweeps;
-  a.n_or = n_or;
-  a.or_only = or_only;
-  a.neg_beta = neg_beta;
+  Multisweep a = make_args(pa, pb, sa, sb, seeds, partials, nrep, ny, half,
+                           sweeps, n_or, or_only, neg_beta);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
@@ -312,11 +584,66 @@ int xyi_multisweep(void* pa, void* pb, const void* sa, const void* sb,
     cudaGetLastError();
     return static_cast<int>(e);
   }
-  int code = static_cast<int>(cudaGetLastError());
-  if (code != 0) return code;
-  xy::reduce_kernel<xy::NSUMS><<<nrep * sweeps, THREADS, 0, st>>>(
-      static_cast<const double*>(partials), static_cast<double*>(obs), nblk);
-  return static_cast<int>(cudaGetLastError());
+  return finish(partials, obs, nrep * sweeps, nblk, st);
+}
+
+// What ops/xy2d_multisweep.smem_layout needs of the current device for
+// smem_multisweep_kernel (xy2d_ring.cuh ring::smem_limits).
+int xyi_smem_limits(int* sms, int* per_sm, int* smem_block, int* smem_sm,
+                    int* reserved) {
+  return ring::smem_limits(
+      reinterpret_cast<const void*>(smem_multisweep_kernel), sms, per_sm,
+      smem_block, smem_sm, reserved);
+}
+
+// smem_multisweep_kernel: the same sweeps and sums as xyi_multisweep on
+// the ring layout of ops/xy2d_multisweep.smem_layout: nb blocks a replica,
+// block j owning chunks bounds[j] .. bounds[j+1] - 1 ((nb + 1) int32 on
+// the device), at most cap sites, in smem bytes of dynamic shared memory
+// (8 (cap + 2 half) + CHUNK_BYTES a chunk of cap + 4 cap, + 4 cap with
+// snap_smem, the snapshot held there too); edges (nrep nb x 4 half int16)
+// and flags (nrep nb uint32) scratch on the device, the flags cleared here
+// on the stream.  A grid that cannot be resident at once returns
+// cudaErrorCooperativeLaunchTooLarge.
+int xyi_multisweep_smem(void* pa, void* pb, const void* sa, const void* sb,
+                        const void* seeds, void* partials, void* obs,
+                        const void* bounds, void* edges, void* flags,
+                        int nrep, int ny, int half, int sweeps, int n_or,
+                        int or_only, int nb, int cap, int smem,
+                        int snap_smem, float neg_beta, void* stream) {
+  if (int bad = xy::check_shape(nrep, ny, half)) return bad;
+  const long long span = static_cast<long long>(cap) + 2LL * half;
+  const long long need = 8 * span +
+                         static_cast<long long>(cap / THREADS) * CHUNK_BYTES +
+                         4LL * cap * (snap_smem ? 2 : 1);
+  if (sweeps < 1 || n_or < 0 || seeds == nullptr || partials == nullptr ||
+      obs == nullptr || nb < 1 || cap < half || cap % THREADS != 0 ||
+      bounds == nullptr || edges == nullptr || flags == nullptr ||
+      static_cast<long long>(nrep) * nb > 0x7fffffffLL || smem < need)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = reinterpret_cast<const void*>(smem_multisweep_kernel);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int err = ring::prepare(fn, smem, static_cast<long long>(nrep) * nb,
+                              static_cast<unsigned*>(flags), st))
+    return err;
+  Multisweep a = make_args(pa, pb, sa, sb, seeds, partials, nrep, ny, half,
+                           sweeps, n_or, or_only, neg_beta);
+  Ring rg;
+  rg.bounds = static_cast<const int32_t*>(bounds);
+  rg.edges = static_cast<int16_t*>(edges);
+  rg.flags = static_cast<unsigned*>(flags);
+  rg.nb = nb;
+  rg.span = static_cast<int>(span);
+  rg.chunks = cap / THREADS;
+  void* args[] = {&a, &rg, &snap_smem};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, dim3(nrep * nb), dim3(ring::BLOCK), args, smem, st);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
+  return finish(partials, obs, nrep * sweeps,
+                (ny * half + THREADS - 1) / THREADS, st);
 }
 
 const char* xyi_error_string(int code) {

@@ -15,33 +15,25 @@
 //
 // The TPU kernel keeps the state and the snapshot in VMEM for S sweeps.
 // The card's counterpart of VMEM is its shared memory: 132 SMs x 227 KB.
-// smem_multisweep_kernel gives each replica a ring of blocks; block j of a
-// ring owns the chunks bounds[j] .. bounds[j+1] - 1 of 256 sites (w in
-// [256 q, 256 q + 256), one block of the streamed metropolis_kernel) of
-// both colours, loads them into shared memory once, updates them there
-// for S sweeps and writes them back once.  A site's other-colour
-// neighbours lie within `half` sites of its own w (rows wrapping at ny are
-// w -+ half modulo the replica), so a block needs, each phase, the other
-// colour's `half` sites before its first chunk and after its last: its
-// ring neighbours' edges.  A phase updates the chunks that hold its first
-// and last `half` sites first, publishes those sites to a global edge
-// buffer (one per colour: a neighbour may still read the other colour's)
-// and sets its flag, a release store at device scope, and only then
-// updates its other chunks; before the next phase it waits on its two
-// neighbours' flags (set mid-phase, so the wait is short; relaxed loads of
-// both in flight, then a fence: an acquire) and reads their edges through
-// L2 (__ldcg).  Waits on two
-// neighbours take the place of the grid barrier; the launch stays
-// cooperative, so every block is resident and no wait can deadlock.  The
-// flags count the phases published, cleared on the stream before the
-// launch.  A block owns at least `half` sites (smem_layout shrinks the
-// ring until it does), so its halo lies in its neighbours' ranges.  1024
-// threads a block, one block an SM (two of 512 read slower): four groups
-// of 256 threads take the block's chunks in turn, a group a chunk at a
-// time; (y, i) of a site is its chunk's first site's, kept in shared
-// memory, plus the thread's offset: no runtime division a site.  The
-// snapshot's loads are issued a site ahead, the first before the flag
-// wait.
+// smem_multisweep_kernel gives each replica a ring of blocks
+// (xy2d_ring.cuh); block j of a ring owns the chunks bounds[j] ..
+// bounds[j+1] - 1 of 256 sites (w in [256 q, 256 q + 256), one block of
+// the streamed metropolis_kernel) of both colours, loads them into shared
+// memory once, updates them there for S sweeps and writes them back once.
+// A site's other-colour neighbours lie within `half` sites of its own w
+// (rows wrapping at ny are w -+ half modulo the replica), so a block
+// needs, each phase, the other colour's `half` sites before its first
+// chunk and after its last: its ring neighbours' edges.  A phase updates
+// the chunks that hold its first and last `half` sites first, publishes
+// those sites and sets its flag, and only then updates its other chunks;
+// before the next phase it waits on its two neighbours' flags (set
+// mid-phase, so the wait is short) and reads their edges.  smem_layout
+// shrinks the ring until a block owns at least `half` sites.  1024
+// threads a block, one block an SM: four groups of 256 threads take the
+// block's chunks in turn, a group a chunk at a time; (y, i) of a site is
+// its chunk's first site's, kept in shared memory, plus the thread's
+// offset: no runtime division a site.  The snapshot's loads are issued a
+// site ahead, the first before the flag wait.
 //
 // The per-site arithmetic is that of metropolis_kernel (xy2d_site.cuh):
 // cos_sin_2pi, the field's order (up + dn) + (centre + side), expf and
@@ -70,25 +62,21 @@
 // the profiler pass of ROADMAP's order of work (item 5), which deletes it.
 #include <cooperative_groups.h>
 
+#include "xy2d_ring.cuh"
 #include "xy2d_site.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using ring::CHUNK_BYTES;
+using ring::GROUPS;
 using xy::NSUMS;
 using xy::Phase;
 using xy::Snap;
 using xy::Sums;
 using xy::THREADS;
 using xy::WARPS;
-
-// 256-thread groups a block of smem_multisweep_kernel: 1024 threads, one
-// block an SM
-constexpr int GROUPS = 4;
-// shared memory a chunk takes beside its sites: its warps' sums and its
-// first site's (row, column)
-constexpr int CHUNK_BYTES = NSUMS * WARPS * 8 + 8;
 
 struct Multisweep {
   float* ax;               // (R, ny, half) state, updated in place
@@ -106,19 +94,7 @@ struct Multisweep {
 };
 
 // The ring layout of smem_multisweep_kernel (ops/xy2d_resident.smem_layout)
-struct Ring {
-  const int32_t* bounds;   // (nb + 1,) first chunk of each block of a ring
-  float2* edges;           // (R nb, 2 colours, 2 half): first, last half
-  unsigned* flags;         // (R nb,) phases published
-  int nb;                  // blocks a ring (a replica)
-  int span;                // float2 a colour in shared memory: cap + 2 half
-  int chunks;              // chunks a block at most: cap / 256
-};
-
-__device__ __forceinline__ uint2 phase_key(const int32_t* seeds, int k) {
-  return make_uint2(static_cast<uint32_t>(seeds[2 * k]),
-                    static_cast<uint32_t>(seeds[2 * k + 1]));
-}
+using Ring = ring::Ring<float2>;
 
 __global__ void __launch_bounds__(THREADS, 4)
     multisweep_kernel(Multisweep a) {
@@ -139,7 +115,7 @@ __global__ void __launch_bounds__(THREADS, 4)
     p.ny = a.ny;
     p.half = a.half;
     p.color = c;
-    const uint2 key = phase_key(a.seeds, k);
+    const uint2 key = ring::phase_key(a.seeds, k);
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       const int r = item / nblk, blk = item - r * nblk;
       const int w = blk * THREADS + threadIdx.x;
@@ -158,44 +134,6 @@ __global__ void __launch_bounds__(THREADS, 4)
     }
     if (k + 1 < 2 * a.sweeps) grid.sync();
   }
-}
-
-__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// block_sums' shuffle tree of a warp's four sums, transposed: the same
-// pairs added in the same tree (at each level lane l's sum plus lane
-// l + off's, a + b being b + a in IEEE arithmetic), but each lane keeps
-// only the sums its part of the warp still needs, so a level moves one or
-// two doubles instead of four (12 shuffles, not 40).  Lanes 0, 8, 16 and
-// 24 end with the warp's Σ S_x, Σ S_y, S·h and S·S0, each bitwise
-// block_sums' warp sum.
-__device__ __forceinline__ double warp_sums(const Sums& t, int lane) {
-  constexpr unsigned ALL = 0xFFFFFFFFu;
-  const bool hi16 = (lane & 16) != 0, hi8 = (lane & 8) != 0;
-  // level 16: lanes 0-15 keep (S_x, S_y), lanes 16-31 (S·h, S·S0)
-  double p = hi16 ? t.e : t.mx, q = hi16 ? t.a : t.my;
-  p += __shfl_xor_sync(ALL, hi16 ? t.mx : t.e, 16);
-  q += __shfl_xor_sync(ALL, hi16 ? t.my : t.a, 16);
-  // level 8: of each 16, lanes 0-7 keep the first, lanes 8-15 the second
-  double r = hi8 ? q : p;
-  r += __shfl_xor_sync(ALL, hi8 ? p : q, 8);
-  // levels 4, 2, 1 within each 8 lanes, as block_sums
-  r += __shfl_down_sync(ALL, r, 4);
-  r += __shfl_down_sync(ALL, r, 2);
-  r += __shfl_down_sync(ALL, r, 1);
-  return r;
 }
 
 __global__ void __launch_bounds__(THREADS * GROUPS, 1)
@@ -229,23 +167,13 @@ __global__ void __launch_bounds__(THREADS * GROUPS, 1)
     w = w < 0 ? w + n : (w >= n ? w - n : w);
     plane1[l < h ? l : m + l] = make_float2(a.bx[base + w], a.by[base + w]);
   }
-  // each chunk's first site as (row, column): with the thread's offset in a
-  // chunk as (rows, columns), (y, i) of a site takes no division
-  for (int q = tid; q < nch; q += T) {
-    const int w = (c0 + q) * THREADS, y = w / h;
-    rows[q] = make_int2(y, w - y * h);
-  }
+  ring::chunk_rows(rows, c0, nch, h, tid);
   __syncthreads();
   const int g = tid / THREADS, tg = tid & (THREADS - 1);
   const int dy = tg / h, di = tg - dy * h;
-  // the walk: the chunks holding the first and the last h owned sites
-  // (the edges the neighbours read) first, then the others
-  const int head = min((h + THREADS - 1) / THREADS, nch);
-  const int tail = min(nch - (m - h) / THREADS, nch - head);
-  const int edges = head + tail;
-  auto chunk = [&](int p) {
-    return p < head ? p : (p < edges ? nch - tail + (p - head) : p - tail);
-  };
+  const ring::Walk walk(h, m, nch);
+  const int edges = walk.edges;
+  auto chunk = [&](int p) { return walk.chunk(p, nch); };
   auto site_of = [&](int p) {
     return p < nch ? (c0 + chunk(p)) * THREADS + tg : n;
   };
@@ -266,16 +194,7 @@ __global__ void __launch_bounds__(THREADS * GROUPS, 1)
     };
     float4 sv = snap_at(site_of(g));
     if (k > 0) {
-      if (tid == 0) {
-        // both flags' loads in flight at once, then the fence: the acquire
-        unsigned fp, fn;
-        do {
-          fp = load_relaxed(ring.flags + prev);
-          fn = load_relaxed(ring.flags + next);
-        } while (fp < static_cast<unsigned>(k) || fn < static_cast<unsigned>(k));
-        __threadfence();
-      }
-      __syncthreads();
+      ring::wait(ring.flags, prev, next, static_cast<unsigned>(k), tid);
       // the other colour's halos: prev's last h sites, next's first h
       const float2* ep =
           ring.edges + (static_cast<size_t>(prev) * 2 + 1 - c) * 2 * h;
@@ -287,7 +206,7 @@ __global__ void __launch_bounds__(THREADS * GROUPS, 1)
       }
       __syncthreads();
     }
-    const uint2 key = phase_key(a.seeds, k);
+    const uint2 key = ring::phase_key(a.seeds, k);
     // one site of position p; a measuring one leaves its warp's sums in
     // red, reduced after the phase in block_sums' order
     auto update = [&](int p) {
@@ -297,18 +216,11 @@ __global__ void __launch_bounds__(THREADS * GROUPS, 1)
       Sums t = {0.0, 0.0, 0.0, 0.0};
 #ifndef XY_RESIDENT_NO_SITES
       if (w < n) {
-        const int2 yi = rows[q];
-        int y = yi.x + dy, i = yi.y + di;
-        if (i >= h) {
-          i -= h;
-          ++y;
-        }
         const int l = w - lo + h;
-        // colour 0 on an odd row and colour 1 on an even row read i + 1
-        const bool plus = (c == 0) == ((y & 1) == 1);
-        const int ls = plus ? (i == h - 1 ? l - i : l + 1)
-                            : (i == 0 ? l - i + h - 1 : l - 1);
-        const float2 up = op[l - h], dn = op[l + h], ce = op[l], sd = op[ls];
+        const ring::Slot sl(rows[q], dy, di, h, c, l);
+        const int y = sl.y, i = sl.i;
+        const float2 up = op[l - h], dn = op[l + h], ce = op[l],
+                     sd = op[sl.ls];
         xy::Site st;
         st.idx = base + w;
         st.cx = ce.x;
@@ -341,11 +253,7 @@ __global__ void __launch_bounds__(THREADS * GROUPS, 1)
         }
       }
 #endif
-      if (measuring) {  // uniform
-        const double v = warp_sums(t, tg & 31);
-        if ((tg & 7) == 0)
-          red[(q * NSUMS + ((tg & 31) >> 3)) * WARPS + (tg >> 5)] = v;
-      }
+      if (measuring) ring::store_sums(red, q, tg, t);  // uniform
     };
     int p = g;
     for (; p < edges; p += GROUPS) update(p);
@@ -359,25 +267,15 @@ __global__ void __launch_bounds__(THREADS * GROUPS, 1)
         e[h + l] = sp[m + l];
       }
       __syncthreads();
-      if (tid == 0) {
-        __threadfence();
-        store_release(ring.flags + blockIdx.x, static_cast<unsigned>(k + 1));
-      }
+      ring::publish(ring.flags, static_cast<unsigned>(k + 1), tid);
     }
     for (; p < nch; p += GROUPS) update(p);
     __syncthreads();
-    if (measuring) {
-      // each chunk's 8 warp sums in order: block_sums' partial
-      double* part =
+    if (measuring)
+      ring::chunk_partials(
           a.partials +
-          ((static_cast<size_t>(r) * a.sweeps + s) * nblk + c0) * NSUMS;
-      for (int x = tid; x < nch * NSUMS; x += T) {
-        double v = 0.0;
-#pragma unroll
-        for (int wi = 0; wi < WARPS; ++wi) v += red[x * WARPS + wi];
-        part[x] = v;
-      }
-    }
+              ((static_cast<size_t>(r) * a.sweeps + s) * nblk + c0) * NSUMS,
+          red, nch, tid);
   }
   for (int l = tid; l < m; l += T) {
     const size_t o = base + lo + l;
@@ -459,23 +357,9 @@ int xy_multisweep_grid(int* blocks) { return grid_blocks(blocks); }
 // (opt-in), an SM's shared memory and what the runtime reserves a block.
 int xy_multisweep_smem_limits(int* sms, int* per_sm, int* smem_block,
                               int* smem_sm, int* reserved) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, smem_multisweep_kernel, THREADS * GROUPS, 0);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(smem_block,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(
-        smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(reserved,
-                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
-  return static_cast<int>(e);
+  return ring::smem_limits(
+      reinterpret_cast<const void*>(smem_multisweep_kernel), sms, per_sm,
+      smem_block, smem_sm, reserved);
 }
 
 // multisweep_kernel: S = sweeps Metropolis sweeps of (nrep, ny, half)
@@ -534,21 +418,10 @@ int xy_multisweep_smem(void* ax, void* ay, void* bx, void* by,
       smem < 16 * span + static_cast<long long>(cap / THREADS) * CHUNK_BYTES)
     return invalid;
   const void* fn = reinterpret_cast<const void*>(smem_multisweep_kernel);
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, smem_multisweep_kernel, THREADS * GROUPS, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (static_cast<long long>(per_sm) * sms < static_cast<long long>(nrep) * nb)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  e = cudaMemsetAsync(flags, 0, sizeof(unsigned) * nrep * nb, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (int err = ring::prepare(fn, smem, static_cast<long long>(nrep) * nb,
+                              static_cast<unsigned*>(flags), st))
+    return err;
   Multisweep a = make_args(ax, ay, bx, by, snap, seeds, partials, nrep, ny,
                            half, sweeps, neg_beta);
   Ring ring;
@@ -559,8 +432,8 @@ int xy_multisweep_smem(void* ax, void* ay, void* bx, void* by,
   ring.span = static_cast<int>(span);
   ring.chunks = cap / THREADS;
   void* args[] = {&a, &ring};
-  e = cudaLaunchCooperativeKernel(fn, dim3(nrep * nb),
-                                  dim3(THREADS * GROUPS), args, smem, st);
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, dim3(nrep * nb), dim3(THREADS * GROUPS), args, smem, st);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);

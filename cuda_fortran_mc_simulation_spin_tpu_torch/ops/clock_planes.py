@@ -33,7 +33,8 @@ Kernel.  ``csrc/clock_planes.cu`` ``phase_kernel<Q>`` replaces
 ``clock_planes.py:_phase_kernel`` (pallas_call at :313, ``phase_packed``)
 for all three q: one colour phase, random planes from Philox words (key =
 the (sample, t, phase) key, counter = (replica, word row, column,
-draw/4), ops/multispin_rng.py) or injected, and with ``measuring`` the
+draw/4), ops/multispin_rng.py; drawn in one unrolled line that follows
+the launch's :func:`draw_table`) or injected, and with ``measuring`` the
 exact per-replica (2m, 2e) sums (m, e for q=4) in int64.  Beside it is
 the plain PyTorch version, :func:`phase_plain` (Philox) and
 :func:`phase_reference` (injected).  A wrapper takes the plain version
@@ -178,11 +179,27 @@ def chain_words(digits) -> tuple[list[int], list[int]]:
     return qs + [0] * pad, ks + [1] * pad
 
 
+def proposal_words(q: int) -> int:
+    """Random words a word's proposal draws before its chains: the 12-bit
+    thermometer for q = 6 and 4, one word for q = 3."""
+    return 1 if q == 3 else 12
+
+
+def draw_table(spec: "PlaneSpec", beta: float) -> tuple[int, ...]:
+    """The kernel's draw table of ``spec`` at ``beta``: the proposal words
+    and the chains of ``spec.accept_digits(beta)``
+    (``multispin_rng.clock_draw_table``, 167 words)."""
+    qs, ks = chain_words(spec.accept_digits(beta))
+    return multispin_rng.clock_draw_table(proposal_words(spec.q), tuple(qs),
+                                          tuple(ks))
+
+
 @functools.lru_cache(maxsize=64)
-def _chain_args(spec: "PlaneSpec", beta: float):
-    """The kernels' chain arguments of ``spec`` at ``beta``, computed once
-    (a streamed run launches twice a sweep)."""
-    return chain_words(spec.accept_digits(beta))
+def _table_arg(spec: "PlaneSpec", beta: float):
+    """:func:`draw_table` as the kernels' ctypes argument, built once (a
+    streamed run launches twice a sweep)."""
+    table = draw_table(spec, beta)
+    return (_UINT * len(table))(*table)
 
 
 def _pc(u, dims=(-2, -1)):
@@ -337,12 +354,11 @@ def _lib() -> ctypes.CDLL:
         return lib
     lib.clock_phase.argtypes = (
         [_INT] + [_VOID] * 9 + [_VOID, _VOID]
-        + [_INT] * 6 + [_UINT, _UINT] + [_UINT] * MAX_CHAINS
-        + [_INT] * MAX_CHAINS + [_VOID])
+        + [_INT] * 6 + [_UINT, _UINT, _VOID, _VOID])
     lib.clock_phase.restype = _INT
     lib.clock_halo_phase.argtypes = (
         [_INT, _VOID, _VOID, _VOID] + [_INT] * 8 + [_UINT, _UINT, _VOID,
-                                                    _VOID, _VOID])
+                                                    _VOID])
     lib.clock_halo_phase.restype = _INT
     lib.clock_error_string.argtypes = [_INT]
     lib.clock_error_string.restype = ctypes.c_char_p
@@ -367,20 +383,19 @@ def _check_planes(*planes: torch.Tensor) -> None:
 
 def _random_args(spec: PlaneSpec, xplanes, oplanes, seeds, beta: float,
                  inject):
-    """(stacked injected planes or None, chain q's, chain k's, s0, s1) of a
-    launch, after checking its planes: the injected mode, or Philox words
-    under ``seeds`` with the chains of ``beta``."""
+    """(stacked injected planes or None, the draw table or None, s0, s1) of
+    a launch, after checking its planes: the injected mode, or Philox words
+    under ``seeds`` with the draw table of ``beta``."""
     if inject is None:
         _check_planes(*xplanes, *oplanes)
-        qs, ks = _chain_args(spec, float(beta))
         s0, s1 = (int(v) & MASK32 for v in torch.as_tensor(seeds).tolist())
-        return None, qs, ks, s0, s1
+        return None, _table_arg(spec, float(beta)), s0, s1
     if len(inject) != spec.n_rand:
         raise ValueError(f"{spec.name} injects {spec.n_rand} planes")
     inj = torch.stack([_i32(p) if p.dtype != torch.int32 else p
                        for p in inject]).contiguous()
     _check_planes(*xplanes, *oplanes, *inj)
-    return inj, [0] * MAX_CHAINS, [1] * MAX_CHAINS, 0, 0
+    return inj, None, 0, 0
 
 
 def _launch(spec: PlaneSpec, xplanes, oplanes, color: int, ny: int | None,
@@ -391,8 +406,8 @@ def _launch(spec: PlaneSpec, xplanes, oplanes, color: int, ny: int | None,
     if nyw < 2 or half < 2:
         raise ValueError(f"kernel needs nyw >= 2 and half >= 2, got "
                          f"{tuple(xplanes[0].shape)}")
-    inj, qs, ks, s0, s1 = _random_args(spec, xplanes, oplanes, seeds, beta,
-                                       inject)
+    inj, table, s0, s1 = _random_args(spec, xplanes, oplanes, seeds, beta,
+                                      inject)
     lib = _lib()
     outs = [torch.empty_like(p) for p in xplanes]
     pad3 = [None] * (3 - spec.n_state)
@@ -408,7 +423,7 @@ def _launch(spec: PlaneSpec, xplanes, oplanes, color: int, ny: int | None,
             None if inj is None else inj.data_ptr(),
             None if obs is None else obs.data_ptr(),
             nrep, nyw, half, nb, color, int(inj is not None), s0, s1,
-            *qs, *ks, _stream(xplanes[0]))
+            table, _stream(xplanes[0]))
     if code != 0:
         msg = lib.clock_error_string(code).decode()
         raise RuntimeError(f"clock phase_kernel: CUDA error {code} ({msg})")
@@ -560,8 +575,8 @@ def sharded_phase_packed(spec: PlaneSpec, xplanes, oplanes, hup, hdn, seeds,
     rep0, wrow0, *rest = offsets(offs)
     col0 = rest[0] if rest else 0
     _halo_args(xplanes, hup, hdn, halo_lf, halo_rt)
-    inj, qs, ks, s0, s1 = _random_args(spec, xplanes, oplanes, seeds, beta,
-                                       inject)
+    inj, table, s0, s1 = _random_args(spec, xplanes, oplanes, seeds, beta,
+                                      inject)
     outs = [torch.empty_like(p) for p in xplanes]
     obs = (torch.zeros((nrep, 2), dtype=torch.int64, device=xplanes[0].device)
            if measuring else None)
@@ -580,8 +595,7 @@ def sharded_phase_packed(spec: PlaneSpec, xplanes, oplanes, hup, hdn, seeds,
             spec.q, (_VOID * 21)(*ptrs),
             None if inj is None else inj.data_ptr(),
             None if obs is None else obs.data_ptr(), nrep, nyw, half, color,
-            int(inj is not None), rep0, wrow0, col0, s0, s1,
-            (_UINT * MAX_CHAINS)(*qs), (_INT * MAX_CHAINS)(*ks),
+            int(inj is not None), rep0, wrow0, col0, s0, s1, table,
             _stream(xplanes[0]))
     if code != 0:
         msg = lib.clock_error_string(code).decode()

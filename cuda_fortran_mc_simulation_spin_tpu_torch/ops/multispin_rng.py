@@ -22,7 +22,10 @@ nor the kernel, and every run is deterministic.
 The 3-D Ising kernels (``csrc/ising3d_multispin.cu``,
 ``csrc/helical3d_multispin.cu``) draw their three Bernoulli chains from
 these words in one unrolled line (``csrc/bernoulli.cuh`` ``chain_planes``)
-that follows a per-launch table, :func:`chain_table`.
+that follows a per-launch table, :func:`chain_table`; the periodic packed
+clock kernel (``csrc/clock_planes.cu``) draws its proposal words and
+chains the same way (``csrc/clock_algebra.cuh`` ``draw_unrolled``) from
+:func:`clock_draw_table`.
 """
 
 from __future__ import annotations
@@ -38,6 +41,10 @@ CHAIN_BITS = 20    # Bernoulli-chain resolution: P quantized to 2^-20
 # Philox calls of the unrolled chains: 60 draws, three chains of
 # CHAIN_BITS digits (CHAIN_CALLS in csrc/bernoulli.cuh)
 CHAIN_CALLS = 15
+# Philox calls of the unrolled clock draw: 152 draws, 12 thermometer words
+# and five chains of 28 digits (DRAW_CALLS in csrc/clock_algebra.cuh)
+CLOCK_CALLS = 38
+CLOCK_CHAINS = 5
 _ONES = 0xFFFFFFFF
 
 
@@ -117,3 +124,50 @@ def chain_table(q: tuple[int, int, int]) -> tuple[int, ...]:
             fast |= 1 << c
     digit += [0] * (4 * CHAIN_CALLS - n_all)
     return (*digit, live, fast, e4, e8, n_all)
+
+
+def _masks(ok) -> tuple[int, int]:
+    """Bit c of (lo, hi) set where ``ok(c)``, c < 64."""
+    m = sum(1 << c for c in range(CLOCK_CALLS) if ok(c))
+    return m & _ONES, m >> 32
+
+
+@functools.lru_cache(maxsize=64)
+def clock_draw_table(n_prop: int, qs: tuple[int, ...],
+                     ks: tuple[int, ...]) -> tuple[int, ...]:
+    """The table of a packed clock word's draw that ``csrc/
+    clock_algebra.cuh`` ``draw_unrolled`` follows, the 167 words of its
+    DrawTable: ``n_prop`` proposal words (12 thermometer words, or q = 3's
+    one) are draws [0, n_prop); then chain i (digits ``qs[i]`` =
+    round(p·2^k), ``ks[i]`` = k of them; at most five, padded with empty
+    chains) takes draws [end[i-1], end[i]), from its lowest one digit up to
+    digit k - 1, as ``ops/ising2d_multispin._bern_plane`` draws it (a chain
+    of q = 0 draws none).  Words: for draw n = 0 .. 151 its digit (all ones
+    on a one digit, 0 on a zero digit or a proposal word; draw n is word
+    n % 4 of Philox call n // 4), then the masks ``live`` (call c has a
+    draw below n_all) and ``fast`` (draws 4c .. 4c + 3 are all chain draws
+    below n_all, no chain end among them) as (low, high) 32-bit words, the
+    mask ``ends`` (bit d: a chain ends at draw d < n_all) as five 32-bit
+    words, end[0 .. 4] and n_all."""
+    if len(qs) != len(ks) or len(qs) > CLOCK_CHAINS:
+        raise ValueError(f"at most {CLOCK_CHAINS} chains, got {len(qs)}")
+    digit, ends = [0] * n_prop, []
+    for qx, k in zip(qs, ks):
+        if not 0 <= qx < 1 << k:
+            raise ValueError(f"chain digits q = {qx} outside [0, 2^{k})")
+        if qx:
+            low = (qx & -qx).bit_length() - 1
+            digit += [_ONES if (qx >> b) & 1 else 0 for b in range(low, k)]
+        ends.append(len(digit))
+    n_all = len(digit)
+    if n_all > 4 * CLOCK_CALLS:
+        raise ValueError(f"{n_all} draws pass the table's "
+                         f"{4 * CLOCK_CALLS}")
+    ends += [n_all] * (CLOCK_CHAINS - len(ends))
+    live = _masks(lambda c: 4 * c < n_all)
+    fast = _masks(lambda c: n_prop <= 4 * c and 4 * c + 4 <= n_all and
+                  not any(4 * c <= e < 4 * c + 4 for e in ends))
+    at_end = sum(1 << e for e in set(ends) if e < n_all)
+    digit += [0] * (4 * CLOCK_CALLS - n_all)
+    return (*digit, *live, *fast,
+            *((at_end >> (32 * k)) & _ONES for k in range(5)), *ends, n_all)

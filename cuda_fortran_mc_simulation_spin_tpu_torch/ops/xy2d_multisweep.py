@@ -7,7 +7,8 @@ it launches a CUDA kernel, not a Pallas one).  Spins are 16-bit
 fixed-point angles θ = k·2π/2^16, one int16 (R, ny, nx/2) plane a colour:
 a q = 65536 clock model whose |S| = 1 holds exactly and whose global
 rotations are int16 adds.  ``csrc/xy2d_multisweep.cu``
-``multisweep_kernel`` replaces ``_kernel`` (pallas_call at ``:325``,
+``smem_multisweep_kernel`` and ``multisweep_kernel``, two modes of one
+function, replace ``_kernel`` (pallas_call at ``:325``,
 ``_multisweep``): S sweeps a launch, each a Metropolis phase a and b
 (the candidate the top 16 bits of a random word), with ``n_or`` > 0
 then n_or over-relaxation sweeps (θ' = 2 round(φ) − θ, φ the
@@ -16,11 +17,23 @@ and each sweep's (Σ S_x, Σ S_y, e, A) against the t=0 snapshot planes;
 ``or_only`` runs max(n_or, 1) over-relaxation sweeps and the measure pass
 only (JAX's microcanonical test mode).
 
-The TPU kernel keeps the planes in VMEM for the S sweeps; here they stay
-in device memory (and, at the route's sizes, in L2) and a cooperative
-grid waits at a grid barrier between phases, as ops/xy2d_resident.py's.
+The TPU kernel keeps the planes in VMEM for the S sweeps.  Here, as in
+ops/xy2d_resident.py, two modes, chosen by the fit rule
+:func:`smem_layout`:
+
+- ``smem_multisweep_kernel``, where the batch fits the grid's shared
+  memory (one 1536x1536 replica on the H100, its snapshot too): the int16
+  planes held in the SMs' shared memory for the S sweeps, a ring of
+  blocks a replica and ring flags between phases (``csrc/xy2d_ring.cuh``),
+  each other-colour angle decoded once a phase into a shared float32
+  (cos, sin) plane;
+- ``multisweep_kernel``, past the fit: the planes in device memory (and,
+  at the route's sizes, in L2), a cooperative grid waiting at a grid
+  barrier between phases.
+
 JAX runs it only when asked (``SPINLAT_XY_ANGLE_MS=1``), and so does the
-port (engine/sweep.py); :func:`fits` is JAX's ``fits_vmem``.
+port (engine/sweep.py); :func:`fits` is JAX's ``fits_vmem``, the route's
+bound on a replica, and admits batches of any number of replicas.
 
 Random words: Philox under the (sweep, phase) key of
 ``multispin_rng.sweep_phase_keys`` and counter (replica, row, column, 0)
@@ -31,13 +44,13 @@ do.  The uniform is the top 24 bits of word 1.
 
 Sums: every site term is JAX's float32 term (the decoded components, the
 bond products S·h, cos 2π(θ0 − θ)/2^16 units), widened and summed in
-float64, per 256-site block and then per (replica, sweep) in a fixed
-order on the card (JAX sums in float32).  The kernel spells each float32
-operation with ``__fmul_rn`` / ``__fadd_rn`` / ``__fsub_rn`` in the
-order of the plain versions, the divide of the atan2 polynomial with
-``__fdiv_rn``, and rounds with ``rintf`` (half to even, as
-``torch.round``), so it equals :func:`multisweep_plain` bitwise in the
-state and to float64 rounding in the sums.
+float64, per 256-site chunk and then per (replica, sweep) in a fixed
+order on the card, the same in both modes (JAX sums in float32).  The
+kernels spell each float32 operation with ``__fmul_rn`` / ``__fadd_rn``
+/ ``__fsub_rn`` in the order of the plain versions, the divide of the
+atan2 polynomial with ``__fdiv_rn``, and round with ``rintf`` (half to
+even, as ``torch.round``), so each mode equals :func:`multisweep_plain`
+bitwise in the state and to float64 rounding in the sums.
 
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
@@ -46,6 +59,7 @@ launches the kernel or raises.  ``LAUNCHES`` counts launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,6 +71,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     multispin_rng,
     trig,
     xy2d_pallas,
+    xy2d_resident,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _i32,
@@ -64,7 +79,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _stream,
 )
 
-LAUNCHES = {"multisweep": 0}
+LAUNCHES = {"multisweep": 0, "multisweep_smem": 0}
 
 _TWO_PI = float(2.0 * np.pi)
 _TO_RAD = np.float32(_TWO_PI / 65536.0)
@@ -89,6 +104,48 @@ def fits(ny: int, half: int) -> bool:
     """JAX's ``fits_vmem``: the four int16 planes (state and snapshot)
     of one replica within 9 MiB."""
     return 4 * ny * half * 2 <= VMEM_ANGLE_BUDGET
+
+
+class SmemLayout(NamedTuple):
+    """The ring of ``smem_multisweep_kernel``: ``blocks`` blocks a replica,
+    block j owning chunks ``bounds[j]`` .. ``bounds[j + 1] - 1`` of 256
+    sites, at most ``cap`` sites a block, in ``smem_bytes`` of shared
+    memory a block; ``snap``: the snapshot's sites held there too."""
+    blocks: int
+    bounds: tuple[int, ...]
+    cap: int
+    smem_bytes: int
+    snap: bool
+
+
+def smem_need(cap: int, half: int, snap: bool) -> int:
+    """Shared memory a block of ``cap`` sites takes: the other colour
+    decoded, a float32 (cos, sin) a site and halo site, 8 (cap + 2 half);
+    264 B a chunk; the int16 sites of both colours, 4 cap, and with
+    ``snap`` the snapshot's, 4 cap more."""
+    return (8 * (cap + 2 * half)
+            + cap // xy2d_resident.CHUNK * xy2d_resident.CHUNK_BYTES
+            + 4 * cap * (2 if snap else 1))
+
+
+def smem_layout(nrep: int, ny: int, half: int, sms: int,
+                smem_bytes: int) -> SmemLayout | None:
+    """The fit rule of the two modes: the ring layout of
+    ``smem_multisweep_kernel`` for ``nrep`` replicas of (ny, half) sites a
+    colour, on ``sms`` block slots (SMs x blocks an SM) of at most
+    ``smem_bytes`` shared memory each (the ring of
+    ``xy2d_resident.ring_bounds``), with the snapshot held in shared memory
+    where it fits and in device memory where only the state does; None
+    where the state does not fit (then ``multisweep_kernel`` runs it)."""
+    ring = xy2d_resident.ring_bounds(nrep, ny, half, sms)
+    if ring is None:
+        return None
+    nb, bounds, cap = ring
+    for snap in (True, False):
+        need = smem_need(cap, half, snap)
+        if need <= smem_bytes:
+            return SmemLayout(nb, bounds, cap, need, snap)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +328,11 @@ def _lib() -> ctypes.CDLL:
     lib.xyi_multisweep.argtypes = ([_VOID] * 7 + [_INT] * 6
                                    + [ctypes.c_float, _VOID])
     lib.xyi_multisweep.restype = _INT
+    lib.xyi_multisweep_smem.argtypes = ([_VOID] * 10 + [_INT] * 10
+                                        + [ctypes.c_float, _VOID])
+    lib.xyi_multisweep_smem.restype = _INT
+    lib.xyi_smem_limits.argtypes = [ctypes.POINTER(_INT)] * 5
+    lib.xyi_smem_limits.restype = _INT
     lib.xyi_grid.argtypes = [ctypes.POINTER(_INT)]
     lib.xyi_grid.restype = _INT
     lib.xyi_error_string.argtypes = [_INT]
@@ -278,11 +340,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(code: int, lib) -> None:
+def _raise_on(code: int, lib, name: str = "multisweep_kernel") -> None:
     if code != 0:
         msg = lib.xyi_error_string(code).decode()
-        raise RuntimeError(f"xy2d int16 multisweep_kernel: CUDA error {code} "
-                           f"({msg})")
+        raise RuntimeError(f"xy2d int16 {name}: CUDA error {code} ({msg})")
 
 
 def grid_blocks() -> int:
@@ -291,6 +352,46 @@ def grid_blocks() -> int:
     out = _INT(0)
     _raise_on(lib.xyi_grid(ctypes.byref(out)), lib)
     return out.value
+
+
+_LIMITS: dict[tuple, tuple[int, int]] = {}
+
+
+def smem_limits(dev: torch.device) -> tuple[int, int]:
+    """(block slots, shared memory a block) of ``smem_multisweep_kernel``
+    on CUDA device ``dev`` (one block of 1024 threads an SM on the
+    H100)."""
+    lib = _lib()
+    key = (id(lib), dev.index)
+    if key not in _LIMITS:
+        with torch.cuda.device(dev):
+            _LIMITS[key] = xy2d_resident.read_limits(
+                lib.xyi_smem_limits,
+                lambda code: _raise_on(code, lib, "smem_multisweep_kernel"),
+                "smem_multisweep_kernel")
+    return _LIMITS[key]
+
+
+def device_layout(pa: torch.Tensor) -> SmemLayout | None:
+    """:func:`smem_layout` of the (R, ny, half) planes ``pa``'s shape on
+    their CUDA device."""
+    return smem_layout(*pa.shape, *smem_limits(pa.device))
+
+
+# (library, device, planes' shape) -> the layout and its bounds on the
+# device, worked out once a shape (a copy to the card from pageable host
+# memory would wait for the card's queue)
+_RINGS: dict[tuple, tuple[SmemLayout | None, torch.Tensor | None]] = {}
+
+
+def _ring(pa: torch.Tensor):
+    key = (id(_lib()), pa.device, tuple(pa.shape))
+    if key not in _RINGS:
+        layout = device_layout(pa)
+        bounds = None if layout is None else torch.tensor(
+            layout.bounds, dtype=torch.int32, device=pa.device)
+        _RINGS[key] = (layout, bounds)
+    return _RINGS[key]
 
 
 def _check(planes) -> None:
@@ -308,33 +409,52 @@ def _check(planes) -> None:
 
 
 def multisweep_planes(pa, pb, sa, sb, seeds, *, beta: float, n_or: int = 0,
-                      or_only: bool = False) -> torch.Tensor:
+                      or_only: bool = False, grid: bool = False
+                      ) -> torch.Tensor:
     """S = len(seeds) sweeps of the int16 planes in place under the
-    (S, 2, 2) per-(sweep, phase) keys: ``multisweep_kernel`` on CUDA
-    tensors, :func:`multisweep_plain` on CPU tensors.  Returns the
-    (R, S, 4) float64 per-sweep (Σ S_x, Σ S_y, e, A).  The kernel refuses
-    a batch whose site index could reach 2^31."""
+    (S, 2, 2) per-(sweep, phase) keys: on CUDA tensors one launch,
+    ``smem_multisweep_kernel`` where :func:`smem_layout` fits the batch on
+    the card, else ``multisweep_kernel`` (``grid`` forces the latter); on
+    CPU tensors :func:`multisweep_plain`.  Returns the (R, S, 4) float64
+    per-sweep (Σ S_x, Σ S_y, e, A).  The kernels refuse a batch whose site
+    index could reach 2^31."""
     if _on_cpu(pa):
         return multisweep_plain(pa, pb, sa, sb, seeds, beta=beta, n_or=n_or,
                                 or_only=or_only)
     _check([pa, pb, sa, sb])
     nrep, ny, half = pa.shape
     sweeps = int(seeds.shape[0])
-    seeds_dev = _i32(torch.as_tensor(seeds)).contiguous().to(pa.device)
+    dev = pa.device
+    seeds_dev = _i32(torch.as_tensor(seeds)).contiguous().to(dev)
     nblk = -(-ny * half // THREADS)
     partials = torch.empty((nrep * sweeps, nblk, 4), dtype=torch.float64,
-                           device=pa.device)
-    obs = torch.empty((nrep, sweeps, 4), dtype=torch.float64,
-                      device=pa.device)
+                           device=dev)
+    obs = torch.empty((nrep, sweeps, 4), dtype=torch.float64, device=dev)
+    layout, bounds = (None, None) if grid else _ring(pa)
     lib = _lib()
-    with torch.cuda.device(pa.device):
-        code = lib.xyi_multisweep(
-            pa.data_ptr(), pb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-            seeds_dev.data_ptr(), partials.data_ptr(), obs.data_ptr(), nrep,
-            ny, half, sweeps, n_or, int(or_only), -float(beta),
-            _stream(pa))
-    _raise_on(code, lib)
-    LAUNCHES["multisweep"] += 1
+    args = (pa.data_ptr(), pb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+            seeds_dev.data_ptr(), partials.data_ptr(), obs.data_ptr())
+    with torch.cuda.device(dev):
+        if layout is None:
+            code = lib.xyi_multisweep(
+                *args, nrep, ny, half, sweeps, n_or, int(or_only),
+                -float(beta), _stream(pa))
+        else:
+            blocks = nrep * layout.blocks
+            edges = torch.empty((blocks, 2, 2 * half), dtype=torch.int16,
+                                device=dev)
+            flags = torch.empty((blocks,), dtype=torch.int32, device=dev)
+            code = lib.xyi_multisweep_smem(
+                *args, bounds.data_ptr(), edges.data_ptr(),
+                flags.data_ptr(), nrep, ny, half, sweeps, n_or, int(or_only),
+                layout.blocks, layout.cap, layout.smem_bytes,
+                int(layout.snap), -float(beta), _stream(pa))
+    if layout is None:
+        _raise_on(code, lib)
+        LAUNCHES["multisweep"] += 1
+    else:
+        _raise_on(code, lib, "smem_multisweep_kernel")
+        LAUNCHES["multisweep_smem"] += 1
     return obs
 
 

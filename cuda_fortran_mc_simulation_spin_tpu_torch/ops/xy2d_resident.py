@@ -79,9 +79,10 @@ def fits(model, batch: int) -> bool:
 
 # the sites of a chunk: one block of the streamed metropolis_kernel
 CHUNK = 256
-# shared memory a chunk takes beside its sites: its 8 warps' 4 float64
-# sums and its first site's (row, column)
-_CHUNK_BYTES = 4 * 8 * 8 + 8
+# shared memory a chunk takes beside its sites in a ring block
+# (csrc/xy2d_ring.cuh CHUNK_BYTES): its 8 warps' 4 float64 sums and its
+# first site's (row, column)
+CHUNK_BYTES = 4 * 8 * 8 + 8
 
 
 class SmemLayout(NamedTuple):
@@ -95,22 +96,19 @@ class SmemLayout(NamedTuple):
     smem_bytes: int
 
 
-def smem_layout(nrep: int, ny: int, half: int, sms: int,
-                smem_bytes: int) -> SmemLayout | None:
-    """The fit rule of the two modes: the ring layout of
-    ``smem_multisweep_kernel`` for ``nrep`` replicas of (ny, half) sites a
-    colour, on ``sms`` block slots (SMs x blocks an SM) of at most
-    ``smem_bytes`` shared memory each; None where the batch does not fit
-    (then ``multisweep_kernel`` runs it).
+def ring_bounds(nrep: int, ny: int, half: int,
+                sms: int) -> tuple[int, tuple[int, ...], int] | None:
+    """The ring of a shared-memory multisweep (``csrc/xy2d_ring.cuh``; this
+    module's and ``xy2d_multisweep``'s) for ``nrep`` replicas of (ny,
+    half) sites a colour on ``sms`` block slots: (blocks a ring, bounds,
+    cap), or None where no ring of one block a replica fits.
 
     Each replica gets its own ring of ``sms // nrep`` blocks at most, each
     owning a contiguous run of whole chunks, as even as the chunks allow;
     the ring shrinks until every block owns at least ``half`` real sites,
     so a block's halos (the other colour's ``half`` sites before and after
-    its range) lie in its two ring neighbours' ranges.  A block's shared
-    memory: its sites and both halos in both colours, (cap + 2 half) x
-    2 colours x 8 B, and 264 B a chunk (its warps' sums, its first
-    site)."""
+    its range) lie in its two ring neighbours' ranges; ``cap`` is the most
+    sites a block owns, in whole chunks."""
     n = ny * half
     chunks = -(-n // CHUNK)
     per = sms // nrep
@@ -124,8 +122,24 @@ def smem_layout(nrep: int, ny: int, half: int, sms: int,
         if min(owned) >= half or nb == 1:
             break
         nb -= 1
-    cap = max(b - a for a, b in zip(bounds, bounds[1:])) * CHUNK
-    need = 16 * (cap + 2 * half) + cap // CHUNK * _CHUNK_BYTES
+    return nb, bounds, max(b - a for a, b in zip(bounds, bounds[1:])) * CHUNK
+
+
+def smem_layout(nrep: int, ny: int, half: int, sms: int,
+                smem_bytes: int) -> SmemLayout | None:
+    """The fit rule of the two modes: the ring layout of
+    ``smem_multisweep_kernel`` (:func:`ring_bounds`) for ``nrep`` replicas
+    of (ny, half) sites a colour, on ``sms`` block slots (SMs x blocks an
+    SM) of at most ``smem_bytes`` shared memory each; None where the batch
+    does not fit (then ``multisweep_kernel`` runs it).  A block's shared
+    memory: its sites and both halos in both colours, (cap + 2 half) x
+    2 colours x 8 B, and 264 B a chunk (its warps' sums, its first
+    site)."""
+    ring = ring_bounds(nrep, ny, half, sms)
+    if ring is None:
+        return None
+    nb, bounds, cap = ring
+    need = 16 * (cap + 2 * half) + cap // CHUNK * CHUNK_BYTES
     if need > smem_bytes:
         return None
     return SmemLayout(nb, bounds, cap, need)
@@ -231,16 +245,26 @@ def smem_limits(dev: torch.device) -> tuple[int, int]:
     lib = _lib()
     key = (id(lib), dev.index)
     if key not in _LIMITS:
-        vals = [_INT(0) for _ in range(5)]
         with torch.cuda.device(dev):
-            _raise_on(lib.xy_multisweep_smem_limits(
-                *(ctypes.byref(v) for v in vals)), lib)
-        sms, per_sm, smem_block, smem_sm, reserved = (v.value for v in vals)
-        if per_sm < 1:
-            raise RuntimeError("smem_multisweep_kernel: no block fits an SM")
-        _LIMITS[key] = (sms * per_sm,
-                        min(smem_block, smem_sm // per_sm - reserved))
+            _LIMITS[key] = read_limits(
+                lib.xy_multisweep_smem_limits,
+                lambda code: _raise_on(code, lib, "smem_multisweep_kernel"),
+                "smem_multisweep_kernel")
     return _LIMITS[key]
+
+
+def read_limits(limits_fn, raise_on, name: str) -> tuple[int, int]:
+    """(block slots, shared memory a block) on the current device from a
+    ring kernel's C limits function (``csrc/xy2d_ring.cuh``
+    ``ring::smem_limits``: SMs, blocks an SM, the opt-in shared memory a
+    block, an SM's, the runtime's reserve a block); ``raise_on`` raises on
+    its error code."""
+    vals = [_INT(0) for _ in range(5)]
+    raise_on(limits_fn(*(ctypes.byref(v) for v in vals)))
+    sms, per_sm, smem_block, smem_sm, reserved = (v.value for v in vals)
+    if per_sm < 1:
+        raise RuntimeError(f"{name}: no block fits an SM")
+    return sms * per_sm, min(smem_block, smem_sm // per_sm - reserved)
 
 
 def device_layout(st: XYState) -> SmemLayout | None:

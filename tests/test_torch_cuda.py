@@ -427,6 +427,36 @@ def test_clock_phase_kernel_matches_plain(cuda, q, ny, nx):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q", [6, 4, 3])
+@pytest.mark.parametrize("kbt", [0.8, 1e9, 0.12, 0.05])
+def test_clock_phase_kernel_draw_table_matches_plain(cuda, q, kbt):
+    """phase_kernel's unrolled draw (its launch's table) against the plain
+    version at the clock classes' and extreme temperatures (chains of 12
+    digits, all ones; of up to 28 digits, some empty), both colours,
+    measuring and not, on a ragged shape: 3 x 200 rows (7 word rows, 8
+    real rows in the top one, a partial word-row tile) x 140 columns (70
+    words, a partial column tile)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import clock_planes
+    spec = sweep.CLOCK_SPECS[q]
+    ny, half = 200, 70
+    nyw = -(-ny // 32)
+    planes = _clock_planes(cuda, 3, nyw, half, 2 * spec.n_state, q, ny)
+    x = tuple(planes[:spec.n_state])
+    o = tuple(planes[spec.n_state:])
+    for color in (0, 1):
+        seeds = rng.seeds_from_key(rng.base_key(5), color)
+        for measuring in (False, True):
+            kw = dict(color=color, beta=1 / kbt, ny=ny, measuring=measuring)
+            got = clock_planes.phase_packed(spec, x, o, seeds, **kw)
+            want = clock_planes.phase_plain(spec, x, o, seeds, **kw)
+            if measuring:
+                assert torch.equal(got[1], want[1])
+                got, want = got[0], want[0]
+            for g_, w_ in zip(got, want):
+                assert torch.equal(g_, w_)
+
+
+@pytest.mark.cuda
 def test_clock_runner_equals_cpu_runner(cuda):
     """The periodic clock runner gives the same series on the card as its
     plain versions on the CPU (padded 248x248, q = 6)."""
@@ -1404,14 +1434,22 @@ def test_xy_angle_metro_tile_ragged(cuda, ny, nx, nrep):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("grid", [False, True])
 @pytest.mark.parametrize("shape,n_or,or_only", [
     ((2, 32, 24), 0, False), ((2, 32, 24), 1, False),
     ((2, 32, 24), 2, True), ((1, 1536, 768), 0, False),
-    ((3, 64, 750), 1, False)])
-def test_xy_int16_multisweep_matches_plain(cuda, shape, n_or, or_only):
-    """multisweep_kernel against its plain version on the same CUDA
-    tensors, S = 3 sweeps: the int16 state bitwise, the sums to float64
-    rounding."""
+    ((1, 1536, 768), 1, False), ((1, 1536, 768), 1, True),
+    ((3, 64, 750), 1, False), ((1, 2048, 1024), 0, False),
+    ((2, 1536, 768), 0, False), ((5, 6, 250), 0, False)])
+def test_xy_int16_multisweep_matches_plain(cuda, shape, n_or, or_only, grid):
+    """Both modes of the int16 multisweep against its plain version on the
+    same CUDA tensors, S = 3 sweeps: the int16 state bitwise, the sums to
+    float64 rounding.  The shared-memory mode where the fit rule takes the
+    batch (small and ragged shapes, the main path's 1536x1536 x 1, its
+    snapshot in shared memory; 2048x2048 x 1, its snapshot in device
+    memory; 5 x 6x500, blocks of a few rows), the grid-barrier mode past it
+    (1536x1536 x 2) and wherever ``grid`` forces it; the launch is counted
+    under the mode the rule picked."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         xy2d_multisweep as xi,
     )
@@ -1422,8 +1460,13 @@ def test_xy_int16_multisweep_matches_plain(cuda, shape, n_or, or_only):
     seeds = xi.multispin_rng.sweep_phase_keys(rng.base_key(9), 3)
     ka, kb = planes[0].clone(), planes[1].clone()
     pa, pb = planes[0].clone(), planes[1].clone()
+    smem = not grid and xi.device_layout(planes[0]) is not None
+    assert smem == (not grid and shape != (2, 1536, 768))
+    xi.reset_launches()
     got = xi.multisweep_planes(ka, kb, *planes[2:], seeds, beta=1 / KBT_XY,
-                               n_or=n_or, or_only=or_only)
+                               n_or=n_or, or_only=or_only, grid=grid)
+    assert xi.LAUNCHES == {"multisweep": int(not smem),
+                           "multisweep_smem": int(smem)}
     want = xi.multisweep_plain(pa, pb, *planes[2:], seeds, beta=1 / KBT_XY,
                                n_or=n_or, or_only=or_only)
     assert torch.equal(ka, pa) and torch.equal(kb, pb)
@@ -1734,7 +1777,8 @@ def _sums_close(got, want, scale):
 def test_packed_clock_halo_kernel_matches_plain(cuda, q, cols):
     """clock_planes.sharded_phase_packed on the card against its plain
     version: Philox and injected planes, both colours, plain and
-    measuring, with and without word columns, one word row a shard."""
+    measuring, with and without word columns, shards of one, three and
+    nine word rows (a partial word-row tile) and partial column tiles."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         clock3_multispin,
         clock4_multispin,
@@ -1744,7 +1788,7 @@ def test_packed_clock_halo_kernel_matches_plain(cuda, q, cols):
     spec = {6: clock_multispin, 4: clock4_multispin,
             3: clock3_multispin}[q].SPEC
     g = np.random.default_rng(40 + q)
-    for nyw, half in ((1, 33), (3, 70)):
+    for nyw, half in ((1, 33), (3, 70), (9, 40)):
         R = 2
         a, b = (torch.from_numpy(g.integers(0, q, (R, 32 * nyw, half))
                                  .astype(np.int8)).to(cuda)

@@ -103,12 +103,15 @@ Phases (each prints a progress line on stderr):
      with the measure kernel and against its plain version (states
      bitwise, sums within 1e-12);
    - masked helical, at 33x32 x 3 (even N), 33x31 x 3 (odd N: the seam
-     rows' same-colour pairs) and every main-path launch (Ising 1001x1000
-     x 128, 4001x4000 x 4, 1001x1001 x 16, 1001x1000 x 1 of --protocol
-     samples; clock q = 6 and 5 at 501x500 x 100, q = 2 at 1001x1000 x 64,
-     q = 6 at 501x500 x 1, q = 2, 5, 8 at 501x500 and 1001x1001 x 2, every
-     q of HP_CLOCK_QS at the small shapes; XY 10001x10000 x 1, 4001x4001
-     x 2 and x 1): the Ising and clock
+     rows' same-colour pairs), 35x30 x 3 and 35x31 x 5 (replica bases off
+     the 16-B grid), 3x2 x 2 (N below one vector; the Ising and XY at
+     these three; and at each small shape the Ising multisweep and the XY
+     phase on views off the 16-B grid) and every main-path launch (Ising
+     1001x1000 x 128, 4001x4000 x 4, 1001x1001 x 16, 1001x1000 x 1 of
+     --protocol samples; clock q = 6 and 5 at 501x500 x 100, q = 2 at
+     1001x1000 x 64, q = 6 at 501x500 x 1, q = 2, 5, 8 at 501x500 and
+     1001x1001 x 2, every q of HP_CLOCK_QS at the small shapes; XY
+     10001x10000 x 1, 4001x4001 x 2 and x 1): the Ising and clock
      multisweeps with injected and Philox randomness against their plain
      versions and against one-sweep launches (states bitwise, Ising sums
      exactly, clock sums within 1e-12 of their scale, the last sweep's sums
@@ -3358,10 +3361,12 @@ def clock8_shares(classes: dict, t8: dict) -> dict[str, float]:
 CLOCK_501_MASKED = (PRODUCTION
                     / "clock_501x500_kbt0.80_mcs100000_s100_masked.dat")
 # the checks' shapes (R, ny, nx): a small even N and a small odd N (both
-# seam rows, idx 0 with N-1), then every launch of the main path: each
-# class's, and the one-replica launch of --protocol samples (a cooperative
-# grid of fewer tiles than resident blocks walks them otherwise)
-HP_SMALL = ((3, 32, 33), (3, 31, 33))
+# seam rows, idx 0 with N-1), replica bases that are not 16-B aligned
+# (even and odd N) and N below one vector (the Ising and XY tiles' edge
+# paths), then every launch of the main path: each class's, and the
+# one-replica launch of --protocol samples (a cooperative grid of fewer
+# tiles than resident blocks walks them otherwise)
+HP_SMALL = ((3, 32, 33), (3, 31, 33), (3, 30, 35), (5, 31, 35), (2, 2, 3))
 HP_ISING_SHAPES = HP_SMALL + ((128, 1000, 1001), (4, 4000, 4001),
                               (16, 1001, 1001), (1, 1000, 1001))
 # (q, kbt, (R, ny, nx)): every q at a small shape, then the clock classes'
@@ -3437,6 +3442,13 @@ def hp_uniforms(dev, shape, seed: int) -> list[torch.Tensor]:
             for _ in range(2)]
 
 
+def hp_offset(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """t's values in a view starting ``elems`` elements past the 16-B
+    aligned start of a larger buffer."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    return buf[elems:].view(t.shape).copy_(t)
+
+
 def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
     """The masked helical kernels against their plain versions on the same
     CUDA tensors, at even and odd N and at the classes' launches: the
@@ -3447,7 +3459,8 @@ def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
     state; the XY phase with injected and Philox uniforms, both colours,
     measuring and not (fused at even N, the measure launch at odd N), the
     OR phase and the measure mode (states bitwise, sums within 1e-12 of
-    their scale).  Returns the largest error a kernel."""
+    their scale); then the Ising multisweep and the XY phase on views
+    that start off the 16-B grid.  Returns the largest error a kernel."""
     errs = {"ising": 0.0, "clock": 0.0, "xy_phase": 0.0, "xy_or": 0.0,
             "sums_rel": 0.0}
     seeds = multispin_keys(rng, HP_CHECK_SWEEPS, 91)
@@ -3533,6 +3546,33 @@ def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
         log(f"  helical_pallas xy {nrep}x{ny}x{nx}: phase {e_ph}, or {e_or}, "
             f"sums rel {rel:.3g}")
         del sx, sy, u
+    # views that start off the 16-B grid: Ising at 3 bytes; XY at 1 float,
+    # its out planes at 1 (vectors from off0 = 1) and at 0 (float by float)
+    for shape in HP_SMALL:
+        nrep, ny, nx = shape
+        n = ny * nx
+        x = hp_ising_state(dev, shape, n + 7)
+        ki, oi = hp.ising_multisweep(hp_offset(x, 3), seeds[:2],
+                                     beta=1.0 / KBT, nx=nx)
+        pi, opi = hp.ising_multisweep_plain(x, seeds[:2], beta=1.0 / KBT,
+                                            nx=nx)
+        e_i = max_abs_err([(ki, pi), (oi, opi)])
+        sx, sy = hp_xy_state(dev, shape, n + 9)
+        key = rng.seeds_from_key(rng.base_key(87), 1)
+        kw = dict(color=1, nx=nx, beta=1.0 / KBT_XY, measuring=True)
+        want = hp.xy_phase_plain(sx, sy, key, **kw)
+        e_x = rel = 0.0
+        for off in (1, 0):
+            got = hp.xy_phase(hp_offset(sx, 1), hp_offset(sy, 1), key,
+                              out=(hp_offset(sx, off), hp_offset(sy, off)),
+                              **kw)
+            e_x = max(e_x, float_err(list(zip(got[:2], want[:2]))))
+            rel = max(rel, scaled_err(got[2], want[2], 2 * n))
+        errs["ising"] = max(errs["ising"], e_i)
+        errs["xy_phase"] = max(errs["xy_phase"], e_x)
+        errs["sums_rel"] = max(errs["sums_rel"], rel)
+        log(f"  helical_pallas {nrep}x{ny}x{nx} off the 16-B grid: ising "
+            f"{e_i}, xy phase {e_x}, sums rel {rel:.3g}")
     torch.cuda.synchronize()
     if max(errs["ising"], errs["clock"], errs["xy_phase"], errs["xy_or"]):
         fail(f"a masked helical kernel differs from its plain version "

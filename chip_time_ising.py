@@ -19,21 +19,33 @@ mode (measuring and plain) at the mesh packed clock class's shard (8, 32,
 phase_kernel; with ``--helical3d``, the helical 3-D phase kernel at
 the even streamed class's launch, 1001x1000x1000 x 2 (colour a, z-parity
 sub-phases 0 and 1), and at the odd streamed class's, 501x501x500 x 2
-(colour b, plain and measuring), on random vectors; with ``--registers``,
+(colour b, plain and measuring), on random vectors; with ``--masked``,
+the masked helical Ising multisweep (csrc/helical_pallas.cu
+ising_multisweep_kernel) at its four main-path launches, 1001x1000 x 128,
+4001x4000 x 4, 1001x1001 x 16 and the samples class's 1001x1000 x 1, S =
+16 sweeps each, with its SASS, and beside it the masked clock multisweep
+of the same source (clock_multisweep_kernel) at its class's 501x500 x
+100, q = 6, S = 16; with ``--samples``, the four int8 kernels
+of the one-replica samples classes at 1000x1000 x 1 (the Ising phase and
+measure kernels, the clock's at q = 6), each event-timed as the smoke
+times them and as a CUDA graph of 50 launches (the kernel alone, without
+the wrapper's host work); with ``--registers``,
 no timing: every csrc/*.cu built anew and the ptxas registers of each of
 its kernels, one JSON line {library: {kernel: registers}} (the kernel's
 mangled name without the anonymous namespace's per-file hash), to hold
 the includers of a shared header unchanged across two checkouts.
 
     python3 chip_time_ising.py [--reps 50] [--rounds 3]
-                               [--clock | --helical3d | --registers]
+                               [--clock | --helical3d | --masked |
+                                --samples | --registers]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
 the kernels on first use.  It uses only the wrappers' public API, so to
 compare two commits copy it into both checkouts and run it from each in
 turns on one card (A, B, B, A).  Prints the card's nvidia-smi name and
 power limit, the ptxas register report of the build, with ``--helical3d``
-and ``--clock`` the SASS of phase_kernel (instructions, the instructions of each loop,
+and ``--clock`` the SASS of phase_kernel (``--masked``: of
+ising_multisweep_kernel; instructions, the instructions of each loop,
 the commonest opcodes; where cuobjdump exists), and last one JSON line
 {mode: [ms a launch, one per round]} (``"int8_multisweep_blocks": n``
 and ``"packed_3d_multisweep_blocks": n`` beside the Ising modes).
@@ -61,6 +73,11 @@ CLOCK_LIBS = ["clock_planes", "clock_pallas", "clock_multisweep"]
 KBT_CLOCK, KBT_CLOCK_08 = 0.91, 0.8
 # the helical 3-D classes' temperatures: 1001x1000x1000 and 501x501x500
 KBT_H3, KBT_H3_501 = 4.511454583186711, 4.51152174982078
+# the masked Ising multisweep's main-path launches (R, ny, nx): its three
+# classes' and the samples class's (chip_smoke.HP_ISING_SHAPES)
+MASKED_SHAPES = ((128, 1000, 1001), (4, 4000, 4001), (16, 1001, 1001),
+                 (1, 1000, 1001))
+MASKED_SWEEPS = 16
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                         r"([A-Z][A-Z0-9_.]*)([^;]*);")
 
@@ -158,6 +175,59 @@ def helical3d_modes(words):
     }
 
 
+def masked_modes(spins, gen, dev):
+    """The masked helical Ising multisweep at MASKED_SHAPES and the masked
+    clock multisweep at 501x500 x 100, q = 6, S = MASKED_SWEEPS, on random
+    states (updated in place, launch after launch)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_pallas as hp,
+        multispin_rng,
+    )
+    seeds = multispin_rng.sweep_phase_keys(
+        torch.tensor([12345, 678], dtype=torch.int64), MASKED_SWEEPS)
+    modes = {}
+    for nrep, ny, nx in MASKED_SHAPES:
+        x = spins((nrep, ny * nx))
+        modes[f"masked multisweep {ny}x{nx} x {nrep} S={MASKED_SWEEPS}"] = (
+            lambda x=x, nx=nx: hp.ising_multisweep(x, seeds, beta=1 / KBT_2D,
+                                                   nx=nx))
+    c = torch.randint(0, 6, (100, 500 * 501), generator=gen, device=dev,
+                      dtype=torch.int64).to(torch.int8)
+    modes[f"masked clock multisweep 500x501 x 100 q=6 S={MASKED_SWEEPS}"] = (
+        lambda: hp.clock_multisweep(c, seeds, beta=1 / KBT_CLOCK_08, nx=501,
+                                    q=6))
+    return modes
+
+
+def samples_modes(spins, gen, dev, key):
+    """Rows 24, 27, 20 and 23 (the int8 Ising phase and measure kernels,
+    the int8 clock's at q = 6) at the samples classes' one-replica launch,
+    1000x1000 x 1 (colour planes (1, 1000, 500)), each event-timed and as
+    a CUDA graph ("graph " modes)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_measure_pallas as c8m,
+        clock_pallas as c8p,
+        ising2d_measure_pallas as i8m,
+        ising2d_pallas as i2p,
+    )
+    a, b = spins((1, 1000, 500)), spins((1, 1000, 500))
+    ca, cb = (torch.randint(0, 6, (1, 1000, 500), generator=gen, device=dev,
+                            dtype=torch.int64).to(torch.int8)
+              for _ in range(2))
+    calls = {
+        "row24 int8_phase 1000^2 x 1": lambda: i2p.metropolis_phase(
+            a, b, key, color=0, beta=1 / KBT_2D),
+        "row27 int8_measure 1000^2 x 1": lambda: i8m.measure_sums(a, b),
+        "row20 clock8_phase 1000^2 x 1 q=6": lambda: c8p.metropolis_phase(
+            ca, cb, key, color=0, q=6, beta=1 / KBT_CLOCK),
+        "row23 clock8_measure 1000^2 x 1 q=6": lambda: c8m.measure_sums(
+            ca, cb, 6),
+    }
+    modes = dict(calls)
+    modes.update({f"graph {k}": fn for k, fn in calls.items()})
+    return modes
+
+
 def clock_modes(gen, dev, seeds):
     """The clock kernels at the smoke's launch shapes, on random states."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
@@ -234,6 +304,11 @@ def main() -> int:
                     help="time the clock kernels instead")
     ap.add_argument("--helical3d", action="store_true",
                     help="time the helical 3-D phase kernel instead")
+    ap.add_argument("--masked", action="store_true",
+                    help="time the masked helical Ising multisweep instead")
+    ap.add_argument("--samples", action="store_true",
+                    help="time the samples classes' one-replica int8 "
+                    "kernels instead, also as CUDA graphs")
     ap.add_argument("--registers", action="store_true",
                     help="print every kernel's ptxas registers instead")
     args = ap.parse_args()
@@ -272,6 +347,12 @@ def main() -> int:
         modes, libs = clock_modes(gen, dev, seeds), CLOCK_LIBS
     elif args.helical3d:
         modes, libs = helical3d_modes(words), ["helical3d_multispin"]
+    elif args.masked:
+        modes, libs = masked_modes(spins, gen, dev), ["helical_pallas"]
+    elif args.samples:
+        modes, libs = samples_modes(spins, gen, dev, phase_key), [
+            "ising2d_pallas", "ising2d_measure_pallas", "clock_pallas",
+            "clock_measure_pallas"]
     else:
         modes = ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds,
                             phase_key, b2, b3)
@@ -293,7 +374,7 @@ def main() -> int:
             end.record()
             end.synchronize()
             times[mode].append(start.elapsed_time(end) / reps)
-    if not (args.clock or args.helical3d):
+    if not (args.clock or args.helical3d or args.masked or args.samples):
         times["int8_multisweep_blocks"] = i8ms.grid_blocks()
         times["packed_3d_multisweep_blocks"] = ms3.multisweep_grid_blocks()
     smi = subprocess.run(
@@ -309,9 +390,11 @@ def main() -> int:
                     print(line.strip())
     if args.helical3d:
         sass_report("helical3d_multispin", ("phase_kernel",))
+    elif args.masked:
+        sass_report("helical_pallas", ("ising_multisweep_kernel",))
     elif args.clock:
         sass_report("clock_planes", ("phase_kernel",))
-    else:
+    elif not args.samples:
         sass_report("ising3d_multispin", ("phase_kernel",
                                           "multisweep_kernel"))
     print(json.dumps(times))

@@ -29,10 +29,16 @@ class's launches, 1536x1536 x 1 with S = 64 and 40, and S = 16 with one
 over-relaxation sweep, in the mode its wrapper routes them to, its
 grid-barrier mode forced at S = 64 (where the wrapper can force it) and
 past the shared-memory fit at 1536x1536 x 2, with the SASS of its
-kernels (a tenth of --reps a mode).
+kernels (a tenth of --reps a mode); with ``--masked``, the masked
+helical XY kernels (csrc/helical_pallas.cu) at their classes' launches,
+10001x10000 x 1 and 4001x4001 x 2: xy_phase_kernel's three modes (a
+phase, colour 0; the fused phase, colour 1, at even N; the measure mode)
+and xy_or_kernel (colour 0), each out of place into spare planes, with
+the SASS of both kernels.
 
     python3 chip_time_xy.py [--reps 200] [--rounds 3] [--helical]
                             [--periodic-angle] [--resident] [--int16]
+                            [--masked]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
 csrc/xy2d_pallas.cu (csrc/xy2d_helical_dense*.cu,
@@ -212,6 +218,39 @@ def int16_modes(dev, gen, key, beta):
     return modes
 
 
+# the masked helical XY classes' launches (R, ny, nx)
+MASKED_SHAPES = ((1, HY, HX), (2, 4001, 4001))
+
+
+def masked_modes(dev, gen, key, beta):
+    """The masked XY kernels at MASKED_SHAPES on random planes."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_pallas as hp,
+        multispin_rng,
+    )
+    seeds = multispin_rng.sweep_phase_keys(key, 1)[0]
+    modes = {}
+    for nrep, ny, nx in MASKED_SHAPES:
+        th = torch.rand((nrep, ny * nx), generator=gen, device=dev) * 6.2832
+        sx, sy = torch.cos(th), torch.sin(th)
+        out = (torch.empty_like(sx), torch.empty_like(sy))
+        tag = f"{ny}x{nx} x {nrep}"
+        modes[f"masked_phase {tag}"] = (
+            lambda sx=sx, sy=sy, out=out, nx=nx: hp.xy_phase(
+                sx, sy, seeds[0], color=0, nx=nx, beta=beta, out=out))
+        if ny * nx % 2 == 0:
+            modes[f"masked_phase_fused {tag}"] = (
+                lambda sx=sx, sy=sy, out=out, nx=nx: hp.xy_phase(
+                    sx, sy, seeds[1], color=1, nx=nx, beta=beta,
+                    measuring=True, out=out))
+        modes[f"masked_measure {tag}"] = (
+            lambda sx=sx, sy=sy, nx=nx: hp.xy_measure(sx, sy, nx=nx))
+        modes[f"masked_or {tag}"] = (
+            lambda sx=sx, sy=sy, out=out, nx=nx: hp.xy_or_phase(
+                sx, sy, color=0, nx=nx, out=out))
+    return modes
+
+
 # the periodic A/B's launches (R, ny, nx)
 ANGLE_SHAPES = ((32, 2000, 2000), (1, 10000, 10000))
 # the angle snapshot mode's launch (R, ny, nx): the finite-magne class
@@ -330,6 +369,8 @@ def main() -> int:
                     "their measurement builds instead")
     ap.add_argument("--int16", action="store_true",
                     help="time the int16 multisweep's modes instead")
+    ap.add_argument("--masked", action="store_true",
+                    help="time the masked helical XY kernels instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_time_xy: needs an NVIDIA GPU", file=sys.stderr)
@@ -347,6 +388,10 @@ def main() -> int:
         return report(periodic_angle_modes(dev, gen, key, beta), args,
                       ["xy2d_pallas", "xy2d_pallas_angle"],
                       sass=("angle_metro_kernel", "angle_metro_snap_kernel"))
+    if args.masked:
+        return report(masked_modes(dev, gen, key, beta), args,
+                      ["helical_pallas"],
+                      sass=("xy_phase_kernel", "xy_or_kernel"))
     if args.int16:
         return report(int16_modes(dev, gen, key, beta), dict(
             vars(args), reps=max(1, args.reps // 10)), ["xy2d_multisweep"],

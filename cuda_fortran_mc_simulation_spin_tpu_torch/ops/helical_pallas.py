@@ -62,6 +62,17 @@ batch between a sweep's two phases; the port follows the kernels.
 The clock's q = 6 here decodes by ``cos_sin_2pi``, not the packed helical
 clock's rounded tables (ROADMAP C4), as the TPU masked kernel does.
 
+Tiles.  The Ising multisweep streams each phase through tiles of 256
+16-B vectors of one replica at aligned addresses, staged in shared memory
+a tile ahead; the XY phase through blocks of 256 aligned float4 vectors a
+step, in registers (:func:`ising_tiles`, :func:`xy_tiles`: the launch
+constants, computed here alone; the kernels take them as passed).  A
+thread reads its own vector, the aligned vectors under its up and down
+windows and its ±1 neighbours before it stores its vector, and only the
+vectors that reach past a replica (a replica base that is not 16-B
+aligned, the wrap mod N, at odd N the seam rows' snapshot) go element by
+element.
+
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
 """
@@ -107,6 +118,9 @@ MAX_REPLICAS = 65535     # the XY grid's y extent
 TABLE = 128              # entries of the clock kernel's tables
 ISING_UNIT = 4           # colour sites a Philox call feeds (Ising)
 PAIR_UNIT = 2            # (clock, XY)
+VEC_BYTES = 16           # a thread's aligned vector: 16 int8 sites, 4 float32
+XY_VPT = (1, 4)          # vectors a thread of the XY phase kernel: a phase,
+                         # a measuring launch (fewer partials to reduce)
 LAUNCHES = {"ising_multisweep": 0, "clock_multisweep": 0, "xy_phase": 0,
             "xy_phase_measuring": 0, "xy_measure": 0, "xy_or": 0}
 
@@ -132,15 +146,15 @@ def colour_sites(n: int, color: int) -> int:
 def check_shape(nrep: int, n: int, nx: int) -> None:
     """Refuse what the kernels do not take: odd nx >= 3, ny = N / nx >= 2,
     1 .. MAX_REPLICAS replicas, and N small enough that no site index a
-    kernel forms (idx + nx, a unit's last site) can pass 2^31 (they index
-    a replica with 32-bit offsets and the batch with 64-bit ones)."""
+    kernel forms (a tile's last vector + nx) can pass 2^31 (they index a
+    replica with 32-bit offsets and the batch with 64-bit ones)."""
     if nx < 3 or nx % 2 == 0 or n % nx or n // nx < 2:
         raise ValueError(f"N={n}, nx={nx}: the masked helical kernels take "
                          "odd nx >= 3 and ny >= 2")
     if not 1 <= nrep <= MAX_REPLICAS:
         raise ValueError(f"{nrep} replicas: a launch takes 1 .. "
                          f"{MAX_REPLICAS}")
-    if n + 2 * nx + 8 * THREADS >= 2 ** 31:
+    if n + 2 * nx + 32 * THREADS >= 2 ** 31:
         raise ValueError(f"N={n}: a site index of a replica would pass 2^31")
 
 
@@ -390,11 +404,12 @@ def _lib() -> ctypes.CDLL:
     if lib.hp_ising_multisweep.argtypes is not None:
         return lib
     lib.hp_ising_multisweep.argtypes = (
-        [_VOID] * 5 + [_INT] * 4 + [_UINT] * 2 + [_VOID])
+        [_VOID] * 5 + [_INT] * 4 + [_UINT] * 2 + [_INT] * 2 + [_VOID])
     lib.hp_clock_multisweep.argtypes = (
         [_VOID] * 9 + [_INT] * 5 + [ctypes.c_float, _VOID])
     lib.hp_xy_phase.argtypes = (
-        [_VOID] * 8 + [_INT] * 5 + [ctypes.c_float, _UINT, _UINT, _VOID])
+        [_VOID] * 8 + [_INT] * 5 + [ctypes.c_float, _UINT, _UINT]
+        + [_INT] * 4 + [_VOID])
     lib.hp_xy_or.argtypes = [_VOID] * 4 + [_INT] * 4 + [_VOID]
     lib.hp_grid_blocks.argtypes = [_INT, _INT, ctypes.POINTER(_INT)]
     for fn in (lib.hp_ising_multisweep, lib.hp_clock_multisweep,
@@ -439,6 +454,53 @@ def _seam(x: torch.Tensor, nx: int) -> torch.Tensor | None:
     return torch.empty((x.shape[0], 2 * nx), dtype=x.dtype, device=x.device)
 
 
+def _replica_vectors(nrep: int, n: int, off0: int, width: int) -> int:
+    """The most aligned vectors of ``width`` elements one replica of n
+    elements touches, replica r starting off0 + r n elements past an
+    aligned address (the residues repeat within 16 replicas)."""
+    return max((off0 + r * n) % width + n - 1 for r in
+               range(min(nrep, 16))) // width + 1
+
+
+def ising_tiles(nrep: int, n: int, nx: int, offset: int = 0) -> dict:
+    """Launch constants of ``ising_multisweep_kernel`` on (R, N) int8
+    states whose first byte lies ``offset`` bytes past a 16-B aligned
+    address (``data_ptr() % 16``): ``off0`` that offset, ``tpr`` the tiles
+    of THREADS vectors a replica (the longest's), ``ou`` = -nx mod 16 and
+    ``od`` = nx mod 16 (the up window of a vector at site a is bytes ou ..
+    ou + 15 of the aligned pair at a - nx - ou; the down window bytes od ..
+    of the pair at a + nx - od).  Tile ts of replica r holds vectors
+    (off0 + r N) // 16 + THREADS ts + t, t < THREADS, while they touch the
+    replica; block b of the grid takes tiles b, b + blocks, ... (replica
+    major)."""
+    off0 = offset % VEC_BYTES
+    span = _replica_vectors(nrep, n, off0, VEC_BYTES)
+    return {"off0": off0, "tpr": -(-span // THREADS), "ou": -nx % VEC_BYTES,
+            "od": nx % VEC_BYTES}
+
+
+def xy_tiles(nrep: int, n: int, nx: int, offsets=(0,),
+             measuring: bool = False) -> dict:
+    """Launch constants of ``xy_phase_kernel`` on (R, N) float32 planes
+    whose pointers lie ``offsets`` bytes past 16-B aligned addresses (the
+    planes it reads and writes): ``vec`` 1 where they share one offset
+    (16-B vector loads and stores; else every float alone, tiled from
+    each replica's start), ``off0`` that offset in floats, ``vpt`` the
+    float4 vectors a thread takes (XY_VPT: more in the ``measuring``
+    modes, whose partials reduce_kernel adds), ``nblk`` the grid's blocks a
+    replica (each vpt THREADS vectors: thread t of block b takes vectors
+    b vpt THREADS + j THREADS + t, j < vpt, in that order, and its sums
+    in that order and site by site are its share of the block's
+    partial), ``su`` = -nx mod 4 and ``sd`` = nx mod 4."""
+    width = VEC_BYTES // 4
+    vec = len(set(offsets)) == 1 and offsets[0] % 4 == 0
+    off0 = offsets[0] // 4 if vec else 0
+    span = _replica_vectors(nrep, n, off0, width)
+    vpt = XY_VPT[bool(measuring)]
+    return {"off0": off0, "vpt": vpt, "nblk": -(-span // (THREADS * vpt)),
+            "su": -nx % width, "sd": nx % width, "vec": int(vec)}
+
+
 def chunks(n: int, unit: int) -> int:
     """Tiles of 256 units a replica's colour sites fill (the larger
     colour's, ceil(N/2) sites, ``unit`` a unit)."""
@@ -471,6 +533,7 @@ def ising_multisweep(x: torch.Tensor, seeds=None, *, beta: float, nx: int,
         seeds_dev = _i32(seeds).contiguous().to(x.device)
     t4, t8 = accept_thresholds_u32(beta)
     seam = _seam(x, nx)
+    tiles = ising_tiles(nrep, n, nx, x.data_ptr())
     # zeroed: the kernel adds each block's sums with an atomic
     obs = torch.zeros((nrep, sweeps, 2), dtype=torch.int64, device=x.device)
     lib = _lib()
@@ -478,7 +541,8 @@ def ising_multisweep(x: torch.Tensor, seeds=None, *, beta: float, nx: int,
         code = lib.hp_ising_multisweep(
             x.data_ptr(), None if seam is None else seam.data_ptr(),
             seeds_dev.data_ptr(), None if bits is None else bits.data_ptr(),
-            obs.data_ptr(), nrep, n, nx, sweeps, t4, t8, _stream(x))
+            obs.data_ptr(), nrep, n, nx, sweeps, t4, t8, tiles["off0"],
+            tiles["tpr"], _stream(x))
     raise_on(code, lib.hp_error_string, "helical ising_multisweep_kernel")
     LAUNCHES["ising_multisweep"] += 1
     return x, obs
@@ -539,13 +603,6 @@ def grid_blocks(kind: int, odd: bool) -> int:
     return blocks.value
 
 
-def xy_blocks(n: int) -> int:
-    """Blocks of 256 units (four sites each) a replica of the XY kernels
-    fills: their grid's width."""
-    units = -(-n // 4)
-    return -(-units // THREADS)
-
-
 # xy_phase_kernel's modes (csrc/helical_pallas.cu)
 _UPDATE, _FUSED, _MEASURE = 0, 1, 2
 
@@ -560,9 +617,12 @@ def _xy_launch(sx, sy, out, mode: int, *, color: int = 0, nx: int,
     if injected:
         _check_injected(sx, (nrep, colour_sites(n, 0)), torch.float32, *rand)
     s0, s1 = (0, 0) if rand is None or injected else seed_words(rand)
+    planes = (sx, sy) + (() if out is None else tuple(out))
+    tiles = xy_tiles(nrep, n, nx, [p.data_ptr() % VEC_BYTES for p in planes],
+                     mode != _UPDATE)
     partials = obs = None
     if mode != _UPDATE:
-        partials = torch.empty((nrep, xy_blocks(n), 3), dtype=torch.float64,
+        partials = torch.empty((nrep, tiles["nblk"], 3), dtype=torch.float64,
                                device=dev)
         obs = torch.empty((nrep, 3), dtype=torch.float64, device=dev)
     lib = _lib()
@@ -575,7 +635,8 @@ def _xy_launch(sx, sy, out, mode: int, *, color: int = 0, nx: int,
             rand[1].data_ptr() if injected else None,
             None if partials is None else partials.data_ptr(),
             None if obs is None else obs.data_ptr(), nrep, n, nx, color,
-            mode, -float(beta), s0, s1, _stream(sx))
+            mode, -float(beta), s0, s1, tiles["off0"], tiles["vpt"],
+            tiles["nblk"], tiles["vec"], _stream(sx))
     raise_on(code, lib.hp_error_string, "helical xy_phase_kernel")
     return obs
 

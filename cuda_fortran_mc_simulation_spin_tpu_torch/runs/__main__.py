@@ -75,12 +75,16 @@ and the streamed disorder runs to its f32-angle engine, and
 (e.g. 1536x1536) to the int16-angle multisweep.  The ``# engine:`` line
 names the route taken.
 
-``--mesh DP,Y[,X]`` runs periodic Ising 2-D and 3-D domain-sharded over
-a mesh of DP·Y·X cards (replicas over DP, rows or z-planes over Y,
-colour-array columns over X, 2-D only), with the same series as the
-unsharded run bit for bit where both take the same engine (packed or
-int8; README.md); with ``--device cpu`` the mesh repeats the host and
-runs the kernels' plain versions::
+``--mesh DP,Y[,X]`` runs every periodic model (Ising 2-D and 3-D, the
+clock, XY and its disorder protocols) domain-sharded over a mesh of
+DP·Y·X cards (replicas over DP, rows or z-planes over Y, colour-array
+columns over X, 2-D only), with the same series as the unsharded run bit
+for bit where both take the same engine (Ising packed or int8, the
+packed clock; the float64 sums of the int8 clock and XY within 1e-12;
+README.md); ``--protocol samples`` runs its histories unsharded, and a
+helical shape on a mesh raises ValueError, as in the JAX package.  With
+``--device cpu`` the mesh repeats the host and runs the kernels' plain
+versions::
 
     python -m cuda_fortran_mc_simulation_spin_tpu_torch.runs \
         --model ising2d --nx 8192 --ny 8192 --mcs 200 --samples 4 \
@@ -89,8 +93,8 @@ runs the kernels' plain versions::
 stdout (or --output) = the dataset; stderr = progress.  --registry
 appends a JSON run record.  --checkpoint enables exact resume.  Flags of
 routes the port does not serve yet raise with the ROADMAP.md item that
-ports them: --mesh on the clock and XY models, --profile-dir, --backend
-other than auto, and helical 3-D at 2^30 sites a colour or more.  --n-over-relax on Ising or clock
+ports them: --profile-dir, --backend other than auto, and helical 3-D
+at 2^30 sites a colour or more.  --n-over-relax on Ising or clock
 raises ValueError: over-relaxation is defined for the XY model only.
 """
 

@@ -1205,10 +1205,13 @@ def _hp_scaled(got, want, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nrep,ny,nx", [(3, 32, 33), (3, 31, 33),
-                                        (2, 64, 65), (1, 3, 3)])
+                                        (2, 64, 65), (1, 3, 3),
+                                        (3, 30, 35), (5, 31, 35),
+                                        (2, 2, 3)])
 def test_helical_pallas_kernels_match_plain(cuda, nrep, ny, nx):
     """The four masked kernels against their plain versions at even and
-    odd N: multisweeps with injected and Philox randomness (states
+    odd N, replica bases that are not 16-B aligned and N below one
+    vector: multisweeps with injected and Philox randomness (states
     bitwise, Ising sums exactly, clock sums within 1e-12 of their scale),
     the XY phase (both colours, injected and Philox, measuring and not),
     the OR phase and the measure mode."""
@@ -1262,6 +1265,73 @@ def test_helical_pallas_kernels_match_plain(cuda, nrep, ny, nx):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert _hp_scaled(hp.xy_measure(sx, sy, nx=nx), hp.xy_sums(sx, sy, nx),
                       2 * n) <= 1e-12
+
+
+def _hp_offset(t, elems):
+    """t's values in a view starting ``elems`` elements past the 16-B
+    aligned start of a larger buffer (the caching allocator aligns it)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    assert buf.data_ptr() % 16 == 0
+    return buf[elems:].view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrep,ny,nx", [(3, 32, 33), (3, 31, 33),
+                                        (3, 30, 35), (5, 31, 35),
+                                        (2, 2, 3)])
+def test_helical_pallas_kernels_match_plain_off_the_vector_grid(
+        cuda, nrep, ny, nx):
+    """The masked Ising multisweep and the XY phase on views whose first
+    element is not 16-B aligned, against their plain versions bitwise:
+    Ising x at 3 and 8 bytes past the grid (injected and Philox words);
+    XY planes at 1 float past it with out planes at the same offset (the
+    vector path, off0 = 1) and at another (element by element), measuring
+    and not, and the measure mode at offsets 3/3 and 1/2 floats."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_pallas as hp,
+    )
+    n = ny * nx
+    m0 = hp.colour_sites(n, 0)
+    g = np.random.default_rng(7 * n + nrep)
+    seeds = hp.multispin_rng.sweep_phase_keys(
+        rng.sample_key(rng.base_key(8), 0), 3)
+    x = torch.from_numpy((g.integers(0, 2, size=(nrep, n)) * 2 - 1)
+                         .astype(np.int8)).to(cuda)
+    bits = torch.from_numpy(g.integers(-2 ** 31, 2 ** 31, size=(3, 2, nrep,
+                                                                m0))
+                            .astype(np.int32)).to(cuda)
+    for off in (3, 8):
+        for kw in (dict(bits=bits), dict(seeds=seeds)):
+            xo = _hp_offset(x, off)
+            assert xo.data_ptr() % 16 == off
+            got = hp.ising_multisweep(xo, beta=1 / KBT, nx=nx, **kw)
+            want = hp.ising_multisweep_plain(x, beta=1 / KBT, nx=nx, **kw)
+            assert got[0].data_ptr() == xo.data_ptr()
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    th = torch.from_numpy(g.uniform(0, 2 * np.pi, size=(nrep, n))
+                          .astype(np.float32)).to(cuda)
+    sx, sy = torch.cos(th).contiguous(), torch.sin(th).contiguous()
+    u = tuple(torch.from_numpy((g.integers(0, 2 ** 24, size=(nrep, m0))
+                                * 2.0 ** -24).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    sxo, syo = _hp_offset(sx, 1), _hp_offset(sy, 1)
+    for out_off in (1, 0, 2):
+        for color in (0, 1):
+            for rand in (u, rng.seeds_from_key(rng.base_key(5), color)):
+                for measuring in (False, True):
+                    kw = dict(color=color, nx=nx, beta=1 / 0.89,
+                              measuring=measuring)
+                    out = (_hp_offset(sx, out_off), _hp_offset(sy, out_off))
+                    got = hp.xy_phase(sxo, syo, rand, out=out, **kw)
+                    want = hp.xy_phase_plain(sx, sy, rand, **kw)
+                    assert torch.equal(got[0], want[0])
+                    assert torch.equal(got[1], want[1])
+                    if measuring:
+                        assert _hp_scaled(got[2], want[2], 2 * n) <= 1e-12
+    for ox, oy in ((3, 3), (1, 2)):
+        got = hp.xy_measure(_hp_offset(sx, ox), _hp_offset(sy, oy), nx=nx)
+        assert _hp_scaled(got, hp.xy_sums(sx, sy, nx), 2 * n) <= 1e-12
 
 
 @pytest.mark.cuda

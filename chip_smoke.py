@@ -962,6 +962,18 @@ def check_helical3d(h3, hms, rng, dev) -> dict[str, int]:
         log(f"  helical3d multisweep kernel {nrep}x151x151x150 S={sweeps}: "
             f"vs {sweeps} phase pairs {e_pairs}, vs plain {e_plain}, (m, e) "
             f"vs exact sums {e_exact}")
+    # the C entry point refuses a chain table the kernel cannot follow
+    # (the wrapper's check raises first)
+    offs_a, offs_b, table = h3.multisweep_args(beta=beta, **geom)
+    bad = (type(table))(*table)
+    bad[len(bad) - 1] = 4 * h3.CHAIN_CALLS + 1
+    code = h3._lib().helical3d_multisweep(
+        None, None, None, None, None, None, 1, hms.words(m), m, 1, offs_a,
+        offs_b, bad, None)
+    log(f"  helical3d multisweep entry point, a table of 61 draws: code "
+        f"{code}")
+    if code != 1:
+        fail(f"helical3d multisweep took a bad chain table (code {code})")
     torch.cuda.synchronize()
     for name, e in errs.items():
         if e != 0:
@@ -2565,6 +2577,8 @@ def check_int8(i2p, i3p, i8m, i8ms, rng, dev) -> dict[str, int]:
         log(f"  int8 {dims}-D {'x'.join(map(str, shape))}: phase bits "
             f"{e_bits}, philox {e_rand}; measure {e_m}")
         del a, b, bits
+    errs["phase3d"] = max(errs["phase3d"], check_int8_3d_off_grid(i3p, rng,
+                                                                  dev))
     a, b = int8_state(dev, INT8_MS_CHECK, 31)
     seeds = multispin_keys(rng, 64)
     ka, kb, kobs = i8ms.multisweep_planes(a.clone(), b.clone(), seeds,
@@ -2588,6 +2602,63 @@ def check_int8(i2p, i3p, i8m, i8ms, rng, dev) -> dict[str, int]:
             fail(f"int8 {name} kernel differs from its plain version (max "
                  f"abs err {e})")
     return errs
+
+
+# a small int8 3-D shape on views off the 16-B grid (each tensor's first
+# byte OFF_GRID bytes past an aligned address): tile_kernel in its plain,
+# injected-words and halo measuring modes, the halo mode at global
+# offsets (1, 5)
+INT8_OFF_GRID_3D = (2, 6, 10, 250)
+OFF_GRID = (3, 7, 11)
+
+
+def check_int8_3d_off_grid(i3p, rng, dev) -> int:
+    """tile_kernel on views whose first byte lies off the 16-B grid,
+    against its plain version on aligned copies, bitwise: both colours
+    with Philox and injected words, and the halo mode measuring and
+    plain.  Returns the largest absolute difference."""
+    g = np.random.default_rng(97)
+    shape = INT8_OFF_GRID_3D
+    beta = 1.0 / KBT_3D
+
+    def spins(shp):
+        return torch.from_numpy((g.integers(0, 2, size=shp) * 2 - 1).astype(
+            np.int8)).to(dev)
+
+    def off_grid(t, off):
+        buf = torch.empty(t.numel() + 32, dtype=torch.int8, device=dev)
+        base = (-buf.data_ptr()) % 16
+        v = buf[base + off:base + off + t.numel()].view(t.shape)
+        assert v.data_ptr() % 16 == off % 16 and v.is_contiguous()
+        return v.copy_(t)
+
+    a, b = spins(shape), spins(shape)
+    hs = (shape[0], 1) + shape[2:]
+    zm, zp = spins(hs), spins(hs)
+    bits = random_words(shape, 101, dev, n=1)[0]
+    err = 0
+    for color in (0, 1):
+        x, o = (a, b) if color == 0 else (b, a)
+        seeds = rng.seeds_from_key(rng.base_key(23), color)
+        for kw in (dict(seeds=seeds), dict(bits=bits)):
+            got = i3p.metropolis_phase(off_grid(x, OFF_GRID[0]),
+                                       off_grid(o, OFF_GRID[1]),
+                                       color=color, beta=beta, **kw)
+            err = max(err, max_abs_err([(got, i3p.phase_plain(
+                x, o, color=color, beta=beta, **kw))]))
+        for measuring in (False, True):
+            got = i3p.sharded_phase(
+                off_grid(x, OFF_GRID[0]), off_grid(o, OFF_GRID[1]),
+                off_grid(zm, OFF_GRID[2]), off_grid(zp, OFF_GRID[0]), seeds,
+                (1, 5), color=color, beta=beta, measuring=measuring)
+            want = i3p.sharded_phase_plain(x, o, zm, zp, seeds, (1, 5),
+                                           color=color, beta=beta,
+                                           measuring=measuring)
+            err = max(err, max_abs_err(
+                zip(got, want) if measuring else [(got, want)]))
+    log(f"  int8 3-D {'x'.join(map(str, shape))} on views {OFF_GRID} bytes "
+        f"off the 16-B grid: phase, injected, halo (measuring): {err}")
+    return err
 
 
 def multispin_keys(rng, sweeps: int, seed: int = 29):
@@ -4457,7 +4528,7 @@ MESH_KERNELS = {
                 "ising3d_multispin.cu", "ising3d_multispin.py:638"),
     "ising2d_int8": ("halo_phase", "ising2d_pallas.phase_kernel<true, .>",
                      "ising2d_pallas.cu", "ising2d_pallas.py:397"),
-    "ising3d_int8": ("halo_phase", "ising3d_pallas.phase_kernel<true, .>",
+    "ising3d_int8": ("halo_phase", "ising3d_pallas.tile_kernel<true, .>",
                      "ising3d_pallas.cu", "ising3d_pallas.py:237"),
 }
 
@@ -6304,7 +6375,7 @@ def main() -> int:
         ("ising2d_pallas.phase_kernel", "ising2d_pallas.cu",
          "ising2d_pallas.py:126", launched("ising2d_int8", "phase"),
          max(errs8["phase2d"], ei8), ti8["phase2d 8x4000x2000"][0]),
-        ("ising3d_pallas.phase_kernel", "ising3d_pallas.cu",
+        ("ising3d_pallas.tile_kernel", "ising3d_pallas.cu",
          "ising3d_pallas.py:85", launched("ising3d_int8", "phase"),
          max(errs8["phase3d"], ei8), ti8["phase3d 2x500x500x250"][0]),
         ("ising2d_measure_pallas.measure_kernel",

@@ -8,7 +8,10 @@ at 512^3 x 8, the halo mode (measuring and plain) at the mesh 3-D
 class's shard (4, 128, 16, 256) of 512^3 x 8 on (2,4), timed as a CUDA
 graph of 50 launches (median of 9 windows, chip_smoke.graph_time_ms),
 and the 3-D multisweep at 256^3 x 4, S = 64, with the SASS of
-phase_kernel and multisweep_kernel; with ``--clock``, the clock
+phase_kernel and multisweep_kernel; beside the int8 3-D phase (500^3 x
+2) its halo mode at the mesh int8 3-D class's shard (1, 250, 500, 250) of
+500^3 x 2 on (2,2), measuring and plain, graph-timed, with the SASS of
+the int8 3-D tile_kernel; with ``--clock``, the clock
 kernels whose headers the halo modes share: the bit-sliced q = 6 phase,
 measuring, at 2000x2000 x 40 (padded) and 2048x2048 x 16, the int8 clock
 phase at 2000x2000 x 16 (q = 5) and its S-sweep kernel at 1000x1000 x 16
@@ -19,7 +22,10 @@ mode (measuring and plain) at the mesh packed clock class's shard (8, 32,
 phase_kernel; with ``--helical3d``, the helical 3-D phase kernel at
 the even streamed class's launch, 1001x1000x1000 x 2 (colour a, z-parity
 sub-phases 0 and 1), and at the odd streamed class's, 501x501x500 x 2
-(colour b, plain and measuring), on random vectors; with ``--masked``,
+(colour b, plain and measuring), on random vectors, and the helical
+3-D resident multisweep (multisweep_kernel) at its class's launch,
+151x151x150 x 128 with S = 64, and at the samples protocol's 151x151x150
+x 1 with S = 8, with the SASS of both kernels; with ``--masked``,
 the masked helical Ising multisweep (csrc/helical_pallas.cu
 ising_multisweep_kernel) at its four main-path launches, 1001x1000 x 128,
 4001x4000 x 4, 1001x1001 x 16 and the samples class's 1001x1000 x 1, S =
@@ -44,7 +50,9 @@ the kernels on first use.  It uses only the wrappers' public API, so to
 compare two commits copy it into both checkouts and run it from each in
 turns on one card (A, B, B, A).  Prints the card's nvidia-smi name and
 power limit, the ptxas register report of the build, with ``--helical3d``
-and ``--clock`` the SASS of phase_kernel (``--masked``: of
+and ``--clock`` the SASS of phase_kernel (``--helical3d`` also of
+multisweep_kernel, the default mode also of the int8 3-D tile_kernel;
+``--masked``: of
 ising_multisweep_kernel; instructions, the instructions of each loop,
 the commonest opcodes; where cuobjdump exists), and last one JSON line
 {mode: [ms a launch, one per round]} (``"int8_multisweep_blocks": n``
@@ -155,14 +163,21 @@ def helical3d_modes(words):
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         helical3d_multispin as h3,
         helical_multispin as hms,
+        multispin_rng,
     )
     key = rng.seeds_from_key(rng.base_key(17), 0)
     even = dict(nx=1001, nxy=1001 * 1000, m=1001 * 1000 * 1000 // 2,
                 beta=1 / KBT_H3)
     odd = dict(nx=501, nxy=501 * 501, m=501 * 501 * 500 // 2,
                beta=1 / KBT_H3_501)
+    res = dict(nx=151, nxy=151 * 151, m=151 * 151 * 150 // 2,
+               beta=1 / KBT_H3)
     ea, eb = (words((2, hms.words(even["m"]))) for _ in range(2))
     oa, ob = (words((2, hms.words(odd["m"]))) for _ in range(2))
+    ra, rb = (words((128, hms.words(res["m"]))) for _ in range(2))
+    sa, sb = (words((1, hms.words(res["m"]))) for _ in range(2))
+    seeds = multispin_rng.sweep_phase_keys(
+        torch.tensor([12345, 678], dtype=torch.int64), 64)
     return {
         "helical3d_1001_zsub0": lambda: h3.phase_packed(
             ea, eb, key, color=0, zsub=0, **even),
@@ -172,6 +187,10 @@ def helical3d_modes(words):
                                                  **odd),
         "helical3d_501_measuring": lambda: h3.phase_packed(
             ob, oa, key, color=1, measuring=True, **odd),
+        "helical3d multisweep 151x151x150 x 128 S=64": lambda: (
+            h3.multisweep_planes(ra, rb, seeds, **res)),
+        "helical3d multisweep 151x151x150 x 1 S=8": lambda: (
+            h3.multisweep_planes(sa, sb, seeds[:8], **res)),
     }
 
 
@@ -389,7 +408,8 @@ def main() -> int:
                         or "stack frame" in line):
                     print(line.strip())
     if args.helical3d:
-        sass_report("helical3d_multispin", ("phase_kernel",))
+        sass_report("helical3d_multispin", ("phase_kernel",
+                                            "multisweep_kernel"))
     elif args.masked:
         sass_report("helical_pallas", ("ising_multisweep_kernel",))
     elif args.clock:
@@ -397,6 +417,7 @@ def main() -> int:
     elif not args.samples:
         sass_report("ising3d_multispin", ("phase_kernel",
                                           "multisweep_kernel"))
+        sass_report("ising3d_pallas", ("tile_kernel",))
     print(json.dumps(times))
     return 0
 
@@ -407,6 +428,10 @@ def ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds, phase_key,
     ra, rb = spins((16, 1000, 500)), spins((16, 1000, 500))
     sa, sb = spins((8, 4000, 2000)), spins((8, 4000, 2000))
     va, vb = spins((2, 500, 500, 250)), spins((2, 500, 500, 250))
+    # the mesh int8 3-D class's shard of 500^3 x 2 on (2,2) and its halo
+    # planes
+    ia, ib = spins((1, 250, 500, 250)), spins((1, 250, 500, 250))
+    izm, izp = spins((1, 1, 500, 250)), spins((1, 1, 500, 250))
     wa, wb = words((4, 256, 4096)), words((4, 256, 4096))
     xa, xb = words((8, 512, 16, 256)), words((8, 512, 16, 256))
     # the mesh 3-D class's shard of 512^3 x 8 on (2,4) and its halo planes
@@ -420,6 +445,11 @@ def ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds, phase_key,
                                                    color=0, beta=b2),
         "int8_3d_phase": lambda: i3p.metropolis_phase(va, vb, phase_key,
                                                       color=0, beta=b3),
+        "graph int8_3d_shard_measuring": lambda: i3p.sharded_phase(
+            ib, ia, izm, izp, phase_key, (0, 250), color=1, beta=b3,
+            measuring=True),
+        "graph int8_3d_shard": lambda: i3p.sharded_phase(
+            ia, ib, izm, izp, phase_key, (0, 250), color=0, beta=b3),
         "packed_phase_measuring": lambda: msb.phase_packed(
             wb, wa, phase_key, color=1, beta=b2, measuring=True),
         "packed_3d_phase_measuring": lambda: ms3.phase3d_packed(

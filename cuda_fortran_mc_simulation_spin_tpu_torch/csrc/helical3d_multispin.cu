@@ -13,7 +13,8 @@
 //                     of the final vectors from forward-bond disagreements.
 //   multisweep_kernel replaces _ms_kernel (:290 _multisweep): S sweeps on
 //                     resident vectors with the (m, e) of every sweep, odd
-//                     nx*ny only.
+//                     nx*ny only; its chains are phase_kernel's, under the
+//                     round keys of each (sweep, phase) key.
 //
 // Layout: one (R, W) uint32 colour vector per colour, bit k of word g =
 // colour index 32g+k, M = nall/2 valid bits (ops/helical_multispin.py).
@@ -56,16 +57,19 @@
 // four even-nx*ny sub-phases cost about two phases.  multisweep_kernel runs
 // one block per replica in device memory (both colours of a 151x151x150
 // replica, 417.5 KiB, exceed the 227 KB of shared memory), with a
-// __syncthreads() between phases.
+// __syncthreads() between phases; 1024 threads at the cap of 64
+// registers ran faster than 512 (78 registers) and 256 (PERF.md §6).
 //
-// phase_kernel draws its chains in a fully unrolled loop (bernoulli.cuh
-// chain_planes, from the launch's ChainTable and round keys in its
-// parameters); the first design (multisweep_kernel keeps it) called
-// bern_word per chain, ~12-16 instructions a draw on top of Philox; and
-// each neighbour plane's colour is a compile-time choice
-// (phase_kernel<NCROSS>).  PERF.md §6 has the variants' A/B.  The draws
-// and their order are bern_word's, so the planes are the plain chains'
-// bits.
+// Both Philox kernels draw their chains in a fully unrolled loop
+// (bernoulli.cuh chain_planes, from the launch's ChainTable):
+// phase_kernel with the round keys in its parameters, multisweep_kernel
+// with those of each (sweep, phase) key, derived by every thread at the
+// phase's start (philox_round_keys, as csrc/ising3d_multispin.cu's
+// multisweep does).  The first design called bern_word per chain, ~12-16
+// instructions a draw on top of Philox; each neighbour plane's colour is
+// a compile-time choice (phase_kernel<NCROSS>).  PERF.md §6 has the A/Bs.
+// The draws and their order are bern_word's, so the planes are the plain
+// chains' bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -86,11 +90,6 @@ constexpr int MS_THREADS = 1024;
 struct Stencil {
   int nw, m, ncross;
   int d[6];
-};
-
-struct Chains {
-  uint2 key;             // Philox key of this (sample, t, sub-phase)
-  uint32_t q4, q8, q12;  // chain digits: round(p * 2^20)
 };
 
 struct PhaseArgs {
@@ -147,15 +146,6 @@ __device__ __forceinline__ void counts(const Stencil& s, const uint32_t* x,
                      s.m, start);
   }
   count6(n[0], n[1], n[2], n[3], n[4], n[5], b1, b2, b4);
-}
-
-__device__ __forceinline__ void chain_words(const Chains& c, uint32_t r,
-                                            uint32_t g, uint32_t& p4,
-                                            uint32_t& p8, uint32_t& p12) {
-  WordStream ws(r, g, 0u, c.key);
-  p4 = bern_word(ws, c.q4);
-  p8 = bern_word(ws, c.q8);
-  p12 = bern_word(ws, c.q12);
 }
 
 // Fused sums of one word of phase b with vm its valid bits: s = 2 bit - 1
@@ -301,7 +291,7 @@ struct MultisweepArgs {
   long long* obs;         // (R, S, 2) (m, e), zeroed by the caller
   int sweeps;
   Stencil sa, sb;         // colour a's and b's stencils (6 cross planes)
-  uint32_t q4, q8, q12;
+  ChainTable chain;       // the chains of every phase (bernoulli.cuh)
 };
 
 // S sweeps, one block a replica.  A phase updates its colour in place: a
@@ -323,20 +313,17 @@ __global__ void __launch_bounds__(MS_THREADS, 1)
       uint32_t* x = phase ? B : A;
       const uint32_t* o = phase ? A : B;
       const Stencil st = phase ? a.sb : a.sa;
-      Chains ch;
-      ch.key = make_uint2(
+      uint2 rk[10];
+      philox_round_keys(
           static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2]),
-          static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2 + 1]));
-      ch.q4 = a.q4;
-      ch.q8 = a.q8;
-      ch.q12 = a.q12;
+          static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2 + 1]), rk);
       long long pm = 0, pe = 0;
       for (int g = tid; g < nw; g += MS_THREADS) {
         const int f0 = g * 32;
         uint32_t b1, b2, b4c, p4, p8, p12;
         counts(st, x, o, f0, b1, b2, b4c);
-        chain_words(ch, static_cast<uint32_t>(r), static_cast<uint32_t>(g),
-                    p4, p8, p12);
+        chain_planes(a.chain, rk, static_cast<uint32_t>(r),
+                     static_cast<uint32_t>(g), 0u, p4, p8, p12);
         const uint32_t xv = x[g];
         const uint32_t nv = xv ^ flip6(xv, b1, b2, b4c, p4, p8, p12);
         x[g] = nv;
@@ -419,13 +406,14 @@ int helical3d_energy(const void* wa, const void* wb, void* obs, int nrep,
 }
 
 // S sweeps: wa_in/wb_in -> wa/wb, per-sweep (m, e) into obs (R, S, 2),
-// zeroed by the caller; da/db the six cross offsets mod M of each colour.
-// A grid of R blocks of 1024 threads.
+// zeroed by the caller; da/db the six cross offsets mod M of each colour;
+// chain the 65 words of ChainTable (refused unless chain_table_ok).  A
+// grid of R blocks of 1024 threads.
 int helical3d_multisweep(const void* wa_in, const void* wb_in, void* wa,
                          void* wb, const void* seeds, void* obs, int nrep,
                          int nw, int m, int sweeps, const int* da,
-                         const int* db, unsigned int q4, unsigned int q8,
-                         unsigned int q12, void* stream) {
+                         const int* db, const unsigned int* chain,
+                         void* stream) {
   MultisweepArgs a;
   a.wa_in = static_cast<const uint32_t*>(wa_in);
   a.wb_in = static_cast<const uint32_t*>(wb_in);
@@ -436,9 +424,9 @@ int helical3d_multisweep(const void* wa_in, const void* wb_in, void* wa,
   a.sweeps = sweeps;
   set_stencil(a.sa, nw, m, 6, da);
   set_stencil(a.sb, nw, m, 6, db);
-  a.q4 = q4;
-  a.q8 = q8;
-  a.q12 = q12;
+  std::memcpy(&a.chain, chain, sizeof(ChainTable));
+  if (!chain_table_ok(a.chain))
+    return static_cast<int>(cudaErrorInvalidValue);
   multisweep_kernel<<<nrep, MS_THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -1,9 +1,11 @@
 // The int8 checkerboard Ising update and its sums, shared by the int8
-// phase kernels (csrc/ising2d_pallas.cu, csrc/ising3d_pallas.cu; their
-// halo modes run a mesh's shards), the int8 multisweep
-// (csrc/ising2d_multisweep.cu) and the measure kernel
-// (csrc/ising2d_measure_pallas.cu), so that all of them apply the same
-// function to the same random words.
+// 2-D phase kernel (csrc/ising2d_pallas.cu; its halo mode runs a mesh's
+// shards), the int8 multisweep (csrc/ising2d_multisweep.cu) and the
+// measure kernel (csrc/ising2d_measure_pallas.cu), so that all of them
+// apply the same function to the same random words.  The 3-D phase
+// (csrc/ising3d_pallas.cu) applies the same rule to the same words four
+// sites a 32-bit word and takes only block_add and the launch checks
+// from here; update_unit's D == 3 branches are no longer instantiated.
 //
 // Layout (core/lattice.py): ±1 int8 colour planes (R, nz, ny, half),
 // nz = 1 in 2-D; colour 0 holds the sites x = 2i + ((y + z) & 1) of row

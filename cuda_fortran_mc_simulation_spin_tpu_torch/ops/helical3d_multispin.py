@@ -28,7 +28,9 @@ The CUDA kernels are in ``csrc/helical3d_multispin.cu``:
   follow too);
 - ``energy_kernel``: the exact (m, e) of the final vectors, which the
   even-nx·ny route needs every sweep;
-- ``multisweep_kernel``: S sweeps in one launch at odd nx·ny.
+- ``multisweep_kernel``: S sweeps in one launch at odd nx·ny, its chains
+  drawn as ``phase_kernel`` draws them, from the same table, under the
+  round keys of each (sweep, phase) key.
 
 Beside each is its plain PyTorch version here, with the same Philox words
 (ops/multispin_rng.py, counter (replica, word, 0, draw/4)) under the key of
@@ -316,7 +318,7 @@ def _lib() -> ctypes.CDLL:
     lib.helical3d_energy.restype = _INT
     lib.helical3d_multisweep.argtypes = [
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT,
-        _INTS, _INTS, _UINT, _UINT, _UINT, _VOID]
+        _INTS, _INTS, _TABLE, _VOID]
     lib.helical3d_multisweep.restype = _INT
     lib.helical3d_error_string.argtypes = [_INT]
     lib.helical3d_error_string.restype = ctypes.c_char_p
@@ -426,6 +428,16 @@ def energy_sums(wa, wb, *, nx: int, nxy: int, m: int) -> torch.Tensor:
     return obs
 
 
+def multisweep_args(*, beta: float, nx: int, nxy: int, m: int):
+    """``multisweep_kernel``'s launch constants: each colour's six cross
+    offsets mod M (int[6]) and the ChainTable of ``beta``'s chains, the
+    table ``phase_kernel`` takes (checked: a table the kernel cannot follow
+    raises ValueError)."""
+    offs_a, offs_b, _ = helical3d_offsets(nx, nxy)
+    return (_offsets(offs_a, m), _offsets(offs_b, m),
+            _table(chain_words3d(beta)))
+
+
 def multisweep_planes(wa, wb, seeds, *, beta: float, nx: int, nxy: int,
                       m: int):
     """S = len(seeds) sweeps under the (S, 2, 2) keys at odd nx·ny:
@@ -439,6 +451,7 @@ def multisweep_planes(wa, wb, seeds, *, beta: float, nx: int, nxy: int,
         return multisweep_plain(wa, wb, seeds, beta=beta, nx=nx, nxy=nxy,
                                 m=m)
     _check(m, wa, wb)
+    offs_a, offs_b, table = multisweep_args(beta=beta, nx=nx, nxy=nxy, m=m)
     lib = _lib()
     nrep, nw = wa.shape
     sweeps = int(seeds.shape[0])
@@ -446,13 +459,11 @@ def multisweep_planes(wa, wb, seeds, *, beta: float, nx: int, nxy: int,
     wa_out, wb_out = torch.empty_like(wa), torch.empty_like(wb)
     # zeroed: the kernel adds each sweep's block sums with an atomic
     obs = torch.zeros((nrep, sweeps, 2), dtype=torch.int64, device=wa.device)
-    offs_a, offs_b, _ = helical3d_offsets(nx, nxy)
     with torch.cuda.device(wa.device):
         code = lib.helical3d_multisweep(
             wa.data_ptr(), wb.data_ptr(), wa_out.data_ptr(),
             wb_out.data_ptr(), seeds_dev.data_ptr(), obs.data_ptr(), nrep,
-            nw, m, sweeps, _offsets(offs_a, m), _offsets(offs_b, m),
-            *chain_words3d(beta), _stream(wa))
+            nw, m, sweeps, offs_a, offs_b, table, _stream(wa))
     _raise_on(lib, code, "helical3d multisweep_kernel")
     LAUNCHES["multisweep"] += 1
     return wa_out, wb_out, obs

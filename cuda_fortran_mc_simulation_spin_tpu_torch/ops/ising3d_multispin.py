@@ -266,9 +266,11 @@ _TABLE = ctypes.POINTER(_UINT)
 
 
 def _table(q) -> ctypes.Array:
-    """The kernels' ChainTable of chain digits ``q`` (65 words)."""
+    """The kernels' ChainTable of chain digits ``q`` (65 words), checked
+    as the C entry points check it."""
     return (_UINT * (4 * multispin_rng.CHAIN_CALLS + 5))(
-        *multispin_rng.chain_table(tuple(q)))
+        *multispin_rng.check_chain_table(
+            multispin_rng.chain_table(tuple(q))))
 
 
 def _lib() -> ctypes.CDLL:

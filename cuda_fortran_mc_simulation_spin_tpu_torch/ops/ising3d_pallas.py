@@ -4,7 +4,7 @@ plain version.
 Port of ``cuda_fortran_mc_simulation_spin_tpu/ops/ising3d_pallas.py``
 (the module keeps its name so that its JAX counterpart is found by name;
 it launches a CUDA kernel, not a Pallas one).  ``csrc/ising3d_pallas.cu``
-``phase_kernel`` replaces ``_phase_kernel`` (pallas_call at ``:85``,
+``tile_kernel`` replaces ``_phase_kernel`` (pallas_call at ``:85``,
 ``_metropolis_phase``): one colour phase of (R, nz, ny, nx/2) int8 ±1
 volumes (colour (x+y+z) & 1, core/lattice.py), in place: six neighbours,
 and with k = s·Σ₆nbr flip iff k <= 0 or word < t_k, (t4, t8, t12) =
@@ -13,7 +13,14 @@ and with k = s·Σ₆nbr flip iff k <= 0 or word < t_k, (t4, t8, t12) =
 Random words: those of ops/ising2d_pallas.py with the row index
 z·ny + y (:func:`ising2d_pallas.draw_words` over nz·ny rows).
 
-``phase_kernel<true, .>``, the halo mode of ``phase_kernel``, replaces
+The kernel (``tile_kernel``) takes tiles of whole rows of one plane,
+or chunks of a row past ``CHUNK_COLS`` columns, staged in shared memory
+from the 16-B aligned vectors that cover each of a tile's six byte
+ranges; :func:`phase_tiles` computes its launch constants (the kernel
+takes them as passed), and ``tests/test_torch_ising3d_int8_tiles.py``
+replays that launch on the CPU.
+
+``tile_kernel<true, .>``, the halo mode of the kernel, replaces
 ``_halo_phase_kernel`` (pallas_call at ``:237``, :func:`sharded_phase`):
 the phase on a z-shard of a (dp, y) mesh (parallel/domain.py), the planes before and after the shard from the
 exchanged halo planes, parity and words keyed by the global plane z0 + z,
@@ -41,6 +48,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     offsets,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
+    THREADS,
     as_words,
     batched,
     check_halos,
@@ -52,9 +60,66 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
     raise_on,
     seed_words,
     shard_sums,
+    units,
 )
 
 LAUNCHES = {"phase": 0, "halo_phase": 0}
+
+# units a thread takes along a row of a whole-row tile (2^lux threads a
+# row, at least 2^MIN_LUX); past CHUNK_COLS columns the tiles are chunks
+# of CHUNK_COLS columns, one row a tile
+TILE_UNITS = 8
+MIN_LUX = 2
+CHUNK_COLS = 4096
+# a whole-row tile takes up to TILE_BYTES of sites (more rows a thread
+# where a row is short)
+TILE_BYTES = 8192
+
+
+def span_bytes(length: int) -> int:
+    """Shared-memory bytes of a staged range of ``length`` bytes: the 16-B
+    vectors that cover it at any address, and 32 bytes after them."""
+    return 16 * (-(-length // 16) + 2)
+
+
+def phase_tiles(ny: int, half: int) -> dict:
+    """Launch constants of ``tile_kernel`` on (R, nz, ny, half) volumes:
+    ``rows`` rows a tile and 2^``lux`` threads along a row (thread t takes
+    rows (t >> lux) + i THREADS / 2^lux, units (t & (2^lux - 1)) + k
+    2^lux of each), ``cw`` columns a tile (half, or CHUNK_COLS with
+    ``rows`` 1), ``nch`` chunks a row, ``nty`` row tiles a plane, ``buf``
+    the byte offsets in shared memory of the six staged ranges (the
+    tile's x, the other colour at z, z - 1, z + 1, rows y0 - 1 and y0 +
+    rows; each 16-B aligned after a 16-byte guard) and ``smem`` the bytes
+    in all."""
+    n_units = units(half)
+    if half <= CHUNK_COLS:
+        lux = min(THREADS.bit_length() - 1, max(
+            MIN_LUX, (-(-n_units // TILE_UNITS) - 1).bit_length()))
+        tr = THREADS >> lux
+        rows = tr * max(1, min(TILE_BYTES // (tr * half), -(-ny // tr)))
+        cw, nch = half, 1
+    else:
+        lux, rows, cw = THREADS.bit_length() - 1, 1, CHUNK_COLS
+        nch = -(-half // cw)
+    lx = (rows - 1) * half + min(cw, half)
+    need = [span_bytes(lx), span_bytes(lx + 2), span_bytes(lx),
+            span_bytes(lx), span_bytes(min(cw, half)),
+            span_bytes(min(cw, half))]
+    buf, end = [], 0
+    for n in need:
+        buf.append(end + 16)
+        end = buf[-1] + n
+    return {"rows": rows, "lux": lux, "cw": cw, "nch": nch,
+            "nty": -(-ny // rows), "buf": tuple(buf), "smem": end}
+
+
+def _tiles_arg(ny: int, half: int) -> ctypes.Array:
+    """:func:`phase_tiles` as the 12 ints of the kernel's Tiles."""
+    t = phase_tiles(ny, half)
+    words = [t["rows"], t["lux"], t["cw"], t["nch"], t["nty"], *t["buf"],
+             t["smem"]]
+    return (ctypes.c_int * len(words))(*words)
 
 
 def reset_launches() -> None:
@@ -65,7 +130,7 @@ def reset_launches() -> None:
 def phase_plain(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
                 color: int, beta: float, bits: torch.Tensor | None = None
                 ) -> torch.Tensor:
-    """Plain version of ``phase_kernel``: the new (R, nz, ny, half) int8
+    """Plain version of ``tile_kernel``: the new (R, nz, ny, half) int8
     colour volume ``x`` given the other colour, with the words of
     ``draw_words`` under ``seeds`` or the injected int32 ``bits``."""
     # the periodic lattice is the z-shard at offset 0 whose halos are its
@@ -99,7 +164,7 @@ def halo_neighbor_sums3d(other: torch.Tensor, halo_zm, halo_zp, color: int,
 def sharded_phase_plain(x, other, halo_zm, halo_zp, seeds, offs, *,
                         color: int, beta: float, bits=None,
                         measuring: bool = False):
-    """Plain version of ``phase_kernel<true, .>``: the new (R, L, ny, half)
+    """Plain version of ``tile_kernel<true, .>``: the new (R, L, ny, half)
     int8 shard ``x``; offs = (rep0, z0).  Words: injected int32 ``bits``,
     else Philox at the global rows (z0 + z)·ny + y.  With ``measuring``
     also the (R,) int64 (m, e) partials."""
@@ -123,13 +188,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ising3d_pallas")
     if lib.ising3d_int8_phase.argtypes is not None:
         return lib
+    tiles = ctypes.POINTER(ctypes.c_int)
     lib.ising3d_int8_phase.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_uint] * 5
-        + [ctypes.c_void_p])
+        + [tiles, ctypes.c_void_p])
     lib.ising3d_int8_phase.restype = ctypes.c_int
     lib.ising3d_int8_halo_phase.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_uint] * 5
-        + [ctypes.c_void_p])
+        + [tiles, ctypes.c_void_p])
     lib.ising3d_int8_halo_phase.restype = ctypes.c_int
     lib.ising3d_int8_error_string.argtypes = [ctypes.c_int]
     lib.ising3d_int8_error_string.restype = ctypes.c_char_p
@@ -140,7 +206,7 @@ def metropolis_phase(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
                      color: int, beta: float,
                      bits: torch.Tensor | None = None) -> torch.Tensor:
     """One colour phase of (R, nz, ny, half) int8 volumes, updating ``x``
-    in place (returned): ``phase_kernel`` on CUDA tensors,
+    in place (returned): ``tile_kernel`` on CUDA tensors,
     :func:`phase_plain` on CPU tensors."""
     if _on_cpu(x):
         return x.copy_(phase_plain(x, other, seeds, color=color, beta=beta,
@@ -155,8 +221,8 @@ def metropolis_phase(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
         code = lib.ising3d_int8_phase(
             x.data_ptr(), other.data_ptr(),
             None if bits is None else bits.data_ptr(), nrep, nz, ny, half,
-            color, s0, s1, t4, t8, t12, _stream(x))
-    raise_on(code, lib.ising3d_int8_error_string, "ising3d phase_kernel")
+            color, s0, s1, t4, t8, t12, _tiles_arg(ny, half), _stream(x))
+    raise_on(code, lib.ising3d_int8_error_string, "ising3d tile_kernel")
     LAUNCHES["phase"] += 1
     return x
 
@@ -166,7 +232,7 @@ def sharded_phase(x: torch.Tensor, other: torch.Tensor, halo_zm, halo_zp,
                   bits: torch.Tensor | None = None, measuring: bool = False):
     """One colour phase of a z-sharded (R, L, ny, half) int8 block,
     updating ``x`` in place (returned; with ``measuring`` also the (R,)
-    int64 (m, e) partials): ``phase_kernel<true, .>`` on CUDA tensors,
+    int64 (m, e) partials): ``tile_kernel<true, .>`` on CUDA tensors,
     :func:`sharded_phase_plain` on CPU tensors.  halo_zm/halo_zp (R, 1,
     ny, half) are the other colour's planes before and after the shard,
     offs = (rep0, z0); JAX's ``sharded_phase`` (``:237``)."""
@@ -199,9 +265,9 @@ def sharded_phase(x: torch.Tensor, other: torch.Tensor, halo_zm, halo_zp,
             None if bits is None else bits.data_ptr(), halo_zm.data_ptr(),
             halo_zp.data_ptr(), None if obs is None else obs.data_ptr(),
             nrep, L, ny, half, color, rep0, z0, s0, s1, t4, t8, t12,
-            _stream(x))
+            _tiles_arg(ny, half), _stream(x))
     raise_on(code, lib.ising3d_int8_error_string,
-             "ising3d phase_kernel<true, .>")
+             "ising3d tile_kernel<true, .>")
     LAUNCHES["halo_phase"] += 1
     if measuring:
         return x, obs[:, 0], obs[:, 1]

@@ -126,6 +126,22 @@ def chain_table(q: tuple[int, int, int]) -> tuple[int, ...]:
     return (*digit, live, fast, e4, e8, n_all)
 
 
+def check_chain_table(table) -> tuple[int, ...]:
+    """``table`` if ``csrc/bernoulli.cuh`` ``chain_table_ok`` takes it (65
+    words, 0 <= e4 <= e8 <= n_all <= 4·CHAIN_CALLS: the chains the
+    unrolled loop can follow), else ValueError; the C entry points refuse
+    such a table too."""
+    table = tuple(int(v) for v in table)
+    if len(table) != 4 * CHAIN_CALLS + 5:
+        raise ValueError(f"a chain table has {4 * CHAIN_CALLS + 5} words, "
+                         f"got {len(table)}")
+    e4, e8, n_all = table[-3:]
+    if not 0 <= e4 <= e8 <= n_all <= 4 * CHAIN_CALLS:
+        raise ValueError(f"chain table ends (e4, e8, n) = {(e4, e8, n_all)} "
+                         f"outside 0 <= e4 <= e8 <= n <= {4 * CHAIN_CALLS}")
+    return table
+
+
 def _masks(ok) -> tuple[int, int]:
     """Bit c of (lo, hi) set where ``ok(c)``, c < 64."""
     m = sum(1 << c for c in range(CLOCK_CALLS) if ok(c))

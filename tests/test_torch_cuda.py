@@ -1051,6 +1051,51 @@ def test_int8_phase_kernels_match_plain(cuda, shape):
     assert torch.equal(i8m.measure_sums(a, b), i8m.measure_sums_plain(a, b))
 
 
+def _off_grid(t, off):
+    """A contiguous copy of ``t`` whose first byte lies ``off`` bytes past
+    a 16-B aligned address."""
+    buf = torch.empty(t.numel() + 32, dtype=t.dtype, device=t.device)
+    base = (-buf.data_ptr()) % 16
+    v = buf[base + off:base + off + t.numel()].view(t.shape)
+    assert v.data_ptr() % 16 == off
+    return v.copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 6, 10, 250), (1, 2, 3, 4102),
+                                   (3, 4, 5, 1)])
+@pytest.mark.parametrize("off", [0, 3])
+def test_int8_3d_tiles_off_grid(cuda, shape, off):
+    """The int8 3-D tile kernel on views off the 16-B grid, whole-row
+    tiles (half 250, 1) and chunks (half 4102): both colours, Philox and
+    injected words, and its halo mode measuring at offsets (1, 5),
+    bitwise equal to the plain versions."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising3d_pallas as i3p,
+    )
+    beta = 1 / 4.51152
+    a, b = _int8(cuda, shape, sum(shape))
+    zm, zp = _int8(cuda, (shape[0], 1) + shape[2:], off + 1)
+    bits = _int8_words(cuda, shape, len(shape))
+    for color in (0, 1):
+        x, o = (a, b) if color == 0 else (b, a)
+        seeds = rng.seeds_from_key(rng.base_key(9), color)
+        for kw in (dict(bits=bits), dict(seeds=seeds)):
+            want = i3p.phase_plain(x, o, color=color, beta=beta, **kw)
+            got = i3p.metropolis_phase(_off_grid(x, off),
+                                       _off_grid(o, (off * 5) % 16),
+                                       color=color, beta=beta, **kw)
+            assert torch.equal(got, want)
+        want = i3p.sharded_phase_plain(x, o, zm, zp, seeds, (1, 5),
+                                       color=color, beta=beta,
+                                       measuring=True)
+        got = i3p.sharded_phase(_off_grid(x, off), _off_grid(o, off),
+                                _off_grid(zm, off), zp, seeds, (1, 5),
+                                color=color, beta=beta, measuring=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 130, 63), (16, 1000, 500)])
 def test_int8_multisweep_matches_phase_pairs_and_plain(cuda, shape):

@@ -3520,6 +3520,16 @@ def hp_offset(t: torch.Tensor, elems: int) -> torch.Tensor:
     return buf[elems:].view(t.shape).copy_(t)
 
 
+def hp_or_off_grid(hp, sx, sy, nx: int) -> float:
+    """The over-relaxation phase, colour 1, on planes one float (4 B)
+    past the 16-B grid into planes also one float past it (vectors from
+    off0 = 1), against the plain version: the largest difference."""
+    want = hp.xy_or_phase_plain(sx, sy, color=1, nx=nx)
+    got = hp.xy_or_phase(hp_offset(sx, 1), hp_offset(sy, 1), color=1, nx=nx,
+                         out=(hp_offset(sx, 1), hp_offset(sy, 1)))
+    return float_err(list(zip(got, want)))
+
+
 def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
     """The masked helical kernels against their plain versions on the same
     CUDA tensors, at even and odd N and at the classes' launches: the
@@ -3530,8 +3540,9 @@ def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
     state; the XY phase with injected and Philox uniforms, both colours,
     measuring and not (fused at even N, the measure launch at odd N), the
     OR phase and the measure mode (states bitwise, sums within 1e-12 of
-    their scale); then the Ising multisweep and the XY phase on views
-    that start off the 16-B grid.  Returns the largest error a kernel."""
+    their scale); then the Ising multisweep, the XY phase and the OR
+    phase on views that start off the 16-B grid (the OR also at the OR
+    class's 10001x10000 x 1).  Returns the largest error a kernel."""
     errs = {"ising": 0.0, "clock": 0.0, "xy_phase": 0.0, "xy_or": 0.0,
             "sums_rel": 0.0}
     seeds = multispin_keys(rng, HP_CHECK_SWEEPS, 91)
@@ -3639,11 +3650,20 @@ def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
                               **kw)
             e_x = max(e_x, float_err(list(zip(got[:2], want[:2]))))
             rel = max(rel, scaled_err(got[2], want[2], 2 * n))
+        e_o = hp_or_off_grid(hp, sx, sy, nx)
         errs["ising"] = max(errs["ising"], e_i)
         errs["xy_phase"] = max(errs["xy_phase"], e_x)
+        errs["xy_or"] = max(errs["xy_or"], e_o)
         errs["sums_rel"] = max(errs["sums_rel"], rel)
         log(f"  helical_pallas {nrep}x{ny}x{nx} off the 16-B grid: ising "
-            f"{e_i}, xy phase {e_x}, sums rel {rel:.3g}")
+            f"{e_i}, xy phase {e_x}, or {e_o}, sums rel {rel:.3g}")
+    # the over-relaxation at the OR class's launch, every plane 4 B past
+    # the 16-B grid
+    sx, sy = hp_xy_state(dev, (1, HY, HX), 95)
+    e_o = hp_or_off_grid(hp, sx, sy, HX)
+    errs["xy_or"] = max(errs["xy_or"], e_o)
+    log(f"  helical_pallas xy or 1x{HY}x{HX} off the 16-B grid: {e_o}")
+    del sx, sy
     torch.cuda.synchronize()
     if max(errs["ising"], errs["clock"], errs["xy_phase"], errs["xy_or"]):
         fail(f"a masked helical kernel differs from its plain version "
@@ -5482,8 +5502,8 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"  cooperative grids: 2-D {msb.multisweep_grid_blocks()}, 3-D "
         f"{ms3.multisweep_grid_blocks()}, XY {xyr.grid_blocks()}, int8 2-D "
-        f"{i8ms.grid_blocks()}, int8 clock {c8ms.grid_blocks()}, masked "
-        f"helical Ising {hp.grid_blocks(0, False)} (odd N "
+        f"{i8ms.grid_blocks()}, int8 clock {c8ms.grid_blocks(16, 1000, 500)} "
+        f"(1000^2 x 16), masked helical Ising {hp.grid_blocks(0, False)} (odd N "
         f"{hp.grid_blocks(0, True)}), clock {hp.grid_blocks(1, False)} (odd N "
         f"{hp.grid_blocks(1, True)}), XY int16 {xyi.grid_blocks()} blocks "
         "resident")
@@ -6414,7 +6434,8 @@ def main() -> int:
          max(errs_hp["xy_phase"], eh["xy phase"],
              eh["xy phase, measuring"], eh["xy measure"]),
          th["xy phase"][0]),
-        ("helical_pallas.xy_or_kernel", "helical_pallas.cu",
+        ("helical_pallas.xy_phase_kernel<OVER> (over-relaxation mode)",
+         "helical_pallas.cu",
          "helical_pallas.py:579", launched("helical_pallas", "xy_or"),
          max(errs_hp["xy_or"], eh["xy or"]), th["xy or"][0]),
         ("xy2d_pallas_angle.angle_metro_kernel", "xy2d_pallas_angle.cu",

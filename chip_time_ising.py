@@ -15,7 +15,9 @@ the int8 3-D tile_kernel; with ``--clock``, the clock
 kernels whose headers the halo modes share: the bit-sliced q = 6 phase,
 measuring, at 2000x2000 x 40 (padded) and 2048x2048 x 16, the int8 clock
 phase at 2000x2000 x 16 (q = 5) and its S-sweep kernel at 1000x1000 x 16
-(q = 2, S = 64); beside them the bit-sliced phase plain (colour a) at
+(q = 2, S = 64 and 40; q = 6, S = 64), with the SASS of its
+multisweep_kernel; beside them the bit-sliced
+phase plain (colour a) at
 both shapes, measuring at 2048x2048 x 16 for q = 4 and 3, and its halo
 mode (measuring and plain) at the mesh packed clock class's shard (8, 32,
 512) of 2048x2048 x 16 on (2,2,2), graph-timed, with the SASS of
@@ -50,7 +52,7 @@ the kernels on first use.  It uses only the wrappers' public API, so to
 compare two commits copy it into both checkouts and run it from each in
 turns on one card (A, B, B, A).  Prints the card's nvidia-smi name and
 power limit, the ptxas register report of the build, with ``--helical3d``
-and ``--clock`` the SASS of phase_kernel (``--helical3d`` also of
+and ``--clock`` the SASS of phase_kernel (both also of
 multisweep_kernel, the default mode also of the int8 3-D tile_kernel;
 ``--masked``: of
 ising_multisweep_kernel; instructions, the instructions of each loop,
@@ -270,6 +272,7 @@ def clock_modes(gen, dev, seeds):
     qa, qb = packed(2048, 2048, 16)
     sa, sb = states((16, 2000, 1000), 5), states((16, 2000, 1000), 5)
     ra, rb = states((16, 1000, 500), 2), states((16, 1000, 500), 2)
+    ca, cb = states((16, 1000, 500), 6), states((16, 1000, 500), 6)
     key = seeds[0, 0]
     # the mesh packed clock class's shard (8, 32, 512) of 2048^2 x 16 on
     # (2,2,2): its halo rows and word columns from its own other colour
@@ -312,6 +315,10 @@ def clock_modes(gen, dev, seeds):
             sa, sb, key, color=0, q=5, beta=1 / KBT_CLOCK),
         "clock_int8_multisweep": lambda: c8ms.multisweep_planes(
             ra, rb, seeds, q=2, beta=1 / KBT_2D),
+        "clock_int8_multisweep S=40": lambda: c8ms.multisweep_planes(
+            ra, rb, seeds[:40], q=2, beta=1 / KBT_2D),
+        "clock_int8_multisweep q=6": lambda: c8ms.multisweep_planes(
+            ca, cb, seeds, q=6, beta=1 / KBT_CLOCK),
     }
 
 
@@ -414,6 +421,7 @@ def main() -> int:
         sass_report("helical_pallas", ("ising_multisweep_kernel",))
     elif args.clock:
         sass_report("clock_planes", ("phase_kernel",))
+        sass_report("clock_multisweep", ("multisweep_kernel",))
     elif not args.samples:
         sass_report("ising3d_multispin", ("phase_kernel",
                                           "multisweep_kernel"))

@@ -31,10 +31,13 @@ grid-barrier mode forced at S = 64 (where the wrapper can force it) and
 past the shared-memory fit at 1536x1536 x 2, with the SASS of its
 kernels (a tenth of --reps a mode); with ``--masked``, the masked
 helical XY kernels (csrc/helical_pallas.cu) at their classes' launches,
-10001x10000 x 1 and 4001x4001 x 2: xy_phase_kernel's three modes (a
-phase, colour 0; the fused phase, colour 1, at even N; the measure mode)
-and xy_or_kernel (colour 0), each out of place into spare planes, with
-the SASS of both kernels.
+10001x10000 x 1 and 4001x4001 x 2: xy_phase_kernel's four modes (a
+phase, colour 0; the fused phase, colour 1, at even N; the measure mode;
+the over-relaxation phase, colour 0), each out of place into spare
+planes, the over-relaxation also at 10001x10000 x 1 on planes one float
+past the 16-B grid (vectors from off0 = 1) and with its output planes at
+another offset than its input (every float alone), with the SASS of the
+kernel's modes.
 
     python3 chip_time_xy.py [--reps 200] [--rounds 3] [--helical]
                             [--periodic-angle] [--resident] [--int16]
@@ -248,6 +251,21 @@ def masked_modes(dev, gen, key, beta):
         modes[f"masked_or {tag}"] = (
             lambda sx=sx, sy=sy, out=out, nx=nx: hp.xy_or_phase(
                 sx, sy, color=0, nx=nx, out=out))
+    # the over-relaxation off the 16-B grid at 10001x10000 x 1: every
+    # plane one float past it, then the outputs back on it
+    nrep, ny, nx = MASKED_SHAPES[0]
+    n = ny * nx
+    off = [torch.empty(n + 1, device=dev)[1:].view(nrep, n)
+           for _ in range(4)]
+    th = torch.rand((nrep, n), generator=gen, device=dev) * 6.2832
+    off[0].copy_(torch.cos(th))
+    off[1].copy_(torch.sin(th))
+    out = (torch.empty_like(th), torch.empty_like(th))
+    tag = f"{ny}x{nx} x {nrep}"
+    modes[f"masked_or off-grid {tag}"] = lambda: hp.xy_or_phase(
+        off[0], off[1], color=0, nx=nx, out=(off[2], off[3]))
+    modes[f"masked_or mixed offsets {tag}"] = lambda: hp.xy_or_phase(
+        off[0], off[1], color=0, nx=nx, out=out)
     return modes
 
 
@@ -391,7 +409,7 @@ def main() -> int:
     if args.masked:
         return report(masked_modes(dev, gen, key, beta), args,
                       ["helical_pallas"],
-                      sass=("xy_phase_kernel", "xy_or_kernel"))
+                      sass=("xy_phase_kernel",))
     if args.int16:
         return report(int16_modes(dev, gen, key, beta), dict(
             vars(args), reps=max(1, args.reps // 10)), ["xy2d_multisweep"],

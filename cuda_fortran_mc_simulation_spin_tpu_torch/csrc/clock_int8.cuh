@@ -1,8 +1,9 @@
 // The int8 q-state clock checkerboard update and its float64 sums, shared
-// by the phase kernel (csrc/clock_pallas.cu), the cooperative multisweep
-// (csrc/clock_multisweep.cu) and the measure kernel
-// (csrc/clock_measure_pallas.cu), so that all of them apply the same
-// function to the same random words.
+// by the phase kernel (csrc/clock_pallas.cu) and the measure kernel
+// (csrc/clock_measure_pallas.cu), so that both apply the same function to
+// the same random words; the cooperative multisweep
+// (csrc/clock_multisweep.cu) takes the layout and tables from here and
+// spells the same site rule on its staged tiles.
 //
 // Layout (core/lattice.py): int8 states s in [0, q), q <= 127, on colour
 // planes (R, ny, half); colour 0 holds the sites x = 2i + (y & 1) of row

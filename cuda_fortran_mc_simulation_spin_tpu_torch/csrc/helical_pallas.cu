@@ -13,9 +13,10 @@
 //                     Metropolis phase of (R, N) float32 component planes,
 //                     out of place; mode FUSED adds the float64 sums of the
 //                     new state (even N), mode MEASURE takes the sums of a
-//                     state and updates nothing;
-//   xy_or_kernel      replaces _xy_or_kernel (:579, _xy_or_phase): one
-//                     over-relaxation phase, out of place.
+//                     state and updates nothing; mode OVER replaces
+//                     _xy_or_kernel (:579, _xy_or_phase): one
+//                     over-relaxation phase, out of place, on the same
+//                     tiles and loader.
 //
 // Layout (ops/helical_pallas.py): site idx of a replica neighbours idx ± 1
 // and idx ± nx mod N; colour c holds idx = 2k + c.  Fields are summed
@@ -36,12 +37,13 @@
 // sites (site k takes output k & 3), a clock or XY unit two (site k takes
 // outputs 2(k & 1) and 2(k & 1) + 1, uniforms from their top 24 bits).
 //
-// Tiles of the Ising multisweep and the XY phase (ops/helical_pallas.py
-// ising_tiles, xy_tiles): a thread takes 16-B aligned vectors of a replica
+// Tiles of the Ising multisweep and the XY kernel's four modes
+// (ops/helical_pallas.py ising_tiles, xy_tiles): a thread takes 16-B
+// aligned vectors of a replica
 // (16 bytes, 4 floats) and reads its own vector, the aligned vectors under
 // its up window (sites - nx) and its down window (+ nx) and their
 // successors, and its ±1 neighbours, all before it stores its vector:
-// the Ising multisweep from a tile staged in shared memory, the XY phase
+// the Ising multisweep from a tile staged in shared memory, the XY modes
 // from registers and the neighbour lanes.  Only the vectors that reach
 // past a replica (a wrap mod N, a replica base that is not 16-B aligned,
 // at odd N the seam rows' snapshot) take the per-element path.
@@ -53,7 +55,8 @@
 // the 128 MB class reads and writes it from device memory).  The XY
 // kernels: bytes (each site's 8 B read and written, 16 B a site a phase
 // out of place; the Metropolis phase adds half a Philox call, the trig and
-// expf a site of the colour, ~70 instructions).
+// expf a site of the colour, ~70 instructions; the over-relaxation two
+// rsqrtf and ~25 instructions).
 //
 // Every float32 operation of an update is spelled __fadd_rn / __fmul_rn /
 // __fsub_rn in the plain version's order (no FMA contraction); expf and
@@ -804,7 +807,7 @@ __global__ void __launch_bounds__(THREADS)
 // XY
 // ---------------------------------------------------------------------------
 
-constexpr int UPDATE = 0, FUSED = 1, MEASURE = 2;
+constexpr int UPDATE = 0, FUSED = 1, MEASURE = 2, OVER = 3;
 
 struct XYArgs {
   const float* sx;   // (R, N) input planes
@@ -813,7 +816,7 @@ struct XYArgs {
   float* oy;
 };
 
-// Tiles of the XY phase (ops/helical_pallas.py xy_tiles): block (bx, r)
+// Tiles of the XY kernel (ops/helical_pallas.py xy_tiles): block (bx, r)
 // takes vpt THREADS aligned float4 vectors of replica r from bx vpt
 // THREADS on, thread t vectors t, t + THREADS, ..., each sites a .. a + 3
 // (a = 4 v - rb, rb = off0 + r N), and adds its sums over them in that
@@ -949,11 +952,11 @@ __device__ __forceinline__ void load_nbhd(const float* px, const float* py,
 }
 
 // Vector v of replica r (sites a .. a + 3): the sites of colour `color`
-// are updated from the input planes, the others copied.  FUSED adds Σ S
-// of the new values and S_new·h (h in float64 from the float32
-// neighbours) of the updated ones; MEASURE adds Σ S and S·(S_{i+1} +
-// S_{i+nx}) of the sites, in float64, each in site order.  Every lane of
-// the warp calls it.
+// are updated from the input planes (OVER: reflected about their field),
+// the others copied.  FUSED adds Σ S of the new values and S_new·h (h in
+// float64 from the float32 neighbours) of the updated ones; MEASURE adds
+// Σ S and S·(S_{i+1} + S_{i+nx}) of the sites, in float64, each in site
+// order.  Every lane of the warp calls it.
 template <int MODE>
 __device__ __forceinline__ void xy_vector(const XYArgs& io, const Flat& f,
                                           const XYTiles& g, int color,
@@ -981,70 +984,99 @@ __device__ __forceinline__ void xy_vector(const XYArgs& io, const Flat& f,
     }
     return;
   }
-  // the vector's colour sites: a + i0 and a + i0 + 2, colour sites ka and
-  // ka + 1 (ka >> 1 the unit of the first)
-  const int i0 = (color - a) & 1;
-  const int ka = (a + i0 - color) >> 1;
-  float uc[2], ua[2];
-  if (ucand != nullptr) {
-    const size_t row = static_cast<size_t>(r) * f.m0;
+  float fx[4], fy[4];
+  if (MODE == OVER) {
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int idx = a + i0 + 2 * q;
-      const bool in = idx >= 0 && idx < f.n;
-      uc[q] = in ? __ldg(ucand + row + ka + q) : 0.0f;
-      ua[q] = in ? __ldg(uacc + row + ka + q) : 0.0f;
+    for (int i = 0; i < 4; ++i) {
+      fx[i] = h.x[i];
+      fy[i] = h.y[i];
+      if (((a + i) & 1) != color) continue;
+      if (!whole && (a + i < 0 || a + i >= f.n)) continue;
+      const float lx = i > 0 ? h.x[i - 1] : h.lx;
+      const float rx = i < 3 ? h.x[i + 1] : h.rx;
+      const float ly = i > 0 ? h.y[i - 1] : h.ly;
+      const float ry = i < 3 ? h.y[i + 1] : h.ry;
+      const float hx = __fadd_rn(__fadd_rn(__fadd_rn(h.ux[i], h.dx[i]), lx),
+                                 rx);
+      const float hy = __fadd_rn(__fadd_rn(__fadd_rn(h.uy[i], h.dy[i]), ly),
+                                 ry);
+      const float inv = rsqrtf(fmaxf(
+          __fadd_rn(__fmul_rn(hx, hx), __fmul_rn(hy, hy)), xy::TINY));
+      const float nxh = __fmul_rn(hx, inv), nyh = __fmul_rn(hy, inv);
+      const float d = __fmul_rn(
+          2.0f, __fadd_rn(__fmul_rn(fx[i], nxh), __fmul_rn(fy[i], nyh)));
+      const float sx = __fsub_rn(__fmul_rn(d, nxh), fx[i]);
+      const float sy = __fsub_rn(__fmul_rn(d, nyh), fy[i]);
+      const float rinv = rsqrtf(
+          fmaxf(__fadd_rn(__fmul_rn(sx, sx), __fmul_rn(sy, sy)), xy::TINY));
+      fx[i] = __fmul_rn(sx, rinv);
+      fy[i] = __fmul_rn(sy, rinv);
     }
   } else {
-    const int u0 = ka >> 1;
-    const uint4 w0 = philox_rk(
-        make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(u0), 0u,
-                   0u), keys.rk);
-    if ((ka & 1) == 0) {
-      uc[0] = xy::u24(w0.x);
-      ua[0] = xy::u24(w0.y);
-      uc[1] = xy::u24(w0.z);
-      ua[1] = xy::u24(w0.w);
-    } else {
-      const uint4 w1 = philox_rk(
-          make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(u0 + 1),
-                     0u, 0u), keys.rk);
-      uc[0] = xy::u24(w0.z);
-      ua[0] = xy::u24(w0.w);
-      uc[1] = xy::u24(w1.x);
-      ua[1] = xy::u24(w1.y);
-    }
-  }
-  float fx[4], fy[4];
+    // the vector's colour sites: a + i0 and a + i0 + 2, colour sites ka and
+    // ka + 1 (ka >> 1 the unit of the first)
+    const int i0 = (color - a) & 1;
+    const int ka = (a + i0 - color) >> 1;
+    float uc[2], ua[2];
+    if (ucand != nullptr) {
+      const size_t row = static_cast<size_t>(r) * f.m0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    fx[i] = h.x[i];
-    fy[i] = h.y[i];
-    if (((a + i) & 1) != color) continue;
-    if (!whole && (a + i < 0 || a + i >= f.n)) continue;
-    const int il = i > 0 ? i - 1 : 0, ir = i < 3 ? i + 1 : 3;
-    const float ux = h.ux[i], dx = h.dx[i];
-    const float lx = i > 0 ? h.x[il] : h.lx, rx = i < 3 ? h.x[ir] : h.rx;
-    const float uy = h.uy[i], dy = h.dy[i];
-    const float ly = i > 0 ? h.y[il] : h.ly, ry = i < 3 ? h.y[ir] : h.ry;
-    const float hx = __fadd_rn(__fadd_rn(__fadd_rn(ux, dx), lx), rx);
-    const float hy = __fadd_rn(__fadd_rn(__fadd_rn(uy, dy), ly), ry);
-    float cx, cy;
-    xy::cos_sin_2pi(uc[i >> 1], cx, cy);
-    const float de = -__fadd_rn(__fmul_rn(__fsub_rn(cx, fx[i]), hx),
-                                __fmul_rn(__fsub_rn(cy, fy[i]), hy));
-    const float prob = expf(__fmul_rn(fmaxf(de, 0.0f), neg_beta));
-    if (ua[i >> 1] < prob) {
-      fx[i] = cx;
-      fy[i] = cy;
+      for (int q = 0; q < 2; ++q) {
+        const int idx = a + i0 + 2 * q;
+        const bool in = idx >= 0 && idx < f.n;
+        uc[q] = in ? __ldg(ucand + row + ka + q) : 0.0f;
+        ua[q] = in ? __ldg(uacc + row + ka + q) : 0.0f;
+      }
+    } else {
+      const int u0 = ka >> 1;
+      const uint4 w0 = philox_rk(
+          make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(u0), 0u,
+                     0u), keys.rk);
+      if ((ka & 1) == 0) {
+        uc[0] = xy::u24(w0.x);
+        ua[0] = xy::u24(w0.y);
+        uc[1] = xy::u24(w0.z);
+        ua[1] = xy::u24(w0.w);
+      } else {
+        const uint4 w1 = philox_rk(
+            make_uint4(static_cast<uint32_t>(r),
+                       static_cast<uint32_t>(u0 + 1), 0u, 0u), keys.rk);
+        uc[0] = xy::u24(w0.z);
+        ua[0] = xy::u24(w0.w);
+        uc[1] = xy::u24(w1.x);
+        ua[1] = xy::u24(w1.y);
+      }
     }
-    if (MODE == FUSED)
-      t.e += static_cast<double>(fx[i]) *
-                 ((static_cast<double>(ux) + static_cast<double>(dx)) +
-                  (static_cast<double>(lx) + static_cast<double>(rx))) +
-             static_cast<double>(fy[i]) *
-                 ((static_cast<double>(uy) + static_cast<double>(dy)) +
-                  (static_cast<double>(ly) + static_cast<double>(ry)));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      fx[i] = h.x[i];
+      fy[i] = h.y[i];
+      if (((a + i) & 1) != color) continue;
+      if (!whole && (a + i < 0 || a + i >= f.n)) continue;
+      const int il = i > 0 ? i - 1 : 0, ir = i < 3 ? i + 1 : 3;
+      const float ux = h.ux[i], dx = h.dx[i];
+      const float lx = i > 0 ? h.x[il] : h.lx, rx = i < 3 ? h.x[ir] : h.rx;
+      const float uy = h.uy[i], dy = h.dy[i];
+      const float ly = i > 0 ? h.y[il] : h.ly, ry = i < 3 ? h.y[ir] : h.ry;
+      const float hx = __fadd_rn(__fadd_rn(__fadd_rn(ux, dx), lx), rx);
+      const float hy = __fadd_rn(__fadd_rn(__fadd_rn(uy, dy), ly), ry);
+      float cx, cy;
+      xy::cos_sin_2pi(uc[i >> 1], cx, cy);
+      const float de = -__fadd_rn(__fmul_rn(__fsub_rn(cx, fx[i]), hx),
+                                  __fmul_rn(__fsub_rn(cy, fy[i]), hy));
+      const float prob = expf(__fmul_rn(fmaxf(de, 0.0f), neg_beta));
+      if (ua[i >> 1] < prob) {
+        fx[i] = cx;
+        fy[i] = cy;
+      }
+      if (MODE == FUSED)
+        t.e += static_cast<double>(fx[i]) *
+                   ((static_cast<double>(ux) + static_cast<double>(dx)) +
+                    (static_cast<double>(lx) + static_cast<double>(rx))) +
+               static_cast<double>(fy[i]) *
+                   ((static_cast<double>(uy) + static_cast<double>(dy)) +
+                    (static_cast<double>(ly) + static_cast<double>(ry)));
+    }
   }
   float* oxr = io.ox + base;
   float* oyr = io.oy + base;
@@ -1069,10 +1101,10 @@ __device__ __forceinline__ void xy_vector(const XYArgs& io, const Flat& f,
 }
 
 template <int MODE>
-// Blocks an SM: 4 (64 registers) in the phase and measure modes, 3 in
-// the fused mode (its float64 sums; 4 spilled)
-__global__ void __launch_bounds__(
-    THREADS, MODE == FUSED ? 3 : 4) xy_phase_kernel(XYArgs io, Flat f, XYTiles g, int color,
+// Blocks an SM: 4 (64 registers) in the phase, measure and
+// over-relaxation modes, 3 in the fused mode (its float64 sums; 4 spilled)
+__global__ void __launch_bounds__(THREADS, MODE == FUSED ? 3 : 4)
+    xy_phase_kernel(XYArgs io, Flat f, XYTiles g, int color,
                     const float* ucand, const float* uacc, float neg_beta,
                     PhiloxKeys keys, double* partials) {
   const int r = blockIdx.y;
@@ -1089,47 +1121,8 @@ __global__ void __launch_bounds__(
     xy_vector<MODE>(io, f, g, color, ucand, uacc, neg_beta, keys, r,
                     static_cast<int>(4 * v - rb), v <= vl, t);
   }
-  if (MODE != UPDATE) xy::block_sums<3>(partials, r, gridDim.x, blockIdx.x, t);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    xy_or_kernel(XYArgs a, Flat f, int color) {
-  const int r = blockIdx.y;
-  const int j = blockIdx.x * THREADS + threadIdx.x;
-  if (j >= (f.n + 3) / 4) return;
-  const size_t base = static_cast<size_t>(r) * f.n;
-  const float* sx = a.sx + base;
-  const float* sy = a.sy + base;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = 4 * j + i;
-    if (idx >= f.n) break;
-    float fx = __ldg(sx + idx), fy = __ldg(sy + idx);
-    if ((idx & 1) == color) {
-      const Nbrs b = nbrs_of(f, idx);
-      const float hx = __fadd_rn(
-          __fadd_rn(__fadd_rn(__ldg(sx + b.up), __ldg(sx + b.dn)),
-                    __ldg(sx + b.left)),
-          __ldg(sx + b.right));
-      const float hy = __fadd_rn(
-          __fadd_rn(__fadd_rn(__ldg(sy + b.up), __ldg(sy + b.dn)),
-                    __ldg(sy + b.left)),
-          __ldg(sy + b.right));
-      const float inv = rsqrtf(fmaxf(
-          __fadd_rn(__fmul_rn(hx, hx), __fmul_rn(hy, hy)), xy::TINY));
-      const float nxh = __fmul_rn(hx, inv), nyh = __fmul_rn(hy, inv);
-      const float d =
-          __fmul_rn(2.0f, __fadd_rn(__fmul_rn(fx, nxh), __fmul_rn(fy, nyh)));
-      const float rx = __fsub_rn(__fmul_rn(d, nxh), fx);
-      const float ry = __fsub_rn(__fmul_rn(d, nyh), fy);
-      const float rinv = rsqrtf(
-          fmaxf(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)), xy::TINY));
-      fx = __fmul_rn(rx, rinv);
-      fy = __fmul_rn(ry, rinv);
-    }
-    a.ox[base + idx] = fx;
-    a.oy[base + idx] = fy;
-  }
+  if (MODE == FUSED || MODE == MEASURE)
+    xy::block_sums<3>(partials, r, gridDim.x, blockIdx.x, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -1318,21 +1311,32 @@ int hp_xy_phase(const void* sx, const void* sy, void* ox, void* oy,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One over-relaxation phase of colour `color` from sx, sy into ox, oy.
+// One over-relaxation phase of colour `color` from sx, sy into ox, oy
+// (xy_phase_kernel's mode OVER); off0, vpt, nblk, vec: the planes' tiles,
+// as the wrapper's xy_tiles computes them.
 int hp_xy_or(const void* sx, const void* sy, void* ox, void* oy, int nrep,
-             int n, int nx, int color, void* stream) {
+             int n, int nx, int color, int off0, int vpt, int nblk, int vec,
+             void* stream) {
   Flat f;
   if (!make_flat(nrep, n, nx, &f) || (color & ~1) != 0 || ox == nullptr ||
-      oy == nullptr)
+      oy == nullptr || (vec & ~1) != 0 || off0 < 0 || off0 > 3 || vpt < 1 ||
+      nblk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   XYArgs a;
   a.sx = static_cast<const float*>(sx);
   a.sy = static_cast<const float*>(sy);
   a.ox = static_cast<float*>(ox);
   a.oy = static_cast<float*>(oy);
-  const int nblk = ((n + 3) / 4 + THREADS - 1) / THREADS;
-  xy_or_kernel<<<dim3(nblk, nrep), THREADS, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a, f, color);
+  XYTiles g;
+  g.off0 = off0;
+  g.su = (-nx) & 3;
+  g.sd = nx & 3;
+  g.vec = vec;
+  g.vpt = vpt;
+  const PhiloxKeys keys = {};
+  xy_phase_kernel<OVER><<<dim3(nblk, nrep), THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      a, f, g, color, nullptr, nullptr, 0.0f, keys, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -65,12 +65,19 @@
 #include <cstdint>
 #include <cstring>
 
+#include "byte_tiles.cuh"
 #include "ising_int8.cuh"
 #include "philox.cuh"
 
 namespace {
 
 using ising8::THREADS;
+using tiles8::put_byte;
+using tiles8::span_bytes;
+using tiles8::stage;
+using tiles8::win;
+using tiles8::write_back;
+static_assert(THREADS == tiles8::STAGE_THREADS, "a block stages its tiles");
 
 // The launch constants of ops/ising3d_pallas.phase_tiles, in its order.
 struct Tiles {
@@ -101,55 +108,6 @@ struct Args {
   int rep0, z0;          // HALO: the shard's first replica and plane
   Tiles t;
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-// Starts the copy of bytes [src, src + len) into buf: the aligned 16-B
-// vectors that cover them, src's byte landing at buf + (src mod 16), which
-// it returns.  The caller commits, waits and meets a barrier.
-__device__ __forceinline__ int stage(uint8_t* buf, const int8_t* src,
-                                     int len) {
-  const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
-  const int8_t* base = src - sh;
-  const int nv = (sh + len + 15) >> 4;
-  for (int v = threadIdx.x; v < nv; v += THREADS)
-    cp_async16(buf + 16 * v, base + 16 * v);
-  return sh;
-}
-
-// Writes bytes [0, len) of the range staged at buf + sh back to dst (sh =
-// dst mod 16): whole aligned vectors, bytes at the ragged ends.
-__device__ __forceinline__ void write_back(int8_t* dst, const uint8_t* buf,
-                                           int sh, int len) {
-  int8_t* base = dst - sh;
-  const int nv = (sh + len + 15) >> 4;
-  for (int v = threadIdx.x; v < nv; v += THREADS) {
-    const int lo = 16 * v - sh;
-    if (lo >= 0 && lo + 16 <= len) {
-      *reinterpret_cast<uint4*>(base + 16 * v) =
-          *reinterpret_cast<const uint4*>(buf + 16 * v);
-    } else {
-      for (int b = 0; b < 16; ++b)
-        if (lo + b >= 0 && lo + b < len)
-          dst[lo + b] = static_cast<int8_t>(buf[16 * v + b]);
-    }
-  }
-}
-
-// Byte k of w replaced by the low byte of b
-__device__ __forceinline__ uint32_t put_byte(uint32_t w, int k, uint32_t b) {
-  return __byte_perm(w, b, 0x3210u ^ ((static_cast<uint32_t>(k) ^ 4u)
-                                      << (4 * k)));
-}
-
-// A window of four bytes: the words at w[0], w[1] shifted by sh bits
-__device__ __forceinline__ uint32_t win(const uint32_t* w, int sh) {
-  return __funnelshift_r(w[0], w[1], sh);
-}
 
 // Byte k of the result: the thresholds word k lies below, 0 .. 3 (t12 <=
 // t8 <= t4)
@@ -330,13 +288,6 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
 }
 
 constexpr int MAX_GRID = 65535;
-
-// Bytes a range of len bytes takes in shared memory: its covering
-// vectors (sh + len < len + 16) and 32 bytes after them, where a window's
-// second word may fall
-__host__ inline int span_bytes(long long len) {
-  return static_cast<int>(16 * ((len + 15) / 16 + 2));
-}
 
 // The constants as phase_tiles builds them; refuses others
 bool tiles_ok(const Tiles& t, int ny, int half) {

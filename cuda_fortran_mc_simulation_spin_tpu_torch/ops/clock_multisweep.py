@@ -20,14 +20,21 @@ per replica (``ising2d_multisweep.fits_vmem``, a VMEM budget).  Here the
 planes stay in device memory, and the runner takes this kernel while the
 batch's planes, batch·nx·ny bytes, stay within ``MULTISWEEP_MAX_BYTES``:
 at or below it one cooperative launch of S sweeps beats 3·S streamed
-launches (the host's launch cost a sweep), above it the streamed phases
-win or tie.  The value is the int8 Ising engine's
+launches.  The value is the int8 Ising engine's
 (ops/ising2d_multisweep.py); ``chip_smoke.py`` reads both routes for the
-clock at q = 6, and on an H100 (700 W) streamed/multisweep read 7.26 at
-1000^2 x 1 (1 MiB), 1.005 at 1000^2 x 16 (15.3 MiB), 1.018 at 2000^2 x 8
-(30.5 MiB) and 0.994 at 2000^2 x 16 (61 MiB): the clock's phase does
-more work a byte than Ising's, so its kernels, not the launches, set a
-large batch's time, and the routes tie from ~15 MiB up (PERF.md §6).
+clock at q = 6, and on an H100 (700 W) streamed/multisweep read 4.82 at
+1000^2 x 1 (1 MiB), 1.68 at 1000^2 x 16 (15.3 MiB), 1.76 at 2000^2 x 8
+(30.5 MiB) and 1.72 at 2000^2 x 16 (61 MiB, over the bound): since the
+kernel's tiles the multisweep wins above the bound too, where the first
+design tied from ~15 MiB up (PERF.md §6; raising the bound is ROADMAP
+B13's).
+
+The kernel takes tiles of whole rows of one replica, or chunks of a row
+past ``CHUNK_COLS`` columns, staged in shared memory from the 16-B
+aligned vectors that cover each of a tile's four byte ranges, four sites
+a thread a step; :func:`ms_tiles` computes its launch constants (the
+kernel takes them as passed), and ``tests/test_torch_clock_int8_ms_tiles.py``
+replays that launch on the CPU.
 
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
@@ -58,12 +65,116 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
     check_int8,
     raise_on,
 )
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising3d_pallas import (
+    span_bytes,
+)
 
 # bytes of the batch's int8 planes (batch·nx·ny) up to which the runner
 # takes this kernel (module docstring)
 MULTISWEEP_MAX_BYTES = 32 << 20
 
 LAUNCHES = {"multisweep": 0}
+
+THREADS = clock_pallas.THREADS
+# words of four sites a thread takes along a row of a whole-row tile
+# (2^lux threads a row, at least 2^MIN_LUX); past CHUNK_COLS columns the
+# tiles are chunks of CHUNK_COLS columns, one row a tile
+TILE_WORDS = 4
+MIN_LUX = 2
+CHUNK_COLS = 4096
+# a whole-row tile takes up to TILE_BYTES of sites (more rows a thread
+# where a row is short)
+TILE_BYTES = 16384
+# a launch takes at least MIN_TILES tiles where its batch allows (about two
+# for each block of the cooperative grid, 2 blocks an SM on the H100's 132),
+# so a small batch takes shorter tiles and more threads a row
+MIN_TILES = 512
+
+
+def _spans(rows: int, cw: int, half: int) -> list[int]:
+    """Shared-memory bytes of a tile's four staged ranges: its own sites,
+    the other colour's rows (two columns wider in a chunk), the rows
+    before and after it."""
+    lx = (rows - 1) * half + min(cw, half)
+    return [span_bytes(lx), span_bytes(lx + 2), span_bytes(min(cw, half)),
+            span_bytes(min(cw, half))]
+
+
+def ms_tiles(nrep: int, ny: int, half: int) -> dict:
+    """Launch constants of ``multisweep_kernel`` on (nrep, ny, half)
+    planes: ``rows`` rows a tile and 2^``lux`` threads along a row (thread
+    t takes rows (t >> lux) + i THREADS / 2^lux, words of four sites (t &
+    (2^lux - 1)) + k 2^lux of each; TILE_WORDS words a thread and up to
+    TILE_BYTES a tile where that leaves MIN_TILES tiles, else fewer rows
+    and then more threads a row, up to a thread a word), ``cw`` columns a
+    tile (half, or CHUNK_COLS
+    with ``rows`` 1), ``nch`` chunks a row, ``nty`` row tiles a replica,
+    ``buf`` the byte offsets in shared memory of the four staged ranges
+    (the tile's own sites, the other colour's rows y0 .. (a chunk widened
+    by a column each side), its rows y0 - 1 and y0 + rows; each 16-B
+    aligned after a 16-byte guard) and ``smem`` the bytes in all.  The
+    fused sums of a (replica, sweep) are nty nch tile partials, in tile
+    order (yt nch + cx)."""
+    if half <= CHUNK_COLS:
+        words = -(-half // 4)
+        top = THREADS.bit_length() - 1
+        lux = min(top, max(MIN_LUX, (-(-words // TILE_WORDS) - 1)
+                           .bit_length()))
+        top = min(top, max(lux, (words - 1).bit_length()))
+        while True:
+            tr = THREADS >> lux
+            k = max(1, min(TILE_BYTES // (tr * half), -(-ny // tr)))
+            while k > 1 and nrep * -(-ny // (tr * k)) < MIN_TILES:
+                k -= 1
+            if nrep * -(-ny // (tr * k)) >= MIN_TILES or lux == top:
+                break
+            lux += 1
+        rows = tr * k
+        cw, nch = half, 1
+    else:
+        lux, rows, cw = THREADS.bit_length() - 1, 1, CHUNK_COLS
+        nch = -(-half // cw)
+    buf, end = [], 0
+    for n in _spans(rows, cw, half):
+        buf.append(end + 16)
+        end = buf[-1] + n
+    return {"rows": rows, "lux": lux, "cw": cw, "nch": nch,
+            "nty": -(-ny // rows), "buf": tuple(buf), "smem": end}
+
+
+def check_ms_tiles(t: dict, ny: int, half: int) -> None:
+    """Refuse constants ``multisweep_kernel`` cannot run on (its own
+    ``tiles_ok``, which refuses them again): rows not a multiple of a
+    pass, 2^lux threads a row outside 4 .. 256, columns or chunks that do
+    not cover a row or leave a chunk empty, chunks not of whole words or
+    past CHUNK_COLS, row tiles too few or one empty, staged ranges that
+    overlap or leave the 16-B grid, shared memory short or past 48 KB."""
+    rows, lux, cw, nch, nty = (t[k] for k in ("rows", "lux", "cw", "nch",
+                                              "nty"))
+    ok = (2 <= lux <= 8 and rows >= 1 and rows % (THREADS >> lux) == 0
+          and cw >= 1 and nch >= 1 and (nch - 1) * cw < half <= nch * cw
+          and (nch == 1 and cw == half
+               or cw % 4 == 0 and rows == 1 and cw <= CHUNK_COLS)
+          and nty >= 1 and (nty - 1) * rows < ny <= nty * rows
+          and nty * nch < 2 ** 31)
+    if ok:
+        end = 0
+        for b, n in zip(t["buf"], _spans(rows, cw, half)):
+            ok = ok and b % 16 == 0 and b >= end + 16
+            end = b + n
+        ok = ok and len(t["buf"]) == 4 and end <= t["smem"] <= 48 * 1024
+    if not ok:
+        raise ValueError(f"clock multisweep tiles {t} do not fit (R, {ny}, "
+                         f"{half}) planes")
+
+
+def _tiles_arg(nrep: int, ny: int, half: int) -> ctypes.Array:
+    """:func:`ms_tiles` as the 10 ints of the kernel's Tiles, checked."""
+    t = ms_tiles(nrep, ny, half)
+    check_ms_tiles(t, ny, half)
+    words = [t["rows"], t["lux"], t["cw"], t["nch"], t["nty"], *t["buf"],
+             t["smem"]]
+    return (ctypes.c_int * len(words))(*words)
 
 
 def reset_launches() -> None:
@@ -110,11 +221,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("clock_multisweep")
     if lib.clock_int8_multisweep.argtypes is not None:
         return lib
+    tiles = ctypes.POINTER(ctypes.c_int)
     lib.clock_int8_multisweep.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, tiles, ctypes.c_void_p])
     lib.clock_int8_multisweep.restype = ctypes.c_int
-    lib.clock_int8_multisweep_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.clock_int8_multisweep_grid.argtypes = [
+        tiles, ctypes.POINTER(ctypes.c_int)]
     lib.clock_int8_multisweep_grid.restype = ctypes.c_int
     lib.clock_int8_multisweep_error_string.argtypes = [ctypes.c_int]
     lib.clock_int8_multisweep_error_string.restype = ctypes.c_char_p
@@ -139,9 +252,9 @@ def multisweep_planes(a: torch.Tensor, b: torch.Tensor, seeds, *, q: int,
     seeds_dev = _i32(seeds).contiguous().to(dev)
     tab = clock_pallas.device_table(q, dev)
     tab64 = clock_pallas.device_table(q, dev, torch.float64)
-    partials = torch.empty(
-        (nrep, sweeps, clock_measure_pallas.blocks(ny, half), 3),
-        dtype=torch.float64, device=dev)
+    tiles = ms_tiles(nrep, ny, half)
+    partials = torch.empty((nrep, sweeps, tiles["nty"] * tiles["nch"], 3),
+                           dtype=torch.float64, device=dev)
     obs = torch.empty((nrep, sweeps, 3), dtype=torch.float64, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
@@ -149,18 +262,20 @@ def multisweep_planes(a: torch.Tensor, b: torch.Tensor, seeds, *, q: int,
             a.data_ptr(), b.data_ptr(), seeds_dev.data_ptr(),
             tab.data_ptr(), tab64.data_ptr(), partials.data_ptr(),
             obs.data_ptr(), nrep, ny, half, q, sweeps, -float(beta),
-            _stream(a))
+            _tiles_arg(nrep, ny, half), _stream(a))
     raise_on(code, lib.clock_int8_multisweep_error_string,
              "clock multisweep_kernel")
     LAUNCHES["multisweep"] += 1
     return a, b, obs
 
 
-def grid_blocks() -> int:
-    """Blocks of the cooperative grid on the current device."""
+def grid_blocks(nrep: int, ny: int, half: int) -> int:
+    """Blocks of the cooperative grid on the current device for (nrep, ny,
+    half) planes (the tiles' shared memory sets it)."""
     lib = _lib()
     blocks = ctypes.c_int(0)
-    raise_on(lib.clock_int8_multisweep_grid(ctypes.byref(blocks)),
+    raise_on(lib.clock_int8_multisweep_grid(_tiles_arg(nrep, ny, half),
+                                            ctypes.byref(blocks)),
              lib.clock_int8_multisweep_error_string,
              "clock_int8_multisweep_grid")
     return blocks.value

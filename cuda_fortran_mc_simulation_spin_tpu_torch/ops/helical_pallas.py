@@ -21,9 +21,9 @@ launches CUDA kernels, not Pallas ones).  ``csrc/helical_pallas.cu`` holds
   out of place, the candidate ``cos_sin_2pi(u)``; with ``measuring`` the
   float64 (Σ S_x, Σ S_y, E) of the new state; and, as its measure mode, the
   same sums of a state with no update (JAX's ``xy_observables_packed``);
-- ``xy_or_kernel``, which replaces ``_xy_or_kernel`` (``:579``,
-  ``_xy_or_phase``): one over-relaxation phase, S' = 2(S·n̂)n̂ - S, then
-  S'/|S'| (rsqrt as JAX's), out of place.
+- ``xy_phase_kernel``'s over-relaxation mode, which replaces
+  ``_xy_or_kernel`` (``:579``, ``_xy_or_phase``): one over-relaxation
+  phase, S' = 2(S·n̂)n̂ - S, then S'/|S'| (rsqrt as JAX's), out of place.
 
 Layout.  The port keeps the flat (R, N) states of the models: site idx of
 a replica neighbours idx ± 1 and idx ± nx mod N, and colour c holds the
@@ -64,9 +64,10 @@ clock's rounded tables (ROADMAP C4), as the TPU masked kernel does.
 
 Tiles.  The Ising multisweep streams each phase through tiles of 256
 16-B vectors of one replica at aligned addresses, staged in shared memory
-a tile ahead; the XY phase through blocks of 256 aligned float4 vectors a
-step, in registers (:func:`ising_tiles`, :func:`xy_tiles`: the launch
-constants, computed here alone; the kernels take them as passed).  A
+a tile ahead; the XY kernel's four modes through blocks of 256 aligned
+float4 vectors a step, in registers (:func:`ising_tiles`,
+:func:`xy_tiles`: the launch constants, computed here alone; the kernels
+take them as passed).  A
 thread reads its own vector, the aligned vectors under its up and down
 windows and its ±1 neighbours before it stores its vector, and only the
 vectors that reach past a replica (a replica base that is not 16-B
@@ -121,6 +122,7 @@ PAIR_UNIT = 2            # (clock, XY)
 VEC_BYTES = 16           # a thread's aligned vector: 16 int8 sites, 4 float32
 XY_VPT = (1, 4)          # vectors a thread of the XY phase kernel: a phase,
                          # a measuring launch (fewer partials to reduce)
+XY_OR_VPT = 2            # and in its over-relaxation mode
 LAUNCHES = {"ising_multisweep": 0, "clock_multisweep": 0, "xy_phase": 0,
             "xy_phase_measuring": 0, "xy_measure": 0, "xy_or": 0}
 
@@ -382,8 +384,8 @@ def xy_phase_plain(sx: torch.Tensor, sy: torch.Tensor, rand, *, color: int,
 
 def xy_or_phase_plain(sx: torch.Tensor, sy: torch.Tensor, *, color: int,
                       nx: int):
-    """Plain version of ``xy_or_kernel``: the new (R, N) planes after one
-    over-relaxation phase of ``color``."""
+    """Plain version of ``xy_phase_kernel``'s over-relaxation mode: the new
+    (R, N) planes after one over-relaxation phase of ``color``."""
     n = sx.shape[-1]
     fx, fy = reflect(sx, sy, field(sx, nx), field(sy, nx))
     mask = colour_mask(n, color, sx.device)
@@ -410,7 +412,7 @@ def _lib() -> ctypes.CDLL:
     lib.hp_xy_phase.argtypes = (
         [_VOID] * 8 + [_INT] * 5 + [ctypes.c_float, _UINT, _UINT]
         + [_INT] * 4 + [_VOID])
-    lib.hp_xy_or.argtypes = [_VOID] * 4 + [_INT] * 4 + [_VOID]
+    lib.hp_xy_or.argtypes = [_VOID] * 4 + [_INT] * 8 + [_VOID]
     lib.hp_grid_blocks.argtypes = [_INT, _INT, ctypes.POINTER(_INT)]
     for fn in (lib.hp_ising_multisweep, lib.hp_clock_multisweep,
                lib.hp_xy_phase, lib.hp_xy_or, lib.hp_grid_blocks):
@@ -480,14 +482,15 @@ def ising_tiles(nrep: int, n: int, nx: int, offset: int = 0) -> dict:
 
 
 def xy_tiles(nrep: int, n: int, nx: int, offsets=(0,),
-             measuring: bool = False) -> dict:
+             measuring: bool = False, vpt: int | None = None) -> dict:
     """Launch constants of ``xy_phase_kernel`` on (R, N) float32 planes
     whose pointers lie ``offsets`` bytes past 16-B aligned addresses (the
     planes it reads and writes): ``vec`` 1 where they share one offset
     (16-B vector loads and stores; else every float alone, tiled from
     each replica's start), ``off0`` that offset in floats, ``vpt`` the
-    float4 vectors a thread takes (XY_VPT: more in the ``measuring``
-    modes, whose partials reduce_kernel adds), ``nblk`` the grid's blocks a
+    float4 vectors a thread takes (``vpt`` if given, else XY_VPT: more in
+    the ``measuring`` modes, whose partials reduce_kernel adds), ``nblk``
+    the grid's blocks a
     replica (each vpt THREADS vectors: thread t of block b takes vectors
     b vpt THREADS + j THREADS + t, j < vpt, in that order, and its sums
     in that order and site by site are its share of the block's
@@ -496,7 +499,7 @@ def xy_tiles(nrep: int, n: int, nx: int, offsets=(0,),
     vec = len(set(offsets)) == 1 and offsets[0] % 4 == 0
     off0 = offsets[0] // 4 if vec else 0
     span = _replica_vectors(nrep, n, off0, width)
-    vpt = XY_VPT[bool(measuring)]
+    vpt = vpt or XY_VPT[bool(measuring)]
     return {"off0": off0, "vpt": vpt, "nblk": -(-span // (THREADS * vpt)),
             "su": -nx % width, "sd": nx % width, "vec": int(vec)}
 
@@ -695,8 +698,10 @@ def xy_measure(sx: torch.Tensor, sy: torch.Tensor, *, nx: int
 def xy_or_phase(sx: torch.Tensor, sy: torch.Tensor, *, color: int, nx: int,
                 out=None):
     """One over-relaxation phase of ``color``, out of place:
-    ``xy_or_kernel`` on CUDA tensors, :func:`xy_or_phase_plain` on CPU
-    tensors.  Returns the (ox, oy) planes (``out`` or new ones)."""
+    ``xy_phase_kernel``'s over-relaxation mode on CUDA tensors (the tiles
+    of :func:`xy_tiles`, XY_OR_VPT vectors a thread),
+    :func:`xy_or_phase_plain` on CPU tensors.  Returns the (ox, oy)
+    planes (``out`` or new ones)."""
     if _on_cpu(sx):
         res = xy_or_phase_plain(sx, sy, color=color, nx=nx)
         if out is None:
@@ -708,12 +713,16 @@ def xy_or_phase(sx: torch.Tensor, sy: torch.Tensor, *, color: int, nx: int,
     nrep, n = sx.shape
     check_shape(nrep, n, nx)
     out = _xy_out(sx, sy, out)
+    tiles = xy_tiles(nrep, n, nx, [p.data_ptr() % VEC_BYTES
+                                   for p in (sx, sy, *out)], vpt=XY_OR_VPT)
     lib = _lib()
     with torch.cuda.device(sx.device):
         code = lib.hp_xy_or(sx.data_ptr(), sy.data_ptr(), out[0].data_ptr(),
                             out[1].data_ptr(), nrep, n, nx, color,
-                            _stream(sx))
-    raise_on(code, lib.hp_error_string, "helical xy_or_kernel")
+                            tiles["off0"], tiles["vpt"], tiles["nblk"],
+                            tiles["vec"], _stream(sx))
+    raise_on(code, lib.hp_error_string,
+             "helical xy_phase_kernel (over-relaxation)")
     LAUNCHES["xy_or"] += 1
     return out
 

@@ -42,7 +42,8 @@ Phases (each prints a progress line on stderr):
    - 2-D, at 1024^2 x 4 and the main path's shapes: the phase kernel with
      injected bits, Philox bits and the fused exact (m, e); the multisweep
      kernel over 64 sweeps against 64 phase-kernel pairs and its plain
-     version;
+     version; both again at 1024^2 x 4 (8 sweeps) at kbt 1e9 and 0.5, the
+     chain table's edges (every chain draws 20 words; B8 draws none);
    - helical, at 131x62 (a partial last word) and 1001x1000 x 4: the
      injected-bits mode on the valid bits; 64 sweeps against 64 one-sweep
      launches and the plain version; the fused (m, e) against the exact
@@ -91,7 +92,9 @@ Phases (each prints a progress line on stderr):
      and each class's launch (1000x1000 x 16, 4000x4000 x 8, 1000x1000 x
      1, 500^3 x 2): the 2-D and 3-D phase kernels with injected and Philox
      words, both colours, and the measure kernel (2-D and 3-D, exact
-     sums); 64 multisweep sweeps at 1000x1000 x 16 against 64 phase-kernel
+     sums; also at 4102 and 4100 columns, its chunks, and at 250, on
+     aligned tensors and on views 3 and 7 bytes off the 16-B grid); 64
+     multisweep sweeps at 1000x1000 x 16 against 64 phase-kernel
      pairs with the measure kernel (state and sums) and against its plain
      version;
    - int8 clock, at 130x126 x 3 for q = 2, 3, 4, 5, 6, 8, 20 and at each
@@ -649,14 +652,14 @@ def max_abs_err(pairs) -> int:
 
 
 def check_kernels(msb, rng, dev, shapes) -> dict[str, int]:
-    """2-D kernel vs plain version on the same CUDA tensors, bitwise;
-    returns the largest absolute difference seen per kernel (0 when
-    equal)."""
+    """2-D kernel vs plain version on the same CUDA tensors, bitwise, at
+    each (R, ny, nx, S[, kbt]) (kbt Tc unless given); returns the largest
+    absolute difference seen per kernel (0 when equal)."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.models import Ising2D
 
-    beta = 1.0 / KBT
     errs = {"phase": 0, "multisweep": 0}
-    for nrep, ny, nx, sweeps in shapes:
+    for nrep, ny, nx, sweeps, *kbt in shapes:
+        beta = 1.0 / (kbt[0] if kbt else KBT)
         shape = (nrep, ny // 32, nx // 2)
         x, o, b4, b8 = random_words(shape, ny + nrep, dev)
         key = rng.sample_key(rng.base_key(7), ny)
@@ -685,8 +688,8 @@ def check_kernels(msb, rng, dev, shapes) -> dict[str, int]:
                                  model.energy_sum(model_state)], dim=-1)
             e_x = max_abs_err([(got_obs, exact)])
             errs["phase"] = max(errs["phase"], e, e_r, e_m, e_x)
-            log(f"  phase kernel {nrep}x{ny}x{nx} colour {color}: "
-                f"bits {e}, philox {e_r}, measuring {e_m}, "
+            log(f"  phase kernel {nrep}x{ny}x{nx} kbt {1 / beta:.6g} colour "
+                f"{color}: bits {e}, philox {e_r}, measuring {e_m}, "
                 f"(m, e) vs exact sums {e_x}")
         wa, wb = x, o
         ka, kb, k_obs = msb.multisweep_planes(wa, wb, seeds, beta=beta)
@@ -702,8 +705,9 @@ def check_kernels(msb, rng, dev, shapes) -> dict[str, int]:
         qa, qb, q_obs = msb.multisweep_planes_plain(wa, wb, seeds, beta=beta)
         e_plain = max_abs_err([(ka, qa), (kb, qb), (k_obs, q_obs)])
         errs["multisweep"] = max(errs["multisweep"], e_pairs, e_plain)
-        log(f"  multisweep kernel {nrep}x{ny}x{nx} S={sweeps}: vs "
-            f"{sweeps} phase pairs {e_pairs}, vs plain {e_plain}")
+        log(f"  multisweep kernel {nrep}x{ny}x{nx} kbt {1 / beta:.6g} "
+            f"S={sweeps}: vs {sweeps} phase pairs {e_pairs}, vs plain "
+            f"{e_plain}")
     torch.cuda.synchronize()
     for name, e in errs.items():
         if e != 0:
@@ -2579,6 +2583,8 @@ def check_int8(i2p, i3p, i8m, i8ms, rng, dev) -> dict[str, int]:
         del a, b, bits
     errs["phase3d"] = max(errs["phase3d"], check_int8_3d_off_grid(i3p, rng,
                                                                   dev))
+    errs["measure"] = max(errs["measure"], check_int8_measure_edges(i8m,
+                                                                    dev))
     a, b = int8_state(dev, INT8_MS_CHECK, 31)
     seeds = multispin_keys(rng, 64)
     ka, kb, kobs = i8ms.multisweep_planes(a.clone(), b.clone(), seeds,
@@ -2625,13 +2631,7 @@ def check_int8_3d_off_grid(i3p, rng, dev) -> int:
         return torch.from_numpy((g.integers(0, 2, size=shp) * 2 - 1).astype(
             np.int8)).to(dev)
 
-    def off_grid(t, off):
-        buf = torch.empty(t.numel() + 32, dtype=torch.int8, device=dev)
-        base = (-buf.data_ptr()) % 16
-        v = buf[base + off:base + off + t.numel()].view(t.shape)
-        assert v.data_ptr() % 16 == off % 16 and v.is_contiguous()
-        return v.copy_(t)
-
+    off_grid = off_grid_view
     a, b = spins(shape), spins(shape)
     hs = (shape[0], 1) + shape[2:]
     zm, zp = spins(hs), spins(hs)
@@ -2658,6 +2658,38 @@ def check_int8_3d_off_grid(i3p, rng, dev) -> int:
                 zip(got, want) if measuring else [(got, want)]))
     log(f"  int8 3-D {'x'.join(map(str, shape))} on views {OFF_GRID} bytes "
         f"off the 16-B grid: phase, injected, halo (measuring): {err}")
+    return err
+
+
+def off_grid_view(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous int8 copy of ``t`` on its device whose first byte lies
+    ``off`` bytes past a 16-B aligned address."""
+    buf = torch.empty(t.numel() + 32, dtype=torch.int8, device=t.device)
+    base = (-buf.data_ptr()) % 16
+    v = buf[base + off:base + off + t.numel()].view(t.shape)
+    assert v.data_ptr() % 16 == off % 16 and v.is_contiguous()
+    return v.copy_(t)
+
+
+# the measure kernel's edges: rows past its chunk width (two chunks, a
+# masked last unit), 2-D and 3-D, the least ny and nz, rows 2-B aligned
+INT8_MEASURE_EDGES = ((2, 2, 4102), (1, 2, 2, 4100), (2, 4, 6, 250))
+
+
+def check_int8_measure_edges(i8m, dev) -> int:
+    """measure_kernel against its plain version at INT8_MEASURE_EDGES, on
+    aligned tensors and on views OFF_GRID[:2] bytes off the 16-B grid,
+    exactly.  Returns the largest absolute difference."""
+    err = 0
+    for shape in INT8_MEASURE_EDGES:
+        a, b = int8_state(dev, shape, 7 * sum(shape))
+        want = i8m.measure_sums_plain(a, b)
+        err = max(err, max_abs_err([
+            (i8m.measure_sums(a, b), want),
+            (i8m.measure_sums(off_grid_view(a, OFF_GRID[0]),
+                              off_grid_view(b, OFF_GRID[1])), want)]))
+    log(f"  int8 measure at {INT8_MEASURE_EDGES}, aligned and {OFF_GRID[:2]} "
+        f"bytes off the 16-B grid: {err}")
     return err
 
 
@@ -5514,6 +5546,9 @@ def main() -> int:
         (4, 1024, 1024, 64),     # the bring-up size
         (16, 2048, 2048, 64),    # resident main-path shape
         (4, 8192, 8192, 1),      # streaming main-path shape
+        # the chain table's edges: every chain draws 20 words; B8 none
+        (4, 1024, 1024, 8, 1e9),
+        (4, 1024, 1024, 8, 0.5),
     ])
     err_helical = check_helical(hms, rng, dev)
     errs3 = check_ising3d(msb, ms3, rng, dev)

@@ -11,7 +11,13 @@ and the 3-D multisweep at 256^3 x 4, S = 64, with the SASS of
 phase_kernel and multisweep_kernel; beside the int8 3-D phase (500^3 x
 2) its halo mode at the mesh int8 3-D class's shard (1, 250, 500, 250) of
 500^3 x 2 on (2,2), measuring and plain, graph-timed, with the SASS of
-the int8 3-D tile_kernel; with ``--clock``, the clock
+the int8 3-D tile_kernel; the periodic 2-D bit-packed kernels at the 2-D
+classes' other launches: the multisweep at 2048x2048 x 16 with S = 64
+and 40, the halo mode (measuring and plain) at the mesh class's shard
+(4, 64, 4096) of 8192x8192 x 4 on (1,4), graph-timed, with the SASS of
+phase_kernel and multisweep_kernel and the multisweep grid's resident
+blocks; the int8 measure kernel at 500^3 x 2 and 4000x4000 x 8, with its
+SASS; with ``--clock``, the clock
 kernels whose headers the halo modes share: the bit-sliced q = 6 phase,
 measuring, at 2000x2000 x 40 (padded) and 2048x2048 x 16, the int8 clock
 phase at 2000x2000 x 16 (q = 5) and its S-sweep kernel at 1000x1000 x 16
@@ -37,7 +43,17 @@ of the same source (clock_multisweep_kernel) at its class's 501x500 x
 of the one-replica samples classes at 1000x1000 x 1 (the Ising phase and
 measure kernels, the clock's at q = 6), each event-timed as the smoke
 times them and as a CUDA graph of 50 launches (the kernel alone, without
-the wrapper's host work); with ``--registers``,
+the wrapper's host work); with ``--ms-grids``, the 2-D bit-packed
+multisweep (row 3) at 2048x2048 x 16, S = 64, at the grid its wrapper
+picks (ops/ising2d_multispin.multisweep_grid) and at the grid of the
+fewest tiles a block, and the same for a build of its source with the
+kernel capped at 64 registers (__launch_bounds__(256, 4): four blocks an
+SM; built into .build/variants/), each launch held bitwise against the
+wrapper's; with ``--measure-variants``, the int8 measure kernel (row 27)
+at 500^3 x 2 and 4000x4000 x 8 on its library and on builds raising its
+blocks an SM to 6 and 8 (__launch_bounds__), and at 500^3 x 2 with runs
+of 1, 2, 4 and 8 planes a block, each held against the library's sums;
+with ``--registers``,
 no timing: every csrc/*.cu built anew and the ptxas registers of each of
 its kernels, one JSON line {library: {kernel: registers}} (the kernel's
 mangled name without the anonymous namespace's per-file hash), to hold
@@ -45,7 +61,8 @@ the includers of a shared header unchanged across two checkouts.
 
     python3 chip_time_ising.py [--reps 50] [--rounds 3]
                                [--clock | --helical3d | --masked |
-                                --samples | --registers]
+                                --samples | --ms-grids |
+                                --measure-variants | --registers]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
 the kernels on first use.  It uses only the wrappers' public API, so to
@@ -57,8 +74,9 @@ multisweep_kernel, the default mode also of the int8 3-D tile_kernel;
 ``--masked``: of
 ising_multisweep_kernel; instructions, the instructions of each loop,
 the commonest opcodes; where cuobjdump exists), and last one JSON line
-{mode: [ms a launch, one per round]} (``"int8_multisweep_blocks": n``
-and ``"packed_3d_multisweep_blocks": n`` beside the Ising modes).
+{mode: [ms a launch, one per round]} (``"int8_multisweep_blocks": n``,
+``"packed_3d_multisweep_blocks": n`` and ``"packed_2d_multisweep_blocks":
+n`` beside the Ising modes).
 """
 
 from __future__ import annotations
@@ -78,7 +96,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 KBT_2D, KBT_3D = 2.269185314213022, 4.51152
 LIBS = ["ising2d_multisweep", "ising2d_pallas", "ising3d_pallas",
-        "ising2d_multispin", "ising3d_multispin"]
+        "ising2d_multispin", "ising3d_multispin", "ising2d_measure_pallas"]
 CLOCK_LIBS = ["clock_planes", "clock_pallas", "clock_multisweep"]
 KBT_CLOCK, KBT_CLOCK_08 = 0.91, 0.8
 # the helical 3-D classes' temperatures: 1001x1000x1000 and 501x501x500
@@ -249,6 +267,147 @@ def samples_modes(spins, gen, dev, key):
     return modes
 
 
+def variant_lib(lib: str, old: str, new: str, tag: str, base, names):
+    """csrc/<lib>.cu with ``old`` replaced by ``new``, built into
+    .build/variants/lib<lib>_<tag>.so (its ptxas report printed), loaded
+    with the argument types of ``base``'s functions ``names``."""
+    import ctypes
+
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
+    src = (_build.CSRC / f"{lib}.cu").read_text()
+    assert old in src, old
+    vdir = _build.BUILD_DIR / "variants"
+    vdir.mkdir(parents=True, exist_ok=True)
+    path = vdir / f"{lib}_{tag}.cu"
+    path.write_text(src.replace(old, new))
+    out = vdir / f"lib{lib}_{tag}.so"
+    built = subprocess.run(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         str(out), str(path)], capture_output=True, text=True, check=True)
+    for line in (built.stdout + built.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"variant {lib} {tag}:", line.strip())
+    var = ctypes.CDLL(str(out))
+    for name in names:
+        getattr(var, name).argtypes = getattr(base, name).argtypes
+        getattr(var, name).restype = getattr(base, name).restype
+    return var
+
+
+def measure_variant_modes(spins, dev):
+    """Row 27 at 500^3 x 2 and 4000x4000 x 8 on the library and on builds
+    of its source with the kernel's blocks an SM raised by
+    __launch_bounds__(256, 6) and (256, 8) (at most 40 and 32 registers),
+    and at 500^3 x 2 with runs of 1, 2, 4 and 8 planes a block, each
+    launch held against the library's sums (``--measure-variants``)."""
+    import ctypes
+
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_measure_pallas as i8m,
+    )
+    base = i8m._lib()
+    old = "__launch_bounds__(THREADS)\n    measure_kernel"
+    libs = {"": base}
+    for mb in (6, 8):
+        libs[f"mb{mb} "] = variant_lib(
+            "ising2d_measure_pallas", old,
+            f"__launch_bounds__(THREADS, {mb})\n    measure_kernel",
+            f"mb{mb}", base, ("ising_int8_measure",))
+    modes = {}
+    for label, shape in (("3d 500^3 x 2", (2, 500, 500, 250)),
+                         ("2d 4000^2 x 8", (8, 4000, 2000))):
+        a, b = spins(shape), spins(shape)
+        dims = len(shape) - 1
+        nrep, *vol, half = shape
+        nz, ny = (1, *vol) if dims == 2 else vol
+        want = i8m.measure_sums(a, b)
+        for tag, lib in libs.items():
+            def run(lib=lib, a=a, b=b, dims=dims, nrep=nrep, nz=nz, ny=ny,
+                    half=half):
+                obs = torch.zeros((nrep, 2), dtype=torch.int64, device=dev)
+                code = lib.ising_int8_measure(
+                    a.data_ptr(), b.data_ptr(), obs.data_ptr(), nrep, dims,
+                    nz, ny, half, i8m._tiles_arg(nz, ny, half, dims),
+                    torch.cuda.current_stream().cuda_stream)
+                if code:
+                    raise RuntimeError(f"measure variant: {code}")
+                return obs
+            if not torch.equal(run(), want):
+                raise RuntimeError(f"{tag}{label} differs")
+            modes[f"int8_measure {tag}{label}"] = run
+    # the library at other runs of planes a block in 3-D
+    a, b = spins((2, 500, 500, 250)), spins((2, 500, 500, 250))
+    want = i8m.measure_sums(a, b)
+    for zrun in (1, 2, 4, 8):
+        t = dict(i8m.measure_tiles(500, 500, 250, 3), zrun=zrun,
+                 nzg=-(-500 // zrun))
+        words = [t["rows"], t["lux"], t["cw"], t["nch"], t["nty"], zrun,
+                 t["nzg"], *t["buf"], t["smem"]]
+
+        def run(words=words):
+            obs = torch.zeros((2, 2), dtype=torch.int64, device=dev)
+            code = base.ising_int8_measure(
+                a.data_ptr(), b.data_ptr(), obs.data_ptr(), 2, 3, 500, 500,
+                250, (ctypes.c_int * len(words))(*words),
+                torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"measure zrun: {code}")
+            return obs
+        if not torch.equal(run(), want):
+            raise RuntimeError(f"zrun {zrun} differs")
+        modes[f"int8_measure 3d 500^3 x 2 zrun={zrun}"] = run
+    return modes
+
+
+def ms_grid_modes(words, msb, seeds, b2):
+    """Row 3 at the 2-D resident class's launch, 2048x2048 x 16, S = 64, at
+    its wrapper's grid and at the fewest tiles a block, on the library
+    and on a variant capped at 64 registers (``--ms-grids``)."""
+    import ctypes
+    import math
+
+    base = msb._lib()
+    var = variant_lib(
+        "ising2d_multispin",
+        "__launch_bounds__(TILE_X * TILE_Y)\n    multisweep_kernel",
+        "__launch_bounds__(TILE_X * TILE_Y, 4)\n    multisweep_kernel",
+        "mb4", base, ("ising2d_multisweep", "ising2d_multisweep_grid"))
+    pa, pb = words((16, 64, 1024)), words((16, 64, 1024))
+    sweeps = int(seeds.shape[0])
+    seeds_dev = msb._i32(seeds).contiguous().to(pa.device)
+    table = msb._table(*msb.chain_words(b2))
+
+    def call(lib, blocks, per):
+        def run():
+            wa, wb = torch.empty_like(pa), torch.empty_like(pb)
+            obs = torch.zeros((16, sweeps, 2), dtype=torch.int64,
+                              device=pa.device)
+            code = lib.ising2d_multisweep(
+                pa.data_ptr(), pb.data_ptr(), wa.data_ptr(), wb.data_ptr(),
+                seeds_dev.data_ptr(), obs.data_ptr(), 16, 64, 1024, sweeps,
+                blocks, per, table, torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"multisweep at {blocks}x{per}: {code}")
+            return wa, wb, obs
+        return run
+
+    want = msb.multisweep_planes(pa, pb, seeds, beta=b2)
+    tiles, modes = 16 * 8 * 32, {}
+    for tag, lib in (("", base), ("mb4 ", var)):
+        res, sms = ctypes.c_int(), ctypes.c_int()
+        lib.ising2d_multisweep_grid(ctypes.byref(res), ctypes.byref(sms))
+        p0 = math.ceil(tiles / res.value)
+        for blocks, per in sorted({msb.multisweep_grid(tiles, res.value,
+                                                       sms.value),
+                                   (math.ceil(tiles / p0), p0)}):
+            fn = call(lib, blocks, per)
+            if not all(torch.equal(g, w) for g, w in zip(fn(), want)):
+                raise RuntimeError(f"{tag}{blocks}x{per} differs")
+            modes[f"packed_multisweep {tag}{blocks}x{per} (resident "
+                  f"{res.value})"] = fn
+    return modes
+
+
 def clock_modes(gen, dev, seeds):
     """The clock kernels at the smoke's launch shapes, on random states."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
@@ -335,6 +494,10 @@ def main() -> int:
     ap.add_argument("--samples", action="store_true",
                     help="time the samples classes' one-replica int8 "
                     "kernels instead, also as CUDA graphs")
+    ap.add_argument("--ms-grids", action="store_true",
+                    help="time the 2-D multisweep's grid choices instead")
+    ap.add_argument("--measure-variants", action="store_true",
+                    help="time the int8 measure kernel's builds instead")
     ap.add_argument("--registers", action="store_true",
                     help="print every kernel's ptxas registers instead")
     args = ap.parse_args()
@@ -375,6 +538,12 @@ def main() -> int:
         modes, libs = helical3d_modes(words), ["helical3d_multispin"]
     elif args.masked:
         modes, libs = masked_modes(spins, gen, dev), ["helical_pallas"]
+    elif args.ms_grids:
+        modes, libs = ms_grid_modes(words, msb, seeds, b2), [
+            "ising2d_multispin"]
+    elif args.measure_variants:
+        modes, libs = measure_variant_modes(spins, dev), [
+            "ising2d_measure_pallas"]
     elif args.samples:
         modes, libs = samples_modes(spins, gen, dev, phase_key), [
             "ising2d_pallas", "ising2d_measure_pallas", "clock_pallas",
@@ -400,9 +569,11 @@ def main() -> int:
             end.record()
             end.synchronize()
             times[mode].append(start.elapsed_time(end) / reps)
-    if not (args.clock or args.helical3d or args.masked or args.samples):
+    if not (args.clock or args.helical3d or args.masked or args.samples
+            or args.ms_grids or args.measure_variants):
         times["int8_multisweep_blocks"] = i8ms.grid_blocks()
         times["packed_3d_multisweep_blocks"] = ms3.multisweep_grid_blocks()
+        times["packed_2d_multisweep_blocks"] = msb.multisweep_grid_blocks()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -422,10 +593,13 @@ def main() -> int:
     elif args.clock:
         sass_report("clock_planes", ("phase_kernel",))
         sass_report("clock_multisweep", ("multisweep_kernel",))
-    elif not args.samples:
+    elif not (args.samples or args.ms_grids or args.measure_variants):
         sass_report("ising3d_multispin", ("phase_kernel",
                                           "multisweep_kernel"))
         sass_report("ising3d_pallas", ("tile_kernel",))
+        sass_report("ising2d_multispin", ("phase_kernel",
+                                          "multisweep_kernel"))
+        sass_report("ising2d_measure_pallas", ("measure_kernel",))
     print(json.dumps(times))
     return 0
 
@@ -433,6 +607,10 @@ def main() -> int:
 def ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds, phase_key,
                 b2, b3):
     """The Ising kernels at the smoke's launch shapes, on random states."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_measure_pallas as i8m,
+    )
+
     ra, rb = spins((16, 1000, 500)), spins((16, 1000, 500))
     sa, sb = spins((8, 4000, 2000)), spins((8, 4000, 2000))
     va, vb = spins((2, 500, 500, 250)), spins((2, 500, 500, 250))
@@ -446,6 +624,12 @@ def ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds, phase_key,
     ha, hb = words((4, 128, 16, 256)), words((4, 128, 16, 256))
     hzm, hzp = words((4, 1, 16, 256)), words((4, 1, 16, 256))
     ya, yb = words((4, 256, 8, 128)), words((4, 256, 8, 128))
+    # the 2-D resident class's planes, 2048^2 x 16
+    pa, pb = words((16, 64, 1024)), words((16, 64, 1024))
+    # the mesh packed 2-D class's shard of 8192^2 x 4 on (1,4) and its halo
+    # bit rows
+    qa, qb = words((4, 64, 4096)), words((4, 64, 4096))
+    qup, qdn = ((words((4, 1, 4096)) & 1).contiguous() for _ in range(2))
     return {
         "int8_multisweep": lambda: i8ms.multisweep_planes(ra, rb, seeds,
                                                           beta=b2),
@@ -471,6 +655,17 @@ def ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds, phase_key,
             ha, hb, hzm, hzp, phase_key, (4, 256), color=0, beta=b3),
         "packed_3d_multisweep": lambda: ms3.multisweep3d_planes(
             ya, yb, seeds, beta=b3),
+        "packed_multisweep": lambda: msb.multisweep_planes(pa, pb, seeds,
+                                                           beta=b2),
+        "packed_multisweep S=40": lambda: msb.multisweep_planes(
+            pa, pb, seeds[:40], beta=b2),
+        "graph packed_shard_measuring": lambda: msb.sharded_phase_packed(
+            qb, qa, qup, qdn, phase_key, (0, 64), color=1, beta=b2,
+            measuring=True),
+        "graph packed_shard": lambda: msb.sharded_phase_packed(
+            qa, qb, qup, qdn, phase_key, (0, 64), color=0, beta=b2),
+        "int8_measure_3d": lambda: i8m.measure_sums(va, vb),
+        "int8_measure_2d": lambda: i8m.measure_sums(sa, sb),
     }
 
 

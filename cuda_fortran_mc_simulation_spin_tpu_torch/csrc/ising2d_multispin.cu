@@ -33,13 +33,16 @@
 //   side select       row parity = bit parity: masks 0xAAAAAAAA/0x55555555
 //   count             bit-sliced 4:3 counter -> ones/twos/fours planes
 //   B4, B8            20-digit Bernoulli chains over Philox words
-//                     (csrc/philox.cuh), digits LSB->MSB, trailing zero
-//                     digits skipped
+//                     (bernoulli.cuh chain_planes from the launch's
+//                     ChainTable of (q4, q8, 0): the third chain draws
+//                     nothing), digits LSB->MSB, trailing zero digits
+//                     skipped
 //   flip              ops/ising2d_multispin._flip_plane
 // The TPU tiling (8-row granules, pltpu.roll, SMEM seeds, the 128-lane
-// obs row) is not carried over.  A block of 32x8 threads owns a tile of
-// 8 word rows x 32 words, one thread per word, and loads the other
-// colour's tile with its halo rows and columns into shared memory.
+// obs row) is not carried over: one thread a word, blocks of 32 x 8
+// threads (a warp along x, so loads coalesce), every neighbour word read
+// from device memory (L2 hits; the kernels are bound by Philox, not
+// bytes).
 //
 // Random words: the key is the (s0, s1) Philox key of the (sample, t,
 // phase); the counter is (replica, word row, column, draw / 4).  So a
@@ -47,24 +50,42 @@
 // the kernel (phase_kernel pairs and multisweep_kernel give the same
 // bits, and so does the plain PyTorch version).
 //
-// Observables: m and e are exact integers.  Each block reduces its
+// Observables: m and e are exact integers.  A measuring block reduces its
 // words' contributions and adds them with one 64-bit integer atomic per
-// tile into an (R, 2) (or (R, S, 2)) int64 buffer.  Integer addition is
-// associative, so the order of the atomics cannot change the sums, and
-// int64 never wraps at any lattice a card holds: the JAX package's
-// tiled_obs mode (its int32 partials above OBS_INT32_MAX_SITES) has no
-// counterpart here.
+// replica and observable into an (R, 2) (or (R, S, 2)) int64 buffer.
+// Integer addition is associative, so the order of the atomics cannot
+// change the sums, and int64 never wraps at any lattice a card holds: the
+// JAX package's tiled_obs mode (its int32 partials above
+// OBS_INT32_MAX_SITES) has no counterpart here.
 //
-// Bound on the H100: integer operations.  A word costs about 11 Philox
-// calls per phase at Tc (about 35-40 chain words), some 700 int32
-// operations against 12 bytes of traffic; the bytes would allow 10x the
-// rate.  The design keeps the state in L2-resident planes and spends no
-// shared memory beyond the 1.4 KB halo tile; making Philox cheaper per
-// word is later work.
+// Bound on the H100: integer operations.  At Tc the two chains draw ~39
+// Philox words a word and phase (10 calls, ~400 int32 operations with the
+// round keys a launch constant) against 12 bytes of traffic.  The design
+// (that of csrc/ising3d_multispin.cu) spends little beside them:
+// - the chains are bernoulli.cuh's unrolled chain_planes, from the
+//   launch's ChainTable and Philox round keys (kernel parameters, or
+//   computed once a (sweep, phase) in the multisweep), not bern_word's
+//   runtime loop, refill test and buffer pick (~12-16 instructions a draw)
+//   and per-call round-key bumps;
+// - no runtime division in a phase: neighbours wrap by compare and
+//   select; phase_kernel's grid is (column tiles, row groups, replicas),
+//   each thread walking word rows Y, Y + 8 gridDim.y, ...; the multisweep
+//   decodes its block's first tile once a launch and steps through its
+//   tiles with carries; indices are 32-bit (the wrappers refuse planes of
+//   2^31 words or more);
+// - a measuring block adds its sums once a replica, from shared memory
+//   double-buffered across calls: one barrier and two atomics a block and
+//   replica, where the first design took two barriers and two atomics a
+//   256-word tile, and the halo loads of a shared tile four runtime %
+//   wraps;
+// - the multisweep's grid is the resident one, each block taking `per`
+//   whole tiles (ops/ising2d_multispin.multisweep_grid: the fewest tiles
+//   on the busiest SM).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 #include "bernoulli.cuh"
 #include "philox.cuh"
@@ -75,21 +96,20 @@ namespace {
 
 constexpr int TILE_Y = 8;   // word rows per tile (blockDim.y)
 constexpr int TILE_X = 32;  // words per tile row (blockDim.x, one warp)
+constexpr int MAX_GRID = 65535;  // gridDim.y and gridDim.z
 constexpr uint32_t ODD_BITS = 0xAAAAAAAAu;
 constexpr uint32_t EVEN_BITS = 0x55555555u;
 
 struct PhaseArgs {
-  const int32_t* x_in;   // (R, nyp, half) colour being updated
-  int32_t* x_out;        // may alias x_in
-  const int32_t* o;      // (R, nyp, half) other colour
-  const int32_t* b4;     // injected Bernoulli planes, or nullptr
-  const int32_t* b8;
-  long long* obs;        // (m, e) of replica r at obs[r * obs_stride], or nullptr
+  const uint32_t* x_in;  // (R, nyp, half) colour being updated
+  uint32_t* x_out;       // may alias x_in
+  const uint32_t* o;     // (R, nyp, half) other colour
+  const uint32_t* b4;    // injected Bernoulli planes, or nullptr
+  const uint32_t* b8;
+  long long* obs;        // (m, e) of replica r at obs[r * obs_stride], or null
   int obs_stride;
-  int nyp, half, color;
-  uint2 key;             // Philox key of this (sample, t, phase)
-  uint32_t q4, q8;       // chain digits: round(p * 2^20)
-  // A shard's halos and global offsets (read only by phase_tile<true>):
+  int nrep, nyp, half, color;
+  // A shard's halos and global offsets (read only by phase_word<true>):
   const uint32_t* hup;   // (R, 1, half) 0/1: the site above word row 0
   const uint32_t* hdn;   // (R, 1, half) 0/1: the site below the last
   const uint32_t* hlf;   // (R, nyp, 1) word column left of column 0, or null
@@ -97,260 +117,319 @@ struct PhaseArgs {
   uint32_t rep0, wrow0, col0;
 };
 
-// One tile of one colour phase.  Every thread of the block calls it
-// with the same (r, y0, x0); it ends with a barrier, so the caller may
-// reuse the shared tile at once.  HALO: the planes are a shard's, whose
-// neighbours past word row 0 and the last (and, when hlf is set, past
-// column 0 and the last) are its halos, and whose Philox counter is
-// offset by (rep0, wrow0, col0); its edge tiles may be partial, so any
-// shard shape runs.  Otherwise the planes are periodic and tile whole.
+// The launch's chains: the table (bernoulli.cuh) and the Philox round
+// keys of the phase key (philox_round_keys)
+struct Chains {
+  uint2 rk[10];
+  ChainTable table;
+};
+
+// One word (X, Y) of replica r (X < half, Y < nyp) of one colour phase,
+// its (m, e) added to (m, e) where a.obs is set.  HALO: the planes are a
+// shard's, whose neighbours past word row 0 and the last (and, when hlf
+// is set, past column 0 and the last) are its halos, and whose Philox
+// counter is offset by (rep0, wrow0, col0).  Otherwise the planes are
+// periodic.  t, rk: the launch's chains (chain_planes).
 template <bool HALO>
-__device__ __forceinline__ void phase_tile(
-    const PhaseArgs& a, int r, int y0, int x0,
-    uint32_t (&tile)[TILE_Y + 2][TILE_X + 2]) {
-  __shared__ int red_m[TILE_Y];
-  __shared__ int red_e[TILE_Y];
-  const int tx = threadIdx.x, ty = threadIdx.y;
+__device__ __forceinline__ void phase_word(const PhaseArgs& a,
+                                           const ChainTable& t,
+                                           const uint2 (&rk)[10], int X,
+                                           int Y, int r, int& m, int& e) {
   const int nyp = a.nyp, half = a.half;
-  const size_t base = static_cast<size_t>(r) * nyp * half;
-  const uint32_t* o = reinterpret_cast<const uint32_t*>(a.o) + base;
-  const int Y = y0 + ty, X = x0 + tx;
-  const bool in = !HALO || (Y < nyp && X < half);
-  const size_t row = static_cast<size_t>(Y) * half;
-  const size_t idx = row + X;
-
+  const int row = (r * nyp + Y) * half;
+  const int idx = row + X;
+  const int yu = (Y == 0 ? nyp : Y) - 1;
+  const int yd = Y == nyp - 1 ? 0 : Y + 1;
+  const int xm = (X == 0 ? half : X) - 1;
+  const int xp = X == half - 1 ? 0 : X + 1;
+  const int col = r * nyp + Y;  // a halo column's word
   // __ldcg: the multisweep kernel rewrites the planes between grid
-  // barriers, so loads bypass the (non-coherent) L1.  The thread of the
-  // last row (column) also loads the row (column) past it, which in a
-  // partial tile lies inside the shared tile.
-  if (in) {
-    tile[ty + 1][tx + 1] = __ldcg(o + idx);
-    if (ty == 0)
-      tile[0][tx + 1] =
-          HALO && y0 == 0
-              ? __ldcg(a.hup + static_cast<size_t>(r) * half + X) << 31
-              : __ldcg(o + static_cast<size_t>((y0 - 1 + nyp) % nyp) * half +
-                       X);
-    if (ty == TILE_Y - 1 || (HALO && Y == nyp - 1))
-      tile[ty + 2][tx + 1] =
-          HALO && Y == nyp - 1
-              ? __ldcg(a.hdn + static_cast<size_t>(r) * half + X)
-              : __ldcg(o + static_cast<size_t>((Y + 1) % nyp) * half + X);
-    const size_t col = static_cast<size_t>(r) * nyp + Y;
-    if (tx == 0)
-      tile[ty + 1][0] = HALO && x0 == 0 && a.hlf != nullptr
-                            ? __ldcg(a.hlf + col)
-                            : __ldcg(o + row + (x0 - 1 + half) % half);
-    if (tx == TILE_X - 1 || (HALO && X == half - 1))
-      tile[ty + 1][tx + 2] = HALO && X == half - 1 && a.hrt != nullptr
-                                 ? __ldcg(a.hrt + col)
-                                 : __ldcg(o + row + (X + 1) % half);
+  // barriers, so loads bypass the (non-coherent) L1.
+  const uint32_t* o = a.o;
+  const uint32_t oc = __ldcg(o + idx);
+  const uint32_t o_prev = HALO && Y == 0
+                              ? __ldcg(a.hup + r * half + X) << 31
+                              : __ldcg(o + idx + (yu - Y) * half);
+  const uint32_t o_next = HALO && Y == nyp - 1
+                              ? __ldcg(a.hdn + r * half + X)
+                              : __ldcg(o + idx + (yd - Y) * half);
+  const uint32_t minus = HALO && X == 0 && a.hlf != nullptr
+                             ? __ldcg(a.hlf + col)
+                             : __ldcg(o + row + xm);
+  const uint32_t plus = HALO && X == half - 1 && a.hrt != nullptr
+                            ? __ldcg(a.hrt + col)
+                            : __ldcg(o + row + xp);
+  const uint32_t x = __ldcg(a.x_in + idx);
+
+  const uint32_t up = (oc << 1) | (o_prev >> 31);
+  const uint32_t dn = (oc >> 1) | (o_next << 31);
+  const uint32_t side = a.color == 0 ? (plus & ODD_BITS) | (minus & EVEN_BITS)
+                                     : (minus & ODD_BITS) | (plus & EVEN_BITS);
+  uint32_t ones, twos, fours;
+  count4(up, dn, oc, side, ones, twos, fours);
+
+  uint32_t b4, b8;
+  if (a.b4 != nullptr) {
+    b4 = __ldcg(a.b4 + idx);
+    b8 = __ldcg(a.b8 + idx);
+  } else {
+    uint32_t unused;  // the third chain of (q4, q8, 0): always zero
+    chain_planes(t, rk, static_cast<uint32_t>(r) + (HALO ? a.rep0 : 0u),
+                 static_cast<uint32_t>(Y) + (HALO ? a.wrow0 : 0u),
+                 static_cast<uint32_t>(X) + (HALO ? a.col0 : 0u), b4, b8,
+                 unused);
   }
-  __syncthreads();
-
-  int m = 0, e = 0;
-  if (in) {
-    const uint32_t oc = tile[ty + 1][tx + 1];
-    const uint32_t o_prev = tile[ty][tx + 1];
-    const uint32_t o_next = tile[ty + 2][tx + 1];
-    const uint32_t minus = tile[ty + 1][tx];
-    const uint32_t plus = tile[ty + 1][tx + 2];
-    const uint32_t x =
-        __ldcg(reinterpret_cast<const uint32_t*>(a.x_in) + base + idx);
-
-    const uint32_t up = (oc << 1) | (o_prev >> 31);
-    const uint32_t dn = (oc >> 1) | (o_next << 31);
-    const uint32_t side = a.color == 0
-                              ? (plus & ODD_BITS) | (minus & EVEN_BITS)
-                              : (minus & ODD_BITS) | (plus & EVEN_BITS);
-    uint32_t ones, twos, fours;
-    count4(up, dn, oc, side, ones, twos, fours);
-
-    uint32_t b4, b8;
-    if (a.b4 != nullptr) {
-      b4 = __ldcg(reinterpret_cast<const uint32_t*>(a.b4) + base + idx);
-      b8 = __ldcg(reinterpret_cast<const uint32_t*>(a.b8) + base + idx);
-    } else {
-      WordStream s(static_cast<uint32_t>(r) + (HALO ? a.rep0 : 0u),
-                   static_cast<uint32_t>(Y) + (HALO ? a.wrow0 : 0u),
-                   static_cast<uint32_t>(X) + (HALO ? a.col0 : 0u), a.key);
-      b4 = bern_word(s, a.q4);
-      b8 = bern_word(s, a.q8);
-    }
-    const uint32_t nw = x ^ flip4(x, ones, twos, fours, b4, b8);
-    reinterpret_cast<uint32_t*>(a.x_out)[base + idx] = nw;
-
-    if (a.obs != nullptr) {
-      // s = 2*bit - 1, neighbour sum = 2c - 4: this word's 32 sites give
-      // m = 2(pc(new) + pc(oc)) - 64 and
-      // e = -(4 pc(new & c) - 8 pc(new) - 2 pc(c) + 128)  (every bond once)
-      const int s_x = __popc(nw);
-      const int s_c = __popc(ones) + 2 * __popc(twos) + 4 * __popc(fours);
-      const int s_xc = __popc(nw & ones) + 2 * __popc(nw & twos) +
-                       4 * __popc(nw & fours);
-      m = 2 * (s_x + __popc(oc)) - 64;
-      e = -(4 * s_xc - 8 * s_x - 2 * s_c + 128);
-    }
-  }
+  const uint32_t nw = x ^ flip4(x, ones, twos, fours, b4, b8);
+  a.x_out[idx] = nw;
 
   if (a.obs != nullptr) {
-#pragma unroll
-    for (int off = 16; off; off >>= 1) {
-      m += __shfl_down_sync(0xFFFFFFFFu, m, off);
-      e += __shfl_down_sync(0xFFFFFFFFu, e, off);
-    }
-    if (tx == 0) {
-      red_m[ty] = m;
-      red_e[ty] = e;
-    }
-    __syncthreads();
-    if (tx == 0 && ty == 0) {
-      long long bm = 0, be = 0;
-#pragma unroll
-      for (int w = 0; w < TILE_Y; ++w) {
-        bm += red_m[w];
-        be += red_e[w];
-      }
-      unsigned long long* dst =
-          reinterpret_cast<unsigned long long*>(a.obs) +
-          static_cast<size_t>(r) * a.obs_stride;
-      atomicAdd(dst, static_cast<unsigned long long>(bm));
-      atomicAdd(dst + 1, static_cast<unsigned long long>(be));
-    }
+    // s = 2*bit - 1, neighbour sum = 2c - 4: this word's 32 sites give
+    // m = 2(pc(new) + pc(oc)) - 64 and
+    // e = -(4 pc(new & c) - 8 pc(new) - 2 pc(c) + 128)  (every bond once)
+    const int s_x = __popc(nw);
+    const int s_c = __popc(ones) + 2 * __popc(twos) + 4 * __popc(fours);
+    const int s_xc = __popc(nw & ones) + 2 * __popc(nw & twos) +
+                     4 * __popc(nw & fours);
+    m += 2 * (s_x + __popc(oc)) - 64;
+    e -= 4 * s_xc - 8 * s_x - 2 * s_c + 128;
   }
-  __syncthreads();
 }
 
+// The block's (m, e) added to dst[0], dst[1] with one 64-bit atomic each;
+// every thread of the block calls it.  red is double-buffered: buf
+// alternates between the calls of one launch, so a call needs no barrier
+// after thread 0's read (the next call's barrier comes after it, and the
+// one after that writes the other buffer).
+__device__ __forceinline__ void block_add(int m, int e, long long* dst,
+                                          int buf) {
+  __shared__ long long red[2][2][TILE_Y];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    m += __shfl_down_sync(0xFFFFFFFFu, m, off);
+    e += __shfl_down_sync(0xFFFFFFFFu, e, off);
+  }
+  if (tx == 0) {
+    red[buf][0][ty] = m;
+    red[buf][1][ty] = e;
+  }
+  __syncthreads();
+  if (tx == 0 && ty == 0) {
+    long long bm = 0, be = 0;
+#pragma unroll
+    for (int w = 0; w < TILE_Y; ++w) {
+      bm += red[buf][0][w];
+      be += red[buf][1][w];
+    }
+    unsigned long long* d = reinterpret_cast<unsigned long long*>(dst);
+    atomicAdd(d, static_cast<unsigned long long>(bm));
+    atomicAdd(d + 1, static_cast<unsigned long long>(be));
+  }
+}
+
+// One colour phase: a grid of (ceil(half / 32), row groups, min(R,
+// 65535)) blocks of 32 x 8 threads; block (bx, by, br) takes column tile
+// bx of replicas br, br + gridDim.z, ..., thread row ty the word rows
+// 8 by + ty, + 8 gridDim.y, ...  HALO: the edge tiles may be partial.
 template <bool HALO>
 __global__ void __launch_bounds__(TILE_X * TILE_Y)
-    phase_kernel(PhaseArgs a) {
-  __shared__ uint32_t tile[TILE_Y + 2][TILE_X + 2];
-  phase_tile<HALO>(a, blockIdx.z, blockIdx.y * TILE_Y, blockIdx.x * TILE_X,
-                   tile);
+    phase_kernel(PhaseArgs a, Chains c) {
+  const int X = blockIdx.x * TILE_X + threadIdx.x;
+  const bool active = !HALO || X < a.half;
+  const int step = gridDim.y * TILE_Y;
+  int buf = 0;
+  for (int r = blockIdx.z; r < a.nrep; r += gridDim.z) {
+    int m = 0, e = 0;
+    for (int Y = blockIdx.y * TILE_Y + threadIdx.y; active && Y < a.nyp;
+         Y += step)
+      phase_word<HALO>(a, c.table, c.rk, X, Y, r, m, e);
+    if (a.obs != nullptr) {  // uniform
+      block_add(m, e, a.obs + static_cast<size_t>(r) * a.obs_stride, buf);
+      buf ^= 1;
+    }
+  }
 }
 
 struct MultisweepArgs {
-  const int32_t* wa_in;
-  const int32_t* wb_in;
-  int32_t* wa;           // (R, nyp, half) outputs, updated in place
-  int32_t* wb;
+  const uint32_t* wa_in;
+  const uint32_t* wb_in;
+  uint32_t* wa;          // (R, nyp, half) outputs, updated in place
+  uint32_t* wb;
   const int32_t* seeds;  // (S, 2, 2) Philox keys per (sweep, phase)
   long long* obs;        // (R, S, 2), zeroed by the caller
   int nrep, nyp, half, sweeps;
-  uint32_t q4, q8;
+  int per;               // tiles a block: tiles [b per, (b + 1) per)
+  ChainTable table;      // the chains of every phase (the digits' table)
 };
 
 // S sweeps on the whole ensemble.  A 2048^2 replica is 512 KiB, more
 // than one SM's shared memory, so the state stays in device memory (the
 // reference's 16-replica ensemble, 16 MiB, sits in the 50 MB L2): a
-// cooperative grid walks all tiles of a phase, then waits at a
-// grid-wide barrier before the next phase reads what it wrote.
+// cooperative grid walks all tiles (8 word rows x 32 words of a replica,
+// x fastest, then y, then the replica) of a phase, block b its `per`
+// tiles from tile b per on, then waits at a grid-wide barrier before the
+// next phase reads what it wrote.  The block's first tile is decoded with
+// division once a launch.
 __global__ void __launch_bounds__(TILE_X * TILE_Y)
     multisweep_kernel(MultisweepArgs a) {
-  __shared__ uint32_t tile[TILE_Y + 2][TILE_X + 2];
   cg::grid_group grid = cg::this_grid();
-  const size_t n = static_cast<size_t>(a.nrep) * a.nyp * a.half;
-  const size_t nthreads = static_cast<size_t>(gridDim.x) * TILE_X * TILE_Y;
-  for (size_t i = blockIdx.x * static_cast<size_t>(TILE_X * TILE_Y) +
-                  threadIdx.y * TILE_X + threadIdx.x;
+  const int n = a.nrep * a.nyp * a.half;
+  const int nthreads = gridDim.x * TILE_X * TILE_Y;
+  for (int i = blockIdx.x * TILE_X * TILE_Y + threadIdx.y * TILE_X +
+               threadIdx.x;
        i < n; i += nthreads) {
     a.wa[i] = a.wa_in[i];
     a.wb[i] = a.wb_in[i];
   }
   grid.sync();
 
-  const int tiles_x = a.half / TILE_X;
-  const int tiles_rep = tiles_x * (a.nyp / TILE_Y);
-  const int tiles = a.nrep * tiles_rep;
+  const int tiles_x = a.half / TILE_X, tiles_y = a.nyp / TILE_Y;
+  const int tiles_rep = tiles_x * tiles_y;
+  const int first = blockIdx.x * a.per;
+  const int count = min(a.per, a.nrep * tiles_rep - first);
+  const int r0 = first / tiles_rep;
+  const int ty0 = (first - r0 * tiles_rep) / tiles_x;
+  const int tx0 = first - r0 * tiles_rep - ty0 * tiles_x;
+  int buf = 0;
   for (int s = 0; s < a.sweeps; ++s) {
     for (int phase = 0; phase < 2; ++phase) {
       PhaseArgs p{};
       p.x_in = phase ? a.wb : a.wa;
       p.x_out = phase ? a.wb : a.wa;
       p.o = phase ? a.wa : a.wb;
-      p.b4 = nullptr;
-      p.b8 = nullptr;
       p.obs = phase ? a.obs + 2 * s : nullptr;
       p.obs_stride = 2 * a.sweeps;
+      p.nrep = a.nrep;
       p.nyp = a.nyp;
       p.half = a.half;
       p.color = phase;
-      p.key = make_uint2(static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2]),
-                         static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2 + 1]));
-      p.q4 = a.q4;
-      p.q8 = a.q8;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int r = t / tiles_rep;
-        const int rem = t - r * tiles_rep;
-        const int tyi = rem / tiles_x;
-        phase_tile<false>(p, r, tyi * TILE_Y, (rem - tyi * tiles_x) * TILE_X,
-                          tile);
+      uint2 rk[10];
+      philox_round_keys(
+          static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2]),
+          static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2 + 1]), rk);
+      int r = r0, ty = ty0, tx = tx0, m = 0, e = 0;
+      bool pending = false;  // sums of replica r not yet added (uniform)
+      for (int k = 0; k < count; ++k) {
+        phase_word<false>(p, a.table, rk, tx * TILE_X + threadIdx.x,
+                          ty * TILE_Y + threadIdx.y, r, m, e);
+        pending = true;
+        if (++tx == tiles_x) {
+          tx = 0;
+          if (++ty == tiles_y) {
+            ty = 0;
+            if (phase) {
+              block_add(m, e, p.obs + static_cast<size_t>(r) * p.obs_stride,
+                        buf);
+              buf ^= 1;
+              m = e = 0;
+            }
+            pending = false;
+            ++r;
+          }
+        }
+      }
+      if (phase && pending) {
+        block_add(m, e, p.obs + static_cast<size_t>(r) * p.obs_stride, buf);
+        buf ^= 1;
       }
       grid.sync();
     }
   }
 }
 
+Chains make_chains(unsigned int s0, unsigned int s1,
+                   const unsigned int* chain) {
+  Chains c;
+  philox_round_keys(s0, s1, c.rk);
+  std::memcpy(&c.table, chain, sizeof(ChainTable));
+  return c;
+}
+
+// Row groups of a phase grid: a thread takes `rows` word rows, the most of
+// 1, 2, 4, 8 that still leaves MIN_BLOCKS blocks (a few waves of resident
+// blocks), so a measuring block adds its sums for several tiles at once.
+constexpr long long MIN_BLOCKS = 4096;
+
+dim3 phase_grid(int nrep, int nyp, int half) {
+  const int tiles_x = (half + TILE_X - 1) / TILE_X;
+  const int tiles_y = (nyp + TILE_Y - 1) / TILE_Y;
+  const int reps = nrep < MAX_GRID ? nrep : MAX_GRID;
+  int gy = tiles_y;
+  for (int rows = 8; rows > 1; rows >>= 1) {
+    const int g = (tiles_y + rows - 1) / rows;
+    if (static_cast<long long>(tiles_x) * g * reps >= MIN_BLOCKS) {
+      gy = g;
+      break;
+    }
+  }
+  return dim3(tiles_x, gy < MAX_GRID ? gy : MAX_GRID, reps);
+}
+
+bool shape_ok(int nrep, int nyp, int half) {
+  return nrep >= 1 && nyp >= 1 && half >= 1 &&
+         static_cast<long long>(nrep) * nyp * half < (1LL << 31);
+}
+
+PhaseArgs make_args(const void* x_in, void* x_out, const void* o,
+                    const void* b4, const void* b8, void* obs, int nrep,
+                    int nyp, int half, int color) {
+  PhaseArgs a{};
+  a.x_in = static_cast<const uint32_t*>(x_in);
+  a.x_out = static_cast<uint32_t*>(x_out);
+  a.o = static_cast<const uint32_t*>(o);
+  a.b4 = static_cast<const uint32_t*>(b4);
+  a.b8 = static_cast<const uint32_t*>(b8);
+  a.obs = static_cast<long long*>(obs);
+  a.obs_stride = 2;
+  a.nrep = nrep;
+  a.nyp = nyp;
+  a.half = half;
+  a.color = color;
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
 
-// One colour phase: grid (half/32, nyp/8, R) of 32x8 blocks.  b4/b8 are
-// injected planes or null (then Philox words under (s0, s1)); obs is an
-// (R, 2) int64 buffer zeroed by the caller, or null.
+// One colour phase (phase_kernel<false>).  b4/b8 are injected planes or
+// null (then Philox words under (s0, s1) and the chain table `chain`, the
+// 65 words of ChainTable); obs is an (R, 2) int64 buffer zeroed by the
+// caller, or null.  nyp % 8 == 0 and half % 32 == 0; fewer than 2^31
+// words a plane.
 int ising2d_phase(const void* x_in, void* x_out, const void* o,
                   const void* b4, const void* b8, void* obs, int nrep,
                   int nyp, int half, int color, unsigned int s0,
-                  unsigned int s1, unsigned int q4, unsigned int q8,
-                  void* stream) {
-  PhaseArgs a{};
-  a.x_in = static_cast<const int32_t*>(x_in);
-  a.x_out = static_cast<int32_t*>(x_out);
-  a.o = static_cast<const int32_t*>(o);
-  a.b4 = static_cast<const int32_t*>(b4);
-  a.b8 = static_cast<const int32_t*>(b8);
-  a.obs = static_cast<long long*>(obs);
-  a.obs_stride = 2;
-  a.nyp = nyp;
-  a.half = half;
-  a.color = color;
-  a.key = make_uint2(s0, s1);
-  a.q4 = q4;
-  a.q8 = q8;
-  const dim3 grid(half / TILE_X, nyp / TILE_Y, nrep);
-  phase_kernel<false><<<grid, dim3(TILE_X, TILE_Y), 0,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+                  unsigned int s1, const unsigned int* chain, void* stream) {
+  const Chains c = make_chains(s0, s1, chain);
+  if (!shape_ok(nrep, nyp, half) || nyp % TILE_Y != 0 ||
+      half % TILE_X != 0 || !chain_table_ok(c.table))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PhaseArgs a =
+      make_args(x_in, x_out, o, b4, b8, obs, nrep, nyp, half, color);
+  phase_kernel<false><<<phase_grid(nrep, nyp, half), dim3(TILE_X, TILE_Y),
+                        0, static_cast<cudaStream_t>(stream)>>>(a, c);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One colour phase of a shard: grid (ceil(half/32), ceil(nyp/8), R).
-// hup/hdn are (R, 1, half) 0/1 planes; hlf/hrt (R, nyp, 1) word columns
-// or null (no x split); (rep0, wrow0, col0) the shard's global replica,
-// word row and word column; b4/b8 injected planes or null; obs an (R, 2)
-// int64 buffer zeroed by the caller, or null.
+// One colour phase of a shard (phase_kernel<true>).  hup/hdn are (R, 1,
+// half) 0/1 planes; hlf/hrt (R, nyp, 1) word columns or null (no x
+// split); (rep0, wrow0, col0) the shard's global replica, word row and
+// word column; b4/b8 injected planes or null; chain as for ising2d_phase;
+// obs an (R, 2) int64 buffer zeroed by the caller, or null.  Any shape of
+// fewer than 2^31 words.
 int ising2d_shard_phase(const void* x_in, void* x_out, const void* o,
                         const void* hup, const void* hdn, const void* hlf,
                         const void* hrt, const void* b4, const void* b8,
                         void* obs, int nrep, int nyp, int half, int color,
                         unsigned int rep0, unsigned int wrow0,
                         unsigned int col0, unsigned int s0, unsigned int s1,
-                        unsigned int q4, unsigned int q8, void* stream) {
-  if (nrep < 1 || nrep > 65535 || nyp < 1 || half < 1)
+                        const unsigned int* chain, void* stream) {
+  const Chains c = make_chains(s0, s1, chain);
+  if (!shape_ok(nrep, nyp, half) || !chain_table_ok(c.table))
     return static_cast<int>(cudaErrorInvalidValue);
-  PhaseArgs a{};
-  a.x_in = static_cast<const int32_t*>(x_in);
-  a.x_out = static_cast<int32_t*>(x_out);
-  a.o = static_cast<const int32_t*>(o);
-  a.b4 = static_cast<const int32_t*>(b4);
-  a.b8 = static_cast<const int32_t*>(b8);
-  a.obs = static_cast<long long*>(obs);
-  a.obs_stride = 2;
-  a.nyp = nyp;
-  a.half = half;
-  a.color = color;
-  a.key = make_uint2(s0, s1);
-  a.q4 = q4;
-  a.q8 = q8;
+  PhaseArgs a =
+      make_args(x_in, x_out, o, b4, b8, obs, nrep, nyp, half, color);
   a.hup = static_cast<const uint32_t*>(hup);
   a.hdn = static_cast<const uint32_t*>(hdn);
   a.hlf = static_cast<const uint32_t*>(hlf);
@@ -358,52 +437,60 @@ int ising2d_shard_phase(const void* x_in, void* x_out, const void* o,
   a.rep0 = rep0;
   a.wrow0 = wrow0;
   a.col0 = col0;
-  const dim3 grid((half + TILE_X - 1) / TILE_X, (nyp + TILE_Y - 1) / TILE_Y,
-                  nrep);
-  phase_kernel<true><<<grid, dim3(TILE_X, TILE_Y), 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  phase_kernel<true><<<phase_grid(nrep, nyp, half), dim3(TILE_X, TILE_Y), 0,
+                       static_cast<cudaStream_t>(stream)>>>(a, c);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the cooperative multisweep grid: as many as can be resident
-// at once on the current device (0 if none fits).
-int ising2d_multisweep_grid(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
+// Blocks of the cooperative multisweep grid that can be resident at once
+// on the current device (0 if none fits), and its SMs.
+int ising2d_multisweep_grid(int* blocks, int* sms) {
+  int dev = 0, per_sm = 0;
+  *sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, multisweep_kernel, TILE_X * TILE_Y, 0);
-  *blocks = per_sm * sms;
+  *blocks = per_sm * *sms;
   return static_cast<int>(e);
 }
 
 // S sweeps: wa_in/wb_in -> wa/wb, per-sweep (m, e) into obs (R, S, 2),
-// zeroed by the caller.  One cooperative launch.
+// zeroed by the caller; chain the table of ising2d_phase.  One
+// cooperative launch of `blocks` blocks, each taking `per` tiles
+// (ops/ising2d_multispin.multisweep_grid); blocks must be resident at
+// once and blocks * per cover the R (nyp / 8) (half / 32) tiles.
 int ising2d_multisweep(const void* wa_in, const void* wb_in, void* wa,
                        void* wb, const void* seeds, void* obs, int nrep,
-                       int nyp, int half, int sweeps, unsigned int q4,
-                       unsigned int q8, void* stream) {
-  int resident = 0;
-  int err = ising2d_multisweep_grid(&resident);
+                       int nyp, int half, int sweeps, int blocks, int per,
+                       const unsigned int* chain, void* stream) {
+  int resident = 0, sms = 0;
+  int err = ising2d_multisweep_grid(&resident, &sms);
   if (err != 0) return err;
-  if (resident < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int tiles = nrep * (nyp / TILE_Y) * (half / TILE_X);
-  const int blocks = tiles < resident ? tiles : resident;
   MultisweepArgs a;
-  a.wa_in = static_cast<const int32_t*>(wa_in);
-  a.wb_in = static_cast<const int32_t*>(wb_in);
-  a.wa = static_cast<int32_t*>(wa);
-  a.wb = static_cast<int32_t*>(wb);
+  std::memcpy(&a.table, chain, sizeof(ChainTable));
+  const long long tiles =
+      static_cast<long long>(nrep) * (nyp / TILE_Y) * (half / TILE_X);
+  if (!shape_ok(nrep, nyp, half) || nyp % TILE_Y != 0 ||
+      half % TILE_X != 0 || sweeps < 1 || !chain_table_ok(a.table) ||
+      blocks < 1 || per < 1 || static_cast<long long>(blocks) * per < tiles ||
+      static_cast<long long>(blocks - 1) * per >= tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks > resident)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  a.wa_in = static_cast<const uint32_t*>(wa_in);
+  a.wb_in = static_cast<const uint32_t*>(wb_in);
+  a.wa = static_cast<uint32_t*>(wa);
+  a.wb = static_cast<uint32_t*>(wb);
   a.seeds = static_cast<const int32_t*>(seeds);
   a.obs = static_cast<long long*>(obs);
   a.nrep = nrep;
   a.nyp = nyp;
   a.half = half;
   a.sweeps = sweeps;
-  a.q4 = q4;
-  a.q8 = q8;
+  a.per = per;
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(multisweep_kernel), dim3(blocks),

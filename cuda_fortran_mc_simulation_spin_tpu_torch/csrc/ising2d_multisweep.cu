@@ -72,12 +72,12 @@ __global__ void __launch_bounds__(THREADS)
         int m = 0, e = 0;
         if (phase == 0) {
           if (live)
-            ising8::update_unit<2, true, false>(p, ising8::Shard{}, g, r, 0,
-                                                y, j, m, e);
+            ising8::update_unit<true, false>(p, ising8::Shard{}, g, r, y, j,
+                                             m, e);
         } else {
           if (live)
-            ising8::update_unit<2, true, true>(p, ising8::Shard{}, g, r, 0,
-                                               y, j, m, e);
+            ising8::update_unit<true, true>(p, ising8::Shard{}, g, r, y, j,
+                                            m, e);
           ising8::block_add(
               m, e,
               ms.obs + (static_cast<size_t>(r) * ms.sweeps + s) * 2);

@@ -1,28 +1,27 @@
-// The int8 checkerboard Ising update and its sums, shared by the int8
-// 2-D phase kernel (csrc/ising2d_pallas.cu; its halo mode runs a mesh's
-// shards), the int8 multisweep (csrc/ising2d_multisweep.cu) and the
-// measure kernel (csrc/ising2d_measure_pallas.cu), so that all of them
-// apply the same function to the same random words.  The 3-D phase
+// The int8 checkerboard Ising update, shared by the int8 2-D phase
+// kernel (csrc/ising2d_pallas.cu; its halo mode runs a mesh's shards) and
+// the int8 multisweep (csrc/ising2d_multisweep.cu), so that both apply
+// the same function to the same random words.  The 3-D phase
 // (csrc/ising3d_pallas.cu) applies the same rule to the same words four
-// sites a 32-bit word and takes only block_add and the launch checks
-// from here; update_unit's D == 3 branches are no longer instantiated.
+// sites a 32-bit word, and the measure kernel (csrc/
+// ising2d_measure_pallas.cu) sums four sites a word on the same tiles;
+// both take only block_add and the launch checks from here.
 //
 // Layout (core/lattice.py): ±1 int8 colour planes (R, nz, ny, half),
 // nz = 1 in 2-D; colour 0 holds the sites x = 2i + ((y + z) & 1) of row
 // (z, y).  The other colour's site i is the same-column neighbour; the
 // side neighbour is column i + 1 when (y + z) & 1 differs from the colour
 // and i - 1 when it equals it (periodic in i), the up/down ones rows
-// y -+ 1 and, in 3-D, planes z -+ 1 (periodic).
+// y -+ 1 (periodic).
 //
 // Unit: four adjacent sites 4j .. 4j + 3 of one row; the tail unit of a
 // row whose half is not a multiple of 4 is masked.  Random words
 // (ops/ising2d_pallas.py): the unit's one Philox4x32-10 call at counter
-// (replica, z * ny + y, j, 0) under the phase key; site 4j + k takes
-// output k.
+// (replica, y, j, 0) under the phase key; site 4j + k takes output k.
 //
-// Acceptance (JAX ops/ising2d_pallas._phase_kernel, ising3d_pallas): with
-// k = s * nsum (dE / 2), flip iff k <= 0 or word < t_k, t_2 = t4,
-// t_4 = t8, t_6 = t12 = round(exp(-2 beta k) * 2^32) (uint32 compare).
+// Acceptance (JAX ops/ising2d_pallas._phase_kernel): with k = s * nsum
+// (dE / 2), flip iff k <= 0 or word < t_k, t_2 = t4, t_4 = t8 (= t12)
+// = round(exp(-2 beta k) * 2^32) (uint32 compare).
 #pragma once
 #include <cuda_runtime.h>
 
@@ -51,31 +50,19 @@ __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
-// Offsets of the rows a unit of row (z, y) of replica r reads.
+// Offsets of the rows a unit of row y of replica r reads (2-D).
 struct Rows {
-  size_t row, up, down, zm, zp;
+  size_t row, up, down;
   int parity;
 };
 
-template <int D>
-__device__ __forceinline__ Rows rows_of(const Geometry& g, int r, int z,
-                                        int y) {
-  const size_t plane = static_cast<size_t>(g.ny) * g.half;
-  const size_t rep = static_cast<size_t>(r) * g.nz * plane;
-  const size_t zo = rep + static_cast<size_t>(z) * plane;
+__device__ __forceinline__ Rows rows_of(const Geometry& g, int r, int y) {
+  const size_t zo = static_cast<size_t>(r) * g.ny * g.half;
   Rows w;
   w.row = zo + static_cast<size_t>(y) * g.half;
   w.up = zo + static_cast<size_t>(wrap(y - 1, g.ny)) * g.half;
   w.down = zo + static_cast<size_t>(wrap(y + 1, g.ny)) * g.half;
-  if (D == 3) {
-    w.zm = rep + static_cast<size_t>(wrap(z - 1, g.nz)) * plane +
-           static_cast<size_t>(y) * g.half;
-    w.zp = rep + static_cast<size_t>(wrap(z + 1, g.nz)) * plane +
-           static_cast<size_t>(y) * g.half;
-  } else {
-    w.zm = w.zp = 0;
-  }
-  w.parity = (y + z) & 1;
+  w.parity = y & 1;
   return w;
 }
 
@@ -84,20 +71,19 @@ struct Phase {
   const int8_t* o;       // the other colour
   const uint32_t* bits;  // injected words (R, nz, ny, half), or null
   uint2 key;             // Philox key of this (sample, t, phase)
-  uint32_t t4, t8, t12;  // t12 unused in 2-D
+  uint32_t t4, t8, t12;  // t12 = t8: the 2-D kernels' k is 2 or 4
   int color;
 };
 
-// A shard of a domain-decomposed lattice (parallel/domain.py): the halos
-// exchanged from its neighbours (parallel/halo.py) and its global offsets.
-// In 2-D the shard holds rows row0 .. row0 + ny - 1 and columns col0 ..
-// col0 + half - 1 of the colour planes; in 3-D planes row0 .. row0 + nz - 1
-// (z0) of whole (ny, half) planes, never split in x.  A periodic lattice
-// is the shard with no halos and no offsets.
+// A shard of a domain-decomposed 2-D lattice (parallel/domain.py): the
+// halos exchanged from its neighbours (parallel/halo.py) and its global
+// offsets.  The shard holds rows row0 .. row0 + ny - 1 and columns col0 ..
+// col0 + half - 1 of the colour planes.  A periodic lattice is the shard
+// with no halos and no offsets.
 struct Shard {
-  const int8_t* up;  // 2-D (R, 1, half): the row above row 0; 3-D (R, 1, ny,
-  const int8_t* dn;  // half): the plane before z 0; dn: after the last
-  const int8_t* lf;  // 2-D (R, ny, 1): the column left of column 0, or null
+  const int8_t* up;  // (R, 1, half): the row above row 0
+  const int8_t* dn;  // (R, 1, half): the row below the last
+  const int8_t* lf;  // (R, ny, 1): the column left of column 0, or null
   const int8_t* rt;  // (periodic in x: the shard spans every column)
   long long* obs;    // (R, 2) int64 (m, e) partials of a measuring phase
   int rep0, row0, col0;
@@ -110,49 +96,41 @@ __host__ __device__ inline int shard_units(int col0, int half) {
   return ((col0 + half - 1) >> 2) - (col0 >> 2) + 1;
 }
 
-// Updates the sites of global unit jl + (col0 >> 2) of local row (z, y) of
-// replica r.  HALO: the neighbours past the shard's leading edges (rows in
-// 2-D, planes in 3-D) and, when lf is set, past its columns come from the
-// halos of s, and parity and the Philox counter (rep0 + r, global row,
-// global unit) from global coordinates (JAX ising2d_pallas.
-// _halo_phase_kernel, ising3d_pallas._halo_phase_kernel); otherwise every
-// neighbour wraps and s is not read.  With MEASURE it adds the fused sums
-// of a measuring phase b (JAX ising2d_multisweep.py:84-90): m += new + o,
-// e -= new * nsum (the other colour is final, so every bond is counted
-// once).
-template <int D, bool COHERENT, bool MEASURE, bool HALO = false>
+// Updates the sites of global unit jl + (col0 >> 2) of local row y of
+// replica r.  HALO: the neighbours past the shard's first and last rows
+// and, when lf is set, past its columns come from the halos of s, and
+// parity and the Philox counter (rep0 + r, global row, global unit) from
+// global coordinates (JAX ising2d_pallas._halo_phase_kernel); otherwise
+// every neighbour wraps and s is not read.  With MEASURE it adds the
+// fused sums of a measuring phase b (JAX ising2d_multisweep.py:84-90):
+// m += new + o, e -= new * nsum (the other colour is final, so every bond
+// is counted once).
+template <bool COHERENT, bool MEASURE, bool HALO = false>
 __device__ __forceinline__ void update_unit(const Phase& p, const Shard& s,
-                                            const Geometry& g, int r, int z,
-                                            int y, int jl, int& m, int& e) {
+                                            const Geometry& g, int r, int y,
+                                            int jl, int& m, int& e) {
   const int row0 = HALO ? s.row0 : 0;
   const int col0 = HALO ? s.col0 : 0;
-  const Rows w = rows_of<D>(g, r, z, y);
-  // the rows (2-D) or planes (3-D) before and after: wrapped, or a halo
+  const Rows w = rows_of(g, r, y);
+  // the rows before and after: wrapped, or a halo
   const int8_t* prev = p.o;
   const int8_t* next = p.o;
-  size_t prev_at = D == 3 ? w.zm : w.up;
-  size_t next_at = D == 3 ? w.zp : w.down;
+  size_t prev_at = w.up;
+  size_t next_at = w.down;
   if (HALO) {
-    const int lead = D == 3 ? z : y;
-    const int nlead = D == 3 ? g.nz : g.ny;
-    const size_t halo =
-        D == 3 ? (static_cast<size_t>(r) * g.ny + y) * g.half
-               : static_cast<size_t>(r) * g.half;
-    if (lead == 0) {
+    const size_t halo = static_cast<size_t>(r) * g.half;
+    if (y == 0) {
       prev = s.up;
       prev_at = halo;
     }
-    if (lead == nlead - 1) {
+    if (y == g.ny - 1) {
       next = s.dn;
       next_at = halo;
     }
   }
   const int d = (((row0 + w.parity) & 1) ^ p.color) ? 1 : -1;
   const int jg = (col0 >> 2) + jl;
-  const uint32_t grow =
-      D == 3 ? static_cast<uint32_t>(row0 + z) * static_cast<uint32_t>(g.ny) +
-                   static_cast<uint32_t>(y)
-             : static_cast<uint32_t>(row0 + y);
+  const uint32_t grow = static_cast<uint32_t>(row0 + y);
   uint4 words = make_uint4(0u, 0u, 0u, 0u);
   if (p.bits == nullptr)
     words = philox4x32_10(
@@ -178,8 +156,6 @@ __device__ __forceinline__ void update_unit(const Phase& p, const Shard& s,
     else
       side = load<COHERENT>(p.o, w.row + wrap(sc, g.half));
     int nsum = load<COHERENT>(p.o, w.row + c) + side;
-    if (D == 3)
-      nsum += load<COHERENT>(p.o, w.up + c) + load<COHERENT>(p.o, w.down + c);
     nsum += load<COHERENT>(prev, prev_at + c) +
             load<COHERENT>(next, next_at + c);
     const int sv = COHERENT ? static_cast<int>(__ldcg(p.x + w.row + c))
@@ -193,33 +169,6 @@ __device__ __forceinline__ void update_unit(const Phase& p, const Shard& s,
       m += out + load<COHERENT>(p.o, w.row + c);
       e -= out * nsum;
     }
-  }
-}
-
-// (m, e) of unit j of row (z, y): both colours' sites, their right,
-// down and (3-D) back neighbours (core/lattice.py right_down_neighbors),
-// each bond once.
-template <int D>
-__device__ __forceinline__ void measure_unit(const int8_t* a,
-                                             const int8_t* b,
-                                             const Geometry& g, int r,
-                                             int z, int y, int j, int& m,
-                                             int& e) {
-  const Rows w = rows_of<D>(g, r, z, y);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int c = 4 * j + k;
-    if (c >= g.half) break;
-    const int cp = wrap(c + 1, g.half);
-    const int sa = __ldg(a + w.row + c), sb = __ldg(b + w.row + c);
-    int na = __ldg(b + w.row + (w.parity ? cp : c)) + __ldg(b + w.down + c);
-    int nb = __ldg(a + w.row + (w.parity ? c : cp)) + __ldg(a + w.down + c);
-    if (D == 3) {
-      na += __ldg(b + w.zp + c);
-      nb += __ldg(a + w.zp + c);
-    }
-    m += sa + sb;
-    e -= sa * na + sb * nb;
   }
 }
 

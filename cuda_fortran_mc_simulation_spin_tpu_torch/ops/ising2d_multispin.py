@@ -17,7 +17,12 @@ The CUDA kernels are in ``csrc/ising2d_multispin.cu``: ``phase_kernel``
 (one phase, optional fused exact (m, e), optional injected B planes) and
 ``multisweep_kernel`` (S sweeps in one cooperative launch).  Beside each
 is its plain PyTorch version in this module, with the same Philox words
-(ops/multispin_rng.py) and the same algebra.  A wrapper takes the plain
+(ops/multispin_rng.py) and the same algebra; the kernels draw the B4 and
+B8 chains in one unrolled line that follows the launch's table
+(``multispin_rng.chain_table((q4, q8, 0))``, passed with the phase key),
+the plain versions chain by chain (:func:`_bern_plane`), and
+``tests/test_torch_ising2d_chains.py`` holds the two equal on the CPU.
+The multisweep's grid is :func:`multisweep_grid`.  A wrapper takes the plain
 version for a CPU tensor; for a CUDA tensor it launches the kernel or
 raises.  ``LAUNCHES`` counts kernel launches per kernel.
 
@@ -38,6 +43,7 @@ granule keying and ``w_total`` are TPU artefacts).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -344,22 +350,37 @@ _INT = ctypes.c_int
 _UINT = ctypes.c_uint
 
 
+_TABLE = ctypes.POINTER(_UINT)
+
+
+@functools.lru_cache(maxsize=64)
+def _table(q4: int, q8: int) -> ctypes.Array:
+    """The kernels' ChainTable of the chains B4, B8 (digits q4, q8) and an
+    empty third chain: the 65 words of ``multispin_rng.chain_table``,
+    checked as the C entry points check them (cached, as a launch's
+    constant)."""
+    return (_UINT * (4 * multispin_rng.CHAIN_CALLS + 5))(
+        *multispin_rng.check_chain_table(
+            multispin_rng.chain_table((q4, q8, 0))))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ising2d_multispin")
     if lib.ising2d_phase.argtypes is not None:
         return lib
     lib.ising2d_phase.argtypes = [
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT,
-        _UINT, _UINT, _UINT, _UINT, _VOID]
+        _UINT, _UINT, _TABLE, _VOID]
     lib.ising2d_phase.restype = _INT
     lib.ising2d_multisweep.argtypes = [
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT,
-        _UINT, _UINT, _VOID]
+        _INT, _INT, _TABLE, _VOID]
     lib.ising2d_multisweep.restype = _INT
     lib.ising2d_shard_phase.argtypes = (
-        [_VOID] * 10 + [_INT] * 4 + [_UINT] * 7 + [_VOID])
+        [_VOID] * 10 + [_INT] * 4 + [_UINT] * 5 + [_TABLE, _VOID])
     lib.ising2d_shard_phase.restype = _INT
-    lib.ising2d_multisweep_grid.argtypes = [ctypes.POINTER(_INT)]
+    lib.ising2d_multisweep_grid.argtypes = [ctypes.POINTER(_INT),
+                                            ctypes.POINTER(_INT)]
     lib.ising2d_multisweep_grid.restype = _INT
     lib.ising2d_error_string.argtypes = [_INT]
     lib.ising2d_error_string.restype = ctypes.c_char_p
@@ -374,7 +395,8 @@ def _raise_on(lib, code: int, what: str) -> None:
 
 def _check_planes(*planes: torch.Tensor) -> None:
     """The kernels take int32 contiguous (R, nyp, half) planes on one
-    CUDA device with nyp % 8 == 0 and half % 32 == 0."""
+    CUDA device with nyp % 8 == 0 and half % 32 == 0, of fewer than 2^31
+    words (the kernels' 32-bit indices)."""
     ref = planes[0]
     if ref.dim() != 3:
         raise ValueError(f"planes must be (R, nyp, half), got {ref.shape}")
@@ -382,6 +404,7 @@ def _check_planes(*planes: torch.Tensor) -> None:
     if nyp % _TILE_Y or half % _TILE_X:
         raise ValueError(f"kernel needs nyp % {_TILE_Y} == 0 and half % "
                          f"{_TILE_X} == 0, got {tuple(ref.shape)}")
+    _check_indices(ref)
     for p in planes:
         if p.shape != ref.shape or p.dtype != torch.int32:
             raise ValueError(f"planes must be int32 {tuple(ref.shape)}, "
@@ -390,6 +413,12 @@ def _check_planes(*planes: torch.Tensor) -> None:
             raise ValueError("planes must lie on one CUDA device")
         if not p.is_contiguous():
             raise ValueError("planes must be contiguous")
+
+
+def _check_indices(ref: torch.Tensor) -> None:
+    if ref.numel() >= 2 ** 31:
+        raise ValueError(f"planes {tuple(ref.shape)} are too large for the "
+                         "kernels' 32-bit indices")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -430,7 +459,7 @@ def _launch_phase(xw, ow, seeds, color, q4, q8, b4=None, b8=None,
             None if b4 is None else b4.data_ptr(),
             None if b8 is None else b8.data_ptr(),
             None if obs is None else obs.data_ptr(),
-            nrep, nyp, half, color, s0, s1, q4, q8, _stream(xw))
+            nrep, nyp, half, color, s0, s1, _table(q4, q8), _stream(xw))
     _raise_on(lib, code, "ising2d phase_kernel")
     LAUNCHES["phase"] += 1
     if measuring:
@@ -472,6 +501,8 @@ def multisweep_planes(wa, wb, seeds, *, beta: float):
     nrep, nyp, half = wa.shape
     sweeps = int(seeds.shape[0])
     q4, q8 = chain_words(beta)
+    blocks, per = multisweep_grid(
+        nrep * (nyp // _TILE_Y) * (half // _TILE_X), *_resident_grid())
     seeds_dev = _i32(seeds).contiguous().to(wa.device)
     wa_out, wb_out = torch.empty_like(wa), torch.empty_like(wb)
     # zeroed: the kernel adds each block's sums with an atomic
@@ -480,7 +511,7 @@ def multisweep_planes(wa, wb, seeds, *, beta: float):
         code = lib.ising2d_multisweep(
             wa.data_ptr(), wb.data_ptr(), wa_out.data_ptr(),
             wb_out.data_ptr(), seeds_dev.data_ptr(), obs.data_ptr(), nrep,
-            nyp, half, sweeps, q4, q8, _stream(wa))
+            nyp, half, sweeps, blocks, per, _table(q4, q8), _stream(wa))
     _raise_on(lib, code, "ising2d multisweep_kernel")
     LAUNCHES["multisweep"] += 1
     return wa_out, wb_out, obs
@@ -496,9 +527,7 @@ def _check_shard_planes(xw, ow, halos, bits) -> None:
             raise ValueError("planes and halos must lie on one CUDA device")
         if not p.is_contiguous() or p.dtype != torch.int32:
             raise ValueError("planes and halos must be contiguous int32")
-    if xw.numel() >= 2 ** 31:
-        raise ValueError(f"shard {tuple(xw.shape)} is too large for the "
-                         "kernel's indices")
+    _check_indices(xw)
 
 
 def sharded_phase_packed(xw, ow, hup01, hdn01, seeds, offs, *, color: int,
@@ -545,8 +574,8 @@ def sharded_phase_packed(xw, ow, hup01, hdn01, seeds, offs, *, color: int,
         code = lib.ising2d_shard_phase(
             xw.data_ptr(), out.data_ptr(), ow.data_ptr(), hup01.data_ptr(),
             hdn01.data_ptr(), ptr(halo_lf), ptr(halo_rt), ptr(b4), ptr(b8),
-            ptr(obs), nrep, nyp, half, color, rep0, wrow0, col0, s0, s1, q4,
-            q8, _stream(xw))
+            ptr(obs), nrep, nyp, half, color, rep0, wrow0, col0, s0, s1,
+            _table(q4, q8), _stream(xw))
     _raise_on(lib, code, "ising2d phase_kernel<true>")
     LAUNCHES["shard_phase"] += 1
     if measuring:
@@ -554,13 +583,41 @@ def sharded_phase_packed(xw, ow, hup01, hdn01, seeds, offs, *, color: int,
     return out
 
 
+def _resident_grid() -> tuple[int, int]:
+    """(resident blocks of the cooperative multisweep grid, SMs) on the
+    current device."""
+    lib = _lib()
+    blocks, sms = _INT(0), _INT(0)
+    _raise_on(lib, lib.ising2d_multisweep_grid(ctypes.byref(blocks),
+                                               ctypes.byref(sms)),
+              "ising2d_multisweep_grid")
+    return blocks.value, sms.value
+
+
 def multisweep_grid_blocks() -> int:
     """Blocks of the cooperative multisweep grid on the current device."""
-    lib = _lib()
-    blocks = _INT(0)
-    _raise_on(lib, lib.ising2d_multisweep_grid(ctypes.byref(blocks)),
-              "ising2d_multisweep_grid")
-    return blocks.value
+    return _resident_grid()[0]
+
+
+def multisweep_grid(tiles: int, resident: int, sms: int) -> tuple[int, int]:
+    """(blocks, per): the multisweep's grid for ``tiles`` tiles of 8 x 32
+    words a phase, block b taking tiles [b·per, (b + 1)·per), at most
+    ``resident`` blocks on ``sms`` SMs.  The resident blocks spread
+    evenly over the SMs, so a phase lasts as long as the busiest SM's
+    ceil(blocks / sms)·per tiles: the least such per, from the fewest
+    tiles a resident grid allows to twice that (2048^2 x 16: 4096 tiles,
+    660 blocks resident on 132 SMs, gives 512 blocks of 8 tiles, 32 on
+    the busiest SM, where 586 blocks of 7 give 35)."""
+    if tiles < 1 or resident < 1 or sms < 1:
+        raise ValueError(f"no multisweep grid for {tiles} tiles on "
+                         f"{resident} resident blocks, {sms} SMs")
+    p0 = -(-tiles // resident)
+
+    def busiest(per):
+        return -(-(-(-tiles // per)) // sms) * per
+
+    per = min(range(p0, 2 * p0 + 1), key=lambda p: (busiest(p), p))
+    return -(-tiles // per), per
 
 
 # ---------------------------------------------------------------------------

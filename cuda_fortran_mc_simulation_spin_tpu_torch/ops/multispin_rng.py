@@ -19,10 +19,11 @@ is its plain PyTorch version on whole planes.  Because the counter names the wor
 global position, the bits depend on neither the tiling, the host chunking
 nor the kernel, and every run is deterministic.
 
-The 3-D Ising kernels (``csrc/ising3d_multispin.cu``,
-``csrc/helical3d_multispin.cu``) draw their three Bernoulli chains from
-these words in one unrolled line (``csrc/bernoulli.cuh`` ``chain_planes``)
-that follows a per-launch table, :func:`chain_table`; the periodic packed
+The periodic 2-D and the 3-D Ising kernels (``csrc/ising2d_multispin.cu``,
+``csrc/ising3d_multispin.cu``, ``csrc/helical3d_multispin.cu``) draw their
+Bernoulli chains (two in 2-D, the third empty) from these words in one
+unrolled line (``csrc/bernoulli.cuh`` ``chain_planes``) that follows a
+per-launch table, :func:`chain_table`; the periodic packed
 clock kernel (``csrc/clock_planes.cu``) draws its proposal words and
 chains the same way (``csrc/clock_algebra.cuh`` ``draw_unrolled``) from
 :func:`clock_draw_table`.

@@ -269,6 +269,67 @@ def _volumes(dev, shape, seed, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kbt", [KBT, 0.5, 1e9, 0.2])
+def test_phase_kernel_wraps_at_chain_edges(cuda, kbt):
+    """The 2-D phase_kernel where every neighbour wraps (nyp = 8 word rows,
+    half = 32 words: one tile) at chain digits of every kind (kbt 1e9:
+    both chains draw twenty words; 0.5: B8 none; 0.2: neither): injected
+    planes, Philox words plain and measuring, both colours, bitwise
+    against the plain versions; and the halo mode on a ragged shard at
+    global offsets, with and without word-column halos."""
+    x, o, b4, b8 = _planes(cuda, nrep=3, ny=256, nx=64, seed=21)
+    for color in (0, 1):
+        assert torch.equal(
+            msb.phase_packed_with_bits(x, o, b4, b8, color=color),
+            msb.packed_phase_reference(x, o, color, b4, b8))
+        seeds = rng.seeds_from_key(rng.base_key(15), color)
+        kw = dict(color=color, beta=1 / kbt)
+        assert torch.equal(msb.phase_packed(x, o, seeds, **kw),
+                           msb.phase_packed_plain(x, o, seeds, **kw))
+        got, obs = msb.phase_packed(x, o, seeds, measuring=True, **kw)
+        want, wobs = msb.phase_packed_plain(x, o, seeds, measuring=True,
+                                            **kw)
+        assert torch.equal(got, want) and torch.equal(obs, wobs)
+        sx, so = x[:, :5, :19].contiguous(), o[:, :5, :19].contiguous()
+        up, dn = ((t[:, :1] & 1).contiguous() for t in (b4[:, :1, :19],
+                                                       b8[:, :1, :19]))
+        lf, rt = (t[:, :5, :1].contiguous() for t in (b4, b8))
+        for cols in ({}, dict(halo_lf=lf, halo_rt=rt)):
+            offs = (2, 9, 3) if cols else (2, 9)
+            got = msb.sharded_phase_packed(sx, so, up, dn, seeds, offs,
+                                           measuring=True, **kw, **cols)
+            want = msb.sharded_phase_packed_plain(sx, so, up, dn, seeds,
+                                                  offs, measuring=True,
+                                                  **kw, **cols)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kbt", [KBT, 0.5, 1e9])
+@pytest.mark.parametrize("nrep", [1, 5])
+def test_multisweep_kernel_wraps_at_chain_edges(cuda, kbt, nrep):
+    """multisweep_kernel where every neighbour wraps, 4 sweeps, against
+    streamed phase pairs and its plain version (state and the exact (m, e)
+    of every sweep); five replicas of 2 x 2 tiles spread a block's tiles
+    over replicas."""
+    wa, wb = _planes(cuda, nrep=nrep, ny=512, nx=128, seed=23)[:2]
+    seeds = msb.sweep_seed_pairs(rng.sample_key(rng.base_key(4), 1), 4)
+    beta = 1 / kbt
+    ka, kb, kobs = msb.multisweep_planes(wa, wb, seeds, beta=beta)
+    pa, pb, obs = wa, wb, []
+    for s in range(4):
+        pa = msb.phase_packed(pa, pb, seeds[s, 0], color=0, beta=beta)
+        pb, o = msb.phase_packed(pb, pa, seeds[s, 1], color=1, beta=beta,
+                                 measuring=True)
+        obs.append(o)
+    assert torch.equal(ka, pa) and torch.equal(kb, pb)
+    assert torch.equal(kobs, torch.stack(obs, dim=1))
+    qa, qb, qobs = msb.multisweep_planes_plain(wa, wb, seeds, beta=beta)
+    assert torch.equal(ka, qa) and torch.equal(kb, qb)
+    assert torch.equal(kobs, qobs)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kbt", H3_CHAIN_KBTS)
 def test_ising3d_phase_kernel_wraps_at_chain_edges(cuda, kbt):
     """The periodic 3-D phase_kernel where every neighbour wraps (nz = 2
@@ -1049,6 +1110,22 @@ def test_int8_phase_kernels_match_plain(cuda, shape):
                                        **kw)
             assert torch.equal(got, want)
     assert torch.equal(i8m.measure_sums(a, b), i8m.measure_sums_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 4102), (1, 2, 2, 4100),
+                                   (2, 4, 6, 250), (3, 2, 5)])
+@pytest.mark.parametrize("off", [0, 3])
+def test_int8_measure_tiles_off_grid(cuda, shape, off):
+    """The int8 measure kernel on views off the 16-B grid, whole-row tiles
+    and chunks (half 4102, 4100), 2-D and 3-D: exactly the plain sums."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_measure_pallas as i8m,
+    )
+    a, b = _int8(cuda, shape, 3 * sum(shape))
+    assert torch.equal(i8m.measure_sums(_off_grid(a, off),
+                                        _off_grid(b, (off + 5) % 16)),
+                       i8m.measure_sums_plain(a, b))
 
 
 def _off_grid(t, off):

@@ -774,6 +774,25 @@ def check_helical(hms, rng, dev) -> int:
         f"launches {e_single}, vs plain {e_plain}, (m, e) vs exact sums "
         f"{e_exact}")
     err = max(err, e_single, e_plain, e_exact)
+    # the unrolled chains' edges: kbt 1e9 (both chains draw twenty
+    # words), 0.5 (B8 draws none) and 0.2 (neither draws)
+    nx, ny, nrep, sweeps = 131, 62, 3, 8
+    for kbt in (1e9, 0.5, 0.2):
+        model = Ising2DHelical(nx, ny, kbt)
+        m = model.nsites // 2
+        wa, wb = random_words((nrep, hms.words(m)), 7, dev, n=2)
+        seeds = hms.sweep_seed_pairs(rng.sample_key(rng.base_key(9), 3),
+                                     sweeps)
+        kw = dict(beta=1.0 / kbt, nx=nx, m=m)
+        ka, kb, kobs = hms.multisweep_planes(wa, wb, seeds, **kw)
+        pa, pb, pobs = hms.multisweep_plain(wa, wb, seeds, **kw)
+        e_plain = max_abs_err([(valid(ka, m), valid(pa, m)),
+                               (valid(kb, m), valid(pb, m)), (kobs, pobs)])
+        e_exact = max_abs_err([(kobs[:, -1],
+                                helical_exact(model, hms, ka, kb))])
+        log(f"  helical multisweep {nrep}x{nx}x{ny} kbt {kbt:g} S={sweeps}: "
+            f"vs plain {e_plain}, (m, e) vs exact sums {e_exact}")
+        err = max(err, e_plain, e_exact)
     # above the shared memory: the device-memory variant
     nx, ny, nrep, sweeps = 2001, 2000, 2, 4
     model = Ising2DHelical(nx, ny, KBT)
@@ -4083,6 +4102,9 @@ def hp_shares(classes: dict, th: dict) -> dict[str, float]:
 XYA_SHAPES = ((2, 256, 200, KBT_XY), (1, 10000, 10000, KBT_XY_2000),
               (32, 2000, 2000, KBT_XY_2000), (8, 4000, 4000, KBT_XY),
               (20, 1000, 1000, KBT_XY))
+# (R, ny, nx) of angle_or_kernel's ragged checks: half 65 and 31 (not a
+# multiple of the tile's 32 columns), rows past a tile, ny = 2, half 1
+XYA_OR_RAGGED = ((3, 70, 130), (2, 34, 62), (2, 2, 2))
 # ((R, ny, nx), S, n_or, or_only, grid) of the int16 multisweep's checks: a
 # small shape in every mode, also forced to the grid-barrier mode; the
 # from-disorder class's launches (1000 MCS: 15 launches of 64 and one of
@@ -4169,9 +4191,16 @@ def check_xy_angle(xya, rng, dev) -> tuple[float, float]:
                                 snap_mode, measuring)
                 err, rel = max(err, e), max(rel, r)
         del planes, u
-    log(f"  xy angle kernels at {[s[:3] for s in XYA_SHAPES]}: state vs "
-        f"plain {err}, sums {rel:.3g} of their scale "
-        f"({time.perf_counter() - t0:.1f} s)")
+    for nrep, ny, nx in XYA_OR_RAGGED:
+        planes = angle_planes(dev, nrep, ny, nx, nx + ny + nrep)
+        for color in (0, 1):
+            for measuring in (False, True):
+                e, r = xya_pair(xya, planes, color, "or", None, 0.0, False,
+                                measuring)
+                err, rel = max(err, e), max(rel, r)
+    log(f"  xy angle kernels at {[s[:3] for s in XYA_SHAPES]}, the OR "
+        f"also at {XYA_OR_RAGGED}: state vs plain {err}, sums {rel:.3g} "
+        f"of their scale ({time.perf_counter() - t0:.1f} s)")
     if err != 0.0 or rel > 1e-12:
         fail(f"an XY angle kernel differs from its plain version: state "
              f"{err}, sums {rel:.3g}")
@@ -4437,9 +4466,9 @@ def time_xya_kernels(xya, xyi, rng, dev) -> dict:
     plain version (Philox): angle_metro_kernel plain and measuring at
     10000^2 x 1 and 2000^2 x 32, plain at 4000^2 x 8 and 1000^2 x 20, the
     snapshot mode at 1000^2 x 20; angle_or_kernel plain and measuring at
-    4000^2 x 8; the int16 multisweep at 1536^2 x 1 with S = 64 and 40
-    (its shared-memory mode) and at 1536^2 x 2 with S = 64 and 8 (its
-    grid-barrier mode, past the fit).
+    4000^2 x 8 and 10000^2 x 1; the int16 multisweep at 1536^2 x 1 with
+    S = 64 and 40 (its shared-memory mode) and at 1536^2 x 2 with S = 64
+    and 8 (its grid-barrier mode, past the fit).
     Returns {label: (times, err)}."""
     out = {}
     keys = multispin_keys(rng, 64, 61)
@@ -4462,7 +4491,7 @@ def time_xya_kernels(xya, xyi, rng, dev) -> dict:
                 lambda s, o: xya.metro_phase_plain(s, o, keys[0, 1], **kw),
                 (b, a), XYA_BYTES_PER_SITE * sites + nrep * 24,
                 sites * (OPS_XYA_METROPOLIS + OPS_XY_MEASURE))
-        if ny == 4000:
+        if ny in (4000, 10000):
             for label, measuring, color in (("or", False, 0),
                                             ("or measuring", True, 1)):
                 kw = dict(color=color, measuring=measuring)
@@ -6369,7 +6398,8 @@ def main() -> int:
         ("ising2d_multispin.multisweep_kernel", "ising2d_multispin.cu",
          "ising2d_multispin.py:495", launched("ising2d", "multisweep"),
          max(errs["multisweep"], e2), t2),
-        ("helical_multispin.multisweep_kernel", "helical_multispin.cu",
+        ("helical_multispin.multisweep_kernel (unrolled chains from a "
+         "launch table)", "helical_multispin.cu",
          "helical_multispin.py:305", launched("helical", "multisweep"),
          max(err_helical, e3), t3),
         ("ising3d_multispin.phase_kernel", "ising3d_multispin.cu",
@@ -6482,9 +6512,11 @@ def main() -> int:
          launched("xy_angle", "metro_snapshot"),
          max(err_xya, rel_xya, ea["snapshot 1000^2 x 20"]),
          ta["snapshot 1000^2 x 20"][0]),
-        ("xy2d_pallas_angle.angle_or_kernel", "xy2d_pallas_angle.cu",
+        ("xy2d_pallas_angle.angle_or_kernel<MEASURE> (decode-once tiles, "
+         "angle_tiles<3, true, .>)", "xy2d_pallas_angle.cu",
          "xy2d_pallas_angle.py:300", launched("xy_angle", "or"),
-         max(err_xya, ea["or 4000^2 x 8"], ea["or measuring 4000^2 x 8"]),
+         max(err_xya, ea["or 4000^2 x 8"], ea["or measuring 4000^2 x 8"],
+             ea["or 10000^2 x 1"], ea["or measuring 10000^2 x 1"]),
          ta["or 4000^2 x 8"][0]),
         ("xy2d_multisweep.smem_multisweep_kernel", "xy2d_multisweep.cu",
          "xy2d_multisweep.py:325", launched("xy_int16", "multisweep_smem"),

@@ -33,7 +33,12 @@ sub-phases 0 and 1), and at the odd streamed class's, 501x501x500 x 2
 (colour b, plain and measuring), on random vectors, and the helical
 3-D resident multisweep (multisweep_kernel) at its class's launch,
 151x151x150 x 128 with S = 64, and at the samples protocol's 151x151x150
-x 1 with S = 8, with the SASS of both kernels; with ``--masked``,
+x 1 with S = 8, with the SASS of both kernels; with ``--helical``, the
+helical 2-D multisweep (csrc/helical_multispin.cu multisweep_kernel) at
+its class's launch, 1001x1000 x 128, with S = 64 and 40, each also as the
+launch alone (the C entry point on keys already on the card, without
+the wrapper's key copy), and its injected-bits mode at 1001x1000 x 128,
+with the SASS of multisweep_kernel; with ``--masked``,
 the masked helical Ising multisweep (csrc/helical_pallas.cu
 ising_multisweep_kernel) at its four main-path launches, 1001x1000 x 128,
 4001x4000 x 4, 1001x1001 x 16 and the samples class's 1001x1000 x 1, S =
@@ -60,7 +65,8 @@ mangled name without the anonymous namespace's per-file hash), to hold
 the includers of a shared header unchanged across two checkouts.
 
     python3 chip_time_ising.py [--reps 50] [--rounds 3]
-                               [--clock | --helical3d | --masked |
+                               [--clock | --helical | --helical3d |
+                                --masked |
                                 --samples | --ms-grids |
                                 --measure-variants | --registers]
 
@@ -211,6 +217,56 @@ def helical3d_modes(words):
             h3.multisweep_planes(ra, rb, seeds, **res)),
         "helical3d multisweep 151x151x150 x 1 S=8": lambda: (
             h3.multisweep_planes(sa, sb, seeds[:8], **res)),
+    }
+
+
+def helical_modes(words, dev):
+    """The helical 2-D multisweep at its class's launch, 1001x1000 x 128,
+    S = 64 and 40, through the wrapper and as the launch alone, and its
+    injected-bits mode, on random vectors."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+        ising2d_multispin as msb,
+        multispin_rng,
+    )
+    nx, ny, nrep = 1001, 1000, 128
+    m, beta = nx * ny // 2, 1 / KBT_2D
+    nw = hms.words(m)
+    wa, wb, b4, b8 = (words((nrep, nw)) for _ in range(4))
+    seeds = multispin_rng.sweep_phase_keys(
+        torch.tensor([12345, 678], dtype=torch.int64), 64)
+    seeds_dev = msb._i32(seeds).contiguous().to(dev)
+    out = [torch.empty_like(wa), torch.empty_like(wb)]
+    obs = torch.empty((nrep, 64, 2), dtype=torch.int64, device=dev)
+    q4, q8 = msb.chain_words(beta)
+    # the chains' argument: the launch table, or (q4, q8) before it
+    chains = ((hms._table(q4, q8),) if hasattr(hms, "keys_to")
+              else (q4, q8))
+    da, db = ([d % m for d in offs] for offs in hms.helical_offsets(nx))
+    staged = int(hms.staged_fits(nw, dev))
+
+    def alone(sweeps):
+        lib = hms._lib()
+        code = lib.helical_multisweep(
+            wa.data_ptr(), wb.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), seeds_dev.data_ptr(), None, None,
+            obs.data_ptr(), nrep, nw, m, sweeps, 0, staged, *da, *db,
+            *chains, msb._stream(wa))
+        assert code == 0, code
+
+    offs = hms.helical_offsets(nx)[0]
+    return {
+        "helical multisweep 1001x1000 x 128 S=64": lambda: (
+            hms.multisweep_planes(wa, wb, seeds, beta=beta, nx=nx, m=m)),
+        "helical multisweep 1001x1000 x 128 S=40": lambda: (
+            hms.multisweep_planes(wa, wb, seeds[:40], beta=beta, nx=nx,
+                                  m=m)),
+        "helical multisweep 1001x1000 x 128 S=64, launch alone": lambda: (
+            alone(64)),
+        "helical multisweep 1001x1000 x 128 S=40, launch alone": lambda: (
+            alone(40)),
+        "helical bits mode 1001x1000 x 128": lambda: (
+            hms.phase_packed_with_bits(wa, wb, b4, b8, offs=offs, m=m)),
     }
 
 
@@ -487,6 +543,8 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--clock", action="store_true",
                     help="time the clock kernels instead")
+    ap.add_argument("--helical", action="store_true",
+                    help="time the helical 2-D multisweep instead")
     ap.add_argument("--helical3d", action="store_true",
                     help="time the helical 3-D phase kernel instead")
     ap.add_argument("--masked", action="store_true",
@@ -534,6 +592,8 @@ def main() -> int:
     libs = LIBS
     if args.clock:
         modes, libs = clock_modes(gen, dev, seeds), CLOCK_LIBS
+    elif args.helical:
+        modes, libs = helical_modes(words, dev), ["helical_multispin"]
     elif args.helical3d:
         modes, libs = helical3d_modes(words), ["helical3d_multispin"]
     elif args.masked:
@@ -569,8 +629,8 @@ def main() -> int:
             end.record()
             end.synchronize()
             times[mode].append(start.elapsed_time(end) / reps)
-    if not (args.clock or args.helical3d or args.masked or args.samples
-            or args.ms_grids or args.measure_variants):
+    if not (args.clock or args.helical or args.helical3d or args.masked
+            or args.samples or args.ms_grids or args.measure_variants):
         times["int8_multisweep_blocks"] = i8ms.grid_blocks()
         times["packed_3d_multisweep_blocks"] = ms3.multisweep_grid_blocks()
         times["packed_2d_multisweep_blocks"] = msb.multisweep_grid_blocks()
@@ -585,7 +645,9 @@ def main() -> int:
                 if ("Compiling entry" in line or "registers" in line
                         or "stack frame" in line):
                     print(line.strip())
-    if args.helical3d:
+    if args.helical:
+        sass_report("helical_multispin", ("multisweep_kernel",))
+    elif args.helical3d:
         sass_report("helical3d_multispin", ("phase_kernel",
                                             "multisweep_kernel"))
     elif args.masked:

@@ -15,8 +15,9 @@ Metropolis classes' launches 2000x2000 x 32 and 10000x10000 x 1, the
 angle snapshot mode at the finite-magne class's 1000x1000 x 20, and
 reduce_kernel alone (xy2d_site.cuh, built into a probe library) on the
 partials of one measuring angle launch at both Metropolis shapes, timed
-as a CUDA graph (chip_time_ising.graph_ms), with the SASS of
-angle_metro_kernel and its snapshot mode's kernel; with
+as a CUDA graph (chip_time_ising.graph_ms), angle_or_kernel also at the
+over-relaxation class's 4000x4000 x 8, with the SASS of
+angle_metro_kernel, its snapshot mode's kernel and angle_or_kernel; with
 ``--resident``, the resident disorder multisweep's two modes at every
 launch the disorder classes make (1500x1500 x 1, S = 64 and 40;
 1000x1000 x 1, S = 64 and 36) and past the shared-memory fit (1500x1500
@@ -37,11 +38,14 @@ the over-relaxation phase, colour 0), each out of place into spare
 planes, the over-relaxation also at 10001x10000 x 1 on planes one float
 past the 16-B grid (vectors from off0 = 1) and with its output planes at
 another offset than its input (every float alone), with the SASS of the
-kernel's modes.
+kernel's modes; with ``--or-variants``, angle_or_kernel plain and
+measuring at 4000x4000 x 8 and 10000x10000 x 1 on its library and on
+builds held to 4 and 5 blocks an SM (``__launch_bounds__``, built into
+.build/variants/), each held bitwise against the library.
 
     python3 chip_time_xy.py [--reps 200] [--rounds 3] [--helical]
                             [--periodic-angle] [--resident] [--int16]
-                            [--masked]
+                            [--masked] [--or-variants]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
 csrc/xy2d_pallas.cu (csrc/xy2d_helical_dense*.cu,
@@ -271,6 +275,8 @@ def masked_modes(dev, gen, key, beta):
 
 # the periodic A/B's launches (R, ny, nx)
 ANGLE_SHAPES = ((32, 2000, 2000), (1, 10000, 10000))
+# the angle over-relaxation class's launch (R, ny, nx), timed beside them
+OR_SHAPE = (8, 4000, 4000)
 # the angle snapshot mode's launch (R, ny, nx): the finite-magne class
 SNAP_SHAPE = (20, 1000, 1000)
 
@@ -370,6 +376,71 @@ def periodic_angle_modes(dev, gen, key, beta):
                                device=dev) - 0.5 for _ in range(4))
     modes[f"angle_snapshot {ny}x{nx}x{nrep}"] = lambda: xya.metro_phase(
         b, a, key, color=1, beta=beta, snap=(sb, sa))
+    nrep, ny, nx = OR_SHAPE
+    c, d = (torch.rand((nrep, ny, nx // 2), generator=gen, device=dev)
+            - 0.5 for _ in range(2))
+    tag = f"{ny}x{nx}x{nrep}"
+    modes[f"angle_or {tag}"] = lambda: xya.or_phase(c, d, color=0)
+    modes[f"angle_or_measuring {tag}"] = lambda: xya.or_phase(
+        d, c, color=1, measuring=True)
+    return modes
+
+
+def or_variant_modes(dev, gen):
+    """angle_or_kernel (row 40), plain and measuring, at the OR class's
+    4000x4000 x 8 and at 10000x10000 x 1, on the library and on builds of
+    its source with the kernel held to 4 and 5 blocks an SM
+    (__launch_bounds__(256, k): at most 64 and 48 registers; built into
+    .build/variants/), each launch's state and sums held bitwise against
+    the library's (``--or-variants``)."""
+    from chip_time_ising import variant_lib
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_multispin as msb,
+        xy2d_helical_dense_angle as xha,
+        xy2d_pallas_angle as xya,
+    )
+    base = xya._lib()
+    old = "__launch_bounds__(THREADS)\n    angle_or_kernel"
+    libs = {"": base}
+    for k in (4, 5):
+        libs[f"mb{k} "] = variant_lib(
+            "xy2d_pallas_angle", old,
+            f"__launch_bounds__(THREADS, {k})\n    angle_or_kernel",
+            f"or_mb{k}", base, ("xya_or",))
+    modes = {}
+    for nrep, ny, nx in (OR_SHAPE, (1, 10000, 10000)):
+        half = nx // 2
+        a, b = (torch.rand((nrep, ny, half), generator=gen, device=dev)
+                - 0.5 for _ in range(2))
+        gy = xha.tile_grid(ny, half)[1]
+        part = torch.empty((nrep, xya.metro_blocks(ny, half), 3),
+                           dtype=torch.float64, device=dev)
+        obs = torch.empty((nrep, 3), dtype=torch.float64, device=dev)
+        want = {}
+        for measuring in (False, True):
+            ref = a.clone()
+            got = xya.or_phase(ref, b, color=1, measuring=measuring)
+            want[measuring] = (ref, got[1].clone() if measuring else None)
+        for tag, lib in libs.items():
+            for measuring in (False, True):
+                def run(lib=lib, s=a.clone(), measuring=measuring,
+                        b=b, nrep=nrep, ny=ny, half=half, gy=gy,
+                        part=part, obs=obs, tag=tag):
+                    code = lib.xya_or(
+                        s.data_ptr(), b.data_ptr(),
+                        part.data_ptr() if measuring else None,
+                        obs.data_ptr() if measuring else None, nrep, ny,
+                        half, gy, 1, msb._stream(s))
+                    if code:
+                        raise RuntimeError(f"xya_or {tag}: CUDA error {code}")
+                    return s
+                s = run(s=a.clone())
+                ref, sums = want[measuring]
+                if not torch.equal(s, ref) or (
+                        measuring and not torch.equal(obs, sums)):
+                    raise RuntimeError(f"variant {tag} differs at {ny}^2")
+                label = "measuring " if measuring else ""
+                modes[f"{tag}angle_or {label}{ny}x{nx}x{nrep}"] = run
     return modes
 
 
@@ -389,6 +460,8 @@ def main() -> int:
                     help="time the int16 multisweep's modes instead")
     ap.add_argument("--masked", action="store_true",
                     help="time the masked helical XY kernels instead")
+    ap.add_argument("--or-variants", action="store_true",
+                    help="time the angle OR kernel's builds instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_time_xy: needs an NVIDIA GPU", file=sys.stderr)
@@ -405,7 +478,11 @@ def main() -> int:
     if args.periodic_angle:
         return report(periodic_angle_modes(dev, gen, key, beta), args,
                       ["xy2d_pallas", "xy2d_pallas_angle"],
-                      sass=("angle_metro_kernel", "angle_metro_snap_kernel"))
+                      sass=("angle_metro_kernel", "angle_metro_snap_kernel",
+                            "angle_or_kernel"))
+    if args.or_variants:
+        return report(or_variant_modes(dev, gen), args,
+                      ["xy2d_pallas_angle"], sass=("angle_or_kernel",))
     if args.masked:
         return report(masked_modes(dev, gen, key, beta), args,
                       ["helical_pallas"],

@@ -1,10 +1,9 @@
 // Bernoulli word planes of the bit-packed engines: each bit of the
 // returned word is 1 with probability q / 2^k, from Philox words
-// (philox.cuh), drawn by bern_word (left to the helical 2-D multisweep and
-// the helical clock's draw<Q>) or, for the periodic 2-D and the 3-D Ising
-// kernels' chains, by the unrolled chain_planes; and the bit-sliced
-// counters and flip masks of the 4- and 6-neighbour stencils.  Shared by
-// the Ising and clock kernels.
+// (philox.cuh), drawn by bern_word (left to the helical clock's draw<Q>)
+// or, for every bit-packed Ising kernel's chains, by the unrolled
+// chain_planes; and the bit-sliced counters and flip masks of the 4- and
+// 6-neighbour stencils.  Shared by the Ising and clock kernels.
 #pragma once
 #include <cstdint>
 

@@ -3,11 +3,11 @@
 //
 //   multisweep_kernel replaces cuda_fortran_mc_simulation_spin_tpu/ops/
 //                     helical_multispin.py:_ms_kernel (pallas_call at :305
-//                     _multisweep) and, as its injected-bits mode,
-//                     _phase_bits_kernel (pallas_call at :220
-//                     phase_packed_with_bits).  S full sweeps with the
-//                     exact (m, e) of every sweep; or one phase of colour
-//                     a with b4/b8 planes read from buffers.
+//                     _multisweep) and, as its injected-bits mode
+//                     (multisweep_kernel<true>), _phase_bits_kernel
+//                     (pallas_call at :220 phase_packed_with_bits).  S full
+//                     sweeps with the exact (m, e) of every sweep; or one
+//                     phase of colour a with b4/b8 planes read from buffers.
 //
 // Layout: one (R, W) uint32 colour vector per colour, bit k of word g =
 // colour index 32g+k, M = nall/2 valid bits (ops/helical_multispin.py).
@@ -18,7 +18,11 @@
 //                     wrap point) the rest comes from the head of word 0
 //                     (read_circ, helical_read.cuh)
 //   count             bit-sliced 4:3 counter (bernoulli.cuh count4)
-//   B4, B8            20-digit Bernoulli chains over Philox words
+//   B4, B8            20-digit Bernoulli chains over Philox words, in one
+//                     unrolled line (bernoulli.cuh chain_planes) that
+//                     follows the launch's ChainTable of (q4, q8, 0)
+//                     (ops/multispin_rng.chain_table; the third chain
+//                     draws nothing)
 //   flip              bernoulli.cuh flip4
 //   (m, e)            after phase b, with the pad bits [M, 32W) masked:
 //                     they hold garbage after a flip and are never read
@@ -32,21 +36,32 @@
 // KiB) the kernel stages them there for all S sweeps and writes back once;
 // above that (up to 2 x 512 KiB) the same code works on the output
 // vectors in device memory.  A phase updates its colour in place: a word
-// depends only on itself and on the other colour.
+// depends only on itself and on the other colour.  The chains are those
+// of the periodic 2-D and the helical 3-D multisweeps (csrc/
+// ising2d_multispin.cu, csrc/helical3d_multispin.cu): every thread takes
+// the round keys of each (sweep, phase) key once (philox_round_keys) and
+// holds them in registers; the Philox call index and the word within it
+// are compile-time constants, a draw folds into its chain in one
+// three-input op, and the chain boundaries are uniform.  The first design
+// drew each chain by bern_word: a runtime loop from __ffs(q) with a
+// WordStream refill test, a runtime pick of the buffer word and a digit's
+// shift, mask and select a draw, and the round keys recomputed each
+// Philox call (PERF.md §6 has the A/B).
 //
 // Random words: the key is the Philox key of the (sample, t, phase); the
-// counter is (replica, word, 0, draw / 4).  S = 1 launches therefore give
-// one S-sweep launch's trajectory bitwise, and so does the plain PyTorch
-// version.
+// counter is (replica, word, 0, draw / 4), and the chains draw bern_word's
+// words in its order.  S = 1 launches therefore give one S-sweep launch's
+// trajectory bitwise, and so does the plain PyTorch version.
 //
 // Bound on the H100: integer operations.  A word costs about 10 Philox
-// calls per phase at Tc (40 chain words), some 640 int32 operations
+// calls per phase at Tc (38 chain words), some 460 int32 operations
 // against 8 bytes of traffic per sweep; one block per replica leaves the
 // card's 132 SMs as busy as the batch has replicas (128 in the reference's
 // production runs).
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 #include "bernoulli.cuh"
 #include "helical_read.cuh"
@@ -67,12 +82,14 @@ struct HelicalArgs {
   const uint32_t* b8;
   long long* obs;         // (R, S, 2) (m, e), or null
   int nw, m, sweeps;
-  int bits;               // 1: one phase of colour a with b4/b8
   int staged;             // 1: work in shared memory
   int da[4], db[4];       // offsets mod M of colour a's and b's neighbours
-  uint32_t q4, q8;        // chain digits: round(p * 2^20)
+  ChainTable chain;       // the launch's chains (bernoulli.cuh)
 };
 
+// S sweeps (BITS false) or one phase of colour a with the injected planes
+// (BITS true), one block a replica.
+template <bool BITS>
 __global__ void __launch_bounds__(THREADS, 1)
     multisweep_kernel(HelicalArgs a) {
   extern __shared__ uint32_t smem[];
@@ -88,19 +105,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
 
-  const int phases = a.bits ? 1 : 2;
-  for (int s = 0; s < a.sweeps; ++s) {
-    for (int phase = 0; phase < phases; ++phase) {
+  constexpr int PHASES = BITS ? 1 : 2;
+  const int sweeps = BITS ? 1 : a.sweeps;
+  for (int s = 0; s < sweeps; ++s) {
+    for (int phase = 0; phase < PHASES; ++phase) {
       uint32_t* x = phase ? B : A;
       const uint32_t* o = phase ? A : B;
       int d[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) d[k] = phase ? a.db[k] : a.da[k];
       const bool measure = a.obs != nullptr && phase == 1;
-      uint2 key = make_uint2(0u, 0u);
-      if (!a.bits)
-        key = make_uint2(static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2]),
-                         static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2 + 1]));
+      uint2 rk[10];
+      if constexpr (!BITS)
+        philox_round_keys(
+            static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2]),
+            static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2 + 1]), rk);
       long long pm = 0, pe = 0;
       for (int g = tid; g < nw; g += THREADS) {
         const int f0 = g * 32;  // < M, so f0 + d < 2M
@@ -114,14 +133,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         uint32_t ones, twos, fours;
         count4(n[0], n[1], n[2], n[3], ones, twos, fours);
         uint32_t b4, b8;
-        if (a.bits) {
+        if constexpr (BITS) {
           b4 = a.b4[base + g];
           b8 = a.b8[base + g];
         } else {
-          WordStream ws(static_cast<uint32_t>(r), static_cast<uint32_t>(g),
-                        0u, key);
-          b4 = bern_word(ws, a.q4);
-          b8 = bern_word(ws, a.q8);
+          uint32_t unused;
+          chain_planes(a.chain, rk, static_cast<uint32_t>(r),
+                       static_cast<uint32_t>(g), 0u, b4, b8, unused);
         }
         const uint32_t xv = x[g];
         const uint32_t nv = xv ^ flip4(xv, ones, twos, fours, b4, b8);
@@ -175,6 +193,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// One launch of multisweep_kernel<BITS>: R blocks, smem bytes of staging
+template <bool BITS>
+int launch(const HelicalArgs& a, int nrep, int smem, cudaStream_t st) {
+  if (smem > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        multisweep_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  multisweep_kernel<BITS><<<nrep, THREADS, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -188,7 +219,8 @@ int helical_smem_optin(int* bytes) {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   cudaFuncAttributes attr;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, multisweep_kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, multisweep_kernel<false>);
   *bytes = e == cudaSuccess ? optin - static_cast<int>(attr.sharedSizeBytes)
                             : 0;
   return static_cast<int>(e);
@@ -197,13 +229,15 @@ int helical_smem_optin(int* bytes) {
 // S sweeps (or, with bits, one phase of colour a with injected b4/b8):
 // grid of R blocks of 1024 threads.  wa_in/wb_in -> wa/wb; obs (R, S, 2)
 // is written whole when given.  staged: 1 to work in shared memory
-// (2 * W * 4 bytes, which must fit helical_smem_optin).
+// (2 * W * 4 bytes, which must fit helical_smem_optin).  chain: the 65
+// words of ChainTable (refused unless chain_table_ok; not read in the
+// bits mode).
 int helical_multisweep(const void* wa_in, const void* wb_in, void* wa,
                        void* wb, const void* seeds, const void* b4,
                        const void* b8, void* obs, int nrep, int nw, int m,
                        int sweeps, int bits, int staged, int da0, int da1,
                        int da2, int da3, int db0, int db1, int db2, int db3,
-                       unsigned int q4, unsigned int q8, void* stream) {
+                       const unsigned int* chain, void* stream) {
   HelicalArgs a;
   a.wa_in = static_cast<const uint32_t*>(wa_in);
   a.wb_in = static_cast<const uint32_t*>(wb_in);
@@ -216,7 +250,6 @@ int helical_multisweep(const void* wa_in, const void* wb_in, void* wa,
   a.nw = nw;
   a.m = m;
   a.sweeps = sweeps;
-  a.bits = bits;
   a.staged = staged;
   a.da[0] = da0;
   a.da[1] = da1;
@@ -226,17 +259,13 @@ int helical_multisweep(const void* wa_in, const void* wb_in, void* wa,
   a.db[1] = db1;
   a.db[2] = db2;
   a.db[3] = db3;
-  a.q4 = q4;
-  a.q8 = q8;
+  std::memcpy(&a.chain, chain, sizeof(ChainTable));
+  if (!chain_table_ok(a.chain))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int smem = staged ? 2 * nw * static_cast<int>(sizeof(uint32_t)) : 0;
-  if (smem > 0) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        multisweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  multisweep_kernel<<<nrep, THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bits ? launch<true>(a, nrep, smem, st)
+              : launch<false>(a, nrep, smem, st);
 }
 
 const char* helical_error_string(int code) {

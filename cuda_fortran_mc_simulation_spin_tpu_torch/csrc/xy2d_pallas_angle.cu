@@ -12,7 +12,7 @@
 //                      uniforms from Philox or injected; optionally the
 //                      fused (Σ S_x, Σ S_y, e); a decode-once tile a block
 //                      (below).  Its snapshot mode, angle_metro_snap_kernel
-//                      (the same tiles, metro_tiles<4>), replaces
+//                      (the same tiles, angle_tiles<4>), replaces
 //                      _angle_metro_snap_kernel (:405,
 //                      _angle_metro_snap_phase -> sweep_measure_snap_angle):
 //                      the same phase with A = Σ cos 2π(θ - θ0) of both
@@ -20,7 +20,8 @@
 //                      the sums;
 //   angle_or_kernel    replaces _angle_or_kernel (:300, _angle_or_phase):
 //                      θ' = 2 atan2_2pi(h_y, h_x) - θ, wrapped by
-//                      tp - rint(tp), the same sums optional;
+//                      tp - rint(tp), the same sums optional; the same
+//                      decode-once tiles (angle_tiles<3, true, .>);
 //   reduce_kernel      (xy2d_site.cuh) adds the per-block float64 sums of a
 //                      measuring launch per replica in a fixed order.
 //
@@ -31,9 +32,9 @@
 // ops/xy2d_pallas_angle.py, one rounding per operation (rintf rounds half
 // to even, as torch.round and jnp.round do).
 //
-// angle_metro_kernel decodes the other colour once a tile, the design of
-// the helical angle phase (xy2d_helical_dense_angle.cu angle_tile_kernel)
-// on the periodic layout.  A block owns TX columns of the colour's
+// Both kernels decode the other colour once a tile, the design of the
+// helical angle phase (xy2d_helical_dense_angle.cu angle_tile_kernel) on
+// the periodic layout.  A block owns TX columns of the colour's
 // half-plane x TY rows and walks its column of tiles (grid (column tiles,
 // row blocks, replicas), at most ops/xy2d_pallas_angle.MAX_TILE_BLOCKS
 // blocks a replica, so a measuring launch leaves few partials for
@@ -49,8 +50,9 @@
 // gives the site's (y, i), its Philox counter (r, y, i, 0) and 32-bit
 // offsets inside a replica.  Ragged tiles (half or ny not a multiple of
 // 32, half < 32, ny = 2) run: a slot past the plane is neither updated
-// nor counted.  angle_or_kernel stays one thread a site, each decoding
-// its four neighbours itself.
+// nor counted.  The first angle_or_kernel ran one thread a site, each
+// decoding its four neighbours itself (xy::neighbours' runtime division
+// included), and left ny * half / 256 partials a replica (PERF.md §6).
 //
 // Bound on the H100.  Per site of the colour updated a phase reads 4 B of
 // its own angle and 4 B of the other colour and writes 4 B: 12 B (0.48 GB,
@@ -74,39 +76,6 @@ struct AnglePhase {
   const float* o;   // the other colour
   int ny, half, color;
 };
-
-// The site's field (hx, hy) from the other colour's four decoded angles,
-// (up + dn) + (centre + side) a component, and the decoded centre (ox, oy)
-struct AngleSite {
-  xy::Nbrs n;
-  float hx, hy, ox, oy;
-};
-
-__device__ __forceinline__ AngleSite angle_site(const AnglePhase& p, int r,
-                                                int w) {
-  AngleSite a;
-  a.n = xy::neighbours(p.ny, p.half, p.color, r, w);
-  float ux, uy, dx, dy, sx, sy;
-  xy::cos_sin_2pi(__ldg(p.o + a.n.up), ux, uy);
-  xy::cos_sin_2pi(__ldg(p.o + a.n.dn), dx, dy);
-  xy::cos_sin_2pi(__ldg(p.o + a.n.idx), a.ox, a.oy);
-  xy::cos_sin_2pi(__ldg(p.o + a.n.side), sx, sy);
-  a.hx = __fadd_rn(__fadd_rn(ux, dx), __fadd_rn(a.ox, sx));
-  a.hy = __fadd_rn(__fadd_rn(uy, dy), __fadd_rn(a.oy, sy));
-  return a;
-}
-
-// (Σ S_x, Σ S_y, S·h) of a site whose new spin is (fx, fy), A = 0
-__device__ __forceinline__ Sums angle_sums(const AngleSite& a, float fx,
-                                           float fy) {
-  Sums t;
-  t.mx = static_cast<double>(fx) + static_cast<double>(a.ox);
-  t.my = static_cast<double>(fy) + static_cast<double>(a.oy);
-  t.e = static_cast<double>(
-      __fadd_rn(__fmul_rn(fx, a.hx), __fmul_rn(fy, a.hy)));
-  t.a = 0.0;
-  return t;
-}
 
 // The raw other-colour angles of the tile at (x0, y0) that thread t
 // decodes: elements k = t + j THREADS of its (rows y0 - 1 .. y0 +
@@ -132,15 +101,19 @@ __device__ __forceinline__ void fetch_tile(const float* o, int ny, int half,
   }
 }
 
-// One Metropolis phase, N sums a block where it measures: 3, or 4 in the
-// snapshot mode (A against sns, the snapshot of the colour updated, and
-// sno, the other's; the 3-sum instantiation never reads them).  Tiles of
-// TX x TY sites: grid (ceil(half / TX), row blocks, R); block (bx, by)
-// takes tile rows by, by + gridDim.y, ... of column tile bx.  A tile's raw
-// angles are all loaded, then decoded into shared memory, and each
-// thread's own angles loaded before the barrier.
-template <int N>
-__device__ __forceinline__ void metro_tiles(const AnglePhase& p,
+// One Metropolis phase (OR false) or over-relaxation phase (OR true), N
+// sums a block where it measures: 3, or 4 in the Metropolis snapshot mode
+// (A against sns, the snapshot of the colour updated, and sno, the
+// other's; the 3-sum instantiations never read them).  Tiles of TX x TY
+// sites: grid (ceil(half / TX), row blocks, R); block (bx, by) takes tile
+// rows by, by + gridDim.y, ... of column tile bx.  A tile's raw angles
+// are all loaded, then decoded into shared memory, and each thread's own
+// angles loaded before the barrier.  The over-relaxation takes no
+// uniforms (ucand, uacc null).  SUMS: -1 measures where partials is
+// given (the Metropolis kernels); 0 or 1 fixes it at compile time (the
+// over-relaxation's two kernels), so its plain phase carries no sums.
+template <int N, bool OR = false, int SUMS = -1>
+__device__ __forceinline__ void angle_tiles(const AnglePhase& p,
                                             double* partials,
                                             const float* ucand,
                                             const float* uacc,
@@ -151,7 +124,9 @@ __device__ __forceinline__ void metro_tiles(const AnglePhase& p,
   constexpr int LOADS = (SH * SW + THREADS - 1) / THREADS;
   constexpr int SITES = TY / ROWS;
   static_assert(THREADS % TX == 0 && TY % ROWS == 0, "tile shape");
+  static_assert(!OR || N == 3, "the over-relaxation sums three");
   __shared__ float2 tile[SH * SW];
+  const bool measuring = SUMS < 0 ? partials != nullptr : SUMS == 1;
   const int ny = p.ny, half = p.half, r = blockIdx.z;
   const size_t base = static_cast<size_t>(r) * ny * half;
   float* s = p.s + base;
@@ -204,33 +179,43 @@ __device__ __forceinline__ void metro_tiles(const AnglePhase& p,
         const float hy =
             __fadd_rn(__fadd_rn(up.y, dn.y), __fadd_rn(ce.y, sd.y));
         const int idx = y * half + i;
-        float uc, ua;
-        if (ucand != nullptr) {
-          uc = __ldg(ucand + idx);
-          ua = __ldg(uacc + idx);
+        float th, fx = 0.0f, fy = 0.0f;
+        if constexpr (OR) {
+          const float phi = xy::atan2_2pi(hy, hx);
+          th = __fsub_rn(__fmul_rn(2.0f, phi), own[j]);
+          th = __fsub_rn(th, rintf(th));
+          s[idx] = th;
+          if (measuring) xy::cos_sin_2pi(th, fx, fy);
         } else {
-          const uint4 b = philox4x32_10(
-              make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(y),
-                         static_cast<uint32_t>(i), 0u),
-              key);
-          uc = xy::u24(b.x);
-          ua = xy::u24(b.y);
+          float uc, ua;
+          if (ucand != nullptr) {
+            uc = __ldg(ucand + idx);
+            ua = __ldg(uacc + idx);
+          } else {
+            const uint4 b = philox4x32_10(
+                make_uint4(static_cast<uint32_t>(r),
+                           static_cast<uint32_t>(y),
+                           static_cast<uint32_t>(i), 0u),
+                key);
+            uc = xy::u24(b.x);
+            ua = xy::u24(b.y);
+          }
+          th = own[j];
+          float cx, cy;
+          xy::cos_sin_2pi(th, fx, fy);
+          const float cand = __fsub_rn(uc, 0.5f);
+          xy::cos_sin_2pi(cand, cx, cy);
+          const float de = -__fadd_rn(__fmul_rn(__fsub_rn(cx, fx), hx),
+                                      __fmul_rn(__fsub_rn(cy, fy), hy));
+          const float prob = expf(__fmul_rn(fmaxf(de, 0.0f), neg_beta));
+          if (ua < prob) {
+            fx = cx;
+            fy = cy;
+            th = cand;
+            s[idx] = cand;
+          }
         }
-        float th = own[j];
-        float fx, fy, cx, cy;
-        xy::cos_sin_2pi(th, fx, fy);
-        const float cand = __fsub_rn(uc, 0.5f);
-        xy::cos_sin_2pi(cand, cx, cy);
-        const float de = -__fadd_rn(__fmul_rn(__fsub_rn(cx, fx), hx),
-                                    __fmul_rn(__fsub_rn(cy, fy), hy));
-        const float prob = expf(__fmul_rn(fmaxf(de, 0.0f), neg_beta));
-        if (ua < prob) {
-          fx = cx;
-          fy = cy;
-          th = cand;
-          s[idx] = cand;
-        }
-        if (partials != nullptr) {  // uniform
+        if (measuring) {  // uniform
           t.mx += static_cast<double>(fx) + static_cast<double>(ce.x);
           t.my += static_cast<double>(fy) + static_cast<double>(ce.y);
           t.e += static_cast<double>(
@@ -247,20 +232,20 @@ __device__ __forceinline__ void metro_tiles(const AnglePhase& p,
     }
     __syncthreads();
   }
-  if (partials != nullptr)  // uniform
+  if (measuring)  // uniform
     xy::block_sums<N>(partials, r, gridDim.x * gridDim.y,
                       blockIdx.y * gridDim.x + blockIdx.x, t);
 }
 
-// The Metropolis phase (metro_tiles<3>): fastest unbounded (58
+// The Metropolis phase (angle_tiles<3>): fastest unbounded (58
 // registers, four blocks an SM).
 __global__ void __launch_bounds__(THREADS)
     angle_metro_kernel(AnglePhase p, double* partials, const float* ucand,
                        const float* uacc, float neg_beta, uint2 key) {
-  metro_tiles<3>(p, partials, ucand, uacc, neg_beta, key, nullptr, nullptr);
+  angle_tiles<3>(p, partials, ucand, uacc, neg_beta, key, nullptr, nullptr);
 }
 
-// Its snapshot mode (metro_tiles<4>), held to five blocks an SM (48
+// Its snapshot mode (angle_tiles<4>), held to five blocks an SM (48
 // registers; unbounded it took 71, three blocks, and read slower at
 // 1000^2 x 20).
 __global__ void __launch_bounds__(THREADS, 5)
@@ -268,28 +253,17 @@ __global__ void __launch_bounds__(THREADS, 5)
                             const float* ucand, const float* uacc,
                             float neg_beta, uint2 key, const float* sns,
                             const float* sno) {
-  metro_tiles<xy::NSUMS>(p, partials, ucand, uacc, neg_beta, key, sns, sno);
+  angle_tiles<xy::NSUMS>(p, partials, ucand, uacc, neg_beta, key, sns,
+                         sno);
 }
 
+// The over-relaxation phase (angle_tiles<3, true, MEASURE>), its sums a
+// compile-time choice
+template <bool MEASURE>
 __global__ void __launch_bounds__(THREADS)
     angle_or_kernel(AnglePhase p, double* partials) {
-  const int r = blockIdx.y;
-  const int w = blockIdx.x * THREADS + threadIdx.x;
-  Sums t = {0.0, 0.0, 0.0, 0.0};
-  if (w < p.ny * p.half) {
-    const AngleSite a = angle_site(p, r, w);
-    const float phi = xy::atan2_2pi(a.hy, a.hx);
-    float tp = __fsub_rn(__fmul_rn(2.0f, phi), p.s[a.n.idx]);
-    tp = __fsub_rn(tp, rintf(tp));
-    p.s[a.n.idx] = tp;
-    if (partials != nullptr) {
-      float fx, fy;
-      xy::cos_sin_2pi(tp, fx, fy);
-      t = angle_sums(a, fx, fy);
-    }
-  }
-  if (partials != nullptr)  // uniform
-    xy::block_sums<3>(partials, r, gridDim.x, blockIdx.x, t);
+  angle_tiles<3, true, MEASURE>(p, partials, nullptr, nullptr, 0.0f,
+                                make_uint2(0u, 0u), nullptr, nullptr);
 }
 
 AnglePhase make_phase(void* s, const void* o, int ny, int half, int color) {
@@ -355,17 +329,25 @@ int xya_metro(void* s, const void* o, const void* ucand, const void* uacc,
   return finish<3>(partials, obs, nrep, nblk, st);
 }
 
-// One over-relaxation phase of colour `color` on angle planes, s in place;
-// partials/obs as for xya_metro without a snapshot.
+// One over-relaxation phase of colour `color` on angle planes, s in place:
+// the tiles and grid of xya_metro; partials/obs as there without a
+// snapshot.
 int xya_or(void* s, const void* o, void* partials, void* obs, int nrep,
-           int ny, int half, int color, void* stream) {
+           int ny, int half, int row_blocks, int color, void* stream) {
   if (int bad = xy::check_shape(nrep, ny, half)) return bad;
-  if ((partials == nullptr) != (obs == nullptr))
+  const long long gx = (static_cast<long long>(half) + TX - 1) / TX;
+  if ((partials == nullptr) != (obs == nullptr) || row_blocks < 1 ||
+      row_blocks > 65535 || gx * row_blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nblk = (ny * half + THREADS - 1) / THREADS;
+  const int nblk = static_cast<int>(gx * row_blocks);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  angle_or_kernel<<<dim3(nblk, nrep), THREADS, 0, st>>>(
-      make_phase(s, o, ny, half, color), static_cast<double*>(partials));
+  const dim3 grid(static_cast<unsigned>(gx), row_blocks, nrep);
+  const AnglePhase p = make_phase(s, o, ny, half, color);
+  if (partials != nullptr)
+    angle_or_kernel<true><<<grid, THREADS, 0, st>>>(
+        p, static_cast<double*>(partials));
+  else
+    angle_or_kernel<false><<<grid, THREADS, 0, st>>>(p, nullptr);
   return finish<3>(partials, obs, nrep, nblk, st);
 }
 

@@ -23,8 +23,13 @@ S sweeps on resident colour vectors with the exact (m, e) of every sweep,
 and, as a mode, one phase with injected Bernoulli planes.  Beside it is
 its plain PyTorch version in this module, with the same Philox words
 (ops/multispin_rng.py, counter (replica, word, 0, draw/4)) and the same
-algebra.  A wrapper takes the plain version for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises.  ``LAUNCHES`` counts launches.
+algebra; the kernel draws the B4 and B8 chains in one unrolled line that
+follows the launch's table (``multispin_rng.chain_table((q4, q8, 0))``,
+the periodic 2-D kernels' table), the plain version chain by chain
+(``_bern_plane``), and ``tests/test_torch_helical_chains.py`` holds the
+two equal on the CPU.  A wrapper takes the plain version for a CPU
+tensor; for a CUDA tensor it launches the kernel or raises.  ``LAUNCHES``
+counts launches.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build, multispin_rng
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
+    _TABLE,
     MASK32,
     PACK,
     _bern_plane,
@@ -45,6 +51,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _on_cpu,
     _pc_plane,
     _stream,
+    _table,
     _u32,
     chain_words,
     per_site,
@@ -231,7 +238,6 @@ def multisweep_plain(wa, wb, seeds, *, beta: float, nx: int, m: int):
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
-_UINT = ctypes.c_uint
 
 
 def _lib() -> ctypes.CDLL:
@@ -242,7 +248,7 @@ def _lib() -> ctypes.CDLL:
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
         _INT, _INT, _INT, _INT, _INT, _INT,
         _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-        _UINT, _UINT, _VOID]
+        _TABLE, _VOID]
     lib.helical_multisweep.restype = _INT
     lib.helical_smem_optin.argtypes = [ctypes.POINTER(_INT)]
     lib.helical_smem_optin.restype = _INT
@@ -297,18 +303,33 @@ def staged_fits(nw: int, device) -> bool:
     return 2 * nw * 4 <= _SMEM_OPTIN[dev]
 
 
+def keys_to(seeds: torch.Tensor, device) -> torch.Tensor:
+    """The (S, 2, 2) int32 phase keys on ``device`` without waiting for the
+    card: copied from a pinned host tensor with ``non_blocking``.  PyTorch's
+    pinned-memory allocator keeps that host block from reuse until the
+    copy, recorded on the current stream, has completed, so the keys
+    stay alive.  A copy from pageable memory instead synchronises the
+    stream: the card sits idle from the previous launch's end to this
+    one's."""
+    keys = _i32(seeds).contiguous()
+    if keys.device.type == "cpu":
+        return keys.pin_memory().to(device, non_blocking=True)
+    return keys.to(device)
+
+
 def _launch(wa, wb, m: int, offs_a, offs_b, *, seeds=None, b4=None,
             b8=None, q4=0, q8=0):
-    """One launch: S = len(seeds) full sweeps with Philox words, or (with
-    b4/b8) one phase of ``wa`` given ``wb`` with injected planes; staged
-    in shared memory where :func:`staged_fits`."""
+    """One launch: S = len(seeds) full sweeps with Philox words and the
+    chains of digits (q4, q8), or (with b4/b8) one phase of ``wa`` given
+    ``wb`` with injected planes; staged in shared memory where
+    :func:`staged_fits`."""
     bits = b4 is not None
     _check_vectors(m, wa, wb, *((b4, b8) if bits else ()))
     lib = _lib()
     nrep, nw = wa.shape
     staged = staged_fits(nw, wa.device)
     sweeps = 1 if bits else int(seeds.shape[0])
-    seeds_dev = None if bits else _i32(seeds).contiguous().to(wa.device)
+    seeds_dev = None if bits else keys_to(seeds, wa.device)
     wa_out, wb_out = torch.empty_like(wa), torch.empty_like(wb)
     obs = None if bits else torch.empty((nrep, sweeps, 2), dtype=torch.int64,
                                         device=wa.device)
@@ -323,7 +344,7 @@ def _launch(wa, wb, m: int, offs_a, offs_b, *, seeds=None, b4=None,
             b8.data_ptr() if bits else None,
             None if bits else obs.data_ptr(),
             nrep, nw, m, sweeps, int(bits), int(staged),
-            *da, *db, q4, q8, _stream(wa))
+            *da, *db, _table(q4, q8), _stream(wa))
     _raise_on(lib, code, "helical multisweep_kernel")
     LAUNCHES["multisweep"] += 1
     return wa_out, wb_out, obs

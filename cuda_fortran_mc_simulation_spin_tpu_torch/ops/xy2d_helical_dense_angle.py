@@ -190,17 +190,19 @@ def tile_grid(ny: int, nc: int) -> tuple[int, int]:
     return gx, min(rows, max(1, MAX_TILE_BLOCKS // gx), 65535)
 
 
-def tile_scratch(s: torch.Tensor, measuring: bool):
+def tile_scratch(s: torch.Tensor, measuring: bool, nsums: int = 3):
     """(partials, obs) of a tile launch: where it measures, the per-block
-    float64 sums (R, blocks of :func:`tile_grid`, 3) and their totals
-    (R, 3); else (None, None)."""
+    float64 sums (R, blocks of :func:`tile_grid`, nsums) and their totals
+    (R, nsums); else (None, None).  The periodic angle kernels' tiles too
+    (ops/xy2d_pallas_angle.py; nsums 4 in the snapshot mode)."""
     if not measuring:
         return None, None
     nrep, ny, nc = s.shape
     gx, gy = tile_grid(ny, nc)
-    return (torch.empty((nrep, gx * gy, 3), dtype=torch.float64,
+    return (torch.empty((nrep, gx * gy, nsums), dtype=torch.float64,
                         device=s.device),
-            torch.empty((nrep, 3), dtype=torch.float64, device=s.device))
+            torch.empty((nrep, nsums), dtype=torch.float64,
+                        device=s.device))
 
 
 def angle_phase(s, o, rand, *, color: int, beta: float,

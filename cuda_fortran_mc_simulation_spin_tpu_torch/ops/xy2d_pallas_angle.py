@@ -21,7 +21,8 @@ tp − rint(tp) (round half to even, as ``jnp.round``).
   ``_angle_metro_snap_phase``): the same phase with
   A = Σ cos 2π(θ − θ0) of both colours against the t=0 angle snapshots;
 - ``angle_or_kernel``, which replaces ``_angle_or_kernel`` (``:300``,
-  ``_angle_or_phase``): one reflection phase, the same sums optional.
+  ``_angle_or_phase``): one reflection phase on the same tiles and grid,
+  the same sums optional.
 
 Layout: (R, ny, nx/2) float32 angle planes for every even nx, with the
 checkerboard of core/lattice.py and the neighbours of ops/xy2d_pallas.py
@@ -72,7 +73,6 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.xy2d_pallas import (
     densities,
     draw_uniforms,
     nbr_sum,
-    scratch,
 )
 
 LAUNCHES = {"metro": 0, "metro_measuring": 0, "metro_snapshot": 0,
@@ -164,9 +164,9 @@ _UINT = ctypes.c_uint
 
 
 def metro_blocks(ny: int, half: int) -> int:
-    """Blocks a replica of an ``angle_metro_kernel`` launch over (ny,
-    half) sites, so the partial sums a measuring launch leaves a replica:
-    the helical angle phase's tiles and cap
+    """Blocks a replica of an ``angle_metro_kernel`` or ``angle_or_kernel``
+    launch over (ny, half) sites, so the partial sums a measuring launch
+    leaves a replica: the helical angle phase's tiles and cap
     (ops/xy2d_helical_dense_angle.tile_grid; ``TILE`` columns of a
     colour's half-plane x ``TILE`` rows, at most ``MAX_TILE_BLOCKS``
     blocks a replica), over (ny, half)."""
@@ -180,7 +180,7 @@ def _lib() -> ctypes.CDLL:
         return lib
     lib.xya_metro.argtypes = (
         [_VOID] * 8 + [_INT] * 5 + [ctypes.c_float, _UINT, _UINT, _VOID])
-    lib.xya_or.argtypes = [_VOID] * 4 + [_INT] * 4 + [_VOID]
+    lib.xya_or.argtypes = [_VOID] * 4 + [_INT] * 5 + [_VOID]
     for fn in (lib.xya_metro, lib.xya_or):
         fn.restype = _INT
     lib.xya_error_string.argtypes = [_INT]
@@ -214,15 +214,9 @@ def metro_phase(s, o, rand, *, color: int, beta: float,
         u_cand = u_acc = None
         s0, s1 = (int(v) & MASK32 for v in torch.as_tensor(rand).tolist())
     nrep, ny, half = s.shape
-    measuring = measuring or snap is not None
-    nsums = 3 if snap is None else 4
     gy = xy2d_helical_dense_angle.tile_grid(ny, half)[1]
-    partials = obs = None
-    if measuring:
-        partials = torch.empty((nrep, metro_blocks(ny, half), nsums),
-                               dtype=torch.float64, device=s.device)
-        obs = torch.empty((nrep, nsums), dtype=torch.float64,
-                          device=s.device)
+    partials, obs = xy2d_helical_dense_angle.tile_scratch(
+        s, measuring or snap is not None, 3 if snap is None else 4)
     sns, sno = (None, None) if snap is None else snap
     lib = _lib()
     with torch.cuda.device(s.device):
@@ -249,11 +243,12 @@ def or_phase(s, o, *, color: int, measuring: bool = False):
         return or_phase_plain(s, o, color=color, measuring=measuring)
     _check_planes(s, o)
     nrep, ny, half = s.shape
-    partials, obs = scratch(s, measuring, nsums=3)
+    gy = xy2d_helical_dense_angle.tile_grid(ny, half)[1]
+    partials, obs = xy2d_helical_dense_angle.tile_scratch(s, measuring)
     lib = _lib()
     with torch.cuda.device(s.device):
         code = lib.xya_or(s.data_ptr(), o.data_ptr(), _ptr(partials),
-                          _ptr(obs), nrep, ny, half, color, _stream(s))
+                          _ptr(obs), nrep, ny, half, gy, color, _stream(s))
     _raise_on(code, lib, "angle_or_kernel")
     LAUNCHES["or"] += 1
     if measuring:

@@ -310,8 +310,12 @@ def test_fused_sums_equal_the_model_reduction(q):
     wa, wb, obs = cp.sweep_measure_seeded(spec, model, wa, wb, seeds)
     want = model.observables(cp.unpack_state(spec, wa, wb, 248, True))
     for k in ("m", "e"):
-        np.testing.assert_allclose(obs[k].numpy(), want[k].numpy(),
-                                   rtol=0, atol=1e-12)
+        np.testing.assert_allclose(
+            obs[k].numpy(), want[k].numpy(), rtol=0, atol=1e-12,
+            err_msg=f"{k}: fused {obs[k].tolist()!r}, model "
+                    f"{want[k].tolist()!r}; state under base_key({q}), "
+                    f"phase keys {seeds.tolist()}, torch threads "
+                    f"{torch.get_num_threads()}")
 
 
 def test_q6_bindings_absorb_and_measure():

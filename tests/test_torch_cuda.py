@@ -131,6 +131,63 @@ def test_helical_kernel_matches_plain(cuda, nx, ny):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kbt", [KBT, 1e9, 0.5, 0.2])
+@pytest.mark.parametrize("nx,ny,nrep", [(131, 62, 3), (1001, 1000, 1),
+                                        (2001, 2000, 1)])
+def test_helical_kernel_wraps_at_chain_edges(cuda, kbt, nx, ny, nrep):
+    """The unrolled chains at Tc and at the chain edges (kbt 1e9: both
+    chains draw twenty words; 0.5: B8 draws none; 0.2: neither draws),
+    staged and in device memory: S = 3 sweeps against the plain version
+    and three one-sweep launches, the (m, e) bitwise."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+    )
+    m = nx * ny // 2
+    x, o, _, _ = _helical_vectors(cuda, nrep, m, nx + nrep)
+    seeds = hms.sweep_seed_pairs(rng.sample_key(rng.base_key(7), 1), 3)
+    kw = dict(beta=1 / kbt, nx=nx, m=m)
+    ka, kb, kobs = hms.multisweep_planes(x, o, seeds, **kw)
+    pa, pb, pobs = hms.multisweep_plain(x, o, seeds, **kw)
+    vm = hms.valid_mask(m, cuda)
+    for w, want in zip((ka, kb), (pa, pb)):
+        assert torch.equal(hms._u32(w) & vm, hms._u32(want) & vm)
+    assert torch.equal(kobs, pobs)
+    sa, sb = x, o
+    for s in range(3):
+        sa, sb, so = hms.multisweep_planes(sa, sb, seeds[s:s + 1], **kw)
+        assert torch.equal(so[:, 0], kobs[:, s])
+    assert torch.equal(hms._u32(sa) & vm, hms._u32(ka) & vm)
+
+
+@pytest.mark.cuda
+def test_helical_entry_refuses_a_bad_chain_table(cuda):
+    """The C entry point checks the table again (chain_table_ok): ends
+    past the 60 draws are refused before any launch."""
+    import ctypes
+
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+    )
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import multispin_rng
+    nx, ny = 131, 62
+    m = nx * ny // 2
+    x, o, _, _ = _helical_vectors(cuda, 1, m, 3)
+    out = [torch.empty_like(x), torch.empty_like(o)]
+    seeds = hms.keys_to(hms.sweep_seed_pairs(rng.base_key(1), 1), cuda)
+    obs = torch.empty((1, 1, 2), dtype=torch.int64, device=cuda)
+    table = list(multispin_rng.chain_table(msb.chain_words(1 / KBT) + (0,)))
+    table[-1] = 61
+    bad = (ctypes.c_uint * len(table))(*table)
+    lib = hms._lib()
+    da, db = ([d % m for d in offs] for offs in hms.helical_offsets(nx))
+    code = lib.helical_multisweep(
+        x.data_ptr(), o.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        seeds.data_ptr(), None, None, obs.data_ptr(), 1, hms.words(m), m, 1,
+        0, 1, *da, *db, bad, msb._stream(x))
+    assert code != 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("color", [0, 1])
 def test_ising3d_phase_kernel_matches_plain(cuda, color):
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
@@ -1623,6 +1680,36 @@ def test_xy_angle_metro_tile_ragged(cuda, ny, nx, nrep):
                     _xy_sums_close(got[1], want[1])
                     again = xa.metro_phase(ks2, o, rand, **kw)
                     assert torch.equal(again[1], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx,nrep", XY_ANGLE_TILE_SHAPES)
+def test_xy_angle_or_tile_ragged(cuda, ny, nx, nrep):
+    """angle_or_kernel on the Metropolis kernel's tiles and grid at ragged
+    shapes and a capped grid: plain and measuring, both colours, the state
+    bitwise against the plain version, the sums to float64 rounding from
+    at most MAX_TILE_BLOCKS partials a replica, a second launch repeating
+    them bitwise."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_helical_dense_angle as xha,
+        xy2d_pallas_angle as xa,
+    )
+    shape = (nrep, ny, nx // 2)
+    a, b, _, _ = _turns(cuda, shape, nx + ny + 3 * nrep)
+    partials, _ = xha.tile_scratch(a, True)
+    assert partials.shape[1] == xa.metro_blocks(ny, nx // 2)
+    assert partials.shape[1] <= xha.MAX_TILE_BLOCKS
+    for color in (0, 1):
+        s, o = (a, b) if color == 0 else (b, a)
+        for measuring in (False, True):
+            ks, ps, ks2 = s.clone(), s.clone(), s.clone()
+            got = xa.or_phase(ks, o, color=color, measuring=measuring)
+            want = xa.or_phase_plain(ps, o, color=color, measuring=measuring)
+            assert torch.equal(ks, ps)
+            if measuring:
+                _xy_sums_close(got[1], want[1])
+                again = xa.or_phase(ks2, o, color=color, measuring=True)
+                assert torch.equal(again[1], got[1])
 
 
 @pytest.mark.cuda

@@ -96,7 +96,8 @@ Phases (each prints a progress line on stderr):
      aligned tensors and on views 3 and 7 bytes off the 16-B grid); 64
      multisweep sweeps at 1000x1000 x 16 against 64 phase-kernel
      pairs with the measure kernel (state and sums) and against its plain
-     version;
+     version, and 4 at 130x126 x 3 and 8204x4 x 2 (chunked rows) on
+     aligned planes and on views 3 and 7 bytes off the 16-B grid;
    - int8 clock, at 130x126 x 3 for q = 2, 3, 4, 5, 6, 8, 20 and at each
      class's launch with its q (1000x1000 x 16, q = 2; 2000x2000 x 16,
      q = 5; 1000x1000 x 1, q = 6): the phase kernel with injected and
@@ -108,12 +109,13 @@ Phases (each prints a progress line on stderr):
    - masked helical, at 33x32 x 3 (even N), 33x31 x 3 (odd N: the seam
      rows' same-colour pairs), 35x30 x 3 and 35x31 x 5 (replica bases off
      the 16-B grid), 3x2 x 2 (N below one vector; the Ising and XY at
-     these three; and at each small shape the Ising multisweep and the XY
-     phase on views off the 16-B grid) and every main-path launch (Ising
-     1001x1000 x 128, 4001x4000 x 4, 1001x1001 x 16, 1001x1000 x 1 of
-     --protocol samples; clock q = 6 and 5 at 501x500 x 100, q = 2 at
-     1001x1000 x 64, q = 6 at 501x500 x 1, q = 2, 5, 8 at 501x500 and
-     1001x1001 x 2, every q of HP_CLOCK_QS at the small shapes; XY
+     these three; and at each small shape the Ising and clock
+     multisweeps and the XY phase on views off the 16-B grid) and every
+     main-path launch (Ising 1001x1000 x 128, 4001x4000 x 4, 1001x1001 x
+     16, 1001x1000 x 1 of --protocol samples; clock q = 6 and 5 at 501x500
+     x 100, q = 2 at 1001x1000 x 64, q = 6 at 501x500 x 1, q = 2, 5, 8 at
+     501x500 and 1001x1001 x 2, every q of HP_CLOCK_QS at the small
+     shapes; XY
      10001x10000 x 1, 4001x4001 x 2 and x 1): the Ising and clock
      multisweeps with injected and Philox randomness against their plain
      versions and against one-sweep launches (states bitwise, Ising sums
@@ -2532,6 +2534,12 @@ INT8_SHAPES_3D = ((2, 14, 12, 5), (2, 500, 500, 250))
 # the multisweep's check (the resident class's launch), the first sweeps'
 # (shape, sweeps) for >= 1e10 sites each, and the launch shapes timed
 INT8_MS_CHECK = (16, 1000, 500)
+# the multisweep's tile edges, INT8_MS_EDGE_SWEEPS sweeps against its plain
+# version on aligned planes and on views off the 16-B grid: a masked last
+# unit and rows off the 4-byte grid (half 63), rows chunked past
+# ops/ising2d_multisweep.CHUNK_COLS columns with a masked last unit
+INT8_MS_EDGES = ((3, 130, 63), (2, 4, 4102))
+INT8_MS_EDGE_SWEEPS = 4
 INT8_FIRST_SWEEP = (((8, 4000, 2000), 79), ((2, 500, 500, 250), 40))
 INT8_TIMED = ((8, 4000, 2000), (1, 1000, 500), (2, 500, 500, 250))
 # minimum 32-bit instructions a site of an int8 phase beside a quarter of
@@ -2573,8 +2581,10 @@ def check_int8(i2p, i3p, i8m, i8ms, rng, dev) -> dict[str, int]:
     both colours, and the measure kernel, at a ragged small shape and at
     each class's launch shape; 64 multisweep sweeps at 1000x1000 x 16
     against 64 phase-kernel pairs with measure_kernel (state and sums)
-    and against the plain multisweep.  Returns the largest absolute
-    difference a kernel."""
+    and against the plain multisweep, and INT8_MS_EDGE_SWEEPS at
+    INT8_MS_EDGES against the plain multisweep, on aligned planes and on
+    views off the 16-B grid.  Returns the largest absolute difference a
+    kernel."""
     errs = {"phase2d": 0, "phase3d": 0, "measure": 0, "multisweep": 0}
     for shape in INT8_SHAPES_2D + INT8_SHAPES_3D:
         dims = len(shape) - 1
@@ -2617,10 +2627,24 @@ def check_int8(i2p, i3p, i8m, i8ms, rng, dev) -> dict[str, int]:
                            (kobs, torch.stack(obs, dim=1))])
     qa, qb, qobs = i8ms.multisweep_plain(a, b, seeds, beta=1.0 / KBT)
     e_plain = max_abs_err([(ka, qa), (kb, qb), (kobs, qobs)])
-    errs["multisweep"] = max(e_pairs, e_plain)
     log(f"  int8 multisweep {'x'.join(map(str, INT8_MS_CHECK))}, S=64: vs "
         "64 phase pairs and "
         f"measure_kernel {e_pairs}, vs plain {e_plain}")
+    e_edges = 0
+    s_edge = seeds[:INT8_MS_EDGE_SWEEPS]
+    for shape in INT8_MS_EDGES:
+        a, b = int8_state(dev, shape, 7 + sum(shape))
+        qa, qb, qobs = i8ms.multisweep_plain(a, b, s_edge, beta=1.0 / KBT)
+        for off in ((0, 0), OFF_GRID[:2]):
+            ka, kb, kobs = i8ms.multisweep_planes(
+                off_grid_view(a, off[0]), off_grid_view(b, off[1]), s_edge,
+                beta=1.0 / KBT)
+            e_edges = max(e_edges, max_abs_err([(ka, qa), (kb, qb),
+                                                (kobs, qobs)]))
+    log(f"  int8 multisweep at {INT8_MS_EDGES}, S={INT8_MS_EDGE_SWEEPS}, "
+        f"aligned and {OFF_GRID[:2]} bytes off the 16-B grid: vs plain "
+        f"{e_edges}")
+    errs["multisweep"] = max(e_pairs, e_plain, e_edges)
     torch.cuda.synchronize()
     for name, e in errs.items():
         if e != 0:
@@ -2837,7 +2861,9 @@ def time_int8_kernels(i2p, i3p, i8m, i8ms, rng, dev) -> dict:
     4000^2 x 8 (streamed) and 1000^2 x 1 (samples), the 3-D phase at 500^3
     x 2, the measure kernel at each of those, the multisweep at 1000^2 x 16
     with S = 64 and 40 (a call's 15 launches of 64 sweeps and one of 40);
-    each held against its plain version.  Returns {label: (times, err)}."""
+    each held against its plain version; and the multisweep's wrapper and
+    launch alone in turns at S = 64, logged.  Returns {label: (times,
+    err)}."""
     seeds = multispin_keys(rng, 64, 37)
     out = {}
     for shape in INT8_TIMED:
@@ -2874,7 +2900,56 @@ def time_int8_kernels(i2p, i3p, i8m, i8ms, rng, dev) -> dict:
             (a, b), 2 * 2 * sites + 16 * a.shape[0] * sweeps,
             2 * sites * sweeps * int8_phase_ops(2)
             + sites * sweeps * OPS_INT8_FUSED, reps=5, plain_reps=1)
+    # the launch alone: the C entry on keys already on the card (the
+    # wrapper adds its checks, tiles and the keys' pinned copy)
+    nrep, ny, half = INT8_MS_CHECK
+    lib, keys = i8ms._lib(), multispin_keys_on(seeds, dev)
+    t4, t8 = i8ms.accept_thresholds_u32(1.0 / KBT)
+    tiles = i8ms._tiles_arg(nrep, ny, half)
+    obs = torch.zeros((nrep, 64, 2), dtype=torch.int64, device=dev)
+
+    def alone():
+        code = lib.ising2d_int8_multisweep(
+            a.data_ptr(), b.data_ptr(), keys.data_ptr(), obs.data_ptr(), nrep,
+            ny, half, 64, t4, t8, tiles,
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"int8 multisweep launch alone: code {code}")
+    wrap, just = wrapper_and_alone(
+        lambda: i8ms.multisweep_planes(a, b, seeds, beta=1.0 / KBT), alone)
+    log(f"  int8 multisweep kernel {'x'.join(map(str, INT8_MS_CHECK))}, "
+        f"S=64, in turns: the wrapper {wrap}, the launch alone {just} ms")
     return out
+
+
+def wrapper_and_alone(wrapper, alone) -> tuple[str, str]:
+    """The ranges of a wrapper's and its launch alone's CUDA-event times a
+    launch in a run of launches, in turns (wrapper, alone, alone,
+    wrapper), 5 launches each: the start event is recorded behind two
+    launches still on the card, as a runner's next launch finds it, so
+    the first timed call's host work overlaps them (after a synchronise
+    it would add its host time over 5 to the wrapper's reading)."""
+    times = {wrapper: [], alone: []}
+    for fn in (wrapper, alone, alone, wrapper):
+        fn()
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times[fn].append(start.elapsed_time(stop) / 5)
+    return tuple(f"{min(t):.4f}-{max(t):.4f}" for t in times.values())
+
+
+def multispin_keys_on(seeds, dev) -> torch.Tensor:
+    """(S, 2, 2) phase keys as the kernels read them, on the card."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import multispin_rng
+    keys = multispin_rng.keys_to(seeds, dev)
+    torch.cuda.synchronize()
+    return keys
 
 
 def compare_int8_routes(i2p, i8m, i8ms, rng, dev) -> list[tuple]:
@@ -3591,7 +3666,7 @@ def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
     state; the XY phase with injected and Philox uniforms, both colours,
     measuring and not (fused at even N, the measure launch at odd N), the
     OR phase and the measure mode (states bitwise, sums within 1e-12 of
-    their scale); then the Ising multisweep, the XY phase and the OR
+    their scale); then the two multisweeps, the XY phase and the OR
     phase on views that start off the 16-B grid (the OR also at the OR
     class's 10001x10000 x 1).  Returns the largest error a kernel."""
     errs = {"ising": 0.0, "clock": 0.0, "xy_phase": 0.0, "xy_or": 0.0,
@@ -3679,8 +3754,9 @@ def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
         log(f"  helical_pallas xy {nrep}x{ny}x{nx}: phase {e_ph}, or {e_or}, "
             f"sums rel {rel:.3g}")
         del sx, sy, u
-    # views that start off the 16-B grid: Ising at 3 bytes; XY at 1 float,
-    # its out planes at 1 (vectors from off0 = 1) and at 0 (float by float)
+    # views that start off the 16-B grid: Ising and the clock at 3 bytes;
+    # XY at 1 float, its out planes at 1 (vectors from off0 = 1) and at 0
+    # (float by float)
     for shape in HP_SMALL:
         nrep, ny, nx = shape
         n = ny * nx
@@ -3690,6 +3766,12 @@ def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
         pi, opi = hp.ising_multisweep_plain(x, seeds[:2], beta=1.0 / KBT,
                                             nx=nx)
         e_i = max_abs_err([(ki, pi), (oi, opi)])
+        xc = hp_clock_state(dev, shape, 6, n + 11)
+        kw = dict(beta=1.0 / KBT_CLOCK_08, nx=nx, q=6)
+        kc, oc = hp.clock_multisweep(hp_offset(xc, 3), seeds[:2], **kw)
+        pc, opc = hp.clock_multisweep_plain(xc, seeds[:2], **kw)
+        e_c = max_abs_err([(kc, pc)])
+        rel_c = scaled_err(oc, opc, n)
         sx, sy = hp_xy_state(dev, shape, n + 9)
         key = rng.seeds_from_key(rng.base_key(87), 1)
         kw = dict(color=1, nx=nx, beta=1.0 / KBT_XY, measuring=True)
@@ -3703,11 +3785,13 @@ def check_helical_pallas(hp, rng, dev) -> dict[str, float]:
             rel = max(rel, scaled_err(got[2], want[2], 2 * n))
         e_o = hp_or_off_grid(hp, sx, sy, nx)
         errs["ising"] = max(errs["ising"], e_i)
+        errs["clock"] = max(errs["clock"], e_c)
         errs["xy_phase"] = max(errs["xy_phase"], e_x)
         errs["xy_or"] = max(errs["xy_or"], e_o)
-        errs["sums_rel"] = max(errs["sums_rel"], rel)
+        errs["sums_rel"] = max(errs["sums_rel"], rel, rel_c)
         log(f"  helical_pallas {nrep}x{ny}x{nx} off the 16-B grid: ising "
-            f"{e_i}, xy phase {e_x}, or {e_o}, sums rel {rel:.3g}")
+            f"{e_i}, clock {e_c} (sums rel {rel_c:.3g}), xy phase {e_x}, "
+            f"or {e_o}, sums rel {rel:.3g}")
     # the over-relaxation at the OR class's launch, every plane 4 B past
     # the 16-B grid
     sx, sy = hp_xy_state(dev, (1, HY, HX), 95)
@@ -3951,7 +4035,8 @@ def time_hp_kernels(hp, rng, dev) -> dict:
     version: the Ising multisweep at 1001x1000 x 128 and the clock one at
     501x500 x 100, q = 6, both with S = HP_TIMED_SWEEPS; the XY phase at
     10001x10000 x 1, colour 0 and colour 1 fused, the OR phase and the
-    measure mode.  Returns {label: (times, err)}."""
+    measure mode; the clock multisweep's wrapper and launch alone in
+    turns, logged.  Returns {label: (times, err)}."""
     S = HP_TIMED_SWEEPS
     seeds = multispin_keys(rng, S, 93)
     out = {}
@@ -3981,6 +4066,28 @@ def time_hp_kernels(hp, rng, dev) -> dict:
         2 * sites + 24 * nrep * S,
         sites * S * (OPS_PER_PHILOX / 2 + OPS_HP_INDEX + OPS_CLOCK8_SITE)
         + sites * S * OPS_CLOCK8_FUSED // 2, reps=5, plain_reps=1)
+    # the launch alone: the C entry on keys, tables and scratch already on
+    # the card
+    lib, keys = hp._lib(), multispin_keys_on(seeds, dev)
+    tab = hp._device_table(6, str(dev), torch.float32)
+    tab64 = hp._device_table(6, str(dev), torch.float64)
+    g = hp.ising_tiles(nrep, n, nx, x.data_ptr())
+    part = torch.empty((nrep, S, g["tpr"], 3), dtype=torch.float64,
+                       device=dev)
+    obs = torch.empty((nrep, S, 3), dtype=torch.float64, device=dev)
+
+    def alone():
+        code = lib.hp_clock_multisweep(
+            x.data_ptr(), None, keys.data_ptr(), None, None, tab.data_ptr(),
+            tab64.data_ptr(), part.data_ptr(), obs.data_ptr(), nrep, n, nx, 6,
+            S, -1.0 / KBT_CLOCK_08, g["off0"], g["tpr"],
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"masked clock multisweep launch alone: code {code}")
+    wrap, just = wrapper_and_alone(
+        lambda: hp.clock_multisweep(x, seeds, **kw), alone)
+    log(f"  helical_pallas clock multisweep 501x500 x 100, q=6, S={S}, in "
+        f"turns: the wrapper {wrap}, the launch alone {just} ms")
     del x
     n = HX * HY
     sx, sy = hp_xy_state(dev, (1, HY, HX), 9)
@@ -5563,8 +5670,9 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"  cooperative grids: 2-D {msb.multisweep_grid_blocks()}, 3-D "
         f"{ms3.multisweep_grid_blocks()}, XY {xyr.grid_blocks()}, int8 2-D "
-        f"{i8ms.grid_blocks()}, int8 clock {c8ms.grid_blocks(16, 1000, 500)} "
-        f"(1000^2 x 16), masked helical Ising {hp.grid_blocks(0, False)} (odd N "
+        f"{i8ms.grid_blocks(16, 1000, 500)}, int8 clock "
+        f"{c8ms.grid_blocks(16, 1000, 500)} (both 1000^2 x 16), masked "
+        f"helical Ising {hp.grid_blocks(0, False)} (odd N "
         f"{hp.grid_blocks(0, True)}), clock {hp.grid_blocks(1, False)} (odd N "
         f"{hp.grid_blocks(1, True)}), XY int16 {xyi.grid_blocks()} blocks "
         "resident")

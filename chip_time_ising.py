@@ -1,5 +1,6 @@
 """CUDA-event times of the periodic Ising kernels at the smoke's launch
-shapes: the int8 S-sweep kernel (1000x1000 x 16, S = 64), the int8 phase
+shapes: the int8 S-sweep kernel (1000x1000 x 16, S = 64 and 40, with the
+SASS of its multisweep_kernel), the int8 phase
 kernels (4000x4000 x 8; 500^3 x 2) and the bit-packed phase kernels,
 measuring (8192x8192 x 4; 512^3 x 8), each on a random state, with the
 resident blocks of the int8 S-sweep grid; beside them the periodic 3-D
@@ -42,9 +43,10 @@ with the SASS of multisweep_kernel; with ``--masked``,
 the masked helical Ising multisweep (csrc/helical_pallas.cu
 ising_multisweep_kernel) at its four main-path launches, 1001x1000 x 128,
 4001x4000 x 4, 1001x1001 x 16 and the samples class's 1001x1000 x 1, S =
-16 sweeps each, with its SASS, and beside it the masked clock multisweep
-of the same source (clock_multisweep_kernel) at its class's 501x500 x
-100, q = 6, S = 16; with ``--samples``, the four int8 kernels
+16 sweeps each, and at 1001x1000 x 128 with S = 64, and beside it the
+masked clock multisweep of the same source (clock_multisweep_kernel) at
+its class's 501x500 x 100, q = 6, S = 16 and 64, with the SASS of both;
+with ``--samples``, the four int8 kernels
 of the one-replica samples classes at 1000x1000 x 1 (the Ising phase and
 measure kernels, the clock's at q = 6), each event-timed as the smoke
 times them and as a CUDA graph of 50 launches (the kernel alone, without
@@ -54,7 +56,10 @@ picks (ops/ising2d_multispin.multisweep_grid) and at the grid of the
 fewest tiles a block, and the same for a build of its source with the
 kernel capped at 64 registers (__launch_bounds__(256, 4): four blocks an
 SM; built into .build/variants/), each launch held bitwise against the
-wrapper's; with ``--measure-variants``, the int8 measure kernel (row 27)
+wrapper's; with ``--key-variants``, rows 26 and 31 at their classes'
+launches through the wrapper, as the launch alone and on builds with their
+round keys in registers (into .build/variants/), each held bitwise against
+the wrapper; with ``--measure-variants``, the int8 measure kernel (row 27)
 at 500^3 x 2 and 4000x4000 x 8 on its library and on builds raising its
 blocks an SM to 6 and 8 (__launch_bounds__), and at 500^3 x 2 with runs
 of 1, 2, 4 and 8 planes a block, each held against the library's sums;
@@ -68,7 +73,8 @@ the includers of a shared header unchanged across two checkouts.
                                [--clock | --helical | --helical3d |
                                 --masked |
                                 --samples | --ms-grids |
-                                --measure-variants | --registers]
+                                --key-variants | --measure-variants |
+                                --registers]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
 the kernels on first use.  It uses only the wrappers' public API, so to
@@ -78,7 +84,7 @@ power limit, the ptxas register report of the build, with ``--helical3d``
 and ``--clock`` the SASS of phase_kernel (both also of
 multisweep_kernel, the default mode also of the int8 3-D tile_kernel;
 ``--masked``: of
-ising_multisweep_kernel; instructions, the instructions of each loop,
+ising_multisweep_kernel and clock_multisweep_kernel; instructions, the instructions of each loop,
 the commonest opcodes; where cuobjdump exists), and last one JSON line
 {mode: [ms a launch, one per round]} (``"int8_multisweep_blocks": n``,
 ``"packed_3d_multisweep_blocks": n`` and ``"packed_2d_multisweep_blocks":
@@ -271,26 +277,29 @@ def helical_modes(words, dev):
 
 
 def masked_modes(spins, gen, dev):
-    """The masked helical Ising multisweep at MASKED_SHAPES and the masked
-    clock multisweep at 501x500 x 100, q = 6, S = MASKED_SWEEPS, on random
-    states (updated in place, launch after launch)."""
+    """The masked helical Ising multisweep at MASKED_SHAPES with S =
+    MASKED_SWEEPS (the first also with S = 64) and the masked clock
+    multisweep at 501x500 x 100, q = 6, S = MASKED_SWEEPS and 64, on
+    random states (updated in place, launch after launch)."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         helical_pallas as hp,
         multispin_rng,
     )
     seeds = multispin_rng.sweep_phase_keys(
-        torch.tensor([12345, 678], dtype=torch.int64), MASKED_SWEEPS)
+        torch.tensor([12345, 678], dtype=torch.int64), 64)
     modes = {}
-    for nrep, ny, nx in MASKED_SHAPES:
+    for k, (nrep, ny, nx) in enumerate(MASKED_SHAPES):
         x = spins((nrep, ny * nx))
-        modes[f"masked multisweep {ny}x{nx} x {nrep} S={MASKED_SWEEPS}"] = (
-            lambda x=x, nx=nx: hp.ising_multisweep(x, seeds, beta=1 / KBT_2D,
-                                                   nx=nx))
+        for sweeps in (MASKED_SWEEPS, 64)[:2 if k == 0 else 1]:
+            modes[f"masked multisweep {ny}x{nx} x {nrep} S={sweeps}"] = (
+                lambda x=x, nx=nx, s=sweeps: hp.ising_multisweep(
+                    x, seeds[:s], beta=1 / KBT_2D, nx=nx))
     c = torch.randint(0, 6, (100, 500 * 501), generator=gen, device=dev,
                       dtype=torch.int64).to(torch.int8)
-    modes[f"masked clock multisweep 500x501 x 100 q=6 S={MASKED_SWEEPS}"] = (
-        lambda: hp.clock_multisweep(c, seeds, beta=1 / KBT_CLOCK_08, nx=501,
-                                    q=6))
+    for sweeps in (MASKED_SWEEPS, 64):
+        modes[f"masked clock multisweep 500x501 x 100 q=6 S={sweeps}"] = (
+            lambda s=sweeps: hp.clock_multisweep(
+                c, seeds[:s], beta=1 / KBT_CLOCK_08, nx=501, q=6))
     return modes
 
 
@@ -412,6 +421,92 @@ def measure_variant_modes(spins, dev):
         if not torch.equal(run(), want):
             raise RuntimeError(f"zrun {zrun} differs")
         modes[f"int8_measure 3d 500^3 x 2 zrun={zrun}"] = run
+    return modes
+
+
+def key_variant_modes(spins, gen, dev, seeds):
+    """Rows 26 and 31 at their classes' launches (the int8 2-D multisweep
+    at 1000x1000 x 16, S = 64; the masked clock at 501x500 x 100, q = 6,
+    S = 16): through the wrapper, as the launch alone (the C entry on keys
+    already on the card) and on a build of the source whose round keys
+    stay in registers, every thread taking its own, as their first tile
+    designs had them (built into .build/variants/), each launch held
+    bitwise against the wrapper's (``--key-variants``)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_pallas as hp,
+        ising2d_multisweep as i8ms,
+        multispin_rng,
+    )
+    keys = multispin_rng.keys_to(seeds, dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    shared = ("      __shared__ uint2 rk[10];\n      if (threadIdx.x == 0)\n",
+              "      uint2 rk[10];\n      if (true)\n")
+    modes = {}
+    # row 26
+    base = i8ms._lib()
+    var = variant_lib("ising2d_multisweep", *shared, "regkeys", base,
+                      ("ising2d_int8_multisweep",))
+    a0, b0 = spins((16, 1000, 500)), spins((16, 1000, 500))
+    t4, t8 = i8ms.accept_thresholds_u32(1 / KBT_2D)
+    tiles = i8ms._tiles_arg(16, 1000, 500)
+
+    def int8_alone(lib, a, b):
+        obs = torch.zeros((16, 64, 2), dtype=torch.int64, device=dev)
+        code = lib.ising2d_int8_multisweep(
+            a.data_ptr(), b.data_ptr(), keys.data_ptr(), obs.data_ptr(), 16,
+            1000, 500, 64, t4, t8, tiles, stream)
+        if code:
+            raise RuntimeError(f"int8 multisweep launch: {code}")
+        return a, b, obs
+
+    want = i8ms.multisweep_planes(a0.clone(), b0.clone(), seeds,
+                                  beta=1 / KBT_2D)
+    for tag, lib in (("launch alone", base), ("keys in registers", var)):
+        got = int8_alone(lib, a0.clone(), b0.clone())
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"int8 multisweep, {tag}, differs")
+    a, b = a0.clone(), b0.clone()
+    modes["int8_multisweep S=64"] = lambda: i8ms.multisweep_planes(
+        a, b, seeds, beta=1 / KBT_2D)
+    modes["int8_multisweep S=64, launch alone"] = lambda: int8_alone(
+        base, a, b)
+    modes["int8_multisweep S=64, keys in registers"] = lambda: int8_alone(
+        var, a, b)
+    # row 31
+    hbase = hp._lib()
+    hvar = variant_lib("helical_pallas", *shared, "regkeys", hbase,
+                       ("hp_clock_multisweep",))
+    c0 = torch.randint(0, 6, (100, 500 * 501), generator=gen, device=dev,
+                       dtype=torch.int64).to(torch.int8)
+    tab = hp._device_table(6, str(dev), torch.float32)
+    tab64 = hp._device_table(6, str(dev), torch.float64)
+    sw = MASKED_SWEEPS
+
+    def clock_alone(lib, x):
+        g = hp.ising_tiles(100, 250500, 501, x.data_ptr())
+        part = torch.empty((100, sw, g["tpr"], 3), dtype=torch.float64,
+                           device=dev)
+        obs = torch.empty((100, sw, 3), dtype=torch.float64, device=dev)
+        code = lib.hp_clock_multisweep(
+            x.data_ptr(), None, keys.data_ptr(), None, None, tab.data_ptr(),
+            tab64.data_ptr(), part.data_ptr(), obs.data_ptr(), 100, 250500,
+            501, 6, sw, -1 / KBT_CLOCK_08, g["off0"], g["tpr"], stream)
+        if code:
+            raise RuntimeError(f"masked clock launch: {code}")
+        return x, obs
+
+    want = hp.clock_multisweep(c0.clone(), seeds[:sw], beta=1 / KBT_CLOCK_08,
+                               nx=501, q=6)
+    for tag, lib in (("launch alone", hbase), ("keys in registers", hvar)):
+        got = clock_alone(lib, c0.clone())
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"masked clock, {tag}, differs")
+    c = c0.clone()
+    label = f"masked clock multisweep 500x501 x 100 q=6 S={sw}"
+    modes[label] = lambda: hp.clock_multisweep(
+        c, seeds[:sw], beta=1 / KBT_CLOCK_08, nx=501, q=6)
+    modes[f"{label}, launch alone"] = lambda: clock_alone(hbase, c)
+    modes[f"{label}, keys in registers"] = lambda: clock_alone(hvar, c)
     return modes
 
 
@@ -554,6 +649,9 @@ def main() -> int:
                     "kernels instead, also as CUDA graphs")
     ap.add_argument("--ms-grids", action="store_true",
                     help="time the 2-D multisweep's grid choices instead")
+    ap.add_argument("--key-variants", action="store_true",
+                    help="time rows 26 and 31 as the launch alone and with "
+                    "their round keys in registers instead")
     ap.add_argument("--measure-variants", action="store_true",
                     help="time the int8 measure kernel's builds instead")
     ap.add_argument("--registers", action="store_true",
@@ -601,6 +699,9 @@ def main() -> int:
     elif args.ms_grids:
         modes, libs = ms_grid_modes(words, msb, seeds, b2), [
             "ising2d_multispin"]
+    elif args.key_variants:
+        modes, libs = key_variant_modes(spins, gen, dev, seeds), [
+            "ising2d_multisweep", "helical_pallas"]
     elif args.measure_variants:
         modes, libs = measure_variant_modes(spins, dev), [
             "ising2d_measure_pallas"]
@@ -630,8 +731,13 @@ def main() -> int:
             end.synchronize()
             times[mode].append(start.elapsed_time(end) / reps)
     if not (args.clock or args.helical or args.helical3d or args.masked
-            or args.samples or args.ms_grids or args.measure_variants):
-        times["int8_multisweep_blocks"] = i8ms.grid_blocks()
+            or args.samples or args.ms_grids or args.measure_variants
+            or args.key_variants):
+        # the grid of the tiles at 1000^2 x 16 (a tree before them: one
+        # grid for every shape)
+        times["int8_multisweep_blocks"] = (
+            i8ms.grid_blocks(16, 1000, 500) if hasattr(i8ms, "ms_tiles")
+            else i8ms.grid_blocks())
         times["packed_3d_multisweep_blocks"] = ms3.multisweep_grid_blocks()
         times["packed_2d_multisweep_blocks"] = msb.multisweep_grid_blocks()
     smi = subprocess.run(
@@ -651,17 +757,20 @@ def main() -> int:
         sass_report("helical3d_multispin", ("phase_kernel",
                                             "multisweep_kernel"))
     elif args.masked:
-        sass_report("helical_pallas", ("ising_multisweep_kernel",))
+        sass_report("helical_pallas", ("ising_multisweep_kernel",
+                                       "clock_multisweep_kernel"))
     elif args.clock:
         sass_report("clock_planes", ("phase_kernel",))
         sass_report("clock_multisweep", ("multisweep_kernel",))
-    elif not (args.samples or args.ms_grids or args.measure_variants):
+    elif not (args.samples or args.ms_grids or args.measure_variants
+              or args.key_variants):
         sass_report("ising3d_multispin", ("phase_kernel",
                                           "multisweep_kernel"))
         sass_report("ising3d_pallas", ("tile_kernel",))
         sass_report("ising2d_multispin", ("phase_kernel",
                                           "multisweep_kernel"))
         sass_report("ising2d_measure_pallas", ("measure_kernel",))
+        sass_report("ising2d_multisweep", ("multisweep_kernel",))
     print(json.dumps(times))
     return 0
 
@@ -695,6 +804,8 @@ def ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds, phase_key,
     return {
         "int8_multisweep": lambda: i8ms.multisweep_planes(ra, rb, seeds,
                                                           beta=b2),
+        "int8_multisweep S=40": lambda: i8ms.multisweep_planes(
+            ra, rb, seeds[:40], beta=b2),
         "int8_phase": lambda: i2p.metropolis_phase(sa, sb, phase_key,
                                                    color=0, beta=b2),
         "int8_3d_phase": lambda: i3p.metropolis_phase(va, vb, phase_key,

@@ -1,7 +1,8 @@
 // Contiguous int8 byte ranges staged in shared memory by the tile kernels
-// (csrc/ising3d_pallas.cu tile_kernel, csrc/clock_multisweep.cu
-// multisweep_kernel), the four-byte windows they read there and the
-// write-back of a staged range.
+// (csrc/ising3d_pallas.cu tile_kernel, csrc/clock_multisweep.cu and
+// csrc/ising2d_multisweep.cu multisweep_kernel), the four-byte windows
+// they read there and the write-back of a staged range; and the tiles of
+// whole rows the two 2-D multisweeps walk (RowTiles).
 //
 // A range of len bytes at any address src is copied as the aligned 16-B
 // vectors that cover it (cp.async, bypassing L1, so a read after a grid
@@ -14,6 +15,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace tiles8 {
@@ -76,6 +78,83 @@ __device__ __forceinline__ uint32_t win(const uint32_t* w, int sh) {
 // second word may fall
 __host__ inline int span_bytes(long long len) {
   return static_cast<int>(16 * ((len + 15) / 16 + 2));
+}
+
+// The launch constants of the 2-D multisweeps' tiles
+// (ops/ising2d_multisweep.ms_tiles computes them, in this order; the
+// entry points take them as passed).  A tile is `rows` whole rows of one
+// replica, or past MAX_COLUMNS columns one row's chunk of cw columns.
+struct RowTiles {
+  int rows;    // rows of a tile (1 in a chunk)
+  int lux;     // log2 of the threads along a row: ux = 1 << lux
+  int cw;      // columns of a tile: half, or a chunk's (a multiple of 4)
+  int nch;     // chunks a row (1 with whole rows)
+  int nty;     // row tiles a replica
+  int buf[4];  // byte offsets of the own, centre, y0 - 1 and y0 + rows
+               // copies in shared memory (16-B aligned, each with 16
+               // bytes before it and 32 after its vectors)
+  int smem;    // bytes of dynamic shared memory
+};
+constexpr int ROW_TILE_INTS = 10;
+static_assert(sizeof(RowTiles) == ROW_TILE_INTS * 4,
+              "ops/ising2d_multisweep.py passes the tiles as 10 ints");
+// the widest chunk (ops/ising2d_multisweep.CHUNK_COLS)
+constexpr int MAX_COLUMNS = 4096;
+
+// The constants as ms_tiles builds them; refuses others
+__host__ inline bool row_tiles_ok(const RowTiles& t, int ny, int half) {
+  if (t.lux < 2 || t.lux > 8 || t.rows < 1 ||
+      t.rows % (STAGE_THREADS >> t.lux) != 0)
+    return false;
+  if (t.cw < 1 || t.nch < 1 || static_cast<long long>(t.nch) * t.cw < half ||
+      static_cast<long long>(t.nch - 1) * t.cw >= half ||
+      (t.nch > 1 && (t.cw % 4 != 0 || t.rows != 1 || t.cw > MAX_COLUMNS)) ||
+      (t.nch == 1 && t.cw != half))
+    return false;
+  if (t.nty < 1 || static_cast<long long>(t.nty) * t.rows < ny ||
+      static_cast<long long>(t.nty - 1) * t.rows >= ny ||
+      static_cast<long long>(t.nty) * t.nch >= (1LL << 31))
+    return false;
+  // own, centre (two columns wider in a chunk), then the rows
+  const long long lx =
+      static_cast<long long>(t.rows - 1) * half + std::min(t.cw, half);
+  const int need[4] = {span_bytes(lx), span_bytes(lx + 2),
+                       span_bytes(std::min(t.cw, half)),
+                       span_bytes(std::min(t.cw, half))};
+  int end = 0;
+  for (int k = 0; k < 4; ++k) {
+    if (t.buf[k] % 16 != 0 || t.buf[k] < end + 16) return false;
+    end = t.buf[k] + need[k];
+  }
+  return t.smem >= end && t.smem <= 48 * 1024;
+}
+
+// The walk's steps: a grid of `blocks` blocks as (replicas, row tiles,
+// chunks) of the walk, blocks = (step[0] nty + step[1]) nch + step[2]
+__host__ inline void row_tile_steps(const RowTiles& t, int blocks,
+                                    int (&step)[3]) {
+  const int per_rep = t.nty * t.nch;
+  step[0] = blocks / per_rep;
+  step[1] = (blocks - step[0] * per_rep) / t.nch;
+  step[2] = blocks - step[0] * per_rep - step[1] * t.nch;
+}
+
+// A block's next tile (r, yt, cx), gridDim.x tiles on: the steps added
+// with carries, no division
+__device__ __forceinline__ void next_row_tile(const RowTiles& t,
+                                              const int (&step)[3], int& r,
+                                              int& yt, int& cx) {
+  cx += step[2];
+  if (cx >= t.nch) {
+    cx -= t.nch;
+    ++yt;
+  }
+  yt += step[1];
+  if (yt >= t.nty) {
+    yt -= t.nty;
+    ++r;
+  }
+  r += step[0];
 }
 
 }  // namespace tiles8

@@ -21,7 +21,8 @@
 // operations in the same order on the same table values, so S sweeps
 // here equal S pairs of phase_kernel launches, bitwise in the state.
 //
-// Tiles (ops/clock_multisweep.ms_tiles computes the constants; the entry
+// Tiles (csrc/byte_tiles.cuh RowTiles; ops/ising2d_multisweep.ms_tiles
+// computes the constants, shared with the int8 Ising multisweep; the entry
 // point takes them as passed).  A tile is `rows` whole rows y0 .. of one
 // replica (past its CHUNK_COLS columns one row's chunk of cw columns).  Its
 // four byte ranges are contiguous: its own sites, the other colour's rows
@@ -56,7 +57,6 @@
 // of it (PERF.md §6).
 #include <cooperative_groups.h>
 
-#include <algorithm>
 #include <cstring>
 
 #include "byte_tiles.cuh"
@@ -69,27 +69,12 @@ namespace {
 using clock8::TABLE;
 using clock8::THREADS;
 using tiles8::put_byte;
-using tiles8::span_bytes;
 using tiles8::stage;
 using tiles8::win;
 using tiles8::write_back;
 static_assert(THREADS == tiles8::STAGE_THREADS, "a block stages its tiles");
 
-// The launch constants of ops/clock_multisweep.ms_tiles, in its order.
-struct Tiles {
-  int rows;    // rows of a tile (1 in a chunk)
-  int lux;     // log2 of the threads along a row: ux = 1 << lux
-  int cw;      // columns of a tile: half, or a chunk's (a multiple of 4)
-  int nch;     // chunks a row (1 with whole rows)
-  int nty;     // row tiles a replica
-  int buf[4];  // byte offsets of the own, centre, y0 - 1 and y0 + rows
-               // copies in shared memory (16-B aligned, each with 16
-               // bytes before it and 32 after its vectors)
-  int smem;    // bytes of dynamic shared memory
-};
-constexpr int TILE_WORDS = 10;
-static_assert(sizeof(Tiles) == TILE_WORDS * 4, "ops/clock_multisweep.py "
-              "passes the tiles as 10 ints");
+using Tiles = tiles8::RowTiles;
 
 struct Multisweep {
   int8_t* a;             // (R, ny, half), updated in place
@@ -100,9 +85,7 @@ struct Multisweep {
   double* partials;      // (R, S, nty nch, 3)
   int nrep, ny, half, q, sweeps;
   float neg_beta;
-  // the grid's blocks as (replicas, row tiles, chunks) of the walk:
-  // gridDim.x = (step_r nty + step_y) nch + step_c
-  int step_r, step_y, step_c;
+  int step[3];  // the walk's steps (tiles8::row_tile_steps)
   Tiles t;
 };
 
@@ -290,52 +273,11 @@ __global__ void __launch_bounds__(THREADS) multisweep_kernel(Multisweep ms) {
           tile<true>(ms, sm, tab, tab64, rk, x, o, 1, r, yt, cx, s);
         else
           tile<false>(ms, sm, tab, tab64, rk, x, o, 0, r, yt, cx, s);
-        cx += ms.step_c;
-        if (cx >= t.nch) {
-          cx -= t.nch;
-          ++yt;
-        }
-        yt += ms.step_y;
-        if (yt >= t.nty) {
-          yt -= t.nty;
-          ++r;
-        }
-        r += ms.step_r;
+        tiles8::next_row_tile(t, ms.step, r, yt, cx);
       }
       grid.sync();
     }
   }
-}
-
-// the widest chunk (ops/clock_multisweep.CHUNK_COLS)
-constexpr int MAX_COLUMNS = 4096;
-
-// The constants as ms_tiles builds them; refuses others
-bool tiles_ok(const Tiles& t, int ny, int half) {
-  if (t.lux < 2 || t.lux > 8 || t.rows < 1 ||
-      t.rows % (THREADS >> t.lux) != 0)
-    return false;
-  if (t.cw < 1 || t.nch < 1 || static_cast<long long>(t.nch) * t.cw < half ||
-      static_cast<long long>(t.nch - 1) * t.cw >= half ||
-      (t.nch > 1 && (t.cw % 4 != 0 || t.rows != 1 || t.cw > MAX_COLUMNS)) ||
-      (t.nch == 1 && t.cw != half))
-    return false;
-  if (t.nty < 1 || static_cast<long long>(t.nty) * t.rows < ny ||
-      static_cast<long long>(t.nty - 1) * t.rows >= ny ||
-      static_cast<long long>(t.nty) * t.nch >= (1LL << 31))
-    return false;
-  // own, centre (two columns wider in a chunk), then the rows
-  const long long lx =
-      static_cast<long long>(t.rows - 1) * half + std::min(t.cw, half);
-  const int need[4] = {span_bytes(lx), span_bytes(lx + 2),
-                       span_bytes(std::min(t.cw, half)),
-                       span_bytes(std::min(t.cw, half))};
-  int end = 0;
-  for (int k = 0; k < 4; ++k) {
-    if (t.buf[k] % 16 != 0 || t.buf[k] < end + 16) return false;
-    end = t.buf[k] + need[k];
-  }
-  return t.smem >= end && t.smem <= 48 * 1024;
 }
 
 }  // namespace
@@ -343,7 +285,7 @@ bool tiles_ok(const Tiles& t, int ny, int half) {
 extern "C" {
 
 // Blocks of the cooperative grid for the tiles (the 10 ints of
-// ops/clock_multisweep.ms_tiles): as many as can be resident at once on
+// ops/ising2d_multisweep.ms_tiles): as many as can be resident at once on
 // the current device with the tile's shared memory (0 if none fits).
 int clock_int8_multisweep_grid(const int* tiles, int* blocks) {
   Tiles t;
@@ -362,7 +304,7 @@ int clock_int8_multisweep_grid(const int* tiles, int* blocks) {
 // S sweeps of a, b (R, ny, half) int8 in place under seeds (S, 2, 2);
 // tab, tab64 the (2, 128) float32 and float64 tables; partials
 // (R, S, nty nch, 3) float64 scratch; per-sweep (Σ cos, Σ sin, E) into
-// obs (R, S, 3) float64; tiles the 10 ints of ops/clock_multisweep.
+// obs (R, S, 3) float64; tiles the 10 ints of ops/ising2d_multisweep.
 // ms_tiles.
 int clock_int8_multisweep(void* a, void* b, const void* seeds,
                           const void* tab, const void* tab64, void* partials,
@@ -373,7 +315,7 @@ int clock_int8_multisweep(void* a, void* b, const void* seeds,
   Multisweep ms{};
   std::memcpy(&ms.t, tiles, sizeof(Tiles));
   if (!clock8::launchable(g, nrep, q) || sweeps < 1 ||
-      !tiles_ok(ms.t, ny, half))
+      !tiles8::row_tiles_ok(ms.t, ny, half))
     return static_cast<int>(cudaErrorInvalidValue);
   const int per_rep = ms.t.nty * ms.t.nch;
   const long long total = static_cast<long long>(nrep) * per_rep;
@@ -398,9 +340,7 @@ int clock_int8_multisweep(void* a, void* b, const void* seeds,
   ms.q = q;
   ms.sweeps = sweeps;
   ms.neg_beta = neg_beta;
-  ms.step_r = blocks / per_rep;
-  ms.step_y = (blocks - ms.step_r * per_rep) / ms.t.nch;
-  ms.step_c = blocks - ms.step_r * per_rep - ms.step_y * ms.t.nch;
+  tiles8::row_tile_steps(ms.t, blocks, ms.step);
   void* args[] = {&ms};
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = cudaLaunchCooperativeKernel(

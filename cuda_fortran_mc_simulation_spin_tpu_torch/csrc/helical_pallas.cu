@@ -37,16 +37,16 @@
 // sites (site k takes output k & 3), a clock or XY unit two (site k takes
 // outputs 2(k & 1) and 2(k & 1) + 1, uniforms from their top 24 bits).
 //
-// Tiles of the Ising multisweep and the XY kernel's four modes
+// Tiles of the two multisweeps and the XY kernel's four modes
 // (ops/helical_pallas.py ising_tiles, xy_tiles): a thread takes 16-B
-// aligned vectors of a replica
-// (16 bytes, 4 floats) and reads its own vector, the aligned vectors under
-// its up window (sites - nx) and its down window (+ nx) and their
-// successors, and its ±1 neighbours, all before it stores its vector:
-// the Ising multisweep from a tile staged in shared memory, the XY modes
-// from registers and the neighbour lanes.  Only the vectors that reach
-// past a replica (a wrap mod N, a replica base that is not 16-B aligned,
-// at odd N the seam rows' snapshot) take the per-element path.
+// aligned vectors of a replica (16 bytes, 4 floats) and reads its own
+// vector, the aligned vectors under its up window (sites - nx) and its
+// down window (+ nx) and their successors, and its ±1 neighbours, all
+// before it stores its vector: the multisweeps from a tile staged in
+// shared memory, the XY modes from registers and the neighbour lanes.
+// Only the vectors that reach past a replica (a wrap mod N, a replica
+// base that is not 16-B aligned, at odd N the seam rows' snapshot) take
+// the per-element path.
 //
 // Bounds on the H100.  The multisweep kernels: operations (a launch reads
 // and writes the states once, then runs 2 S phases of ~30 (Ising) or ~80
@@ -62,10 +62,12 @@
 // __fsub_rn in the plain version's order (no FMA contraction); expf and
 // rsqrtf are the functions torch.exp and torch.rsqrt call on CUDA tensors,
 // so kernel and plain version agree bitwise on the card.  Sums: int64
-// atomics (Ising, exact in any order), else float64 per block in a fixed
-// order and per (replica, sweep) by xy::reduce_kernel: no float atomics.
+// atomics (Ising, exact in any order), else float64 per tile or block in a
+// fixed order and per (replica, sweep) by xy::reduce_kernel: no float
+// atomics.
 #include <cooperative_groups.h>
 
+#include "byte_tiles.cuh"
 #include "clock_int8.cuh"
 #include "ising_int8.cuh"
 
@@ -84,38 +86,6 @@ struct Flat {
 
 __device__ __forceinline__ int colour_sites(const Flat& f, int c) {
   return c ? f.n / 2 : f.m0;
-}
-
-__device__ __forceinline__ int wrapn(int j, int n) {
-  return j < 0 ? j + n : (j >= n ? j - n : j);
-}
-
-// Site j of a replica's state as of the phase's start: in place the state
-// holds it, except at odd N for rows 0 and ny-1, whose snapshot (row 0,
-// then row ny-1) is read instead.  The loads bypass L1: other SMs wrote
-// the state before the last grid barrier.
-template <bool ODD, typename T>
-__device__ __forceinline__ T at(const T* x, const T* seam, const Flat& f,
-                                int j) {
-  if (ODD) {
-    if (j < f.nx) return __ldcg(seam + j);
-    if (j >= f.n - f.nx) return __ldcg(seam + (j - (f.n - 2 * f.nx)));
-  }
-  return __ldcg(x + j);
-}
-
-// The four neighbour indices of idx: up, dn, left, right
-struct Nbrs {
-  int up, dn, left, right;
-};
-
-__device__ __forceinline__ Nbrs nbrs_of(const Flat& f, int idx) {
-  Nbrs b;
-  b.up = wrapn(idx - f.nx, f.n);
-  b.dn = wrapn(idx + f.nx, f.n);
-  b.left = wrapn(idx - 1, f.n);
-  b.right = wrapn(idx + 1, f.n);
-  return b;
 }
 
 // Copies rows 0 and ny-1 of every replica into seam (R, 2 nx); the caller
@@ -214,12 +184,6 @@ __device__ __noinline__ uint4 bytes16(const int8_t* xr, const int8_t* seam,
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -238,7 +202,7 @@ __device__ __forceinline__ void stage16(uint4* dst, const int8_t* xr,
                                         const int8_t* seam, const Flat& f,
                                         int u) {
   if (u >= 0 && u <= f.n - 16)
-    cp_async16(dst, xr + u);
+    tiles8::cp_async16(dst, xr + u);
   else
     *dst = bytes16<ODD>(xr, seam, f, u);
 }
@@ -546,13 +510,14 @@ __device__ __forceinline__ void next_tile(const IsingTiles& g, int& r,
 // Tiles a block stages ahead of the one it computes, plus that one
 constexpr int STAGES = 2;
 
-// One pass of a block over its tiles from (r0, ts0): tiles i + 1 ..
-// i + STAGES - 1 are in flight while tile i is computed by
+// One pass of a block over its tiles from (r0, ts0) of the states ms.x
+// (ms.seam the snapshot, ms.nrep replicas; IsingMs or ClockMs): tiles
+// i + 1 .. i + STAGES - 1 are in flight while tile i is computed by
 // `body(stage, r, ts)`; a group is committed every step, empty past the
 // last tile, so the wait is always for the oldest.
-template <bool ODD, bool UP, typename Body>
+template <bool ODD, bool UP, typename Ms, typename Body>
 __device__ __forceinline__ void ising_pass(IsingStage (&st)[STAGES],
-                                           const IsingMs& ms, const Flat& f,
+                                           const Ms& ms, const Flat& f,
                                            const IsingTiles& g, int r0,
                                            int ts0, Body body) {
   int rp = r0, tp = ts0;  // the next tile to stage
@@ -635,6 +600,21 @@ __global__ void __launch_bounds__(THREADS)
 // ---------------------------------------------------------------------------
 // clock
 // ---------------------------------------------------------------------------
+//
+// The clock multisweep runs on the Ising multisweep's tiles (IsingStage,
+// stage_tile, ising_pass): lane t of a tile holds the aligned vector of
+// sites a .. a + 15, eight of colour c (bytes p0 + 2i, colour sites
+// k0 + i), and reads their neighbours from its own, up and down windows
+// and its neighbour lanes' edge bytes.  A clock unit is two colour sites,
+// so a lane's sites are four units: units k0 / 2 .. + 3 where k0 is even,
+// else the second half of unit k0 >> 1, three whole units and the first
+// half of the next lane's first unit (k0 & 1 is the same in every lane of
+// a tile), whose words a shuffle brings and lane 31 draws itself.  A
+// state indexes the staged tables, (cos, sin) as float2 for the update
+// and as double2 for the sums.  The first design, one thread a unit with
+// five byte loads from L2 a site at indices wrapped one by one, a
+// division a tile and the round keys recomputed in every Philox call, ran
+// at 23% of its bound; this one at 36% (PERF.md §6).
 
 struct ClockMs {
   int8_t* x;              // (R, N) states in [0, q), updated in place
@@ -644,161 +624,269 @@ struct ClockMs {
   const float* uacc;
   const float* tab;       // (2, 128) float32 (cos, sin)
   const double* tab64;    // (2, 128) float64 (cos, sin)
-  double* partials;       // (R, S, chunks, 3)
+  double* partials;       // (R, S, tpr, 3): a partial a tile
   int nrep, sweeps, q;
   float neg_beta;
 };
 
-__device__ __forceinline__ int state(int8_t v) {
-  return static_cast<int>(v) & (clock8::TABLE - 1);
+// Byte b (0 .. 3) of w as a table index (the mask keeps a corrupt byte
+// inside the table; it is the identity on [0, q))
+__device__ __forceinline__ int state_at(uint32_t w, int b) {
+  return static_cast<int>((w >> (8 * b)) & (clock8::TABLE - 1));
 }
 
-// Unit j (colour sites 2j, 2j+1) of colour c of one replica.  With MEASURE
-// (colour 1 at even N) it adds the float64 Σ cos, Σ sin of the new state
-// and of the colour-0 site before it, and S_new·h over the site's bonds.
-template <bool ODD, bool MEASURE>
-__device__ __forceinline__ void clock_unit(int8_t* x, const int8_t* seam,
-                                           const Flat& f,
-                                           const clock8::Tables& tb, int c,
-                                           int r, int j, uint2 key,
-                                           const float* uc_row,
-                                           const float* ua_row, int q,
-                                           float neg_beta, xy::Sums& t) {
-  const int mc = colour_sites(f, c);
-  uint4 w = make_uint4(0u, 0u, 0u, 0u);
-  if (uc_row == nullptr)
-    w = philox4x32_10(make_uint4(static_cast<uint32_t>(r),
-                                 static_cast<uint32_t>(j), 0u, 0u),
-                      key);
-  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int k = 2 * j + i;
-    if (k >= mc) break;
-    const int idx = 2 * k + c;
-    const Nbrs b = nbrs_of(f, idx);
-    const int ou = state(at<ODD>(x, seam, f, b.up));
-    const int od = state(at<ODD>(x, seam, f, b.dn));
-    const int ol = state(at<ODD>(x, seam, f, b.left));
-    const int orr = state(at<ODD>(x, seam, f, b.right));
-    const float hx = __fadd_rn(
-        __fadd_rn(__fadd_rn(tb.c[ou], tb.c[od]), tb.c[ol]), tb.c[orr]);
-    const float hy = __fadd_rn(
-        __fadd_rn(__fadd_rn(tb.s[ou], tb.s[od]), tb.s[ol]), tb.s[orr]);
-    const int xs = state(__ldcg(x + idx));
-    float uc, ua;
-    if (uc_row != nullptr) {
-      uc = __ldg(uc_row + k);
-      ua = __ldg(ua_row + k);
-    } else {
-      uc = xy::u24(ws[2 * i]);
-      ua = xy::u24(ws[2 * i + 1]);
+// The new state of a site in state xs given its neighbours' states (up,
+// down, left, right) and its uniforms: the field ((up + dn) + left) +
+// right, candidate xs + trunc(uc (q - 1)) + 1 mod q, accepted iff
+// ua < expf(-β max(ΔE, 0)), every float32 operation in the plain
+// version's order.
+__device__ __forceinline__ int clock_site(const float2* tab, int xs, int ou,
+                                          int od, int ol, int orr, float uc,
+                                          float ua, int q, float neg_beta) {
+  const float2 fu = tab[ou], fd = tab[od], fl = tab[ol], fr = tab[orr];
+  const float hx = __fadd_rn(__fadd_rn(__fadd_rn(fu.x, fd.x), fl.x), fr.x);
+  const float hy = __fadd_rn(__fadd_rn(__fadd_rn(fu.y, fd.y), fl.y), fr.y);
+  int nw = xs + static_cast<int>(__fmul_rn(uc, static_cast<float>(q - 1))) +
+           1;
+  if (nw >= q) nw -= q;
+  const float2 fn = tab[nw], fo = tab[xs];
+  const float de = -__fadd_rn(__fmul_rn(__fsub_rn(fn.x, fo.x), hx),
+                              __fmul_rn(__fsub_rn(fn.y, fo.y), hy));
+  const float prob = expf(__fmul_rn(neg_beta, fmaxf(de, 0.0f)));
+  return ua < prob ? nw : xs;
+}
+
+// Colour c's clock phase on tile ts of replica r from its staged
+// windows.  uc, ua: the replica's injected uniforms (m0 a row), or null
+// for Philox words under the round keys rk.  With MEASURE (colour 1 at
+// even N) it adds the float64 Σ cos, Σ sin of the new state and of the
+// colour-0 site before each (its left neighbour), and S_new·h over the
+// site's bonds (the colour-0 sites are final: each bond once), into the
+// tile's partial of row `part` (xy::reduce_kernel negates E).  Every
+// thread calls it.
+template <bool MEASURE>
+__device__ __forceinline__ void clock_tile(const IsingStage& st,
+                                           const ClockMs& ms, const Flat& f,
+                                           const IsingTiles& g,
+                                           const float2* tab,
+                                           const double2* tab64, int c,
+                                           int r, int ts,
+                                           const uint2 (&rk)[10],
+                                           const float* uc, const float* ua,
+                                           size_t part) {
+  const TileAt ta = tile_at(f, g, r, ts);
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const long long v = ta.v0 + t;
+  xy::Sums sums = {0.0, 0.0, 0.0, 0.0};
+  if (v - lane <= ta.vl) {  // the warp holds a vector of the replica
+    const int a = ta.a0 + 16 * t;
+    // colour c's sites of the vector: bytes p0 + 2i, colour sites k0 + i
+    const int p0 = (c - a) & 1;
+    const int k0 = (a + p0 - c) >> 1;
+    const bool odd_k = (k0 & 1) != 0;
+    const int u0 = k0 >> 1;
+    // unit u0's words, and the first half of the next lane's unit
+    // u0 + 4 (lane 31: its own call), which feeds this lane's last site
+    // where k0 is odd
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    uint32_t nx0 = 0u, nx1 = 0u;
+    if (uc == nullptr) {
+      w = philox_rk(make_uint4(static_cast<uint32_t>(r),
+                               static_cast<uint32_t>(u0), 0u, 0u), rk);
+      nx0 = __shfl_down_sync(FULL, w.x, 1);
+      nx1 = __shfl_down_sync(FULL, w.y, 1);
+      if (odd_k && lane == 31) {
+        const uint4 wn = philox_rk(
+            make_uint4(static_cast<uint32_t>(r),
+                       static_cast<uint32_t>(u0 + 4), 0u, 0u), rk);
+        nx0 = wn.x;
+        nx1 = wn.y;
+      }
     }
-    int nw = xs + static_cast<int>(__fmul_rn(uc, static_cast<float>(q - 1))) +
-             1;
-    if (nw >= q) nw -= q;
-    const float de = -__fadd_rn(
-        __fmul_rn(__fsub_rn(tb.c[nw], tb.c[xs]), hx),
-        __fmul_rn(__fsub_rn(tb.s[nw], tb.s[xs]), hy));
-    const float prob = expf(__fmul_rn(neg_beta, fmaxf(de, 0.0f)));
-    const int out = ua < prob ? nw : xs;
-    x[idx] = static_cast<int8_t>(out);
-    if (MEASURE) {
-      const int xp = state(__ldcg(x + idx - 1));
-      const double fc = tb.c64[out], fs = tb.s64[out];
-      t.mx += fc + tb.c64[xp];
-      t.my += fs + tb.s64[xp];
-      t.e += fc * ((tb.c64[ou] + tb.c64[od]) + (tb.c64[ol] + tb.c64[orr])) +
-             fs * ((tb.s64[ou] + tb.s64[od]) + (tb.s64[ol] + tb.s64[orr]));
+    if (v <= ta.vl) {
+      const uint4 own = st.own[t + 1];
+      const uint32_t lb = st.own[t].w >> 24;
+      const uint32_t rt = st.own[t + 2].x & 0xFFu;
+      uint32_t up[4], dn[4];
+      window16(st.up[t], st.up[t + 1], g.ou, up);
+      window16(st.dn[t], st.dn[t + 1], g.od, dn);
+      const uint32_t o[4] = {own.x, own.y, own.z, own.w};
+      const bool whole = a >= 0 && a <= f.n - 16;
+      uint32_t nw[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t left =
+            __funnelshift_r(j > 0 ? o[j > 0 ? j - 1 : 0] : lb << 24, o[j], 24);
+        const uint32_t right =
+            __funnelshift_r(o[j], j < 3 ? o[j < 3 ? j + 1 : 3] : rt, 8);
+        // the words of the word's two sites (colour sites k0 + 2j, + 1):
+        // unit u0 + j (w), or the halves of units u0 + j and u0 + j + 1
+        // (next: drawn here, or for j = 3 the next lane's first)
+        uint32_t ws[4] = {0u, 0u, 0u, 0u};
+        if (uc == nullptr) {
+          const uint4 next =
+              j < 3 ? philox_rk(make_uint4(static_cast<uint32_t>(r),
+                                           static_cast<uint32_t>(u0 + j + 1),
+                                           0u, 0u), rk)
+                    : make_uint4(nx0, nx1, 0u, 0u);
+          ws[0] = odd_k ? w.z : w.x;
+          ws[1] = odd_k ? w.w : w.y;
+          ws[2] = odd_k ? next.x : w.z;
+          ws[3] = odd_k ? next.y : w.w;
+          w = next;
+        }
+        nw[j] = o[j];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int b = p0 + 2 * q;
+          const int idx = a + 4 * j + b;
+          const bool in = whole || (idx >= 0 && idx < f.n);
+          float ucv, uav;
+          if (uc != nullptr) {
+            const int k = k0 + 2 * j + q;
+            ucv = in ? __ldg(uc + k) : 0.0f;
+            uav = in ? __ldg(ua + k) : 0.0f;
+          } else {
+            ucv = xy::u24(ws[2 * q]);
+            uav = xy::u24(ws[2 * q + 1]);
+          }
+          const int ou = state_at(up[j], b), od = state_at(dn[j], b);
+          const int ol = state_at(left, b), orr = state_at(right, b);
+          const int out = clock_site(tab, state_at(o[j], b), ou, od, ol, orr,
+                                     ucv, uav, ms.q, ms.neg_beta);
+          nw[j] = tiles8::put_byte(nw[j], b, static_cast<uint32_t>(out));
+          if (MEASURE && in) {
+            const double2 go = tab64[out], gu = tab64[ou], gd = tab64[od];
+            const double2 gl = tab64[ol], gr = tab64[orr];
+            sums.mx += go.x + gl.x;
+            sums.my += go.y + gl.y;
+            sums.e += go.x * ((gu.x + gd.x) + (gl.x + gr.x)) +
+                      go.y * ((gu.y + gd.y) + (gl.y + gr.y));
+          }
+        }
+      }
+      int8_t* xr = ms.x + static_cast<size_t>(r) * f.n;
+      if (whole) {
+        __stcg(reinterpret_cast<uint4*>(xr + a),
+               make_uint4(nw[0], nw[1], nw[2], nw[3]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int idx = a + p0 + 2 * i;
+          if (idx >= 0 && idx < f.n)
+            xr[idx] = static_cast<int8_t>(nw[i >> 1] >>
+                                          (8 * (p0 + 2 * (i & 1))));
+        }
+      }
     }
   }
+  if (MEASURE) xy::block_sums<3>(ms.partials, part, g.tpr, ts, sums);
 }
 
-// Σ cos, Σ sin and the bonds to idx + 1 and idx + nx of unit j of both
-// colours over the final state (xy::reduce_kernel negates E)
-__device__ __forceinline__ void clock_measure_unit(const int8_t* x,
+// Σ cos, Σ sin and the bonds to idx + 1 and idx + nx of tile ts of
+// replica r over the final state, from its staged own and down windows:
+// every site once (xy::reduce_kernel negates E), into the tile's partial
+// of row `part`.  Every thread calls it.
+__device__ __forceinline__ void clock_measure_tile(const IsingStage& st,
+                                                   const ClockMs& ms,
                                                    const Flat& f,
-                                                   const clock8::Tables& tb,
-                                                   int j, xy::Sums& t) {
+                                                   const IsingTiles& g,
+                                                   const double2* tab64,
+                                                   int r, int ts,
+                                                   size_t part) {
+  const TileAt ta = tile_at(f, g, r, ts);
+  const int t = threadIdx.x;
+  xy::Sums sums = {0.0, 0.0, 0.0, 0.0};
+  if (ta.v0 + t <= ta.vl) {
+    const int a = ta.a0 + 16 * t;
+    const uint4 own = st.own[t + 1];
+    const uint32_t rt = st.own[t + 2].x & 0xFFu;
+    uint32_t dn[4];
+    window16(st.dn[t], st.dn[t + 1], g.od, dn);
+    const uint32_t o[4] = {own.x, own.y, own.z, own.w};
+    const bool whole = a >= 0 && a <= f.n - 16;
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int mc = colour_sites(f, c);
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t right =
+          __funnelshift_r(o[j], j < 3 ? o[j < 3 ? j + 1 : 3] : rt, 8);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = 2 * j + i;
-      if (k >= mc) break;
-      const int idx = 2 * k + c;
-      const int sv = state(__ldcg(x + idx));
-      const int rv = state(__ldcg(x + wrapn(idx + 1, f.n)));
-      const int dv = state(__ldcg(x + wrapn(idx + f.nx, f.n)));
-      t.mx += tb.c64[sv];
-      t.my += tb.s64[sv];
-      t.e += tb.c64[sv] * (tb.c64[rv] + tb.c64[dv]) +
-             tb.s64[sv] * (tb.s64[rv] + tb.s64[dv]);
+      for (int b = 0; b < 4; ++b) {
+        const int idx = a + 4 * j + b;
+        if (!whole && (idx < 0 || idx >= f.n)) continue;
+        const double2 gs = tab64[state_at(o[j], b)];
+        const double2 gr = tab64[state_at(right, b)];
+        const double2 gd = tab64[state_at(dn[j], b)];
+        sums.mx += gs.x;
+        sums.my += gs.y;
+        sums.e += gs.x * (gr.x + gd.x) + gs.y * (gr.y + gd.y);
+      }
     }
   }
+  xy::block_sums<3>(ms.partials, part, g.tpr, ts, sums);
 }
 
 template <bool ODD>
 __global__ void __launch_bounds__(THREADS)
-    clock_multisweep_kernel(ClockMs ms, Flat f) {
-  __shared__ float tc[clock8::TABLE], ts[clock8::TABLE];
-  __shared__ double tc64[clock8::TABLE], ts64[clock8::TABLE];
-  clock8::stage(ms.tab, tc, ts);
-  clock8::stage(ms.tab64, tc64, ts64);
-  const clock8::Tables tb = {tc, ts, tc64, ts64};
+    clock_multisweep_kernel(ClockMs ms, Flat f, IsingTiles g) {
+  __shared__ IsingStage st[STAGES];
+  __shared__ float2 tab[clock8::TABLE];
+  __shared__ double2 tab64[clock8::TABLE];
+  for (int k = threadIdx.x; k < clock8::TABLE; k += THREADS) {
+    tab[k] = make_float2(ms.tab[k], ms.tab[clock8::TABLE + k]);
+    tab64[k] = make_double2(ms.tab64[k], ms.tab64[clock8::TABLE + k]);
+  }
+  __syncthreads();
   cg::grid_group grid = cg::this_grid();
-  const int units = (f.m0 + 1) / 2;
-  const int chunks = (units + THREADS - 1) / THREADS;
-  const int tiles = ms.nrep * chunks;
+  // the block's first tile (one division a launch)
+  const int r0 = blockIdx.x / g.tpr;
+  const int ts0 = blockIdx.x - r0 * g.tpr;
   for (int s = 0; s < ms.sweeps; ++s) {
     for (int c = 0; c < 2; ++c) {
       if (ODD) {
         copy_seam(ms.x, ms.seam, f, ms.nrep);
         grid.sync();
       }
-      const uint2 key =
-          make_uint2(static_cast<uint32_t>(ms.seeds[(2 * s + c) * 2]),
-                     static_cast<uint32_t>(ms.seeds[(2 * s + c) * 2 + 1]));
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int r = t / chunks;
-        const int chunk = t - r * chunks;
-        const int j = chunk * THREADS + threadIdx.x;
-        int8_t* x = ms.x + static_cast<size_t>(r) * f.n;
-        const int8_t* seam =
-            ODD ? ms.seam + static_cast<size_t>(r) * 2 * f.nx : nullptr;
-        const size_t row = (static_cast<size_t>(2 * s + c) * ms.nrep + r) *
-                           f.m0;
-        const float* uc = ms.ucand == nullptr ? nullptr : ms.ucand + row;
-        const float* ua = ms.uacc == nullptr ? nullptr : ms.uacc + row;
-        xy::Sums sums = {0.0, 0.0, 0.0, 0.0};
-        if (!ODD && c == 1) {
-          if (j < units)
-            clock_unit<false, true>(x, seam, f, tb, c, r, j, key, uc, ua,
-                                    ms.q, ms.neg_beta, sums);
-          xy::block_sums<3, true>(
-              ms.partials, static_cast<size_t>(r) * ms.sweeps + s, chunks,
-              chunk, sums);
-        } else if (j < units) {
-          clock_unit<ODD, false>(x, seam, f, tb, c, r, j, key, uc, ua, ms.q,
-                                 ms.neg_beta, sums);
-        }
-      }
+      // the phase's round keys in shared memory (ising_pass's barrier
+      // comes before they are read, the last grid barrier after the last
+      // read of the phase before)
+      __shared__ uint2 rk[10];
+      if (threadIdx.x == 0)
+        philox_round_keys(static_cast<uint32_t>(ms.seeds[(2 * s + c) * 2]),
+                          static_cast<uint32_t>(ms.seeds[(2 * s + c) * 2 + 1]),
+                          rk);
+      const size_t rows = static_cast<size_t>(2 * s + c) * ms.nrep;
+      ising_pass<ODD, true>(
+          st, ms, f, g, r0, ts0,
+          [&](const IsingStage& stage, int r, int ts) {
+            const float* uc = nullptr;
+            const float* ua = nullptr;
+            if (ms.ucand != nullptr) {
+              uc = ms.ucand + (rows + r) * f.m0;
+              ua = ms.uacc + (rows + r) * f.m0;
+            }
+            const size_t part = static_cast<size_t>(r) * ms.sweeps + s;
+            if (!ODD && c == 1)
+              clock_tile<true>(stage, ms, f, g, tab, tab64, c, r, ts, rk, uc,
+                               ua, part);
+            else
+              clock_tile<false>(stage, ms, f, g, tab, tab64, c, r, ts, rk,
+                                uc, ua, part);
+          });
       grid.sync();
     }
     if (ODD) {
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int r = t / chunks;
-        const int chunk = t - r * chunks;
-        const int j = chunk * THREADS + threadIdx.x;
-        xy::Sums sums = {0.0, 0.0, 0.0, 0.0};
-        if (j < units)
-          clock_measure_unit(ms.x + static_cast<size_t>(r) * f.n, f, tb, j,
-                             sums);
-        xy::block_sums<3, true>(ms.partials,
-                                static_cast<size_t>(r) * ms.sweeps + s,
-                                chunks, chunk, sums);
-      }
+      // the sums of the final state (staged without the snapshot); the
+      // next sweep's snapshot only reads the state too, so no barrier is
+      // needed before it
+      ClockMs plain = ms;
+      plain.seam = nullptr;
+      ising_pass<ODD, false>(
+          st, plain, f, g, r0, ts0,
+          [&](const IsingStage& stage, int r, int ts) {
+            clock_measure_tile(stage, ms, f, g, tab64, r, ts,
+                               static_cast<size_t>(r) * ms.sweeps + s);
+          });
     }
   }
 }
@@ -1152,10 +1240,20 @@ const void* multisweep_fn(int kind, bool odd) {
 }
 
 int resident_blocks(const void* fn, int* blocks);
-int launch_cooperative(const void* fn, int blocks, void** args,
-                       cudaStream_t st);
-int cooperative(const void* fn, long long tiles, void** args,
-                cudaStream_t st);
+int launch_tiles(const void* fn, int nrep, IsingTiles* g, void** args,
+                 cudaStream_t st);
+
+// The tiles of x (R, N) int8 (ops/helical_pallas.ising_tiles): off0 its
+// bytes past the 16-B aligned address below it, tpr tiles a replica
+IsingTiles tiles_of(int nx, int off0, int tpr) {
+  IsingTiles g;
+  g.off0 = off0;
+  g.tpr = tpr;
+  g.ou = (-nx) & 15;
+  g.od = nx & 15;
+  g.step_r = g.step_s = 0;  // set by launch_tiles
+  return g;
+}
 
 }  // namespace
 
@@ -1182,8 +1280,6 @@ int hp_ising_multisweep(void* x, void* seam, const void* seeds,
   if (!make_flat(nrep, n, nx, &f) || sweeps < 1 || (odd && seam == nullptr) ||
       off0 < 0 || off0 > 15 || tpr < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = static_cast<long long>(nrep) * tpr;
-  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   IsingMs ms;
   ms.x = static_cast<int8_t*>(x);
   ms.seam = static_cast<int8_t*>(seam);
@@ -1194,40 +1290,29 @@ int hp_ising_multisweep(void* x, void* seam, const void* seeds,
   ms.sweeps = sweeps;
   ms.t4 = t4;
   ms.t8 = t8;
-  IsingTiles g;
-  g.off0 = off0;
-  g.tpr = tpr;
-  g.ou = (-nx) & 15;
-  g.od = nx & 15;
-  const void* fn = multisweep_fn(0, odd);
-  int blocks = 0;
-  const int code = resident_blocks(fn, &blocks);
-  if (code != 0) return code;
-  if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  if (tiles < blocks) blocks = static_cast<int>(tiles);
-  g.step_r = blocks / tpr;
-  g.step_s = blocks % tpr;
+  IsingTiles g = tiles_of(nx, off0, tpr);
   void* args[] = {&ms, &f, &g};
-  return launch_cooperative(fn, blocks, args,
-                            static_cast<cudaStream_t>(stream));
+  return launch_tiles(multisweep_fn(0, odd), nrep, &g, args,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // S clock sweeps of x (R, N) int8 in place under seeds (S, 2, 2), or the
 // injected uniforms ucand, uacc (S, 2, R, ceil(N/2)) float32; tab, tab64
-// the (2, 128) float32 and float64 tables; partials (R, S, chunks, 3)
-// float64 scratch, chunks = ceil(ceil(ceil(N/2) / 2) / 256); per-sweep
-// (Σ cos, Σ sin, E) into obs (R, S, 3) float64.
+// the (2, 128) float32 and float64 tables; partials (R, S, tpr, 3)
+// float64 scratch; per-sweep (Σ cos, Σ sin, E) into obs (R, S, 3)
+// float64.  off0, tpr: x's tiles, as the wrapper's ising_tiles alone
+// computes them.
 int hp_clock_multisweep(void* x, void* seam, const void* seeds,
                         const void* ucand, const void* uacc, const void* tab,
                         const void* tab64, void* partials, void* obs,
                         int nrep, int n, int nx, int q, int sweeps,
-                        float neg_beta, void* stream) {
+                        float neg_beta, int off0, int tpr, void* stream) {
   Flat f;
   const bool odd = (n & 1) != 0;
   if (!make_flat(nrep, n, nx, &f) || sweeps < 1 || q < 2 ||
       q >= clock8::TABLE || (odd && seam == nullptr) ||
-      (ucand == nullptr) != (uacc == nullptr) ||
-      static_cast<long long>(nrep) * sweeps >= (1LL << 31))
+      (ucand == nullptr) != (uacc == nullptr) || off0 < 0 || off0 > 15 ||
+      tpr < 1 || static_cast<long long>(nrep) * sweeps >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   ClockMs ms;
   ms.x = static_cast<int8_t*>(x);
@@ -1242,17 +1327,13 @@ int hp_clock_multisweep(void* x, void* seam, const void* seeds,
   ms.sweeps = sweeps;
   ms.q = q;
   ms.neg_beta = neg_beta;
-  const long long units = (f.m0 + 1) / 2;
-  const int chunks = static_cast<int>((units + THREADS - 1) / THREADS);
-  void* args[] = {&ms, &f};
+  IsingTiles g = tiles_of(nx, off0, tpr);
+  void* args[] = {&ms, &f, &g};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int code = cooperative(multisweep_fn(1, odd),
-                               static_cast<long long>(nrep) * chunks, args,
-                               st);
+  const int code = launch_tiles(multisweep_fn(1, odd), nrep, &g, args, st);
   if (code != 0) return code;
   xy::reduce_kernel<3><<<nrep * sweeps, THREADS, 0, st>>>(
-      static_cast<const double*>(partials), static_cast<double*>(obs),
-      chunks);
+      static_cast<const double*>(partials), static_cast<double*>(obs), tpr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1362,29 +1443,28 @@ int resident_blocks(const void* fn, int* blocks) {
   return static_cast<int>(e);
 }
 
-int launch_cooperative(const void* fn, int blocks, void** args,
-                       cudaStream_t st) {
-  const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(blocks),
-                                                    dim3(THREADS), args, 0, st);
+// A cooperative launch of multisweep kernel `fn` over nrep tpr tiles (g):
+// one block a tile up to the blocks that can be resident at once, which
+// then walk the rest, gridDim.x tiles apart (g's steps, set here before
+// the launch reads args).
+int launch_tiles(const void* fn, int nrep, IsingTiles* g, void** args,
+                 cudaStream_t st) {
+  const long long tiles = static_cast<long long>(nrep) * g->tpr;
+  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const int code = resident_blocks(fn, &blocks);
+  if (code != 0) return code;
+  if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  if (tiles < blocks) blocks = static_cast<int>(tiles);
+  g->step_r = blocks / g->tpr;
+  g->step_s = blocks % g->tpr;
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, dim3(blocks), dim3(THREADS), args, 0, st);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// A cooperative launch of `fn` over `tiles` tiles: one block a tile up to
-// the blocks that can be resident at once, which then walk the rest.
-int cooperative(const void* fn, long long tiles, void** args,
-                cudaStream_t st) {
-  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  int resident = 0;
-  const int code = resident_blocks(fn, &resident);
-  if (code != 0) return code;
-  if (resident < 1)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  return launch_cooperative(
-      fn, static_cast<int>(tiles < resident ? tiles : resident), args, st);
 }
 
 }  // namespace

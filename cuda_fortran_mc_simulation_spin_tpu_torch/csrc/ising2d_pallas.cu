@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(THREADS)
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   int m = 0, e = 0;
   if (u < ising8::units_per_rep(g))
-    ising8::update_unit<false, MEASURE, HALO>(
+    ising8::update_unit<MEASURE, HALO>(
         p, s, g, r, static_cast<int>(u / g.units),
         static_cast<int>(u % g.units), m, e);
   if (MEASURE) ising8::block_add(m, e, s.obs + 2 * r);

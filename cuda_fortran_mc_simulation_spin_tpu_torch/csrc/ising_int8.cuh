@@ -1,11 +1,10 @@
-// The int8 checkerboard Ising update, shared by the int8 2-D phase
-// kernel (csrc/ising2d_pallas.cu; its halo mode runs a mesh's shards) and
-// the int8 multisweep (csrc/ising2d_multisweep.cu), so that both apply
-// the same function to the same random words.  The 3-D phase
-// (csrc/ising3d_pallas.cu) applies the same rule to the same words four
+// The int8 checkerboard Ising update of the int8 2-D phase kernel
+// (csrc/ising2d_pallas.cu; its halo mode runs a mesh's shards).  The 2-D
+// multisweep (csrc/ising2d_multisweep.cu) and the 3-D phase
+// (csrc/ising3d_pallas.cu) apply the same rule to the same words four
 // sites a 32-bit word, and the measure kernel (csrc/
 // ising2d_measure_pallas.cu) sums four sites a word on the same tiles;
-// both take only block_add and the launch checks from here.
+// they take only block_add and the launch checks from here.
 //
 // Layout (core/lattice.py): ±1 int8 colour planes (R, nz, ny, half),
 // nz = 1 in 2-D; colour 0 holds the sites x = 2i + ((y + z) & 1) of row
@@ -38,12 +37,8 @@ struct Geometry {
   int units;         // (half + 3) / 4 units a row
 };
 
-// a coherent load bypasses L1: the multisweep kernel reads, after a grid
-// barrier, what other SMs wrote
-template <bool COHERENT>
 __device__ __forceinline__ int load(const int8_t* p, size_t i) {
-  return COHERENT ? static_cast<int>(__ldcg(p + i))
-                  : static_cast<int>(__ldg(p + i));
+  return static_cast<int>(__ldg(p + i));
 }
 
 __device__ __forceinline__ int wrap(int v, int n) {
@@ -105,7 +100,7 @@ __host__ __device__ inline int shard_units(int col0, int half) {
 // fused sums of a measuring phase b (JAX ising2d_multisweep.py:84-90):
 // m += new + o, e -= new * nsum (the other colour is final, so every bond
 // is counted once).
-template <bool COHERENT, bool MEASURE, bool HALO = false>
+template <bool MEASURE, bool HALO = false>
 __device__ __forceinline__ void update_unit(const Phase& p, const Shard& s,
                                             const Geometry& g, int r, int y,
                                             int jl, int& m, int& e) {
@@ -142,31 +137,29 @@ __device__ __forceinline__ void update_unit(const Phase& p, const Shard& s,
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     // c rises with k, so the row's end breaks the loop: a continue there
-    // cost the S-sweep kernel 8 registers and a sixth of its resident
-    // blocks (chip_time_ising.py)
+    // cost the first S-sweep kernel 8 registers and a sixth of its
+    // resident blocks (chip_time_ising.py)
     const int c = 4 * jg + k - col0;
     if (HALO && c < 0) continue;
     if (c >= g.half) break;
     const int sc = c + d;
     int side;
     if (HALO && sc < 0 && s.lf != nullptr)
-      side = load<COHERENT>(s.lf, col_halo);
+      side = load(s.lf, col_halo);
     else if (HALO && sc >= g.half && s.rt != nullptr)
-      side = load<COHERENT>(s.rt, col_halo);
+      side = load(s.rt, col_halo);
     else
-      side = load<COHERENT>(p.o, w.row + wrap(sc, g.half));
-    int nsum = load<COHERENT>(p.o, w.row + c) + side;
-    nsum += load<COHERENT>(prev, prev_at + c) +
-            load<COHERENT>(next, next_at + c);
-    const int sv = COHERENT ? static_cast<int>(__ldcg(p.x + w.row + c))
-                            : static_cast<int>(p.x[w.row + c]);
+      side = load(p.o, w.row + wrap(sc, g.half));
+    int nsum = load(p.o, w.row + c) + side;
+    nsum += load(prev, prev_at + c) + load(next, next_at + c);
+    const int sv = static_cast<int>(p.x[w.row + c]);
     const int kk = sv * nsum;
     const uint32_t word = p.bits != nullptr ? __ldg(p.bits + w.row + c) : ws[k];
     const uint32_t t = kk == 2 ? p.t4 : (kk == 4 ? p.t8 : p.t12);
     const int out = (kk <= 0 || word < t) ? -sv : sv;
     p.x[w.row + c] = static_cast<int8_t>(out);
     if (MEASURE) {
-      m += out + load<COHERENT>(p.o, w.row + c);
+      m += out + load(p.o, w.row + c);
       e -= out * nsum;
     }
   }

@@ -33,8 +33,10 @@ The kernel takes tiles of whole rows of one replica, or chunks of a row
 past ``CHUNK_COLS`` columns, staged in shared memory from the 16-B
 aligned vectors that cover each of a tile's four byte ranges, four sites
 a thread a step; :func:`ms_tiles` computes its launch constants (the
-kernel takes them as passed), and ``tests/test_torch_clock_int8_ms_tiles.py``
-replays that launch on the CPU.
+kernel takes them as passed; they are the int8 Ising multisweep's,
+ops/ising2d_multisweep.py), and
+``tests/test_torch_clock_int8_ms_tiles.py`` replays that launch on the
+CPU.
 
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
@@ -61,12 +63,19 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _on_cpu,
     _stream,
 )
+# the tiles are the int8 Ising multisweep's (its constants and check
+# re-exported: the tests replay this launch from them)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multisweep import (
+    CHUNK_COLS,  # noqa: F401
+    MIN_LUX,  # noqa: F401
+    THREADS,  # noqa: F401
+    _tiles_arg,
+    check_ms_tiles,  # noqa: F401
+    ms_tiles,
+)
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
     check_int8,
     raise_on,
-)
-from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising3d_pallas import (
-    span_bytes,
 )
 
 # bytes of the batch's int8 planes (batch·nx·ny) up to which the runner
@@ -74,108 +83,6 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising3d_pallas import (
 MULTISWEEP_MAX_BYTES = 32 << 20
 
 LAUNCHES = {"multisweep": 0}
-
-THREADS = clock_pallas.THREADS
-# words of four sites a thread takes along a row of a whole-row tile
-# (2^lux threads a row, at least 2^MIN_LUX); past CHUNK_COLS columns the
-# tiles are chunks of CHUNK_COLS columns, one row a tile
-TILE_WORDS = 4
-MIN_LUX = 2
-CHUNK_COLS = 4096
-# a whole-row tile takes up to TILE_BYTES of sites (more rows a thread
-# where a row is short)
-TILE_BYTES = 16384
-# a launch takes at least MIN_TILES tiles where its batch allows (about two
-# for each block of the cooperative grid, 2 blocks an SM on the H100's 132),
-# so a small batch takes shorter tiles and more threads a row
-MIN_TILES = 512
-
-
-def _spans(rows: int, cw: int, half: int) -> list[int]:
-    """Shared-memory bytes of a tile's four staged ranges: its own sites,
-    the other colour's rows (two columns wider in a chunk), the rows
-    before and after it."""
-    lx = (rows - 1) * half + min(cw, half)
-    return [span_bytes(lx), span_bytes(lx + 2), span_bytes(min(cw, half)),
-            span_bytes(min(cw, half))]
-
-
-def ms_tiles(nrep: int, ny: int, half: int) -> dict:
-    """Launch constants of ``multisweep_kernel`` on (nrep, ny, half)
-    planes: ``rows`` rows a tile and 2^``lux`` threads along a row (thread
-    t takes rows (t >> lux) + i THREADS / 2^lux, words of four sites (t &
-    (2^lux - 1)) + k 2^lux of each; TILE_WORDS words a thread and up to
-    TILE_BYTES a tile where that leaves MIN_TILES tiles, else fewer rows
-    and then more threads a row, up to a thread a word), ``cw`` columns a
-    tile (half, or CHUNK_COLS
-    with ``rows`` 1), ``nch`` chunks a row, ``nty`` row tiles a replica,
-    ``buf`` the byte offsets in shared memory of the four staged ranges
-    (the tile's own sites, the other colour's rows y0 .. (a chunk widened
-    by a column each side), its rows y0 - 1 and y0 + rows; each 16-B
-    aligned after a 16-byte guard) and ``smem`` the bytes in all.  The
-    fused sums of a (replica, sweep) are nty nch tile partials, in tile
-    order (yt nch + cx)."""
-    if half <= CHUNK_COLS:
-        words = -(-half // 4)
-        top = THREADS.bit_length() - 1
-        lux = min(top, max(MIN_LUX, (-(-words // TILE_WORDS) - 1)
-                           .bit_length()))
-        top = min(top, max(lux, (words - 1).bit_length()))
-        while True:
-            tr = THREADS >> lux
-            k = max(1, min(TILE_BYTES // (tr * half), -(-ny // tr)))
-            while k > 1 and nrep * -(-ny // (tr * k)) < MIN_TILES:
-                k -= 1
-            if nrep * -(-ny // (tr * k)) >= MIN_TILES or lux == top:
-                break
-            lux += 1
-        rows = tr * k
-        cw, nch = half, 1
-    else:
-        lux, rows, cw = THREADS.bit_length() - 1, 1, CHUNK_COLS
-        nch = -(-half // cw)
-    buf, end = [], 0
-    for n in _spans(rows, cw, half):
-        buf.append(end + 16)
-        end = buf[-1] + n
-    return {"rows": rows, "lux": lux, "cw": cw, "nch": nch,
-            "nty": -(-ny // rows), "buf": tuple(buf), "smem": end}
-
-
-def check_ms_tiles(t: dict, ny: int, half: int) -> None:
-    """Refuse constants ``multisweep_kernel`` cannot run on (its own
-    ``tiles_ok``, which refuses them again): rows not a multiple of a
-    pass, 2^lux threads a row outside 4 .. 256, columns or chunks that do
-    not cover a row or leave a chunk empty, chunks not of whole words or
-    past CHUNK_COLS, row tiles too few or one empty, staged ranges that
-    overlap or leave the 16-B grid, shared memory short or past 48 KB."""
-    rows, lux, cw, nch, nty = (t[k] for k in ("rows", "lux", "cw", "nch",
-                                              "nty"))
-    ok = (2 <= lux <= 8 and rows >= 1 and rows % (THREADS >> lux) == 0
-          and cw >= 1 and nch >= 1 and (nch - 1) * cw < half <= nch * cw
-          and (nch == 1 and cw == half
-               or cw % 4 == 0 and rows == 1 and cw <= CHUNK_COLS)
-          and nty >= 1 and (nty - 1) * rows < ny <= nty * rows
-          and nty * nch < 2 ** 31)
-    if ok:
-        end = 0
-        for b, n in zip(t["buf"], _spans(rows, cw, half)):
-            ok = ok and b % 16 == 0 and b >= end + 16
-            end = b + n
-        ok = ok and len(t["buf"]) == 4 and end <= t["smem"] <= 48 * 1024
-    if not ok:
-        raise ValueError(f"clock multisweep tiles {t} do not fit (R, {ny}, "
-                         f"{half}) planes")
-
-
-def _tiles_arg(nrep: int, ny: int, half: int) -> ctypes.Array:
-    """:func:`ms_tiles` as the 10 ints of the kernel's Tiles, checked."""
-    t = ms_tiles(nrep, ny, half)
-    check_ms_tiles(t, ny, half)
-    words = [t["rows"], t["lux"], t["cw"], t["nch"], t["nty"], *t["buf"],
-             t["smem"]]
-    return (ctypes.c_int * len(words))(*words)
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:

@@ -57,6 +57,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     per_site,
     sweep_seed_pairs,
 )
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.multispin_rng import keys_to
 
 # largest colour vector served, in words: the JAX package's bound (1024
 # rows of 128 words), so the port admits every helical lattice it admits
@@ -301,20 +302,6 @@ def staged_fits(nw: int, device) -> bool:
                       "helical_smem_optin")
         _SMEM_OPTIN[dev] = val.value
     return 2 * nw * 4 <= _SMEM_OPTIN[dev]
-
-
-def keys_to(seeds: torch.Tensor, device) -> torch.Tensor:
-    """The (S, 2, 2) int32 phase keys on ``device`` without waiting for the
-    card: copied from a pinned host tensor with ``non_blocking``.  PyTorch's
-    pinned-memory allocator keeps that host block from reuse until the
-    copy, recorded on the current stream, has completed, so the keys
-    stay alive.  A copy from pageable memory instead synchronises the
-    stream: the card sits idle from the previous launch's end to this
-    one's."""
-    keys = _i32(seeds).contiguous()
-    if keys.device.type == "cpu":
-        return keys.pin_memory().to(device, non_blocking=True)
-    return keys.to(device)
 
 
 def _launch(wa, wb, m: int, offs_a, offs_b, *, seeds=None, b4=None,

@@ -15,7 +15,8 @@ launches CUDA kernels, not Pallas ones).  ``csrc/helical_pallas.cu`` holds
   ``_clock_multisweep`` -> ``clock_multisweep``): the same at any
   2 <= q <= 127, candidate c + trunc(u(q-1)) + 1 mod q, (cos, sin) of a
   state from the q-entry float32 table of ``cos_sin_2pi(k·(1/q))``
-  (:func:`clock_table`), accept iff u < exp(-β max(ΔE, 0)); float64 sums;
+  (:func:`clock_table`), accept iff u < exp(-β max(ΔE, 0)); float64 sums,
+  a partial a tile;
 - ``xy_phase_kernel``, which replaces ``_xy_phase_kernel`` (``:555``,
   ``_xy_phase``): one Metropolis phase of (R, N) float32 component planes,
   out of place, the candidate ``cos_sin_2pi(u)``; with ``measuring`` the
@@ -62,13 +63,13 @@ batch between a sweep's two phases; the port follows the kernels.
 The clock's q = 6 here decodes by ``cos_sin_2pi``, not the packed helical
 clock's rounded tables (ROADMAP C4), as the TPU masked kernel does.
 
-Tiles.  The Ising multisweep streams each phase through tiles of 256
-16-B vectors of one replica at aligned addresses, staged in shared memory
-a tile ahead; the XY kernel's four modes through blocks of 256 aligned
-float4 vectors a step, in registers (:func:`ising_tiles`,
-:func:`xy_tiles`: the launch constants, computed here alone; the kernels
-take them as passed).  A
-thread reads its own vector, the aligned vectors under its up and down
+Tiles.  The two multisweeps stream each phase through tiles of 256 16-B
+vectors of one replica at aligned addresses, staged in shared memory a
+tile ahead (a vector holds four Ising units or four clock units of its
+colour); the XY kernel's four modes through blocks of 256 aligned float4
+vectors a step, in registers (:func:`ising_tiles`, :func:`xy_tiles`: the
+launch constants, computed here alone; the kernels take them as passed).
+A thread reads its own vector, the aligned vectors under its up and down
 windows and its ±1 neighbours before it stores its vector, and only the
 vectors that reach past a replica (a replica base that is not 16-B
 aligned, the wrap mod N, at odd N the seam rows' snapshot) go element by
@@ -103,7 +104,6 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     trig,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
-    _i32,
     _on_cpu,
     _stream,
     per_site,
@@ -408,7 +408,7 @@ def _lib() -> ctypes.CDLL:
     lib.hp_ising_multisweep.argtypes = (
         [_VOID] * 5 + [_INT] * 4 + [_UINT] * 2 + [_INT] * 2 + [_VOID])
     lib.hp_clock_multisweep.argtypes = (
-        [_VOID] * 9 + [_INT] * 5 + [ctypes.c_float, _VOID])
+        [_VOID] * 9 + [_INT] * 5 + [ctypes.c_float] + [_INT] * 2 + [_VOID])
     lib.hp_xy_phase.argtypes = (
         [_VOID] * 8 + [_INT] * 5 + [ctypes.c_float, _UINT, _UINT]
         + [_INT] * 4 + [_VOID])
@@ -465,7 +465,7 @@ def _replica_vectors(nrep: int, n: int, off0: int, width: int) -> int:
 
 
 def ising_tiles(nrep: int, n: int, nx: int, offset: int = 0) -> dict:
-    """Launch constants of ``ising_multisweep_kernel`` on (R, N) int8
+    """Launch constants of the multisweep kernels on (R, N) int8
     states whose first byte lies ``offset`` bytes past a 16-B aligned
     address (``data_ptr() % 16``): ``off0`` that offset, ``tpr`` the tiles
     of THREADS vectors a replica (the longest's), ``ou`` = -nx mod 16 and
@@ -474,7 +474,8 @@ def ising_tiles(nrep: int, n: int, nx: int, offset: int = 0) -> dict:
     of the pair at a + nx - od).  Tile ts of replica r holds vectors
     (off0 + r N) // 16 + THREADS ts + t, t < THREADS, while they touch the
     replica; block b of the grid takes tiles b, b + blocks, ... (replica
-    major)."""
+    major).  The clock kernel's float64 sums of a (replica, sweep) are tpr
+    tile partials, in tile order."""
     off0 = offset % VEC_BYTES
     span = _replica_vectors(nrep, n, off0, VEC_BYTES)
     return {"off0": off0, "tpr": -(-span // THREADS), "ou": -nx % VEC_BYTES,
@@ -504,13 +505,6 @@ def xy_tiles(nrep: int, n: int, nx: int, offsets=(0,),
             "su": -nx % width, "sd": nx % width, "vec": int(vec)}
 
 
-def chunks(n: int, unit: int) -> int:
-    """Tiles of 256 units a replica's colour sites fill (the larger
-    colour's, ceil(N/2) sites, ``unit`` a unit)."""
-    units = -(-colour_sites(n, 0) // unit)
-    return -(-units // THREADS)
-
-
 def ising_multisweep(x: torch.Tensor, seeds=None, *, beta: float, nx: int,
                      bits: torch.Tensor | None = None):
     """S sweeps of (R, N) int8 states, in place (returned): ``ising_
@@ -533,7 +527,7 @@ def ising_multisweep(x: torch.Tensor, seeds=None, *, beta: float, nx: int,
                                 device=x.device)
     else:
         sweeps = int(seeds.shape[0])
-        seeds_dev = _i32(seeds).contiguous().to(x.device)
+        seeds_dev = multispin_rng.keys_to(seeds, x.device)
     t4, t8 = accept_thresholds_u32(beta)
     seam = _seam(x, nx)
     tiles = ising_tiles(nrep, n, nx, x.data_ptr())
@@ -575,12 +569,13 @@ def clock_multisweep(x: torch.Tensor, seeds=None, *, beta: float, nx: int,
                                 device=x.device)
     else:
         sweeps = int(seeds.shape[0])
-        seeds_dev = _i32(seeds).contiguous().to(x.device)
+        seeds_dev = multispin_rng.keys_to(seeds, x.device)
     dev = x.device
     tab = _device_table(q, str(dev), torch.float32)
     tab64 = _device_table(q, str(dev), torch.float64)
     seam = _seam(x, nx)
-    partials = torch.empty((nrep, sweeps, chunks(n, PAIR_UNIT), 3),
+    tiles = ising_tiles(nrep, n, nx, x.data_ptr())
+    partials = torch.empty((nrep, sweeps, tiles["tpr"], 3),
                            dtype=torch.float64, device=dev)
     obs = torch.empty((nrep, sweeps, 3), dtype=torch.float64, device=dev)
     lib = _lib()
@@ -590,7 +585,8 @@ def clock_multisweep(x: torch.Tensor, seeds=None, *, beta: float, nx: int,
             seeds_dev.data_ptr(), None if u is None else u[0].data_ptr(),
             None if u is None else u[1].data_ptr(), tab.data_ptr(),
             tab64.data_ptr(), partials.data_ptr(), obs.data_ptr(), nrep, n,
-            nx, q, sweeps, -float(beta), _stream(x))
+            nx, q, sweeps, -float(beta), tiles["off0"], tiles["tpr"],
+            _stream(x))
     raise_on(code, lib.hp_error_string, "helical clock_multisweep_kernel")
     LAUNCHES["clock_multisweep"] += 1
     return x, obs

@@ -22,6 +22,14 @@ launch cost a sweep), above it the streamed phases win, as the bit-packed
 route's ``_MS_BATCH_WORDS`` (ops/ising2d_multispin.py, ROADMAP B2).  The
 constant is read on the card by ``chip_smoke.py`` (PERF.md §6).
 
+The kernel takes tiles of whole rows of one replica, or chunks of a row
+past ``CHUNK_COLS`` columns, staged in shared memory from the 16-B
+aligned vectors that cover each of a tile's four byte ranges, four sites
+a 32-bit word; :func:`ms_tiles` computes its launch constants (the kernel
+takes them as passed; the int8 clock multisweep, ops/clock_multisweep.py,
+takes the same tiles), and ``tests/test_torch_ising_int8_ms_tiles.py``
+replays that launch on the CPU.
+
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
 """
@@ -42,16 +50,19 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     multispin_rng,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
-    _i32,
     _on_cpu,
     _stream,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
+    THREADS,
     accept_thresholds_u32,
     check_int8,
     check_launch,
     phase_plain,
     raise_on,
+)
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising3d_pallas import (
+    span_bytes,
 )
 
 # bytes of the batch's int8 planes (batch·nx·ny) up to which the runner
@@ -59,6 +70,110 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
 MULTISWEEP_MAX_BYTES = 32 << 20
 
 LAUNCHES = {"multisweep": 0}
+
+# words of four sites a thread takes along a row of a whole-row tile
+# (2^lux threads a row, at least 2^MIN_LUX); past CHUNK_COLS columns the
+# tiles are chunks of CHUNK_COLS columns, one row a tile
+TILE_WORDS = 4
+MIN_LUX = 2
+CHUNK_COLS = 4096
+# a whole-row tile takes up to TILE_BYTES of sites (more rows a thread
+# where a row is short)
+TILE_BYTES = 16384
+# a launch takes at least MIN_TILES tiles where its batch allows (about a
+# block's of this kernel's cooperative grid, 4 blocks an SM on the H100's
+# 132 SMs, two of the clock's, 2 an SM), so a small batch takes shorter
+# tiles and more threads a row
+MIN_TILES = 512
+
+
+def _spans(rows: int, cw: int, half: int) -> list[int]:
+    """Shared-memory bytes of a tile's four staged ranges: its own sites,
+    the other colour's rows (two columns wider in a chunk), the rows
+    before and after it."""
+    lx = (rows - 1) * half + min(cw, half)
+    return [span_bytes(lx), span_bytes(lx + 2), span_bytes(min(cw, half)),
+            span_bytes(min(cw, half))]
+
+
+def ms_tiles(nrep: int, ny: int, half: int) -> dict:
+    """Launch constants of the 2-D int8 multisweeps (this module's
+    ``multisweep_kernel`` and the clock's) on (nrep, ny, half) planes:
+    ``rows`` rows a tile and 2^``lux`` threads along a row (thread t
+    takes rows (t >> lux) + i THREADS / 2^lux, words of four sites (t &
+    (2^lux - 1)) + k 2^lux of each; TILE_WORDS words a thread and up to
+    TILE_BYTES a tile where that leaves MIN_TILES tiles, else fewer rows
+    and then more threads a row, up to a thread a word), ``cw`` columns a
+    tile (half, or CHUNK_COLS with ``rows`` 1), ``nch`` chunks a row,
+    ``nty`` row tiles a replica, ``buf`` the byte offsets in shared memory
+    of the four staged ranges (the tile's own sites, the other colour's
+    rows y0 .. (a chunk widened by a column each side), its rows y0 - 1
+    and y0 + rows; each 16-B aligned after a 16-byte guard) and ``smem``
+    the bytes in all.  The blocks walk the tiles in the order (replica,
+    row tile, chunk); the clock's fused sums of a (replica, sweep) are nty
+    nch tile partials, in that order (yt nch + cx)."""
+    if half <= CHUNK_COLS:
+        words = -(-half // 4)
+        top = THREADS.bit_length() - 1
+        lux = min(top, max(MIN_LUX, (-(-words // TILE_WORDS) - 1)
+                           .bit_length()))
+        top = min(top, max(lux, (words - 1).bit_length()))
+        while True:
+            tr = THREADS >> lux
+            k = max(1, min(TILE_BYTES // (tr * half), -(-ny // tr)))
+            while k > 1 and nrep * -(-ny // (tr * k)) < MIN_TILES:
+                k -= 1
+            if nrep * -(-ny // (tr * k)) >= MIN_TILES or lux == top:
+                break
+            lux += 1
+        rows = tr * k
+        cw, nch = half, 1
+    else:
+        lux, rows, cw = THREADS.bit_length() - 1, 1, CHUNK_COLS
+        nch = -(-half // cw)
+    buf, end = [], 0
+    for n in _spans(rows, cw, half):
+        buf.append(end + 16)
+        end = buf[-1] + n
+    return {"rows": rows, "lux": lux, "cw": cw, "nch": nch,
+            "nty": -(-ny // rows), "buf": tuple(buf), "smem": end}
+
+
+def check_ms_tiles(t: dict, ny: int, half: int) -> None:
+    """Refuse constants the multisweep kernels cannot run on (their own
+    ``tiles8::row_tiles_ok``, which refuses them again): rows not a
+    multiple of a pass, 2^lux threads a row outside 4 .. 256, columns or
+    chunks that do not cover a row or leave a chunk empty, chunks not of
+    whole words or past CHUNK_COLS, row tiles too few or one empty, staged
+    ranges that overlap or leave the 16-B grid, shared memory short or
+    past 48 KB."""
+    rows, lux, cw, nch, nty = (t[k] for k in ("rows", "lux", "cw", "nch",
+                                              "nty"))
+    ok = (2 <= lux <= 8 and rows >= 1 and rows % (THREADS >> lux) == 0
+          and cw >= 1 and nch >= 1 and (nch - 1) * cw < half <= nch * cw
+          and (nch == 1 and cw == half
+               or cw % 4 == 0 and rows == 1 and cw <= CHUNK_COLS)
+          and nty >= 1 and (nty - 1) * rows < ny <= nty * rows
+          and nty * nch < 2 ** 31)
+    if ok:
+        end = 0
+        for b, n in zip(t["buf"], _spans(rows, cw, half)):
+            ok = ok and b % 16 == 0 and b >= end + 16
+            end = b + n
+        ok = ok and len(t["buf"]) == 4 and end <= t["smem"] <= 48 * 1024
+    if not ok:
+        raise ValueError(f"multisweep tiles {t} do not fit (R, {ny}, "
+                         f"{half}) planes")
+
+
+def _tiles_arg(nrep: int, ny: int, half: int) -> ctypes.Array:
+    """:func:`ms_tiles` as the 10 ints of the kernels' RowTiles
+    (csrc/byte_tiles.cuh), checked."""
+    t = ms_tiles(nrep, ny, half)
+    check_ms_tiles(t, ny, half)
+    words = [t["rows"], t["lux"], t["cw"], t["nch"], t["nty"], *t["buf"],
+             t["smem"]]
+    return (ctypes.c_int * len(words))(*words)
 
 
 def reset_launches() -> None:
@@ -94,12 +209,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ising2d_multisweep")
     if lib.ising2d_int8_multisweep.argtypes is not None:
         return lib
+    tiles = ctypes.POINTER(ctypes.c_int)
     lib.ising2d_int8_multisweep.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint] * 2
-        + [ctypes.c_void_p])
+        + [tiles, ctypes.c_void_p])
     lib.ising2d_int8_multisweep.restype = ctypes.c_int
     lib.ising2d_int8_multisweep_grid.argtypes = [
-        ctypes.POINTER(ctypes.c_int)]
+        tiles, ctypes.POINTER(ctypes.c_int)]
     lib.ising2d_int8_multisweep_grid.restype = ctypes.c_int
     lib.ising2d_int8_multisweep_error_string.argtypes = [ctypes.c_int]
     lib.ising2d_int8_multisweep_error_string.restype = ctypes.c_char_p
@@ -120,25 +236,28 @@ def multisweep_planes(a: torch.Tensor, b: torch.Tensor, seeds, *,
     check_launch(nrep, ny, half)
     sweeps = int(seeds.shape[0])
     t4, t8 = accept_thresholds_u32(beta)
-    seeds_dev = _i32(seeds).contiguous().to(a.device)
+    seeds_dev = multispin_rng.keys_to(seeds, a.device)
     # zeroed: the kernel adds each block's sums with an atomic
     obs = torch.zeros((nrep, sweeps, 2), dtype=torch.int64, device=a.device)
     lib = _lib()
     with torch.cuda.device(a.device):
         code = lib.ising2d_int8_multisweep(
             a.data_ptr(), b.data_ptr(), seeds_dev.data_ptr(), obs.data_ptr(),
-            nrep, ny, half, sweeps, t4, t8, _stream(a))
+            nrep, ny, half, sweeps, t4, t8, _tiles_arg(nrep, ny, half),
+            _stream(a))
     raise_on(code, lib.ising2d_int8_multisweep_error_string,
              "ising2d multisweep_kernel")
     LAUNCHES["multisweep"] += 1
     return a, b, obs
 
 
-def grid_blocks() -> int:
-    """Blocks of the cooperative grid on the current device."""
+def grid_blocks(nrep: int, ny: int, half: int) -> int:
+    """Blocks of the cooperative grid on the current device for (nrep, ny,
+    half) planes (the tiles' shared memory sets it)."""
     lib = _lib()
     blocks = ctypes.c_int(0)
-    raise_on(lib.ising2d_int8_multisweep_grid(ctypes.byref(blocks)),
+    raise_on(lib.ising2d_int8_multisweep_grid(_tiles_arg(nrep, ny, half),
+                                              ctypes.byref(blocks)),
              lib.ising2d_int8_multisweep_error_string,
              "ising2d_int8_multisweep_grid")
     return blocks.value

@@ -79,6 +79,22 @@ def word_stream(key, nrep: int, nyp: int, half: int, device=None,
     return gen
 
 
+def keys_to(seeds, device) -> torch.Tensor:
+    """The (S, 2, 2) phase keys as int32 (two's complement of the uint32
+    words) on ``device`` without waiting for the card: copied from a
+    pinned host tensor with ``non_blocking``.  PyTorch's pinned-memory
+    allocator keeps that host block from reuse until the copy, recorded on
+    the current stream, has completed, so the keys stay alive.  A copy
+    from pageable memory instead synchronises the stream: the card sits
+    idle from the previous launch's end to this one's."""
+    keys = torch.as_tensor(seeds).to(torch.int64)
+    keys = torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).to(
+        torch.int32).contiguous()
+    if keys.device.type == "cpu":
+        return keys.pin_memory().to(device, non_blocking=True)
+    return keys.to(device)
+
+
 def sweep_phase_keys(key, sweeps: int, t0: int = 0, phases: int = 2
                      ) -> torch.Tensor:
     """(sweeps, phases, 2) uint32 Philox keys of (sub-)phases 0 ..

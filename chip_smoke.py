@@ -101,7 +101,9 @@ Phases (each prints a progress line on stderr):
    - int8 clock, at 130x126 x 3 for q = 2, 3, 4, 5, 6, 8, 20 and at each
      class's launch with its q (1000x1000 x 16, q = 2; 2000x2000 x 16,
      q = 5; 1000x1000 x 1, q = 6): the phase kernel with injected and
-     Philox uniforms, both colours, bitwise; the measure kernel within
+     Philox uniforms, both colours, bitwise (at q = 5 and 6 also at
+     6x4102 x 2, rows chunked past 4096 columns, and on views 3, 7 and 11
+     bytes off the 16-B grid); the measure kernel within
      1e-12 of the sums' scale (exactly at q = 2 and 4); 64 multisweep
      sweeps at 1000x1000 x 16, q = 2 and 6, against 64 phase-kernel pairs
      with the measure kernel and against its plain version (states
@@ -1346,7 +1348,9 @@ def check_clock_helical(chm, hms, rng, dev) -> int:
     the valid bits: the injected mode, S sweeps against S one-sweep
     launches and the plain version, and the fused sums against the final
     state's, staged in shared memory (501x500) and in device memory
-    (1001x1000).  Returns the largest absolute difference seen."""
+    (1001x1000); at 501x500 also 4 sweeps at kbt 0.91 and 1e9 (other
+    launch tables of the draw).  Returns the largest absolute difference
+    seen."""
     err = 0
     beta = 1.0 / KBT_CLOCK_08
 
@@ -1396,6 +1400,19 @@ def check_clock_helical(chm, hms, rng, dev) -> int:
         log(f"  helical clock multisweep {nrep}x{nx}x{ny} S={sweeps} "
             f"(staged {staged}): vs plain {e_plain}, vs {sweeps} one-sweep "
             f"launches {e_single}, (2m, 2e, my2) vs the state's {e_state}")
+        # the launch's draw table at other temperatures (the chains' digits
+        # and ends move with beta)
+        for kbt in (0.91, 1e9) if nx == 501 else ():
+            kw = dict(beta=1.0 / kbt, nx=nx, m=m)
+            got = chm.multisweep_planes(a3, b3, seeds[:4], **kw)
+            want = chm.multisweep_plain(a3, b3, seeds[:4], **kw)
+            e = max_abs_err(
+                [(valid(g, m), valid(w, m))
+                 for g, w in zip(got[0] + got[1], want[0] + want[1])]
+                + [(got[2], want[2])])
+            err = max(err, e)
+            log(f"  helical clock multisweep {nrep}x{nx}x{ny} S=4 kbt {kbt}: "
+                f"vs plain {e}")
     torch.cuda.synchronize()
     if err != 0:
         fail(f"helical clock multisweep kernel differs from its plain "
@@ -3099,6 +3116,12 @@ CLOCK8_CLASSES = ((2, KBT, (16, 1000, 500)), (5, KBT_CLOCK, (16, 2000, 1000)),
                   (6, KBT_CLOCK, (1, 1000, 500)))
 # a ragged small shape (half 63: a masked tail unit)
 CLOCK8_SMALL = (3, 130, 63)
+# the phase's tile edges, at q = 5 and 6, on aligned planes and on views
+# (x, o) bytes off the 16-B grid: rows chunked past
+# ops/ising2d_multisweep.CHUNK_COLS columns with a masked last word, the
+# ragged small shape
+CLOCK8_EDGES = (((2, 6, 4102), (0, 0)), (CLOCK8_SMALL, (3, 7)),
+                ((2, 6, 4102), (7, 11)))
 # the multisweep's checks (the resident class's launch) at these q
 CLOCK8_MS_QS = (2, 6)
 # first sweeps from all-up: (q, launch, sweeps) for >= 1e10 sites each
@@ -3198,6 +3221,25 @@ def check_clock8(c8p, c8m, c8ms, rng, dev) -> dict[str, float]:
         log(f"  clock8 q={q} {'x'.join(map(str, shape))}: phase injected "
             f"{e_inj}, philox {e_rand}; measure rel {e_m:.3g}")
         del a, b, uc, ua
+    for shape, (ox, oo) in CLOCK8_EDGES:
+        for q in (5, 6):
+            a, b = clock8_state(dev, shape, q, 7 * q + shape[2] + ox)
+            uc, ua = clock8_uniforms(dev, shape, q + ox)
+            e = 0
+            for color in (0, 1):
+                x, o = (a, b) if color == 0 else (b, a)
+                seeds = rng.seeds_from_key(rng.base_key(19 + q), color)
+                kw = dict(color=color, q=q, beta=1.0 / KBT_CLOCK)
+                for inj in ({}, dict(u_cand=uc, u_acc=ua)):
+                    e = max(e, max_abs_err([(
+                        c8p.metropolis_phase(
+                            off_grid_view(x, ox), off_grid_view(o, oo),
+                            None if inj else seeds, **kw, **inj),
+                        c8p.phase_plain(x, o, None if inj else seeds, **kw,
+                                        **inj))]))
+            errs["phase"] = max(errs["phase"], e)
+            log(f"  clock8 q={q} {'x'.join(map(str, shape))} at "
+                f"({ox}, {oo}) bytes off the 16-B grid: phase {e}")
     seeds = multispin_keys(rng, 64)
     e_states = 0
     for q in CLOCK8_MS_QS:
@@ -5098,8 +5140,9 @@ def run_mesh_cx_classes(modules, out_dir, refs: dict, dev,
 def check_mesh_cx_small(cp, c8p, xyp, rng, dev) -> float:
     """The four halo modes against their plain versions at small shards:
     Philox and injected, both colours, plain and measuring (the snapshot
-    mode too), with and without columns, an int8 clock shard at an odd
-    col0 and a packed clock shard of one word row.  Returns the largest
+    mode too), with and without columns, int8 clock shards at an odd
+    col0 (one chunked past 4096 columns, on a view off the 16-B grid) and
+    a packed clock shard of one word row.  Returns the largest
     error (int8 and words exact; float64 sums against their scale)."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         clock3_multispin,
@@ -5155,8 +5198,12 @@ def check_mesh_cx_small(cp, c8p, xyp, rng, dev) -> float:
                         cp.sharded_phase_packed_plain(
                             *args, color=color, beta=1 / KBT_CLOCK_08, **kw,
                             **extra), 1))
-    for q, col0 in ((5, 11), (2, 0), (20, None)):
-        R, L, H = 3, 9, 23
+    # the int8 clock halo mode: odd and even col0 with the column halos,
+    # none without; a shard chunked past CHUNK_COLS columns at an odd col0
+    # on a view off the 16-B grid
+    for q, col0, (R, L, H) in ((5, 11, (3, 9, 23)), (2, 0, (3, 9, 23)),
+                               (20, None, (3, 9, 23)),
+                               (7, 5, (1, 3, 4102))):
 
         def states(shape):
             return torch.from_numpy(g.integers(0, q, shape).astype(np.int8)
@@ -5164,6 +5211,7 @@ def check_mesh_cx_small(cp, c8p, xyp, rng, dev) -> float:
 
         x, o, up, dn = (states(s) for s in ((R, L, H), (R, L, H), (R, 1, H),
                                              (R, 1, H)))
+        off = OFF_GRID[0] if H > 4096 else 0
         kw = dict(q=q, beta=1 / KBT_CLOCK)
         offs = (1, 5) if col0 is None else (1, 5, col0)
         if col0 is not None:
@@ -5174,7 +5222,8 @@ def check_mesh_cx_small(cp, c8p, xyp, rng, dev) -> float:
             for extra in ({}, {"u_cand": uc, "u_acc": ua},
                           {"measuring": True}):
                 worst = max(worst, cmp(
-                    c8p.sharded_phase(x.clone(), o, up, dn, seeds, offs,
+                    c8p.sharded_phase(off_grid_view(x, off), o, up, dn,
+                                      seeds, offs,
                                       color=color, **kw, **extra),
                     c8p.sharded_phase_plain(x, o, up, dn, seeds, offs,
                                             color=color, **kw, **extra),
@@ -6215,7 +6264,37 @@ def main() -> int:
         reps=3, plain_reps=1,
         view=lambda out: tuple(hms._u32(w) & cvm for w in out[0] + out[1])
         + (out[2],))
-    del hv, ha3, hb3
+    # the wrapper against its launch alone: the C entry on keys and a draw
+    # table already set up (the wrapper adds its checks, the table's
+    # lookup and the keys' pinned copy)
+    hlib, hkeys = chm._lib(), multispin_keys_on(seeds, dev)
+    htable = chm._table_arg(chm.SPEC, beta_h8)
+    hda, hdb = ([d % cm_ for d in offs] for offs in hms.helical_offsets(501))
+    hstaged = int(chm.staged_fits(cnw, dev))
+    houts = [torch.empty_like(ha3[0]) for _ in range(6)]
+    hobs = torch.empty((100, len(seeds), 3), dtype=torch.int64, device=dev)
+
+    def h_alone():
+        code = hlib.clock_helical_multisweep(
+            *[w.data_ptr() for w in (*ha3, *hb3, *houts)], hkeys.data_ptr(),
+            None, hobs.data_ptr(), 100, cnw, cm_, len(seeds), 0, hstaged,
+            *hda, *hdb, htable, torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"helical clock multisweep launch alone: code {code}")
+    h_wrap = chm.multisweep_planes(ha3, hb3, seeds, beta=beta_h8, nx=501,
+                                   m=cm_)
+    h_alone()
+    if max_abs_err([(hms._u32(g) & cvm, hms._u32(w) & cvm)
+                    for g, w in zip(houts, h_wrap[0] + h_wrap[1])]
+                   + [(hobs, h_wrap[2])]) != 0:
+        fail("helical clock multisweep: the launch alone differs from the "
+             "wrapper")
+    wrap, just = wrapper_and_alone(
+        lambda: chm.multisweep_planes(ha3, hb3, seeds, beta=beta_h8, nx=501,
+                                      m=cm_), h_alone)
+    log(f"  helical clock multisweep kernel 501x500 x 100, S={len(seeds)}, "
+        f"in turns: the wrapper {wrap}, the launch alone {just} ms")
+    del hv, ha3, hb3, houts, h_wrap
     if max(e1, e2, e3, e4, e5, e6, e6b, e7, e8, e9, e9m, e10, e11,
            e11m) != 0:
         fail(f"a kernel differs from its plain version at its main-path "

@@ -28,7 +28,22 @@ phase plain (colour a) at
 both shapes, measuring at 2048x2048 x 16 for q = 4 and 3, and its halo
 mode (measuring and plain) at the mesh packed clock class's shard (8, 32,
 512) of 2048x2048 x 16 on (2,2,2), graph-timed, with the SASS of
-phase_kernel; with ``--helical3d``, the helical 3-D phase kernel at
+phase_kernel; and the int8 clock phase at the samples class's 1000x1000 x
+1 (q = 6) and its halo mode (measuring and plain) at the mesh int8 clock
+class's shard (16, 1000, 500) of 2000x2000 x 16 on (1,2,2) (q = 5), both
+graph-timed, and the helical clock multisweep at its class's 501x500 x
+100 (q = 6, kbt 0.8, S = 64 and 40) and its injected mode, with the SASS
+of the int8 clock phase_kernel and the helical clock multisweep_kernel;
+with ``--clock-variants``, the int8 clock phase at 2000x2000 x 16 and
+1000x1000 x 1 and its halo mode at the mesh shard, through the C entries
+on its library (4 blocks an SM under its launch bound) and on builds
+without the bound's minimum and at 5 blocks an SM, each at tiles of up to
+8 (the library's), 16 and 4 KB of sites, and the helical clock
+multisweep at 501x500 x 100, S = 64 and 40, as the launch alone on its
+library (1024 threads a block, the round keys in shared memory) and on
+builds of 512 threads and with each thread's round keys in registers
+(into .build/variants/), each held bitwise against the wrapper; with
+``--helical3d``, the helical 3-D phase kernel at
 the even streamed class's launch, 1001x1000x1000 x 2 (colour a, z-parity
 sub-phases 0 and 1), and at the odd streamed class's, 501x501x500 x 2
 (colour b, plain and measuring), on random vectors, and the helical
@@ -70,8 +85,8 @@ mangled name without the anonymous namespace's per-file hash), to hold
 the includers of a shared header unchanged across two checkouts.
 
     python3 chip_time_ising.py [--reps 50] [--rounds 3]
-                               [--clock | --helical | --helical3d |
-                                --masked |
+                               [--clock | --clock-variants | --helical |
+                                --helical3d | --masked |
                                 --samples | --ms-grids |
                                 --key-variants | --measure-variants |
                                 --registers]
@@ -109,7 +124,8 @@ ROOT = Path(__file__).resolve().parent
 KBT_2D, KBT_3D = 2.269185314213022, 4.51152
 LIBS = ["ising2d_multisweep", "ising2d_pallas", "ising3d_pallas",
         "ising2d_multispin", "ising3d_multispin", "ising2d_measure_pallas"]
-CLOCK_LIBS = ["clock_planes", "clock_pallas", "clock_multisweep"]
+CLOCK_LIBS = ["clock_planes", "clock_pallas", "clock_multisweep",
+              "clock_helical_multispin"]
 KBT_CLOCK, KBT_CLOCK_08 = 0.91, 0.8
 # the helical 3-D classes' temperatures: 1001x1000x1000 and 501x501x500
 KBT_H3, KBT_H3_501 = 4.511454583186711, 4.51152174982078
@@ -332,14 +348,20 @@ def samples_modes(spins, gen, dev, key):
     return modes
 
 
-def variant_lib(lib: str, old: str, new: str, tag: str, base, names):
-    """csrc/<lib>.cu with ``old`` replaced by ``new``, built into
+def variant_lib(lib: str, old, new, tag: str, base, names):
+    """csrc/<lib>.cu with ``old`` replaced by ``new`` (or, ``old`` a list of
+    (old, new) pairs, each replaced), built into
     .build/variants/lib<lib>_<tag>.so (its ptxas report printed), loaded
     with the argument types of ``base``'s functions ``names``."""
     import ctypes
 
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build
     src = (_build.CSRC / f"{lib}.cu").read_text()
+    pairs = old if isinstance(old, list) else [(old, new)]
+    for o, n in pairs[:-1]:
+        assert o in src, o
+        src = src.replace(o, n)
+    old, new = pairs[-1]
     assert old in src, old
     vdir = _build.BUILD_DIR / "variants"
     vdir.mkdir(parents=True, exist_ok=True)
@@ -559,6 +581,224 @@ def ms_grid_modes(words, msb, seeds, b2):
     return modes
 
 
+def helical_clock_words(gen, dev, nrep: int = 100):
+    """Random (s, t0, t1) triplets of both colours at 501x500 x nrep and
+    the colour's sites m and words."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        helical_multispin as hms,
+    )
+    m = 501 * 500 // 2
+    nw = hms.words(m)
+    vecs = [torch.randint(-2 ** 31, 2 ** 31, (nrep, nw), generator=gen,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+            for _ in range(14)]
+    return tuple(vecs[:3]), tuple(vecs[3:6]), vecs[6:], m
+
+
+def helical_clock_modes(gen, dev, seeds):
+    """Rows 18-19: the helical clock multisweep at its class's launch,
+    501x500 x 100, q = 6, kbt 0.8, with S = 64 and 40, and its injected
+    mode (one phase on 8 given planes)."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_helical_multispin as chm,
+        helical_multispin as hms,
+    )
+    a3, b3, planes, m = helical_clock_words(gen, dev)
+    offs = hms.helical_offsets(501)[0]
+    kw = dict(beta=1 / KBT_CLOCK_08, nx=501, m=m)
+    return {
+        "helical clock multisweep 501x500 x 100 S=64": lambda: (
+            chm.multisweep_planes(a3, b3, seeds, **kw)),
+        "helical clock multisweep 501x500 x 100 S=40": lambda: (
+            chm.multisweep_planes(a3, b3, seeds[:40], **kw)),
+        "helical clock bits mode 501x500 x 100": lambda: (
+            chm.phase_packed_with_bits(a3, b3, planes, offs=offs, m=m)),
+    }
+
+
+# the variant builds of --clock-variants: the int8 clock phase kernel
+# (row 20, with its halo mode row 21; 4 blocks an SM under its launch
+# bound, 64 registers) without the bound's minimum and at 5 blocks an SM
+# (51 registers), and the helical clock multisweep
+# (rows 18-19, 1024 threads a block, the round keys in shared memory)
+# with 512 threads and with every thread holding its own round keys in
+# registers, as its first redesign did
+C8_BOUNDS = ("__global__ void __launch_bounds__(THREADS, 4) phase_kernel("
+             "Args a)")
+HC_THREADS = ("constexpr int THREADS = 1024;",
+              "constexpr int THREADS = 512;")
+HC_REG_KEYS = [("  __shared__ uint2 rk[10];  // the round keys of the (sweep, "
+                "phase)\n", "  uint2 rk[10];\n"),
+               ("        if (tid == 0)\n          philox_round_keys(",
+                "        if (true)\n          philox_round_keys(")]
+# the phase's tiles: phase_tiles' (whole-row tiles up to 8 KB of sites)
+# and tiles of up to 16 KB (the multisweeps') and 4 KB
+C8_TILE_BYTES = (8192, 16384, 4096)
+
+
+def clock_variant_modes(gen, dev, seeds):
+    """Rows 20-21 and 18-19 on their libraries and on variant builds
+    (``--clock-variants``, into .build/variants/), each launch held
+    bitwise against the wrapper: the int8 phase at 2000x2000 x 16, q = 5
+    (events) and 1000x1000 x 1, q = 6, and its halo mode at the mesh
+    class's shard (16, 1000, 500), measuring and plain (graphs), through
+    the C entries on each build and at each tile size of C8_TILE_BYTES;
+    the helical clock multisweep at 501x500 x 100, S = 64 and 40, as the
+    launch alone (keys and table already on the card) on each build."""
+    import ctypes
+
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        clock_helical_multispin as chm,
+        clock_pallas as c8p,
+        helical_multispin as hms,
+        ising2d_multisweep as i8ms,
+        multispin_rng,
+    )
+    def stream():
+        # the current stream at the call: a graph captures on its own
+        return torch.cuda.current_stream().cuda_stream
+
+    modes = {}
+    # rows 20-21
+    base = c8p._lib()
+    names = ("clock_int8_phase", "clock_int8_halo_phase")
+    libs = {"library": base}
+    for nb, bound in (("no minimum", "(THREADS)"), (5, "(THREADS, 5)")):
+        libs[f"bounds {nb}"] = variant_lib(
+            "clock_pallas", C8_BOUNDS,
+            C8_BOUNDS.replace("(THREADS, 4)", bound), f"b{nb}".replace(
+                " ", "_"), base, names)
+
+    def states(shape, q):
+        return torch.randint(0, q, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int8)
+
+    def tiles_of(nrep, ny, half, nbytes):
+        old = i8ms.TILE_BYTES
+        i8ms.TILE_BYTES = nbytes
+        try:
+            t = i8ms.ms_tiles(nrep, ny, half)
+        finally:
+            i8ms.TILE_BYTES = old
+        i8ms.check_ms_tiles(t, ny, half)
+        words = [t["rows"], t["lux"], t["cw"], t["nch"], t["nty"], *t["buf"],
+                 t["smem"]]
+        return (ctypes.c_int * len(words))(*words)
+
+    key = seeds[0, 0]
+    s0, s1 = (int(v) & 0xFFFFFFFF for v in key)
+    for q, shape in ((5, (16, 2000, 1000)), (6, (1, 1000, 500))):
+        a0, b0 = states(shape, q), states(shape, q)
+        tab = c8p.device_table(q, dev)
+        want = c8p.metropolis_phase(a0.clone(), b0, key, color=0, q=q,
+                                    beta=1 / KBT_CLOCK)
+        for nbytes in C8_TILE_BYTES:
+            tiles = tiles_of(*shape, nbytes)
+            for tag, lib in libs.items():
+                def phase(lib=lib, x=a0.clone(), tiles=tiles, q=q,
+                          shape=shape, b0=b0, tab=tab):
+                    code = lib.clock_int8_phase(
+                        x.data_ptr(), b0.data_ptr(), tab.data_ptr(), None,
+                        None, *shape, q, 0, -1 / KBT_CLOCK, s0, s1, tiles,
+                        stream())
+                    if code:
+                        raise RuntimeError(f"clock phase launch: {code}")
+                    return x
+                x = a0.clone()
+                phase(x=x)
+                if not torch.equal(x, want):
+                    raise RuntimeError(f"clock phase {tag} {nbytes} differs")
+                label = (f"clock8 phase {'x'.join(map(str, shape))} q={q}, "
+                         f"{tag}, tiles {nbytes}")
+                if shape[0] == 1:
+                    label = "graph " + label
+                modes[label] = phase
+    # row 21 at its shard, its halos from its own other colour
+    ka, kb = states((16, 1000, 500), 5), states((16, 1000, 500), 5)
+    lf, rt = kb[:, :, -1:].contiguous(), kb[:, :, :1].contiguous()
+    up, dn = kb[:, -1:].contiguous(), kb[:, :1].contiguous()
+    tab, tab64 = c8p.device_table(5, dev), c8p.device_table(5, dev,
+                                                            torch.float64)
+    want = c8p.sharded_phase(ka.clone(), kb, up, dn, key, (0, 1000, 500),
+                             color=1, q=5, beta=1 / KBT_CLOCK,
+                             measuring=True, halo_lf=lf, halo_rt=rt)
+    for nbytes in C8_TILE_BYTES:
+        tiles = tiles_of(16, 1000, 500, nbytes)
+        part = torch.empty((16, tiles[4] * tiles[3], 3), dtype=torch.float64,
+                           device=dev)
+        obs = torch.empty((16, 3), dtype=torch.float64, device=dev)
+        for tag, lib in libs.items():
+            for measuring in (True, False):
+                def halo(lib=lib, x=ka.clone(), tiles=tiles,
+                         measuring=measuring, part=part, obs=obs):
+                    code = lib.clock_int8_halo_phase(
+                        x.data_ptr(), kb.data_ptr(), tab.data_ptr(),
+                        tab64.data_ptr(), None, None, up.data_ptr(),
+                        dn.data_ptr(), lf.data_ptr(), rt.data_ptr(),
+                        part.data_ptr() if measuring else None,
+                        obs.data_ptr() if measuring else None, 16, 1000,
+                        500, 5, 1, 0, 1000, 500, -1 / KBT_CLOCK, s0, s1,
+                        tiles, stream())
+                    if code:
+                        raise RuntimeError(f"clock halo launch: {code}")
+                    return x
+                x = ka.clone()
+                halo(x=x)
+                if not torch.equal(x, want[0]):
+                    raise RuntimeError(f"clock halo {tag} {nbytes} differs")
+                if measuring and not torch.allclose(
+                        obs.T, torch.stack(want[1:]), rtol=1e-12, atol=0):
+                    raise RuntimeError(f"clock halo sums {tag} {nbytes}")
+                modes[f"graph clock8 shard (16, 1000, 500) "
+                      f"{'measuring' if measuring else 'plain'}, {tag}, "
+                      f"tiles {nbytes}"] = halo
+    # rows 18-19
+    a3, b3, _, m = helical_clock_words(gen, dev)
+    nw = hms.words(m)
+    beta = 1 / KBT_CLOCK_08
+    keys = multispin_rng.keys_to(seeds, dev)
+    table = chm._table_arg(chm.SPEC, beta)
+    da, db = ([d % m for d in offs] for offs in hms.helical_offsets(501))
+    staged = int(chm.staged_fits(nw, dev))
+    hbase = chm._lib()
+    hnames = ("clock_helical_multisweep", "clock_helical_smem_optin")
+    hlibs = {
+        "1024 threads, keys in shared memory": hbase,
+        "512 threads, keys in shared memory": variant_lib(
+            "clock_helical_multispin", [HC_THREADS], None, "t512", hbase,
+            hnames),
+        "1024 threads, keys in registers": variant_lib(
+            "clock_helical_multispin", HC_REG_KEYS, None, "regkeys", hbase,
+            hnames),
+        "512 threads, keys in registers": variant_lib(
+            "clock_helical_multispin", [HC_THREADS, *HC_REG_KEYS], None,
+            "t512_regkeys", hbase, hnames),
+    }
+    outs = [torch.empty_like(a3[0]) for _ in range(6)]
+    hobs = torch.empty((100, 64, 3), dtype=torch.int64, device=dev)
+
+    def alone(lib, sweeps):
+        code = lib.clock_helical_multisweep(
+            *[w.data_ptr() for w in (*a3, *b3, *outs)], keys.data_ptr(),
+            None, hobs.data_ptr(), 100, nw, m, sweeps, 0, staged, *da, *db,
+            table, stream())
+        if code:
+            raise RuntimeError(f"helical clock launch: {code}")
+
+    vm = hms.valid_mask(m, dev)
+    want = chm.multisweep_planes(a3, b3, seeds, beta=beta, nx=501, m=m)
+    for tag, lib in hlibs.items():
+        alone(lib, 64)
+        if not (all(torch.equal(hms._u32(g) & vm, hms._u32(w) & vm)
+                    for g, w in zip(outs, want[0] + want[1]))
+                and torch.equal(hobs, want[2])):
+            raise RuntimeError(f"helical clock, {tag}, differs")
+        for sweeps in (64, 40):
+            modes[f"helical clock multisweep S={sweeps}, {tag}"] = (
+                lambda lib=lib, s=sweeps: alone(lib, s))
+    return modes
+
+
 def clock_modes(gen, dev, seeds):
     """The clock kernels at the smoke's launch shapes, on random states."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
@@ -619,6 +859,25 @@ def clock_modes(gen, dev, seeds):
             lambda spec=spec, a=a, b=b: cp.phase_packed(
                 spec, b, a, key, color=1, beta=1 / KBT_CLOCK_08,
                 measuring=True))
+    # row 20 at the samples class's launch (1000^2 x 1, q = 6) and row 21
+    # at the mesh int8 clock class's shard (16, 1000, 500) of 2000^2 x 16
+    # on (1,2,2), q = 5, its halos from its own other colour, as graphs
+    ta, tb = states((1, 1000, 500), 6), states((1, 1000, 500), 6)
+    ka, kb = states((16, 1000, 500), 5), states((16, 1000, 500), 5)
+    khalo = dict(halo_lf=kb[:, :, -1:].contiguous(),
+                 halo_rt=kb[:, :, :1].contiguous())
+    kup, kdn = kb[:, -1:].contiguous(), kb[:, :1].contiguous()
+    modes.update({
+        "graph clock_int8_phase 1000^2 x 1 q=6": lambda: c8p.metropolis_phase(
+            ta, tb, key, color=0, q=6, beta=1 / KBT_CLOCK),
+        "graph clock_int8_shard_measuring": lambda: c8p.sharded_phase(
+            kb, ka, kup, kdn, key, (0, 1000, 500), color=1, q=5,
+            beta=1 / KBT_CLOCK, measuring=True, **khalo),
+        "graph clock_int8_shard": lambda: c8p.sharded_phase(
+            ka, kb, kup, kdn, key, (0, 1000, 500), color=0, q=5,
+            beta=1 / KBT_CLOCK, **khalo),
+    })
+    modes.update(helical_clock_modes(gen, dev, seeds))
     return {
         **modes,
         "clock_int8_phase": lambda: c8p.metropolis_phase(
@@ -644,6 +903,9 @@ def main() -> int:
                     help="time the helical 3-D phase kernel instead")
     ap.add_argument("--masked", action="store_true",
                     help="time the masked helical Ising multisweep instead")
+    ap.add_argument("--clock-variants", action="store_true",
+                    help="time rows 20-21 and 18-19 on variant builds "
+                    "instead")
     ap.add_argument("--samples", action="store_true",
                     help="time the samples classes' one-replica int8 "
                     "kernels instead, also as CUDA graphs")
@@ -690,6 +952,9 @@ def main() -> int:
     libs = LIBS
     if args.clock:
         modes, libs = clock_modes(gen, dev, seeds), CLOCK_LIBS
+    elif args.clock_variants:
+        modes, libs = clock_variant_modes(gen, dev, seeds), [
+            "clock_pallas", "clock_helical_multispin"]
     elif args.helical:
         modes, libs = helical_modes(words, dev), ["helical_multispin"]
     elif args.helical3d:
@@ -732,7 +997,7 @@ def main() -> int:
             times[mode].append(start.elapsed_time(end) / reps)
     if not (args.clock or args.helical or args.helical3d or args.masked
             or args.samples or args.ms_grids or args.measure_variants
-            or args.key_variants):
+            or args.key_variants or args.clock_variants):
         # the grid of the tiles at 1000^2 x 16 (a tree before them: one
         # grid for every shape)
         times["int8_multisweep_blocks"] = (
@@ -762,8 +1027,10 @@ def main() -> int:
     elif args.clock:
         sass_report("clock_planes", ("phase_kernel",))
         sass_report("clock_multisweep", ("multisweep_kernel",))
+        sass_report("clock_pallas", ("phase_kernel",))
+        sass_report("clock_helical_multispin", ("multisweep_kernel",))
     elif not (args.samples or args.ms_grids or args.measure_variants
-              or args.key_variants):
+              or args.key_variants or args.clock_variants):
         sass_report("ising3d_multispin", ("phase_kernel",
                                           "multisweep_kernel"))
         sass_report("ising3d_pallas", ("tile_kernel",))

@@ -1,9 +1,10 @@
 // Bernoulli word planes of the bit-packed engines: each bit of the
 // returned word is 1 with probability q / 2^k, from Philox words
-// (philox.cuh), drawn by bern_word (left to the helical clock's draw<Q>)
-// or, for every bit-packed Ising kernel's chains, by the unrolled
-// chain_planes; and the bit-sliced counters and flip masks of the 4- and
-// 6-neighbour stencils.  Shared by the Ising and clock kernels.
+// (philox.cuh), drawn for every bit-packed Ising kernel's chains by the
+// unrolled chain_planes (the clock kernels' draw_unrolled,
+// clock_algebra.cuh, folds the same way); and the bit-sliced counters and
+// flip masks of the 4- and 6-neighbour stencils.  Shared by the Ising and
+// clock kernels.
 #pragma once
 #include <cstdint>
 
@@ -12,21 +13,11 @@
 constexpr int CHAIN_BITS = 20;  // the Ising chains' digits
 
 // Digits d_1..d_k of p are bits k-1..0 of q = round(p * 2^k) (k <= 32);
-// fold B <- r | B on a one digit, r & B on a zero digit, from the last one
-// digit up to d_1 (ops/ising2d_multispin._bern_plane).  Trailing zero
-// digits draw no word.  The Ising chains take k = CHAIN_BITS; the clock
-// chains k = _chain_len(p), 6..28 (ops/clock_planes.py).
-__device__ __forceinline__ uint32_t bern_word(WordStream& s, uint32_t q,
-                                              int nbits = CHAIN_BITS) {
-  if (q == 0u) return 0u;
-  int k = __ffs(q) - 1;
-  uint32_t b = s.next();
-  for (++k; k < nbits; ++k) {
-    const uint32_t r = s.next();
-    b = ((q >> k) & 1u) ? (r | b) : (r & b);
-  }
-  return b;
-}
+// a chain folds B <- r | B on a one digit, r & B on a zero digit, one
+// Philox word r a digit, from the last one digit up to d_1
+// (ops/ising2d_multispin._bern_plane).  Trailing zero digits draw no word.
+// The Ising chains take k = CHAIN_BITS; the clock chains k =
+// _chain_len(p), 6..28 (ops/clock_planes.py).
 
 // The B4, B8, B12 chains of one launch as a table
 // (ops/multispin_rng.chain_table): draws [0, e4) fold into B4, [e4, e8)
@@ -86,19 +77,16 @@ __device__ __forceinline__ void fold_call(const ChainTable& t, int c, uint4 v,
 
 // The B4, B8, B12 planes of the word at Philox counter (c0, c1, c2, .)
 // under the round keys rk_in (philox_round_keys of the phase key): the
-// bits of bern_word(q4), bern_word(q8), bern_word(q12) drawn in turn from
-// one WordStream, in a fully unrolled loop.  The Philox call index and the
+// chains of q4, q8, q12 drawn in turn from the word's draws n (word n % 4
+// of Philox call n / 4), in a fully unrolled loop.  The Philox call index and the
 // word within it are compile-time constants; a draw folds into the
 // running chain in one three-input op, B <- maj(r, B, D), with D the
 // draw's digit (all ones or zero) from the table, a launch constant; the
 // chain boundaries are uniform, so a call that holds none folds its four
 // draws straight; the round keys are held in registers; the calls go in
 // pairs, two independent chains of rounds (a pair's second call past the
-// last draw is drawn and dropped).  bern_word instead runs a loop from
-// __ffs(q) and, for each draw, WordStream's refill test, a runtime pick of
-// the buffer word and the digit's shift, mask and select, and each
-// philox4x32_10 call recomputes its round keys.  A chain starts at B = 0
-// with a one digit, so its first draw gives B = r, as bern_word's.
+// last draw is drawn and dropped).  A chain starts at B = 0 with a one
+// digit, so its first draw gives B = r.
 __device__ __forceinline__ void chain_planes(const ChainTable& t,
                                              const uint2 (&rk_in)[10],
                                              uint32_t c0, uint32_t c1,

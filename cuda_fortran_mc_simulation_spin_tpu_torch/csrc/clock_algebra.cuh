@@ -16,9 +16,9 @@
 //          chains p1, p2, p4.
 //
 // Random words are drawn in the plain versions' order: the thermometer
-// (or proposal) words first, then each chain's words, chain after chain:
-// by draw<Q> from a WordStream (the helical kernel) or by the unrolled
-// draw_unrolled<Q> from a per-launch DrawTable (the periodic kernel).
+// (or proposal) words first, then each chain's words, chain after chain,
+// by the unrolled draw_unrolled<Q> from a per-launch DrawTable (both
+// kernels).
 #pragma once
 #include <cstdint>
 
@@ -28,12 +28,6 @@
 namespace clockq {
 
 constexpr int MAX_CHAINS = 5;
-
-// Chain digits: q[i] = round(p_i * 2^k[i]) with k[i] digits each.
-struct Chains {
-  uint32_t q[MAX_CHAINS];
-  int k[MAX_CHAINS];
-};
 
 __device__ __forceinline__ void ha(uint32_t a, uint32_t b, uint32_t& s,
                                    uint32_t& c) {
@@ -93,24 +87,6 @@ __device__ __forceinline__ void thermometer(const uint32_t (&p)[12],
   }
 }
 
-// The NR random planes of one word from its Philox stream.
-template <int Q>
-__device__ __forceinline__ void draw(WordStream& s, const Chains& ch,
-                                     uint32_t (&r)[Traits<Q>::NR]) {
-  constexpr int NC = Traits<Q>::NC;
-  constexpr int NP = Traits<Q>::NR - NC;  // proposal planes
-  if constexpr (Q == 3) {
-    r[0] = s.next();
-  } else {
-    uint32_t p[12];
-#pragma unroll
-    for (int j = 0; j < 12; ++j) p[j] = s.next();
-    thermometer<Q>(p, r);
-  }
-#pragma unroll
-  for (int i = 0; i < NC; ++i) r[NP + i] = bern_word(s, ch.q[i], ch.k[i]);
-}
-
 // The draw of one launch as a table (ops/multispin_rng.clock_draw_table):
 // the NP proposal words (12, or 1 for q = 3) are draws [0, NP), chain i
 // folds draws [end[i-1], end[i]) (end[-1] = NP), draw n being word n % 4
@@ -167,18 +143,17 @@ __device__ __forceinline__ void chain_draw(const DrawTable& t, int d,
 }
 
 // The NR random planes of the word at Philox counter (c0, c1, c2, .) under
-// the round keys rk_in (philox_round_keys of the phase key): draw<Q>'s
-// words in its order (the proposal words, then chain after chain, trailing
-// zero digits drawing none), in a fully unrolled line.  The Philox call
+// the round keys rk_in (philox_round_keys of the phase key): the plain
+// draw's words in its order (the proposal words, then chain after chain
+// from its lowest one digit, trailing zero digits drawing none,
+// ops/clock_planes.draw_planes_plain), in a fully unrolled line.  The Philox call
 // index and the word within it are compile-time constants; a chain draw
 // folds into the running chain in one three-input op, B <- maj(r, B, D),
 // with D the draw's digit from the table, a launch constant; the chain
 // ends are uniform, so a fast call folds its four draws straight; the
 // round keys are held in registers; the chain calls go in pairs, two
 // independent chains of rounds (a pair's second call past the last draw
-// is drawn and dropped).  draw<Q> instead runs bern_word's loop, its
-// refill test, runtime buffer pick and digit shift a draw, and each
-// philox4x32_10 call recomputes its round keys.
+// is drawn and dropped).
 template <int Q>
 __device__ __forceinline__ void draw_unrolled(const DrawTable& t,
                                               const uint2 (&rk_in)[10],

@@ -21,30 +21,47 @@
 // same way).  Pad bits [M, 32W) hold garbage after a flip; read_circ never
 // reads them for a valid site, and every sum masks them.
 //
-// Design: one block of 512 threads owns one replica, so a phase boundary
-// is a __syncthreads().  When both triplets fit the block's shared memory
-// (501x500: 6 x 3,915 words, 94 KB) the kernel stages them there for all
-// S sweeps and writes back once; above that (up to the JAX gate of 65,536
-// words a colour, 1.5 MiB) the same code works in place on the output
-// vectors in device memory.  A phase updates its colour in place: a word
-// depends only on itself and on the other colour.
+// Design: one block of 1024 threads owns one replica, so a phase
+// boundary is a __syncthreads().  When both triplets fit the block's
+// shared memory (501x500: 6 x 3,915 words, 94 KB) the kernel stages them
+// there for all S sweeps and writes back once; above that (up to the JAX
+// gate of 65,536 words a colour, 1.5 MiB) the same code works in place on
+// the output vectors in device memory.  A phase updates its colour in
+// place: a word depends only on itself and on the other colour.  At the
+// class's 100 replicas 100 of the 132 SMs work; 1024 threads (32 warps,
+// under a 64-register cap) beat 512 (16 warps, 112 registers) by ~12%,
+// and splitting a replica over a cluster of blocks would leave the busiest
+// SMs a replica's work all the same (PERF.md §6).
 //
 // Random words: the key is the Philox key of the (sample, t, phase); the
 // counter is (replica, word, 0, draw / 4), so S one-sweep launches give
 // one S-sweep launch's trajectory bitwise, and so does the plain version.
+// The draw is clock_algebra.cuh's unrolled draw_unrolled<6>, the periodic
+// packed clock's (csrc/clock_planes.cu): it follows the launch's
+// DrawTable (ops/multispin_rng.clock_draw_table, checked by draw_table_ok
+// before the launch) in one line, the Philox call index and the word
+// within it compile-time constants, a draw folded into its chain in one
+// three-input op; the round keys of each (sweep, phase) key are taken
+// once a block (philox_round_keys) into shared memory, and draw_unrolled
+// holds them in registers a word (no slower than every thread keeping its
+// own copy across the phase, PERF.md §6).  The first
+// design drew through a WordStream and bern_word's loops: a refill test, a
+// runtime pick of the buffer word and a digit's shift a draw, and the round
+// keys recomputed each Philox call (PERF.md §6 has the A/B).
 //
 // Bound on the H100: integer operations, ~24 Philox calls a word and
 // phase at kbt 0.80.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 #include "clock_algebra.cuh"
 #include "helical_read.cuh"
 
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
 
 struct HelicalClockArgs {
@@ -56,16 +73,19 @@ struct HelicalClockArgs {
   const uint32_t* inj;      // (8, R, W) injected planes: bits mode, or null
   long long* obs;           // (R, S, 3) (2m, 2e, my2), or null
   int nrep, nw, m, sweeps;
-  int bits;                 // 1: one phase of colour a with inj
   int staged;               // 1: work in shared memory
   int da[4], db[4];         // offsets mod M of a's and b's neighbours
-  clockq::Chains chains;
+  clockq::DrawTable table;  // the launch's draw (unused in the bits mode)
 };
 
+// S sweeps (BITS false) or one phase of colour a with the 8 injected
+// planes (BITS true), one block a replica.
+template <bool BITS>
 __global__ void __launch_bounds__(THREADS, 1)
     multisweep_kernel(HelicalClockArgs a) {
   extern __shared__ uint32_t smem[];
   __shared__ long long red[3][WARPS];
+  __shared__ uint2 rk[10];  // the round keys of the (sweep, phase)
   const int r = blockIdx.x, tid = threadIdx.x;
   const int nw = a.nw, m = a.m;
   const size_t base = static_cast<size_t>(r) * nw;
@@ -85,20 +105,31 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
 
-  const int phases = a.bits ? 1 : 2;
-  for (int s = 0; s < a.sweeps; ++s) {
-    for (int phase = 0; phase < phases; ++phase) {
-      uint32_t* const* x = phase ? B : A;
-      uint32_t* const* o = phase ? A : B;
+  constexpr int PHASES = BITS ? 1 : 2;
+  const int sweeps = BITS ? 1 : a.sweeps;
+  for (int s = 0; s < sweeps; ++s) {
+    for (int phase = 0; phase < PHASES; ++phase) {
+      // the planes picked one by one, so that they stay in registers
+      uint32_t* x[3];
+      const uint32_t* o[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        x[k] = phase ? B[k] : A[k];
+        o[k] = phase ? A[k] : B[k];
+      }
       int d[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) d[k] = phase ? a.db[k] : a.da[k];
-      const bool measure = a.obs != nullptr && phase == 1;
-      uint2 key = make_uint2(0u, 0u);
-      if (!a.bits)
-        key = make_uint2(
-            static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2]),
-            static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2 + 1]));
+      const bool measure = !BITS && a.obs != nullptr && phase == 1;
+      // one copy a block, read after the barrier (the last phase's
+      // readers passed its boundary)
+      if constexpr (!BITS) {
+        if (tid == 0)
+          philox_round_keys(
+              static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2]),
+              static_cast<uint32_t>(a.seeds[(2 * s + phase) * 2 + 1]), rk);
+        __syncthreads();
+      }
       long long pm = 0, pe = 0, py = 0;
       for (int g = tid; g < nw; g += THREADS) {
         const int f0 = g * 32;  // < M, so f0 + d < 2M
@@ -111,14 +142,13 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int k = 0; k < 3; ++k) n[k][b] = read_circ(o[k], nw, m, st);
         }
         uint32_t rnd[8];
-        if (a.bits) {
+        if constexpr (BITS) {
           const size_t plane = static_cast<size_t>(a.nrep) * nw;
 #pragma unroll
           for (int i = 0; i < 8; ++i) rnd[i] = a.inj[i * plane + base + g];
         } else {
-          WordStream ws(static_cast<uint32_t>(r), static_cast<uint32_t>(g),
-                        0u, key);
-          clockq::draw<6>(ws, a.chains, rnd);
+          clockq::draw_unrolled<6>(a.table, rk, static_cast<uint32_t>(r),
+                                   static_cast<uint32_t>(g), 0u, rnd);
         }
         uint32_t xv[3] = {x[0][g], x[1][g], x[2][g]};
         uint32_t xf[4], wf[4];
@@ -196,25 +226,26 @@ int clock_helical_smem_optin(int* bytes) {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   cudaFuncAttributes attr;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, multisweep_kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, multisweep_kernel<false>);
   *bytes = e == cudaSuccess ? optin - static_cast<int>(attr.sharedSizeBytes)
                             : 0;
   return static_cast<int>(e);
 }
 
 // S sweeps (or, with bits, one phase of colour a with the 8 injected
-// planes inj): grid of R blocks of 512 threads.  a*_in/b*_in -> a*/b*;
+// planes inj): grid of R blocks of 1024 threads.  a*_in/b*_in -> a*/b*;
 // obs (R, S, 3) is written whole when given.  staged: 1 to work in
 // shared memory (6 * W * 4 bytes, which must fit clock_helical_smem_optin).
+// table: the 167 words of the DrawTable (ops/multispin_rng.
+// clock_draw_table), null in the bits mode.
 int clock_helical_multisweep(
     const void* a0_in, const void* a1_in, const void* a2_in,
     const void* b0_in, const void* b1_in, const void* b2_in, void* a0,
     void* a1, void* a2, void* b0, void* b1, void* b2, const void* seeds,
     const void* inj, void* obs, int nrep, int nw, int m, int sweeps,
     int bits, int staged, int da0, int da1, int da2, int da3, int db0,
-    int db1, int db2, int db3, unsigned int cq0, unsigned int cq1,
-    unsigned int cq2, unsigned int cq3, unsigned int cq4, int ck0, int ck1,
-    int ck2, int ck3, int ck4, void* stream) {
+    int db1, int db2, int db3, const unsigned int* table, void* stream) {
   HelicalClockArgs a;
   const void* ins[6] = {a0_in, a1_in, a2_in, b0_in, b1_in, b2_in};
   void* outs[6] = {a0, a1, a2, b0, b1, b2};
@@ -226,32 +257,34 @@ int clock_helical_multisweep(
   }
   a.seeds = static_cast<const int32_t*>(seeds);
   a.inj = bits ? static_cast<const uint32_t*>(inj) : nullptr;
-  a.obs = static_cast<long long*>(obs);
+  a.obs = bits ? nullptr : static_cast<long long*>(obs);
   a.nrep = nrep;
   a.nw = nw;
   a.m = m;
   a.sweeps = sweeps;
-  a.bits = bits;
   a.staged = staged;
   const int da[4] = {da0, da1, da2, da3}, db[4] = {db0, db1, db2, db3};
   for (int k = 0; k < 4; ++k) {
     a.da[k] = da[k];
     a.db[k] = db[k];
   }
-  const unsigned int cq[5] = {cq0, cq1, cq2, cq3, cq4};
-  const int ck[5] = {ck0, ck1, ck2, ck3, ck4};
-  for (int i = 0; i < clockq::MAX_CHAINS; ++i) {
-    a.chains.q[i] = cq[i];
-    a.chains.k[i] = ck[i];
+  if (bits) {
+    std::memset(&a.table, 0, sizeof(clockq::DrawTable));
+  } else {
+    if (table == nullptr || seeds == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    std::memcpy(&a.table, table, sizeof(clockq::DrawTable));
+    if (!clockq::draw_table_ok(a.table, 12))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = staged ? 6 * nw * static_cast<int>(sizeof(uint32_t)) : 0;
+  const auto kernel = bits ? multisweep_kernel<true> : multisweep_kernel<false>;
   if (smem > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
-        multisweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  multisweep_kernel<<<nrep, THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<nrep, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

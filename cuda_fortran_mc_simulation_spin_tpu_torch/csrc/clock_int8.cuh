@@ -1,9 +1,9 @@
-// The int8 q-state clock checkerboard update and its float64 sums, shared
-// by the phase kernel (csrc/clock_pallas.cu) and the measure kernel
-// (csrc/clock_measure_pallas.cu), so that both apply the same function to
-// the same random words; the cooperative multisweep
-// (csrc/clock_multisweep.cu) takes the layout and tables from here and
-// spells the same site rule on its staged tiles.
+// The int8 q-state clock checkerboard site rule and its float64 sums:
+// update_word, four sites of a row at a time, shared by the phase kernel
+// (csrc/clock_pallas.cu) and the cooperative multisweep
+// (csrc/clock_multisweep.cu), so that both apply the same function to the
+// same random words; and measure_unit, the measure kernel's
+// (csrc/clock_measure_pallas.cu).
 //
 // Layout (core/lattice.py): int8 states s in [0, q), q <= 127, on colour
 // planes (R, ny, half); colour 0 holds the sites x = 2i + (y & 1) of row
@@ -19,13 +19,13 @@
 // select chain is a TPU artefact (Mosaic has no fast gather); the gather
 // reads the same float32 values, so the decisions are the chain's.
 //
-// Unit: two adjacent sites 2j, 2j + 1 of one row, one thread; the tail
-// unit of a row whose half is odd is masked, so every even nx and ny runs.
-// Random words (ops/clock_pallas.draw_words): the unit's one
-// Philox4x32-10 call at counter (replica, row, j, 0) under the phase key;
-// site 2j + k takes output 2k for its candidate and 2k + 1 for its
-// acceptance, each a uniform from its top 24 bits (xy::u24, as JAX
-// stencil.bits_to_uniform).
+// Unit: two adjacent sites 2j, 2j + 1 of one row; the tail unit of a row
+// whose half is odd is masked, so every even nx and ny runs.  Random words
+// (ops/clock_pallas.draw_words): the unit's one Philox4x32-10 call at
+// counter (replica, row, j, 0) under the phase key; site 2j + k takes
+// output 2k for its candidate and 2k + 1 for its acceptance, each a
+// uniform from its top 24 bits (xy::u24, as JAX stencil.bits_to_uniform).
+// A word of four sites from an even column is two units, two calls.
 //
 // Arithmetic (models/clock.metropolis_update, JAX models/clock.py:104-134):
 // h = (up + dn) + (centre + side) in float32; candidate
@@ -40,6 +40,7 @@
 
 #include <cstdint>
 
+#include "byte_tiles.cuh"
 #include "philox.cuh"
 #include "xy2d_site.cuh"
 
@@ -85,163 +86,82 @@ __device__ __forceinline__ void stage(const T* tab, T* c, T* s) {
 }
 
 // A state as a table index (the mask keeps a corrupt byte inside the
-// table; it is the identity on [0, q)).  A coherent load bypasses L1: the
-// multisweep reads, after a grid barrier, what other SMs wrote.
-template <bool COHERENT>
+// table; it is the identity on [0, q))
 __device__ __forceinline__ int load(const int8_t* p, size_t i) {
-  const int v = COHERENT ? static_cast<int>(__ldcg(p + i))
-                         : static_cast<int>(__ldg(p + i));
-  return v & (TABLE - 1);
+  return static_cast<int>(__ldg(p + i)) & (TABLE - 1);
 }
 
 __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
-struct Phase {
-  int8_t* x;            // colour being updated, in place
-  const int8_t* o;      // the other colour
-  const float* ucand;   // injected uniforms (R, ny, half), or null
-  const float* uacc;
-  uint2 key;            // Philox key of this (sample, t, phase)
-  float neg_beta;
-  int q, color;
-};
-
-// A shard of a domain-decomposed lattice (parallel/domain.py): the halos
-// exchanged from its neighbours (parallel/halo.py) and its global offsets.
-// The shard holds rows row0 .. row0 + ny - 1 and columns col0 .. col0 +
-// half - 1 of the colour planes.  A periodic lattice is the shard with no
-// halos and no offsets.
-struct Shard {
-  const int8_t* up;  // (R, 1, half): the row above row 0
-  const int8_t* dn;  // (R, 1, half): the row below the last
-  const int8_t* lf;  // (R, ny, 1): the column left of column 0, or null
-  const int8_t* rt;  // (periodic in x: the shard spans every column)
-  int rep0, row0, col0;
-};
-
-// Units of a row of the shard: the global units (column >> 1) its columns
-// touch, so that one Philox call still feeds the two global columns of a
-// unit and a shard draws what the whole lattice draws, at any col0.
-__host__ __device__ inline int shard_units(int col0, int half) {
-  return ((col0 + half - 1) >> 1) - (col0 >> 1) + 1;
-}
-
-// The staged tables: float32 for the update, float64 for the sums
-struct Tables {
-  const float* c;
-  const float* s;
-  const double* c64;
-  const double* s64;
-};
-
-// Updates the sites of global unit j + (col0 >> 1) of local row y of
-// replica r.  HALO: the rows past the shard's first and last and, when lf
-// is set, the columns past its edges come from the halos of s, and parity
-// and the Philox counter (rep0 + r, row0 + y, global unit) from global
-// coordinates (JAX clock_pallas._halo_phase_kernel); a shard at an odd
-// col0 cuts a unit, whose other site its neighbour updates.  Otherwise
-// every neighbour wraps and s is not read.  With MEASURE it adds the fused
-// float64 sums of a measuring phase b (JAX clock_multisweep.py:87-95):
-// Σ cos and Σ sin of the new state and of the other colour's site (y, i),
-// and S_new·h over the site's four bonds (the other colour is final, so
-// every bond is counted once; reduce_kernel negates it into e).
-template <bool COHERENT, bool MEASURE, bool HALO = false>
-__device__ __forceinline__ void update_unit(const Phase& p, const Shard& s,
-                                            const Geometry& g,
-                                            const Tables& tb, int r, int y,
-                                            int j, xy::Sums& t) {
-  const int row0 = HALO ? s.row0 : 0;
-  const int col0 = HALO ? s.col0 : 0;
-  const size_t base = static_cast<size_t>(r) * g.ny * g.half;
-  const size_t row = base + static_cast<size_t>(y) * g.half;
-  // the rows before and after: wrapped, or a halo
-  const int8_t* prev = p.o;
-  const int8_t* next = p.o;
-  size_t up = base + static_cast<size_t>(wrap(y - 1, g.ny)) * g.half;
-  size_t dn = base + static_cast<size_t>(wrap(y + 1, g.ny)) * g.half;
-  if (HALO) {
-    const size_t halo = static_cast<size_t>(r) * g.half;
-    if (y == 0) {
-      prev = s.up;
-      up = halo;
-    }
-    if (y == g.ny - 1) {
-      next = s.dn;
-      dn = halo;
-    }
-  }
-  // colour 0 on an odd row and colour 1 on an even row read column i + 1
-  const int d = (p.color == 0) == (((row0 + y) & 1) == 1) ? 1 : -1;
-  const int jg = (col0 >> 1) + j;
-  uint4 w = make_uint4(0u, 0u, 0u, 0u);
-  if (p.ucand == nullptr)
-    w = philox4x32_10(
-        make_uint4(static_cast<uint32_t>((HALO ? s.rep0 : 0) + r),
-                   static_cast<uint32_t>(row0 + y),
-                   static_cast<uint32_t>(jg), 0u),
-        p.key);
-  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-  const size_t col_halo = static_cast<size_t>(r) * g.ny + y;
+// The sites k0 <= k < nv of a word of four colour sites (byte k of each
+// window is column col + k of its row): xv the sites' own window, uv and
+// dv the other colour's rows above and below, cv the centre (the same
+// column) and sv the side neighbour's window (col + k + d, the row's wrap
+// patched in by the caller).  uniforms(k, uc, ua) gives site k's
+// candidate and acceptance uniforms.  Returns xv with the new states in
+// bytes k0 .. nv - 1; with MEASURE it adds each updated site's fused
+// float64 sums of a measuring phase b (JAX clock_multisweep.py:87-95): Σ
+// cos and Σ sin of the new state and of the centre, and S_new·h over the
+// site's four bonds (the other colour is final, so every bond is counted
+// once; reduce_kernel negates it into e).  tab and tab64 are the staged
+// (cos, sin) tables, qm1 = q - 1 as a float.
+template <bool MEASURE, typename Uniforms>
+__device__ __forceinline__ uint32_t update_word(
+    uint32_t xv, uint32_t uv, uint32_t dv, uint32_t cv, uint32_t sv, int k0,
+    int nv, int q, float qm1, float neg_beta, const float2* tab,
+    const double2* tab64, Uniforms uniforms, xy::Sums& sums) {
+  // the states as table indices, byte by byte (the mask keeps a corrupt
+  // byte inside the table; it is the identity on [0, q))
+  constexpr uint32_t IDX = 0x7F7F7F7Fu;
+  const uint32_t um = uv & IDX, dm = dv & IDX, cm = cv & IDX;
+  const uint32_t sm = sv & IDX, xm = xv & IDX;
+  uint32_t nxv = xv;
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    // i rises with k, so the row's end breaks the loop (a continue there
-    // costs registers, csrc/ising_int8.cuh)
-    const int i = 2 * jg + k - col0;
-    if (HALO && i < 0) continue;
-    if (i >= g.half) break;
-    const int ou = load<COHERENT>(prev, up + i);
-    const int od = load<COHERENT>(next, dn + i);
-    const int oc = load<COHERENT>(p.o, row + i);
-    const int sc = i + d;
-    int os;
-    if (HALO && sc < 0 && s.lf != nullptr)
-      os = load<COHERENT>(s.lf, col_halo);
-    else if (HALO && sc >= g.half && s.rt != nullptr)
-      os = load<COHERENT>(s.rt, col_halo);
-    else
-      os = load<COHERENT>(p.o, row + wrap(sc, g.half));
-    const float hx = __fadd_rn(__fadd_rn(tb.c[ou], tb.c[od]),
-                               __fadd_rn(tb.c[oc], tb.c[os]));
-    const float hy = __fadd_rn(__fadd_rn(tb.s[ou], tb.s[od]),
-                               __fadd_rn(tb.s[oc], tb.s[os]));
-    const int xs = COHERENT ? load<true>(p.x, row + i)
-                            : static_cast<int>(p.x[row + i]) & (TABLE - 1);
+  for (int k = 0; k < 4; ++k) {
+    // k rises, so the word's last site breaks the loop
+    if (k >= nv) break;
+    if (k < k0) continue;
+    const uint32_t sel = 0x4440u | k;  // byte k, zero-extended
+    const int ou = __byte_perm(um, 0u, sel);
+    const int od = __byte_perm(dm, 0u, sel);
+    const int oc = __byte_perm(cm, 0u, sel);
+    const int os = __byte_perm(sm, 0u, sel);
+    const int xk = __byte_perm(xm, 0u, sel);
+    const float2 fu = tab[ou], fd = tab[od], fc = tab[oc], fs = tab[os];
+    const float hx = __fadd_rn(__fadd_rn(fu.x, fd.x), __fadd_rn(fc.x, fs.x));
+    const float hy = __fadd_rn(__fadd_rn(fu.y, fd.y), __fadd_rn(fc.y, fs.y));
     float uc, ua;
-    if (p.ucand != nullptr) {
-      uc = __ldg(p.ucand + row + i);
-      ua = __ldg(p.uacc + row + i);
-    } else {
-      uc = xy::u24(ws[2 * k]);
-      ua = xy::u24(ws[2 * k + 1]);
-    }
-    int nw = xs + static_cast<int>(
-                      __fmul_rn(uc, static_cast<float>(p.q - 1))) + 1;
-    if (nw >= p.q) nw -= p.q;
-    const float de = -__fadd_rn(
-        __fmul_rn(__fsub_rn(tb.c[nw], tb.c[xs]), hx),
-        __fmul_rn(__fsub_rn(tb.s[nw], tb.s[xs]), hy));
-    const float prob = expf(__fmul_rn(p.neg_beta, fmaxf(de, 0.0f)));
-    const int out = ua < prob ? nw : xs;
-    p.x[row + i] = static_cast<int8_t>(out);
+    uniforms(k, uc, ua);
+    int nw = xk + static_cast<int>(__fmul_rn(uc, qm1)) + 1;
+    if (nw >= q) nw -= q;
+    const float2 fn = tab[nw], fo = tab[xk];
+    const float de = -__fadd_rn(__fmul_rn(__fsub_rn(fn.x, fo.x), hx),
+                                __fmul_rn(__fsub_rn(fn.y, fo.y), hy));
+    const float prob = expf(__fmul_rn(neg_beta, fmaxf(de, 0.0f)));
+    const int out = ua < prob ? nw : xk;
+    nxv = tiles8::put_byte(nxv, k, static_cast<uint32_t>(out));
     if (MEASURE) {
-      const double fc = tb.c64[out], fs = tb.s64[out];
-      t.mx += fc + tb.c64[oc];
-      t.my += fs + tb.s64[oc];
-      t.e += fc * ((tb.c64[ou] + tb.c64[od]) + (tb.c64[oc] + tb.c64[os])) +
-             fs * ((tb.s64[ou] + tb.s64[od]) + (tb.s64[oc] + tb.s64[os]));
+      const double2 go = tab64[out], gu = tab64[ou], gd = tab64[od];
+      const double2 gc = tab64[oc], gs = tab64[os];
+      sums.mx += go.x + gc.x;
+      sums.my += go.y + gc.y;
+      sums.e += go.x * ((gu.x + gd.x) + (gc.x + gs.x)) +
+                go.y * ((gu.y + gd.y) + (gc.y + gs.y));
     }
   }
+  return nxv;
 }
 
 // Σ cos, Σ sin and the right and down bonds' Σ cos(θ - θ') of unit j of
 // row y, both colours (core/lattice.right_down_neighbors), each bond once,
-// in float64 from the float64 table.
+// in float64 from the staged float64 table (c, s).
 __device__ __forceinline__ void measure_unit(const int8_t* a,
                                              const int8_t* b,
                                              const Geometry& g,
-                                             const Tables& tb, int r, int y,
+                                             const double* c,
+                                             const double* s, int r, int y,
                                              int j, xy::Sums& t) {
   const size_t base = static_cast<size_t>(r) * g.ny * g.half;
   const size_t row = base + static_cast<size_t>(y) * g.half;
@@ -252,17 +172,15 @@ __device__ __forceinline__ void measure_unit(const int8_t* a,
     const int i = 2 * j + k;
     if (i >= g.half) break;
     const int ip = wrap(i + 1, g.half);
-    const int sa = load<false>(a, row + i), sb = load<false>(b, row + i);
-    const int ra = load<false>(b, row + (odd ? ip : i));
-    const int da = load<false>(b, dn + i);
-    const int rb = load<false>(a, row + (odd ? i : ip));
-    const int db = load<false>(a, dn + i);
-    t.mx += tb.c64[sa] + tb.c64[sb];
-    t.my += tb.s64[sa] + tb.s64[sb];
-    t.e += (tb.c64[sa] * (tb.c64[ra] + tb.c64[da]) +
-            tb.s64[sa] * (tb.s64[ra] + tb.s64[da])) +
-           (tb.c64[sb] * (tb.c64[rb] + tb.c64[db]) +
-            tb.s64[sb] * (tb.s64[rb] + tb.s64[db]));
+    const int sa = load(a, row + i), sb = load(b, row + i);
+    const int ra = load(b, row + (odd ? ip : i));
+    const int da = load(b, dn + i);
+    const int rb = load(a, row + (odd ? i : ip));
+    const int db = load(a, dn + i);
+    t.mx += c[sa] + c[sb];
+    t.my += s[sa] + s[sb];
+    t.e += (c[sa] * (c[ra] + c[da]) + s[sa] * (s[ra] + s[da])) +
+           (c[sb] * (c[rb] + c[db]) + s[sb] * (s[rb] + s[db]));
   }
 }
 

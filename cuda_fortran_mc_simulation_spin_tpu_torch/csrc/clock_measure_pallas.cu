@@ -29,7 +29,6 @@ __global__ void __launch_bounds__(THREADS)
                    double* partials, Geometry g) {
   __shared__ double tc[TABLE], ts[TABLE];
   clock8::stage(tab, tc, ts);
-  const clock8::Tables tb = {nullptr, nullptr, tc, ts};
   const int r = blockIdx.y;
   const long long u =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
@@ -37,7 +36,7 @@ __global__ void __launch_bounds__(THREADS)
   if (u < clock8::units_per_rep(g)) {
     const int j = static_cast<int>(u % g.units);
     const int y = static_cast<int>(u / g.units);
-    clock8::measure_unit(a, b, g, tb, r, y, j, t);
+    clock8::measure_unit(a, b, g, tc, ts, r, y, j, t);
   }
   xy::block_sums<3>(partials, r, gridDim.x, blockIdx.x, t);
 }

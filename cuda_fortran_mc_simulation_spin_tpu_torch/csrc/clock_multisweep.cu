@@ -17,9 +17,9 @@
 // of phase_kernel (csrc/clock_pallas.cu): unit j of row y, sites 2j and
 // 2j + 1, one Philox4x32-10 call at (replica, y, j, 0), site 2j + k taking
 // outputs 2k and 2k + 1.  The site rule is csrc/clock_int8.cuh's
-// (update_unit, which this file no longer calls): the same float32
-// operations in the same order on the same table values, so S sweeps
-// here equal S pairs of phase_kernel launches, bitwise in the state.
+// update_word, phase_kernel's: the same float32 operations in the same
+// order on the same table values, so S sweeps here equal S pairs of
+// phase_kernel launches, bitwise in the state.
 //
 // Tiles (csrc/byte_tiles.cuh RowTiles; ops/ising2d_multisweep.ms_tiles
 // computes the constants, shared with the int8 Ising multisweep; the entry
@@ -171,12 +171,6 @@ __device__ __forceinline__ void tile(const Multisweep& ms, uint8_t* sm,
         lower = put_byte(lower, 0,
                          static_cast<uint8_t>(__ldcg(orow + half - 1)));
       }
-      // the states as table indices, byte by byte (the mask keeps a
-      // corrupt byte inside the table; it is the identity on [0, q))
-      const uint32_t cv = (d > 0 ? lower : upper) & 0x7F7F7F7Fu;
-      const uint32_t sv = (d > 0 ? upper : lower) & 0x7F7F7F7Fu;
-      const uint32_t um = uv & 0x7F7F7F7Fu, dm = dv & 0x7F7F7F7Fu;
-      const uint32_t xm = xv & 0x7F7F7F7Fu;
       const uint32_t jg = static_cast<uint32_t>(col >> 1);
       const uint4 w0 = philox_rk(make_uint4(static_cast<uint32_t>(r),
                                             static_cast<uint32_t>(y), jg, 0u),
@@ -187,40 +181,14 @@ __device__ __forceinline__ void tile(const Multisweep& ms, uint8_t* sm,
           rk);
       const uint32_t ws[8] = {w0.x, w0.y, w0.z, w0.w,
                               w1.x, w1.y, w1.z, w1.w};
-      uint32_t nxv = xv;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (k >= nv) break;
-        const uint32_t sel = 0x4440u | k;  // byte k, zero-extended
-        const int ou = __byte_perm(um, 0u, sel);
-        const int od = __byte_perm(dm, 0u, sel);
-        const int oc = __byte_perm(cv, 0u, sel);
-        const int os = __byte_perm(sv, 0u, sel);
-        const int xk = __byte_perm(xm, 0u, sel);
-        const float2 fu = tab[ou], fd = tab[od], fc = tab[oc], fs = tab[os];
-        const float hx =
-            __fadd_rn(__fadd_rn(fu.x, fd.x), __fadd_rn(fc.x, fs.x));
-        const float hy =
-            __fadd_rn(__fadd_rn(fu.y, fd.y), __fadd_rn(fc.y, fs.y));
-        const float uc = xy::u24(ws[2 * k]);
-        const float ua = xy::u24(ws[2 * k + 1]);
-        int nw = xk + static_cast<int>(__fmul_rn(uc, qm1)) + 1;
-        if (nw >= q) nw -= q;
-        const float2 fn = tab[nw], fo = tab[xk];
-        const float de = -__fadd_rn(__fmul_rn(__fsub_rn(fn.x, fo.x), hx),
-                                    __fmul_rn(__fsub_rn(fn.y, fo.y), hy));
-        const float prob = expf(__fmul_rn(neg_beta, fmaxf(de, 0.0f)));
-        const int out = ua < prob ? nw : xk;
-        nxv = put_byte(nxv, k, static_cast<uint32_t>(out));
-        if (MEASURE) {
-          const double2 go = tab64[out], gu = tab64[ou], gd = tab64[od];
-          const double2 gc = tab64[oc], gs = tab64[os];
-          sums.mx += go.x + gc.x;
-          sums.my += go.y + gc.y;
-          sums.e += go.x * ((gu.x + gd.x) + (gc.x + gs.x)) +
-                    go.y * ((gu.y + gd.y) + (gc.y + gs.y));
-        }
-      }
+      const uint32_t nxv = clock8::update_word<MEASURE>(
+          xv, uv, dv, d > 0 ? lower : upper, d > 0 ? upper : lower, 0, nv,
+          q, qm1, neg_beta, tab, tab64,
+          [&](int k, float& uc, float& ua) {
+            uc = xy::u24(ws[2 * k]);
+            ua = xy::u24(ws[2 * k + 1]);
+          },
+          sums);
       uint8_t* dst = sm + px + 4 * j;
       if (nv == 4 && (px & 3) == 0) {
         *reinterpret_cast<uint32_t*>(dst) = nxv;

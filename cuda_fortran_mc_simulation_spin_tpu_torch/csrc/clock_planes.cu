@@ -53,9 +53,10 @@
 // spends little beside them:
 // - the draw is clock_algebra.cuh's unrolled draw_unrolled<Q>, from the
 //   launch's DrawTable and Philox round keys in the kernel's parameters
-//   (ops/multispin_rng.clock_draw_table), not draw<Q>'s bern_word loops,
-//   refill tests and buffer picks and per-call round-key bumps; only the
-//   draws the table marks as chain ends pick a chain's output register;
+//   (ops/multispin_rng.clock_draw_table), not the first design's
+//   per-chain loops, refill tests, buffer picks and per-call round-key
+//   bumps; only the draws the table marks as chain ends pick a chain's
+//   output register;
 // - no runtime division: the grid is (column tiles of 32 words, word-row
 //   tiles, replicas) of 32 x 8 threads, a warp along x so loads coalesce,
 //   and every neighbour wraps by compare and select.

@@ -40,32 +40,3 @@ __device__ __forceinline__ uint4 philox_rk(uint4 c, const uint2 (&rk)[10]) {
   }
   return c;
 }
-
-// Successive random words of one packed word position: draw n is word
-// n % 4 of Philox4x32-10 at counter (rep, wrow, col, n / 4) under the
-// phase key.  The plain version is ops/multispin_rng.word_stream.
-struct WordStream {
-  uint4 ctr;
-  uint2 key;
-  uint4 buf;
-  int used;
-
-  __device__ __forceinline__ WordStream(uint32_t rep, uint32_t wrow,
-                                        uint32_t col, uint2 k)
-      : ctr(make_uint4(rep, wrow, col, 0u)), key(k),
-        buf(make_uint4(0u, 0u, 0u, 0u)), used(4) {}
-
-  __device__ __forceinline__ uint32_t next() {
-    if (used == 4) {
-      buf = philox4x32_10(ctr, key);
-      ctr.w += 1u;
-      used = 0;
-    }
-    const uint32_t v = used == 0 ? buf.x
-                       : used == 1 ? buf.y
-                       : used == 2 ? buf.z
-                                   : buf.w;
-    ++used;
-    return v;
-  }
-};

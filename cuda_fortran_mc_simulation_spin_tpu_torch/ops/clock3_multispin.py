@@ -8,7 +8,7 @@ random bit plane (exact, no thermometer); acceptance e^(−3βk/2) for
 k ∈ [1, 4] is the product of three chains p₁, p₂, p₄
 (p_j = e^(−3jβ/2)) gated by the digits of k.  Bound into the scaffold
 (ops/clock_planes.py) through :data:`SPEC`; the CUDA algebra is
-``csrc/clock_algebra.cuh`` (``decide3``, ``draw<3>``).
+``csrc/clock_algebra.cuh`` (``decide3``, ``draw_unrolled<3>``).
 """
 
 from __future__ import annotations

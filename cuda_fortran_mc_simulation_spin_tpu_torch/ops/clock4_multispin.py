@@ -9,7 +9,7 @@ symmetric); acceptance e^(−βΔE) for ΔE ∈ [1, 8] is the product of four
 chains p₁, p₂, p₄, p₈ (p_k = e^(−kβ)) gated by the digits of ΔE.  The
 fused sums are (m, e) themselves (obs_scale 1).  Bound into the scaffold
 (ops/clock_planes.py) through :data:`SPEC`; the CUDA algebra is
-``csrc/clock_algebra.cuh`` (``decide4``, ``draw<4>``).
+``csrc/clock_algebra.cuh`` (``decide4``, ``draw_unrolled<4>``).
 """
 
 from __future__ import annotations

@@ -18,9 +18,12 @@ injected mode, one phase of colour a with 8 given planes.  It replaces
 ``_phase_bits_kernel`` (:196).  Beside it is its plain PyTorch version
 (:func:`multisweep_plain`, :func:`packed_helical_phase6_reference`), with
 the same Philox words (key = the (sample, t, phase) key, counter =
-(replica, word, 0, draw/4)).  A wrapper takes the plain version for a CPU
-tensor; for a CUDA tensor it launches the kernel or raises.
-``LAUNCHES`` counts launches.
+(replica, word, 0, draw/4)).  The kernel draws them in one unrolled line
+from a per-launch table (``multispin_rng.clock_draw_table`` of this
+module's chains, the periodic packed clock's ``clock_planes._table_arg``;
+``tests/test_torch_clock_helical_draw.py`` replays it on the CPU).  A
+wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
+launches the kernel or raises.  ``LAUNCHES`` counts launches.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops import _build, multispin_rng
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.clock_multispin import (
     OBS_INT32_MAX_SITES,
+    SPEC,
     _decide,
     accept_digit_planes,
     draw_planes,
@@ -40,7 +44,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.clock_multispin import (
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.clock_planes import (
     _not,
     _pc,
-    chain_words,
+    _table_arg,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.helical_multispin import (
     helical_offsets,
@@ -223,7 +227,7 @@ def _lib() -> ctypes.CDLL:
         return lib
     lib.clock_helical_multisweep.argtypes = (
         [_VOID] * 12 + [_VOID, _VOID, _VOID]
-        + [_INT] * 6 + [_INT] * 8 + [_UINT] * 5 + [_INT] * 5 + [_VOID])
+        + [_INT] * 6 + [_INT] * 8 + [ctypes.POINTER(_UINT), _VOID])
     lib.clock_helical_multisweep.restype = _INT
     lib.clock_helical_smem_optin.argtypes = [ctypes.POINTER(_INT)]
     lib.clock_helical_smem_optin.restype = _INT
@@ -280,20 +284,21 @@ def staged_fits(nw: int, device) -> bool:
 def _launch(wa3, wb3, m: int, offs_a, offs_b, *, seeds=None, planes8=None,
             beta: float = 1.0):
     bits = planes8 is not None
-    inj = None
+    inj = table = None
     if bits:
         inj = torch.stack([_i32(p) if p.dtype != torch.int32 else p
                            for p in planes8]).contiguous()
         _check(m, *wa3, *wb3, *inj)
-        qs, ks = [0] * 5, [1] * 5
     else:
         _check(m, *wa3, *wb3)
-        qs, ks = chain_words(accept_digit_planes(beta))
+        # the C entry refuses a table draw_table_ok does not take
+        table = _table_arg(SPEC, float(beta))
     lib = _lib()
     nrep, nw = wa3[0].shape
     staged = staged_fits(nw, wa3[0].device)
     sweeps = 1 if bits else int(seeds.shape[0])
-    seeds_dev = None if bits else _i32(seeds).contiguous().to(wa3[0].device)
+    seeds_dev = (None if bits
+                 else multispin_rng.keys_to(seeds, wa3[0].device))
     outs_a = [torch.empty_like(p) for p in wa3]
     outs_b = [torch.empty_like(p) for p in wb3]
     obs = None if bits else torch.empty((nrep, sweeps, 3), dtype=torch.int64,
@@ -306,7 +311,7 @@ def _launch(wa3, wb3, m: int, offs_a, offs_b, *, seeds=None, planes8=None,
             None if bits else obs.data_ptr(),
             nrep, nw, m, sweeps, int(bits), int(staged),
             *[d % m for d in offs_a], *[d % m for d in offs_b],
-            *qs, *ks, _stream(wa3[0]))
+            table, _stream(wa3[0]))
     _raise_on(lib, code, "clock helical multisweep_kernel")
     LAUNCHES["multisweep"] += 1
     return tuple(outs_a), tuple(outs_b), obs

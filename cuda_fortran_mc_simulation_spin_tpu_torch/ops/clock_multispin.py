@@ -14,7 +14,7 @@ rounded categories {819, 819, 820, 819, 819}/4096 are symmetric, so
 detailed balance is exact); acceptance e^(−βm/2) for m = 2ΔE ∈ [1, 16]
 is the product of five Bernoulli chains p₁, p₂, p₄, p₈, p₈ gated by the
 binary digits of m.  The same algebra, in CUDA, is
-``csrc/clock_algebra.cuh`` (``decide6``, ``draw<6>``, ``m2_word6``).
+``csrc/clock_algebra.cuh`` (``decide6``, ``draw_unrolled<6>``, ``m2_word6``).
 """
 
 from __future__ import annotations

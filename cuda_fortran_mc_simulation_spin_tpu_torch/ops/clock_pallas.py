@@ -20,7 +20,7 @@ Random words.  Each site draws two uint32 words from Philox4x32-10
     words   = outputs 2·(column & 1) (candidate) and 2·(column & 1) + 1
               (acceptance), each a uniform from its top 24 bits
 
-so one Philox call feeds two adjacent sites of a row (the kernels' unit,
+so one Philox call feeds two adjacent sites of a row (a unit,
 ``csrc/clock_int8.cuh``), and the last unit of a row whose nx/2 is odd
 leaves its spare outputs unused.  The plain version (:func:`draw_uniforms`),
 the phase kernel, the multisweep kernel and every route of the runners
@@ -34,11 +34,20 @@ bits; its ``sharded_phase`` takes injected uniforms (``u_cand=``,
 the phase on a shard of a (y[, x]) mesh (parallel/domain.py), with the
 rows and columns past the shard's edges from the exchanged halos, parity
 and words keyed by global (replica, row, column), and with ``measuring``
-the shard's float64 (Σ cos, Σ sin, e) partials, per block in a fixed order
+the shard's float64 (Σ cos, Σ sin, e) partials, per tile in a fixed order
 and then per replica (``xy::reduce_kernel``).  A shard whose column offset
 is odd cuts a unit; the kernel draws by global unit
 (:func:`draw_uniforms_at`), so its words are the unsharded lattice's at
 every x split.  JAX sums its partials in float32.
+
+The kernel takes tiles of whole rows of one replica, or chunks of a row
+past ``CHUNK_COLS`` columns, staged in shared memory from the 16-B aligned
+vectors that cover each of a tile's four byte ranges, four sites a thread
+a step, one tile a block (no grid barrier, no division in the walk); its
+launch constants are the int8 multisweeps' (``ising2d_multisweep.
+ms_tiles``) at smaller tiles (:func:`phase_tiles`, checked before every
+launch), and ``tests/test_torch_clock_int8_phase_tiles.py`` replays the
+launch on the CPU.
 
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
@@ -69,6 +78,10 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
     _stream,
     offsets,
 )
+from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multisweep import (
+    _tiles_arg,
+    ms_tiles,
+)
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
     batched,
     check_halos,
@@ -78,10 +91,14 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
     seed_words,
 )
 
-THREADS = 256            # threads a block; one thread a unit of 2 sites
+THREADS = 256            # threads a block
 MAX_REPLICAS = 65535     # the grid's y extent
 TABLE = 128              # entries of a kernel table (csrc/clock_int8.cuh)
 LAUNCHES = {"phase": 0, "halo_phase": 0, "halo_phase_measuring": 0}
+# sites a whole-row tile of the phase kernel takes at most: half the
+# multisweeps' (one tile a block, so more blocks a launch; 2-3% faster at
+# 2000^2 x 16 and 5-11% at the mesh class's shard on an H100, PERF.md §6)
+TILE_BYTES = 8192
 
 
 def reset_launches() -> None:
@@ -92,6 +109,22 @@ def reset_launches() -> None:
 def units(half: int) -> int:
     """Units of two sites a row of ``half`` columns holds."""
     return -(-half // 2)
+
+
+def phase_tiles(nrep: int, ny: int, half: int) -> dict:
+    """The phase kernel's launch constants on (nrep, ny, half) planes:
+    ``ising2d_multisweep.ms_tiles`` at TILE_BYTES a tile (the kernel takes
+    them as ``_tiles_arg`` passes them, after ``check_ms_tiles``)."""
+    return ms_tiles(nrep, ny, half, TILE_BYTES)
+
+
+@functools.lru_cache(maxsize=64)
+def _phase_tiles_arg(nrep: int, ny: int, half: int):
+    """:func:`phase_tiles` as the kernel's 10 ints, checked, built once a
+    shape: a one-replica history launches twice a sweep, and building them
+    anew cost its class ~29 us of the host a launch on the card's machine
+    (PERF.md §6)."""
+    return _tiles_arg(nrep, ny, half, TILE_BYTES)
 
 
 def check_launch(nrep: int, rows: int, half: int, q: int) -> None:
@@ -255,16 +288,17 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("clock_pallas")
     if lib.clock_int8_phase.argtypes is not None:
         return lib
+    tiles = ctypes.POINTER(ctypes.c_int)
     lib.clock_int8_phase.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint, tiles,
+           ctypes.c_void_p])
     lib.clock_int8_phase.restype = ctypes.c_int
     lib.clock_int8_halo_phase.argtypes = (
         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
-        + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint, tiles,
+           ctypes.c_void_p])
     lib.clock_int8_halo_phase.restype = ctypes.c_int
-    lib.clock_int8_halo_blocks.argtypes = [ctypes.c_int] * 3
-    lib.clock_int8_halo_blocks.restype = ctypes.c_int
     lib.clock_int8_error_string.argtypes = [ctypes.c_int]
     lib.clock_int8_error_string.restype = ctypes.c_char_p
     return lib
@@ -296,7 +330,8 @@ def metropolis_phase(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
             x.data_ptr(), other.data_ptr(), tab.data_ptr(),
             None if u_cand is None else u_cand.data_ptr(),
             None if u_acc is None else u_acc.data_ptr(), nrep, ny, half, q,
-            color, -float(beta), s0, s1, _stream(x))
+            color, -float(beta), s0, s1, _phase_tiles_arg(nrep, ny, half),
+            _stream(x))
     raise_on(code, lib.clock_int8_error_string, "clock phase_kernel")
     LAUNCHES["phase"] += 1
     return x
@@ -346,13 +381,14 @@ def sharded_phase(x: torch.Tensor, other: torch.Tensor, halo_up, halo_dn,
     check_launch(nrep, L, half + 2, q)
     s0, s1 = (0, 0) if seeds is None else seed_words(seeds)
     tab = device_table(q, x.device)
+    tiles = _phase_tiles_arg(nrep, L, half)
     lib = _lib()
     partials = obs = tab64 = None
     if measuring:
         tab64 = device_table(q, x.device, torch.float64)
-        blocks = lib.clock_int8_halo_blocks(L, half, col0)
-        partials = torch.empty((nrep, blocks, 3), dtype=torch.float64,
-                               device=x.device)
+        # a partial a tile: nty row tiles of nch chunks
+        partials = torch.empty((nrep, tiles[4] * tiles[3], 3),
+                               dtype=torch.float64, device=x.device)
         obs = torch.empty((nrep, 3), dtype=torch.float64, device=x.device)
 
     def ptr(t):
@@ -363,7 +399,7 @@ def sharded_phase(x: torch.Tensor, other: torch.Tensor, halo_up, halo_dn,
             x.data_ptr(), other.data_ptr(), tab.data_ptr(), ptr(tab64),
             ptr(u_cand), ptr(u_acc), halo_up.data_ptr(), halo_dn.data_ptr(),
             ptr(halo_lf), ptr(halo_rt), ptr(partials), ptr(obs), nrep, L,
-            half, q, color, rep0, row0, col0, -float(beta), s0, s1,
+            half, q, color, rep0, row0, col0, -float(beta), s0, s1, tiles,
             _stream(x))
     raise_on(code, lib.clock_int8_error_string,
              "clock phase_kernel<true, .>")

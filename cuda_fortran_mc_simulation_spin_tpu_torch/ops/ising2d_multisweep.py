@@ -96,7 +96,8 @@ def _spans(rows: int, cw: int, half: int) -> list[int]:
             span_bytes(min(cw, half))]
 
 
-def ms_tiles(nrep: int, ny: int, half: int) -> dict:
+def ms_tiles(nrep: int, ny: int, half: int,
+             tile_bytes: int = TILE_BYTES) -> dict:
     """Launch constants of the 2-D int8 multisweeps (this module's
     ``multisweep_kernel`` and the clock's) on (nrep, ny, half) planes:
     ``rows`` rows a tile and 2^``lux`` threads along a row (thread t
@@ -111,7 +112,9 @@ def ms_tiles(nrep: int, ny: int, half: int) -> dict:
     and y0 + rows; each 16-B aligned after a 16-byte guard) and ``smem``
     the bytes in all.  The blocks walk the tiles in the order (replica,
     row tile, chunk); the clock's fused sums of a (replica, sweep) are nty
-    nch tile partials, in that order (yt nch + cx)."""
+    nch tile partials, in that order (yt nch + cx).  ``tile_bytes``
+    replaces TILE_BYTES (the int8 clock phase kernel's smaller tiles,
+    ops/clock_pallas.phase_tiles)."""
     if half <= CHUNK_COLS:
         words = -(-half // 4)
         top = THREADS.bit_length() - 1
@@ -120,7 +123,7 @@ def ms_tiles(nrep: int, ny: int, half: int) -> dict:
         top = min(top, max(lux, (words - 1).bit_length()))
         while True:
             tr = THREADS >> lux
-            k = max(1, min(TILE_BYTES // (tr * half), -(-ny // tr)))
+            k = max(1, min(tile_bytes // (tr * half), -(-ny // tr)))
             while k > 1 and nrep * -(-ny // (tr * k)) < MIN_TILES:
                 k -= 1
             if nrep * -(-ny // (tr * k)) >= MIN_TILES or lux == top:
@@ -166,10 +169,11 @@ def check_ms_tiles(t: dict, ny: int, half: int) -> None:
                          f"{half}) planes")
 
 
-def _tiles_arg(nrep: int, ny: int, half: int) -> ctypes.Array:
+def _tiles_arg(nrep: int, ny: int, half: int,
+               tile_bytes: int = TILE_BYTES) -> ctypes.Array:
     """:func:`ms_tiles` as the 10 ints of the kernels' RowTiles
     (csrc/byte_tiles.cuh), checked."""
-    t = ms_tiles(nrep, ny, half)
+    t = ms_tiles(nrep, ny, half, tile_bytes)
     check_ms_tiles(t, ny, half)
     words = [t["rows"], t["lux"], t["cw"], t["nch"], t["nty"], *t["buf"],
              t["smem"]]

@@ -14,7 +14,7 @@ The 3-D engine stacks its z-planes along the word rows (word row z·nyp +
 Y) and the helical engines name word g of a colour vector as (g, 0), so
 one counter layout serves them all; a word index below 2^32 (the helical
 3-D engine's 15.6 M words a colour at 1001x1000x1000) never aliases.  The CUDA kernels evaluate the same
-function per thread (``csrc/philox.cuh`` ``WordStream``); :func:`word_stream`
+function per thread (``csrc/philox.cuh`` ``philox_rk``); :func:`word_stream`
 is its plain PyTorch version on whole planes.  Because the counter names the word's
 global position, the bits depend on neither the tiling, the host chunking
 nor the kernel, and every run is deterministic.
@@ -23,9 +23,10 @@ The periodic 2-D and the 3-D Ising kernels (``csrc/ising2d_multispin.cu``,
 ``csrc/ising3d_multispin.cu``, ``csrc/helical3d_multispin.cu``) draw their
 Bernoulli chains (two in 2-D, the third empty) from these words in one
 unrolled line (``csrc/bernoulli.cuh`` ``chain_planes``) that follows a
-per-launch table, :func:`chain_table`; the periodic packed
-clock kernel (``csrc/clock_planes.cu``) draws its proposal words and
-chains the same way (``csrc/clock_algebra.cuh`` ``draw_unrolled``) from
+per-launch table, :func:`chain_table`; the packed clock kernels, periodic
+and helical (``csrc/clock_planes.cu``, ``csrc/clock_helical_multispin.cu``),
+draw their proposal words and chains the same way
+(``csrc/clock_algebra.cuh`` ``draw_unrolled``) from
 :func:`clock_draw_table`.
 """
 

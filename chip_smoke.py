@@ -902,6 +902,24 @@ def check_ising3d(msb, ms3, rng, dev) -> dict[str, int]:
 # the classes' launches, and phase 4k's --protocol samples (151^3 x 1)
 H3_CHECK_SHAPES = ((8, 151, 151, 150), (1, 501, 501, 500),
                    (1, 1001, 1000, 1000), (1, 151, 151, 150))
+# the energy kernel's edges (R, nx, ny, nz): even nx·ny with M % 32 = 23,
+# whose runs cross the seam where the far planes wrap, odd nx·ny with M %
+# 32 = 27, M % 32 = 9, and a replica shorter than one run (M = 30); each
+# also on views H3_ENERGY_VIEWS words off the 16-B grid (the two colours
+# apart)
+H3_ENERGY_EDGES = ((3, 129, 62, 9), (2, 65, 63, 10), (1, 7, 5, 6),
+                   (3, 5, 3, 4))
+H3_ENERGY_VIEWS = ((1, 3), (2, 0))
+
+
+def word_view(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous int32 copy of ``t`` on its device whose first word
+    lies ``off`` words past a 16-B aligned address."""
+    buf = torch.empty(t.numel() + 8, dtype=torch.int32, device=t.device)
+    base = (-buf.data_ptr()) % 16 // 4
+    v = buf[base + off:base + off + t.numel()].view(t.shape)
+    assert v.data_ptr() % 16 == 4 * off and v.is_contiguous()
+    return v.copy_(t)
 
 
 def check_helical3d(h3, hms, rng, dev) -> dict[str, int]:
@@ -959,6 +977,34 @@ def check_helical3d(h3, hms, rng, dev) -> dict[str, int]:
         log(f"  helical3d energy kernel {nrep}x{nx}x{ny}x{nz}: vs plain "
             f"{e_e}" + (f", vs exact sums {e_x}" if exact else ""))
         del x, o, b4, b8, b12, got, want
+    for nrep, nx, ny, nz in H3_ENERGY_EDGES:
+        geom = dict(nx=nx, nxy=nx * ny, m=nx * ny * nz // 2)
+        wa, wb = random_words((nrep, hms.words(geom["m"])), nx + nz, dev,
+                              n=2)
+        want = h3.energy_sums_plain(wa, wb, **geom)
+        e_e = max_abs_err(
+            [(h3.energy_sums(wa, wb, **geom), want)]
+            + [(h3.energy_sums(word_view(wa, oa), word_view(wb, ob), **geom),
+                want) for oa, ob in H3_ENERGY_VIEWS])
+        errs["energy"] = max(errs["energy"], e_e)
+        runs = h3.energy_runs(nrep, **geom)
+        log(f"  helical3d energy kernel {nrep}x{nx}x{ny}x{nz} (M "
+            f"{geom['m']}, {runs['bulk']} of {runs['nruns']} runs bulk), "
+            f"views {H3_ENERGY_VIEWS} words off the 16-B grid: vs plain "
+            f"{e_e}")
+    # the C entry point refuses runs whose last bulk run would read past
+    # word W - 1 (the wrapper builds none)
+    geom = dict(nx=129, nxy=129 * 62, m=129 * 62 * 9 // 2)
+    runs = h3._energy_runs_arg(3, **geom)
+    bad = type(runs)(*runs)
+    bad[1] += 1  # bulk
+    code = h3._lib().helical3d_energy(
+        None, None, None, 3, hms.words(geom["m"]), geom["m"],
+        h3._offsets([d for _, _, d in h3._energy_pairs(129, 129 * 62)],
+                    geom["m"]), 1, bad, None)
+    log(f"  helical3d energy entry point, one bulk run too many: code {code}")
+    if code != 1:
+        fail(f"helical3d energy took runs past a replica (code {code})")
     # 64 sweeps at 151^3 x 8 and 8 at 151^3 x 1 (--protocol samples'
     # launch): one launch, as many streamed phase pairs, plain
     model = Ising3DHelical(151, 151, 150, KBT_H3)
@@ -3183,10 +3229,11 @@ def check_clock8(c8p, c8m, c8ms, rng, dev) -> dict[str, float]:
     tensors: phase_kernel bitwise at every q of CLOCK8_QS on a ragged small
     shape and at each class's launch with its q, both colours, injected
     and Philox uniforms; measure_kernel within 1e-12 relative to the sums'
-    scale (:func:`scaled_err`; exactly at q = 2 and 4); 64 multisweep
-    sweeps at 1000x1000 x 16, q = 2 and 6, against 64 phase-kernel pairs
-    with measure_kernel and against the plain multisweep, states bitwise
-    and sums within 1e-12 relative.
+    scale (:func:`scaled_err`; exactly at q = 2 and 4), the same bits in
+    two calls, and on views off the 16-B grid at the tile edges; 64
+    multisweep sweeps at 1000x1000 x 16, q = 2 and 6, against 64
+    phase-kernel pairs with measure_kernel and against the plain
+    multisweep, states bitwise and sums within 1e-12 relative.
     Returns the largest error a kernel: of the states and the sums
     absolute ("phase", "measure", "multisweep"), of the sums relative
     ("measure_rel", "multisweep_rel")."""
@@ -3211,6 +3258,8 @@ def check_clock8(c8p, c8m, c8ms, rng, dev) -> dict[str, float]:
                 c8p.metropolis_phase(x.clone(), o, seeds, **kw),
                 c8p.phase_plain(x, o, seeds, **kw))]))
         got, want = c8m.measure_sums(a, b, q), c8m.measure_sums_plain(a, b, q)
+        if not torch.equal(got, c8m.measure_sums(a, b, q)):
+            fail(f"clock measure_kernel at {shape}, q={q}: two calls differ")
         e_m = scaled_err(got, want, 2 * shape[1] * shape[2])
         if q in (2, 4) and not torch.equal(got, want):
             fail(f"clock measure_kernel at q={q} differs from its plain "
@@ -3240,6 +3289,23 @@ def check_clock8(c8p, c8m, c8ms, rng, dev) -> dict[str, float]:
             errs["phase"] = max(errs["phase"], e)
             log(f"  clock8 q={q} {'x'.join(map(str, shape))} at "
                 f"({ox}, {oo}) bytes off the 16-B grid: phase {e}")
+    # the measure on views off the 16-B grid and at the tile edges, q = 2
+    # and 4 exactly
+    for shape, (ox, oo) in CLOCK8_EDGES + ((CLOCK8_SMALL, (11, 5)),):
+        for q in (2, 4, 5, 127):
+            a, b = clock8_state(dev, shape, q, 3 * q + shape[2] + ox)
+            got = c8m.measure_sums(off_grid_view(a, ox), off_grid_view(b, oo),
+                                   q)
+            want = c8m.measure_sums_plain(a, b, q)
+            e_m = scaled_err(got, want, 2 * shape[1] * shape[2])
+            if q in (2, 4) and not torch.equal(got, want):
+                fail(f"clock measure_kernel at q={q} off the 16-B grid "
+                     f"differs from its plain version ({e_m:.3g})")
+            errs["measure"] = max(errs["measure"], float_err([(got, want)]))
+            errs["measure_rel"] = max(errs["measure_rel"], e_m)
+        log(f"  clock8 measure {'x'.join(map(str, shape))} at ({ox}, {oo}) "
+            f"bytes off the 16-B grid, q = 2, 4, 5, 127: rel "
+            f"{errs['measure_rel']:.3g} (largest so far)")
     seeds = multispin_keys(rng, 64)
     e_states = 0
     for q in CLOCK8_MS_QS:

@@ -32,8 +32,11 @@ phase_kernel; and the int8 clock phase at the samples class's 1000x1000 x
 1 (q = 6) and its halo mode (measuring and plain) at the mesh int8 clock
 class's shard (16, 1000, 500) of 2000x2000 x 16 on (1,2,2) (q = 5), both
 graph-timed, and the helical clock multisweep at its class's 501x500 x
-100 (q = 6, kbt 0.8, S = 64 and 40) and its injected mode, with the SASS
-of the int8 clock phase_kernel and the helical clock multisweep_kernel;
+100 (q = 6, kbt 0.8, S = 64 and 40) and its injected mode, and the int8
+clock measure kernel (row 23) at the streamed class's 2000x2000 x 16 (q =
+5) and, graph-timed, at the samples class's 1000x1000 x 1 (q = 6), with
+the SASS of the int8 clock phase_kernel, the helical clock
+multisweep_kernel and the measure_kernel;
 with ``--clock-variants``, the int8 clock phase at 2000x2000 x 16 and
 1000x1000 x 1 and its halo mode at the mesh shard, through the C entries
 on its library (4 blocks an SM under its launch bound) and on builds
@@ -49,7 +52,11 @@ sub-phases 0 and 1), and at the odd streamed class's, 501x501x500 x 2
 (colour b, plain and measuring), on random vectors, and the helical
 3-D resident multisweep (multisweep_kernel) at its class's launch,
 151x151x150 x 128 with S = 64, and at the samples protocol's 151x151x150
-x 1 with S = 8, with the SASS of both kernels; with ``--helical``, the
+x 1 with S = 8, and the energy kernel (row 15) at the even class's
+1001x1000x1000 x 2 through its wrapper and, as the launch alone, on its
+library (runs of 8 words) and on a build of its source with runs of 4
+(into .build/variants/, held bitwise against the wrapper), with the SASS
+of the three kernels; with ``--helical``, the
 helical 2-D multisweep (csrc/helical_multispin.cu multisweep_kernel) at
 its class's launch, 1001x1000 x 128, with S = 64 and 40, each also as the
 launch alone (the C entry point on keys already on the card, without
@@ -125,7 +132,7 @@ KBT_2D, KBT_3D = 2.269185314213022, 4.51152
 LIBS = ["ising2d_multisweep", "ising2d_pallas", "ising3d_pallas",
         "ising2d_multispin", "ising3d_multispin", "ising2d_measure_pallas"]
 CLOCK_LIBS = ["clock_planes", "clock_pallas", "clock_multisweep",
-              "clock_helical_multispin"]
+              "clock_helical_multispin", "clock_measure_pallas"]
 KBT_CLOCK, KBT_CLOCK_08 = 0.91, 0.8
 # the helical 3-D classes' temperatures: 1001x1000x1000 and 501x501x500
 KBT_H3, KBT_H3_501 = 4.511454583186711, 4.51152174982078
@@ -204,6 +211,37 @@ def graph_ms(fn, launches: int = 50, windows: int = 9) -> float:
     return graph_time_ms(fn, launches, windows)[0]
 
 
+def energy_run_launch(h3, wa, wb, geom: dict, run: int):
+    """Row 15's launch alone on (wa, wb) in runs of ``run`` words: on the
+    library (its ENERGY_RUN) or on a build of its source with
+    ENERGY_RUN = ``run`` (into .build/variants/), with the constants
+    energy_runs gives for that run; held bitwise against the wrapper."""
+    from unittest import mock
+    lib = h3._lib()
+    if run != h3.ENERGY_RUN:
+        lib = variant_lib(
+            "helical3d_multispin", "constexpr int ENERGY_RUN = 8;",
+            f"constexpr int ENERGY_RUN = {run};", f"run{run}", lib,
+            ("helical3d_energy",))
+    nrep, nw = wa.shape
+    nx, nxy, m = geom["nx"], geom["nxy"], geom["m"]
+    with mock.patch.object(h3, "ENERGY_RUN", run):
+        runs = h3._energy_runs_arg.__wrapped__(nrep, nx, nxy, m)
+    d = h3._offsets([dd for _, _, dd in h3._energy_pairs(nx, nxy)], m)
+
+    def launch():
+        obs = torch.zeros((nrep, 2), dtype=torch.int64, device=wa.device)
+        code = lib.helical3d_energy(
+            wa.data_ptr(), wb.data_ptr(), obs.data_ptr(), nrep, nw, m, d,
+            int(nxy % 2 == 0), runs, torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"energy runs of {run}: code {code}")
+        return obs
+    if not torch.equal(launch(), h3.energy_sums(wa, wb, **geom)):
+        raise RuntimeError(f"energy runs of {run} differ from the wrapper")
+    return launch
+
+
 def helical3d_modes(words):
     """The helical 3-D phase kernel at both streamed classes' launches,
     on random vectors."""
@@ -226,7 +264,17 @@ def helical3d_modes(words):
     sa, sb = (words((1, hms.words(res["m"]))) for _ in range(2))
     seeds = multispin_rng.sweep_phase_keys(
         torch.tensor([12345, 678], dtype=torch.int64), 64)
+    geom = {k: even[k] for k in ("nx", "nxy", "m")}
+    modes = {"helical3d energy 1001x1000x1000 x 2": lambda: h3.energy_sums(
+        ea, eb, **geom)}
+    if hasattr(h3, "energy_runs"):
+        # the launch alone in runs of 8 and 4 words (a tree before the
+        # runs has one design)
+        for run in (8, 4):
+            modes[f"helical3d energy 1001x1000x1000 x 2 launch run={run}"] = (
+                energy_run_launch(h3, ea, eb, geom, run))
     return {
+        **modes,
         "helical3d_1001_zsub0": lambda: h3.phase_packed(
             ea, eb, key, color=0, zsub=0, **even),
         "helical3d_1001_zsub1": lambda: h3.phase_packed(
@@ -804,6 +852,7 @@ def clock_modes(gen, dev, seeds):
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         clock3_multispin as c3,
         clock4_multispin as c4,
+        clock_measure_pallas as c8m,
         clock_multispin as c6,
         clock_multisweep as c8ms,
         clock_pallas as c8p,
@@ -878,6 +927,15 @@ def clock_modes(gen, dev, seeds):
             beta=1 / KBT_CLOCK, **khalo),
     })
     modes.update(helical_clock_modes(gen, dev, seeds))
+    # row 23, the int8 clock measure, at the streamed class's launch and,
+    # graph-timed, at the samples class's
+    ma, mb = states((1, 1000, 500), 6), states((1, 1000, 500), 6)
+    modes.update({
+        "clock_int8_measure 2000^2 x 16 q=5": lambda: c8m.measure_sums(
+            sa, sb, 5),
+        "graph clock_int8_measure 1000^2 x 1 q=6": lambda: c8m.measure_sums(
+            ma, mb, 6),
+    })
     return {
         **modes,
         "clock_int8_phase": lambda: c8p.metropolis_phase(
@@ -1020,6 +1078,7 @@ def main() -> int:
         sass_report("helical_multispin", ("multisweep_kernel",))
     elif args.helical3d:
         sass_report("helical3d_multispin", ("phase_kernel",
+                                            "energy_kernel",
                                             "multisweep_kernel"))
     elif args.masked:
         sass_report("helical_pallas", ("ising_multisweep_kernel",
@@ -1029,6 +1088,7 @@ def main() -> int:
         sass_report("clock_multisweep", ("multisweep_kernel",))
         sass_report("clock_pallas", ("phase_kernel",))
         sass_report("clock_helical_multispin", ("multisweep_kernel",))
+        sass_report("clock_measure_pallas", ("measure_kernel",))
     elif not (args.samples or args.ms_grids or args.measure_variants
               or args.key_variants or args.clock_variants):
         sass_report("ising3d_multispin", ("phase_kernel",

@@ -101,19 +101,39 @@ static_assert(sizeof(RowTiles) == ROW_TILE_INTS * 4,
 // the widest chunk (ops/ising2d_multisweep.CHUNK_COLS)
 constexpr int MAX_COLUMNS = 4096;
 
+// n staged ranges of need[k] bytes at the byte offsets buf[k] of shared
+// memory, in order: each 16-B aligned after a 16-byte guard, all inside
+// smem bytes, at most 48 KB
+__host__ inline bool spans_ok(const int* buf, const int* need, int n,
+                              int smem) {
+  int end = 0;
+  for (int k = 0; k < n; ++k) {
+    if (buf[k] % 16 != 0 || buf[k] < end + 16) return false;
+    end = buf[k] + need[k];
+  }
+  return smem >= end && smem <= 48 * 1024;
+}
+
+// Tiles that cover (ny, half) planes, each tile non-empty: nty tiles of
+// `rows` whole rows (cw = half, nch 1), or past a row of MAX_COLUMNS one
+// row's nch chunks of cw columns (a multiple of 4)
+__host__ inline bool row_cover_ok(int rows, int cw, int nch, int nty,
+                                  int ny, int half) {
+  if (rows < 1 || cw < 1 || nch < 1 ||
+      static_cast<long long>(nch) * cw < half ||
+      static_cast<long long>(nch - 1) * cw >= half ||
+      (nch > 1 && (cw % 4 != 0 || rows != 1 || cw > MAX_COLUMNS)) ||
+      (nch == 1 && cw != half))
+    return false;
+  return nty >= 1 && static_cast<long long>(nty) * rows >= ny &&
+         static_cast<long long>(nty - 1) * rows < ny &&
+         static_cast<long long>(nty) * nch < (1LL << 31);
+}
+
 // The constants as ms_tiles builds them; refuses others
 __host__ inline bool row_tiles_ok(const RowTiles& t, int ny, int half) {
-  if (t.lux < 2 || t.lux > 8 || t.rows < 1 ||
-      t.rows % (STAGE_THREADS >> t.lux) != 0)
-    return false;
-  if (t.cw < 1 || t.nch < 1 || static_cast<long long>(t.nch) * t.cw < half ||
-      static_cast<long long>(t.nch - 1) * t.cw >= half ||
-      (t.nch > 1 && (t.cw % 4 != 0 || t.rows != 1 || t.cw > MAX_COLUMNS)) ||
-      (t.nch == 1 && t.cw != half))
-    return false;
-  if (t.nty < 1 || static_cast<long long>(t.nty) * t.rows < ny ||
-      static_cast<long long>(t.nty - 1) * t.rows >= ny ||
-      static_cast<long long>(t.nty) * t.nch >= (1LL << 31))
+  if (t.lux < 2 || t.lux > 8 || t.rows % (STAGE_THREADS >> t.lux) != 0 ||
+      !row_cover_ok(t.rows, t.cw, t.nch, t.nty, ny, half))
     return false;
   // own, centre (two columns wider in a chunk), then the rows
   const long long lx =
@@ -121,12 +141,7 @@ __host__ inline bool row_tiles_ok(const RowTiles& t, int ny, int half) {
   const int need[4] = {span_bytes(lx), span_bytes(lx + 2),
                        span_bytes(std::min(t.cw, half)),
                        span_bytes(std::min(t.cw, half))};
-  int end = 0;
-  for (int k = 0; k < 4; ++k) {
-    if (t.buf[k] % 16 != 0 || t.buf[k] < end + 16) return false;
-    end = t.buf[k] + need[k];
-  }
-  return t.smem >= end && t.smem <= 48 * 1024;
+  return spans_ok(t.buf, need, 4, t.smem);
 }
 
 // The walk's steps: a grid of `blocks` blocks as (replicas, row tiles,

@@ -2,8 +2,8 @@
 // update_word, four sites of a row at a time, shared by the phase kernel
 // (csrc/clock_pallas.cu) and the cooperative multisweep
 // (csrc/clock_multisweep.cu), so that both apply the same function to the
-// same random words; and measure_unit, the measure kernel's
-// (csrc/clock_measure_pallas.cu).
+// same random words; the measure kernel (csrc/clock_measure_pallas.cu)
+// takes its geometry and launch checks.
 //
 // Layout (core/lattice.py): int8 states s in [0, q), q <= 127, on colour
 // planes (R, ny, half); colour 0 holds the sites x = 2i + (y & 1) of row
@@ -74,27 +74,6 @@ __host__ inline bool launchable(const Geometry& g, int nrep, int q) {
          q >= 2 && q < TABLE && units_per_rep(g) + THREADS < (1LL << 31);
 }
 
-// Copies a (2, TABLE) table from device memory into the block's shared
-// arrays c, s; ends with a barrier.  Every thread of the block calls it.
-template <typename T>
-__device__ __forceinline__ void stage(const T* tab, T* c, T* s) {
-  for (int k = threadIdx.x; k < TABLE; k += blockDim.x) {
-    c[k] = tab[k];
-    s[k] = tab[TABLE + k];
-  }
-  __syncthreads();
-}
-
-// A state as a table index (the mask keeps a corrupt byte inside the
-// table; it is the identity on [0, q))
-__device__ __forceinline__ int load(const int8_t* p, size_t i) {
-  return static_cast<int>(__ldg(p + i)) & (TABLE - 1);
-}
-
-__device__ __forceinline__ int wrap(int v, int n) {
-  return v < 0 ? v + n : (v >= n ? v - n : v);
-}
-
 // The sites k0 <= k < nv of a word of four colour sites (byte k of each
 // window is column col + k of its row): xv the sites' own window, uv and
 // dv the other colour's rows above and below, cv the centre (the same
@@ -152,36 +131,6 @@ __device__ __forceinline__ uint32_t update_word(
     }
   }
   return nxv;
-}
-
-// Σ cos, Σ sin and the right and down bonds' Σ cos(θ - θ') of unit j of
-// row y, both colours (core/lattice.right_down_neighbors), each bond once,
-// in float64 from the staged float64 table (c, s).
-__device__ __forceinline__ void measure_unit(const int8_t* a,
-                                             const int8_t* b,
-                                             const Geometry& g,
-                                             const double* c,
-                                             const double* s, int r, int y,
-                                             int j, xy::Sums& t) {
-  const size_t base = static_cast<size_t>(r) * g.ny * g.half;
-  const size_t row = base + static_cast<size_t>(y) * g.half;
-  const size_t dn = base + static_cast<size_t>(wrap(y + 1, g.ny)) * g.half;
-  const bool odd = (y & 1) == 1;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int i = 2 * j + k;
-    if (i >= g.half) break;
-    const int ip = wrap(i + 1, g.half);
-    const int sa = load(a, row + i), sb = load(b, row + i);
-    const int ra = load(b, row + (odd ? ip : i));
-    const int da = load(b, dn + i);
-    const int rb = load(a, row + (odd ? i : ip));
-    const int db = load(a, dn + i);
-    t.mx += c[sa] + c[sb];
-    t.my += s[sa] + s[sb];
-    t.e += (c[sa] * (c[ra] + c[da]) + s[sa] * (s[ra] + s[da])) +
-           (c[sb] * (c[rb] + c[db]) + s[sb] * (s[rb] + s[db]));
-  }
 }
 
 }  // namespace clock8

@@ -49,6 +49,24 @@
 // the self reads, so the phase kernel gives m only, and energy_kernel the
 // energy: 6 forward-bond planes, e = sum (2 popc(src ^ nbr) - valid bits).
 //
+// energy_kernel (bound on the H100: bytes, both colours read once) takes
+// runs of K = 8 consecutive words a thread (faster than runs of 4 on an
+// H100, PERF.md §6; the constants from
+// ops/helical3d_multispin.energy_runs, the entry point takes them as
+// passed).  The six planes are six word streams: a's and b's own words
+// (the d = 0 plane and the d = 1 plane, one bit on), and the streams of
+// planes 1, 3, 4, 5 at word offsets q = d >> 5.  A run loads each stream
+// once as aligned 16-B vectors, the one vector past them from the next
+// lane by shuffles, and funnel-shifts by the plane's d & 31: ~6 vector
+// loads a run of 8 words, against the first design's 14 scalar loads and
+// 6 wrap tests a word (read_circ).  A run where a plane wraps past M or a
+// window would pass word W - 1 (the last ~dmax / 32 words of a replica,
+// and its first words before the 16-B grid) takes read_circ a word.  A
+// grid of a few blocks an SM strides over the runs, one pair of int64
+// atomics a block and replica (the first design: a block of 256 words,
+// 61,000 same-address pairs a replica at 1001x1000x1000).  Integer sums
+// are exact in any order: the plain version's bits.
+//
 // Bound on the H100: integer operations.  At the 3-D critical point the
 // chains draw 56 Philox words a word and phase (14 calls, ~650 int32
 // operations with the round keys a per-launch constant) against 8-12
@@ -72,6 +90,7 @@
 // chains' bits.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 
@@ -253,33 +272,201 @@ struct EnergyArgs {
   int self_z;          // 1 (even nx*ny): pairs 4, 5 read the own colour
 };
 
-// (m, e) of the final vectors: a grid of (ceil(W / 256), R) blocks.
-__global__ void __launch_bounds__(PHASE_THREADS)
-    energy_kernel(EnergyArgs a) {
-  const int g = blockIdx.x * PHASE_THREADS + threadIdx.x;
-  const int r = blockIdx.y;
-  long long pm = 0, pe = 0;
-  if (g < a.nw) {
-    const size_t base = static_cast<size_t>(r) * a.nw;
-    const uint32_t* A = a.wa + base;
-    const uint32_t* B = a.wb + base;
-    const int f0 = g * 32;
-    const uint32_t vm = valid_bits(a.m, f0);
-    const int nb = __popc(vm);
-    const uint32_t av = A[g], bv = B[g];
-    pm = 2 * (__popc(av & vm) + __popc(bv & vm)) - 2 * nb;
+// The launch constants of ops/helical3d_multispin.energy_runs, in its
+// order (the entry point takes them as passed, after energy_runs_ok).
+// Run t of a replica holds its words K t - c .. K t - c + K - 1, c the
+// replica's first word of colour a mod 4 (16-B vectors), so a's words of
+// a run are one aligned vector each four.
+struct EnergyRuns {
+  int nruns;   // runs a replica, ceil((W + 3) / K): every c covered
+  int bulk;    // runs t < bulk with K t - c >= 0 read every plane
+               // without a wrap and inside the replica's W words
+  int blocks;  // blocks a replica (the grid's x), striding over the runs
+  int q[6];    // each plane's word offset d >> 5
+  int sh[6];   // and its bit shift d & 31
+};
+constexpr int ENERGY_RUN_INTS = 15;
+static_assert(sizeof(EnergyRuns) == ENERGY_RUN_INTS * 4,
+              "ops/helical3d_multispin.py passes the runs as 15 ints");
+
+// K, words a thread a step (ops/helical3d_multispin.ENERGY_RUN), threads
+// a block, and blocks an SM: the grid is four an SM (ENERGY_BLOCKS), so
+// the kernel must fit 64 registers (at 71 it ran 3 an SM, the grid in 1.33
+// waves, 47% slower on an H100: PERF.md §6)
+constexpr int ENERGY_RUN = 8;
+constexpr int ENERGY_THREADS = 256;
+constexpr int ENERGY_MIN_BLOCKS = 4;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+// One word g by the modular reads (the runs off the bulk: a replica's
+// first partial run and its last runs, where a plane wraps past M or a
+// window would pass word W - 1).
+__device__ __forceinline__ void energy_word(const EnergyArgs& a,
+                                            const uint32_t* A,
+                                            const uint32_t* B, int g,
+                                            long long& pm, long long& pe) {
+  const int f0 = g * 32;
+  const uint32_t vm = valid_bits(a.m, f0);
+  const int nb = __popc(vm);
+  const uint32_t av = A[g], bv = B[g];
+  pm += 2 * (__popc(av & vm) + __popc(bv & vm)) - 2 * nb;
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const bool from_a = (k < 2) || (k == 4);  // bonds of a's sites
-      const bool into_b = (k < 2) || (k == 4 && !a.self_z) ||
-                          (k == 5 && a.self_z);
-      int start = f0 + a.d[k];
-      if (start >= a.m) start -= a.m;
-      const uint32_t nbr = read_circ(into_b ? B : A, a.nw, a.m, start);
-      pe += 2 * __popc(((from_a ? av : bv) ^ nbr) & vm) - nb;
+  for (int k = 0; k < 6; ++k) {
+    const bool from_a = (k < 2) || (k == 4);  // bonds of a's sites
+    const bool into_b = (k < 2) || (k == 4 && !a.self_z) ||
+                        (k == 5 && a.self_z);
+    int start = f0 + a.d[k];
+    if (start >= a.m) start -= a.m;
+    const uint32_t nbr = read_circ(into_b ? B : A, a.nw, a.m, start);
+    pe += 2 * __popc(((from_a ? av : bv) ^ nbr) & vm) - nb;
+  }
+}
+
+template <int K, int R>
+__device__ __forceinline__ void take(const uint32_t (&v)[K + 4],
+                                     uint32_t (&w)[K + 1]) {
+#pragma unroll
+  for (int j = 0; j <= K; ++j) w[j] = v[R + j];
+}
+
+// Words r .. r + K of the K + 4 words from the 16-B aligned p: the
+// thread's K / 4 vectors, then the next lane's first vector (its run is
+// the next, K words on) by shuffles, or loaded where the next lane holds
+// none (lane 31, the last bulk run).  Every lane calls it; a lane off the
+// bulk loads nothing.
+template <int K>
+__device__ __forceinline__ void window(const uint32_t* p, bool mine,
+                                       bool self_next, int r,
+                                       uint32_t (&w)[K + 1]) {
+  uint32_t v[K + 4];
+  const uint4* pv = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < K / 4; ++i) {
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (mine) x = __ldg(pv + i);
+    v[4 * i] = x.x;
+    v[4 * i + 1] = x.y;
+    v[4 * i + 2] = x.z;
+    v[4 * i + 3] = x.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[K + i] = __shfl_down_sync(FULL, v[i], 1);
+  if (mine && self_next) {
+    const uint4 x = __ldg(pv + K / 4);
+    v[K] = x.x;
+    v[K + 1] = x.y;
+    v[K + 2] = x.z;
+    v[K + 3] = x.w;
+  }
+  switch (r) {  // uniform: a launch constant of the block
+    case 0: take<K, 0>(v, w); break;
+    case 1: take<K, 1>(v, w); break;
+    case 2: take<K, 2>(v, w); break;
+    default: take<K, 3>(v, w); break;
+  }
+}
+
+// Σ popc(src ^ the plane's words) over a run: word j of the plane is the
+// funnel shift of window words j, j + 1 by sh
+template <int K>
+__device__ __forceinline__ int plane_pop(const uint32_t (&src)[K + 1],
+                                         const uint32_t (&w)[K + 1],
+                                         int sh) {
+  int s = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    s += __popc(src[j] ^ __funnelshift_r(w[j], w[j + 1], sh));
+  return s;
+}
+
+// Word offset mod 4 of p, in words (int32 tensors: p is 4-B aligned)
+__device__ __forceinline__ int word_mod4(const uint32_t* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// (m, e) of the final vectors: a grid of (t.blocks, R) blocks, each
+// striding over its replica's runs a warp at a time (the lanes of a warp
+// hold consecutive runs).  A bulk run loads six windows: a's and b's own
+// words (planes 0 and 2, d = 0 and 1, read them) and planes 1, 3, 4, 5's
+// words, each as aligned vectors plus the next lane's first; every other
+// run takes energy_word a word.  One pair of 64-bit atomics a block.
+__global__ void __launch_bounds__(ENERGY_THREADS, ENERGY_MIN_BLOCKS)
+    energy_kernel(EnergyArgs a, EnergyRuns t) {
+  constexpr int K = ENERGY_RUN;
+  const int rep = blockIdx.y;
+  const size_t base = static_cast<size_t>(rep) * a.nw;
+  const uint32_t* A = a.wa + base;
+  const uint32_t* B = a.wb + base;
+  const uint32_t* N[6] = {B, B, A, A, a.self_z ? A : B, a.self_z ? B : A};
+  const int c = word_mod4(A);
+  // each window's word offset in its vector: the same for every run
+  int r[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) r[k] = (word_mod4(N[k]) + t.q[k] - c) & 3;
+  const int lane = threadIdx.x & 31;
+  long long pm = 0, pe = 0;
+  const int stride = gridDim.x * ENERGY_THREADS;
+  for (int t0 = blockIdx.x * ENERGY_THREADS + (threadIdx.x & ~31);
+       t0 < t.nruns; t0 += stride) {  // uniform over the warp
+    const int tr = t0 + lane;
+    const int g0 = tr * K - c;
+    const bool bulk = tr < t.bulk && g0 >= 0;
+    if (t0 < t.bulk) {
+      const bool self_next = lane == 31 || tr + 1 >= t.bulk;
+      const int g = bulk ? g0 : 0;
+      uint32_t av[K + 1], bv[K + 1], w[K + 1];
+      window<K>(A + g, bulk, self_next, 0, av);
+      window<K>(B + g - r[0], bulk, self_next, r[0], bv);
+      int sm = 0;
+#pragma unroll
+      for (int j = 0; j < K; ++j) sm += __popc(av[j]) + __popc(bv[j]);
+      int se = plane_pop<K>(av, bv, 0) + plane_pop<K>(bv, av, 1);
+      window<K>(N[1] + g + t.q[1] - r[1], bulk, self_next, r[1], w);
+      se += plane_pop<K>(av, w, t.sh[1]);
+      window<K>(N[3] + g + t.q[3] - r[3], bulk, self_next, r[3], w);
+      se += plane_pop<K>(bv, w, t.sh[3]);
+      window<K>(N[4] + g + t.q[4] - r[4], bulk, self_next, r[4], w);
+      se += plane_pop<K>(av, w, t.sh[4]);
+      window<K>(N[5] + g + t.q[5] - r[5], bulk, self_next, r[5], w);
+      se += plane_pop<K>(bv, w, t.sh[5]);
+      if (bulk) {
+        pm += 2 * sm - 64 * K;
+        pe += 2 * se - 6 * 32 * K;
+      }
+    }
+    if (!bulk && tr < t.nruns) {
+#pragma unroll 1
+      for (int j = 0; j < K; ++j) {
+        const int g = g0 + j;
+        if (g >= 0 && g < a.nw) energy_word(a, A, B, g, pm, pe);
+      }
     }
   }
-  block_add<PHASE_THREADS>(pm, pe, a.obs + 2 * static_cast<size_t>(r));
+  block_add<ENERGY_THREADS>(pm, pe, a.obs + 2 * static_cast<size_t>(rep));
+}
+
+// The runs as energy_runs builds them, or any that read no word outside
+// a replica on the bulk: refuses others
+bool energy_runs_ok(const EnergyRuns& t, const EnergyArgs& a, int nrep) {
+  constexpr int K = ENERGY_RUN;
+  if (t.nruns != (a.nw + 3 + K - 1) / K || t.blocks < 1 ||
+      t.blocks > 65535 || nrep < 1 || nrep > 65535 || t.bulk < 0 ||
+      t.bulk > t.nruns)
+    return false;
+  int qmax = 0, dmax = 0;
+  for (int k = 0; k < 6; ++k) {
+    if (a.d[k] < 0 || a.d[k] >= a.m || t.q[k] != (a.d[k] >> 5) ||
+        t.sh[k] != (a.d[k] & 31))
+      return false;
+    qmax = std::max(qmax, t.q[k]);
+    dmax = std::max(dmax, a.d[k]);
+  }
+  if (t.bulk == 0) return true;
+  // planes 0 and 2 read the own windows; the last bulk run's windows end
+  // at word W - 1 at the latest and no plane wraps in it
+  const long long last = static_cast<long long>(t.bulk - 1) * K;
+  return a.d[0] == 0 && a.d[2] == 1 && last + K + 3 + qmax <= a.nw - 1 &&
+         32 * (last + K) + dmax <= a.m;
 }
 
 struct MultisweepArgs {
@@ -388,9 +575,11 @@ int helical3d_phase(const void* x_in, void* x_out, const void* o,
 }
 
 // (m, e) of the final vectors into obs (R, 2), zeroed by the caller; d the
-// six forward-bond offsets mod M (see EnergyArgs).
+// six forward-bond offsets mod M (see EnergyArgs); runs the 15 ints of
+// ops/helical3d_multispin.energy_runs (EnergyRuns).
 int helical3d_energy(const void* wa, const void* wb, void* obs, int nrep,
-                     int nw, int m, const int* d, int self_z, void* stream) {
+                     int nw, int m, const int* d, int self_z,
+                     const int* runs, void* stream) {
   EnergyArgs a;
   a.wa = static_cast<const uint32_t*>(wa);
   a.wb = static_cast<const uint32_t*>(wb);
@@ -399,9 +588,13 @@ int helical3d_energy(const void* wa, const void* wb, void* obs, int nrep,
   a.m = m;
   for (int k = 0; k < 6; ++k) a.d[k] = d[k];
   a.self_z = self_z;
-  const dim3 grid((nw + PHASE_THREADS - 1) / PHASE_THREADS, nrep);
-  energy_kernel<<<grid, PHASE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a);
+  EnergyRuns t;
+  std::memcpy(&t, runs, sizeof(EnergyRuns));
+  if (!energy_runs_ok(t, a, nrep))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(t.blocks, nrep);
+  energy_kernel<<<grid, ENERGY_THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a, t);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -306,12 +306,7 @@ bool tiles_ok(const Tiles& t, int ny, int half) {
                        span_bytes(lx),     span_bytes(lx),
                        span_bytes(std::min(t.cw, half)),
                        span_bytes(std::min(t.cw, half))};
-  int end = 0;
-  for (int k = 0; k < 6; ++k) {
-    if (t.buf[k] % 16 != 0 || t.buf[k] < end + 16) return false;
-    end = t.buf[k] + need[k];
-  }
-  return t.smem >= end && t.smem <= 48 * 1024;
+  return tiles8::spans_ok(t.buf, need, 6, t.smem);
 }
 
 Args make_args(void* x, const void* o, const void* bits, int nrep, int nz,

@@ -27,7 +27,10 @@ The CUDA kernels are in ``csrc/helical3d_multispin.cu``:
   (``ops/multispin_rng.chain_table``, the table the periodic 3-D kernels
   follow too);
 - ``energy_kernel``: the exact (m, e) of the final vectors, which the
-  even-nx·ny route needs every sweep;
+  even-nx·ny route needs every sweep; runs of ``ENERGY_RUN`` words a
+  thread, each plane's words loaded once as aligned 16-B vectors, its
+  launch constants from :func:`energy_runs` (replayed on the CPU by
+  ``tests/test_torch_helical3d_energy_runs.py``);
 - ``multisweep_kernel``: S sweeps in one launch at odd nx·ny, its chains
   drawn as ``phase_kernel`` draws them, from the same table, under the
   round keys of each (sweep, phase) key.
@@ -48,6 +51,7 @@ TPU layout and has no counterpart: the kernels read across the wrap.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -91,6 +95,13 @@ MAX_SITES = 1 << 30
 MAX_REPLICAS = 65535
 
 LAUNCHES = {"phase": 0, "phase_measuring": 0, "energy": 0, "multisweep": 0}
+# energy_kernel: words a thread a step (its ENERGY_RUN; runs of 8 beat
+# runs of 4 on an H100, PERF.md §6, chip_time_ising.py --helical3d's
+# variant build), threads a block, and blocks a launch (four an SM, the
+# kernel's launch bound), spread over the replicas
+ENERGY_RUN = 8
+ENERGY_THREADS = 256
+ENERGY_BLOCKS = 4 * 132
 
 
 def reset_launches() -> None:
@@ -314,7 +325,7 @@ def _lib() -> ctypes.CDLL:
         _UINT, _UINT, _TABLE, _VOID]
     lib.helical3d_phase.restype = _INT
     lib.helical3d_energy.argtypes = [
-        _VOID, _VOID, _VOID, _INT, _INT, _INT, _INTS, _INT, _VOID]
+        _VOID, _VOID, _VOID, _INT, _INT, _INT, _INTS, _INT, _INTS, _VOID]
     lib.helical3d_energy.restype = _INT
     lib.helical3d_multisweep.argtypes = [
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT,
@@ -407,6 +418,44 @@ def phase_packed_with_bits(xw, ow, b4, b8, b12, *, color: int, nx: int,
                          q=(0, 0, 0), bits=(b4, b8, b12), zsub=zsub)
 
 
+def energy_runs(nrep: int, nx: int, nxy: int, m: int) -> dict:
+    """``energy_kernel``'s launch constants (the entry point takes them as
+    passed, after its own check), for runs of ``run`` = ENERGY_RUN words
+    a thread a step: ``nruns`` runs a replica, ceil((W + 3) / run), run t
+    holding words run·t - c .. (c the replica's first word of colour a mod
+    4, so that its words lie on the 16-B grid); ``bulk``, the runs t <
+    bulk (t >= 1, or t = 0 at c = 0) whose windows read no word past W - 1
+    and no plane wraps past M, for every c; ``blocks`` a replica,
+    ENERGY_BLOCKS a launch spread over the replicas; each plane's word
+    offset ``q`` and bit shift ``sh`` (its offset d mod M is
+    ``_energy_pairs``'s)."""
+    run = ENERGY_RUN
+    nw = words(m)
+    d = [dd % m for _, _, dd in _energy_pairs(nx, nxy)]
+    nruns = -(-(nw + 3) // run)
+    bulk = 0
+    if d[0] == 0 and d[2] == 1:
+        # the last bulk run's first word, K t: its windows end at word
+        # K t + run + 3 + q <= W - 1, its planes at bit 32 (K t + run) + d
+        top = min(nw - 4 - run - max(dd >> 5 for dd in d),
+                  (m - max(d)) // 32 - run)
+        bulk = min(nruns, top // run + 1) if top >= 0 else 0
+    return {"run": run, "nruns": nruns, "bulk": bulk,
+            "blocks": max(1, min(-(-nruns // ENERGY_THREADS),
+                                 ENERGY_BLOCKS // nrep)),
+            "q": tuple(dd >> 5 for dd in d),
+            "sh": tuple(dd & 31 for dd in d)}
+
+
+@functools.lru_cache(maxsize=64)
+def _energy_runs_arg(nrep: int, nx: int, nxy: int, m: int) -> ctypes.Array:
+    """:func:`energy_runs` as the kernel's 15 ints (EnergyRuns), built
+    once a shape."""
+    t = energy_runs(nrep, nx, nxy, m)
+    vals = [t["nruns"], t["bulk"], t["blocks"], *t["q"], *t["sh"]]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
 def energy_sums(wa, wb, *, nx: int, nxy: int, m: int) -> torch.Tensor:
     """(R, 2) int64 exact (m, e) of the (R, W) colour vectors:
     ``energy_kernel`` on CUDA tensors, :func:`energy_sums_plain` on CPU
@@ -417,12 +466,13 @@ def energy_sums(wa, wb, *, nx: int, nxy: int, m: int) -> torch.Tensor:
     lib = _lib()
     nrep, nw = wa.shape
     pairs = _energy_pairs(nx, nxy)
+    # zeroed: each block adds its sums with an atomic
     obs = torch.zeros((nrep, 2), dtype=torch.int64, device=wa.device)
     with torch.cuda.device(wa.device):
         code = lib.helical3d_energy(
             wa.data_ptr(), wb.data_ptr(), obs.data_ptr(), nrep, nw, m,
             _offsets([d for _, _, d in pairs], m), int(nxy % 2 == 0),
-            _stream(wa))
+            _energy_runs_arg(nrep, nx, nxy, m), _stream(wa))
     _raise_on(lib, code, "helical3d energy_kernel")
     LAUNCHES["energy"] += 1
     return obs

@@ -58,6 +58,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising3d_pallas import (
     TILE_BYTES,
     phase_tiles,
     span_bytes,
+    stage_layout,
 )
 
 LAUNCHES = {"measure2d": 0, "measure3d": 0}
@@ -132,13 +133,10 @@ def measure_tiles(nz: int, ny: int, half: int, dims: int) -> dict:
     need = [span_bytes(lx)] * 2 + [span_bytes(min(cw, half))] * 2
     if dims == 3:
         need += [span_bytes(lx)] * 2
-    buf, end = [], 0
-    for n in need:
-        buf.append(end + 16)
-        end = buf[-1] + n
+    buf, end = stage_layout(need)
     return {"rows": rows, "lux": lux, "cw": cw, "nch": nch, "nty": nty,
             "zrun": zrun, "nzg": -(-nz // zrun),
-            "buf": tuple(buf + [0] * (6 - len(buf))), "smem": end}
+            "buf": buf + (0,) * (6 - len(buf)), "smem": end}
 
 
 @functools.lru_cache(maxsize=64)

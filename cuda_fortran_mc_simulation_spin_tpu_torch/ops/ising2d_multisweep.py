@@ -63,6 +63,7 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_pallas import (
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising3d_pallas import (
     span_bytes,
+    stage_layout,
 )
 
 # bytes of the batch's int8 planes (batch·nx·ny) up to which the runner
@@ -134,12 +135,9 @@ def ms_tiles(nrep: int, ny: int, half: int,
     else:
         lux, rows, cw = THREADS.bit_length() - 1, 1, CHUNK_COLS
         nch = -(-half // cw)
-    buf, end = [], 0
-    for n in _spans(rows, cw, half):
-        buf.append(end + 16)
-        end = buf[-1] + n
+    buf, end = stage_layout(_spans(rows, cw, half))
     return {"rows": rows, "lux": lux, "cw": cw, "nch": nch,
-            "nty": -(-ny // rows), "buf": tuple(buf), "smem": end}
+            "nty": -(-ny // rows), "buf": buf, "smem": end}
 
 
 def check_ms_tiles(t: dict, ny: int, half: int) -> None:

@@ -82,6 +82,18 @@ def span_bytes(length: int) -> int:
     return 16 * (-(-length // 16) + 2)
 
 
+def stage_layout(need) -> tuple[tuple[int, ...], int]:
+    """Byte offsets in shared memory of staged ranges of ``need`` bytes
+    each, in order (16-B aligned, each after a 16-byte guard), and the
+    bytes they take in all: the layout every tile kernel's C entry checks
+    (``tiles8::spans_ok``)."""
+    buf, end = [], 0
+    for n in need:
+        buf.append(end + 16)
+        end = buf[-1] + n
+    return tuple(buf), end
+
+
 def phase_tiles(ny: int, half: int) -> dict:
     """Launch constants of ``tile_kernel`` on (R, nz, ny, half) volumes:
     ``rows`` rows a tile and 2^``lux`` threads along a row (thread t takes
@@ -103,15 +115,12 @@ def phase_tiles(ny: int, half: int) -> dict:
         lux, rows, cw = THREADS.bit_length() - 1, 1, CHUNK_COLS
         nch = -(-half // cw)
     lx = (rows - 1) * half + min(cw, half)
-    need = [span_bytes(lx), span_bytes(lx + 2), span_bytes(lx),
-            span_bytes(lx), span_bytes(min(cw, half)),
-            span_bytes(min(cw, half))]
-    buf, end = [], 0
-    for n in need:
-        buf.append(end + 16)
-        end = buf[-1] + n
+    buf, end = stage_layout([span_bytes(lx), span_bytes(lx + 2),
+                             span_bytes(lx), span_bytes(lx),
+                             span_bytes(min(cw, half)),
+                             span_bytes(min(cw, half))])
     return {"rows": rows, "lux": lux, "cw": cw, "nch": nch,
-            "nty": -(-ny // rows), "buf": tuple(buf), "smem": end}
+            "nty": -(-ny // rows), "buf": buf, "smem": end}
 
 
 def _tiles_arg(ny: int, half: int) -> ctypes.Array:

@@ -1,6 +1,9 @@
 """The slice as a whole: the port's CLI (--device cpu, so the kernels'
 plain versions run) against the JAX CLI for the same flags, determinism,
-checkpoint resume, and the routes the port refuses."""
+checkpoint resume, and the routes the port refuses.  The routes the port
+once refused and now runs are in ``test_torch_cli_routes.py`` and, with
+``--protocol samples``, ``test_torch_cli_samples.py`` (files of their own,
+so that the test workers can share them out)."""
 
 import numpy as np
 import pytest
@@ -106,39 +109,6 @@ def test_unserved_routes_raise(extra, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         main(FLAGS + extra + ["--device", "cpu", "--output", str(out)])
     assert not out.exists()
-
-
-@pytest.mark.parametrize("extra,engine", [
-    (["--nx", "128", "--ny", "128"], "int8 multisweep (cooperative)"),
-    (["--protocol", "samples"], "phase engine (single history)"),
-    (["--protocol", "samples", "--model", "clock"],
-     "phase engine (single history)"),
-    (["--model", "clock", "--q", "5"], "int8 multisweep (cooperative)"),
-    (["--protocol", "samples", "--model", "clock", "--nx", "33", "--ny",
-      "32"], "phase engine (single history)"),
-    (["--model", "clock", "--q", "5", "--nx", "33", "--ny", "32"],
-     "helical_pallas multisweep (masked clock)"),
-    (["--model", "xy2d", "--nx", "33", "--ny", "31"],
-     "helical_pallas XY (masked streaming)"),
-    (["--nx", "33", "--ny", "31"], "helical_pallas multisweep (masked Ising)"),
-    (["--protocol", "samples", "--nx", "33", "--ny", "32"],
-     "phase engine (single history)"),
-])
-def test_formerly_refused_routes_run(extra, engine, tmp_path):
-    """Periodic Ising at an unpackable shape, --protocol samples on Ising
-    2-D and on the clock, and the clock at q = 5, refused before the int8
-    kernels were ported, and the helical shapes refused before the masked
-    helical kernels were ported (--protocol samples on the helical clock
-    and helical Ising, the helical clock at q = 5, helical XY and Ising at
-    odd ny), now run on the CPU through the plain versions of those
-    kernels."""
-    out = tmp_path / "x.dat"
-    assert main(FLAGS + extra + ["--device", "cpu", "--output",
-                                 str(out)]) == 0
-    head, rows = _split(out)
-    assert f"# engine: {engine}" in head
-    assert rows.shape[0] == (16 * 20 if "samples" in extra else 20)
-    assert np.all(np.isfinite(rows))
 
 
 @pytest.mark.parametrize("protocol", ["from_disorder", "finite_magne"])

@@ -2590,9 +2590,10 @@ def time_xy_helical(xhd, xha, dev, seeds, readings: int = 3):
 # ---------------------------------------------------------------------------
 
 # (R, ny, half) / (R, nz, ny, half) of the checks: a ragged small shape
-# (half 63, a masked last unit), then each class's launch shape
+# (half 63, a masked last unit), then each class's launch shape, and in
+# 2-D rows chunked past ops/ising2d_multisweep.CHUNK_COLS columns
 INT8_SHAPES_2D = ((3, 130, 63), (16, 1000, 500), (8, 4000, 2000),
-                  (1, 1000, 500))
+                  (1, 1000, 500), (1, 4, 4102))
 INT8_SHAPES_3D = ((2, 14, 12, 5), (2, 500, 500, 250))
 # the multisweep's check (the resident class's launch), the first sweeps'
 # (shape, sweeps) for >= 1e10 sites each, and the launch shapes timed
@@ -2623,6 +2624,21 @@ INT8_PHASE_BYTES = 3
 INT8_ROUTE_SHAPES = ((1000, 1), (1000, 4), (1000, 16), (1000, 32),
                      (1000, 64), (2000, 1), (2000, 4), (2000, 8),
                      (2000, 16))
+
+
+def int8_phase_build(i2p) -> dict:
+    """The int8 2-D phase kernel's ptxas registers a mode (the halo modes
+    are row 25's) and the tile constants of its main-path launches
+    (ops/ising2d_pallas.phase_tiles): the streamed class's, the samples
+    class's and the mesh class's shard."""
+    modes = {"phase": "ILb0ELb0ELb0E", "injected": "ILb0ELb0ELb1E",
+             "halo": "ILb1ELb0ELb0E", "halo measuring": "ILb1ELb1ELb0E"}
+    return {"registers": {k: ptxas_registers("ising2d_pallas",
+                                             "phase_kernel", v)
+                          for k, v in modes.items()},
+            "tiles": {"x".join(map(str, shape)): i2p.phase_tiles(*shape)
+                      for shape in ((8, 4000, 2000), (1, 1000, 500),
+                                    (8, 2000, 1000))}}
 
 
 def int8_phase_ops(dims: int) -> float:
@@ -4896,6 +4912,43 @@ def run_mesh_classes(modules, out_dir, ref, ref3, dev, unsharded) -> dict:
     return out
 
 
+# global column offsets of the int8 2-D halo check at the mesh class's
+# shard: col0 % 4 = 0 .. 3 (the class's own x split is at 1000), a shard
+# at col0 % 4 != 0 starting its rows' words col0 % 4 columns early
+INT8_HALO_COL0 = (1000, 1001, 1002, 1003)
+
+
+def check_int8_halo_col0(i2p, a, b, halos, cols, seeds, beta, g, dev
+                         ) -> int:
+    """ising2d_pallas.phase_kernel<true, ., .> against sharded_phase_plain
+    at the shard (a, b) with its halo rows and columns, at global offsets
+    (0, L, col0) for each INT8_HALO_COL0: both colours, Philox and
+    injected words, plain and measuring (the sums exactly).  Returns the
+    largest absolute difference."""
+    nrep, L, half = a.shape
+    bits = torch.from_numpy(g.integers(-2 ** 31, 2 ** 31, size=a.shape,
+                                       dtype=np.int64).astype(np.int32)
+                            ).to(dev)
+    err = 0
+    for col0 in INT8_HALO_COL0:
+        for color in (0, 1):
+            x, o = (a, b) if color == 0 else (b, a)
+            for words in (dict(seeds=seeds[color]), dict(bits=bits)):
+                for measuring in (False, True):
+                    args = (o, *halos, words.get("seeds"), (0, L, col0))
+                    kw = dict(color=color, beta=beta, halo_lf=cols[0],
+                              halo_rt=cols[1], bits=words.get("bits"),
+                              measuring=measuring)
+                    got = i2p.sharded_phase(x.clone(), *args, **kw)
+                    want = i2p.sharded_phase_plain(x, *args, **kw)
+                    err = max(err, max_abs_err(
+                        zip(got, want) if measuring else [(got, want)]))
+    log(f"  int8 2-D halo mode {tuple(a.shape)} at col0 {INT8_HALO_COL0} "
+        "with column halos, both colours, Philox and injected, plain and "
+        f"measuring: vs plain {err}")
+    return err
+
+
 def time_mesh_kernels(msb, ms3, i2p, i3p, rng, dev) -> dict:
     """Each halo kernel at each mesh class's shard shape: phase a (Philox)
     and the measuring phase b, CUDA events, the bound from the unsharded
@@ -5022,6 +5075,9 @@ def time_mesh_kernels(msb, ms3, i2p, i3p, rng, dev) -> dict:
                    bits=bits, **skw),
                 plain(sa, sb, *sh, seeds[0], offs, color=0, beta=beta,
                       bits=bits, **skw))])
+            if dims == 2 and cols:
+                ierr = max(ierr, check_int8_halo_col0(
+                    i2p, a, b, halos, cl, seeds, beta, g, dev))
         err = max(times[0][1], times[1][1], ierr)
         log(f"  {label}: injected mode vs plain {ierr}")
         out[label] = (times[0][0], times[1][0], err)
@@ -6712,7 +6768,8 @@ def main() -> int:
          max(err_xyh["angle_or"], xyh_err), xyh_t["angle or"][0]),
         ("ising2d_pallas.phase_kernel", "ising2d_pallas.cu",
          "ising2d_pallas.py:126", launched("ising2d_int8", "phase"),
-         max(errs8["phase2d"], ei8), ti8["phase2d 8x4000x2000"][0]),
+         max(errs8["phase2d"], ei8), ti8["phase2d 8x4000x2000"][0],
+         int8_phase_build(i2p)),
         ("ising3d_pallas.tile_kernel", "ising3d_pallas.cu",
          "ising3d_pallas.py:85", launched("ising3d_int8", "phase"),
          max(errs8["phase3d"], ei8), ti8["phase3d 2x500x500x250"][0]),
@@ -6799,8 +6856,8 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu,
          "replaces": ref_py + site, "launches": n, "max_abs_err": err,
-         **times, "library_ms": None}
-        for name, cu, site, n, err, times in rows]
+         **times, "library_ms": None, **(extra[0] if extra else {})}
+        for name, cu, site, n, err, times, *extra in rows]
     for k in kernels:
         if k["launches"] == 0:
             fail(f"{k['name']} was not launched on a main path")

@@ -9,7 +9,11 @@ at 512^3 x 8, the halo mode (measuring and plain) at the mesh 3-D
 class's shard (4, 128, 16, 256) of 512^3 x 8 on (2,4), timed as a CUDA
 graph of 50 launches (median of 9 windows, chip_smoke.graph_time_ms),
 and the 3-D multisweep at 256^3 x 4, S = 64, with the SASS of
-phase_kernel and multisweep_kernel; beside the int8 3-D phase (500^3 x
+phase_kernel and multisweep_kernel; beside the int8 2-D phase (4000x4000
+x 8) its halo mode at the mesh int8 2-D class's shard (8, 2000, 1000) of
+4000x4000 x 8 on (1,2,2) with its halo rows and columns, measuring and
+plain, graph-timed, with the SASS of the int8 2-D phase_kernel; beside
+the int8 3-D phase (500^3 x
 2) its halo mode at the mesh int8 3-D class's shard (1, 250, 500, 250) of
 500^3 x 2 on (2,2), measuring and plain, graph-timed, with the SASS of
 the int8 3-D tile_kernel; the periodic 2-D bit-packed kernels at the 2-D
@@ -85,6 +89,18 @@ the wrapper; with ``--measure-variants``, the int8 measure kernel (row 27)
 at 500^3 x 2 and 4000x4000 x 8 on its library and on builds raising its
 blocks an SM to 6 and 8 (__launch_bounds__), and at 500^3 x 2 with runs
 of 1, 2, 4 and 8 planes a block, each held against the library's sums;
+with ``--phase-variants``, rows 24-25 through their C entries at tiles
+of up to 16 (the library's), 8 and 4 KB of sites, and on builds that
+write the new words back from the tile's copy (the multisweep's way) and
+whose kernel returns at once (the launch's floor; into
+.build/variants/), each launch but the last held bitwise against the
+wrapper: the phase at 4000x4000 x 8 and, graph-timed, at 1000x1000 x 1
+(there also at tiles of 1 and 4 rows), the halo mode at the mesh shard,
+measuring and plain; with ``--dat DIR``, no timing of kernels: the three
+int8 2-D classes that launch rows 24-25 (streamed 4000x4000 x 8, 8
+samples; samples 1000x1000, 16 histories; mesh 4000x4000 x 8 on (1,2,2)
+on the card repeated; 200 MCS from all-up) into DIR/*.dat, one JSON line
+of their walls and flip attempts/s, for compare_dat.py across two trees;
 with ``--registers``,
 no timing: every csrc/*.cu built anew and the ptxas registers of each of
 its kernels, one JSON line {library: {kernel: registers}} (the kernel's
@@ -96,6 +112,7 @@ the includers of a shared header unchanged across two checkouts.
                                 --helical3d | --masked |
                                 --samples | --ms-grids |
                                 --key-variants | --measure-variants |
+                                --phase-variants | --dat DIR |
                                 --registers]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
@@ -123,6 +140,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -393,6 +411,171 @@ def samples_modes(spins, gen, dev, key):
     }
     modes = dict(calls)
     modes.update({f"graph {k}": fn for k, fn in calls.items()})
+    return modes
+
+
+def int8_class_dat(out: Path) -> dict:
+    """The three int8 2-D classes that run rows 24-25, from all-up as
+    chip_smoke.py runs them, each into out/<class>.dat (``--dat``): the
+    streamed 4000x4000 x 8 (8 samples, 200 MCS) and the samples class
+    (1000x1000, 16 histories of 200 MCS) through the CLI, the mesh class
+    (4000x4000 x 8 on (1,2,2), the card repeated) through
+    protocols.run_relaxation.  Returns {class: {"wall_s", "rate"}}, rate
+    in flip attempts/s of the wall."""
+    from chip_smoke import KBT
+
+    from cuda_fortran_mc_simulation_spin_tpu_torch.config import RunConfig
+    from cuda_fortran_mc_simulation_spin_tpu_torch.engine import protocols
+    from cuda_fortran_mc_simulation_spin_tpu_torch.runs.__main__ import (
+        main as cli_main,
+    )
+    out.mkdir(parents=True, exist_ok=True)
+    model = ["--model", "ising2d", "--kbt", repr(KBT), "--mcs", "200",
+             "--init-state", "allup", "--device", "cuda"]
+    runs = {
+        "streamed_4000": (4000 ** 2 * 200 * 8, model + [
+            "--nx", "4000", "--ny", "4000", "--samples", "8", "--replicas",
+            "8"]),
+        "samples_1000": (1000 ** 2 * 200 * 16, model + [
+            "--protocol", "samples", "--nx", "1000", "--ny", "1000",
+            "--samples", "16"]),
+    }
+    res = {}
+    for name, (flips, argv) in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli_main(argv + ["--output", str(out / f"{name}.dat")])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"{name}: the CLI exited {rc}")
+        wall = time.perf_counter() - t0
+        res[name] = {"wall_s": wall, "rate": flips / wall}
+    dev = torch.device("cuda")
+    cfg = RunConfig(model="ising2d", nx=4000, ny=4000, nz=1, kbt=KBT,
+                    mcs=200, tot_sample=8, replicas=8, mesh_dp=1, mesh_y=2,
+                    mesh_x=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with (out / "mesh_122.dat").open("w") as f, open(os.devnull, "w") as e:
+        protocols.run_relaxation(cfg, out=f, err=e, device=dev,
+                                 mesh_devices=[dev] * 4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res["mesh_122"] = {"wall_s": wall, "rate": 4000 ** 2 * 200 * 8 / wall}
+    return res
+
+
+# the int8 2-D phase kernel's tile sizes of --phase-variants: the
+# library's (ops/ising2d_pallas.TILE_BYTES) first
+I8_TILE_BYTES = (16384, 8192, 4096)
+
+
+def phase_variant_modes(spins, dev, key):
+    """Rows 24-25 through their C entries (``--phase-variants``): on the
+    library at each tile size of I8_TILE_BYTES, and at the library's on
+    builds of its source (into .build/variants/) that stage the new words
+    and write them back as the multisweep does, and whose kernel returns
+    at once (the launch's floor, not held against the wrapper); every
+    other launch held bitwise against the wrapper.  The phase at the
+    streamed class's 4000x4000 x 8 (events) and, graph-timed, the samples
+    class's 1000x1000 x 1 (there also the library at tiles of 1 and 4
+    rows), and the halo mode at the mesh class's shard (8, 2000, 1000) of
+    4000x4000 x 8 on (1,2,2) with its halo rows and columns, measuring
+    and plain."""
+    import ctypes
+
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_multisweep as i8ms,
+        ising2d_pallas as i2p,
+        ising3d_pallas as i3p,
+    )
+    base = i2p._lib()
+    names = ("ising2d_int8_phase", "ising2d_int8_halo_phase")
+    call = "    ising8::tile<MEASURE, HALO, INJECT, true>("
+    # tag: (library, held against the wrapper, tile sizes)
+    libs = {"library": (base, True, I8_TILE_BYTES)}
+    for tag, new in (("staged write-back", call.replace("true>", "false>")),
+                     ("empty kernel", "    if (false)" + call[3:])):
+        libs[tag] = (variant_lib("ising2d_pallas", call, new,
+                                 tag.replace(" ", "_").replace("-", ""),
+                                 base, names),
+                     tag != "empty kernel", I8_TILE_BYTES[:1])
+    beta = 1 / KBT_2D
+    t4, t8 = i2p.accept_thresholds_u32(beta)
+    s0, s1 = i2p.seed_words(key)
+
+    def stream():
+        # the current stream at the call: a graph captures on its own
+        return torch.cuda.current_stream().cuda_stream
+
+    def rows_tiles(ny, half, rows, lux):
+        # tiles of `rows` whole rows, 2^lux threads a row
+        buf, end = i3p.stage_layout(i8ms._spans(rows, half, half))
+        t = dict(rows=rows, lux=lux, cw=half, nch=1, nty=-(-ny // rows),
+                 buf=buf, smem=end)
+        i8ms.check_ms_tiles(t, ny, half)
+        words = [rows, lux, half, 1, t["nty"], *buf, end]
+        return (ctypes.c_int * len(words))(*words)
+
+    modes = {}
+    for shape in ((8, 4000, 2000), (1, 1000, 500)):
+        a0, b0 = spins(shape), spins(shape)
+        want = i2p.metropolis_phase(a0.clone(), b0, key, color=0, beta=beta)
+        for tag, (lib, check, sizes) in libs.items():
+            tiles = {str(n): i8ms._tiles_arg(*shape, n) for n in sizes}
+            if shape[0] == 1 and tag == "library":
+                tiles.update({"rows 1": rows_tiles(1000, 500, 1, 8),
+                              "rows 4": rows_tiles(1000, 500, 4, 7)})
+            for size, tl in tiles.items():
+                def phase(x=a0.clone(), tl=tl, shape=shape, b0=b0, lib=lib):
+                    code = lib.ising2d_int8_phase(
+                        x.data_ptr(), b0.data_ptr(), None, *shape, 0, s0,
+                        s1, t4, t8, tl, stream())
+                    if code:
+                        raise RuntimeError(f"int8 phase launch: {code}")
+                    return x
+                x = a0.clone()
+                phase(x=x)
+                if check and not torch.equal(x, want):
+                    raise RuntimeError(f"int8 phase {shape} {size} {tag} "
+                                       "differs")
+                label = (f"int8_phase {'x'.join(map(str, shape))}, {tag}, "
+                         f"tiles {size}")
+                modes[("graph " if shape[0] == 1 else "") + label] = phase
+    shape = (8, 2000, 1000)
+    ka, kb = spins(shape), spins(shape)
+    up, dn = spins((8, 1, 1000)), spins((8, 1, 1000))
+    lf, rt = spins((8, 2000, 1)), spins((8, 2000, 1))
+    want = i2p.sharded_phase(ka.clone(), kb, up, dn, key, (0, 2000, 1000),
+                             color=1, beta=beta, halo_lf=lf, halo_rt=rt,
+                             measuring=True)
+    obs = torch.zeros((8, 2), dtype=torch.int64, device=dev)
+    for tag, (lib, check, sizes) in libs.items():
+        for nbytes in sizes:
+            tiles = i8ms._tiles_arg(*shape, nbytes)
+            for measuring in (True, False):
+                def halo(x=ka.clone(), tiles=tiles, measuring=measuring,
+                         lib=lib):
+                    code = lib.ising2d_int8_halo_phase(
+                        x.data_ptr(), kb.data_ptr(), None, up.data_ptr(),
+                        dn.data_ptr(), lf.data_ptr(), rt.data_ptr(),
+                        obs.data_ptr() if measuring else None, *shape, 1,
+                        0, 2000, 1000, s0, s1, t4, t8, tiles, stream())
+                    if code:
+                        raise RuntimeError(f"int8 halo launch: {code}")
+                    return x
+                x = ka.clone()
+                obs.zero_()
+                halo(x=x)
+                if check and (not torch.equal(x, want[0]) or (
+                        measuring and not (
+                            torch.equal(obs[:, 0], want[1])
+                            and torch.equal(obs[:, 1], want[2])))):
+                    raise RuntimeError(f"int8 halo {tag} {nbytes} "
+                                       f"{measuring} differs")
+                modes[f"graph int8_shard "
+                      f"{'measuring' if measuring else 'plain'}, {tag}, "
+                      f"tiles {nbytes}"] = halo
     return modes
 
 
@@ -974,6 +1157,10 @@ def main() -> int:
                     "their round keys in registers instead")
     ap.add_argument("--measure-variants", action="store_true",
                     help="time the int8 measure kernel's builds instead")
+    ap.add_argument("--phase-variants", action="store_true",
+                    help="time rows 24-25 at other tile sizes instead")
+    ap.add_argument("--dat", metavar="DIR", default=None,
+                    help="run the int8 2-D classes into DIR/*.dat instead")
     ap.add_argument("--registers", action="store_true",
                     help="print every kernel's ptxas registers instead")
     args = ap.parse_args()
@@ -983,6 +1170,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if args.registers:
         print(json.dumps(register_report(), sort_keys=True))
+        return 0
+    if args.dat:
+        print(json.dumps(int8_class_dat(Path(args.dat))))
         return 0
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         ising2d_multispin as msb,
@@ -1028,6 +1218,9 @@ def main() -> int:
     elif args.measure_variants:
         modes, libs = measure_variant_modes(spins, dev), [
             "ising2d_measure_pallas"]
+    elif args.phase_variants:
+        modes, libs = phase_variant_modes(spins, dev, phase_key), [
+            "ising2d_pallas"]
     elif args.samples:
         modes, libs = samples_modes(spins, gen, dev, phase_key), [
             "ising2d_pallas", "ising2d_measure_pallas", "clock_pallas",
@@ -1055,7 +1248,8 @@ def main() -> int:
             times[mode].append(start.elapsed_time(end) / reps)
     if not (args.clock or args.helical or args.helical3d or args.masked
             or args.samples or args.ms_grids or args.measure_variants
-            or args.key_variants or args.clock_variants):
+            or args.key_variants or args.clock_variants
+            or args.phase_variants):
         # the grid of the tiles at 1000^2 x 16 (a tree before them: one
         # grid for every shape)
         times["int8_multisweep_blocks"] = (
@@ -1090,10 +1284,12 @@ def main() -> int:
         sass_report("clock_helical_multispin", ("multisweep_kernel",))
         sass_report("clock_measure_pallas", ("measure_kernel",))
     elif not (args.samples or args.ms_grids or args.measure_variants
-              or args.key_variants or args.clock_variants):
+              or args.key_variants or args.clock_variants
+              or args.phase_variants):
         sass_report("ising3d_multispin", ("phase_kernel",
                                           "multisweep_kernel"))
         sass_report("ising3d_pallas", ("tile_kernel",))
+        sass_report("ising2d_pallas", ("phase_kernel",))
         sass_report("ising2d_multispin", ("phase_kernel",
                                           "multisweep_kernel"))
         sass_report("ising2d_measure_pallas", ("measure_kernel",))
@@ -1112,6 +1308,11 @@ def ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds, phase_key,
     ra, rb = spins((16, 1000, 500)), spins((16, 1000, 500))
     sa, sb = spins((8, 4000, 2000)), spins((8, 4000, 2000))
     va, vb = spins((2, 500, 500, 250)), spins((2, 500, 500, 250))
+    # the mesh int8 2-D class's shard of 4000^2 x 8 on (1,2,2), its halo
+    # rows and columns
+    ja, jb = spins((8, 2000, 1000)), spins((8, 2000, 1000))
+    jup, jdn = spins((8, 1, 1000)), spins((8, 1, 1000))
+    jlf, jrt = spins((8, 2000, 1)), spins((8, 2000, 1))
     # the mesh int8 3-D class's shard of 500^3 x 2 on (2,2) and its halo
     # planes
     ia, ib = spins((1, 250, 500, 250)), spins((1, 250, 500, 250))
@@ -1135,6 +1336,12 @@ def ising_modes(spins, words, msb, i8ms, i2p, ms3, i3p, seeds, phase_key,
             ra, rb, seeds[:40], beta=b2),
         "int8_phase": lambda: i2p.metropolis_phase(sa, sb, phase_key,
                                                    color=0, beta=b2),
+        "graph int8_shard_measuring": lambda: i2p.sharded_phase(
+            jb, ja, jup, jdn, phase_key, (0, 2000, 1000), color=1, beta=b2,
+            halo_lf=jlf, halo_rt=jrt, measuring=True),
+        "graph int8_shard": lambda: i2p.sharded_phase(
+            ja, jb, jup, jdn, phase_key, (0, 2000, 1000), color=0, beta=b2,
+            halo_lf=jlf, halo_rt=jrt),
         "int8_3d_phase": lambda: i3p.metropolis_phase(va, vb, phase_key,
                                                       color=0, beta=b3),
         "graph int8_3d_shard_measuring": lambda: i3p.sharded_phase(

@@ -23,33 +23,14 @@
 // Tiles (csrc/byte_tiles.cuh RowTiles; ops/ising2d_multisweep.ms_tiles
 // computes the constants, the entry point takes them as passed), the
 // int8 clock multisweep's (csrc/clock_multisweep.cu).  A tile is `rows`
-// whole rows y0 .. of one replica (past MAX_COLUMNS columns one row's
-// chunk of cw columns).  Its four byte ranges are contiguous: its own
-// sites, the other colour's rows y0 .. (a chunk widened by a column each
-// side), and the other colour's rows y0 - 1 and y0 + rows, wrapped in y.
-// The block stages them in shared memory (cp.async from the aligned 16-B
-// vectors that cover them, any base address), then thread t takes rows
-// t >> lux, + 256 >> lux, ... of the tile and units (t mod 2^lux), +
-// 2^lux, ... of each.  Each neighbour window of a unit is one funnel shift
-// of two aligned shared-memory words, the same shift for every unit of a
-// row; the centre and side neighbours are the windows of one word pair one
-// byte apart (which is which follows the row's parity), the row's wrap
-// patched into the side window's end byte.  New bytes go to the tile's
-// own copy, and the block writes its range back in aligned vectors, bytes
-// at the ragged ends; every site lies in one tile, so a phase stores each
-// site once and no byte outside the tiles.  Blocks walk the tiles replica
-// major, gridDim.x apart, by carries: no division in the walk.
-//
-// The rule, four sites a 32-bit word (csrc/ising3d_pallas.cu's in 2-D).
-// With K the neighbours whose spin differs from the site's, k = s * nsum
-// = 4 - 2K: flip iff K >= 2, or K = 1 and word < t4, or K = 0 and word <
-// t8.  As t8 <= t4, that is K + L >= 2 with L the thresholds the word
-// lies below.  The bit 1 of a ±1 byte is its sign, so Σ_n ((x ^ n) &
-// 0x02020202) holds 2K a byte and ((2K + 2L + 12) & 16) is the flip.  The
-// fused sums of phase b: m = Σ new + Σ o from the sign bits, e = -Σ new *
-// nsum = Σ (2K' - 4), K' the neighbours differing from the new spin; per
-// thread, then per tile by ising8::block_add (int64 atomics, exact in any
-// order).
+// whole rows of one replica (past MAX_COLUMNS columns one row's chunk),
+// staged in shared memory by cp.async and updated four sites a 32-bit
+// word by byte-SIMD: csrc/ising_int8.cuh tile, the body the int8 phase
+// kernel (csrc/ising2d_pallas.cu) runs one tile a block, whose header
+// gives the staging, the windows and the rule.  Here blocks walk the
+// tiles replica major, gridDim.x apart, by carries: no division in the
+// walk; phase b adds each sweep's fused (m, e) per tile by
+// ising8::block_add (int64 atomics, exact in any order).
 //
 // Bound on the H100: operations.  A launch reads and writes the planes
 // once (4 B a site) but runs 2 S phases of 26.5 instructions a site and S
@@ -73,12 +54,7 @@ namespace {
 
 using ising8::THREADS;
 using tiles8::RowTiles;
-using tiles8::stage;
-using tiles8::win;
-using tiles8::write_back;
 static_assert(THREADS == tiles8::STAGE_THREADS, "a block stages its tiles");
-
-constexpr uint32_t SIGN = 0x02020202u;
 
 struct Multisweep {
   int8_t* a;             // (R, ny, half), updated in place
@@ -90,140 +66,6 @@ struct Multisweep {
   int step[3];           // the walk's steps (tiles8::row_tile_steps)
   RowTiles t;
 };
-
-// Byte k of the result: the thresholds word k lies below, 0 .. 2 (t8 <=
-// t4)
-__device__ __forceinline__ uint32_t below2(uint4 w, uint32_t t4,
-                                           uint32_t t8) {
-  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-  uint32_t lv = 0u;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (ws[k] < t4) lv += 1u << (8 * k);
-    if (ws[k] < t8) lv += 1u << (8 * k);
-  }
-  return lv;
-}
-
-// One tile (replica r, row tile yt, chunk cx) of a colour phase: x the
-// colour updated in place, o the other.  MEASURE (phase b) adds the fused
-// (m, e) of sweep s.  Every thread of the block calls it; it ends with a
-// barrier, after which the block may stage the next tile.
-template <bool MEASURE>
-__device__ __forceinline__ void tile(const Multisweep& ms, uint8_t* sm,
-                                     const uint2 (&rk)[10], int8_t* x,
-                                     const int8_t* o, int color, int r,
-                                     int yt, int cx, int s) {
-  const RowTiles& t = ms.t;
-  const int half = ms.half, ny = ms.ny;
-  const int ux = 1 << t.lux, tr = THREADS >> t.lux;
-  const int tx = threadIdx.x & (ux - 1), ty = threadIdx.x >> t.lux;
-  const int c0 = cx * t.cw;
-  const int ncw = min(t.cw, half - c0);
-  // the centre range's columns: a chunk's widened by one each side
-  const int clo = c0 > 0 ? c0 - 1 : 0;
-  const int chi = min(c0 + ncw + 1, half);
-  const int y0 = yt * t.rows;
-  const int nr = min(t.rows, ny - y0);
-  const int lx = (nr - 1) * half + ncw;
-  const int lc = (nr - 1) * half + (chi - clo);
-  const int yu = y0 == 0 ? ny - 1 : y0 - 1;
-  const int yd = y0 + nr == ny ? 0 : y0 + nr;
-  const size_t base = static_cast<size_t>(r) * ny * half;
-  int8_t* xs = x + base + static_cast<size_t>(y0) * half + c0;
-  const int8_t* ob = o + base;
-  const int shx = stage(sm + t.buf[0], xs, lx);
-  const int shc =
-      stage(sm + t.buf[1], ob + static_cast<size_t>(y0) * half + clo, lc);
-  const int shu =
-      stage(sm + t.buf[2], ob + static_cast<size_t>(yu) * half + c0, ncw);
-  const int shd =
-      stage(sm + t.buf[3], ob + static_cast<size_t>(yd) * half + c0, ncw);
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-  const uint32_t* sw = reinterpret_cast<const uint32_t*>(sm);
-  int m = 0, e = 0;
-  for (int ry = ty; ry < nr; ry += tr) {
-    const int y = y0 + ry;
-    // colour 0 on an odd row and colour 1 on an even row read column
-    // i + 1, the others column i - 1
-    const int d = (color == 0) == ((y & 1) == 1) ? 1 : -1;
-    // byte positions in shared memory of the row's first unit's windows:
-    // own, centre (its lower window), up, down
-    const int row = ry * half;
-    const int px = t.buf[0] + shx + row;
-    const int pc = t.buf[1] + shc + row + (c0 - clo) - (d < 0 ? 1 : 0);
-    const int pu = ry == 0 ? t.buf[2] + shu
-                           : t.buf[1] + shc + row - half + (c0 - clo);
-    const int pd = ry == nr - 1 ? t.buf[3] + shd
-                                : t.buf[1] + shc + row + half + (c0 - clo);
-    const uint32_t* wx = sw + (px >> 2);
-    const uint32_t* wc = sw + (pc >> 2);
-    const uint32_t* wu = sw + (pu >> 2);
-    const uint32_t* wd = sw + (pd >> 2);
-    const int sx = 8 * (px & 3), sc = 8 * (pc & 3), su = 8 * (pu & 3);
-    const int sd = 8 * (pd & 3);
-    const int8_t* orow = ob + static_cast<size_t>(y) * half;
-    for (int j = tx; 4 * j < ncw; j += ux) {
-      const int col = c0 + 4 * j;
-      const int nv = min(4, c0 + ncw - col);
-      const uint32_t xv = win(wx + j, sx);
-      uint32_t lower = __funnelshift_r(wc[j], wc[j + 1], sc);
-      uint32_t upper = __funnelshift_rc(wc[j], wc[j + 1], sc + 8);
-      // the row's wrap: column 0's left neighbour is half - 1, and
-      // half - 1's right neighbour is 0
-      if (d > 0) {
-        if (col + 3 >= half - 1)
-          upper = tiles8::put_byte(upper, half - 1 - col,
-                                   static_cast<uint8_t>(__ldcg(orow)));
-      } else if (col == 0) {
-        lower = tiles8::put_byte(
-            lower, 0, static_cast<uint8_t>(__ldcg(orow + half - 1)));
-      }
-      const uint32_t k2 = ((xv ^ lower) & SIGN) + ((xv ^ upper) & SIGN) +
-                          ((xv ^ win(wu + j, su)) & SIGN) +
-                          ((xv ^ win(wd + j, sd)) & SIGN);
-      const uint4 w = philox_rk(
-          make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(y),
-                     static_cast<uint32_t>(col >> 2), 0u),
-          rk);
-      const uint32_t f =
-          ((k2 + 2u * below2(w, ms.t4, ms.t8) + 0x0C0C0C0Cu) >> 4) &
-          0x01010101u;
-      const uint32_t nxv = xv ^ (f * 0xFEu);
-      uint8_t* dst = sm + px + 4 * j;
-      if (nv == 4 && (px & 3) == 0) {
-        *reinterpret_cast<uint32_t*>(dst) = nxv;
-      } else if (nv == 4 && (px & 1) == 0) {
-        reinterpret_cast<uint16_t*>(dst)[0] = static_cast<uint16_t>(nxv);
-        reinterpret_cast<uint16_t*>(dst)[1] =
-            static_cast<uint16_t>(nxv >> 16);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (k < nv) dst[k] = static_cast<uint8_t>(nxv >> (8 * k));
-      }
-      if (MEASURE) {
-        // m += new + o, e -= new * nsum = -(4 - 2K'), K' the neighbours
-        // differing from the new spin
-        const uint32_t vm = nv == 4 ? 0xFFFFFFFFu : (1u << (8 * nv)) - 1u;
-        const uint32_t centre = d > 0 ? lower : upper;
-        m += 2 * nv -
-             2 * (__popc(nxv & SIGN & vm) + __popc(centre & SIGN & vm));
-        const uint32_t kp2 = k2 ^ ((k2 ^ (0x08080808u - k2)) & (f * 0xFFu));
-        e += static_cast<int>(((kp2 & vm) * 0x01010101u) >> 24) - 4 * nv;
-      }
-    }
-  }
-  __syncthreads();
-  write_back(xs, sm + t.buf[0], shx, lx);
-  if (MEASURE)
-    ising8::block_add(
-        m, e, ms.obs + (static_cast<size_t>(r) * ms.sweeps + s) * 2);
-  else
-    __syncthreads();
-}
 
 __global__ void __launch_bounds__(THREADS) multisweep_kernel(Multisweep ms) {
   extern __shared__ __align__(16) uint8_t sm[];
@@ -250,10 +92,16 @@ __global__ void __launch_bounds__(THREADS) multisweep_kernel(Multisweep ms) {
             static_cast<uint32_t>(ms.seeds[(2 * s + phase) * 2 + 1]), rk);
       int r = r0, yt = yt0, cx = cx0;
       while (r < ms.nrep) {
+        // phase b adds sweep s's fused (m, e) of replica r
+        const auto dst = [&] {
+          return ms.obs + (static_cast<size_t>(r) * ms.sweeps + s) * 2;
+        };
         if (phase)
-          tile<true>(ms, sm, rk, x, o, 1, r, yt, cx, s);
+          ising8::tile<true, false, false>(ms, sm, rk, x, o, 1, r, yt, cx,
+                                           dst);
         else
-          tile<false>(ms, sm, rk, x, o, 0, r, yt, cx, s);
+          ising8::tile<false, false, false>(ms, sm, rk, x, o, 0, r, yt, cx,
+                                            dst);
         tiles8::next_row_tile(t, ms.step, r, yt, cx);
       }
       grid.sync();

@@ -18,8 +18,8 @@
 //                the shard's exact int64 (m, e) partials (phase b).
 //
 // The site rule, the unit of four sites and the word layout are those of
-// csrc/ising_int8.cuh (the 2-D kernels' update_unit, which this file no
-// longer calls): unit j of row (z, y) is sites 4j .. 4j + 3, its one
+// csrc/ising_int8.cuh (the 2-D kernels' tile, in 3-D): unit j of row
+// (z, y) is sites 4j .. 4j + 3, its one
 // Philox4x32-10 call at counter (replica, z * ny + y, j, 0), site 4j + k
 // taking output k.  With K the neighbours whose spin differs from the
 // site's, k = s * nsum = 6 - 2K: flip iff K >= 3, or K = 2 and word < t4,

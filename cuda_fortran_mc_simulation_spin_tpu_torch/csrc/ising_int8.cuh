@@ -1,10 +1,13 @@
-// The int8 checkerboard Ising update of the int8 2-D phase kernel
-// (csrc/ising2d_pallas.cu; its halo mode runs a mesh's shards).  The 2-D
-// multisweep (csrc/ising2d_multisweep.cu) and the 3-D phase
-// (csrc/ising3d_pallas.cu) apply the same rule to the same words four
-// sites a 32-bit word, and the measure kernel (csrc/
-// ising2d_measure_pallas.cu) sums four sites a word on the same tiles;
-// they take only block_add and the launch checks from here.
+// The int8 2-D checkerboard Ising phase of the three int8 2-D Ising
+// launches: the phase kernel and its halo mode (csrc/ising2d_pallas.cu
+// phase_kernel, one tile a block) and the cooperative multisweep
+// (csrc/ising2d_multisweep.cu multisweep_kernel, which walks every tile of
+// each phase) run tile() on the same staged row tiles (csrc/byte_tiles.cuh
+// RowTiles).  The 3-D phase (csrc/ising3d_pallas.cu) applies the same
+// rule four sites a word on its own tiles, and the measure kernel (csrc/
+// ising2d_measure_pallas.cu) sums four sites a word; they, and the masked
+// helical kernels (csrc/helical_pallas.cu), take only block_add and the
+// launch checks from here.
 //
 // Layout (core/lattice.py): ±1 int8 colour planes (R, nz, ny, half),
 // nz = 1 in 2-D; colour 0 holds the sites x = 2i + ((y + z) & 1) of row
@@ -19,13 +22,14 @@
 // (replica, y, j, 0) under the phase key; site 4j + k takes output k.
 //
 // Acceptance (JAX ops/ising2d_pallas._phase_kernel): with k = s * nsum
-// (dE / 2), flip iff k <= 0 or word < t_k, t_2 = t4, t_4 = t8 (= t12)
+// (dE / 2), flip iff k <= 0 or word < t_k, t_2 = t4, t_4 = t8
 // = round(exp(-2 beta k) * 2^32) (uint32 compare).
 #pragma once
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "byte_tiles.cuh"
 #include "philox.cuh"
 
 namespace ising8 {
@@ -36,134 +40,6 @@ struct Geometry {
   int nz, ny, half;  // nz = 1 in 2-D
   int units;         // (half + 3) / 4 units a row
 };
-
-__device__ __forceinline__ int load(const int8_t* p, size_t i) {
-  return static_cast<int>(__ldg(p + i));
-}
-
-__device__ __forceinline__ int wrap(int v, int n) {
-  return v < 0 ? v + n : (v >= n ? v - n : v);
-}
-
-// Offsets of the rows a unit of row y of replica r reads (2-D).
-struct Rows {
-  size_t row, up, down;
-  int parity;
-};
-
-__device__ __forceinline__ Rows rows_of(const Geometry& g, int r, int y) {
-  const size_t zo = static_cast<size_t>(r) * g.ny * g.half;
-  Rows w;
-  w.row = zo + static_cast<size_t>(y) * g.half;
-  w.up = zo + static_cast<size_t>(wrap(y - 1, g.ny)) * g.half;
-  w.down = zo + static_cast<size_t>(wrap(y + 1, g.ny)) * g.half;
-  w.parity = y & 1;
-  return w;
-}
-
-struct Phase {
-  int8_t* x;             // colour being updated, in place
-  const int8_t* o;       // the other colour
-  const uint32_t* bits;  // injected words (R, nz, ny, half), or null
-  uint2 key;             // Philox key of this (sample, t, phase)
-  uint32_t t4, t8, t12;  // t12 = t8: the 2-D kernels' k is 2 or 4
-  int color;
-};
-
-// A shard of a domain-decomposed 2-D lattice (parallel/domain.py): the
-// halos exchanged from its neighbours (parallel/halo.py) and its global
-// offsets.  The shard holds rows row0 .. row0 + ny - 1 and columns col0 ..
-// col0 + half - 1 of the colour planes.  A periodic lattice is the shard
-// with no halos and no offsets.
-struct Shard {
-  const int8_t* up;  // (R, 1, half): the row above row 0
-  const int8_t* dn;  // (R, 1, half): the row below the last
-  const int8_t* lf;  // (R, ny, 1): the column left of column 0, or null
-  const int8_t* rt;  // (periodic in x: the shard spans every column)
-  long long* obs;    // (R, 2) int64 (m, e) partials of a measuring phase
-  int rep0, row0, col0;
-};
-
-// Units of a row of the shard: the global units (column >> 2) its columns
-// touch, so that one Philox call still feeds the four global columns of a
-// unit and a shard draws what the whole lattice draws, at any col0.
-__host__ __device__ inline int shard_units(int col0, int half) {
-  return ((col0 + half - 1) >> 2) - (col0 >> 2) + 1;
-}
-
-// Updates the sites of global unit jl + (col0 >> 2) of local row y of
-// replica r.  HALO: the neighbours past the shard's first and last rows
-// and, when lf is set, past its columns come from the halos of s, and
-// parity and the Philox counter (rep0 + r, global row, global unit) from
-// global coordinates (JAX ising2d_pallas._halo_phase_kernel); otherwise
-// every neighbour wraps and s is not read.  With MEASURE it adds the
-// fused sums of a measuring phase b (JAX ising2d_multisweep.py:84-90):
-// m += new + o, e -= new * nsum (the other colour is final, so every bond
-// is counted once).
-template <bool MEASURE, bool HALO = false>
-__device__ __forceinline__ void update_unit(const Phase& p, const Shard& s,
-                                            const Geometry& g, int r, int y,
-                                            int jl, int& m, int& e) {
-  const int row0 = HALO ? s.row0 : 0;
-  const int col0 = HALO ? s.col0 : 0;
-  const Rows w = rows_of(g, r, y);
-  // the rows before and after: wrapped, or a halo
-  const int8_t* prev = p.o;
-  const int8_t* next = p.o;
-  size_t prev_at = w.up;
-  size_t next_at = w.down;
-  if (HALO) {
-    const size_t halo = static_cast<size_t>(r) * g.half;
-    if (y == 0) {
-      prev = s.up;
-      prev_at = halo;
-    }
-    if (y == g.ny - 1) {
-      next = s.dn;
-      next_at = halo;
-    }
-  }
-  const int d = (((row0 + w.parity) & 1) ^ p.color) ? 1 : -1;
-  const int jg = (col0 >> 2) + jl;
-  const uint32_t grow = static_cast<uint32_t>(row0 + y);
-  uint4 words = make_uint4(0u, 0u, 0u, 0u);
-  if (p.bits == nullptr)
-    words = philox4x32_10(
-        make_uint4(static_cast<uint32_t>((HALO ? s.rep0 : 0) + r), grow,
-                   static_cast<uint32_t>(jg), 0u),
-        p.key);
-  const uint32_t ws[4] = {words.x, words.y, words.z, words.w};
-  const size_t col_halo = static_cast<size_t>(r) * g.ny + y;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    // c rises with k, so the row's end breaks the loop: a continue there
-    // cost the first S-sweep kernel 8 registers and a sixth of its
-    // resident blocks (chip_time_ising.py)
-    const int c = 4 * jg + k - col0;
-    if (HALO && c < 0) continue;
-    if (c >= g.half) break;
-    const int sc = c + d;
-    int side;
-    if (HALO && sc < 0 && s.lf != nullptr)
-      side = load(s.lf, col_halo);
-    else if (HALO && sc >= g.half && s.rt != nullptr)
-      side = load(s.rt, col_halo);
-    else
-      side = load(p.o, w.row + wrap(sc, g.half));
-    int nsum = load(p.o, w.row + c) + side;
-    nsum += load(prev, prev_at + c) + load(next, next_at + c);
-    const int sv = static_cast<int>(p.x[w.row + c]);
-    const int kk = sv * nsum;
-    const uint32_t word = p.bits != nullptr ? __ldg(p.bits + w.row + c) : ws[k];
-    const uint32_t t = kk == 2 ? p.t4 : (kk == 4 ? p.t8 : p.t12);
-    const int out = (kk <= 0 || word < t) ? -sv : sv;
-    p.x[w.row + c] = static_cast<int8_t>(out);
-    if (MEASURE) {
-      m += out + load(p.o, w.row + c);
-      e -= out * nsum;
-    }
-  }
-}
 
 // Adds the block's (m, e) to dst[0], dst[1] with one 64-bit atomic each.
 // Every thread of the block calls it; it ends with a barrier, so the
@@ -216,6 +92,244 @@ __host__ inline Geometry geometry(int nz, int ny, int half) {
   g.half = half;
   g.units = (half + 3) / 4;
   return g;
+}
+
+// The tile body (tile below).  A tile is `rows` whole rows y0 .. of one
+// replica (past MAX_COLUMNS columns one row's chunk of cw columns).  Its
+// four byte ranges are contiguous: its own sites, the other colour's rows
+// y0 .. (a chunk widened by a column each side), and the other colour's
+// rows y0 - 1 and y0 + rows, wrapped in y, or in the halo mode the
+// exchanged halo rows at a shard's first and last rows.  The block stages
+// them in shared memory (cp.async from the aligned 16-B vectors that
+// cover them, any base address), then thread t takes rows t >> lux, +
+// 256 >> lux, ... of the tile and words (t mod 2^lux), + 2^lux, ... of
+// each.  Each neighbour window of a word is one funnel shift of two
+// aligned shared-memory words, the same shift for every word of a row;
+// the centre and side neighbours are the windows of one word pair one
+// byte apart (which is which follows the row's parity), the row's wrap
+// (or the column halo) patched into the side window's end byte.  A
+// shard at col0 % 4 != 0 starts its rows' words col0 % 4 columns early,
+// so that a word is still one global unit and one Philox call: the bytes
+// before the shard's first column (and past its last) are read and
+// masked, never stored or summed.  New bytes go to the tile's own copy,
+// and the block writes its range back in aligned vectors, bytes at the
+// ragged ends; or (DIRECT) each thread stores its word's new bytes to
+// the plane itself, a 32-bit store where the word is whole and aligned.
+// Every site lies in one tile, so a phase stores each site once and no
+// byte outside the tiles; the own range is staged before any store, and
+// no other tile reads it.
+//
+// The rule, four sites a 32-bit word (csrc/ising3d_pallas.cu's in 2-D).
+// With K the neighbours whose spin differs from the site's, k = s * nsum
+// = 4 - 2K: flip iff K >= 2, or K = 1 and word < t4, or K = 0 and word <
+// t8.  As t8 <= t4, that is K + L >= 2 with L the thresholds the word
+// lies below.  The bit 1 of a ±1 byte is its sign, so Σ_n ((x ^ n) &
+// 0x02020202) holds 2K a byte and ((2K + 2L + 12) & 16) is the flip
+// (no byte carries into the next: 2K + 2L + 12 <= 24).  The fused sums of
+// a measuring phase: m = Σ new + Σ o from the sign bits, e = -Σ new *
+// nsum = Σ (2K' - 4), K' the neighbours differing from the new spin; per
+// thread, then per tile by block_add (int64 atomics, exact in any order).
+
+constexpr uint32_t SIGN = 0x02020202u;
+
+// Byte k of the result: the thresholds word k lies below, 0 .. 2 (t8 <=
+// t4)
+__device__ __forceinline__ uint32_t below2(uint4 w, uint32_t t4,
+                                           uint32_t t8) {
+  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+  uint32_t lv = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (ws[k] < t4) lv += 1u << (8 * k);
+    if (ws[k] < t8) lv += 1u << (8 * k);
+  }
+  return lv;
+}
+
+// One tile (replica r, row tile yt, chunk cx) of a colour phase of (R,
+// p.ny, p.half) planes: x the colour updated in place, o the other, rk
+// the phase key's round keys.  p holds the launch's ny, half, t4 >= t8
+// and t (tiles8::RowTiles, the constants of ops/ising2d_multisweep.
+// ms_tiles); HALO also the shard's halo rows up, dn ((R, 1, half)), its
+// halo columns lf, rt ((R, ny, 1), or null: periodic in x) and global
+// offsets rep0, row0, col0; INJECT the injected (R, ny, half) uint32
+// words bits in place of Philox's.  MEASURE adds the tile's fused (m, e)
+// to dst()[0], dst()[1].  DIRECT stores each new word to x itself, in
+// place of the tile's copy and its write-back (the phase kernel's mode;
+// the multisweep keeps the write-back).  Every thread of the block calls
+// it; it ends with a barrier, after which the block may stage the next
+// tile.
+template <bool MEASURE, bool HALO, bool INJECT, bool DIRECT = false, class P,
+          class Dst>
+__device__ __forceinline__ void tile(const P& p, uint8_t* sm,
+                                     const uint2 (&rk)[10], int8_t* x,
+                                     const int8_t* o, int color, int r,
+                                     int yt, int cx, Dst dst) {
+  using tiles8::put_byte;
+  using tiles8::stage;
+  using tiles8::win;
+  const tiles8::RowTiles& t = p.t;
+  const int half = p.half, ny = p.ny;
+  const int ux = 1 << t.lux, tr = THREADS >> t.lux;
+  const int tx = threadIdx.x & (ux - 1), ty = threadIdx.x >> t.lux;
+  const int c0 = cx * t.cw;
+  const int ncw = min(t.cw, half - c0);
+  // the centre range's columns: a chunk's widened by one each side
+  const int clo = c0 > 0 ? c0 - 1 : 0;
+  const int chi = min(c0 + ncw + 1, half);
+  const int y0 = yt * t.rows;
+  const int nr = min(t.rows, ny - y0);
+  const int lx = (nr - 1) * half + ncw;
+  const int lc = (nr - 1) * half + (chi - clo);
+  // the shard's offsets (0 on a periodic lattice); lo: the columns a
+  // row's words start early
+  int rep0 = 0, row0 = 0, col0 = 0;
+  if constexpr (HALO) {
+    rep0 = p.rep0;
+    row0 = p.row0;
+    col0 = p.col0;
+  }
+  const int lo = col0 & 3;
+  const size_t base = static_cast<size_t>(r) * ny * half;
+  int8_t* xs = x + base + static_cast<size_t>(y0) * half + c0;
+  const int8_t* ob = o + base;
+  const int8_t* up =
+      ob + static_cast<size_t>(y0 == 0 ? ny - 1 : y0 - 1) * half;
+  const int8_t* dn =
+      ob + static_cast<size_t>(y0 + nr == ny ? 0 : y0 + nr) * half;
+  if constexpr (HALO) {
+    if (y0 == 0) up = p.up + static_cast<size_t>(r) * half;
+    if (y0 + nr == ny) dn = p.dn + static_cast<size_t>(r) * half;
+  }
+  const int shx = stage(sm + t.buf[0], xs, lx);
+  const int shc =
+      stage(sm + t.buf[1], ob + static_cast<size_t>(y0) * half + clo, lc);
+  const int shu = stage(sm + t.buf[2], up + c0, ncw);
+  const int shd = stage(sm + t.buf[3], dn + c0, ncw);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  const uint32_t* sw = reinterpret_cast<const uint32_t*>(sm);
+  int m = 0, e = 0;
+  for (int ry = ty; ry < nr; ry += tr) {
+    const int y = y0 + ry;
+    // colour 0 on an odd row and colour 1 on an even row read column
+    // i + 1, the others column i - 1
+    const int d = (color == 0) == (((row0 + y) & 1) == 1) ? 1 : -1;
+    // byte positions in shared memory of the row's first word's windows:
+    // own, centre (its lower window), up, down
+    const int row = ry * half;
+    const int px = t.buf[0] + shx + row - lo;
+    const int pc =
+        t.buf[1] + shc + row + (c0 - clo) - lo - (d < 0 ? 1 : 0);
+    const int pu = (ry == 0 ? t.buf[2] + shu
+                            : t.buf[1] + shc + row - half + (c0 - clo)) -
+                   lo;
+    const int pd = (ry == nr - 1
+                        ? t.buf[3] + shd
+                        : t.buf[1] + shc + row + half + (c0 - clo)) -
+                   lo;
+    const uint32_t* wx = sw + (px >> 2);
+    const uint32_t* wc = sw + (pc >> 2);
+    const uint32_t* wu = sw + (pu >> 2);
+    const uint32_t* wd = sw + (pd >> 2);
+    const int sx = 8 * (px & 3), sc = 8 * (pc & 3), su = 8 * (pu & 3);
+    const int sd = 8 * (pd & 3);
+    const int8_t* orow = ob + static_cast<size_t>(y) * half;
+    for (int j = tx; 4 * j - lo < ncw; j += ux) {
+      const int col = c0 + 4 * j - lo;  // the word's first column
+      // its bytes k0 .. nv - 1 are the shard's (k0 > 0 only at an early
+      // first word)
+      const int k0 = HALO && col < c0 ? c0 - col : 0;
+      const int nv = min(4, c0 + ncw - col);
+      const uint32_t xv = win(wx + j, sx);
+      uint32_t lower = __funnelshift_r(wc[j], wc[j + 1], sc);
+      uint32_t upper = __funnelshift_rc(wc[j], wc[j + 1], sc + 8);
+      // the row's ends: column 0's left neighbour is half - 1 (or the
+      // left halo), half - 1's right neighbour is 0 (or the right halo)
+      if (d > 0) {
+        if (col + 3 >= half - 1) {
+          const int8_t* v = orow;
+          if constexpr (HALO)
+            if (p.rt != nullptr)
+              v = p.rt + static_cast<size_t>(r) * ny + y;
+          upper = put_byte(upper, half - 1 - col,
+                           static_cast<uint8_t>(__ldcg(v)));
+        }
+      } else if (HALO ? col <= 0 : col == 0) {
+        const int8_t* v = orow + half - 1;
+        if constexpr (HALO)
+          if (p.lf != nullptr) v = p.lf + static_cast<size_t>(r) * ny + y;
+        lower = put_byte(lower, HALO ? -col : 0,
+                         static_cast<uint8_t>(__ldcg(v)));
+      }
+      const uint32_t k2 = ((xv ^ lower) & SIGN) + ((xv ^ upper) & SIGN) +
+                          ((xv ^ win(wu + j, su)) & SIGN) +
+                          ((xv ^ win(wd + j, sd)) & SIGN);
+      uint4 w;
+      if constexpr (INJECT) {
+        const uint32_t* bw = p.bits + base + static_cast<size_t>(y) * half;
+        uint32_t ws[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          ws[k] = k >= k0 && k < nv ? __ldg(bw + (col + k)) : 0u;
+        w = make_uint4(ws[0], ws[1], ws[2], ws[3]);
+      } else {
+        w = philox_rk(make_uint4(static_cast<uint32_t>(rep0 + r),
+                                 static_cast<uint32_t>(row0 + y),
+                                 static_cast<uint32_t>((col0 + col) >> 2),
+                                 0u),
+                      rk);
+      }
+      const uint32_t f =
+          ((k2 + 2u * below2(w, p.t4, p.t8) + 0x0C0C0C0Cu) >> 4) &
+          0x01010101u;
+      const uint32_t nxv = xv ^ (f * 0xFEu);
+      uint8_t* at = sm + px + 4 * j;
+      if constexpr (DIRECT) {
+        int8_t* g = x + base + static_cast<size_t>(y) * half;
+        if (k0 == 0 && nv == 4 &&
+            (reinterpret_cast<uintptr_t>(g + col) & 3) == 0) {
+          *reinterpret_cast<uint32_t*>(g + col) = nxv;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (k >= k0 && k < nv)
+              g[col + k] = static_cast<int8_t>(nxv >> (8 * k));
+        }
+      } else if (k0 == 0 && nv == 4 && (px & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(at) = nxv;
+      } else if (k0 == 0 && nv == 4 && (px & 1) == 0) {
+        reinterpret_cast<uint16_t*>(at)[0] = static_cast<uint16_t>(nxv);
+        reinterpret_cast<uint16_t*>(at)[1] =
+            static_cast<uint16_t>(nxv >> 16);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (k >= k0 && k < nv) at[k] = static_cast<uint8_t>(nxv >> (8 * k));
+      }
+      if (MEASURE) {
+        // m += new + o, e -= new * nsum = -(4 - 2K'), K' the neighbours
+        // differing from the new spin; over the word's bytes k0 .. nv - 1
+        const uint32_t vm = (nv == 4 ? 0xFFFFFFFFu : (1u << (8 * nv)) - 1u) &
+                            (0xFFFFFFFFu << (8 * k0));
+        const int n = nv - k0;
+        const uint32_t centre = d > 0 ? lower : upper;
+        m += 2 * n -
+             2 * (__popc(nxv & SIGN & vm) + __popc(centre & SIGN & vm));
+        const uint32_t kp2 = k2 ^ ((k2 ^ (0x08080808u - k2)) & (f * 0xFFu));
+        e += static_cast<int>(((kp2 & vm) * 0x01010101u) >> 24) - 4 * n;
+      }
+    }
+  }
+  if constexpr (!DIRECT) {
+    __syncthreads();
+    tiles8::write_back(xs, sm + t.buf[0], shx, lx);
+  }
+  if (MEASURE)
+    block_add(m, e, dst());
+  else
+    __syncthreads();
 }
 
 }  // namespace ising8

@@ -39,6 +39,16 @@ the unsharded lattice's at every x split.  JAX keeps int32 partials and
 refuses a local block past 2^30 sites; the port's are int64 and need no
 bound.
 
+The kernel takes tiles of whole rows of one replica, or chunks of a row
+past ``CHUNK_COLS`` columns, staged in shared memory from the 16-B aligned
+vectors that cover each of a tile's four byte ranges, four sites a thread
+a step, one tile a block (no grid barrier, no division in the walk), on
+the tile body of the int8 multisweep (``csrc/ising_int8.cuh``); its launch
+constants are the multisweep's (``ising2d_multisweep.ms_tiles``,
+:func:`phase_tiles`, checked before every launch), and
+``tests/test_torch_ising_int8_phase_tiles.py`` replays the launch on the
+CPU.
+
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts launches.
 """
@@ -46,6 +56,7 @@ launches the kernel or raises.  ``LAUNCHES`` counts launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -62,9 +73,14 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
 )
 
 MASK32 = 0xFFFFFFFF
-THREADS = 256            # threads a block; one thread a unit of 4 sites
-MAX_REPLICAS = 65535     # the grid's y extent
+THREADS = 256            # threads a block
+MAX_REPLICAS = 65535     # the grid's z extent
 LAUNCHES = {"phase": 0, "halo_phase": 0}
+# sites a whole-row tile of the phase kernel takes at most, the
+# multisweep's (3% faster than 8 KB at 4000^2 x 8 and 11% than 4 KB on an
+# H100, the same at the mesh shard and at 1000^2 x 1, where ms_tiles'
+# MIN_TILES cuts the tile to 2 rows; PERF.md §6)
+TILE_BYTES = 16384
 
 
 def reset_launches() -> None:
@@ -87,9 +103,30 @@ def units(half: int) -> int:
     return -(-half // 4)
 
 
+def phase_tiles(nrep: int, ny: int, half: int) -> dict:
+    """The phase kernel's launch constants on (nrep, ny, half) planes:
+    ``ising2d_multisweep.ms_tiles`` at TILE_BYTES a tile (the kernel takes
+    them as ``_phase_tiles_arg`` passes them, after ``check_ms_tiles``)."""
+    # imported here: ising2d_multisweep imports this module
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_multisweep,
+    )
+    return ising2d_multisweep.ms_tiles(nrep, ny, half, TILE_BYTES)
+
+
+@functools.lru_cache(maxsize=64)
+def _phase_tiles_arg(nrep: int, ny: int, half: int):
+    """:func:`phase_tiles` as the kernel's 10 ints, checked, built once a
+    shape: a one-replica history launches twice a sweep."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_multisweep,
+    )
+    return ising2d_multisweep._tiles_arg(nrep, ny, half, TILE_BYTES)
+
+
 def check_launch(nrep: int, rows: int, half: int) -> None:
     """Refuse a launch whose unit index within a replica could pass 2^31
-    or whose replicas exceed the grid's y extent (the kernels index
+    or whose replicas exceed the grid's z extent (the kernels index
     memory with 64-bit offsets, their units with 32-bit ones)."""
     if not 1 <= nrep <= MAX_REPLICAS:
         raise ValueError(f"{nrep} replicas: a launch takes 1 .. "
@@ -254,13 +291,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ising2d_pallas")
     if lib.ising2d_int8_phase.argtypes is not None:
         return lib
+    tiles = ctypes.POINTER(ctypes.c_int)
     lib.ising2d_int8_phase.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_uint] * 4
-        + [ctypes.c_void_p])
+        + [tiles, ctypes.c_void_p])
     lib.ising2d_int8_phase.restype = ctypes.c_int
     lib.ising2d_int8_halo_phase.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_uint] * 4
-        + [ctypes.c_void_p])
+        + [tiles, ctypes.c_void_p])
     lib.ising2d_int8_halo_phase.restype = ctypes.c_int
     lib.ising2d_int8_error_string.argtypes = [ctypes.c_int]
     lib.ising2d_int8_error_string.restype = ctypes.c_char_p
@@ -287,7 +325,8 @@ def metropolis_phase(x: torch.Tensor, other: torch.Tensor, seeds=None, *,
         code = lib.ising2d_int8_phase(
             x.data_ptr(), other.data_ptr(),
             None if bits is None else bits.data_ptr(), nrep, ny, half,
-            color, s0, s1, t4, t8, _stream(x))
+            color, s0, s1, t4, t8, _phase_tiles_arg(nrep, ny, half),
+            _stream(x))
     raise_on(code, lib.ising2d_int8_error_string, "ising2d phase_kernel")
     LAUNCHES["phase"] += 1
     return x
@@ -330,9 +369,10 @@ def sharded_phase(x: torch.Tensor, other: torch.Tensor, halo_up, halo_dn,
     check_halos(x, halo_up, halo_dn, halo_lf, halo_rt)
     nrep, L, half = x.shape
     if (halo_up.shape != (nrep, 1, half) or halo_dn.shape != halo_up.shape
+            or (halo_lf is None) != (halo_rt is None)
             or (halo_lf is not None
                 and (halo_lf.shape != (nrep, L, 1)
-                     or halo_rt is None or halo_rt.shape != (nrep, L, 1)))):
+                     or halo_rt.shape != (nrep, L, 1)))):
         raise ValueError("halos must be (R, 1, half) rows and (R, L, 1) "
                          "columns of the shard")
     rep0, row0, *rest = offsets(offs)
@@ -352,7 +392,8 @@ def sharded_phase(x: torch.Tensor, other: torch.Tensor, halo_up, halo_dn,
             None if halo_lf is None else halo_lf.data_ptr(),
             None if halo_rt is None else halo_rt.data_ptr(),
             None if obs is None else obs.data_ptr(), nrep, L, half, color,
-            rep0, row0, col0, s0, s1, t4, t8, _stream(x))
+            rep0, row0, col0, s0, s1, t4, t8,
+            _phase_tiles_arg(nrep, L, half), _stream(x))
     raise_on(code, lib.ising2d_int8_error_string,
              "ising2d phase_kernel<true, .>")
     LAUNCHES["halo_phase"] += 1

@@ -1145,7 +1145,8 @@ def _int8_words(dev, shape, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 130, 63), (2, 64, 128), (1, 2, 1),
-                                   (2, 14, 12, 5), (2, 8, 16, 128)])
+                                   (1, 4, 4102), (2, 14, 12, 5),
+                                   (2, 8, 16, 128)])
 def test_int8_phase_kernels_match_plain(cuda, shape):
     """The 2-D and 3-D int8 phase kernels against their plain versions on
     the same CUDA tensors, injected and Philox words, both colours, at
@@ -1228,6 +1229,84 @@ def test_int8_3d_tiles_off_grid(cuda, shape, off):
                                 color=color, beta=beta, measuring=True)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,col0", [((2, 6, 250), 1), ((3, 5, 63), 2),
+                                        ((1, 3, 4102), 5), ((2, 4, 1), 3)])
+@pytest.mark.parametrize("off", [0, 3, 11])
+def test_int8_2d_tiles_off_grid(cuda, shape, col0, off):
+    """The int8 2-D phase kernel on views off the 16-B grid, whole-row
+    tiles (half 250, 63, 1) and chunks (half 4102): both colours, Philox
+    and injected words, and its halo mode with column halos at col0 % 4
+    = 1 .. 3, plain and measuring, bitwise equal to the plain
+    versions."""
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_pallas as i2p,
+    )
+    beta = 1 / KBT
+    R, L, H = shape
+    a, b = _int8(cuda, shape, sum(shape) + off)
+    up, dn = _int8(cuda, (R, 1, H), off + 1)
+    lf, rt = _int8(cuda, (R, L, 1), off + 2)
+    bits = _int8_words(cuda, shape, off)
+    for color in (0, 1):
+        x, o = (a, b) if color == 0 else (b, a)
+        seeds = rng.seeds_from_key(rng.base_key(9), color)
+        for kw in (dict(bits=bits), dict(seeds=seeds)):
+            want = i2p.phase_plain(x, o, color=color, beta=beta, **kw)
+            got = i2p.metropolis_phase(_off_grid(x, off),
+                                       _off_grid(o, (off * 5) % 16),
+                                       color=color, beta=beta, **kw)
+            assert torch.equal(got, want)
+            for measuring in (False, True):
+                hkw = dict(color=color, beta=beta, halo_lf=lf, halo_rt=rt,
+                           measuring=measuring,
+                           bits=kw.get("bits"))
+                args = (up, dn, kw.get("seeds"), (1, 5, col0))
+                want = i2p.sharded_phase_plain(x, o, *args, **hkw)
+                got = i2p.sharded_phase(_off_grid(x, off),
+                                        _off_grid(o, (off * 3) % 16),
+                                        _off_grid(up, off), dn, *args[2:],
+                                        **hkw)
+                assert _same(got, want), (color, kw.keys(), measuring)
+
+
+@pytest.mark.cuda
+def test_int8_phase_entry_refuses_bad_tiles(cuda):
+    """The int8 2-D phase's C entries refuse tile constants that do not
+    cover the planes and thresholds with t8 > t4, launching nothing; the
+    plane is left as it was."""
+    import ctypes
+
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        ising2d_pallas as i2p,
+    )
+    shape = (2, 64, 128)
+    a, b = _int8(cuda, shape, 5)
+    x = a.clone()
+    t = i2p.phase_tiles(*shape)
+    t4, t8 = i2p.accept_thresholds_u32(1 / KBT)
+    lib = i2p._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def arg(d):
+        words = [d["rows"], d["lux"], d["cw"], d["nch"], d["nty"], *d["buf"],
+                 d["smem"]]
+        return (ctypes.c_int * len(words))(*words)
+
+    for tiles, th in ((dict(t, nty=t["nty"] - 1), (t4, t8)),
+                      (dict(t, smem=t["smem"] - 16), (t4, t8)),
+                      (t, (t8, t4 + 1))):
+        assert lib.ising2d_int8_phase(
+            x.data_ptr(), b.data_ptr(), None, *shape, 0, 1, 2, *th,
+            arg(tiles), stream) != 0
+        assert lib.ising2d_int8_halo_phase(
+            x.data_ptr(), b.data_ptr(), None, b[:, :1].data_ptr(),
+            b[:, -1:].data_ptr(), None, None, None, *shape, 0, 0, 0, 0, 1,
+            2, *th, arg(tiles), stream) != 0
+    torch.cuda.synchronize()
+    assert torch.equal(x, a)
 
 
 @pytest.mark.cuda
@@ -1869,7 +1948,7 @@ def _same(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("color", [0, 1])
-@pytest.mark.parametrize("col0", [None, 0, 3, 130])
+@pytest.mark.parametrize("col0", [None, 0, 3, 130, 1])
 def test_int8_halo_kernel_matches_plain(cuda, color, col0):
     """ising2d_pallas.sharded_phase on the card against its plain version:
     Philox and injected words, with and without column halos (col0 % 4 !=

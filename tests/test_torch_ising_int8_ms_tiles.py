@@ -18,6 +18,11 @@ acceptance; the stores into the image and the write-back in aligned
 vectors and ragged bytes; and phase b's fused (m, e), the tile's int64
 atomic adds.
 
+``replay_phase`` replays the tile body itself (``csrc/ising_int8.cuh``
+``tile``), which the int8 2-D phase kernel runs too:
+``tests/test_torch_ising_int8_phase_tiles.py`` takes it with that
+kernel's grid, halo rows and columns, column offsets and injected words.
+
 Every site must be stored exactly once a phase, by the tile holding it,
 and no byte outside the tiles' ranges (or the tensor) written; every
 neighbour a site reads must be the pre-phase value at the index the plain
@@ -86,11 +91,21 @@ def flip_bytes(k2, lv):
 
 def replay_phase(xt: Tensor, ot: Tensor, shape, rk, *, color: int, t4: int,
                  t8: int, measuring: bool, gen, blocks: int = 5,
-                 tiles=None):
-    """One colour phase of the launch on the tensors' bytes: xt updated in
-    place, with the constants ``tiles`` (else ms_tiles').  Returns the (R,
-    2) int64 (m, e) the tiles add (phase b) and the neighbours each site
-    read, (4, R, ny, half) (up, down, centre, side)."""
+                 tiles=None, order=None, halo=None, inject=None,
+                 direct=False):
+    """One colour phase of the tile body (csrc/ising_int8.cuh tile, which
+    the multisweep and the phase kernel run) on the tensors' bytes: xt
+    updated in place, with the constants ``tiles`` (else ms_tiles'), the
+    tiles (r, yt, cx) taken in ``order`` (else the multisweep grid's walk
+    of ``blocks`` blocks).  ``halo``: {"up", "dn": Tensor (R, 1, half),
+    "lf", "rt": arrays (R, ny, 1) or None, "offs": (rep0, row0, col0)},
+    the phase kernel's halo mode; ``inject``: (R, ny, half) uint32 words
+    in place of Philox's; ``direct``: each thread stores its word's new
+    bytes to the tensor (the phase kernel's DIRECT), in place of the
+    tile's copy and its write-back.  Returns the (R, 2) int64 (m, e) the
+    tiles add
+    (``measuring``) and the neighbours each site read, (4, R, ny, half)
+    (up, down, centre, side)."""
     nrep, ny, half = shape
     t = tiles or i8ms.ms_tiles(nrep, ny, half)
     i8ms.check_ms_tiles(t, ny, half)
@@ -99,6 +114,10 @@ def replay_phase(xt: Tensor, ot: Tensor, shape, rk, *, color: int, t4: int,
     buf, ux = t["buf"], 1 << lux
     tr = i8ms.THREADS >> lux
     assert rows % tr == 0 and t["smem"] <= 48 * 1024
+    rep0, row0, col0 = halo["offs"] if halo else (0, 0, 0)
+    lf, rt = (halo["lf"], halo["rt"]) if halo else (None, None)
+    # a shard's rows start their words col0 % 4 columns early
+    early = col0 & 3
     plane = ny * half
     pre = xt.mem.copy()
     o_flat = ot.mem[ot.off:ot.off + ot.n]
@@ -106,7 +125,10 @@ def replay_phase(xt: Tensor, ot: Tensor, shape, rk, *, color: int, t4: int,
     owner = np.full(xt.mem.size, -1, np.int64)
     read = np.full((4,) + tuple(shape), 99, np.int64)
     obs = np.zeros((nrep, 2), np.int64)
-    for _, r, yt, cx in walk(min(blocks, nrep * nty * nch), nrep, nty, nch):
+    if order is None:
+        order = [w[1:] for w in walk(min(blocks, nrep * nty * nch), nrep,
+                                     nty, nch)]
+    for r, yt, cx in order:
         c0 = cx * cw
         ncw = min(cw, half - c0)
         clo, chi = (c0 - 1 if c0 > 0 else 0), min(c0 + ncw + 1, half)
@@ -114,13 +136,14 @@ def replay_phase(xt: Tensor, ot: Tensor, shape, rk, *, color: int, t4: int,
         nr = min(rows, ny - y0)
         lx = (nr - 1) * half + ncw
         lc = (nr - 1) * half + chi - clo
-        yu, yd = (y0 - 1) % ny, (y0 + nr) % ny
         base = r * plane
+        up = ((halo["up"], r * half + c0) if halo and y0 == 0 else
+              (ot, base + (y0 - 1) % ny * half + c0))
+        dn = ((halo["dn"], r * half + c0) if halo and y0 + nr == ny else
+              (ot, base + (y0 + nr) % ny * half + c0))
         # (tensor, first byte, length) of the four ranges
         spans = [(xt, base + y0 * half + c0, lx),
-                 (ot, base + y0 * half + clo, lc),
-                 (ot, base + yu * half + c0, ncw),
-                 (ot, base + yd * half + c0, ncw)]
+                 (ot, base + y0 * half + clo, lc), (*up, ncw), (*dn, ncw)]
         sm = gen.integers(0, 256, t["smem"], dtype=np.uint8)
         sh = []
         ends = [*(b - 16 for b in buf[1:]), t["smem"]]
@@ -136,25 +159,27 @@ def replay_phase(xt: Tensor, ot: Tensor, shape, rk, *, color: int, t4: int,
         # the own range was staged at its pre-phase values
         a0 = xt.off + base + y0 * half + c0
         assert (xt.mem[a0:a0 + lx] == pre[a0:a0 + lx]).all()
-        # thread (ty, tx) takes units tx, tx + ux, ... of rows ty, ty +
-        # tr, ...: every unit of the tile once
-        ty, j = np.meshgrid(np.arange(nr), np.arange(-(-ncw // 4)),
+        # thread (ty, tx) takes words tx, tx + ux, ... of rows ty, ty +
+        # tr, ...: every word of the tile once
+        ty, j = np.meshgrid(np.arange(nr), np.arange((ncw + early + 3) // 4),
                             indexing="ij")
         ty, j = ty.ravel(), j.ravel()
         tid = ((ty % tr) << lux) | (j % ux)
         assert len(set(zip(tid, ty // tr, j // ux))) == len(tid)
         assert tid.max() < i8ms.THREADS
         y = y0 + ty
-        cg = c0 + 4 * j
+        cg = c0 + 4 * j - early      # the word's first column
+        k0 = np.where(cg < c0, c0 - cg, 0)
         nv = np.minimum(4, c0 + ncw - cg)
-        d = np.where((color == 0) == ((y & 1) == 1), 1, -1)
+        d = np.where((color == 0) == (((row0 + y) & 1) == 1), 1, -1)
         row = ty * half
-        px = buf[0] + shx + row
-        pc = buf[1] + shc + row + (c0 - clo) - (d < 0)
+        px = buf[0] + shx + row - early
+        pc = buf[1] + shc + row + (c0 - clo) - early - (d < 0)
         pu = np.where(ty == 0, buf[2] + shu,
-                      buf[1] + shc + row - half + (c0 - clo))
+                      buf[1] + shc + row - half + (c0 - clo)) - early
         pd = np.where(ty == nr - 1, buf[3] + shd,
-                      buf[1] + shc + row + half + (c0 - clo))
+                      buf[1] + shc + row + half + (c0 - clo)) - early
+        assert min(px.min(), pc.min(), pu.min(), pd.min()) >= 0
         sw = sm.view("<u4").astype(np.uint64)
 
         def words(p):
@@ -170,48 +195,73 @@ def replay_phase(xt: Tensor, ot: Tensor, shape, rk, *, color: int, t4: int,
         lower = _funnel(lo, hi, sc)
         upper = _funnel(lo, hi, sc + 8, clamp=True)
         orow = base + y * half
-        fix_r = (d > 0) & (cg + 3 >= half - 1)
-        fix_l = (d < 0) & (cg == 0)
-        for i in np.flatnonzero(fix_r):
+
+        # the row's ends: the column halos, or the wrap from memory
+        def end(halo_col, i, k):
+            if halo_col is not None:
+                return int(halo_col[r, y[i], 0])
+            return int(o_flat[orow[i] + k])
+
+        for i in np.flatnonzero((d > 0) & (cg + 3 >= half - 1)):
             kb = half - 1 - cg[i]
             assert 0 <= kb < 4
-            w = int(upper[i]) & ~(0xFF << (8 * kb))
-            upper[i] = w | (int(o_flat[orow[i]]) << (8 * kb))
-        for i in np.flatnonzero(fix_l):
-            lower[i] = (int(lower[i]) & ~0xFF) | int(o_flat[orow[i]
-                                                            + half - 1])
+            upper[i] = (int(upper[i]) & ~(0xFF << (8 * kb))) | (
+                (end(rt, i, 0) & 0xFF) << (8 * kb))
+        for i in np.flatnonzero((d < 0) & (cg <= 0)):
+            kb = -cg[i]
+            lower[i] = (int(lower[i]) & ~(0xFF << (8 * kb))) | (
+                (end(lf, i, half - 1) & 0xFF) << (8 * kb))
         centre = np.where(d > 0, lower, upper)
         side = np.where(d > 0, upper, lower)
         for k in range(4):
-            ok = k < nv
+            ok = (k >= k0) & (k < nv)
             for n_, w in enumerate((uv, dv, centre, side)):
                 read[n_, r, y[ok], cg[ok] + k] = _as_i8(_byte(w[ok], k))
         k2 = np.zeros_like(xv)
         for w in (lower, upper, uv, dv):
             k2 += (xv ^ w) & np.uint64(SIGN)
-        ctr = np.stack([np.full_like(y, r), y, cg >> 2, np.zeros_like(y)],
-                       axis=-1).astype(np.uint64)
-        wv = philox_rk(ctr, rk)
+        if inject is None:
+            # a word is one global unit: one Philox call
+            assert ((col0 + cg) % 4 == 0).all()
+            ctr = np.stack([np.full_like(y, rep0 + r), row0 + y,
+                            (col0 + cg) >> 2, np.zeros_like(y)],
+                           axis=-1).astype(np.uint64)
+            wv = philox_rk(ctr, rk)
+        else:
+            wv = np.zeros((len(j), 4), np.uint64)
+            for k in range(4):
+                ok = (k >= k0) & (k < nv)
+                wv[ok, k] = inject[r, y[ok], cg[ok] + k]
         lv = np.zeros_like(xv)
         for k in range(4):
             lv |= ((wv[:, k] < t4).astype(np.uint64) + (wv[:, k] < t8)) \
                 << np.uint64(8 * k)
         f = flip_bytes(k2, lv)
         nxv = xv ^ (f * np.uint64(0xFE))
+        tile_id = (r * nty + yt) * nch + cx
         for k in range(4):
-            ok = k < nv
-            sm[px[ok] + 4 * j[ok] + k] = _byte(nxv[ok], k)
+            ok = (k >= k0) & (k < nv)
+            if direct:
+                at = xt.off + base + y[ok] * half + cg[ok] + k
+                np.add.at(writes, at, 1)
+                owner[at] = tile_id
+                xt.mem[at] = _byte(nxv[ok], k)
+            else:
+                sm[px[ok] + 4 * j[ok] + k] = _byte(nxv[ok], k)
         if measuring:
-            vm = np.where(nv == 4, M32, (1 << (8 * nv)) - 1).astype(
-                np.uint64)
-            obs[r, 0] += int((2 * nv - 2 * (
+            vm = (np.where(nv == 4, M32, (1 << (8 * nv)) - 1)
+                  & (M32 << (8 * k0))).astype(np.uint64)
+            n = nv - k0
+            obs[r, 0] += int((2 * n - 2 * (
                 _popc(nxv & np.uint64(SIGN) & vm)
                 + _popc(centre & np.uint64(SIGN) & vm))).sum())
             kp2 = k2 ^ ((k2 ^ (np.uint64(0x08080808) - k2))
                         & (f * np.uint64(0xFF)))
             bsum = (((kp2 & vm) * np.uint64(0x01010101)) & np.uint64(M32)) \
                 >> np.uint64(24)
-            obs[r, 1] += int((bsum.astype(np.int64) - 4 * nv).sum())
+            obs[r, 1] += int((bsum.astype(np.int64) - 4 * n).sum())
+        if direct:
+            continue
         # the write-back: whole vectors in the range, bytes at its ragged
         # ends
         a = xt.off + base + y0 * half + c0 - shx
@@ -220,7 +270,7 @@ def replay_phase(xt: Tensor, ot: Tensor, shape, rk, *, color: int, t4: int,
             for b in range(16):
                 if 0 <= lo_b + b < lx:
                     writes[a + 16 * v + b] += 1
-                    owner[a + 16 * v + b] = (r * nty + yt) * nch + cx
+                    owner[a + 16 * v + b] = tile_id
                     xt.mem[a + 16 * v + b] = sm[buf[0] + 16 * v + b]
     # every site written once a phase, by the tile holding it
     sites = np.zeros(xt.mem.size, bool)

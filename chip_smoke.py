@@ -78,7 +78,7 @@ Phases (each prints a progress line on stderr):
      colours), measure_kernel with and without a snapshot and
      phase_with_bits (the Metropolis kernel's injected mode); 64
      multisweep sweeps at 1500x1500 x 1 in both modes (the shared-memory
-     mode the fit rule takes, the grid-barrier mode forced) against 64
+     mode the fit rule takes, the device-memory mode forced) against 64
      streamed snapshot-measuring sweeps (state and sums bitwise) and
      against its plain version;
    - helical XY, at 10001x10000 x 1 (the classes' launch) and 65x64 x 4
@@ -199,7 +199,7 @@ Phases (each prints a progress line on stderr):
    from-disorder 1500x1500 x 1 replica, 64 samples, 1000 MCS (the
    2222-sample curve; the multisweep's shared-memory mode); from-disorder
    1500x1500 x 2, 4 samples, 200 MCS (the same curve; past the fit, the
-   grid-barrier mode); fix1mcs 1500x1500 x 8, 32 samples, 200 MCS (the
+   device-memory mode); fix1mcs 1500x1500 x 8, 32 samples, 200 MCS (the
    2000-sample curve); finite-magne 1000x1000 x 20, 40 samples, 100 MCS,
    m0 = 0.02 (the 500-sample curve); finite-magne samples, 20 histories
    of 100 MCS at 1000x1000, the row format and the per-t means of m_x, e
@@ -301,9 +301,10 @@ Phases (each prints a progress line on stderr):
    relative): the snapshot mode at 1500x1500 x 8 (fix1mcs) and 1000x1000
    x 20 (finite-magne), measure_kernel at 1500x1500 x 8, the multisweep's
    shared-memory mode at 1500x1500 x 1 with S = 64 and 40 (from-disorder)
-   and at 1000x1000 x 1 with S = 64 and 36 (samples), its grid-barrier
-   mode at 1500x1500 x 2 with S = 8 (past the fit: the from-disorder x2
-   class), each row with its registers; and the disorder runner's two
+   and at 1000x1000 x 1 with S = 64 and 36 (samples), its device-memory
+   mode at 1500x1500 x 2 and x 3 with S = 64 and 8 (past the fit: the
+   from-disorder x2 class's launches and the route bound's batch), each
+   row with its registers; and the disorder runner's two
    routes at XY_ROUTE_SHAPES, where the route bound is read; the four
    helical XY phase kernels at 10001x10000 x 1, plain and measuring, in
    three readings (the engines' A/B, angle over component), each held
@@ -491,7 +492,8 @@ OPS_XYA_METROPOLIS = OPS_PER_PHILOX + 4 + 3 * 22 + 6 + 6 + 10 + 4
 OPS_XYA_OVER_RELAX = 22 + 6 + 30 + 4
 XYA_BYTES_PER_SITE = 12
 # the route readings: ms a sweep of both routes, fused sums included
-XY_ROUTE_SHAPES = ((1500, 1), (1500, 2), (1500, 3), (1500, 4), (1500, 16),
+XY_ROUTE_SHAPES = ((1500, 1), (1500, 2), (1500, 3), (1500, 4), (1500, 5),
+                   (1500, 6), (1500, 16),
                    (1000, 1), (1000, 4), (1000, 20))
 
 T0 = time.perf_counter()
@@ -1824,18 +1826,18 @@ def check_xy_disorder(xyp, xym, xyr, rng, dev) -> tuple[dict, float]:
     mode (injected and Philox uniforms, both colours), measure_kernel with
     and without a snapshot, phase_with_bits (metropolis_kernel's injected
     mode, both colours); then, at 1500x1500 x 1, 64 multisweep sweeps in
-    each mode (smem_multisweep_kernel, the fit rule's; multisweep_kernel,
-    forced) against 64 streamed snapshot-measuring sweeps (state and sums
-    bitwise) and against its plain version.  State bitwise, sums within
-    1e-9 relative.  Returns ({kernel: state error}, sums' relative
-    error): "phase_bits" for phase_with_bits, "smem" and "grid" for the
-    multisweep's two modes."""
+    each mode (smem_multisweep_kernel, the fit rule's;
+    gmem_multisweep_kernel, forced) against 64 streamed snapshot-measuring
+    sweeps (state and sums bitwise) and against its plain version.  State
+    bitwise, sums within 1e-9 relative.  Returns ({kernel: state error},
+    sums' relative error): "phase_bits" for phase_with_bits, "smem" and
+    "gmem" for the multisweep's two modes."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
     from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import multispin_rng
 
     errs = {"snapshot": 0.0, "measure": 0.0, "phase_bits": 0.0, "smem": 0.0,
-            "grid": 0.0}
+            "gmem": 0.0}
     rel = 0.0
     for nrep, ny, nx in XY_DISORDER_SHAPES:
         st, snap = xy_disorder_state(dev, nrep, ny, nx, 5 * ny + nrep)
@@ -1895,11 +1897,9 @@ def check_xy_disorder(xyp, xym, xyr, rng, dev) -> tuple[dict, float]:
         s_mode = float((xyp.per_site(kobs, model.nsites) - sobs).abs().max())
         s_str = max(s_str, s_mode)
         rel = max(rel, sums_rel_err(kobs, pobs))
-        mode = "grid" if grid or xyr.device_layout(ms) is None else "smem"
+        mode = "gmem" if grid or xyr.device_layout(ms) is None else "smem"
         errs[mode] = max(errs[mode], e_str, e_plain)
-        name = ("multisweep_kernel (forced)" if grid else
-                "smem_multisweep_kernel" if mode == "smem" else
-                "multisweep_kernel")
+        name = f"{mode}_multisweep_kernel" + (" (forced)" if grid else "")
         log(f"  xy {name} 64 sweeps {ny}x{nx} x {nrep}: state vs 64 "
             f"streamed sweep_measure {e_str:.3g}, sums vs streamed "
             f"{s_mode:.3g}; state vs plain {e_plain:.3g}, sums' relative "
@@ -2081,12 +2081,12 @@ def time_multisweep(xyr, dev, n: int, seeds, beta: float, seed: int,
     at n^2 x nrep, in the fit rule's mode (state and snapshot fresh,
     updated launch after launch), and of its plain version, beside the
     bound; then one launch of each from the same state.  Returns (times
-    and the mode, "smem" or "grid"; state error, sums' relative error)."""
+    and the mode, "smem" or "gmem"; state error, sums' relative error)."""
     sweeps = int(seeds.shape[0])
     st, snap = xy_disorder_state(dev, nrep, n, n, seed)
     pairs = nrep * n * n // 2
-    mode = "smem" if xyr.device_layout(st) else "grid"
-    name = "smem_multisweep_kernel" if mode == "smem" else "multisweep_kernel"
+    mode = "smem" if xyr.device_layout(st) else "gmem"
+    name = f"{mode}_multisweep_kernel"
 
     def fresh():
         return type(st)(*(p.clone() for p in st))
@@ -5840,7 +5840,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"  cooperative grids: 2-D {msb.multisweep_grid_blocks()}, 3-D "
-        f"{ms3.multisweep_grid_blocks()}, XY {xyr.grid_blocks()}, int8 2-D "
+        f"{ms3.multisweep_grid_blocks()}, XY (device-memory ring slots) "
+        f"{xyr.gmem_limits(dev)[0]}, int8 2-D "
         f"{i8ms.grid_blocks(16, 1000, 500)}, int8 clock "
         f"{c8ms.grid_blocks(16, 1000, 500)} (both 1000^2 x 16), masked "
         f"helical Ising {hp.grid_blocks(0, False)} (odd N "
@@ -6552,17 +6553,19 @@ def main() -> int:
         OPS_XY_MEASURE_PAIR * pairs, reps=50, plain_reps=3)
     del st, snap
     # the two modes of the multisweep: smem_multisweep_kernel at every
-    # (shape, S) the resident classes launch, multisweep_kernel past the
-    # shared-memory fit (1500^2 x 2, the from-disorder x2 class's batch) at
-    # S = 8 (its plain version 8 sweeps)
-    ms_t, ms_err, ms_rel = {}, {"smem": 0.0, "grid": 0.0}, 0.0
+    # (shape, S) the resident classes launch, gmem_multisweep_kernel past
+    # the shared-memory fit at 1500^2 x 2 (the from-disorder x2 class's
+    # batch: 6 launches of 64 and 2 of 8) and x 3 (the route bound's
+    # batch), S = 64 and 8
+    ms_t, ms_err, ms_rel = {}, {"smem": 0.0, "gmem": 0.0}, 0.0
     for n, nrep, sw in ((1500, 1, 64), (1500, 1, 40), (1000, 1, 64),
-                        (1000, 1, 36), (1500, 2, 8)):
+                        (1000, 1, 36), (1500, 2, 64), (1500, 2, 8),
+                        (1500, 3, 64), (1500, 3, 8)):
         ms_t[n, nrep, sw], err, rel = time_multisweep(
             xyr, dev, n, seeds[:sw], beta_x, 71 + sw, nrep)
         mode = ms_t[n, nrep, sw].pop("mode")
         ms_err[mode], ms_rel = max(ms_err[mode], err), max(ms_rel, rel)
-    t_ms, t_grid = ms_t[1500, 1, 64], ms_t[1500, 2, 8]
+    t_ms, t_gmem = ms_t[1500, 1, 64], ms_t[1500, 2, 64]
     if max(snap_err, *ms_err.values()) != 0.0 or max(
             snap_rel, rel_meas, ms_rel) > 1e-9:
         fail(f"an XY disorder kernel differs from its plain version at its "
@@ -6580,6 +6583,13 @@ def main() -> int:
     fd_kern = fd_calls * (15 * t_ms["ms"] + ms_t[1500, 1, 40]["ms"])
     log(f"  xy from-disorder 1500^2 x 1: kernel {fd_kern / 1e3:.3f} s of a "
         f"{fd_wall:.3f} s wall; kernel share {fd_kern / (fd_wall * 1e3):.3f}")
+    # the x2 class: each call (two replicas) runs 200 sweeps as 3 launches
+    # of 64 and one of 8 in the device-memory mode
+    x2_launch, x2_wall = disorder["from-disorder x2"][:2]
+    x2_calls = x2_launch["xy_resident"]["multisweep"] // 4
+    x2_kern = x2_calls * (3 * t_gmem["ms"] + ms_t[1500, 2, 8]["ms"])
+    log(f"  xy from-disorder 1500^2 x 2: kernel {x2_kern / 1e3:.4f} s of a "
+        f"{x2_wall:.3f} s wall; kernel share {x2_kern / (x2_wall * 1e3):.3f}")
 
     # the helical XY phases at the classes' launch, both engines, A/B
     xyh_t, xyh_err = time_xy_helical(xhd, xha, dev, seeds)
@@ -6749,9 +6759,9 @@ def main() -> int:
         ("xy2d_resident.smem_multisweep_kernel", "xy2d_resident.cu",
          "xy2d_resident.py:257", launched("xy_resident", "multisweep_smem"),
          max(err_xyd["smem"], ms_err["smem"]), t_ms),
-        ("xy2d_resident.multisweep_kernel", "xy2d_resident.cu",
+        ("xy2d_resident.gmem_multisweep_kernel", "xy2d_resident.cu",
          "xy2d_resident.py:257", launched("xy_resident", "multisweep"),
-         max(err_xyd["grid"], ms_err["grid"]), t_grid),
+         max(err_xyd["gmem"], ms_err["gmem"]), t_gmem),
         ("xy2d_helical_dense.phase_kernel", "xy2d_helical_dense.cu",
          "xy2d_helical_dense.py:454", launched("xy_helical", "phase"),
          max(err_xyh["phase"], xyh_err), xyh_t["component phase"][0]),

@@ -20,14 +20,21 @@ over-relaxation class's 4000x4000 x 8, with the SASS of
 angle_metro_kernel, its snapshot mode's kernel and angle_or_kernel; with
 ``--resident``, the resident disorder multisweep's two modes at every
 launch the disorder classes make (1500x1500 x 1, S = 64 and 40;
-1000x1000 x 1, S = 64 and 36) and past the shared-memory fit (1500x1500
-x 2, S = 64), each also in a measurement build of
-csrc/xy2d_resident.cu with the site updates compiled out
-(-DXY_RESIDENT_NO_SITES: the grid barriers or ring waits, the loads and
-stores and the sums left), with the SASS of both kernels; with
-``--int16``, the int16 multisweep (csrc/xy2d_multisweep.cu) at the int16
-class's launches, 1536x1536 x 1 with S = 64 and 40, and S = 16 with one
-over-relaxation sweep, in the mode its wrapper routes them to, its
+1000x1000 x 1, S = 64 and 36; the device-memory mode forced there too)
+and past the shared-memory fit (1500x1500 x 2 and x 3, S = 64 and 8),
+each also in a measurement build of csrc/xy2d_resident.cu with the site
+updates compiled out (-DXY_RESIDENT_NO_SITES: the ring waits, the loads
+and stores and the sums left), and the device-memory mode's variant
+builds (GMEM_VARIANTS: two blocks of 512 threads an SM, no chunk held
+in shared memory, the snapshot through the read-only cache, a site's own
+device-memory read through L2) past the fit at S = 64, each held
+bitwise against the library, with the SASS of both kernels; with
+``--routes``, the XY disorder runner's two routes
+(chip_smoke.compare_xy_routes) at chip_smoke.XY_ROUTE_SHAPES, --rounds
+times; with ``--int16``, the int16 multisweep (csrc/xy2d_multisweep.cu)
+at the int16 class's launches, 1536x1536 x 1 with S = 64 and 40, and
+S = 16 with one over-relaxation sweep, in the mode its wrapper routes
+them to, its
 grid-barrier mode forced at S = 64 (where the wrapper can force it) and
 past the shared-memory fit at 1536x1536 x 2, with the SASS of its
 kernels (a tenth of --reps a mode); with ``--masked``, the masked
@@ -44,8 +51,8 @@ builds held to 4 and 5 blocks an SM (``__launch_bounds__``, built into
 .build/variants/), each held bitwise against the library.
 
     python3 chip_time_xy.py [--reps 200] [--rounds 3] [--helical]
-                            [--periodic-angle] [--resident] [--int16]
-                            [--masked] [--or-variants]
+                            [--periodic-angle] [--resident] [--routes]
+                            [--int16] [--masked] [--or-variants]
 
 Run it from the root of a checkout; it needs one NVIDIA GPU and builds
 csrc/xy2d_pallas.cu (csrc/xy2d_helical_dense*.cu,
@@ -136,20 +143,61 @@ def resident_builds():
     return libs
 
 
+# the --resident variants of gmem_multisweep_kernel, built from its
+# source with one text replaced (chip_time_ising.variant_lib): tag ->
+# (old, new)
+_SNAP = ("__ldcs(a.sbx + base + w), __ldcs(a.sby + base + w),\n"
+         "                          __ldcs(a.sax + base + w), "
+         "__ldcs(a.say + base + w)")
+GMEM_VARIANTS = {
+    # two blocks of 512 threads an SM, rings twice as long
+    "g2": ("constexpr int GMEM_GROUPS = GROUPS;",
+           "constexpr int GMEM_GROUPS = 2;"),
+    # no chunk held in shared memory: every site in device memory
+    "nohold": ("min(ring.hold, max(room, 0))", "min(0, max(room, 0))"),
+    # the snapshot read through the read-only cache (not evict-first)
+    "ldg": (_SNAP, _SNAP.replace("__ldcs", "__ldg")),
+    # a site's own device-memory read through L2 too
+    "owncg": ("mine ? sh[w - sa] : make_float2(sx[w], sy[w]);",
+              "mine ? sh[w - sa] : make_float2(__ldcg(sx + w), "
+              "__ldcg(sy + w));"),
+}
+# (n, replicas, S) of the disorder classes' launches and past the fit
+RESIDENT_RUNS = ((1500, 1, 64), (1500, 1, 40), (1000, 1, 64), (1000, 1, 36),
+                 (1500, 2, 64), (1500, 2, 8), (1500, 3, 64), (1500, 3, 8))
+
+
+def gmem_variant_libs(base):
+    """GMEM_VARIANTS built into .build/variants/ and bound as the
+    library."""
+    from chip_time_ising import variant_lib
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        xy2d_resident as xyr,
+    )
+    return {tag: xyr.bind(variant_lib("xy2d_resident", old, new, tag, base,
+                                      ()))
+            for tag, (old, new) in GMEM_VARIANTS.items()}
+
+
 def resident_modes(dev, gen, key, beta):
-    """Both modes of the resident multisweep at the disorder classes'
-    launches and past the fit (the shared-memory mode where its layout
-    fits, the grid-barrier mode forced), in each build of
-    :func:`resident_builds`; a random state and snapshot a shape."""
+    """Both modes of the resident multisweep at RESIDENT_RUNS: the fit
+    rule's mode, and where the shared-memory mode fits also the
+    device-memory (grid-barrier, in a tree before it) mode forced, in each
+    build of :func:`resident_builds`; where the checkout has the
+    device-memory ring mode, also its GMEM_VARIANTS at 1500x1500 x 2 and
+    x 3, S = 64, each launch's state and sums held bitwise against the
+    library's.  A random state and snapshot a shape."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         multispin_rng,
         xy2d_resident as xyr,
     )
     libs = resident_builds()
+    if hasattr(xyr, "gmem_layout"):
+        libs.update(gmem_variant_libs(libs[""]))
     seeds = multispin_rng.sweep_phase_keys(key, 64).to(dev)
     states = {}
-    for n, nrep in ((1500, 1), (1000, 1), (1500, 2)):
+    for n, nrep in {(n, nrep) for n, nrep, _ in RESIDENT_RUNS}:
         th = torch.rand((4, nrep, n, n // 2), generator=gen,
                         device=dev) * 6.2832
         states[n, nrep] = tuple(XYState(torch.cos(th[i]), torch.sin(th[i]),
@@ -162,20 +210,29 @@ def resident_modes(dev, gen, key, beta):
         return xyr.multisweep_planes(st, snap, seeds[:sweeps], beta=beta,
                                      grid=grid)
 
+    def check(lib, tag, st, snap):
+        a = XYState(*(p.clone() for p in st))
+        b = XYState(*(p.clone() for p in st))
+        want = run(libs[""], a, snap, 8, False).clone()
+        got = run(lib, b, snap, 8, False)
+        if not (all(torch.equal(p, q) for p, q in zip(a, b))
+                and torch.equal(got, want)):
+            raise RuntimeError(f"variant {tag} differs from the library")
+
     modes = {}
     for tag, lib in libs.items():
         name = f" [{tag}]" if tag else ""
-        for (n, nrep), sweeps in (((1500, 1), 64), ((1500, 1), 40),
-                                  ((1000, 1), 64), ((1000, 1), 36),
-                                  ((1500, 2), 64)):
+        for n, nrep, sweeps in RESIDENT_RUNS:
             st, snap = states[n, nrep]
+            xyr._lib = lambda lib=lib: lib
+            fits = xyr.device_layout(st) is not None
+            if tag in GMEM_VARIANTS:
+                if fits or sweeps != 64:
+                    continue
+                check(lib, tag, st, snap)
             label = f"{n}^2 x {nrep} S={sweeps}{name}"
-            for grid in (False, True):
-                if not grid:
-                    xyr._lib = lambda: lib
-                    if xyr.device_layout(st) is None:
-                        continue
-                modes[f"{'grid' if grid else 'smem'} {label}"] = (
+            for grid in (False, True) if fits else (False,):
+                modes[f"{'forced ' if grid else ''}{label}"] = (
                     lambda lib=lib, st=st, snap=snap, sweeps=sweeps,
                     grid=grid: run(lib, st, snap, sweeps, grid))
     return modes
@@ -456,6 +513,9 @@ def main() -> int:
     ap.add_argument("--resident", action="store_true",
                     help="time the resident multisweep's two modes and "
                     "their measurement builds instead")
+    ap.add_argument("--routes", action="store_true",
+                    help="read the XY disorder routes at chip_smoke's "
+                    "XY_ROUTE_SHAPES, --rounds times, instead")
     ap.add_argument("--int16", action="store_true",
                     help="time the int16 multisweep's modes instead")
     ap.add_argument("--masked", action="store_true",
@@ -491,6 +551,8 @@ def main() -> int:
         return report(int16_modes(dev, gen, key, beta), dict(
             vars(args), reps=max(1, args.reps // 10)), ["xy2d_multisweep"],
             sass=("multisweep_kernel",))
+    if args.routes:
+        return route_readings(dev, key, args.rounds)
     if args.resident:
         return report(resident_modes(dev, gen, key, beta), args,
                       [f"xy2d_resident{'_' + t if t else ''}"
@@ -528,6 +590,28 @@ def main() -> int:
     modes["resident_multisweep"] = lambda: xyr.multisweep_planes(
         st, snap, seeds, beta=beta)
     return report(modes, args, ["xy2d_pallas", "xy2d_resident"])
+
+
+def route_readings(dev, key, rounds: int) -> int:
+    """chip_smoke.compare_xy_routes (ms a sweep of one resident launch of
+    64 sweeps against 64 streamed ones, at XY_ROUTE_SHAPES) ``rounds``
+    times in turns: prints the card's line and one JSON line {"nx x
+    replicas": [[resident, streamed] ms a sweep, one per round]}."""
+    import chip_smoke
+    from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
+        multispin_rng,
+        xy2d_pallas as xyp,
+        xy2d_resident as xyr,
+    )
+    seeds = multispin_rng.sweep_phase_keys(key, 64)
+    out = {}
+    for _ in range(rounds):
+        for nx, nrep, res, stream in chip_smoke.compare_xy_routes(
+                xyp, xyr, dev, seeds):
+            out.setdefault(f"{nx} x {nrep}", []).append([res, stream])
+    print(chip_smoke.nvidia_smi_line())
+    print(json.dumps(out))
+    return 0
 
 
 def report(modes, args, libs, sass=()) -> int:

@@ -1,19 +1,22 @@
-// The ring of the periodic XY multisweeps' shared-memory modes, shared by
-// csrc/xy2d_resident.cu (float32 components) and csrc/xy2d_multisweep.cu
-// (int16 angles): each replica a ring of blocks, one block of 1024 threads
-// an SM, block j owning the 256-site chunks bounds[j] .. bounds[j+1] - 1
-// of both colours (ops/xy2d_resident.ring_bounds); a block holds its sites
-// in shared memory for the launch's S sweeps, and each phase reads the
-// other colour's `half` sites before its first chunk and after its last
-// (its halos) from its two ring neighbours: published to a global edge
-// buffer a colour (a neighbour may still read the other colour's) and
+// The ring of the periodic XY multisweeps, shared by csrc/xy2d_resident.cu
+// (float32 components: its shared-memory and its device-memory mode) and
+// csrc/xy2d_multisweep.cu (int16 angles: its shared-memory mode): each
+// replica a ring of blocks, one block of 1024 threads an SM, block j
+// owning the 256-site chunks bounds[j] .. bounds[j+1] - 1 of both colours
+// (ops/xy2d_resident.ring_bounds); each phase reads the other colour's
+// `half` sites before its first chunk and after its last (its halos) from
+// its two ring neighbours.  A shared-memory mode holds a block's sites in
+// shared memory for the launch's S sweeps and publishes its edges to a
+// global edge buffer a colour (a neighbour may still read the other
+// colour's); the device-memory mode leaves the planes in device memory
+// and the neighbours read the edges from them.  Either way the edges are
 // flagged with a release store at device scope, polled with relaxed loads
 // and a fence (an acquire) by the neighbours before their next phase,
-// which read the edges through L2 (__ldcg).  The waits take the place of
-// a grid barrier; the launch is cooperative, so every block is resident
-// and no wait can deadlock.  The flags count the phases published,
-// cleared on the stream before the launch.  A block owns at least `half`
-// sites, so its halos lie in its neighbours' ranges.
+// which read them through L2 (__ldcg).  The waits take the place of a
+// grid barrier; the launch is cooperative, so every block is resident and
+// no wait can deadlock.  The flags count the phases published, cleared on
+// the stream before the launch.  A block owns at least `half` sites, so
+// its halos lie in its neighbours' ranges.
 //
 // Here: the phase keys, the flag loads and stores, the walk of a block's
 // chunks (the ones holding its first and last `half` sites first, so the
@@ -117,10 +120,11 @@ struct Walk {
 
 // Each of the block's chunks' first site as (row, column): with a
 // thread's offset in a chunk as (rows, columns), (y, i) of a site takes no
-// division
+// division (T: the block's threads)
+template <int T = BLOCK>
 __device__ __forceinline__ void chunk_rows(int2* rows, int c0, int nch,
                                            int h, int tid) {
-  for (int q = tid; q < nch; q += BLOCK) {
+  for (int q = tid; q < nch; q += T) {
     const int w = (c0 + q) * THREADS, y = w / h;
     rows[q] = make_int2(y, w - y * h);
   }
@@ -181,11 +185,12 @@ __device__ __forceinline__ void store_sums(double* red, int q, int tg,
 }
 
 // Each chunk's 8 warp sums in order: block_sums' partials of the block's
-// nch chunks into part
+// nch chunks into part (T: the block's threads)
+template <int T = BLOCK>
 __device__ __forceinline__ void chunk_partials(double* part,
                                                const double* red, int nch,
                                                int tid) {
-  for (int x = tid; x < nch * NSUMS; x += BLOCK) {
+  for (int x = tid; x < nch * NSUMS; x += T) {
     double v = 0.0;
 #pragma unroll
     for (int wi = 0; wi < WARPS; ++wi) v += red[x * WARPS + wi];
@@ -194,18 +199,19 @@ __device__ __forceinline__ void chunk_partials(double* part,
 }
 
 // What a fit rule (ops/xy2d_resident.smem_limits) needs of the current
-// device for kernel fn: its SMs, the blocks of fn an SM holds at once by
-// its threads, registers and barriers (shared memory aside), the shared
-// memory one block may take (opt-in), an SM's shared memory and what the
-// runtime reserves a block.
+// device for kernel fn of `block` threads: its SMs, the blocks of fn an
+// SM holds at once by its threads, registers and barriers (shared memory
+// aside), the shared memory one block may take (opt-in), an SM's shared
+// memory and what the runtime reserves a block.
 inline int smem_limits(const void* fn, int* sms, int* per_sm,
-                       int* smem_block, int* smem_sm, int* reserved) {
+                       int* smem_block, int* smem_sm, int* reserved,
+                       int block = BLOCK) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, BLOCK, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, block, 0);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(smem_block,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -218,12 +224,12 @@ inline int smem_limits(const void* fn, int* sms, int* per_sm,
   return static_cast<int>(e);
 }
 
-// Before a ring launch of `blocks` blocks of fn with smem bytes of dynamic
-// shared memory: the attribute set, a grid that cannot be resident at
-// once refused (cudaErrorCooperativeLaunchTooLarge), the flags cleared on
-// the stream
+// Before a ring launch of `blocks` blocks of fn (of `block` threads) with
+// smem bytes of dynamic shared memory: the attribute set, a grid that
+// cannot be resident at once refused (cudaErrorCooperativeLaunchTooLarge),
+// the flags cleared on the stream
 inline int prepare(const void* fn, int smem, long long blocks,
-                   unsigned* flags, cudaStream_t st) {
+                   unsigned* flags, cudaStream_t st, int block = BLOCK) {
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int dev = 0, sms = 0, per_sm = 0;
@@ -231,7 +237,7 @@ inline int prepare(const void* fn, int smem, long long blocks,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, BLOCK,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, block,
                                                       smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (static_cast<long long>(per_sm) * sms < blocks)

@@ -7,15 +7,21 @@ launches a CUDA kernel, not a Pallas one).  ``_ms_kernel`` (pallas_call
 at ``:257``, ``multisweep``): S sweeps of the (R, ny, nx/2) float32
 component planes with each sweep's (Σ S_x, Σ S_y, e, A) fused into its
 phase b, A against the t=0 snapshot.  ``csrc/xy2d_resident.cu`` holds it
-in two modes, chosen by the fit rule :func:`smem_layout`:
+in two modes, each replica a ring of blocks with flags between phases
+(``csrc/xy2d_ring.cuh``):
 
 - ``smem_multisweep_kernel``, where the batch fits the grid's shared
-  memory (one 1500x1500 or 1000x1000 replica, up to ~3.4 M sites on the
-  H100): the lattice held in the SMs' shared memory for the S sweeps, a
-  ring of blocks a replica, ring flags between phases;
-- ``multisweep_kernel``, past the fit (under the route bound
-  :data:`RESIDENT_MAX_SITES`): the state in device memory and a grid
-  barrier between phases.
+  memory (:func:`smem_layout`; one 1500x1500 or 1000x1000 replica, up to
+  ~3.4 M sites on the H100): the lattice held in the SMs' shared memory
+  for the S sweeps;
+- ``gmem_multisweep_kernel``, past the fit (:func:`gmem_layout`; under
+  the route bound :data:`RESIDENT_MAX_SITES`, e.g. 1500x1500 x 2 or x 3,
+  1000x1000 x 4-6, 512x512 x 25): the planes in device memory, updated in
+  place, a block holding as many of the chunks no neighbour reads in
+  shared memory as fit; where there are more replicas than block slots
+  (64x64 x 1600, 32x32 x 6000) each block is a ring of one and takes
+  whole replicas in turn.  ``multisweep_planes(..., grid=True)`` forces
+  it.
 
 JAX's ``_phase_bits_kernel`` (``:163``, ``phase_with_bits``: one phase
 with injected uniforms) is the injected mode of ``metropolis_kernel``:
@@ -36,7 +42,8 @@ the same fixed order).  :func:`multisweep_planes_plain` is the plain
 version: S plain streamed sweeps.
 
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises.  ``LAUNCHES`` counts launches.
+launches the kernel or raises.  ``LAUNCHES`` counts launches, the
+device-memory mode under ``"multisweep"``.
 """
 
 from __future__ import annotations
@@ -131,7 +138,7 @@ def smem_layout(nrep: int, ny: int, half: int, sms: int,
     ``smem_multisweep_kernel`` (:func:`ring_bounds`) for ``nrep`` replicas
     of (ny, half) sites a colour, on ``sms`` block slots (SMs x blocks an
     SM) of at most ``smem_bytes`` shared memory each; None where the batch
-    does not fit (then ``multisweep_kernel`` runs it).  A block's shared
+    does not fit (then ``gmem_multisweep_kernel`` runs it).  A block's shared
     memory: its sites and both halos in both colours, (cap + 2 half) x
     2 colours x 8 B, and 264 B a chunk (its warps' sums, its first
     site)."""
@@ -143,6 +150,47 @@ def smem_layout(nrep: int, ny: int, half: int, sms: int,
     if need > smem_bytes:
         return None
     return SmemLayout(nb, bounds, cap, need)
+
+
+class GmemLayout(NamedTuple):
+    """The rings of ``gmem_multisweep_kernel``: ``rings`` rings of
+    ``blocks`` blocks at once, ring t taking replicas t, t + rings, ... in
+    turn; block j of a ring owning chunks ``bounds[j]`` .. ``bounds[j + 1]
+    - 1`` of 256 sites, at most ``cap`` sites, of which it holds at most
+    ``hold`` chunks in shared memory, in ``smem_bytes`` of shared memory a
+    block (its chunks' sums and first sites, its held sites)."""
+    blocks: int
+    bounds: tuple[int, ...]
+    cap: int
+    rings: int
+    hold: int
+    smem_bytes: int
+
+
+# shared memory a held chunk takes (csrc/xy2d_resident.cu HELD_BYTES): its
+# 256 sites of both colours as float2
+HELD_BYTES = 2 * CHUNK * 8
+
+
+def gmem_layout(nrep: int, ny: int, half: int, slots: int,
+                smem_bytes: int) -> GmemLayout | None:
+    """The rule of the device-memory mode for ``nrep`` replicas of (ny,
+    half) sites a colour on ``slots`` block slots of at most
+    ``smem_bytes`` shared memory each: :func:`ring_bounds`' rings, one a
+    replica, where the replicas fit the slots; past that, every slot a
+    ring of one block (the whole replica) taking replicas in turn.  A
+    block holds as many of its chunks in shared memory as the rest of
+    ``smem_bytes`` takes, beside its sums (264 B a chunk); None where the
+    sums alone pass it (past ~880 chunks a block, far past the route
+    bound)."""
+    live = min(nrep, slots)
+    nb, bounds, cap = ring_bounds(live, ny, half, slots)
+    need = cap // CHUNK * CHUNK_BYTES
+    if need > smem_bytes:
+        return None
+    hold = min(cap // CHUNK, (smem_bytes - need) // HELD_BYTES)
+    return GmemLayout(nb, bounds, cap, min(nrep, slots // nb), hold,
+                      need + hold * HELD_BYTES)
 
 
 def _snap_order(snap: XYState, color: int):
@@ -157,7 +205,7 @@ def _snap_order(snap: XYState, color: int):
 
 def multisweep_planes_plain(st: XYState, snap: XYState | None, seeds, *,
                             beta: float) -> torch.Tensor:
-    """Plain version of ``multisweep_kernel``: S = len(seeds) streamed
+    """Plain version of both modes: S = len(seeds) streamed
     plain sweeps of ``st`` in place; returns the (R, S, 4) float64
     per-sweep sums (A = 0 without a snapshot)."""
     ax, ay, bx, by = st
@@ -202,39 +250,41 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``csrc/xy2d_resident.cu``) with its C functions'
     argument types set."""
-    if lib.xy_multisweep.argtypes is not None:
+    if lib.xy_multisweep_gmem.argtypes is not None:
         return lib
-    lib.xy_multisweep.argtypes = ([_VOID] * 8 + [_INT] * 4
-                                  + [ctypes.c_float, _VOID])
+    lib.xy_multisweep_gmem.argtypes = ([_VOID] * 10 + [_INT] * 9
+                                       + [ctypes.c_float, _VOID])
     lib.xy_multisweep_smem.argtypes = ([_VOID] * 11 + [_INT] * 7
                                        + [ctypes.c_float, _VOID])
-    for fn in (lib.xy_multisweep, lib.xy_multisweep_smem):
+    for fn in (lib.xy_multisweep_gmem, lib.xy_multisweep_smem):
         fn.restype = _INT
-    lib.xy_multisweep_grid.argtypes = [ctypes.POINTER(_INT)]
-    lib.xy_multisweep_grid.restype = _INT
-    lib.xy_multisweep_smem_limits.argtypes = [ctypes.POINTER(_INT)] * 5
-    lib.xy_multisweep_smem_limits.restype = _INT
+    for fn in (lib.xy_multisweep_smem_limits, lib.xy_multisweep_gmem_limits):
+        fn.argtypes = [ctypes.POINTER(_INT)] * 5
+        fn.restype = _INT
     lib.xy_multisweep_error_string.argtypes = [_INT]
     lib.xy_multisweep_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _raise_on(code: int, lib, name: str = "multisweep_kernel") -> None:
+def _raise_on(code: int, lib, name: str = "gmem_multisweep_kernel") -> None:
     if code != 0:
         msg = lib.xy_multisweep_error_string(code).decode()
         raise RuntimeError(f"xy2d {name}: CUDA error {code} ({msg})")
 
 
-def grid_blocks() -> int:
-    """Blocks of ``multisweep_kernel``'s cooperative grid on the current
-    device."""
-    lib = _lib()
-    out = _INT(0)
-    _raise_on(lib.xy_multisweep_grid(ctypes.byref(out)), lib)
-    return out.value
-
-
 _LIMITS: dict[tuple, tuple[int, int]] = {}
+
+
+def _limits(dev: torch.device, mode: str) -> tuple[int, int]:
+    lib = _lib()
+    key = (id(lib), dev.index, mode)
+    if key not in _LIMITS:
+        name = f"{mode}_multisweep_kernel"
+        with torch.cuda.device(dev):
+            _LIMITS[key] = read_limits(
+                getattr(lib, f"xy_multisweep_{mode}_limits"),
+                lambda code: _raise_on(code, lib, name), name)
+    return _LIMITS[key]
 
 
 def smem_limits(dev: torch.device) -> tuple[int, int]:
@@ -242,15 +292,12 @@ def smem_limits(dev: torch.device) -> tuple[int, int]:
     on CUDA device ``dev``: the SMs times the blocks an SM holds by the
     kernel's threads and registers (one of 1024 threads on the H100), and
     the shared memory each of them may take."""
-    lib = _lib()
-    key = (id(lib), dev.index)
-    if key not in _LIMITS:
-        with torch.cuda.device(dev):
-            _LIMITS[key] = read_limits(
-                lib.xy_multisweep_smem_limits,
-                lambda code: _raise_on(code, lib, "smem_multisweep_kernel"),
-                "smem_multisweep_kernel")
-    return _LIMITS[key]
+    return _limits(dev, "smem")
+
+
+def gmem_limits(dev: torch.device) -> tuple[int, int]:
+    """The same of ``gmem_multisweep_kernel``, for :func:`gmem_layout`."""
+    return _limits(dev, "gmem")
 
 
 def read_limits(limits_fn, raise_on, name: str) -> tuple[int, int]:
@@ -272,26 +319,37 @@ def device_layout(st: XYState) -> SmemLayout | None:
     return smem_layout(*st.ax.shape, *smem_limits(st.ax.device))
 
 
-# (library, device, planes' shape) -> the layout and its bounds on the
-# device: worked out once a shape, since a copy to the card from pageable
-# host memory waits for the card, and the runner's next launch would
-# wait behind it
-_RINGS: dict[tuple, tuple[SmemLayout | None, torch.Tensor | None]] = {}
+def device_gmem_layout(st: XYState) -> GmemLayout | None:
+    """:func:`gmem_layout` of ``st``'s planes on their CUDA device."""
+    return gmem_layout(*st.ax.shape, *gmem_limits(st.ax.device))
 
 
-def _ring(st: XYState) -> tuple[SmemLayout | None, torch.Tensor | None]:
-    key = (id(_lib()), st.ax.device, tuple(st.ax.shape))
+# (library, device, planes' shape, grid) -> the launch's mode ("multisweep"
+# for the device-memory one, LAUNCHES' key), its layout and its bounds on
+# the device: worked out once a shape, since a copy to the card from
+# pageable host memory waits for the card, and the runner's next launch
+# would wait behind it
+_RINGS: dict[tuple, tuple[str, NamedTuple, torch.Tensor]] = {}
+
+
+def _ring(st: XYState, grid: bool) -> tuple[str, NamedTuple, torch.Tensor]:
+    key = (id(_lib()), st.ax.device, tuple(st.ax.shape), grid)
     if key not in _RINGS:
-        layout = device_layout(st)
-        bounds = None if layout is None else torch.tensor(
-            layout.bounds, dtype=torch.int32, device=st.ax.device)
-        _RINGS[key] = (layout, bounds)
+        mode, layout = "multisweep_smem", None if grid else device_layout(st)
+        if layout is None:
+            mode, layout = "multisweep", device_gmem_layout(st)
+        if layout is None:
+            raise RuntimeError(
+                f"xy2d gmem_multisweep_kernel: no layout for planes of shape "
+                f"{tuple(st.ax.shape)} (a block's sums pass its shared "
+                "memory)")
+        _RINGS[key] = (mode, layout, torch.tensor(
+            layout.bounds, dtype=torch.int32, device=st.ax.device))
     return _RINGS[key]
 
 
 def _launch(st, snap, seeds, beta, ring):
-    """One launch of either mode (``ring``: the layout and its bounds on
-    the device, or (None, None) for the grid-barrier mode); returns the
+    """One launch in the mode of ``ring`` (:func:`_ring`); returns the
     (R S, 4) float64 sums."""
     planes = list(st) + ([] if snap is None else list(snap))
     xy2d_pallas._check_planes(*planes)
@@ -305,11 +363,15 @@ def _launch(st, snap, seeds, beta, ring):
     lib = _lib()
     args = (*(p.data_ptr() for p in st), xy2d_pallas.snapshot_pointers(snap),
             seeds_dev.data_ptr(), partials.data_ptr(), obs.data_ptr())
-    layout, bounds = ring
+    mode, layout, bounds = ring
     with torch.cuda.device(dev):
-        if layout is None:
-            code = lib.xy_multisweep(*args, nrep, ny, half, sweeps,
-                                     -float(beta), _stream(st.ax))
+        if mode == "multisweep":
+            flags = torch.empty((layout.rings * layout.blocks,),
+                                dtype=torch.int32, device=dev)
+            code = lib.xy_multisweep_gmem(
+                *args, bounds.data_ptr(), flags.data_ptr(), nrep, ny, half,
+                sweeps, layout.blocks, layout.rings, layout.cap, layout.hold,
+                layout.smem_bytes, -float(beta), _stream(st.ax))
             _raise_on(code, lib)
             return obs
         blocks = nrep * layout.blocks
@@ -331,12 +393,13 @@ def multisweep_planes(st: XYState, snap: XYState | None, seeds, *,
     (Σ S_x, Σ S_y, e, A).  On CPU tensors :func:`multisweep_planes_plain`;
     on CUDA tensors one launch: ``smem_multisweep_kernel`` where
     :func:`smem_layout` fits the batch on the card, else
-    ``multisweep_kernel`` (``grid`` forces the latter)."""
+    ``gmem_multisweep_kernel`` on :func:`gmem_layout` (``grid`` forces the
+    latter); raises where neither has a layout."""
     if _on_cpu(st.ax):
         return multisweep_planes_plain(st, snap, seeds, beta=beta)
-    ring = (None, None) if grid else _ring(st)
+    ring = _ring(st, grid)
     obs = _launch(st, snap, seeds, beta, ring)
-    LAUNCHES["multisweep" if ring[0] is None else "multisweep_smem"] += 1
+    LAUNCHES[ring[0]] += 1
     return obs.view(st.ax.shape[0], int(seeds.shape[0]), xy2d_pallas.NSUMS)
 
 

@@ -762,9 +762,10 @@ def test_xy_snapshot_phase_and_measure_match_plain(cuda, ny, nx):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ny,nx,nrep", [(256, 200, 2), (64, 1500, 3)])
 def test_xy_multisweep_matches_streamed_sweeps(cuda, ny, nx, nrep):
-    """multisweep_kernel: S = 8 sweeps equal 8 streamed snapshot-measuring
-    sweeps on the card bitwise, state and sums, and its plain version;
-    its injected mode equals the plain phase."""
+    """multisweep_planes (the fit rule's mode): S = 8 sweeps equal 8
+    streamed snapshot-measuring sweeps on the card bitwise, state and
+    sums, and its plain version; phase_with_bits equals the plain
+    phase."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         multispin_rng,
@@ -827,7 +828,7 @@ def test_xy_disorder_routes_agree_on_card(cuda, prep, monkeypatch):
 
 def _multisweep_against_streamed(cuda, ny, nx, nrep, sweeps, grid):
     """One multisweep launch of ``sweeps`` sweeps (``grid`` forcing the
-    grid-barrier mode, else the fit rule's) against as many streamed
+    device-memory mode, else the fit rule's) against as many streamed
     snapshot-measuring sweeps on the card: the state and the sums
     bitwise; the launch counted in its mode's key."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.models import XY2D
@@ -885,16 +886,23 @@ def test_xy_smem_multisweep_matches_streamed_sweeps(cuda, ny, nx, nrep,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ny,nx,nrep", [(1500, 1500, 2), (64, 1500, 3)])
+@pytest.mark.parametrize("ny,nx,nrep", [(1500, 1500, 2), (1500, 1500, 3),
+                                        (1000, 1000, 5), (64, 64, 1600),
+                                        (64, 1500, 3)])
 def test_xy_grid_multisweep_matches_streamed_sweeps(cuda, ny, nx, nrep):
-    """multisweep_kernel (the grid-barrier mode) equals 8 streamed
-    sweep_measure calls bitwise, state and sums: forced, and at 1500x1500
-    x 2, past the shared-memory fit, by the fit rule."""
+    """gmem_multisweep_kernel (the device-memory mode) equals 8 streamed
+    sweep_measure calls bitwise, state and sums: by the fit rule past the
+    shared-memory fit at 1500x1500 x 2 and x 3 (rings of 66 and 44
+    blocks), 1000x1000 x 5 and 64x64 x 1600 (more replicas than block
+    slots: rings of one taking replicas in turn), and forced at 64 x 1500
+    x 3."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.models.xy2d import XYState
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import xy2d_resident
     st = XYState(*_xy_planes(cuda, nrep, ny, nx, 1))
     past_fit = xy2d_resident.device_layout(st) is None
-    assert past_fit == (ny == 1500)
+    assert past_fit == ((ny, nx) != (64, 1500))
+    layout = xy2d_resident.device_gmem_layout(st)
+    assert (layout.blocks == 1) == (nrep == 1600)
     _multisweep_against_streamed(cuda, ny, nx, nrep, 8, not past_fit)
 
 

@@ -92,7 +92,7 @@ def test_main_path_shapes_fit(nrep, n, blocks, cap, smem):
 @pytest.mark.parametrize("nrep,n", [(2, 1500), (3, 1500), (1, 2000),
                                     (133, 16)])
 def test_past_the_fit_is_none(nrep, n):
-    """1500x1500 x 2 and x 3 (under the route bound: the grid-barrier
+    """1500x1500 x 2 and x 3 (under the route bound: the device-memory
     mode's batches), 2000x2000 x 1, and more replicas than blocks."""
     assert xr.smem_layout(nrep, n, n // 2, SMS, SMEM) is None
 
@@ -145,14 +145,16 @@ class _FakeLib:
 
 @pytest.mark.parametrize("n,nrep,grid,want", [
     (1500, 1, False, "xy_multisweep_smem"),
-    (1500, 2, False, "xy_multisweep"), (1000, 1, True, "xy_multisweep"),
-    (16, 3, False, "xy_multisweep_smem"), (1500, 2, True, "xy_multisweep")])
+    (1500, 2, False, "xy_multisweep_gmem"),
+    (1000, 1, True, "xy_multisweep_gmem"),
+    (16, 3, False, "xy_multisweep_smem"),
+    (1500, 2, True, "xy_multisweep_gmem")])
 def test_launch_mode_follows_the_fit_rule(n, nrep, grid, want, monkeypatch):
     """multisweep_planes launches the shared-memory mode where the layout
-    fits and the grid-barrier mode past it, or where ``grid`` forces it; the
-    shared-memory launch takes the layout's ring, cap and bytes, and the
-    launch is counted under its mode.  The launch itself is recorded, not
-    run (no card here)."""
+    fits and the device-memory mode past it, or where ``grid`` forces it;
+    each launch takes its layout's ring, cap and bytes, and is counted
+    under its mode.  The launch itself is recorded, not run (no card
+    here)."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import xy2d_pallas
     lib = _FakeLib()
     monkeypatch.setattr(xr, "_on_cpu", lambda t: False)
@@ -160,6 +162,7 @@ def test_launch_mode_follows_the_fit_rule(n, nrep, grid, want, monkeypatch):
     monkeypatch.setattr(xr, "_stream", lambda t: None)
     monkeypatch.setattr(xr, "_lib", lambda: lib)
     monkeypatch.setattr(xr, "smem_limits", lambda dev: (SMS, SMEM))
+    monkeypatch.setattr(xr, "gmem_limits", lambda dev: (SMS, SMEM))
     monkeypatch.setattr(xr, "_RINGS", {})
     monkeypatch.setattr(torch.cuda, "device", lambda d: nullcontext())
     planes = XYState(*(torch.zeros((nrep, n, n // 2)) for _ in range(4)))
@@ -175,6 +178,8 @@ def test_launch_mode_follows_the_fit_rule(n, nrep, grid, want, monkeypatch):
                                layout.smem_bytes)
         assert xr.LAUNCHES == {"multisweep": 0, "multisweep_smem": 1}
     else:
-        assert args[8:12] == (nrep, n, n // 2, 3)
+        layout = xr.gmem_layout(nrep, n, n // 2, SMS, SMEM)
+        assert args[10:19] == (nrep, n, n // 2, 3, layout.blocks,
+                               layout.rings, layout.cap, layout.hold,
+                               layout.smem_bytes)
         assert xr.LAUNCHES == {"multisweep": 1, "multisweep_smem": 0}
-

@@ -131,11 +131,14 @@ Phases (each prints a progress line on stderr):
      angle_metro_kernel plain, measuring and in its snapshot mode (Philox;
      injected uniforms at the small shape) and angle_or_kernel plain and
      measuring, both colours; the int16 multisweep in both modes (the
-     shared-memory mode where its fit rule takes the batch, the grid-
-     barrier mode past it and where forced) at 32x48 x 2 (S = 4, n_or 0, 1
-     and or_only), at the int16 classes' launches (1536x1536 x 1, S = 64
-     and 40, and with one OR sweep; 1536x1536 x 2, S = 8) and forced at
-     1536x1536 x 1; states bitwise, sums within 1e-12 of their scale;
+     shared-memory mode where its fit rule takes the batch, the
+     device-memory mode past it and where forced) at 32x48 x 2 (S = 4, n_or
+     0, 1 and or_only), at the int16 classes' launches (1536x1536 x 1, S =
+     64 and 40, and with one OR sweep; 1536x1536 x 2, S = 8), past the fit
+     at 1536x1536 x 2 with one OR sweep and OR only, 1536x1536 x 3,
+     1536x1536 x 32 (two rings of 66 blocks, 16 replicas each in turn)
+     and 64x64 x 1600 (rings of one), and forced at 1536x1536 x 1;
+     states bitwise, sums within 1e-12 of their scale;
 2b. <m>, <e> after one sweep from all-up against their closed forms for
    the chains' quantized acceptances, over >= 1e10 sites per path (helical
    3-D at 151^3 and 501^3, where every neighbour lies in the other
@@ -263,7 +266,7 @@ Phases (each prints a progress line on stderr):
    streamed, JAX's gate refusing ny % 16; 1536^2 on the int16 kernel) and
    from-disorder at 1536x1536 x 1, 32 samples, 1000 MCS (the int16
    multisweep's shared-memory mode) and at 1536x1536 x 2, 4 samples, 200
-   MCS (past its fit: the grid-barrier mode), against the 1500x1500
+   MCS (past its fit: the device-memory mode), against the 1500x1500
    curve's size-free <e>, <A> and N·<m^2> at every t (combined sigma;
    Var(m^2) of a Gaussian m from the curve's second moments); and
    every earlier XY class, run with neither switch set, launched no angle
@@ -331,8 +334,10 @@ Phases (each prints a progress line on stderr):
    2000x2000 x 32, plain at 4000x4000 x 8 and 1000x1000 x 20, its
    snapshot mode at 1000x1000 x 20, angle_or_kernel plain and measuring
    at 4000x4000 x 8, the int16 multisweep's shared-memory mode at
-   1536x1536 x 1 with S = 64 and 40, its grid-barrier mode at 1536x1536 x
-   2 with S = 64 and 8), each held against its plain version, each angle class's
+   1536x1536 x 1 with S = 64 and 40, its device-memory mode at 1536x1536
+   x 2 with S = 64 and 8 and x 3 with S = 8), each held against its plain
+   version,
+   each angle class's
    kernel share of its wall, and the A/B of the two periodic engines
    (2000x2000 x 32 end to end and a sweep's kernels; the OR class).  The
    helical 3-D multisweep is timed alone at its class's S = 64 and held
@@ -4337,10 +4342,14 @@ XYA_SHAPES = ((2, 256, 200, KBT_XY), (1, 10000, 10000, KBT_XY_2000),
 # multiple of the tile's 32 columns), rows past a tile, ny = 2, half 1
 XYA_OR_RAGGED = ((3, 70, 130), (2, 34, 62), (2, 2, 2))
 # ((R, ny, nx), S, n_or, or_only, grid) of the int16 multisweep's checks: a
-# small shape in every mode, also forced to the grid-barrier mode; the
+# small shape in every mode, also forced to the device-memory mode; the
 # from-disorder class's launches (1000 MCS: 15 launches of 64 and one of
-# 40; the shared-memory mode), with an OR sweep and forced to the grid
-# mode; the x2 class's last launch (past the shared-memory fit)
+# 40; the shared-memory mode), with an OR sweep and forced to the
+# device-memory mode; past the shared-memory fit, the x2 class's last
+# launch, x 2 with an OR sweep and OR only (the measure folded into the
+# last OR phase b), x 3 (part of the held chunks decoded), x 32 (one ring
+# a replica would not fit: two rings of 66 blocks, 16 replicas each in
+# turn) and 64x64 x 1600 (more replicas than block slots: rings of one)
 XYI_CHECKS = (((2, 32, 48), 4, 0, False, False),
               ((2, 32, 48), 4, 1, False, False),
               ((2, 32, 48), 4, 2, True, False),
@@ -4349,7 +4358,12 @@ XYI_CHECKS = (((2, 32, 48), 4, 0, False, False),
               ((1, 1536, 1536), 40, 0, False, False),
               ((1, 1536, 1536), 16, 1, False, False),
               ((1, 1536, 1536), 8, 0, False, True),
-              ((2, 1536, 1536), 8, 0, False, False))
+              ((2, 1536, 1536), 8, 0, False, False),
+              ((2, 1536, 1536), 4, 1, False, False),
+              ((2, 1536, 1536), 4, 2, True, False),
+              ((3, 1536, 1536), 8, 0, False, False),
+              ((32, 1536, 1536), 2, 0, False, False),
+              ((1600, 64, 64), 4, 1, False, False))
 XYI_N = 1536
 # per site of the colour updated: the snapshot mode's A, two decodes of
 # the differences (22 each), their subtracts, widenings and adds (5); its
@@ -4447,7 +4461,7 @@ def int16_planes(dev, shape, seed: int) -> list:
 def check_xy_int16(xyi, rng, dev) -> tuple[float, float]:
     """The int16 multisweep against its plain version on the same CUDA
     tensors at XYI_CHECKS (Philox words), in the mode its fit rule picks
-    (or the grid-barrier mode, forced): the int16 state bitwise, the sums
+    (or the device-memory mode, forced): the int16 state bitwise, the sums
     within 1e-12 of their scale.  Returns (state error, sums' error)."""
     t0 = time.perf_counter()
     err = rel = 0.0
@@ -4548,7 +4562,7 @@ def check_size_free(table: np.ndarray, ref: np.ndarray, nsites: int,
 def xy_angle_launches(label, launches, want_angle,
                       want_int16=(0, 0)) -> None:
     """A class of the angle engines: its angle and int16 launches as
-    counted (the int16 multisweep's (grid-barrier, shared-memory) modes),
+    counted (the int16 multisweep's (device-memory, shared-memory) modes),
     and none of the component engines'."""
     got = launches["xy_angle"]
     if {k: got[k] for k in want_angle} != want_angle:
@@ -4573,7 +4587,7 @@ def run_xya_classes(main_fn, modules, out_dir, ref_xy, ref_xy10k, ref_xy_or,
     1000x1000 x 20 (40 samples, 100 MCS, m0 0.02); under
     SPINLAT_XY_ANGLE_MS=1 from-disorder at 1536x1536 x 1 (32 samples,
     1000 MCS; the int16 multisweep's shared-memory mode) and x 2 (4
-    samples, 200 MCS; past its fit, the grid-barrier mode) on the
+    samples, 200 MCS; past its fit, the device-memory mode) on the
     size-free moments of the 1500x1500 curve.  Returns {label: (launches,
     wall, rate, largest |z|)}."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.engine import sweep
@@ -4652,7 +4666,7 @@ def run_xya_classes(main_fn, modules, out_dir, ref_xy, ref_xy10k, ref_xy_or,
         xy_angle_launches("int16", launches, {"metro": 0}, (0, 32 * 16))
         out["int16 from-disorder 1536^2 x 1"] = (launches, wall, rate, z)
         # two replicas a call: past the shared-memory fit, the int16
-        # multisweep's grid-barrier mode (2 calls of 64, 64, 64, 8 sweeps)
+        # multisweep's device-memory mode (2 calls of 64, 64, 64, 8 sweeps)
         log(f"phase 4l: XY int16 path, from-disorder {n}x{n} x 2, 4 "
             "samples, 200 MCS")
         argv = ["--model", "xy2d", "--protocol", "from_disorder", "--nx",
@@ -4699,7 +4713,8 @@ def time_xya_kernels(xya, xyi, rng, dev) -> dict:
     snapshot mode at 1000^2 x 20; angle_or_kernel plain and measuring at
     4000^2 x 8 and 10000^2 x 1; the int16 multisweep at 1536^2 x 1 with
     S = 64 and 40 (its shared-memory mode) and at 1536^2 x 2 with S = 64
-    and 8 (its grid-barrier mode, past the fit).
+    and 8 and x 3 with S = 8 (its device-memory mode, past the fit;
+    chip_time_xy.py --int16 times x 3 at S = 64).
     Returns {label: (times, err)}."""
     out = {}
     keys = multispin_keys(rng, 64, 61)
@@ -4747,7 +4762,8 @@ def time_xya_kernels(xya, xyi, rng, dev) -> dict:
         del a, b, sa, sb
     n = XYI_N
     for nrep, sweeps, label in ((1, 64, "S=64"), (1, 40, "S=40"),
-                                (2, 64, "x2 S=64"), (2, 8, "x2 S=8")):
+                                (2, 64, "x2 S=64"), (2, 8, "x2 S=8"),
+                                (3, 8, "x3 S=8")):
         sites = nrep * n * n // 2
         pa, pb, sa, sb = int16_planes(dev, (nrep, n, n // 2), sweeps)
         seeds = keys[:sweeps]
@@ -4767,7 +4783,7 @@ def time_xya_kernels(xya, xyi, rng, dev) -> dict:
                              sweeps * sites * (2 * OPS_XYA_METROPOLIS
                                                + OPS_XYI_FUSED))
         mode = ("smem_multisweep_kernel" if xyi.device_layout(pa)
-                is not None else "multisweep_kernel")
+                is not None else "gmem_multisweep_kernel")
         log(f"  xy int16 {mode} {n}^2 x {nrep}, S={sweeps}: "
             f"{ms:.4f} ms/launch ({ms / sweeps * 1e3:.2f} us a sweep), "
             f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}); vs "
@@ -5846,8 +5862,8 @@ def main() -> int:
         f"{c8ms.grid_blocks(16, 1000, 500)} (both 1000^2 x 16), masked "
         f"helical Ising {hp.grid_blocks(0, False)} (odd N "
         f"{hp.grid_blocks(0, True)}), clock {hp.grid_blocks(1, False)} (odd N "
-        f"{hp.grid_blocks(1, True)}), XY int16 {xyi.grid_blocks()} blocks "
-        "resident")
+        f"{hp.grid_blocks(1, True)}), XY int16 (device-memory ring slots) "
+        f"{xyi.gmem_limits(dev)[0]} blocks resident")
 
     # 2. kernels against their plain versions
     log("phase 2: kernels vs plain versions (bitwise)")
@@ -6842,9 +6858,10 @@ def main() -> int:
          "xy2d_multisweep.py:325", launched("xy_int16", "multisweep_smem"),
          max(err_xyi, rel_xyi, ea["int16 S=64"], ea["int16 S=40"]),
          ta["int16 S=64"][0]),
-        ("xy2d_multisweep.multisweep_kernel", "xy2d_multisweep.cu",
+        ("xy2d_multisweep.gmem_multisweep_kernel", "xy2d_multisweep.cu",
          "xy2d_multisweep.py:325", launched("xy_int16", "multisweep"),
-         max(err_xyi, rel_xyi, ea["int16 x2 S=64"], ea["int16 x2 S=8"]),
+         max(err_xyi, rel_xyi, ea["int16 x2 S=64"], ea["int16 x2 S=8"],
+             ea["int16 x3 S=8"]),
          ta["int16 x2 S=64"][0]),
         mesh_row("ising2d", "packed 2-D 8192^2 x 4 (1,4)"),
         mesh_row("ising3d", "packed 3-D 512^3 x 8 (2,4)"),

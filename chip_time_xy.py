@@ -34,10 +34,15 @@ bitwise against the library, with the SASS of both kernels; with
 times; with ``--int16``, the int16 multisweep (csrc/xy2d_multisweep.cu)
 at the int16 class's launches, 1536x1536 x 1 with S = 64 and 40, and
 S = 16 with one over-relaxation sweep, in the mode its wrapper routes
-them to, its
-grid-barrier mode forced at S = 64 (where the wrapper can force it) and
-past the shared-memory fit at 1536x1536 x 2, with the SASS of its
-kernels (a tenth of --reps a mode); with ``--masked``, the masked
+them to, its device-memory mode forced at S = 64, and past the
+shared-memory fit at 1536x1536 x 2 and x 3 (S = 64 and 8; x 2 also S =
+16 with an OR sweep), x 32 and 64x64 x 1600, there also the
+shared-memory mode on slices of the batch one launch after another, and
+the device-memory mode's variant builds (INT16_GMEM_VARIANTS: no decoded
+plane, the snapshot read evict-first) at x 2 and x 3, S = 64, each held
+bitwise against the library, with the SASS of its kernels (a tenth of
+--reps a mode); copied into the parent's checkout it times the parent's
+grid-barrier mode under the same labels; with ``--masked``, the masked
 helical XY kernels (csrc/helical_pallas.cu) at their classes' launches,
 10001x10000 x 1 and 4001x4001 x 2: xy_phase_kernel's four modes (a
 phase, colour 0; the fused phase, colour 1, at even N; the measure mode;
@@ -240,45 +245,120 @@ def resident_modes(dev, gen, key, beta):
 
 # the int16 class's lattice (1536x1536: JAX's gate takes ny % 16 == 0)
 INT16_N = 1536
+# the --int16 variants of gmem_multisweep_kernel, built from its source
+# with one text replaced (chip_time_ising.variant_lib): tag -> (old, new)
+INT16_GMEM_VARIANTS = {
+    # held int16 only: no decoded plane, every other-colour read decoded
+    # per read
+    "nodec": ("const int dq = min(rg.dec, qb - qa);", "const int dq = 0;"),
+    # the snapshot read evict-first (not through the read-only cache)
+    "ldcs": ("__ldg(a.sa + base + w), __ldg(a.sb + base + w)",
+             "__ldcs(a.sa + base + w), __ldcs(a.sb + base + w)"),
+}
+# (label, replicas, n, S, n_or, forced): the int16 class's launches in the
+# shared-memory mode (1536^2 x 1, S = 64 and 40, and S = 16 with an OR
+# sweep), the device-memory mode forced at 1536^2 x 1, S = 64, and past
+# the fit (1536^2 x 2 and x 3, S = 64 and 8; x 2, S = 16 with an OR
+# sweep; x 32, past one ring a replica: turns on two rings; 64^2 x 1600,
+# more replicas than block slots)
+INT16_RUNS = (("1536^2 x 1 S=64", 1, INT16_N, 64, 0, False),
+              ("1536^2 x 1 S=40", 1, INT16_N, 40, 0, False),
+              ("1536^2 x 1 S=16 n_or=1", 1, INT16_N, 16, 1, False),
+              ("grid 1536^2 x 1 S=64", 1, INT16_N, 64, 0, True),
+              ("1536^2 x 2 S=64", 2, INT16_N, 64, 0, False),
+              ("1536^2 x 2 S=8", 2, INT16_N, 8, 0, False),
+              ("1536^2 x 2 S=16 n_or=1", 2, INT16_N, 16, 1, False),
+              ("1536^2 x 3 S=64", 3, INT16_N, 64, 0, False),
+              ("1536^2 x 3 S=8", 3, INT16_N, 8, 0, False),
+              ("1536^2 x 32 S=64", 32, INT16_N, 64, 0, False),
+              ("64^2 x 1600 S=64", 1600, 64, 64, 0, False))
 
 
 def int16_modes(dev, gen, key, beta):
-    """The int16 multisweep (csrc/xy2d_multisweep.cu) at the int16
-    from-disorder class's launches, 1536x1536 x 1 with S = 64 and 40, and
-    with one over-relaxation sweep a sweep at S = 16, in the mode the
-    wrapper routes them to; the grid-barrier mode forced at S = 64 where
-    the wrapper has that switch; past the shared-memory fit, 1536x1536 x
-    2, S = 64.  Random int16 state and snapshot planes."""
+    """The int16 multisweep (csrc/xy2d_multisweep.cu) at INT16_RUNS, in
+    the mode the wrapper routes each to, the device-memory mode (the
+    grid-barrier mode in a tree before it) forced where the wrapper has
+    that switch; where the checkout has the device-memory ring mode, also
+    its INT16_GMEM_VARIANTS at 1536^2 x 2 and x 3, S = 64, each launch's
+    state and sums held bitwise against the library's.  Past the fit, at
+    S = 64 and at x 2, S = 8, also the shared-memory mode launched on
+    slices of the batch, the most replicas it fits a launch, one launch
+    after another (its Philox counter restarts at each slice's first
+    replica, so only its time compares).  Random int16 state and snapshot
+    planes a shape."""
     import inspect
+    from chip_time_ising import variant_lib
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         multispin_rng,
         xy2d_multisweep as xyi,
     )
     seeds = multispin_rng.sweep_phase_keys(key, 64)
     forced = "grid" in inspect.signature(xyi.multisweep_planes).parameters
+    libs = {"": xyi._lib()}
+    if hasattr(xyi, "gmem_layout"):
+        for tag, (old, new) in INT16_GMEM_VARIANTS.items():
+            libs[tag] = xyi.bind(variant_lib("xy2d_multisweep", old, new,
+                                             f"int16_{tag}", libs[""], ()))
+    planes = {}
+    for _, nrep, n, _, _, _ in INT16_RUNS:
+        planes.setdefault((nrep, n), [
+            torch.randint(-2 ** 15, 2 ** 15, (nrep, n, n // 2),
+                          generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int16)
+            for _ in range(4)])
 
-    def planes(nrep):
-        return [torch.randint(-2 ** 15, 2 ** 15, (nrep, INT16_N,
-                                                   INT16_N // 2),
-                              generator=gen, device=dev,
-                              dtype=torch.int32).to(torch.int16)
-                for _ in range(4)]
+    own = xyi._lib
 
-    one, two = planes(1), planes(2)
-    n = INT16_N
-    runs = ((f"{n}^2 x 1 S=64", one, 64, 0, False),
-            (f"{n}^2 x 1 S=40", one, 40, 0, False),
-            (f"{n}^2 x 1 S=16 n_or=1", one, 16, 1, False),
-            (f"grid {n}^2 x 1 S=64", one, 64, 0, True),
-            (f"{n}^2 x 2 S=64", two, 64, 0, False))
+    def run(lib, pl, sweeps, n_or, grid):
+        xyi._lib = lambda: lib
+        try:
+            kw = dict(beta=beta, n_or=n_or,
+                      **({"grid": True} if grid else {}))
+            return xyi.multisweep_planes(*pl, seeds[:sweeps], **kw)
+        finally:
+            xyi._lib = own
+
+    def slices(pl, k, sweeps, n_or):
+        for r0 in range(0, pl[0].shape[0], k):
+            xyi.multisweep_planes(*(p[r0:r0 + k] for p in pl),
+                                  seeds[:sweeps], beta=beta, n_or=n_or)
+
+    limits = xyi.smem_limits(dev)
+
+    def slice_size(nrep, n):
+        """The most replicas of n x n the shared-memory mode fits, or
+        None where it fits them all."""
+        if xyi.smem_layout(nrep, n, n // 2, *limits) is not None:
+            return None
+        return max(k for k in range(1, nrep)
+                   if xyi.smem_layout(k, n, n // 2, *limits) is not None)
+
+    def check(lib, tag, pl):
+        a, b = [p.clone() for p in pl[:2]], [p.clone() for p in pl[:2]]
+        want = run(libs[""], a + pl[2:], 8, 0, False).clone()
+        got = run(lib, b + pl[2:], 8, 0, False)
+        if not (all(torch.equal(p, q) for p, q in zip(a, b))
+                and torch.equal(got, want)):
+            raise RuntimeError(f"variant {tag} differs from the library")
+
     modes = {}
-    for label, pl, sweeps, n_or, grid in runs:
-        if grid and not forced:
-            continue
-        kw = dict(beta=beta, n_or=n_or, **({"grid": True} if grid else {}))
-        modes[f"int16 {label}"] = (
-            lambda pl=pl, sweeps=sweeps, kw=kw: xyi.multisweep_planes(
-                *pl, seeds[:sweeps], **kw))
+    for tag, lib in libs.items():
+        for label, nrep, n, sweeps, n_or, grid in INT16_RUNS:
+            if grid and not forced:
+                continue
+            pl = planes[nrep, n]
+            if tag:
+                if nrep not in (2, 3) or sweeps != 64 or n_or:
+                    continue
+                check(lib, tag, pl)
+            modes[f"int16 {label}{f' [{tag}]' if tag else ''}"] = (
+                lambda lib=lib, pl=pl, sweeps=sweeps, n_or=n_or, grid=grid:
+                run(lib, pl, sweeps, n_or, grid))
+            k = None if tag or grid or n_or else slice_size(nrep, n)
+            if k is not None and (sweeps == 64 or nrep == 2):
+                modes[f"int16 {label} [slices of {k}]"] = (
+                    lambda pl=pl, k=k, sweeps=sweeps, n_or=n_or:
+                    slices(pl, k, sweeps, n_or))
     return modes
 
 

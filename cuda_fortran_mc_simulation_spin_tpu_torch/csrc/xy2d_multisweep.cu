@@ -1,7 +1,7 @@
 // S sweeps of the periodic XY model on int16 angle planes in one launch on
 // Hopper (sm_90a), per-sweep sums fused.
 //
-//   smem_multisweep_kernel and multisweep_kernel, two modes of one
+//   smem_multisweep_kernel and gmem_multisweep_kernel, two modes of one
 //                     function, replace cuda_fortran_mc_simulation_spin_tpu/
 //                     ops/xy2d_multisweep.py:_kernel (pallas_call at :325,
 //                     _multisweep): S sweeps of (R, ny, half) int16 angle
@@ -16,43 +16,95 @@
 //                     sweep (JAX's microcanonical test mode).
 //
 // The TPU kernel keeps the four planes in VMEM for S sweeps.  Here two
-// modes of one function:
+// modes of one function, both a ring of 1024-thread blocks a replica, one
+// block an SM, with flags between phases (xy2d_ring.cuh, as
+// xy2d_resident.cu's) and no grid barrier:
 //
-//   smem_multisweep_kernel  the lattice in the SMs' shared memory, ring
-//                           flags between phases: every batch whose state
-//                           fits the grid's shared memory
-//                           (ops/xy2d_multisweep.smem_layout, e.g. one
-//                           1536x1536 replica);
-//   multisweep_kernel       the planes in device memory (9 MiB at the
-//                           route's largest shape, inside the 50 MB L2), a
-//                           grid barrier between phases: the larger
-//                           batches.
+//   smem_multisweep_kernel  the lattice in the SMs' shared memory: every
+//                           batch whose state fits the grid's shared
+//                           memory (ops/xy2d_multisweep.smem_layout, e.g.
+//                           one 1536x1536 replica);
+//   gmem_multisweep_kernel  the planes in device memory (9.4 MB at 1536^2
+//                           x 2 with the snapshot, inside the 50 MB L2),
+//                           updated in place: the larger batches
+//                           (ops/xy2d_multisweep.gmem_layout).
 //
-// smem_multisweep_kernel gives each replica a ring of 1024-thread blocks,
-// one an SM (xy2d_ring.cuh, as xy2d_resident.cu's): block j owns the
-// 256-site chunks bounds[j] .. bounds[j+1] - 1 of both colours' int16
-// planes and, where the fit rule allows, of the t=0 snapshot planes, holds
-// them in shared memory for the launch's S sweeps and writes the state back
-// once.  Each updating phase (Metropolis or over-relaxation) first waits on
-// its ring neighbours' flags and decodes every angle of the other colour
-// it reads once, into a shared float32 (cos, sin) plane: its own sites and
-// its halos, the neighbours' edge sites read through L2 (at the first
-// phase from the planes); a site then reads its four neighbours'
-// components from there, where multisweep_kernel decodes each other-colour
-// angle four times a phase.  The phase updates the chunks holding its
-// first and last `half` sites first, publishes those int16 sites to the
-// colour's edge buffer and sets its flag, then updates its other chunks.
-// The measure pass after the over-relaxation sweeps reads the decoded
-// colour a that the last phase b left in shared memory; it writes nothing
-// the neighbours read, so it neither waits nor publishes.  No grid barrier
-// in the launch.
+// Block j of a ring owns the 256-site chunks bounds[j] .. bounds[j+1] - 1
+// of both colours.  A site's other-colour neighbours lie within `half`
+// sites of its own w, so each phase reads the other colour's `half` sites
+// before the block's first chunk and after its last from its two ring
+// neighbours.  Each updating phase (Metropolis or over-relaxation) waits
+// on its neighbours' flags, updates the chunks holding its first and last
+// `half` sites (the edge chunks, ring::Walk), publishes them and sets its
+// flag, then updates its other chunks.  Four groups of 256 threads take
+// the chunks in turn; (y, i) of a site is its chunk's first site's plus
+// the thread's offset: no runtime division a site.
 //
-// multisweep_kernel walks a phase's 256-site items (replica, block) with a
-// cooperative grid of as many blocks as fit at once, waiting at a grid
-// barrier before the next phase reads what it wrote: 2 + 2·n_or phases
-// and, under over-relaxation, a measure pass a sweep.  Layout and
-// neighbours: xy2d_site.cuh, on int16 planes, unpadded (JAX's 16-row
-// granules and tiles are TPU layout).
+// The measure pass after the over-relaxation sweeps is folded into the
+// last over-relaxation phase b of the sweep: colour a does not change in
+// it, so a b site's field, its decoded centre and colour a's angle there
+// are the measure pass's, and its new angle as stored (wrapped to int16)
+// is the one the measure pass would read.  In the device-memory mode this
+// is needed: a pass after phase b that neither waits nor publishes would
+// read the neighbours' colour-a edge sites while they, having waited only
+// on this block's flag of phase b, may already rewrite them in the next
+// sweep's phase a.
+//
+// smem_multisweep_kernel holds a block's int16 sites of both colours and,
+// where the fit rule allows, of the t=0 snapshot in shared memory for the
+// launch's S sweeps and writes the state back once.  Each phase decodes
+// every angle of the other colour it reads once, into a shared float32
+// (cos, sin) plane: its own sites and its halos, the neighbours' edge
+// sites read through L2 from their edge buffer (at the first phase from
+// the planes); it publishes its edge sites to the colour's edge buffer.
+//
+// gmem_multisweep_kernel is the same ring and walk with the planes left
+// in device memory, updated in place: no edge buffer, a neighbour reads
+// the sites it needs straight from the planes after its acquire.  A block
+// holds the chunks no neighbour reads (those between its edge chunks) in
+// shared memory as int16 sites of both colours, as many as fit beside its
+// sums (all 64 of 70 at 1536x1536 x 2), loaded once a replica and written
+// back after its S sweeps; where room is left it decodes the other
+// colour's held sites and the `half` sites either side (its own edge
+// sites) once a phase into a float2 plane (all 64 at x 2, part of them at
+// x 3).  A read inside that plane comes from shared memory; any other read
+// of the other colour is decoded per read, from the held sites or from
+// the planes through L2 (__ldcg: its L1 may hold an older copy of a
+// neighbour's sites).  The decoded plane holds only the block's own
+// sites, final since the block's last barrier, so it is decoded before
+// the flag wait.  The snapshot stays in device memory, read at its site
+// through the read-only cache.  Ring t of the launch's rings takes
+// replicas t, t + rings, ... in turn, all S sweeps of one before the next,
+// its flags counting on: where one ring a replica would not fit
+// (1536x1536 x 23 and more), fewer rings of more blocks (two of 66 at
+// 1536x1536, each holding and decoding every chunk no neighbour reads);
+// where there are more replicas than block slots, rings of one block (the
+// whole replica, held whole where it fits, e.g. 64x64) with no flag,
+// their own barrier between phases.  A block's switch of replica needs
+// nothing more: no two replicas share a site, and the flags go on
+// counting phases across replicas.  Why in place is safe (as
+// xy2d_resident.cu's device-memory mode; an over-relaxation phase reads
+// and writes exactly as a Metropolis phase does):
+//   - a site reads only other-colour sites within `half` of its own w, so
+//     the sites of block j that read outside its range are its first and
+//     last `half` (its edge chunks), and the sites outside its range that
+//     it reads are its neighbours' last and first `half`, never held;
+//   - read after write: block j reads in phase k the other colour's sites
+//     of its neighbours after their flags say they published phase k - 1,
+//     which they do after updating their edge chunks in it;
+//   - write after read: block j writes colour c in phase k only after the
+//     same wait, and its neighbours read j's colour-c sites in phase k - 1
+//     only in their edge chunks, which precede their flags; a neighbour
+//     is at most one phase ahead (to start phase k + 1 it waits on j's
+//     flag of phase k), and in phase k + 1 it writes the other colour,
+//     which j reads in phase k from its own range alone after its edges;
+//   - a block's own writes are seen by its own threads after its barrier
+//     (a site's own plain load reads its own range, written by no other
+//     block); a held site's copy in the planes is stale until the write
+//     back, and every read of it goes to shared memory.
+// tests/test_torch_xy2d_int16_ring.py replays this schedule on the CPU
+// under adversarial interleavings, a separate measure pass's hazard
+// included.
 //
 // Random words: Philox under the (sweep, phase) key and counter
 // (replica, row, column, 0), as metropolis_kernel draws: the candidate is
@@ -62,9 +114,11 @@
 // uniform the top 24 bits of word 1.  Arithmetic: one rounding per
 // operation in the order of ops/xy2d_multisweep.py's plain version;
 // rintf rounds half to even as torch.round does.  The sums are float64 of
-// the float32 site terms, per 256-site chunk in a fixed order (block_sums;
-// the ring's warp sums in the same tree), then per (replica, sweep) by
+// the float32 site terms, per 256-site chunk in block_sums' order (the
+// ring's warp sums in the same tree), then per (replica, sweep) by
 // reduce_kernel: both modes give the same (R, S, chunks, 4) partials.
+// Layout and neighbours: xy2d_site.cuh, on int16 planes, unpadded (JAX's
+// 16-row granules and tiles are TPU layout).
 //
 // Bound on the H100: operations.  A Metropolis site needs ~150 32-bit
 // operations (one Philox4x32-10 call, three decodes: the site, the
@@ -72,12 +126,10 @@
 // site ~70 (one decode, the atan2 polynomial with its divide), the fused
 // sums a b site one more decode and two cos terms; the bytes (2 B read and
 // 2 B written a site and phase, the snapshot's 4 B a sweep) are a few MB.
-#include <cooperative_groups.h>
+#include <type_traits>
 
 #include "xy2d_ring.cuh"
 #include "xy2d_site.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -142,30 +194,6 @@ __device__ __forceinline__ float atan2_units(float y, float x) {
   return __fmul_rn(a, UNITS);
 }
 
-// The field at site w of `color` from the other colour's plane o:
-// (up + dn) + (centre + side) of the decoded components; also the
-// decoded centre (ox, oy) and its angle
-struct Field {
-  xy::Nbrs n;
-  float hx, hy, ox, oy;
-  int ko;
-};
-
-__device__ __forceinline__ Field field(const int16_t* o, int ny, int half,
-                                       int color, int r, int w) {
-  Field f;
-  f.n = xy::neighbours(ny, half, color, r, w);
-  float ux, uy, dx, dy, sx, sy;
-  cs16(o[f.n.up], ux, uy);
-  cs16(o[f.n.dn], dx, dy);
-  f.ko = o[f.n.idx];
-  cs16(f.ko, f.ox, f.oy);
-  cs16(o[f.n.side], sx, sy);
-  f.hx = __fadd_rn(__fadd_rn(ux, dx), __fadd_rn(f.ox, sx));
-  f.hy = __fadd_rn(__fadd_rn(uy, dy), __fadd_rn(f.oy, sy));
-  return f;
-}
-
 // The site terms of a b site with components (bx, by) and angle kb in the
 // field (hx, hy), colour a's decoded (ox, oy) and angle ko at the same
 // (y, i), and the snapshot angles (s_a, s_b) there
@@ -181,18 +209,40 @@ __device__ __forceinline__ Sums b_sums(float ox, float oy, float hx,
   return t;
 }
 
-// A Metropolis step of a site of angle kx in the field (hx, hy) with its
-// Philox words b: the candidate word 0 >> 16 replaces kx iff the top 24
-// bits of word 1 fall below exp(-β max(ΔE, 0)); the angle after the step
-// (the candidate unwrapped), its components and whether it moved
-struct Step {
+// A site's new angle k (a Metropolis candidate unwrapped, a reflection as
+// stored), its components (x, y) where the sums read them, and whether to
+// store it
+struct Update {
   int k;
   float x, y;
-  bool accept;
+  bool store;
 };
 
-__device__ __forceinline__ Step metro_step(float hx, float hy, int kx,
-                                           uint4 b, float neg_beta) {
+// One site's update, both modes': the site of angle kx in the field (hx,
+// hy) by a Metropolis step under the Philox words of counter (r, y, i, 0)
+// and key (the candidate word 0 >> 16 replaces kx iff the top 24 bits of
+// word 1 fall below exp(-β max(ΔE, 0))), or with reflect_phase by the
+// over-relaxation 2 rint(φ) - kx, φ = atan2_units(hy, hx); with measuring
+// the new angle's components for its sums (a reflection's decoded as the
+// measure pass would read it back, wrapped to int16)
+__device__ __forceinline__ Update update_site(float hx, float hy, int kx,
+                                              int r, int y, int i, uint2 key,
+                                              float neg_beta,
+                                              bool reflect_phase,
+                                              bool measuring) {
+  Update u;
+  if (reflect_phase) {
+    u.k = static_cast<int16_t>(
+        2 * static_cast<int>(rintf(atan2_units(hy, hx))) - kx);
+    u.store = true;
+    u.x = u.y = 0.0f;
+    if (measuring) cs16(u.k, u.x, u.y);
+    return u;
+  }
+  const uint4 b = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(y),
+                 static_cast<uint32_t>(i), 0u),
+      key);
   float cx, sx;
   cs16(kx, cx, sx);
   const int cand = static_cast<int>(b.x >> 16);
@@ -201,111 +251,18 @@ __device__ __forceinline__ Step metro_step(float hx, float hy, int kx,
   const float de = -__fadd_rn(__fmul_rn(__fsub_rn(cc, cx), hx),
                               __fmul_rn(__fsub_rn(cs, sx), hy));
   const float prob = expf(__fmul_rn(fmaxf(de, 0.0f), neg_beta));
-  const bool accept = xy::u24(b.y) < prob;
-  return accept ? Step{cand, cc, cs, true} : Step{kx, cx, sx, false};
+  u.store = xy::u24(b.y) < prob;
+  u.k = u.store ? cand : kx;
+  u.x = u.store ? cc : cx;
+  u.y = u.store ? cs : sx;
+  return u;
 }
 
-// The over-relaxed angle of a site of angle kx in the field (hx, hy):
-// 2 rint(φ) - kx, φ = atan2_units(hy, hx)
-__device__ __forceinline__ int16_t reflect(float hx, float hy, int kx) {
-  return static_cast<int16_t>(
-      2 * static_cast<int>(rintf(atan2_units(hy, hx))) - kx);
-}
-
-// One Metropolis update of site w of `color` (replica r); with `measure`
-// (phase b) returns the site's sums, else zeros
-__device__ __forceinline__ Sums metropolis(const Multisweep& a, int color,
-                                           int r, int w, uint2 key,
-                                           bool measure) {
-  int16_t* x = color ? a.pb : a.pa;
-  const int16_t* o = color ? a.pa : a.pb;
-  const Field f = field(o, a.ny, a.half, color, r, w);
-  const Step st = metro_step(f.hx, f.hy, x[f.n.idx],
-                             xy::site_words(r, w, a.half, key), a.neg_beta);
-  if (st.accept) x[f.n.idx] = static_cast<int16_t>(st.k);
-  Sums t = {0.0, 0.0, 0.0, 0.0};
-  if (measure)
-    t = b_sums(f.ox, f.oy, f.hx, f.hy, st.x, st.y, st.k, f.ko,
-               a.sa[f.n.idx], a.sb[f.n.idx]);
-  return t;
-}
-
-__device__ __forceinline__ void over_relax(const Multisweep& a, int color,
-                                           int r, int w) {
-  int16_t* x = color ? a.pb : a.pa;
-  const int16_t* o = color ? a.pa : a.pb;
-  const Field f = field(o, a.ny, a.half, color, r, w);
-  x[f.n.idx] = reflect(f.hx, f.hy, x[f.n.idx]);
-}
-
-__device__ __forceinline__ Sums measure_site(const Multisweep& a, int r,
-                                             int w) {
-  const Field f = field(a.pa, a.ny, a.half, 1, r, w);
-  const int kb = a.pb[f.n.idx];
-  float bx, by;
-  cs16(kb, bx, by);
-  return b_sums(f.ox, f.oy, f.hx, f.hy, bx, by, kb, f.ko, a.sa[f.n.idx],
-                a.sb[f.n.idx]);
-}
-
-// Phase kinds of a sweep
-enum Kind { METRO_A, METRO_B, METRO_B_MEASURE, OR_A, OR_B, MEASURE };
-
-__device__ __forceinline__ void run_phase(const Multisweep& a, Kind kind,
-                                          int s) {
-  const int n = a.ny * a.half;
-  const int nblk = (n + THREADS - 1) / THREADS;
-  const int items = a.nrep * nblk;
-  const bool sums = kind == METRO_B_MEASURE || kind == MEASURE;  // uniform
-  uint2 key = make_uint2(0u, 0u);
-  if (kind <= METRO_B_MEASURE) {
-    const int c = kind == METRO_A ? 0 : 1;
-    key = make_uint2(static_cast<uint32_t>(a.seeds[(2 * s + c) * 2]),
-                     static_cast<uint32_t>(a.seeds[(2 * s + c) * 2 + 1]));
-  }
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int r = item / nblk, blk = item - r * nblk;
-    const int w = blk * THREADS + threadIdx.x;
-    Sums t = {0.0, 0.0, 0.0, 0.0};
-    if (w < n) {
-      switch (kind) {
-        case METRO_A: metropolis(a, 0, r, w, key, false); break;
-        case METRO_B: metropolis(a, 1, r, w, key, false); break;
-        case METRO_B_MEASURE: t = metropolis(a, 1, r, w, key, true); break;
-        case OR_A: over_relax(a, 0, r, w); break;
-        case OR_B: over_relax(a, 1, r, w); break;
-        case MEASURE: t = measure_site(a, r, w); break;
-      }
-    }
-    if (sums)
-      xy::block_sums<xy::NSUMS, true>(
-          a.partials, static_cast<size_t>(r) * a.sweeps + s, nblk, blk, t);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) multisweep_kernel(Multisweep a) {
-  cg::grid_group grid = cg::this_grid();
-  for (int s = 0; s < a.sweeps; ++s) {
-    int n_or = a.n_or;
-    if (a.or_only) {
-      n_or = n_or > 1 ? n_or : 1;
-    } else {
-      run_phase(a, METRO_A, s);
-      grid.sync();
-      run_phase(a, n_or == 0 ? METRO_B_MEASURE : METRO_B, s);
-      grid.sync();
-    }
-    if (a.or_only || n_or > 0) {
-      for (int j = 0; j < n_or; ++j) {
-        run_phase(a, OR_A, s);
-        grid.sync();
-        run_phase(a, OR_B, s);
-        grid.sync();
-      }
-      run_phase(a, MEASURE, s);
-      grid.sync();
-    }
-  }
+// The phases of a sweep: two Metropolis phases (but with or_only) and two
+// a sweep of over-relaxation; the last (a colour-b phase) measures
+__device__ __forceinline__ int sweep_phases(const Multisweep& a) {
+  const int n_or = a.or_only ? (a.n_or > 1 ? a.n_or : 1) : a.n_or;
+  return (a.or_only ? 0 : 2) + 2 * n_or;
 }
 
 // The ring layout of smem_multisweep_kernel (ops/xy2d_multisweep.smem_layout)
@@ -354,10 +311,10 @@ __global__ void __launch_bounds__(ring::BLOCK, 1)
   const int g = tid / THREADS, tg = tid & (THREADS - 1);
   const int dy = tg / h, di = tg - dy * h;
   const ring::Walk walk(h, m, nch);
-  const int n_or = a.or_only ? (a.n_or > 1 ? a.n_or : 1) : a.n_or;
+  const int per = sweep_phases(a);
   // updating phases of the launch: each waits on the k its neighbours
   // published and publishes k + 1 (but the last)
-  const int phases = a.sweeps * ((a.or_only ? 0 : 2) + 2 * n_or);
+  const int phases = a.sweeps * per;
   // The other colour's angles decoded into dec: its halos from the ring
   // neighbours' edges (phase 0: from the planes, which the neighbours write
   // back only after waiting on this block's later flags), its owned sites
@@ -386,65 +343,38 @@ __global__ void __launch_bounds__(ring::BLOCK, 1)
     }
     __syncthreads();
   };
-  // The field of the site at walk position p of colour c: its chunk q, its
-  // index w, slot l, (y, i) and field (hx, hy) and decoded centre ce
-  struct At {
-    int q, w, l, y, i;
-    float hx, hy;
-    float2 ce;
-  };
-  auto at = [&](int p, int c) {
-    At s;
-    s.q = walk.chunk(p, nch);
-    s.w = (c0 + s.q) * THREADS + tg;
-    if (s.w < n) {
-      s.l = s.w - lo + h;
-      const ring::Slot sl(rows[s.q], dy, di, h, c, s.l);
-      s.y = sl.y;
-      s.i = sl.i;
-      const float2 up = dec[s.l - h], dn = dec[s.l + h], sd = dec[sl.ls];
-      s.ce = dec[s.l];
-      s.hx = __fadd_rn(__fadd_rn(up.x, dn.x), __fadd_rn(s.ce.x, sd.x));
-      s.hy = __fadd_rn(__fadd_rn(up.y, dn.y), __fadd_rn(s.ce.y, sd.y));
-    }
-    return s;
-  };
-  // The measuring sites' warp sums into the partials of sweep s
-  auto partials = [&](int s) {
-    ring::chunk_partials(
-        a.partials +
-            ((static_cast<size_t>(r) * a.sweeps + s) * nblk + c0) * NSUMS,
-        red, nch, tid);
-  };
-  // Updating phase k of colour c: Metropolis under key (measuring: the
-  // fused sums of sweep s) or, with reflect_phase, over-relaxation
-  auto phase = [&](int c, int k, int s, bool reflect_phase, uint2 key,
-                   bool measuring) {
+  // Phase k of colour c, the i-th of sweep s: Metropolis, or
+  // over-relaxation from the sweep's third phase (from its first with
+  // or_only); the last of the sweep measures
+  auto phase = [&](int c, int k, int s, int i) {
+    const bool reflect_phase = a.or_only || i >= 2;
+    const bool measuring = i == per - 1;
+    const uint2 key = reflect_phase ? make_uint2(0u, 0u)
+                                    : ring::phase_key(a.seeds, 2 * s + c);
     if (k > 0) ring::wait(rg.flags, prev, next, static_cast<unsigned>(k), tid);
     decode(c, k);
     int16_t* const sp = c ? own1 : own0;
     auto update = [&](int p) {
-      const At st = at(p, c);
+      const int q = walk.chunk(p, nch);
+      const int w = (c0 + q) * THREADS + tg;
       Sums t = {0.0, 0.0, 0.0, 0.0};
-      if (st.w < n) {
-        const int ol = st.l - h, kx = sp[ol];
-        if (reflect_phase) {
-          sp[ol] = reflect(st.hx, st.hy, kx);
-        } else {
-          const Step u = metro_step(
-              st.hx, st.hy, kx,
-              philox4x32_10(make_uint4(static_cast<uint32_t>(r),
-                                       static_cast<uint32_t>(st.y),
-                                       static_cast<uint32_t>(st.i), 0u),
-                            key),
-              a.neg_beta);
-          if (u.accept) sp[ol] = static_cast<int16_t>(u.k);
-          if (measuring)
-            t = b_sums(st.ce.x, st.ce.y, st.hx, st.hy, u.x, u.y, u.k,
-                       own0[ol], snap_a[ol], snap_b[ol]);
-        }
+      if (w < n) {
+        const int l = w - lo + h, ol = l - h;
+        const ring::Slot sl(rows[q], dy, di, h, c, l);
+        const float2 up = dec[l - h], dn = dec[l + h], sd = dec[sl.ls];
+        const float2 ce = dec[l];
+        const float hx =
+            __fadd_rn(__fadd_rn(up.x, dn.x), __fadd_rn(ce.x, sd.x));
+        const float hy =
+            __fadd_rn(__fadd_rn(up.y, dn.y), __fadd_rn(ce.y, sd.y));
+        const Update u = update_site(hx, hy, sp[ol], r, sl.y, sl.i, key,
+                                     a.neg_beta, reflect_phase, measuring);
+        if (u.store) sp[ol] = static_cast<int16_t>(u.k);
+        if (measuring)
+          t = b_sums(ce.x, ce.y, hx, hy, u.x, u.y, u.k, own0[ol], snap_a[ol],
+                     snap_b[ol]);
       }
-      if (measuring) ring::store_sums(red, st.q, tg, t);  // uniform
+      if (measuring) ring::store_sums(red, q, tg, t);  // uniform
     };
     int p = g;
     for (; p < walk.edges; p += GROUPS) update(p);
@@ -463,38 +393,15 @@ __global__ void __launch_bounds__(ring::BLOCK, 1)
     }
     for (; p < nch; p += GROUPS) update(p);
     __syncthreads();
-    if (measuring) partials(s);
-  };
-  // The measure pass of sweep s: colour b's sites in the field of colour
-  // a, which the last phase b left decoded in dec
-  auto measure = [&](int s) {
-    for (int p = g; p < nch; p += GROUPS) {
-      const At st = at(p, 1);
-      Sums t = {0.0, 0.0, 0.0, 0.0};
-      if (st.w < n) {
-        const int ol = st.l - h, kb = own1[ol];
-        float bx, by;
-        cs16(kb, bx, by);
-        t = b_sums(st.ce.x, st.ce.y, st.hx, st.hy, bx, by, kb, own0[ol],
-                   snap_a[ol], snap_b[ol]);
-      }
-      ring::store_sums(red, st.q, tg, t);
-    }
-    __syncthreads();
-    partials(s);
+    if (measuring)
+      ring::chunk_partials(
+          a.partials +
+              ((static_cast<size_t>(r) * a.sweeps + s) * nblk + c0) * NSUMS,
+          red, nch, tid);
   };
   int k = 0;
-  for (int s = 0; s < a.sweeps; ++s) {
-    if (!a.or_only) {
-      phase(0, k++, s, false, ring::phase_key(a.seeds, 2 * s), false);
-      phase(1, k++, s, false, ring::phase_key(a.seeds, 2 * s + 1), n_or == 0);
-    }
-    for (int i = 0; i < n_or; ++i) {
-      phase(0, k++, s, true, uint2{}, false);
-      phase(1, k++, s, true, uint2{}, false);
-    }
-    if (n_or > 0) measure(s);
-  }
+  for (int s = 0; s < a.sweeps; ++s)
+    for (int i = 0; i < per; ++i, ++k) phase(i & 1, k, s, i);
   for (int l = tid; l < m; l += T) {
     const size_t o = base + lo + l;
     a.pa[o] = own0[l];
@@ -502,16 +409,201 @@ __global__ void __launch_bounds__(ring::BLOCK, 1)
   }
 }
 
-int grid_blocks(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, multisweep_kernel, THREADS, 0);
-  *blocks = per_sm * sms;
-  return static_cast<int>(e);
+// The rings of gmem_multisweep_kernel (ops/xy2d_multisweep.gmem_layout)
+struct GmemRing {
+  const int32_t* bounds;   // (nb + 1,) first chunk of each block of a ring
+  unsigned* flags;         // (rings nb,) phases published
+  int nb;                  // blocks a ring
+  int rings;               // rings at once: ring t takes replicas t,
+                           // t + rings, ... in turn
+  int chunks;              // chunks a block at most
+  int hold;                // chunks a block holds in shared memory at most
+  int dec;                 // held chunks decoded once a phase at most
+  int span;                // float2 slots of the decoded plane: dec 256 +
+                           // 2 half, or 0
+};
+
+// shared memory a held chunk takes: its int16 sites of both colours
+constexpr int HELD_BYTES = 2 * THREADS * 2;
+
+// The angle of site x of a colour: held[x - sa] where held (x in [sa, sa
+// + span)), else from its plane through L2
+__device__ __forceinline__ int angle_at(const int16_t* held, int sa,
+                                        unsigned span, const int16_t* plane,
+                                        int x) {
+  const unsigned o = static_cast<unsigned>(x - sa);
+  return o < span ? held[o] : __ldcg(plane + x);
+}
+
+// Site x of the other colour as (cos, sin): slot x - dlo of the decoded
+// plane where it holds x, else decoded from angle_at
+__device__ __forceinline__ float2 other_at(const float2* dec, int dlo,
+                                           unsigned dspan,
+                                           const int16_t* held, int sa,
+                                           unsigned span,
+                                           const int16_t* plane, int x) {
+  const unsigned o = static_cast<unsigned>(x - dlo);
+  if (o < dspan) return dec[o];
+  float2 f;
+  cs16(angle_at(held, sa, span, plane, x), f.x, f.y);
+  return f;
+}
+
+// Shared memory (ops/xy2d_multisweep.gmem_layout): the decoded plane, a
+// float2 a slot of span; the chunks' warp sums and first sites; the held
+// int16 sites of colours a and b (hold chunks each, site sa + l at l).
+__global__ void __launch_bounds__(ring::BLOCK, 1)
+    gmem_multisweep_kernel(Multisweep a, GmemRing rg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* const dec = reinterpret_cast<float2*>(smem);
+  double* const red = reinterpret_cast<double*>(dec + rg.span);
+  int2* const rows = reinterpret_cast<int2*>(red + rg.chunks * NSUMS * WARPS);
+  int16_t* const held0 = reinterpret_cast<int16_t*>(rows + rg.chunks);
+  int16_t* const held1 = held0 + rg.hold * THREADS;
+  constexpr int T = ring::BLOCK;
+  const int h = a.half, n = a.ny * h;
+  const int nblk = (n + THREADS - 1) / THREADS;
+  const int t = blockIdx.x / rg.nb, j = blockIdx.x - t * rg.nb;
+  const int c0 = rg.bounds[j], nch = rg.bounds[j + 1] - c0;
+  const int m = min(nch * THREADS, n - c0 * THREADS);
+  const int prev = t * rg.nb + (j == 0 ? rg.nb - 1 : j - 1);
+  const int next = t * rg.nb + (j == rg.nb - 1 ? 0 : j + 1);
+  // a ring of one: no neighbour, no flag, no edge first
+  const bool alone = rg.nb == 1;
+  const int tid = threadIdx.x;
+  ring::chunk_rows(rows, c0, nch, h, tid);
+  const int g = tid / THREADS, tg = tid & (THREADS - 1);
+  const int dy = tg / h, di = tg - dy * h;
+  const ring::Walk walk(h, m, nch);
+  const int edges = alone ? 0 : walk.edges;
+  // the held chunks qa .. qb - 1: the chunks no neighbour reads (all of a
+  // ring of one), sites sa .. sb - 1
+  const int qa = alone ? 0 : walk.head;
+  const int room = alone ? nch : nch - walk.edges;
+  const int qb = qa + min(rg.hold, max(room, 0));
+  const int sa = (c0 + qa) * THREADS;
+  const int sb = qb > qa ? min((c0 + qb) * THREADS, n) : sa;
+  const unsigned span = static_cast<unsigned>(sb - sa);
+  // the decoded plane: the first dq held chunks, sites sa .. db - 1, and h
+  // sites either side; slot l holds site dlo + l (modulo n), so a site w
+  // in sa .. db - 1 finds its four reads at slots w - dlo -+ h, w - dlo
+  // and its side slot, as in smem_multisweep_kernel
+  const int dq = min(rg.dec, qb - qa);
+  const int db = dq > 0 ? min((c0 + qa + dq) * THREADS, n) : sa;
+  const int dlo = sa - h;
+  const unsigned dspan = dq > 0 ? static_cast<unsigned>(db - sa + 2 * h) : 0u;
+  // every site of chunk q lies in sa .. db - 1
+  auto all_dec = [&](int q) {
+    const int w0 = (c0 + q) * THREADS;
+    return w0 >= sa && min(w0 + THREADS, n) <= db;
+  };
+  const int per = sweep_phases(a);
+  unsigned done = 0;  // phases this block finished, over its replicas
+  for (int r = t; r < a.nrep; r += rg.rings) {
+    const size_t base = static_cast<size_t>(r) * n;
+    for (int l = tid; l < sb - sa; l += T) {
+      held0[l] = a.pa[base + sa + l];
+      held1[l] = a.pb[base + sa + l];
+    }
+    __syncthreads();
+    for (int s = 0; s < a.sweeps; ++s) {
+      for (int i = 0; i < per; ++i, ++done) {
+        const int c = i & 1;
+        const bool reflect_phase = a.or_only || i >= 2;
+        const bool measuring = i == per - 1;
+        int16_t* const xs = (c ? a.pb : a.pa) + base;
+        const int16_t* const os = (c ? a.pa : a.pb) + base;
+        int16_t* const xh = c ? held1 : held0;
+        const int16_t* const oh = c ? held0 : held1;
+        // the other colour's own sites decoded, before the wait: no other
+        // block writes them
+        for (int l = tid; l < static_cast<int>(dspan); l += T) {
+          int x = dlo + l;
+          x = x < 0 ? x + n : (x >= n ? x - n : x);
+          float2 f;
+          cs16(angle_at(oh, sa, span, os, x), f.x, f.y);
+          dec[l] = f;
+        }
+        if (!alone && done > 0)
+          ring::wait(rg.flags, prev, next, done, tid);
+        else
+          __syncthreads();
+        const uint2 key = reflect_phase ? make_uint2(0u, 0u)
+                                        : ring::phase_key(a.seeds, 2 * s + c);
+        // one site of position p (D: its chunk in the decoded plane, its
+        // reads at slots; else rows wrapping at the replica and each read
+        // by other_at); a measuring one leaves its warp's sums in red,
+        // reduced after the phase in block_sums' order
+        auto update = [&](auto all, int p) {
+          constexpr bool D = decltype(all)::value;
+          const int q = walk.chunk(p, nch), w = (c0 + q) * THREADS + tg;
+          Sums t4 = {0.0, 0.0, 0.0, 0.0};
+          if (w < n) {
+            const int l = D ? w - dlo : w;
+            const ring::Slot sl(rows[q], dy, di, h, c, l);
+            float2 up, dn, ce, sd;
+            if (D) {
+              up = dec[l - h];
+              dn = dec[l + h];
+              ce = dec[l];
+              sd = dec[sl.ls];
+            } else {
+              const int wu = w < h ? w - h + n : w - h;
+              const int wd = w >= n - h ? w + h - n : w + h;
+              up = other_at(dec, dlo, dspan, oh, sa, span, os, wu);
+              dn = other_at(dec, dlo, dspan, oh, sa, span, os, wd);
+              ce = other_at(dec, dlo, dspan, oh, sa, span, os, w);
+              sd = other_at(dec, dlo, dspan, oh, sa, span, os, sl.ls);
+            }
+            const float hx =
+                __fadd_rn(__fadd_rn(up.x, dn.x), __fadd_rn(ce.x, sd.x));
+            const float hy =
+                __fadd_rn(__fadd_rn(up.y, dn.y), __fadd_rn(ce.y, sd.y));
+            const bool mine = q >= qa && q < qb;  // uniform: a held site
+            const Update u =
+                update_site(hx, hy, mine ? xh[w - sa] : xs[w], r, sl.y, sl.i,
+                            key, a.neg_beta, reflect_phase, measuring);
+            if (u.store) {
+              if (mine)
+                xh[w - sa] = static_cast<int16_t>(u.k);
+              else
+                xs[w] = static_cast<int16_t>(u.k);
+            }
+            // the snapshot through the read-only cache, at the site
+            if (measuring)
+              t4 = b_sums(ce.x, ce.y, hx, hy, u.x, u.y, u.k,
+                          D ? oh[w - sa] : angle_at(oh, sa, span, os, w),
+                          __ldg(a.sa + base + w), __ldg(a.sb + base + w));
+          }
+          if (measuring) ring::store_sums(red, q, tg, t4);  // uniform
+        };
+        int p = g;
+        for (; p < edges; p += GROUPS) update(std::false_type{}, p);
+        if (!alone) {
+          // the edge chunks' sites stored, then the flag, before the others
+          __syncthreads();
+          ring::publish(rg.flags, done + 1, tid);
+        }
+        for (; p < nch; p += GROUPS) {
+          if (all_dec(walk.chunk(p, nch)))
+            update(std::true_type{}, p);
+          else
+            update(std::false_type{}, p);
+        }
+        __syncthreads();
+        if (measuring)
+          ring::chunk_partials(
+              a.partials +
+                  ((static_cast<size_t>(r) * a.sweeps + s) * nblk + c0) *
+                      NSUMS,
+              red, nch, tid);
+      }
+    }
+    for (int l = tid; l < sb - sa; l += T) {
+      a.pa[base + sa + l] = held0[l];
+      a.pb[base + sa + l] = held1[l];
+    }
+  }
 }
 
 Multisweep make_args(void* pa, void* pb, const void* sa, const void* sb,
@@ -535,8 +627,28 @@ Multisweep make_args(void* pa, void* pb, const void* sa, const void* sb,
   return a;
 }
 
-// The launch's reduce_kernel: the (rows, nblk, 4) partials into obs
-int finish(void* partials, void* obs, int rows, int nblk, cudaStream_t st) {
+// Both modes' arguments but the ring's
+int check_args(int nrep, int ny, int half, int sweeps, int n_or,
+               const void* seeds, const void* partials, const void* obs) {
+  if (int bad = xy::check_shape(nrep, ny, half)) return bad;
+  if (sweeps < 1 || n_or < 0 || seeds == nullptr || partials == nullptr ||
+      obs == nullptr ||
+      static_cast<long long>(nrep) * ny * half >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// The launch of ring kernel fn (args, blocks of ring::BLOCK threads, smem
+// bytes) and its reduce_kernel: the (rows, nblk, 4) partials into obs
+int launch(const void* fn, void** args, long long blocks, int smem,
+           void* partials, void* obs, int rows, int nblk, cudaStream_t st) {
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, dim3(static_cast<unsigned>(blocks)), dim3(ring::BLOCK), args, smem,
+      st);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
   int code = static_cast<int>(cudaGetLastError());
   if (code != 0) return code;
   xy::reduce_kernel<NSUMS><<<rows, THREADS, 0, st>>>(
@@ -548,45 +660,6 @@ int finish(void* partials, void* obs, int rows, int nblk, cudaStream_t st) {
 
 extern "C" {
 
-// Blocks of the cooperative grid: as many as can be resident at once on
-// the current device (0 if none fits).
-int xyi_grid(int* blocks) { return grid_blocks(blocks); }
-
-// S = sweeps sweeps of the (nrep, ny, half) int16 planes pa, pb in place,
-// one cooperative launch; sa, sb the t=0 snapshot planes; seeds (S, 2, 2)
-// int32 on the device; partials (nrep, S, blocks, 4) float64 scratch; obs
-// (nrep, S, 4) float64 the per-sweep (Σ S_x, Σ S_y, e, A) (reduce_kernel
-// after the launch).  A batch whose site index could reach 2^31 is
-// refused.
-int xyi_multisweep(void* pa, void* pb, const void* sa, const void* sb,
-                   const void* seeds, void* partials, void* obs, int nrep,
-                   int ny, int half, int sweeps, int n_or, int or_only,
-                   float neg_beta, void* stream) {
-  if (int bad = xy::check_shape(nrep, ny, half)) return bad;
-  if (sweeps < 1 || n_or < 0 || seeds == nullptr || partials == nullptr ||
-      obs == nullptr ||
-      static_cast<long long>(nrep) * ny * half >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int resident = 0;
-  if (int err = grid_blocks(&resident)) return err;
-  if (resident < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int nblk = (ny * half + THREADS - 1) / THREADS;
-  const long long items = static_cast<long long>(nrep) * nblk;
-  const int blocks = items < resident ? static_cast<int>(items) : resident;
-  Multisweep a = make_args(pa, pb, sa, sb, seeds, partials, nrep, ny, half,
-                           sweeps, n_or, or_only, neg_beta);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void* args[] = {&a};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(multisweep_kernel), dim3(blocks),
-      dim3(THREADS), args, 0, st);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(e);
-  }
-  return finish(partials, obs, nrep * sweeps, nblk, st);
-}
-
 // What ops/xy2d_multisweep.smem_layout needs of the current device for
 // smem_multisweep_kernel (xy2d_ring.cuh ring::smem_limits).
 int xyi_smem_limits(int* sms, int* per_sm, int* smem_block, int* smem_sm,
@@ -596,34 +669,48 @@ int xyi_smem_limits(int* sms, int* per_sm, int* smem_block, int* smem_sm,
       smem_block, smem_sm, reserved);
 }
 
-// smem_multisweep_kernel: the same sweeps and sums as xyi_multisweep on
-// the ring layout of ops/xy2d_multisweep.smem_layout: nb blocks a replica,
-// block j owning chunks bounds[j] .. bounds[j+1] - 1 ((nb + 1) int32 on
-// the device), at most cap sites, in smem bytes of dynamic shared memory
-// (8 (cap + 2 half) + CHUNK_BYTES a chunk of cap + 4 cap, + 4 cap with
-// snap_smem, the snapshot held there too); edges (nrep nb x 4 half int16)
-// and flags (nrep nb uint32) scratch on the device, the flags cleared here
-// on the stream.  A grid that cannot be resident at once returns
-// cudaErrorCooperativeLaunchTooLarge.
+// The same of gmem_multisweep_kernel, for gmem_layout.
+int xyi_gmem_limits(int* sms, int* per_sm, int* smem_block, int* smem_sm,
+                    int* reserved) {
+  return ring::smem_limits(
+      reinterpret_cast<const void*>(gmem_multisweep_kernel), sms, per_sm,
+      smem_block, smem_sm, reserved, ring::BLOCK);
+}
+
+// smem_multisweep_kernel: S = sweeps sweeps of the (nrep, ny, half) int16
+// planes pa, pb in place, one cooperative launch; sa, sb the t=0 snapshot
+// planes; seeds (S, 2, 2) int32 on the device; partials (nrep, S, chunks,
+// 4) float64 scratch; obs (nrep, S, 4) float64 the per-sweep (Σ S_x, Σ
+// S_y, e, A) (reduce_kernel after the launch).  On the ring layout of
+// ops/xy2d_multisweep.smem_layout: nb blocks a replica, block j owning
+// chunks bounds[j] .. bounds[j+1] - 1 ((nb + 1) int32 on the device), at
+// most cap sites, in smem bytes of dynamic shared memory (8 (cap + 2 half)
+// + CHUNK_BYTES a chunk of cap + 4 cap, + 4 cap with snap_smem, the
+// snapshot held there too); edges (nrep nb x 4 half int16) and flags (nrep
+// nb uint32) scratch on the device, the flags cleared here on the stream.
+// A batch whose site index could reach 2^31 is refused; a grid that
+// cannot be resident at once returns cudaErrorCooperativeLaunchTooLarge.
 int xyi_multisweep_smem(void* pa, void* pb, const void* sa, const void* sb,
                         const void* seeds, void* partials, void* obs,
                         const void* bounds, void* edges, void* flags,
                         int nrep, int ny, int half, int sweeps, int n_or,
                         int or_only, int nb, int cap, int smem,
                         int snap_smem, float neg_beta, void* stream) {
-  if (int bad = xy::check_shape(nrep, ny, half)) return bad;
+  if (int bad = check_args(nrep, ny, half, sweeps, n_or, seeds, partials,
+                           obs))
+    return bad;
   const long long span = static_cast<long long>(cap) + 2LL * half;
   const long long need = 8 * span +
                          static_cast<long long>(cap / THREADS) * CHUNK_BYTES +
                          4LL * cap * (snap_smem ? 2 : 1);
-  if (sweeps < 1 || n_or < 0 || seeds == nullptr || partials == nullptr ||
-      obs == nullptr || nb < 1 || cap < half || cap % THREADS != 0 ||
-      bounds == nullptr || edges == nullptr || flags == nullptr ||
+  if (nb < 1 || cap < half || cap % THREADS != 0 || bounds == nullptr ||
+      edges == nullptr || flags == nullptr ||
       static_cast<long long>(nrep) * nb > 0x7fffffffLL || smem < need)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = reinterpret_cast<const void*>(smem_multisweep_kernel);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (int err = ring::prepare(fn, smem, static_cast<long long>(nrep) * nb,
+  const long long blocks = static_cast<long long>(nrep) * nb;
+  if (int err = ring::prepare(fn, smem, blocks,
                               static_cast<unsigned*>(flags), st))
     return err;
   Multisweep a = make_args(pa, pb, sa, sb, seeds, partials, nrep, ny, half,
@@ -636,13 +723,56 @@ int xyi_multisweep_smem(void* pa, void* pb, const void* sa, const void* sb,
   rg.span = static_cast<int>(span);
   rg.chunks = cap / THREADS;
   void* args[] = {&a, &rg, &snap_smem};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      fn, dim3(nrep * nb), dim3(ring::BLOCK), args, smem, st);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(e);
-  }
-  return finish(partials, obs, nrep * sweeps,
+  return launch(fn, args, blocks, smem, partials, obs, nrep * sweeps,
+                (ny * half + THREADS - 1) / THREADS, st);
+}
+
+// gmem_multisweep_kernel: the same sweeps and sums as xyi_multisweep_smem
+// on the rings of ops/xy2d_multisweep.gmem_layout: rings rings of nb
+// blocks at once (ring t taking replicas t, t + rings, ...; with nb > 1
+// each block owning at least half sites), block j
+// of a ring owning chunks bounds[j] .. bounds[j+1] - 1 ((nb + 1) int32 on
+// the device), at most cap sites, of which it holds at most hold chunks in
+// shared memory and decodes at most dec of those once a phase, in smem
+// bytes of dynamic shared memory (8 (256 dec + 2 half) where dec > 0,
+// CHUNK_BYTES a chunk of cap, HELD_BYTES a held chunk); flags (rings nb
+// uint32) scratch on the device, cleared here on the stream.
+int xyi_multisweep_gmem(void* pa, void* pb, const void* sa, const void* sb,
+                        const void* seeds, void* partials, void* obs,
+                        const void* bounds, void* flags, int nrep, int ny,
+                        int half, int sweeps, int n_or, int or_only, int nb,
+                        int rings, int cap, int hold, int dec, int smem,
+                        float neg_beta, void* stream) {
+  if (int bad = check_args(nrep, ny, half, sweeps, n_or, seeds, partials,
+                           obs))
+    return bad;
+  const long long blocks = static_cast<long long>(rings) * nb;
+  const long long span = dec > 0 ? 256LL * dec + 2LL * half : 0;
+  if (nb < 1 || rings < 1 || rings > nrep || (nb > 1 && cap < half) ||
+      cap < THREADS || cap % THREADS != 0 || hold < 0 ||
+      hold > cap / THREADS || dec < 0 || dec > hold ||
+      bounds == nullptr || flags == nullptr || blocks > 0x7fffffffLL ||
+      smem < 8 * span + static_cast<long long>(cap / THREADS) * CHUNK_BYTES +
+                 static_cast<long long>(hold) * HELD_BYTES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = reinterpret_cast<const void*>(gmem_multisweep_kernel);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int err = ring::prepare(fn, smem, blocks, static_cast<unsigned*>(flags),
+                              st, ring::BLOCK))
+    return err;
+  Multisweep a = make_args(pa, pb, sa, sb, seeds, partials, nrep, ny, half,
+                           sweeps, n_or, or_only, neg_beta);
+  GmemRing rg;
+  rg.bounds = static_cast<const int32_t*>(bounds);
+  rg.flags = static_cast<unsigned*>(flags);
+  rg.nb = nb;
+  rg.rings = rings;
+  rg.chunks = cap / THREADS;
+  rg.hold = hold;
+  rg.dec = dec;
+  rg.span = static_cast<int>(span);
+  void* args[] = {&a, &rg};
+  return launch(fn, args, blocks, smem, partials, obs, nrep * sweeps,
                 (ny * half + THREADS - 1) / THREADS, st);
 }
 

@@ -1,6 +1,6 @@
 // The ring of the periodic XY multisweeps, shared by csrc/xy2d_resident.cu
-// (float32 components: its shared-memory and its device-memory mode) and
-// csrc/xy2d_multisweep.cu (int16 angles: its shared-memory mode): each
+// (float32 components) and csrc/xy2d_multisweep.cu (int16 angles), each
+// in its shared-memory and its device-memory mode: each
 // replica a ring of blocks, one block of 1024 threads an SM, block j
 // owning the 256-site chunks bounds[j] .. bounds[j+1] - 1 of both colours
 // (ops/xy2d_resident.ring_bounds); each phase reads the other colour's

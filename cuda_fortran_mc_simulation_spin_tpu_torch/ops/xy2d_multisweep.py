@@ -7,8 +7,8 @@ it launches a CUDA kernel, not a Pallas one).  Spins are 16-bit
 fixed-point angles θ = k·2π/2^16, one int16 (R, ny, nx/2) plane a colour:
 a q = 65536 clock model whose |S| = 1 holds exactly and whose global
 rotations are int16 adds.  ``csrc/xy2d_multisweep.cu``
-``smem_multisweep_kernel`` and ``multisweep_kernel``, two modes of one
-function, replace ``_kernel`` (pallas_call at ``:325``,
+``smem_multisweep_kernel`` and ``gmem_multisweep_kernel``, two modes of
+one function, replace ``_kernel`` (pallas_call at ``:325``,
 ``_multisweep``): S sweeps a launch, each a Metropolis phase a and b
 (the candidate the top 16 bits of a random word), with ``n_or`` > 0
 then n_or over-relaxation sweeps (θ' = 2 round(φ) − θ, φ the
@@ -18,18 +18,26 @@ and each sweep's (Σ S_x, Σ S_y, e, A) against the t=0 snapshot planes;
 only (JAX's microcanonical test mode).
 
 The TPU kernel keeps the planes in VMEM for the S sweeps.  Here, as in
-ops/xy2d_resident.py, two modes, chosen by the fit rule
+ops/xy2d_resident.py, two modes, each replica a ring of blocks with ring
+flags between phases (``csrc/xy2d_ring.cuh``), chosen by the fit rule
 :func:`smem_layout`:
 
 - ``smem_multisweep_kernel``, where the batch fits the grid's shared
   memory (one 1536x1536 replica on the H100, its snapshot too): the int16
-  planes held in the SMs' shared memory for the S sweeps, a ring of
-  blocks a replica and ring flags between phases (``csrc/xy2d_ring.cuh``),
-  each other-colour angle decoded once a phase into a shared float32
-  (cos, sin) plane;
-- ``multisweep_kernel``, past the fit: the planes in device memory (and,
-  at the route's sizes, in L2), a cooperative grid waiting at a grid
-  barrier between phases.
+  planes held in the SMs' shared memory for the S sweeps, each
+  other-colour angle decoded once a phase into a shared float32 (cos,
+  sin) plane;
+- ``gmem_multisweep_kernel``, past the fit (:func:`gmem_layout`; e.g.
+  1536x1536 x 2 and x 3 on rings of 66 and 44 blocks): the planes in
+  device memory (and, at the route's sizes, in L2), updated in place, a
+  block holding the chunks no neighbour reads in shared memory as int16
+  and, where room is left, decoding the other colour there once a phase;
+  where one ring a replica does not fit (1536x1536 x 23 and more, 64x64
+  x 1600) the rings take whole replicas in turn.
+  ``multisweep_planes(..., grid=True)`` forces it.
+
+Both fold the measure pass after the over-relaxation sweeps into the
+last over-relaxation phase b (colour a does not change in it).
 
 JAX runs it only when asked (``SPINLAT_XY_ANGLE_MS=1``), and so does the
 port (engine/sweep.py); :func:`fits` is JAX's ``fits_vmem``, the route's
@@ -53,7 +61,8 @@ even, as ``torch.round``), so each mode equals :func:`multisweep_plain`
 bitwise in the state and to float64 rounding in the sums.
 
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises.  ``LAUNCHES`` counts launches.
+launches the kernel or raises.  ``LAUNCHES`` counts launches, the
+device-memory mode under ``"multisweep"``.
 """
 
 from __future__ import annotations
@@ -74,7 +83,6 @@ from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
     xy2d_resident,
 )
 from cuda_fortran_mc_simulation_spin_tpu_torch.ops.ising2d_multispin import (
-    _i32,
     _on_cpu,
     _stream,
 )
@@ -136,7 +144,8 @@ def smem_layout(nrep: int, ny: int, half: int, sms: int,
     ``smem_bytes`` shared memory each (the ring of
     ``xy2d_resident.ring_bounds``), with the snapshot held in shared memory
     where it fits and in device memory where only the state does; None
-    where the state does not fit (then ``multisweep_kernel`` runs it)."""
+    where the state does not fit (then ``gmem_multisweep_kernel`` runs
+    it, :func:`gmem_layout`)."""
     ring = xy2d_resident.ring_bounds(nrep, ny, half, sms)
     if ring is None:
         return None
@@ -146,6 +155,123 @@ def smem_layout(nrep: int, ny: int, half: int, sms: int,
         if need <= smem_bytes:
             return SmemLayout(nb, bounds, cap, need, snap)
     return None
+
+
+class GmemLayout(NamedTuple):
+    """The rings of ``gmem_multisweep_kernel``: ``rings`` rings of
+    ``blocks`` blocks at once, ring t taking replicas t, t + rings, ... in
+    turn; block j of a ring owning chunks ``bounds[j]`` .. ``bounds[j + 1]
+    - 1`` of 256 sites, at most ``cap`` sites, of which it holds at most
+    ``hold`` chunks in shared memory as int16 and decodes at most ``dec``
+    of those (and ``half`` sites either side) once a phase, in
+    ``smem_bytes`` of shared memory a block."""
+    blocks: int
+    bounds: tuple[int, ...]
+    cap: int
+    rings: int
+    hold: int
+    dec: int
+    smem_bytes: int
+
+
+# shared memory a held chunk takes (csrc/xy2d_multisweep.cu HELD_BYTES):
+# its 256 int16 sites of both colours
+HELD_BYTES = 2 * xy2d_resident.CHUNK * 2
+
+
+def _room(bounds, n: int, half: int) -> int:
+    """The most chunks a block of a ring of more than one can hold: those
+    between its edge chunks (``csrc/xy2d_ring.cuh`` ``ring::Walk``: the
+    chunks holding its first and last ``half`` sites)."""
+    chunk = xy2d_resident.CHUNK
+    most = 0
+    for a, b in zip(bounds, bounds[1:]):
+        nch, m = b - a, min((b - a) * chunk, n - a * chunk)
+        head = min(-(-half // chunk), nch)
+        tail = min(nch - (m - half) // chunk, nch - head)
+        most = max(most, nch - head - tail)
+    return most
+
+
+def gmem_need(cap: int, half: int, hold: int, dec: int) -> int:
+    """Shared memory a block of ``gmem_multisweep_kernel`` takes: 264 B a
+    chunk of ``cap``; the held chunks' int16 sites of both colours, 1 KB a
+    chunk; with ``dec`` > 0 the decoded plane, a float2 a site of ``dec``
+    chunks and of ``half`` sites either side."""
+    decoded = 8 * (dec * xy2d_resident.CHUNK + 2 * half) if dec else 0
+    return (cap // xy2d_resident.CHUNK * xy2d_resident.CHUNK_BYTES
+            + hold * HELD_BYTES + decoded)
+
+
+def _gmem_rings(rings: int, ny: int, half: int, slots: int,
+                smem_bytes: int) -> GmemLayout | None:
+    """:func:`gmem_layout`'s layout of ``rings`` rings at once, or None
+    where a block's sums (264 B a chunk) pass ``smem_bytes``."""
+    nb, bounds, cap = xy2d_resident.ring_bounds(rings, ny, half, slots)
+    need = gmem_need(cap, half, 0, 0)
+    if need > smem_bytes:
+        return None
+    room = cap // xy2d_resident.CHUNK if nb == 1 else _room(
+        bounds, ny * half, half)
+    hold = min(room, (smem_bytes - need) // HELD_BYTES)
+    left = smem_bytes - need - hold * HELD_BYTES
+    dec = min(hold, max(left // 8 - 2 * half, 0) // xy2d_resident.CHUNK)
+    return GmemLayout(nb, bounds, cap, rings, hold, dec,
+                      gmem_need(cap, half, hold, dec))
+
+
+def _decodes_all(lay: GmemLayout | None, ny: int, half: int) -> bool:
+    """Every block of ``lay`` holds and decodes all the chunks no neighbour
+    reads (all of a ring of one's)."""
+    if lay is None:
+        return False
+    room = lay.cap // xy2d_resident.CHUNK if lay.blocks == 1 else _room(
+        lay.bounds, ny * half, half)
+    return lay.dec == lay.hold == room
+
+
+def _most(test, hi: int) -> int:
+    """The most r in 1 .. hi for which ``test(r)`` holds, or 0, by
+    bisection: ``test`` holds below any r where it holds (fewer rings,
+    more blocks a ring, fewer chunks a block)."""
+    lo = 0
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if test(mid) else (lo, mid - 1)
+    return lo
+
+
+def gmem_layout(nrep: int, ny: int, half: int, slots: int,
+                smem_bytes: int) -> GmemLayout | None:
+    """The rule of the device-memory mode for ``nrep`` replicas of (ny,
+    half) sites a colour on ``slots`` block slots of at most
+    ``smem_bytes`` shared memory each: ``xy2d_resident.ring_bounds``'
+    rings of ``slots // rings`` blocks at most, ``rings`` at once, each
+    taking replicas in turn.  Beside its sums (264 B a chunk) a block
+    holds as many of the chunks no neighbour reads (all of a ring of
+    one's) as fit, then decodes as many of them as the rest takes.
+
+    One ring a replica where the sums of that many fit (one turn: 1536^2
+    x 2 and x 3).  Past that (1536^2 x 23 and more, more replicas than
+    block slots) the replicas take turns on as many rings as still hold
+    and decode every chunk no neighbour reads (at 1536^2 two rings of 66
+    blocks: a ring that decodes none runs a replica ~1.6 times slower,
+    PERF.md §6 row 49b), or where none do on as many as fit their sums;
+    then on as few as take the replicas in as many turns.  None only
+    where one ring of the most blocks still passes ``smem_bytes`` with
+    its sums, which no lattice of JAX's bounds (``fits``, ny a multiple
+    of 16) does on an H100."""
+    def lay(r):
+        return _gmem_rings(r, ny, half, slots, smem_bytes)
+
+    # a ring's blocks own no more chunks as rings are fewer
+    fit = _most(lambda r: lay(r) is not None, min(nrep, slots))
+    if fit == 0:
+        return None
+    if fit < nrep:
+        fit = _most(lambda r: _decodes_all(lay(r), ny, half), fit) or fit
+    turns = -(-nrep // fit)
+    return lay(-(-nrep // turns))
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +412,7 @@ def _measure(pa, pb, sa, sb) -> torch.Tensor:
 
 def multisweep_plain(pa, pb, sa, sb, rand, *, beta: float, n_or: int = 0,
                      or_only: bool = False) -> torch.Tensor:
-    """Plain version of ``multisweep_kernel``: S sweeps of the int16
+    """Plain version of both modes: S sweeps of the int16
     planes (pa, pb) in place, snapshot planes (sa, sb); ``rand`` is the
     (S, 2, 2) per-(sweep, phase) Philox keys or S injected pairs
     ((cand_a, u_a), (cand_b, u_b)), the candidates int in [0, 65535].
@@ -322,54 +448,59 @@ _INT = ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("xy2d_multisweep")
-    if lib.xyi_multisweep.argtypes is not None:
+    return bind(_build.load("xy2d_multisweep"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/xy2d_multisweep.cu``) with its C
+    functions' argument types set."""
+    if lib.xyi_multisweep_gmem.argtypes is not None:
         return lib
-    lib.xyi_multisweep.argtypes = ([_VOID] * 7 + [_INT] * 6
-                                   + [ctypes.c_float, _VOID])
-    lib.xyi_multisweep.restype = _INT
+    lib.xyi_multisweep_gmem.argtypes = ([_VOID] * 9 + [_INT] * 12
+                                        + [ctypes.c_float, _VOID])
     lib.xyi_multisweep_smem.argtypes = ([_VOID] * 10 + [_INT] * 10
                                         + [ctypes.c_float, _VOID])
-    lib.xyi_multisweep_smem.restype = _INT
-    lib.xyi_smem_limits.argtypes = [ctypes.POINTER(_INT)] * 5
-    lib.xyi_smem_limits.restype = _INT
-    lib.xyi_grid.argtypes = [ctypes.POINTER(_INT)]
-    lib.xyi_grid.restype = _INT
+    for fn in (lib.xyi_multisweep_gmem, lib.xyi_multisweep_smem):
+        fn.restype = _INT
+    for fn in (lib.xyi_smem_limits, lib.xyi_gmem_limits):
+        fn.argtypes = [ctypes.POINTER(_INT)] * 5
+        fn.restype = _INT
     lib.xyi_error_string.argtypes = [_INT]
     lib.xyi_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _raise_on(code: int, lib, name: str = "multisweep_kernel") -> None:
+def _raise_on(code: int, lib, name: str = "gmem_multisweep_kernel") -> None:
     if code != 0:
         msg = lib.xyi_error_string(code).decode()
         raise RuntimeError(f"xy2d int16 {name}: CUDA error {code} ({msg})")
 
 
-def grid_blocks() -> int:
-    """Blocks of the cooperative grid on the current device."""
-    lib = _lib()
-    out = _INT(0)
-    _raise_on(lib.xyi_grid(ctypes.byref(out)), lib)
-    return out.value
-
-
 _LIMITS: dict[tuple, tuple[int, int]] = {}
+
+
+def _limits(dev: torch.device, mode: str) -> tuple[int, int]:
+    lib = _lib()
+    key = (id(lib), dev.index, mode)
+    if key not in _LIMITS:
+        name = f"{mode}_multisweep_kernel"
+        with torch.cuda.device(dev):
+            _LIMITS[key] = xy2d_resident.read_limits(
+                getattr(lib, f"xyi_{mode}_limits"),
+                lambda code: _raise_on(code, lib, name), name)
+    return _LIMITS[key]
 
 
 def smem_limits(dev: torch.device) -> tuple[int, int]:
     """(block slots, shared memory a block) of ``smem_multisweep_kernel``
     on CUDA device ``dev`` (one block of 1024 threads an SM on the
     H100)."""
-    lib = _lib()
-    key = (id(lib), dev.index)
-    if key not in _LIMITS:
-        with torch.cuda.device(dev):
-            _LIMITS[key] = xy2d_resident.read_limits(
-                lib.xyi_smem_limits,
-                lambda code: _raise_on(code, lib, "smem_multisweep_kernel"),
-                "smem_multisweep_kernel")
-    return _LIMITS[key]
+    return _limits(dev, "smem")
+
+
+def gmem_limits(dev: torch.device) -> tuple[int, int]:
+    """The same of ``gmem_multisweep_kernel``, for :func:`gmem_layout`."""
+    return _limits(dev, "gmem")
 
 
 def device_layout(pa: torch.Tensor) -> SmemLayout | None:
@@ -378,19 +509,33 @@ def device_layout(pa: torch.Tensor) -> SmemLayout | None:
     return smem_layout(*pa.shape, *smem_limits(pa.device))
 
 
-# (library, device, planes' shape) -> the layout and its bounds on the
-# device, worked out once a shape (a copy to the card from pageable host
-# memory would wait for the card's queue)
-_RINGS: dict[tuple, tuple[SmemLayout | None, torch.Tensor | None]] = {}
+def device_gmem_layout(pa: torch.Tensor) -> GmemLayout | None:
+    """:func:`gmem_layout` of the (R, ny, half) planes ``pa``'s shape on
+    their CUDA device."""
+    return gmem_layout(*pa.shape, *gmem_limits(pa.device))
 
 
-def _ring(pa: torch.Tensor):
-    key = (id(_lib()), pa.device, tuple(pa.shape))
+# (library, device, planes' shape, grid) -> the launch's mode ("multisweep"
+# for the device-memory one, LAUNCHES' key), its layout and its bounds on
+# the device: worked out once a shape, since a copy to the card from
+# pageable host memory waits for the card's queue
+_RINGS: dict[tuple, tuple[str, NamedTuple, torch.Tensor]] = {}
+
+
+def _ring(pa: torch.Tensor, grid: bool) -> tuple[str, NamedTuple,
+                                                  torch.Tensor]:
+    key = (id(_lib()), pa.device, tuple(pa.shape), grid)
     if key not in _RINGS:
-        layout = device_layout(pa)
-        bounds = None if layout is None else torch.tensor(
-            layout.bounds, dtype=torch.int32, device=pa.device)
-        _RINGS[key] = (layout, bounds)
+        mode, layout = "multisweep_smem", None if grid else device_layout(pa)
+        if layout is None:
+            mode, layout = "multisweep", device_gmem_layout(pa)
+        if layout is None:
+            raise RuntimeError(
+                "xy2d int16 gmem_multisweep_kernel: no layout for planes of "
+                f"shape {tuple(pa.shape)} (a block's sums pass its shared "
+                "memory)")
+        _RINGS[key] = (mode, layout, torch.tensor(
+            layout.bounds, dtype=torch.int32, device=pa.device))
     return _RINGS[key]
 
 
@@ -414,10 +559,11 @@ def multisweep_planes(pa, pb, sa, sb, seeds, *, beta: float, n_or: int = 0,
     """S = len(seeds) sweeps of the int16 planes in place under the
     (S, 2, 2) per-(sweep, phase) keys: on CUDA tensors one launch,
     ``smem_multisweep_kernel`` where :func:`smem_layout` fits the batch on
-    the card, else ``multisweep_kernel`` (``grid`` forces the latter); on
-    CPU tensors :func:`multisweep_plain`.  Returns the (R, S, 4) float64
-    per-sweep (Σ S_x, Σ S_y, e, A).  The kernels refuse a batch whose site
-    index could reach 2^31."""
+    the card, else ``gmem_multisweep_kernel`` on :func:`gmem_layout`
+    (``grid`` forces the latter); on CPU tensors :func:`multisweep_plain`.
+    Returns the (R, S, 4) float64 per-sweep (Σ S_x, Σ S_y, e, A).  The
+    kernels refuse a batch whose site index could reach 2^31; raises where
+    neither mode has a layout."""
     if _on_cpu(pa):
         return multisweep_plain(pa, pb, sa, sb, seeds, beta=beta, n_or=n_or,
                                 or_only=or_only)
@@ -425,36 +571,41 @@ def multisweep_planes(pa, pb, sa, sb, seeds, *, beta: float, n_or: int = 0,
     nrep, ny, half = pa.shape
     sweeps = int(seeds.shape[0])
     dev = pa.device
-    seeds_dev = _i32(torch.as_tensor(seeds)).contiguous().to(dev)
+    mode, layout, bounds = _ring(pa, grid)
+    # from pinned memory, so the host need not wait for the card's queue
+    seeds_dev = multispin_rng.keys_to(seeds, dev)
     nblk = -(-ny * half // THREADS)
     partials = torch.empty((nrep * sweeps, nblk, 4), dtype=torch.float64,
                            device=dev)
     obs = torch.empty((nrep, sweeps, 4), dtype=torch.float64, device=dev)
-    layout, bounds = (None, None) if grid else _ring(pa)
     lib = _lib()
     args = (pa.data_ptr(), pb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-            seeds_dev.data_ptr(), partials.data_ptr(), obs.data_ptr())
+            seeds_dev.data_ptr(), partials.data_ptr(), obs.data_ptr(),
+            bounds.data_ptr())
     with torch.cuda.device(dev):
-        if layout is None:
-            code = lib.xyi_multisweep(
-                *args, nrep, ny, half, sweeps, n_or, int(or_only),
-                -float(beta), _stream(pa))
+        if mode == "multisweep":
+            flags = torch.empty((layout.rings * layout.blocks,),
+                                dtype=torch.int32, device=dev)
+            code = lib.xyi_multisweep_gmem(
+                *args, flags.data_ptr(), nrep, ny, half, sweeps, n_or,
+                int(or_only), layout.blocks, layout.rings, layout.cap,
+                layout.hold, layout.dec, layout.smem_bytes, -float(beta),
+                _stream(pa))
         else:
             blocks = nrep * layout.blocks
             edges = torch.empty((blocks, 2, 2 * half), dtype=torch.int16,
                                 device=dev)
             flags = torch.empty((blocks,), dtype=torch.int32, device=dev)
             code = lib.xyi_multisweep_smem(
-                *args, bounds.data_ptr(), edges.data_ptr(),
-                flags.data_ptr(), nrep, ny, half, sweeps, n_or, int(or_only),
-                layout.blocks, layout.cap, layout.smem_bytes,
-                int(layout.snap), -float(beta), _stream(pa))
-    if layout is None:
+                *args, edges.data_ptr(), flags.data_ptr(), nrep, ny, half,
+                sweeps, n_or, int(or_only), layout.blocks, layout.cap,
+                layout.smem_bytes, int(layout.snap), -float(beta),
+                _stream(pa))
+    if mode == "multisweep":
         _raise_on(code, lib)
-        LAUNCHES["multisweep"] += 1
     else:
         _raise_on(code, lib, "smem_multisweep_kernel")
-        LAUNCHES["multisweep_smem"] += 1
+    LAUNCHES[mode] += 1
     return obs
 
 

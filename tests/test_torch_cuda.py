@@ -1806,16 +1806,25 @@ def test_xy_angle_or_tile_ragged(cuda, ny, nx, nrep):
     ((2, 32, 24), 2, True), ((1, 1536, 768), 0, False),
     ((1, 1536, 768), 1, False), ((1, 1536, 768), 1, True),
     ((3, 64, 750), 1, False), ((1, 2048, 1024), 0, False),
-    ((2, 1536, 768), 0, False), ((5, 6, 250), 0, False)])
+    ((2, 1536, 768), 0, False), ((5, 6, 250), 0, False),
+    ((2, 1536, 768), 1, False), ((2, 1536, 768), 2, True),
+    ((3, 1536, 768), 0, False), ((32, 1536, 768), 0, False),
+    ((133, 32, 16), 1, False)])
 def test_xy_int16_multisweep_matches_plain(cuda, shape, n_or, or_only, grid):
     """Both modes of the int16 multisweep against its plain version on the
     same CUDA tensors, S = 3 sweeps: the int16 state bitwise, the sums to
     float64 rounding.  The shared-memory mode where the fit rule takes the
     batch (small and ragged shapes, the main path's 1536x1536 x 1, its
     snapshot in shared memory; 2048x2048 x 1, its snapshot in device
-    memory; 5 x 6x500, blocks of a few rows), the grid-barrier mode past it
-    (1536x1536 x 2) and wherever ``grid`` forces it; the launch is counted
-    under the mode the rule picked."""
+    memory; 5 x 6x500, blocks of a few rows), the device-memory mode past
+    it and wherever ``grid`` forces it: 1536x1536 x 2 on rings of 66
+    blocks holding and decoding all 64 chunks between their edge chunks
+    (Metropolis only, with an OR sweep and OR only, the measure folded
+    into the last OR phase b), x 3 on rings of 44 decoding part of their
+    99 held chunks, x 32 (whose sums would not fit one ring a replica) in
+    16 turns on 2 rings of 66 blocks, and 133 x 32x32 on 67 rings of one
+    block, 66 taking two replicas in turn; the launch is counted under
+    the mode the rule picked."""
     from cuda_fortran_mc_simulation_spin_tpu_torch.ops import (
         xy2d_multisweep as xi,
     )
@@ -1827,7 +1836,21 @@ def test_xy_int16_multisweep_matches_plain(cuda, shape, n_or, or_only, grid):
     ka, kb = planes[0].clone(), planes[1].clone()
     pa, pb = planes[0].clone(), planes[1].clone()
     smem = not grid and xi.device_layout(planes[0]) is not None
-    assert smem == (not grid and shape != (2, 1536, 768))
+    past = shape in ((2, 1536, 768), (3, 1536, 768), (32, 1536, 768),
+                     (133, 32, 16))
+    assert smem == (not grid and not past)
+    if not smem:
+        lay = xi.device_gmem_layout(planes[0])
+        # blocks a ring, rings, held chunks, all of them decoded (x 3:
+        # some, as many as the card's shared memory takes)
+        want = {(2, 1536, 768): (66, 2, 64, True),
+                (3, 1536, 768): (44, 3, 99, False),
+                (32, 1536, 768): (66, 2, 64, True),
+                (133, 32, 16): (1, 67, 2, True)}
+        if shape in want:
+            assert (lay.blocks, lay.rings, lay.hold,
+                    lay.dec == lay.hold) == want[shape]
+            assert lay.dec > 0
     xi.reset_launches()
     got = xi.multisweep_planes(ka, kb, *planes[2:], seeds, beta=1 / KBT_XY,
                                n_or=n_or, or_only=or_only, grid=grid)

@@ -13,8 +13,9 @@ holds it bitwise against ``multisweep_plain`` there).  Held here:
   side slot from its chunk's first site and the thread's offset): every
   site of a replica once a phase, each reading its four neighbours' true
   slots in the decoded plane, its halos the ring neighbours' edge sites;
-- the wrapper's choice between the two modes, against a recording
-  stand-in for the built library."""
+- the wrapper's choice between the two modes (the device-memory mode,
+  ``gmem_multisweep_kernel``, on its layout past the fit or where forced),
+  against a recording stand-in for the built library."""
 
 from contextlib import nullcontext
 
@@ -83,8 +84,8 @@ def test_state_without_its_snapshot():
 @pytest.mark.parametrize("nrep,n", [(2, 1536), (3, 1536), (1, 4096),
                                     (133, 32)])
 def test_past_the_fit_is_none(nrep, n):
-    """1536x1536 x 2 and x 3 (the int16 route admits them: the grid-
-    barrier mode's batches), 4096x4096 x 1 and more replicas than
+    """1536x1536 x 2 and x 3 (the int16 route admits them: the
+    device-memory mode's batches), 4096x4096 x 1 and more replicas than
     blocks."""
     assert xi.smem_layout(nrep, n, n // 2, SMS, SMEM) is None
 
@@ -206,22 +207,26 @@ class _FakeLib:
 @pytest.mark.parametrize("n,nrep,grid,n_or,want", [
     (1536, 1, False, 0, "xyi_multisweep_smem"),
     (1536, 1, False, 1, "xyi_multisweep_smem"),
-    (1536, 2, False, 0, "xyi_multisweep"),
-    (1536, 1, True, 0, "xyi_multisweep"),
+    (1536, 2, False, 0, "xyi_multisweep_gmem"),
+    (1536, 1, True, 0, "xyi_multisweep_gmem"),
     (32, 3, False, 2, "xyi_multisweep_smem")])
 def test_launch_mode_follows_the_fit_rule(n, nrep, grid, n_or, want,
                                           monkeypatch):
     """multisweep_planes launches the shared-memory mode where the layout
-    fits and the grid-barrier mode past it, or where ``grid`` forces it;
+    fits and the device-memory mode past it, or where ``grid`` forces it;
     the shared-memory launch takes the layout's ring, cap, bytes and
-    snapshot flag, and the launch is counted under its mode.  The launch
-    is recorded, not run (no card here)."""
+    snapshot flag, the device-memory launch its gmem_layout (blocks a
+    ring, rings, cap, held and decoded chunks, bytes), and the launch is
+    counted under its mode.  The launch is recorded, not run (no card
+    here)."""
     lib = _FakeLib()
     monkeypatch.setattr(xi, "_on_cpu", lambda t: False)
     monkeypatch.setattr(xi, "_check", lambda planes: None)
     monkeypatch.setattr(xi, "_stream", lambda t: None)
+    monkeypatch.setattr(xi.multispin_rng, "keys_to", lambda seeds, dev: seeds)
     monkeypatch.setattr(xi, "_lib", lambda: lib)
     monkeypatch.setattr(xi, "smem_limits", lambda dev: (SMS, SMEM))
+    monkeypatch.setattr(xi, "gmem_limits", lambda dev: (SMS, SMEM))
     monkeypatch.setattr(xi, "_RINGS", {})
     monkeypatch.setattr(torch.cuda, "device", lambda d: nullcontext())
     planes = [torch.zeros((nrep, n, n // 2), dtype=torch.int16)
@@ -240,5 +245,8 @@ def test_launch_mode_follows_the_fit_rule(n, nrep, grid, n_or, want,
                                int(layout.snap))
         assert xi.LAUNCHES == {"multisweep": 0, "multisweep_smem": 1}
     else:
-        assert args[7:13] == (nrep, n, n // 2, 3, n_or, 0)
+        layout = xi.gmem_layout(nrep, n, n // 2, SMS, SMEM)
+        assert args[9:21] == (nrep, n, n // 2, 3, n_or, 0, layout.blocks,
+                              layout.rings, layout.cap, layout.hold,
+                              layout.dec, layout.smem_bytes)
         assert xi.LAUNCHES == {"multisweep": 1, "multisweep_smem": 0}
